@@ -1,0 +1,253 @@
+"""Chambolle-Pock primal-dual TV denoising — the reference's user-loop recipe
+(``README.md:139-158``, Chambolle & Pock 2011 doi:10.1007/s10851-010-0251-1)
+as an eager PyTorch loop on the tensor's own device.
+
+Minimizes ``F(x) + reg * TV(x)`` with ``F`` the data term of
+``solvers.fidelity`` (``1/2 ||x - x0||^2`` by default).  The dual TV prox
+uses ``keepdim=True`` so it is correct for all of 2D/3D/4D (SURVEY.md
+section 2.4.6).  The port of ``pytv4d_tpu/solvers/cp.py`` (the preconditioned
+solver is not ported yet).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core.config import TVConfig
+from ..core.schemes import num_channels, operator_norm_bound_sq
+from ..ops.operators import D, D_T, _safe_sqrt, tv_norm
+from .fidelity import fidelity_dual_prox, fidelity_loss, validate_fidelity
+from .progress import emit_progress
+
+
+class CPState(NamedTuple):
+    x: torch.Tensor                # primal iterate (Nz, M, N_row, N_col)
+    y_A: torch.Tensor              # dual of the fidelity term, shaped like x
+    y_D: Optional[torch.Tensor]    # TV dual (Nz, Nd, M, N_row, N_col)
+
+
+class CPResult(NamedTuple):
+    x: torch.Tensor
+    state: CPState
+    loss: torch.Tensor  # per-iteration loss history (n_iter,), on the device
+
+
+def default_tau(cfg: TVConfig, Nz: int, M: int, sigma_A: float = 1.0) -> float:
+    """Reference step rule ``tau = 1/(||D||^2 + sigma_A)`` — the README's
+    ``1/(8+1)`` with 8 = hybrid-scheme bound (``README.md:141-143``),
+    generalized per scheme/config via the stencil table."""
+    L2 = operator_norm_bound_sq(cfg.scheme, Nz, M, cfg.reg_z_over_reg, cfg.reg_time)
+    return 1.0 / (L2 + sigma_A)
+
+
+def _require_scalar_weight(fidelity_weight, what: str) -> float:
+    """The denoising solver takes a scalar data weight (the fused kernels
+    read it as a launch argument)."""
+    if (isinstance(fidelity_weight, (int, float))
+            or getattr(fidelity_weight, "ndim", None) == 0):
+        return float(fidelity_weight)
+    raise ValueError(
+        f"{what} takes a SCALAR fidelity_weight; per-measurement weight "
+        f"arrays belong to the inverse solvers, which are not ported yet"
+    )
+
+
+def dual_prox(p, reg, norm: str, sigma=1.0, huber_delta: float = 1.0):
+    """Prox of the TV term's convex conjugate: the per-pixel L2 reg-ball
+    projection for isotropic TV (``README.md:150-151``), the [-reg, reg] box
+    for anisotropic L1,1, and for Huber-TV a shrink by ``1 + sigma*delta/reg``
+    before the ball projection (Chambolle & Pock 2011 section 6.2)."""
+    if norm == "aniso":
+        return torch.clamp(p, -reg, reg)
+    if norm == "huber":
+        p = p / (1.0 + sigma * huber_delta / reg)
+    p_norms = _safe_sqrt(torch.sum(torch.square(p), dim=1, keepdim=True))
+    return p / torch.clamp_min(p_norms / reg, 1.0)
+
+
+def cp_step(state: CPState, x_noisy, *, reg, sigma_D, sigma_A, tau,
+            cfg: TVConfig, mask_static=None, weight_time=None, fidelity="l2",
+            fidelity_weight=1.0, nonneg=False):
+    """One CP iteration, exactly the reference recipe (``README.md:146-157``):
+
+    - fidelity dual:  y_A <- (y_A + sigma_A (x - x0)) / (1 + sigma_A)
+      (``'l1'`` / ``'kl'``: the matching conjugate prox)
+    - TV dual prox:   y_D <- p / max(1, |p|_2 / reg),  p = y_D + sigma_D D x
+    - primal:         x   <- x - tau y_A - tau D^T y_D  (then x >= 0 when
+      ``nonneg``)
+    - loss:           F(x_new) + reg * TV(D x_old)
+      (the reference reuses the pre-update ``D_x`` in the loss line)
+    """
+    kw = dict(mask_static=mask_static, weight_time=weight_time,
+              **cfg.kwargs())
+    x, y_A, y_D = state
+    y_A = fidelity_dual_prox(y_A, x, x_noisy, sigma_A, fidelity,
+                             fidelity_weight)
+    D_x = D(x, cfg.scheme, **kw)
+    p = y_D + sigma_D * D_x
+    y_D = dual_prox(p, reg, cfg.norm, sigma_D, cfg.huber_delta)
+    x = x - tau * y_A - tau * D_T(y_D, cfg.scheme, **kw)
+    if nonneg:
+        x = torch.clamp_min(x, 0.0)
+    loss = fidelity_loss(x, x_noisy, fidelity, fidelity_weight) + reg * tv_norm(
+        D_x, cfg.norm, huber_delta=cfg.huber_delta)
+    return CPState(x, y_A, y_D), loss
+
+
+def pd_gap(state: CPState, x_noisy, reg: float = 25.0,
+           cfg: TVConfig = TVConfig(), mask_static=None, weight_time=None):
+    """Duality gap of the TV denoising problem at ``(state.x, state.y_D)``,
+    a certified distance to optimality:
+
+        gap = P(x) - g(y) >= P(x) - P(x*) >= 0
+
+    with ``P(x) = 1/2 ||x - x0||^2 + reg ||Dx||`` and the dual
+    ``g(y) = <D^T y, x0> - 1/2 ||D^T y||^2 - F*(y)`` (for Huber-TV,
+    ``F*(y) = delta/(2 reg) ||y||^2``; 0 for iso/aniso).  ``y`` is projected
+    onto the dual ball first, so the bound holds for any input.  l2
+    fidelity only (the reference denoising model)."""
+    kw = dict(mask_static=mask_static, weight_time=weight_time,
+              **cfg.kwargs())
+    x, y_D = state.x, state.y_D
+    y = dual_prox(y_D, reg, cfg.norm, 0.0, cfg.huber_delta)
+    primal = 0.5 * torch.sum(torch.square(x - x_noisy)) + reg * tv_norm(
+        D(x, cfg.scheme, **kw), cfg.norm, huber_delta=cfg.huber_delta)
+    dty = D_T(y, cfg.scheme, **kw)
+    dual = torch.sum(dty * x_noisy) - 0.5 * torch.sum(torch.square(dty))
+    if cfg.norm == "huber":
+        dual = dual - cfg.huber_delta / (2.0 * reg) * torch.sum(torch.square(y))
+    return primal - dual
+
+
+def init_state(x_noisy, cfg: TVConfig, x_init=None) -> CPState:
+    """A cold start: ``x = x_noisy`` (copied) and zero duals."""
+    Nz, M = x_noisy.shape[0], x_noisy.shape[1]
+    Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg, cfg.reg_time)
+    x = (x_noisy if x_init is None else x_init).clone()
+    y_A = torch.zeros_like(x_noisy)
+    y_D = torch.zeros((Nz, Nd, M) + tuple(x_noisy.shape[2:]),
+                      dtype=x_noisy.dtype, device=x_noisy.device)
+    return CPState(x=x, y_A=y_A, y_D=y_D)
+
+
+def chambolle_pock(
+    x_noisy,
+    n_iter: int = 300,
+    reg: float = 25.0,
+    sigma_D: float = 0.5,
+    sigma_A: float = 1.0,
+    tau: float = None,
+    cfg: TVConfig = TVConfig(),
+    state: CPState = None,
+    mask_static=None,
+    weight_time=None,
+    fused: bool = None,
+    dual_dtype=None,
+    return_dual: bool = True,
+    progress_every: int = 0,
+    progress_fn=None,
+    fidelity: str = "l2",
+    fidelity_weight: float = 1.0,
+    nonneg: bool = False,
+) -> CPResult:
+    """Run ``n_iter`` Chambolle-Pock iterations on ``x_noisy``'s device.
+
+    Defaults are the reference recipe (``README.md:141-143``): sigma_D=0.5,
+    sigma_A=1.0, tau=1/(||D||^2 + sigma_A).  Pass ``state`` (a
+    :class:`CPState`, e.g. from a previous result or ``interop``) to resume.
+    The inputs are never modified.
+
+    ``fused=None`` takes the fused step (``kernels.fused``: the CUDA kernels
+    on a CUDA tensor, their plain versions on the CPU) when
+    ``kernels.dispatch.can_fuse`` allows it — float32 or bfloat16 storage,
+    plane-shaped ``mask_static`` / ``weight_time`` — and the plain
+    :func:`cp_step` otherwise (float64, full per-voxel fields).
+    ``fused=False`` forces the plain step.  ``dual_dtype='bfloat16'`` (fused
+    only) stores the TV dual in bf16.  ``return_dual=False`` drops y_D from
+    the result (``state.y_D`` is None).  ``progress_every=k`` calls
+    ``progress_fn(iteration, loss)`` on the host every k iterations (only
+    those iterations sync).  ``fidelity`` is ``'l2'``, ``'l1'`` or ``'kl'``
+    (``x_noisy >= 0``) with a scalar ``fidelity_weight``; ``nonneg=True``
+    projects onto x >= 0.
+
+    The loss history stays on the device: one tensor of length ``n_iter``.
+    """
+    from ..kernels.dispatch import as_dtype, can_fuse, t_plane_multiplier
+
+    fidelity_weight = _require_scalar_weight(fidelity_weight, "chambolle_pock")
+    validate_fidelity(fidelity, x_noisy, fidelity_weight)
+    shape = tuple(x_noisy.shape)
+    device = x_noisy.device
+    if tau is None:
+        tau = default_tau(cfg, shape[0], shape[1], sigma_A)
+    if fused is None:
+        fused = can_fuse(shape, cfg, mask_static=mask_static,
+                         dtype=x_noisy.dtype, weight_time=weight_time)
+    if dual_dtype is not None and not fused:
+        raise ValueError(
+            "dual_dtype requires the fused kernel path (fused=True), which "
+            "this problem instance does not support (see kernels.dispatch."
+            "can_fuse: float32/bfloat16 volumes, plane-shaped masks)"
+        )
+    dual_dtype = None if dual_dtype is None else as_dtype(dual_dtype)
+
+    if not fused:
+        st = init_state(x_noisy, cfg) if state is None else state
+        losses = torch.empty(n_iter, dtype=x_noisy.dtype, device=device)
+        for i in range(n_iter):
+            st, loss = cp_step(
+                st, x_noisy, reg=reg, sigma_D=sigma_D, sigma_A=sigma_A,
+                tau=tau, cfg=cfg, mask_static=mask_static,
+                weight_time=weight_time, fidelity=fidelity,
+                fidelity_weight=fidelity_weight, nonneg=nonneg,
+            )
+            losses[i] = loss
+            emit_progress(i, loss, progress_every, progress_fn)
+        if not return_dual:
+            st = st._replace(y_D=None)
+        return CPResult(x=st.x, state=st, loss=losses)
+
+    from ..kernels.fused import (
+        cp_step_fused_internal,
+        from_internal_layout,
+        to_internal_layout,
+    )
+
+    # y_D rides the loop in the kernels' channel-contiguous layout (one
+    # transpose in, one out); a fresh run allocates it directly in its
+    # storage dtype, so a bf16 dual never exists in f32
+    tmul = t_plane_multiplier(shape, cfg, mask_static, weight_time,
+                              dtype=x_noisy.dtype, device=device)
+    if tmul is not None:
+        tmul = tmul.float().contiguous()
+    x0 = x_noisy.contiguous()
+    if state is None:
+        Nd = num_channels(cfg.scheme, shape[0], shape[1], cfg.reg_z_over_reg,
+                          cfg.reg_time)
+        out_dual_dtype = x_noisy.dtype
+        y_D_int = torch.zeros((shape[0], shape[1], Nd) + shape[2:],
+                              dtype=dual_dtype or x_noisy.dtype, device=device)
+        x, y_A = x0.clone(), torch.zeros_like(x0)
+    else:
+        out_dual_dtype = state.y_D.dtype
+        y_D_int = to_internal_layout(state.y_D)
+        if dual_dtype is not None:
+            y_D_int = y_D_int.to(dual_dtype)
+        x = state.x.contiguous().clone()
+        y_A = state.y_A.contiguous().clone()
+
+    losses = torch.empty(n_iter, dtype=torch.float32, device=device)
+    for i in range(n_iter):
+        x, y_A, y_D_int, loss = cp_step_fused_internal(
+            x, y_A, y_D_int, x0, reg=reg, sigma_D=sigma_D, sigma_A=sigma_A,
+            tau=tau, cfg=cfg, tmul=tmul, fidelity=fidelity,
+            fid_weight=fidelity_weight, nonneg=nonneg,
+        )
+        losses[i] = loss
+        emit_progress(i, loss, progress_every, progress_fn)
+    y_D_out = (from_internal_layout(y_D_int).to(out_dual_dtype)
+               if return_dual else None)
+    final = CPState(x, y_A, y_D_out)
+    return CPResult(x=final.x, state=final, loss=losses)

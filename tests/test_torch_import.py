@@ -1,0 +1,76 @@
+"""The port imports without jax, and its copies of the stencil tables and
+the config equal the JAX package's."""
+
+import dataclasses
+import math
+import os
+import subprocess
+import sys
+
+import pytest
+
+import pytv4d_tpu.core.config as jcfg
+import pytv4d_tpu.core.schemes as jsch
+import pytv4d_tpu_torch.core.config as tcfg
+import pytv4d_tpu_torch.core.schemes as tsch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REG_VARIANTS = [(1.0, 0.0), (0.3, 0.7), (0.0, 0.5), (2.0, 1.0),
+                (float("nan"), 0.5)]
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, pytv4d_tpu_torch, pytv4d_tpu_torch.kernels.fused, "
+            "pytv4d_tpu_torch.interop; print(sorted(m for m in sys.modules "
+            "if m == 'jax' or m.startswith('jax.') or "
+            "m.startswith('pytv4d_tpu.') or m == 'pytv4d_tpu'))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _table(mod, scheme, Nz, M, rz, rt):
+    chans, norm = mod.scheme_channels(scheme, Nz, M, rz, rt)
+    return ([(c.axis, c.kind, c.weight, mod.channel_weight(c, rz, rt))
+             for c in chans], norm, mod.num_channels(scheme, Nz, M, rz, rt),
+            mod.operator_norm_bound_sq(scheme, Nz, M, rz, rt))
+
+
+@pytest.mark.parametrize("scheme", jsch.SCHEMES)
+def test_scheme_tables_equal(scheme):
+    assert tsch.SCHEMES == jsch.SCHEMES
+    for name in ("AXIS_Z", "AXIS_T", "AXIS_ROW", "AXIS_COL", "FWD", "BWD",
+                 "CTR"):
+        assert getattr(tsch, name) == getattr(jsch, name)
+    for Nz in (1, 2, 3):
+        for M in (1, 2, 3):
+            for rz, rt in REG_VARIANTS:
+                assert _table(tsch, scheme, Nz, M, rz, rt) == \
+                    _table(jsch, scheme, Nz, M, rz, rt), (Nz, M, rz, rt)
+
+
+def test_unknown_scheme_message_equal():
+    with pytest.raises(ValueError) as a:
+        tsch.scheme_channels("nope", 2, 2)
+    with pytest.raises(ValueError) as b:
+        jsch.scheme_channels("nope", 2, 2)
+    assert str(a.value) == str(b.value)
+
+
+def test_config_fields_and_validation_equal():
+    assert [f.name for f in dataclasses.fields(tcfg.TVConfig)] == \
+        [f.name for f in dataclasses.fields(jcfg.TVConfig)]
+    assert dataclasses.asdict(tcfg.TVConfig()) == \
+        dataclasses.asdict(jcfg.TVConfig())
+    kw = dict(scheme="central", reg_z_over_reg=0.3, reg_time=0.7,
+              factor_reg_static=0.2, norm="huber", huber_delta=0.4)
+    assert tcfg.TVConfig(**kw).kwargs() == jcfg.TVConfig(**kw).kwargs()
+    for bad in (dict(scheme="x"), dict(norm="l3"),
+                dict(norm="huber", huber_delta=0.0)):
+        with pytest.raises(ValueError) as a:
+            tcfg.TVConfig(**bad)
+        with pytest.raises(ValueError) as b:
+            jcfg.TVConfig(**bad)
+        assert str(a.value) == str(b.value)
+    assert math.isnan(tcfg.TVConfig(reg_z_over_reg=float("nan")).reg_z_over_reg)
