@@ -15,7 +15,7 @@
 // What bounds it: HBM bytes.  One step does ~10 flops per byte moved, far
 // below the card's ridge point, so the design keeps every intermediate (D x,
 // the prox argument, D^T y') in registers and touches each array once per
-// pass (utils/profiling.py cp_traffic_model, model="minimal").
+// pass (utils/profiling.py cp_traffic_model).
 //
 // Design: one thread per voxel, a 1-D block of 256 threads along a
 // (z, t) plane; blockIdx.y is the plane.  Each thread gates its own global

@@ -22,29 +22,19 @@ import torch
 H100_HBM_PEAK_GBPS = 3350.0
 
 
-def cp_traffic_model(shape, Nd: int, dtype=torch.float32, fused: bool = True,
-                     model: str = "minimal", dual_dtype=None,
-                     n_zt_neighbors: int = 4) -> int:
-    """Bytes moved per fused CP iteration (two-pass form).
-
-    ``model='minimal'`` counts each array once per pass (unique bytes — the
-    roofline denominator: pass A reads x, x0, y_A, y_D and writes y_A, y_D;
-    pass B reads x, x0, y_A, y_D and writes x).  ``model='actual'`` adds the
-    TPU kernels' redundant neighbor-block reads (pass A re-reads x per z/t
-    neighbor operand; pass B one dual channel per neighbor operand).
-    ``dual_dtype`` (a torch dtype) scales the y_D terms.  Loss partials are
-    not counted.
+def cp_traffic_model(shape, Nd: int, dtype=torch.float32,
+                     dual_dtype=None) -> int:
+    """Bytes moved per fused CP iteration (two-pass form), counting each
+    array once per pass (unique bytes — the roofline denominator): pass A
+    reads x, x0, y_A, y_D and writes y_A, y_D; pass B reads x, x0, y_A, y_D
+    and writes x.  ``dual_dtype`` (a torch dtype) scales the y_D terms.
+    Loss partials are not counted.
     """
     vox = int(np.prod(shape))
     bpe = dtype.itemsize
     dual_bpe = dual_dtype.itemsize if dual_dtype else bpe
-    if not fused:
-        return int((6 * 2 + 3 * Nd) * vox * bpe)  # unfused-path estimate
-    extra = n_zt_neighbors if model == "actual" else 0
-    # pass A: reads x (+extra neighbor fetches), x0, y_A, y_D; writes y_A, y_D
-    pass_a = (1 + extra + 2 + 1) * bpe + 2 * Nd * dual_bpe
-    # pass B: reads x, x0, y_A, y_D (+extra dual-channel fetches); writes x
-    pass_b = (3 + 1) * bpe + (Nd + extra) * dual_bpe
+    pass_a = 4 * bpe + 2 * Nd * dual_bpe
+    pass_b = 4 * bpe + Nd * dual_bpe
     return int((pass_a + pass_b) * vox)
 
 
