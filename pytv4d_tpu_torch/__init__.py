@@ -1,11 +1,14 @@
 """pytv4d_tpu_torch — the PyTorch/CUDA port of pytv4d_tpu.
 
-Total-variation denoising of 2D/3D/4D ``(Nz, M, N_row, N_col)`` volumes with
-the Chambolle-Pock solver, on any torch device: on an NVIDIA Hopper GPU the
-solver's step runs as two hand-written CUDA kernels (``kernels.fused``,
-sources in ``csrc/``, built with nvcc on first use); on the CPU it runs
-their plain PyTorch versions.  The JAX package ``pytv4d_tpu`` is the
-reference it is tested against; this package imports torch and never jax.
+Total variation of 2D/3D/4D ``(Nz, M, N_row, N_col)`` volumes — the value
+and subgradient (``ops.tv``, and the reference's ``tv_GPU`` /
+``tv_operators_GPU`` modules) — and TV denoising with the Chambolle-Pock and
+subgradient-descent solvers, on any torch device.  On an NVIDIA Hopper GPU
+the CP step and the TV subgradient each run as two hand-written CUDA kernels
+(``kernels.fused``, sources in ``csrc/``, built with nvcc on first use); on
+the CPU they run their plain PyTorch versions.  The JAX package
+``pytv4d_tpu`` is the reference it is tested against; this package imports
+torch and never jax.
 
     import torch
     from pytv4d_tpu_torch.models import TVDenoiser, add_noise
@@ -14,11 +17,31 @@ reference it is tested against; this package imports torch and never jax.
     noisy = torch.as_tensor(add_noise(cameraman(), 100, seed=0),
                             dtype=torch.float32, device="cuda")
     res = TVDenoiser(reg=25).cp(noisy, n_iter=300)
+    res = TVDenoiser(reg=25).gd(noisy, n_iter=300)
 """
 
-from . import core, interop, kernels, models, ops, solvers, utils
+from . import (
+    core,
+    interop,
+    kernels,
+    models,
+    ops,
+    solvers,
+    tv_GPU,
+    tv_operators_GPU,
+    utils,
+)
 from .core.config import TVConfig
 from .core.schemes import SCHEMES, num_channels, operator_norm_bound_sq
 from .models.denoise import TVDenoiser, add_noise, denoise_tv_chambolle
 from .ops.operators import D, D_T, compute_L21_norm
+from .ops.tv import (
+    make_tv,
+    tv_and_subgrad,
+    tv_central,
+    tv_downwind,
+    tv_hybrid,
+    tv_upwind,
+)
 from .solvers.cp import CPResult, CPState, chambolle_pock
+from .solvers.gd import GDResult, subgradient_descent

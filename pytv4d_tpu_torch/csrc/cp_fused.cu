@@ -18,9 +18,9 @@
 // pass (utils/profiling.py cp_traffic_model).
 //
 // Design: one thread per voxel, a 1-D block of 256 threads along a
-// (z, t) plane; blockIdx.y is the plane.  Each thread gates its own global
-// index against the one-sided zero-slot boundary (core/schemes.py), so there
-// are no tiles, seams or halos.  The TPU kernel's row tiling, seam thin
+// (z, t) plane; blockIdx.y is the plane (stencil.cuh).  Each thread gates its
+// own global index against the one-sided zero-slot boundary
+// (core/schemes.py), so there are no tiles, seams or halos.  The TPU kernel's row tiling, seam thin
 // blocks and split adjoint (dt_local) existed because VMEM could not hold the
 // dual; they are dropped: pass B computes the full D^T y_D' at its pixel from
 // y_D' at the pixel and its +-1 neighbours per channel (neighbour reads hit
@@ -33,76 +33,10 @@
 // plain PyTorch version (kernels/fused.py), which keeps the two within f32
 // round-off of each other and flips few bf16 roundings.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#define CP_BLOCK 256
-#define CP_MAX_CH 8
-
-enum { AX_Z = 0, AX_T = 1, AX_ROW = 2, AX_COL = 3 };
-enum { K_FWD = 0, K_BWD = 1, K_CTR = 2 };
-enum { N_ISO = 0, N_ANISO = 1, N_HUBER = 2 };
-enum { F_L2 = 0, F_L1 = 1, F_KL = 2 };
-
-// Mirrored field for field by kernels/fused.py::_CPParams (all 4-byte fields).
-struct CPParams {
-  int Nz, M, Nr, Nc, Nd;
-  int axis[CP_MAX_CH];   // AX_*
-  int kind[CP_MAX_CH];   // K_*
-  float w[CP_MAX_CH];    // channel weight x scheme normalisation
-  int norm;              // N_*
-  int fidelity;          // F_*
-  int nonneg;
-  int has_tmul;          // time channels x tmul[(r, c)]
-  float sigma_D, sigma_A, reg, tau, fid_weight, huber_delta;
-  float fid_den;         // l2: 1 + sigma_A / fid_weight
-  float kl_c;            // kl: 4 sigma_A fid_weight
-  float huber_den;       // huber: 1 + sigma_D huber_delta / reg
-  float fid_scale;       // l2: fid_weight / 2, else fid_weight
-};
-
-__device__ __forceinline__ float ld(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, int64_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-// Position, length and element stride of axis `a` at voxel (z, t, r, c);
-// `chan_stride` is Nd for the channel-contiguous dual, 1 for x.
-__device__ __forceinline__ void axis_geom(const CPParams& p, int a, int z,
-                                          int t, int r, int c,
-                                          int64_t chan_stride, int& pos,
-                                          int& len, int64_t& s) {
-  const int64_t plane = (int64_t)p.Nr * p.Nc;
-  switch (a) {
-    case AX_Z: pos = z; len = p.Nz; s = (int64_t)p.M * chan_stride * plane; break;
-    case AX_T: pos = t; len = p.M; s = chan_stride * plane; break;
-    case AX_ROW: pos = r; len = p.Nr; s = p.Nc; break;
-    default: pos = c; len = p.Nc; s = 1; break;
-  }
-}
-
-// Sum of `v` over the block, valid in thread 0; every thread must call it.
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_sums[CP_BLOCK / 32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[wid] = v;
-  __syncthreads();
-  v = 0.f;
-  if (wid == 0) {
-    v = lane < CP_BLOCK / 32 ? warp_sums[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  return v;
-}
+#include "stencil.cuh"
 
 // Fidelity conjugate prox, A = I (solvers/fidelity.py::fidelity_dual_prox).
-__device__ __forceinline__ float fid_dual(const CPParams& p, float ya, float x,
+__device__ __forceinline__ float fid_dual(const Params& p, float ya, float x,
                                           float x0) {
   if (p.fidelity == F_L1)
     return fminf(fmaxf(ya + p.sigma_A * (x - x0), -p.fid_weight), p.fid_weight);
@@ -115,7 +49,7 @@ __device__ __forceinline__ float fid_dual(const CPParams& p, float ya, float x,
 }
 
 // Per-voxel fidelity loss term without the weight (fidelity_loss).
-__device__ __forceinline__ float fid_term(const CPParams& p, float x, float x0) {
+__device__ __forceinline__ float fid_term(const Params& p, float x, float x0) {
   const float diff = x - x0;
   if (p.fidelity == F_L1) return fabsf(diff);
   if (p.fidelity == F_KL) {
@@ -129,14 +63,14 @@ __device__ __forceinline__ float fid_term(const CPParams& p, float x, float x0) 
 // Pass A: y_A' = fid prox, y_D' = TV dual prox of y_D + sigma_D D x, and one
 // TV partial of D x per block.
 template <typename TX, typename TD>
-__global__ void __launch_bounds__(CP_BLOCK)
-cp_dual_kernel(const CPParams p, const TX* __restrict__ x,
+__global__ void __launch_bounds__(BLOCK)
+cp_dual_kernel(const Params p, const TX* __restrict__ x,
                const TX* __restrict__ x0, TX* __restrict__ yA,
                TD* __restrict__ yD, const float* __restrict__ tmul,
                float* __restrict__ parts) {
   const int64_t plane = (int64_t)p.Nr * p.Nc;
   const int zt = blockIdx.y;
-  const int64_t pix = (int64_t)blockIdx.x * CP_BLOCK + threadIdx.x;
+  const int64_t pix = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
   float part = 0.f;
   if (pix < plane) {
     const int z = zt / p.M, t = zt - z * p.M;
@@ -146,30 +80,13 @@ cp_dual_kernel(const CPParams p, const TX* __restrict__ x,
     st(yA, xi, fid_dual(p, ld(yA, xi), xc, ld(x0, xi)));
     const float tm = p.has_tmul ? tmul[pix] : 1.f;
 
-    float d[CP_MAX_CH];
-#pragma unroll
-    for (int i = 0; i < CP_MAX_CH; ++i) {
-      d[i] = 0.f;
-      if (i < p.Nd) {
-        int pos, len;
-        int64_t s;
-        axis_geom(p, p.axis[i], z, t, r, c, 1, pos, len, s);
-        float v;
-        if (p.kind[i] == K_FWD)
-          v = pos < len - 1 ? ld(x, xi + s) - xc : 0.f;
-        else if (p.kind[i] == K_BWD)
-          v = pos > 0 ? xc - ld(x, xi - s) : 0.f;
-        else
-          v = (pos > 0 && pos < len - 1) ? ld(x, xi + s) - ld(x, xi - s) : 0.f;
-        if (p.axis[i] == AX_T) v = v * tm;
-        d[i] = v * p.w[i];
-      }
-    }
+    float d[MAX_CH];
+    weighted_d(p, x, xi, xc, z, t, r, c, tm, d);
 
     const int64_t yb = (int64_t)zt * p.Nd * plane + pix;
     if (p.norm == N_ANISO) {
 #pragma unroll
-      for (int i = 0; i < CP_MAX_CH; ++i) {
+      for (int i = 0; i < MAX_CH; ++i) {
         if (i < p.Nd) {
           part += fabsf(d[i]);
           const float pv = ld(yD, yb + i * plane) + p.sigma_D * d[i];
@@ -179,7 +96,7 @@ cp_dual_kernel(const CPParams p, const TX* __restrict__ x,
     } else {
       float nsq = 0.f;
 #pragma unroll
-      for (int i = 0; i < CP_MAX_CH; ++i)
+      for (int i = 0; i < MAX_CH; ++i)
         if (i < p.Nd) nsq += d[i] * d[i];
       const float n = sqrtf(nsq);
       if (p.norm == N_HUBER)
@@ -187,10 +104,10 @@ cp_dual_kernel(const CPParams p, const TX* __restrict__ x,
                                   : n - p.huber_delta / 2.f;
       else
         part = n;
-      float pv[CP_MAX_CH];
+      float pv[MAX_CH];
       float psq = 0.f;
 #pragma unroll
-      for (int i = 0; i < CP_MAX_CH; ++i) {
+      for (int i = 0; i < MAX_CH; ++i) {
         pv[i] = 0.f;
         if (i < p.Nd) {
           pv[i] = ld(yD, yb + i * plane) + p.sigma_D * d[i];
@@ -200,7 +117,7 @@ cp_dual_kernel(const CPParams p, const TX* __restrict__ x,
       }
       const float den = fmaxf(sqrtf(psq) / p.reg, 1.f);
 #pragma unroll
-      for (int i = 0; i < CP_MAX_CH; ++i)
+      for (int i = 0; i < MAX_CH; ++i)
         if (i < p.Nd) st(yD, yb + i * plane, pv[i] / den);
     }
   }
@@ -211,14 +128,14 @@ cp_dual_kernel(const CPParams p, const TX* __restrict__ x,
 // Pass B: x' = x - tau y_A' - tau D^T y_D' (then max(x', 0) when nonneg), and
 // one fidelity partial of x' per block.
 template <typename TX, typename TD>
-__global__ void __launch_bounds__(CP_BLOCK)
-cp_primal_kernel(const CPParams p, TX* __restrict__ x,
+__global__ void __launch_bounds__(BLOCK)
+cp_primal_kernel(const Params p, TX* __restrict__ x,
                  const TX* __restrict__ x0, const TX* __restrict__ yA,
                  const TD* __restrict__ yD, const float* __restrict__ tmul,
                  float* __restrict__ parts) {
   const int64_t plane = (int64_t)p.Nr * p.Nc;
   const int zt = blockIdx.y;
-  const int64_t pix = (int64_t)blockIdx.x * CP_BLOCK + threadIdx.x;
+  const int64_t pix = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
   float part = 0.f;
   if (pix < plane) {
     const int z = zt / p.M, t = zt - z * p.M;
@@ -230,7 +147,7 @@ cp_primal_kernel(const CPParams p, TX* __restrict__ x,
     // (ops/operators.py::dt_channel): only valid stencil slots are read
     float corr = 0.f;
 #pragma unroll
-    for (int i = 0; i < CP_MAX_CH; ++i) {
+    for (int i = 0; i < MAX_CH; ++i) {
       if (i < p.Nd) {
         int pos, len;
         int64_t s;
@@ -264,26 +181,20 @@ cp_primal_kernel(const CPParams p, TX* __restrict__ x,
 }
 
 template <typename TX, typename TD>
-static int launch_dual(const CPParams* p, const void* x, const void* x0,
+static int launch_dual(const Params* p, const void* x, const void* x0,
                        void* yA, void* yD, const void* tmul, void* parts,
                        cudaStream_t stream) {
-  const int64_t plane = (int64_t)p->Nr * p->Nc;
-  const dim3 grid((unsigned)((plane + CP_BLOCK - 1) / CP_BLOCK),
-                  (unsigned)(p->Nz * p->M));
-  cp_dual_kernel<TX, TD><<<grid, CP_BLOCK, 0, stream>>>(
+  cp_dual_kernel<TX, TD><<<plane_grid(p), BLOCK, 0, stream>>>(
       *p, (const TX*)x, (const TX*)x0, (TX*)yA, (TD*)yD, (const float*)tmul,
       (float*)parts);
   return (int)cudaGetLastError();
 }
 
 template <typename TX, typename TD>
-static int launch_primal(const CPParams* p, void* x, const void* x0,
+static int launch_primal(const Params* p, void* x, const void* x0,
                          const void* yA, const void* yD, const void* tmul,
                          void* parts, cudaStream_t stream) {
-  const int64_t plane = (int64_t)p->Nr * p->Nc;
-  const dim3 grid((unsigned)((plane + CP_BLOCK - 1) / CP_BLOCK),
-                  (unsigned)(p->Nz * p->M));
-  cp_primal_kernel<TX, TD><<<grid, CP_BLOCK, 0, stream>>>(
+  cp_primal_kernel<TX, TD><<<plane_grid(p), BLOCK, 0, stream>>>(
       *p, (TX*)x, (const TX*)x0, (const TX*)yA, (const TD*)yD,
       (const float*)tmul, (float*)parts);
   return (int)cudaGetLastError();
@@ -293,12 +204,11 @@ extern "C" {
 
 // Number of loss partials either pass writes for an (Nz, M, Nr, Nc) volume.
 long long cp_num_parts(int Nz, int M, int Nr, int Nc) {
-  const int64_t plane = (int64_t)Nr * Nc;
-  return ((plane + CP_BLOCK - 1) / CP_BLOCK) * (int64_t)Nz * M;
+  return num_parts(Nz, M, Nr, Nc);
 }
 
 // Both return cudaGetLastError() after the launch (0 = cudaSuccess).
-int cp_dual_launch(const CPParams* p, int x_bf16, int d_bf16, const void* x,
+int cp_dual_launch(const Params* p, int x_bf16, int d_bf16, const void* x,
                    const void* x0, void* yA, void* yD, const void* tmul,
                    void* parts, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -312,7 +222,7 @@ int cp_dual_launch(const CPParams* p, int x_bf16, int d_bf16, const void* x,
                                                    parts, s);
 }
 
-int cp_primal_launch(const CPParams* p, int x_bf16, int d_bf16, void* x,
+int cp_primal_launch(const Params* p, int x_bf16, int d_bf16, void* x,
                      const void* x0, const void* yA, const void* yD,
                      const void* tmul, void* parts, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

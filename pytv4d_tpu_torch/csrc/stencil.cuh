@@ -1,0 +1,127 @@
+// Device code shared by the stencil kernels of csrc/cp_fused.cu (CP passes A
+// and B) and csrc/tv_fused.cu (TV norms and subgradient): the launch
+// parameter struct, bf16/f32 loads and stores, the geometry of one stencil
+// axis at a voxel, the weighted D channels of x and a deterministic block
+// sum.
+//
+// All kernels run one thread per voxel in 1-D blocks of BLOCK threads along
+// a (z, t) plane of the row-major (Nz, M, Nr, Nc) volume; blockIdx.y is the
+// plane.  Each thread gates its own global index against the one-sided
+// zero-slot boundary of core/schemes.py:
+//   FWD d[i] = f[i+1] - f[i]    valid at slots [0, L-2]
+//   BWD d[i] = f[i]   - f[i-1]  valid at slots [1, L-1]
+//   CTR d[i] = f[i+1] - f[i-1]  valid at slots [1, L-2]
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#define BLOCK 256
+#define MAX_CH 8
+
+enum { AX_Z = 0, AX_T = 1, AX_ROW = 2, AX_COL = 3 };
+enum { K_FWD = 0, K_BWD = 1, K_CTR = 2 };
+enum { N_ISO = 0, N_ANISO = 1, N_HUBER = 2 };
+enum { F_L2 = 0, F_L1 = 1, F_KL = 2 };
+
+// Mirrored field for field by kernels/fused.py::_Params (all 4-byte fields).
+struct Params {
+  int Nz, M, Nr, Nc, Nd;
+  int axis[MAX_CH];      // AX_*
+  int kind[MAX_CH];      // K_*
+  float w[MAX_CH];       // channel weight x scheme normalisation
+  int norm;              // N_*
+  int fidelity;          // F_*
+  int nonneg;
+  int has_tmul;          // time channels x tmul[(r, c)]
+  float sigma_D, sigma_A, reg, tau, fid_weight, huber_delta;
+  float fid_den;         // l2: 1 + sigma_A / fid_weight
+  float kl_c;            // kl: 4 sigma_A fid_weight
+  float huber_den;       // huber: 1 + sigma_D huber_delta / reg
+  float fid_scale;       // l2: fid_weight / 2, else fid_weight
+  float scheme_norm;     // the scheme normalisation (hybrid 1/sqrt 2, ...)
+};
+
+__device__ __forceinline__ float ld(const float* p, int64_t i) { return p[i]; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void st(float* p, int64_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+// Position, length and element stride of axis `a` at voxel (z, t, r, c);
+// `chan_stride` is Nd for the channel-contiguous dual, 1 for x.
+__device__ __forceinline__ void axis_geom(const Params& p, int a, int z,
+                                          int t, int r, int c,
+                                          int64_t chan_stride, int& pos,
+                                          int& len, int64_t& s) {
+  const int64_t plane = (int64_t)p.Nr * p.Nc;
+  switch (a) {
+    case AX_Z: pos = z; len = p.Nz; s = (int64_t)p.M * chan_stride * plane; break;
+    case AX_T: pos = t; len = p.M; s = chan_stride * plane; break;
+    case AX_ROW: pos = r; len = p.Nr; s = p.Nc; break;
+    default: pos = c; len = p.Nc; s = 1; break;
+  }
+}
+
+// Every weighted D channel of x at voxel xi (value xc): d[i] is the
+// difference of channel i, 0 at its invalid slots, times tm on time
+// channels, times w[i].  d[i] = 0 for i >= Nd.
+template <typename TX>
+__device__ __forceinline__ void weighted_d(const Params& p,
+                                           const TX* __restrict__ x,
+                                           int64_t xi, float xc, int z, int t,
+                                           int r, int c, float tm,
+                                           float (&d)[MAX_CH]) {
+#pragma unroll
+  for (int i = 0; i < MAX_CH; ++i) {
+    d[i] = 0.f;
+    if (i < p.Nd) {
+      int pos, len;
+      int64_t s;
+      axis_geom(p, p.axis[i], z, t, r, c, 1, pos, len, s);
+      float v;
+      if (p.kind[i] == K_FWD)
+        v = pos < len - 1 ? ld(x, xi + s) - xc : 0.f;
+      else if (p.kind[i] == K_BWD)
+        v = pos > 0 ? xc - ld(x, xi - s) : 0.f;
+      else
+        v = (pos > 0 && pos < len - 1) ? ld(x, xi + s) - ld(x, xi - s) : 0.f;
+      if (p.axis[i] == AX_T) v = v * tm;
+      d[i] = v * p.w[i];
+    }
+  }
+}
+
+// Sum of `v` over the block, valid in thread 0; every thread must call it.
+// A fixed order (warp shuffles, then one warp): no float atomics, so two
+// runs give the same bits.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float warp_sums[BLOCK / 32];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[wid] = v;
+  __syncthreads();
+  v = 0.f;
+  if (wid == 0) {
+    v = lane < BLOCK / 32 ? warp_sums[lane] : 0.f;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
+// One block per BLOCK voxels of a plane, one plane per blockIdx.y.
+static inline dim3 plane_grid(const Params* p) {
+  const int64_t plane = (int64_t)p->Nr * p->Nc;
+  return dim3((unsigned)((plane + BLOCK - 1) / BLOCK), (unsigned)(p->Nz * p->M));
+}
+
+// Number of per-block partials a kernel with plane_grid writes.
+static inline long long num_parts(int Nz, int M, int Nr, int Nc) {
+  const int64_t plane = (int64_t)Nr * Nc;
+  return ((plane + BLOCK - 1) / BLOCK) * (int64_t)Nz * M;
+}

@@ -7,6 +7,10 @@ in the port with ``state_from_numpy(*map(np.asarray, jax_state))``, and a
 port run resumes in JAX with ``CPState(*state_to_numpy(state))``.  Configs
 carry as plain fields: ``config_from_fields(**dataclasses.asdict(cfg))``.
 Arrays cross as numpy, so neither package imports the other.
+
+Subgradient descent needs nothing more: its only state is the iterate x,
+which resumes as ``x_init`` (``torch.as_tensor(np.asarray(jax_result.x))``
+one way, ``np.asarray`` of the port's ``GDResult.x`` the other).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them.
 
 Each library is compiled on first use into ``pytv4d_tpu_torch/_build/``
-(ignored by git), under a name keyed by a hash of its source and flags, so a
-fresh checkout builds it once and a changed source builds anew.  The result
+(ignored by git), under a name keyed by a hash of its source, the headers
+it includes from ``csrc/`` and the flags, so a fresh checkout builds it
+once and a changed source or header builds anew.  The result
 is a shared library with a plain C interface, loaded with ``ctypes``:
 compiling against PyTorch's headers would cost minutes per build.
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -48,9 +50,33 @@ def find_nvcc() -> str:
                      "cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(source: str) -> list:
+    """``source`` and every file it includes with ``#include "..."`` from
+    its own directory, transitively, each once, in a fixed order (a quoted
+    name that is not there is the compiler's to find elsewhere)."""
+    seen, todo = [], [os.path.abspath(source)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            for name in _INCLUDE.findall(f.read()):
+                inc = os.path.normpath(os.path.join(os.path.dirname(path),
+                                                    name.decode()))
+                if os.path.isfile(inc):
+                    todo.append(inc)
+    return seen
+
+
 def _library_path(source: str) -> str:
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read())
+    digest = hashlib.sha256()
+    for path in _sources(source):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")

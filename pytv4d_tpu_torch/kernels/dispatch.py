@@ -1,12 +1,13 @@
-"""Dispatch for the fused CP step: which problems the kernels take, and the
-per-pixel time-channel multiplier they apply.
+"""Dispatch for the fused kernels (the CP step and the TV subgradient):
+which problems the kernels take, and the per-pixel time-channel multiplier
+they apply.
 
 Feature coverage of the fused path, as in the JAX package: all four
 schemes, the 'iso', 'aniso' and 'huber' norms, float32 or bfloat16 storage,
 static masks and ``weight_time`` planes shaped like the reference's
 ``(1, 1, N, N)`` contract (``tv_operators_CPU.py:148-151``, ``README.md:258``).
 Full per-voxel ``(Nz, M, N, N)`` fields and float64 volumes take the plain
-``solvers.cp.cp_step``.
+``solvers.cp.cp_step`` / ``ops.tv.tv_and_subgrad``.
 """
 
 from __future__ import annotations
@@ -70,10 +71,14 @@ def as_dtype(dtype) -> torch.dtype:
 
 
 def can_fuse(shape, cfg: TVConfig, mask_static=None, dtype="float32",
-             weight_time=None) -> bool:
+             weight_time=None, for_gd: bool = False) -> bool:
     """Whether the fused kernels support this problem instance: rank 4, a
     known norm, plane-shaped ``mask_static`` / ``weight_time``, float32 or
-    bfloat16 storage, and a shape within :func:`fused.fits_kernel`."""
+    bfloat16 storage, and a shape within :func:`fused.fits_kernel`.
+
+    ``for_gd``: kept for call-site symmetry with the JAX package — both
+    kernel families (CP step, TV norms/subgradient) cover the same
+    instances."""
     if len(shape) != 4:
         return False
     if cfg.norm not in ("iso", "aniso", "huber"):

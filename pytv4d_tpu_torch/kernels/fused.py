@@ -1,4 +1,5 @@
-"""The fused Chambolle-Pock step: CUDA kernels B1/B2 and their plain versions.
+"""The fused stencil kernels: the Chambolle-Pock step (B1/B2) and the TV
+value and subgradient (B3/B4), and their plain versions.
 
 One CP iteration is two passes over the volume:
 
@@ -24,10 +25,25 @@ inside the solver (:func:`to_internal_layout`).  Storage is float32 or
 bfloat16, chosen independently for the primary arrays (x, x0, y_A) and the
 dual; compute is float32.
 
+The TV value and subgradient (:func:`tv_and_subgrad_fused`, the
+subgradient-descent step's operator) is two more passes, in
+``csrc/tv_fused.cu``:
+
+- pass 1, :func:`tv_norms` (kernel ``tv_norms_kernel``; replaces
+  ``make_tv_norms_kernel``): per-voxel gradient norms (float32; +inf at zero
+  for iso, the |D x| sum for aniso, the raw magnitude for huber) and one TV
+  partial per block, from x alone.
+- pass 2, :func:`tv_subgrad` (kernel ``tv_subgrad_kernel``; replaces
+  ``make_tv_subgrad_kernel``): G from x and the norms, recomputing the D
+  channels at each voxel and its neighbours, stored in x's dtype.  No
+  Nd-channel volume is written.
+
 Each wrapper takes its plain PyTorch version (:func:`cp_dual_plain`,
-:func:`cp_primal_plain`) for tensors on the CPU, which is how the CPU tests
-run the fused path.  For CUDA tensors it launches the kernel or raises.
-``cp_dual.launches`` / ``cp_primal.launches`` count kernel launches.
+:func:`cp_primal_plain`, :func:`tv_norms_plain`, :func:`tv_subgrad_plain`)
+for tensors on the CPU, which is how the CPU tests run the fused path.  For
+CUDA tensors it launches the kernel or raises.  ``cp_dual.launches``,
+``cp_primal.launches``, ``tv_norms.launches`` and ``tv_subgrad.launches``
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -40,9 +56,10 @@ import torch
 from ..core.config import TVConfig
 from ..core.schemes import BWD, CTR, FWD, channel_weight, scheme_channels
 from ..ops.operators import D, D_T, tv_norm
+from ..ops.tv import _subgrad_from_D
 from ..solvers.fidelity import fidelity_dual_prox, fidelity_loss
 
-MAX_CHANNELS = 8      # CP_MAX_CH: channels a thread keeps in registers
+MAX_CHANNELS = 8      # MAX_CH: channels a thread keeps in registers
 MAX_PLANES = 65535    # Nz * M rides gridDim.y
 MAX_PLANE_VOXELS = 2**31 - 1
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)
@@ -52,8 +69,8 @@ _NORM = {"iso": 0, "aniso": 1, "huber": 2}
 _FIDELITY = {"l2": 0, "l1": 1, "kl": 2}
 
 
-class _CPParams(ctypes.Structure):
-    """Mirror of ``struct CPParams`` in ``csrc/cp_fused.cu``."""
+class _Params(ctypes.Structure):
+    """Mirror of ``struct Params`` in ``csrc/stencil.cuh``."""
     _fields_ = [
         ("Nz", ctypes.c_int), ("M", ctypes.c_int), ("Nr", ctypes.c_int),
         ("Nc", ctypes.c_int), ("Nd", ctypes.c_int),
@@ -67,6 +84,7 @@ class _CPParams(ctypes.Structure):
         ("fid_weight", ctypes.c_float), ("huber_delta", ctypes.c_float),
         ("fid_den", ctypes.c_float), ("kl_c", ctypes.c_float),
         ("huber_den", ctypes.c_float), ("fid_scale", ctypes.c_float),
+        ("scheme_norm", ctypes.c_float),
     ]
 
 
@@ -90,7 +108,7 @@ def _params(cfg: TVConfig, shape, has_tmul, sigma_D=0.5, sigma_A=1.0,
     Nz, M, Nr, Nc = shape
     chans, norm = scheme_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg,
                                   cfg.reg_time)
-    p = _CPParams(Nz=Nz, M=M, Nr=Nr, Nc=Nc, Nd=len(chans))
+    p = _Params(Nz=Nz, M=M, Nr=Nr, Nc=Nc, Nd=len(chans), scheme_norm=norm)
     for i, ch in enumerate(chans):
         p.axis[i] = ch.axis
         p.kind[i] = _KIND[ch.kind]
@@ -108,26 +126,41 @@ def _params(cfg: TVConfig, shape, has_tmul, sigma_D=0.5, sigma_A=1.0,
     return p
 
 
+_ENTRY_POINTS = {
+    # library: (prefix, {launch function: (int flags, tensor pointers)})
+    "cp_fused": ("cp", {"cp_dual_launch": (2, 6), "cp_primal_launch": (2, 6)}),
+    "tv_fused": ("tv", {"tv_norms_launch": (1, 4),
+                        "tv_subgrad_launch": (1, 4)}),
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _lib():
+def _lib(name="cp_fused"):
+    """Build (on first use), load and bind ``csrc/<name>.cu``.  Every launch
+    function takes the parameter struct, its int flags, its pointers and
+    the stream, and returns ``cudaGetLastError()``."""
     from .build import load
 
-    lib = load("cp_fused")
+    lib = load(name)
+    prefix, launches = _ENTRY_POINTS[name]
     ptr = ctypes.c_void_p
-    lib.cp_num_parts.argtypes = [ctypes.c_int] * 4
-    lib.cp_num_parts.restype = ctypes.c_longlong
-    for fn in (lib.cp_dual_launch, lib.cp_primal_launch):
-        fn.argtypes = [ctypes.POINTER(_CPParams), ctypes.c_int, ctypes.c_int,
-                       ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    num_parts = getattr(lib, f"{prefix}_num_parts")
+    num_parts.argtypes = [ctypes.c_int] * 4
+    num_parts.restype = ctypes.c_longlong
+    for fn_name, (n_int, n_ptr) in launches.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = ([ctypes.POINTER(_Params)] + [ctypes.c_int] * n_int
+                       + [ptr] * (n_ptr + 1))  # the pointers, then the stream
         fn.restype = ctypes.c_int
-    lib.cp_error_string.argtypes = [ctypes.c_int]
-    lib.cp_error_string.restype = ctypes.c_char_p
+    error_string = getattr(lib, f"{prefix}_error_string")
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_operands(x, x0, y_A, y_D, tmul, cfg: TVConfig):
-    """Validate what either pass accepts (both devices)."""
-    for name, t in (("x", x), ("x0", x0), ("y_A", y_A), ("y_D", y_D)):
+def _check_tensors(x, **others):
+    """Tensors, contiguous, all on x's device, which is a CPU or a GPU."""
+    for name, t in (("x", x), *others.items()):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
         if not t.is_contiguous():
@@ -136,10 +169,36 @@ def _check_operands(x, x0, y_A, y_D, tmul, cfg: TVConfig):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
+
+
+def _check_volume(x, cfg: TVConfig) -> int:
+    """x is a volume the kernels take; returns the scheme's Nd."""
     if x.ndim != 4:
         raise ValueError(f"x must be (Nz, M, Nr, Nc), got {tuple(x.shape)}")
     if x.dtype not in STORAGE_DTYPES:
         raise ValueError(f"x storage must be float32 or bfloat16, got {x.dtype}")
+    Nz, M = x.shape[0], x.shape[1]
+    Nd = len(scheme_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg,
+                             cfg.reg_time)[0])
+    if not fits_kernel(tuple(x.shape), Nd, x.dtype):
+        raise ValueError(f"shape {tuple(x.shape)} with Nd={Nd} is outside "
+                         f"what the CUDA kernels accept (fits_kernel)")
+    return Nd
+
+
+def _check_tmul(tmul, x):
+    if tmul is not None and (
+            not isinstance(tmul, torch.Tensor) or tmul.dtype != torch.float32
+            or tuple(tmul.shape) != tuple(x.shape[2:])
+            or not tmul.is_contiguous() or tmul.device != x.device):
+        raise ValueError("tmul must be a contiguous float32 (Nr, Nc) tensor "
+                         "on x's device")
+
+
+def _check_operands(x, x0, y_A, y_D, tmul, cfg: TVConfig):
+    """Validate what either CP pass accepts (both devices)."""
+    _check_tensors(x, x0=x0, y_A=y_A, y_D=y_D)
+    Nd = _check_volume(x, cfg)
     for name, t in (("x0", x0), ("y_A", y_A)):
         if t.dtype != x.dtype or t.shape != x.shape:
             raise ValueError(f"{name} must match x: {tuple(x.shape)} "
@@ -148,36 +207,37 @@ def _check_operands(x, x0, y_A, y_D, tmul, cfg: TVConfig):
         raise ValueError(f"y_D storage must be float32 or bfloat16, got "
                          f"{y_D.dtype}")
     Nz, M, Nr, Nc = x.shape
-    Nd = len(scheme_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg,
-                             cfg.reg_time)[0])
     if tuple(y_D.shape) != (Nz, M, Nd, Nr, Nc):
         raise ValueError(f"y_D must be (Nz, M, Nd, Nr, Nc) = "
                          f"{(Nz, M, Nd, Nr, Nc)}, got {tuple(y_D.shape)}")
-    if not fits_kernel(tuple(x.shape), Nd, x.dtype):
-        raise ValueError(f"shape {tuple(x.shape)} with Nd={Nd} is outside "
-                         f"what the CUDA kernels accept (fits_kernel)")
-    if tmul is not None:
-        if (tmul.dtype != torch.float32 or tuple(tmul.shape) != (Nr, Nc)
-                or not tmul.is_contiguous() or tmul.device != x.device):
-            raise ValueError("tmul must be a contiguous float32 (Nr, Nc) "
-                             "tensor on x's device")
+    _check_tmul(tmul, x)
 
 
-def _launch(fn, x, y_D, p, args):
-    lib = _lib()
-    Nz, M, Nr, Nc = x.shape
-    parts = torch.empty(lib.cp_num_parts(Nz, M, Nr, Nc), dtype=torch.float32,
-                        device=x.device)
+def _launch(name, fn_name, x, p, flags, args, with_parts=False):
+    """Launch ``fn_name`` of library ``name`` on x's device and current
+    stream; with ``with_parts``, allocates the float32 per-block partials it
+    writes (its last pointer) and returns them."""
+    lib = _lib(name)
+    prefix = _ENTRY_POINTS[name][0]
+    parts = None
+    if with_parts:
+        parts = torch.empty(getattr(lib, f"{prefix}_num_parts")(*x.shape),
+                            dtype=torch.float32, device=x.device)
+        args = (*args, parts)
     ptrs = [None if a is None else a.data_ptr() for a in args]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(ctypes.byref(p), int(x.dtype == torch.bfloat16),
-                  int(y_D.dtype == torch.bfloat16), *ptrs, parts.data_ptr(),
-                  stream)
+        code = getattr(lib, fn_name)(ctypes.byref(p), *flags, *ptrs, stream)
     if code != 0:
-        raise RuntimeError(f"{fn.__name__} failed: "
-                           f"{lib.cp_error_string(code).decode()}")
+        raise RuntimeError(
+            f"{fn_name} failed: "
+            f"{getattr(lib, f'{prefix}_error_string')(code).decode()}")
     return parts
+
+
+def _cp_launch(fn_name, x, y_D, p, args):
+    flags = (int(x.dtype == torch.bfloat16), int(y_D.dtype == torch.bfloat16))
+    return _launch("cp_fused", fn_name, x, p, flags, args, with_parts=True)
 
 
 def cp_dual(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, sigma_D, sigma_A,
@@ -196,7 +256,7 @@ def cp_dual(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, sigma_D, sigma_A,
     p = _params(cfg, tuple(x.shape), tmul is not None, sigma_D=float(sigma_D),
                 sigma_A=float(sigma_A), reg=float(reg), fidelity=fidelity,
                 fid_weight=float(fid_weight))
-    parts = _launch(_lib().cp_dual_launch, x, y_D, p, (x, x0, y_A, y_D, tmul))
+    parts = _cp_launch("cp_dual_launch", x, y_D, p, (x, x0, y_A, y_D, tmul))
     cp_dual.launches += 1
     return y_A, y_D, parts
 
@@ -215,8 +275,8 @@ def cp_primal(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, tau,
     p = _params(cfg, tuple(x.shape), tmul is not None, tau=float(tau),
                 fidelity=fidelity, fid_weight=float(fid_weight),
                 nonneg=bool(nonneg))
-    parts = _launch(_lib().cp_primal_launch, x, y_D, p,
-                    (x, x0, y_A, y_D, tmul))
+    parts = _cp_launch("cp_primal_launch", x, y_D, p,
+                       (x, x0, y_A, y_D, tmul))
     cp_primal.launches += 1
     return x, parts
 
@@ -304,3 +364,100 @@ def cp_step_fused(state, x_noisy, *, reg, sigma_D, sigma_A, tau,
         fidelity=fidelity, fid_weight=fid_weight, nonneg=nonneg,
     )
     return CPState(x, y_A, from_internal_layout(y_D_int)), loss
+
+
+# ---------------------------------------------------------------------------
+# TV value and subgradient (B3/B4)
+# ---------------------------------------------------------------------------
+
+
+def _check_norms(norms, x):
+    if norms.dtype != torch.float32 or norms.shape != x.shape:
+        raise ValueError(f"norms must be float32 {tuple(x.shape)}, got "
+                         f"{tuple(norms.shape)} {norms.dtype}")
+
+
+def tv_norms(x, tmul=None, *, cfg: TVConfig):
+    """Pass 1: ``(x[, tmul]) -> (norms, tv_parts)``.
+
+    ``norms`` (float32, shaped like x): the per-voxel gradient norm with
+    +inf where it is 0 (iso), the sum of |channels| (aniso) or the raw norm
+    (huber); ``tv_parts`` sum to the TV value.  ``tmul``: optional float32
+    (Nr, Nc) multiplier of the time channels
+    (``dispatch.t_plane_multiplier``)."""
+    _check_tensors(x)
+    _check_volume(x, cfg)
+    _check_tmul(tmul, x)
+    if x.device.type == "cpu":
+        return tv_norms_plain(x, tmul, cfg=cfg)
+    p = _params(cfg, tuple(x.shape), tmul is not None)
+    norms = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    parts = _launch("tv_fused", "tv_norms_launch", x, p,
+                    (int(x.dtype == torch.bfloat16),), (x, tmul, norms),
+                    with_parts=True)
+    tv_norms.launches += 1
+    return norms, parts
+
+
+def tv_subgrad(x, norms, tmul=None, *, cfg: TVConfig):
+    """Pass 2: ``(x, norms[, tmul]) -> G`` in x's dtype, with ``norms``
+    from :func:`tv_norms` (the aniso G does not read them)."""
+    _check_tensors(x, norms=norms)
+    _check_volume(x, cfg)
+    _check_norms(norms, x)
+    _check_tmul(tmul, x)
+    if x.device.type == "cpu":
+        return tv_subgrad_plain(x, norms, tmul, cfg=cfg)
+    p = _params(cfg, tuple(x.shape), tmul is not None)
+    g = torch.empty_like(x)
+    _launch("tv_fused", "tv_subgrad_launch", x, p,
+            (int(x.dtype == torch.bfloat16),),
+            (x, None if cfg.norm == "aniso" else norms, tmul, g))
+    tv_subgrad.launches += 1
+    return g
+
+
+tv_norms.launches = 0
+tv_subgrad.launches = 0
+
+
+def tv_norms_plain(x, tmul=None, *, cfg: TVConfig):
+    """Plain PyTorch version of :func:`tv_norms` (same signature and
+    outputs), from the ported operators, in float32."""
+    D_x = D(x.float(), cfg.scheme, weight_time=tmul, **cfg.kwargs())
+    tv, norms = tv_norm(D_x, cfg.norm, return_array=True,
+                        huber_delta=cfg.huber_delta)
+    if cfg.norm == "iso":
+        norms = torch.where(norms == 0, torch.inf, norms)
+    return norms, tv.reshape(1)
+
+
+def tv_subgrad_plain(x, norms, tmul=None, *, cfg: TVConfig):
+    """Plain PyTorch version of :func:`tv_subgrad`: computes in float32 and
+    rounds G to x's dtype."""
+    kw = dict(weight_time=tmul, **cfg.kwargs())
+    D_x = D(x.float(), cfg.scheme, **kw)
+    if cfg.norm == "aniso":
+        G = D_T(torch.sign(D_x), cfg.scheme, **kw)
+    elif cfg.norm == "huber":
+        G = D_T(D_x / torch.clamp_min(norms, cfg.huber_delta)[:, None],
+                cfg.scheme, **kw)
+    else:
+        G = _subgrad_from_D(D_x, norms, cfg.scheme, x.shape[0], x.shape[1],
+                            cfg.reg_z_over_reg, cfg.reg_time)
+    return G.to(x.dtype)
+
+
+def tv_and_subgrad_fused(x, cfg: TVConfig, return_grad_norms=False,
+                         tmul=None):
+    """``(tv, G[, grad_norms])`` in two passes with no Nd-channel volume:
+    the semantics of ``ops.tv.tv_and_subgrad`` (``grad_norms`` with the inf
+    convention for iso, the per-voxel |channel| sum for aniso).  ``tv`` is
+    a float32 scalar tensor on x's device, G has x's dtype.  ``tmul``:
+    optional (Nr, Nc) time-channel multiplier
+    (``dispatch.t_plane_multiplier``)."""
+    norms, parts = tv_norms(x, tmul, cfg=cfg)
+    G = tv_subgrad(x, norms, tmul, cfg=cfg)
+    if return_grad_norms:
+        return torch.sum(parts), G, norms
+    return torch.sum(parts), G

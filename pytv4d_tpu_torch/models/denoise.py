@@ -1,10 +1,11 @@
 """Denoising front-ends over the solver layer (the port of
-``pytv4d_tpu/models/denoise.py``): the reference's worked CP example
-(``README.md:139-158``) as library API, the README's noise recipe, and the
+``pytv4d_tpu/models/denoise.py``): the reference's worked GD and CP examples
+(``README.md:107-158``) as library API, the README's noise recipe, and the
 scikit-image-compatible ``denoise_tv_chambolle`` (``README.md:260``).
 
-Only the Chambolle-Pock solver is ported so far: ``TVDenoiser`` has ``.cp``
-and no ``.gd`` / ``.admm`` / ``.fista`` / ``.tgv`` yet (ROADMAP.md queue A).
+The subgradient-descent and Chambolle-Pock solvers are ported:
+``TVDenoiser`` has ``.gd`` and ``.cp``, and no ``.admm`` / ``.fista`` /
+``.tgv`` yet (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ..core.config import TVConfig
 from ..solvers.cp import chambolle_pock
+from ..solvers.gd import subgradient_descent
 
 
 def add_noise(img, noise_level: float = 100.0, seed: int = 0) -> np.ndarray:
@@ -57,6 +59,12 @@ class TVDenoiser:
 
     reg: float = 25.0
     cfg: TVConfig = TVConfig()
+
+    def gd(self, noisy, n_iter: int = 300, step_size: float = 5e-3, **kw):
+        x, ndim = _to_volume(noisy)
+        res = subgradient_descent(x, n_iter=n_iter, reg=self.reg,
+                                  step_size=step_size, cfg=self.cfg, **kw)
+        return res._replace(x=_from_volume(res.x, ndim))
 
     def cp(self, noisy, n_iter: int = 300, **kw):
         x, ndim = _to_volume(noisy)

@@ -1,0 +1,94 @@
+"""Public device-native entry points (the port of ``pytv4d_tpu/ops/api.py``).
+
+The reference re-launches unfused kernels and round-trips host<->device on
+every call (``tv_operators_GPU.py:179,247`` — SURVEY.md section 3.2).  Here
+data stays on the tensor's device, and :func:`tv_and_subgrad` takes the
+fused TV kernels (B3/B4) for a CUDA tensor they support.  PyTorch runs
+eagerly, so these are plain functions: there is no executable cache.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.config import TVConfig
+from . import operators as _ops
+from . import tv as _tv
+
+D = _ops.D
+D_T = _ops.D_T
+compute_L21_norm = _ops.compute_L21_norm
+
+
+def tv_and_subgrad(img, scheme="hybrid", mask=None, reg_z_over_reg=1.0,
+                   reg_time=0.0, mask_static=None, factor_reg_static=0.0,
+                   weight_time=None, return_grad_norms=False,
+                   norm_type="iso", huber_delta=1.0):
+    """tv + subgradient on the tensor's device: the fused kernels
+    (``kernels.fused.tv_and_subgrad_fused``) for a rank-4 CUDA tensor without
+    ``mask`` that ``kernels.dispatch.can_fuse`` accepts (iso, aniso or huber
+    norm, float32/bfloat16, plane-shaped static masks / weight_time), else
+    ``ops.tv.tv_and_subgrad`` — the same numbers to f32 round-off either
+    way.  A numpy array runs on the CPU."""
+    from ..kernels.dispatch import can_fuse, t_plane_multiplier
+
+    img = torch.as_tensor(img)
+    cfg = TVConfig(scheme=scheme, reg_z_over_reg=reg_z_over_reg,
+                   reg_time=reg_time, factor_reg_static=factor_reg_static,
+                   norm=norm_type, huber_delta=huber_delta)
+    shape = tuple(img.shape)
+    if (not _ops.mask_enabled(mask) and img.ndim == 4 and img.is_cuda
+            and can_fuse(shape, cfg, mask_static=mask_static,
+                         dtype=img.dtype, weight_time=weight_time,
+                         for_gd=True)):
+        from ..kernels.fused import tv_and_subgrad_fused
+
+        tmul = t_plane_multiplier(shape, cfg, mask_static, weight_time,
+                                  dtype=img.dtype, device=img.device)
+        if tmul is not None:
+            tmul = tmul.float().contiguous()
+        return tv_and_subgrad_fused(img.contiguous(), cfg,
+                                    return_grad_norms=return_grad_norms,
+                                    tmul=tmul)
+    return _tv.tv_and_subgrad(img, scheme=scheme, mask=mask,
+                              reg_z_over_reg=reg_z_over_reg,
+                              reg_time=reg_time,
+                              mask_static=mask_static,
+                              factor_reg_static=factor_reg_static,
+                              weight_time=weight_time,
+                              return_grad_norms=return_grad_norms,
+                              norm_type=norm_type, huber_delta=huber_delta)
+
+
+def normalize_mask(mask_static):
+    """Map the reference's bool sentinel (``tv_operators_CPU.py:148``) and
+    ``[]`` to None: "no mask"."""
+    if _ops.mask_enabled(mask_static):
+        return mask_static
+    return None
+
+
+def _scheme_fn(base, scheme):
+    def fn(img, **kwargs):
+        kwargs["mask_static"] = normalize_mask(kwargs.get("mask_static"))
+        if "mask" in kwargs:
+            kwargs["mask"] = normalize_mask(kwargs.get("mask"))
+        return base(img, scheme=scheme, **kwargs)
+
+    fn.__name__ = f"{getattr(base, '__name__', 'fn')}_{scheme}"
+    fn.__qualname__ = fn.__name__
+    return fn
+
+
+D_upwind = _scheme_fn(D, "upwind")
+D_downwind = _scheme_fn(D, "downwind")
+D_central = _scheme_fn(D, "central")
+D_hybrid = _scheme_fn(D, "hybrid")
+D_T_upwind = _scheme_fn(D_T, "upwind")
+D_T_downwind = _scheme_fn(D_T, "downwind")
+D_T_central = _scheme_fn(D_T, "central")
+D_T_hybrid = _scheme_fn(D_T, "hybrid")
+tv_upwind = _scheme_fn(tv_and_subgrad, "upwind")
+tv_downwind = _scheme_fn(tv_and_subgrad, "downwind")
+tv_central = _scheme_fn(tv_and_subgrad, "central")
+tv_hybrid = _scheme_fn(tv_and_subgrad, "hybrid")

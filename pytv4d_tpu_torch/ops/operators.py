@@ -122,6 +122,15 @@ def dt_channel(y, axis: int, kind: str):
     return _pad(t, axis, 2, 0) - _pad(t, axis, 0, 2)
 
 
+# torch's CPU sqrt kernel can return values off by up to 3e-4 relative
+# (float32) on its first call in a process when that call runs on several
+# threads (torch 2.13.0+cpu on an 8-core AVX-512 CPU, about one process in
+# five; tests/test_torch_first_sqrt.py).  A first call on one element, which
+# runs on one thread, avoids it.
+for _dtype in (torch.float32, torch.float64):
+    torch.sqrt(torch.ones(1, dtype=_dtype))
+
+
 def _safe_sqrt(s):
     """sqrt that maps 0 to 0 through a where (the JAX package's double-where
     form, kept so the primal is bit-identical to it)."""

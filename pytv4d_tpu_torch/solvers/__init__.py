@@ -1,4 +1,4 @@
-from . import cp, fidelity, progress
+from . import cp, fidelity, gd, progress
 from .cp import (
     CPResult,
     CPState,
@@ -15,3 +15,4 @@ from .fidelity import (
     fidelity_loss,
     validate_fidelity,
 )
+from .gd import GDResult, gd_step, subgradient_descent

@@ -1,13 +1,19 @@
-"""Byte model, roofline share and a CUDA-event iteration timer for the CP
-step (the port of ``pytv4d_tpu/utils/profiling.py``'s measuring helpers).
+"""Byte models, roofline share and a CUDA-event iteration timer for the
+fused kernels (the port of ``pytv4d_tpu/utils/profiling.py``'s measuring
+helpers).
 
 - :func:`cp_traffic_model` — bytes moved per fused CP iteration, the same
   model as the JAX package's.
+- :func:`tv_traffic_model` — bytes each TV pass (B3, B4) must move.
 - :func:`roofline_fraction` — achieved bytes/s over the H100's data-sheet
   HBM bandwidth.
 - :func:`time_iterations` — iterations/s of a device loop, timed with CUDA
-  events after a warm-up.  It needs a CUDA device: a CPU time is not a
-  device metric, so there is no CPU fallback.
+  events after a warm-up.
+- :func:`device_time` — device ms per iteration of a loop, by kernel name,
+  from ``torch.profiler``.
+
+The last two need a CUDA device: a CPU time is not a device metric, so
+there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -38,6 +44,17 @@ def cp_traffic_model(shape, Nd: int, dtype=torch.float32,
     return int((pass_a + pass_b) * vox)
 
 
+def tv_traffic_model(shape, dtype=torch.float32, norm: str = "iso"):
+    """Bytes ``(pass_1, pass_2)`` of the fused TV value and subgradient,
+    each array once: pass 1 reads x and writes the float32 norms, pass 2
+    reads x and the norms (aniso: x only) and writes G in x's dtype."""
+    vox = int(np.prod(shape))
+    bpe = dtype.itemsize
+    pass_1 = (bpe + 4) * vox
+    pass_2 = (2 * bpe + (0 if norm == "aniso" else 4)) * vox
+    return pass_1, pass_2
+
+
 def roofline_fraction(bytes_per_iter: int, iters_per_s: float,
                       peak_gbps: float = H100_HBM_PEAK_GBPS) -> float:
     """Achieved bytes/s as a fraction of the peak HBM bandwidth."""
@@ -66,3 +83,28 @@ def time_iterations(run_n: Callable[[int], object], n_iter: int,
         torch.cuda.synchronize(device)
         best_ms = min(best_ms, start.elapsed_time(end))
     return n_iter / (best_ms / 1e3)
+
+
+def device_time(run: Callable[[], object], n_iter: int, device):
+    """Device time of ``run()``, which must enqueue ``n_iter`` iterations of
+    work on CUDA ``device``: ``(ms per iteration, {kernel name: ms per
+    iteration})``, summing every CUDA kernel, copy and memset that
+    ``torch.profiler`` records.  Raises if it records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"device_time profiles CUDA work, got {device}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize(device)
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                                 + e.time_range.elapsed_us() / 1e3 / n_iter)
+    if not by_kernel:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return sum(by_kernel.values()), by_kernel
