@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the CP kernels (B1 pass A, B2 pass B) and the TV kernels (B3 norms,
-B4 subgradient) from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at
-once.  Then, for the Chambolle-Pock path (phases 3-7): holds B1/B2 against
+Builds the CP kernels (B1 pass A, B2 pass B), the TV kernels (B3 norms,
+B4 subgradient) and the TGV-2 kernels (B6 passes PQ and XW, B7 whole solve)
+from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once.  Then, for
+the Chambolle-Pock path (phases 3-7): holds B1/B2 against
 their plain PyTorch versions, drives ``TVDenoiser.cp`` on the cameraman
 image through them, replays the (16, 4, 512, 512) reference trajectory,
 measures the 4D CP rate of kernels and plain versions, and runs the
@@ -12,7 +13,12 @@ measures the 4D CP rate of kernels and plain versions, and runs the
 holds B3/B4 against their plain versions, drives ``TVDenoiser.gd`` on the
 cameraman image and the reference's ``tv_GPU.tv_hybrid`` through them,
 measures the 4D GD rate, the split of an iteration and the kernels' GB/s,
-and runs the (96, 16, 512, 512) volume.  Every phase raises on failure;
+and runs the (96, 16, 512, 512) volume.  For the TGV-2 path (phases 12-15):
+holds B6/B7 against their plain versions, drives ``TVDenoiser.tgv`` on the
+cameraman image from a numpy array (it must land on the card, in one B7
+launch) and a 4d ``tgv_denoise`` through B6, measures the whole-solve and
+streaming rates and where one overtakes the other, and runs the
+(96, 16, 512, 512) volume in the 4d mode.  Every phase raises on failure;
 nothing falls back to the CPU.  The last line of stdout is one JSON object
 with ``"ok": true`` and the device.
 """
@@ -23,6 +29,7 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -33,17 +40,19 @@ import torch
 from pytv4d_tpu_torch import tv_GPU
 from pytv4d_tpu_torch.core.config import TVConfig
 from pytv4d_tpu_torch.core.schemes import SCHEMES, num_channels
-from pytv4d_tpu_torch.kernels import build, fused
+from pytv4d_tpu_torch.kernels import build, fused, tgv_resident, tgv_stream
 from pytv4d_tpu_torch.kernels.dispatch import t_plane_multiplier
 from pytv4d_tpu_torch.models import TVDenoiser, add_noise
 from pytv4d_tpu_torch.solvers.cp import chambolle_pock, default_tau
 from pytv4d_tpu_torch.solvers.gd import subgradient_descent
+from pytv4d_tpu_torch.solvers.tgv import TGV_FIELDS, tgv_denoise
 from pytv4d_tpu_torch.utils import cameraman, has_real_cameraman
 from pytv4d_tpu_torch.utils.profiling import (
     H100_HBM_PEAK_GBPS,
     cp_traffic_model,
     device_time,
     roofline_fraction,
+    tgv_traffic_model,
     time_iterations,
     tv_traffic_model,
 )
@@ -54,10 +63,18 @@ DEV = torch.device("cuda", 0)
 CAMERAMAN_LOSS = 38575639.48  # f64 reference, BASELINE.md
 CAMERAMAN_GD_LOSS = 39074939.776927  # f64 reference, BASELINE.md
 README_TV = 532166.8251801673  # tv_hybrid(rand(20, 4, 100, 100)), seed 0
-LIBS = ("cp_fused", "tv_fused")
+# TVDenoiser(reg=25).tgv(cameraman + noise, 300): the JAX package in f64 on
+# the CPU (tests/test_torch_tgv.py)
+CAMERAMAN_TGV_LOSS = 37211904.16116732
+LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident")
 # each wrapper's launch counter, by kernel id
 COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
-            "B3": fused.tv_norms, "B4": fused.tv_subgrad}
+            "B3": fused.tv_norms, "B4": fused.tv_subgrad,
+            "B6pq": tgv_stream.tgv_pq, "B6xw": tgv_stream.tgv_xw,
+            "B7": tgv_resident.tgv_resident_solve}
+# data-sheet peaks of the H100 SXM at 700 W: HBM bytes/s (utils.profiling)
+# and float32 operations/s outside the tensor cores
+H100_F32_PEAK_FLOPS = 67e12
 SMALL, MAIN_4D = (4, 3, 16, 128), (32, 8, 256, 256)
 CAMERAMAN = (1, 1, 256, 256)  # what the main path launches the kernels on
 NORTH_STAR = (96, 16, 512, 512)
@@ -103,6 +120,21 @@ def read_counters():
     return {k: fn.launches for k, fn in COUNTERS.items()}
 
 
+def require_launches(got, what, **expected):
+    """The counters named in ``expected`` read as given, every other 0."""
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(expected)
+    require(got == want, f"{what}: launches {want}, got {got}")
+
+
+def bound(n_bytes, n_ops):
+    """The least time for the work, ms, and what sets it: each byte once
+    over the HBM rate, each operation over the float32 rate."""
+    by_bytes = n_bytes / (H100_HBM_PEAK_GBPS * 1e9) * 1e3
+    by_ops = n_ops / H100_F32_PEAK_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 # ---------------------------------------------------------------- phase 1
 def phase_device():
     if not torch.cuda.is_available():
@@ -133,11 +165,22 @@ def phase_build():
     for name in LIBS:
         fused._lib(name)  # load and bind
     for name, (path, seconds, compiler_log) in built.items():
-        usage = [ln.strip() for ln in compiler_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+        if not compiler_log:  # built by an earlier run: its log was kept
+            with open(path + ".log") as f:
+                compiler_log = f.read()
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers",
+                                           compiler_log)]
+        frames = [tuple(map(int, m)) for m in re.findall(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+            r"spill loads", compiler_log)]
+        require(bool(regs) and len(frames) == len(regs),
+                f"ptxas reported on every kernel of {name}")
         log(f"[2 build] {os.path.relpath(path, ROOT)}: nvcc {seconds:.1f} s; "
-            f"ptxas: " + " | ".join(usage))
-    log(f"[2 build] both sources in parallel: {t1 - t0:.1f} s, load "
+            f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"stack frame <= {max(f[0] for f in frames)} B, spill stores / "
+            f"loads <= {max(f[1] for f in frames)} / "
+            f"{max(f[2] for f in frames)} B")
+    log(f"[2 build] {len(LIBS)} sources in parallel: {t1 - t0:.1f} s, load "
         f"{time.perf_counter() - t1:.2f} s")
     sync()
 
@@ -280,8 +323,7 @@ def phase_main_path():
     res = TVDenoiser(reg=25).cp(noisy[0, 0], n_iter=300)
     sync()
     launches = read_counters()
-    require(launches == {"B1": 300, "B2": 300, "B3": 0, "B4": 0},
-            f"B1 and B2 launched 300 times each, got {launches}")
+    require_launches(launches, "TVDenoiser.cp", B1=300, B2=300)
     require(tuple(res.x.shape) == (256, 256) and res.x.is_cuda,
             "denoised image is (256, 256) on the GPU")
     require(bool(torch.isfinite(res.x).all()), "denoised image is finite")
@@ -532,8 +574,7 @@ def phase_gd_main_path():
     res = TVDenoiser(reg=25).gd(noisy[0, 0], n_iter=300)
     sync()
     launches = read_counters()
-    require(launches == {"B1": 0, "B2": 0, "B3": 300, "B4": 300},
-            f"B3 and B4 launched 300 times each, got {launches}")
+    require_launches(launches, "TVDenoiser.gd", B3=300, B4=300)
     require(tuple(res.x.shape) == (256, 256) and res.x.is_cuda,
             "denoised image is (256, 256) on the GPU")
     require(bool(torch.isfinite(res.x).all()), "denoised image is finite")
@@ -568,8 +609,7 @@ def phase_gd_main_path():
     tv_val, G = tv_GPU.tv_hybrid(img)
     sync()
     tv_launches = read_counters()
-    require(tv_launches == {"B1": 0, "B2": 0, "B3": 1, "B4": 1},
-            f"tv_GPU.tv_hybrid launched B3 and B4 once, got {tv_launches}")
+    require_launches(tv_launches, "tv_GPU.tv_hybrid", B3=1, B4=1)
     require(isinstance(tv_val, float) and isinstance(G, np.ndarray)
             and G.shape == img.shape and bool(np.isfinite(G).all()),
             "tv_GPU.tv_hybrid returns a float and a finite numpy G")
@@ -729,6 +769,359 @@ def phase_gd_north_star():
     sync()
 
 
+# ---------------------------------------------------------------- phase 12
+TGV_MODES = ("2d", "3d", "4d")
+TGV_NORMS = ("iso", "aniso", "huber")
+TGV_KW = dict(alpha1=1.0, alpha0=2.0, huber_delta=0.3)
+# B7 over 20 iterations: each iteration is held to the f32 bar by the shared
+# per-voxel code (B6 above); 20 of them may add up to 10 times that bar
+F32_TOL_20 = dict(atol=2e-5, rtol=1e-4)
+
+
+def _tgv_state(shape, mode, dtype, gen):
+    """A non-zero random TGV state on the card (every channel and gate
+    live): x, xb, w, wb, p, q, x0."""
+    Nz, M, Nr, Nc = shape
+    n = TGV_FIELDS[mode]
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=DEV).to(dtype)
+
+    x0 = torch.rand(shape, generator=gen, device=DEV)
+    return ((x0 + 0.1 * randn(*shape).float()).to(dtype),
+            (x0 + 0.1 * randn(*shape).float()).to(dtype),
+            randn(Nz, n, M, Nr, Nc), randn(Nz, n, M, Nr, Nc),
+            randn(Nz, n, M, Nr, Nc), randn(Nz, n * (n + 1) // 2, M, Nr, Nc),
+            x0.to(dtype))
+
+
+def phase_tgv_kernels():
+    errs = {k: {"f32": 0.0, "bf16": 0.0} for k in ("B6pq", "B6xw", "B7")}
+    n_cases = 0
+    for shape in (SMALL, CAMERAMAN, MAIN_4D):
+        gen = torch.Generator(device=DEV).manual_seed(2468)
+        for mode in TGV_MODES:
+            for norm in TGV_NORMS:
+                for kind, dtype in (("f32", torch.float32),
+                                    ("bf16", torch.bfloat16)):
+                    bf16 = kind == "bf16"
+                    x, xb, w, wb, p, q, x0 = _tgv_state(shape, mode, dtype,
+                                                        gen)
+                    kw = dict(mode=mode, norm=norm, **TGV_KW)
+                    pk, qk, pp, qp = p.clone(), q.clone(), p.clone(), q.clone()
+                    tgv_stream.tgv_pq(xb, wb, pk, qk, **kw)
+                    tgv_stream.tgv_pq_plain(xb, wb, pp, qp, **kw)
+                    sync()
+                    e = max(_compare(pk, pp, bf16, 0.0),
+                            _compare(qk, qp, bf16, 0.0))
+                    errs["B6pq"][kind] = max(errs["B6pq"][kind], e)
+                    # both primal passes read the plain pass's duals
+                    xk, wk, xp, wp = x.clone(), w.clone(), x.clone(), w.clone()
+                    out_k = tgv_stream.tgv_xw(xk, x0, pp, wk, qp, mode=mode)
+                    out_p = tgv_stream.tgv_xw_plain(xp, x0, pp, wp, qp,
+                                                    mode=mode)
+                    sync()
+                    require(out_k[0] is xk and out_k[2] is wk,
+                            "tgv_xw updates x and w in place")
+                    e = max(_compare(a, b, bf16, 0.0)
+                            for a, b in zip(out_k, out_p))
+                    errs["B6xw"][kind] = max(errs["B6xw"][kind], e)
+                    n_cases += 1
+        for norm in TGV_NORMS:
+            x0 = 10.0 * torch.rand(shape, generator=gen, device=DEV)
+            kw = dict(norm=norm, **TGV_KW)
+            for n_iter, tol in ((1, F32_TOL), (20, F32_TOL_20)):
+                got = tgv_resident.tgv_resident_solve(x0, n_iter, **kw)
+                ref = tgv_resident.tgv_resident_plain(x0, n_iter, **kw)
+                sync()
+                e = max(_compare(a, b, False, 0.0, tol)
+                        for a, b in zip(got[:6], ref[:6]))
+                errs["B7"]["f32"] = max(errs["B7"]["f32"], e)
+                require(got[6].shape == (n_iter,), "one loss per iteration")
+                rel = float(((got[6] - ref[6]).abs() / ref[6].abs()).max())
+                require(rel <= 1e-5, f"B7 {norm} {shape} {n_iter} it: loss "
+                                     f"rel err {rel:.3g} <= 1e-5")
+            lean = tgv_resident.tgv_resident_solve(x0, 20, compute_loss=False,
+                                                   **kw)
+            sync()
+            require(lean[6].shape == (0,) and torch.equal(lean[0], got[0]),
+                    "compute_loss=False: the same iterates, no losses")
+            n_cases += 1
+    log(f"[12 TGV kernels vs plain] {n_cases} cases at {SMALL}, {CAMERAMAN} "
+        f"and {MAIN_4D}: pass; max abs err B6 PQ f32 "
+        f"{errs['B6pq']['f32']:.3g} bf16 {errs['B6pq']['bf16']:.3g}, B6 XW "
+        f"f32 {errs['B6xw']['f32']:.3g} bf16 {errs['B6xw']['bf16']:.3g}, B7 "
+        f"f32 over 1 and 20 iterations {errs['B7']['f32']:.3g} (bar atol "
+        f"{F32_TOL_20['atol']} rtol {F32_TOL_20['rtol']} at 20)")
+    sync()
+    return errs
+
+
+# ---------------------------------------------------------------- phase 13
+def phase_tgv_main_path():
+    noisy = add_noise(cameraman(), 100, seed=0).astype(np.float32)
+    require(isinstance(noisy, np.ndarray) and noisy.shape == (256, 256),
+            "the input is a numpy image")
+    zero_counters()
+    res = TVDenoiser(reg=25).tgv(noisy, 300)  # numpy in, no device=
+    sync()
+    launches = read_counters()
+    require_launches(launches, "TVDenoiser.tgv", B7=1)
+    require(res.x.is_cuda and tuple(res.x.shape) == (256, 256)
+            and res.x.dtype == torch.float32,
+            "a numpy image is solved on the card, (256, 256) float32 out")
+    require(bool(torch.isfinite(res.x).all()), "denoised image is finite")
+    require(tuple(res.loss.shape) == (300,) and res.loss.is_cuda,
+            "300 losses, on the card")
+    final = float(res.loss[-1])
+    rel = abs(final - CAMERAMAN_TGV_LOSS) / CAMERAMAN_TGV_LOSS
+    require(rel < 1e-4, f"cameraman TGV loss within 1e-4 of the f64 value, "
+                        f"got {rel:.3g}")
+    require(final < 0.5 * float(res.loss[0]), "the loss more than halves")
+    # the f64 trajectory rises once, at iteration 9, and falls from there on
+    # (by ~800 per iteration at the end, 200 float32 ulps of the loss)
+    require(bool((res.loss[11:] <= res.loss[10:-1]).all()),
+            "the loss falls monotonically after the first 10 iterations")
+    x0 = torch.as_tensor(noisy, device=DEV)[None, None]
+    plain = tgv_resident.tgv_resident_plain(x0, 300, 25.0, 50.0)
+    traj = float(((res.loss - plain[6]).abs() / plain[6]).max())
+    require(traj < 1e-4, f"300-iteration kernel vs plain loss within 1e-4, "
+                         f"got {traj:.3g}")
+    log(f"[13 TGV main path] TVDenoiser(reg=25).tgv(numpy cameraman, 300) on "
+        f"{res.x.device}: final loss {final:.2f}, rel err {rel:.3g} vs "
+        f"{CAMERAMAN_TGV_LOSS}; kernel vs plain trajectory {traj:.3g}; "
+        f"launches {launches}")
+
+    base = np.random.default_rng(0).random(MAIN_4D)
+    x = torch.as_tensor(base, dtype=torch.float32, device=DEV)
+    kw = dict(n_iter=20, alpha1=1.0, alpha0=2.0, axes="4d")
+    zero_counters()
+    out = tgv_denoise(x, compute_loss=False, **kw)
+    sync()
+    stream_launches = read_counters()
+    require_launches(stream_launches, "tgv_denoise 4d", B6pq=20, B6xw=20)
+    require(out.loss.shape == (0,) and out.w.shape == (32, 4, 8, 256, 256)
+            and bool(torch.isfinite(out.x).all()),
+            "4d stream solve: no losses, a 4-field w, finite x")
+    ref = tgv_denoise(x, compute_loss=False, fused=False, **kw)
+    err = _compare(out.x, ref.x, False, 0.0, F32_TOL_20)
+    del ref
+    sampled = tgv_denoise(x, loss_every=5, **kw)
+    require(sampled.loss.shape == (4,) and torch.equal(sampled.x, out.x)
+            and bool(torch.isfinite(sampled.loss).all()),
+            "loss_every=5 over 20 iterations: 4 losses, the same iterates")
+    require(read_counters()["B6pq"] == 40, "the sampled run used B6 too")
+    log(f"[13 TGV main path] tgv_denoise({MAIN_4D}, axes='4d', "
+        f"compute_loss=False, n_iter=20): launches {stream_launches}; max "
+        f"abs err of x vs the plain loop {err:.3g}; loss_every=5 -> "
+        f"{[round(float(v), 1) for v in sampled.loss]}")
+    sync()
+    return {"B7": launches["B7"], "B6pq": stream_launches["B6pq"],
+            "B6xw": stream_launches["B6xw"]}
+
+
+# ---------------------------------------------------------------- phase 14
+def _best_ms(fn, repeats=3):
+    """Fastest of ``repeats`` timed calls of ``fn`` after one warm-up, ms."""
+    fn()
+    sync()
+    best = float("inf")
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        sync()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def _marginal_ms(solve, n_lo, n_hi, repeats=3):
+    """ms per iteration between two solve lengths: what one more iteration
+    costs, without the launch and the set-up."""
+    lo = _best_ms(lambda: solve(n_lo), repeats)
+    hi = _best_ms(lambda: solve(n_hi), repeats)
+    return (hi - lo) / (n_hi - n_lo)
+
+
+class _TGVRun:
+    """A cold TGV state on the card and the streaming step over it (kernels
+    or plain)."""
+
+    def __init__(self, x0, mode, plain):
+        Nz, M, Nr, Nc = x0.shape
+        n = TGV_FIELDS[mode]
+
+        def zeros(c):
+            return torch.zeros((Nz, c, M, Nr, Nc), dtype=x0.dtype, device=DEV)
+
+        self.x0, self.mode = x0, mode
+        self.st = [x0.clone(), x0.clone(), zeros(n), zeros(n), zeros(n),
+                   zeros(n * (n + 1) // 2)]
+        self.pq = tgv_stream.tgv_pq_plain if plain else tgv_stream.tgv_pq
+        self.xw = tgv_stream.tgv_xw_plain if plain else tgv_stream.tgv_xw
+
+    def run(self, n_iter):
+        x, xb, w, wb, p, q = self.st
+        for _ in range(n_iter):
+            self.pq(xb, wb, p, q, mode=self.mode, alpha1=1.0, alpha0=2.0)
+            self.xw(x, self.x0, p, w, q, xb, wb, mode=self.mode)
+
+
+def tgv_ops_per_voxel(n):
+    """Float operations per voxel of pass PQ, pass XW and the objective for
+    an n-field mode, counted from csrc/tgv.cuh (iso norm; a sqrt, a max and
+    a divide count one each)."""
+    n_q, off = n * (n + 1) // 2, n * (n - 1) // 2
+    pq = (n + n * n + 2 * off          # D xb, the n*n backward differences, E
+          + 3 * n + (3 * n + 5)        # p + sigma (d - wb), its projection
+          + 2 * n_q + (3 * n_q + 5))   # q + sigma e, its projection
+    xw = 2 * n + 7 + n + 6 * off + 5 * n  # D^T p, x', xb', E^T q, w', wb'
+    loss = (2 * n + n * n + 2 * off + 3   # D x - w, E w, (x - x0)^2 / 2
+            + (2 * n + 1) + (2 * n_q + 1) + 4)
+    return pq, xw, loss
+
+
+def phase_tgv_rates(card):
+    base = np.random.default_rng(0).random(MAIN_4D)
+    x32 = torch.as_tensor(base, dtype=torch.float32, device=DEV)
+    vox = int(np.prod(MAIN_4D))
+    out = {}
+
+    # the whole-solve kernel with the loss, and its plain version
+    def solve(n, plain=False, x=x32, compute_loss=True):
+        fn = (tgv_resident.tgv_resident_plain if plain
+              else tgv_resident.tgv_resident_solve)
+        return fn(x, n, 1.0, 2.0, compute_loss=compute_loss)
+
+    res_ms = _marginal_ms(solve, 30, 150)
+    res_plain_ms = _marginal_ms(lambda n: solve(n, plain=True), 3, 9,
+                                repeats=1)
+    log(f"[14 TGV rates {MAIN_4D}] 2d whole solve (B7) f32 with the loss: "
+        f"{1e3 / res_ms:.1f} it/s marginal between 30 and 150 iterations "
+        f"({res_ms:.4f} ms/it), plain {1e3 / res_plain_ms:.2f} it/s "
+        f"({res_plain_ms:.3f} ms/it); card {card}")
+
+    # the streaming pair, per mode and storage
+    for mode, tag, dtype in (("2d", "f32", torch.float32),
+                             ("4d", "f32", torch.float32),
+                             ("4d", "bf16", torch.bfloat16)):
+        x0 = x32.to(dtype)
+        rates = {}
+        for plain in (True, False, False, True):
+            r = _TGVRun(x0, mode, plain)
+            rates.setdefault(plain, []).append(
+                time_iterations(r.run, 5 if plain else 50, DEV,
+                                warmup_iters=2 if plain else 5))
+            del r
+        it_s = {plain: max(v) for plain, v in rates.items()}
+        r = _TGVRun(x0, mode, plain=False)
+        dev_ms, _ = device_time(lambda: r.run(50), 50, DEV)
+        x, xb, w, wb, p, q = r.st
+        kw = dict(mode=mode, alpha1=1.0, alpha0=2.0)
+        ms = {"pq": (_time_launch(lambda: tgv_stream.tgv_pq(xb, wb, p, q,
+                                                            **kw)),
+                     _time_launch(lambda: tgv_stream.tgv_pq_plain(
+                         xb, wb, p, q, **kw), n=5)),
+              "xw": (_time_launch(lambda: tgv_stream.tgv_xw(
+                  x, x0, p, w, q, xb, wb, mode=mode)),
+                  _time_launch(lambda: tgv_stream.tgv_xw_plain(
+                      x, x0, p, w, q, xb, wb, mode=mode), n=5))}
+        del r, x, xb, w, wb, p, q
+        b_pq, b_xw = tgv_traffic_model(MAIN_4D, mode, dtype)
+        gbs = {"pq": b_pq / ms["pq"][0] / 1e6, "xw": b_xw / ms["xw"][0] / 1e6}
+        frac = roofline_fraction(b_pq + b_xw, it_s[False])
+        log(f"[14 TGV rates {MAIN_4D}] {mode} stream (B6) {tag}: kernels "
+            f"{it_s[False]:.1f} it/s = {(b_pq + b_xw) * it_s[False] / 1e9:.0f}"
+            f" GB/s ({100 * frac:.1f}% of {H100_HBM_PEAK_GBPS:.0f}, minimal "
+            f"model), device {dev_ms:.4f} ms/it (torch.profiler), idle "
+            f"{100 * (1 - dev_ms * it_s[False] / 1e3):.1f}%, plain "
+            f"{it_s[True]:.2f} it/s; per launch PQ "
+            f"{ms['pq'][0]:.4f} ms ({gbs['pq']:.0f} GB/s, plain "
+            f"{ms['pq'][1]:.3f} ms), XW {ms['xw'][0]:.4f} ms "
+            f"({gbs['xw']:.0f} GB/s, plain {ms['xw'][1]:.3f} ms)")
+        out[(mode, tag)] = ms
+        sync()
+
+    # where the whole-solve kernel stops paying: one more iteration of it
+    # against one iteration of the streaming pair, both without the loss
+    for shape in (CAMERAMAN, (1, 1, 1024, 1024), (8, 1, 1024, 1024),
+                  MAIN_4D):
+        gen = torch.Generator(device=DEV).manual_seed(7)
+        x0 = torch.rand(shape, generator=gen, device=DEV)
+        whole = _marginal_ms(
+            lambda n: solve(n, x=x0, compute_loss=False), 20, 120)
+        with_loss = _marginal_ms(lambda n: solve(n, x=x0), 20, 120)
+        plain_loss = _marginal_ms(lambda n: solve(n, plain=True, x=x0), 2, 6,
+                                  repeats=1)
+        r = _TGVRun(x0, "2d", plain=False)
+        stream = 1e3 / time_iterations(r.run, 100, DEV)
+        del r
+        log(f"[14 whole solve vs stream, 2d f32] {shape} ({shape[0] * shape[1]}"
+            f" slices): B7 {whole:.4f} ms/it without the loss, "
+            f"{with_loss:.4f} with; B6 pair {stream:.4f} ms/it (no loss); "
+            f"plain loop with the loss {plain_loss:.3f} ms/it")
+        sync()
+
+    # B7 as the main path calls it: cameraman, 300 iterations, with the loss
+    noisy = torch.as_tensor(add_noise(cameraman(), 100, seed=0),
+                            dtype=torch.float32, device=DEV)[None, None]
+    b7_ms = _best_ms(lambda: tgv_resident.tgv_resident_solve(
+        noisy, 300, 25.0, 50.0))
+    b7_plain_ms = _best_ms(lambda: tgv_resident.tgv_resident_plain(
+        noisy, 300, 25.0, 50.0), repeats=1)
+    log(f"[14 B7 at cameraman] one 300-iteration solve with the loss: "
+        f"{b7_ms:.3f} ms ({300e3 / b7_ms:.0f} it/s), plain {b7_plain_ms:.1f} "
+        f"ms ({300e3 / b7_plain_ms:.0f} it/s)")
+    out["B7"] = (b7_ms, b7_plain_ms)
+
+    # bounds from this run's inputs: B6 at MAIN_4D 4d f32 (one launch of
+    # each pass), B7 at cameraman (x0 read, 12 planes of state written,
+    # 300 iterations of all three phases)
+    ops_pq, ops_xw, _ = tgv_ops_per_voxel(4)
+    b_pq, b_xw = tgv_traffic_model(MAIN_4D, "4d", torch.float32)
+    out["bounds"] = {"B6pq": bound(b_pq, ops_pq * vox),
+                     "B6xw": bound(b_xw, ops_xw * vox),
+                     "B7": bound(13 * 4 * 256 * 256,
+                                 300 * sum(tgv_ops_per_voxel(2)) * 256 * 256)}
+    return out
+
+
+# ---------------------------------------------------------------- phase 15
+def phase_tgv_north_star():
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    noisy = torch.rand(NORTH_STAR, generator=gen, device=DEV).to(
+        torch.bfloat16)
+    sync()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    kw = dict(alpha1=1.0, alpha0=2.0, axes="4d", compute_loss=False)
+    tgv_denoise(noisy, n_iter=2, **kw)  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    zero_counters()
+    start.record()
+    res = tgv_denoise(noisy, n_iter=10, **kw)
+    end.record()
+    sync()
+    it_s = 10 / (start.elapsed_time(end) / 1e3)
+    require(read_counters()["B6xw"] == 10, "the volume ran through B6")
+    require(res.x.dtype == torch.bfloat16 and res.state.q.shape[1] == 10,
+            "bf16 storage kept, 10 q channels")
+    require(bool(torch.isfinite(res.x.float()).all()),
+            "north-star TGV iterate finite")
+    peak = torch.cuda.max_memory_allocated(DEV)
+    traffic = sum(tgv_traffic_model(NORTH_STAR, "4d", torch.bfloat16))
+    log(f"[15 real size TGV] {NORTH_STAR} bf16, axes='4d', "
+        f"compute_loss=False, 10 iterations on the kernels: {it_s:.2f} it/s "
+        f"(whole solver call, {traffic * it_s / 1e9:.0f} GB/s by the minimal "
+        f"model), peak memory {peak / 1e9:.2f} GB")
+    del res, noisy
+    torch.cuda.empty_cache()
+    sync()
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -741,29 +1134,69 @@ def main():
     gd_launches = phase_gd_main_path()
     gd_ms = phase_gd_4d(card)
     phase_gd_north_star()
-    source = "pytv4d_tpu_torch/csrc/cp_fused.cu"
-    tv_source = "pytv4d_tpu_torch/csrc/tv_fused.cu"
+    tgv_errs = phase_tgv_kernels()
+    tgv_launches = phase_tgv_main_path()
+    tgv_ms = phase_tgv_rates(card)
+    phase_tgv_north_star()
+
+    # B1-B4 bounds at the shape their times were taken at: MAIN_4D float32,
+    # hybrid with reg_time=0.5 (Nd channels).  Bytes: each array once per
+    # pass (utils.profiling).  Operations per voxel, counted from the
+    # sources: B1 about 10 per channel (difference, weights, dual update,
+    # projection, TV partial) plus 10 for the fidelity dual and the norm;
+    # B2 4 per channel plus 8; B3 4 per channel plus 4; B4 10 per channel
+    # (two neighbour slots recomputed) plus 2.
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    Nd = num_channels(cfg.scheme, MAIN_4D[0], MAIN_4D[1], cfg.reg_z_over_reg,
+                      cfg.reg_time)
+    vox = int(np.prod(MAIN_4D))
+    tv_1, tv_2 = tv_traffic_model(MAIN_4D, torch.float32, cfg.norm)
+    bounds = {"B1": bound((4 + 2 * Nd) * 4 * vox, (10 * Nd + 10) * vox),
+              "B2": bound((4 + Nd) * 4 * vox, (4 * Nd + 8) * vox),
+              "B3": bound(tv_1, (4 * Nd + 4) * vox),
+              "B4": bound(tv_2, (10 * Nd + 2) * vox),
+              **tgv_ms["bounds"]}
+    require((4 + 2 * Nd + 4 + Nd) * 4 * vox == cp_traffic_model(
+        MAIN_4D, Nd, dtype=torch.float32), "B1 + B2 bytes are the CP model's")
+
+    def entry(kid, name, source, replaces, n_launches, err, ms, err_bf16=None):
+        # no single PyTorch call computes any of these functions, so there
+        # is no library time to set beside them
+        out = {"name": f"{kid[:2]} {name}", "route": "cuda",
+               "source": f"pytv4d_tpu_torch/csrc/{source}",
+               "replaces": f"pytv4d_tpu/kernels/{replaces}",
+               "launches": n_launches, "max_abs_err": err, "ms": ms[0],
+               "plain_ms": ms[1], "bound_ms": bounds[kid][0],
+               "bound_by": bounds[kid][1], "library_ms": None}
+        if err_bf16 is not None:
+            out["max_abs_err_bf16"] = err_bf16
+        return out
+
+    stream_ms = tgv_ms[("4d", "f32")]
     kernels = [
-        {"name": "B1 cp_dual_kernel (CP pass A)", "route": "cuda",
-         "source": source, "replaces": "pytv4d_tpu/kernels/fused.py:652",
-         "launches": launches["B1"], "max_abs_err": errs["B1"]["f32"],
-         "max_abs_err_bf16": errs["B1"]["bf16"], "ms": kernel_ms["B1"][0],
-         "plain_ms": kernel_ms["B1"][1]},
-        {"name": "B2 cp_primal_kernel (CP pass B)", "route": "cuda",
-         "source": source, "replaces": "pytv4d_tpu/kernels/fused.py:859",
-         "launches": launches["B2"], "max_abs_err": errs["B2"]["f32"],
-         "max_abs_err_bf16": errs["B2"]["bf16"], "ms": kernel_ms["B2"][0],
-         "plain_ms": kernel_ms["B2"][1]},
-        {"name": "B3 tv_norms_kernel (TV pass 1)", "route": "cuda",
-         "source": tv_source, "replaces": "pytv4d_tpu/kernels/fused.py:1353",
-         "launches": gd_launches["B3"], "max_abs_err": gd_errs["B3"]["f32"],
-         "max_abs_err_bf16": gd_errs["B3"]["bf16"],
-         "ms": gd_ms["f32"]["B3"][0], "plain_ms": gd_ms["f32"]["B3"][1]},
-        {"name": "B4 tv_subgrad_kernel (TV pass 2)", "route": "cuda",
-         "source": tv_source, "replaces": "pytv4d_tpu/kernels/fused.py:1473",
-         "launches": gd_launches["B4"], "max_abs_err": gd_errs["B4"]["f32"],
-         "max_abs_err_bf16": gd_errs["B4"]["bf16"],
-         "ms": gd_ms["f32"]["B4"][0], "plain_ms": gd_ms["f32"]["B4"][1]},
+        entry("B1", "cp_dual_kernel (CP pass A)", "cp_fused.cu",
+              "fused.py:652", launches["B1"], errs["B1"]["f32"],
+              kernel_ms["B1"], errs["B1"]["bf16"]),
+        entry("B2", "cp_primal_kernel (CP pass B)", "cp_fused.cu",
+              "fused.py:859", launches["B2"], errs["B2"]["f32"],
+              kernel_ms["B2"], errs["B2"]["bf16"]),
+        entry("B3", "tv_norms_kernel (TV pass 1)", "tv_fused.cu",
+              "fused.py:1353", gd_launches["B3"], gd_errs["B3"]["f32"],
+              gd_ms["f32"]["B3"], gd_errs["B3"]["bf16"]),
+        entry("B4", "tv_subgrad_kernel (TV pass 2)", "tv_fused.cu",
+              "fused.py:1473", gd_launches["B4"], gd_errs["B4"]["f32"],
+              gd_ms["f32"]["B4"], gd_errs["B4"]["bf16"]),
+        entry("B6pq", "tgv_pq_kernel (TGV pass PQ)", "tgv_stream.cu",
+              "tgv_stream.py:344", tgv_launches["B6pq"],
+              tgv_errs["B6pq"]["f32"], stream_ms["pq"],
+              tgv_errs["B6pq"]["bf16"]),
+        entry("B6xw", "tgv_xw_kernel (TGV pass XW)", "tgv_stream.cu",
+              "tgv_stream.py:435", tgv_launches["B6xw"],
+              tgv_errs["B6xw"]["f32"], stream_ms["xw"],
+              tgv_errs["B6xw"]["bf16"]),
+        entry("B7", "tgv_resident_kernel (2d TGV whole solve)",
+              "tgv_resident.cu", "tgv_resident.py:58", tgv_launches["B7"],
+              tgv_errs["B7"]["f32"], tgv_ms["B7"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

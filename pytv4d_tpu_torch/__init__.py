@@ -2,22 +2,27 @@
 
 Total variation of 2D/3D/4D ``(Nz, M, N_row, N_col)`` volumes — the value
 and subgradient (``ops.tv``, and the reference's ``tv_GPU`` /
-``tv_operators_GPU`` modules) — and TV denoising with the Chambolle-Pock and
-subgradient-descent solvers, on any torch device.  On an NVIDIA Hopper GPU
-the CP step and the TV subgradient each run as two hand-written CUDA kernels
-(``kernels.fused``, sources in ``csrc/``, built with nvcc on first use); on
-the CPU they run their plain PyTorch versions.  The JAX package
-``pytv4d_tpu`` is the reference it is tested against; this package imports
-torch and never jax.
+``tv_operators_GPU`` modules) — TV denoising with the Chambolle-Pock and
+subgradient-descent solvers, and second-order TGV denoising (``solvers.tgv``),
+on any torch device.  On an NVIDIA Hopper GPU the CP step, the TV
+subgradient and the TGV step each run as two hand-written CUDA kernels, and
+the in-plane TGV solve as one (``kernels``, sources in ``csrc/``, built with
+nvcc on first use); on the CPU they run their plain PyTorch versions.  The
+JAX package ``pytv4d_tpu`` is the reference it is tested against; this
+package imports torch and never jax.
 
-    import torch
+A tensor is computed on its own device.  A numpy array goes to the CUDA
+device, and the call raises where there is none; ``device="cpu"`` asks for
+the CPU (``utils.device``).
+
+    import numpy as np
     from pytv4d_tpu_torch.models import TVDenoiser, add_noise
     from pytv4d_tpu_torch.utils import cameraman
 
-    noisy = torch.as_tensor(add_noise(cameraman(), 100, seed=0),
-                            dtype=torch.float32, device="cuda")
-    res = TVDenoiser(reg=25).cp(noisy, n_iter=300)
+    noisy = add_noise(cameraman(), 100, seed=0).astype(np.float32)
+    res = TVDenoiser(reg=25).cp(noisy, n_iter=300)   # on the GPU
     res = TVDenoiser(reg=25).gd(noisy, n_iter=300)
+    res = TVDenoiser(reg=25).tgv(noisy, n_iter=300)
 """
 
 from . import (
@@ -45,3 +50,4 @@ from .ops.tv import (
 )
 from .solvers.cp import CPResult, CPState, chambolle_pock
 from .solvers.gd import GDResult, subgradient_descent
+from .solvers.tgv import TGVResult, TGVState, tgv_denoise

@@ -2,11 +2,14 @@
 port.
 
 The "weights" of this system are its solver state and config, so these
-three functions are what a run needs to move across: a JAX CP run resumes
-in the port with ``state_from_numpy(*map(np.asarray, jax_state))``, and a
-port run resumes in JAX with ``CPState(*state_to_numpy(state))``.  Configs
-carry as plain fields: ``config_from_fields(**dataclasses.asdict(cfg))``.
-Arrays cross as numpy, so neither package imports the other.
+functions are what a run needs to move across: a JAX CP run resumes in the
+port with ``state_from_numpy(*map(np.asarray, jax_state), device=...)``, a
+JAX TGV run with ``tgv_state_from_numpy(*map(np.asarray, jax_state),
+device=...)``, and a port run resumes in JAX with
+``CPState(*state_to_numpy(state))``.  Configs carry as plain fields:
+``config_from_fields(**dataclasses.asdict(cfg))``.  Arrays cross as numpy,
+so neither package imports the other.  ``device`` is always named: nothing
+here picks the CPU by default.
 
 Subgradient descent needs nothing more: its only state is the iterate x,
 which resumes as ``x_init`` (``torch.as_tensor(np.asarray(jax_result.x))``
@@ -20,24 +23,40 @@ import torch
 
 from .core.config import TVConfig
 from .solvers.cp import CPState
+from .solvers.tgv import TGVState
 
 
-def state_from_numpy(x, y_A, y_D, device="cpu", dtype=None) -> CPState:
-    """A port :class:`CPState` from numpy arrays in the public layouts:
-    ``x``, ``y_A`` ``(Nz, M, Nr, Nc)`` and ``y_D`` ``(Nz, Nd, M, Nr, Nc)``.
-    ``dtype`` (a torch dtype) defaults to that of ``x``."""
-    x = torch.tensor(np.asarray(x), dtype=dtype, device=device)
-
-    def conv(a):
-        return torch.tensor(np.asarray(a), dtype=x.dtype, device=device)
-
-    y_D = None if y_D is None else conv(y_D)
-    return CPState(x, conv(y_A), y_D)
+def _from_numpy(arrays, device, dtype):
+    """Tensors on ``device`` in ``dtype`` (default: the first array's own);
+    None stays None."""
+    first = torch.tensor(np.asarray(arrays[0]), dtype=dtype, device=device)
+    rest = [None if a is None else
+            torch.tensor(np.asarray(a), dtype=first.dtype, device=device)
+            for a in arrays[1:]]
+    return [first, *rest]
 
 
-def state_to_numpy(state: CPState):
-    """``(x, y_A, y_D)`` as numpy arrays in the public layouts (bf16 state
-    widens to float32; a dropped dual stays None)."""
+def state_from_numpy(x, y_A, y_D, *, device, dtype=None) -> CPState:
+    """A port :class:`CPState` on ``device`` from numpy arrays in the public
+    layouts: ``x``, ``y_A`` ``(Nz, M, Nr, Nc)`` and ``y_D``
+    ``(Nz, Nd, M, Nr, Nc)``.  ``dtype`` (a torch dtype) defaults to that of
+    ``x``."""
+    return CPState(*_from_numpy((x, y_A, y_D), device, dtype))
+
+
+def tgv_state_from_numpy(x, xb, w, wb, p, q, *, device,
+                         dtype=None) -> TGVState:
+    """A port :class:`TGVState` on ``device`` from numpy arrays in the
+    public layouts: ``x``, ``xb`` ``(Nz, M, Nr, Nc)``; ``w``, ``wb``, ``p``
+    ``(Nz, n, M, Nr, Nc)``; ``q`` ``(Nz, n(n+1)/2, M, Nr, Nc)``.  ``dtype``
+    (a torch dtype) defaults to that of ``x``."""
+    return TGVState(*_from_numpy((x, xb, w, wb, p, q), device, dtype))
+
+
+def state_to_numpy(state):
+    """The fields of a :class:`CPState` or :class:`TGVState` as numpy
+    arrays in the public layouts (bf16 state widens to float32; a dropped
+    dual stays None)."""
     def conv(t):
         if t is None:
             return None
@@ -45,7 +64,7 @@ def state_to_numpy(state: CPState):
             t = t.float()
         return t.detach().cpu().numpy()
 
-    return conv(state.x), conv(state.y_A), conv(state.y_D)
+    return tuple(conv(t) for t in state)
 
 
 def config_from_fields(**fields) -> TVConfig:

@@ -1,9 +1,10 @@
-"""The fused CP step and TV subgradient: CUDA kernels (``csrc/cp_fused.cu``,
-``csrc/tv_fused.cu``) for CUDA tensors, their plain PyTorch versions for CPU
-tensors.  Importing this package needs
+"""The fused CP step, the TV subgradient and the TGV-2 step and whole solve:
+CUDA kernels (``csrc/cp_fused.cu``, ``csrc/tv_fused.cu``,
+``csrc/tgv_stream.cu``, ``csrc/tgv_resident.cu``) for CUDA tensors, their
+plain PyTorch versions for CPU tensors.  Importing this package needs
 neither a GPU nor nvcc: the kernels are built on their first launch."""
 
-from . import build, dispatch, fused
+from . import build, dispatch, fused, tgv_resident, tgv_stream
 from .dispatch import can_fuse, t_plane_multiplier
 from .fused import (
     cp_dual,
@@ -18,4 +19,17 @@ from .fused import (
     tv_norms_plain,
     tv_subgrad,
     tv_subgrad_plain,
+)
+from .tgv_resident import (
+    tgv_resident_fits,
+    tgv_resident_plain,
+    tgv_resident_solve,
+)
+from .tgv_stream import (
+    stream_fits,
+    tgv_pq,
+    tgv_pq_plain,
+    tgv_stream_step,
+    tgv_xw,
+    tgv_xw_plain,
 )

@@ -39,9 +39,10 @@ def _has_t_channels(shape, cfg: TVConfig) -> bool:
 
 
 def t_plane_multiplier(shape, cfg: TVConfig, mask_static=None,
-                       weight_time=None, dtype=torch.float32, device="cpu"):
+                       weight_time=None, dtype=torch.float32, *, device):
     """The (Nr, Nc) per-pixel multiplier the fused kernels apply to time
-    channels, or None when no multiplier is needed.
+    channels, as a tensor on ``device``, or None when no multiplier is
+    needed.
 
     Composes the reference's static-mask factor (masked pixels' time
     channels x sqrt(factor_reg_static), ``tv_operators_CPU.py:148-151``)

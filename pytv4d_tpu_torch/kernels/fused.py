@@ -127,10 +127,13 @@ def _params(cfg: TVConfig, shape, has_tmul, sigma_D=0.5, sigma_A=1.0,
 
 
 _ENTRY_POINTS = {
-    # library: (prefix, {launch function: (int flags, tensor pointers)})
-    "cp_fused": ("cp", {"cp_dual_launch": (2, 6), "cp_primal_launch": (2, 6)}),
-    "tv_fused": ("tv", {"tv_norms_launch": (1, 4),
-                        "tv_subgrad_launch": (1, 4)}),
+    # library: (prefix, parameter struct,
+    #           {launch function: (int flags, tensor pointers)});
+    # kernels/tgv_stream.py and kernels/tgv_resident.py add theirs
+    "cp_fused": ("cp", _Params, {"cp_dual_launch": (2, 6),
+                                 "cp_primal_launch": (2, 6)}),
+    "tv_fused": ("tv", _Params, {"tv_norms_launch": (1, 4),
+                                 "tv_subgrad_launch": (1, 4)}),
 }
 
 
@@ -142,14 +145,15 @@ def _lib(name="cp_fused"):
     from .build import load
 
     lib = load(name)
-    prefix, launches = _ENTRY_POINTS[name]
+    prefix, params, launches = _ENTRY_POINTS[name]
     ptr = ctypes.c_void_p
-    num_parts = getattr(lib, f"{prefix}_num_parts")
-    num_parts.argtypes = [ctypes.c_int] * 4
-    num_parts.restype = ctypes.c_longlong
+    if hasattr(lib, f"{prefix}_num_parts"):
+        num_parts = getattr(lib, f"{prefix}_num_parts")
+        num_parts.argtypes = [ctypes.c_int] * 4
+        num_parts.restype = ctypes.c_longlong
     for fn_name, (n_int, n_ptr) in launches.items():
         fn = getattr(lib, fn_name)
-        fn.argtypes = ([ctypes.POINTER(_Params)] + [ctypes.c_int] * n_int
+        fn.argtypes = ([ctypes.POINTER(params)] + [ctypes.c_int] * n_int
                        + [ptr] * (n_ptr + 1))  # the pointers, then the stream
         fn.restype = ctypes.c_int
     error_string = getattr(lib, f"{prefix}_error_string")

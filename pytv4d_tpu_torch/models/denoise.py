@@ -3,9 +3,13 @@
 (``README.md:107-158``) as library API, the README's noise recipe, and the
 scikit-image-compatible ``denoise_tv_chambolle`` (``README.md:260``).
 
-The subgradient-descent and Chambolle-Pock solvers are ported:
-``TVDenoiser`` has ``.gd`` and ``.cp``, and no ``.admm`` / ``.fista`` /
-``.tgv`` yet (ROADMAP.md queue A).
+The subgradient-descent, Chambolle-Pock and TGV-2 solvers are ported:
+``TVDenoiser`` has ``.gd``, ``.cp`` and ``.tgv``, and no ``.admm`` /
+``.fista`` yet (ROADMAP.md queue A).
+
+Where a solve runs (``utils.device``): a tensor stays on its own device; a
+numpy array or list goes to the CUDA device, and the call raises where there
+is none; ``device="cpu"`` asks for the CPU explicitly.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import torch
 from ..core.config import TVConfig
 from ..solvers.cp import chambolle_pock
 from ..solvers.gd import subgradient_descent
+from ..solvers.tgv import tgv_denoise
+from ..utils.device import on_device
 
 
 def add_noise(img, noise_level: float = 100.0, seed: int = 0) -> np.ndarray:
@@ -29,8 +35,8 @@ def add_noise(img, noise_level: float = 100.0, seed: int = 0) -> np.ndarray:
     return img + noise_level * np.random.rand(*img.shape)
 
 
-def _to_volume(image):
-    image = torch.as_tensor(image)
+def _to_volume(image, device=None):
+    image = on_device(image, device)
     if image.ndim == 2:
         return image[None, None], 2
     if image.ndim == 3:  # z-stack
@@ -53,22 +59,35 @@ class TVDenoiser:
     """TV denoising model: minimize ``1/2 ||x - x0||^2 + reg * TV(x)``.
 
     Accepts a 2D ``(N, N)``, 3D ``(Nz, N, N)`` or 4D ``(Nz, M, N, N)``
-    tensor (or numpy array) and returns the same rank; the solve runs on
-    the tensor's device.
+    tensor and returns the same rank; the solve runs on the tensor's
+    device.  A numpy array goes to the CUDA device (``RuntimeError`` where
+    there is none) unless ``device=`` names another.
     """
 
     reg: float = 25.0
     cfg: TVConfig = TVConfig()
 
-    def gd(self, noisy, n_iter: int = 300, step_size: float = 5e-3, **kw):
-        x, ndim = _to_volume(noisy)
+    def gd(self, noisy, n_iter: int = 300, step_size: float = 5e-3,
+           device=None, **kw):
+        x, ndim = _to_volume(noisy, device)
         res = subgradient_descent(x, n_iter=n_iter, reg=self.reg,
                                   step_size=step_size, cfg=self.cfg, **kw)
         return res._replace(x=_from_volume(res.x, ndim))
 
-    def cp(self, noisy, n_iter: int = 300, **kw):
-        x, ndim = _to_volume(noisy)
+    def cp(self, noisy, n_iter: int = 300, device=None, **kw):
+        x, ndim = _to_volume(noisy, device)
         res = chambolle_pock(x, n_iter=n_iter, reg=self.reg, cfg=self.cfg, **kw)
+        return res._replace(x=_from_volume(res.x, ndim))
+
+    def tgv(self, noisy, n_iter: int = 300, alpha0: float = None,
+            device=None, **kw):
+        """Second-order TGV denoising (``solvers.tgv``): ``reg`` plays
+        alpha1; ``alpha0`` defaults to ``2 * reg`` (the customary ratio).
+        Fixes TV's staircasing on piecewise-linear content."""
+        x, ndim = _to_volume(noisy, device)
+        res = tgv_denoise(x, n_iter=n_iter, alpha1=self.reg,
+                          alpha0=2.0 * self.reg if alpha0 is None else alpha0,
+                          **kw)
         return res._replace(x=_from_volume(res.x, ndim))
 
 
@@ -80,10 +99,13 @@ def denoise_tv_chambolle(
     scheme: str = "hybrid",
     channel_axis: int = None,
     coupled_channels: bool = False,
+    device=None,
 ):
     """scikit-image-compatible TV denoising: minimizes ``1/2 ||x - x0||^2 +
     weight * TV(x)`` with ``max_num_iter`` Chambolle-Pock iterations and
-    returns a numpy array of the input rank.
+    returns a numpy array of the input rank.  A numpy image is solved on
+    the CUDA device (``RuntimeError`` where there is none) unless
+    ``device=`` names another; a tensor on its own device.
 
     ``channel_axis`` marks an axis of independent channels (per-channel TV):
     2D multichannel rides a decoupled z axis, 3D z-stack multichannel the
@@ -101,28 +123,28 @@ def denoise_tv_chambolle(
             "coupled_channels=True (vectorial TV) is not ported yet "
             "(ROADMAP.md queue A: vectorial TV in models/denoise.py)")
 
+    img = on_device(image, device)
+
     def solve(vol, cfg):
-        return chambolle_pock(torch.as_tensor(vol), n_iter=max_num_iter,
-                              reg=weight, cfg=cfg)
+        return chambolle_pock(vol, n_iter=max_num_iter, reg=weight, cfg=cfg)
 
     if channel_axis is None:
-        vol, ndim = _to_volume(image)
+        vol, ndim = _to_volume(img)
         res = solve(vol, TVConfig(scheme=scheme))
         return _from_volume(res.x, ndim).cpu().numpy()
 
-    img = np.asarray(image)
-    ch_first = np.moveaxis(img, channel_axis, 0)
+    ch_first = torch.movedim(img, channel_axis, 0)
     if ch_first.ndim == 3:       # 2D multichannel: channels -> decoupled z
-        vol = np.ascontiguousarray(ch_first[:, None])  # (C, 1, H, W)
+        vol = ch_first[:, None].contiguous()  # (C, 1, H, W)
         res = solve(vol, TVConfig(scheme=scheme, reg_z_over_reg=0.0))
-        out = res.x.cpu().numpy()[:, 0]
+        out = res.x[:, 0]
     elif ch_first.ndim == 4:     # 3D z-stack multichannel: channels -> t
-        vol = np.ascontiguousarray(np.moveaxis(ch_first, 0, 1))
+        vol = torch.movedim(ch_first, 0, 1).contiguous()
         res = solve(vol, TVConfig(scheme=scheme))
-        out = np.moveaxis(res.x.cpu().numpy(), 1, 0)
+        out = torch.movedim(res.x, 1, 0)
     else:
         raise ValueError(
             f"channel_axis given but image has rank {img.ndim}; expected 3 "
             f"(2D multichannel) or 4 (3D z-stack multichannel)"
         )
-    return np.moveaxis(out, 0, channel_axis)
+    return torch.movedim(out, 0, channel_axis).cpu().numpy()

@@ -5,34 +5,48 @@ every call (``tv_operators_GPU.py:179,247`` — SURVEY.md section 3.2).  Here
 data stays on the tensor's device, and :func:`tv_and_subgrad` takes the
 fused TV kernels (B3/B4) for a CUDA tensor they support.  PyTorch runs
 eagerly, so these are plain functions: there is no executable cache.
+
+Every function here takes a tensor, which stays on its device, or a numpy
+array, which goes to the CUDA device (``RuntimeError`` where there is none)
+unless ``device=`` names another (``utils.device.on_device``).
 """
 
 from __future__ import annotations
 
-import torch
-
 from ..core.config import TVConfig
+from ..utils.device import on_device
 from . import operators as _ops
 from . import tv as _tv
 
-D = _ops.D
-D_T = _ops.D_T
-compute_L21_norm = _ops.compute_L21_norm
+
+def _on_device_first(base):
+    """``base`` with its first argument placed by ``on_device``."""
+    def fn(arr, *args, device=None, **kwargs):
+        return base(on_device(arr, device), *args, **kwargs)
+
+    fn.__name__ = fn.__qualname__ = base.__name__
+    fn.__doc__ = base.__doc__
+    return fn
+
+
+D = _on_device_first(_ops.D)
+D_T = _on_device_first(_ops.D_T)
+compute_L21_norm = _on_device_first(_ops.compute_L21_norm)
 
 
 def tv_and_subgrad(img, scheme="hybrid", mask=None, reg_z_over_reg=1.0,
                    reg_time=0.0, mask_static=None, factor_reg_static=0.0,
                    weight_time=None, return_grad_norms=False,
-                   norm_type="iso", huber_delta=1.0):
+                   norm_type="iso", huber_delta=1.0, device=None):
     """tv + subgradient on the tensor's device: the fused kernels
     (``kernels.fused.tv_and_subgrad_fused``) for a rank-4 CUDA tensor without
     ``mask`` that ``kernels.dispatch.can_fuse`` accepts (iso, aniso or huber
     norm, float32/bfloat16, plane-shaped static masks / weight_time), else
     ``ops.tv.tv_and_subgrad`` — the same numbers to f32 round-off either
-    way.  A numpy array runs on the CPU."""
+    way."""
     from ..kernels.dispatch import can_fuse, t_plane_multiplier
 
-    img = torch.as_tensor(img)
+    img = on_device(img, device)
     cfg = TVConfig(scheme=scheme, reg_z_over_reg=reg_z_over_reg,
                    reg_time=reg_time, factor_reg_static=factor_reg_static,
                    norm=norm_type, huber_delta=huber_delta)

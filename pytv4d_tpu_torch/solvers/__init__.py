@@ -1,4 +1,4 @@
-from . import cp, fidelity, gd, progress
+from . import cp, fidelity, gd, progress, tgv
 from .cp import (
     CPResult,
     CPState,
@@ -16,3 +16,10 @@ from .fidelity import (
     validate_fidelity,
 )
 from .gd import GDResult, gd_step, subgradient_descent
+from .tgv import (
+    TGV_FIELDS,
+    TGV_NORM_BOUND_SQ,
+    TGVResult,
+    TGVState,
+    tgv_denoise,
+)

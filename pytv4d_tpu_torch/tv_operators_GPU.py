@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .ops import api as _api
+from .utils.device import on_device
 
 __all__ = [
     "compute_L21_norm",
@@ -46,15 +47,9 @@ def _want_tensor(img, kwargs) -> bool:
 
 
 def _on_device(img):
-    """A tensor as it is; anything else as a float32 tensor on the GPU."""
-    if isinstance(img, torch.Tensor):
-        return img
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "a numpy input goes to the CUDA device, and none is available; "
-            "pass a torch tensor to compute on its own device")
-    return torch.as_tensor(np.asarray(img), dtype=torch.float32,
-                           device=torch.device("cuda"))
+    """A tensor as it is; anything else as a float32 tensor on the GPU
+    (``utils.device.on_device``)."""
+    return on_device(img, dtype=torch.float32)
 
 
 def _to_host(t):

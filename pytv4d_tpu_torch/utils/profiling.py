@@ -5,6 +5,7 @@ helpers).
 - :func:`cp_traffic_model` — bytes moved per fused CP iteration, the same
   model as the JAX package's.
 - :func:`tv_traffic_model` — bytes each TV pass (B3, B4) must move.
+- :func:`tgv_traffic_model` — bytes each streaming TGV pass (B6) must move.
 - :func:`roofline_fraction` — achieved bytes/s over the H100's data-sheet
   HBM bandwidth.
 - :func:`time_iterations` — iterations/s of a device loop, timed with CUDA
@@ -53,6 +54,21 @@ def tv_traffic_model(shape, dtype=torch.float32, norm: str = "iso"):
     pass_1 = (bpe + 4) * vox
     pass_2 = (2 * bpe + (0 if norm == "aniso" else 4)) * vox
     return pass_1, pass_2
+
+
+def tgv_traffic_model(shape, mode: str, dtype=torch.float32):
+    """Bytes ``(pass_PQ, pass_XW)`` of one streaming TGV-2 iteration
+    (``kernels.tgv_stream``), each array once per pass: pass PQ reads xb,
+    wb, p, q and writes p, q; pass XW reads x, x0, p, w, q and writes x, xb,
+    w, wb — 28 / 44 / 63 planes in all for '2d' / '3d' / '4d'.  Their sum is
+    the JAX package's minimal model.  The whole-solve 2d kernel has no
+    per-iteration HBM traffic; this model is for the streaming path."""
+    n = {"2d": 2, "3d": 3, "4d": 4}[mode]
+    n_q = n * (n + 1) // 2
+    per_plane = int(np.prod(shape)) * dtype.itemsize
+    pass_pq = (1 + 2 * n + n_q) + (n + n_q)
+    pass_xw = (2 + 2 * n + n_q) + (2 + 2 * n)
+    return pass_pq * per_plane, pass_xw * per_plane
 
 
 def roofline_fraction(bytes_per_iter: int, iters_per_s: float,

@@ -29,3 +29,23 @@ def test_repo_kernels_include_the_shared_header():
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "stencil.cuh"]
+    for name in ("tgv_stream", "tgv_resident"):
+        sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
+        assert [os.path.basename(p) for p in sources] == \
+            [f"{name}.cu", "tgv.cuh", "stencil.cuh"]
+
+
+def test_every_library_has_its_entry_points_and_its_source():
+    """Each library the wrappers bind is a source under ``csrc/``, and each
+    launch function it names is defined there."""
+    from pytv4d_tpu_torch.kernels import fused
+
+    assert set(fused._ENTRY_POINTS) == {"cp_fused", "tv_fused", "tgv_stream",
+                                        "tgv_resident"}
+    for name, (prefix, params, launches) in fused._ENTRY_POINTS.items():
+        with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
+            text = f.read()
+        assert f"{prefix}_error_string(" in text
+        assert hasattr(params, "_fields_")
+        for fn in launches:
+            assert f"int {fn}(" in text

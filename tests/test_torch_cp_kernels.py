@@ -162,8 +162,9 @@ def test_can_fuse_guard_and_tmul():
     wt = np.full((1, 1, 4, 5), 2.0)
     tm = t_plane_multiplier((3, 2, 4, 5), TVConfig(reg_time=0.5,
                                                    factor_reg_static=0.25),
-                            mask, wt)
+                            mask, wt, device="cpu")
     expect = np.full((4, 5), 2.0)
     expect[1, 2] = 1.0
     np.testing.assert_allclose(tm.numpy(), expect)
-    assert t_plane_multiplier((3, 2, 4, 5), TVConfig(), mask, wt) is None
+    assert t_plane_multiplier((3, 2, 4, 5), TVConfig(), mask, wt,
+                              device="cpu") is None

@@ -1,0 +1,96 @@
+"""Where the port's entry points compute: a numpy input goes to the CUDA
+device and raises where there is none (it never runs on the CPU unasked);
+``device="cpu"`` or a CPU tensor asks for the CPU."""
+
+import numpy as np
+import pytest
+import torch
+
+from pytv4d_tpu_torch import interop, tv_GPU
+from pytv4d_tpu_torch.core.config import TVConfig
+from pytv4d_tpu_torch.kernels.dispatch import t_plane_multiplier
+from pytv4d_tpu_torch.models import TVDenoiser, denoise_tv_chambolle
+from pytv4d_tpu_torch.ops import api
+
+IMG = np.random.default_rng(0).random((12, 16)).astype(np.float32)
+VOL = np.random.default_rng(1).random((2, 2, 6, 8)).astype(np.float32)
+MODEL = TVDenoiser(reg=0.3)
+
+# name -> (call taking a numpy input and keywords, its numpy input)
+ENTRY_POINTS = {
+    "TVDenoiser.cp": (lambda a, **kw: MODEL.cp(a, n_iter=2, **kw).x, IMG),
+    "TVDenoiser.gd": (lambda a, **kw: MODEL.gd(a, n_iter=2, **kw).x, IMG),
+    "TVDenoiser.tgv": (lambda a, **kw: MODEL.tgv(a, n_iter=2, **kw).x, IMG),
+    "denoise_tv_chambolle": (
+        lambda a, **kw: denoise_tv_chambolle(a, max_num_iter=2, **kw), IMG),
+    "denoise_tv_chambolle-channels": (
+        lambda a, **kw: denoise_tv_chambolle(a, max_num_iter=2,
+                                             channel_axis=0, **kw), VOL[0]),
+    "api.tv_and_subgrad": (lambda a, **kw: api.tv_and_subgrad(a, **kw)[1],
+                           VOL),
+    "api.tv_hybrid": (lambda a, **kw: api.tv_hybrid(a, **kw)[1], VOL),
+    "api.D_hybrid": (lambda a, **kw: api.D_hybrid(a, **kw), VOL),
+    "api.D": (lambda a, **kw: api.D(a, "upwind", **kw), VOL),
+}
+
+
+def _needs_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: a numpy input runs there")
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_numpy_without_device_raises_where_no_cuda(name):
+    _needs_no_cuda()
+    call, arr = ENTRY_POINTS[name]
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        call(arr)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        call(arr.tolist())
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_device_cpu_and_cpu_tensor_run_and_agree(name):
+    call, arr = ENTRY_POINTS[name]
+    asked = call(arr, device="cpu")
+    if name.startswith("denoise_tv_chambolle"):
+        # numpy out by contract; a tensor input is solved on its own device
+        assert isinstance(asked, np.ndarray) and asked.shape == arr.shape
+        np.testing.assert_array_equal(call(torch.tensor(arr)), asked)
+        return
+    tensor = call(torch.tensor(arr))
+    assert asked.device.type == tensor.device.type == "cpu"
+    assert torch.equal(asked, tensor)
+
+
+def test_on_device_rule():
+    from pytv4d_tpu_torch.utils.device import on_device
+
+    t = torch.zeros(3, dtype=torch.float64)
+    assert on_device(t) is t and on_device(t, "cpu", torch.float32) is t
+    got = on_device(IMG, "cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.float32
+    assert on_device(IMG.astype(np.float64), "cpu").dtype == torch.float64
+    assert on_device([1.0, 2.0], "cpu", torch.float32).dtype == torch.float32
+    _needs_no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        on_device(IMG)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tv_GPU.tv_hybrid(VOL)
+
+
+def test_state_and_multiplier_need_a_device():
+    """No ``"cpu"`` default: the device is a required keyword."""
+    x = np.zeros((2, 2, 4, 5))
+    with pytest.raises(TypeError, match="device"):
+        interop.state_from_numpy(x, x, None)
+    with pytest.raises(TypeError, match="device"):
+        interop.tgv_state_from_numpy(x, x, x, x, x, x)
+    with pytest.raises(TypeError, match="device"):
+        t_plane_multiplier((2, 2, 4, 5), TVConfig(reg_time=0.5), None,
+                           np.ones((1, 1, 4, 5)))
+    st = interop.state_from_numpy(x, x, None, device="cpu")
+    assert st.x.device.type == "cpu" and st.y_D is None
+    tm = t_plane_multiplier((2, 2, 4, 5), TVConfig(reg_time=0.5), None,
+                            np.ones((1, 1, 4, 5)), device="cpu")
+    assert tm.device.type == "cpu" and tuple(tm.shape) == (4, 5)

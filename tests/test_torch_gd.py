@@ -87,7 +87,7 @@ def test_cameraman_gd_reference_value():
 
 def test_denoiser_gd_rank_round_trip(x0):
     model = TVDenoiser(reg=0.3)
-    assert model.gd(x0[0, 0], n_iter=3).x.shape == SHAPE[2:]
+    assert model.gd(x0[0, 0], n_iter=3, device="cpu").x.shape == SHAPE[2:]
     out3d = model.gd(torch.tensor(x0[:, 0]), n_iter=3)
     assert out3d.x.shape == (SHAPE[0],) + SHAPE[2:]
     four = model.gd(torch.tensor(x0), n_iter=3)
@@ -133,8 +133,9 @@ def test_progress_every(x0):
 
 
 def test_api_tv_and_subgrad_on_cpu_equals_ops_tv(x0):
-    """On a CPU tensor (or numpy) the public entry point takes the plain
-    ops.tv path, mask_static / weight_time / norms included."""
+    """On a CPU tensor (or numpy with ``device="cpu"``) the public entry
+    point takes the plain ops.tv path, mask_static / weight_time / norms
+    included."""
     mask, wt = _planes()
     x = torch.tensor(x0, dtype=torch.float64)
     for kw in (dict(), dict(reg_time=0.5, norm_type="huber", huber_delta=0.3),
@@ -146,6 +147,7 @@ def test_api_tv_and_subgrad_on_cpu_equals_ops_tv(x0):
         ref = tv.tv_and_subgrad(x, "central", **kw)
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
-    got = api.tv_hybrid(x0.astype(np.float64), mask_static=False, mask=[])
+    got = api.tv_hybrid(x0.astype(np.float64), mask_static=False, mask=[],
+                        device="cpu")
     ref = tv.tv_hybrid(torch.tensor(x0, dtype=torch.float64))
     assert all(torch.equal(a, b) for a, b in zip(got, ref))

@@ -21,6 +21,10 @@ REG_VARIANTS = [(1.0, 0.0), (0.3, 0.7), (0.0, 0.5), (2.0, 1.0),
 
 def test_import_leaves_jax_out():
     code = ("import sys, pytv4d_tpu_torch, pytv4d_tpu_torch.kernels.fused, "
+            "pytv4d_tpu_torch.kernels.tgv_stream, "
+            "pytv4d_tpu_torch.kernels.tgv_resident, "
+            "pytv4d_tpu_torch.solvers.tgv, pytv4d_tpu_torch.utils.device, "
+            "pytv4d_tpu_torch.utils.profiling, "
             "pytv4d_tpu_torch.interop; print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.') or "
             "m.startswith('pytv4d_tpu.') or m == 'pytv4d_tpu'))")

@@ -149,7 +149,7 @@ def test_denoise_tv_chambolle_matches_jax(channel_axis):
     shape = {None: (20, 24), -1: (20, 24, 3), 0: (2, 3, 20, 24)}[channel_axis]
     img = rng.random(shape)
     got = denoise_tv_chambolle(img, weight=0.2, max_num_iter=30,
-                               channel_axis=channel_axis)
+                               channel_axis=channel_axis, device="cpu")
     ref = np.asarray(jden.denoise_tv_chambolle(img, weight=0.2,
                                                max_num_iter=30,
                                                channel_axis=channel_axis))
