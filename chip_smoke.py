@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the CP kernels (B1 pass A, B2 pass B), the TV kernels (B3 norms,
-B4 subgradient) and the TGV-2 kernels (B6 passes PQ and XW, B7 whole solve)
+Builds the CP kernels (B1 pass A, B5 pass A for inverse problems, B2 pass
+B), the TV kernels (B3 norms, B4 subgradient) and the TGV-2 kernels (B6 passes PQ and XW, B7 whole solve)
 from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once.  Then, for
 the Chambolle-Pock path (phases 3-7): holds B1/B2 against
 their plain PyTorch versions, drives ``TVDenoiser.cp`` on the cameraman
@@ -18,9 +18,21 @@ holds B6/B7 against their plain versions, drives ``TVDenoiser.tgv`` on the
 cameraman image from a numpy array (it must land on the card, in one B7
 launch) and a 4d ``tgv_denoise`` through B6, measures the whole-solve and
 streaming rates and where one overtakes the other, and runs the
-(96, 16, 512, 512) volume in the 4d mode.  Every phase raises on failure;
-nothing falls back to the CPU.  The last line of stdout is one JSON object
-with ``"ok": true`` and the device.
+(96, 16, 512, 512) volume in the 4d mode.  For the inverse solver and
+parallel-beam CT (phases 16-19): holds B5 (pass A for inverse problems)
+against its plain version on the other kernels' case grid, and B2 writing
+out of place against its plain version, both (and B3, in phase 8) also at
+the two shapes the CT path launches them on; solves a deblurring problem with
+``cp_inverse`` on the kernels and on the plain step, and reconstructs a
+seeded phantom with ``cp_reconstruct`` from numpy inputs (it must land on
+the card, with one B5 and one B2 launch per iteration and one B3 per sampled
+loss); runs the (16, 4, 512, 512) x 96-angle reconstruction on the kernels,
+on the plain step and with a bf16 dual, holds the two final states against
+each other, and splits the iteration into the
+projector, its adjoint and the kernels; and runs three iterations at
+(96, 16, 512, 512) x 96 angles for the memory it takes.  Every phase raises
+on failure; nothing falls back to the CPU.  The last line of stdout is one
+JSON object with ``"ok": true`` and the device.
 """
 
 from __future__ import annotations
@@ -39,12 +51,24 @@ import torch
 
 from pytv4d_tpu_torch import tv_GPU
 from pytv4d_tpu_torch.core.config import TVConfig
-from pytv4d_tpu_torch.core.schemes import SCHEMES, num_channels
+from pytv4d_tpu_torch.core.schemes import (
+    SCHEMES,
+    num_channels,
+    operator_norm_bound_sq,
+)
 from pytv4d_tpu_torch.kernels import build, fused, tgv_resident, tgv_stream
 from pytv4d_tpu_torch.kernels.dispatch import t_plane_multiplier
 from pytv4d_tpu_torch.models import TVDenoiser, add_noise
+from pytv4d_tpu_torch.models.ct import (
+    cp_reconstruct,
+    estimate_op_norm,
+    make_projector,
+    radon,
+)
 from pytv4d_tpu_torch.solvers.cp import chambolle_pock, default_tau
+from pytv4d_tpu_torch.solvers.fidelity import fidelity_dual_prox, fidelity_loss
 from pytv4d_tpu_torch.solvers.gd import subgradient_descent
+from pytv4d_tpu_torch.solvers.inverse import cp_inverse
 from pytv4d_tpu_torch.solvers.tgv import TGV_FIELDS, tgv_denoise
 from pytv4d_tpu_torch.utils import cameraman, has_real_cameraman
 from pytv4d_tpu_torch.utils.profiling import (
@@ -70,6 +94,7 @@ LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident")
 # each wrapper's launch counter, by kernel id
 COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
             "B3": fused.tv_norms, "B4": fused.tv_subgrad,
+            "B5": fused.tv_dual,
             "B6pq": tgv_stream.tgv_pq, "B6xw": tgv_stream.tgv_xw,
             "B7": tgv_resident.tgv_resident_solve}
 # data-sheet peaks of the H100 SXM at 700 W: HBM bytes/s (utils.profiling)
@@ -78,6 +103,10 @@ H100_F32_PEAK_FLOPS = 67e12
 SMALL, MAIN_4D = (4, 3, 16, 128), (32, 8, 256, 256)
 CAMERAMAN = (1, 1, 256, 256)  # what the main path launches the kernels on
 NORTH_STAR = (96, 16, 512, 512)
+CT_SHAPE, CT_ANGLES = (16, 4, 512, 512), 96  # the JAX package's CT bench shape
+CT_SMALL = (2, 2, 64, 64)  # the CT main path from numpy inputs
+# what cp_reconstruct launches its kernels with on the main path
+CT_CFG = dict(scheme="hybrid", reg_time=0.5)
 # the scheme configs of the JAX package's kernel tests
 CONFIGS = {"base": {}, "time": dict(reg_time=0.5),
            "zt": dict(reg_time=0.7, reg_z_over_reg=0.3),
@@ -531,9 +560,11 @@ def _gd_tmul(shape, cfg, gen):
 def phase_gd_kernels():
     errs = {"B3": {"f32": 0.0, "bf16": 0.0}, "B4": {"f32": 0.0, "bf16": 0.0}}
     n = 0
-    for shape in (SMALL, CAMERAMAN, MAIN_4D):
+    for shape in (SMALL, CAMERAMAN, MAIN_4D, CT_SMALL, CT_SHAPE):
         gen = torch.Generator(device=DEV).manual_seed(4321)
         for name, cfg, use_tmul, dtype in _gd_cases():
+            if shape == CT_SHAPE and name != "hybrid-time":
+                continue  # at full width, what the CT main path launches
             x = torch.rand(shape, generator=gen, device=DEV).to(dtype)
             tmul = _gd_tmul(shape, cfg, gen) if use_tmul else None
             norms_k, parts_k = fused.tv_norms(x, tmul, cfg=cfg)
@@ -556,8 +587,9 @@ def phase_gd_kernels():
             rel = abs(tv_k - tv_p) / abs(tv_p)
             require(rel <= 1e-6, f"{name} {shape}: TV rel err {rel:.3g}")
             n += 1
-    log(f"[8 GD kernels vs plain] {n} cases at {SMALL}, {CAMERAMAN} and "
-        f"{MAIN_4D}: pass; max abs err B3 f32 {errs['B3']['f32']:.3g} "
+    log(f"[8 GD kernels vs plain] {n} cases at {SMALL}, {CAMERAMAN}, "
+        f"{MAIN_4D}, {CT_SMALL} and (the CT path's config) {CT_SHAPE}: pass; "
+        f"max abs err B3 f32 {errs['B3']['f32']:.3g} "
         f"(bf16 x {errs['B3']['bf16']:.3g}), B4 f32 {errs['B4']['f32']:.3g} "
         f"bf16 {errs['B4']['bf16']:.3g}")
     sync()
@@ -1122,6 +1154,348 @@ def phase_tgv_north_star():
     sync()
 
 
+# ---------------------------------------------------------------- phase 16
+def _inverse_cases(shape):
+    """(name, cfg, storage): phase 3's case grid without the cases B5 does
+    not see (fidelity, nonneg, tmul); at the full CT width, what the CT
+    main path launches: its config with an f32 and a bf16 dual."""
+    if shape == CT_SHAPE:
+        for storage in ("f32", "f32+bf16dual"):
+            yield f"hybrid-time-{storage}", TVConfig(**CT_CFG), storage
+        return
+    for name, cfg, opts, storage in _cases():
+        if not opts:
+            yield name, cfg, storage
+
+
+INVERSE_SHAPES = (SMALL, CAMERAMAN, MAIN_4D, CT_SMALL, CT_SHAPE)
+
+
+def phase_inverse_kernels():
+    """B5 against its plain version, and B2 writing out of place against
+    its plain version and against itself in place, at the shapes of the
+    earlier phases and at the two the CT main path launches them on."""
+    reg, sigma_D = 0.5, 0.5
+    errs = {"f32": 0.0, "bf16": 0.0}
+    n = 0
+    for shape in INVERSE_SHAPES:
+        gen = torch.Generator(device=DEV).manual_seed(1357)
+        for name, cfg, storage in _inverse_cases(shape):
+            x, _, _, y_D = _state(shape, cfg, STORAGE[storage], gen, "l2")
+            x_before = x.clone()
+            y_k, y_p = y_D.clone(), y_D.clone()
+            kw = dict(cfg=cfg, sigma_D=sigma_D, reg=reg)
+            out_k, tv_k = fused.tv_dual(x, y_k, **kw)
+            _, tv_p = fused.tv_dual_plain(x, y_p, **kw)
+            sync()
+            require(out_k is y_k and torch.equal(x, x_before),
+                    "tv_dual updates y_D in place and leaves x_bar alone")
+            bf16 = storage != "f32"
+            kind = "bf16" if bf16 else "f32"
+            errs[kind] = max(errs[kind], _compare(y_k, y_p, bf16, 0.0))
+            rel = abs(float(tv_k.sum()) - float(tv_p.sum())) / float(tv_p.sum())
+            require(rel <= 1e-5, f"B5 {name} {shape}: TV rel err {rel:.3g}")
+            n += 1
+    log(f"[16 inverse kernels vs plain] B5: {n} cases at {SMALL}, "
+        f"{CAMERAMAN}, {MAIN_4D}, {CT_SMALL} and (the CT path's config, f32 "
+        f"and bf16 dual) {CT_SHAPE}: pass; max abs err f32 "
+        f"{errs['f32']:.3g} bf16 {errs['bf16']:.3g}")
+
+    err_out, n_out = 0.0, 0
+    cfg = TVConfig(**CT_CFG)
+    for shape in INVERSE_SHAPES:
+        gen = torch.Generator(device=DEV).manual_seed(2468)
+        tau = default_tau(cfg, shape[0], shape[1])
+        for storage in STORAGE:
+            for nonneg in (False, True):
+                x, _, y_A, y_D = _state(shape, cfg, STORAGE[storage], gen,
+                                        "l1")  # y_A of both signs
+                x_before = x.clone()
+                kw = dict(cfg=cfg, tau=tau, nonneg=nonneg)
+                # the inverse solver's call: x itself in the x0 slot
+                out_k, _ = fused.cp_primal(x, x, y_A, y_D, out=torch.empty_like(x),
+                                           **kw)
+                out_p, _ = fused.cp_primal_plain(x, x, y_A, y_D,
+                                                 out=torch.empty_like(x), **kw)
+                sync()
+                require(torch.equal(x, x_before), "out-of-place B2 leaves x")
+                in_place, _ = fused.cp_primal(x.clone(), x, y_A, y_D, **kw)
+                require(torch.equal(in_place, out_k),
+                        "B2 out of place equals B2 in place, bit for bit")
+                require(not nonneg or float(out_k.float().min()) >= 0.0,
+                        "nonneg clamps x'")
+                err_out = max(err_out, _compare(out_k, out_p,
+                                                storage != "f32", reg))
+                n_out += 1
+                del x, x_before, y_A, y_D, out_k, out_p, in_place
+    log(f"[16 inverse kernels vs plain] B2 out of place: {n_out} cases "
+        f"(storage x nonneg) at the five shapes: pass, equal to in place "
+        f"bit for bit; max abs err vs plain {err_out:.3g}")
+    torch.cuda.empty_cache()
+    sync()
+    return errs
+
+
+# ---------------------------------------------------------------- phase 17
+def _blur(x):
+    """A 3-tap periodic row blur: the JAX package's fused-inverse test
+    operator."""
+    return (x + torch.roll(x, 1, -1) + torch.roll(x, -1, -1)) / 3.0
+
+
+def _phantom(shape, seed):
+    """A seeded piecewise-constant phantom: a few discs per slice inside the
+    inscribed circle, values in (0, 1], as float32 numpy."""
+    rng = np.random.default_rng(seed)
+    Nz, M, N, _ = shape
+    r, c = np.mgrid[:N, :N]
+    vol = np.zeros(shape, np.float32)
+    for z in range(Nz):
+        for _ in range(4):
+            cr, cc = rng.uniform(0.3 * N, 0.7 * N, 2)
+            rad = rng.uniform(0.05 * N, 0.15 * N)
+            disc = (r - cr) ** 2 + (c - cc) ** 2 <= rad ** 2
+            # the disc drifts over the frames: a dynamic object
+            for m in range(M):
+                vol[z, m] += rng.uniform(0.2, 0.5) * np.roll(disc, m, axis=1)
+    return vol
+
+
+INVERSE_TOL = dict(rtol=2e-5, atol=3e-6)  # the JAX fused-vs-jnp inverse bar
+# a whole CT solve on the kernels against the plain step: tens of iterations
+# of f32 round-off, and an adjoint whose atomic adds sum in an order that
+# changes from run to run: ten times the per-step bar
+CT_SOLVE_TOL = dict(rtol=2e-4, atol=3e-5)
+
+
+def phase_inverse_main_path():
+    rng = np.random.default_rng(0)
+    truth = torch.as_tensor(rng.random(SMALL), dtype=torch.float32,
+                            device=DEV)
+    b = _blur(truth) + 0.05 * torch.as_tensor(
+        rng.standard_normal(SMALL), dtype=torch.float32, device=DEV)
+    worst, n = 0.0, 0
+    for cfg in [TVConfig(scheme=s, reg_time=0.5) for s in SCHEMES] + [
+            TVConfig(scheme="hybrid", reg_time=0.5, norm=norm)
+            for norm in ("aniso", "huber")]:
+        kw = dict(n_iter=8, reg=0.05, op_norm=1.0, cfg=cfg)
+        zero_counters()
+        got = cp_inverse(_blur, b, SMALL, fused=True, **kw)
+        sync()
+        require_launches(read_counters(), "cp_inverse fused", B5=8, B2=8,
+                         B3=8)
+        ref = cp_inverse(_blur, b, SMALL, fused=False, **kw)
+        sync()
+        for name in ("x", "x_bar", "y_A", "y_D"):
+            worst = max(worst, _compare(getattr(got.state, name),
+                                        getattr(ref.state, name), False, 0.0,
+                                        INVERSE_TOL))
+        rel = float(((got.loss - ref.loss).abs() / ref.loss.abs()).max())
+        require(rel <= INVERSE_TOL["rtol"],
+                f"cp_inverse {cfg.scheme} {cfg.norm}: loss rel err {rel:.3g}")
+        n += 1
+    log(f"[17 inverse main path] cp_inverse(3-tap blur, {SMALL}, 8 "
+        f"iterations) on the kernels vs the plain step, both on the card: "
+        f"{n} configs within rtol {INVERSE_TOL['rtol']} atol "
+        f"{INVERSE_TOL['atol']} on x, x_bar, y_A, y_D and the loss; max abs "
+        f"err {worst:.3g}")
+
+    shape, n_angles, n_iter, loss_every = CT_SMALL, 24, 60, 3
+    truth = _phantom(shape, seed=0)
+    angles = np.linspace(0.0, np.pi, n_angles, endpoint=False)
+    sino = radon(truth, angles).cpu().numpy()
+    sino += 0.5 * np.random.default_rng(1).standard_normal(
+        sino.shape).astype(np.float32)
+    kw = dict(n_iter=n_iter, reg=0.2, nonneg=True, loss_every=loss_every,
+              cfg=TVConfig(**CT_CFG))
+    zero_counters()
+    res = cp_reconstruct(sino, angles, shape, **kw)  # numpy in, no device=
+    sync()
+    launches = read_counters()
+    require_launches(launches, "cp_reconstruct", B5=n_iter, B2=n_iter,
+                     B3=n_iter // loss_every)
+    require(res.x.is_cuda and tuple(res.x.shape) == shape
+            and res.x.dtype == torch.float32 and res.loss.is_cuda
+            and tuple(res.loss.shape) == (n_iter // loss_every,),
+            "numpy inputs are reconstructed on the card")
+    require(bool(torch.isfinite(res.x).all()) and float(res.x.min()) >= 0.0,
+            "the reconstruction is finite and nonnegative")
+    half = res.loss[len(res.loss) // 2:]
+    require(bool((half[1:] <= half[:-1]).all()),
+            "the loss falls monotonically over the last half of the run")
+    ref = cp_reconstruct(sino, angles, shape, fused=False, **kw)
+    sync()
+    rel = abs(float(res.loss[-1]) - float(ref.loss[-1])) / float(ref.loss[-1])
+    err = _compare(res.x, ref.x, False, 0.0, CT_SOLVE_TOL)
+    require(rel <= 1e-4, f"cp_reconstruct fused vs plain final loss {rel:.3g}")
+    t = torch.as_tensor(truth, device=DEV)
+    nrmse = float(torch.linalg.norm(res.x - t) / torch.linalg.norm(t))
+    require(nrmse < 0.35, f"the phantom is recovered (nrmse {nrmse:.3f})")
+    log(f"[17 inverse main path] cp_reconstruct(numpy sinogram, {shape} x "
+        f"{n_angles} angles, n_iter={n_iter}, loss_every={loss_every}, "
+        f"nonneg) on {res.x.device}: launches {launches}; loss "
+        f"{float(res.loss[0]):.2f} -> {float(res.loss[-1]):.2f}, falling "
+        f"over the last half; fused vs plain x max abs err {err:.3g}, final "
+        f"loss rel {rel:.3g}; nrmse vs the phantom {nrmse:.3f}")
+    sync()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 18
+def _ct_problem(shape, n_angles, seed):
+    """The angles and the noisy sinogram of a seeded volume on the card."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    vol = torch.rand(shape, generator=gen, device=DEV)
+    angles = np.linspace(0.0, np.pi, n_angles, endpoint=False)
+    sino = radon(vol, angles)
+    sino += 0.5 * torch.randn(sino.shape, generator=gen, device=DEV)
+    return angles, sino
+
+
+def phase_ct_full_width(card):
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    Nd = num_channels(cfg.scheme, CT_SHAPE[0], CT_SHAPE[1],
+                      cfg.reg_z_over_reg, cfg.reg_time)
+    vox = int(np.prod(CT_SHAPE))
+    angles, sino = _ct_problem(CT_SHAPE, CT_ANGLES, seed=0)
+    A, A_T = make_projector(CT_SHAPE, angles)
+    op_norm = float(estimate_op_norm(A, A_T, CT_SHAPE, device=DEV))
+    n_iter, reg = 30, 0.5
+    kw = dict(n_iter=n_iter, reg=reg, cfg=cfg, nonneg=True, op_norm=op_norm)
+
+    def solve(**more):
+        return cp_reconstruct(sino, angles, CT_SHAPE, **kw, **more)
+
+    zero_counters()
+    res = solve()
+    sync()
+    require_launches(read_counters(), "full-width cp_reconstruct",
+                     B5=n_iter, B2=n_iter, B3=n_iter)
+    require(bool(torch.isfinite(res.loss).all())
+            and float(res.loss[-1]) < float(res.loss[0]),
+            "full-width losses finite and falling")
+    fused_loss = float(res.loss[-1])
+    st = res.state
+    del res
+    ms = {"fused": _best_ms(solve) / n_iter,
+          "bf16 dual": _best_ms(lambda: solve(dual_dtype="bfloat16"))
+          / n_iter}
+    plain = solve(fused=False)
+    rel = abs(fused_loss - float(plain.loss[-1])) / float(plain.loss[-1])
+    require(rel <= 1e-4, f"full-width fused vs plain final loss {rel:.3g}")
+    err_state = {name: _compare(getattr(st, name), getattr(plain.state, name),
+                                False, 0.0, CT_SOLVE_TOL)
+                 for name in ("x", "x_bar", "y_A", "y_D")}
+    del plain
+    ms["plain"] = _best_ms(lambda: solve(fused=False), repeats=2) / n_iter
+    dev_ms, _ = device_time(solve, n_iter, DEV)
+    log(f"[18 CT full width] cp_reconstruct({CT_SHAPE} f32 x {CT_ANGLES} "
+        f"angles, n_det {CT_SHAPE[-1]}, hybrid reg_time=0.5, nonneg, {n_iter} "
+        f"iterations, op_norm {op_norm:.2f} from estimate_op_norm): kernels "
+        f"{1e3 / ms['fused']:.2f} it/s ({ms['fused']:.2f} ms/it), bf16 dual "
+        f"{1e3 / ms['bf16 dual']:.2f} it/s, plain step "
+        f"{1e3 / ms['plain']:.2f} it/s (best of 3, 2 for plain, CUDA "
+        f"events, whole call); fused vs plain final loss rel {rel:.3g}, "
+        f"final state within rtol {CT_SOLVE_TOL['rtol']} atol "
+        f"{CT_SOLVE_TOL['atol']}: max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in err_state.items()) + "; "
+        f"device {dev_ms:.2f} ms/it (torch.profiler), idle "
+        f"{100 * (1 - dev_ms / ms['fused']):.1f}%; card {card}")
+
+    # the split of one fused iteration, each part alone on the final state
+    sigma = 1.0 / np.sqrt(op_norm ** 2 + operator_norm_bound_sq(
+        cfg.scheme, CT_SHAPE[0], CT_SHAPE[1], cfg.reg_z_over_reg,
+        cfg.reg_time))
+    x, x_bar, y_A = st.x, st.x_bar, st.y_A
+    y_D = fused.to_internal_layout(st.y_D)
+    at, out = A_T(y_A), torch.empty_like(x)
+    fw = torch.ones((), device=DEV)
+
+    def loss():
+        _, parts = fused.tv_norms(x, cfg=cfg)
+        return torch.add(fidelity_loss(st.s_x, sino, "l2", fw),
+                         torch.sum(parts), alpha=reg)
+
+    def rest():  # fidelity dual prox, x_bar and the projection's rewrite
+        fidelity_dual_prox(y_A, st.s_x_bar, sino, sigma, "l2", fw)
+        torch.mul(out, 2.0, out=x_bar).sub_(x)
+        return 2.0 * st.s_x - st.s_x_bar
+
+    split = {
+        "A": _time_launch(lambda: A(x), n=5),
+        "A_T": _time_launch(lambda: A_T(y_A), n=5),
+        "B5": _time_launch(lambda: fused.tv_dual(x_bar, y_D, cfg=cfg,
+                                                 sigma_D=sigma, reg=reg)),
+        "B2": _time_launch(lambda: fused.cp_primal(
+            x, x, at, y_D, cfg=cfg, tau=sigma, nonneg=True, out=out)),
+        "B3 + loss": _time_launch(loss),
+        "prox, x_bar, 2s - s": _time_launch(rest)}
+    b5_bytes = (1 + 2 * Nd) * 4 * vox
+    other = ms["fused"] - sum(split.values())
+    log(f"[18 CT full width] one iteration {ms['fused']:.3f} ms = "
+        + " + ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f" + unaccounted {other:.3f} ms; B5 {split['B5']:.4f} ms = "
+        f"{b5_bytes / split['B5'] / 1e6:.0f} GB/s "
+        f"({100 * b5_bytes / split['B5'] / 1e6 / H100_HBM_PEAK_GBPS:.1f}% of "
+        f"{H100_HBM_PEAK_GBPS:.0f}), bound "
+        f"{bound(b5_bytes, 10 * Nd * vox)[0]:.4f} ms")
+    del st, x, x_bar, y_A, y_D, at, out, sino
+    torch.cuda.empty_cache()
+
+    # B5's row of the kernel table, where B1's and B2's times were taken
+    Nd4 = num_channels(cfg.scheme, MAIN_4D[0], MAIN_4D[1],
+                       cfg.reg_z_over_reg, cfg.reg_time)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    x4 = torch.rand(MAIN_4D, generator=gen, device=DEV)
+    y4 = torch.zeros((MAIN_4D[0], MAIN_4D[1], Nd4) + MAIN_4D[2:], device=DEV)
+    k4 = dict(cfg=cfg, sigma_D=0.5, reg=1.0)
+    b5_ms = (_time_launch(lambda: fused.tv_dual(x4, y4, **k4)),
+             _time_launch(lambda: fused.tv_dual_plain(x4, y4, **k4), n=10))
+    vox4 = int(np.prod(MAIN_4D))
+    b5_bound = bound((1 + 2 * Nd4) * 4 * vox4, 10 * Nd4 * vox4)
+    log(f"[18 B5 per launch, f32 {MAIN_4D}] {b5_ms[0]:.4f} ms (plain "
+        f"{b5_ms[1]:.3f} ms), "
+        f"{(1 + 2 * Nd4) * 4 * vox4 / b5_ms[0] / 1e6:.0f} GB/s, bound "
+        f"{b5_bound[0]:.4f} ms by {b5_bound[1]}")
+    sync()
+    return op_norm, b5_ms, b5_bound
+
+
+# ---------------------------------------------------------------- phase 19
+def phase_ct_capacity(op_norm):
+    """Whether the (96, 16, 512, 512) x 96-angle TV reconstruction fits the
+    one card: three iterations with a bf16 dual.  Every slice has phase
+    18's geometry, so the projector's norm is phase 18's."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    angles, sino = _ct_problem(NORTH_STAR, CT_ANGLES, seed=1)
+    kw = dict(reg=0.5, cfg=TVConfig(scheme="hybrid", reg_time=0.5),
+              nonneg=True, op_norm=op_norm, dual_dtype="bfloat16")
+    cp_reconstruct(sino, angles, NORTH_STAR, n_iter=1, **kw)  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    zero_counters()
+    start.record()
+    res = cp_reconstruct(sino, angles, NORTH_STAR, n_iter=3, **kw)
+    end.record()
+    sync()
+    require_launches(read_counters(), "capacity cp_reconstruct", B5=3, B2=3,
+                     B3=3)
+    require(bool(torch.isfinite(res.loss).all())
+            and float(res.loss[-1]) < float(res.loss[0]),
+            "capacity losses finite and falling")
+    peak = torch.cuda.max_memory_allocated(DEV)
+    log(f"[19 CT capacity] cp_reconstruct({NORTH_STAR} f32 x {CT_ANGLES} "
+        f"angles, bf16 dual, 3 iterations): "
+        f"{start.elapsed_time(end) / 3e3:.2f} s per iteration (whole call), "
+        f"peak memory {peak / 1e9:.2f} GB of "
+        f"{torch.cuda.get_device_properties(DEV).total_memory / 1e9:.1f}, "
+        f"final loss {float(res.loss[-1]):.6g}")
+    del res, sino
+    torch.cuda.empty_cache()
+    sync()
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -1138,6 +1512,10 @@ def main():
     tgv_launches = phase_tgv_main_path()
     tgv_ms = phase_tgv_rates(card)
     phase_tgv_north_star()
+    inv_errs = phase_inverse_kernels()
+    inv_launches = phase_inverse_main_path()
+    op_norm, b5_ms, b5_bound = phase_ct_full_width(card)
+    phase_ct_capacity(op_norm)
 
     # B1-B4 bounds at the shape their times were taken at: MAIN_4D float32,
     # hybrid with reg_time=0.5 (Nd channels).  Bytes: each array once per
@@ -1155,6 +1533,7 @@ def main():
               "B2": bound((4 + Nd) * 4 * vox, (4 * Nd + 8) * vox),
               "B3": bound(tv_1, (4 * Nd + 4) * vox),
               "B4": bound(tv_2, (10 * Nd + 2) * vox),
+              "B5": b5_bound,  # (1 + 2 Nd) arrays, 10 operations a channel
               **tgv_ms["bounds"]}
     require((4 + 2 * Nd + 4 + Nd) * 4 * vox == cp_traffic_model(
         MAIN_4D, Nd, dtype=torch.float32), "B1 + B2 bytes are the CP model's")
@@ -1186,6 +1565,9 @@ def main():
         entry("B4", "tv_subgrad_kernel (TV pass 2)", "tv_fused.cu",
               "fused.py:1473", gd_launches["B4"], gd_errs["B4"]["f32"],
               gd_ms["f32"]["B4"], gd_errs["B4"]["bf16"]),
+        entry("B5", "tv_dual_kernel (CP pass A, inverse problems)",
+              "cp_fused.cu", "fused.py:759", inv_launches["B5"],
+              inv_errs["f32"], b5_ms, inv_errs["bf16"]),
         entry("B6pq", "tgv_pq_kernel (TGV pass PQ)", "tgv_stream.cu",
               "tgv_stream.py:344", tgv_launches["B6pq"],
               tgv_errs["B6pq"]["f32"], stream_ms["pq"],

@@ -3,10 +3,12 @@
 Total variation of 2D/3D/4D ``(Nz, M, N_row, N_col)`` volumes — the value
 and subgradient (``ops.tv``, and the reference's ``tv_GPU`` /
 ``tv_operators_GPU`` modules) — TV denoising with the Chambolle-Pock and
-subgradient-descent solvers, and second-order TGV denoising (``solvers.tgv``),
-on any torch device.  On an NVIDIA Hopper GPU the CP step, the TV
-subgradient and the TGV step each run as two hand-written CUDA kernels, and
-the in-plane TGV solve as one (``kernels``, sources in ``csrc/``, built with
+subgradient-descent solvers, second-order TGV denoising (``solvers.tgv``),
+TV-regularized linear inverse problems (``solvers.inverse``) and
+parallel-beam CT reconstruction (``models.ct``), on any torch device.  On an
+NVIDIA Hopper GPU the CP step (denoising and inverse), the TV subgradient
+and the TGV step each run as two hand-written CUDA kernels, and the
+in-plane TGV solve as one (``kernels``, sources in ``csrc/``, built with
 nvcc on first use); on the CPU they run their plain PyTorch versions.  The
 JAX package ``pytv4d_tpu`` is the reference it is tested against; this
 package imports torch and never jax.
@@ -23,6 +25,11 @@ the CPU (``utils.device``).
     res = TVDenoiser(reg=25).cp(noisy, n_iter=300)   # on the GPU
     res = TVDenoiser(reg=25).gd(noisy, n_iter=300)
     res = TVDenoiser(reg=25).tgv(noisy, n_iter=300)
+
+    from pytv4d_tpu_torch.models import cp_reconstruct, radon
+    sino = radon(vol, angles)                 # (Nz, M, n_angles, n_det)
+    res = cp_reconstruct(sino, angles, vol.shape, n_iter=30, reg=0.05,
+                         nonneg=True)
 """
 
 from . import (
@@ -50,4 +57,5 @@ from .ops.tv import (
 )
 from .solvers.cp import CPResult, CPState, chambolle_pock
 from .solvers.gd import GDResult, subgradient_descent
+from .solvers.inverse import InverseResult, InverseState, cp_inverse
 from .solvers.tgv import TGVResult, TGVState, tgv_denoise

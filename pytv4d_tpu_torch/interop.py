@@ -5,8 +5,9 @@ The "weights" of this system are its solver state and config, so these
 functions are what a run needs to move across: a JAX CP run resumes in the
 port with ``state_from_numpy(*map(np.asarray, jax_state), device=...)``, a
 JAX TGV run with ``tgv_state_from_numpy(*map(np.asarray, jax_state),
-device=...)``, and a port run resumes in JAX with
-``CPState(*state_to_numpy(state))``.  Configs carry as plain fields:
+device=...)``, a JAX inverse or CT run with
+``inverse_state_from_numpy(jax_state, device=...)``, and a port run resumes
+in JAX with ``CPState(*state_to_numpy(state))``.  Configs carry as plain fields:
 ``config_from_fields(**dataclasses.asdict(cfg))``.  Arrays cross as numpy,
 so neither package imports the other.  ``device`` is always named: nothing
 here picks the CPU by default.
@@ -23,6 +24,7 @@ import torch
 
 from .core.config import TVConfig
 from .solvers.cp import CPState
+from .solvers.inverse import InverseState
 from .solvers.tgv import TGVState
 
 
@@ -53,8 +55,20 @@ def tgv_state_from_numpy(x, xb, w, wb, p, q, *, device,
     return TGVState(*_from_numpy((x, xb, w, wb, p, q), device, dtype))
 
 
+def inverse_state_from_numpy(state, *, device, dtype=None) -> InverseState:
+    """A port :class:`InverseState` on ``device`` from a state of arrays in
+    the public layouts (the JAX package's ``InverseState``, or any sequence
+    of its fields): ``x``, ``x_bar`` ``(Nz, M, Nr, Nc)``, ``y_A`` shaped
+    like the data, ``y_D`` ``(Nz, Nd, M, Nr, Nc)``, and the projections
+    ``s_x``, ``s_x_bar``, which may be None or missing.  ``dtype`` (a torch
+    dtype) defaults to that of ``x``."""
+    fields = tuple(state) + (None,) * (len(InverseState._fields) - len(state))
+    return InverseState(*_from_numpy(fields, device, dtype))
+
+
 def state_to_numpy(state):
-    """The fields of a :class:`CPState` or :class:`TGVState` as numpy
+    """The fields of a :class:`CPState`, :class:`TGVState` or
+    :class:`InverseState` as numpy
     arrays in the public layouts (bf16 state widens to float32; a dropped
     dual stays None)."""
     def conv(t):

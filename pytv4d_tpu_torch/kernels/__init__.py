@@ -1,4 +1,5 @@
-"""The fused CP step, the TV subgradient and the TGV-2 step and whole solve:
+"""The fused CP step (with its pass A for inverse problems), the TV
+subgradient and the TGV-2 step and whole solve:
 CUDA kernels (``csrc/cp_fused.cu``, ``csrc/tv_fused.cu``,
 ``csrc/tgv_stream.cu``, ``csrc/tgv_resident.cu``) for CUDA tensors, their
 plain PyTorch versions for CPU tensors.  Importing this package needs
@@ -15,6 +16,8 @@ from .fused import (
     cp_step_fused_internal,
     fits_kernel,
     tv_and_subgrad_fused,
+    tv_dual,
+    tv_dual_plain,
     tv_norms,
     tv_norms_plain,
     tv_subgrad,

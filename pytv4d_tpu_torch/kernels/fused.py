@@ -1,5 +1,6 @@
-"""The fused stencil kernels: the Chambolle-Pock step (B1/B2) and the TV
-value and subgradient (B3/B4), and their plain versions.
+"""The fused stencil kernels: the Chambolle-Pock step (B1/B2), its pass A
+for inverse problems (B5) and the TV value and subgradient (B3/B4), and
+their plain versions.
 
 One CP iteration is two passes over the volume:
 
@@ -11,7 +12,15 @@ One CP iteration is two passes over the volume:
 - pass B, :func:`cp_primal` (kernel ``cp_primal_kernel``; replaces
   ``make_cp_primal_kernel``): ``x' = x - tau y_A' - tau D^T y_D'``, the
   optional ``nonneg`` clamp and one fidelity partial of x' per block.
-  Writes x in place.
+  Writes x in place, or into ``out``.
+
+For an inverse problem ``min F(A x) + reg TV(x)`` (``solvers.inverse``) the
+fidelity dual lives in the measurement space, so pass A is
+:func:`tv_dual` (kernel ``tv_dual_kernel``; replaces ``make_tv_dual_kernel``):
+the D channels of the over-relaxed iterate, the TV dual prox and the TV
+partials, with no ``x0`` and no ``y_A``.  Pass B then runs with ``A^T y_A``
+in its ``y_A`` slot and writes x' to a second buffer, because the solver
+still needs x.
 
 Both are bound by HBM bytes (``utils.profiling.cp_traffic_model``): the
 kernels keep D x, the prox argument and D^T y' in registers and touch each
@@ -39,11 +48,11 @@ subgradient-descent step's operator) is two more passes, in
   Nd-channel volume is written.
 
 Each wrapper takes its plain PyTorch version (:func:`cp_dual_plain`,
-:func:`cp_primal_plain`, :func:`tv_norms_plain`, :func:`tv_subgrad_plain`)
-for tensors on the CPU, which is how the CPU tests run the fused path.  For
-CUDA tensors it launches the kernel or raises.  ``cp_dual.launches``,
-``cp_primal.launches``, ``tv_norms.launches`` and ``tv_subgrad.launches``
-count kernel launches.
+:func:`tv_dual_plain`, :func:`cp_primal_plain`, :func:`tv_norms_plain`,
+:func:`tv_subgrad_plain`) for tensors on the CPU, which is how the CPU tests
+run the fused path.  For CUDA tensors it launches the kernel or raises.
+``cp_dual.launches``, ``tv_dual.launches``, ``cp_primal.launches``,
+``tv_norms.launches`` and ``tv_subgrad.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -131,7 +140,8 @@ _ENTRY_POINTS = {
     #           {launch function: (int flags, tensor pointers)});
     # kernels/tgv_stream.py and kernels/tgv_resident.py add theirs
     "cp_fused": ("cp", _Params, {"cp_dual_launch": (2, 6),
-                                 "cp_primal_launch": (2, 6)}),
+                                 "tv_dual_launch": (2, 3),
+                                 "cp_primal_launch": (2, 7)}),
     "tv_fused": ("tv", _Params, {"tv_norms_launch": (1, 4),
                                  "tv_subgrad_launch": (1, 4)}),
 }
@@ -199,14 +209,15 @@ def _check_tmul(tmul, x):
                          "on x's device")
 
 
-def _check_operands(x, x0, y_A, y_D, tmul, cfg: TVConfig):
-    """Validate what either CP pass accepts (both devices)."""
-    _check_tensors(x, x0=x0, y_A=y_A, y_D=y_D)
-    Nd = _check_volume(x, cfg)
-    for name, t in (("x0", x0), ("y_A", y_A)):
+def _check_like(x, **others):
+    for name, t in others.items():
         if t.dtype != x.dtype or t.shape != x.shape:
             raise ValueError(f"{name} must match x: {tuple(x.shape)} "
                              f"{x.dtype}, got {tuple(t.shape)} {t.dtype}")
+
+
+def _check_dual(y_D, x, Nd):
+    """y_D is a dual of x in the internal layout and a storage dtype."""
     if y_D.dtype not in STORAGE_DTYPES:
         raise ValueError(f"y_D storage must be float32 or bfloat16, got "
                          f"{y_D.dtype}")
@@ -214,6 +225,13 @@ def _check_operands(x, x0, y_A, y_D, tmul, cfg: TVConfig):
     if tuple(y_D.shape) != (Nz, M, Nd, Nr, Nc):
         raise ValueError(f"y_D must be (Nz, M, Nd, Nr, Nc) = "
                          f"{(Nz, M, Nd, Nr, Nc)}, got {tuple(y_D.shape)}")
+
+
+def _check_operands(x, x0, y_A, y_D, tmul, cfg: TVConfig):
+    """Validate what either CP pass accepts (both devices)."""
+    _check_tensors(x, x0=x0, y_A=y_A, y_D=y_D)
+    _check_like(x, x0=x0, y_A=y_A)
+    _check_dual(y_D, x, _check_volume(x, cfg))
     _check_tmul(tmul, x)
 
 
@@ -265,27 +283,53 @@ def cp_dual(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, sigma_D, sigma_A,
     return y_A, y_D, parts
 
 
+def tv_dual(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg):
+    """Pass A for inverse problems: ``(x_bar, y_D) -> (y_D', tv_parts)``.
+
+    ``y_D`` (internal layout) becomes ``prox(y_D + sigma_D D x_bar)`` in
+    place and is returned; ``tv_parts`` are partial sums of the TV term of
+    ``D x_bar``.  No fidelity dual and no time-plane multiplier: the TPU
+    kernel takes neither."""
+    _check_tensors(x_bar, y_D=y_D)
+    _check_dual(y_D, x_bar, _check_volume(x_bar, cfg))
+    if x_bar.device.type == "cpu":
+        return tv_dual_plain(x_bar, y_D, cfg=cfg, sigma_D=sigma_D, reg=reg)
+    p = _params(cfg, tuple(x_bar.shape), False, sigma_D=float(sigma_D),
+                reg=float(reg))
+    parts = _cp_launch("tv_dual_launch", x_bar, y_D, p, (x_bar, y_D))
+    tv_dual.launches += 1
+    return y_D, parts
+
+
 def cp_primal(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, tau,
-              fidelity="l2", fid_weight=1.0, nonneg=False):
+              fidelity="l2", fid_weight=1.0, nonneg=False, out=None):
     """Pass B: ``(x, x0, y_A', y_D'[, tmul]) -> (x', fid_parts)``.
 
-    ``x`` is updated in place and returned; ``fid_parts`` are partial sums
-    of the fidelity term of x'."""
+    x' is written to ``out`` and returned; by default ``out`` is ``x``
+    itself (in place).  Each voxel reads x only at itself, so a separate
+    ``out`` costs nothing and leaves x intact.  ``fid_parts`` are partial
+    sums of the fidelity term of x'."""
     _check_operands(x, x0, y_A, y_D, tmul, cfg)
+    if out is None:
+        out = x
+    else:
+        _check_tensors(x, out=out)
+        _check_like(x, out=out)
     if x.device.type == "cpu":
         return cp_primal_plain(x, x0, y_A, y_D, tmul, cfg=cfg, tau=tau,
                                fidelity=fidelity, fid_weight=fid_weight,
-                               nonneg=nonneg)
+                               nonneg=nonneg, out=out)
     p = _params(cfg, tuple(x.shape), tmul is not None, tau=float(tau),
                 fidelity=fidelity, fid_weight=float(fid_weight),
                 nonneg=bool(nonneg))
     parts = _cp_launch("cp_primal_launch", x, y_D, p,
-                       (x, x0, y_A, y_D, tmul))
+                       (x, x0, y_A, y_D, tmul, out))
     cp_primal.launches += 1
-    return x, parts
+    return out, parts
 
 
 cp_dual.launches = 0
+tv_dual.launches = 0
 cp_primal.launches = 0
 
 
@@ -309,8 +353,21 @@ def cp_dual_plain(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, sigma_D,
     return y_A, y_D, parts
 
 
+def tv_dual_plain(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg):
+    """Plain PyTorch version of :func:`tv_dual` (same signature, outputs
+    and in-place update): the TV half of :func:`cp_dual_plain`."""
+    from ..solvers.cp import dual_prox
+
+    D_x = D(x_bar.float(), cfg.scheme, **cfg.kwargs())
+    p = from_internal_layout(y_D).float() + sigma_D * D_x
+    y_D_new = dual_prox(p, reg, cfg.norm, sigma_D, cfg.huber_delta)
+    y_D.copy_(y_D_new.transpose(1, 2))  # public -> internal layout
+    parts = tv_norm(D_x, cfg.norm, huber_delta=cfg.huber_delta).reshape(1)
+    return y_D, parts
+
+
 def cp_primal_plain(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, tau,
-                    fidelity="l2", fid_weight=1.0, nonneg=False):
+                    fidelity="l2", fid_weight=1.0, nonneg=False, out=None):
     """Plain PyTorch version of :func:`cp_primal`."""
     kw = cfg.kwargs()
     dty = D_T(from_internal_layout(y_D).float(), cfg.scheme,
@@ -319,8 +376,9 @@ def cp_primal_plain(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, tau,
     if nonneg:
         x_new = torch.clamp_min(x_new, 0.0)
     parts = fidelity_loss(x_new, x0.float(), fidelity, fid_weight).reshape(1)
-    x.copy_(x_new)
-    return x, parts
+    out = x if out is None else out
+    out.copy_(x_new)
+    return out, parts
 
 
 def to_internal_layout(y_D):

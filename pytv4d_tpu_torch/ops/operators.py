@@ -34,6 +34,9 @@ __all__ = [
     "compute_L11_norm",
     "compute_huber_norm",
     "tv_norm",
+    "abs_d_channel",
+    "abs_dt_channel",
+    "precond_maps",
     "D",
     "D_T",
     "D_upwind",
@@ -120,6 +123,81 @@ def dt_channel(y, axis: int, kind: str):
         return _pad(t, axis, 1, 0) - _pad(t, axis, 0, 1)
     t = y[_sl(nd, axis, 1, -1)]
     return _pad(t, axis, 2, 0) - _pad(t, axis, 0, 2)
+
+
+def abs_d_channel(img, axis: int, kind: str):
+    """|D| row pattern: like :func:`d_channel` but summing |entries|
+    (x[i+1] + x[i] instead of the difference) — used for diagonal
+    preconditioning (Pock & Chambolle 2011, doi 10.1109/ICCV.2011.6126441)."""
+    nd = img.ndim
+    if kind == CTR:
+        s = img[_sl(nd, axis, 2, None)] + img[_sl(nd, axis, None, -2)]
+        return _pad(s, axis, 1, 1)
+    s = img[_sl(nd, axis, 1, None)] + img[_sl(nd, axis, None, -1)]
+    if kind == FWD:
+        return _pad(s, axis, 0, 1)
+    return _pad(s, axis, 1, 0)
+
+
+def abs_dt_channel(y, axis: int, kind: str):
+    """|D^T| column pattern: scatter of |entries| (both signs +)."""
+    nd = y.ndim
+    if kind == FWD:
+        t = y[_sl(nd, axis, None, -1)]
+        return _pad(t, axis, 1, 0) + _pad(t, axis, 0, 1)
+    if kind == BWD:
+        t = y[_sl(nd, axis, 1, None)]
+        return _pad(t, axis, 1, 0) + _pad(t, axis, 0, 1)
+    t = y[_sl(nd, axis, 1, -1)]
+    return _pad(t, axis, 2, 0) + _pad(t, axis, 0, 2)
+
+
+def precond_maps(
+    shape,
+    scheme: str = "hybrid",
+    reg_z_over_reg: float = 1.0,
+    reg_time: float = 0.0,
+    sigma_A_rows: float = 1.0,
+    *,
+    fidelity_colsum=None,
+    grouped: bool = False,
+    dtype=torch.float32,
+    device,
+):
+    """Diagonal preconditioners for CP on ``K = [A; D]`` (alpha = 1):
+    per-dual-slot ``sigma = 1/sum_i |K_ji|`` and per-pixel
+    ``tau = 1/sum_j |K_ji|`` — dead dual slots get sigma = 0 (they carry
+    no information and stay at zero).  The fidelity block's column sums
+    default to the scalar ``sigma_A_rows`` (``A = I`` denoising); for a
+    general forward operator pass ``fidelity_colsum = |A|^T 1`` — exact
+    whenever A has nonnegative coefficients (CT projectors, blurs and
+    masks), where ``|A|^T 1 = A^T 1``.  ``grouped`` gives one step per
+    pixel group (the iso/Huber channel-group prox is exact only for a
+    scalar step per group): the group minimum of the per-channel bounds,
+    ``1/max(row sums)``, which is below every row-sum bound.  Returns
+    ``(sigma_D_map, tau_map)`` in ``dtype`` on ``device``."""
+    Nz, M = shape[0], shape[1]
+    chans, norm = scheme_channels(scheme, Nz, M, reg_z_over_reg, reg_time)
+    ones = torch.ones(tuple(shape), dtype=dtype, device=device)
+    row_sums = []
+    col_sum = None
+    for ch in chans:
+        w = abs(channel_weight(ch, reg_z_over_reg, reg_time)) * norm
+        rs = abs_d_channel(ones, ch.axis, ch.kind) * w
+        row_sums.append(rs)
+        # |D^T| column contribution: scatter |w| over the channel's valid slots
+        valid = (rs > 0).to(dtype)
+        cs = abs_dt_channel(valid, ch.axis, ch.kind) * w
+        col_sum = cs if col_sum is None else col_sum + cs
+    rows = torch.stack(row_sums, dim=1)
+    if grouped:
+        rows = torch.amax(rows, dim=1, keepdim=True)
+    live = rows > 0
+    sigma_D = torch.where(live, 1.0 / torch.where(live, rows, 1.0), 0.0)
+    fid = sigma_A_rows if fidelity_colsum is None else fidelity_colsum
+    den = col_sum + fid
+    tau = 1.0 / torch.where(den > 0, den, 1.0)
+    return sigma_D, tau
 
 
 # torch's CPU sqrt kernel can return values off by up to 3e-4 relative

@@ -50,7 +50,7 @@ def _require_scalar_weight(fidelity_weight, what: str) -> float:
         return float(fidelity_weight)
     raise ValueError(
         f"{what} takes a SCALAR fidelity_weight; per-measurement weight "
-        f"arrays belong to the inverse solvers, which are not ported yet"
+        f"arrays belong to the inverse solvers (solvers.inverse.cp_inverse)"
     )
 
 

@@ -1,6 +1,6 @@
-"""Second-order Total Generalized Variation (TGV-2) denoising — the standard
-fix for first-order TV's staircasing artifact (Bredies, Kunisch & Pock 2010,
-doi:10.1137/090769521).  The port of the denoising half of
+"""Second-order Total Generalized Variation (TGV-2) denoising and linear
+inverse problems — the standard fix for first-order TV's staircasing
+artifact (Bredies, Kunisch & Pock 2010, doi:10.1137/090769521).  The port of
 ``pytv4d_tpu/solvers/tgv.py``.
 
     min_{x, w} 1/2 ||x - x0||^2 + a1 ||D x - w||_{2,1} + a0 ||E w||_{2,1}
@@ -19,19 +19,28 @@ The adjoints of ``D`` and ``E`` are written by hand from the
 one-sided-difference adjoint (``ops.operators.dt_channel``) and held to
 <Kx, y> = <x, K^T y> by ``tests/test_torch_tgv.py``.
 
-Not ported yet: ``tgv_inverse``, ``tgv_gap_inverse`` and their
-preconditioner maps, which need ``solvers/inverse.py`` (ROADMAP.md queue A).
+:func:`tgv_inverse` replaces the identity data term by ``F(A x)`` for any
+linear operator ``A`` (K = [[A, 0], [D, -I], [0, E]]); it runs the plain
+loop on every device, as the JAX package runs it without a kernel.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..core.schemes import AXIS_COL, AXIS_ROW, AXIS_T, AXIS_Z, BWD, FWD
 from ..ops.operators import _safe_sqrt, d_channel, dt_channel
+from ..utils.device import on_device
+from .fidelity import (
+    fidelity_conjugate,
+    fidelity_dual_prox,
+    fidelity_loss,
+    validate_fidelity,
+)
 
 
 class TGVState(NamedTuple):
@@ -45,11 +54,30 @@ class TGVState(NamedTuple):
     q: torch.Tensor
 
 
+class TGVInverseState(NamedTuple):
+    """Full CP carry of :func:`tgv_inverse` for resume/checkpointing:
+    primal x/w with their over-relaxed copies, the fidelity dual y_A, and
+    the TGV duals p/q.  ``s_x``/``s_xb`` carry the forward projections
+    ``A(x)``/``A(xb)`` so the linearity-derived over-relaxed projection
+    (one forward per iteration, see ``solvers.inverse.InverseState``)
+    resumes on the uninterrupted run's path; ``None`` is recomputed once."""
+    x: torch.Tensor
+    xb: torch.Tensor
+    w: torch.Tensor
+    wb: torch.Tensor
+    y_A: torch.Tensor
+    p: torch.Tensor
+    q: torch.Tensor
+    s_x: Optional[torch.Tensor] = None
+    s_xb: Optional[torch.Tensor] = None
+
+
 class TGVResult(NamedTuple):
     x: torch.Tensor     # denoised volume (Nz, M, N_row, N_col)
     w: torch.Tensor     # auxiliary vector field (Nz, n_w, M, N_row, N_col)
     loss: torch.Tensor  # primal objective history, on the device
-    state: TGVState = None  # resume via the state kwarg
+    state: NamedTuple = None  # TGVState (tgv_denoise) or TGVInverseState
+                              # (tgv_inverse); resume via the state kwarg
 
 
 # ||K_tgv||^2 bounds per axes mode: exact 2D (Bredies et al. sec. 6),
@@ -420,3 +448,288 @@ def _run_stream(x0, state, *, axes, sigma_tau_split, **kw):
         return TGVState(*tgv_stream_step(*st, x0, **step_kw))
 
     return _iterate(step, st, x0, axes=axes, **kw)
+
+
+def _axis_mask(vol_shape, dim, kind, dtype, device):
+    """Boundary-validity mask broadcast over the volume: ``kind='ge1'`` is
+    1 where index >= 1 along ``dim``; ``'lem2'`` is 1 where index <= N-2."""
+    n = vol_shape[dim]
+    idx = torch.arange(n, device=device)
+    m = (idx >= 1) if kind == "ge1" else (idx <= n - 2)
+    shape = [1] * len(vol_shape)
+    shape[dim] = n
+    return m.to(dtype).reshape(shape)
+
+
+def _tgv_precond_maps(vol_shape, axes, dtype, device, norm="iso", A=None,
+                      A_T=None, b_shape=None):
+    """Pock-Chambolle (2011, alpha=1) diagonal preconditioners for
+    K = [[A, 0], [D, -I], [0, E]] from EXACT row/column absolute sums:
+    D/E stencils have coefficients +-1 and +-0.5 with known boundary
+    structure, so their abs-sums are closed-form per-axis boundary masks;
+    the CT projectors (and blur/masking operators) have NONNEGATIVE
+    coefficients, so ``|A| 1 = A 1`` and ``|A|^T 1 = A^T 1`` exactly.
+
+    Dual steps: for the separable ANISO norm, per-channel reciprocal row
+    sums (lists of rank-4 broadcastable masks: exact prox per channel).
+    For the GROUPED iso/Huber norms the channel-group ball/shrink prox is
+    exact only with one step per pixel group, so sigma is the per-pixel
+    group MINIMUM of the channel bounds (rank-5-broadcastable via a
+    length-1 channel axis): below the row-sum bound, so the step condition
+    ``||Sigma^1/2 K T^1/2|| <= 1`` still holds.  Primal steps are always
+    separable: per-field lists.  All masks stay broadcastable (nothing
+    volume-sized beyond ``|A|^T 1``, which is real data)."""
+    dims = MODE_AXES[axes]
+    n = len(dims)
+
+    def ge1(d):
+        return _axis_mask(vol_shape, d, "ge1", dtype, device)
+
+    def lem2(d):
+        return _axis_mask(vol_shape, d, "lem2", dtype, device)
+
+    # dual of (D x - w): row sum = 2*[fwd slot valid] + 1 (the -I entry)
+    sp = [1.0 / (2.0 * lem2(d) + 1.0) for d in dims]
+    # dual of E w: diag channel rows sum to 2*[bwd valid]; off-diag (i, j)
+    # rows sum to |0.5|*2 per valid part (all-zero rows: the dual stays 0,
+    # any finite step is fine)
+    sq = []
+    for (i, j) in _q_pairs(n):
+        r = 2.0 * ge1(dims[i]) if i == j else ge1(dims[j]) + ge1(dims[i])
+        sq.append(1.0 / torch.where(r == 0, 1.0, r))
+    if norm == "aniso":
+        sig_p, sig_q = sp, sq
+    else:
+        sig_p = functools.reduce(torch.minimum, sp)[:, None]
+        sig_q = functools.reduce(torch.minimum, sq)[:, None]
+
+    # primal x: |A|^T 1 + per-axis fwd-diff column sums
+    tx_den = sum(lem2(d) + ge1(d) for d in dims)
+    if A is not None:
+        tx_den = tx_den + A_T(torch.ones(b_shape, dtype=dtype, device=device))
+    T_x = 1.0 / torch.where(tx_den == 0, 1.0, tx_den)
+    # primal w_i: 1 (the -I) + bwd column sums from every E channel:
+    # separable, so per-field exactness holds for every norm
+    T_w = []
+    for i in range(n):
+        den = 1.0 + ge1(dims[i]) + lem2(dims[i])
+        for j in range(n):
+            if j != i:
+                den = den + 0.5 * (ge1(dims[j]) + lem2(dims[j]))
+        T_w.append(1.0 / den)
+
+    sig_A = None
+    if A is not None:
+        from .inverse import fidelity_row_precond
+
+        sig_A = fidelity_row_precond(A, vol_shape, dtype, device=device)
+    return sig_A, sig_p, sig_q, T_x, T_w
+
+
+def _chanmul(maps, arr):
+    """Multiply a channel-stacked rank-5 tensor by per-channel rank-4
+    broadcastable maps (or by one scalar or rank-5-broadcastable map)."""
+    if isinstance(maps, (list, tuple)):
+        return torch.stack([maps[i] * arr[:, i] for i in range(len(maps))],
+                           dim=1)
+    return maps * arr
+
+
+def tgv_gap_inverse(
+    state: TGVInverseState,
+    A,
+    b,
+    alpha1: float = 1.0,
+    alpha0: float = 2.0,
+    axes: str = "2d",
+    norm: str = "iso",
+    huber_delta: float = 1.0,
+    fidelity: str = "l2",
+    fidelity_weight=1.0,
+    x_box: float = None,
+    w_box: float = None,
+    A_T=None,
+):
+    """Certified duality gap for the TGV-2 inverse problem
+
+        min_{(x, w) in C} F(A x) + a1 N(D x - w) + a0 N(E w)
+
+    at ``(state.x, state.w, state.y_A, state.p, state.q)``: the TGV
+    counterpart of ``solvers.inverse.pd_gap_inverse`` over the two primal
+    blocks of K = [[A, 0], [D, -I], [0, E]]:
+
+        gap = P(x, w) + F*(y_A) + N1*(p) + N0*(q)
+            + sup_{x in Cx} <-r_x, x> + sup_{w in Cw} <-r_w, w>,
+        r_x = A^T y_A + D^T p,   r_w = -p + E^T q,
+
+    with the duals projected feasible first (a1/a0 balls or boxes; Huber
+    conjugates gain the quadratic).  The prior sets: ``x_box = c`` is the
+    physical bound ``0 <= x <= c``; ``w_box`` bounds the auxiliary field
+    componentwise, ``|w| <= w_box`` (w tracks the gradient of x, so the
+    gradient bound of a ``[0, c]`` image, ``w_box = c``, is the default).
+    Both support terms vanish as the dual residuals converge."""
+    if x_box is None:
+        raise ValueError(
+            "tgv_gap_inverse needs the compact prior set: pass x_box=c "
+            "(0 <= x <= c; w_box defaults to c — the gradient bound of a "
+            "[0, c] image)"
+        )
+    if w_box is None:
+        w_box = x_box
+    d_fwd, sym_grad, d_T, sym_T, *_ = _tgv_ops(axes)
+    x, w, y_A, p, q = state.x, state.w, state.y_A, state.p, state.q
+    primal = fidelity_loss(A(x), b, fidelity, fidelity_weight) + (
+        alpha1 * _tgv_norm_val(d_fwd(x) - w, norm, huber_delta)
+        + alpha0 * _tgv_norm_val(sym_grad(w), norm, huber_delta)
+    )
+    y_A, f_star = fidelity_conjugate(y_A, b, fidelity, fidelity_weight)
+    p = _tgv_dual_prox(p, alpha1, norm, 0.0, huber_delta)
+    q = _tgv_dual_prox(q, alpha0, norm, 0.0, huber_delta)
+    tv_star = 0.0
+    if norm == "huber":
+        tv_star = (huber_delta / (2.0 * alpha1) * torch.sum(torch.square(p))
+                   + huber_delta / (2.0 * alpha0) * torch.sum(torch.square(q)))
+    if A_T is None:
+        from .inverse import cached_transpose
+
+        A_T = cached_transpose(A, tuple(x.shape), x.dtype)
+    r_x = A_T(y_A) + d_T(p)
+    r_w = -p + sym_T(q)
+    sup_x = x_box * torch.sum(torch.clamp_min(-r_x, 0.0))
+    sup_w = w_box * torch.sum(torch.abs(r_w))   # sign-free box on w
+    return primal + f_star + tv_star + sup_x + sup_w
+
+
+def tgv_inverse(
+    A,
+    b,
+    vol_shape,
+    A_T=None,
+    n_iter: int = 100,
+    alpha1: float = 1.0,
+    alpha0: float = 2.0,
+    axes: str = "2d",
+    op_norm: float = None,
+    x_init=None,
+    precond: bool = False,
+    norm: str = "iso",
+    huber_delta: float = 1.0,
+    fidelity: str = "l2",
+    fidelity_weight=1.0,
+    nonneg: bool = False,
+    state: TGVInverseState = None,
+    device=None,
+) -> TGVResult:
+    """TGV-2-regularized linear inverse problem:
+
+        min_{x, w} F(A x) + a1 ||D x - w||_{2,1} + a0 ||E w||_{2,1}
+
+    for any linear forward operator ``A`` made of torch ops (CT projection,
+    blur, inpainting masks, ...): the TGV counterpart of
+    ``solvers.inverse.cp_inverse``, removing first-order TV's staircasing
+    from reconstructions of piecewise-linear objects (classic TGV-CT).
+    Chambolle-Pock over K = [[A, 0], [D, -I], [0, E]]; ``A_T`` defaults to
+    the exact transpose (the vjp); step rule
+    ``sigma = tau = 1/sqrt(||A||^2 + ||K_tgv||^2)`` with the per-axes-mode
+    TGV block bound of ``tgv_denoise``.  ``models.ct.tgv_reconstruct`` is
+    this solver specialized to the CT projector.  The solve is the plain
+    eager loop on the device of ``b`` (``utils.device``: a numpy ``b`` goes
+    to the CUDA device unless ``device`` names another).
+
+    ``precond=True`` switches to the diagonally preconditioned iteration
+    (Pock & Chambolle 2011, alpha=1): per-element step sizes from the exact
+    row/column absolute sums of K (closed-form boundary masks for D/E; the
+    operator's own row/column sums for A, exact whenever A has nonnegative
+    coefficients).  No ``op_norm`` or power iteration needed.
+
+    ``fidelity`` selects the data term ``F`` (``solvers.fidelity``):
+    ``'l2'`` (default), ``'l1'`` (impulsive noise), ``'kl'`` (Poisson
+    counts, ``b >= 0``); ``fidelity_weight`` a scalar or per-measurement
+    array.  ``nonneg=True`` projects the primal onto ``x >= 0``.  ``state``
+    resumes from ``result.state``."""
+    from .inverse import (
+        _bind_operator,
+        cached_transpose,
+        check_nonneg_operator,
+        power_iteration,
+    )
+
+    b = on_device(b, device)
+    dtype, device = b.dtype, b.device
+    validate_fidelity(fidelity, b, fidelity_weight)
+    vol_shape = tuple(int(n) for n in vol_shape)
+    if len(vol_shape) != 4:
+        raise ValueError(
+            f"tgv_inverse expects a rank-4 (Nz, M, N_row, N_col) vol_shape, "
+            f"got {vol_shape}"
+        )
+    if norm not in ("iso", "aniso", "huber"):
+        raise ValueError(f"norm must be 'iso', 'aniso' or 'huber', got "
+                         f"{norm!r}")
+    if A_T is None:
+        A_T = cached_transpose(A, vol_shape, dtype)
+    d_fwd, sym_grad, d_T, sym_T, n_w, n_q, L_sq = _tgv_ops(axes)
+    if precond:
+        if op_norm is not None:
+            raise ValueError(
+                "op_norm and precond=True are mutually exclusive — the "
+                "preconditioned steps come from the operator's exact "
+                "row/column sums, not an operator-norm bound"
+            )
+        check_nonneg_operator(A, vol_shape, dtype, what="tgv_inverse",
+                              device=device)
+    elif op_norm is None:
+        op_norm = float(power_iteration(A, A_T, vol_shape, dtype=dtype,
+                                        device=device))
+    A_, A_T_ = _bind_operator(A, A_T, vol_shape, dtype)
+    if precond:
+        sig_A, sig_p, sig_q, T_x, T_w = _tgv_precond_maps(
+            vol_shape, axes, dtype, device, norm=norm, A=A_, A_T=A_T_,
+            b_shape=tuple(b.shape))
+    else:
+        sig_A = sig_p = sig_q = T_x = T_w = float(
+            1.0 / math.sqrt(op_norm ** 2 + L_sq))
+
+    fw = torch.as_tensor(fidelity_weight, dtype=dtype, device=device)
+    Nz, M, Nr, Nc = vol_shape
+    if state is None:
+        x = (torch.zeros(vol_shape, dtype=dtype, device=device)
+             if x_init is None
+             else torch.as_tensor(x_init, dtype=dtype, device=device))
+        w = torch.zeros((Nz, n_w, M, Nr, Nc), dtype=dtype, device=device)
+        q = torch.zeros((Nz, n_q, M, Nr, Nc), dtype=dtype, device=device)
+        xb, wb, y_A, p = x, w, torch.zeros_like(b), w
+        sAx = sAxb = A_(x)
+    else:
+        st = TGVInverseState(*(t if t is None else
+                               torch.as_tensor(t, device=device)
+                               for t in state))
+        x, xb, w, wb, y_A, p, q = st[:7]
+        sAx = A_(x) if st.s_x is None else st.s_x
+        sAxb = A_(xb) if st.s_xb is None else st.s_xb
+
+    losses = torch.empty(n_iter, dtype=dtype, device=device)
+    for i in range(n_iter):
+        # linearity rewrite (solvers.inverse): A(xb) = 2 A(x_new) - A(x)
+        # from the carried projections: one forward and one adjoint per
+        # iteration, and the loss reuses the same A(x_new)
+        y_A = fidelity_dual_prox(y_A, sAxb, b, sig_A, fidelity, fw)
+        p = _tgv_dual_prox(p + _chanmul(sig_p, d_fwd(xb) - wb), alpha1,
+                           norm, sig_p, huber_delta)
+        q = _tgv_dual_prox(q + _chanmul(sig_q, sym_grad(wb)), alpha0, norm,
+                           sig_q, huber_delta)
+        x_new = x - T_x * (A_T_(y_A) + d_T(p))
+        if nonneg:
+            x_new = torch.clamp_min(x_new, 0.0)
+        w_new = w - _chanmul(T_w, -p + sym_T(q))
+        xb = 2.0 * x_new - x
+        wb = 2.0 * w_new - w
+        s_new = A_(x_new)
+        x, w, sAx, sAxb = x_new, w_new, s_new, 2.0 * s_new - sAx
+        losses[i] = (fidelity_loss(s_new, b, fidelity, fw)
+                     + alpha1 * _tgv_norm_val(d_fwd(x) - w, norm,
+                                              huber_delta)
+                     + alpha0 * _tgv_norm_val(sym_grad(w), norm,
+                                              huber_delta))
+    final = TGVInverseState(x, xb, w, wb, y_A, p, q, sAx, sAxb)
+    return TGVResult(x=final.x, w=final.w, loss=losses, state=final)

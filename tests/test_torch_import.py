@@ -23,7 +23,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, pytv4d_tpu_torch, pytv4d_tpu_torch.kernels.fused, "
             "pytv4d_tpu_torch.kernels.tgv_stream, "
             "pytv4d_tpu_torch.kernels.tgv_resident, "
-            "pytv4d_tpu_torch.solvers.tgv, pytv4d_tpu_torch.utils.device, "
+            "pytv4d_tpu_torch.solvers.tgv, pytv4d_tpu_torch.solvers.inverse, "
+            "pytv4d_tpu_torch.models.ct, pytv4d_tpu_torch.utils.device, "
             "pytv4d_tpu_torch.utils.profiling, "
             "pytv4d_tpu_torch.interop; print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.') or "
