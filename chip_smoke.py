@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds the CP kernels (B1 pass A, B5 pass A for inverse problems, B2 pass
-B), the TV kernels (B3 norms, B4 subgradient) and the TGV-2 kernels (B6 passes PQ and XW, B7 whole solve)
+B, B10 pass A marching along z), the TV kernels (B3 norms, B4 subgradient),
+the whole-solve CP and GD kernels (B9) and the TGV-2 kernels (B6 passes PQ
+and XW, B7 whole solve)
 from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once.  Then, for
 the Chambolle-Pock path (phases 3-7): holds B1/B2 against
 their plain PyTorch versions, drives ``TVDenoiser.cp`` on the cameraman
@@ -30,7 +32,19 @@ loss); runs the (16, 4, 512, 512) x 96-angle reconstruction on the kernels,
 on the plain step and with a bf16 dual, holds the two final states against
 each other, and splits the iteration into the
 projector, its adjoint and the kernels; and runs three iterations at
-(96, 16, 512, 512) x 96 angles for the memory it takes.  Every phase raises
+(96, 16, 512, 512) x 96 angles for the memory it takes.  For the whole-solve
+CP / GD kernels and the z-marching pass A (phases 20-23): holds B9 (CP and
+GD) against its plain loops over four shapes, the four schemes and the three
+norms; solves the cameraman image from a numpy array with
+``make_resident_cp_solver`` and ``make_resident_gd_solver``, each in ONE
+launch with no per-launch kernel running, against the reference losses and
+the host-loop solvers; holds B10 against its plain version and against B1,
+runs a 20-iteration (32, 8, 256, 256) CP solve on B10 + B2 against the same
+solve on B1 + B2, and times the two pass A's alone and in the step; and runs
+``TVDenoiser.admm`` / ``.fista``, ``chambolle_pock_precond``,
+``denoise_tv_chambolle`` with ``eps`` and with coupled channels,
+``run_until_converged(criterion="gap")`` and a resumed ``run_checkpointed``
+on the card from numpy inputs.  Every phase raises
 on failure; nothing falls back to the CPU.  The last line of stdout is one
 JSON object with ``"ok": true`` and the device.
 """
@@ -44,6 +58,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,19 +71,42 @@ from pytv4d_tpu_torch.core.schemes import (
     num_channels,
     operator_norm_bound_sq,
 )
-from pytv4d_tpu_torch.kernels import build, fused, tgv_resident, tgv_stream
+from pytv4d_tpu_torch.kernels import (
+    build,
+    fused,
+    resident,
+    tgv_resident,
+    tgv_stream,
+    zstream,
+)
 from pytv4d_tpu_torch.kernels.dispatch import t_plane_multiplier
-from pytv4d_tpu_torch.models import TVDenoiser, add_noise
+from pytv4d_tpu_torch.models import (
+    TVDenoiser,
+    add_noise,
+    denoise_tv_chambolle,
+)
 from pytv4d_tpu_torch.models.ct import (
     cp_reconstruct,
     estimate_op_norm,
     make_projector,
     radon,
 )
-from pytv4d_tpu_torch.solvers.cp import chambolle_pock, default_tau
+from pytv4d_tpu_torch.solvers.admm import admm
+from pytv4d_tpu_torch.solvers.cp import (
+    CPPrecondState,
+    chambolle_pock,
+    chambolle_pock_precond,
+    default_tau,
+    pd_gap,
+)
 from pytv4d_tpu_torch.solvers.fidelity import fidelity_dual_prox, fidelity_loss
+from pytv4d_tpu_torch.solvers.fista import fista
 from pytv4d_tpu_torch.solvers.gd import subgradient_descent
 from pytv4d_tpu_torch.solvers.inverse import cp_inverse
+from pytv4d_tpu_torch.solvers.state import (
+    run_checkpointed,
+    run_until_converged,
+)
 from pytv4d_tpu_torch.solvers.tgv import TGV_FIELDS, tgv_denoise
 from pytv4d_tpu_torch.utils import cameraman, has_real_cameraman
 from pytv4d_tpu_torch.utils.profiling import (
@@ -90,13 +128,17 @@ README_TV = 532166.8251801673  # tv_hybrid(rand(20, 4, 100, 100)), seed 0
 # TVDenoiser(reg=25).tgv(cameraman + noise, 300): the JAX package in f64 on
 # the CPU (tests/test_torch_tgv.py)
 CAMERAMAN_TGV_LOSS = 37211904.16116732
-LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident")
+LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "resident",
+        "cp_zstream")
 # each wrapper's launch counter, by kernel id
 COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
             "B3": fused.tv_norms, "B4": fused.tv_subgrad,
             "B5": fused.tv_dual,
             "B6pq": tgv_stream.tgv_pq, "B6xw": tgv_stream.tgv_xw,
-            "B7": tgv_resident.tgv_resident_solve}
+            "B7": tgv_resident.tgv_resident_solve,
+            "B9cp": resident.make_resident_cp_solver,
+            "B9gd": resident.make_resident_gd_solver,
+            "B10": zstream.cp_dual_zstream}
 # data-sheet peaks of the H100 SXM at 700 W: HBM bytes/s (utils.profiling)
 # and float32 operations/s outside the tensor cores
 H100_F32_PEAK_FLOPS = 67e12
@@ -1495,6 +1537,471 @@ def phase_ct_capacity(op_norm):
     torch.cuda.empty_cache()
     sync()
 
+# ---------------------------------------------------------------- phase 20
+# B9 over 20 iterations against the plain loop: ten times the per-call bar
+# (F32_TOL), as B7 is held; each loss to 1e-5
+RESIDENT_TOL = dict(atol=2e-5, rtol=1e-4)
+RESIDENT_SHAPES = ((1, 1, 64, 64), CAMERAMAN, (4, 2, 64, 64), (3, 1, 32, 128))
+
+
+def _resident_state(shape, cfg, gen):
+    Nz, M, Nr, Nc = shape
+    Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg, cfg.reg_time)
+    x0 = torch.rand(shape, generator=gen, device=DEV)
+    x = x0 + 0.1 * torch.rand(shape, generator=gen, device=DEV)
+    y_A = 0.1 * torch.randn(shape, generator=gen, device=DEV)
+    y_D = 0.1 * torch.randn((Nz, Nd, M, Nr, Nc), generator=gen, device=DEV)
+    return x0, x, y_A, y_D
+
+
+def phase_resident_kernels():
+    errs = {"B9cp": 0.0, "B9gd": 0.0}
+    n = 0
+    for shape in RESIDENT_SHAPES:
+        for scheme in SCHEMES:
+            for norm in ("iso", "aniso", "huber"):
+                cfg = TVConfig(scheme=scheme, reg_time=0.5, norm=norm,
+                               huber_delta=0.3)
+                gen = torch.Generator(device=DEV).manual_seed(5)
+                x0, x, y_A, y_D = _resident_state(shape, cfg, gen)
+                kw = dict(reg=0.4, sigma_D=0.5, sigma_A=1.0,
+                          tau=default_tau(cfg, shape[0], shape[1]))
+                got = resident.make_resident_cp_solver(
+                    cfg, shape, 20, "float32", **kw)(x0, x, y_A, y_D)
+                ref = resident.resident_cp_plain(x0, x, y_A, y_D, 20, cfg=cfg,
+                                                 **kw)
+                for g, r in zip(got[:3], ref[:3]):
+                    errs["B9cp"] = max(errs["B9cp"], _compare(
+                        g, r, False, 0.0, RESIDENT_TOL))
+                rel = float(((got[3] - ref[3]).abs() / ref[3].abs()).max())
+                require(rel <= 1e-5, f"B9cp {scheme}-{norm} {shape}: losses "
+                                     f"rel err {rel:.3g}")
+                gkw = dict(reg=0.4, step_size=1e-2)
+                gx, gl = resident.make_resident_gd_solver(
+                    cfg, shape, 20, "float32", **gkw)(x0, x)
+                rx, rl = resident.resident_gd_plain(x0, x, 20, cfg=cfg, **gkw)
+                errs["B9gd"] = max(errs["B9gd"], _compare(
+                    gx, rx, False, 0.0, RESIDENT_TOL))
+                rel = float(((gl - rl).abs() / rl.abs()).max())
+                require(rel <= 1e-5, f"B9gd {scheme}-{norm} {shape}: losses "
+                                     f"rel err {rel:.3g}")
+                n += 1
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    for make in (resident.make_resident_cp_solver,
+                 resident.make_resident_gd_solver):
+        require(not resident.resident_fits(NORTH_STAR, cfg),
+                "resident_fits refuses the north-star volume")
+        try:
+            make(cfg, NORTH_STAR, 3)
+        except ValueError:
+            pass
+        else:
+            require(False, "a volume outside resident_fits raises")
+    log(f"[20 B9 vs plain] {n} cases x (CP, GD), 20 iterations at "
+        f"{RESIDENT_SHAPES}, {resident.THREADS}-thread blocks: pass; max abs "
+        f"err CP state {errs['B9cp']:.3g}, GD x {errs['B9gd']:.3g}; a volume "
+        f"outside resident_fits raises")
+    sync()
+    return errs
+
+
+# ---------------------------------------------------------------- phase 21
+def phase_resident_main_path(card):
+    noisy = add_noise(cameraman(), 100, seed=0).astype(np.float32)[None, None]
+    require(isinstance(noisy, np.ndarray) and noisy.shape == CAMERAMAN,
+            "the input is a numpy volume")
+    cfg = TVConfig()
+    Nd = num_channels(cfg.scheme, 1, 1, cfg.reg_z_over_reg, cfg.reg_time)
+    tau = default_tau(cfg, 1, 1)
+    cp_solve = resident.make_resident_cp_solver(
+        cfg, CAMERAMAN, 300, "float32", reg=25.0, sigma_D=0.5, sigma_A=1.0,
+        tau=tau)
+    gd_solve = resident.make_resident_gd_solver(
+        cfg, CAMERAMAN, 300, "float32", reg=25.0, step_size=5e-3)
+    zeros = np.zeros(CAMERAMAN, np.float32)
+    y_D0 = np.zeros((1, Nd, 1, 256, 256), np.float32)
+    cp_solve(noisy, noisy, zeros, y_D0)  # builds nothing new; warms the call
+    sync()
+
+    zero_counters()
+    x, y_A, y_D, losses = cp_solve(noisy, noisy, zeros, y_D0)  # numpy in
+    sync()
+    cp_launches = read_counters()
+    require_launches(cp_launches, "make_resident_cp_solver", B9cp=1)
+    zero_counters()
+    gx, glosses = gd_solve(noisy, noisy)
+    sync()
+    gd_launches = read_counters()
+    require_launches(gd_launches, "make_resident_gd_solver", B9gd=1)
+    for t, shape in ((x, CAMERAMAN), (y_D, (1, Nd, 1, 256, 256)),
+                     (gx, CAMERAMAN), (losses, (300,)), (glosses, (300,))):
+        require(t.is_cuda and tuple(t.shape) == shape
+                and t.dtype == torch.float32
+                and bool(torch.isfinite(t).all()),
+                f"a numpy volume is solved on the card: {shape} float32")
+    rel_cp = abs(float(losses[-1]) - CAMERAMAN_LOSS) / CAMERAMAN_LOSS
+    rel_gd = abs(float(glosses[-1]) - CAMERAMAN_GD_LOSS) / CAMERAMAN_GD_LOSS
+    require(rel_cp < 1e-4, f"B9 cameraman CP loss within 1e-4, got {rel_cp:.3g}")
+    require(rel_gd < 1e-4, f"B9 cameraman GD loss within 1e-4, got {rel_gd:.3g}")
+
+    # against the host loops over B1 + B2 and B3 + B4 (the same per-voxel
+    # code, so only the order of the loss sums differs): losses to 1e-5
+    # over the whole trajectory, the final CP iterate to the 20-iteration
+    # bar; GD, which is nonsmooth, on the losses alone
+    x0 = torch.as_tensor(noisy, device=DEV)
+    host_cp = chambolle_pock(x0, n_iter=300, reg=25.0, cfg=cfg)
+    host_gd = subgradient_descent(x0, n_iter=300, reg=25.0, step_size=5e-3,
+                                  cfg=cfg)
+    traj_cp = float(((losses - host_cp.loss).abs() / host_cp.loss).max())
+    traj_gd = float(((glosses - host_gd.loss).abs() / host_gd.loss).max())
+    require(traj_cp < 1e-5 and traj_gd < 1e-4,
+            f"B9 trajectories follow the host loops: CP {traj_cp:.3g}, GD "
+            f"{traj_gd:.3g}")
+    err_x = _compare(x, host_cp.x, False, 0.0, RESIDENT_TOL)
+    err_gx = float((gx - host_gd.x).abs().max())
+    log(f"[21 B9 main path] make_resident_cp_solver / _gd_solver(cameraman "
+        f"numpy, 300 iterations) on {x.device}: CP loss {float(losses[-1]):.2f}"
+        f" (rel err {rel_cp:.3g} vs {CAMERAMAN_LOSS}), GD loss "
+        f"{float(glosses[-1]):.2f} (rel err {rel_gd:.3g} vs "
+        f"{CAMERAMAN_GD_LOSS}); launches CP {cp_launches}, GD {gd_launches}; "
+        f"vs the host loops: loss trajectories {traj_cp:.3g} / {traj_gd:.3g}, "
+        f"max abs err of x {err_x:.3g} / {err_gx:.3g}")
+
+    # times: one 300-iteration solve each way (CUDA events, best of 3)
+    st = [x0, x0, torch.zeros_like(x0), torch.as_tensor(y_D0, device=DEV)]
+    b9cp = _best_ms(lambda: cp_solve(*st))
+    b9gd = _best_ms(lambda: gd_solve(x0, x0))
+    loop_cp = _best_ms(lambda: chambolle_pock(x0, n_iter=300, reg=25.0,
+                                              cfg=cfg))
+    loop_gd = _best_ms(lambda: subgradient_descent(
+        x0, n_iter=300, reg=25.0, step_size=5e-3, cfg=cfg))
+    plain_cp = _best_ms(lambda: resident.resident_cp_plain(
+        *st, 300, cfg=cfg, reg=25.0, sigma_D=0.5, sigma_A=1.0, tau=tau),
+        repeats=1)
+    plain_gd = _best_ms(lambda: resident.resident_gd_plain(
+        x0, x0, 300, cfg=cfg, reg=25.0, step_size=5e-3), repeats=1)
+    log(f"[21 B9 at cameraman] 300 iterations, ms per iteration: CP B9 "
+        f"{b9cp / 300:.5f} (one launch, {b9cp:.3f} ms), host loop over B1 + "
+        f"B2 {loop_cp / 300:.5f}, plain loop {plain_cp / 300:.4f}; GD B9 "
+        f"{b9gd / 300:.5f} ({b9gd:.3f} ms), host loop over B3 + B4 "
+        f"{loop_gd / 300:.5f}, plain loop {plain_gd / 300:.4f}; card {card}")
+    # the coupled case: z and t channels, 8 channels
+    cfg4 = TVConfig(scheme="hybrid", reg_time=0.5)
+    shape4 = (4, 2, 64, 64)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    v0 = 100.0 * torch.rand(shape4, generator=gen, device=DEV)
+    Nd4 = num_channels(cfg4.scheme, 4, 2, cfg4.reg_z_over_reg, cfg4.reg_time)
+    solve4 = resident.make_resident_cp_solver(
+        cfg4, shape4, 300, "float32", reg=25.0, sigma_D=0.5, sigma_A=1.0,
+        tau=default_tau(cfg4, 4, 2))
+    st4 = [v0, v0, torch.zeros_like(v0),
+           torch.zeros((4, Nd4, 2, 64, 64), device=DEV)]
+    b9_4 = _best_ms(lambda: solve4(*st4))
+    loop_4 = _best_ms(lambda: chambolle_pock(v0, n_iter=300, reg=25.0,
+                                             cfg=cfg4))
+    log(f"[21 B9 coupled {shape4} hybrid reg_time=0.5, Nd={Nd4}] CP B9 "
+        f"{b9_4 / 300:.5f} ms/it, host loop over B1 + B2 {loop_4 / 300:.5f}")
+
+    vox = 256 * 256
+    bounds = {
+        # x0 and the start state read, the end state written; per voxel and
+        # iteration B1's + B2's operations (CP), B3's + B4's + 6 for the
+        # update and the loss term (GD)
+        "B9cp": bound((1 + 2 * (2 + Nd)) * 4 * vox,
+                      300 * ((10 * Nd + 10) + (4 * Nd + 8)) * vox),
+        "B9gd": bound(3 * 4 * vox,
+                      300 * ((4 * Nd + 4) + (10 * Nd + 2) + 6) * vox)}
+    sync()
+    return ({"B9cp": cp_launches["B9cp"], "B9gd": gd_launches["B9gd"]},
+            {"B9cp": (b9cp, plain_cp), "B9gd": (b9gd, plain_gd)}, bounds)
+
+
+# ---------------------------------------------------------------- phase 22
+ZSTREAM_ATOL = 3e-7  # the JAX bar between its two pass-A kernels
+
+
+def _zstream_cases():
+    """(shape, cfg, fidelity keywords, storage): the cases of the JAX
+    package's zstream tests, odd extents, bf16 storage and the two real
+    sizes."""
+    hyb = dict(scheme="hybrid", reg_time=0.5)
+    for scheme in SCHEMES:
+        yield (4, 2, 16, 128), TVConfig(scheme=scheme, reg_time=0.5), {}, "f32"
+    yield (4, 2, 512, 128), TVConfig(**hyb), {}, "f32"
+    yield (4, 2, 16, 128), TVConfig(**hyb), {}, "f32+bf16dual"
+    yield (4, 2, 16, 128), TVConfig(**hyb), dict(fidelity="l1",
+                                                 fid_weight=0.7), "f32"
+    yield (3, 2, 16, 128), TVConfig(**hyb), dict(fidelity="kl",
+                                                 fid_weight=1.3), "f32"
+    yield (4, 2, 16, 128), TVConfig(norm="aniso", **hyb), {}, "f32"
+    yield (4, 2, 16, 128), TVConfig(norm="huber", huber_delta=0.2,
+                                    **hyb), {}, "f32"
+    yield (5, 3, 33, 70), TVConfig(**hyb), {}, "bf16+bf16dual"
+    yield (5, 3, 33, 70), TVConfig(scheme="central", reg_time=0.7,
+                                   reg_z_over_reg=0.3), {}, "f32"
+    yield MAIN_4D, TVConfig(**hyb), {}, "f32"
+    yield CT_SHAPE, TVConfig(**hyb), {}, "f32"
+
+
+def phase_zstream(card):
+    errs = {"f32": 0.0, "bf16": 0.0}
+    n = 0
+    for shape, cfg, fid_kw, storage in _zstream_cases():
+        gen = torch.Generator(device=DEV).manual_seed(11)
+        x, x0, y_A, y_D = _state(shape, cfg, STORAGE[storage], gen,
+                                 fid_kw.get("fidelity", "l2"))
+        kw = dict(cfg=cfg, sigma_D=0.5, sigma_A=1.0, reg=0.3, **fid_kw)
+        z = [y_A.clone(), y_D.clone()]
+        b1 = [y_A.clone(), y_D.clone()]
+        pl = [y_A.clone(), y_D.clone()]
+        _, _, tv_z = zstream.cp_dual_zstream(x, x0, z[0], z[1], **kw)
+        _, _, tv_1 = fused.cp_dual(x, x0, b1[0], b1[1], **kw)
+        _, _, tv_p = zstream.cp_dual_zstream_plain(x, x0, pl[0], pl[1], **kw)
+        bf16 = storage != "f32"
+        kind = "bf16" if bf16 else "f32"
+        for g, r in zip(z, pl):  # against the plain version
+            errs[kind] = max(errs[kind], _compare(g, r, bf16, 0.0))
+        for g, r in zip(z, b1):  # against B1: the same function
+            err = float((g.float() - r.float()).abs().max())
+            require(err <= ZSTREAM_ATOL, f"B10 vs B1 {shape} {storage}: "
+                                         f"{err:.3g} <= {ZSTREAM_ATOL}")
+        s_z, s_1, s_p = (float(t.sum()) for t in (tv_z, tv_1, tv_p))
+        require(abs(s_z - s_1) <= 2e-6 * abs(s_1)
+                and abs(s_z - s_p) <= (1e-4 if bf16 else 1e-5) * abs(s_p),
+                f"B10 TV sum {shape}: {s_z} vs B1 {s_1}, plain {s_p}")
+        tau = default_tau(cfg, shape[0], shape[1])
+        pk = dict(cfg=cfg, tau=tau, **fid_kw)
+        xz, _ = fused.cp_primal(x, x0, z[0], z[1], out=torch.empty_like(x),
+                                **pk)
+        x1, _ = fused.cp_primal(x, x0, b1[0], b1[1], out=torch.empty_like(x),
+                                **pk)
+        err = float((xz.float() - x1.float()).abs().max())
+        require(err <= ZSTREAM_ATOL, f"B10 + B2 vs B1 + B2 {shape}: {err:.3g}")
+        n += 1
+        del x, x0, y_A, y_D, z, b1, pl, xz, x1
+    for shape, cfg in (((2, 2, 16, 128), TVConfig(scheme="hybrid")),
+                       ((4, 2, 16, 128), TVConfig(scheme="hybrid",
+                                                  reg_z_over_reg=0.0))):
+        gen = torch.Generator(device=DEV).manual_seed(11)
+        args = _state(shape, cfg, STORAGE["f32"], gen, "l2")
+        try:
+            zstream.cp_dual_zstream(*args, cfg=cfg, sigma_D=0.5, sigma_A=1.0,
+                                    reg=0.3)
+        except ValueError:
+            pass
+        else:
+            require(False, f"zstream guard at {shape}")
+    log(f"[22 B10 vs plain and B1] {n} cases up to {MAIN_4D} and {CT_SHAPE}: "
+        f"pass; max abs err vs plain f32 {errs['f32']:.3g} bf16 "
+        f"{errs['bf16']:.3g}; y_A', y_D' and x' after B2 within "
+        f"{ZSTREAM_ATOL} of B1's, TV sums within 2e-6; both guards raise")
+
+    # this kernel's path: a CP solve whose pass A is B10, from a numpy
+    # volume, against the solver (pass A = B1)
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    Nz, M, Nr, Nc = MAIN_4D
+    Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg, cfg.reg_time)
+    tau = default_tau(cfg, Nz, M)
+    base = np.random.default_rng(0).random(MAIN_4D).astype(np.float32)
+    dk = dict(cfg=cfg, sigma_D=0.5, sigma_A=1.0, reg=1.0)
+    sync()
+    zero_counters()
+    x0 = torch.as_tensor(base, device=DEV)
+    xs, y_A = x0.clone(), torch.zeros_like(x0)
+    y_D = torch.zeros((Nz, M, Nd, Nr, Nc), device=DEV)
+    z_losses = []
+    for _ in range(20):
+        _, _, tv = zstream.cp_dual_zstream(xs, x0, y_A, y_D, **dk)
+        _, fid = fused.cp_primal(xs, x0, y_A, y_D, cfg=cfg, tau=tau)
+        z_losses.append(fid.sum() + tv.sum())
+    sync()
+    launches = read_counters()
+    require_launches(launches, "CP solve on B10 + B2", B10=20, B2=20)
+    ref = chambolle_pock(x0, n_iter=20, reg=1.0, cfg=cfg, return_dual=False)
+    err = float((xs - ref.x).abs().max())
+    rel = float(((torch.stack(z_losses) - ref.loss).abs() / ref.loss).max())
+    require(err <= ZSTREAM_ATOL and rel <= 2e-6 and bool(
+        torch.isfinite(xs).all()),
+        f"20 iterations on B10 + B2 equal those on B1 + B2: x {err:.3g}, "
+        f"losses {rel:.3g}")
+    log(f"[22 B10 path] 20 CP iterations at {MAIN_4D} f32 with pass A = B10: "
+        f"launches {launches}; x within {err:.3g} of chambolle_pock's (pass A "
+        f"= B1), losses within {rel:.3g}")
+    del ref, xs, y_A, y_D
+
+    # the A/B: pass A alone and the composed step, interleaved, marginal
+    # time per iteration between 50 and 150 iterations
+    out = {}
+    for tag, (x_dt, d_dt) in STORAGE.items():
+        v0 = x0.to(x_dt)
+
+        def state():
+            return (v0.clone(), torch.zeros_like(v0),
+                    torch.zeros((Nz, M, Nd, Nr, Nc), dtype=d_dt, device=DEV))
+
+        def loop(dual, with_b2):
+            xx, ya, yd = state()
+
+            def run(n_it):
+                for _ in range(n_it):
+                    dual(xx, v0, ya, yd, **dk)
+                    if with_b2:
+                        fused.cp_primal(xx, v0, ya, yd, cfg=cfg, tau=tau)
+            return run
+
+        res = {}
+        for with_b2 in (False, True):
+            t = {"B1": [], "B10": []}
+            for name, dual in (("B1", fused.cp_dual),
+                               ("B10", zstream.cp_dual_zstream),
+                               ("B10", zstream.cp_dual_zstream),
+                               ("B1", fused.cp_dual)):
+                t[name].append(_marginal_ms(loop(dual, with_b2), 50, 150,
+                                            repeats=2))
+            res[with_b2] = {k: min(v) for k, v in t.items()}
+        log(f"[22 B10 A/B {MAIN_4D} {tag}] pass A alone: B1 "
+            f"{res[False]['B1']:.4f} ms, B10 {res[False]['B10']:.4f} ms "
+            f"(B1 / B10 = {res[False]['B1'] / res[False]['B10']:.3f}); step "
+            f"with B2: B1 {res[True]['B1']:.4f} ms/it, B10 "
+            f"{res[True]['B10']:.4f} ms/it "
+            f"({res[True]['B1'] / res[True]['B10']:.3f}); (t(150) - t(50)) / "
+            f"100, interleaved B1, B10, B10, B1; card {card}")
+        out[tag] = res
+        sync()
+    xx, ya, yd = x0.clone(), torch.zeros_like(x0), torch.zeros(
+        (Nz, M, Nd, Nr, Nc), device=DEV)
+    ms = (_time_launch(lambda: zstream.cp_dual_zstream(xx, x0, ya, yd, **dk)),
+          _time_launch(lambda: zstream.cp_dual_zstream_plain(xx, x0, ya, yd,
+                                                             **dk), n=10))
+    log(f"[22 B10 per launch, f32 {MAIN_4D}] {ms[0]:.3f} ms (plain "
+        f"{ms[1]:.3f} ms)")
+    sync()
+    return launches["B10"], errs, ms
+
+
+# ---------------------------------------------------------------- phase 23
+def _peak_rises(fn):
+    """Run ``fn`` and return its result and whether it allocated on the
+    card."""
+    sync()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    before = torch.cuda.memory_allocated(DEV)
+    out = fn()
+    sync()
+    return out, torch.cuda.max_memory_allocated(DEV) > before
+
+
+def phase_solvers(card):
+    noisy = add_noise(cameraman(), 100, seed=0).astype(np.float32)
+    model = TVDenoiser(reg=25)
+    zero_counters()
+    res_admm = model.admm(noisy, 30)   # numpy in, no device=
+    res_fista = model.fista(noisy, 100)
+    res_pre = chambolle_pock_precond(noisy[None, None], n_iter=300, reg=25.0)
+    sync()
+    require_launches(read_counters(), "ADMM, FISTA and the preconditioned CP "
+                     "run no kernel, as in the JAX package")
+    for name, res in (("admm", res_admm), ("fista", res_fista),
+                      ("precond", res_pre)):
+        require(res.x.is_cuda and res.loss.is_cuda
+                and res.x.dtype == torch.float32
+                and bool(torch.isfinite(res.x).all())
+                and bool(torch.isfinite(res.loss).all()),
+                f"{name}: a numpy image is solved on the card in float32")
+        require(float(res.loss[-1]) < float(res.loss[0]),
+                f"{name}: the loss falls")
+    require(isinstance(res_pre.state, CPPrecondState), "precond state type")
+    # all minimise the cameraman objective: after these iteration counts
+    # each is within 2% of the 300-iteration CP value
+    finals = {"admm(30)": float(res_admm.loss[-1]),
+              "fista(100)": float(res_fista.loss[-1]),
+              "precond(300)": float(res_pre.loss[-1])}
+    for name, val in finals.items():
+        require(abs(val - CAMERAMAN_LOSS) / CAMERAMAN_LOSS < 0.02,
+                f"{name} reaches the cameraman objective: {val:.1f}")
+    log(f"[23 solvers on the card] TVDenoiser.admm / .fista / "
+        f"chambolle_pock_precond from numpy cameraman on {res_admm.x.device}: "
+        f"final losses {finals} (CP after 300: {CAMERAMAN_LOSS})")
+
+    zero_counters()
+    out_eps = denoise_tv_chambolle(noisy, weight=25.0, eps=2e-4,
+                                   max_num_iter=400)
+    sync()
+    eps_launches = read_counters()
+    require(eps_launches["B1"] == eps_launches["B2"]
+            and 0 < eps_launches["B1"] < 400 and eps_launches["B1"] % 20 == 0,
+            f"eps=2e-4 stops early on the card, in chunks of 20 kernel "
+            f"iterations: {eps_launches}")
+    full = denoise_tv_chambolle(noisy, weight=25.0, max_num_iter=400)
+    require(isinstance(out_eps, np.ndarray) and out_eps.shape == (256, 256)
+            and bool(np.isfinite(out_eps).all())
+            and np.abs(out_eps - full).max() > 0, "eps result")
+    rgb = np.stack([noisy, noisy[::-1], noisy[:, ::-1]], axis=-1).copy()
+    (out_cpl, used_card) = _peak_rises(lambda: denoise_tv_chambolle(
+        rgb, weight=25.0, max_num_iter=40, channel_axis=-1,
+        coupled_channels=True))
+    out_ind = denoise_tv_chambolle(rgb, weight=25.0, max_num_iter=40,
+                                   channel_axis=-1)
+    require(used_card and out_cpl.shape == rgb.shape
+            and bool(np.isfinite(out_cpl).all())
+            and np.abs(out_cpl - out_ind).max() > 1e-3,
+            "coupled channels: solved on the card, differs from independent")
+    log(f"[23 denoise_tv_chambolle] eps=2e-4 stopped after "
+        f"{eps_launches['B1']} of 400 iterations (launches {eps_launches}); "
+        f"coupled_channels=True on a 256 x 256 x 3 image: on the card, max "
+        f"|coupled - independent| {np.abs(out_cpl - out_ind).max():.3g}")
+
+    # tolerance-based stopping on the certified gap, from a numpy volume
+    x0 = torch.as_tensor(noisy, device=DEV)[None, None]
+    conv = run_until_converged(chambolle_pock, x0, tol=1e-3, chunk=50,
+                               max_iter=3000, criterion="gap", reg=25.0)
+    n_run = len(conv.loss)
+    gap = float(pd_gap(conv.state, x0, reg=25.0))
+    require(n_run < 3000 and conv.loss.is_cuda
+            and gap <= 1e-3 * float(conv.loss[-1]),
+            f"criterion='gap' stops before max_iter: {n_run}, gap {gap:.4g}")
+    # a checkpointed run, interrupted and resumed, equals the whole one
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run.npz")
+        kw = dict(reg=25.0, fused=False)
+        run_checkpointed(chambolle_pock, x0, 40, checkpoint_path=path,
+                         checkpoint_every=20, **kw)
+        resumed = run_checkpointed(chambolle_pock, x0, 100,
+                                   checkpoint_path=path, checkpoint_every=20,
+                                   **kw)
+    whole = chambolle_pock(x0, n_iter=100, **kw)
+    require(torch.equal(resumed.x, whole.x)
+            and torch.equal(resumed.loss, whole.loss) and resumed.x.is_cuda,
+            "run_checkpointed resumed from its file equals the whole run")
+    log(f"[23 state] run_until_converged(chambolle_pock, criterion='gap', "
+        f"tol=1e-3) stopped after {n_run} of 3000 iterations (gap / loss "
+        f"{gap / float(conv.loss[-1]):.3g}); run_checkpointed(100, every 20) "
+        f"interrupted at 40 and resumed: bit-equal to the whole run")
+
+    # rates (CUDA events; whole solver calls)
+    def rate(fn, n_it, repeats=3):
+        return n_it / (_best_ms(fn, repeats) / 1e3)
+
+    cam = {"admm": rate(lambda: admm(x0, n_iter=30, reg=25.0), 30),
+           "fista": rate(lambda: fista(x0, n_iter=100, reg=25.0), 100),
+           "precond": rate(lambda: chambolle_pock_precond(
+               x0, n_iter=100, reg=25.0), 100)}
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    v0 = torch.as_tensor(np.random.default_rng(0).random(MAIN_4D),
+                         dtype=torch.float32, device=DEV)
+    big = {"admm": rate(lambda: admm(v0, n_iter=2, reg=1.0, cfg=cfg), 2, 1),
+           "fista": rate(lambda: fista(v0, n_iter=5, reg=1.0, cfg=cfg), 5, 1),
+           "precond": rate(lambda: chambolle_pock_precond(
+               v0, n_iter=5, reg=1.0, cfg=cfg), 5, 1)}
+    log("[23 rates, plain PyTorch solvers] cameraman f32: "
+        + ", ".join(f"{k} {v:.1f} it/s" for k, v in cam.items())
+        + f"; {MAIN_4D} f32 hybrid reg_time=0.5: "
+        + ", ".join(f"{k} {v:.2f} it/s" for k, v in big.items())
+        + f" (ADMM with 8 CG iterations each); card {card}")
+    del v0
+    torch.cuda.empty_cache()
+    sync()
+
 
 def main():
     card = phase_device()
@@ -1516,6 +2023,10 @@ def main():
     inv_launches = phase_inverse_main_path()
     op_norm, b5_ms, b5_bound = phase_ct_full_width(card)
     phase_ct_capacity(op_norm)
+    res_errs = phase_resident_kernels()
+    res_launches, res_ms, res_bounds = phase_resident_main_path(card)
+    z_launches, z_errs, z_ms = phase_zstream(card)
+    phase_solvers(card)
 
     # B1-B4 bounds at the shape their times were taken at: MAIN_4D float32,
     # hybrid with reg_time=0.5 (Nd channels).  Bytes: each array once per
@@ -1534,14 +2045,16 @@ def main():
               "B3": bound(tv_1, (4 * Nd + 4) * vox),
               "B4": bound(tv_2, (10 * Nd + 2) * vox),
               "B5": b5_bound,  # (1 + 2 Nd) arrays, 10 operations a channel
-              **tgv_ms["bounds"]}
+              **tgv_ms["bounds"], **res_bounds}
+    bounds["B10"] = bounds["B1"]  # the byte model counts x once already
     require((4 + 2 * Nd + 4 + Nd) * 4 * vox == cp_traffic_model(
         MAIN_4D, Nd, dtype=torch.float32), "B1 + B2 bytes are the CP model's")
 
     def entry(kid, name, source, replaces, n_launches, err, ms, err_bf16=None):
         # no single PyTorch call computes any of these functions, so there
         # is no library time to set beside them
-        out = {"name": f"{kid[:2]} {name}", "route": "cuda",
+        out = {"name": f"{re.match(r'B[0-9]+', kid).group()} {name}",
+               "route": "cuda",
                "source": f"pytv4d_tpu_torch/csrc/{source}",
                "replaces": f"pytv4d_tpu/kernels/{replaces}",
                "launches": n_launches, "max_abs_err": err, "ms": ms[0],
@@ -1579,6 +2092,15 @@ def main():
         entry("B7", "tgv_resident_kernel (2d TGV whole solve)",
               "tgv_resident.cu", "tgv_resident.py:58", tgv_launches["B7"],
               tgv_errs["B7"]["f32"], tgv_ms["B7"]),
+        entry("B9cp", "resident_cp_kernel (CP whole solve)", "resident.cu",
+              "resident.py:50", res_launches["B9cp"], res_errs["B9cp"],
+              res_ms["B9cp"]),
+        entry("B9gd", "resident_gd_kernel (GD whole solve)", "resident.cu",
+              "resident.py:109", res_launches["B9gd"], res_errs["B9gd"],
+              res_ms["B9gd"]),
+        entry("B10", "cp_dual_zstream_kernel (CP pass A marching along z)",
+              "cp_zstream.cu", "zstream.py:70", z_launches, z_errs["f32"],
+              z_ms, z_errs["bf16"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

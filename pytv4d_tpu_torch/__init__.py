@@ -2,14 +2,18 @@
 
 Total variation of 2D/3D/4D ``(Nz, M, N_row, N_col)`` volumes — the value
 and subgradient (``ops.tv``, and the reference's ``tv_GPU`` /
-``tv_operators_GPU`` modules) — TV denoising with the Chambolle-Pock and
-subgradient-descent solvers, second-order TGV denoising (``solvers.tgv``),
+``tv_operators_GPU`` modules) — TV denoising with the Chambolle-Pock
+(plain and diagonally preconditioned), subgradient-descent, ADMM and dual
+FISTA solvers, checkpointing and tolerance-based stopping
+(``solvers.state``), second-order TGV denoising (``solvers.tgv``),
 TV-regularized linear inverse problems (``solvers.inverse``) and
 parallel-beam CT reconstruction (``models.ct``), on any torch device.  On an
 NVIDIA Hopper GPU the CP step (denoising and inverse), the TV subgradient
 and the TGV step each run as two hand-written CUDA kernels, and the
-in-plane TGV solve as one (``kernels``, sources in ``csrc/``, built with
-nvcc on first use); on the CPU they run their plain PyTorch versions.  The
+in-plane TGV solve as one; a whole CP or GD solve of a small volume in one
+launch (``kernels.resident``) and a z-marching CP pass A
+(``kernels.zstream``) are there to call directly (``kernels``, sources in
+``csrc/``, built with nvcc on first use); on the CPU they run their plain PyTorch versions.  The
 JAX package ``pytv4d_tpu`` is the reference it is tested against; this
 package imports torch and never jax.
 
@@ -55,7 +59,15 @@ from .ops.tv import (
     tv_hybrid,
     tv_upwind,
 )
-from .solvers.cp import CPResult, CPState, chambolle_pock
+from .solvers.admm import ADMMResult, ADMMState, admm
+from .solvers.cp import (
+    CPPrecondState,
+    CPResult,
+    CPState,
+    chambolle_pock,
+    chambolle_pock_precond,
+)
+from .solvers.fista import FISTAResult, fista
 from .solvers.gd import GDResult, subgradient_descent
 from .solvers.inverse import InverseResult, InverseState, cp_inverse
 from .solvers.tgv import TGVResult, TGVState, tgv_denoise

@@ -1,10 +1,11 @@
 // Device code shared by the stencil kernels of csrc/cp_fused.cu (CP passes A
-// and B) and csrc/tv_fused.cu (TV norms and subgradient): the launch
-// parameter struct, bf16/f32 loads and stores, the geometry of one stencil
-// axis at a voxel, the weighted D channels of x and a deterministic block
-// sum.
+// and B), csrc/tv_fused.cu (TV norms and subgradient), csrc/cp_zstream.cu
+// (pass A marching along z) and csrc/resident.cu (whole CP and GD solves):
+// the launch parameter struct, bf16/f32 loads and stores, the geometry of one
+// stencil axis at a voxel, the weighted D channels of x and a deterministic
+// block sum.  The per-voxel bodies of the passes are in voxel.cuh.
 //
-// All kernels run one thread per voxel in 1-D blocks of BLOCK threads along
+// The per-launch kernels run one thread per voxel in 1-D blocks of BLOCK threads along
 // a (z, t) plane of the row-major (Nz, M, Nr, Nc) volume; blockIdx.y is the
 // plane.  Each thread gates its own global index against the one-sided
 // zero-slot boundary of core/schemes.py:
@@ -70,13 +71,15 @@ __device__ __forceinline__ void axis_geom(const Params& p, int a, int z,
 
 // Every weighted D channel of x at voxel xi (value xc): d[i] is the
 // difference of channel i, 0 at its invalid slots, times tm on time
-// channels, times w[i].  d[i] = 0 for i >= Nd.
-template <typename TX>
-__device__ __forceinline__ void weighted_d(const Params& p,
-                                           const TX* __restrict__ x,
+// channels, times w[i].  d[i] = 0 for i >= Nd.  With ZREG the z neighbours
+// of the voxel are the values xzm (z - 1) and xzp (z + 1) the caller holds
+// in registers, and x is read only along t, rows and columns.
+template <bool ZREG = false, typename TX>
+__device__ __forceinline__ void weighted_d(const Params& p, const TX* x,
                                            int64_t xi, float xc, int z, int t,
                                            int r, int c, float tm,
-                                           float (&d)[MAX_CH]) {
+                                           float (&d)[MAX_CH],
+                                           float xzm = 0.f, float xzp = 0.f) {
 #pragma unroll
   for (int i = 0; i < MAX_CH; ++i) {
     d[i] = 0.f;
@@ -85,7 +88,14 @@ __device__ __forceinline__ void weighted_d(const Params& p,
       int64_t s;
       axis_geom(p, p.axis[i], z, t, r, c, 1, pos, len, s);
       float v;
-      if (p.kind[i] == K_FWD)
+      if (ZREG && p.axis[i] == AX_Z) {
+        if (p.kind[i] == K_FWD)
+          v = pos < len - 1 ? xzp - xc : 0.f;
+        else if (p.kind[i] == K_BWD)
+          v = pos > 0 ? xc - xzm : 0.f;
+        else
+          v = (pos > 0 && pos < len - 1) ? xzp - xzm : 0.f;
+      } else if (p.kind[i] == K_FWD)
         v = pos < len - 1 ? ld(x, xi + s) - xc : 0.f;
       else if (p.kind[i] == K_BWD)
         v = pos > 0 ? xc - ld(x, xi - s) : 0.f;

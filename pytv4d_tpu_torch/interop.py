@@ -7,7 +7,11 @@ port with ``state_from_numpy(*map(np.asarray, jax_state), device=...)``, a
 JAX TGV run with ``tgv_state_from_numpy(*map(np.asarray, jax_state),
 device=...)``, a JAX inverse or CT run with
 ``inverse_state_from_numpy(jax_state, device=...)``, and a port run resumes
-in JAX with ``CPState(*state_to_numpy(state))``.  Configs carry as plain fields:
+in JAX with ``CPState(*state_to_numpy(state))``.  The preconditioned CP, ADMM
+and FISTA runs carry the same way (``precond_state_from_numpy``,
+``admm_state_from_numpy``, ``fista_dual_from_numpy``), and
+``solvers.state.save_state`` writes an npz that both packages load.
+Configs carry as plain fields:
 ``config_from_fields(**dataclasses.asdict(cfg))``.  Arrays cross as numpy,
 so neither package imports the other.  ``device`` is always named: nothing
 here picks the CPU by default.
@@ -23,7 +27,8 @@ import numpy as np
 import torch
 
 from .core.config import TVConfig
-from .solvers.cp import CPState
+from .solvers.admm import ADMMState
+from .solvers.cp import CPPrecondState, CPState
 from .solvers.inverse import InverseState
 from .solvers.tgv import TGVState
 
@@ -44,6 +49,30 @@ def state_from_numpy(x, y_A, y_D, *, device, dtype=None) -> CPState:
     ``(Nz, Nd, M, Nr, Nc)``.  ``dtype`` (a torch dtype) defaults to that of
     ``x``."""
     return CPState(*_from_numpy((x, y_A, y_D), device, dtype))
+
+
+def precond_state_from_numpy(x, x_bar, y_A, y_D, *, device,
+                             dtype=None) -> CPPrecondState:
+    """A port :class:`CPPrecondState` on ``device`` from numpy arrays in
+    the public layouts: ``x``, ``x_bar``, ``y_A`` ``(Nz, M, Nr, Nc)`` and
+    ``y_D`` ``(Nz, Nd, M, Nr, Nc)``.  ``dtype`` (a torch dtype) defaults to
+    that of ``x``."""
+    return CPPrecondState(*_from_numpy((x, x_bar, y_A, y_D), device, dtype))
+
+
+def admm_state_from_numpy(x, z, u, *, device, dtype=None) -> ADMMState:
+    """A port :class:`ADMMState` on ``device`` from numpy arrays in the
+    public layouts: ``x`` ``(Nz, M, Nr, Nc)``, ``z`` and ``u``
+    ``(Nz, Nd, M, Nr, Nc)``.  ``dtype`` (a torch dtype) defaults to that of
+    ``x``."""
+    return ADMMState(*_from_numpy((x, z, u), device, dtype))
+
+
+def fista_dual_from_numpy(y, *, device, dtype=None):
+    """FISTA's only carried state, the dual ``y`` ``(Nz, Nd, M, Nr, Nc)``,
+    as a tensor on ``device`` for ``fista(..., y_init=...)``.  ``dtype`` (a
+    torch dtype) defaults to the array's own."""
+    return _from_numpy((y,), device, dtype)[0]
 
 
 def tgv_state_from_numpy(x, xb, w, wb, p, q, *, device,
@@ -67,8 +96,8 @@ def inverse_state_from_numpy(state, *, device, dtype=None) -> InverseState:
 
 
 def state_to_numpy(state):
-    """The fields of a :class:`CPState`, :class:`TGVState` or
-    :class:`InverseState` as numpy
+    """The fields of a :class:`CPState`, :class:`CPPrecondState`,
+    :class:`ADMMState`, :class:`TGVState` or :class:`InverseState` as numpy
     arrays in the public layouts (bf16 state widens to float32; a dropped
     dual stays None)."""
     def conv(t):

@@ -1,11 +1,21 @@
-"""The fused CP step (with its pass A for inverse problems), the TV
-subgradient and the TGV-2 step and whole solve:
-CUDA kernels (``csrc/cp_fused.cu``, ``csrc/tv_fused.cu``,
-``csrc/tgv_stream.cu``, ``csrc/tgv_resident.cu``) for CUDA tensors, their
+"""The fused CP step (with its pass A for inverse problems and its
+z-marching pass A), the TV subgradient, the whole CP and GD solves and the
+TGV-2 step and whole solve:
+CUDA kernels (``csrc/cp_fused.cu``, ``csrc/cp_zstream.cu``,
+``csrc/tv_fused.cu``, ``csrc/resident.cu``, ``csrc/tgv_stream.cu``,
+``csrc/tgv_resident.cu``) for CUDA tensors, their
 plain PyTorch versions for CPU tensors.  Importing this package needs
 neither a GPU nor nvcc: the kernels are built on their first launch."""
 
-from . import build, dispatch, fused, tgv_resident, tgv_stream
+from . import (
+    build,
+    dispatch,
+    fused,
+    resident,
+    tgv_resident,
+    tgv_stream,
+    zstream,
+)
 from .dispatch import can_fuse, t_plane_multiplier
 from .fused import (
     cp_dual,
@@ -23,6 +33,13 @@ from .fused import (
     tv_subgrad,
     tv_subgrad_plain,
 )
+from .resident import (
+    make_resident_cp_solver,
+    make_resident_gd_solver,
+    resident_cp_plain,
+    resident_fits,
+    resident_gd_plain,
+)
 from .tgv_resident import (
     tgv_resident_fits,
     tgv_resident_plain,
@@ -36,3 +53,4 @@ from .tgv_stream import (
     tgv_xw,
     tgv_xw_plain,
 )
+from .zstream import cp_dual_zstream, cp_dual_zstream_plain

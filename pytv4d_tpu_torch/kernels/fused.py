@@ -138,7 +138,8 @@ def _params(cfg: TVConfig, shape, has_tmul, sigma_D=0.5, sigma_A=1.0,
 _ENTRY_POINTS = {
     # library: (prefix, parameter struct,
     #           {launch function: (int flags, tensor pointers)});
-    # kernels/tgv_stream.py and kernels/tgv_resident.py add theirs
+    # kernels/tgv_stream.py, tgv_resident.py, resident.py and zstream.py add
+    # theirs
     "cp_fused": ("cp", _Params, {"cp_dual_launch": (2, 6),
                                  "tv_dual_launch": (2, 3),
                                  "cp_primal_launch": (2, 7)}),

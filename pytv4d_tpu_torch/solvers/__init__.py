@@ -1,9 +1,14 @@
-from . import cp, fidelity, gd, inverse, progress, tgv
+from . import admm as admm_mod
+from . import cp, fidelity, fista as fista_mod, gd, inverse, progress, state, tgv
+from .admm import ADMMResult, ADMMState, admm, admm_step, group_soft_threshold
 from .cp import (
+    CPPrecondState,
     CPResult,
     CPState,
     chambolle_pock,
+    chambolle_pock_precond,
     cp_step,
+    cp_step_precond,
     default_tau,
     dual_prox,
     init_state,
@@ -15,6 +20,7 @@ from .fidelity import (
     fidelity_loss,
     validate_fidelity,
 )
+from .fista import FISTAResult, fista
 from .gd import GDResult, gd_step, subgradient_descent
 from .inverse import (
     InverseResult,
@@ -35,4 +41,14 @@ from .tgv import (
     tgv_denoise,
     tgv_gap_inverse,
     tgv_inverse,
+)
+from .state import (
+    load_state,
+    load_state_orbax,
+    load_state_torch,
+    run_checkpointed,
+    run_until_converged,
+    save_state,
+    save_state_orbax,
+    save_state_torch,
 )

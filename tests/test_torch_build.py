@@ -25,10 +25,12 @@ def test_library_path_follows_included_headers(tmp_path):
 
 
 def test_repo_kernels_include_the_shared_header():
-    for name in ("cp_fused", "tv_fused"):
+    # one arithmetic: the per-launch kernels, the z-marching pass A and the
+    # whole-solve kernels all take their per-voxel bodies from voxel.cuh
+    for name in ("cp_fused", "tv_fused", "cp_zstream", "resident"):
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
-            [f"{name}.cu", "stencil.cuh"]
+            [f"{name}.cu", "voxel.cuh", "stencil.cuh"]
     for name in ("tgv_stream", "tgv_resident"):
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
@@ -40,8 +42,11 @@ def test_every_library_has_its_entry_points_and_its_source():
     launch function it names is defined there."""
     from pytv4d_tpu_torch.kernels import fused
 
+    import pytv4d_tpu_torch.kernels  # noqa: F401  (every wrapper registers)
+
     assert set(fused._ENTRY_POINTS) == {"cp_fused", "tv_fused", "tgv_stream",
-                                        "tgv_resident"}
+                                        "tgv_resident", "cp_zstream",
+                                        "resident"}
     for name, (prefix, params, launches) in fused._ENTRY_POINTS.items():
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             text = f.read()

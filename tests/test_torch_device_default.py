@@ -10,7 +10,9 @@ from pytv4d_tpu_torch import interop, tv_GPU
 from pytv4d_tpu_torch.core.config import TVConfig
 from pytv4d_tpu_torch.kernels.dispatch import t_plane_multiplier
 from pytv4d_tpu_torch.models import TVDenoiser, denoise_tv_chambolle
+from pytv4d_tpu_torch.kernels import resident
 from pytv4d_tpu_torch.ops import api
+from pytv4d_tpu_torch.solvers import admm, chambolle_pock_precond, fista
 
 IMG = np.random.default_rng(0).random((12, 16)).astype(np.float32)
 VOL = np.random.default_rng(1).random((2, 2, 6, 8)).astype(np.float32)
@@ -26,6 +28,25 @@ ENTRY_POINTS = {
     "denoise_tv_chambolle-channels": (
         lambda a, **kw: denoise_tv_chambolle(a, max_num_iter=2,
                                              channel_axis=0, **kw), VOL[0]),
+    "TVDenoiser.admm": (lambda a, **kw: MODEL.admm(a, n_iter=2, **kw).x, IMG),
+    "TVDenoiser.fista": (lambda a, **kw: MODEL.fista(a, n_iter=2, **kw).x,
+                         IMG),
+    "chambolle_pock_precond": (
+        lambda a, **kw: chambolle_pock_precond(a, n_iter=2, reg=0.3, **kw).x,
+        VOL),
+    "admm": (lambda a, **kw: admm(a, n_iter=2, reg=0.3, **kw).x, VOL),
+    "fista": (lambda a, **kw: fista(a, n_iter=2, reg=0.3, **kw).x, VOL),
+    "denoise_tv_chambolle-eps": (
+        lambda a, **kw: denoise_tv_chambolle(a, max_num_iter=4, eps=1e-3,
+                                             **kw), IMG),
+    "denoise_tv_chambolle-coupled": (
+        lambda a, **kw: denoise_tv_chambolle(
+            a, max_num_iter=2, channel_axis=0, coupled_channels=True, **kw),
+        VOL[0]),
+    "denoise_tv_chambolle-coupled-eps": (
+        lambda a, **kw: denoise_tv_chambolle(
+            a, max_num_iter=4, channel_axis=0, coupled_channels=True,
+            eps=1e-3, **kw), VOL[0]),
     "api.tv_and_subgrad": (lambda a, **kw: api.tv_and_subgrad(a, **kw)[1],
                            VOL),
     "api.tv_hybrid": (lambda a, **kw: api.tv_hybrid(a, **kw)[1], VOL),
@@ -87,6 +108,12 @@ def test_state_and_multiplier_need_a_device():
     with pytest.raises(TypeError, match="device"):
         interop.tgv_state_from_numpy(x, x, x, x, x, x)
     with pytest.raises(TypeError, match="device"):
+        interop.precond_state_from_numpy(x, x, x, x)
+    with pytest.raises(TypeError, match="device"):
+        interop.admm_state_from_numpy(x, x, x)
+    with pytest.raises(TypeError, match="device"):
+        interop.fista_dual_from_numpy(x)
+    with pytest.raises(TypeError, match="device"):
         t_plane_multiplier((2, 2, 4, 5), TVConfig(reg_time=0.5), None,
                            np.ones((1, 1, 4, 5)))
     st = interop.state_from_numpy(x, x, None, device="cpu")
@@ -94,3 +121,24 @@ def test_state_and_multiplier_need_a_device():
     tm = t_plane_multiplier((2, 2, 4, 5), TVConfig(reg_time=0.5), None,
                             np.ones((1, 1, 4, 5)), device="cpu")
     assert tm.device.type == "cpu" and tuple(tm.shape) == (4, 5)
+
+
+@pytest.mark.parametrize("which", ("cp", "gd"))
+def test_resident_solvers_follow_the_rule(which):
+    """The whole-solve factories take no ``device``: a CPU tensor runs the
+    plain loop on the CPU, a numpy array goes to the card or raises."""
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    shape = VOL.shape
+    if which == "cp":
+        solve = resident.make_resident_cp_solver(cfg, shape, 2, reg=0.3)
+        Nd = 8
+        args = (VOL, VOL, np.zeros_like(VOL),
+                np.zeros((shape[0], Nd, shape[1]) + shape[2:], np.float32))
+    else:
+        solve = resident.make_resident_gd_solver(cfg, shape, 2, reg=0.3)
+        args = (VOL, VOL)
+    out = solve(*(torch.tensor(a) for a in args))
+    assert all(t.device.type == "cpu" for t in out)
+    _needs_no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        solve(*args)

@@ -23,6 +23,11 @@ def test_import_leaves_jax_out():
     code = ("import sys, pytv4d_tpu_torch, pytv4d_tpu_torch.kernels.fused, "
             "pytv4d_tpu_torch.kernels.tgv_stream, "
             "pytv4d_tpu_torch.kernels.tgv_resident, "
+            "pytv4d_tpu_torch.kernels.resident, "
+            "pytv4d_tpu_torch.kernels.zstream, "
+            "pytv4d_tpu_torch.solvers.admm, pytv4d_tpu_torch.solvers.fista, "
+            "pytv4d_tpu_torch.solvers.state, "
+            "pytv4d_tpu_torch.models.denoise, "
             "pytv4d_tpu_torch.solvers.tgv, pytv4d_tpu_torch.solvers.inverse, "
             "pytv4d_tpu_torch.models.ct, pytv4d_tpu_torch.utils.device, "
             "pytv4d_tpu_torch.utils.profiling, "

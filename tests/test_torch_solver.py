@@ -158,12 +158,16 @@ def test_denoise_tv_chambolle_matches_jax(channel_axis):
 
 
 def test_denoise_tv_chambolle_unported_options():
-    img = np.zeros((8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        denoise_tv_chambolle(img, eps=1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        denoise_tv_chambolle(np.zeros((8, 8, 3)), channel_axis=-1,
-                             coupled_channels=True)
+    """No option is unported any more: ``eps`` and ``coupled_channels``,
+    which raised ``NotImplementedError`` until they were ported, now solve
+    (against the JAX function: tests/test_torch_vectorial.py)."""
+    img = np.random.default_rng(0).random((8, 8))
+    out = denoise_tv_chambolle(img, eps=1e-3, device="cpu")
+    assert out.shape == (8, 8) and np.isfinite(out).all()
+    rgb = np.random.default_rng(1).random((8, 8, 3))
+    out = denoise_tv_chambolle(rgb, channel_axis=-1, coupled_channels=True,
+                               max_num_iter=5, device="cpu")
+    assert out.shape == (8, 8, 3) and np.isfinite(out).all()
     with pytest.raises(ValueError, match="channel_axis"):
         denoise_tv_chambolle(img, coupled_channels=True)
 
