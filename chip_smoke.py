@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the CP kernels (B1 pass A, B5 pass A for inverse problems, B2 pass
-B, B10 pass A marching along z), the TV kernels (B3 norms, B4 subgradient),
+B, B10 pass A marching along z, B8 the sharded step's two boundary
+kernels), the TV kernels (B3 norms, B4 subgradient),
 the whole-solve CP and GD kernels (B9) and the TGV-2 kernels (B6 passes PQ
 and XW, B7 whole solve)
 from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once.  Then, for
@@ -44,7 +45,18 @@ solve on B1 + B2, and times the two pass A's alone and in the step; and runs
 ``TVDenoiser.admm`` / ``.fista``, ``chambolle_pock_precond``,
 ``denoise_tv_chambolle`` with ``eps`` and with coupled channels,
 ``run_until_converged(criterion="gap")`` and a resumed ``run_checkpointed``
-on the card from numpy inputs.  Every phase raises
+on the card from numpy inputs.  For the (z, t)-sharded solvers (phases
+24-25): holds B1/B2 in their halo and interior modes, B3/B4 in their halo
+mode and the two boundary kernels B8 against their plain versions, shard by
+shard, at a small shape and at the sharded path's own shard shape; solves
+the (32, 8, 256, 256) volume from a numpy array as 4 z-shards on the one
+card through ``make_mesh`` / ``shard_volume`` /
+``make_sharded_cp_solver_fused`` on the ghost-plane path and on the
+overlapped path (whose final state must equal the ghost path's bit for bit,
+and both the unsharded solve's), a (2 x 2) mesh with time sharded, the
+sharded GD solver, a bf16 case and a 300-iteration run; and times an
+iteration of each path beside the unsharded step, and a launch of each B8
+kernel.  Every phase raises
 on failure; nothing falls back to the CPU.  The last line of stdout is one
 JSON object with ``"ok": true`` and the device.
 """
@@ -64,12 +76,16 @@ import time
 import numpy as np
 import torch
 
+import pytv4d_tpu_torch
 from pytv4d_tpu_torch import tv_GPU
 from pytv4d_tpu_torch.core.config import TVConfig
 from pytv4d_tpu_torch.core.schemes import (
+    AXIS_T,
+    AXIS_Z,
     SCHEMES,
     num_channels,
     operator_norm_bound_sq,
+    scheme_channels,
 )
 from pytv4d_tpu_torch.kernels import (
     build,
@@ -91,12 +107,22 @@ from pytv4d_tpu_torch.models.ct import (
     make_projector,
     radon,
 )
+from pytv4d_tpu_torch.parallel import (
+    fused_halo,
+    gather_volume,
+    make_mesh,
+    make_sharded_cp_solver_fused,
+    make_sharded_gd_solver_fused,
+    shard_volume,
+)
+from pytv4d_tpu_torch.parallel.mesh import grid_map
 from pytv4d_tpu_torch.solvers.admm import admm
 from pytv4d_tpu_torch.solvers.cp import (
     CPPrecondState,
     chambolle_pock,
     chambolle_pock_precond,
     default_tau,
+    init_state,
     pd_gap,
 )
 from pytv4d_tpu_torch.solvers.fidelity import fidelity_dual_prox, fidelity_loss
@@ -129,7 +155,7 @@ README_TV = 532166.8251801673  # tv_hybrid(rand(20, 4, 100, 100)), seed 0
 # the CPU (tests/test_torch_tgv.py)
 CAMERAMAN_TGV_LOSS = 37211904.16116732
 LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "resident",
-        "cp_zstream")
+        "cp_zstream", "cp_boundary")
 # each wrapper's launch counter, by kernel id
 COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
             "B3": fused.tv_norms, "B4": fused.tv_subgrad,
@@ -138,7 +164,9 @@ COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
             "B7": tgv_resident.tgv_resident_solve,
             "B9cp": resident.make_resident_cp_solver,
             "B9gd": resident.make_resident_gd_solver,
-            "B10": zstream.cp_dual_zstream}
+            "B10": zstream.cp_dual_zstream,
+            "B8dual": fused.cp_dual_boundary,
+            "B8primal": fused.cp_primal_boundary}
 # data-sheet peaks of the H100 SXM at 700 W: HBM bytes/s (utils.profiling)
 # and float32 operations/s outside the tensor cores
 H100_F32_PEAK_FLOPS = 67e12
@@ -692,6 +720,21 @@ def phase_gd_main_path():
         f"GPU: tv {tv_val:.6f}, rel err {rel_tv:.3g} vs {README_TV}; "
         f"launches {tv_launches}")
     require(rel_tv < 1e-5, "README tv_hybrid value within 1e-5")
+
+    # the package root's tv_hybrid is ops.api's: a CUDA tensor takes B3 + B4
+    zero_counters()
+    tv_root, G_root = pytv4d_tpu_torch.tv_hybrid(
+        torch.as_tensor(img, dtype=torch.float32, device=DEV))
+    sync()
+    root_launches = read_counters()
+    require_launches(root_launches, "pytv4d_tpu_torch.tv_hybrid", B3=1, B4=1)
+    rel_root = abs(float(tv_root) - README_TV) / README_TV
+    require(G_root.is_cuda and tuple(G_root.shape) == img.shape
+            and rel_root < 1e-5,
+            f"root tv_hybrid on a CUDA tensor: G on the card, tv within 1e-5 "
+            f"({rel_root:.3g})")
+    log(f"[9 GD main path] pytv4d_tpu_torch.tv_hybrid(cuda tensor): tv rel "
+        f"err {rel_root:.3g}; launches {root_launches}")
     return launches
 
 
@@ -2003,6 +2046,488 @@ def phase_solvers(card):
     sync()
 
 
+# ---------------------------------------------------------------- phase 24
+SHARD_4D = (MAIN_4D[0] // 4,) + MAIN_4D[1:]  # a z-shard of the sharded path
+HALO_SMALL, HALO_SMALL_MESH = (6, 4, 16, 128), (3, 2)     # 2 x 2-plane shards
+OVERLAP_SMALL, OVERLAP_SMALL_MESH = (9, 3, 16, 128), (3, 1)  # 3-plane shards
+SHARDED_MESH = (4, 1)  # the sharded main path: 4 z-shards on the one card
+
+
+def _halo_cp_cases():
+    """(name, cfg, options, storage) of the sharded kernel modes: the four
+    schemes, the norms, the fidelities, nonneg, a tmul plane, bf16."""
+    hyb = dict(scheme="hybrid", reg_time=0.5)
+    for scheme in SCHEMES:
+        yield f"{scheme}-time", TVConfig(scheme=scheme, reg_time=0.5), {}, "f32"
+    yield "hybrid-zt", TVConfig(scheme="hybrid", **CONFIGS["zt"]), {}, "f32"
+    for norm in ("aniso", "huber"):
+        yield (f"hybrid-time-{norm}", TVConfig(norm=norm, huber_delta=0.3,
+                                               **hyb), {}, "f32")
+    yield ("hybrid-time-tmul-l1", TVConfig(**hyb),
+           dict(tmul=True, fidelity="l1", fid_weight=0.7), "f32")
+    yield ("central-time-tmul-kl-nonneg",
+           TVConfig(scheme="central", reg_time=0.5),
+           dict(tmul=True, fidelity="kl", fid_weight=0.7, nonneg=True), "f32")
+    for storage in ("f32+bf16dual", "bf16+bf16dual"):
+        yield f"hybrid-time-{storage}", TVConfig(**hyb), {}, storage
+        yield f"central-time-tmul-{storage}", TVConfig(
+            scheme="central", reg_time=0.5), dict(tmul=True), storage
+
+
+class _ShardedState:
+    """A CP state of a whole volume that keeps the solvers' invariant (zero
+    duals at globally invalid slots: one kernel pass A from zero duals), cut
+    into a mesh's shards on the card."""
+
+    def __init__(self, shape, mesh_zt, cfg, opts, storage, gen):
+        x_dt, d_dt = STORAGE[storage]
+        self.cfg, self.shape = cfg, shape
+        self.fid = dict(fidelity=opts.get("fidelity", "l2"),
+                        fid_weight=opts.get("fid_weight", 1.0))
+        self.nonneg = opts.get("nonneg", False)
+        self.tm = _gd_tmul(shape, cfg, gen) if opts.get("tmul") else None
+        self.chans, _ = scheme_channels(cfg.scheme, shape[0], shape[1],
+                                        cfg.reg_z_over_reg, cfg.reg_time)
+        self.ghost_z = fused_halo._axis_ghost_kind(self.chans, AXIS_Z)
+        self.ghost_t = fused_halo._axis_ghost_kind(self.chans, AXIS_T)
+        self.dual_kw = dict(cfg=cfg, sigma_D=0.5, sigma_A=1.0, reg=0.5,
+                            **self.fid)
+        self.primal_kw = dict(cfg=cfg, tau=default_tau(cfg, shape[0],
+                                                       shape[1]),
+                              nonneg=self.nonneg, **self.fid)
+        x0 = torch.rand(shape, generator=gen, device=DEV) + 0.5
+        x = x0 + 0.1 * torch.rand(shape, generator=gen, device=DEV)
+        y_A = torch.zeros_like(x0)
+        y_D = torch.zeros((shape[0], shape[1], len(self.chans)) + shape[2:],
+                          device=DEV)
+        fused.cp_dual(x, x0, y_A, y_D, self.tm, **self.dual_kw)
+        x = x + 0.05 * torch.rand(shape, generator=gen, device=DEV)
+        self.mesh = make_mesh(*mesh_zt)
+        self.st = mesh_zt[1] > 1
+        self.x, self.x0, self.y_A, self.y_D = (
+            shard_volume(t, self.mesh, self.st)
+            for t in (x.to(x_dt), x0.to(x_dt), y_A.to(x_dt), y_D.to(d_dt)))
+        self.sharded = dict(table_dims=shape[:2])
+
+    def copies(self):
+        return tuple(grid_map(torch.clone, g)
+                     for g in (self.x, self.y_A, self.y_D))
+
+
+def _cells(*grids):
+    """The grids' shards side by side, in (iz, it) order."""
+    return [cells for rows in zip(*grids) for cells in zip(*rows)]
+
+
+def phase_halo_kernels():
+    errs = {k: {"f32": 0.0, "bf16": 0.0}
+            for k in ("B1halo", "B2halo", "B1int", "B2int", "B8dual",
+                      "B8primal", "B3halo", "B4halo")}
+
+    def note(key, kind, *pairs, scale=0.0, tol=F32_TOL):
+        for got, ref in pairs:
+            errs[key][kind] = max(errs[key][kind], _compare(
+                got, ref, kind == "bf16", scale, tol))
+
+    n = 0
+    full = ("hybrid-time", "hybrid-time-tmul-l1", "hybrid-time-f32+bf16dual",
+            "hybrid-time-bf16+bf16dual")  # at the path's shard shape
+    for halo_shape, halo_mesh, ov_shape in (
+            (HALO_SMALL, HALO_SMALL_MESH, OVERLAP_SMALL),
+            (MAIN_4D, SHARDED_MESH, MAIN_4D)):
+        gen = torch.Generator(device=DEV).manual_seed(2468)
+        for name, cfg, opts, storage in _halo_cp_cases():
+            if halo_shape == MAIN_4D and name not in full:
+                continue
+            kind = "f32" if storage == "f32" else "bf16"
+            # B1 / B2 in halo mode: the ghost-plane step, shard by shard
+            s = _ShardedState(halo_shape, halo_mesh, cfg, opts, storage, gen)
+            mode = dict(halo_mode=True, t_sharded=s.st, **s.sharded)
+            x_ext = fused_halo._extend_axis(
+                fused_halo._extend_axis(s.x, 0, s.ghost_z), 1, s.ghost_t)
+            (kx, kA, kD), (px, pA, pD) = s.copies(), s.copies()
+            for xe, x0, a, d, pa, pd in _cells(x_ext, s.x0, kA, kD, pA, pD):
+                _, _, tv_k = fused.cp_dual(xe, x0, a, d, s.tm, **mode,
+                                           **s.dual_kw)
+                _, _, tv_p = fused.cp_dual_plain(xe, x0, pa, pd, s.tm, **mode,
+                                                 **s.dual_kw)
+                note("B1halo", kind, (a, pa), (d, pd))
+                rel = abs(float(tv_k.sum() - tv_p.sum())) / float(tv_p.sum())
+                require(rel <= 1e-5, f"B1 halo {name}: TV sum {rel:.3g}")
+            k_ext = fused_halo._extend_dual(kD, s.chans)
+            p_ext = fused_halo._extend_dual(pD, s.chans)
+            for xs, x0, a, d, e, ps, pa, pd, pe in _cells(
+                    kx, s.x0, kA, kD, k_ext, px, pA, pD, p_ext):
+                fused.cp_primal(xs, x0, a, d, s.tm, y_ext=e, **mode,
+                                **s.primal_kw)
+                fused.cp_primal_plain(ps, x0, pa, pd, s.tm, y_ext=pe, **mode,
+                                      **s.primal_kw)
+                note("B2halo", kind, (xs, ps), scale=0.5)
+
+            # B1 / B2 with interior, then B8 on the edge planes
+            s = _ShardedState(ov_shape, (halo_mesh[0], 1), cfg, opts, storage,
+                              gen)
+            if not any(ch.axis == AXIS_Z for ch in s.chans):
+                continue
+            x_halo = fused_halo._halo_planes(s.x, 0, s.ghost_z)
+            (kx, kA, kD), (px, pA, pD) = s.copies(), s.copies()
+            k_tv, p_tv = [], []
+            for xs, x0, a, d, pa, pd in _cells(s.x, s.x0, kA, kD, pA, pD):
+                k_tv.append(fused.cp_dual(xs, x0, a, d, s.tm, interior=True,
+                                          **s.sharded, **s.dual_kw)[2])
+                p_tv.append(fused.cp_dual_plain(
+                    xs, x0, pa, pd, s.tm, interior=True, **s.sharded,
+                    **s.dual_kw)[2])
+                note("B1int", kind, (a, pa), (d, pd))
+            for i, (xs, xh, x0, a, d, pa, pd) in enumerate(_cells(
+                    s.x, x_halo, s.x0, kA, kD, pA, pD)):
+                fused.cp_dual_boundary(xs, xh, x0, a, d, k_tv[i], s.tm,
+                                       **s.sharded, **s.dual_kw)
+                fused.cp_dual_boundary_plain(xs, xh, x0, pa, pd, p_tv[i],
+                                             s.tm, **s.sharded, **s.dual_kw)
+                note("B8dual", kind, (a, pa), (d, pd))
+                rel = abs(float(k_tv[i].sum() - p_tv[i].sum())) / float(
+                    p_tv[i].sum())
+                require(rel <= 1e-5, f"B1 interior + B8 {name}: TV sum "
+                                     f"{rel:.3g}")
+            k_halo = fused_halo._sparse_channel_halo(kD, 0, s.chans, AXIS_Z)
+            p_halo = fused_halo._sparse_channel_halo(pD, 0, s.chans, AXIS_Z)
+            for xs, x0, a, d, h, ps, pa, pd, ph in _cells(
+                    kx, s.x0, kA, kD, k_halo, px, pA, pD, p_halo):
+                _, k_fid = fused.cp_primal(xs, x0, a, d, s.tm, interior=True,
+                                           **s.sharded, **s.primal_kw)
+                _, p_fid = fused.cp_primal_plain(
+                    ps, x0, pa, pd, s.tm, interior=True, **s.sharded,
+                    **s.primal_kw)
+                note("B2int", kind, (xs[1:-1], ps[1:-1]), scale=0.5)
+                fused.cp_primal_boundary(xs, x0, a, d, h, k_fid, s.tm,
+                                         **s.sharded, **s.primal_kw)
+                fused.cp_primal_boundary_plain(ps, x0, pa, pd, ph, p_fid,
+                                               s.tm, **s.sharded,
+                                               **s.primal_kw)
+                note("B8primal", kind, (xs, ps), scale=0.5)
+                rel = abs(float(k_fid.sum() - p_fid.sum())) / float(
+                    p_fid.sum())
+                require(rel <= (1e-4 if kind == "bf16" else 1e-5),
+                        f"B2 interior + B8 {name}: fidelity sum {rel:.3g}")
+            n += 1
+            del s, kx, kA, kD, px, pA, pD
+        sync()
+
+    # B3 / B4 in halo mode
+    n_tv = 0
+    for shape, mesh_zt in ((HALO_SMALL, HALO_SMALL_MESH),
+                           (MAIN_4D, SHARDED_MESH)):
+        gen = torch.Generator(device=DEV).manual_seed(1357)
+        for name, cfg, use_tmul, dtype in _gd_cases():
+            if shape == MAIN_4D and name not in ("hybrid-time",
+                                                 "hybrid-time-tmul-huber",
+                                                 "hybrid-zt-bf16"):
+                continue
+            kind = "bf16" if dtype == torch.bfloat16 else "f32"
+            xw = torch.rand(shape, generator=gen, device=DEV).to(dtype)
+            tm = _gd_tmul(shape, cfg, gen) if use_tmul else None
+            chans, _ = scheme_channels(cfg.scheme, shape[0], shape[1],
+                                       cfg.reg_z_over_reg, cfg.reg_time)
+            gz = fused_halo._axis_ghost_kind(chans, AXIS_Z)
+            gt = fused_halo._axis_ghost_kind(chans, AXIS_T)
+            xs = shard_volume(xw, make_mesh(*mesh_zt), mesh_zt[1] > 1)
+            mode = dict(cfg=cfg, halo_mode=True, table_dims=shape[:2])
+            x1 = fused_halo._extend_axis(
+                fused_halo._extend_axis(xs, 0, gz), 1, gt)
+            k = grid_map(lambda xe: fused.tv_norms(xe, tm, **mode), x1)
+            p = grid_map(lambda xe: fused.tv_norms_plain(xe, tm, **mode), x1)
+            for (nk, tk), (np_, tp) in _cells(k, p):
+                require(torch.equal(torch.isinf(nk), torch.isinf(np_)),
+                        f"B3 halo {name}: +inf norms at the same voxels")
+                note("B3halo", kind, (torch.where(torch.isinf(nk), 0.0, nk),
+                                      torch.where(torch.isinf(np_), 0.0, np_)),
+                     tol=F32_TOL_GD)
+                rel = abs(float(tk.sum() - tp.sum())) / float(tp.sum())
+                require(rel <= 1e-6, f"B3 halo {name}: TV sum {rel:.3g}")
+            x2 = fused_halo._extend_axis2(
+                fused_halo._extend_axis2(xs, 0, gz), 1, gt)
+            if cfg.norm == "aniso":
+                n1 = grid_map(lambda xe: None, x2)
+            else:
+                n1 = fused_halo._extend_norms(grid_map(lambda c: c[0], k))
+            for xe, ne in _cells(x2, n1):
+                note("B4halo", kind,
+                     (fused.tv_subgrad(xe, ne, tm, **mode),
+                      fused.tv_subgrad_plain(xe, ne, tm, **mode)),
+                     tol=F32_TOL_GD)
+            n_tv += 1
+        sync()
+    log(f"[24 sharded kernel modes vs plain] {n} CP cases and {n_tv} TV "
+        f"cases, shard by shard, at {HALO_SMALL} on a "
+        f"{HALO_SMALL_MESH} mesh / {OVERLAP_SMALL} on "
+        f"{OVERLAP_SMALL_MESH} and at {MAIN_4D} as 4 z-shards of {SHARD_4D}: "
+        f"pass; max abs err f32 / bf16: "
+        + ", ".join(f"{k} {v['f32']:.3g} / {v['bf16']:.3g}"
+                    for k, v in errs.items()))
+    return errs
+
+
+# ---------------------------------------------------------------- phase 25
+def _sharded_cp(noisy, cfg, mesh_zt, n_iter, reg, **solver_kw):
+    """A cold sharded fused CP solve from a numpy volume through the entry
+    points a user calls; ``(x, y_A, y_D_int, losses)`` gathered, and the
+    solver."""
+    mesh = make_mesh(*mesh_zt)
+    st_time = mesh_zt[1] > 1
+    solve = make_sharded_cp_solver_fused(
+        mesh, cfg, noisy.shape, reg=reg, n_iter=n_iter, shard_time=st_time,
+        **solver_kw)
+    x0 = shard_volume(noisy, mesh, st_time)
+    st = init_state(torch.as_tensor(noisy, device=DEV), cfg)
+    y_D = fused.to_internal_layout(st.y_D)
+    if "dtype" in solver_kw:
+        dt = getattr(torch, solver_kw["dtype"])
+        x0 = grid_map(lambda a: a.to(dt), x0)
+        st, y_D = st._replace(x=st.x.to(dt), y_A=st.y_A.to(dt)), y_D.to(dt)
+    x, y_A, y_D, losses = solve(
+        x0, shard_volume(st.x, mesh, st_time),
+        shard_volume(st.y_A, mesh, st_time),
+        shard_volume(y_D, mesh, st_time))
+    return gather_volume(x), gather_volume(y_A), gather_volume(y_D), losses
+
+
+def _same_state(got, ref, what):
+    """Sharded ``(x, y_A, y_D_int)`` against a CPResult, slot for slot:
+    equal to the bit, else the max abs err within the f32 bar."""
+    worst = 0.0
+    for g, r in zip(got, (ref.x, ref.state.y_A,
+                          fused.to_internal_layout(ref.state.y_D))):
+        if not torch.equal(g, r.to(g.dtype)):
+            worst = max(worst, _compare(g, r, False, 0.0))
+    return f"{what}: " + ("bit-equal" if worst == 0.0
+                          else f"max abs err {worst:.3g}")
+
+
+def phase_sharded_main_path(card):
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    base = np.random.default_rng(0).random(MAIN_4D).astype(np.float32)
+    n_it, n_sh = 20, SHARDED_MESH[0]
+    ref = chambolle_pock(torch.as_tensor(base, device=DEV), n_iter=n_it,
+                         reg=1.0, cfg=cfg)
+    out, launches = {}, {}
+    for overlap in (False, True):
+        sync()
+        zero_counters()
+        out[overlap] = _sharded_cp(base, cfg, SHARDED_MESH, n_it, 1.0,
+                                   overlap=overlap)
+        sync()
+        launches[overlap] = read_counters()
+    per = n_it * n_sh  # per iteration and shard: one launch of each kernel
+    require_launches(launches[False], "sharded CP, ghost path", B1=per, B2=per)
+    require_launches(launches[True], "sharded CP, overlap path", B1=per,
+                     B2=per, B8dual=per, B8primal=per)
+    for g, o, name in zip(out[False][:3], out[True][:3], ("x", "y_A", "y_D")):
+        require(torch.equal(g, o) and g.is_cuda and bool(
+            torch.isfinite(g).all()),
+            f"overlap path's {name} equals the ghost path's bit for bit")
+    lines = []
+    for overlap in (False, True):
+        rel = float(((out[overlap][3] - ref.loss).abs() / ref.loss).max())
+        require(rel <= 1e-6, f"sharded losses within 1e-6 of the unsharded "
+                             f"solve's, got {rel:.3g}")
+        lines.append(_same_state(
+            out[overlap][:3], ref, "overlap" if overlap else "ghost")
+            + f", losses within {rel:.3g}")
+    log(f"[25 sharded main path] {MAIN_4D} f32 hybrid reg_time=0.5 from numpy "
+        f"as {n_sh} z-shards on one card, {n_it} iterations: launches ghost "
+        f"{launches[False]}, overlap {launches[True]}; overlap == ghost bit "
+        f"for bit; against chambolle_pock: " + "; ".join(lines))
+    del out
+
+    # time sharded too: a (2 x 2) mesh (ghost path; overlap needs z only)
+    small = np.random.default_rng(1).random((8, 4, 128, 128)).astype(
+        np.float32)
+    zero_counters()
+    got = _sharded_cp(small, cfg, (2, 2), n_it, 1.0)
+    sync()
+    require_launches(read_counters(), "sharded CP on a (2 x 2) mesh",
+                     B1=4 * n_it, B2=4 * n_it)
+    ref_s = chambolle_pock(torch.as_tensor(small, device=DEV), n_iter=n_it,
+                           reg=1.0, cfg=cfg)
+    rel = float(((got[3] - ref_s.loss).abs() / ref_s.loss).max())
+    require(rel <= 1e-6, f"(2 x 2) mesh losses {rel:.3g}")
+    log(f"[25 t-sharded] (8, 4, 128, 128) on a (2 z x 2 t) mesh, ghost path: "
+        + _same_state(got[:3], ref_s, "against chambolle_pock")
+        + f", losses within {rel:.3g}")
+
+    # bf16 primary and dual on the overlapped path
+    b16 = torch.as_tensor(base, device=DEV).to(torch.bfloat16)
+    ref_b = chambolle_pock(b16, n_iter=n_it, reg=1.0, cfg=cfg)
+    got = _sharded_cp(base, cfg, SHARDED_MESH, n_it, 1.0, overlap=True,
+                      dtype="bfloat16")
+    require(got[0].dtype == torch.bfloat16 and got[2].dtype == torch.bfloat16,
+            "bf16 storage kept")
+    rel = float(((got[3] - ref_b.loss).abs() / ref_b.loss).max())
+    require(rel <= 1e-4, f"bf16 sharded losses {rel:.3g}")
+    log(f"[25 bf16] {MAIN_4D} bf16 primary + dual, overlap path: "
+        + _same_state(got[:3], ref_b, "against chambolle_pock in bf16")
+        + f", losses within {rel:.3g}")
+    del got, ref_b, b16
+
+    # the sharded GD solver
+    mesh = make_mesh(*SHARDED_MESH)
+    zero_counters()
+    gd = make_sharded_gd_solver_fused(mesh, cfg, MAIN_4D, reg=1.0,
+                                      n_iter=n_it, step_size=5e-3,
+                                      shard_time=False)
+    xs = shard_volume(base, mesh, False)
+    gx, glosses = gd(xs, xs)
+    sync()
+    require_launches(read_counters(), "sharded GD", B3=per, B4=per)
+    gref = subgradient_descent(torch.as_tensor(base, device=DEV), n_iter=n_it,
+                               reg=1.0, step_size=5e-3, cfg=cfg)
+    gx = gather_volume(gx)
+    gerr = float((gx - gref.x).abs().max())
+    grel = float(((glosses - gref.loss).abs() / gref.loss).max())
+    require(gerr <= F32_TOL_GD["atol"] and grel <= 1e-5,
+            f"sharded GD against subgradient_descent: x {gerr:.3g}, losses "
+            f"{grel:.3g}")
+    whole = torch.as_tensor(base, device=DEV)
+    gd_ms = (_best_ms(lambda: gd(xs, xs)) / n_it,
+             _best_ms(lambda: subgradient_descent(
+                 whole, n_iter=n_it, reg=1.0, step_size=5e-3, cfg=cfg)) / n_it,
+             device_time(lambda: gd(xs, xs), n_it, DEV)[0])
+    log(f"[25 sharded GD] {MAIN_4D} f32 as {n_sh} z-shards, {n_it} "
+        f"iterations: x "
+        + ("bit-equal" if torch.equal(gx, gref.x) else f"within {gerr:.3g}")
+        + f" of subgradient_descent's, losses within {grel:.3g}; "
+        f"{gd_ms[0]:.4f} ms per iteration (device {gd_ms[2]:.4f}, "
+        f"torch.profiler) against {gd_ms[1]:.4f} unsharded (whole "
+        f"{n_it}-iteration solves, best of 3); card {card}")
+    del gx, gref, xs
+
+    # 300 iterations: 8 noisy cameraman slices, upwind (z coupled), 4
+    # z-shards of 2 planes
+    stack = np.stack([add_noise(cameraman(), 100, seed=z) for z in range(8)]
+                     ).astype(np.float32)[:, None]
+    up = TVConfig(scheme="upwind")
+    long_ref = chambolle_pock(torch.as_tensor(stack, device=DEV), n_iter=300,
+                              reg=25.0, cfg=up, return_dual=False)
+    long_got = _sharded_cp(stack, up, SHARDED_MESH, 300, 25.0)
+    rel = abs(float(long_got[3][-1] - long_ref.loss[-1])) / float(
+        long_ref.loss[-1])
+    require(rel < 1e-4 and bool(torch.isfinite(long_got[0]).all()),
+            f"300-iteration sharded loss within 1e-4 of the unsharded, got "
+            f"{rel:.3g}")
+    log(f"[25 300 iterations] {stack.shape} upwind reg 25 as 4 z-shards: "
+        f"final loss {float(long_got[3][-1]):.2f}, rel err {rel:.3g} vs the "
+        f"unsharded {float(long_ref.loss[-1]):.2f}; x "
+        + ("bit-equal" if torch.equal(long_got[0], long_ref.x) else
+           f"max abs err {float((long_got[0] - long_ref.x).abs().max()):.3g}"))
+    del long_got, long_ref
+
+    # times: a whole 40-iteration solve over 40 (its set-up, copies of the
+    # state, is under 0.02 ms an iteration)
+    mesh = make_mesh(*SHARDED_MESH)
+    x0 = shard_volume(base, mesh, False)
+    st = init_state(torch.as_tensor(base, device=DEV), cfg)
+    args = (x0, shard_volume(st.x, mesh, False),
+            shard_volume(st.y_A, mesh, False),
+            shard_volume(fused.to_internal_layout(st.y_D), mesh, False))
+    del st
+
+    def sharded(overlap, side_stream):
+        def run(n):
+            solve = make_sharded_cp_solver_fused(
+                mesh, cfg, MAIN_4D, reg=1.0, n_iter=n, shard_time=False,
+                overlap=overlap)
+            solve.side_stream = side_stream
+            solve(*args)
+        return run
+
+    paths = {"unsharded": lambda n: chambolle_pock(
+                 whole, n_iter=n, reg=1.0, cfg=cfg, return_dual=False),
+             "ghost": sharded(False, False),
+             "overlap, one stream": sharded(True, False),
+             "overlap, halo copies on a second stream": sharded(True, True)}
+    ms = {k: [] for k in paths}
+    for name in (*paths, *reversed(paths), *paths):  # three times, in turns
+        ms[name].append(_best_ms(lambda: paths[name](40)) / 40)
+    step_ms = {k: min(v) for k, v in ms.items()}
+    # the device's share of an iteration: what torch.profiler sums over a
+    # 20-iteration solve
+    dev_ms = {k: device_time(lambda: paths[k](20), 20, DEV)[0] for k in paths}
+    log(f"[25 times, {MAIN_4D} f32, 4 z-shards] ms per iteration (a "
+        f"40-iteration solve, best of 3, three times in turns: least, and "
+        f"the turns' spread): "
+        + ", ".join(f"{k} {v:.4f} (to {max(ms[k]):.4f}; device "
+                    f"{dev_ms[k]:.4f})" for k, v in step_ms.items())
+        + f"; ghost / unsharded {step_ms['ghost'] / step_ms['unsharded']:.3f}"
+        f", overlap / unsharded "
+        f"{step_ms['overlap, one stream'] / step_ms['unsharded']:.3f}; card "
+        f"{card}")
+
+    # per launch at the shard: the two B8 kernels and B1 / B2 with interior
+    s = _ShardedState(MAIN_4D, SHARDED_MESH, cfg, {}, "f32",
+                      torch.Generator(device=DEV).manual_seed(99))
+    x, x0s, y_A, y_D = (g[1][0] for g in (s.x, s.x0, s.y_A, s.y_D))
+    x_halo = fused_halo._halo_planes(s.x, 0, s.ghost_z)[1][0]
+    y_halo = fused_halo._sparse_channel_halo(s.y_D, 0, s.chans, AXIS_Z)[1][0]
+    dk, pk = dict(s.dual_kw, **s.sharded), dict(s.primal_kw, **s.sharded)
+    _, _, tv = fused.cp_dual(x, x0s, y_A, y_D, interior=True, **dk)
+    _, fid = fused.cp_primal(x, x0s, y_A, y_D, interior=True, **pk)
+    tv_p = torch.zeros((x.shape[0], 1), device=DEV)
+
+    def b8_dual():
+        fused.cp_dual_boundary(x, x_halo, x0s, y_A, y_D, tv, **dk)
+
+    def b8_primal():
+        fused.cp_primal_boundary(x, x0s, y_A, y_D, y_halo, fid, **pk)
+
+    launch_ms = {
+        "B8dual": (_time_launch(b8_dual),
+                   _time_launch(lambda: fused.cp_dual_boundary_plain(
+                       x, x_halo, x0s, y_A, y_D, tv_p, **dk), n=10)),
+        "B8primal": (_time_launch(b8_primal),
+                     _time_launch(lambda: fused.cp_primal_boundary_plain(
+                         x, x0s, y_A, y_D, y_halo, tv_p, **pk), n=10)),
+        "B1 interior": (_time_launch(lambda: fused.cp_dual(
+            x, x0s, y_A, y_D, interior=True, **dk)), None),
+        "B2 interior": (_time_launch(lambda: fused.cp_primal(
+            x, x0s, y_A, y_D, interior=True, **pk)), None),
+        "B1 whole shard": (_time_launch(lambda: fused.cp_dual(
+            x, x0s, y_A, y_D, **s.dual_kw)), None),
+        "B2 whole shard": (_time_launch(lambda: fused.cp_primal(
+            x, x0s, y_A, y_D, **s.primal_kw)), None),
+    }
+    # bytes: dual (4 + 2 Nd) arrays of the two planes and the x halo stack;
+    # primal (4 + Nd) and the z channels' halo slots it reads (one per
+    # fwd / bwd channel, two per ctr one).  Operations as B1 / B2 per voxel.
+    Nd = len(s.chans)
+    edge = 2 * int(np.prod(SHARD_4D[1:]))
+    z_reads = sum(2 if ch.kind == "ctr" else 1 for ch in s.chans
+                  if ch.axis == AXIS_Z)
+    bounds = {"B8dual": bound(((4 + 2 * Nd) * edge + edge) * 4,
+                              (10 * Nd + 10) * edge),
+              "B8primal": bound(((4 + Nd) * edge + z_reads * edge // 2) * 4,
+                                (4 * Nd + 8) * edge)}
+    # a loop of such short launches runs at the host's pace: the kernels'
+    # own time is what torch.profiler records on the device
+    on_dev = {k: device_time(lambda: [fn() for _ in range(50)], 50, DEV)[0]
+              for k, fn in (("B8dual", b8_dual), ("B8primal", b8_primal))}
+    log(f"[25 per launch at the shard {SHARD_4D} f32] "
+        + ", ".join(f"{k} {v[0]:.4f} ms"
+                    + (f" (plain {v[1]:.3f} ms)" if v[1] else "")
+                    for k, v in launch_ms.items())
+        + f" (CUDA events around 50 launches); on the device "
+        f"(torch.profiler): B8dual {on_dev['B8dual']:.4f} ms, B8primal "
+        f"{on_dev['B8primal']:.4f} ms; B8 bounds: dual "
+        f"{bounds['B8dual'][0]:.4f} ms, primal {bounds['B8primal'][0]:.4f} ms "
+        f"({bounds['B8dual'][1]}): a launch takes "
+        f"{launch_ms['B8dual'][0] / bounds['B8dual'][0]:.1f}x and "
+        f"{launch_ms['B8primal'][0] / bounds['B8primal'][0]:.1f}x, the kernel "
+        f"alone {on_dev['B8dual'] / bounds['B8dual'][0]:.1f}x and "
+        f"{on_dev['B8primal'] / bounds['B8primal'][0]:.1f}x; card {card}")
+    sync()
+    return launches[True], launch_ms, bounds
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2027,6 +2552,8 @@ def main():
     res_launches, res_ms, res_bounds = phase_resident_main_path(card)
     z_launches, z_errs, z_ms = phase_zstream(card)
     phase_solvers(card)
+    halo_errs = phase_halo_kernels()
+    sh_launches, sh_ms, sh_bounds = phase_sharded_main_path(card)
 
     # B1-B4 bounds at the shape their times were taken at: MAIN_4D float32,
     # hybrid with reg_time=0.5 (Nd channels).  Bytes: each array once per
@@ -2045,7 +2572,7 @@ def main():
               "B3": bound(tv_1, (4 * Nd + 4) * vox),
               "B4": bound(tv_2, (10 * Nd + 2) * vox),
               "B5": b5_bound,  # (1 + 2 Nd) arrays, 10 operations a channel
-              **tgv_ms["bounds"], **res_bounds}
+              **tgv_ms["bounds"], **res_bounds, **sh_bounds}
     bounds["B10"] = bounds["B1"]  # the byte model counts x once already
     require((4 + 2 * Nd + 4 + Nd) * 4 * vox == cp_traffic_model(
         MAIN_4D, Nd, dtype=torch.float32), "B1 + B2 bytes are the CP model's")
@@ -2101,6 +2628,14 @@ def main():
         entry("B10", "cp_dual_zstream_kernel (CP pass A marching along z)",
               "cp_zstream.cu", "zstream.py:70", z_launches, z_errs["f32"],
               z_ms, z_errs["bf16"]),
+        entry("B8dual", "cp_dual_boundary_kernel (CP pass A, a shard's z-edge "
+              "planes)", "cp_boundary.cu", "fused.py:1093",
+              sh_launches["B8dual"], halo_errs["B8dual"]["f32"],
+              sh_ms["B8dual"], halo_errs["B8dual"]["bf16"]),
+        entry("B8primal", "cp_primal_boundary_kernel (CP pass B, a shard's "
+              "z-edge planes)", "cp_boundary.cu", "fused.py:1187",
+              sh_launches["B8primal"], halo_errs["B8primal"]["f32"],
+              sh_ms["B8primal"], halo_errs["B8primal"]["bf16"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

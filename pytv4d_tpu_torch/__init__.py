@@ -7,7 +7,8 @@ and subgradient (``ops.tv``, and the reference's ``tv_GPU`` /
 FISTA solvers, checkpointing and tolerance-based stopping
 (``solvers.state``), second-order TGV denoising (``solvers.tgv``),
 TV-regularized linear inverse problems (``solvers.inverse``) and
-parallel-beam CT reconstruction (``models.ct``), on any torch device.  On an
+parallel-beam CT reconstruction (``models.ct``), and the CP and GD solvers
+on a (z, t) grid of shards (``parallel``), on any torch device.  On an
 NVIDIA Hopper GPU the CP step (denoising and inverse), the TV subgradient
 and the TGV step each run as two hand-written CUDA kernels, and the
 in-plane TGV solve as one; a whole CP or GD solve of a small volume in one
@@ -42,6 +43,7 @@ from . import (
     kernels,
     models,
     ops,
+    parallel,
     solvers,
     tv_GPU,
     tv_operators_GPU,
@@ -50,15 +52,25 @@ from . import (
 from .core.config import TVConfig
 from .core.schemes import SCHEMES, num_channels, operator_norm_bound_sq
 from .models.denoise import TVDenoiser, add_noise, denoise_tv_chambolle
-from .ops.operators import D, D_T, compute_L21_norm
-from .ops.tv import (
-    make_tv,
+from .ops.api import (
+    D,
+    D_T,
+    D_central,
+    D_downwind,
+    D_hybrid,
+    D_T_central,
+    D_T_downwind,
+    D_T_hybrid,
+    D_T_upwind,
+    D_upwind,
+    compute_L21_norm,
     tv_and_subgrad,
     tv_central,
     tv_downwind,
     tv_hybrid,
     tv_upwind,
 )
+from .ops.tv import make_tv
 from .solvers.admm import ADMMResult, ADMMState, admm
 from .solvers.cp import (
     CPPrecondState,

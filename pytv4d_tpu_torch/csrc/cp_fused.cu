@@ -44,25 +44,37 @@
 // Built with -fmad=false: every multiply and add rounds as it does in the
 // plain PyTorch version (kernels/fused.py), which keeps the two within f32
 // round-off of each other and flips few bf16 roundings.
+//
+// Passes A and B also run on one shard of a (z, t)-sharded solve
+// (parallel/fused_halo.py; the TPU kernels' halo_mode and interior): the HALO
+// instantiations, chosen by Params::sharded.  Pass A then reads x extended by
+// a ghost or neighbour plane per side in z and t, pass B the neighbour slots
+// of the dual from such an extended copy, the z and t gates are off (the
+// ghost planes reproduce the zero-slot boundary), and a launch may compute
+// only planes z_first..z_last, leaving the others and their partials as they
+// are (the edge planes are csrc/cp_boundary.cu's).  Without the flag the
+// instantiations are the ones above, unchanged.
 
 #include "voxel.cuh"
 
 // Pass A: y_A' = fid prox, y_D' = TV dual prox of y_D + sigma_D D x, and one
 // TV partial of D x per block (voxel.cuh::cp_dual_voxel).
-template <typename TX, typename TD>
+template <typename TX, typename TD, bool HALO>
 __global__ void __launch_bounds__(BLOCK)
 cp_dual_kernel(const Params p, const TX* __restrict__ x,
                const TX* __restrict__ x0, TX* __restrict__ yA,
                TD* __restrict__ yD, const float* __restrict__ tmul,
                float* __restrict__ parts) {
   const int64_t pix = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
+  const int zt = HALO ? blockIdx.y + p.z_first * p.M : blockIdx.y;
   float part = 0.f;
   if (pix < (int64_t)p.Nr * p.Nc) {
-    const Vox v = make_vox(p, blockIdx.y, pix, tmul);
-    part = cp_dual_voxel<false>(p, v, x, x0, yA, yD, ld(x, v.xi));
+    const Vox v = make_vox<HALO>(p, zt, pix, tmul);
+    part = cp_dual_voxel<false, HALO>(p, v, x, x0, yA, yD,
+                                      ld(x, HALO ? v.xn : v.xi));
   }
   const float s = block_sum(part);
-  if (threadIdx.x == 0) parts[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = s;
+  if (threadIdx.x == 0) parts[(int64_t)zt * gridDim.x + blockIdx.x] = s;
 }
 
 // Pass A for inverse problems: y_D' = TV dual prox of y_D + sigma_D D x_bar
@@ -88,30 +100,40 @@ tv_dual_kernel(const Params p, const TX* __restrict__ x,
 // one fidelity partial of x' per block (voxel.cuh::cp_primal_voxel).  x'
 // goes to `out`, which is x itself (in place) or a second buffer; x0 may be
 // x (the inverse solver discards the partial), so none of the three is
-// __restrict__.
-template <typename TX, typename TD>
+// __restrict__.  yN (HALO only) is the array the dual is read from: the
+// extended copy of yD, or yD itself where the launch computes interior
+// planes.
+template <typename TX, typename TD, bool HALO>
 __global__ void __launch_bounds__(BLOCK)
 cp_primal_kernel(const Params p, const TX* x, const TX* x0,
                  const TX* __restrict__ yA, const TD* __restrict__ yD,
+                 const TD* __restrict__ yN,
                  const float* __restrict__ tmul, TX* out,
                  float* __restrict__ parts) {
   const int64_t pix = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
+  const int zt = HALO ? blockIdx.y + p.z_first * p.M : blockIdx.y;
   float part = 0.f;
   if (pix < (int64_t)p.Nr * p.Nc)
-    part = cp_primal_voxel(p, make_vox(p, blockIdx.y, pix, tmul), x, x0, yA,
-                           yD, out);
+    part = cp_primal_voxel<HALO>(p, make_vox<HALO>(p, zt, pix, tmul), x, x0,
+                                 yA, yD, out, yN);
   const float s = block_sum(part);
   if (threadIdx.x == 0)
-    parts[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = p.fid_scale * s;
+    parts[(int64_t)zt * gridDim.x + blockIdx.x] = p.fid_scale * s;
 }
 
 template <typename TX, typename TD>
 static int launch_dual(const Params* p, const void* x, const void* x0,
                        void* yA, void* yD, const void* tmul, void* parts,
                        cudaStream_t stream) {
-  cp_dual_kernel<TX, TD><<<plane_grid(p), BLOCK, 0, stream>>>(
-      *p, (const TX*)x, (const TX*)x0, (TX*)yA, (TD*)yD, (const float*)tmul,
-      (float*)parts);
+  if (p->sharded)
+    cp_dual_kernel<TX, TD, true>
+        <<<plane_grid(p, p->z_last - p->z_first + 1), BLOCK, 0, stream>>>(
+            *p, (const TX*)x, (const TX*)x0, (TX*)yA, (TD*)yD,
+            (const float*)tmul, (float*)parts);
+  else
+    cp_dual_kernel<TX, TD, false><<<plane_grid(p), BLOCK, 0, stream>>>(
+        *p, (const TX*)x, (const TX*)x0, (TX*)yA, (TD*)yD, (const float*)tmul,
+        (float*)parts);
   return (int)cudaGetLastError();
 }
 
@@ -125,11 +147,18 @@ static int launch_tv_dual(const Params* p, const void* x, void* yD,
 
 template <typename TX, typename TD>
 static int launch_primal(const Params* p, const void* x, const void* x0,
-                         const void* yA, const void* yD, const void* tmul,
-                         void* out, void* parts, cudaStream_t stream) {
-  cp_primal_kernel<TX, TD><<<plane_grid(p), BLOCK, 0, stream>>>(
-      *p, (const TX*)x, (const TX*)x0, (const TX*)yA, (const TD*)yD,
-      (const float*)tmul, (TX*)out, (float*)parts);
+                         const void* yA, const void* yD, const void* yN,
+                         const void* tmul, void* out, void* parts,
+                         cudaStream_t stream) {
+  if (p->sharded)
+    cp_primal_kernel<TX, TD, true>
+        <<<plane_grid(p, p->z_last - p->z_first + 1), BLOCK, 0, stream>>>(
+            *p, (const TX*)x, (const TX*)x0, (const TX*)yA, (const TD*)yD,
+            (const TD*)yN, (const float*)tmul, (TX*)out, (float*)parts);
+  else
+    cp_primal_kernel<TX, TD, false><<<plane_grid(p), BLOCK, 0, stream>>>(
+        *p, (const TX*)x, (const TX*)x0, (const TX*)yA, (const TD*)yD,
+        nullptr, (const float*)tmul, (TX*)out, (float*)parts);
   return (int)cudaGetLastError();
 }
 
@@ -166,20 +195,23 @@ int tv_dual_launch(const Params* p, int x_bf16, int d_bf16, const void* x,
 }
 
 // `out` receives x': x itself for the in-place step, or a second buffer.
+// yN is read only when p->sharded (see cp_primal_kernel).
 int cp_primal_launch(const Params* p, int x_bf16, int d_bf16, const void* x,
                      const void* x0, const void* yA, const void* yD,
-                     const void* tmul, void* out, void* parts, void* stream) {
+                     const void* yN, const void* tmul, void* out, void* parts,
+                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (!x_bf16 && !d_bf16)
-    return launch_primal<float, float>(p, x, x0, yA, yD, tmul, out, parts, s);
+    return launch_primal<float, float>(p, x, x0, yA, yD, yN, tmul, out, parts,
+                                       s);
   if (!x_bf16)
-    return launch_primal<float, __nv_bfloat16>(p, x, x0, yA, yD, tmul, out,
-                                               parts, s);
+    return launch_primal<float, __nv_bfloat16>(p, x, x0, yA, yD, yN, tmul,
+                                               out, parts, s);
   if (!d_bf16)
-    return launch_primal<__nv_bfloat16, float>(p, x, x0, yA, yD, tmul, out,
-                                               parts, s);
-  return launch_primal<__nv_bfloat16, __nv_bfloat16>(p, x, x0, yA, yD, tmul,
-                                                     out, parts, s);
+    return launch_primal<__nv_bfloat16, float>(p, x, x0, yA, yD, yN, tmul,
+                                               out, parts, s);
+  return launch_primal<__nv_bfloat16, __nv_bfloat16>(p, x, x0, yA, yD, yN,
+                                                     tmul, out, parts, s);
 }
 
 const char* cp_error_string(int code) {

@@ -3,7 +3,8 @@
 // (pass A marching along z) and csrc/resident.cu (whole CP and GD solves):
 // the launch parameter struct, bf16/f32 loads and stores, the geometry of one
 // stencil axis at a voxel, the weighted D channels of x and a deterministic
-// block sum.  The per-voxel bodies of the passes are in voxel.cuh.
+// block sum.  The per-voxel bodies of the passes are in voxel.cuh, the
+// boundary kernels of the sharded CP step in csrc/cp_boundary.cu.
 //
 // The per-launch kernels run one thread per voxel in 1-D blocks of BLOCK threads along
 // a (z, t) plane of the row-major (Nz, M, Nr, Nc) volume; blockIdx.y is the
@@ -12,6 +13,14 @@
 //   FWD d[i] = f[i+1] - f[i]    valid at slots [0, L-2]
 //   BWD d[i] = f[i]   - f[i-1]  valid at slots [1, L-1]
 //   CTR d[i] = f[i+1] - f[i-1]  valid at slots [1, L-2]
+//
+// The sharded solvers (parallel/fused_halo.py) run the same bodies on one
+// shard of a (z, t) grid of shards.  There a neighbour along z (and t) lies
+// in a ghost or exchanged plane: the kernels are instantiated with HALO,
+// which reads the last fields of Params -- gates off along z (and t), x, the
+// dual or the norms extended by planes on each side, a range of computed
+// planes.  Without HALO those fields are not read and the code is the
+// unsharded kernel's.
 
 #pragma once
 
@@ -43,6 +52,14 @@ struct Params {
   float huber_den;       // huber: 1 + sigma_D huber_delta / reg
   float fid_scale;       // l2: fid_weight / 2, else fid_weight
   float scheme_norm;     // the scheme normalisation (hybrid 1/sqrt 2, ...)
+  // Read by the HALO instantiations only (one shard of a sharded solve; Nz
+  // and M above are the shard's, the channel table the whole volume's):
+  int sharded;           // z is not gated: every z neighbour is in the arrays
+                         // handed in, a ghost plane standing for a global edge
+  int t_free;            // t is not gated either
+  int xe, ye, ne;        // planes by which x, the dual read at neighbour
+                         // slots and the norms are extended per side in z, t
+  int z_first, z_last;   // the planes the launch computes
 };
 
 __device__ __forceinline__ float ld(const float* p, int64_t i) { return p[i]; }
@@ -55,17 +72,26 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i, float v) {
 }
 
 // Position, length and element stride of axis `a` at voxel (z, t, r, c);
-// `chan_stride` is Nd for the channel-contiguous dual, 1 for x.
+// `chan_stride` is Nd for the channel-contiguous dual, 1 for x.  With HALO
+// the array indexed is extended by `e` planes per side in z and t (its z
+// stride spans M + 2 e planes), and an ungated axis reports a position every
+// gate passes.
+template <bool HALO = false>
 __device__ __forceinline__ void axis_geom(const Params& p, int a, int z,
                                           int t, int r, int c,
                                           int64_t chan_stride, int& pos,
-                                          int& len, int64_t& s) {
+                                          int& len, int64_t& s, int e = 0) {
   const int64_t plane = (int64_t)p.Nr * p.Nc;
+  const int Mx = HALO ? p.M + 2 * e : p.M;
   switch (a) {
-    case AX_Z: pos = z; len = p.Nz; s = (int64_t)p.M * chan_stride * plane; break;
+    case AX_Z: pos = z; len = p.Nz; s = (int64_t)Mx * chan_stride * plane; break;
     case AX_T: pos = t; len = p.M; s = chan_stride * plane; break;
     case AX_ROW: pos = r; len = p.Nr; s = p.Nc; break;
     default: pos = c; len = p.Nc; s = 1; break;
+  }
+  if (HALO && ((a == AX_Z && p.sharded) || (a == AX_T && p.t_free))) {
+    pos = 2;  // inside [2, len - 3]: FWD, BWD, CTR and their adjoints all read
+    len = 5;
   }
 }
 
@@ -73,8 +99,9 @@ __device__ __forceinline__ void axis_geom(const Params& p, int a, int z,
 // difference of channel i, 0 at its invalid slots, times tm on time
 // channels, times w[i].  d[i] = 0 for i >= Nd.  With ZREG the z neighbours
 // of the voxel are the values xzm (z - 1) and xzp (z + 1) the caller holds
-// in registers, and x is read only along t, rows and columns.
-template <bool ZREG = false, typename TX>
+// in registers, and x is read only along t, rows and columns.  With HALO, x
+// is extended by p.xe planes and xi is the voxel's offset in it.
+template <bool ZREG = false, bool HALO = false, typename TX>
 __device__ __forceinline__ void weighted_d(const Params& p, const TX* x,
                                            int64_t xi, float xc, int z, int t,
                                            int r, int c, float tm,
@@ -86,7 +113,7 @@ __device__ __forceinline__ void weighted_d(const Params& p, const TX* x,
     if (i < p.Nd) {
       int pos, len;
       int64_t s;
-      axis_geom(p, p.axis[i], z, t, r, c, 1, pos, len, s);
+      axis_geom<HALO>(p, p.axis[i], z, t, r, c, 1, pos, len, s, p.xe);
       float v;
       if (ZREG && p.axis[i] == AX_Z) {
         if (p.kind[i] == K_FWD)
@@ -124,10 +151,12 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-// One block per BLOCK voxels of a plane, one plane per blockIdx.y.
-static inline dim3 plane_grid(const Params* p) {
+// One block per BLOCK voxels of a plane, one plane per blockIdx.y: all
+// Nz * M of them, or n_z * M where a launch computes n_z planes along z.
+static inline dim3 plane_grid(const Params* p, int n_z = -1) {
   const int64_t plane = (int64_t)p->Nr * p->Nc;
-  return dim3((unsigned)((plane + BLOCK - 1) / BLOCK), (unsigned)(p->Nz * p->M));
+  return dim3((unsigned)((plane + BLOCK - 1) / BLOCK),
+              (unsigned)((n_z < 0 ? p->Nz : n_z) * p->M));
 }
 
 // Number of per-block partials a kernel with plane_grid writes.

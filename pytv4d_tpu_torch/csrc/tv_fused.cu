@@ -36,12 +36,18 @@
 //
 // Built with -fmad=false, like cp_fused.cu, so each multiply, add and divide
 // rounds as in the plain PyTorch version (kernels/fused.py::tv_*_plain).
+//
+// Both passes also run on one shard of a (z, t)-sharded solve
+// (parallel/fused_halo.py; the TPU kernels' halo_mode): the HALO
+// instantiations, chosen by Params::sharded, read x extended by ghost or
+// neighbour planes per side in z and t (1 in pass 1, 2 in pass 2) and, in
+// pass 2, norms extended by 1, with the z and t gates off.
 
 #include "voxel.cuh"
 
 // Pass 1: norms[v] (see above) and one TV partial per block
 // (voxel.cuh::tv_norms_voxel).
-template <typename TX>
+template <typename TX, bool HALO>
 __global__ void __launch_bounds__(BLOCK)
 tv_norms_kernel(const Params p, const TX* __restrict__ x,
                 const float* __restrict__ tmul, float* __restrict__ norms,
@@ -49,37 +55,46 @@ tv_norms_kernel(const Params p, const TX* __restrict__ x,
   const int64_t pix = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
   float part = 0.f;
   if (pix < (int64_t)p.Nr * p.Nc)
-    part = tv_norms_voxel(p, make_vox(p, blockIdx.y, pix, tmul), x, norms);
+    part = tv_norms_voxel<HALO>(p, make_vox<HALO>(p, blockIdx.y, pix, tmul),
+                                x, norms);
   const float s = block_sum(part);
   if (threadIdx.x == 0) parts[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = s;
 }
 
 // Pass 2: G at every voxel from x and the pass-1 norms (unused for aniso)
 // (voxel.cuh::tv_subgrad_voxel).
-template <typename TX>
+template <typename TX, bool HALO>
 __global__ void __launch_bounds__(BLOCK)
 tv_subgrad_kernel(const Params p, const TX* __restrict__ x,
                   const float* __restrict__ norms,
                   const float* __restrict__ tmul, TX* __restrict__ g) {
   const int64_t pix = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
   if (pix >= (int64_t)p.Nr * p.Nc) return;
-  const Vox v = make_vox(p, blockIdx.y, pix, tmul);
-  st(g, v.xi, tv_subgrad_voxel(p, v, x, norms));
+  const Vox v = make_vox<HALO>(p, blockIdx.y, pix, tmul);
+  st(g, v.xi, tv_subgrad_voxel<HALO>(p, v, x, norms));
 }
 
 template <typename TX>
 static int launch_norms(const Params* p, const void* x, const void* tmul,
                         void* norms, void* parts, cudaStream_t stream) {
-  tv_norms_kernel<TX><<<plane_grid(p), BLOCK, 0, stream>>>(
-      *p, (const TX*)x, (const float*)tmul, (float*)norms, (float*)parts);
+  if (p->sharded)
+    tv_norms_kernel<TX, true><<<plane_grid(p), BLOCK, 0, stream>>>(
+        *p, (const TX*)x, (const float*)tmul, (float*)norms, (float*)parts);
+  else
+    tv_norms_kernel<TX, false><<<plane_grid(p), BLOCK, 0, stream>>>(
+        *p, (const TX*)x, (const float*)tmul, (float*)norms, (float*)parts);
   return (int)cudaGetLastError();
 }
 
 template <typename TX>
 static int launch_subgrad(const Params* p, const void* x, const void* norms,
                           const void* tmul, void* g, cudaStream_t stream) {
-  tv_subgrad_kernel<TX><<<plane_grid(p), BLOCK, 0, stream>>>(
-      *p, (const TX*)x, (const float*)norms, (const float*)tmul, (TX*)g);
+  if (p->sharded)
+    tv_subgrad_kernel<TX, true><<<plane_grid(p), BLOCK, 0, stream>>>(
+        *p, (const TX*)x, (const float*)norms, (const float*)tmul, (TX*)g);
+  else
+    tv_subgrad_kernel<TX, false><<<plane_grid(p), BLOCK, 0, stream>>>(
+        *p, (const TX*)x, (const float*)norms, (const float*)tmul, (TX*)g);
   return (int)cudaGetLastError();
 }
 

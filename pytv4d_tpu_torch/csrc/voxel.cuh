@@ -2,9 +2,10 @@
 // dual prox), CP pass B (primal update), TV pass 1 (norms) and TV pass 2
 // (subgradient).  One arithmetic, several kernels: the per-launch kernels of
 // csrc/cp_fused.cu and csrc/tv_fused.cu, the z-marching pass A of
-// csrc/cp_zstream.cu and the whole-solve kernels of csrc/resident.cu all call
-// these functions, so they round alike (every source is built with
-// -fmad=false, as the plain PyTorch versions round).
+// csrc/cp_zstream.cu, the whole-solve kernels of csrc/resident.cu and the
+// boundary kernels of csrc/cp_boundary.cu all call these functions, so they
+// round alike (every source is built with -fmad=false, as the plain PyTorch
+// versions round).
 //
 // The pointers carry neither const-ness beyond what the pass needs nor
 // __restrict__: the whole-solve kernels read, after a barrier, what other
@@ -12,7 +13,11 @@
 // parameters.
 //
 // Layouts as in stencil.cuh: x, x0, y_A, the norms and G are (Nz, M, Nr, Nc);
-// the TV dual y_D is channel-contiguous (Nz, M, Nd, Nr, Nc).
+// the TV dual y_D is channel-contiguous (Nz, M, Nd, Nr, Nc).  With HALO
+// (stencil.cuh) the arrays a voxel reads at its NEIGHBOURS -- x in pass A and
+// the TV passes, the dual in pass B, the norms in TV pass 2 -- are extended
+// by p.xe, p.ye, p.ne planes per side in z and t, while what the voxel loads
+// and stores at itself keeps the shard's shape.
 
 #pragma once
 
@@ -20,17 +25,26 @@
 
 // One voxel (z, t, r, c): its offset xi in the x-like arrays, the offset yb
 // of its channel 0 in the dual, the plane size and the time-channel
-// multiplier at its pixel.
+// multiplier at its pixel; xn, yn and nn are its offsets in the extended x,
+// dual and norms, which only the HALO bodies read (a caller without HALO may
+// step xi and yb from voxel to voxel, as csrc/cp_zstream.cu does).
 struct Vox {
   int z, t, r, c;
-  int64_t plane, xi, yb;
+  int64_t plane, xi, yb, xn, yn, nn;
   float tm;
 };
+
+// Offset of plane (z, t) of a shard's (Nz, M) planes in an array extended by
+// e planes per side in z and t, in planes.
+__device__ __forceinline__ int64_t ext_plane(const Params& p, int z, int t,
+                                             int e) {
+  return (int64_t)(z + e) * (p.M + 2 * e) + (t + e);
+}
 
 // The voxel at pixel `pix` of plane zt = z * M + t; tmul is read only when
 // p.has_tmul.  I is the pixel index's type: int64_t, or int where the caller
 // knows the volume is small (its divisions are cheaper).
-template <typename I>
+template <bool HALO = false, typename I>
 __device__ __forceinline__ Vox make_vox(const Params& p, int zt, I pix,
                                         const float* tmul) {
   Vox v;
@@ -41,6 +55,15 @@ __device__ __forceinline__ Vox make_vox(const Params& p, int zt, I pix,
   v.c = (int)(pix - (I)v.r * p.Nc);
   v.xi = (int64_t)zt * v.plane + pix;
   v.yb = (int64_t)zt * p.Nd * v.plane + pix;
+  if (HALO) {
+    v.xn = ext_plane(p, v.z, v.t, p.xe) * v.plane + pix;
+    v.yn = ext_plane(p, v.z, v.t, p.ye) * p.Nd * v.plane + pix;
+    v.nn = ext_plane(p, v.z, v.t, p.ne) * v.plane + pix;
+  } else {
+    v.xn = v.xi;
+    v.yn = v.yb;
+    v.nn = v.xi;
+  }
   v.tm = p.has_tmul ? tmul[pix] : 1.f;
   return v;
 }
@@ -122,8 +145,8 @@ __device__ __forceinline__ float tv_dual_prox(const Params& p,
 // Pass A at one voxel whose value xc the caller has loaded: y_A' = fid prox
 // and y_D' = TV dual prox of y_D + sigma_D D x, both in place; returns the
 // voxel's TV term of D x.  With ZREG the z neighbours are xzm and xzp
-// (weighted_d).
-template <bool ZREG, typename TX, typename TD>
+// (weighted_d).  With HALO x is the extended array (xc = x[v.xn]).
+template <bool ZREG, bool HALO = false, typename TX, typename TD>
 __device__ __forceinline__ float cp_dual_voxel(const Params& p, const Vox& v,
                                                const TX* x, const TX* x0,
                                                TX* yA, TD* yD, float xc,
@@ -131,7 +154,8 @@ __device__ __forceinline__ float cp_dual_voxel(const Params& p, const Vox& v,
                                                float xzp = 0.f) {
   st(yA, v.xi, fid_dual(p, ld(yA, v.xi), xc, ld(x0, v.xi)));
   float d[MAX_CH];
-  weighted_d<ZREG>(p, x, v.xi, xc, v.z, v.t, v.r, v.c, v.tm, d, xzm, xzp);
+  weighted_d<ZREG, HALO>(p, x, HALO ? v.xn : v.xi, xc, v.z, v.t, v.r, v.c,
+                         v.tm, d, xzm, xzp);
   return tv_dual_prox(p, d, yD, v.yb, v.plane);
 }
 
@@ -139,30 +163,46 @@ __device__ __forceinline__ float cp_dual_voxel(const Params& p, const Vox& v,
 // nonneg) stored to `out` (which may be x: the voxel reads x only at itself);
 // returns the fidelity term of x' without the weight.  The adjoint is the
 // exact scatter of each channel read at this voxel
-// (ops/operators.py::dt_channel): only valid stencil slots are read.
-template <typename TX, typename TD>
-__device__ __forceinline__ float cp_primal_voxel(const Params& p, const Vox& v,
-                                                 const TX* x, const TX* x0,
-                                                 const TX* yA, const TD* yD,
-                                                 TX* out) {
+// (ops/operators.py::dt_channel): only valid stencil slots are read.  With
+// HALO the dual is read from yN at offset v.yn instead of yD: the copy of yD
+// extended by p.ye planes whose halo planes hold the neighbour shards'
+// values, zero at a global edge (the voxel's own slot too, so that no second
+// array is streamed), or yD itself (p.ye = 0).  With ZHALO the z channels'
+// neighbours at z - 1 and z + 1 are read at zlo[zlo_b + i * plane] and
+// zhi[zhi_b + i * plane] instead: the exchanged halo stack where the voxel
+// lies on a shard's edge.
+template <bool HALO = false, bool ZHALO = false, typename TX, typename TD>
+__device__ __forceinline__ float cp_primal_voxel(
+    const Params& p, const Vox& v, const TX* x, const TX* x0, const TX* yA,
+    const TD* yD, TX* out, const TD* yN = nullptr, const TD* zlo = nullptr,
+    int64_t zlo_b = 0, const TD* zhi = nullptr, int64_t zhi_b = 0) {
+  const TD* y = HALO ? yN : yD;
   float corr = 0.f;
 #pragma unroll
   for (int i = 0; i < MAX_CH; ++i) {
     if (i < p.Nd) {
       int pos, len;
       int64_t s;
-      axis_geom(p, p.axis[i], v.z, v.t, v.r, v.c, p.Nd, pos, len, s);
-      const int64_t yi = v.yb + i * v.plane;
+      axis_geom<HALO>(p, p.axis[i], v.z, v.t, v.r, v.c, p.Nd, pos, len, s,
+                      p.ye);
+      const int64_t yi = (HALO ? v.yn : v.yb) + i * v.plane;
+      const bool zh = ZHALO && p.axis[i] == AX_Z;
       float lo, hi;
       if (p.kind[i] == K_FWD) {         // slots [0, L-2]
-        lo = pos >= 1 ? ld(yD, yi - s) : 0.f;
-        hi = pos <= len - 2 ? ld(yD, yi) : 0.f;
+        lo = pos >= 1 ? (zh ? ld(zlo, zlo_b + i * v.plane) : ld(y, yi - s))
+                      : 0.f;
+        hi = pos <= len - 2 ? ld(y, yi) : 0.f;
       } else if (p.kind[i] == K_BWD) {  // slots [1, L-1]
-        lo = pos >= 1 ? ld(yD, yi) : 0.f;
-        hi = pos <= len - 2 ? ld(yD, yi + s) : 0.f;
+        lo = pos >= 1 ? ld(y, yi) : 0.f;
+        hi = pos <= len - 2
+                 ? (zh ? ld(zhi, zhi_b + i * v.plane) : ld(y, yi + s))
+                 : 0.f;
       } else {                          // slots [1, L-2]
-        lo = pos >= 2 ? ld(yD, yi - s) : 0.f;
-        hi = pos <= len - 3 ? ld(yD, yi + s) : 0.f;
+        lo = pos >= 2 ? (zh ? ld(zlo, zlo_b + i * v.plane) : ld(y, yi - s))
+                      : 0.f;
+        hi = pos <= len - 3
+                 ? (zh ? ld(zhi, zhi_b + i * v.plane) : ld(y, yi + s))
+                 : 0.f;
       }
       float w = (lo - hi) * p.w[i];
       if (p.axis[i] == AX_T) w = w * v.tm;
@@ -179,11 +219,12 @@ __device__ __forceinline__ float cp_primal_voxel(const Params& p, const Vox& v,
 // TV pass 1 at one voxel: stores the gradient norm (iso: |D x|_2 with +inf
 // where it is 0; aniso: the sum of |channels|; huber: the raw |D x|_2) and
 // returns the voxel's TV term.
-template <typename TX>
+template <bool HALO = false, typename TX>
 __device__ __forceinline__ float tv_norms_voxel(const Params& p, const Vox& v,
                                                 const TX* x, float* norms) {
   float d[MAX_CH];
-  weighted_d(p, x, v.xi, ld(x, v.xi), v.z, v.t, v.r, v.c, v.tm, d);
+  const int64_t q = HALO ? v.xn : v.xi;
+  weighted_d<false, HALO>(p, x, q, ld(x, q), v.z, v.t, v.r, v.c, v.tm, d);
   if (p.norm == N_ANISO) {
     float a = 0.f;
 #pragma unroll
@@ -210,11 +251,12 @@ __device__ __forceinline__ float tv_norms_voxel(const Params& p, const Vox& v,
 // Channel i's value y at slot q of its axis (q a valid slot, so every read
 // below is inside the volume): the weighted difference dv of x there, then
 // sign(dv) for aniso, dv / n(q) for iso (n = +inf gives 0) and
-// dv / max(n(q), delta) for huber.
+// dv / max(n(q), delta) for huber.  q and s are the slot's offset and the
+// axis's stride in x, qn the slot's offset in the norms.
 template <typename TX>
 __device__ __forceinline__ float chan_y(const Params& p, int i, const TX* x,
                                         const float* norms, int64_t q,
-                                        int64_t s, float tm) {
+                                        int64_t s, int64_t qn, float tm) {
   float v;
   if (p.kind[i] == K_FWD)
     v = ld(x, q + s) - ld(x, q);
@@ -225,7 +267,7 @@ __device__ __forceinline__ float chan_y(const Params& p, int i, const TX* x,
   if (p.axis[i] == AX_T) v = v * tm;
   v = v * p.w[i];
   if (p.norm == N_ANISO) return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
-  const float n = norms[q];
+  const float n = norms[qn];
   return v / (p.norm == N_HUBER ? fmaxf(n, p.huber_delta) : n);
 }
 
@@ -233,8 +275,10 @@ __device__ __forceinline__ float chan_y(const Params& p, int i, const TX* x,
 // aniso).  It needs each channel's y at its own slot and at the +-1
 // neighbour slots the adjoint reads, and recomputes a neighbour's y from x
 // there, so it reads x out to +-2 and the norms out to +-1 along each axis.
-// A neighbour slot that is invalid for its channel is never read.
-template <typename TX>
+// A neighbour slot that is invalid for its channel is never read.  With HALO
+// x is extended by p.xe = 2 planes and the norms by p.ne = 1, whose ghost
+// planes hold divisors that are safe (the differences there are zero).
+template <bool HALO = false, typename TX>
 __device__ __forceinline__ float tv_subgrad_voxel(const Params& p,
                                                   const Vox& v, const TX* x,
                                                   const float* norms) {
@@ -245,17 +289,25 @@ __device__ __forceinline__ float tv_subgrad_voxel(const Params& p,
     if (i < p.Nd) {
       int pos, len;
       int64_t s;
-      axis_geom(p, p.axis[i], v.z, v.t, v.r, v.c, 1, pos, len, s);
+      int64_t sn;  // the axis's stride in the norms
+      if (HALO)
+        axis_geom<HALO>(p, p.axis[i], v.z, v.t, v.r, v.c, 1, pos, len, sn,
+                        p.ne);
+      axis_geom<HALO>(p, p.axis[i], v.z, v.t, v.r, v.c, 1, pos, len, s, p.xe);
+      if (!HALO) sn = s;
+      const int64_t q = HALO ? v.xn : v.xi, qn = HALO ? v.nn : v.xi;
       float lo, hi;
       if (p.kind[i] == K_FWD) {         // slots [0, L-2]
-        lo = pos >= 1 ? chan_y(p, i, x, norms, v.xi - s, s, v.tm) : 0.f;
-        hi = pos <= len - 2 ? chan_y(p, i, x, norms, v.xi, s, v.tm) : 0.f;
+        lo = pos >= 1 ? chan_y(p, i, x, norms, q - s, s, qn - sn, v.tm) : 0.f;
+        hi = pos <= len - 2 ? chan_y(p, i, x, norms, q, s, qn, v.tm) : 0.f;
       } else if (p.kind[i] == K_BWD) {  // slots [1, L-1]
-        lo = pos >= 1 ? chan_y(p, i, x, norms, v.xi, s, v.tm) : 0.f;
-        hi = pos <= len - 2 ? chan_y(p, i, x, norms, v.xi + s, s, v.tm) : 0.f;
+        lo = pos >= 1 ? chan_y(p, i, x, norms, q, s, qn, v.tm) : 0.f;
+        hi = pos <= len - 2 ? chan_y(p, i, x, norms, q + s, s, qn + sn, v.tm)
+                            : 0.f;
       } else {                          // slots [1, L-2]
-        lo = pos >= 2 ? chan_y(p, i, x, norms, v.xi - s, s, v.tm) : 0.f;
-        hi = pos <= len - 3 ? chan_y(p, i, x, norms, v.xi + s, s, v.tm) : 0.f;
+        lo = pos >= 2 ? chan_y(p, i, x, norms, q - s, s, qn - sn, v.tm) : 0.f;
+        hi = pos <= len - 3 ? chan_y(p, i, x, norms, q + s, s, qn + sn, v.tm)
+                            : 0.f;
       }
       float w = lo - hi;
       if (!iso) {  // aniso / huber re-apply the full weight, like D^T

@@ -1,9 +1,9 @@
-"""The fused CP step (with its pass A for inverse problems and its
-z-marching pass A), the TV subgradient, the whole CP and GD solves and the
-TGV-2 step and whole solve:
+"""The fused CP step (with its pass A for inverse problems, its z-marching
+pass A and the boundary kernels of its sharded form), the TV subgradient,
+the whole CP and GD solves and the TGV-2 step and whole solve:
 CUDA kernels (``csrc/cp_fused.cu``, ``csrc/cp_zstream.cu``,
-``csrc/tv_fused.cu``, ``csrc/resident.cu``, ``csrc/tgv_stream.cu``,
-``csrc/tgv_resident.cu``) for CUDA tensors, their
+``csrc/cp_boundary.cu``, ``csrc/tv_fused.cu``, ``csrc/resident.cu``,
+``csrc/tgv_stream.cu``, ``csrc/tgv_resident.cu``) for CUDA tensors, their
 plain PyTorch versions for CPU tensors.  Importing this package needs
 neither a GPU nor nvcc: the kernels are built on their first launch."""
 
@@ -19,8 +19,12 @@ from . import (
 from .dispatch import can_fuse, t_plane_multiplier
 from .fused import (
     cp_dual,
+    cp_dual_boundary,
+    cp_dual_boundary_plain,
     cp_dual_plain,
     cp_primal,
+    cp_primal_boundary,
+    cp_primal_boundary_plain,
     cp_primal_plain,
     cp_step_fused,
     cp_step_fused_internal,

@@ -47,12 +47,28 @@ subgradient-descent step's operator) is two more passes, in
   channels at each voxel and its neighbours, stored in x's dtype.  No
   Nd-channel volume is written.
 
+On one shard of a (z, t)-sharded solve (``parallel.fused_halo``) the four
+take the TPU kernels' modes.  ``halo_mode``: x (pass B: a copy of the dual,
+pass 2: the norms too) arrives extended by a plane per side in z and t (two
+for pass 2's x) that holds the neighbour shard's edge or, at the volume's
+edge, a ghost plane chosen so that every difference across it is zero; the z
+and t gates are off and ``table_dims`` gives the whole volume's ``(Nz, M)``
+for the channel table.  ``interior`` (passes A and B): only the planes
+``1 .. Nz-2``, which need no neighbour, are computed; the two edge planes
+are then redone from exchanged planes by the boundary kernels B8,
+:func:`cp_dual_boundary` and :func:`cp_primal_boundary`
+(``csrc/cp_boundary.cu``; replace ``make_cp_dual_boundary_kernel`` and
+``make_cp_primal_boundary_kernel``).
+
 Each wrapper takes its plain PyTorch version (:func:`cp_dual_plain`,
 :func:`tv_dual_plain`, :func:`cp_primal_plain`, :func:`tv_norms_plain`,
-:func:`tv_subgrad_plain`) for tensors on the CPU, which is how the CPU tests
-run the fused path.  For CUDA tensors it launches the kernel or raises.
-``cp_dual.launches``, ``tv_dual.launches``, ``cp_primal.launches``,
-``tv_norms.launches`` and ``tv_subgrad.launches`` count kernel launches.
+:func:`tv_subgrad_plain`, :func:`cp_dual_boundary_plain`,
+:func:`cp_primal_boundary_plain`) for tensors on the CPU, which is how the
+CPU tests run the fused path.  For CUDA tensors it launches the kernel or
+raises.  ``cp_dual.launches``, ``tv_dual.launches``, ``cp_primal.launches``,
+``tv_norms.launches``, ``tv_subgrad.launches``,
+``cp_dual_boundary.launches`` and ``cp_primal_boundary.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -64,7 +80,7 @@ import torch
 
 from ..core.config import TVConfig
 from ..core.schemes import BWD, CTR, FWD, channel_weight, scheme_channels
-from ..ops.operators import D, D_T, tv_norm
+from ..ops.operators import D, D_T, _sl, d_channel, dt_channel, tv_norm
 from ..ops.tv import _subgrad_from_D
 from ..solvers.fidelity import fidelity_dual_prox, fidelity_loss
 
@@ -94,6 +110,9 @@ class _Params(ctypes.Structure):
         ("fid_den", ctypes.c_float), ("kl_c", ctypes.c_float),
         ("huber_den", ctypes.c_float), ("fid_scale", ctypes.c_float),
         ("scheme_norm", ctypes.c_float),
+        ("sharded", ctypes.c_int), ("t_free", ctypes.c_int),
+        ("xe", ctypes.c_int), ("ye", ctypes.c_int), ("ne", ctypes.c_int),
+        ("z_first", ctypes.c_int), ("z_last", ctypes.c_int),
     ]
 
 
@@ -110,14 +129,22 @@ def fits_kernel(shape, Nd: int, dtype=torch.float32) -> bool:
 
 @functools.lru_cache(maxsize=64)
 def _params(cfg: TVConfig, shape, has_tmul, sigma_D=0.5, sigma_A=1.0,
-            reg=1.0, tau=0.1, fidelity="l2", fid_weight=1.0, nonneg=False):
+            reg=1.0, tau=0.1, fidelity="l2", fid_weight=1.0, nonneg=False,
+            table_dims=None, sharded=False, t_free=False, xe=0, ye=0, ne=0,
+            interior=False):
     """The kernels' launch parameters: the channel table of ``cfg`` at
     ``shape`` (weights as ``make_cp_dual_kernel``'s ``_build`` computes
-    them) and the step's scalars."""
+    them) and the step's scalars.  On a shard, ``shape`` is the shard's,
+    ``table_dims`` the whole volume's ``(Nz, M)`` for the table, and the
+    remaining arguments fill the fields the HALO kernels read
+    (``csrc/stencil.cuh``)."""
     Nz, M, Nr, Nc = shape
-    chans, norm = scheme_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg,
-                                  cfg.reg_time)
-    p = _Params(Nz=Nz, M=M, Nr=Nr, Nc=Nc, Nd=len(chans), scheme_norm=norm)
+    chans, norm = scheme_channels(cfg.scheme, *(table_dims or (Nz, M)),
+                                  cfg.reg_z_over_reg, cfg.reg_time)
+    p = _Params(Nz=Nz, M=M, Nr=Nr, Nc=Nc, Nd=len(chans), scheme_norm=norm,
+                sharded=int(sharded), t_free=int(t_free), xe=xe, ye=ye,
+                ne=ne, z_first=1 if interior else 0,
+                z_last=Nz - 2 if interior else Nz - 1)
     for i, ch in enumerate(chans):
         p.axis[i] = ch.axis
         p.kind[i] = _KIND[ch.kind]
@@ -142,9 +169,11 @@ _ENTRY_POINTS = {
     # theirs
     "cp_fused": ("cp", _Params, {"cp_dual_launch": (2, 6),
                                  "tv_dual_launch": (2, 3),
-                                 "cp_primal_launch": (2, 7)}),
+                                 "cp_primal_launch": (2, 8)}),
     "tv_fused": ("tv", _Params, {"tv_norms_launch": (1, 4),
                                  "tv_subgrad_launch": (1, 4)}),
+    "cp_boundary": ("bnd", _Params, {"cp_dual_boundary_launch": (2, 7),
+                                     "cp_primal_boundary_launch": (2, 7)}),
 }
 
 
@@ -186,17 +215,28 @@ def _check_tensors(x, **others):
         raise ValueError(f"unsupported device {x.device}")
 
 
-def _check_volume(x, cfg: TVConfig) -> int:
-    """x is a volume the kernels take; returns the scheme's Nd."""
-    if x.ndim != 4:
-        raise ValueError(f"x must be (Nz, M, Nr, Nc), got {tuple(x.shape)}")
+def _shard_shape(x, e=0):
+    """The shape of the shard that the volume ``x`` extends by ``e`` planes
+    per side in z and t (x's own for e = 0)."""
+    if x.ndim != 4 or min(x.shape[:2]) <= 2 * e:
+        raise ValueError(f"x must be (Nz, M, Nr, Nc), extended by {e} "
+                         f"plane(s) per side in z and t, got "
+                         f"{tuple(x.shape)}")
+    return (x.shape[0] - 2 * e, x.shape[1] - 2 * e) + tuple(x.shape[2:])
+
+
+def _check_volume(x, cfg: TVConfig, table_dims=None, e=0) -> int:
+    """x is a volume the kernels take (on a shard: extended by ``e`` planes
+    per side in z and t); returns the scheme's Nd (on a shard, from the
+    whole volume's ``table_dims``)."""
+    shape = _shard_shape(x, e)
     if x.dtype not in STORAGE_DTYPES:
         raise ValueError(f"x storage must be float32 or bfloat16, got {x.dtype}")
-    Nz, M = x.shape[0], x.shape[1]
+    Nz, M = table_dims or shape[:2]
     Nd = len(scheme_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg,
                              cfg.reg_time)[0])
-    if not fits_kernel(tuple(x.shape), Nd, x.dtype):
-        raise ValueError(f"shape {tuple(x.shape)} with Nd={Nd} is outside "
+    if not fits_kernel(shape, Nd, x.dtype):
+        raise ValueError(f"shape {shape} with Nd={Nd} is outside "
                          f"what the CUDA kernels accept (fits_kernel)")
     return Nd
 
@@ -228,18 +268,41 @@ def _check_dual(y_D, x, Nd):
                          f"{(Nz, M, Nd, Nr, Nc)}, got {tuple(y_D.shape)}")
 
 
-def _check_operands(x, x0, y_A, y_D, tmul, cfg: TVConfig):
-    """Validate what either CP pass accepts (both devices)."""
+def _check_extended(ref, e, **others):
+    """Each tensor has ref's dtype and ref's shape extended by ``e`` planes
+    per side along z and t."""
+    want = (ref.shape[0] + 2 * e, ref.shape[1] + 2 * e) + tuple(ref.shape[2:])
+    for name, t in others.items():
+        if t.dtype != ref.dtype or tuple(t.shape) != want:
+            raise ValueError(
+                f"{name} must be {ref.dtype} {want} (the shard's array "
+                f"extended by {e} plane(s) per side in z and t), got "
+                f"{tuple(t.shape)} {t.dtype}")
+
+
+def _check_modes(halo_mode, interior, Nz):
+    if halo_mode and interior:
+        raise ValueError("halo_mode and interior exclude each other")
+    if interior and Nz < 3:
+        raise ValueError("interior needs >= 3 local z planes, got "
+                         f"{Nz}")
+
+
+def _check_operands(x, x0, y_A, y_D, tmul, cfg: TVConfig, table_dims=None,
+                    xe=0):
+    """Validate what either CP pass accepts (both devices).  ``x0`` has the
+    shard's shape; x is extended by ``xe`` planes per side in z and t."""
     _check_tensors(x, x0=x0, y_A=y_A, y_D=y_D)
-    _check_like(x, x0=x0, y_A=y_A)
-    _check_dual(y_D, x, _check_volume(x, cfg))
-    _check_tmul(tmul, x)
+    _check_like(x0, y_A=y_A)
+    _check_extended(x0, xe, x=x)
+    _check_dual(y_D, x0, _check_volume(x0, cfg, table_dims))
+    _check_tmul(tmul, x0)
 
 
 def _launch(name, fn_name, x, p, flags, args, with_parts=False):
     """Launch ``fn_name`` of library ``name`` on x's device and current
     stream; with ``with_parts``, allocates the float32 per-block partials it
-    writes (its last pointer) and returns them."""
+    writes for a volume of x's shape (its last pointer) and returns them."""
     lib = _lib(name)
     prefix = _ENTRY_POINTS[name][0]
     parts = None
@@ -258,30 +321,57 @@ def _launch(name, fn_name, x, p, flags, args, with_parts=False):
     return parts
 
 
+def _storage_flags(x, y_D):
+    return int(x.dtype == torch.bfloat16), int(y_D.dtype == torch.bfloat16)
+
+
 def _cp_launch(fn_name, x, y_D, p, args):
-    flags = (int(x.dtype == torch.bfloat16), int(y_D.dtype == torch.bfloat16))
-    return _launch("cp_fused", fn_name, x, p, flags, args, with_parts=True)
+    return _launch("cp_fused", fn_name, x, p, _storage_flags(x, y_D), args,
+                   with_parts=True)
+
+
+def _shard_fields(halo_mode, interior, table_dims, **depths):
+    """``_params`` keywords of a pass on a shard: every sharded mode ungates
+    z, ``halo_mode`` also t and names the extension ``depths``."""
+    if not (halo_mode or interior):
+        return dict(table_dims=table_dims)
+    return dict(table_dims=table_dims, sharded=True, t_free=halo_mode,
+                interior=interior, **(depths if halo_mode else {}))
 
 
 def cp_dual(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, sigma_D, sigma_A,
-            reg, fidelity="l2", fid_weight=1.0):
+            reg, fidelity="l2", fid_weight=1.0, halo_mode=False,
+            table_dims=None, t_sharded=False, interior=False):
     """Pass A: ``(x, x0, y_A, y_D[, tmul]) -> (y_A', y_D', tv_parts)``.
 
     ``y_A`` and ``y_D`` (internal layout) are updated in place and returned;
     ``tv_parts`` are partial sums of the TV term of D x (multiply their sum
     by ``reg`` for the loss).  ``tmul``: optional float32 (Nr, Nc)
-    multiplier of the time channels (``dispatch.t_plane_multiplier``)."""
-    _check_operands(x, x0, y_A, y_D, tmul, cfg)
+    multiplier of the time channels (``dispatch.t_plane_multiplier``).
+
+    On a shard (module docstring): with ``halo_mode`` x is
+    ``(Nz+2, M+2, Nr, Nc)`` while ``x0``, ``y_A``, ``y_D`` keep the shard's
+    shape; with ``interior`` only planes ``1 .. Nz-2`` of ``y_A`` and
+    ``y_D`` are updated and ``tv_parts`` comes back as ``(Nz, k)`` whose
+    rows 0 and ``Nz-1`` are left for :func:`cp_dual_boundary` to write.
+    ``table_dims``: the whole volume's ``(Nz, M)``.  ``t_sharded`` changes
+    nothing here (on the TPU it moves the time channels' adjoint out of
+    pass A's third output, which the port does not have)."""
+    _check_operands(x, x0, y_A, y_D, tmul, cfg, table_dims, int(halo_mode))
+    _check_modes(halo_mode, interior, x0.shape[0])
+    kw = dict(cfg=cfg, sigma_D=sigma_D, sigma_A=sigma_A, reg=reg,
+              fidelity=fidelity, fid_weight=fid_weight)
     if x.device.type == "cpu":
-        return cp_dual_plain(x, x0, y_A, y_D, tmul, cfg=cfg, sigma_D=sigma_D,
-                             sigma_A=sigma_A, reg=reg, fidelity=fidelity,
-                             fid_weight=fid_weight)
-    p = _params(cfg, tuple(x.shape), tmul is not None, sigma_D=float(sigma_D),
-                sigma_A=float(sigma_A), reg=float(reg), fidelity=fidelity,
-                fid_weight=float(fid_weight))
-    parts = _cp_launch("cp_dual_launch", x, y_D, p, (x, x0, y_A, y_D, tmul))
+        return cp_dual_plain(x, x0, y_A, y_D, tmul, halo_mode=halo_mode,
+                             table_dims=table_dims, interior=interior, **kw)
+    p = _params(cfg, tuple(x0.shape), tmul is not None,
+                sigma_D=float(sigma_D), sigma_A=float(sigma_A),
+                reg=float(reg), fidelity=fidelity,
+                fid_weight=float(fid_weight),
+                **_shard_fields(halo_mode, interior, table_dims, xe=1))
+    parts = _cp_launch("cp_dual_launch", x0, y_D, p, (x, x0, y_A, y_D, tmul))
     cp_dual.launches += 1
-    return y_A, y_D, parts
+    return y_A, y_D, parts.view(x0.shape[0], -1) if interior else parts
 
 
 def tv_dual(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg):
@@ -303,14 +393,34 @@ def tv_dual(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg):
 
 
 def cp_primal(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, tau,
-              fidelity="l2", fid_weight=1.0, nonneg=False, out=None):
+              fidelity="l2", fid_weight=1.0, nonneg=False, out=None,
+              halo_mode=False, table_dims=None, t_sharded=False,
+              interior=False, y_ext=None):
     """Pass B: ``(x, x0, y_A', y_D'[, tmul]) -> (x', fid_parts)``.
 
     x' is written to ``out`` and returned; by default ``out`` is ``x``
     itself (in place).  Each voxel reads x only at itself, so a separate
     ``out`` costs nothing and leaves x intact.  ``fid_parts`` are partial
-    sums of the fidelity term of x'."""
-    _check_operands(x, x0, y_A, y_D, tmul, cfg)
+    sums of the fidelity term of x'.
+
+    On a shard (module docstring): with ``halo_mode`` every array keeps the
+    shard's shape and ``y_ext``, ``(Nz+2, M+2, Nd, Nr, Nc)``, is ``y_D``
+    with a plane per side in z and t holding the neighbour shards' values
+    (zeros at the volume's edge); the kernel reads the dual from ``y_ext``
+    alone (one array streamed, as on the unsharded path).  With
+    ``interior`` only planes ``1 .. Nz-2`` of x' are written and
+    ``fid_parts`` comes back as ``(Nz, k)`` whose rows 0 and ``Nz-1`` are
+    left for :func:`cp_primal_boundary`.  ``table_dims``: the whole volume's
+    ``(Nz, M)``.  ``t_sharded`` changes nothing but what ``y_ext`` holds
+    along t: this pass always computes the full adjoint (the TPU kernel
+    takes the time channels' part from pass A unless time is sharded)."""
+    _check_operands(x, x0, y_A, y_D, tmul, cfg, table_dims)
+    _check_modes(halo_mode, interior, x.shape[0])
+    if halo_mode != (y_ext is not None):
+        raise ValueError("y_ext goes with halo_mode, and only with it")
+    if halo_mode:
+        _check_tensors(x, y_ext=y_ext)
+        _check_extended(y_D, 1, y_ext=y_ext)
     if out is None:
         out = x
     else:
@@ -319,38 +429,300 @@ def cp_primal(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, tau,
     if x.device.type == "cpu":
         return cp_primal_plain(x, x0, y_A, y_D, tmul, cfg=cfg, tau=tau,
                                fidelity=fidelity, fid_weight=fid_weight,
-                               nonneg=nonneg, out=out)
+                               nonneg=nonneg, out=out, halo_mode=halo_mode,
+                               table_dims=table_dims, interior=interior,
+                               y_ext=y_ext)
     p = _params(cfg, tuple(x.shape), tmul is not None, tau=float(tau),
                 fidelity=fidelity, fid_weight=float(fid_weight),
-                nonneg=bool(nonneg))
+                nonneg=bool(nonneg),
+                **_shard_fields(halo_mode, interior, table_dims, ye=1))
     parts = _cp_launch("cp_primal_launch", x, y_D, p,
-                       (x, x0, y_A, y_D, tmul, out))
+                       (x, x0, y_A, y_D, y_ext if halo_mode else y_D, tmul,
+                        out))
     cp_primal.launches += 1
-    return out, parts
+    return out, parts.view(x.shape[0], -1) if interior else parts
+
+
+def _check_boundary(x, halo, x0, y_A, y_D, parts, tmul, cfg, table_dims,
+                    halo_name):
+    """Validate what either boundary kernel accepts: a shard of >= 3 planes,
+    its (2, ...) halo stack shaped like two planes of the array it extends,
+    and the interior launch's ``(Nz, k)`` partials (on a CUDA device: one
+    per block, as many as that launch wrote)."""
+    _check_operands(x, x0, y_A, y_D, tmul, cfg, table_dims)
+    _check_modes(False, True, x.shape[0])
+    like = x if halo_name == "x_halo" else y_D
+    _check_tensors(x, parts=parts, **{halo_name: halo})
+    if halo.dtype != like.dtype or tuple(halo.shape) != (2,) + tuple(
+            like.shape[1:]):
+        raise ValueError(f"{halo_name} must be {like.dtype} "
+                         f"{(2,) + tuple(like.shape[1:])}, got "
+                         f"{tuple(halo.shape)} {halo.dtype}")
+    if (parts.dtype != torch.float32 or parts.ndim != 2
+            or parts.shape[0] != x.shape[0]):
+        raise ValueError("parts must be the float32 (Nz, k) partials of the "
+                         f"interior launch, got {tuple(parts.shape)} "
+                         f"{parts.dtype}")
+    if x.is_cuda and parts.numel() != _lib("cp_fused").cp_num_parts(*x.shape):
+        raise ValueError(f"parts holds {parts.numel()} partials, the "
+                         f"interior launch of a {tuple(x.shape)} shard writes "
+                         f"{_lib('cp_fused').cp_num_parts(*x.shape)}")
+
+
+def cp_dual_boundary(x, x_halo, x0, y_A, y_D, parts, tmul=None, *,
+                     cfg: TVConfig, sigma_D, sigma_A, reg, fidelity="l2",
+                     fid_weight=1.0, table_dims=None):
+    """Pass A redone on the two z-edge planes of a shard:
+    ``(x, x_halo, x0, y_A, y_D, tv_parts[, tmul]) -> (y_A', y_D', tv_parts)``.
+
+    After ``cp_dual(..., interior=True)`` has updated planes ``1 .. Nz-2``,
+    this updates ``y_A`` and ``y_D`` at planes 0 and ``Nz-1`` in place and
+    writes rows 0 and ``Nz-1`` of ``tv_parts`` (the interior call's).
+    ``x_halo`` ``(2, M, Nr, Nc)``: slot 0 is x at ``z = -1`` (the left
+    neighbour's last plane), slot 1 x at ``z = Nz`` (the right neighbour's
+    first); at the volume's edge the ghost plane that zeroes every z
+    difference there (``parallel.fused_halo._halo_planes``).  Time is
+    unsharded: its gates stay on.  ``table_dims``: the whole volume's
+    ``(Nz, M)``."""
+    _check_boundary(x, x_halo, x0, y_A, y_D, parts, tmul, cfg, table_dims,
+                    "x_halo")
+    kw = dict(cfg=cfg, sigma_D=sigma_D, sigma_A=sigma_A, reg=reg,
+              fidelity=fidelity, fid_weight=fid_weight,
+              table_dims=table_dims)
+    if x.device.type == "cpu":
+        return cp_dual_boundary_plain(x, x_halo, x0, y_A, y_D, parts, tmul,
+                                      **kw)
+    p = _params(cfg, tuple(x.shape), tmul is not None,
+                sigma_D=float(sigma_D), sigma_A=float(sigma_A),
+                reg=float(reg), fidelity=fidelity,
+                fid_weight=float(fid_weight), table_dims=table_dims,
+                sharded=True)
+    _launch("cp_boundary", "cp_dual_boundary_launch", x, p,
+            _storage_flags(x, y_D), (x, x_halo, x0, y_A, y_D, tmul, parts))
+    cp_dual_boundary.launches += 1
+    return y_A, y_D, parts
+
+
+def cp_primal_boundary(x, x0, y_A, y_D, y_halo, parts, tmul=None, *,
+                       cfg: TVConfig, tau, fidelity="l2", fid_weight=1.0,
+                       nonneg=False, table_dims=None):
+    """Pass B redone on the two z-edge planes of a shard:
+    ``(x, x0, y_A', y_D', y_halo, fid_parts[, tmul]) -> (x', fid_parts)``.
+
+    After ``cp_primal(..., interior=True)`` has written planes ``1 .. Nz-2``
+    of x', this writes planes 0 and ``Nz-1`` in place and rows 0 and
+    ``Nz-1`` of ``fid_parts``.  ``y_halo`` ``(2, M, Nd, Nr, Nc)``: slot 0 is
+    the updated dual at ``z = -1``, slot 1 at ``z = Nz``, of which only the
+    z channels are read (``parallel.fused_halo._sparse_channel_halo``;
+    zeros at the volume's edge).  ``table_dims``: the whole volume's
+    ``(Nz, M)``."""
+    _check_boundary(x, y_halo, x0, y_A, y_D, parts, tmul, cfg, table_dims,
+                    "y_halo")
+    kw = dict(cfg=cfg, tau=tau, fidelity=fidelity, fid_weight=fid_weight,
+              nonneg=nonneg, table_dims=table_dims)
+    if x.device.type == "cpu":
+        return cp_primal_boundary_plain(x, x0, y_A, y_D, y_halo, parts, tmul,
+                                        **kw)
+    p = _params(cfg, tuple(x.shape), tmul is not None, tau=float(tau),
+                fidelity=fidelity, fid_weight=float(fid_weight),
+                nonneg=bool(nonneg), table_dims=table_dims, sharded=True)
+    _launch("cp_boundary", "cp_primal_boundary_launch", x, p,
+            _storage_flags(x, y_D), (x, x0, y_A, y_D, y_halo, tmul, parts))
+    cp_primal_boundary.launches += 1
+    return x, parts
 
 
 cp_dual.launches = 0
 tv_dual.launches = 0
 cp_primal.launches = 0
+cp_dual_boundary.launches = 0
+cp_primal_boundary.launches = 0
 
 
-def cp_dual_plain(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, sigma_D,
-                  sigma_A, reg, fidelity="l2", fid_weight=1.0):
-    """Plain PyTorch version of :func:`cp_dual` (same signature, outputs and
-    in-place updates), built from the ported operators: computes in float32
-    and rounds to the storage dtypes where the kernel stores."""
+_LO = {FWD: 0, BWD: -1, CTR: -1}   # a difference's lower and upper slot,
+_HI = {FWD: 1, BWD: 0, CTR: 1}     # relative to its own
+
+
+def _centre(a, ext, skip=None):
+    """``a`` cut to the shard along every extended axis but ``skip``
+    (``ext``: axis -> planes per side)."""
+    for axis, e in ext.items():
+        if e and axis != skip:
+            a = a[_sl(a.ndim, axis, e, a.shape[axis] - e)]
+    return a
+
+
+def _d_ext(x_ext, ez, et, tmul, cfg: TVConfig, table_dims=None):
+    """``ops.operators.D`` on a shard: every weighted D channel at the
+    shard's voxels, ``(Nz, Nd, M, Nr, Nc)``, from x extended by ``ez``
+    planes per side in z and ``et`` in t.  An extended axis is differenced
+    without a gate (its ghost planes stand for the volume's edge), the
+    others by the zero-slot rule; the table is the whole volume's
+    (``table_dims``).  With no extension and no ``table_dims`` it is ``D``,
+    operation for operation."""
+    ext = {0: ez, 1: et}
+    Nz, M = x_ext.shape[0] - 2 * ez, x_ext.shape[1] - 2 * et
+    chans, norm = scheme_channels(cfg.scheme, *(table_dims or (Nz, M)),
+                                  cfg.reg_z_over_reg, cfg.reg_time)
+    outs = []
+    for ch in chans:
+        e = ext.get(ch.axis, 0)
+        if e:
+            n = x_ext.shape[ch.axis] - 2 * e
+            d = (x_ext[_sl(4, ch.axis, e + _HI[ch.kind], e + _HI[ch.kind] + n)]
+                 - x_ext[_sl(4, ch.axis, e + _LO[ch.kind],
+                             e + _LO[ch.kind] + n)])
+            d = _centre(d, ext, skip=ch.axis)
+        else:
+            d = _centre(d_channel(x_ext, ch.axis, ch.kind), ext)
+        w = channel_weight(ch, cfg.reg_z_over_reg, cfg.reg_time)
+        if w != 1.0:
+            d = d * w
+        if ch.weight == "t" and tmul is not None:
+            d = d * tmul
+        outs.append(d)
+    D_x = torch.stack(outs, dim=1)
+    return D_x * norm if norm != 1.0 else D_x
+
+
+def _dt_ext(Y_ext, ez, et, tmul, cfg: TVConfig, table_dims=None,
+            weighted=True):
+    """``ops.operators.D_T`` on a shard: the adjoint at the shard's voxels,
+    ``(Nz, M, Nr, Nc)``, of the public-layout channels ``Y_ext`` extended by
+    ``ez`` planes per side in z and ``et`` in t.  Along an extended axis a
+    voxel reads its neighbour slots without a gate (a halo plane holds the
+    neighbour shard's values, zeros at the volume's edge).  ``weighted``
+    False leaves out the per-axis weights and ``tmul``, as the isotropic
+    subgradient does (``ops.tv._subgrad_from_D``)."""
+    ext = {0: ez, 1: et}
+    Nz, M = Y_ext.shape[0] - 2 * ez, Y_ext.shape[2] - 2 * et
+    chans, norm = scheme_channels(cfg.scheme, *(table_dims or (Nz, M)),
+                                  cfg.reg_z_over_reg, cfg.reg_time)
+    out = None
+    for i, ch in enumerate(chans):
+        y = Y_ext[:, i]
+        if weighted:
+            w = channel_weight(ch, cfg.reg_z_over_reg, cfg.reg_time)
+            if w != 1.0:
+                y = y * w
+            if ch.weight == "t" and tmul is not None:
+                y = y * tmul
+        e = ext.get(ch.axis, 0)
+        if e:
+            n = y.shape[ch.axis] - 2 * e
+            # FWD: y[i-1] - y[i]; BWD: y[i] - y[i+1]; CTR: y[i-1] - y[i+1]
+            lo, hi = -_HI[ch.kind], -_LO[ch.kind]
+            c = (y[_sl(4, ch.axis, e + lo, e + lo + n)]
+                 - y[_sl(4, ch.axis, e + hi, e + hi + n)])
+            c = _centre(c, ext, skip=ch.axis)
+        else:
+            c = _centre(dt_channel(y, ch.axis, ch.kind), ext)
+        out = c if out is None else out + c
+    return out * norm if norm != 1.0 else out
+
+
+def _tv_parts(D_x, cfg: TVConfig, per_plane):
+    """The TV term of ``D_x``: one sum, or with ``per_plane`` one per z
+    plane as a column ``(Nz, 1)``."""
+    if not per_plane:
+        return tv_norm(D_x, cfg.norm, huber_delta=cfg.huber_delta).reshape(1)
+    return torch.stack([tv_norm(D_x[z:z + 1], cfg.norm,
+                                huber_delta=cfg.huber_delta)
+                        for z in range(D_x.shape[0])]).reshape(-1, 1)
+
+
+def _dual_update(D_x, xf, x0, y_A, y_D, *, cfg, sigma_D, sigma_A, reg,
+                 fidelity, fid_weight):
+    """Pass A's two prox steps from ``D_x``, written into ``y_A`` and the
+    internal-layout ``y_D`` (which may be views of some planes)."""
     from ..solvers.cp import dual_prox
 
-    kw = cfg.kwargs()
-    xf = x.float()
     y_A_new = fidelity_dual_prox(y_A.float(), xf, x0.float(), sigma_A,
                                  fidelity, fid_weight)
-    D_x = D(xf, cfg.scheme, weight_time=tmul, **kw)
     p = from_internal_layout(y_D).float() + sigma_D * D_x
     y_D_new = dual_prox(p, reg, cfg.norm, sigma_D, cfg.huber_delta)
     y_A.copy_(y_A_new)
     y_D.copy_(y_D_new.transpose(1, 2))  # public -> internal layout
-    parts = tv_norm(D_x, cfg.norm, huber_delta=cfg.huber_delta).reshape(1)
+
+
+def _primal_update(dty, x, x0, y_A, out, *, tau, fidelity, fid_weight,
+                   nonneg, per_plane):
+    """Pass B from ``dty = D^T y_D'``: x' into ``out`` (views allowed) and
+    the fidelity term of x', one sum or one per z plane ``(Nz, 1)``."""
+    x_new = x.float() - tau * y_A.float() - tau * dty
+    if nonneg:
+        x_new = torch.clamp_min(x_new, 0.0)
+    x0f = x0.float()
+    if per_plane:
+        parts = torch.stack([
+            fidelity_loss(x_new[z:z + 1], x0f[z:z + 1], fidelity, fid_weight)
+            for z in range(x_new.shape[0])]).reshape(-1, 1)
+    else:
+        parts = fidelity_loss(x_new, x0f, fidelity, fid_weight).reshape(1)
+    out.copy_(x_new)
+    return parts
+
+
+def _edge_rows(inner, Nz):
+    """``(Nz, 1)`` partials: ``inner`` for planes ``1 .. Nz-2``, zeros in
+    the two edge rows the boundary pass writes."""
+    parts = torch.zeros((Nz, 1), dtype=inner.dtype, device=inner.device)
+    parts[1:-1] = inner
+    return parts
+
+
+def cp_dual_plain(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, sigma_D,
+                  sigma_A, reg, fidelity="l2", fid_weight=1.0,
+                  halo_mode=False, table_dims=None, t_sharded=False,
+                  interior=False):
+    """Plain PyTorch version of :func:`cp_dual` (same signature, outputs and
+    in-place updates), built from the ported operators: computes in float32
+    and rounds to the storage dtypes where the kernel stores.  Its partials
+    are one sum (``interior``: one per z plane, ``(Nz, 1)``)."""
+    kw = dict(cfg=cfg, sigma_D=sigma_D, sigma_A=sigma_A, reg=reg,
+              fidelity=fidelity, fid_weight=fid_weight)
+    xf = x.float()
+    if interior:  # the shard is its planes 1 .. Nz-2 extended by one in z
+        D_x = _d_ext(xf, 1, 0, tmul, cfg, table_dims)
+        _dual_update(D_x, xf[1:-1], x0[1:-1], y_A[1:-1], y_D[1:-1], **kw)
+        return y_A, y_D, _edge_rows(_tv_parts(D_x, cfg, True), x.shape[0])
+    if halo_mode:
+        D_x = _d_ext(xf, 1, 1, tmul, cfg, table_dims)
+        xf = xf[1:-1, 1:-1]
+    else:
+        D_x = D(xf, cfg.scheme, weight_time=tmul, **cfg.kwargs())
+    _dual_update(D_x, xf, x0, y_A, y_D, **kw)
+    return y_A, y_D, _tv_parts(D_x, cfg, False)
+
+
+def _edge_planes(Nz):
+    """(halo slot, plane) of a shard's two z-edge planes."""
+    return (0, 0), (1, Nz - 1)
+
+
+def _edge_window(a, halo, b, z):
+    """Plane z of ``a`` between its two z neighbours, ``(3, ...)``: the
+    halo stack's slot across the shard's edge, the shard's own plane on the
+    other side."""
+    lo = halo[0:1] if b == 0 else a[z - 1:z]
+    hi = halo[1:2] if b == 1 else a[z + 1:z + 2]
+    return torch.cat([lo, a[z:z + 1], hi])
+
+
+def cp_dual_boundary_plain(x, x_halo, x0, y_A, y_D, parts, tmul=None, *,
+                           cfg: TVConfig, sigma_D, sigma_A, reg,
+                           fidelity="l2", fid_weight=1.0, table_dims=None):
+    """Plain PyTorch version of :func:`cp_dual_boundary`: each edge plane is
+    a one-plane shard extended in z by the halo slot and its in-shard
+    neighbour; ``parts`` is the plain interior call's ``(Nz, 1)``."""
+    for b, z in _edge_planes(x.shape[0]):
+        one = slice(z, z + 1)
+        D_x = _d_ext(_edge_window(x, x_halo, b, z).float(), 1, 0, tmul, cfg,
+                     table_dims)
+        _dual_update(D_x, x[one].float(), x0[one], y_A[one], y_D[one],
+                     cfg=cfg, sigma_D=sigma_D, sigma_A=sigma_A, reg=reg,
+                     fidelity=fidelity, fid_weight=fid_weight)
+        parts[one] = _tv_parts(D_x, cfg, True)
     return y_A, y_D, parts
 
 
@@ -368,18 +740,43 @@ def tv_dual_plain(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg):
 
 
 def cp_primal_plain(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, tau,
-                    fidelity="l2", fid_weight=1.0, nonneg=False, out=None):
-    """Plain PyTorch version of :func:`cp_primal`."""
-    kw = cfg.kwargs()
-    dty = D_T(from_internal_layout(y_D).float(), cfg.scheme,
-              weight_time=tmul, **kw)
-    x_new = x.float() - tau * y_A.float() - tau * dty
-    if nonneg:
-        x_new = torch.clamp_min(x_new, 0.0)
-    parts = fidelity_loss(x_new, x0.float(), fidelity, fid_weight).reshape(1)
+                    fidelity="l2", fid_weight=1.0, nonneg=False, out=None,
+                    halo_mode=False, table_dims=None, t_sharded=False,
+                    interior=False, y_ext=None):
+    """Plain PyTorch version of :func:`cp_primal`.  Its partials are one
+    sum (``interior``: one per z plane, ``(Nz, 1)``)."""
+    kw = dict(tau=tau, fidelity=fidelity, fid_weight=fid_weight,
+              nonneg=nonneg)
     out = x if out is None else out
-    out.copy_(x_new)
-    return out, parts
+    if interior:  # the shard is its planes 1 .. Nz-2 extended by one in z
+        dty = _dt_ext(from_internal_layout(y_D).float(), 1, 0, tmul, cfg,
+                      table_dims)
+        inner = _primal_update(dty, x[1:-1], x0[1:-1], y_A[1:-1], out[1:-1],
+                               per_plane=True, **kw)
+        return out, _edge_rows(inner, x.shape[0])
+    if halo_mode:
+        dty = _dt_ext(from_internal_layout(y_ext).float(), 1, 1, tmul, cfg,
+                      table_dims)
+    else:
+        dty = D_T(from_internal_layout(y_D).float(), cfg.scheme,
+                  weight_time=tmul, **cfg.kwargs())
+    return out, _primal_update(dty, x, x0, y_A, out, per_plane=False, **kw)
+
+
+def cp_primal_boundary_plain(x, x0, y_A, y_D, y_halo, parts, tmul=None, *,
+                             cfg: TVConfig, tau, fidelity="l2",
+                             fid_weight=1.0, nonneg=False, table_dims=None):
+    """Plain PyTorch version of :func:`cp_primal_boundary` (see
+    :func:`cp_dual_boundary_plain`)."""
+    for b, z in _edge_planes(x.shape[0]):
+        one = slice(z, z + 1)
+        win = from_internal_layout(_edge_window(y_D, y_halo, b, z)).float()
+        dty = _dt_ext(win, 1, 0, tmul, cfg, table_dims)
+        parts[one] = _primal_update(dty, x[one], x0[one], y_A[one], x[one],
+                                    tau=tau, fidelity=fidelity,
+                                    fid_weight=fid_weight, nonneg=nonneg,
+                                    per_plane=True)
+    return x, parts
 
 
 def to_internal_layout(y_D):
@@ -434,48 +831,68 @@ def cp_step_fused(state, x_noisy, *, reg, sigma_D, sigma_A, tau,
 # ---------------------------------------------------------------------------
 
 
-def _check_norms(norms, x):
-    if norms.dtype != torch.float32 or norms.shape != x.shape:
-        raise ValueError(f"norms must be float32 {tuple(x.shape)}, got "
-                         f"{tuple(norms.shape)} {norms.dtype}")
-
-
-def tv_norms(x, tmul=None, *, cfg: TVConfig):
+def tv_norms(x, tmul=None, *, cfg: TVConfig, halo_mode=False,
+             table_dims=None):
     """Pass 1: ``(x[, tmul]) -> (norms, tv_parts)``.
 
     ``norms`` (float32, shaped like x): the per-voxel gradient norm with
     +inf where it is 0 (iso), the sum of |channels| (aniso) or the raw norm
     (huber); ``tv_parts`` sum to the TV value.  ``tmul``: optional float32
     (Nr, Nc) multiplier of the time channels
-    (``dispatch.t_plane_multiplier``)."""
+    (``dispatch.t_plane_multiplier``).
+
+    On a shard (module docstring): with ``halo_mode`` x is
+    ``(Nz+2, M+2, Nr, Nc)`` and the norms come back in the shard's shape;
+    ``table_dims``: the whole volume's ``(Nz, M)``."""
     _check_tensors(x)
-    _check_volume(x, cfg)
+    _check_volume(x, cfg, table_dims, int(halo_mode))
     _check_tmul(tmul, x)
     if x.device.type == "cpu":
-        return tv_norms_plain(x, tmul, cfg=cfg)
-    p = _params(cfg, tuple(x.shape), tmul is not None)
-    norms = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    parts = _launch("tv_fused", "tv_norms_launch", x, p,
+        return tv_norms_plain(x, tmul, cfg=cfg, halo_mode=halo_mode,
+                              table_dims=table_dims)
+    shape = _shard_shape(x, int(halo_mode))
+    p = _params(cfg, shape, tmul is not None,
+                **_shard_fields(halo_mode, False, table_dims, xe=1))
+    norms = torch.empty(shape, dtype=torch.float32, device=x.device)
+    parts = _launch("tv_fused", "tv_norms_launch", norms, p,
                     (int(x.dtype == torch.bfloat16),), (x, tmul, norms),
                     with_parts=True)
     tv_norms.launches += 1
     return norms, parts
 
 
-def tv_subgrad(x, norms, tmul=None, *, cfg: TVConfig):
+def tv_subgrad(x, norms, tmul=None, *, cfg: TVConfig, halo_mode=False,
+               table_dims=None):
     """Pass 2: ``(x, norms[, tmul]) -> G`` in x's dtype, with ``norms``
-    from :func:`tv_norms` (the aniso G does not read them)."""
-    _check_tensors(x, norms=norms)
-    _check_volume(x, cfg)
-    _check_norms(norms, x)
+    from :func:`tv_norms` (the aniso G does not read them).
+
+    On a shard (module docstring): with ``halo_mode`` x is
+    ``(Nz+4, M+4, Nr, Nc)``, ``norms`` ``(Nz+2, M+2, Nr, Nc)`` with divisors
+    at its ghost planes that are safe (nonzero; the differences there are
+    zero), or None for aniso, and G has the shard's shape; ``table_dims``:
+    the whole volume's ``(Nz, M)``."""
+    aniso = cfg.norm == "aniso"
+    if halo_mode and aniso and norms is None:
+        _check_tensors(x)
+    else:
+        _check_tensors(x, norms=norms)
+    _check_volume(x, cfg, table_dims, 2 * int(halo_mode))
+    shape = _shard_shape(x, 2 * int(halo_mode))
+    if norms is not None:
+        want = tuple(n + 2 * int(halo_mode) for n in shape[:2]) + shape[2:]
+        if norms.dtype != torch.float32 or tuple(norms.shape) != want:
+            raise ValueError(f"norms must be float32 {want}, got "
+                             f"{tuple(norms.shape)} {norms.dtype}")
     _check_tmul(tmul, x)
     if x.device.type == "cpu":
-        return tv_subgrad_plain(x, norms, tmul, cfg=cfg)
-    p = _params(cfg, tuple(x.shape), tmul is not None)
-    g = torch.empty_like(x)
-    _launch("tv_fused", "tv_subgrad_launch", x, p,
+        return tv_subgrad_plain(x, norms, tmul, cfg=cfg, halo_mode=halo_mode,
+                                table_dims=table_dims)
+    p = _params(cfg, shape, tmul is not None,
+                **_shard_fields(halo_mode, False, table_dims, xe=2, ne=1))
+    g = torch.empty(shape, dtype=x.dtype, device=x.device)
+    _launch("tv_fused", "tv_subgrad_launch", g, p,
             (int(x.dtype == torch.bfloat16),),
-            (x, None if cfg.norm == "aniso" else norms, tmul, g))
+            (x, None if aniso else norms, tmul, g))
     tv_subgrad.launches += 1
     return g
 
@@ -484,10 +901,14 @@ tv_norms.launches = 0
 tv_subgrad.launches = 0
 
 
-def tv_norms_plain(x, tmul=None, *, cfg: TVConfig):
+def tv_norms_plain(x, tmul=None, *, cfg: TVConfig, halo_mode=False,
+                   table_dims=None):
     """Plain PyTorch version of :func:`tv_norms` (same signature and
     outputs), from the ported operators, in float32."""
-    D_x = D(x.float(), cfg.scheme, weight_time=tmul, **cfg.kwargs())
+    if halo_mode:
+        D_x = _d_ext(x.float(), 1, 1, tmul, cfg, table_dims)
+    else:
+        D_x = D(x.float(), cfg.scheme, weight_time=tmul, **cfg.kwargs())
     tv, norms = tv_norm(D_x, cfg.norm, return_array=True,
                         huber_delta=cfg.huber_delta)
     if cfg.norm == "iso":
@@ -495,9 +916,24 @@ def tv_norms_plain(x, tmul=None, *, cfg: TVConfig):
     return norms, tv.reshape(1)
 
 
-def tv_subgrad_plain(x, norms, tmul=None, *, cfg: TVConfig):
+def tv_subgrad_plain(x, norms, tmul=None, *, cfg: TVConfig, halo_mode=False,
+                     table_dims=None):
     """Plain PyTorch version of :func:`tv_subgrad`: computes in float32 and
     rounds G to x's dtype."""
+    if halo_mode:
+        # the channels on the shard and one plane around it (the 2-deep x
+        # is that block extended by one), their values y there, and the
+        # adjoint of the 1-deep extended y at the shard
+        D_x = _d_ext(x.float(), 1, 1, tmul, cfg, table_dims)
+        if cfg.norm == "aniso":
+            Y = torch.sign(D_x)
+        elif cfg.norm == "huber":
+            Y = D_x / torch.clamp_min(norms, cfg.huber_delta)[:, None]
+        else:
+            Y = D_x / norms[:, None]
+        G = _dt_ext(Y, 1, 1, tmul, cfg, table_dims,
+                    weighted=cfg.norm != "iso")
+        return G.to(x.dtype)
     kw = dict(weight_time=tmul, **cfg.kwargs())
     D_x = D(x.float(), cfg.scheme, **kw)
     if cfg.norm == "aniso":

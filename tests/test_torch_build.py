@@ -1,7 +1,9 @@
 """The kernel build's cache key: a library is rebuilt when its source, a
 header it includes from ``csrc/`` or the flags change (no nvcc needed)."""
 
+import ctypes
 import os
+import re
 
 from pytv4d_tpu_torch.kernels import build
 
@@ -25,9 +27,11 @@ def test_library_path_follows_included_headers(tmp_path):
 
 
 def test_repo_kernels_include_the_shared_header():
-    # one arithmetic: the per-launch kernels, the z-marching pass A and the
-    # whole-solve kernels all take their per-voxel bodies from voxel.cuh
-    for name in ("cp_fused", "tv_fused", "cp_zstream", "resident"):
+    # one arithmetic: the per-launch kernels, the z-marching pass A, the
+    # whole-solve kernels and the sharded step's boundary kernels all take
+    # their per-voxel bodies from voxel.cuh
+    for name in ("cp_fused", "tv_fused", "cp_zstream", "resident",
+                 "cp_boundary"):
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "voxel.cuh", "stencil.cuh"]
@@ -46,7 +50,7 @@ def test_every_library_has_its_entry_points_and_its_source():
 
     assert set(fused._ENTRY_POINTS) == {"cp_fused", "tv_fused", "tgv_stream",
                                         "tgv_resident", "cp_zstream",
-                                        "resident"}
+                                        "resident", "cp_boundary"}
     for name, (prefix, params, launches) in fused._ENTRY_POINTS.items():
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             text = f.read()
@@ -54,3 +58,35 @@ def test_every_library_has_its_entry_points_and_its_source():
         assert hasattr(params, "_fields_")
         for fn in launches:
             assert f"int {fn}(" in text
+
+
+def test_params_struct_mirrors_the_header():
+    """``kernels.fused._Params`` is ``struct Params`` of ``csrc/stencil.cuh``
+    field for field: the same names in the same order, 4-byte ints and
+    floats, arrays of MAX_CH.  The struct crosses to the kernels by value,
+    so a field that drifts would shift every one after it."""
+    from pytv4d_tpu_torch.kernels import fused
+
+    with open(os.path.join(build.CSRC, "stencil.cuh")) as f:
+        text = f.read()
+    max_ch = int(re.search(r"#define MAX_CH (\d+)", text).group(1))
+    assert max_ch == fused.MAX_CHANNELS
+    body = re.search(r"struct Params \{(.*?)\n\};", text, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    want = []
+    for ctype, decls in re.findall(r"\b(int|float)\s+([^;]+);", body):
+        for decl in decls.split(","):
+            name, array = re.fullmatch(r"\s*(\w+)\s*(\[MAX_CH\])?\s*",
+                                       decl).groups()
+            want.append((name, ctype, max_ch if array else 1))
+    got = []
+    for name, ftype in fused._Params._fields_:
+        n = getattr(ftype, "_length_", 1)
+        base = getattr(ftype, "_type_", ftype) if n > 1 else ftype
+        assert base in (ctypes.c_int, ctypes.c_float), name
+        assert ctypes.sizeof(base) == 4
+        got.append((name, "int" if base is ctypes.c_int else "float", n))
+    assert got == want
+    assert ctypes.sizeof(fused._Params) == 4 * sum(n for _, _, n in want)
+    assert [n for n, _, _ in want][-7:] == [
+        "sharded", "t_free", "xe", "ye", "ne", "z_first", "z_last"]

@@ -6,7 +6,9 @@ import numpy as np
 import pytest
 import torch
 
+import pytv4d_tpu_torch as ptt
 from pytv4d_tpu_torch import interop, tv_GPU
+from pytv4d_tpu_torch.core.schemes import SCHEMES
 from pytv4d_tpu_torch.core.config import TVConfig
 from pytv4d_tpu_torch.kernels.dispatch import t_plane_multiplier
 from pytv4d_tpu_torch.models import TVDenoiser, denoise_tv_chambolle
@@ -16,6 +18,7 @@ from pytv4d_tpu_torch.solvers import admm, chambolle_pock_precond, fista
 
 IMG = np.random.default_rng(0).random((12, 16)).astype(np.float32)
 VOL = np.random.default_rng(1).random((2, 2, 6, 8)).astype(np.float32)
+DVOL = np.random.default_rng(2).random((2, 3, 2, 6, 8)).astype(np.float32)
 MODEL = TVDenoiser(reg=0.3)
 
 # name -> (call taking a numpy input and keywords, its numpy input)
@@ -52,6 +55,20 @@ ENTRY_POINTS = {
     "api.tv_hybrid": (lambda a, **kw: api.tv_hybrid(a, **kw)[1], VOL),
     "api.D_hybrid": (lambda a, **kw: api.D_hybrid(a, **kw), VOL),
     "api.D": (lambda a, **kw: api.D(a, "upwind", **kw), VOL),
+    # the package root's names are ops.api's
+    "root.tv_and_subgrad": (lambda a, **kw: ptt.tv_and_subgrad(a, **kw)[1],
+                            VOL),
+    "root.D": (lambda a, **kw: ptt.D(a, "central", **kw), VOL),
+    "root.D_T": (lambda a, **kw: ptt.D_T(ptt.D(a, "hybrid", **kw), "hybrid",
+                                         **kw), VOL),
+    "root.compute_L21_norm": (
+        lambda a, **kw: ptt.compute_L21_norm(a, **kw), DVOL),
+    **{f"root.tv_{s}": (lambda a, s=s, **kw: getattr(ptt, f"tv_{s}")(
+        a, **kw)[1], VOL) for s in SCHEMES},
+    **{f"root.D_{s}": (lambda a, s=s, **kw: getattr(ptt, f"D_{s}")(a, **kw),
+                       VOL) for s in SCHEMES},
+    **{f"root.D_T_{s}": (lambda a, s=s, **kw: getattr(ptt, f"D_T_{s}")(
+        getattr(ptt, f"D_{s}")(a, **kw), **kw), VOL) for s in SCHEMES},
 }
 
 

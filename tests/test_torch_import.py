@@ -31,6 +31,8 @@ def test_import_leaves_jax_out():
             "pytv4d_tpu_torch.solvers.tgv, pytv4d_tpu_torch.solvers.inverse, "
             "pytv4d_tpu_torch.models.ct, pytv4d_tpu_torch.utils.device, "
             "pytv4d_tpu_torch.utils.profiling, "
+            "pytv4d_tpu_torch.parallel.mesh, pytv4d_tpu_torch.parallel.halo, "
+            "pytv4d_tpu_torch.parallel.fused_halo, "
             "pytv4d_tpu_torch.interop; print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.') or "
             "m.startswith('pytv4d_tpu.') or m == 'pytv4d_tpu'))")
@@ -38,6 +40,43 @@ def test_import_leaves_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+# the operator and TV entry points both package roots take from ops.api
+API_NAMES = ("D", "D_T", "compute_L21_norm", "tv_and_subgrad",
+             *(f"{base}_{scheme}" for base in ("D", "D_T", "tv")
+               for scheme in jsch.SCHEMES))
+
+
+@pytest.mark.parametrize("name", API_NAMES)
+def test_root_takes_its_entry_points_from_ops_api(name):
+    """As the JAX root does: the device-native entry points, which place a
+    numpy input on the device and dispatch the fused TV kernels."""
+    import pytv4d_tpu
+    import pytv4d_tpu.ops.api as japi
+    import pytv4d_tpu_torch
+    import pytv4d_tpu_torch.ops.api as tapi
+
+    assert len(API_NAMES) == 16
+    assert getattr(pytv4d_tpu, name) is getattr(japi, name)
+    assert getattr(pytv4d_tpu_torch, name) is getattr(tapi, name)
+
+
+def test_parallel_names_match_the_jax_package():
+    """What the JAX root re-exports of mesh, halo and fused_halo, the port's
+    ``parallel`` has (the sharding-spec helpers have no counterpart: there
+    is no partitioner to hand a sharding to)."""
+    import pytv4d_tpu.parallel as jpar
+    import pytv4d_tpu_torch
+    import pytv4d_tpu_torch.parallel as tpar
+
+    assert pytv4d_tpu_torch.parallel is tpar
+    for name in ("Z_AXIS", "T_AXIS", "make_mesh", "shard_volume", "sharded_D",
+                 "sharded_D_T", "sharded_tv_and_subgrad", "sharded_cp_step",
+                 "make_sharded_cp_solver", "make_sharded_cp_solver_fused",
+                 "make_sharded_gd_solver_fused"):
+        assert hasattr(jpar, name) and hasattr(tpar, name), name
+    assert (tpar.Z_AXIS, tpar.T_AXIS) == (jpar.Z_AXIS, jpar.T_AXIS)
 
 
 def _table(mod, scheme, Nz, M, rz, rt):
