@@ -7,13 +7,19 @@ B, B10 pass A marching along z, B8 the sharded step's two boundary
 kernels), the TV kernels (B3 norms, B4 subgradient),
 the whole-solve CP and GD kernels (B9) and the TGV-2 kernels (B6 passes PQ
 and XW, B7 whole solve)
-from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once.  Then, for
+from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once; B1 and
+B4 on an unsharded volume are the kernels specialised per channel table
+(``csrc/specialised.cu``, one source whose compile nvcc spreads over the
+cores).  Then, for
 the Chambolle-Pock path (phases 3-7): holds B1/B2 against
-their plain PyTorch versions, drives ``TVDenoiser.cp`` on the cameraman
+their plain PyTorch versions (B1 also bit for bit against the generic body,
+over every channel table, at odd widths and off alignment), drives
+``TVDenoiser.cp`` on the cameraman
 image through them, replays the (16, 4, 512, 512) reference trajectory,
 measures the 4D CP rate of kernels and plain versions, and runs the
 (96, 16, 512, 512) volume.  For the subgradient-descent path (phases 8-11):
-holds B3/B4 against their plain versions, drives ``TVDenoiser.gd`` on the
+holds B3/B4 against their plain versions (B4 also as B1 above), drives
+``TVDenoiser.gd`` on the
 cameraman image and the reference's ``tv_GPU.tv_hybrid`` through them,
 measures the 4D GD rate, the split of an iteration and the kernels' GB/s,
 and runs the (96, 16, 512, 512) volume.  For the TGV-2 path (phases 12-15):
@@ -91,6 +97,7 @@ from pytv4d_tpu_torch.kernels import (
     build,
     fused,
     resident,
+    tables,
     tgv_resident,
     tgv_stream,
     zstream,
@@ -155,7 +162,7 @@ README_TV = 532166.8251801673  # tv_hybrid(rand(20, 4, 100, 100)), seed 0
 # the CPU (tests/test_torch_tgv.py)
 CAMERAMAN_TGV_LOSS = 37211904.16116732
 LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "resident",
-        "cp_zstream", "cp_boundary")
+        "cp_zstream", "cp_boundary", "specialised")
 # each wrapper's launch counter, by kernel id
 COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
             "B3": fused.tv_norms, "B4": fused.tv_subgrad,
@@ -181,6 +188,16 @@ CT_CFG = dict(scheme="hybrid", reg_time=0.5)
 CONFIGS = {"base": {}, "time": dict(reg_time=0.5),
            "zt": dict(reg_time=0.7, reg_z_over_reg=0.3),
            "noz": dict(reg_z_over_reg=0.0)}
+# phases 3 and 8 add time without z, so that with the shapes below every
+# channel table of csrc/tables.cuh is launched; RAGGED's (Nz, M) give
+# central's FWD fallbacks in every combination with a CTR or FWD other axis,
+# and their odd rows end in a short run of the specialised pass A (which
+# takes two columns a thread); in phase 3 MISALIGNED's arrays start one
+# element past an aligned address, so that pass A reads element by element
+# at an even width too
+TABLE_CONFIGS = dict(CONFIGS, tonly=dict(reg_z_over_reg=0.0, reg_time=0.5))
+RAGGED = ((2, 2, 24, 71), (2, 3, 20, 39), (3, 2, 17, 31))
+MISALIGNED = (2, 2, 24, 64)
 STORAGE = {"f32": (torch.float32, torch.float32),
            "f32+bf16dual": (torch.float32, torch.bfloat16),
            "bf16+bf16dual": (torch.bfloat16, torch.bfloat16)}
@@ -304,7 +321,7 @@ def _state(shape, cfg, storage, gen, fidelity):
 
 def _cases():
     for scheme in SCHEMES:
-        for name, kw in CONFIGS.items():
+        for name, kw in TABLE_CONFIGS.items():
             yield f"{scheme}-{name}", TVConfig(scheme=scheme, **kw), {}, "f32"
     hyb = dict(scheme="hybrid", reg_time=0.5)
     for norm in ("aniso", "huber"):
@@ -348,12 +365,39 @@ def _compare(got, ref, bf16, scale, tol=F32_TOL):
     return float(err.max())
 
 
+def _one_shard(x, cfg, depth):
+    """x as the one shard of a 1 x 1 grid, extended by ``depth`` (1 or 2)
+    ghost planes per side in z and t, as the sharded solvers extend it
+    (parallel/fused_halo.py)."""
+    chans, _ = scheme_channels(cfg.scheme, x.shape[0], x.shape[1],
+                               cfg.reg_z_over_reg, cfg.reg_time)
+    ext = fused_halo._extend_axis if depth == 1 else fused_halo._extend_axis2
+    grid = [[x]]
+    for axis in (AXIS_Z, AXIS_T):
+        grid = ext(grid, axis, fused_halo._axis_ghost_kind(chans, axis))
+    return grid[0][0]
+
+
+def _shifted(t):
+    """A copy of t that starts one element past an aligned address."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return out.view(t.shape).copy_(t)
+
+
+def _bits_equal(a, b):
+    return a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
+        b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32))
+
+
 def phase_kernels():
     reg, sigma_D, sigma_A = 0.5, 0.5, 1.0
     errs = {"B1": {"f32": 0.0, "bf16": 0.0}, "B2": {"f32": 0.0, "bf16": 0.0}}
     n = 0
-    for shape in (SMALL, CAMERAMAN, MAIN_4D):
+    tids = set()
+    for shape in (SMALL, CAMERAMAN, MAIN_4D, *RAGGED, MISALIGNED):
         gen = torch.Generator(device=DEV).manual_seed(1234)
+        copy = _shifted if shape == MISALIGNED else torch.clone
         for name, cfg, opts, storage in _cases():
             opts = dict(opts)
             use_tmul = opts.pop("tmul", False)
@@ -361,8 +405,8 @@ def phase_kernels():
             fid_kw = dict(fidelity=opts.get("fidelity", "l2"),
                           fid_weight=opts.get("fid_weight", 1.0))
             tau = default_tau(cfg, shape[0], shape[1], sigma_A)
-            x, x0, y_A, y_D = _state(shape, cfg, STORAGE[storage], gen,
-                                     fid_kw["fidelity"])
+            x, x0, y_A, y_D = map(copy, _state(shape, cfg, STORAGE[storage],
+                                               gen, fid_kw["fidelity"]))
             tmul = None
             if use_tmul:
                 mask = torch.rand(shape[2:], generator=gen, device=DEV) < 0.5
@@ -376,13 +420,22 @@ def phase_kernels():
                 require((tmul is None) == (shape[1] == 1),
                         f"{name} {shape}: tmul built iff M > 1")
                 if tmul is not None:
-                    tmul = tmul.float().contiguous()
-            k = [t.clone() for t in (x, y_A, y_D)]
+                    tmul = copy(tmul.float().contiguous())
+            k = [copy(t) for t in (x, y_A, y_D)]
             p = [t.clone() for t in (x, y_A, y_D)]
+            g = [t.clone() for t in (y_A, y_D)]
             dual_kw = dict(cfg=cfg, sigma_D=sigma_D, sigma_A=sigma_A, reg=reg,
                            **fid_kw)
             prim_kw = dict(cfg=cfg, tau=tau, nonneg=nonneg, **fid_kw)
+            # the generic body (the HALO instance on a 1 x 1 grid) first
+            fused.cp_dual(_one_shard(x, cfg, 1), x0, g[0], g[1], tmul,
+                          halo_mode=True, table_dims=shape[:2], **dual_kw)
             _, _, tv_k = fused.cp_dual(k[0], x0, k[1], k[2], tmul, **dual_kw)
+            sync()
+            require(_bits_equal(k[1], g[0]) and _bits_equal(k[2], g[1]),
+                    f"{name} {shape}: specialised B1's y_A', y_D' equal the "
+                    f"generic body's bit for bit")
+            tids.add(tables.table_id(cfg, *shape[:2]))
             _, _, tv_p = fused.cp_dual_plain(p[0], x0, p[1], p[2], tmul,
                                              **dual_kw)
             _, fid_k = fused.cp_primal(k[0], x0, k[1], k[2], tmul, **prim_kw)
@@ -402,8 +455,12 @@ def phase_kernels():
             require(rel <= (1e-4 if bf16 else 1e-5),
                     f"{name} {shape}: loss rel err {rel:.3g}")
             n += 1
-    log(f"[3 kernels vs plain] {n} cases at {SMALL}, {CAMERAMAN} and "
-        f"{MAIN_4D}: pass; "
+    require(tids == set(range(len(tables.TABLES))),
+            f"every channel table launched, got {sorted(tids)}")
+    log(f"[3 kernels vs plain] {n} cases at {SMALL}, {CAMERAMAN}, "
+        f"{MAIN_4D}, {RAGGED} and {MISALIGNED} (arrays one element off "
+        f"alignment), all {len(tids)} channel tables: pass; "
+        f"specialised B1 bit-equal to the generic body in every case; "
         f"max abs err B1 f32 {errs['B1']['f32']:.3g} bf16 "
         f"{errs['B1']['bf16']:.3g}, B2 f32 {errs['B2']['f32']:.3g} bf16 "
         f"{errs['B2']['bf16']:.3g}")
@@ -594,9 +651,9 @@ def phase_north_star():
 # ---------------------------------------------------------------- phase 8
 def _gd_cases():
     """(name, cfg, tmul, storage): the case matrix of
-    tests/test_torch_gd_kernels.py."""
+    tests/test_torch_gd_kernels.py, and time without z."""
     for scheme in SCHEMES:
-        for name, kw in CONFIGS.items():
+        for name, kw in TABLE_CONFIGS.items():
             yield f"{scheme}-{name}", TVConfig(scheme=scheme, **kw), False, \
                 torch.float32
     for norm in ("aniso", "huber"):
@@ -630,7 +687,8 @@ def _gd_tmul(shape, cfg, gen):
 def phase_gd_kernels():
     errs = {"B3": {"f32": 0.0, "bf16": 0.0}, "B4": {"f32": 0.0, "bf16": 0.0}}
     n = 0
-    for shape in (SMALL, CAMERAMAN, MAIN_4D, CT_SMALL, CT_SHAPE):
+    tids = set()
+    for shape in (SMALL, CAMERAMAN, MAIN_4D, CT_SMALL, CT_SHAPE, *RAGGED):
         gen = torch.Generator(device=DEV).manual_seed(4321)
         for name, cfg, use_tmul, dtype in _gd_cases():
             if shape == CT_SHAPE and name != "hybrid-time":
@@ -641,7 +699,16 @@ def phase_gd_kernels():
             norms_p, parts_p = fused.tv_norms_plain(x, tmul, cfg=cfg)
             G_k = fused.tv_subgrad(x, norms_k, tmul, cfg=cfg)
             G_p = fused.tv_subgrad_plain(x, norms_p, tmul, cfg=cfg)
+            # the generic body: the HALO instance on a 1 x 1 grid
+            aniso = cfg.norm == "aniso"
+            G_g = fused.tv_subgrad(
+                _one_shard(x, cfg, 2),
+                None if aniso else fused_halo._extend_norms([[norms_k]])[0][0],
+                tmul, cfg=cfg, halo_mode=True, table_dims=shape[:2])
             sync()
+            require(_bits_equal(G_k, G_g), f"{name} {shape}: specialised "
+                    f"B4's G equals the generic body's bit for bit")
+            tids.add(tables.table_id(cfg, *shape[:2]))
             bf16 = dtype == torch.bfloat16
             kind = "bf16" if bf16 else "f32"
             inf_k, inf_p = torch.isinf(norms_k), torch.isinf(norms_p)
@@ -657,8 +724,12 @@ def phase_gd_kernels():
             rel = abs(tv_k - tv_p) / abs(tv_p)
             require(rel <= 1e-6, f"{name} {shape}: TV rel err {rel:.3g}")
             n += 1
+    require(tids == set(range(len(tables.TABLES))),
+            f"every channel table launched, got {sorted(tids)}")
     log(f"[8 GD kernels vs plain] {n} cases at {SMALL}, {CAMERAMAN}, "
-        f"{MAIN_4D}, {CT_SMALL} and (the CT path's config) {CT_SHAPE}: pass; "
+        f"{MAIN_4D}, {CT_SMALL}, (the CT path's config) {CT_SHAPE} and "
+        f"{RAGGED}, all {len(tids)} channel tables: pass; specialised B4 "
+        f"bit-equal to the generic body in every case; "
         f"max abs err B3 f32 {errs['B3']['f32']:.3g} "
         f"(bf16 x {errs['B3']['bf16']:.3g}), B4 f32 {errs['B4']['f32']:.3g} "
         f"bf16 {errs['B4']['bf16']:.3g}")
@@ -2593,7 +2664,7 @@ def main():
 
     stream_ms = tgv_ms[("4d", "f32")]
     kernels = [
-        entry("B1", "cp_dual_kernel (CP pass A)", "cp_fused.cu",
+        entry("B1", "cp_dual_spec_kernel (CP pass A)", "specialised.cu",
               "fused.py:652", launches["B1"], errs["B1"]["f32"],
               kernel_ms["B1"], errs["B1"]["bf16"]),
         entry("B2", "cp_primal_kernel (CP pass B)", "cp_fused.cu",
@@ -2602,7 +2673,7 @@ def main():
         entry("B3", "tv_norms_kernel (TV pass 1)", "tv_fused.cu",
               "fused.py:1353", gd_launches["B3"], gd_errs["B3"]["f32"],
               gd_ms["f32"]["B3"], gd_errs["B3"]["bf16"]),
-        entry("B4", "tv_subgrad_kernel (TV pass 2)", "tv_fused.cu",
+        entry("B4", "tv_subgrad_spec_kernel (TV pass 2)", "specialised.cu",
               "fused.py:1473", gd_launches["B4"], gd_errs["B4"]["f32"],
               gd_ms["f32"]["B4"], gd_errs["B4"]["bf16"]),
         entry("B5", "tv_dual_kernel (CP pass A, inverse problems)",

@@ -3,7 +3,11 @@
 // a plain C interface (ctypes).
 //
 // Replaces the Pallas TPU kernels of pytv4d_tpu/kernels/fused.py:
-//   cp_dual_kernel   <- make_cp_dual_kernel   (pass A, fused.py:652)
+//   cp_dual_kernel   <- make_cp_dual_kernel   (pass A, fused.py:652; its
+//                                              sharded modes: the unsharded
+//                                              pass A is specialised per
+//                                              channel table, in
+//                                              csrc/specialised.cu)
 //   tv_dual_kernel   <- make_tv_dual_kernel   (pass A without the fidelity
 //                                              dual, fused.py:759)
 //   cp_primal_kernel <- make_cp_primal_kernel (pass B, fused.py:859)
@@ -53,7 +57,8 @@
 // ghost planes reproduce the zero-slot boundary), and a launch may compute
 // only planes z_first..z_last, leaving the others and their partials as they
 // are (the edge planes are csrc/cp_boundary.cu's).  Without the flag the
-// instantiations are the ones above, unchanged.
+// instantiations are the ones above, unchanged, but for pass A, which then
+// runs csrc/specialised.cu's kernel instead.
 
 #include "voxel.cuh"
 
@@ -121,19 +126,16 @@ cp_primal_kernel(const Params p, const TX* x, const TX* x0,
     parts[(int64_t)zt * gridDim.x + blockIdx.x] = p.fid_scale * s;
 }
 
+// Sharded modes only (the unsharded pass A is csrc/specialised.cu's).
 template <typename TX, typename TD>
 static int launch_dual(const Params* p, const void* x, const void* x0,
                        void* yA, void* yD, const void* tmul, void* parts,
                        cudaStream_t stream) {
-  if (p->sharded)
-    cp_dual_kernel<TX, TD, true>
-        <<<plane_grid(p, p->z_last - p->z_first + 1), BLOCK, 0, stream>>>(
-            *p, (const TX*)x, (const TX*)x0, (TX*)yA, (TD*)yD,
-            (const float*)tmul, (float*)parts);
-  else
-    cp_dual_kernel<TX, TD, false><<<plane_grid(p), BLOCK, 0, stream>>>(
-        *p, (const TX*)x, (const TX*)x0, (TX*)yA, (TD*)yD, (const float*)tmul,
-        (float*)parts);
+  if (!p->sharded) return (int)cudaErrorInvalidValue;
+  cp_dual_kernel<TX, TD, true>
+      <<<plane_grid(p, p->z_last - p->z_first + 1), BLOCK, 0, stream>>>(
+          *p, (const TX*)x, (const TX*)x0, (TX*)yA, (TD*)yD,
+          (const float*)tmul, (float*)parts);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,499 @@
+// CP pass A (B1) and TV pass 2 (B4) on an unsharded volume, specialised for
+// one channel table of csrc/tables.cuh, for NVIDIA Hopper (sm_90a).
+//
+// Replace, for the unsharded launches, the Pallas TPU kernels of
+// pytv4d_tpu/kernels/fused.py:
+//   cp_dual_spec_kernel    <- make_cp_dual_kernel    (pass A, fused.py:652)
+//   tv_subgrad_spec_kernel <- make_tv_subgrad_kernel (pass 2, fused.py:1473)
+// The sharded modes keep the generic instantiations of csrc/cp_fused.cu and
+// csrc/tv_fused.cu, which run voxel.cuh's bodies with a runtime table.
+//
+// What bounds them: the generic bodies spent their time on per-channel
+// work, not bytes (a runtime switch on each channel's axis and kind, 64-bit
+// stride products, loads repeated per channel).  Here:
+//   - the table is a template argument: the channel loops unroll at compile
+//     time, with no runtime axis or kind;
+//   - an offset within a plane is 32-bit (Offset: a plane holds < 2^31
+//     voxels, kernels/fused.py::fits_kernel), the stride from one plane
+//     to another 64-bit, so any volume the card holds is indexed with
+//     32-bit index arithmetic per load (tools/torch_probe_spec.py times a
+//     variant with 64-bit offsets);
+//   - pass A takes VEC = 2 consecutive columns per thread: one 8-byte (f32)
+//     or 4-byte (bf16) access per array and per dual channel, half the
+//     index arithmetic per voxel.  Four columns (16-byte accesses) held up
+//     to 108 registers for the hybrid 4D table and ran slower on an H100
+//     (tools/torch_probe_spec.py builds that variant);
+//   - pass 2 loads each value of x and of the norms it needs once: the row
+//     and column neighbours from a shared tile of the block's TILE_R x
+//     TILE_C pixels with a halo (+-1, +-2 for central), the z and t ones
+//     from global memory, and forms each axis's differences once; a thread
+//     takes RPT = 2 rows, whose z and t loads it issues before the tile's
+//     barrier.
+//
+// The arithmetic is the generic bodies' operation for operation and in the
+// same order (voxel.cuh: weighted_d and tv_dual_prox for pass A, chan_y and
+// tv_subgrad_voxel for pass 2; -fmad=false), so y_A', y_D' and G equal theirs
+// to the bit.  Pass A's TV partials are one per block of BLOCK x VEC voxels
+// (block_sum, no atomics): the loss moves only by the order of a sum.
+//
+// Bound to Python through the plain C interface at the end (ctypes,
+// kernels/fused.py::_spec_launch); nvcc compiles the kernels of this one
+// source in parallel (-split-compile, kernels/build.py).
+
+#include "tables.cuh"
+#include "voxel.cuh"
+
+typedef int Offset;                // from a plane's base pointer
+constexpr int VEC = 2;             // pass A: columns per thread
+constexpr int TILE_C = 32;         // pass 2: a block's tile of its plane is
+constexpr int TILE_T = BLOCK / TILE_C;  // TILE_C columns by TILE_R rows,
+constexpr int RPT = 2;             // each thread taking RPT of them
+constexpr int TILE_R = TILE_T * RPT;
+
+// ------------------------------------------------- runs of VEC elements
+// One access of VEC = 2 elements: 8 bytes of f32, 4 of bf16 (bf16 is the
+// high half of a float: widening is a shift, as in __bfloat162float).
+__device__ __forceinline__ void ld_vec(const float* p, float (&v)[VEC]) {
+  const float2 a = *reinterpret_cast<const float2*>(p);
+  v[0] = a.x;
+  v[1] = a.y;
+}
+__device__ __forceinline__ void ld_vec(const __nv_bfloat16* p,
+                                       float (&v)[VEC]) {
+  const unsigned a = *reinterpret_cast<const unsigned*>(p);
+  v[0] = __uint_as_float(a << 16);
+  v[1] = __uint_as_float(a & 0xffff0000u);
+}
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[VEC]) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void st_vec(__nv_bfloat16* p,
+                                       const float (&v)[VEC]) {
+  *reinterpret_cast<unsigned*>(p) = bf16_bits(v[0]) | bf16_bits(v[1]) << 16;
+}
+
+// The n <= VEC elements from p: one vector access where `vec` (every run
+// the launch touches is whole and aligned), else one element at a time,
+// zeros past n.
+template <typename T>
+__device__ __forceinline__ void load_run(const T* p, bool vec, int n,
+                                         float (&v)[VEC]) {
+  if (vec) {
+    ld_vec(p, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) v[j] = j < n ? ld(p, j) : 0.f;
+}
+template <typename T>
+__device__ __forceinline__ void store_run(T* p, bool vec, int n,
+                                          const float (&v)[VEC]) {
+  if (vec) {
+    st_vec(p, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    if (j < n) st(p, j, v[j]);
+}
+// A neighbour run: loaded where it lies in the volume (`ok`), else zeros.
+template <typename T>
+__device__ __forceinline__ void load_nb(const T* p, bool ok, bool vec, int n,
+                                        float (&v)[VEC]) {
+  if (ok) {
+    load_run(p, vec, n, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) v[j] = 0.f;
+}
+
+// ------------------------------------------------------- pass A (B1)
+// Thread k of plane zt (blockIdx.y) takes the run of VEC columns from
+// c0 = VEC (k mod cpr) of row r = k / cpr, cpr = ceil(Nc / VEC) runs per row;
+// a row's last run may be short (n < VEC) when VEC does not divide Nc.
+// `vec`: Nc is a multiple of VEC and every array is VEC-aligned.
+template <Table T, typename TX, typename TD>
+__global__ void __launch_bounds__(BLOCK)
+cp_dual_spec_kernel(const Params p, const TX* __restrict__ x,
+                    const TX* __restrict__ x0, TX* __restrict__ yA,
+                    TD* __restrict__ yD, const float* __restrict__ tmul,
+                    float* __restrict__ parts, int vec) {
+  constexpr int ND = tab_nd(T);
+  const int cpr = (p.Nc + VEC - 1) / VEC;
+  const int k = blockIdx.x * BLOCK + threadIdx.x;
+  const int zt = blockIdx.y;
+  float part = 0.f;
+  if (k < p.Nr * cpr) {
+    const int r = k / cpr;
+    const int c0 = (k - r * cpr) * VEC;
+    const int n = min(VEC, p.Nc - c0);
+    const int z = zt / p.M, t = zt - z * p.M;
+    const int64_t plane = (int64_t)p.Nr * p.Nc, base = zt * plane;
+    const Offset q = (Offset)r * p.Nc + c0;
+    const TX* xq = x + base + q;
+    TX* yAq = yA + base + q;
+    TD* yq = yD + base * ND + q;
+
+    float xc[VEC];
+    load_run(xq, vec, n, xc);
+    // the runs at -1 and +1 along z, t and the rows, where a channel reads
+    // them (zeros elsewhere); along the columns, the values either side
+    int pos[4] = {z, t, r, c0}, len[4] = {p.Nz, p.M, p.Nr, p.Nc};
+    float xm[4][VEC] = {}, xp[4][VEC] = {};
+#pragma unroll
+    for (int a = AX_Z; a <= AX_ROW; ++a) {
+      const int64_t s = a == AX_Z ? p.M * plane : (a == AX_T ? plane : p.Nc);
+      const bool lo = tab_has(T, a, K_BWD) || tab_has(T, a, K_CTR);
+      const bool hi = tab_has(T, a, K_FWD) || tab_has(T, a, K_CTR);
+      load_nb(xq - s, lo && pos[a] > 0, vec, n, xm[a]);
+      load_nb(xq + s, hi && pos[a] < len[a] - 1, vec, n, xp[a]);
+    }
+    const float xl = c0 > 0 ? ld(xq, -1) : 0.f;
+    const float xr = c0 + VEC < p.Nc ? ld(xq, VEC) : 0.f;
+    float tm[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) tm[j] = 1.f;
+    if (tab_has(T, AX_T) && p.has_tmul) load_run(tmul + q, vec, n, tm);
+
+    // weighted_d, channel by channel
+    float d[ND][VEC];
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      const int a = tab_axis(T, i), kd = tab_kind(T, i);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const bool col = a == AX_COL;
+        const int ps = col ? c0 + j : pos[a], ln = len[a];
+        const float lo = col ? (j > 0 ? xc[j - 1] : xl) : xm[a][j];
+        const float hi = col ? (j < VEC - 1 ? xc[j + 1] : xr) : xp[a][j];
+        float v;
+        if (kd == K_FWD)
+          v = ps < ln - 1 ? hi - xc[j] : 0.f;
+        else if (kd == K_BWD)
+          v = ps > 0 ? xc[j] - lo : 0.f;
+        else
+          v = (ps > 0 && ps < ln - 1) ? hi - lo : 0.f;
+        if (a == AX_T) v = v * tm[j];
+        d[i][j] = v * p.w[i];
+      }
+    }
+
+    // fid_dual
+    float ya[VEC], xo[VEC];
+    load_run(yAq, vec, n, ya);
+    load_run(x0 + base + q, vec, n, xo);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) ya[j] = fid_dual(p, ya[j], xc[j], xo[j]);
+    store_run(yAq, vec, n, ya);
+
+    // tv_dual_prox, voxel by voxel
+    float y[ND][VEC];
+#pragma unroll
+    for (int i = 0; i < ND; ++i) load_run(yq + i * plane, vec, n, y[i]);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      float pj = 0.f;
+      if (p.norm == N_ANISO) {
+#pragma unroll
+        for (int i = 0; i < ND; ++i) {
+          pj += fabsf(d[i][j]);
+          const float pv = y[i][j] + p.sigma_D * d[i][j];
+          y[i][j] = fminf(fmaxf(pv, -p.reg), p.reg);
+        }
+      } else {
+        float nsq = 0.f;
+#pragma unroll
+        for (int i = 0; i < ND; ++i) nsq += d[i][j] * d[i][j];
+        const float nn = sqrtf(nsq);
+        if (p.norm == N_HUBER)
+          pj = nn <= p.huber_delta ? (nn * nn) / (2.f * p.huber_delta)
+                                   : nn - p.huber_delta / 2.f;
+        else
+          pj = nn;
+        float psq = 0.f;
+#pragma unroll
+        for (int i = 0; i < ND; ++i) {
+          float pv = y[i][j] + p.sigma_D * d[i][j];
+          if (p.norm == N_HUBER) pv = pv / p.huber_den;
+          psq += pv * pv;
+          y[i][j] = pv;
+        }
+        const float den = fmaxf(sqrtf(psq) / p.reg, 1.f);
+#pragma unroll
+        for (int i = 0; i < ND; ++i) y[i][j] = y[i][j] / den;
+      }
+      if (j < n) part += pj;
+    }
+#pragma unroll
+    for (int i = 0; i < ND; ++i) store_run(yq + i * plane, vec, n, y[i]);
+  }
+  const float s = block_sum(part);
+  if (threadIdx.x == 0) parts[(int64_t)zt * gridDim.x + blockIdx.x] = s;
+}
+
+// ------------------------------------------------------- pass 2 (B4)
+// chan_y from the slot's difference dv and divisor n.
+__device__ __forceinline__ float spec_y(const Params& p, bool t_axis, int i,
+                                        float dv, float n, float tm) {
+  if (t_axis) dv = dv * tm;
+  dv = dv * p.w[i];
+  if (p.norm == N_ANISO) return dv > 0.f ? 1.f : (dv < 0.f ? -1.f : 0.f);
+  return dv / (p.norm == N_HUBER ? fmaxf(n, p.huber_delta) : n);
+}
+
+// tv_subgrad_voxel at one voxel, from what the kernel gathered around it:
+// per axis its position and length, x at slots -2..2 (xc at 0) and the
+// norms at -1 and +1 (nc at 0); zeros where a channel's gates never read.
+template <Table T>
+__device__ __forceinline__ float subgrad_at(
+    const Params& p, const int (&pos)[4], const int (&len)[4], float xc,
+    float nc, const float (&xm2)[4], const float (&xm1)[4],
+    const float (&xp1)[4], const float (&xp2)[4], const float (&nm1)[4],
+    const float (&np1)[4], float tm) {
+  // each axis's differences, once: x[q] - x[q-s] is FWD's at slot q-s and
+  // BWD's at q, x[q+s] - x[q] FWD's at q and BWD's at q+s; CTR's at q-s and
+  // q+s are x[q] - x[q-2s] and x[q+2s] - x[q]
+  float dm[4], dp[4], dm2[4], dp2[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    dm[a] = xc - xm1[a];
+    dp[a] = xp1[a] - xc;
+    dm2[a] = xc - xm2[a];
+    dp2[a] = xp2[a] - xc;
+  }
+  const bool iso = p.norm == N_ISO;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < tab_nd(T); ++i) {
+    const int a = tab_axis(T, i), kd = tab_kind(T, i);
+    const bool ta = a == AX_T;
+    const int ps = pos[a], ln = len[a];
+    float lo, hi;
+    if (kd == K_FWD) {         // slots [0, L-2]
+      lo = ps >= 1 ? spec_y(p, ta, i, dm[a], nm1[a], tm) : 0.f;
+      hi = ps <= ln - 2 ? spec_y(p, ta, i, dp[a], nc, tm) : 0.f;
+    } else if (kd == K_BWD) {  // slots [1, L-1]
+      lo = ps >= 1 ? spec_y(p, ta, i, dm[a], nc, tm) : 0.f;
+      hi = ps <= ln - 2 ? spec_y(p, ta, i, dp[a], np1[a], tm) : 0.f;
+    } else {                   // slots [1, L-2]
+      lo = ps >= 2 ? spec_y(p, ta, i, dm2[a], nm1[a], tm) : 0.f;
+      hi = ps <= ln - 3 ? spec_y(p, ta, i, dp2[a], np1[a], tm) : 0.f;
+    }
+    float w = lo - hi;
+    if (!iso) {  // aniso / huber re-apply the full weight, like D^T
+      w = w * p.w[i];
+      if (ta) w = w * tm;
+    }
+    acc += w;
+  }
+  // iso: the y values carry one normalisation inside w, this is the second
+  return iso ? acc * p.scheme_norm : acc;
+}
+
+// The block's tile of plane zt (blockIdx.y) is TILE_C columns by TILE_R =
+// TILE_T x RPT rows; the tiles of a plane run along blockIdx.x, row-major.
+// Thread (tx, ty) takes the RPT voxels of column tx at rows ty + k TILE_T.
+// Their z and t neighbours are loaded before the tile's barrier, so that
+// the two sets of loads are in flight together.
+template <Table T, typename TX>
+__global__ void __launch_bounds__(BLOCK)
+tv_subgrad_spec_kernel(const Params p, const TX* __restrict__ x,
+                       const float* __restrict__ norms,
+                       const float* __restrict__ tmul, TX* __restrict__ g) {
+  // x out to +-2 along rows and columns for central, else +-1; norms +-1
+  constexpr int H = tab_has(T, AX_ROW, K_CTR) || tab_has(T, AX_COL, K_CTR)
+                        ? 2 : 1;
+  constexpr int XR = TILE_R + 2 * H, XC = TILE_C + 2 * H;
+  constexpr int NR = TILE_R + 2, NC = TILE_C + 2;
+  __shared__ float xs[XR][XC];
+  __shared__ float ns[NR][NC];
+  const int tiles_c = (p.Nc + TILE_C - 1) / TILE_C;
+  const int tr = blockIdx.x / tiles_c;
+  const int r0 = tr * TILE_R, c0 = (blockIdx.x - tr * tiles_c) * TILE_C;
+  const int zt = blockIdx.y;
+  const int z = zt / p.M, t = zt - z * p.M;
+  const int ty = threadIdx.x / TILE_C, tx = threadIdx.x % TILE_C;
+  const int c = c0 + tx;
+  const bool aniso = p.norm == N_ANISO;
+  // this plane's base, and the strides to its z and t neighbours' (64-bit)
+  const int64_t plane = (int64_t)p.Nr * p.Nc, base = zt * plane;
+  const TX* xb = x + base;
+  const float* nb = aniso ? nullptr : norms + base;
+
+  // z and t: x at slots -2..2 and the norms at -1, +1 of each voxel
+  float xm2[RPT][4] = {}, xm1[RPT][4] = {}, xp1[RPT][4] = {};
+  float xp2[RPT][4] = {}, nm1[RPT][4] = {}, np1[RPT][4] = {};
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int r = r0 + ty + k * TILE_T;
+    if (r >= p.Nr || c >= p.Nc) continue;
+    const Offset q = (Offset)r * p.Nc + c;
+#pragma unroll
+    for (int a = AX_Z; a <= AX_T; ++a) {
+      const int64_t s = a == AX_Z ? p.M * plane : plane;
+      const bool fb = tab_has(T, a, K_FWD) || tab_has(T, a, K_BWD);
+      const bool ctr = tab_has(T, a, K_CTR);
+      const int ps = a == AX_Z ? z : t, ln = a == AX_Z ? p.Nz : p.M;
+      if (fb && ps >= 1) xm1[k][a] = ld(xb - s, q);
+      if (fb && ps <= ln - 2) xp1[k][a] = ld(xb + s, q);
+      if (ctr && ps >= 2) xm2[k][a] = ld(xb - 2 * s, q);
+      if (ctr && ps <= ln - 3) xp2[k][a] = ld(xb + 2 * s, q);
+      if (!aniso && (tab_has(T, a, K_FWD) || ctr) && ps >= 1)
+        nm1[k][a] = (nb - s)[q];
+      if (!aniso && (tab_has(T, a, K_BWD) || ctr) && ps <= ln - 2)
+        np1[k][a] = (nb + s)[q];
+    }
+  }
+  // rows and columns: the tile and its halo (zeros outside the plane)
+  for (int e = threadIdx.x; e < XR * XC; e += BLOCK) {
+    const int rr = r0 - H + e / XC, cc = c0 - H + e % XC;
+    xs[e / XC][e % XC] = rr >= 0 && rr < p.Nr && cc >= 0 && cc < p.Nc
+                             ? ld(xb, (Offset)rr * p.Nc + cc) : 0.f;
+  }
+  if (!aniso)
+    for (int e = threadIdx.x; e < NR * NC; e += BLOCK) {
+      const int rr = r0 - 1 + e / NC, cc = c0 - 1 + e % NC;
+      ns[e / NC][e % NC] = rr >= 0 && rr < p.Nr && cc >= 0 && cc < p.Nc
+                               ? nb[(Offset)rr * p.Nc + cc] : 0.f;
+    }
+  __syncthreads();
+
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int ry = ty + k * TILE_T, r = r0 + ry;  // ry: the row in the tile
+    if (r >= p.Nr || c >= p.Nc) continue;
+    const Offset q = (Offset)r * p.Nc + c;
+    const int pos[4] = {z, t, r, c}, len[4] = {p.Nz, p.M, p.Nr, p.Nc};
+    xm1[k][AX_ROW] = xs[ry + H - 1][tx + H];
+    xp1[k][AX_ROW] = xs[ry + H + 1][tx + H];
+    xm1[k][AX_COL] = xs[ry + H][tx + H - 1];
+    xp1[k][AX_COL] = xs[ry + H][tx + H + 1];
+    if constexpr (H == 2) {
+      xm2[k][AX_ROW] = xs[ry][tx + H];
+      xp2[k][AX_ROW] = xs[ry + 4][tx + H];
+      xm2[k][AX_COL] = xs[ry + H][tx];
+      xp2[k][AX_COL] = xs[ry + H][tx + 4];
+    }
+    if (!aniso) {
+      nm1[k][AX_ROW] = ns[ry][tx + 1];
+      np1[k][AX_ROW] = ns[ry + 2][tx + 1];
+      nm1[k][AX_COL] = ns[ry + 1][tx];
+      np1[k][AX_COL] = ns[ry + 1][tx + 2];
+    }
+    st(g + base, q, subgrad_at<T>(p, pos, len, xs[ry + H][tx + H],
+                                  aniso ? 0.f : ns[ry + 1][tx + 1], xm2[k],
+                                  xm1[k], xp1[k], xp2[k], nm1[k], np1[k],
+                                  p.has_tmul ? tmul[q] : 1.f));
+  }
+}
+
+// ------------------------------------------------------------- launches
+static inline bool aligned(const void* ptr, size_t bytes) {
+  return (uintptr_t)ptr % bytes == 0;
+}
+
+template <Table T, typename TX, typename TD>
+static int cp_dual_spec_launch(const Params* p, const void* x, const void* x0,
+                               void* yA, void* yD, const void* tmul,
+                               void* parts, cudaStream_t stream) {
+  const long long runs = (long long)p->Nr * ((p->Nc + VEC - 1) / VEC);
+  const dim3 grid((unsigned)((runs + BLOCK - 1) / BLOCK),
+                  (unsigned)(p->Nz * p->M));
+  const int vec = p->Nc % VEC == 0 && aligned(x, VEC * sizeof(TX)) &&
+                  aligned(x0, VEC * sizeof(TX)) &&
+                  aligned(yA, VEC * sizeof(TX)) &&
+                  aligned(yD, VEC * sizeof(TD)) &&
+                  (!p->has_tmul || aligned(tmul, VEC * sizeof(float)));
+  cp_dual_spec_kernel<T, TX, TD><<<grid, BLOCK, 0, stream>>>(
+      *p, (const TX*)x, (const TX*)x0, (TX*)yA, (TD*)yD, (const float*)tmul,
+      (float*)parts, vec);
+  return (int)cudaGetLastError();
+}
+
+template <Table T>
+static int cp_dual_spec_table(const Params* p, int x_bf16, int d_bf16,
+                              const void* x, const void* x0, void* yA,
+                              void* yD, const void* tmul, void* parts,
+                              cudaStream_t s) {
+  typedef __nv_bfloat16 B;
+  if (!x_bf16 && !d_bf16)
+    return cp_dual_spec_launch<T, float, float>(p, x, x0, yA, yD, tmul, parts,
+                                                s);
+  if (!x_bf16)
+    return cp_dual_spec_launch<T, float, B>(p, x, x0, yA, yD, tmul, parts, s);
+  if (!d_bf16)
+    return cp_dual_spec_launch<T, B, float>(p, x, x0, yA, yD, tmul, parts, s);
+  return cp_dual_spec_launch<T, B, B>(p, x, x0, yA, yD, tmul, parts, s);
+}
+
+template <Table T, typename TX>
+static int tv_subgrad_spec_launch(const Params* p, const void* x,
+                                  const void* norms, const void* tmul,
+                                  void* g, cudaStream_t s) {
+  const int tiles = ((p->Nc + TILE_C - 1) / TILE_C) *
+                    ((p->Nr + TILE_R - 1) / TILE_R);
+  const dim3 grid((unsigned)tiles, (unsigned)(p->Nz * p->M));
+  tv_subgrad_spec_kernel<T, TX><<<grid, BLOCK, 0, s>>>(
+      *p, (const TX*)x, (const float*)norms, (const float*)tmul, (TX*)g);
+  return (int)cudaGetLastError();
+}
+
+template <Table T>
+static int tv_subgrad_spec_table(const Params* p, int x_bf16, const void* x,
+                                 const void* norms, const void* tmul, void* g,
+                                 cudaStream_t s) {
+  if (x_bf16)
+    return tv_subgrad_spec_launch<T, __nv_bfloat16>(p, x, norms, tmul, g, s);
+  return tv_subgrad_spec_launch<T, float>(p, x, norms, tmul, g, s);
+}
+
+extern "C" {
+
+// Number of TV partials pass A writes for an (Nz, M, Nr, Nc) volume: one per
+// block of BLOCK runs of VEC columns.
+long long spec_num_parts(int Nz, int M, int Nr, int Nc) {
+  const long long runs = (long long)Nr * ((Nc + VEC - 1) / VEC);
+  return (runs + BLOCK - 1) / BLOCK * Nz * M;
+}
+
+// Both launch table `id` of csrc/tables.cuh and return cudaGetLastError()
+// after the launch (0 = cudaSuccess), or cudaErrorInvalidValue for an id
+// outside the list.
+int spec_cp_dual_launch(const Params* p, int id, int x_bf16, int d_bf16,
+                        const void* x, const void* x0, void* yA, void* yD,
+                        const void* tmul, void* parts, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (id) {
+#define SPEC_CASE(id, code)                                                 \
+  case id:                                                                  \
+    return cp_dual_spec_table<code>(p, x_bf16, d_bf16, x, x0, yA, yD, tmul, \
+                                    parts, s);
+    CHANNEL_TABLES(SPEC_CASE)
+#undef SPEC_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int spec_tv_subgrad_launch(const Params* p, int id, int x_bf16,
+                           const void* x, const void* norms, const void* tmul,
+                           void* g, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (id) {
+#define SPEC_CASE(id, code)                                                 \
+  case id:                                                                  \
+    return tv_subgrad_spec_table<code>(p, x_bf16, x, norms, tmul, g, s);
+    CHANNEL_TABLES(SPEC_CASE)
+#undef SPEC_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* spec_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

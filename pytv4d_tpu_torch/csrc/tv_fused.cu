@@ -4,7 +4,11 @@
 //
 // Replaces the Pallas TPU kernels of pytv4d_tpu/kernels/fused.py:
 //   tv_norms_kernel   <- make_tv_norms_kernel   (pass 1, fused.py:1353)
-//   tv_subgrad_kernel <- make_tv_subgrad_kernel (pass 2, fused.py:1473)
+//   tv_subgrad_kernel <- make_tv_subgrad_kernel (pass 2, fused.py:1473; its
+//                                                halo mode: the unsharded
+//                                                pass 2 is specialised per
+//                                                channel table, in
+//                                                csrc/specialised.cu)
 // The contract is tv_and_subgrad_fused (fused.py:1715), which equals
 // ops/tv.py::tv_and_subgrad:
 //   iso   n = |D x|_2 per voxel (+inf where 0), TV = sum n,
@@ -86,15 +90,13 @@ static int launch_norms(const Params* p, const void* x, const void* tmul,
   return (int)cudaGetLastError();
 }
 
+// The halo mode only (the unsharded pass 2 is csrc/specialised.cu's).
 template <typename TX>
 static int launch_subgrad(const Params* p, const void* x, const void* norms,
                           const void* tmul, void* g, cudaStream_t stream) {
-  if (p->sharded)
-    tv_subgrad_kernel<TX, true><<<plane_grid(p), BLOCK, 0, stream>>>(
-        *p, (const TX*)x, (const float*)norms, (const float*)tmul, (TX*)g);
-  else
-    tv_subgrad_kernel<TX, false><<<plane_grid(p), BLOCK, 0, stream>>>(
-        *p, (const TX*)x, (const float*)norms, (const float*)tmul, (TX*)g);
+  if (!p->sharded) return (int)cudaErrorInvalidValue;
+  tv_subgrad_kernel<TX, true><<<plane_grid(p), BLOCK, 0, stream>>>(
+      *p, (const TX*)x, (const float*)norms, (const float*)tmul, (TX*)g);
   return (int)cudaGetLastError();
 }
 

@@ -30,6 +30,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# and per source: the specialised kernels' one source instantiates a kernel
+# per channel table and storage, which nvcc compiles on every core
+SOURCE_FLAGS = {"specialised": ("-split-compile", "0")}
+
+
+def nvcc_flags(name: str) -> tuple:
+    """The flags ``csrc/<name>.cu`` is compiled with."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
 class BuildError(RuntimeError):
@@ -73,12 +81,12 @@ def _sources(source: str) -> list:
 
 
 def _library_path(source: str) -> str:
+    stem = os.path.splitext(os.path.basename(source))[0]
     digest = hashlib.sha256()
     for path in _sources(source):
         with open(path, "rb") as f:
             digest.update(f.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    stem = os.path.splitext(os.path.basename(source))[0]
+    digest.update(" ".join(nvcc_flags(stem)).encode())
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
@@ -97,7 +105,7 @@ def build(name: str) -> tuple:
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, source],
+        proc = subprocess.run([nvcc, *nvcc_flags(name), "-o", tmp, source],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise BuildError(f"nvcc failed on {source} "

@@ -4,10 +4,11 @@ their plain versions.
 
 One CP iteration is two passes over the volume:
 
-- pass A, :func:`cp_dual` (kernel ``cp_dual_kernel`` in ``csrc/cp_fused.cu``;
-  replaces ``pytv4d_tpu/kernels/fused.py::make_cp_dual_kernel``): fidelity
-  dual prox, every weighted D channel of the scheme table, the TV dual prox
-  (iso ball, aniso box, Huber shrink + ball) and one TV partial of D x per
+- pass A, :func:`cp_dual` (kernel ``cp_dual_spec_kernel`` in
+  ``csrc/specialised.cu``; replaces
+  ``pytv4d_tpu/kernels/fused.py::make_cp_dual_kernel``): fidelity dual
+  prox, every weighted D channel of the scheme table, the TV dual prox (iso
+  ball, aniso box, Huber shrink + ball) and one TV partial of D x per
   block.  Writes y_A and y_D in place.
 - pass B, :func:`cp_primal` (kernel ``cp_primal_kernel``; replaces
   ``make_cp_primal_kernel``): ``x' = x - tau y_A' - tau D^T y_D'``, the
@@ -42,14 +43,21 @@ subgradient-descent step's operator) is two more passes, in
   ``make_tv_norms_kernel``): per-voxel gradient norms (float32; +inf at zero
   for iso, the |D x| sum for aniso, the raw magnitude for huber) and one TV
   partial per block, from x alone.
-- pass 2, :func:`tv_subgrad` (kernel ``tv_subgrad_kernel``; replaces
-  ``make_tv_subgrad_kernel``): G from x and the norms, recomputing the D
-  channels at each voxel and its neighbours, stored in x's dtype.  No
-  Nd-channel volume is written.
+- pass 2, :func:`tv_subgrad` (kernel ``tv_subgrad_spec_kernel`` in
+  ``csrc/specialised.cu``; replaces ``make_tv_subgrad_kernel``): G from x
+  and the norms, recomputing the D channels at each voxel and its
+  neighbours, stored in x's dtype.  No Nd-channel volume is written.
+
+On an unsharded volume, passes A and 2 launch kernels specialised for the
+scheme's channel table (``kernels.tables``: the table id picks the
+template instance); a table
+outside the compiled list raises.
 
 On one shard of a (z, t)-sharded solve (``parallel.fused_halo``) the four
-take the TPU kernels' modes.  ``halo_mode``: x (pass B: a copy of the dual,
-pass 2: the norms too) arrives extended by a plane per side in z and t (two
+take the TPU kernels' modes, in the generic kernels of ``csrc/cp_fused.cu``
+(``cp_dual_kernel``) and ``csrc/tv_fused.cu`` (``tv_subgrad_kernel``).
+``halo_mode``: x (pass B: a copy of the dual, pass 2: the norms too)
+arrives extended by a plane per side in z and t (two
 for pass 2's x) that holds the neighbour shard's edge or, at the volume's
 edge, a ghost plane chosen so that every difference across it is zero; the z
 and t gates are off and ``table_dims`` gives the whole volume's ``(Nz, M)``
@@ -83,6 +91,7 @@ from ..core.schemes import BWD, CTR, FWD, channel_weight, scheme_channels
 from ..ops.operators import D, D_T, _sl, d_channel, dt_channel, tv_norm
 from ..ops.tv import _subgrad_from_D
 from ..solvers.fidelity import fidelity_dual_prox, fidelity_loss
+from . import tables
 
 MAX_CHANNELS = 8      # MAX_CH: channels a thread keeps in registers
 MAX_PLANES = 65535    # Nz * M rides gridDim.y
@@ -174,6 +183,9 @@ _ENTRY_POINTS = {
                                  "tv_subgrad_launch": (1, 4)}),
     "cp_boundary": ("bnd", _Params, {"cp_dual_boundary_launch": (2, 7),
                                      "cp_primal_boundary_launch": (2, 7)}),
+    # the specialised pass A and pass 2; int flags (table, storage...)
+    "specialised": ("spec", _Params, {"spec_cp_dual_launch": (3, 6),
+                                      "spec_tv_subgrad_launch": (2, 4)}),
 }
 
 
@@ -330,6 +342,15 @@ def _cp_launch(fn_name, x, y_D, p, args):
                    with_parts=True)
 
 
+def _spec_launch(fn_name, cfg, x, p, flags, args, with_parts=False):
+    """Launch a specialised kernel on the volume ``x`` (of the scheme's
+    shape), for the channel table of ``cfg`` at x's ``(Nz, M)``
+    (``kernels.tables``; raises where no kernel is compiled for it)."""
+    table = tables.table_id(cfg, x.shape[0], x.shape[1])
+    return _launch("specialised", fn_name, x, p, (table, *flags), args,
+                   with_parts)
+
+
 def _shard_fields(halo_mode, interior, table_dims, **depths):
     """``_params`` keywords of a pass on a shard: every sharded mode ungates
     z, ``halo_mode`` also t and names the extension ``depths``."""
@@ -369,7 +390,13 @@ def cp_dual(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, sigma_D, sigma_A,
                 reg=float(reg), fidelity=fidelity,
                 fid_weight=float(fid_weight),
                 **_shard_fields(halo_mode, interior, table_dims, xe=1))
-    parts = _cp_launch("cp_dual_launch", x0, y_D, p, (x, x0, y_A, y_D, tmul))
+    if halo_mode or interior:
+        parts = _cp_launch("cp_dual_launch", x0, y_D, p,
+                           (x, x0, y_A, y_D, tmul))
+    else:
+        parts = _spec_launch("spec_cp_dual_launch", cfg, x0, p,
+                             _storage_flags(x0, y_D),
+                             (x, x0, y_A, y_D, tmul), with_parts=True)
     cp_dual.launches += 1
     return y_A, y_D, parts.view(x0.shape[0], -1) if interior else parts
 
@@ -890,9 +917,12 @@ def tv_subgrad(x, norms, tmul=None, *, cfg: TVConfig, halo_mode=False,
     p = _params(cfg, shape, tmul is not None,
                 **_shard_fields(halo_mode, False, table_dims, xe=2, ne=1))
     g = torch.empty(shape, dtype=x.dtype, device=x.device)
-    _launch("tv_fused", "tv_subgrad_launch", g, p,
-            (int(x.dtype == torch.bfloat16),),
-            (x, None if aniso else norms, tmul, g))
+    flags = (int(x.dtype == torch.bfloat16),)
+    args = (x, None if aniso else norms, tmul, g)
+    if halo_mode:
+        _launch("tv_fused", "tv_subgrad_launch", g, p, flags, args)
+    else:
+        _spec_launch("spec_tv_subgrad_launch", cfg, g, p, flags, args)
     tv_subgrad.launches += 1
     return g
 

@@ -1,0 +1,54 @@
+"""Which specialised kernel an unsharded CP pass A (B1) or TV pass 2 (B4)
+launches: the id of its channel table.
+
+``csrc/tables.cuh`` lists the 21 channel tables that
+``core.schemes.scheme_channels`` can produce (upwind, downwind and hybrid
+with z on/off x t on/off; central with z in {off, CTR, FWD when Nz == 2} x
+t in {off, CTR, FWD when M == 2}), each in scheme_channels' channel order,
+and the specialised kernels (``csrc/specialised.cu``) take one as a
+template argument.  :data:`TABLES` mirrors that list
+(``tests/test_torch_channel_tables.py`` holds the two equal).  A channel
+sequence outside it raises: nothing falls back to the generic kernels.
+"""
+
+from __future__ import annotations
+
+from ..core.schemes import AXIS_COL, AXIS_ROW, AXIS_T, AXIS_Z, BWD, CTR, FWD
+from ..core.schemes import scheme_channels
+
+_RF, _CF, _RB, _CB = ((AXIS_ROW, FWD), (AXIS_COL, FWD), (AXIS_ROW, BWD),
+                      (AXIS_COL, BWD))
+_RC, _CC = (AXIS_ROW, CTR), (AXIS_COL, CTR)
+_ZF, _ZB, _ZC = (AXIS_Z, FWD), (AXIS_Z, BWD), (AXIS_Z, CTR)
+_TF, _TB, _TC = (AXIS_T, FWD), (AXIS_T, BWD), (AXIS_T, CTR)
+
+# table id -> its (axis, kind) channels, as csrc/tables.cuh lists them
+TABLES = (
+    (_RF, _CF), (_RF, _CF, _ZF), (_RF, _CF, _TF), (_RF, _CF, _ZF, _TF),
+    (_RB, _CB), (_RB, _CB, _ZB), (_RB, _CB, _TB), (_RB, _CB, _ZB, _TB),
+    (_RF, _CF, _RB, _CB), (_RF, _CF, _RB, _CB, _ZF, _ZB),
+    (_RF, _CF, _RB, _CB, _TF, _TB), (_RF, _CF, _RB, _CB, _ZF, _ZB, _TF, _TB),
+    (_RC, _CC), (_RC, _CC, _ZC), (_RC, _CC, _TC), (_RC, _CC, _ZC, _TC),
+    (_RC, _CC, _ZF), (_RC, _CC, _ZF, _TC), (_RC, _CC, _ZF, _TF),
+    (_RC, _CC, _TF), (_RC, _CC, _ZC, _TF),
+)
+_ID = {chans: i for i, chans in enumerate(TABLES)}
+
+
+def table_of(chans) -> int:
+    """The id of the table whose channels are ``chans``, a sequence of
+    (axis, kind) pairs; ValueError where no kernel is compiled for it."""
+    key = tuple(tuple(c) for c in chans)
+    if key not in _ID:
+        raise ValueError(f"no specialised kernel is compiled for the channel "
+                         f"table {key} (csrc/tables.cuh)")
+    return _ID[key]
+
+
+def table_id(cfg, Nz: int, M: int) -> int:
+    """The table id of ``cfg``'s scheme on a volume with ``Nz`` slices and
+    ``M`` time steps."""
+    chans, _ = scheme_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg,
+                               cfg.reg_time)
+    return table_of((ch.axis, ch.kind) for ch in chans)
+

@@ -39,21 +39,40 @@ def test_repo_kernels_include_the_shared_header():
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "tgv.cuh", "stencil.cuh"]
+    # the specialised pass A and pass 2: the channel tables, and voxel.cuh
+    # for the fidelity dual
+    sources = build._sources(os.path.join(build.CSRC, "specialised.cu"))
+    assert [os.path.basename(p) for p in sources] == \
+        ["specialised.cu", "tables.cuh", "voxel.cuh", "stencil.cuh"]
+
+
+def test_only_the_specialised_source_splits_its_compile():
+    """nvcc compiles the one source of the specialised kernels (a kernel per
+    channel table and storage) on every core; the others as they were, and
+    the flags are part of each library's cache key."""
+    assert build.nvcc_flags("specialised") == \
+        build.NVCC_FLAGS + ("-split-compile", "0")
+    for name in ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident",
+                 "resident", "cp_zstream", "cp_boundary"):
+        assert build.nvcc_flags(name) == build.NVCC_FLAGS
+    assert "-fmad=false" in build.NVCC_FLAGS
 
 
 def test_every_library_has_its_entry_points_and_its_source():
     """Each library the wrappers bind is a source under ``csrc/``, and each
-    launch function it names is defined there."""
+    launch function it names is defined there or in a header it includes."""
     from pytv4d_tpu_torch.kernels import fused
 
     import pytv4d_tpu_torch.kernels  # noqa: F401  (every wrapper registers)
 
-    assert set(fused._ENTRY_POINTS) == {"cp_fused", "tv_fused", "tgv_stream",
-                                        "tgv_resident", "cp_zstream",
-                                        "resident", "cp_boundary"}
+    assert set(fused._ENTRY_POINTS) == {
+        "cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "cp_zstream",
+        "resident", "cp_boundary", "specialised"}
     for name, (prefix, params, launches) in fused._ENTRY_POINTS.items():
-        with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
-            text = f.read()
+        text = ""
+        for path in build._sources(os.path.join(build.CSRC, f"{name}.cu")):
+            with open(path) as f:
+                text += f.read()
         assert f"{prefix}_error_string(" in text
         assert hasattr(params, "_fields_")
         for fn in launches:

@@ -1,21 +1,27 @@
-"""Per-launch times of the stencil kernels B1-B4 on one GPU, for comparing two
-trees of the repo in one run.
+"""Per-launch times of the stencil kernels B1-B5 and the 4D CP and GD
+iteration on one GPU, for comparing two trees of the repo in one run.
 
     python3 tools/torch_time_stencil.py [--root DIR]
+    python3 tools/torch_time_stencil.py --ab PARENT_DIR
 
-Imports ``pytv4d_tpu_torch`` from ``DIR`` (default: this checkout), builds
-``csrc/cp_fused.cu`` and ``csrc/tv_fused.cu`` there, and prints the time of
-one launch of B1 (CP pass A), B2 (CP pass B), B3 (TV norms) and B4 (TV
-subgradient) at (32, 8, 256, 256) float32, hybrid ``reg_time=0.5``: the mean
-of 50 launches between two CUDA events, best of 5.  To compare a parent
-commit with the working tree, unpack the parent with ``git archive`` into a
-git-ignored directory and run parent, tree, tree, parent.
+Imports ``pytv4d_tpu_torch`` from ``DIR`` (default: this checkout), which
+builds its kernels there on first use, and prints one line of times at
+(32, 8, 256, 256), hybrid ``reg_time=0.5`` unless named: B1 (CP pass A) in
+float32, with a bf16 dual and in bf16, and for the upwind and central
+schemes; B2 (CP pass B); B3 (TV norms); B4 (TV subgradient) in float32, in
+bf16, with the aniso and huber norms and for upwind and central; B5 (pass A
+for inverse problems); each the mean of 50 launches between two CUDA
+events, best of 5.  Then ms per iteration of ``chambolle_pock`` and
+``subgradient_descent`` at that volume: (a 60-iteration solve - a
+20-iteration one) / 40, best of 3.  ``--ab PARENT_DIR`` runs the script
+on PARENT_DIR, this checkout, this checkout and PARENT_DIR again, one
+process each, so that both trees are timed in turns on one card: unpack
+the parent commit with ``git archive`` into a git-ignored directory first.
 
 Where the tree has the sharded modes (``kernels.fused.cp_dual_boundary``), a
 second line times them on one z-shard of that volume, (8, 8, 256, 256): B1
 and B2 on the whole shard, with ``interior`` and in ``halo_mode``, B3 and B4
-in ``halo_mode``, and the two boundary kernels B8 (which builds
-``csrc/cp_boundary.cu``).
+in ``halo_mode``, and the two boundary kernels B8.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -46,42 +53,107 @@ def launch_ms(fn, n=50, repeats=5):
     return best
 
 
+def iteration_ms(solve, repeats=3):
+    """Marginal ms per iteration of ``solve(n_iter)``: set-up cancels."""
+    def best(n):
+        solve(n)
+        torch.cuda.synchronize()
+        out = float("inf")
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            solve(n)
+            torch.cuda.synchronize()
+            out = min(out, time.perf_counter() - t0)
+        return out
+    return (best(60) - best(20)) / 40 * 1e3
+
+
+def card():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return smi.stdout.strip()
+
+
 def main():
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if "--ab" in sys.argv:
+        parent = sys.argv[sys.argv.index("--ab") + 1]
+        for root in (parent, here, here, parent):
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--root", root], check=True)
+        return
+    root = here
     if "--root" in sys.argv:
         root = os.path.abspath(sys.argv[sys.argv.index("--root") + 1])
     sys.path.insert(0, root)  # the tree to time, ahead of any other copy
     from pytv4d_tpu_torch.core.config import TVConfig
     from pytv4d_tpu_torch.core.schemes import num_channels
     from pytv4d_tpu_torch.kernels import fused
+    from pytv4d_tpu_torch.solvers.cp import chambolle_pock
+    from pytv4d_tpu_torch.solvers.gd import subgradient_descent
 
     dev = torch.device("cuda", 0)
     cfg = TVConfig(scheme="hybrid", reg_time=0.5)
     Nz, M, Nr, Nc = SHAPE
-    Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg, cfg.reg_time)
     x0 = torch.as_tensor(np.random.default_rng(0).random(SHAPE),
                          dtype=torch.float32, device=dev)
     x, y_A = x0.clone(), torch.zeros_like(x0)
-    y_D = torch.zeros((Nz, M, Nd, Nr, Nc), device=dev)
-    dk = dict(cfg=cfg, sigma_D=0.5, sigma_A=1.0, reg=1.0)
-    norms, _ = fused.tv_norms(x, cfg=cfg)
+
+    def dual(c, dtype=torch.float32):
+        Nd = num_channels(c.scheme, Nz, M, c.reg_z_over_reg, c.reg_time)
+        return torch.zeros((Nz, M, Nd, Nr, Nc), dtype=dtype, device=dev)
+
+    def b1(c, x_dt=torch.float32, d_dt=torch.float32):
+        a = [t.to(x_dt) for t in (x, x0, y_A)] + [dual(c, d_dt)]
+        return launch_ms(lambda: fused.cp_dual(*a, cfg=c, sigma_D=0.5,
+                                               sigma_A=1.0, reg=1.0))
+
+    def b4(c, x_dt=torch.float32):
+        xb = x.to(x_dt)
+        norms, _ = fused.tv_norms(xb, cfg=c)
+        return launch_ms(lambda: fused.tv_subgrad(xb, norms, cfg=c))
+
+    y_D = dual(cfg)
+    up, ctr = (TVConfig(scheme=s, reg_time=0.5) for s in ("upwind",
+                                                          "central"))
     ms = {
-        "B1": launch_ms(lambda: fused.cp_dual(x, x0, y_A, y_D, **dk)),
+        "B1": b1(cfg),
+        "B1 bf16 dual": b1(cfg, d_dt=torch.bfloat16),
+        "B1 bf16": b1(cfg, torch.bfloat16, torch.bfloat16),
+        "B1 upwind": b1(up),
+        "B1 central": b1(ctr),
         "B2": launch_ms(lambda: fused.cp_primal(x, x0, y_A, y_D, cfg=cfg,
                                                 tau=0.1)),
         "B3": launch_ms(lambda: fused.tv_norms(x, cfg=cfg)),
-        "B4": launch_ms(lambda: fused.tv_subgrad(x, norms, cfg=cfg)),
+        "B4": b4(cfg),
+        "B4 bf16": b4(cfg, torch.bfloat16),
+        "B4 aniso": b4(TVConfig(scheme="hybrid", reg_time=0.5,
+                                norm="aniso")),
+        "B4 huber": b4(TVConfig(scheme="hybrid", reg_time=0.5, norm="huber",
+                                huber_delta=0.3)),
+        "B4 upwind": b4(up),
+        "B4 central": b4(ctr),
+        "B5": launch_ms(lambda: fused.tv_dual(x, y_D, cfg=cfg, sigma_D=0.5,
+                                              reg=1.0)),
     }
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    print(f"[stencil times] {os.path.relpath(root)} {SHAPE} f32: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
-          + f"; card {smi.stdout.strip()}", flush=True)
+    its = {
+        "CP": iteration_ms(lambda n: chambolle_pock(
+            x0, n_iter=n, reg=1.0, cfg=cfg, return_dual=False)),
+        "GD": iteration_ms(lambda n: subgradient_descent(
+            x0, n_iter=n, reg=1.0, step_size=5e-3, cfg=cfg)),
+    }
+    print(f"[stencil times] {os.path.relpath(root)} {SHAPE} f32 hybrid "
+          f"reg_time=0.5 unless named, ms per launch: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + "; ms per iteration: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in its.items())
+          + f"; card {card()}", flush=True)
     if not hasattr(fused, "cp_dual_boundary"):
         return
 
     # one z-shard of the volume, as the sharded solvers hand it over
+    Nd = y_D.shape[2]
     nz = Nz // 4
     shard = (nz, M, Nr, Nc)
     td = dict(table_dims=(Nz, M))
@@ -95,6 +167,7 @@ def main():
     n1 = torch.ones((nz + 2, M + 2, Nr, Nc), device=dev)
     x_halo = torch.stack([x[nz - 1], x[2 * nz]])
     y_halo = torch.zeros((2, M, Nd, Nr, Nc), device=dev)
+    dk = dict(cfg=cfg, sigma_D=0.5, sigma_A=1.0, reg=1.0)
     pk = dict(cfg=cfg, tau=0.1)
     tv = fused.cp_dual(xs, x0s, yAs, yDs, interior=True, **dk, **td)[2]
     fid = fused.cp_primal(xs, x0s, yAs, yDs, interior=True, **pk, **td)[1]
