@@ -7,10 +7,11 @@ B, B10 pass A marching along z, B8 the sharded step's two boundary
 kernels), the TV kernels (B3 norms, B4 subgradient),
 the whole-solve CP and GD kernels (B9) and the TGV-2 kernels (B6 passes PQ
 and XW, B7 whole solve)
-from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once; B1 and
-B4 on an unsharded volume are the kernels specialised per channel table
-(``csrc/specialised.cu``, one source whose compile nvcc spreads over the
-cores).  Then, for
+from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once; B1, B3,
+B4 and B5 on an unsharded volume are the kernels specialised per channel
+table (``csrc/specialised.cu`` for B1 and B4, ``csrc/specialised_tv.cu``
+for B3 and B5: two sources whose compiles nvcc spreads over the cores).
+Then, for
 the Chambolle-Pock path (phases 3-7): holds B1/B2 against
 their plain PyTorch versions (B1 also bit for bit against the generic body,
 over every channel table, at odd widths and off alignment), drives
@@ -18,7 +19,8 @@ over every channel table, at odd widths and off alignment), drives
 image through them, replays the (16, 4, 512, 512) reference trajectory,
 measures the 4D CP rate of kernels and plain versions, and runs the
 (96, 16, 512, 512) volume.  For the subgradient-descent path (phases 8-11):
-holds B3/B4 against their plain versions (B4 also as B1 above), drives
+holds B3/B4 against their plain versions (both also bit for bit against
+the generic bodies, as B1 above), drives
 ``TVDenoiser.gd`` on the
 cameraman image and the reference's ``tv_GPU.tv_hybrid`` through them,
 measures the 4D GD rate, the split of an iteration and the kernels' GB/s,
@@ -29,7 +31,8 @@ launch) and a 4d ``tgv_denoise`` through B6, measures the whole-solve and
 streaming rates and where one overtakes the other, and runs the
 (96, 16, 512, 512) volume in the 4d mode.  For the inverse solver and
 parallel-beam CT (phases 16-19): holds B5 (pass A for inverse problems)
-against its plain version on the other kernels' case grid, and B2 writing
+against its plain version on the other kernels' case grid, and bit for bit
+against B1's generic body over every channel table, and B2 writing
 out of place against its plain version, both (and B3, in phase 8) also at
 the two shapes the CT path launches them on; solves a deblurring problem with
 ``cp_inverse`` on the kernels and on the plain step, and reconstructs a
@@ -162,7 +165,11 @@ README_TV = 532166.8251801673  # tv_hybrid(rand(20, 4, 100, 100)), seed 0
 # the CPU (tests/test_torch_tgv.py)
 CAMERAMAN_TGV_LOSS = 37211904.16116732
 LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "resident",
-        "cp_zstream", "cp_boundary", "specialised")
+        "cp_zstream", "cp_boundary", "specialised", "specialised_tv")
+# the kernels specialised per channel table, by kernel id (phase 2 reports
+# each one's registers and spills)
+SPEC_KERNELS = {"B1": "cp_dual_spec_kernel", "B4": "tv_subgrad_spec_kernel",
+                "B3": "tv_norms_spec_kernel", "B5": "tv_dual_spec_kernel"}
 # each wrapper's launch counter, by kernel id
 COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
             "B3": fused.tv_norms, "B4": fused.tv_subgrad,
@@ -273,6 +280,27 @@ def phase_device():
 
 
 # ---------------------------------------------------------------- phase 2
+def _ptxas_of(compiler_log, kid, kernel):
+    """Registers, stack frames and spills ptxas reported for the instances
+    of ``kernel``."""
+    regs, frames = [], []
+    for entry in re.split(r"Compiling entry function '", compiler_log)[1:]:
+        if kernel not in entry.split("'")[0]:
+            continue
+        used = re.search(r"Used (\d+) registers", entry)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", entry)
+        if used and frame:
+            regs.append(int(used.group(1)))
+            frames.append(tuple(map(int, frame.groups())))
+    if not regs:
+        return f"{kid} {kernel}: no ptxas report"
+    return (f"{kid} {kernel} x{len(regs)}: {min(regs)}-{max(regs)} "
+            f"registers, stack frame <= {max(f[0] for f in frames)} B, "
+            f"spill stores / loads <= {max(f[1] for f in frames)} / "
+            f"{max(f[2] for f in frames)} B")
+
+
 def phase_build():
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(LIBS)) as pool:
@@ -296,6 +324,11 @@ def phase_build():
             f"stack frame <= {max(f[0] for f in frames)} B, spill stores / "
             f"loads <= {max(f[1] for f in frames)} / "
             f"{max(f[2] for f in frames)} B")
+        if name in fused.SPECIALISED:
+            log(f"[2 build] {name}: " + "; ".join(
+                _ptxas_of(compiler_log, kid, kernel)
+                for kid, kernel in SPEC_KERNELS.items()
+                if kernel in compiler_log))
     log(f"[2 build] {len(LIBS)} sources in parallel: {t1 - t0:.1f} s, load "
         f"{time.perf_counter() - t1:.2f} s")
     sync()
@@ -688,24 +721,32 @@ def phase_gd_kernels():
     errs = {"B3": {"f32": 0.0, "bf16": 0.0}, "B4": {"f32": 0.0, "bf16": 0.0}}
     n = 0
     tids = set()
-    for shape in (SMALL, CAMERAMAN, MAIN_4D, CT_SMALL, CT_SHAPE, *RAGGED):
+    for shape in (SMALL, CAMERAMAN, MAIN_4D, CT_SMALL, CT_SHAPE, *RAGGED,
+                  MISALIGNED):
         gen = torch.Generator(device=DEV).manual_seed(4321)
+        copy = _shifted if shape == MISALIGNED else torch.clone
         for name, cfg, use_tmul, dtype in _gd_cases():
             if shape == CT_SHAPE and name != "hybrid-time":
                 continue  # at full width, what the CT main path launches
-            x = torch.rand(shape, generator=gen, device=DEV).to(dtype)
+            x = copy(torch.rand(shape, generator=gen, device=DEV).to(dtype))
             tmul = _gd_tmul(shape, cfg, gen) if use_tmul else None
+            tmul = None if tmul is None else copy(tmul)
             norms_k, parts_k = fused.tv_norms(x, tmul, cfg=cfg)
             norms_p, parts_p = fused.tv_norms_plain(x, tmul, cfg=cfg)
             G_k = fused.tv_subgrad(x, norms_k, tmul, cfg=cfg)
             G_p = fused.tv_subgrad_plain(x, norms_p, tmul, cfg=cfg)
-            # the generic body: the HALO instance on a 1 x 1 grid
+            # the generic bodies: the HALO instances on a 1 x 1 grid
+            norms_g, _ = fused.tv_norms(_one_shard(x, cfg, 1), tmul, cfg=cfg,
+                                        halo_mode=True, table_dims=shape[:2])
             aniso = cfg.norm == "aniso"
             G_g = fused.tv_subgrad(
                 _one_shard(x, cfg, 2),
                 None if aniso else fused_halo._extend_norms([[norms_k]])[0][0],
                 tmul, cfg=cfg, halo_mode=True, table_dims=shape[:2])
             sync()
+            require(_bits_equal(norms_k, norms_g), f"{name} {shape}: "
+                    f"specialised B3's norms equal the generic body's bit for "
+                    f"bit")
             require(_bits_equal(G_k, G_g), f"{name} {shape}: specialised "
                     f"B4's G equals the generic body's bit for bit")
             tids.add(tables.table_id(cfg, *shape[:2]))
@@ -727,9 +768,10 @@ def phase_gd_kernels():
     require(tids == set(range(len(tables.TABLES))),
             f"every channel table launched, got {sorted(tids)}")
     log(f"[8 GD kernels vs plain] {n} cases at {SMALL}, {CAMERAMAN}, "
-        f"{MAIN_4D}, {CT_SMALL}, (the CT path's config) {CT_SHAPE} and "
-        f"{RAGGED}, all {len(tids)} channel tables: pass; specialised B4 "
-        f"bit-equal to the generic body in every case; "
+        f"{MAIN_4D}, {CT_SMALL}, (the CT path's config) {CT_SHAPE}, "
+        f"{RAGGED} and {MISALIGNED} (x one element off alignment), all "
+        f"{len(tids)} channel tables: pass; specialised B3 and B4 "
+        f"bit-equal to the generic bodies in every case; "
         f"max abs err B3 f32 {errs['B3']['f32']:.3g} "
         f"(bf16 x {errs['B3']['bf16']:.3g}), B4 f32 {errs['B4']['f32']:.3g} "
         f"bf16 {errs['B4']['bf16']:.3g}")
@@ -1328,34 +1370,50 @@ INVERSE_SHAPES = (SMALL, CAMERAMAN, MAIN_4D, CT_SMALL, CT_SHAPE)
 
 
 def phase_inverse_kernels():
-    """B5 against its plain version, and B2 writing out of place against
-    its plain version and against itself in place, at the shapes of the
-    earlier phases and at the two the CT main path launches them on."""
+    """B5 against its plain version and bit for bit against the generic
+    body of B1 (the HALO instance on a 1 x 1 grid, no time multiplier),
+    over every channel table, at odd widths and off alignment; and B2
+    writing out of place against its plain version and against itself in
+    place, at the shapes of the earlier phases and at the two the CT main
+    path launches them on."""
     reg, sigma_D = 0.5, 0.5
     errs = {"f32": 0.0, "bf16": 0.0}
     n = 0
-    for shape in INVERSE_SHAPES:
+    tids = set()
+    for shape in (*INVERSE_SHAPES, *RAGGED, MISALIGNED):
         gen = torch.Generator(device=DEV).manual_seed(1357)
+        copy = _shifted if shape == MISALIGNED else torch.clone
         for name, cfg, storage in _inverse_cases(shape):
-            x, _, _, y_D = _state(shape, cfg, STORAGE[storage], gen, "l2")
+            x, x0, y_A, y_D = map(copy, _state(shape, cfg, STORAGE[storage],
+                                               gen, "l2"))
             x_before = x.clone()
-            y_k, y_p = y_D.clone(), y_D.clone()
+            y_k, y_p, y_g = copy(y_D), y_D.clone(), y_D.clone()
             kw = dict(cfg=cfg, sigma_D=sigma_D, reg=reg)
             out_k, tv_k = fused.tv_dual(x, y_k, **kw)
             _, tv_p = fused.tv_dual_plain(x, y_p, **kw)
+            fused.cp_dual(_one_shard(x, cfg, 1), x0, y_A, y_g, None,
+                          sigma_A=1.0, halo_mode=True, table_dims=shape[:2],
+                          **kw)
             sync()
             require(out_k is y_k and torch.equal(x, x_before),
                     "tv_dual updates y_D in place and leaves x_bar alone")
+            require(_bits_equal(y_k, y_g), f"B5 {name} {shape}: specialised "
+                    f"B5's y_D' equals the generic B1 body's bit for bit")
+            tids.add(tables.table_id(cfg, *shape[:2]))
             bf16 = storage != "f32"
             kind = "bf16" if bf16 else "f32"
             errs[kind] = max(errs[kind], _compare(y_k, y_p, bf16, 0.0))
             rel = abs(float(tv_k.sum()) - float(tv_p.sum())) / float(tv_p.sum())
             require(rel <= 1e-5, f"B5 {name} {shape}: TV rel err {rel:.3g}")
             n += 1
+    require(tids == set(range(len(tables.TABLES))),
+            f"B5: every channel table launched, got {sorted(tids)}")
     log(f"[16 inverse kernels vs plain] B5: {n} cases at {SMALL}, "
-        f"{CAMERAMAN}, {MAIN_4D}, {CT_SMALL} and (the CT path's config, f32 "
-        f"and bf16 dual) {CT_SHAPE}: pass; max abs err f32 "
-        f"{errs['f32']:.3g} bf16 {errs['bf16']:.3g}")
+        f"{CAMERAMAN}, {MAIN_4D}, {CT_SMALL}, (the CT path's config, f32 "
+        f"and bf16 dual) {CT_SHAPE}, {RAGGED} and {MISALIGNED} (arrays one "
+        f"element off alignment), all {len(tids)} channel tables: pass; "
+        f"specialised B5 bit-equal to the generic B1 body in every case; "
+        f"max abs err f32 {errs['f32']:.3g} bf16 {errs['bf16']:.3g}")
 
     err_out, n_out = 0.0, 0
     cfg = TVConfig(**CT_CFG)
@@ -2670,14 +2728,14 @@ def main():
         entry("B2", "cp_primal_kernel (CP pass B)", "cp_fused.cu",
               "fused.py:859", launches["B2"], errs["B2"]["f32"],
               kernel_ms["B2"], errs["B2"]["bf16"]),
-        entry("B3", "tv_norms_kernel (TV pass 1)", "tv_fused.cu",
+        entry("B3", "tv_norms_spec_kernel (TV pass 1)", "specialised_tv.cu",
               "fused.py:1353", gd_launches["B3"], gd_errs["B3"]["f32"],
               gd_ms["f32"]["B3"], gd_errs["B3"]["bf16"]),
         entry("B4", "tv_subgrad_spec_kernel (TV pass 2)", "specialised.cu",
               "fused.py:1473", gd_launches["B4"], gd_errs["B4"]["f32"],
               gd_ms["f32"]["B4"], gd_errs["B4"]["bf16"]),
-        entry("B5", "tv_dual_kernel (CP pass A, inverse problems)",
-              "cp_fused.cu", "fused.py:759", inv_launches["B5"],
+        entry("B5", "tv_dual_spec_kernel (CP pass A, inverse problems)",
+              "specialised_tv.cu", "fused.py:759", inv_launches["B5"],
               inv_errs["f32"], b5_ms, inv_errs["bf16"]),
         entry("B6pq", "tgv_pq_kernel (TGV pass PQ)", "tgv_stream.cu",
               "tgv_stream.py:344", tgv_launches["B6pq"],

@@ -1,6 +1,6 @@
-// Chambolle-Pock TV step for NVIDIA Hopper (sm_90a): pass A (dual), its
-// variant for inverse problems, and pass B (primal), bound to Python through
-// a plain C interface (ctypes).
+// Chambolle-Pock TV step for NVIDIA Hopper (sm_90a): pass A (dual) in the
+// sharded modes and pass B (primal), bound to Python through a plain C
+// interface (ctypes).
 //
 // Replaces the Pallas TPU kernels of pytv4d_tpu/kernels/fused.py:
 //   cp_dual_kernel   <- make_cp_dual_kernel   (pass A, fused.py:652; its
@@ -8,19 +8,20 @@
 //                                              pass A is specialised per
 //                                              channel table, in
 //                                              csrc/specialised.cu)
-//   tv_dual_kernel   <- make_tv_dual_kernel   (pass A without the fidelity
-//                                              dual, fused.py:759)
 //   cp_primal_kernel <- make_cp_primal_kernel (pass B, fused.py:859)
+// Pass A for inverse problems (make_tv_dual_kernel, fused.py:759), which has
+// no sharded mode, is specialised per channel table in
+// csrc/specialised_tv.cu.
 // The denoising contract is cp_step_fused_internal (fused.py:1303): for
 // (x, y_A, y_D, x0) the pair returns (x', y_A', y_D', loss) with
 // loss = sum(fid parts of x') + reg * sum(TV parts of D x_old).  For an
 // inverse problem min F(A x) + reg TV(x) (solvers/inverse.py) the fidelity
-// dual lives in the measurement space and is updated outside: tv_dual_kernel
-// takes (x_bar, y_D) to (y_D', TV parts of D x_bar) and touches no x0 or
-// y_A, and pass B runs with A^T y_A in its y_A slot, writing x' to a second
-// buffer because the solver still needs x for x_bar' = 2 x' - x.  The TPU
-// kernel's third output, dt_local (the in-tile part of D^T y_D'), is dropped
-// as in pass A: pass B computes the full adjoint.
+// dual lives in the measurement space and is updated outside: pass A for
+// inverse problems takes (x_bar, y_D) to (y_D', TV parts of D x_bar), and
+// pass B runs with A^T y_A in its y_A slot, writing x' to a second buffer
+// because the solver still needs x for x_bar' = 2 x' - x.  The TPU kernel's
+// third output, dt_local (the in-tile part of D^T y_D'), is dropped as in
+// pass A: pass B computes the full adjoint.
 //
 // Layouts (internal, row-major): x, x0, y_A are (Nz, M, Nr, Nc); the TV dual
 // y_D is channel-contiguous (Nz, M, Nd, Nr, Nc).  Storage is float or bf16,
@@ -82,25 +83,6 @@ cp_dual_kernel(const Params p, const TX* __restrict__ x,
   if (threadIdx.x == 0) parts[(int64_t)zt * gridDim.x + blockIdx.x] = s;
 }
 
-// Pass A for inverse problems: y_D' = TV dual prox of y_D + sigma_D D x_bar
-// and one TV partial of D x_bar per block; no fidelity dual, no x0, no y_A,
-// no time-plane multiplier.
-template <typename TX, typename TD>
-__global__ void __launch_bounds__(BLOCK)
-tv_dual_kernel(const Params p, const TX* __restrict__ x,
-               TD* __restrict__ yD, float* __restrict__ parts) {
-  const int64_t pix = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
-  float part = 0.f;
-  if (pix < (int64_t)p.Nr * p.Nc) {
-    const Vox v = make_vox(p, blockIdx.y, pix, nullptr);
-    float d[MAX_CH];
-    weighted_d(p, x, v.xi, ld(x, v.xi), v.z, v.t, v.r, v.c, 1.f, d);
-    part = tv_dual_prox(p, d, yD, v.yb, v.plane);
-  }
-  const float s = block_sum(part);
-  if (threadIdx.x == 0) parts[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = s;
-}
-
 // Pass B: x' = x - tau y_A' - tau D^T y_D' (then max(x', 0) when nonneg), and
 // one fidelity partial of x' per block (voxel.cuh::cp_primal_voxel).  x'
 // goes to `out`, which is x itself (in place) or a second buffer; x0 may be
@@ -136,14 +118,6 @@ static int launch_dual(const Params* p, const void* x, const void* x0,
       <<<plane_grid(p, p->z_last - p->z_first + 1), BLOCK, 0, stream>>>(
           *p, (const TX*)x, (const TX*)x0, (TX*)yA, (TD*)yD,
           (const float*)tmul, (float*)parts);
-  return (int)cudaGetLastError();
-}
-
-template <typename TX, typename TD>
-static int launch_tv_dual(const Params* p, const void* x, void* yD,
-                          void* parts, cudaStream_t stream) {
-  tv_dual_kernel<TX, TD><<<plane_grid(p), BLOCK, 0, stream>>>(
-      *p, (const TX*)x, (TD*)yD, (float*)parts);
   return (int)cudaGetLastError();
 }
 
@@ -184,16 +158,6 @@ int cp_dual_launch(const Params* p, int x_bf16, int d_bf16, const void* x,
     return launch_dual<__nv_bfloat16, float>(p, x, x0, yA, yD, tmul, parts, s);
   return launch_dual<__nv_bfloat16, __nv_bfloat16>(p, x, x0, yA, yD, tmul,
                                                    parts, s);
-}
-
-int tv_dual_launch(const Params* p, int x_bf16, int d_bf16, const void* x,
-                   void* yD, void* parts, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (!x_bf16 && !d_bf16)
-    return launch_tv_dual<float, float>(p, x, yD, parts, s);
-  if (!x_bf16) return launch_tv_dual<float, __nv_bfloat16>(p, x, yD, parts, s);
-  if (!d_bf16) return launch_tv_dual<__nv_bfloat16, float>(p, x, yD, parts, s);
-  return launch_tv_dual<__nv_bfloat16, __nv_bfloat16>(p, x, yD, parts, s);
 }
 
 // `out` receives x': x itself for the in-place step, or a second buffer.

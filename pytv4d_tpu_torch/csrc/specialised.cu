@@ -6,7 +6,10 @@
 //   cp_dual_spec_kernel    <- make_cp_dual_kernel    (pass A, fused.py:652)
 //   tv_subgrad_spec_kernel <- make_tv_subgrad_kernel (pass 2, fused.py:1473)
 // The sharded modes keep the generic instantiations of csrc/cp_fused.cu and
-// csrc/tv_fused.cu, which run voxel.cuh's bodies with a runtime table.
+// csrc/tv_fused.cu, which run voxel.cuh's bodies with a runtime table.  TV
+// pass 1 (B3) and pass A for inverse problems (B5) are specialised the same
+// way in csrc/specialised_tv.cu, which shares specialised.cuh with this
+// source.
 //
 // What bounds them: the generic bodies spent their time on per-channel
 // work, not bytes (a runtime switch on each channel's axis and kind, 64-bit
@@ -40,199 +43,23 @@
 // kernels/fused.py::_spec_launch); nvcc compiles the kernels of this one
 // source in parallel (-split-compile, kernels/build.py).
 
-#include "tables.cuh"
-#include "voxel.cuh"
+#include "specialised.cuh"
 
-typedef int Offset;                // from a plane's base pointer
 constexpr int VEC = 2;             // pass A: columns per thread
 constexpr int TILE_C = 32;         // pass 2: a block's tile of its plane is
 constexpr int TILE_T = BLOCK / TILE_C;  // TILE_C columns by TILE_R rows,
 constexpr int RPT = 2;             // each thread taking RPT of them
 constexpr int TILE_R = TILE_T * RPT;
 
-// ------------------------------------------------- runs of VEC elements
-// One access of VEC = 2 elements: 8 bytes of f32, 4 of bf16 (bf16 is the
-// high half of a float: widening is a shift, as in __bfloat162float).
-__device__ __forceinline__ void ld_vec(const float* p, float (&v)[VEC]) {
-  const float2 a = *reinterpret_cast<const float2*>(p);
-  v[0] = a.x;
-  v[1] = a.y;
-}
-__device__ __forceinline__ void ld_vec(const __nv_bfloat16* p,
-                                       float (&v)[VEC]) {
-  const unsigned a = *reinterpret_cast<const unsigned*>(p);
-  v[0] = __uint_as_float(a << 16);
-  v[1] = __uint_as_float(a & 0xffff0000u);
-}
-__device__ __forceinline__ void st_vec(float* p, const float (&v)[VEC]) {
-  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-}
-__device__ __forceinline__ unsigned bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ void st_vec(__nv_bfloat16* p,
-                                       const float (&v)[VEC]) {
-  *reinterpret_cast<unsigned*>(p) = bf16_bits(v[0]) | bf16_bits(v[1]) << 16;
-}
-
-// The n <= VEC elements from p: one vector access where `vec` (every run
-// the launch touches is whole and aligned), else one element at a time,
-// zeros past n.
-template <typename T>
-__device__ __forceinline__ void load_run(const T* p, bool vec, int n,
-                                         float (&v)[VEC]) {
-  if (vec) {
-    ld_vec(p, v);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) v[j] = j < n ? ld(p, j) : 0.f;
-}
-template <typename T>
-__device__ __forceinline__ void store_run(T* p, bool vec, int n,
-                                          const float (&v)[VEC]) {
-  if (vec) {
-    st_vec(p, v);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < VEC; ++j)
-    if (j < n) st(p, j, v[j]);
-}
-// A neighbour run: loaded where it lies in the volume (`ok`), else zeros.
-template <typename T>
-__device__ __forceinline__ void load_nb(const T* p, bool ok, bool vec, int n,
-                                        float (&v)[VEC]) {
-  if (ok) {
-    load_run(p, vec, n, v);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) v[j] = 0.f;
-}
-
 // ------------------------------------------------------- pass A (B1)
-// Thread k of plane zt (blockIdx.y) takes the run of VEC columns from
-// c0 = VEC (k mod cpr) of row r = k / cpr, cpr = ceil(Nc / VEC) runs per row;
-// a row's last run may be short (n < VEC) when VEC does not divide Nc.
-// `vec`: Nc is a multiple of VEC and every array is VEC-aligned.
+// specialised.cuh's dual_spec_body with the fidelity dual.
 template <Table T, typename TX, typename TD>
 __global__ void __launch_bounds__(BLOCK)
 cp_dual_spec_kernel(const Params p, const TX* __restrict__ x,
                     const TX* __restrict__ x0, TX* __restrict__ yA,
                     TD* __restrict__ yD, const float* __restrict__ tmul,
                     float* __restrict__ parts, int vec) {
-  constexpr int ND = tab_nd(T);
-  const int cpr = (p.Nc + VEC - 1) / VEC;
-  const int k = blockIdx.x * BLOCK + threadIdx.x;
-  const int zt = blockIdx.y;
-  float part = 0.f;
-  if (k < p.Nr * cpr) {
-    const int r = k / cpr;
-    const int c0 = (k - r * cpr) * VEC;
-    const int n = min(VEC, p.Nc - c0);
-    const int z = zt / p.M, t = zt - z * p.M;
-    const int64_t plane = (int64_t)p.Nr * p.Nc, base = zt * plane;
-    const Offset q = (Offset)r * p.Nc + c0;
-    const TX* xq = x + base + q;
-    TX* yAq = yA + base + q;
-    TD* yq = yD + base * ND + q;
-
-    float xc[VEC];
-    load_run(xq, vec, n, xc);
-    // the runs at -1 and +1 along z, t and the rows, where a channel reads
-    // them (zeros elsewhere); along the columns, the values either side
-    int pos[4] = {z, t, r, c0}, len[4] = {p.Nz, p.M, p.Nr, p.Nc};
-    float xm[4][VEC] = {}, xp[4][VEC] = {};
-#pragma unroll
-    for (int a = AX_Z; a <= AX_ROW; ++a) {
-      const int64_t s = a == AX_Z ? p.M * plane : (a == AX_T ? plane : p.Nc);
-      const bool lo = tab_has(T, a, K_BWD) || tab_has(T, a, K_CTR);
-      const bool hi = tab_has(T, a, K_FWD) || tab_has(T, a, K_CTR);
-      load_nb(xq - s, lo && pos[a] > 0, vec, n, xm[a]);
-      load_nb(xq + s, hi && pos[a] < len[a] - 1, vec, n, xp[a]);
-    }
-    const float xl = c0 > 0 ? ld(xq, -1) : 0.f;
-    const float xr = c0 + VEC < p.Nc ? ld(xq, VEC) : 0.f;
-    float tm[VEC];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) tm[j] = 1.f;
-    if (tab_has(T, AX_T) && p.has_tmul) load_run(tmul + q, vec, n, tm);
-
-    // weighted_d, channel by channel
-    float d[ND][VEC];
-#pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      const int a = tab_axis(T, i), kd = tab_kind(T, i);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const bool col = a == AX_COL;
-        const int ps = col ? c0 + j : pos[a], ln = len[a];
-        const float lo = col ? (j > 0 ? xc[j - 1] : xl) : xm[a][j];
-        const float hi = col ? (j < VEC - 1 ? xc[j + 1] : xr) : xp[a][j];
-        float v;
-        if (kd == K_FWD)
-          v = ps < ln - 1 ? hi - xc[j] : 0.f;
-        else if (kd == K_BWD)
-          v = ps > 0 ? xc[j] - lo : 0.f;
-        else
-          v = (ps > 0 && ps < ln - 1) ? hi - lo : 0.f;
-        if (a == AX_T) v = v * tm[j];
-        d[i][j] = v * p.w[i];
-      }
-    }
-
-    // fid_dual
-    float ya[VEC], xo[VEC];
-    load_run(yAq, vec, n, ya);
-    load_run(x0 + base + q, vec, n, xo);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) ya[j] = fid_dual(p, ya[j], xc[j], xo[j]);
-    store_run(yAq, vec, n, ya);
-
-    // tv_dual_prox, voxel by voxel
-    float y[ND][VEC];
-#pragma unroll
-    for (int i = 0; i < ND; ++i) load_run(yq + i * plane, vec, n, y[i]);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      float pj = 0.f;
-      if (p.norm == N_ANISO) {
-#pragma unroll
-        for (int i = 0; i < ND; ++i) {
-          pj += fabsf(d[i][j]);
-          const float pv = y[i][j] + p.sigma_D * d[i][j];
-          y[i][j] = fminf(fmaxf(pv, -p.reg), p.reg);
-        }
-      } else {
-        float nsq = 0.f;
-#pragma unroll
-        for (int i = 0; i < ND; ++i) nsq += d[i][j] * d[i][j];
-        const float nn = sqrtf(nsq);
-        if (p.norm == N_HUBER)
-          pj = nn <= p.huber_delta ? (nn * nn) / (2.f * p.huber_delta)
-                                   : nn - p.huber_delta / 2.f;
-        else
-          pj = nn;
-        float psq = 0.f;
-#pragma unroll
-        for (int i = 0; i < ND; ++i) {
-          float pv = y[i][j] + p.sigma_D * d[i][j];
-          if (p.norm == N_HUBER) pv = pv / p.huber_den;
-          psq += pv * pv;
-          y[i][j] = pv;
-        }
-        const float den = fmaxf(sqrtf(psq) / p.reg, 1.f);
-#pragma unroll
-        for (int i = 0; i < ND; ++i) y[i][j] = y[i][j] / den;
-      }
-      if (j < n) part += pj;
-    }
-#pragma unroll
-    for (int i = 0; i < ND; ++i) store_run(yq + i * plane, vec, n, y[i]);
-  }
-  const float s = block_sum(part);
-  if (threadIdx.x == 0) parts[(int64_t)zt * gridDim.x + blockIdx.x] = s;
+  dual_spec_body<T, VEC, true>(p, x, x0, yA, yD, tmul, parts, vec);
 }
 
 // ------------------------------------------------------- pass 2 (B4)
@@ -392,22 +219,16 @@ tv_subgrad_spec_kernel(const Params p, const TX* __restrict__ x,
 }
 
 // ------------------------------------------------------------- launches
-static inline bool aligned(const void* ptr, size_t bytes) {
-  return (uintptr_t)ptr % bytes == 0;
-}
-
 template <Table T, typename TX, typename TD>
 static int cp_dual_spec_launch(const Params* p, const void* x, const void* x0,
                                void* yA, void* yD, const void* tmul,
                                void* parts, cudaStream_t stream) {
-  const long long runs = (long long)p->Nr * ((p->Nc + VEC - 1) / VEC);
-  const dim3 grid((unsigned)((runs + BLOCK - 1) / BLOCK),
-                  (unsigned)(p->Nz * p->M));
   const int vec = p->Nc % VEC == 0 && aligned(x, VEC * sizeof(TX)) &&
                   aligned(x0, VEC * sizeof(TX)) &&
                   aligned(yA, VEC * sizeof(TX)) &&
                   aligned(yD, VEC * sizeof(TD)) &&
                   (!p->has_tmul || aligned(tmul, VEC * sizeof(float)));
+  const dim3 grid = dual_grid<VEC>(p);
   cp_dual_spec_kernel<T, TX, TD><<<grid, BLOCK, 0, stream>>>(
       *p, (const TX*)x, (const TX*)x0, (TX*)yA, (TD*)yD, (const float*)tmul,
       (float*)parts, vec);
@@ -456,8 +277,7 @@ extern "C" {
 // Number of TV partials pass A writes for an (Nz, M, Nr, Nc) volume: one per
 // block of BLOCK runs of VEC columns.
 long long spec_num_parts(int Nz, int M, int Nr, int Nc) {
-  const long long runs = (long long)Nr * ((Nc + VEC - 1) / VEC);
-  return (runs + BLOCK - 1) / BLOCK * Nz * M;
+  return dual_num_parts<VEC>(Nz, M, Nr, Nc);
 }
 
 // Both launch table `id` of csrc/tables.cuh and return cudaGetLastError()

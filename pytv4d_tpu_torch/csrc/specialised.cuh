@@ -1,0 +1,314 @@
+// Device code of the kernels specialised per channel table (csrc/tables.cuh)
+// that csrc/specialised.cu (B1, B4) and csrc/specialised_tv.cu (B3, B5)
+// share: runs of V consecutive columns in one access, the weighted D channels
+// of one voxel from the neighbours a kernel gathered, and the body of pass A
+// (the TV dual prox, with the fidelity dual for B1 and without it for B5).
+//
+// Every function here repeats the arithmetic of the generic bodies of
+// voxel.cuh (weighted_d, tv_dual_prox, fid_dual, tv_norms_voxel) operation
+// for operation and in the same order, so that, built with -fmad=false as
+// every source is, the specialised kernels give the generic ones' bits.
+
+#pragma once
+
+#include "tables.cuh"
+#include "voxel.cuh"
+
+typedef int Offset;  // from a plane's base pointer: a plane holds < 2^31
+                     // voxels (kernels/fused.py::fits_kernel)
+
+static inline bool aligned(const void* ptr, size_t bytes) {
+  return (uintptr_t)ptr % bytes == 0;
+}
+
+// ------------------------------------------------- runs of V elements
+// One access of V = 2 or 4 elements: 8 or 16 bytes of f32, 4 or 8 of bf16
+// (bf16 is the high half of a float: widening is a shift, as in
+// __bfloat162float).
+template <int V>
+__device__ __forceinline__ void ld_vec(const float* p, float (&v)[V]) {
+  static_assert(V == 2 || V == 4, "runs of 2 or 4 columns");
+  if constexpr (V == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  }
+}
+template <int V>
+__device__ __forceinline__ void ld_vec(const __nv_bfloat16* p,
+                                       float (&v)[V]) {
+  static_assert(V == 2 || V == 4, "runs of 2 or 4 columns");
+  unsigned a[V / 2];
+  if constexpr (V == 2) {
+    a[0] = *reinterpret_cast<const unsigned*>(p);
+  } else {
+    const uint2 b = *reinterpret_cast<const uint2*>(p);
+    a[0] = b.x;
+    a[1] = b.y;
+  }
+#pragma unroll
+  for (int j = 0; j < V / 2; ++j) {
+    v[2 * j] = __uint_as_float(a[j] << 16);
+    v[2 * j + 1] = __uint_as_float(a[j] & 0xffff0000u);
+  }
+}
+template <int V>
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+template <int V>
+__device__ __forceinline__ void st_vec(__nv_bfloat16* p,
+                                       const float (&v)[V]) {
+  const unsigned a = bf16_bits(v[0]) | bf16_bits(v[1]) << 16;
+  if constexpr (V == 2)
+    *reinterpret_cast<unsigned*>(p) = a;
+  else
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(a, bf16_bits(v[2]) | bf16_bits(v[3]) << 16);
+}
+
+// The n <= V elements from p: one vector access where `vec` (every run the
+// launch touches is whole and aligned), else one element at a time, zeros
+// past n.
+template <int V, typename T>
+__device__ __forceinline__ void load_run(const T* p, bool vec, int n,
+                                         float (&v)[V]) {
+  if (vec) {
+    ld_vec(p, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = j < n ? ld(p, j) : 0.f;
+}
+template <int V, typename T>
+__device__ __forceinline__ void store_run(T* p, bool vec, int n,
+                                          const float (&v)[V]) {
+  if (vec) {
+    st_vec(p, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (j < n) st(p, j, v[j]);
+}
+// A neighbour run: loaded where it lies in the volume (`ok`), else zeros.
+template <int V, typename T>
+__device__ __forceinline__ void load_nb(const T* p, bool ok, bool vec, int n,
+                                        float (&v)[V]) {
+  if (ok) {
+    load_run(p, vec, n, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = 0.f;
+}
+
+// Whether a channel of T reads the neighbour at -1 (BWD, CTR) or at +1
+// (FWD, CTR) along axis a.
+__host__ __device__ constexpr bool tab_lo(Table t, int a) {
+  return tab_has(t, a, K_BWD) || tab_has(t, a, K_CTR);
+}
+__host__ __device__ constexpr bool tab_hi(Table t, int a) {
+  return tab_has(t, a, K_FWD) || tab_has(t, a, K_CTR);
+}
+
+// ------------------------------------------------------ one voxel
+// weighted_d at one voxel: per axis its position and length and x at -1
+// and +1 (xc between; zeros where no channel reads them), tm the time
+// channels' multiplier.  x[q+s] - x[q] is FWD's difference at q, x[q] -
+// x[q-s] BWD's, x[q+s] - x[q-s] CTR's; a table has at most one channel of
+// each (axis, kind), so each difference is formed once.
+template <Table T>
+__device__ __forceinline__ void spec_d(const Params& p, const int (&pos)[4],
+                                       const int (&len)[4], float xc,
+                                       const float (&xm)[4],
+                                       const float (&xp)[4], float tm,
+                                       float (&d)[tab_nd(T)]) {
+#pragma unroll
+  for (int i = 0; i < tab_nd(T); ++i) {
+    const int a = tab_axis(T, i), kd = tab_kind(T, i);
+    const int ps = pos[a], ln = len[a];
+    float v;
+    if (kd == K_FWD)
+      v = ps < ln - 1 ? xp[a] - xc : 0.f;
+    else if (kd == K_BWD)
+      v = ps > 0 ? xc - xm[a] : 0.f;
+    else
+      v = (ps > 0 && ps < ln - 1) ? xp[a] - xm[a] : 0.f;
+    if (a == AX_T) v = v * tm;
+    d[i] = v * p.w[i];
+  }
+}
+
+// tv_norms_voxel's norm from the channels d: stored to `out` (iso: +inf
+// where it is 0), and the voxel's TV term returned.
+template <Table T>
+__device__ __forceinline__ float spec_norm(const Params& p,
+                                           const float (&d)[tab_nd(T)],
+                                           float& out) {
+  if (p.norm == N_ANISO) {
+    float a = 0.f;
+#pragma unroll
+    for (int i = 0; i < tab_nd(T); ++i) a += fabsf(d[i]);
+    out = a;
+    return a;
+  }
+  float nsq = 0.f;
+#pragma unroll
+  for (int i = 0; i < tab_nd(T); ++i) nsq += d[i] * d[i];
+  const float n = sqrtf(nsq);
+  if (p.norm == N_HUBER) {
+    out = n;
+    return n <= p.huber_delta ? (n * n) / (2.f * p.huber_delta)
+                              : n - p.huber_delta / 2.f;
+  }
+  // the TV sum is taken before the +inf replacement
+  out = n == 0.f ? __int_as_float(0x7f800000) : n;
+  return n;
+}
+
+// ------------------------------------------------------- pass A
+// Number of blocks along a plane, and of TV partials, of pass A with V
+// columns per thread: one block per BLOCK runs of V columns.
+template <int V>
+static inline long long dual_blocks(int Nr, int Nc) {
+  const long long runs = (long long)Nr * ((Nc + V - 1) / V);
+  return (runs + BLOCK - 1) / BLOCK;
+}
+template <int V>
+static inline long long dual_num_parts(int Nz, int M, int Nr, int Nc) {
+  return dual_blocks<V>(Nr, Nc) * Nz * M;
+}
+
+// Pass A on an unsharded volume: y_D' = tv_dual_prox(y_D + sigma_D D x) in
+// place, with FID also y_A' = fid_dual(y_A, x, x0) in place (B1), without
+// it no x0, y_A or tmul (B5).  Thread k of plane zt (blockIdx.y) takes the
+// run of V columns from c0 = V (k mod cpr) of row r = k / cpr, cpr =
+// ceil(Nc / V) runs per row; a row's last run may be short (n < V) when V
+// does not divide Nc.  `vec`: Nc is a multiple of V and every array is
+// V-aligned.  One TV partial per block (block_sum, no atomics).
+template <Table T, int V, bool FID, typename TX, typename TD>
+__device__ __forceinline__ void dual_spec_body(
+    const Params& p, const TX* __restrict__ x, const TX* __restrict__ x0,
+    TX* __restrict__ yA, TD* __restrict__ yD, const float* __restrict__ tmul,
+    float* __restrict__ parts, int vec) {
+  constexpr int ND = tab_nd(T);
+  const int cpr = (p.Nc + V - 1) / V;
+  const int k = blockIdx.x * BLOCK + threadIdx.x;
+  const int zt = blockIdx.y;
+  float part = 0.f;
+  if (k < p.Nr * cpr) {
+    const int r = k / cpr;
+    const int c0 = (k - r * cpr) * V;
+    const int n = min(V, p.Nc - c0);
+    const int z = zt / p.M, t = zt - z * p.M;
+    const int64_t plane = (int64_t)p.Nr * p.Nc, base = zt * plane;
+    const Offset q = (Offset)r * p.Nc + c0;
+    const TX* xq = x + base + q;
+    TD* yq = yD + base * ND + q;
+
+    float xc[V];
+    load_run(xq, vec, n, xc);
+    // the runs at -1 and +1 along z, t and the rows, where a channel reads
+    // them (zeros elsewhere); along the columns, the values either side
+    const int pos[4] = {z, t, r, c0}, len[4] = {p.Nz, p.M, p.Nr, p.Nc};
+    float xm[4][V] = {}, xp[4][V] = {};
+#pragma unroll
+    for (int a = AX_Z; a <= AX_ROW; ++a) {
+      const int64_t s = a == AX_Z ? p.M * plane : (a == AX_T ? plane : p.Nc);
+      load_nb(xq - s, tab_lo(T, a) && pos[a] > 0, vec, n, xm[a]);
+      load_nb(xq + s, tab_hi(T, a) && pos[a] < len[a] - 1, vec, n, xp[a]);
+    }
+    const float xl = c0 > 0 ? ld(xq, -1) : 0.f;
+    const float xr = c0 + V < p.Nc ? ld(xq, V) : 0.f;
+    float tm[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) tm[j] = 1.f;
+    if (FID && tab_has(T, AX_T) && p.has_tmul)
+      load_run(tmul + q, vec, n, tm);
+
+    // weighted_d, column by column
+    float d[V][ND];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int pj[4] = {z, t, r, c0 + j};
+      const float mj[4] = {xm[AX_Z][j], xm[AX_T][j], xm[AX_ROW][j],
+                           j > 0 ? xc[j - 1] : xl};
+      const float hj[4] = {xp[AX_Z][j], xp[AX_T][j], xp[AX_ROW][j],
+                           j < V - 1 ? xc[j + 1] : xr};
+      spec_d<T>(p, pj, len, xc[j], mj, hj, tm[j], d[j]);
+    }
+
+    if constexpr (FID) {  // fid_dual
+      float ya[V], xo[V];
+      load_run(yA + base + q, vec, n, ya);
+      load_run(x0 + base + q, vec, n, xo);
+#pragma unroll
+      for (int j = 0; j < V; ++j) ya[j] = fid_dual(p, ya[j], xc[j], xo[j]);
+      store_run(yA + base + q, vec, n, ya);
+    }
+
+    // tv_dual_prox, voxel by voxel
+    float y[ND][V];
+#pragma unroll
+    for (int i = 0; i < ND; ++i) load_run(yq + i * plane, vec, n, y[i]);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float pj = 0.f;
+      if (p.norm == N_ANISO) {
+#pragma unroll
+        for (int i = 0; i < ND; ++i) {
+          pj += fabsf(d[j][i]);
+          const float pv = y[i][j] + p.sigma_D * d[j][i];
+          y[i][j] = fminf(fmaxf(pv, -p.reg), p.reg);
+        }
+      } else {
+        float nsq = 0.f;
+#pragma unroll
+        for (int i = 0; i < ND; ++i) nsq += d[j][i] * d[j][i];
+        const float nn = sqrtf(nsq);
+        if (p.norm == N_HUBER)
+          pj = nn <= p.huber_delta ? (nn * nn) / (2.f * p.huber_delta)
+                                   : nn - p.huber_delta / 2.f;
+        else
+          pj = nn;
+        float psq = 0.f;
+#pragma unroll
+        for (int i = 0; i < ND; ++i) {
+          float pv = y[i][j] + p.sigma_D * d[j][i];
+          if (p.norm == N_HUBER) pv = pv / p.huber_den;
+          psq += pv * pv;
+          y[i][j] = pv;
+        }
+        const float den = fmaxf(sqrtf(psq) / p.reg, 1.f);
+#pragma unroll
+        for (int i = 0; i < ND; ++i) y[i][j] = y[i][j] / den;
+      }
+      if (j < n) part += pj;
+    }
+#pragma unroll
+    for (int i = 0; i < ND; ++i) store_run(yq + i * plane, vec, n, y[i]);
+  }
+  const float s = block_sum(part);
+  if (threadIdx.x == 0) parts[(int64_t)zt * gridDim.x + blockIdx.x] = s;
+}
+
+// Launch shape of pass A: one block per BLOCK runs of V columns of a plane,
+// one plane per blockIdx.y.
+template <int V>
+static inline dim3 dual_grid(const Params* p) {
+  return dim3((unsigned)dual_blocks<V>(p->Nr, p->Nc),
+              (unsigned)(p->Nz * p->M));
+}

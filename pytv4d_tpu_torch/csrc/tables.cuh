@@ -1,6 +1,7 @@
 // The channel tables that core/schemes.py::scheme_channels can produce, each
 // under a fixed id and in scheme_channels' channel order.  The specialised
-// pass A and TV pass 2 (csrc/specialised.cu) take a table as a template
+// CP pass A and TV pass 2 (csrc/specialised.cu), TV pass 1 and pass A for
+// inverse problems (csrc/specialised_tv.cu) take a table as a template
 // argument, so their channel loops unroll with no runtime axis or kind.
 // kernels/tables.py mirrors this list and maps a (cfg, Nz, M) to its id;
 // tests/test_torch_channel_tables.py holds the two equal.

@@ -1,14 +1,16 @@
-// Total variation and its subgradient for NVIDIA Hopper (sm_90a): pass 1
-// (per-voxel gradient norms and TV partials) and pass 2 (the subgradient G),
-// bound to Python through a plain C interface (ctypes).
+// Total variation and its subgradient for NVIDIA Hopper (sm_90a), in the
+// halo mode of a (z, t)-sharded solve: pass 1 (per-voxel gradient norms and
+// TV partials) and pass 2 (the subgradient G), bound to Python through a
+// plain C interface (ctypes).
 //
-// Replaces the Pallas TPU kernels of pytv4d_tpu/kernels/fused.py:
+// Replaces, on one shard, the Pallas TPU kernels of
+// pytv4d_tpu/kernels/fused.py:
 //   tv_norms_kernel   <- make_tv_norms_kernel   (pass 1, fused.py:1353)
-//   tv_subgrad_kernel <- make_tv_subgrad_kernel (pass 2, fused.py:1473; its
-//                                                halo mode: the unsharded
-//                                                pass 2 is specialised per
-//                                                channel table, in
-//                                                csrc/specialised.cu)
+//   tv_subgrad_kernel <- make_tv_subgrad_kernel (pass 2, fused.py:1473)
+// in their halo mode.  On an unsharded volume both passes launch kernels
+// specialised per channel table instead: pass 1 in
+// csrc/specialised_tv.cu, pass 2 in csrc/specialised.cu.
+//
 // The contract is tv_and_subgrad_fused (fused.py:1715), which equals
 // ops/tv.py::tv_and_subgrad:
 //   iso   n = |D x|_2 per voxel (+inf where 0), TV = sum n,
@@ -41,11 +43,11 @@
 // Built with -fmad=false, like cp_fused.cu, so each multiply, add and divide
 // rounds as in the plain PyTorch version (kernels/fused.py::tv_*_plain).
 //
-// Both passes also run on one shard of a (z, t)-sharded solve
-// (parallel/fused_halo.py; the TPU kernels' halo_mode): the HALO
-// instantiations, chosen by Params::sharded, read x extended by ghost or
-// neighbour planes per side in z and t (1 in pass 1, 2 in pass 2) and, in
-// pass 2, norms extended by 1, with the z and t gates off.
+// On one shard of a (z, t)-sharded solve (parallel/fused_halo.py; the TPU
+// kernels' halo_mode) the HALO instantiations, the only ones left, read x
+// extended by ghost or neighbour planes per side in z and t (1 in pass 1, 2
+// in pass 2) and, in pass 2, norms extended by 1, with the z and t gates
+// off; a launch without Params::sharded is refused.
 
 #include "voxel.cuh"
 
@@ -78,19 +80,17 @@ tv_subgrad_kernel(const Params p, const TX* __restrict__ x,
   st(g, v.xi, tv_subgrad_voxel<HALO>(p, v, x, norms));
 }
 
+// The halo mode only (the unsharded pass 1 is csrc/specialised_tv.cu's,
+// the unsharded pass 2 csrc/specialised.cu's).
 template <typename TX>
 static int launch_norms(const Params* p, const void* x, const void* tmul,
                         void* norms, void* parts, cudaStream_t stream) {
-  if (p->sharded)
-    tv_norms_kernel<TX, true><<<plane_grid(p), BLOCK, 0, stream>>>(
-        *p, (const TX*)x, (const float*)tmul, (float*)norms, (float*)parts);
-  else
-    tv_norms_kernel<TX, false><<<plane_grid(p), BLOCK, 0, stream>>>(
-        *p, (const TX*)x, (const float*)tmul, (float*)norms, (float*)parts);
+  if (!p->sharded) return (int)cudaErrorInvalidValue;
+  tv_norms_kernel<TX, true><<<plane_grid(p), BLOCK, 0, stream>>>(
+      *p, (const TX*)x, (const float*)tmul, (float*)norms, (float*)parts);
   return (int)cudaGetLastError();
 }
 
-// The halo mode only (the unsharded pass 2 is csrc/specialised.cu's).
 template <typename TX>
 static int launch_subgrad(const Params* p, const void* x, const void* norms,
                           const void* tmul, void* g, cudaStream_t stream) {

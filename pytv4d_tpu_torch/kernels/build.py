@@ -30,9 +30,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
-# and per source: the specialised kernels' one source instantiates a kernel
-# per channel table and storage, which nvcc compiles on every core
-SOURCE_FLAGS = {"specialised": ("-split-compile", "0")}
+# and per source: the two sources of the specialised kernels instantiate a
+# kernel per channel table and storage (126 each), which nvcc compiles on
+# every core
+SOURCE_FLAGS = {"specialised": ("-split-compile", "0"),
+                "specialised_tv": ("-split-compile", "0")}
 
 
 def nvcc_flags(name: str) -> tuple:

@@ -17,9 +17,11 @@ One CP iteration is two passes over the volume:
 
 For an inverse problem ``min F(A x) + reg TV(x)`` (``solvers.inverse``) the
 fidelity dual lives in the measurement space, so pass A is
-:func:`tv_dual` (kernel ``tv_dual_kernel``; replaces ``make_tv_dual_kernel``):
-the D channels of the over-relaxed iterate, the TV dual prox and the TV
-partials, with no ``x0`` and no ``y_A``.  Pass B then runs with ``A^T y_A``
+:func:`tv_dual` (kernel ``tv_dual_spec_kernel`` in
+``csrc/specialised_tv.cu``; replaces ``make_tv_dual_kernel``): the D
+channels of the over-relaxed iterate, the TV dual prox and the TV
+partials, with no ``x0`` and no ``y_A``: pass A's body without the
+fidelity dual.  Pass B then runs with ``A^T y_A``
 in its ``y_A`` slot and writes x' to a second buffer, because the solver
 still needs x.
 
@@ -36,26 +38,28 @@ bfloat16, chosen independently for the primary arrays (x, x0, y_A) and the
 dual; compute is float32.
 
 The TV value and subgradient (:func:`tv_and_subgrad_fused`, the
-subgradient-descent step's operator) is two more passes, in
-``csrc/tv_fused.cu``:
+subgradient-descent step's operator) is two more passes:
 
-- pass 1, :func:`tv_norms` (kernel ``tv_norms_kernel``; replaces
-  ``make_tv_norms_kernel``): per-voxel gradient norms (float32; +inf at zero
-  for iso, the |D x| sum for aniso, the raw magnitude for huber) and one TV
-  partial per block, from x alone.
+- pass 1, :func:`tv_norms` (kernel ``tv_norms_spec_kernel`` in
+  ``csrc/specialised_tv.cu``; replaces ``make_tv_norms_kernel``): per-voxel
+  gradient norms (float32; +inf at zero for iso, the |D x| sum for aniso,
+  the raw magnitude for huber) and TV partials, from x alone; each block
+  marches a tile of the plane along t with the tiles of the planes either
+  side in shared memory.
 - pass 2, :func:`tv_subgrad` (kernel ``tv_subgrad_spec_kernel`` in
   ``csrc/specialised.cu``; replaces ``make_tv_subgrad_kernel``): G from x
   and the norms, recomputing the D channels at each voxel and its
   neighbours, stored in x's dtype.  No Nd-channel volume is written.
 
-On an unsharded volume, passes A and 2 launch kernels specialised for the
-scheme's channel table (``kernels.tables``: the table id picks the
-template instance); a table
-outside the compiled list raises.
+On an unsharded volume, passes A, 1 and 2 and pass A for inverse problems
+launch kernels specialised for the scheme's channel table
+(``kernels.tables``: the table id picks the template instance; the
+libraries :data:`SPECIALISED`); a table outside the compiled list raises.
 
 On one shard of a (z, t)-sharded solve (``parallel.fused_halo``) the four
-take the TPU kernels' modes, in the generic kernels of ``csrc/cp_fused.cu``
-(``cp_dual_kernel``) and ``csrc/tv_fused.cu`` (``tv_subgrad_kernel``).
+passes A, B, 1 and 2 take the TPU kernels' modes, in the generic kernels of
+``csrc/cp_fused.cu`` (``cp_dual_kernel``) and ``csrc/tv_fused.cu``
+(``tv_norms_kernel``, ``tv_subgrad_kernel``).
 ``halo_mode``: x (pass B: a copy of the dual, pass 2: the norms too)
 arrives extended by a plane per side in z and t (two
 for pass 2's x) that holds the neighbour shard's edge or, at the volume's
@@ -177,16 +181,35 @@ _ENTRY_POINTS = {
     # kernels/tgv_stream.py, tgv_resident.py, resident.py and zstream.py add
     # theirs
     "cp_fused": ("cp", _Params, {"cp_dual_launch": (2, 6),
-                                 "tv_dual_launch": (2, 3),
                                  "cp_primal_launch": (2, 8)}),
     "tv_fused": ("tv", _Params, {"tv_norms_launch": (1, 4),
                                  "tv_subgrad_launch": (1, 4)}),
     "cp_boundary": ("bnd", _Params, {"cp_dual_boundary_launch": (2, 7),
                                      "cp_primal_boundary_launch": (2, 7)}),
-    # the specialised pass A and pass 2; int flags (table, storage...)
+    # the specialised kernels; int flags (table, storage...)
     "specialised": ("spec", _Params, {"spec_cp_dual_launch": (3, 6),
                                       "spec_tv_subgrad_launch": (2, 4)}),
+    "specialised_tv": ("spectv", _Params, {"spectv_norms_launch": (2, 4),
+                                           "spectv_dual_launch": (3, 3)}),
 }
+SPECIALISED = ("specialised", "specialised_tv")
+
+
+def _num_parts_name(lib, prefix, fn_name):
+    """The function of ``lib`` that counts the partials ``fn_name`` writes:
+    its own ``<launch>_num_parts`` where the library has one, else the
+    library's ``<prefix>_num_parts``."""
+    own = fn_name[:-len("_launch")] + "_num_parts"
+    return own if hasattr(lib, own) else f"{prefix}_num_parts"
+
+
+@functools.lru_cache(maxsize=None)
+def _num_parts(name, fn_name):
+    """The bound function of library ``name`` that counts the partials
+    ``fn_name`` writes (looked up once: a failed lookup costs a launch)."""
+    lib = _lib(name)
+    return getattr(lib, _num_parts_name(lib, _ENTRY_POINTS[name][0],
+                                        fn_name))
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,10 +222,11 @@ def _lib(name="cp_fused"):
     lib = load(name)
     prefix, params, launches = _ENTRY_POINTS[name]
     ptr = ctypes.c_void_p
-    if hasattr(lib, f"{prefix}_num_parts"):
-        num_parts = getattr(lib, f"{prefix}_num_parts")
-        num_parts.argtypes = [ctypes.c_int] * 4
-        num_parts.restype = ctypes.c_longlong
+    for count in {_num_parts_name(lib, prefix, fn) for fn in launches}:
+        if hasattr(lib, count):
+            num_parts = getattr(lib, count)
+            num_parts.argtypes = [ctypes.c_int] * 4
+            num_parts.restype = ctypes.c_longlong
     for fn_name, (n_int, n_ptr) in launches.items():
         fn = getattr(lib, fn_name)
         fn.argtypes = ([ctypes.POINTER(params)] + [ctypes.c_int] * n_int
@@ -319,7 +343,7 @@ def _launch(name, fn_name, x, p, flags, args, with_parts=False):
     prefix = _ENTRY_POINTS[name][0]
     parts = None
     if with_parts:
-        parts = torch.empty(getattr(lib, f"{prefix}_num_parts")(*x.shape),
+        parts = torch.empty(_num_parts(name, fn_name)(*x.shape),
                             dtype=torch.float32, device=x.device)
         args = (*args, parts)
     ptrs = [None if a is None else a.data_ptr() for a in args]
@@ -343,12 +367,14 @@ def _cp_launch(fn_name, x, y_D, p, args):
 
 
 def _spec_launch(fn_name, cfg, x, p, flags, args, with_parts=False):
-    """Launch a specialised kernel on the volume ``x`` (of the scheme's
-    shape), for the channel table of ``cfg`` at x's ``(Nz, M)``
-    (``kernels.tables``; raises where no kernel is compiled for it)."""
+    """Launch a specialised kernel, from whichever of the
+    :data:`SPECIALISED` libraries defines ``fn_name``, on the volume ``x``
+    (of the scheme's shape), for the channel table of ``cfg`` at x's
+    ``(Nz, M)`` (``kernels.tables``; raises where no kernel is compiled for
+    it)."""
     table = tables.table_id(cfg, x.shape[0], x.shape[1])
-    return _launch("specialised", fn_name, x, p, (table, *flags), args,
-                   with_parts)
+    name = next(n for n in SPECIALISED if fn_name in _ENTRY_POINTS[n][2])
+    return _launch(name, fn_name, x, p, (table, *flags), args, with_parts)
 
 
 def _shard_fields(halo_mode, interior, table_dims, **depths):
@@ -412,9 +438,17 @@ def tv_dual(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg):
     _check_dual(y_D, x_bar, _check_volume(x_bar, cfg))
     if x_bar.device.type == "cpu":
         return tv_dual_plain(x_bar, y_D, cfg=cfg, sigma_D=sigma_D, reg=reg)
+    return _tv_dual_kernel(x_bar, y_D, cfg=cfg, sigma_D=sigma_D, reg=reg)
+
+
+def _tv_dual_kernel(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg):
+    """:func:`tv_dual`'s launch, on checked operands: the kernel of the
+    scheme's channel table (``csrc/specialised_tv.cu``)."""
     p = _params(cfg, tuple(x_bar.shape), False, sigma_D=float(sigma_D),
                 reg=float(reg))
-    parts = _cp_launch("tv_dual_launch", x_bar, y_D, p, (x_bar, y_D))
+    parts = _spec_launch("spectv_dual_launch", cfg, x_bar, p,
+                         _storage_flags(x_bar, y_D), (x_bar, y_D),
+                         with_parts=True)
     tv_dual.launches += 1
     return y_D, parts
 
@@ -877,13 +911,26 @@ def tv_norms(x, tmul=None, *, cfg: TVConfig, halo_mode=False,
     if x.device.type == "cpu":
         return tv_norms_plain(x, tmul, cfg=cfg, halo_mode=halo_mode,
                               table_dims=table_dims)
+    return _tv_norms_kernel(x, tmul, cfg=cfg, halo_mode=halo_mode,
+                            table_dims=table_dims)
+
+
+def _tv_norms_kernel(x, tmul=None, *, cfg: TVConfig, halo_mode=False,
+                     table_dims=None):
+    """:func:`tv_norms`'s launch, on checked operands: the kernel of the
+    scheme's channel table (``csrc/specialised_tv.cu``) on a volume, the
+    generic halo-mode kernel (``csrc/tv_fused.cu``) on a shard."""
     shape = _shard_shape(x, int(halo_mode))
     p = _params(cfg, shape, tmul is not None,
                 **_shard_fields(halo_mode, False, table_dims, xe=1))
     norms = torch.empty(shape, dtype=torch.float32, device=x.device)
-    parts = _launch("tv_fused", "tv_norms_launch", norms, p,
-                    (int(x.dtype == torch.bfloat16),), (x, tmul, norms),
-                    with_parts=True)
+    flags = (int(x.dtype == torch.bfloat16),)
+    if halo_mode:
+        parts = _launch("tv_fused", "tv_norms_launch", norms, p, flags,
+                        (x, tmul, norms), with_parts=True)
+    else:
+        parts = _spec_launch("spectv_norms_launch", cfg, norms, p, flags,
+                             (x, tmul, norms), with_parts=True)
     tv_norms.launches += 1
     return norms, parts
 

@@ -1,12 +1,13 @@
-"""Which specialised kernel an unsharded CP pass A (B1) or TV pass 2 (B4)
-launches: the id of its channel table.
+"""Which specialised kernel an unsharded CP pass A (B1), TV pass 1 (B3), TV
+pass 2 (B4) or pass A for inverse problems (B5) launches: the id of its
+channel table.
 
 ``csrc/tables.cuh`` lists the 21 channel tables that
 ``core.schemes.scheme_channels`` can produce (upwind, downwind and hybrid
 with z on/off x t on/off; central with z in {off, CTR, FWD when Nz == 2} x
 t in {off, CTR, FWD when M == 2}), each in scheme_channels' channel order,
-and the specialised kernels (``csrc/specialised.cu``) take one as a
-template argument.  :data:`TABLES` mirrors that list
+and the specialised kernels (``csrc/specialised.cu``,
+``csrc/specialised_tv.cu``) take one as a template argument.  :data:`TABLES` mirrors that list
 (``tests/test_torch_channel_tables.py`` holds the two equal).  A channel
 sequence outside it raises: nothing falls back to the generic kernels.
 """

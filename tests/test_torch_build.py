@@ -39,19 +39,24 @@ def test_repo_kernels_include_the_shared_header():
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "tgv.cuh", "stencil.cuh"]
-    # the specialised pass A and pass 2: the channel tables, and voxel.cuh
-    # for the fidelity dual
-    sources = build._sources(os.path.join(build.CSRC, "specialised.cu"))
-    assert [os.path.basename(p) for p in sources] == \
-        ["specialised.cu", "tables.cuh", "voxel.cuh", "stencil.cuh"]
+    # the specialised kernels' two sources share specialised.cuh: the
+    # channel tables, and voxel.cuh for the fidelity dual
+    for name in ("specialised", "specialised_tv"):
+        sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
+        assert [os.path.basename(p) for p in sources] == \
+            [f"{name}.cu", "specialised.cuh", "tables.cuh", "voxel.cuh",
+             "stencil.cuh"]
 
 
 def test_only_the_specialised_source_splits_its_compile():
-    """nvcc compiles the one source of the specialised kernels (a kernel per
-    channel table and storage) on every core; the others as they were, and
-    the flags are part of each library's cache key."""
-    assert build.nvcc_flags("specialised") == \
-        build.NVCC_FLAGS + ("-split-compile", "0")
+    """nvcc compiles the two sources of the specialised kernels (a kernel
+    per channel table and storage: B1 and B4 in specialised.cu, B3 and B5
+    in specialised_tv.cu) on every core; the others as they were, and the
+    flags are part of each library's cache key."""
+    for name in ("specialised", "specialised_tv"):
+        assert build.nvcc_flags(name) == \
+            build.NVCC_FLAGS + ("-split-compile", "0")
+    assert set(build.SOURCE_FLAGS) == {"specialised", "specialised_tv"}
     for name in ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident",
                  "resident", "cp_zstream", "cp_boundary"):
         assert build.nvcc_flags(name) == build.NVCC_FLAGS
@@ -67,7 +72,7 @@ def test_every_library_has_its_entry_points_and_its_source():
 
     assert set(fused._ENTRY_POINTS) == {
         "cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "cp_zstream",
-        "resident", "cp_boundary", "specialised"}
+        "resident", "cp_boundary", "specialised", "specialised_tv"}
     for name, (prefix, params, launches) in fused._ENTRY_POINTS.items():
         text = ""
         for path in build._sources(os.path.join(build.CSRC, f"{name}.cu")):
@@ -109,3 +114,27 @@ def test_params_struct_mirrors_the_header():
     assert ctypes.sizeof(fused._Params) == 4 * sum(n for _, _, n in want)
     assert [n for n, _, _ in want][-7:] == [
         "sharded", "t_free", "xe", "ye", "ne", "z_first", "z_last"]
+
+
+def test_each_launch_with_partials_has_its_count():
+    """A launch that writes TV or fidelity partials has a C function that
+    counts them: its own ``<launch>_num_parts`` (the two passes of
+    specialised_tv.cu, whose blocks differ) or the library's
+    ``<prefix>_num_parts``; the generic B5 is gone with its entry point."""
+    from pytv4d_tpu_torch.kernels import fused
+
+    counts = {}
+    for name in ("cp_fused", "tv_fused", "specialised", "specialised_tv"):
+        prefix, _, launches = fused._ENTRY_POINTS[name]
+        with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
+            text = f.read()
+        defined = set(re.findall(r"long long (\w+_num_parts)\(", text))
+        for fn in launches:
+            own = fn[:-len("_launch")] + "_num_parts"
+            counts[fn] = own if own in defined else f"{prefix}_num_parts"
+        assert set(counts[fn] for fn in launches) <= defined
+    assert counts["spectv_norms_launch"] == "spectv_norms_num_parts"
+    assert counts["spectv_dual_launch"] == "spectv_dual_num_parts"
+    assert counts["spec_cp_dual_launch"] == "spec_num_parts"
+    assert counts["tv_norms_launch"] == "tv_num_parts"
+    assert "tv_dual_launch" not in fused._ENTRY_POINTS["cp_fused"][2]

@@ -1,8 +1,9 @@
-"""The specialised B1/B4 kernels' channel tables (no nvcc or GPU needed):
-``kernels/tables.py`` maps every configuration to the one compiled table
-whose channels are ``scheme_channels``' in order, mirrors the list in
-``csrc/tables.cuh`` that ``csrc/specialised.cu`` instantiates, and raises
-on a table outside the list."""
+"""The specialised B1/B3/B4/B5 kernels' channel tables (no nvcc or GPU
+needed): ``kernels/tables.py`` maps every configuration to the one compiled
+table whose channels are ``scheme_channels``' in order, mirrors the list in
+``csrc/tables.cuh`` that ``csrc/specialised.cu`` and
+``csrc/specialised_tv.cu`` instantiate, and raises on a table outside the
+list."""
 
 import itertools
 import math
@@ -93,12 +94,20 @@ def test_mirror_equals_the_header():
         "UPWIND", "DOWNWIND", "HYBRID", "CENTRAL", "CENTRAL_FWD"]
 
 
-@pytest.mark.parametrize("launch", ["spec_cp_dual_launch",
-                                    "spec_tv_subgrad_launch"])
-def test_each_launch_instantiates_every_table(launch):
-    """Both C entry points of csrc/specialised.cu switch over the whole
-    X-list, one case per table id, and fail any other id."""
-    with open(os.path.join(build.CSRC, "specialised.cu")) as f:
+@pytest.mark.parametrize("source, launch", [
+    ("specialised", "spec_cp_dual_launch"),
+    ("specialised", "spec_tv_subgrad_launch"),
+    ("specialised_tv", "spectv_norms_launch"),
+    ("specialised_tv", "spectv_dual_launch"),
+])
+def test_each_launch_instantiates_every_table(source, launch):
+    """The C entry points of csrc/specialised.cu and csrc/specialised_tv.cu
+    switch over the whole X-list, one case per table id, and fail any other
+    id."""
+    from pytv4d_tpu_torch.kernels import fused
+
+    assert launch in fused._ENTRY_POINTS[source][2]
+    with open(os.path.join(build.CSRC, f"{source}.cu")) as f:
         text = f.read()
     body = re.search(rf"int {launch}\((.*?)\n}}", text, re.S).group(1)
     assert re.search(r"switch \(id\)", body)
@@ -144,3 +153,42 @@ def test_spec_launch_passes_table_and_storage(monkeypatch):
     assert a1[4] == (tid, 0, 1) and k1 == {} and a1[6] is True
     assert a2[:2] == ("specialised", "spec_tv_subgrad_launch")
     assert a2[4] == (tid, 1) and a2[6] is False
+
+
+def test_unsharded_tv_passes_launch_their_table(monkeypatch):
+    """What the unsharded TV norms (B3) and pass A for inverse problems (B5)
+    hand their library: the table id first, then the storage flags, with
+    the partials they write counted; the halo mode of the norms still
+    reaches the generic ``tv_norms_launch``.  (The launches' own
+    functions, called with CPU tensors and ``_launch`` recording.)"""
+    import torch
+
+    from pytv4d_tpu_torch.kernels import fused
+
+    seen = []
+    monkeypatch.setattr(fused, "_launch",
+                        lambda *a, **k: seen.append((a, k)) or "parts")
+    monkeypatch.setattr(fused.tv_norms, "launches", 0)
+    monkeypatch.setattr(fused.tv_dual, "launches", 0)
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    x = torch.zeros((3, 2, 4, 6), dtype=torch.bfloat16)
+    y_D = torch.zeros((3, 2, 8, 4, 6))
+    tid = tables.table_id(cfg, 3, 2)
+    assert tables.TABLES[tid] == ((AXIS_ROW, FWD), (AXIS_COL, FWD),
+                                  (AXIS_ROW, BWD), (AXIS_COL, BWD),
+                                  (AXIS_Z, FWD), (AXIS_Z, BWD),
+                                  (AXIS_T, FWD), (AXIS_T, BWD))
+    norms, parts = fused._tv_norms_kernel(x, cfg=cfg)
+    assert parts == "parts" and norms.shape == x.shape
+    out, parts = fused._tv_dual_kernel(x, y_D, cfg=cfg, sigma_D=0.5, reg=1.0)
+    assert out is y_D and parts == "parts"
+    ext = torch.zeros((5, 4, 4, 6))
+    fused._tv_norms_kernel(ext, cfg=cfg, halo_mode=True, table_dims=(3, 2))
+    (a1, k1), (a2, k2), (a3, k3) = seen
+    assert a1[:2] == ("specialised_tv", "spectv_norms_launch")
+    assert a1[4] == (tid, 1) and a1[5][0] is x and a1[6] is True
+    assert a2[:2] == ("specialised_tv", "spectv_dual_launch")
+    assert a2[4] == (tid, 1, 0) and a2[5] == (x, y_D) and a2[6] is True
+    assert a3[:2] == ("tv_fused", "tv_norms_launch")
+    assert a3[4] == (0,) and a3[5][0] is ext and k3 == {"with_parts": True}
+    assert (fused.tv_norms.launches, fused.tv_dual.launches) == (2, 1)

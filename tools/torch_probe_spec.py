@@ -1,14 +1,15 @@
-"""A/B of the specialised B1 / B4 kernels' design choices on one GPU.
+"""A/B of the specialised kernels' design choices on one GPU.
 
-    python3 tools/torch_probe_spec.py
+    python3 tools/torch_probe_spec.py [build] [offsets] [widths] [norms]
+                                      [dual] [anatomy]
 
-Three parts, each against the shipped ``csrc/specialised.cu``:
+Six parts (all without arguments), each against the shipped sources:
 
-- build: the eight sources of ``kernels/build.py`` compiled all at once, as
+- build: the nine sources of ``kernels/build.py`` compiled all at once, as
   ``chip_smoke.py`` phase 2 does, first with the shipped flags, then with
-  ``specialised.cu`` compiled without ``-split-compile``; the wall time of
-  each round and ``specialised.cu``'s own seconds, kernels, registers and
-  spills.
+  ``specialised.cu`` and ``specialised_tv.cu`` compiled without
+  ``-split-compile``; the wall time of each round and the two sources' own
+  seconds, kernels, registers and spills.
 - offsets: the shipped 32-bit offsets within a plane (``Offset``) against
   a variant with 64-bit ones, hybrid tables only; one launch of B1 and B4
   for the hybrid
@@ -16,15 +17,30 @@ Three parts, each against the shipped ``csrc/specialised.cu``:
   and of B1 at the north-star (96, 16, 512, 512) in bf16, as its phase of
   ``chip_smoke.py`` stores it.
 - widths: B1's columns per thread (``VEC``: 2, or 4 with 16-byte
-  accesses) and B4's rows per thread (``RPT``: 1, 2 or 4), in variants of
+  accesses, which ``specialised.cuh`` provides) and B4's rows per thread (``RPT``: 1, 2 or 4), in variants of
   the source restricted to the hybrid tables; one launch of each at
   (32, 8, 256, 256) for the hybrid ``reg_time=0.5`` table, iso in float32,
   with a bf16 dual and in bf16, aniso in float32 and bf16.
+- norms: B3 (``specialised_tv.cu``) with its march along t (shipped),
+  along z and without a march (every out-of-plane neighbour from global
+  memory), with other depths of the ring (``AHEAD``), tile shapes
+  (``NORMS_TC`` x ``NORMS_TR``) and register caps (``NORMS_MIN_BLOCKS``);
+  hybrid ``reg_time=0.5`` at (32, 8, 256, 256) iso in float32 and bf16,
+  aniso in float32, and at (16, 4, 512, 512) iso in float32.
+- dual: B5's columns per thread (``VEC_TV`` 2 or 4), hybrid
+  ``reg_time=0.5`` at (32, 8, 256, 256) in float32, with a bf16 dual and in
+  bf16, and at (16, 4, 512, 512) in float32.
+- anatomy: B3 with its norm arithmetic, its store or its across copies cut
+  out, alone and together, iso in float32 and bf16 at (32, 8, 256, 256):
+  what its time is made of (these variants' norms are not checked).
 
 Variants are written under ``pytv4d_tpu_torch/_build/variants/``
-(git-ignored).  A time is the mean of 50 launches between two CUDA events,
-best of 5; every variant's outputs must equal the shipped kernel's bit for
-bit.  The last line is the card's name and power limit.
+(git-ignored), restricted to the hybrid tables.  A time is the mean of 50
+launches between two CUDA events, best of 5; in the norms and dual parts
+each kernel is timed twice, the variants in order and then in reverse.
+Every variant's outputs but the anatomy part's must equal the shipped
+kernel's bit for bit.  The
+last line is the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -47,42 +63,15 @@ from pytv4d_tpu_torch.core.config import TVConfig  # noqa: E402
 from pytv4d_tpu_torch.kernels import build, fused, tables  # noqa: E402
 
 SOURCES = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "resident",
-           "cp_zstream", "cp_boundary", "specialised")
+           "cp_zstream", "cp_boundary", "specialised", "specialised_tv")
+SPECIALISED = ("specialised", "specialised_tv")
+# kernel id by the name of its template
+KINDS = {"cp_dual_spec": "B1", "tv_subgrad_spec": "B4",
+         "tv_norms_spec": "B3", "tv_dual_spec": "B5"}
 WIDTHS = ((2, 2), (4, 1), (2, 1), (4, 2), (4, 4))  # (VEC, RPT), shipped first
 SHAPE = (32, 8, 256, 256)
 OUT = os.path.join(build.BUILD_DIR, "variants")
 DEV = torch.device("cuda", 0)
-
-# B1's vector accesses at four columns per thread
-FOUR_WIDE = r"""__device__ __forceinline__ void ld_vec(const float* p, float (&v)[VEC]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
-__device__ __forceinline__ void ld_vec(const __nv_bfloat16* p,
-                                       float (&v)[VEC]) {
-  const uint2 b = *reinterpret_cast<const uint2*>(p);
-  const unsigned a[2] = {b.x, b.y};
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    v[2 * j] = __uint_as_float(a[j] << 16);
-    v[2 * j + 1] = __uint_as_float(a[j] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void st_vec(float* p, const float (&v)[VEC]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ unsigned bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ void st_vec(__nv_bfloat16* p,
-                                       const float (&v)[VEC]) {
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(bf16_bits(v[0]) | bf16_bits(v[1]) << 16,
-                 bf16_bits(v[2]) | bf16_bits(v[3]) << 16);
-}
-
-"""
-
 
 def edit(path, pattern, repl):
     with open(path) as f:
@@ -94,9 +83,9 @@ def edit(path, pattern, repl):
         f.write(new)
 
 
-def variant(name, hybrid_only=True, edits=()):
+def variant(name, hybrid_only=True, edits=(), source="specialised.cu"):
     """A copy of csrc/ with ``edits`` (pattern, replacement) applied to
-    specialised.cu; with ``hybrid_only`` it instantiates the hybrid tables
+    ``source``; with ``hybrid_only`` it instantiates the hybrid tables
     alone."""
     d = os.path.join(OUT, name)
     shutil.copytree(build.CSRC, d)
@@ -105,7 +94,7 @@ def variant(name, hybrid_only=True, edits=()):
              r"(#define CHANNEL_TABLES\(X\)).*?CENTRAL_FWD_TABLES\(X\)",
              r"\1 HYBRID_TABLES(X)")
     for pattern, repl in edits:
-        edit(os.path.join(d, "specialised.cu"), pattern, repl)
+        edit(os.path.join(d, source), pattern, repl)
     return d
 
 
@@ -120,7 +109,8 @@ def compile_(src, flags):
     log = proc.stdout + proc.stderr
     regs = {}
     for entry in re.split(r"Compiling entry function '", log)[1:]:
-        kind = "B1" if "cp_dual" in entry.split("'")[0] else "B4"
+        name = entry.split("'")[0]
+        kind = next((k for t, k in KINDS.items() if t in name), "other")
         regs.setdefault(kind, []).append(
             int(re.search(r"Used (\d+) registers", entry).group(1)))
     spills = [tuple(map(int, m)) for m in re.findall(
@@ -139,32 +129,34 @@ def report(regs, spills):
 
 
 def part_build():
-    rounds = (("shipped flags", build.nvcc_flags("specialised")),
-              ("specialised.cu without -split-compile", build.NVCC_FLAGS))
-    for i, (what, spec_flags) in enumerate(rounds):
+    rounds = (("shipped flags", True),
+              ("the specialised sources without -split-compile", False))
+    for i, (what, split) in enumerate(rounds):
         d = variant(f"build{i}", hybrid_only=False)
         jobs = [(os.path.join(d, f"{s}.cu"),
-                 spec_flags if s == "specialised" else build.nvcc_flags(s))
-                for s in SOURCES]
+                 build.nvcc_flags(s) if split or s not in SPECIALISED
+                 else build.NVCC_FLAGS) for s in SOURCES]
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-            done = list(pool.map(lambda j: compile_(*j), jobs))
+            done = dict(zip(SOURCES, pool.map(lambda j: compile_(*j), jobs)))
         wall = time.perf_counter() - t0
-        sec, _, regs, spills = done[-1]
         print(f"[build, {what}] {len(jobs)} sources in parallel {wall:.1f} s;"
-              f" specialised.cu {sec:.1f} s, {report(regs, spills)}",
-              flush=True)
+              + ";".join(f" {s}.cu {done[s][0]:.1f} s, "
+                         f"{report(done[s][2], done[s][3])}"
+                         for s in SPECIALISED), flush=True)
 
 
-def bind(path):
+def bind(path, name="specialised"):
     lib = ctypes.CDLL(path)
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     pp = ctypes.POINTER(fused._Params)
-    _, _, launches = fused._ENTRY_POINTS["specialised"]
+    prefix, _, launches = fused._ENTRY_POINTS[name]
     for fn_name, (n_int, n_ptr) in launches.items():
         getattr(lib, fn_name).argtypes = ([pp] + [cint] * n_int
                                           + [ptr] * (n_ptr + 1))
-    lib.spec_num_parts.restype = ctypes.c_longlong
+        count = fused._num_parts_name(lib, prefix, fn_name)
+        if hasattr(lib, count):
+            getattr(lib, count).restype = ctypes.c_longlong
     return lib
 
 
@@ -244,7 +236,8 @@ def same(a, b):
 
 def part_offsets():
     d = variant("offsets64", edits=[(r"typedef int Offset;",
-                                     "typedef int64_t Offset;")])
+                                     "typedef int64_t Offset;")],
+                source="specialised.cuh")
     sec, so, regs, spills = compile_(os.path.join(d, "specialised.cu"),
                                      build.nvcc_flags("specialised"))
     print(f"[offsets, build] 64-bit: nvcc {sec:.1f} s, {report(regs, spills)}",
@@ -285,10 +278,6 @@ def part_widths():
                       f"constexpr int VEC = {vec};"),
                      (r"constexpr int RPT = \d+;",
                       f"constexpr int RPT = {rpt};")]
-            if vec == 4:
-                edits.append((r"__device__ __forceinline__ void ld_vec\(const "
-                              r"float\* p.*?(?=// The n <= VEC)",
-                              FOUR_WIDE.replace("\\", "\\\\")))
             d = variant(f"vec{vec}_rpt{rpt}", edits=edits)
             return w, compile_(os.path.join(d, "specialised.cu"),
                                build.nvcc_flags("specialised"))
@@ -315,11 +304,184 @@ def part_widths():
         torch.cuda.empty_cache()
 
 
+def _const(name, value):
+    return (rf"constexpr int {name} = [^;]+;", f"constexpr int {name} = {value};")
+
+
+# B3's variants: (label, edits of specialised_tv.cu); the shipped source is
+# timed beside them from its own library
+NORMS_VARIANTS = (
+    ("no march", (_const("MARCH", -1),)),
+    ("march along z", (_const("MARCH", "AX_Z"),)),
+    ("AHEAD 2", (_const("AHEAD", 2),)),
+    ("AHEAD 4", (_const("AHEAD", 4),)),
+    ("64 x 8 tile", (_const("NORMS_TR", 8),)),
+    ("64 x 32 tile", (_const("NORMS_TR", 32),)),
+    ("32 x 16 tile", (_const("NORMS_TC", 32),)),
+    ("min 3 blocks", (_const("NORMS_MIN_BLOCKS", 3),)),
+)
+DUAL_VARIANTS = (("VEC_TV 4", (_const("VEC_TV", 4),)),)
+# B3 with parts of its work cut out, to see what its time is made of (the
+# norms then differ from the shipped kernel's: not checked)
+_NO_COMPUTE = (r"spec_d<T>\(p, pos, len, tof\(cur\.x\[i\]\[cx\]\), xm, xp, "
+               r"tm\[j\], d\);\n      float n;\n      part \+= spec_norm<T>\(p, d, n\);",
+               "float n = tof(cur.x[i][cx]) + xm[0] + xp[0] + xm[1] + xp[1] + "
+               "xm[2] + xp[2] + xm[3] + xp[3];\n      part += n;")
+_NO_STORE = (r"nz\[q\[j\]\] = n;", "if (n == 1234.5f) nz[q[j]] = n;")
+_NO_ACROSS = (r"if constexpr \(ACROSS >= 0\) \{\n      constexpr unsigned NB",
+              "if constexpr (ACROSS >= 100) {\n      constexpr unsigned NB")
+ANATOMY_VARIANTS = (
+    ("no norm arithmetic", (_NO_COMPUTE,)),
+    ("no store", (_NO_STORE,)),
+    ("no across copies", (_NO_ACROSS,)),
+    ("no arithmetic, no store", (_NO_COMPUTE, _NO_STORE)),
+    ("copies alone", (_NO_COMPUTE, _NO_STORE, _NO_ACROSS)),
+)
+
+
+def build_variants(tag, variants):
+    """Compile each variant of specialised_tv.cu (hybrid tables), all at
+    once; {label: library}, the shipped one first."""
+    def make(item):
+        i, (label, edits) = item
+        d = variant(f"{tag}{i}", edits=edits, source="specialised_tv.cu")
+        return label, compile_(os.path.join(d, "specialised_tv.cu"),
+                               build.nvcc_flags("specialised_tv"))
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        built = list(pool.map(make, enumerate(variants)))
+    libs = {"shipped": fused._lib("specialised_tv")}
+    for label, (sec, so, regs, spills) in built:
+        print(f"[{tag}, build] {label}: nvcc {sec:.1f} s, "
+              f"{report(regs, spills)}", flush=True)
+        libs[label] = bind(so, "specialised_tv")
+    return libs
+
+
+def timed_in_turns(runs):
+    """{label: ms}: each run timed in order, then in reverse; "a / b"."""
+    first = {k: launch_ms(f) for k, f in runs.items()}
+    second = {k: launch_ms(runs[k]) for k in reversed(list(runs))}
+    return {k: f"{first[k]:.4f} / {second[k]:.4f}" for k in runs}
+
+
+def part_norms():
+    libs = build_variants("norms", NORMS_VARIANTS)
+    f32, bf16 = torch.float32, torch.bfloat16
+    stream = torch.cuda.current_stream(DEV).cuda_stream
+    for shape, norm, x_dt in ((SHAPE, "iso", f32), (SHAPE, "iso", bf16),
+                              (SHAPE, "aniso", f32),
+                              ((16, 4, 512, 512), "iso", f32)):
+        cfg = TVConfig(scheme="hybrid", reg_time=0.5, norm=norm)
+        tid = tables.table_id(cfg, *shape[:2])
+        p = fused._params(cfg, shape, False)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        x = torch.rand(shape, generator=gen, device=DEV).to(x_dt)
+        runs, ref = {}, None
+        for label, lib in libs.items():
+            norms = torch.empty(shape, device=DEV)
+            parts = torch.empty(lib.spectv_norms_num_parts(*shape),
+                                device=DEV)
+
+            def run(lib=lib, norms=norms, parts=parts):
+                code = lib.spectv_norms_launch(
+                    ctypes.byref(p), tid, int(x_dt == bf16), x.data_ptr(),
+                    None, norms.data_ptr(), parts.data_ptr(), stream)
+                assert code == 0, code
+
+            run()
+            torch.cuda.synchronize()
+            tv = float(parts.double().sum())
+            ref = ref or (norms, tv)
+            if not (torch.equal(norms, ref[0])
+                    and abs(tv - ref[1]) <= 1e-6 * abs(ref[1])):
+                raise RuntimeError(f"B3 {label}: outputs differ from the "
+                                   f"shipped kernel's")
+            runs[label] = run
+        print(f"[norms, ms per launch, {norm} x {str(x_dt)[6:]} {shape}] "
+              + "; ".join(f"{k} {v}" for k, v in timed_in_turns(runs).items())
+              + "; norms bit-equal", flush=True)
+        torch.cuda.empty_cache()
+
+
+def part_dual():
+    libs = build_variants("dual", DUAL_VARIANTS)
+    f32, bf16 = torch.float32, torch.bfloat16
+    stream = torch.cuda.current_stream(DEV).cuda_stream
+    for shape, x_dt, d_dt in ((SHAPE, f32, f32), (SHAPE, f32, bf16),
+                              (SHAPE, bf16, bf16),
+                              ((16, 4, 512, 512), f32, f32)):
+        cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+        tid = tables.table_id(cfg, *shape[:2])
+        p = fused._params(cfg, shape, False, sigma_D=0.5, reg=0.5)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        x = torch.rand(shape, generator=gen, device=DEV).to(x_dt)
+        y0 = torch.rand((*shape[:2], 8, *shape[2:]), generator=gen,
+                        device=DEV).to(d_dt)
+        runs, ref = {}, None
+        for label, lib in libs.items():
+            y = y0.clone()
+            parts = torch.empty(lib.spectv_dual_num_parts(*shape),
+                                device=DEV)
+
+            def run(lib=lib, y=y, parts=parts):
+                code = lib.spectv_dual_launch(
+                    ctypes.byref(p), tid, int(x_dt == bf16),
+                    int(d_dt == bf16), x.data_ptr(), y.data_ptr(),
+                    parts.data_ptr(), stream)
+                assert code == 0, code
+
+            run()
+            torch.cuda.synchronize()
+            ref = ref if ref is not None else y.clone()
+            if not torch.equal(y, ref):
+                raise RuntimeError(f"B5 {label}: y_D' differs from the "
+                                   f"shipped kernel's")
+            runs[label] = run
+        print(f"[dual, ms per launch, x {str(x_dt)[6:]} dual "
+              f"{str(d_dt)[6:]} {shape}] "
+              + "; ".join(f"{k} {v}" for k, v in timed_in_turns(runs).items())
+              + "; y_D' bit-equal", flush=True)
+        del y0, runs
+        torch.cuda.empty_cache()
+
+
+def part_anatomy():
+    libs = build_variants("anatomy", ANATOMY_VARIANTS)
+    stream = torch.cuda.current_stream(DEV).cuda_stream
+    for x_dt in (torch.float32, torch.bfloat16):
+        cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+        tid = tables.table_id(cfg, *SHAPE[:2])
+        p = fused._params(cfg, SHAPE, False)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        x = torch.rand(SHAPE, generator=gen, device=DEV).to(x_dt)
+        runs = {}
+        for label, lib in libs.items():
+            norms = torch.empty(SHAPE, device=DEV)
+            parts = torch.empty(lib.spectv_norms_num_parts(*SHAPE),
+                                device=DEV)
+
+            def run(lib=lib, norms=norms, parts=parts):
+                code = lib.spectv_norms_launch(
+                    ctypes.byref(p), tid, int(x_dt == torch.bfloat16),
+                    x.data_ptr(), None, norms.data_ptr(), parts.data_ptr(),
+                    stream)
+                assert code == 0, code
+
+            runs[label] = run
+        print(f"[anatomy, ms per launch, iso x {str(x_dt)[6:]} {SHAPE}] "
+              + "; ".join(f"{k} {v}" for k, v in timed_in_turns(runs).items()),
+              flush=True)
+
+
+PARTS = {"build": part_build, "offsets": part_offsets,
+         "widths": part_widths, "norms": part_norms, "dual": part_dual,
+         "anatomy": part_anatomy}
+
+
 def main():
     shutil.rmtree(OUT, ignore_errors=True)
-    part_build()
-    part_offsets()
-    part_widths()
+    for name in sys.argv[1:] or PARTS:
+        PARTS[name]()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)

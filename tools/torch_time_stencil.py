@@ -8,10 +8,12 @@ Imports ``pytv4d_tpu_torch`` from ``DIR`` (default: this checkout), which
 builds its kernels there on first use, and prints one line of times at
 (32, 8, 256, 256), hybrid ``reg_time=0.5`` unless named: B1 (CP pass A) in
 float32, with a bf16 dual and in bf16, and for the upwind and central
-schemes; B2 (CP pass B); B3 (TV norms); B4 (TV subgradient) in float32, in
-bf16, with the aniso and huber norms and for upwind and central; B5 (pass A
-for inverse problems); each the mean of 50 launches between two CUDA
-events, best of 5.  Then ms per iteration of ``chambolle_pock`` and
+schemes; B2 (CP pass B); B3 (TV norms) and B4 (TV subgradient) in float32,
+in bf16, with the aniso and huber norms and for upwind and central; B5
+(pass A for inverse problems) in float32, with a bf16 dual, in bf16 and
+for upwind and central, also at the CT path's (16, 4, 512, 512) ("B5 CT");
+each the
+mean of 50 launches between two CUDA events, best of 5.  Then ms per iteration of ``chambolle_pock`` and
 ``subgradient_descent`` at that volume: (a 60-iteration solve - a
 20-iteration one) / 40, best of 3.  ``--ab PARENT_DIR`` runs the script
 on PARENT_DIR, this checkout, this checkout and PARENT_DIR again, one
@@ -109,14 +111,35 @@ def main():
         return launch_ms(lambda: fused.cp_dual(*a, cfg=c, sigma_D=0.5,
                                                sigma_A=1.0, reg=1.0))
 
+    def b3(c, x_dt=torch.float32):
+        xb = x.to(x_dt)
+        return launch_ms(lambda: fused.tv_norms(xb, cfg=c))
+
     def b4(c, x_dt=torch.float32):
         xb = x.to(x_dt)
         norms, _ = fused.tv_norms(xb, cfg=c)
         return launch_ms(lambda: fused.tv_subgrad(xb, norms, cfg=c))
 
+    ct_shape = (16, 4, 512, 512)
+    x_ct = torch.as_tensor(np.random.default_rng(1).random(ct_shape),
+                           dtype=torch.float32, device=dev)
+
+    def b5(c, x_dt=torch.float32, d_dt=torch.float32, xs=x):
+        Nd = num_channels(c.scheme, *xs.shape[:2], c.reg_z_over_reg,
+                          c.reg_time)
+        xb = xs.to(x_dt)
+        y = torch.zeros((*xs.shape[:2], Nd, *xs.shape[2:]), dtype=d_dt,
+                        device=dev)
+        return launch_ms(lambda: fused.tv_dual(xb, y, cfg=c, sigma_D=0.5,
+                                               reg=1.0))
+
     y_D = dual(cfg)
     up, ctr = (TVConfig(scheme=s, reg_time=0.5) for s in ("upwind",
                                                           "central"))
+    aniso = TVConfig(scheme="hybrid", reg_time=0.5, norm="aniso")
+    huber = TVConfig(scheme="hybrid", reg_time=0.5, norm="huber",
+                     huber_delta=0.3)
+    bf16 = torch.bfloat16
     ms = {
         "B1": b1(cfg),
         "B1 bf16 dual": b1(cfg, d_dt=torch.bfloat16),
@@ -125,18 +148,30 @@ def main():
         "B1 central": b1(ctr),
         "B2": launch_ms(lambda: fused.cp_primal(x, x0, y_A, y_D, cfg=cfg,
                                                 tau=0.1)),
-        "B3": launch_ms(lambda: fused.tv_norms(x, cfg=cfg)),
+        "B3": b3(cfg),
+        "B3 bf16": b3(cfg, bf16),
+        "B3 aniso": b3(aniso),
+        "B3 huber": b3(huber),
+        "B3 upwind": b3(up),
+        "B3 central": b3(ctr),
         "B4": b4(cfg),
-        "B4 bf16": b4(cfg, torch.bfloat16),
-        "B4 aniso": b4(TVConfig(scheme="hybrid", reg_time=0.5,
-                                norm="aniso")),
-        "B4 huber": b4(TVConfig(scheme="hybrid", reg_time=0.5, norm="huber",
-                                huber_delta=0.3)),
+        "B4 bf16": b4(cfg, bf16),
+        "B4 aniso": b4(aniso),
+        "B4 huber": b4(huber),
         "B4 upwind": b4(up),
         "B4 central": b4(ctr),
-        "B5": launch_ms(lambda: fused.tv_dual(x, y_D, cfg=cfg, sigma_D=0.5,
-                                              reg=1.0)),
+        "B5": b5(cfg),
+        "B5 bf16 dual": b5(cfg, d_dt=bf16),
+        "B5 bf16": b5(cfg, bf16, bf16),
+        "B5 upwind": b5(up),
+        "B5 central": b5(ctr),
+        "B5 CT": b5(cfg, xs=x_ct),
+        "B5 CT bf16 dual": b5(cfg, d_dt=bf16, xs=x_ct),
+        "B5 CT bf16": b5(cfg, bf16, bf16, xs=x_ct),
+        "B5 CT upwind": b5(up, xs=x_ct),
+        "B5 CT central": b5(ctr, xs=x_ct),
     }
+    del x_ct
     its = {
         "CP": iteration_ms(lambda n: chambolle_pock(
             x0, n_iter=n, reg=1.0, cfg=cfg, return_dual=False)),
