@@ -6,7 +6,7 @@ Builds the CP kernels (B1 pass A, B5 pass A for inverse problems, B2 pass
 B, B10 pass A marching along z, B8 the sharded step's two boundary
 kernels), the TV kernels (B3 norms, B4 subgradient),
 the whole-solve CP and GD kernels (B9) and the TGV-2 kernels (B6 passes PQ
-and XW, B7 whole solve)
+and XW, B7 whole solve: on chip, and in L2 for larger slices)
 from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once; B1, B3,
 B4 and B5 on an unsharded volume are the kernels specialised per channel
 table (``csrc/specialised.cu`` for B1 and B4, ``csrc/specialised_tv.cu``
@@ -25,11 +25,15 @@ the generic bodies, as B1 above), drives
 cameraman image and the reference's ``tv_GPU.tv_hybrid`` through them,
 measures the 4D GD rate, the split of an iteration and the kernels' GB/s,
 and runs the (96, 16, 512, 512) volume.  For the TGV-2 path (phases 12-15):
-holds B6/B7 against their plain versions, drives ``TVDenoiser.tgv`` on the
-cameraman image from a numpy array (it must land on the card, in one B7
-launch) and a 4d ``tgv_denoise`` through B6, measures the whole-solve and
-streaming rates and where one overtakes the other, and runs the
-(96, 16, 512, 512) volume in the 4d mode.  For the inverse solver and
+holds B6/B7 against their plain versions (B7's on-chip kernel also bit for
+bit against its L2 kernel, and a launch the card refuses must raise),
+drives ``TVDenoiser.tgv`` on the
+cameraman image from a numpy array (it must land on the card, in one
+on-chip B7 launch) and a 4d ``tgv_denoise`` through B6, measures the
+whole-solve kernels against each other and the streaming rates, where one
+overtakes the other, the B7 bounds and how many B7 clusters the card holds
+at once, and runs the (96, 16, 512, 512) volume in the 4d mode.  For the
+inverse solver and
 parallel-beam CT (phases 16-19): holds B5 (pass A for inverse problems)
 against its plain version on the other kernels' case grid, and bit for bit
 against B1's generic body over every channel table, and B2 writing
@@ -164,8 +168,9 @@ README_TV = 532166.8251801673  # tv_hybrid(rand(20, 4, 100, 100)), seed 0
 # TVDenoiser(reg=25).tgv(cameraman + noise, 300): the JAX package in f64 on
 # the CPU (tests/test_torch_tgv.py)
 CAMERAMAN_TGV_LOSS = 37211904.16116732
-LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "resident",
-        "cp_zstream", "cp_boundary", "specialised", "specialised_tv")
+LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
+        "resident", "cp_zstream", "cp_boundary", "specialised",
+        "specialised_tv")
 # the kernels specialised per channel table, by kernel id (phase 2 reports
 # each one's registers and spills)
 SPEC_KERNELS = {"B1": "cp_dual_spec_kernel", "B4": "tv_subgrad_spec_kernel",
@@ -175,7 +180,9 @@ COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
             "B3": fused.tv_norms, "B4": fused.tv_subgrad,
             "B5": fused.tv_dual,
             "B6pq": tgv_stream.tgv_pq, "B6xw": tgv_stream.tgv_xw,
-            "B7": tgv_resident.tgv_resident_solve,
+            # B7 on chip, and in L2 (slices too large for the chip)
+            "B7": tgv_resident.solve_onchip,
+            "B7l2": tgv_resident.solve_l2,
             "B9cp": resident.make_resident_cp_solver,
             "B9gd": resident.make_resident_gd_solver,
             "B10": zstream.cp_dual_zstream,
@@ -1025,8 +1032,104 @@ def _tgv_state(shape, mode, dtype, gen):
             x0.to(dtype))
 
 
+# B7's cases: the main path's shapes, a slice of odd size (one block), a
+# 4-block and a 16-block cluster whose rows do not divide into the bands
+# (odd columns, a short last band), a slice at the on-chip budget's edge
+# (228 096 bytes a block with the loss) and the L2 kernel's 512^2 and 1024^2
+# slices; (2, 2, 8, 40) also as a forced 16-block cluster, half of whose
+# blocks own no row
+B7_SHAPES = (SMALL, CAMERAMAN, MAIN_4D, (1, 1, 37, 33), (3, 1, 97, 151),
+             (2, 1, 250, 270), (1, 1, 288, 288), (1, 1, 512, 512),
+             (1, 1, 1024, 1024))
+B7_FORCED = ((2, 2, 8, 40), 16)
+
+
+def _bits_of(got, ref):
+    """The six state arrays of two whole solves are equal bit for bit."""
+    return all(_bits_equal(a, b) for a, b in zip(got[:6], ref[:6]))
+
+
+def _b7_cases(errs):
+    """B7 against its plain version over 1 and 20 iterations in the three
+    norms, with and without the loss; where the slice fits on chip, the
+    on-chip kernel's state against the L2 kernel's bit for bit (the losses
+    to 1e-5: the block partials group the sum otherwise).  Returns the
+    number of cases."""
+    n = 0
+    gen = torch.Generator(device=DEV).manual_seed(1357)
+    for shape in B7_SHAPES + (B7_FORCED[0],):
+        forced = shape == B7_FORCED[0]
+        x0 = 10.0 * torch.rand(shape, generator=gen, device=DEV)
+        for norm in TGV_NORMS:
+            kw = dict(norm=norm, **TGV_KW)
+            prm = tgv_stream.tgv_params(shape, "2d", TGV_KW["alpha1"],
+                                        TGV_KW["alpha0"], 1.0, norm,
+                                        TGV_KW["huber_delta"])
+            last = {}
+            for loss in (True, False):
+                onchip = (forced or tgv_resident.tgv_resident_variant(
+                    shape, loss) == "onchip")
+                key = "B7" if onchip else "B7l2"
+                for n_iter, tol in ((1, F32_TOL), (20, F32_TOL_20)):
+                    before = read_counters()
+                    if forced:
+                        got = tgv_resident.solve_onchip(
+                            x0, n_iter, prm, loss, cluster=B7_FORCED[1])
+                    else:
+                        got = tgv_resident.tgv_resident_solve(
+                            x0, n_iter, compute_loss=loss, **kw)
+                    after = read_counters()
+                    require(after[key] == before[key] + 1,
+                            f"B7 {shape} ran the {key} kernel")
+                    ref = tgv_resident.tgv_resident_plain(
+                        x0, n_iter, compute_loss=loss, **kw)
+                    sync()
+                    e = max(_compare(a, b, False, 0.0, tol)
+                            for a, b in zip(got[:6], ref[:6]))
+                    errs[key]["f32"] = max(errs[key]["f32"], e)
+                    want = (n_iter,) if loss else (0,)
+                    require(got[6].shape == want, "one loss per iteration")
+                    if loss:
+                        rel = float(((got[6] - ref[6]).abs()
+                                     / ref[6].abs()).max())
+                        require(rel <= 1e-5, f"B7 {norm} {shape} {n_iter} "
+                                             f"it: loss rel err {rel:.3g}")
+                    if onchip:
+                        l2 = tgv_resident.solve_l2(x0, n_iter, prm, loss)
+                        sync()
+                        require(_bits_of(got, l2),
+                                f"B7 {norm} {shape} {n_iter} it loss={loss}: "
+                                f"the on-chip state is the L2 kernel's bit "
+                                f"for bit")
+                        if loss:
+                            rel = float(((got[6] - l2[6]).abs()
+                                         / l2[6].abs()).max())
+                            require(rel <= 1e-5, "on-chip losses within "
+                                                 "1e-5 of the L2 kernel's")
+                    last[loss] = got
+                    n += 1
+            require(_bits_of(last[True], last[False]),
+                    "compute_loss=False: the same iterates")
+    # a launch the card refuses raises, and runs nothing else
+    x0 = torch.rand(CAMERAMAN, generator=gen, device=DEV)
+    prm = tgv_stream.tgv_params(CAMERAMAN, "2d", 1.0, 2.0, 1.0, "iso", 1.0)
+    before = read_counters()
+    try:
+        tgv_resident.solve_onchip(x0, 2, prm, True, smem_bytes=240 * 1024)
+    except RuntimeError as exc:
+        refused = str(exc)
+    else:
+        raise RuntimeError("check failed: an on-chip launch with 240 KB of "
+                           "shared memory a block was not refused")
+    require(read_counters() == before, "a refused launch counts nothing")
+    log(f"[12 B7 refused launch] 240 KB of shared memory a block: "
+        f"RuntimeError({refused!r})")
+    return n
+
+
 def phase_tgv_kernels():
-    errs = {k: {"f32": 0.0, "bf16": 0.0} for k in ("B6pq", "B6xw", "B7")}
+    errs = {k: {"f32": 0.0, "bf16": 0.0}
+            for k in ("B6pq", "B6xw", "B7", "B7l2")}
     n_cases = 0
     for shape in (SMALL, CAMERAMAN, MAIN_4D):
         gen = torch.Generator(device=DEV).manual_seed(2468)
@@ -1057,32 +1160,17 @@ def phase_tgv_kernels():
                             for a, b in zip(out_k, out_p))
                     errs["B6xw"][kind] = max(errs["B6xw"][kind], e)
                     n_cases += 1
-        for norm in TGV_NORMS:
-            x0 = 10.0 * torch.rand(shape, generator=gen, device=DEV)
-            kw = dict(norm=norm, **TGV_KW)
-            for n_iter, tol in ((1, F32_TOL), (20, F32_TOL_20)):
-                got = tgv_resident.tgv_resident_solve(x0, n_iter, **kw)
-                ref = tgv_resident.tgv_resident_plain(x0, n_iter, **kw)
-                sync()
-                e = max(_compare(a, b, False, 0.0, tol)
-                        for a, b in zip(got[:6], ref[:6]))
-                errs["B7"]["f32"] = max(errs["B7"]["f32"], e)
-                require(got[6].shape == (n_iter,), "one loss per iteration")
-                rel = float(((got[6] - ref[6]).abs() / ref[6].abs()).max())
-                require(rel <= 1e-5, f"B7 {norm} {shape} {n_iter} it: loss "
-                                     f"rel err {rel:.3g} <= 1e-5")
-            lean = tgv_resident.tgv_resident_solve(x0, 20, compute_loss=False,
-                                                   **kw)
-            sync()
-            require(lean[6].shape == (0,) and torch.equal(lean[0], got[0]),
-                    "compute_loss=False: the same iterates, no losses")
-            n_cases += 1
-    log(f"[12 TGV kernels vs plain] {n_cases} cases at {SMALL}, {CAMERAMAN} "
-        f"and {MAIN_4D}: pass; max abs err B6 PQ f32 "
+    n_b7 = _b7_cases(errs)
+    log(f"[12 TGV kernels vs plain] B6: {n_cases} cases at {SMALL}, "
+        f"{CAMERAMAN} and {MAIN_4D}; B7: {n_b7} at "
+        f"{', '.join(map(str, B7_SHAPES))} and {B7_FORCED}: "
+        f"pass; max abs err B6 PQ f32 "
         f"{errs['B6pq']['f32']:.3g} bf16 {errs['B6pq']['bf16']:.3g}, B6 XW "
         f"f32 {errs['B6xw']['f32']:.3g} bf16 {errs['B6xw']['bf16']:.3g}, B7 "
-        f"f32 over 1 and 20 iterations {errs['B7']['f32']:.3g} (bar atol "
-        f"{F32_TOL_20['atol']} rtol {F32_TOL_20['rtol']} at 20)")
+        f"f32 over 1 and 20 iterations: on chip {errs['B7']['f32']:.3g}, L2 "
+        f"{errs['B7l2']['f32']:.3g} (bar atol {F32_TOL_20['atol']} rtol "
+        f"{F32_TOL_20['rtol']} at 20); the on-chip state bit-equal to the L2 "
+        f"kernel's in every case")
     sync()
     return errs
 
@@ -1093,10 +1181,14 @@ def phase_tgv_main_path():
     require(isinstance(noisy, np.ndarray) and noisy.shape == (256, 256),
             "the input is a numpy image")
     zero_counters()
+    solves = tgv_resident.tgv_resident_solve.launches
     res = TVDenoiser(reg=25).tgv(noisy, 300)  # numpy in, no device=
     sync()
     launches = read_counters()
+    # one launch of the on-chip kernel, none of the L2 kernel or any other
     require_launches(launches, "TVDenoiser.tgv", B7=1)
+    require(tgv_resident.tgv_resident_solve.launches == solves + 1,
+            "one whole-solve launch")
     require(res.x.is_cuda and tuple(res.x.shape) == (256, 256)
             and res.x.dtype == torch.float32,
             "a numpy image is solved on the card, (256, 256) float32 out")
@@ -1146,7 +1238,8 @@ def phase_tgv_main_path():
         f"abs err of x vs the plain loop {err:.3g}; loss_every=5 -> "
         f"{[round(float(v), 1) for v in sampled.loss]}")
     sync()
-    return {"B7": launches["B7"], "B6pq": stream_launches["B6pq"],
+    return {"B7": launches["B7"], "B7l2": launches["B7l2"],
+            "B6pq": stream_launches["B6pq"],
             "B6xw": stream_launches["B6xw"]}
 
 
@@ -1199,6 +1292,16 @@ class _TGVRun:
             self.xw(x, self.x0, p, w, q, xb, wb, mode=self.mode)
 
 
+def _b7_kernel(variant, x, n_iter, alpha1, alpha0, compute_loss=True):
+    """One launch of the named B7 kernel ("onchip" or "l2"), whichever the
+    dispatch would pick for x."""
+    prm = tgv_stream.tgv_params(tuple(x.shape), "2d", alpha1, alpha0, 1.0,
+                                "iso", 1.0)
+    kernel = (tgv_resident.solve_onchip if variant == "onchip"
+              else tgv_resident.solve_l2)
+    return kernel(x, n_iter, prm, compute_loss)
+
+
 def tgv_ops_per_voxel(n):
     """Float operations per voxel of pass PQ, pass XW and the objective for
     an n-field mode, counted from csrc/tgv.cuh (iso norm; a sqrt, a max and
@@ -1219,19 +1322,60 @@ def phase_tgv_rates(card):
     vox = int(np.prod(MAIN_4D))
     out = {}
 
-    # the whole-solve kernel with the loss, and its plain version
-    def solve(n, plain=False, x=x32, compute_loss=True):
-        fn = (tgv_resident.tgv_resident_plain if plain
-              else tgv_resident.tgv_resident_solve)
-        return fn(x, n, 1.0, 2.0, compute_loss=compute_loss)
+    # the whole-solve kernels, on chip and in L2 (the parent's kernel, the
+    # same launch as before this kernel), with and without the loss, and
+    # the plain version
+    def solve(n, plain=False, x=x32, compute_loss=True, variant=None):
+        if plain:
+            return tgv_resident.tgv_resident_plain(x, n, 1.0, 2.0,
+                                                   compute_loss=compute_loss)
+        if variant:
+            return _b7_kernel(variant, x, n, 1.0, 2.0, compute_loss)
+        return tgv_resident.tgv_resident_solve(x, n, 1.0, 2.0,
+                                               compute_loss=compute_loss)
 
-    res_ms = _marginal_ms(solve, 30, 150)
+    b7 = {}
+    for loss in (True, False):
+        for v in ("onchip", "l2", "l2", "onchip"):  # in turns, best of two
+            ms = _marginal_ms(lambda n: solve(n, compute_loss=loss, variant=v),
+                              30, 150)
+            b7[(v, loss)] = min(b7.get((v, loss), float("inf")), ms)
     res_plain_ms = _marginal_ms(lambda n: solve(n, plain=True), 3, 9,
                                 repeats=1)
-    log(f"[14 TGV rates {MAIN_4D}] 2d whole solve (B7) f32 with the loss: "
-        f"{1e3 / res_ms:.1f} it/s marginal between 30 and 150 iterations "
-        f"({res_ms:.4f} ms/it), plain {1e3 / res_plain_ms:.2f} it/s "
-        f"({res_plain_ms:.3f} ms/it); card {card}")
+    # the user's call: tgv_denoise(axes='2d') with the loss lands on chip
+    kw2d = dict(alpha1=1.0, alpha0=2.0, axes="2d")
+    zero_counters()
+    tgv_denoise(x32, n_iter=2, **kw2d)
+    sync()
+    require_launches(read_counters(), "tgv_denoise(axes='2d')", B7=1)
+    denoise_ms = _marginal_ms(lambda n: tgv_denoise(x32, n_iter=n, **kw2d),
+                              30, 150)
+    ops2 = sum(tgv_ops_per_voxel(2))
+    it_bound = bound(0, ops2 * vox)[0]
+    solve_bytes = bound(13 * 4 * vox, 0)[0]
+    log(f"[14 TGV rates {MAIN_4D}] 2d whole solve (B7) f32, ms/it marginal "
+        f"between 30 and 150 iterations: with the loss on chip "
+        f"{b7[('onchip', True)]:.4f}, L2 (the parent's kernel) "
+        f"{b7[('l2', True)]:.4f} ({b7[('l2', True)] / b7[('onchip', True)]:.2f}"
+        f"x); without the loss on chip {b7[('onchip', False)]:.4f}, L2 "
+        f"{b7[('l2', False)]:.4f}; tgv_denoise(axes='2d') on chip "
+        f"{denoise_ms:.4f}; plain {res_plain_ms:.3f}; bound "
+        f"{ops2} flop/voxel -> {it_bound:.4f} ms/it (operations), 13 planes "
+        f"{13 * 4 * vox / 1e6:.0f} MB -> {solve_bytes:.4f} ms per solve "
+        f"(bytes); card {card}")
+    out["B7 main4d"] = {"onchip": b7[("onchip", True)],
+                        "l2": b7[("l2", True)], "bound": it_bound}
+
+    # how many 16-block clusters the card holds at once
+    occ = {(s, loss): (tgv_resident.max_active_clusters(s, loss),
+                       tgv_resident.onchip_launch_shape(s, loss))
+           for s, loss in ((CAMERAMAN, True), (CAMERAMAN, False),
+                           ((1, 1, 288, 288), True),
+                           ((1, 1, 336, 336), False))}
+    log("[14 B7 on chip] cudaOccupancyMaxActiveClusters: " + "; ".join(
+        f"{s[2]}x{s[3]} {'with' if loss else 'without'} the loss (C, R, "
+        f"threads, pixels a thread, bytes a block) {shape}: {n}"
+        for (s, loss), (n, shape) in occ.items()))
 
     # the streaming pair, per mode and storage
     for mode, tag, dtype in (("2d", "f32", torch.float32),
@@ -1275,46 +1419,74 @@ def phase_tgv_rates(card):
         sync()
 
     # where the whole-solve kernel stops paying: one more iteration of it
-    # against one iteration of the streaming pair, both without the loss
+    # against one iteration of the streaming pair, both without the loss;
+    # where the slice fits on chip, the L2 kernel beside it
     for shape in (CAMERAMAN, (1, 1, 1024, 1024), (8, 1, 1024, 1024),
                   MAIN_4D):
         gen = torch.Generator(device=DEV).manual_seed(7)
         x0 = torch.rand(shape, generator=gen, device=DEV)
+        variant = tgv_resident.tgv_resident_variant(shape, True)
         whole = _marginal_ms(
             lambda n: solve(n, x=x0, compute_loss=False), 20, 120)
         with_loss = _marginal_ms(lambda n: solve(n, x=x0), 20, 120)
+        l2 = ""
+        if variant == "onchip":
+            l2_ms = [_marginal_ms(lambda n: solve(n, x=x0, compute_loss=loss,
+                                                  variant="l2"), 20, 120)
+                     for loss in (False, True)]
+            l2 = f"; L2 kernel {l2_ms[0]:.4f} / {l2_ms[1]:.4f}"
         plain_loss = _marginal_ms(lambda n: solve(n, plain=True, x=x0), 2, 6,
                                   repeats=1)
         r = _TGVRun(x0, "2d", plain=False)
         stream = 1e3 / time_iterations(r.run, 100, DEV)
         del r
         log(f"[14 whole solve vs stream, 2d f32] {shape} ({shape[0] * shape[1]}"
-            f" slices): B7 {whole:.4f} ms/it without the loss, "
-            f"{with_loss:.4f} with; B6 pair {stream:.4f} ms/it (no loss); "
+            f" slices): B7 ({variant}) {whole:.4f} ms/it without the loss, "
+            f"{with_loss:.4f} with{l2}; B6 pair {stream:.4f} ms/it (no loss); "
             f"plain loop with the loss {plain_loss:.3f} ms/it")
         sync()
 
-    # B7 as the main path calls it: cameraman, 300 iterations, with the loss
+    # B7 as the main path calls it: cameraman, 300 iterations, with the loss,
+    # on chip and in L2
     noisy = torch.as_tensor(add_noise(cameraman(), 100, seed=0),
                             dtype=torch.float32, device=DEV)[None, None]
-    b7_ms = _best_ms(lambda: tgv_resident.tgv_resident_solve(
-        noisy, 300, 25.0, 50.0))
+    cam = {v: _best_ms(lambda: _b7_kernel(v, noisy, 300, 25.0, 50.0))
+           for v in ("onchip", "l2")}
     b7_plain_ms = _best_ms(lambda: tgv_resident.tgv_resident_plain(
         noisy, 300, 25.0, 50.0), repeats=1)
-    log(f"[14 B7 at cameraman] one 300-iteration solve with the loss: "
-        f"{b7_ms:.3f} ms ({300e3 / b7_ms:.0f} it/s), plain {b7_plain_ms:.1f} "
-        f"ms ({300e3 / b7_plain_ms:.0f} it/s)")
-    out["B7"] = (b7_ms, b7_plain_ms)
+    log(f"[14 B7 at cameraman] one 300-iteration solve with the loss: on chip "
+        f"{cam['onchip']:.3f} ms ({300e3 / cam['onchip']:.0f} it/s), L2 "
+        f"{cam['l2']:.3f} ms ({cam['l2'] / cam['onchip']:.2f}x), plain "
+        f"{b7_plain_ms:.1f} ms ({300e3 / b7_plain_ms:.0f} it/s)")
+    out["B7"] = (cam["onchip"], b7_plain_ms)
+    out["B7l2"] = (cam["l2"], b7_plain_ms)
 
     # bounds from this run's inputs: B6 at MAIN_4D 4d f32 (one launch of
     # each pass), B7 at cameraman (x0 read, 12 planes of state written,
-    # 300 iterations of all three phases)
+    # 300 iterations of all three phases), for both of its kernels
     ops_pq, ops_xw, _ = tgv_ops_per_voxel(4)
     b_pq, b_xw = tgv_traffic_model(MAIN_4D, "4d", torch.float32)
+    b7_bound = bound(13 * 4 * 256 * 256, 300 * ops2 * 256 * 256)
     out["bounds"] = {"B6pq": bound(b_pq, ops_pq * vox),
                      "B6xw": bound(b_xw, ops_xw * vox),
-                     "B7": bound(13 * 4 * 256 * 256,
-                                 300 * sum(tgv_ops_per_voxel(2)) * 256 * 256)}
+                     "B7": b7_bound, "B7l2": b7_bound}
+    # B6's bounds at every mode and storage timed above
+    b6 = []
+    for mode, dtype in (("2d", torch.float32), ("4d", torch.float32),
+                        ("4d", torch.bfloat16)):
+        o_pq, o_xw, _ = tgv_ops_per_voxel(TGV_FIELDS[mode])
+        t_pq, t_xw = tgv_traffic_model(MAIN_4D, mode, dtype)
+        b6.append(f"{mode} {str(dtype)[6:]} PQ {bound(t_pq, o_pq * vox)[0]:.4f}"
+                  f" ms, XW {bound(t_xw, o_xw * vox)[0]:.4f} ms")
+    log(f"[14 B6 bounds] {MAIN_4D}, each array once over "
+        f"{H100_HBM_PEAK_GBPS:.0f} GB/s (bytes set all): " + "; ".join(b6))
+    log(f"[14 B7 bounds] cameraman 300-iteration solve: 13 planes "
+        f"{13 * 4 * 256 * 256 / 1e6:.2f} MB, {300 * ops2 * 256 * 256 / 1e9:.3f}"
+        f" Gflop -> {b7_bound[0]:.4f} ms ({b7_bound[1]}): on chip "
+        f"{cam['onchip'] / b7_bound[0]:.0f}x, L2 {cam['l2'] / b7_bound[0]:.0f}x"
+        f"; {MAIN_4D} {it_bound:.4f} ms/it: on chip "
+        f"{b7[('onchip', True)] / it_bound:.1f}x, L2 "
+        f"{b7[('l2', True)] / it_bound:.1f}x")
     return out
 
 
@@ -2745,9 +2917,14 @@ def main():
               "tgv_stream.py:435", tgv_launches["B6xw"],
               tgv_errs["B6xw"]["f32"], stream_ms["xw"],
               tgv_errs["B6xw"]["bf16"]),
-        entry("B7", "tgv_resident_kernel (2d TGV whole solve)",
-              "tgv_resident.cu", "tgv_resident.py:58", tgv_launches["B7"],
+        entry("B7", "tgv_onchip_kernel (2d TGV whole solve, each slice's "
+              "state in its cluster's shared memory)", "tgv_onchip.cu",
+              "tgv_resident.py:58", tgv_launches["B7"],
               tgv_errs["B7"]["f32"], tgv_ms["B7"]),
+        entry("B7l2", "tgv_resident_kernel (2d TGV whole solve, the state in "
+              "global memory: slices too large for the chip)",
+              "tgv_resident.cu", "tgv_resident.py:58", tgv_launches["B7l2"],
+              tgv_errs["B7l2"]["f32"], tgv_ms["B7l2"]),
         entry("B9cp", "resident_cp_kernel (CP whole solve)", "resident.cu",
               "resident.py:50", res_launches["B9cp"], res_errs["B9cp"],
               res_ms["B9cp"]),

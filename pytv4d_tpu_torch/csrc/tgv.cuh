@@ -1,9 +1,11 @@
 // Device code shared by the TGV-2 kernels of csrc/tgv_stream.cu (passes PQ and
-// XW, one launch each per iteration) and csrc/tgv_resident.cu (the whole 2d
-// solve in one launch): the launch parameter struct, the geometry of a voxel,
-// and the per-voxel arithmetic of the dual pass, the primal pass and the
-// objective.  Both sources run exactly this arithmetic, so the whole-solve
-// kernel and a loop over the streaming kernels give the same iterates.
+// XW, one launch each per iteration), csrc/tgv_resident.cu (the whole 2d
+// solve in one launch, state in global memory) and csrc/tgv_onchip.cu (the
+// whole 2d solve with each slice's state in its cluster's shared memory): the
+// launch parameter struct, the geometry of a voxel, and the per-voxel
+// arithmetic of the dual pass, the primal pass and the objective.  All three
+// sources run exactly this arithmetic, so the whole-solve kernels and a loop
+// over the streaming kernels give the same iterates.
 //
 // One Chambolle-Pock iteration of
 //   min_{x,w} 1/2 |x - x0|^2 + a1 |D x - w| + a0 |E w|
@@ -16,6 +18,17 @@
 //   w_i' = w_i - tau (-p_i' + (E^T q')_i),                      wb_i' = 2w_i' - w_i
 // with the one-sided zero boundary of stencil.cuh: fwd is 0 at an axis's last
 // slot, bwd at its first, and their adjoints never read those slots.
+//
+// The bodies (tgv_pq_at, tgv_xw_at, tgv_loss_at) take the state through an
+// accessor V, which says where a value lives:
+//   v.at(a, ch)         array a, channel ch, at the voxel
+//   v.fwd(a, ch, ax)    the same at +1 along volume axis ax (caller gates)
+//   v.bwd(a, ch, ax)    the same at -1 along ax
+//   v.set(a, ch, val)   store at the voxel
+//   v.not_first(ax), v.not_last(ax)   the boundary gates
+// GlobalTgv reads the arrays in global memory (B6, and B7 in L2); the
+// on-chip B7 has its own accessor over a shared-memory band.  Where a value
+// comes from changes no float operation, so the accessors give the same bits.
 //
 // Layouts (row-major): x, xb, x0 are (Nz, M, Nr, Nc); w, wb, p are
 // (Nz, N, M, Nr, Nc); q is (Nz, N(N+1)/2, M, Nr, Nc) with the diagonals first,
@@ -87,37 +100,84 @@ __device__ __forceinline__ bool not_last(const Geo& g, int a) {
   return g.pos[a] < g.len[a] - 1;
 }
 
-// d[i] = fwd_i(x) at the voxel (0 at the last slot of axis i).
+// The arrays a body names to its accessor.
+enum { TV_X = 0, TV_XB, TV_X0, TV_W, TV_WB, TV_P, TV_Q };
+
+// Accessor over the arrays in global memory, in the public layouts, at the
+// voxel g.  A pointer the body does not use may be null.  It holds g by
+// reference and the voxel's three base indices, as the bodies computed
+// them before the accessor: B6's code then times as it did, where a copy
+// of g, or the indices recomputed at each access, made its bf16 passes
+// slower (PERF.md section 6).
 template <int N, typename T>
-__device__ __forceinline__ void fwd_grad(const Geo& g, const T* x,
-                                         float (&d)[N]) {
-  const int64_t xi = base_of(g, 1);
-  const float xc = ld(x, xi);
+struct GlobalTgv {
+  static constexpr int NQ = N * (N + 1) / 2;
+  const Geo& g;
+  const T *x, *xb, *x0, *w, *wb, *p, *q;
+  int64_t xi, wi, qi;
+  __device__ __forceinline__ GlobalTgv(const Geo& g_, const T* x_,
+                                       const T* xb_, const T* x0_,
+                                       const T* w_, const T* wb_,
+                                       const T* p_, const T* q_)
+      : g(g_), x(x_), xb(xb_), x0(x0_), w(w_), wb(wb_), p(p_), q(q_),
+        xi(base_of(g_, 1)), wi(base_of(g_, N)), qi(base_of(g_, NQ)) {}
+  __device__ __forceinline__ int64_t idx(int a, int ch) const {
+    return a <= TV_X0 ? xi : (a == TV_Q ? qi : wi) + ch * g.mp;
+  }
+
+  __device__ __forceinline__ const T* arr(int a) const {
+    return a == TV_X ? x : a == TV_XB ? xb : a == TV_X0 ? x0
+         : a == TV_W ? w : a == TV_WB ? wb : a == TV_P ? p : q;
+  }
+  __device__ __forceinline__ int channels(int a) const {
+    return a <= TV_X0 ? 1 : (a == TV_Q ? NQ : N);
+  }
+  __device__ __forceinline__ float at(int a, int ch) const {
+    return ld(arr(a), idx(a, ch));
+  }
+  __device__ __forceinline__ float fwd(int a, int ch, int ax) const {
+    return ld(arr(a), idx(a, ch) + stride_of(g, ax, channels(a)));
+  }
+  __device__ __forceinline__ float bwd(int a, int ch, int ax) const {
+    return ld(arr(a), idx(a, ch) - stride_of(g, ax, channels(a)));
+  }
+  __device__ __forceinline__ void set(int a, int ch, float v) const {
+    st(const_cast<T*>(arr(a)), idx(a, ch), v);
+  }
+  __device__ __forceinline__ bool not_first(int ax) const {
+    return ::not_first(g, ax);
+  }
+  __device__ __forceinline__ bool not_last(int ax) const {
+    return ::not_last(g, ax);
+  }
+};
+
+// d[i] = fwd_i(a) at the voxel (0 at the last slot of axis i).
+template <int N, class V>
+__device__ __forceinline__ void fwd_grad(const V& v, int a, float (&d)[N]) {
+  const float xc = v.at(a, 0);
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const int a = mode_axis<N>(i);
-    d[i] = not_last(g, a) ? ld(x, xi + stride_of(g, a, 1)) - xc : 0.f;
+    const int ax = mode_axis<N>(i);
+    d[i] = v.not_last(ax) ? v.fwd(a, 0, ax) - xc : 0.f;
   }
 }
 
-// wc[i] = w_i at the voxel and e[c] = E_c(w): backward differences, 0 at the
+// wc[i] = a_i at the voxel and e[c] = E_c(a): backward differences, 0 at the
 // first slot of the differenced axis.
-template <int N, typename T>
-__device__ __forceinline__ void sym_grad(const Geo& g, const T* w,
-                                         float (&wc)[N],
+template <int N, class V>
+__device__ __forceinline__ void sym_grad(const V& v, int a, float (&wc)[N],
                                          float (&e)[N * (N + 1) / 2]) {
-  const int64_t wi = base_of(g, N);
 #pragma unroll
-  for (int i = 0; i < N; ++i) wc[i] = ld(w, wi + i * g.mp);
+  for (int i = 0; i < N; ++i) wc[i] = v.at(a, i);
   // bwd[f][k]: field f differenced backward along the axis of field k
   float bwd[N][N];
 #pragma unroll
   for (int f = 0; f < N; ++f) {
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      const int a = mode_axis<N>(k);
-      bwd[f][k] = not_first(g, a)
-          ? wc[f] - ld(w, wi + f * g.mp - stride_of(g, a, N)) : 0.f;
+      const int ax = mode_axis<N>(k);
+      bwd[f][k] = v.not_first(ax) ? wc[f] - v.bwd(a, f, ax) : 0.f;
     }
   }
   int c = N;
@@ -151,93 +211,83 @@ __device__ __forceinline__ void project(float (&v)[C], int norm, float radius,
   for (int i = 0; i < C; ++i) v[i] = v[i] * scale;
 }
 
-// Pass PQ at one voxel: p and q are updated in place (only the thread's own
+// Pass PQ at one voxel: p and q are updated in place (only the voxel's own
 // p, q are read); xb is read at the voxel and +1 along each axis, wb at the
 // voxel and -1 along each axis.
-template <int N, typename T>
-__device__ __forceinline__ void tgv_pq_voxel(const TgvParams& P, const Geo& g,
-                                             const T* xb, const T* wb, T* p,
-                                             T* q) {
+template <int N, class V>
+__device__ __forceinline__ void tgv_pq_at(const TgvParams& P, const V& v) {
   constexpr int NQ = N * (N + 1) / 2;
-  const int64_t wi = base_of(g, N), qi = base_of(g, NQ);
   float d[N], wc[N], e[NQ];
-  fwd_grad<N>(g, xb, d);
-  sym_grad<N>(g, wb, wc, e);
+  fwd_grad<N>(v, TV_XB, d);
+  sym_grad<N>(v, TV_WB, wc, e);
 #pragma unroll
   for (int i = 0; i < N; ++i)
-    d[i] = ld(p, wi + i * g.mp) + P.sigma * (d[i] - wc[i]);
+    d[i] = v.at(TV_P, i) + P.sigma * (d[i] - wc[i]);
   project<N>(d, P.norm, P.a1, P.shr1);
 #pragma unroll
-  for (int i = 0; i < N; ++i) st(p, wi + i * g.mp, d[i]);
+  for (int i = 0; i < N; ++i) v.set(TV_P, i, d[i]);
 #pragma unroll
-  for (int c = 0; c < NQ; ++c) e[c] = ld(q, qi + c * g.mp) + P.sigma * e[c];
+  for (int c = 0; c < NQ; ++c) e[c] = v.at(TV_Q, c) + P.sigma * e[c];
   project<NQ>(e, P.norm, P.a0, P.shr0);
 #pragma unroll
-  for (int c = 0; c < NQ; ++c) st(q, qi + c * g.mp, e[c]);
+  for (int c = 0; c < NQ; ++c) v.set(TV_Q, c, e[c]);
 }
 
-// Adjoint of a backward difference along axis a of channel c of q, read at
-// the voxel: q[k] - q[k+1], the first slot's own term and the last slot's
-// neighbour term dropped.
-template <int NQ, typename T>
-__device__ __forceinline__ float adj_bwd(const Geo& g, const T* q, int64_t qi,
-                                         float qv, int a) {
-  const float lo = not_first(g, a) ? qv : 0.f;
-  const float hi = not_last(g, a) ? ld(q, qi + stride_of(g, a, NQ)) : 0.f;
+// Adjoint of a backward difference along axis ax of channel c of q, read at
+// the voxel (value qv): q[k] - q[k+1], the first slot's own term and the
+// last slot's neighbour term dropped.
+template <class V>
+__device__ __forceinline__ float adj_bwd(const V& v, int c, float qv,
+                                         int ax) {
+  const float lo = v.not_first(ax) ? qv : 0.f;
+  const float hi = v.not_last(ax) ? v.fwd(TV_Q, c, ax) : 0.f;
   return lo - hi;
 }
 
 // Pass XW at one voxel: x and w are updated in place, xb and wb written;
 // p is read at the voxel and -1 along its own axis, q at the voxel and +1
 // along its axes.  None of x, w, xb, wb is read as a neighbour.
-template <int N, typename T>
-__device__ __forceinline__ void tgv_xw_voxel(const TgvParams& P, const Geo& g,
-                                             T* x, const T* x0, const T* p,
-                                             T* w, const T* q, T* xb, T* wb) {
-  constexpr int NQ = N * (N + 1) / 2;
-  const int64_t xi = base_of(g, 1), wi = base_of(g, N), qi = base_of(g, NQ);
+template <int N, class V>
+__device__ __forceinline__ void tgv_xw_at(const TgvParams& P, const V& v) {
   float pc[N];
   float dtp = 0.f;  // sum_i fwd_i^T(p_i): p[k-1] - p[k], last slot dropped
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const int a = mode_axis<N>(i);
-    pc[i] = ld(p, wi + i * g.mp);
-    const float lo =
-        not_first(g, a) ? ld(p, wi + i * g.mp - stride_of(g, a, N)) : 0.f;
-    const float hi = not_last(g, a) ? pc[i] : 0.f;
+    const int ax = mode_axis<N>(i);
+    pc[i] = v.at(TV_P, i);
+    const float lo = v.not_first(ax) ? v.bwd(TV_P, i, ax) : 0.f;
+    const float hi = v.not_last(ax) ? pc[i] : 0.f;
     dtp += lo - hi;
   }
-  const float xc = ld(x, xi);
-  const float x_new = (xc - P.tau * dtp + P.tau * ld(x0, xi)) / P.one_plus_tau;
-  st(x, xi, x_new);
-  st(xb, xi, 2.f * x_new - xc);
+  const float xc = v.at(TV_X, 0);
+  const float x_new = (xc - P.tau * dtp + P.tau * v.at(TV_X0, 0))
+                      / P.one_plus_tau;
+  v.set(TV_X, 0, x_new);
+  v.set(TV_XB, 0, 2.f * x_new - xc);
 
   // (E^T q)_i: the diagonal channel of axis i along axis i, plus half of
   // every off-diagonal channel with i, differenced along the OTHER axis
   float etq[N];
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int64_t ci = qi + i * g.mp;
-    etq[i] = adj_bwd<NQ>(g, q, ci, ld(q, ci), mode_axis<N>(i));
-  }
+  for (int i = 0; i < N; ++i)
+    etq[i] = adj_bwd(v, i, v.at(TV_Q, i), mode_axis<N>(i));
   int c = N;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
 #pragma unroll
     for (int j = i + 1; j < N; ++j) {
-      const int64_t cc = qi + c * g.mp;
-      const float qv = ld(q, cc);
-      etq[i] += 0.5f * adj_bwd<NQ>(g, q, cc, qv, mode_axis<N>(j));
-      etq[j] += 0.5f * adj_bwd<NQ>(g, q, cc, qv, mode_axis<N>(i));
+      const float qv = v.at(TV_Q, c);
+      etq[i] += 0.5f * adj_bwd(v, c, qv, mode_axis<N>(j));
+      etq[j] += 0.5f * adj_bwd(v, c, qv, mode_axis<N>(i));
       ++c;
     }
   }
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const float wv = ld(w, wi + i * g.mp);
+    const float wv = v.at(TV_W, i);
     const float w_new = wv - P.tau * (-pc[i] + etq[i]);
-    st(w, wi + i * g.mp, w_new);
-    st(wb, wi + i * g.mp, 2.f * w_new - wv);
+    v.set(TV_W, i, w_new);
+    v.set(TV_WB, i, 2.f * w_new - wv);
   }
 }
 
@@ -262,18 +312,41 @@ __device__ __forceinline__ float norm_val(const float (&v)[C], int norm,
 
 // The voxel's term of 1/2 |x - x0|^2 + a1 |D x - w| + a0 |E w|; reads x at
 // +1 and w at -1 along each axis.
+template <int N, class V>
+__device__ __forceinline__ float tgv_loss_at(const TgvParams& P,
+                                             const V& v) {
+  constexpr int NQ = N * (N + 1) / 2;
+  float d[N], wc[N], e[NQ];
+  fwd_grad<N>(v, TV_X, d);
+  sym_grad<N>(v, TV_W, wc, e);
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = d[i] - wc[i];
+  const float r = v.at(TV_X, 0) - v.at(TV_X0, 0);
+  return 0.5f * (r * r) + P.a1 * norm_val<N>(d, P.norm, P.delta)
+         + P.a0 * norm_val<NQ>(e, P.norm, P.delta);
+}
+
+// The bodies over the arrays in global memory, as csrc/tgv_stream.cu and
+// csrc/tgv_resident.cu call them.
+template <int N, typename T>
+__device__ __forceinline__ void tgv_pq_voxel(const TgvParams& P, const Geo& g,
+                                             const T* xb, const T* wb, T* p,
+                                             T* q) {
+  tgv_pq_at<N>(P, GlobalTgv<N, T>(g, nullptr, xb, nullptr, nullptr, wb, p,
+                                  q));
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void tgv_xw_voxel(const TgvParams& P, const Geo& g,
+                                             T* x, const T* x0, const T* p,
+                                             T* w, const T* q, T* xb, T* wb) {
+  tgv_xw_at<N>(P, GlobalTgv<N, T>(g, x, xb, x0, w, wb, p, q));
+}
+
 template <int N, typename T>
 __device__ __forceinline__ float tgv_loss_voxel(const TgvParams& P,
                                                 const Geo& g, const T* x,
                                                 const T* x0, const T* w) {
-  constexpr int NQ = N * (N + 1) / 2;
-  const int64_t xi = base_of(g, 1);
-  float d[N], wc[N], e[NQ];
-  fwd_grad<N>(g, x, d);
-  sym_grad<N>(g, w, wc, e);
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = d[i] - wc[i];
-  const float r = ld(x, xi) - ld(x0, xi);
-  return 0.5f * (r * r) + P.a1 * norm_val<N>(d, P.norm, P.delta)
-         + P.a0 * norm_val<NQ>(e, P.norm, P.delta);
+  return tgv_loss_at<N>(P, GlobalTgv<N, T>(g, x, nullptr, x0, w, nullptr,
+                                           nullptr, nullptr));
 }

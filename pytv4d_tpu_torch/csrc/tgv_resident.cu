@@ -1,6 +1,9 @@
-// Whole-solve TGV-2 kernel for NVIDIA Hopper (sm_90a): every Chambolle-Pock
-// iteration of the in-plane (2d) mode in ONE launch, bound to Python through
-// a plain C interface (ctypes).
+// Whole-solve TGV-2 kernel for NVIDIA Hopper (sm_90a), the state in global
+// memory: every Chambolle-Pock iteration of the in-plane (2d) mode in ONE
+// launch, bound to Python through a plain C interface (ctypes).  It serves
+// the slices too large for csrc/tgv_onchip.cu, which holds a slice's state
+// in its cluster's shared memory (kernels/tgv_resident.py::
+// tgv_resident_variant: up to 288 x 288, 336 x 336 without the loss).
 //
 // Replaces the Pallas TPU kernel
 // pytv4d_tpu/kernels/tgv_resident.py::make_resident_tgv_solver (:58), which
@@ -24,13 +27,16 @@
 // A __threadfence() before each barrier publishes the phase's global writes
 // to the other blocks' SMs (it costs 2-5% of an iteration).
 //
-// What bounds it (tools/torch_probe_tgv_resident.py, H100): at one slice, the
-// number of threads on the slice, not the barriers: an iteration takes 19 us
-// with 8 x 1024 threads, 28-35 us with 4096 and 50 us with 2048, so the
-// launch uses the largest block and the largest portable cluster.  At many
-// slices, the memory system: 256 slices of 256 x 256 (0.8 GB of state) run
-// at the streaming kernels' pace.  Only while the resident clusters' state
-// fits the 50 MB L2 does HBM see just x0 and the final state.
+// What bounds it (NVIDIA H100 80GB HBM3, 700.00 W): at one slice, the number
+// of threads on the slice, not the barriers: at 256 x 256 an iteration took
+// 19 us with 8 x 1024 threads, 28-35 us with 4096 and 50 us with 2048 (an
+// earlier version of tools/torch_probe_tgv_resident.py), so the launch uses
+// the largest block and the largest portable cluster.  At many slices, the
+// memory system: 256 slices of 256 x 256 (0.8 GB of state) ran at the
+// streaming kernels' pace, 0.80 ms/it with the loss, twice the on-chip
+// kernel's 0.36.  At the slices it serves, 8 SMs
+// carry the slice: one 1024 x 1024 slice takes 0.43 ms/it with the loss,
+// 0.34 without (chip_smoke.py phase 14, PERF.md section 6).
 //
 // Loss: one partial per (iteration, block), summed in a fixed order (warp
 // shuffles, then one warp); the wrapper adds the blocks.  No float atomics,

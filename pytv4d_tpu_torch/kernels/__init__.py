@@ -3,7 +3,8 @@ pass A and the boundary kernels of its sharded form), the TV subgradient,
 the whole CP and GD solves and the TGV-2 step and whole solve:
 CUDA kernels (``csrc/cp_fused.cu``, ``csrc/cp_zstream.cu``,
 ``csrc/cp_boundary.cu``, ``csrc/tv_fused.cu``, ``csrc/resident.cu``,
-``csrc/tgv_stream.cu``, ``csrc/tgv_resident.cu``; on an unsharded volume
+``csrc/tgv_stream.cu``, ``csrc/tgv_resident.cu``,
+``csrc/tgv_onchip.cu``; on an unsharded volume
 the CP pass A and the TV subgradient from ``csrc/specialised.cu``, the TV
 norms and the pass A for inverse problems from ``csrc/specialised_tv.cu``,
 specialised per channel table, ``kernels.tables``) for CUDA tensors, their
@@ -52,6 +53,7 @@ from .tgv_resident import (
     tgv_resident_fits,
     tgv_resident_plain,
     tgv_resident_solve,
+    tgv_resident_variant,
 )
 from .tgv_stream import (
     stream_fits,

@@ -35,7 +35,9 @@ def test_repo_kernels_include_the_shared_header():
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "voxel.cuh", "stencil.cuh"]
-    for name in ("tgv_stream", "tgv_resident"):
+    # the TGV kernels: the streaming pair and both whole-solve kernels take
+    # theirs from tgv.cuh
+    for name in ("tgv_stream", "tgv_resident", "tgv_onchip"):
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "tgv.cuh", "stencil.cuh"]
@@ -58,7 +60,7 @@ def test_only_the_specialised_source_splits_its_compile():
             build.NVCC_FLAGS + ("-split-compile", "0")
     assert set(build.SOURCE_FLAGS) == {"specialised", "specialised_tv"}
     for name in ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident",
-                 "resident", "cp_zstream", "cp_boundary"):
+                 "tgv_onchip", "resident", "cp_zstream", "cp_boundary"):
         assert build.nvcc_flags(name) == build.NVCC_FLAGS
     assert "-fmad=false" in build.NVCC_FLAGS
 
@@ -71,8 +73,9 @@ def test_every_library_has_its_entry_points_and_its_source():
     import pytv4d_tpu_torch.kernels  # noqa: F401  (every wrapper registers)
 
     assert set(fused._ENTRY_POINTS) == {
-        "cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "cp_zstream",
-        "resident", "cp_boundary", "specialised", "specialised_tv"}
+        "cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
+        "cp_zstream", "resident", "cp_boundary", "specialised",
+        "specialised_tv"}
     for name, (prefix, params, launches) in fused._ENTRY_POINTS.items():
         text = ""
         for path in build._sources(os.path.join(build.CSRC, f"{name}.cu")):
@@ -138,3 +141,21 @@ def test_each_launch_with_partials_has_its_count():
     assert counts["spec_cp_dual_launch"] == "spec_num_parts"
     assert counts["tv_norms_launch"] == "tv_num_parts"
     assert "tv_dual_launch" not in fused._ENTRY_POINTS["cp_fused"][2]
+
+
+def test_onchip_key_hashes_its_source_and_headers(tmp_path):
+    """The on-chip B7 library's name changes with its source and with each
+    header it includes (tgv.cuh, which the other TGV kernels share, and
+    stencil.cuh), so a changed body is rebuilt everywhere it is used."""
+    import shutil
+
+    for name in ("tgv_onchip.cu", "tgv.cuh", "stencil.cuh"):
+        shutil.copy(os.path.join(build.CSRC, name), tmp_path / name)
+    src = str(tmp_path / "tgv_onchip.cu")
+    keys = {build._library_path(src)}
+    for name in ("tgv_onchip.cu", "tgv.cuh", "stencil.cuh"):
+        with open(tmp_path / name, "a") as f:
+            f.write("\n// changed\n")
+        keys.add(build._library_path(src))
+    assert len(keys) == 4
+    assert all(os.path.basename(k).startswith("tgv_onchip-") for k in keys)

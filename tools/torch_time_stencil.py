@@ -20,14 +20,24 @@ on PARENT_DIR, this checkout, this checkout and PARENT_DIR again, one
 process each, so that both trees are timed in turns on one card: unpack
 the parent commit with ``git archive`` into a git-ignored directory first.
 
+A second line times the TGV kernels: B6's two passes per launch in the 4d
+and 2d modes in float32 and the 4d mode in bf16, and B7 as
+``tgv_resident_solve`` dispatches it (a 300-iteration cameraman-sized
+solve, best of 3, and ms per iteration at (32, 8, 256, 256) with the loss,
+between a 20- and a 60-iteration solve); where the tree has the on-chip
+kernel it is that one, and the L2 kernel is timed beside it.  Each B6 pass
+and each B7 solve also prints a hash of its outputs, so that two trees'
+results can be compared bit for bit.
+
 Where the tree has the sharded modes (``kernels.fused.cp_dual_boundary``), a
-second line times them on one z-shard of that volume, (8, 8, 256, 256): B1
+third line times them on one z-shard of that volume, (8, 8, 256, 256): B1
 and B2 on the whole shard, with ``interior`` and in ``halo_mode``, B3 and B4
 in ``halo_mode``, and the two boundary kernels B8.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import subprocess
 import sys
@@ -68,6 +78,68 @@ def iteration_ms(solve, repeats=3):
             out = min(out, time.perf_counter() - t0)
         return out
     return (best(60) - best(20)) / 40 * 1e3
+
+
+def digest(*tensors):
+    """The first 12 hex digits of a SHA-256 over the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:12]
+
+
+def tgv_times(dev):
+    """ms per launch of B6's passes and of B7's solves, with the hashes of
+    their outputs (module docstring)."""
+    from pytv4d_tpu_torch.kernels import tgv_resident, tgv_stream
+
+    ms, hashes = {}, {}
+    rng = np.random.default_rng(3)
+    for mode, dtype, tag in (("4d", torch.float32, "4d"),
+                             ("2d", torch.float32, "2d"),
+                             ("4d", torch.bfloat16, "4d bf16")):
+        n = {"2d": 2, "4d": 4}[mode]
+        Nz, M, Nr, Nc = SHAPE
+
+        def arr(*s):
+            return torch.as_tensor(rng.standard_normal(s), dtype=dtype,
+                                   device=dev)
+
+        x, x0 = arr(*SHAPE), arr(*SHAPE)
+        w, p = arr(Nz, n, M, Nr, Nc), arr(Nz, n, M, Nr, Nc)
+        q = arr(Nz, n * (n + 1) // 2, M, Nr, Nc)
+        xb, wb = x.clone(), w.clone()
+        kw = dict(mode=mode, alpha1=1.0, alpha0=2.0)
+        tgv_stream.tgv_pq(xb, wb, p, q, **kw)
+        tgv_stream.tgv_xw(x, x0, p, w, q, xb, wb, mode=mode)
+        hashes[f"B6 {tag}"] = digest(x, xb, w, wb, p, q)
+        ms[f"B6 PQ {tag}"] = launch_ms(lambda: tgv_stream.tgv_pq(
+            xb, wb, p, q, **kw))
+        ms[f"B6 XW {tag}"] = launch_ms(lambda: tgv_stream.tgv_xw(
+            x, x0, p, w, q, xb, wb, mode=mode))
+        del x, x0, w, p, q, xb, wb
+    cam = torch.as_tensor(rng.random((1, 1, 256, 256)), dtype=torch.float32,
+                          device=dev)
+    vol = torch.as_tensor(rng.random(SHAPE), dtype=torch.float32, device=dev)
+    solvers = {"B7": tgv_resident.tgv_resident_solve}
+    if hasattr(tgv_resident, "solve_l2"):
+        def l2(x, n, alpha1, alpha0):
+            prm = tgv_stream.tgv_params(tuple(x.shape), "2d", alpha1, alpha0,
+                                        1.0, "iso", 1.0)
+            return tgv_resident.solve_l2(x, n, prm, True)
+
+        solvers["B7 L2"] = l2
+    for name, solve in solvers.items():
+        hashes[f"{name} cam"] = digest(*solve(cam, 20, 25.0, 50.0)[:6])
+        hashes[f"{name} 4D"] = digest(*solve(vol, 20, 1.0, 2.0)[:6])
+        ms[f"{name} cam 300 its"] = launch_ms(
+            lambda: solve(cam, 300, 25.0, 50.0), n=1, repeats=3)
+        ms[f"{name} 4D per it"] = (
+            launch_ms(lambda: solve(vol, 60, 1.0, 2.0), n=1, repeats=3)
+            - launch_ms(lambda: solve(vol, 20, 1.0, 2.0), n=1,
+                        repeats=3)) / 40
+    return ms, hashes
 
 
 def card():
@@ -183,6 +255,12 @@ def main():
           + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
           + "; ms per iteration: "
           + ", ".join(f"{k} {v:.4f}" for k, v in its.items())
+          + f"; card {card()}", flush=True)
+    tgv_ms, tgv_hash = tgv_times(dev)
+    print(f"[tgv times] {os.path.relpath(root)} {SHAPE} f32 unless named, "
+          f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in tgv_ms.items())
+          + "; output hashes: "
+          + ", ".join(f"{k} {v}" for k, v in tgv_hash.items())
           + f"; card {card()}", flush=True)
     if not hasattr(fused, "cp_dual_boundary"):
         return
