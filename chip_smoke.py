@@ -8,9 +8,10 @@ kernels), the TV kernels (B3 norms, B4 subgradient),
 the whole-solve CP and GD kernels (B9) and the TGV-2 kernels (B6 passes PQ
 and XW, B7 whole solve: on chip, and in L2 for larger slices)
 from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once; B1, B3,
-B4 and B5 on an unsharded volume are the kernels specialised per channel
-table (``csrc/specialised.cu`` for B1 and B4, ``csrc/specialised_tv.cu``
-for B3 and B5: two sources whose compiles nvcc spreads over the cores).
+B4 and B5 on an unsharded volume and B8 are the kernels specialised per
+channel table (``csrc/specialised.cu`` for B1 and B4,
+``csrc/specialised_tv.cu`` for B3 and B5, ``csrc/cp_boundary.cu`` for B8:
+three sources whose compiles nvcc spreads over the cores).
 Then, for
 the Chambolle-Pock path (phases 3-7): holds B1/B2 against
 their plain PyTorch versions (B1 also bit for bit against the generic body,
@@ -61,7 +62,9 @@ solve on B1 + B2, and times the two pass A's alone and in the step; and runs
 on the card from numpy inputs.  For the (z, t)-sharded solvers (phases
 24-25): holds B1/B2 in their halo and interior modes, B3/B4 in their halo
 mode and the two boundary kernels B8 against their plain versions, shard by
-shard, at a small shape and at the sharded path's own shard shape; solves
+shard, at a small shape and at the sharded path's own shard shape, and in
+every case 20 iterations of the overlapped step bit for bit against the
+ghost-plane step; solves
 the (32, 8, 256, 256) volume from a numpy array as 4 z-shards on the one
 card through ``make_mesh`` / ``shard_volume`` /
 ``make_sharded_cp_solver_fused`` on the ghost-plane path and on the
@@ -69,7 +72,7 @@ overlapped path (whose final state must equal the ghost path's bit for bit,
 and both the unsharded solve's), a (2 x 2) mesh with time sharded, the
 sharded GD solver, a bf16 case and a 300-iteration run; and times an
 iteration of each path beside the unsharded step, and a launch of each B8
-kernel.  Every phase raises
+kernel (wall, on the device, the host's share, against its bound).  Every phase raises
 on failure; nothing falls back to the CPU.  The last line of stdout is one
 JSON object with ``"ok": true`` and the device.
 """
@@ -78,6 +81,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -174,7 +178,8 @@ LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
 # the kernels specialised per channel table, by kernel id (phase 2 reports
 # each one's registers and spills)
 SPEC_KERNELS = {"B1": "cp_dual_spec_kernel", "B4": "tv_subgrad_spec_kernel",
-                "B3": "tv_norms_spec_kernel", "B5": "tv_dual_spec_kernel"}
+                "B3": "tv_norms_spec_kernel", "B5": "tv_dual_spec_kernel",
+                "B8dual": "bnd_dual_kernel", "B8primal": "bnd_primal_kernel"}
 # each wrapper's launch counter, by kernel id
 COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
             "B3": fused.tv_norms, "B4": fused.tv_subgrad,
@@ -331,7 +336,7 @@ def phase_build():
             f"stack frame <= {max(f[0] for f in frames)} B, spill stores / "
             f"loads <= {max(f[1] for f in frames)} / "
             f"{max(f[2] for f in frames)} B")
-        if name in fused.SPECIALISED:
+        if name in (*fused.SPECIALISED, "cp_boundary"):
             log(f"[2 build] {name}: " + "; ".join(
                 _ptxas_of(compiler_log, kid, kernel)
                 for kid, kernel in SPEC_KERNELS.items()
@@ -588,6 +593,21 @@ class _Run:
     def run(self, n):
         for _ in range(n):
             self.losses.append(self.step())
+
+
+def _host_us(fn, n=200):
+    """Host microseconds per call of ``fn``: n calls issued back to back
+    behind a kernel that keeps the device busy for longer than they take, so
+    that none waits for the device, then one synchronisation."""
+    fn()
+    sync()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    sync()
+    return (t1 - t0) / n * 1e6
 
 
 def _time_launch(fn, n=50):
@@ -2352,6 +2372,16 @@ SHARD_4D = (MAIN_4D[0] // 4,) + MAIN_4D[1:]  # a z-shard of the sharded path
 HALO_SMALL, HALO_SMALL_MESH = (6, 4, 16, 128), (3, 2)     # 2 x 2-plane shards
 OVERLAP_SMALL, OVERLAP_SMALL_MESH = (9, 3, 16, 128), (3, 1)  # 3-plane shards
 SHARDED_MESH = (4, 1)  # the sharded main path: 4 z-shards on the one card
+# the B8 kernels' storage pairs: the other phases' and bf16 x with an f32 dual
+SHARD_STORAGE = dict(STORAGE, **{"bf16+f32dual": (torch.bfloat16,
+                                                  torch.float32)})
+# (scheme, reg_time, M) that reach each table the B8 kernels are built for
+# (kernels.tables.BOUNDARY_TABLES) on 9 slices
+B8_TABLE_CONFIGS = {1: ("upwind", 0.0, 3), 3: ("upwind", 0.5, 3),
+                    5: ("downwind", 0.0, 3), 7: ("downwind", 0.5, 3),
+                    9: ("hybrid", 0.0, 3), 11: ("hybrid", 0.5, 3),
+                    13: ("central", 0.0, 3), 15: ("central", 0.5, 3),
+                    20: ("central", 0.5, 2)}
 
 
 def _halo_cp_cases():
@@ -2381,7 +2411,7 @@ class _ShardedState:
     into a mesh's shards on the card."""
 
     def __init__(self, shape, mesh_zt, cfg, opts, storage, gen):
-        x_dt, d_dt = STORAGE[storage]
+        x_dt, d_dt = SHARD_STORAGE[storage]
         self.cfg, self.shape = cfg, shape
         self.fid = dict(fidelity=opts.get("fidelity", "l2"),
                         fid_weight=opts.get("fid_weight", 1.0))
@@ -2420,6 +2450,88 @@ def _cells(*grids):
     return [cells for rows in zip(*grids) for cells in zip(*rows)]
 
 
+def _overlap_vs_ghost(shape, mesh_zt, cfg, opts, storage, gen, n_iter=20):
+    """A sharded solve of ``n_iter`` iterations on the overlapped step (B1 /
+    B2 with ``interior`` and the B8 kernels) and on the ghost-plane step
+    (B1 / B2 in ``halo_mode``), from the same state: x, y_A and y_D must be
+    equal bit for bit, the losses within 1e-5 relative (bf16 1e-4: the
+    partial sums are taken in other blocks)."""
+    x_dt, d_dt = SHARD_STORAGE[storage]
+    noisy = torch.rand(shape, generator=gen, device=DEV) + 0.5
+    wt = (1.0 + torch.rand(shape[2:], generator=gen, device=DEV))[None, None]
+    mesh = make_mesh(*mesh_zt)
+    st = init_state(noisy, cfg)
+    state = [shard_volume(t, mesh, False) for t in (
+        noisy.to(x_dt), st.x.to(x_dt), st.y_A.to(x_dt),
+        fused.to_internal_layout(st.y_D).to(d_dt))]
+    out = {}
+    for overlap in (False, True):
+        solve = make_sharded_cp_solver_fused(
+            mesh, cfg, shape, reg=0.5, n_iter=n_iter, shard_time=False,
+            overlap=overlap, dtype=x_dt, dual_dtype=d_dt,
+            weight_time=wt if opts.get("tmul") else None,
+            fidelity=opts.get("fidelity", "l2"),
+            fidelity_weight=opts.get("fid_weight", 1.0),
+            nonneg=opts.get("nonneg", False))
+        require(solve.overlap == overlap, "the step asked for")
+        x, y_A, y_D, losses = solve(*state)
+        out[overlap] = (gather_volume(x), gather_volume(y_A),
+                        gather_volume(y_D), losses)
+    for g, o, name in zip(out[False][:3], out[True][:3], ("x", "y_A", "y_D")):
+        require(torch.equal(g, o) and bool(torch.isfinite(g.float()).all()),
+                f"{shape} {storage}: the overlapped step's {name} after "
+                f"{n_iter} iterations equals the ghost path's bit for bit")
+    rel = float(((out[True][3] - out[False][3]).abs()
+                 / out[False][3].abs()).max())
+    require(rel <= (1e-5 if storage == "f32" else 1e-4),
+            f"{shape} {storage}: overlapped losses {rel:.3g} from the ghost "
+            f"path's")
+    return rel
+
+
+def _interior_and_boundary(s, name, kind, note):
+    """B1 / B2 with ``interior`` and then the two B8 kernels on the shards of
+    ``s``, each against its plain version (``note`` takes the errors), and
+    the shards' TV and fidelity sums."""
+    x_halo = fused_halo._halo_planes(s.x, 0, s.ghost_z)
+    (kx, kA, kD), (px, pA, pD) = s.copies(), s.copies()
+    k_tv, p_tv = [], []
+    for xs, x0, a, d, pa, pd in _cells(s.x, s.x0, kA, kD, pA, pD):
+        k_tv.append(fused.cp_dual(xs, x0, a, d, s.tm, interior=True,
+                                  **s.sharded, **s.dual_kw)[2])
+        p_tv.append(fused.cp_dual_plain(
+            xs, x0, pa, pd, s.tm, interior=True, **s.sharded,
+            **s.dual_kw)[2])
+        note("B1int", kind, (a, pa), (d, pd))
+    for i, (xs, xh, x0, a, d, pa, pd) in enumerate(_cells(
+            s.x, x_halo, s.x0, kA, kD, pA, pD)):
+        fused.cp_dual_boundary(xs, xh, x0, a, d, k_tv[i], s.tm,
+                               **s.sharded, **s.dual_kw)
+        fused.cp_dual_boundary_plain(xs, xh, x0, pa, pd, p_tv[i],
+                                     s.tm, **s.sharded, **s.dual_kw)
+        note("B8dual", kind, (a, pa), (d, pd))
+        rel = abs(float(k_tv[i].sum() - p_tv[i].sum())) / float(p_tv[i].sum())
+        require(rel <= 1e-5, f"B1 interior + B8 {name}: TV sum {rel:.3g}")
+    k_halo = fused_halo._sparse_channel_halo(kD, 0, s.chans, AXIS_Z)
+    p_halo = fused_halo._sparse_channel_halo(pD, 0, s.chans, AXIS_Z)
+    for xs, x0, a, d, h, ps, pa, pd, ph in _cells(
+            kx, s.x0, kA, kD, k_halo, px, pA, pD, p_halo):
+        _, k_fid = fused.cp_primal(xs, x0, a, d, s.tm, interior=True,
+                                   **s.sharded, **s.primal_kw)
+        _, p_fid = fused.cp_primal_plain(
+            ps, x0, pa, pd, s.tm, interior=True, **s.sharded,
+            **s.primal_kw)
+        note("B2int", kind, (xs[1:-1], ps[1:-1]), scale=0.5)
+        fused.cp_primal_boundary(xs, x0, a, d, h, k_fid, s.tm,
+                                 **s.sharded, **s.primal_kw)
+        fused.cp_primal_boundary_plain(ps, x0, pa, pd, ph, p_fid, s.tm,
+                                       **s.sharded, **s.primal_kw)
+        note("B8primal", kind, (xs, ps), scale=0.5)
+        rel = abs(float(k_fid.sum() - p_fid.sum())) / float(p_fid.sum())
+        require(rel <= (1e-4 if kind == "bf16" else 1e-5),
+                f"B2 interior + B8 {name}: fidelity sum {rel:.3g}")
+
+
 def phase_halo_kernels():
     errs = {k: {"f32": 0.0, "bf16": 0.0}
             for k in ("B1halo", "B2halo", "B1int", "B2int", "B8dual",
@@ -2430,7 +2542,7 @@ def phase_halo_kernels():
             errs[key][kind] = max(errs[key][kind], _compare(
                 got, ref, kind == "bf16", scale, tol))
 
-    n = 0
+    n, solves, loss_rel = 0, 0, 0.0
     full = ("hybrid-time", "hybrid-time-tmul-l1", "hybrid-time-f32+bf16dual",
             "hybrid-time-bf16+bf16dual")  # at the path's shard shape
     for halo_shape, halo_mesh, ov_shape in (
@@ -2465,55 +2577,38 @@ def phase_halo_kernels():
                                       **s.primal_kw)
                 note("B2halo", kind, (xs, ps), scale=0.5)
 
-            # B1 / B2 with interior, then B8 on the edge planes
+            # B1 / B2 with interior, then B8 on the edge planes, and 20
+            # iterations of the overlapped step against the ghost path
             s = _ShardedState(ov_shape, (halo_mesh[0], 1), cfg, opts, storage,
                               gen)
             if not any(ch.axis == AXIS_Z for ch in s.chans):
                 continue
-            x_halo = fused_halo._halo_planes(s.x, 0, s.ghost_z)
-            (kx, kA, kD), (px, pA, pD) = s.copies(), s.copies()
-            k_tv, p_tv = [], []
-            for xs, x0, a, d, pa, pd in _cells(s.x, s.x0, kA, kD, pA, pD):
-                k_tv.append(fused.cp_dual(xs, x0, a, d, s.tm, interior=True,
-                                          **s.sharded, **s.dual_kw)[2])
-                p_tv.append(fused.cp_dual_plain(
-                    xs, x0, pa, pd, s.tm, interior=True, **s.sharded,
-                    **s.dual_kw)[2])
-                note("B1int", kind, (a, pa), (d, pd))
-            for i, (xs, xh, x0, a, d, pa, pd) in enumerate(_cells(
-                    s.x, x_halo, s.x0, kA, kD, pA, pD)):
-                fused.cp_dual_boundary(xs, xh, x0, a, d, k_tv[i], s.tm,
-                                       **s.sharded, **s.dual_kw)
-                fused.cp_dual_boundary_plain(xs, xh, x0, pa, pd, p_tv[i],
-                                             s.tm, **s.sharded, **s.dual_kw)
-                note("B8dual", kind, (a, pa), (d, pd))
-                rel = abs(float(k_tv[i].sum() - p_tv[i].sum())) / float(
-                    p_tv[i].sum())
-                require(rel <= 1e-5, f"B1 interior + B8 {name}: TV sum "
-                                     f"{rel:.3g}")
-            k_halo = fused_halo._sparse_channel_halo(kD, 0, s.chans, AXIS_Z)
-            p_halo = fused_halo._sparse_channel_halo(pD, 0, s.chans, AXIS_Z)
-            for xs, x0, a, d, h, ps, pa, pd, ph in _cells(
-                    kx, s.x0, kA, kD, k_halo, px, pA, pD, p_halo):
-                _, k_fid = fused.cp_primal(xs, x0, a, d, s.tm, interior=True,
-                                           **s.sharded, **s.primal_kw)
-                _, p_fid = fused.cp_primal_plain(
-                    ps, x0, pa, pd, s.tm, interior=True, **s.sharded,
-                    **s.primal_kw)
-                note("B2int", kind, (xs[1:-1], ps[1:-1]), scale=0.5)
-                fused.cp_primal_boundary(xs, x0, a, d, h, k_fid, s.tm,
-                                         **s.sharded, **s.primal_kw)
-                fused.cp_primal_boundary_plain(ps, x0, pa, pd, ph, p_fid,
-                                               s.tm, **s.sharded,
-                                               **s.primal_kw)
-                note("B8primal", kind, (xs, ps), scale=0.5)
-                rel = abs(float(k_fid.sum() - p_fid.sum())) / float(
-                    p_fid.sum())
-                require(rel <= (1e-4 if kind == "bf16" else 1e-5),
-                        f"B2 interior + B8 {name}: fidelity sum {rel:.3g}")
-            n += 1
-            del s, kx, kA, kD, px, pA, pD
+            _interior_and_boundary(s, name, kind, note)
+            loss_rel = max(loss_rel, _overlap_vs_ghost(
+                ov_shape, (halo_mesh[0], 1), cfg, opts, storage, gen))
+            n, solves = n + 1, solves + 1
+            del s
         sync()
+
+    # every table and storage the B8 kernels are built for, at an even and
+    # an odd width (runs read element by element)
+    n_tab = 0
+    gen = torch.Generator(device=DEV).manual_seed(8642)
+    for tid, (scheme, reg_time, M) in B8_TABLE_CONFIGS.items():
+        cfg = TVConfig(scheme=scheme, reg_time=reg_time)
+        for storage, shape in itertools.product(
+                SHARD_STORAGE, ((9, M, 16, 130), (9, M, 7, 37))):
+            require(tables.boundary_table_id(cfg, *shape[:2]) == tid,
+                    f"{scheme} reg_time={reg_time} {shape}: table {tid}")
+            name = f"table {tid} {storage} {shape}"
+            kind = "f32" if storage == "f32" else "bf16"
+            _interior_and_boundary(_ShardedState(shape, (3, 1), cfg, {},
+                                                 storage, gen),
+                                   name, kind, note)
+            loss_rel = max(loss_rel, _overlap_vs_ghost(
+                shape, (3, 1), cfg, {}, storage, gen))
+            n_tab, solves = n_tab + 1, solves + 1
+    sync()
 
     # B3 / B4 in halo mode
     n_tv = 0
@@ -2565,7 +2660,12 @@ def phase_halo_kernels():
         f"{OVERLAP_SMALL_MESH} and at {MAIN_4D} as 4 z-shards of {SHARD_4D}: "
         f"pass; max abs err f32 / bf16: "
         + ", ".join(f"{k} {v['f32']:.3g} / {v['bf16']:.3g}"
-                    for k, v in errs.items()))
+                    for k, v in errs.items())
+        + f"; B8 also over every table it is built for x {len(SHARD_STORAGE)} "
+        f"storage pairs x 2 widths at (9, M, 16, 130) / (9, M, 7, 37) on 3 "
+        f"z-shards ({n_tab} cases); {solves} sharded solves of 20 iterations "
+        f"on the overlapped step bit-equal to the ghost path's in x, y_A and "
+        f"y_D (losses within {loss_rel:.3g})")
     return errs
 
 
@@ -2810,21 +2910,28 @@ def phase_sharded_main_path(card):
                                 (4 * Nd + 8) * edge)}
     # a loop of such short launches runs at the host's pace: the kernels'
     # own time is what torch.profiler records on the device
+    b8 = (("B8dual", b8_dual), ("B8primal", b8_primal))
     on_dev = {k: device_time(lambda: [fn() for _ in range(50)], 50, DEV)[0]
-              for k, fn in (("B8dual", b8_dual), ("B8primal", b8_primal))}
+              for k, fn in b8}
+    # the wrapper's own time: what a launch costs the host, which sets the
+    # pace wherever it exceeds the kernel's
+    host = {k: _host_us(fn) for k, fn in b8}
     log(f"[25 per launch at the shard {SHARD_4D} f32] "
         + ", ".join(f"{k} {v[0]:.4f} ms"
                     + (f" (plain {v[1]:.3f} ms)" if v[1] else "")
                     for k, v in launch_ms.items())
         + f" (CUDA events around 50 launches); on the device "
         f"(torch.profiler): B8dual {on_dev['B8dual']:.4f} ms, B8primal "
-        f"{on_dev['B8primal']:.4f} ms; B8 bounds: dual "
+        f"{on_dev['B8primal']:.4f} ms; host per launch (200 calls behind "
+        f"a busy device): B8dual {host['B8dual']:.1f} us, B8primal "
+        f"{host['B8primal']:.1f} us; B8 bounds: dual "
         f"{bounds['B8dual'][0]:.4f} ms, primal {bounds['B8primal'][0]:.4f} ms "
-        f"({bounds['B8dual'][1]}): a launch takes "
-        f"{launch_ms['B8dual'][0] / bounds['B8dual'][0]:.1f}x and "
-        f"{launch_ms['B8primal'][0] / bounds['B8primal'][0]:.1f}x, the kernel "
-        f"alone {on_dev['B8dual'] / bounds['B8dual'][0]:.1f}x and "
-        f"{on_dev['B8primal'] / bounds['B8primal'][0]:.1f}x; card {card}")
+        f"({bounds['B8dual'][1]}): wall per launch "
+        + ", ".join(f"{k} {launch_ms[k][0]:.4f} ms = "
+                    f"{bounds[k][0] / launch_ms[k][0]:.1%} of the bound, "
+                    f"kernel alone {on_dev[k]:.4f} ms = "
+                    f"{bounds[k][0] / on_dev[k]:.1%}" for k, _ in b8)
+        + f"; card {card}")
     sync()
     return launches[True], launch_ms, bounds
 
@@ -2934,12 +3041,13 @@ def main():
         entry("B10", "cp_dual_zstream_kernel (CP pass A marching along z)",
               "cp_zstream.cu", "zstream.py:70", z_launches, z_errs["f32"],
               z_ms, z_errs["bf16"]),
-        entry("B8dual", "cp_dual_boundary_kernel (CP pass A, a shard's z-edge "
-              "planes)", "cp_boundary.cu", "fused.py:1093",
+        entry("B8dual", "bnd_dual_kernel (CP pass A, a shard's z-edge "
+              "planes, per channel table)", "cp_boundary.cu", "fused.py:1093",
               sh_launches["B8dual"], halo_errs["B8dual"]["f32"],
               sh_ms["B8dual"], halo_errs["B8dual"]["bf16"]),
-        entry("B8primal", "cp_primal_boundary_kernel (CP pass B, a shard's "
-              "z-edge planes)", "cp_boundary.cu", "fused.py:1187",
+        entry("B8primal", "bnd_primal_kernel (CP pass B, a shard's "
+              "z-edge planes, per channel table)", "cp_boundary.cu",
+              "fused.py:1187",
               sh_launches["B8primal"], halo_errs["B8primal"]["f32"],
               sh_ms["B8primal"], halo_errs["B8primal"]["bf16"]),
     ]

@@ -1,172 +1,252 @@
 // The boundary kernels of the overlapped z-sharded Chambolle-Pock step for
-// NVIDIA Hopper (sm_90a), bound to Python through a plain C interface
-// (ctypes).
+// NVIDIA Hopper (sm_90a), specialised per channel table (csrc/tables.cuh),
+// bound to Python through a plain C interface (ctypes).
 //
-// Replaces the Pallas TPU kernels of pytv4d_tpu/kernels/fused.py:
-//   cp_dual_boundary_kernel   <- make_cp_dual_boundary_kernel   (fused.py:1093)
-//   cp_primal_boundary_kernel <- make_cp_primal_boundary_kernel (fused.py:1187)
+// Replace the Pallas TPU kernels of pytv4d_tpu/kernels/fused.py:
+//   bnd_dual_kernel   <- make_cp_dual_boundary_kernel   (fused.py:1093)
+//   bnd_primal_kernel <- make_cp_primal_boundary_kernel (fused.py:1187)
 // The overlapped step (parallel/fused_halo.py, overlap=True) first takes the
 // two z-edge planes of every shard's x for its neighbours, runs passes A and
 // B of csrc/cp_fused.cu over the planes 1..Nz-2 of each shard (which need no
 // neighbour's data), and then these two kernels redo the planes z = 0 and
 // z = Nz-1 from the exchanged planes, in place into the same arrays and into
-// the same per-block partials.  Slot b of a (2, ...) halo stack is the plane
+// the same array of partials.  Slot b of a (2, ...) halo stack is the plane
 // from the left neighbour (b = 0: the value at z - 1 of plane 0) or from the
 // right one (b = 1: the value at z + 1 of plane Nz-1); at a global edge the
 // x stack holds the ghost plane that makes every z difference there zero and
 // the dual stack holds zeros.  Time is not sharded on this path, so the t
-// gates stay on; the z gates are off (Params::sharded).
+// gates stay on; the z gate is off: every z neighbour is read.
 //
 // Layouts as in cp_fused.cu; x_halo is (2, M, Nr, Nc), y_halo
 // (2, M, Nd, Nr, Nc).
 //
-// What bounds it: the launch.  The kernels touch 2 of Nz planes ((4 + 2 Nd)
-// and (4 + Nd) arrays of 2 M Nr Nc voxels plus the halo stacks): tens of
-// microseconds of HBM time at most, so the fixed cost of a launch shows.
+// What bounds them: HBM bytes, once the per-channel work is gone.  The
+// generic bodies they replace (voxel.cuh's cp_dual_voxel and
+// cp_primal_voxel) switched on each channel's axis and kind at run time,
+// built six 64-bit offsets a voxel and loaded each channel's neighbours
+// apart.  Here, as in csrc/specialised.cu for the unsharded pass A:
+//   - the table is a template argument (only the BOUNDARY_TABLES below: the
+//     ones with a z channel, which the overlapped path requires), so the
+//     channel loops unroll with no runtime axis or kind;
+//   - offsets within a plane are 32-bit (specialised.cuh's Offset);
+//   - a thread takes VEC_BND = 2 columns, one access per array and per
+//     channel, and loads each neighbour run a channel reads once
+//     (specialised.cuh: dual_spec_body, primal_spec_body);
+//   - the edge side b is the block's (blockIdx.y), so the planes across the
+//     edge -- the halo slot or the shard's own neighbour plane -- are chosen
+//     once per block, not per channel.
+// The arithmetic is the generic bodies' operation for operation and in the
+// same order (-fmad=false), so y_A', y_D' and x' equal theirs, and the
+// ghost-plane step's, to the bit.
 //
-// Design: the per-voxel bodies are voxel.cuh's cp_dual_voxel and
-// cp_primal_voxel, the ones every other CP kernel runs, so the overlapped
-// step equals the ghost-plane step to the bit.  One thread per voxel;
-// blockIdx.y = b * M + t.  Pass A takes its z neighbours by register
-// (weighted_d<ZREG>, as the z-marching pass A does): the halo value across
-// the shard's edge, the in-shard plane on the other side.  Pass B computes
-// the full adjoint at the voxel and reads a z channel's neighbour across the
-// edge from the halo stack, every other value from the shard's own dual.
-// The TPU kernels' (2, R) row-tile grid, seam rows and alias-carrier inputs
-// belong to VMEM tiling and are not carried over.
-//
-// Built with -fmad=false like the other sources.
+// Partials: the interior launch (cp_fused.cu, plane_grid) owns
+// ceil(Nr Nc / BLOCK) slots per plane; these kernels, with half as many
+// blocks a plane, write each block's sum to its own slot and zeros to the
+// slots past the last block (edge_parts), so that every slot of the edge
+// planes is written once and the loss moves only by the order of a sum.
 
-#include "voxel.cuh"
+#include "specialised.cuh"
 
-// The (z, t) plane of the shard a block works on: blockIdx.y = b * M + t is
-// time t of edge plane b, which is plane z = 0 (b = 0) or z = Nz - 1.
-__device__ __forceinline__ int edge_plane(const Params& p, int& b) {
-  b = blockIdx.y / p.M;
-  return b * (p.Nz - 1) * p.M + (blockIdx.y - b * p.M);
+constexpr int VEC_BND = 2;  // columns per thread
+
+// The tables with a z channel whose shards can be overlapped: a z-sharded
+// volume of >= 2 shards of >= 3 planes has Nz >= 6, so central's z channel
+// is CTR (tables 16-18 need Nz == 2).  kernels/tables.py mirrors the list.
+#define BOUNDARY_TABLES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(20)
+
+#define BND_HAS_Z(id)                                      \
+  static_assert(tab_has(table_code(id), AX_Z),             \
+                "a boundary table differences along z");
+BOUNDARY_TABLES(BND_HAS_Z)
+#undef BND_HAS_Z
+
+// The edge plane of the block: blockIdx.y = b * M + t is time t of edge b,
+// plane z = 0 (b = 0) or z = Nz - 1 (b = 1).
+struct Edge {
+  int b, z, t;
+};
+__device__ __forceinline__ Edge edge_of(const Params& p) {
+  Edge e;
+  e.b = blockIdx.y / p.M;
+  e.t = blockIdx.y - e.b * p.M;
+  e.z = e.b * (p.Nz - 1);
+  return e;
+}
+
+// The block's partial s into the interior launch's array, whose (z, t)
+// planes hold ceil(Nr Nc / BLOCK) slots each: s at slot blockIdx.x, zeros
+// at blockIdx.x + j gridDim.x (j >= 1) inside the plane's slots.  With
+// gridDim.x <= slots <= 2 gridDim.x (two columns a thread), every slot of
+// the plane is written once.
+__device__ __forceinline__ void edge_parts(const Params& p, const Edge& e,
+                                           float s, float* parts) {
+  if (threadIdx.x != 0) return;
+  const int slots = (int)(((int64_t)p.Nr * p.Nc + BLOCK - 1) / BLOCK);
+  float* row = parts + (int64_t)(e.z * p.M + e.t) * slots;
+  row[blockIdx.x] = s;
+  for (int j = blockIdx.x + gridDim.x; j < slots; j += gridDim.x) row[j] = 0.f;
 }
 
 // Pass A on the two edge planes: y_A', y_D' in place and the planes' TV
 // partials of D x into `parts` (the interior launch's array).
-template <typename TX, typename TD>
+template <Table T, typename TX, typename TD>
 __global__ void __launch_bounds__(BLOCK)
-cp_dual_boundary_kernel(const Params p, const TX* __restrict__ x,
-                        const TX* __restrict__ x_halo,
-                        const TX* __restrict__ x0, TX* __restrict__ yA,
-                        TD* __restrict__ yD, const float* __restrict__ tmul,
-                        float* __restrict__ parts) {
-  const int64_t pix = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
-  int b;
-  const int zt = edge_plane(p, b);
-  float part = 0.f;
-  if (pix < (int64_t)p.Nr * p.Nc) {
-    const Vox v = make_vox<true>(p, zt, pix, tmul);
-    const int64_t zs = (int64_t)p.M * v.plane;  // one z plane of x
-    const int64_t hi = ((int64_t)b * p.M + v.t) * v.plane + pix;
-    const float xzm = b == 0 ? ld(x_halo, hi) : ld(x, v.xi - zs);
-    const float xzp = b == 1 ? ld(x_halo, hi) : ld(x, v.xi + zs);
-    part = cp_dual_voxel<true, true>(p, v, x, x0, yA, yD, ld(x, v.xi), xzm,
-                                     xzp);
-  }
-  const float s = block_sum(part);
-  if (threadIdx.x == 0) parts[(int64_t)zt * gridDim.x + blockIdx.x] = s;
+bnd_dual_kernel(const Params p, const TX* __restrict__ x,
+                const TX* __restrict__ x_halo, const TX* __restrict__ x0,
+                TX* __restrict__ yA, TD* __restrict__ yD,
+                const float* __restrict__ tmul, float* __restrict__ parts,
+                int vec) {
+  const Edge e = edge_of(p);
+  const int64_t plane = (int64_t)p.Nr * p.Nc;
+  const TX* xz = x + (e.z * p.M + e.t) * plane;
+  const TX* h = x_halo + (e.b * p.M + e.t) * plane;
+  // z gate off: position 1 of 3, where every z channel reads both sides
+  const float s = dual_spec_body<T, VEC_BND, true, TX, TD>(
+      p, e.z, e.t, 1, 3, x, e.b == 0 ? h : xz - p.M * plane,
+      e.b == 1 ? h : xz + p.M * plane, x0, yA, yD, tmul, vec);
+  edge_parts(p, e, s, parts);
 }
 
 // Pass B on the two edge planes: x' in place and the planes' fidelity
-// partials of x' into `parts`.
-template <typename TX, typename TD>
+// partials of x' into `parts`.  Only the z channels of the halo stack are
+// read.
+template <Table T, typename TX, typename TD>
 __global__ void __launch_bounds__(BLOCK)
-cp_primal_boundary_kernel(const Params p, TX* x, const TX* __restrict__ x0,
-                          const TX* __restrict__ yA,
-                          const TD* __restrict__ yD,
-                          const TD* __restrict__ y_halo,
-                          const float* __restrict__ tmul,
-                          float* __restrict__ parts) {
-  const int64_t pix = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
-  int b;
-  const int zt = edge_plane(p, b);
-  float part = 0.f;
-  if (pix < (int64_t)p.Nr * p.Nc) {
-    const Vox v = make_vox<true>(p, zt, pix, tmul);
-    const int64_t zs = (int64_t)p.M * p.Nd * v.plane;  // one z plane of y_D
-    const int64_t hb = ((int64_t)b * p.M + v.t) * p.Nd * v.plane + pix;
-    // channel 0 of the dual at z - 1 and at z + 1: across the edge in the
-    // halo stack, inside the shard in y_D
-    const TD* zlo = b == 0 ? y_halo : yD;
-    const TD* zhi = b == 1 ? y_halo : yD;
-    const int64_t zlo_b = b == 0 ? hb : v.yb - zs;
-    const int64_t zhi_b = b == 1 ? hb : v.yb + zs;
-    part = cp_primal_voxel<true, true>(p, v, x, x0, yA, yD, x, yD, zlo, zlo_b,
-                                       zhi, zhi_b);
-  }
-  const float s = block_sum(part);
-  if (threadIdx.x == 0)
-    parts[(int64_t)zt * gridDim.x + blockIdx.x] = p.fid_scale * s;
+bnd_primal_kernel(const Params p, TX* __restrict__ x,
+                  const TX* __restrict__ x0, const TX* __restrict__ yA,
+                  const TD* __restrict__ yD, const TD* __restrict__ y_halo,
+                  const float* __restrict__ tmul, float* __restrict__ parts,
+                  int vec) {
+  const Edge e = edge_of(p);
+  const int64_t dplane = (int64_t)tab_nd(T) * p.Nr * p.Nc;  // a (z, t) plane
+  const TD* yz = yD + (e.z * p.M + e.t) * dplane;            // of the dual
+  const TD* h = y_halo + (e.b * p.M + e.t) * dplane;
+  // z gate off: position 2 of 5, where FWD, BWD and CTR read both sides
+  const float s = primal_spec_body<T, VEC_BND, TX, TD>(
+      p, e.z, e.t, 2, 5, x, x0, yA, yD, e.b == 0 ? h : yz - p.M * dplane,
+      e.b == 1 ? h : yz + p.M * dplane, tmul, vec);
+  edge_parts(p, e, p.fid_scale * s, parts);
+}
+
+// ------------------------------------------------------------- launches
+// One block per BLOCK runs of VEC_BND columns of a plane, the two edges'
+// M planes along blockIdx.y.
+static inline dim3 edge_grid(const Params* p) {
+  return dim3((unsigned)dual_blocks<VEC_BND>(p->Nr, p->Nc),
+              (unsigned)(2 * p->M));
 }
 
 template <typename TX, typename TD>
-static int launch_dual_boundary(const Params* p, const void* x,
-                                const void* x_halo, const void* x0, void* yA,
-                                void* yD, const void* tmul, void* parts,
-                                cudaStream_t stream) {
-  cp_dual_boundary_kernel<TX, TD><<<plane_grid(p, 2), BLOCK, 0, stream>>>(
+static int runs_aligned(const Params* p, const void* x, const void* h,
+                        const void* x0, const void* yA, const void* yD,
+                        const void* y_halo, const void* tmul) {
+  return p->Nc % VEC_BND == 0 && aligned(x, VEC_BND * sizeof(TX)) &&
+         aligned(h, VEC_BND * sizeof(TX)) &&
+         aligned(x0, VEC_BND * sizeof(TX)) &&
+         aligned(yA, VEC_BND * sizeof(TX)) &&
+         aligned(yD, VEC_BND * sizeof(TD)) &&
+         aligned(y_halo, VEC_BND * sizeof(TD)) &&
+         (!p->has_tmul || aligned(tmul, VEC_BND * sizeof(float)));
+}
+
+template <Table T, typename TX, typename TD>
+static int dual_launch(const Params* p, const void* x, const void* x_halo,
+                       const void* x0, void* yA, void* yD, const void* tmul,
+                       void* parts, cudaStream_t s) {
+  const int vec = runs_aligned<TX, TD>(p, x, x_halo, x0, yA, yD, yD, tmul);
+  bnd_dual_kernel<T, TX, TD><<<edge_grid(p), BLOCK, 0, s>>>(
       *p, (const TX*)x, (const TX*)x_halo, (const TX*)x0, (TX*)yA, (TD*)yD,
-      (const float*)tmul, (float*)parts);
+      (const float*)tmul, (float*)parts, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename TX, typename TD>
-static int launch_primal_boundary(const Params* p, void* x, const void* x0,
-                                  const void* yA, const void* yD,
-                                  const void* y_halo, const void* tmul,
-                                  void* parts, cudaStream_t stream) {
-  cp_primal_boundary_kernel<TX, TD><<<plane_grid(p, 2), BLOCK, 0, stream>>>(
+template <Table T, typename TX, typename TD>
+static int primal_launch(const Params* p, void* x, const void* x0,
+                         const void* yA, const void* yD, const void* y_halo,
+                         const void* tmul, void* parts, cudaStream_t s) {
+  const int vec = runs_aligned<TX, TD>(p, x, x, x0, yA, yD, y_halo, tmul);
+  bnd_primal_kernel<T, TX, TD><<<edge_grid(p), BLOCK, 0, s>>>(
       *p, (TX*)x, (const TX*)x0, (const TX*)yA, (const TD*)yD,
-      (const TD*)y_halo, (const float*)tmul, (float*)parts);
+      (const TD*)y_halo, (const float*)tmul, (float*)parts, vec);
   return (int)cudaGetLastError();
+}
+
+template <Table T>
+static int dual_table(const Params* p, int x_bf16, int d_bf16, const void* x,
+                      const void* x_halo, const void* x0, void* yA, void* yD,
+                      const void* tmul, void* parts, cudaStream_t s) {
+  typedef __nv_bfloat16 B;
+  if (!x_bf16 && !d_bf16)
+    return dual_launch<T, float, float>(p, x, x_halo, x0, yA, yD, tmul, parts,
+                                        s);
+  if (!x_bf16)
+    return dual_launch<T, float, B>(p, x, x_halo, x0, yA, yD, tmul, parts, s);
+  if (!d_bf16)
+    return dual_launch<T, B, float>(p, x, x_halo, x0, yA, yD, tmul, parts, s);
+  return dual_launch<T, B, B>(p, x, x_halo, x0, yA, yD, tmul, parts, s);
+}
+
+template <Table T>
+static int primal_table(const Params* p, int x_bf16, int d_bf16, void* x,
+                        const void* x0, const void* yA, const void* yD,
+                        const void* y_halo, const void* tmul, void* parts,
+                        cudaStream_t s) {
+  typedef __nv_bfloat16 B;
+  if (!x_bf16 && !d_bf16)
+    return primal_launch<T, float, float>(p, x, x0, yA, yD, y_halo, tmul,
+                                          parts, s);
+  if (!x_bf16)
+    return primal_launch<T, float, B>(p, x, x0, yA, yD, y_halo, tmul, parts,
+                                      s);
+  if (!d_bf16)
+    return primal_launch<T, B, float>(p, x, x0, yA, yD, y_halo, tmul, parts,
+                                      s);
+  return primal_launch<T, B, B>(p, x, x0, yA, yD, y_halo, tmul, parts, s);
 }
 
 extern "C" {
 
-// Both return cudaGetLastError() after the launch (0 = cudaSuccess).  `parts`
-// is the array of cp_num_parts(Nz, M, Nr, Nc) partials (csrc/cp_fused.cu) the
-// interior launch wrote; only the two edge planes' entries are written.
-int cp_dual_boundary_launch(const Params* p, int x_bf16, int d_bf16,
+// Number of partials of the array the boundary kernels write two planes'
+// rows of: the interior launch's, one per block of plane_grid
+// (cp_fused.cu's cp_num_parts).
+long long bnd_num_parts(int Nz, int M, int Nr, int Nc) {
+  return num_parts(Nz, M, Nr, Nc);
+}
+
+// Both launch table `id` of BOUNDARY_TABLES and return cudaGetLastError()
+// after the launch (0 = cudaSuccess), or cudaErrorInvalidValue for an id
+// outside the list.
+int cp_dual_boundary_launch(const Params* p, int id, int x_bf16, int d_bf16,
                             const void* x, const void* x_halo, const void* x0,
                             void* yA, void* yD, const void* tmul, void* parts,
                             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (!x_bf16 && !d_bf16)
-    return launch_dual_boundary<float, float>(p, x, x_halo, x0, yA, yD, tmul,
-                                              parts, s);
-  if (!x_bf16)
-    return launch_dual_boundary<float, __nv_bfloat16>(p, x, x_halo, x0, yA,
-                                                      yD, tmul, parts, s);
-  if (!d_bf16)
-    return launch_dual_boundary<__nv_bfloat16, float>(p, x, x_halo, x0, yA,
-                                                      yD, tmul, parts, s);
-  return launch_dual_boundary<__nv_bfloat16, __nv_bfloat16>(
-      p, x, x_halo, x0, yA, yD, tmul, parts, s);
+  switch (id) {
+#define BND_CASE(id)                                                        \
+  case id:                                                                  \
+    return dual_table<table_code(id)>(p, x_bf16, d_bf16, x, x_halo, x0, yA, \
+                                      yD, tmul, parts, s);
+    BOUNDARY_TABLES(BND_CASE)
+#undef BND_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-int cp_primal_boundary_launch(const Params* p, int x_bf16, int d_bf16,
-                              void* x, const void* x0, const void* yA,
-                              const void* yD, const void* y_halo,
-                              const void* tmul, void* parts, void* stream) {
+int cp_primal_boundary_launch(const Params* p, int id, int x_bf16,
+                              int d_bf16, void* x, const void* x0,
+                              const void* yA, const void* yD,
+                              const void* y_halo, const void* tmul,
+                              void* parts, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (!x_bf16 && !d_bf16)
-    return launch_primal_boundary<float, float>(p, x, x0, yA, yD, y_halo,
-                                                tmul, parts, s);
-  if (!x_bf16)
-    return launch_primal_boundary<float, __nv_bfloat16>(p, x, x0, yA, yD,
-                                                        y_halo, tmul, parts,
-                                                        s);
-  if (!d_bf16)
-    return launch_primal_boundary<__nv_bfloat16, float>(p, x, x0, yA, yD,
-                                                        y_halo, tmul, parts,
-                                                        s);
-  return launch_primal_boundary<__nv_bfloat16, __nv_bfloat16>(
-      p, x, x0, yA, yD, y_halo, tmul, parts, s);
+  switch (id) {
+#define BND_CASE(id)                                                          \
+  case id:                                                                    \
+    return primal_table<table_code(id)>(p, x_bf16, d_bf16, x, x0, yA, yD,   \
+                                        y_halo, tmul, parts, s);
+    BOUNDARY_TABLES(BND_CASE)
+#undef BND_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* bnd_error_string(int code) {

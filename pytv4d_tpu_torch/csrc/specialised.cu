@@ -8,8 +8,8 @@
 // The sharded modes keep the generic instantiations of csrc/cp_fused.cu and
 // csrc/tv_fused.cu, which run voxel.cuh's bodies with a runtime table.  TV
 // pass 1 (B3) and pass A for inverse problems (B5) are specialised the same
-// way in csrc/specialised_tv.cu, which shares specialised.cuh with this
-// source.
+// way in csrc/specialised_tv.cu, and the sharded step's boundary passes (B8)
+// in csrc/cp_boundary.cu, which share specialised.cuh with this source.
 //
 // What bounds them: the generic bodies spent their time on per-channel
 // work, not bytes (a runtime switch on each channel's axis and kind, 64-bit
@@ -59,7 +59,7 @@ cp_dual_spec_kernel(const Params p, const TX* __restrict__ x,
                     const TX* __restrict__ x0, TX* __restrict__ yA,
                     TD* __restrict__ yD, const float* __restrict__ tmul,
                     float* __restrict__ parts, int vec) {
-  dual_spec_body<T, VEC, true>(p, x, x0, yA, yD, tmul, parts, vec);
+  dual_spec_plane<T, VEC, true>(p, x, x0, yA, yD, tmul, parts, vec);
 }
 
 // ------------------------------------------------------- pass 2 (B4)

@@ -1,13 +1,18 @@
 // Device code of the kernels specialised per channel table (csrc/tables.cuh)
-// that csrc/specialised.cu (B1, B4) and csrc/specialised_tv.cu (B3, B5)
-// share: runs of V consecutive columns in one access, the weighted D channels
-// of one voxel from the neighbours a kernel gathered, and the body of pass A
-// (the TV dual prox, with the fidelity dual for B1 and without it for B5).
+// that csrc/specialised.cu (B1, B4), csrc/specialised_tv.cu (B3, B5) and
+// csrc/cp_boundary.cu (B8) share: runs of V consecutive columns in one
+// access, the weighted D channels of one voxel from the neighbours a kernel
+// gathered, the body of pass A (the TV dual prox, with the fidelity dual for
+// B1 and B8 and without it for B5) and the body of pass B (B8).  Both
+// bodies take the planes at z - 1 and z + 1 and the z gate from their
+// caller, so that one body serves an unsharded volume and a shard's edge
+// plane, whose neighbour across the edge is an exchanged halo plane.
 //
 // Every function here repeats the arithmetic of the generic bodies of
-// voxel.cuh (weighted_d, tv_dual_prox, fid_dual, tv_norms_voxel) operation
-// for operation and in the same order, so that, built with -fmad=false as
-// every source is, the specialised kernels give the generic ones' bits.
+// voxel.cuh (weighted_d, tv_dual_prox, fid_dual, tv_norms_voxel,
+// cp_primal_voxel) operation for operation and in the same order, so that,
+// built with -fmad=false as every source is, the specialised kernels give
+// the generic ones' bits.
 
 #pragma once
 
@@ -192,29 +197,33 @@ static inline long long dual_num_parts(int Nz, int M, int Nr, int Nc) {
   return dual_blocks<V>(Nr, Nc) * Nz * M;
 }
 
-// Pass A on an unsharded volume: y_D' = tv_dual_prox(y_D + sigma_D D x) in
-// place, with FID also y_A' = fid_dual(y_A, x, x0) in place (B1), without
-// it no x0, y_A or tmul (B5).  Thread k of plane zt (blockIdx.y) takes the
-// run of V columns from c0 = V (k mod cpr) of row r = k / cpr, cpr =
-// ceil(Nc / V) runs per row; a row's last run may be short (n < V) when V
-// does not divide Nc.  `vec`: Nc is a multiple of V and every array is
-// V-aligned.  One TV partial per block (block_sum, no atomics).
+// Pass A on the block's (z, t) plane: y_D' = tv_dual_prox(y_D + sigma_D D x)
+// in place, with FID also y_A' = fid_dual(y_A, x, x0) in place (B1, B8),
+// without it no x0, y_A or tmul (B5).  Thread k takes the run of V columns
+// from c0 = V (k mod cpr) of row r = k / cpr, cpr = ceil(Nc / V) runs per
+// row; a row's last run may be short (n < V) when V does not divide Nc.
+// `vec`: Nc is a multiple of V and every array is V-aligned.  The z axis is
+// the caller's: xzm and xzp are x's planes at z - 1 and z + 1 (on a shard's
+// edge plane one of them is the exchanged halo plane), zpos and zlen the
+// gate they are read and differenced under (z and Nz on an unsharded
+// volume).  Returns the block's TV partial (block_sum, no atomics), valid
+// in thread 0.
 template <Table T, int V, bool FID, typename TX, typename TD>
-__device__ __forceinline__ void dual_spec_body(
-    const Params& p, const TX* __restrict__ x, const TX* __restrict__ x0,
+__device__ __forceinline__ float dual_spec_body(
+    const Params& p, int z, int t, int zpos, int zlen,
+    const TX* __restrict__ x, const TX* __restrict__ xzm,
+    const TX* __restrict__ xzp, const TX* __restrict__ x0,
     TX* __restrict__ yA, TD* __restrict__ yD, const float* __restrict__ tmul,
-    float* __restrict__ parts, int vec) {
+    int vec) {
   constexpr int ND = tab_nd(T);
   const int cpr = (p.Nc + V - 1) / V;
   const int k = blockIdx.x * BLOCK + threadIdx.x;
-  const int zt = blockIdx.y;
   float part = 0.f;
   if (k < p.Nr * cpr) {
     const int r = k / cpr;
     const int c0 = (k - r * cpr) * V;
     const int n = min(V, p.Nc - c0);
-    const int z = zt / p.M, t = zt - z * p.M;
-    const int64_t plane = (int64_t)p.Nr * p.Nc, base = zt * plane;
+    const int64_t plane = (int64_t)p.Nr * p.Nc, base = (z * p.M + t) * plane;
     const Offset q = (Offset)r * p.Nc + c0;
     const TX* xq = x + base + q;
     TD* yq = yD + base * ND + q;
@@ -223,11 +232,13 @@ __device__ __forceinline__ void dual_spec_body(
     load_run(xq, vec, n, xc);
     // the runs at -1 and +1 along z, t and the rows, where a channel reads
     // them (zeros elsewhere); along the columns, the values either side
-    const int pos[4] = {z, t, r, c0}, len[4] = {p.Nz, p.M, p.Nr, p.Nc};
+    const int pos[4] = {zpos, t, r, c0}, len[4] = {zlen, p.M, p.Nr, p.Nc};
     float xm[4][V] = {}, xp[4][V] = {};
+    load_nb(xzm + q, tab_lo(T, AX_Z) && zpos > 0, vec, n, xm[AX_Z]);
+    load_nb(xzp + q, tab_hi(T, AX_Z) && zpos < zlen - 1, vec, n, xp[AX_Z]);
 #pragma unroll
-    for (int a = AX_Z; a <= AX_ROW; ++a) {
-      const int64_t s = a == AX_Z ? p.M * plane : (a == AX_T ? plane : p.Nc);
+    for (int a = AX_T; a <= AX_ROW; ++a) {
+      const int64_t s = a == AX_T ? plane : p.Nc;
       load_nb(xq - s, tab_lo(T, a) && pos[a] > 0, vec, n, xm[a]);
       load_nb(xq + s, tab_hi(T, a) && pos[a] < len[a] - 1, vec, n, xp[a]);
     }
@@ -243,7 +254,7 @@ __device__ __forceinline__ void dual_spec_body(
     float d[V][ND];
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      const int pj[4] = {z, t, r, c0 + j};
+      const int pj[4] = {zpos, t, r, c0 + j};
       const float mj[4] = {xm[AX_Z][j], xm[AX_T][j], xm[AX_ROW][j],
                            j > 0 ? xc[j - 1] : xl};
       const float hj[4] = {xp[AX_Z][j], xp[AX_T][j], xp[AX_ROW][j],
@@ -301,7 +312,22 @@ __device__ __forceinline__ void dual_spec_body(
 #pragma unroll
     for (int i = 0; i < ND; ++i) store_run(yq + i * plane, vec, n, y[i]);
   }
-  const float s = block_sum(part);
+  return block_sum(part);
+}
+
+// Pass A on plane blockIdx.y of an unsharded volume, the block's TV partial
+// at parts[blockIdx.y][blockIdx.x].
+template <Table T, int V, bool FID, typename TX, typename TD>
+__device__ __forceinline__ void dual_spec_plane(
+    const Params& p, const TX* __restrict__ x, const TX* __restrict__ x0,
+    TX* __restrict__ yA, TD* __restrict__ yD, const float* __restrict__ tmul,
+    float* __restrict__ parts, int vec) {
+  const int zt = blockIdx.y, z = zt / p.M;
+  const int64_t plane = (int64_t)p.Nr * p.Nc, zs = p.M * plane;
+  const TX* xz = x + zt * plane;
+  const float s = dual_spec_body<T, V, FID, TX, TD>(
+      p, z, zt - z * p.M, z, p.Nz, x, xz - zs, xz + zs, x0, yA, yD, tmul,
+      vec);
   if (threadIdx.x == 0) parts[(int64_t)zt * gridDim.x + blockIdx.x] = s;
 }
 
@@ -311,4 +337,103 @@ template <int V>
 static inline dim3 dual_grid(const Params* p) {
   return dim3((unsigned)dual_blocks<V>(p->Nr, p->Nc),
               (unsigned)(p->Nz * p->M));
+}
+
+// ------------------------------------------------------- pass B
+// Pass B on the block's (z, t) plane: x' = x - tau y_A' - tau D^T y_D' (then
+// max(x', 0) when nonneg) in place, thread k taking the run of V columns
+// that pass A gives it.  cp_primal_voxel's arithmetic in its order: each
+// channel's (lo - hi) w[i] (times tm on a time channel) added to corr in
+// table order, x - tau y_A - tau corr.  Channel i's adjoint reads the dual
+// of channel i at the voxel and at one neighbour along its axis (FWD: -1,
+// BWD: +1) or two (CTR), each loaded once for the run: along the columns
+// the run itself and the element either side, along z, t and the rows a
+// run.  The z axis is the caller's, as in pass A: yzm and yzp are the
+// dual's planes (channel 0) at z - 1 and z + 1, zpos and zlen their gate.
+// Returns the block's fidelity partial without fid_scale (block_sum),
+// valid in thread 0.
+template <Table T, int V, typename TX, typename TD>
+__device__ __forceinline__ float primal_spec_body(
+    const Params& p, int z, int t, int zpos, int zlen, TX* __restrict__ x,
+    const TX* __restrict__ x0, const TX* __restrict__ yA,
+    const TD* __restrict__ yD, const TD* __restrict__ yzm,
+    const TD* __restrict__ yzp, const float* __restrict__ tmul, int vec) {
+  constexpr int ND = tab_nd(T);
+  const int cpr = (p.Nc + V - 1) / V;
+  const int k = blockIdx.x * BLOCK + threadIdx.x;
+  float part = 0.f;
+  if (k < p.Nr * cpr) {
+    const int r = k / cpr;
+    const int c0 = (k - r * cpr) * V;
+    const int n = min(V, p.Nc - c0);
+    const int64_t plane = (int64_t)p.Nr * p.Nc, base = (z * p.M + t) * plane;
+    const Offset q = (Offset)r * p.Nc + c0;
+    const TD* yq = yD + base * ND + q;
+    const int pos[4] = {zpos, t, r, c0}, len[4] = {zlen, p.M, p.Nr, p.Nc};
+    float tm[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) tm[j] = 1.f;
+    if (tab_has(T, AX_T) && p.has_tmul) load_run(tmul + q, vec, n, tm);
+
+    float corr[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) corr[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      const int a = tab_axis(T, i), kd = tab_kind(T, i);
+      const TD* yi = yq + i * plane;
+      // the dual of channel i at the run (yc) and at -1 (ym) and +1 (yp)
+      // along its axis, where its gates read them
+      float yc[V], ym[V] = {}, yp[V] = {};
+      load_run(yi, vec, n, yc);
+      float yl = 0.f, yr = 0.f;  // along the columns: c0 - 1, c0 + V
+      const bool lo_nb = kd != K_BWD, hi_nb = kd != K_FWD;
+      if (a == AX_COL) {
+        if (lo_nb && c0 > 0) yl = ld(yi, -1);
+        if (hi_nb && c0 + V < p.Nc) yr = ld(yi, V);
+      } else {
+        const int lo_min = kd == K_CTR ? 2 : 1;  // the gates of lo and hi
+        const int hi_max = len[a] - (kd == K_CTR ? 3 : 2);
+        const int64_t s = a == AX_T ? ND * plane : p.Nc;
+        load_nb(a == AX_Z ? yzm + i * plane + q : yi - s,
+                lo_nb && pos[a] >= lo_min, vec, n, ym);
+        load_nb(a == AX_Z ? yzp + i * plane + q : yi + s,
+                hi_nb && pos[a] <= hi_max, vec, n, yp);
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int ps = a == AX_COL ? c0 + j : pos[a], ln = len[a];
+        const float mj = a == AX_COL ? (j > 0 ? yc[j - 1] : yl) : ym[j];
+        const float pj = a == AX_COL ? (j < V - 1 ? yc[j + 1] : yr) : yp[j];
+        float lo, hi;
+        if (kd == K_FWD) {         // slots [0, L-2]
+          lo = ps >= 1 ? mj : 0.f;
+          hi = ps <= ln - 2 ? yc[j] : 0.f;
+        } else if (kd == K_BWD) {  // slots [1, L-1]
+          lo = ps >= 1 ? yc[j] : 0.f;
+          hi = ps <= ln - 2 ? pj : 0.f;
+        } else {                   // slots [1, L-2]
+          lo = ps >= 2 ? mj : 0.f;
+          hi = ps <= ln - 3 ? pj : 0.f;
+        }
+        float w = (lo - hi) * p.w[i];
+        if (a == AX_T) w = w * tm[j];
+        corr[j] += w;
+      }
+    }
+
+    float xv[V], ya[V], xo[V];
+    load_run(x + base + q, vec, n, xv);
+    load_run(yA + base + q, vec, n, ya);
+    load_run(x0 + base + q, vec, n, xo);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float xn = xv[j] - p.tau * ya[j] - p.tau * corr[j];
+      if (p.nonneg) xn = fmaxf(xn, 0.f);
+      xv[j] = xn;
+      if (j < n) part += fid_term(p, xn, xo[j]);
+    }
+    store_run(x + base + q, vec, n, xv);
+  }
+  return block_sum(part);
 }

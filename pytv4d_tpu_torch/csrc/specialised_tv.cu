@@ -73,8 +73,8 @@ __global__ void __launch_bounds__(BLOCK)
 tv_dual_spec_kernel(const Params p, const TX* __restrict__ x,
                     TD* __restrict__ yD, float* __restrict__ parts,
                     int vec) {
-  dual_spec_body<T, VEC_TV, false, TX, TD>(p, x, nullptr, nullptr, yD,
-                                           nullptr, parts, vec);
+  dual_spec_plane<T, VEC_TV, false, TX, TD>(p, x, nullptr, nullptr, yD,
+                                            nullptr, parts, vec);
 }
 
 // ------------------------------------------------ pass 1 (B3)

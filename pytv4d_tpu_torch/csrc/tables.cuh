@@ -1,7 +1,8 @@
 // The channel tables that core/schemes.py::scheme_channels can produce, each
 // under a fixed id and in scheme_channels' channel order.  The specialised
 // CP pass A and TV pass 2 (csrc/specialised.cu), TV pass 1 and pass A for
-// inverse problems (csrc/specialised_tv.cu) take a table as a template
+// inverse problems (csrc/specialised_tv.cu) and the sharded CP step's
+// boundary passes (csrc/cp_boundary.cu) take a table as a template
 // argument, so their channel loops unroll with no runtime axis or kind.
 // kernels/tables.py mirrors this list and maps a (cfg, Nz, M) to its id;
 // tests/test_torch_channel_tables.py holds the two equal.
@@ -80,3 +81,13 @@ __host__ __device__ constexpr bool tab_has(Table t, int axis, int kind = -1) {
 #define CHANNEL_TABLES(X)                                                   \
   UPWIND_TABLES(X) DOWNWIND_TABLES(X) HYBRID_TABLES(X) CENTRAL_TABLES(X)    \
   CENTRAL_FWD_TABLES(X)
+
+// The code of table `id` (0 for an id outside the list), for a source that
+// instantiates only some of the tables.
+constexpr Table table_code(int id) {
+#define TABLE_CODE(i, code) \
+  if (id == i) return code;
+  CHANNEL_TABLES(TABLE_CODE)
+#undef TABLE_CODE
+  return 0;
+}

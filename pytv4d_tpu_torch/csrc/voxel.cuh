@@ -2,10 +2,11 @@
 // dual prox), CP pass B (primal update), TV pass 1 (norms) and TV pass 2
 // (subgradient).  One arithmetic, several kernels: the per-launch kernels of
 // csrc/cp_fused.cu and csrc/tv_fused.cu, the z-marching pass A of
-// csrc/cp_zstream.cu, the whole-solve kernels of csrc/resident.cu and the
-// boundary kernels of csrc/cp_boundary.cu all call these functions, so they
-// round alike (every source is built with -fmad=false, as the plain PyTorch
-// versions round).
+// csrc/cp_zstream.cu and the whole-solve kernels of csrc/resident.cu all call
+// these functions, so they round alike (every source is built with
+// -fmad=false, as the plain PyTorch versions round).  The kernels
+// specialised per channel table (csrc/specialised.cuh) repeat their
+// arithmetic in the same order.
 //
 // The pointers carry neither const-ness beyond what the pass needs nor
 // __restrict__: the whole-solve kernels read, after a barrier, what other
@@ -167,15 +168,11 @@ __device__ __forceinline__ float cp_dual_voxel(const Params& p, const Vox& v,
 // HALO the dual is read from yN at offset v.yn instead of yD: the copy of yD
 // extended by p.ye planes whose halo planes hold the neighbour shards'
 // values, zero at a global edge (the voxel's own slot too, so that no second
-// array is streamed), or yD itself (p.ye = 0).  With ZHALO the z channels'
-// neighbours at z - 1 and z + 1 are read at zlo[zlo_b + i * plane] and
-// zhi[zhi_b + i * plane] instead: the exchanged halo stack where the voxel
-// lies on a shard's edge.
-template <bool HALO = false, bool ZHALO = false, typename TX, typename TD>
+// array is streamed), or yD itself (p.ye = 0).
+template <bool HALO = false, typename TX, typename TD>
 __device__ __forceinline__ float cp_primal_voxel(
     const Params& p, const Vox& v, const TX* x, const TX* x0, const TX* yA,
-    const TD* yD, TX* out, const TD* yN = nullptr, const TD* zlo = nullptr,
-    int64_t zlo_b = 0, const TD* zhi = nullptr, int64_t zhi_b = 0) {
+    const TD* yD, TX* out, const TD* yN = nullptr) {
   const TD* y = HALO ? yN : yD;
   float corr = 0.f;
 #pragma unroll
@@ -186,23 +183,16 @@ __device__ __forceinline__ float cp_primal_voxel(
       axis_geom<HALO>(p, p.axis[i], v.z, v.t, v.r, v.c, p.Nd, pos, len, s,
                       p.ye);
       const int64_t yi = (HALO ? v.yn : v.yb) + i * v.plane;
-      const bool zh = ZHALO && p.axis[i] == AX_Z;
       float lo, hi;
       if (p.kind[i] == K_FWD) {         // slots [0, L-2]
-        lo = pos >= 1 ? (zh ? ld(zlo, zlo_b + i * v.plane) : ld(y, yi - s))
-                      : 0.f;
+        lo = pos >= 1 ? ld(y, yi - s) : 0.f;
         hi = pos <= len - 2 ? ld(y, yi) : 0.f;
       } else if (p.kind[i] == K_BWD) {  // slots [1, L-1]
         lo = pos >= 1 ? ld(y, yi) : 0.f;
-        hi = pos <= len - 2
-                 ? (zh ? ld(zhi, zhi_b + i * v.plane) : ld(y, yi + s))
-                 : 0.f;
+        hi = pos <= len - 2 ? ld(y, yi + s) : 0.f;
       } else {                          // slots [1, L-2]
-        lo = pos >= 2 ? (zh ? ld(zlo, zlo_b + i * v.plane) : ld(y, yi - s))
-                      : 0.f;
-        hi = pos <= len - 3
-                 ? (zh ? ld(zhi, zhi_b + i * v.plane) : ld(y, yi + s))
-                 : 0.f;
+        lo = pos >= 2 ? ld(y, yi - s) : 0.f;
+        hi = pos <= len - 3 ? ld(y, yi + s) : 0.f;
       }
       float w = (lo - hi) * p.w[i];
       if (p.axis[i] == AX_T) w = w * v.tm;

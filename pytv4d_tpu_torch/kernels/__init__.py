@@ -4,10 +4,11 @@ the whole CP and GD solves and the TGV-2 step and whole solve:
 CUDA kernels (``csrc/cp_fused.cu``, ``csrc/cp_zstream.cu``,
 ``csrc/cp_boundary.cu``, ``csrc/tv_fused.cu``, ``csrc/resident.cu``,
 ``csrc/tgv_stream.cu``, ``csrc/tgv_resident.cu``,
-``csrc/tgv_onchip.cu``; on an unsharded volume
-the CP pass A and the TV subgradient from ``csrc/specialised.cu``, the TV
-norms and the pass A for inverse problems from ``csrc/specialised_tv.cu``,
-specialised per channel table, ``kernels.tables``) for CUDA tensors, their
+``csrc/tgv_onchip.cu``; the boundary passes of ``csrc/cp_boundary.cu``
+and, on an unsharded volume, the CP pass A and the TV subgradient from
+``csrc/specialised.cu``, the TV norms and the pass A for inverse problems
+from ``csrc/specialised_tv.cu``, specialised per channel table,
+``kernels.tables``) for CUDA tensors, their
 plain PyTorch versions for CPU tensors.  Importing this package needs
 neither a GPU nor nvcc: the kernels are built on their first launch."""
 

@@ -30,11 +30,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
-# and per source: the two sources of the specialised kernels instantiate a
-# kernel per channel table and storage (126 each), which nvcc compiles on
-# every core
+# and per source: the sources of the specialised kernels instantiate a
+# kernel per channel table and storage (126 each; the boundary kernels 72),
+# which nvcc compiles on every core
 SOURCE_FLAGS = {"specialised": ("-split-compile", "0"),
-                "specialised_tv": ("-split-compile", "0")}
+                "specialised_tv": ("-split-compile", "0"),
+                "cp_boundary": ("-split-compile", "0")}
 
 
 def nvcc_flags(name: str) -> tuple:

@@ -10,9 +10,15 @@ and the specialised kernels (``csrc/specialised.cu``,
 ``csrc/specialised_tv.cu``) take one as a template argument.  :data:`TABLES` mirrors that list
 (``tests/test_torch_channel_tables.py`` holds the two equal).  A channel
 sequence outside it raises: nothing falls back to the generic kernels.
+
+The boundary passes of the overlapped z-sharded CP step (B8,
+``csrc/cp_boundary.cu``) instantiate only :data:`BOUNDARY_TABLES`, the
+tables that step can meet (:func:`boundary_table_id`).
 """
 
 from __future__ import annotations
+
+import functools
 
 from ..core.schemes import AXIS_COL, AXIS_ROW, AXIS_T, AXIS_Z, BWD, CTR, FWD
 from ..core.schemes import scheme_channels
@@ -53,3 +59,22 @@ def table_id(cfg, Nz: int, M: int) -> int:
                                cfg.reg_time)
     return table_of((ch.axis, ch.kind) for ch in chans)
 
+
+# The tables csrc/cp_boundary.cu instantiates (its BOUNDARY_TABLES): those
+# with a z channel, which the overlapped step requires, on a volume of
+# >= 6 slices (>= 2 z-shards of >= 3 planes), where central's z channel is
+# CTR; t is off, CTR or (central, M == 2) FWD.
+BOUNDARY_TABLES = (1, 3, 5, 7, 9, 11, 13, 15, 20)
+
+
+@functools.lru_cache(maxsize=64)
+def boundary_table_id(cfg, Nz: int, M: int) -> int:
+    """The table id of ``cfg``'s scheme on a volume of ``Nz`` slices and
+    ``M`` time steps for a boundary pass; ValueError where
+    ``csrc/cp_boundary.cu`` has no kernel for it."""
+    tid = table_id(cfg, Nz, M)
+    if tid not in BOUNDARY_TABLES:
+        raise ValueError(f"no boundary kernel is compiled for the channel "
+                         f"table {TABLES[tid]} (id {tid}; csrc/cp_boundary.cu "
+                         f"instantiates {BOUNDARY_TABLES})")
+    return tid

@@ -27,11 +27,9 @@ def test_library_path_follows_included_headers(tmp_path):
 
 
 def test_repo_kernels_include_the_shared_header():
-    # one arithmetic: the per-launch kernels, the z-marching pass A, the
-    # whole-solve kernels and the sharded step's boundary kernels all take
-    # their per-voxel bodies from voxel.cuh
-    for name in ("cp_fused", "tv_fused", "cp_zstream", "resident",
-                 "cp_boundary"):
+    # one arithmetic: the per-launch kernels, the z-marching pass A and the
+    # whole-solve kernels all take their per-voxel bodies from voxel.cuh
+    for name in ("cp_fused", "tv_fused", "cp_zstream", "resident"):
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "voxel.cuh", "stencil.cuh"]
@@ -41,9 +39,10 @@ def test_repo_kernels_include_the_shared_header():
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "tgv.cuh", "stencil.cuh"]
-    # the specialised kernels' two sources share specialised.cuh: the
-    # channel tables, and voxel.cuh for the fidelity dual
-    for name in ("specialised", "specialised_tv"):
+    # the specialised kernels' three sources (the sharded step's boundary
+    # kernels among them) share specialised.cuh: the channel tables, and
+    # voxel.cuh for the fidelity dual
+    for name in ("specialised", "specialised_tv", "cp_boundary"):
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "specialised.cuh", "tables.cuh", "voxel.cuh",
@@ -51,16 +50,17 @@ def test_repo_kernels_include_the_shared_header():
 
 
 def test_only_the_specialised_source_splits_its_compile():
-    """nvcc compiles the two sources of the specialised kernels (a kernel
+    """nvcc compiles the three sources of the specialised kernels (a kernel
     per channel table and storage: B1 and B4 in specialised.cu, B3 and B5
-    in specialised_tv.cu) on every core; the others as they were, and the
-    flags are part of each library's cache key."""
-    for name in ("specialised", "specialised_tv"):
+    in specialised_tv.cu, B8 in cp_boundary.cu) on every core; the others
+    as they were, and the flags are part of each library's cache key."""
+    for name in ("specialised", "specialised_tv", "cp_boundary"):
         assert build.nvcc_flags(name) == \
             build.NVCC_FLAGS + ("-split-compile", "0")
-    assert set(build.SOURCE_FLAGS) == {"specialised", "specialised_tv"}
+    assert set(build.SOURCE_FLAGS) == {"specialised", "specialised_tv",
+                                       "cp_boundary"}
     for name in ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident",
-                 "tgv_onchip", "resident", "cp_zstream", "cp_boundary"):
+                 "tgv_onchip", "resident", "cp_zstream"):
         assert build.nvcc_flags(name) == build.NVCC_FLAGS
     assert "-fmad=false" in build.NVCC_FLAGS
 
@@ -123,11 +123,14 @@ def test_each_launch_with_partials_has_its_count():
     """A launch that writes TV or fidelity partials has a C function that
     counts them: its own ``<launch>_num_parts`` (the two passes of
     specialised_tv.cu, whose blocks differ) or the library's
-    ``<prefix>_num_parts``; the generic B5 is gone with its entry point."""
+    ``<prefix>_num_parts``; the generic B5 is gone with its entry point.
+    The boundary kernels count the interior launch's partials, whose edge
+    rows they fill."""
     from pytv4d_tpu_torch.kernels import fused
 
     counts = {}
-    for name in ("cp_fused", "tv_fused", "specialised", "specialised_tv"):
+    for name in ("cp_fused", "tv_fused", "specialised", "specialised_tv",
+                 "cp_boundary"):
         prefix, _, launches = fused._ENTRY_POINTS[name]
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             text = f.read()
@@ -140,6 +143,8 @@ def test_each_launch_with_partials_has_its_count():
     assert counts["spectv_dual_launch"] == "spectv_dual_num_parts"
     assert counts["spec_cp_dual_launch"] == "spec_num_parts"
     assert counts["tv_norms_launch"] == "tv_num_parts"
+    assert counts["cp_dual_boundary_launch"] == "bnd_num_parts"
+    assert counts["cp_primal_boundary_launch"] == "bnd_num_parts"
     assert "tv_dual_launch" not in fused._ENTRY_POINTS["cp_fused"][2]
 
 

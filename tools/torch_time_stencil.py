@@ -13,7 +13,8 @@ in bf16, with the aniso and huber norms and for upwind and central; B5
 (pass A for inverse problems) in float32, with a bf16 dual, in bf16 and
 for upwind and central, also at the CT path's (16, 4, 512, 512) ("B5 CT");
 each the
-mean of 50 launches between two CUDA events, best of 5.  Then ms per iteration of ``chambolle_pock`` and
+mean of 50 launches between two CUDA events, best of 5; B1's and B5's
+launches also print a hash of their outputs after one launch.  Then ms per iteration of ``chambolle_pock`` and
 ``subgradient_descent`` at that volume: (a 60-iteration solve - a
 20-iteration one) / 40, best of 3.  ``--ab PARENT_DIR`` runs the script
 on PARENT_DIR, this checkout, this checkout and PARENT_DIR again, one
@@ -32,11 +33,19 @@ results can be compared bit for bit.
 Where the tree has the sharded modes (``kernels.fused.cp_dual_boundary``), a
 third line times them on one z-shard of that volume, (8, 8, 256, 256): B1
 and B2 on the whole shard, with ``interior`` and in ``halo_mode``, B3 and B4
-in ``halo_mode``, and the two boundary kernels B8.
+in ``halo_mode``, and the two boundary kernels B8; for B8 also the host's
+microseconds per launch (200 calls queued behind a busy device),
+the kernel's own time on the device (``torch.profiler`` over 50 launches)
+and the hashes of its outputs (y_A and y_D after B1 ``interior`` + B8 dual,
+x after B2 ``interior`` + B8 primal, from seeded states), and ms per
+iteration of the 4-z-shard solve of the whole volume on the overlapped and
+on the ghost-plane step beside the unsharded one: wall (marginal, as for
+CP above) and device (``torch.profiler`` over a 20-iteration solve).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import os
 import subprocess
@@ -78,6 +87,21 @@ def iteration_ms(solve, repeats=3):
             out = min(out, time.perf_counter() - t0)
         return out
     return (best(60) - best(20)) / 40 * 1e3
+
+
+def host_us(fn, n=200):
+    """Host microseconds per call of ``fn``: n calls with no synchronisation
+    between them, queued behind a kernel that keeps the device busy for
+    longer than they take, so that none waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def digest(*tensors):
@@ -161,12 +185,18 @@ def main():
     if "--root" in sys.argv:
         root = os.path.abspath(sys.argv[sys.argv.index("--root") + 1])
     sys.path.insert(0, root)  # the tree to time, ahead of any other copy
+    import pytv4d_tpu_torch.kernels  # noqa: F401  (every library registers)
     from pytv4d_tpu_torch.core.config import TVConfig
     from pytv4d_tpu_torch.core.schemes import num_channels
     from pytv4d_tpu_torch.kernels import fused
     from pytv4d_tpu_torch.solvers.cp import chambolle_pock
     from pytv4d_tpu_torch.solvers.gd import subgradient_descent
 
+    from pytv4d_tpu_torch.kernels import build
+
+    # the tree's libraries, one nvcc each, all at once
+    with concurrent.futures.ThreadPoolExecutor(len(fused._ENTRY_POINTS)) as p:
+        list(p.map(build.build, fused._ENTRY_POINTS))
     dev = torch.device("cuda", 0)
     cfg = TVConfig(scheme="hybrid", reg_time=0.5)
     Nz, M, Nr, Nc = SHAPE
@@ -178,10 +208,16 @@ def main():
         Nd = num_channels(c.scheme, Nz, M, c.reg_z_over_reg, c.reg_time)
         return torch.zeros((Nz, M, Nd, Nr, Nc), dtype=dtype, device=dev)
 
-    def b1(c, x_dt=torch.float32, d_dt=torch.float32):
+    hashes = {}
+
+    def b1(key, c, x_dt=torch.float32, d_dt=torch.float32):
         a = [t.to(x_dt) for t in (x, x0, y_A)] + [dual(c, d_dt)]
-        return launch_ms(lambda: fused.cp_dual(*a, cfg=c, sigma_D=0.5,
-                                               sigma_A=1.0, reg=1.0))
+
+        def fn():
+            fused.cp_dual(*a, cfg=c, sigma_D=0.5, sigma_A=1.0, reg=1.0)
+        fn()
+        hashes[key] = digest(a[2], a[3])
+        return launch_ms(fn)
 
     def b3(c, x_dt=torch.float32):
         xb = x.to(x_dt)
@@ -196,14 +232,18 @@ def main():
     x_ct = torch.as_tensor(np.random.default_rng(1).random(ct_shape),
                            dtype=torch.float32, device=dev)
 
-    def b5(c, x_dt=torch.float32, d_dt=torch.float32, xs=x):
+    def b5(key, c, x_dt=torch.float32, d_dt=torch.float32, xs=x):
         Nd = num_channels(c.scheme, *xs.shape[:2], c.reg_z_over_reg,
                           c.reg_time)
         xb = xs.to(x_dt)
         y = torch.zeros((*xs.shape[:2], Nd, *xs.shape[2:]), dtype=d_dt,
                         device=dev)
-        return launch_ms(lambda: fused.tv_dual(xb, y, cfg=c, sigma_D=0.5,
-                                               reg=1.0))
+
+        def fn():
+            fused.tv_dual(xb, y, cfg=c, sigma_D=0.5, reg=1.0)
+        fn()
+        hashes[key] = digest(y)
+        return launch_ms(fn)
 
     y_D = dual(cfg)
     up, ctr = (TVConfig(scheme=s, reg_time=0.5) for s in ("upwind",
@@ -213,11 +253,11 @@ def main():
                      huber_delta=0.3)
     bf16 = torch.bfloat16
     ms = {
-        "B1": b1(cfg),
-        "B1 bf16 dual": b1(cfg, d_dt=torch.bfloat16),
-        "B1 bf16": b1(cfg, torch.bfloat16, torch.bfloat16),
-        "B1 upwind": b1(up),
-        "B1 central": b1(ctr),
+        "B1": b1("B1", cfg),
+        "B1 bf16 dual": b1("B1 bf16 dual", cfg, d_dt=torch.bfloat16),
+        "B1 bf16": b1("B1 bf16", cfg, torch.bfloat16, torch.bfloat16),
+        "B1 upwind": b1("B1 upwind", up),
+        "B1 central": b1("B1 central", ctr),
         "B2": launch_ms(lambda: fused.cp_primal(x, x0, y_A, y_D, cfg=cfg,
                                                 tau=0.1)),
         "B3": b3(cfg),
@@ -232,16 +272,16 @@ def main():
         "B4 huber": b4(huber),
         "B4 upwind": b4(up),
         "B4 central": b4(ctr),
-        "B5": b5(cfg),
-        "B5 bf16 dual": b5(cfg, d_dt=bf16),
-        "B5 bf16": b5(cfg, bf16, bf16),
-        "B5 upwind": b5(up),
-        "B5 central": b5(ctr),
-        "B5 CT": b5(cfg, xs=x_ct),
-        "B5 CT bf16 dual": b5(cfg, d_dt=bf16, xs=x_ct),
-        "B5 CT bf16": b5(cfg, bf16, bf16, xs=x_ct),
-        "B5 CT upwind": b5(up, xs=x_ct),
-        "B5 CT central": b5(ctr, xs=x_ct),
+        "B5": b5("B5", cfg),
+        "B5 bf16 dual": b5("B5 bf16 dual", cfg, d_dt=bf16),
+        "B5 bf16": b5("B5 bf16", cfg, bf16, bf16),
+        "B5 upwind": b5("B5 upwind", up),
+        "B5 central": b5("B5 central", ctr),
+        "B5 CT": b5("B5 CT", cfg, xs=x_ct),
+        "B5 CT bf16 dual": b5("B5 CT bf16 dual", cfg, d_dt=bf16, xs=x_ct),
+        "B5 CT bf16": b5("B5 CT bf16", cfg, bf16, bf16, xs=x_ct),
+        "B5 CT upwind": b5("B5 CT upwind", up, xs=x_ct),
+        "B5 CT central": b5("B5 CT central", ctr, xs=x_ct),
     }
     del x_ct
     its = {
@@ -255,6 +295,8 @@ def main():
           + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
           + "; ms per iteration: "
           + ", ".join(f"{k} {v:.4f}" for k, v in its.items())
+          + "; output hashes: "
+          + ", ".join(f"{k} {v}" for k, v in hashes.items())
           + f"; card {card()}", flush=True)
     tgv_ms, tgv_hash = tgv_times(dev)
     print(f"[tgv times] {os.path.relpath(root)} {SHAPE} f32 unless named, "
@@ -304,9 +346,81 @@ def main():
         "B4 halo": launch_ms(lambda: fused.tv_subgrad(x2, n1, cfg=cfg,
                                                       **halo)),
     }
+    # B8 from seeded states: the hashes of its outputs, then the host's and
+    # the device's share of a launch
+    rng = np.random.default_rng(4)
+
+    def seeded(*shape):
+        return torch.as_tensor(0.1 * rng.standard_normal(shape),
+                               dtype=torch.float32, device=dev)
+
+    bx, bx0 = xs.clone(), x0s.clone()
+    bA, bD = seeded(*shard), seeded(nz, M, Nd, Nr, Nc)
+    bxh, byh = seeded(2, M, Nr, Nc) + 0.5, seeded(2, M, Nd, Nr, Nc)
+    btv = fused.cp_dual(bx, bx0, bA, bD, interior=True, **dk, **td)[2]
+    fused.cp_dual_boundary(bx, bxh, bx0, bA, bD, btv, **dk, **td)
+    b8_hash = {"B8 dual": digest(bA, bD)}
+    bfid = fused.cp_primal(bx, bx0, bA, bD, interior=True, **pk, **td)[1]
+    fused.cp_primal_boundary(bx, bx0, bA, bD, byh, bfid, **pk, **td)
+    b8_hash["B8 primal"] = digest(bx)
+    sums = (float(btv.sum()), float(bfid.sum()))
+
+    from pytv4d_tpu_torch.utils.profiling import device_time
+
+    b8 = {"B8 dual": lambda: fused.cp_dual_boundary(
+              xs, x_halo, x0s, yAs, yDs, tv, **dk, **td),
+          "B8 primal": lambda: fused.cp_primal_boundary(
+              xs, x0s, yAs, yDs, y_halo, fid, **pk, **td)}
+    b8_host = {k: host_us(fn) for k, fn in b8.items()}
+    b8_dev = {k: device_time(lambda: [fn() for _ in range(50)], 50, dev)[0]
+              for k, fn in b8.items()}
+    step_wall, step_dev = sharded_steps(x0, cfg, dev)
     print(f"[stencil times, one z-shard] {os.path.relpath(root)} {shard} "
-          f"f32: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()),
-          flush=True)
+          f"f32: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + "; B8 host per launch: "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in b8_host.items())
+          + "; B8 on the device (torch.profiler): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in b8_dev.items())
+          + "; B8 output hashes: "
+          + ", ".join(f"{k} {v}" for k, v in b8_hash.items())
+          + f" (TV / fidelity partial sums {sums[0]:.6e} / {sums[1]:.6e})"
+          + f"; {SHAPE} as 4 z-shards, ms per iteration wall / device: "
+          + ", ".join(f"{k} {step_wall[k]:.4f} / {step_dev[k]:.4f}"
+                      for k in step_wall)
+          + f"; card {card()}", flush=True)
+
+
+def sharded_steps(vol, cfg, dev):
+    """ms per iteration of the 4-z-shard CP solve of ``vol`` on the
+    overlapped and the ghost-plane step and of the unsharded solve: wall
+    (:func:`iteration_ms`) and device (``torch.profiler`` over 20
+    iterations)."""
+    from pytv4d_tpu_torch.kernels.fused import to_internal_layout
+    from pytv4d_tpu_torch.parallel import (make_mesh,
+                                           make_sharded_cp_solver_fused,
+                                           shard_volume)
+    from pytv4d_tpu_torch.solvers.cp import chambolle_pock, init_state
+    from pytv4d_tpu_torch.utils.profiling import device_time
+
+    mesh = make_mesh(4, 1, device=dev)
+    st = init_state(vol, cfg)
+    args = [shard_volume(t, mesh, False) for t in (
+        vol, st.x, st.y_A, to_internal_layout(st.y_D))]
+
+    def sharded(overlap):
+        def run(n):
+            make_sharded_cp_solver_fused(
+                mesh, cfg, tuple(vol.shape), reg=1.0, n_iter=n,
+                shard_time=False, overlap=overlap)(*args)
+        return run
+
+    paths = {"overlap": sharded(True), "ghost": sharded(False),
+             "unsharded": lambda n: chambolle_pock(
+                 vol, n_iter=n, reg=1.0, cfg=cfg, return_dual=False)}
+    wall = {k: iteration_ms(run) for k, run in paths.items()}
+    on_dev = {k: device_time(lambda: run(20), 20, dev)[0]
+              for k, run in paths.items()}
+    return wall, on_dev
 
 
 if __name__ == "__main__":
