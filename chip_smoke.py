@@ -72,7 +72,16 @@ overlapped path (whose final state must equal the ghost path's bit for bit,
 and both the unsharded solve's), a (2 x 2) mesh with time sharded, the
 sharded GD solver, a bf16 case and a 300-iteration run; and times an
 iteration of each path beside the unsharded step, and a launch of each B8
-kernel (wall, on the device, the host's share, against its bound).  Every phase raises
+kernel (wall, on the device, the host's share, against its bound).  For
+fan- and cone-beam CT (phase 26): holds each geometry's projector pair,
+FDK and SART in f32 on the card against float64 on the CPU at a small
+shape; then at (16, 4, 512, 512) x 96 angles over a full orbit times the
+projection, its adjoint and ``estimate_op_norm``, runs 10 iterations of
+``cp_reconstruct(geom=...)`` (one B5, B2 and B3 launch per iteration)
+against the plain step, splits an iteration, and times FDK (cone) and two
+SART epochs with their peak memory.  For the reference's own entry points
+(phase 27): runs ``run_GPU_tests()`` and holds ``tv_GPU`` against
+``tv_CPU`` on the README's input.  Every phase raises
 on failure; nothing falls back to the CPU.  The last line of stdout is one
 JSON object with ``"ok": true`` and the device.
 """
@@ -80,7 +89,9 @@ JSON object with ``"ok": true`` and the device.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -94,7 +105,7 @@ import numpy as np
 import torch
 
 import pytv4d_tpu_torch
-from pytv4d_tpu_torch import tv_GPU
+from pytv4d_tpu_torch import testing, tv_CPU, tv_GPU
 from pytv4d_tpu_torch.core.config import TVConfig
 from pytv4d_tpu_torch.core.schemes import (
     AXIS_T,
@@ -120,10 +131,18 @@ from pytv4d_tpu_torch.models import (
     denoise_tv_chambolle,
 )
 from pytv4d_tpu_torch.models.ct import (
+    ConeBeamGeometry,
+    FanBeamGeometry,
     cp_reconstruct,
     estimate_op_norm,
+    fdk,
+    make_cone_projector,
+    make_fan_projector,
     make_projector,
     radon,
+    radon_cone,
+    radon_fan,
+    sart,
 )
 from pytv4d_tpu_torch.parallel import (
     fused_halo,
@@ -2936,6 +2955,229 @@ def phase_sharded_main_path(card):
     return launches[True], launch_ms, bounds
 
 
+# ---------------------------------------------------------------- phase 26
+# the JAX package's cone bench geometry (bench/harness.py::bench_ct_cone:
+# the source at twice the width, the detector at the width); the fan takes
+# the same distances.  Full orbit, CT_ANGLES angles; the cone's detector is
+# (Nz, N): a (M, CT_ANGLES, 16, 512) sinogram
+FAN = FanBeamGeometry(source_dist=2.0 * CT_SHAPE[-1], det_dist=CT_SHAPE[-1])
+CONE = ConeBeamGeometry(source_dist=2.0 * CT_SHAPE[-1],
+                        det_dist=CT_SHAPE[-1])
+# the small check: each geometry at 1/16 of the width, f32 on the card
+# against float64 on the CPU; the CPU's f32 lands 1e-6 to 1e-5 of the scale
+# from its f64 there (A, A_T, FDK, SART), so 1e-4 of the scale holds the
+# card to f32 round-off with ten times the room
+CT_GEOM_SMALL = (4, 2, 32, 32)
+CT_GEOM_TOL = 1e-4
+
+
+def _geometry(geom):
+    """(name, forward projection, pair builder) of a beam geometry."""
+    if isinstance(geom, ConeBeamGeometry):
+        return "cone", radon_cone, make_cone_projector
+    return "fan", radon_fan, make_fan_projector
+
+
+def _rel_err(got, ref):
+    return float((got.cpu().double() - ref).abs().max() / ref.abs().max())
+
+
+def _geometry_small(geom):
+    """A, A_T, FDK and two SART epochs at CT_GEOM_SMALL on the card in f32
+    against the same on the CPU in float64: the largest error of each over
+    its reference's scale."""
+    name, project, pair = _geometry(geom)
+    shape = CT_GEOM_SMALL
+    small = geom._replace(source_dist=geom.source_dist * shape[-1]
+                          / CT_SHAPE[-1],
+                          det_dist=geom.det_dist * shape[-1] / CT_SHAPE[-1])
+    angles = np.linspace(0.0, 2 * np.pi, 16, endpoint=False)
+    rng = np.random.default_rng(0)
+    vol = rng.random(shape)
+    cpu = torch.device("cpu")
+    ref = project(vol, angles, small, device=cpu)
+    errs = {"A": _rel_err(project(vol.astype(np.float32), angles, small),
+                          ref)}
+    y = rng.standard_normal(tuple(ref.shape))
+    _, A_T64 = pair(shape, angles, small, dtype=torch.float64)
+    _, A_T32 = pair(shape, angles, small)
+    errs["A_T"] = _rel_err(A_T32(torch.as_tensor(y, dtype=torch.float32,
+                                                 device=DEV)),
+                           A_T64(torch.as_tensor(y)))
+    if name == "cone":
+        errs["fdk"] = _rel_err(
+            fdk(ref.float().numpy(), angles, small, shape),
+            fdk(ref, angles, small, shape))
+    kw = dict(n_iter=2, n_subsets=8, geom=small)
+    got = sart(ref.float().numpy(), angles, shape, **kw)
+    want = sart(ref, angles, shape, **kw)
+    errs["sart"] = max(_rel_err(got.x, want.x),
+                       _rel_err(got.residual, want.residual))
+    require(got.x.device == DEV
+            and all(e <= CT_GEOM_TOL for e in errs.values()),
+            f"{name} at {shape}: card f32 vs CPU float64 {errs}")
+    return errs
+
+
+def phase_ct_geometries(card):
+    """Fan- and cone-beam CT at full width: each geometry's projector pair,
+    a 10-iteration cp_reconstruct on B5 + B2 (+ B3 for the loss) against
+    the plain step, its split, FDK (cone) and SART; returns each
+    geometry's launch counts."""
+    cfg = TVConfig(**CT_CFG)
+    angles = np.linspace(0.0, 2 * np.pi, CT_ANGLES, endpoint=False)
+    n_iter, reg = 10, 0.5
+    fw = torch.ones((), device=DEV)
+    launches = {}
+    for geom in (FAN, CONE):
+        name, project, pair = _geometry(geom)
+        small = _geometry_small(geom)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        vol = torch.rand(CT_SHAPE, generator=gen, device=DEV)
+        sino = project(vol, angles, geom)
+        sino += 0.5 * torch.randn(sino.shape, generator=gen, device=DEV)
+        A, A_T = pair(CT_SHAPE, angles, geom)
+        ops = {"A": _time_launch(lambda: A(vol), n=3),
+               "A_T": _time_launch(lambda: A_T(sino), n=3)}
+        del vol
+        start = time.perf_counter()
+        op_norm = float(estimate_op_norm(A, A_T, CT_SHAPE, device=DEV))
+        ops["estimate_op_norm"] = (time.perf_counter() - start) * 1e3
+        kw = dict(n_iter=n_iter, reg=reg, cfg=cfg, nonneg=True,
+                  op_norm=op_norm, geom=geom)
+
+        def solve(**more):
+            return cp_reconstruct(sino, angles, CT_SHAPE, **kw, **more)
+
+        sync()
+        torch.cuda.reset_peak_memory_stats(DEV)
+        zero_counters()
+        res = solve()
+        sync()
+        launches[name] = read_counters()
+        require_launches(launches[name], f"{name} cp_reconstruct",
+                         B5=n_iter, B2=n_iter, B3=n_iter)
+        peak = {"cp_reconstruct": torch.cuda.max_memory_allocated(DEV)}
+        loss = res.loss
+        require(bool(torch.isfinite(loss).all())
+                and float(loss[-1]) < float(loss[0])
+                and tuple(res.x.shape) == CT_SHAPE
+                and bool(torch.isfinite(res.x).all()),
+                f"{name}: finite x, losses finite and falling")
+        st = res.state
+        del res
+        ms = _best_ms(solve, repeats=2) / n_iter
+        plain = solve(fused=False)
+        rel = abs(float(loss[-1]) - float(plain.loss[-1])) \
+            / float(plain.loss[-1])
+        require(rel <= 1e-4, f"{name} fused vs plain final loss {rel:.3g}")
+        err_x = float((st.x - plain.x).abs().max())
+        del plain
+        dev_ms, _ = device_time(solve, n_iter, DEV)
+
+        # the split of one fused iteration, each part alone on the final
+        # state (as phase 18)
+        sigma = 1.0 / np.sqrt(op_norm ** 2 + operator_norm_bound_sq(
+            cfg.scheme, CT_SHAPE[0], CT_SHAPE[1], cfg.reg_z_over_reg,
+            cfg.reg_time))
+        x, x_bar, y_A = st.x, st.x_bar, st.y_A
+        y_D = fused.to_internal_layout(st.y_D)
+        at, out = A_T(y_A), torch.empty_like(x)
+        split = {
+            "A": ops["A"], "A_T": ops["A_T"],
+            "B5": _time_launch(lambda: fused.tv_dual(
+                x_bar, y_D, cfg=cfg, sigma_D=sigma, reg=reg)),
+            "B2": _time_launch(lambda: fused.cp_primal(
+                x, x, at, y_D, cfg=cfg, tau=sigma, nonneg=True, out=out)),
+            "B3 + loss": _time_launch(lambda: torch.add(
+                fidelity_loss(st.s_x, sino, "l2", fw),
+                torch.sum(fused.tv_norms(x, cfg=cfg)[1]), alpha=reg))}
+        del st, x, x_bar, y_A, y_D, at, out
+
+        def peak_of(fn):
+            sync()
+            torch.cuda.reset_peak_memory_stats(DEV)
+            out = fn()
+            sync()
+            return out, torch.cuda.max_memory_allocated(DEV)
+
+        extra = ""
+        if name == "cone":
+            rec, peak["fdk"] = peak_of(
+                lambda: fdk(sino, angles, geom, CT_SHAPE))
+            require(tuple(rec.shape) == CT_SHAPE
+                    and bool(torch.isfinite(rec).all()), "FDK is finite")
+            del rec
+            ops["fdk"] = _best_ms(lambda: fdk(sino, angles, geom, CT_SHAPE),
+                                  repeats=1)
+            extra = f"fdk {ops['fdk']:.1f} ms, "
+        sart_kw = dict(n_iter=2, n_subsets=8, geom=geom)
+        rec, peak["sart"] = peak_of(
+            lambda: sart(sino, angles, CT_SHAPE, **sart_kw))
+        r = rec.residual
+        require(bool(torch.isfinite(rec.x).all()) and float(r[1]) < float(
+            r[0]), f"{name} SART: finite, residual falling")
+        del rec
+        ops["sart"] = _best_ms(lambda: sart(sino, angles, CT_SHAPE,
+                                            **sart_kw), repeats=1)
+        log(f"[26 CT {name} full width] {type(geom).__name__}"
+            f"{tuple(geom)}, {CT_SHAPE} f32 x {CT_ANGLES} angles over 2 pi, "
+            f"sinogram {tuple(sino.shape)}; small check {CT_GEOM_SMALL} "
+            f"card f32 vs CPU float64, max err / scale "
+            + ", ".join(f"{k} {v:.2g}" for k, v in small.items())
+            + f"; A {ops['A']:.2f} ms, A_T {ops['A_T']:.2f} ms (CUDA events, "
+            f"3 calls), estimate_op_norm {ops['estimate_op_norm']:.0f} ms "
+            f"(host clock) = {op_norm:.2f}; cp_reconstruct(hybrid "
+            f"reg_time=0.5, reg {reg}, nonneg, {n_iter} iterations): "
+            f"launches {launches[name]}, loss {float(loss[0]):.6g} -> "
+            f"{float(loss[-1]):.6g}, {1e3 / ms:.3f} it/s ({ms:.2f} ms/it, "
+            f"best of 2 whole calls), device {dev_ms:.2f} ms/it "
+            f"(torch.profiler), idle {100 * (1 - dev_ms / ms):.1f}%; fused "
+            f"vs plain final loss rel {rel:.3g}, x max abs err {err_x:.3g}; "
+            f"one iteration {ms:.2f} ms = "
+            + " + ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" + rest {ms - sum(split.values()):.3f}; {extra}"
+            f"sart(2 epochs, 8 subsets) {ops['sart']:.1f} ms; peak memory "
+            + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in peak.items())
+            + f"; card {card}")
+        del sino, loss
+        torch.cuda.empty_cache()
+    sync()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 27
+def phase_compat(card):
+    """The reference's own entry points: the GPU battery on the card, and
+    tv_CPU (float64 on the CPU) against tv_GPU (f32 on the card) on the
+    README's input."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ok = pytv4d_tpu_torch.run_GPU_tests()
+    text = buf.getvalue()
+    require(ok and text.count("[PASS]") == 12
+            and "All GPU tests passed." in text,
+            f"run_GPU_tests: {text!r}")
+    np.random.seed(0)
+    img = np.random.rand(20, 4, 100, 100)
+    tv_c, G_c = tv_CPU.tv_hybrid(img)
+    require(abs(tv_c - README_TV) <= 1e-12 * README_TV,
+            f"tv_CPU.tv_hybrid {tv_c!r} vs {README_TV}")
+    zero_counters()
+    tv_g, G_g = tv_GPU.tv_hybrid(img)
+    sync()
+    require_launches(read_counters(), "tv_GPU.tv_hybrid", B3=1, B4=1)
+    rel = abs(tv_g - tv_c) / tv_c
+    require(rel <= 1e-4, f"tv_GPU vs tv_CPU: rel {rel:.3g}")
+    err_G = testing.test_equal(G_c, G_g, 1e-4, "G")
+    log(f"[27 compat] run_GPU_tests() on {torch.cuda.get_device_name()}: "
+        f"{text.count('[PASS]')} [PASS] (adjointness, 2D->3D and CPU vs GPU "
+        f"for the four schemes); README input rand(20, 4, 100, 100), seed "
+        f"0: tv_CPU.tv_hybrid {float(tv_c)!r} (float64, CPU), tv_GPU.tv_hybrid "
+        f"{tv_g!r} (f32, one B3 + B4 launch), rel {rel:.3g}, G max err / "
+        f"mean |G| {err_G:.3g}; card {card}")
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2962,6 +3204,8 @@ def main():
     phase_solvers(card)
     halo_errs = phase_halo_kernels()
     sh_launches, sh_ms, sh_bounds = phase_sharded_main_path(card)
+    ct_launches = phase_ct_geometries(card)
+    phase_compat(card)
 
     # B1-B4 bounds at the shape their times were taken at: MAIN_4D float32,
     # hybrid with reg_time=0.5 (Nd channels).  Bytes: each array once per
@@ -2997,6 +3241,10 @@ def main():
                "bound_by": bounds[kid][1], "library_ms": None}
         if err_bf16 is not None:
             out["max_abs_err_bf16"] = err_bf16
+        if kid in ("B2", "B3", "B5"):
+            # the fan- and cone-beam cp_reconstruct path (phase 26)
+            out["launches_ct_geometries"] = {
+                name: got[kid] for name, got in ct_launches.items()}
         return out
 
     stream_ms = tgv_ms[("4d", "f32")]

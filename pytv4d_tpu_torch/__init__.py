@@ -1,13 +1,14 @@
 """pytv4d_tpu_torch — the PyTorch/CUDA port of pytv4d_tpu.
 
 Total variation of 2D/3D/4D ``(Nz, M, N_row, N_col)`` volumes — the value
-and subgradient (``ops.tv``, and the reference's ``tv_GPU`` /
-``tv_operators_GPU`` modules) — TV denoising with the Chambolle-Pock
+and subgradient (``ops.tv``, and the reference's ``tv_CPU`` / ``tv_GPU`` /
+``tv_operators_CPU`` / ``tv_operators_GPU`` modules) — TV denoising with the Chambolle-Pock
 (plain and diagonally preconditioned), subgradient-descent, ADMM and dual
 FISTA solvers, checkpointing and tolerance-based stopping
 (``solvers.state``), second-order TGV denoising (``solvers.tgv``),
 TV-regularized linear inverse problems (``solvers.inverse``) and
-parallel-beam CT reconstruction (``models.ct``), and the CP and GD solvers
+parallel-, fan- and cone-beam CT reconstruction with FBP, FDK and SART
+(``models.ct``), and the CP and GD solvers
 on a (z, t) grid of shards (``parallel``), on any torch device.  On an
 NVIDIA Hopper GPU the CP step (denoising and inverse), the TV subgradient
 and the TGV step each run as two hand-written CUDA kernels, and the
@@ -35,7 +36,15 @@ the CPU (``utils.device``).
     sino = radon(vol, angles)                 # (Nz, M, n_angles, n_det)
     res = cp_reconstruct(sino, angles, vol.shape, n_iter=30, reg=0.05,
                          nonneg=True)
+
+The reference's own module layout (``pytv/__init__.py:43-63``) is here
+too, so ``import pytv4d_tpu_torch as pytv`` serves its call sites:
+``tv_CPU`` / ``tv_operators_CPU`` (NumPy in and out, computed on the
+CPU), ``tv_GPU`` / ``tv_operators_GPU`` (on the CUDA device), ``tests``,
+``run_CPU_tests``, ``run_GPU_tests`` and ``cameraman``.
 """
+
+__version__ = "0.1.0"
 
 from . import (
     core,
@@ -45,7 +54,10 @@ from . import (
     ops,
     parallel,
     solvers,
+    tests,
+    tv_CPU,
     tv_GPU,
+    tv_operators_CPU,
     tv_operators_GPU,
     utils,
 )
@@ -83,3 +95,5 @@ from .solvers.fista import FISTAResult, fista
 from .solvers.gd import GDResult, subgradient_descent
 from .solvers.inverse import InverseResult, InverseState, cp_inverse
 from .solvers.tgv import TGVResult, TGVState, tgv_denoise
+from .testing import run_CPU_tests, run_GPU_tests
+from .utils.images import cameraman

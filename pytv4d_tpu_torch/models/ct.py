@@ -1,6 +1,6 @@
-"""Tomographic reconstruction: parallel-beam projector + TV-regularized
-primal-dual reconstruction.  The port of the parallel-beam part of
-``pytv4d_tpu/models/ct.py``.
+"""Tomographic reconstruction: parallel-, fan- and cone-beam projectors,
+TV- and TGV-regularized primal-dual reconstruction, FBP, FDK and SART.  The
+port of the gather path of ``pytv4d_tpu/models/ct.py``.
 
 The reference library exists to regularize iterative CT reconstruction
 (Boigne et al. IEEE TCI 2022, doi 10.1109/TCI.2022.3215096) but ships no
@@ -11,21 +11,29 @@ projector.  This module completes the workflow:
   the image) with its **exact adjoint**, the transposed bilinear scatter over
   the same sample points; the pair passes the dot-product test to round-off,
   so primal-dual solvers converge as theory says.
+- :func:`radon_fan` / :func:`make_fan_projector` (:class:`FanBeamGeometry`,
+  a flat detector, the beam fanning in-plane: sinogram ``(Nz, M, n_angles,
+  n_det)``) and :func:`radon_cone` / :func:`make_cone_projector`
+  (:class:`ConeBeamGeometry`, a circular orbit and a flat panel, trilinear
+  sampling: sinogram ``(M, n_angles, n_det_v, n_det_u)``), each with its
+  exact adjoint in the same way.
 - per-frame angle sets: dynamic CT interleaves projection angles across time
   frames (the paper's setting); ``angles`` may be ``(n_angles,)`` shared or
   ``(M, n_angles)`` per-frame.
 - :func:`cp_reconstruct`: Chambolle-Pock for
   ``min_x F(A x) + reg * TV(x)`` (``solvers.inverse.cp_inverse`` on the
-  projector), step sizes from a power-method estimate of ``||A||``.
+  projector of ``geom``), step sizes from a power-method estimate of
+  ``||A||``.
 - :func:`tgv_reconstruct`: the same with the second-order TGV regularizer
   (``solvers.tgv.tgv_inverse``).
-- :func:`fbp`: filtered backprojection, directly or as ``x_init``.
+- :func:`fbp`, :func:`fdk` and :func:`sart`: filtered backprojection,
+  Feldkamp-Davis-Kress and ordered-subsets SART, directly or as ``x_init``.
 
-The projector is plain torch ops (``grid_sample`` and its transpose), as it
-is XLA ops in the JAX package; the TV half of a reconstruction's iteration
-runs on the fused kernels (``kernels.fused``).  Fan and cone beams and the
-spectral (Fourier-slice) projector are not ported yet (ROADMAP.md queue A,
-items 14 and 15): asking for them raises ``NotImplementedError``.
+The projectors are plain torch ops (``grid_sample`` and its transpose), as
+they are XLA ops in the JAX package; the TV half of a reconstruction's
+iteration runs on the fused kernels (``kernels.fused``).  The spectral
+(Fourier-slice) projectors are not ported yet (ROADMAP.md queue A, item
+15): ``method='spectral'`` raises ``NotImplementedError``.
 
 Where a call computes (``utils.device``): a tensor on its own device; a
 numpy sinogram or volume on the CUDA device (``RuntimeError`` where there
@@ -56,6 +64,17 @@ def _as_angles(angles, like):
         like.dtype)
 
 
+def _grid(coords, sizes):
+    """Pixel coordinates, one tensor each in the sampler's (x, y[, z])
+    order, stacked as ``grid_sample``'s grid, normalised for
+    ``align_corners=True`` on an input of ``sizes`` (in the same order; each
+    at least 2, see :func:`_two_at_least`).  Python scalars scale them: a
+    scale tensor made on the device would copy from the host, and such a
+    copy waits for the device."""
+    return torch.stack([c * (2.0 / (n - 1)) - 1.0
+                        for c, n in zip(coords, sizes)], dim=-1)
+
+
 def _sample_grid(thetas, N: int, n_det: int):
     """``grid_sample`` coordinates of every sample of every ray.
 
@@ -74,15 +93,26 @@ def _sample_grid(thetas, N: int, n_det: int):
     S, T = s[:, None], t[None, :]
     rows = c + S * cos + T * sin          # (G, B, n_det, N)
     cols = c - S * sin + T * cos
-    grid = torch.stack((cols, rows), dim=-1) * (2.0 / max(N - 1, 1)) - 1.0
-    return grid.reshape(thetas.shape[0], -1, N, 2)
+    return _grid((cols, rows), (N, N)).reshape(thetas.shape[0], -1, N, 2)
 
 
-# bilinear (0), zero outside (0), pixel centres at integers: a sample within
-# one pixel outside the image still gets the weight of its one inside corner,
-# as scipy's map_coordinates(order=1, mode='constant', cval=0) gives it.
-# radon and its adjoint both call the sampler with exactly these arguments.
+# bilinear / trilinear (0), zero outside (0), pixel centres at integers: a
+# sample within one pixel outside the image still gets the weight of its
+# inside corners, as scipy's map_coordinates(order=1, mode='constant',
+# cval=0) gives it.  Every projector and its adjoint call the samplers with
+# exactly these arguments.
 _SAMPLER = dict(interpolation_mode=0, padding_mode=0, align_corners=True)
+
+
+def _two_at_least(t, n_dims: int):
+    """``t`` with each of its last ``n_dims`` axes of length 1 padded to 2
+    with zeros.  With ``align_corners=True`` the samplers map every
+    coordinate of a length-1 axis to its one pixel; on the padded axis a
+    coordinate keeps its weights, and the zero pixel adds nothing."""
+    pad = []
+    for n in reversed(t.shape[t.ndim - n_dims:]):
+        pad += [0, 1 if n == 1 else 0]
+    return F.pad(t, pad) if any(pad) else t
 
 
 def _as_slices(vol, per_frame: bool):
@@ -94,16 +124,14 @@ def _as_slices(vol, per_frame: bool):
     return vol.reshape(1, Nz * M, N, N)
 
 
-def _angle_chunks(angles, n_det, vol_shape, itemsize, angle_batch):
-    """``(start, stop)`` angle ranges whose samples stay within the
-    in-flight budget (or hold ``angle_batch`` angles)."""
-    Nz, M, N = vol_shape[0], vol_shape[1], vol_shape[-1]
-    A = angles.shape[-1]
+def _angle_chunks(n_angles: int, per_angle: int, angle_batch):
+    """``(start, stop)`` angle ranges whose samples (``per_angle`` bytes an
+    angle) stay within the in-flight budget, or that hold ``angle_batch``
+    angles."""
     if angle_batch is None:
-        per_angle = Nz * M * n_det * N * itemsize
         angle_batch = max(1, _RADON_GATHER_BUDGET // max(per_angle, 1))
-    B = max(1, min(int(angle_batch), A))
-    return [(a, min(a + B, A)) for a in range(0, A, B)]
+    B = max(1, min(int(angle_batch), n_angles))
+    return [(a, min(a + B, n_angles)) for a in range(0, n_angles, B)]
 
 
 def _check_geometry(vol_shape, angles):
@@ -117,6 +145,57 @@ def _check_geometry(vol_shape, angles):
         raise ValueError(
             f"angles must be (n_angles,) or (M={vol_shape[1]}, n_angles), "
             f"got shape {tuple(angles.shape)}")
+
+
+def _sweep(vol, angles, grid_of, n_det: int, per_angle: int, angle_batch):
+    """Ray sums of a ``(Nz, M, N, N)`` volume, ``(Nz, M, n_angles,
+    n_det)``: per angle chunk, bilinear samples at ``grid_of(thetas)``
+    (``(G, B * n_det, S, 2)`` for ``(G, B)`` angles), summed along each
+    ray's S samples."""
+    Nz, M = vol.shape[0], vol.shape[1]
+    per_frame = angles.ndim == 2
+    slices = _as_slices(vol, per_frame)
+    thetas = angles if per_frame else angles[None]
+    out = []
+    for a, b in _angle_chunks(angles.shape[-1], per_angle, angle_batch):
+        samples = torch.ops.aten.grid_sampler_2d(
+            slices, grid_of(thetas[:, a:b]), **_SAMPLER)
+        out.append(samples.sum(dim=-1).reshape(
+            slices.shape[0], slices.shape[1], b - a, n_det))
+    sino = torch.cat(out, dim=2)
+    if per_frame:
+        return sino.transpose(0, 1)
+    return sino.reshape(Nz, M, -1, n_det)
+
+
+def _sweep_adjoint(sino, angles, vol_shape, grid_of, n_samples: int,
+                   per_angle: int, angle_batch):
+    """The exact transpose of :func:`_sweep` at ``vol_shape``: every
+    sinogram value is scattered along its ray with the bilinear weights the
+    forward sweep sampled with (the sampler's own transpose, computed from
+    the same coordinates, without running the forward sweep).  On a CUDA
+    device the scatter uses atomic adds, so two runs may differ in the last
+    bits."""
+    Nz, M, N = vol_shape[0], vol_shape[1], vol_shape[-1]
+    n_det = sino.shape[-1]
+    per_frame = angles.ndim == 2
+    y = sino.transpose(0, 1) if per_frame else sino.reshape(
+        1, Nz * M, -1, n_det)
+    thetas = angles if per_frame else angles[None]
+    acc = torch.zeros(y.shape[:2] + (N, N), dtype=sino.dtype,
+                      device=sino.device)
+    for a, b in _angle_chunks(angles.shape[-1], per_angle, angle_batch):
+        g = y[:, :, a:b].reshape(y.shape[0], y.shape[1], -1, 1).expand(
+            -1, -1, -1, n_samples)
+        # the sampler's transpose takes its input for the shape (and for
+        # the grid's gradient, which is not asked for)
+        part, _ = torch.ops.aten.grid_sampler_2d_backward(
+            g, acc, grid_of(thetas[:, a:b]), output_mask=(True, False),
+            **_SAMPLER)
+        acc += part
+    if per_frame:
+        return acc.transpose(0, 1).contiguous()
+    return acc.reshape(vol_shape)
 
 
 def radon(vol, angles, n_det: Optional[int] = None,
@@ -138,53 +217,22 @@ def radon(vol, angles, n_det: Optional[int] = None,
     _check_geometry(vol.shape, angles)
     Nz, M, N = vol.shape[0], vol.shape[1], vol.shape[-1]
     n_det = n_det or N
-    per_frame = angles.ndim == 2
-    slices = _as_slices(vol, per_frame)
-    thetas = angles if per_frame else angles[None]
-    out = []
-    for a, b in _angle_chunks(angles, n_det, vol.shape, vol.element_size(),
-                              angle_batch):
-        grid = _sample_grid(thetas[:, a:b], N, n_det)
-        samples = torch.ops.aten.grid_sampler_2d(slices, grid, **_SAMPLER)
-        out.append(samples.sum(dim=-1).reshape(
-            slices.shape[0], slices.shape[1], b - a, n_det))
-    sino = torch.cat(out, dim=2)
-    if per_frame:
-        return sino.transpose(0, 1)
-    return sino.reshape(Nz, M, -1, n_det)
+    return _sweep(vol, angles, lambda th: _sample_grid(th, N, n_det), n_det,
+                  Nz * M * n_det * N * vol.element_size(), angle_batch)
 
 
 def _radon_adjoint(sino, angles, vol_shape, angle_batch: Optional[int] = None):
-    """The exact transpose of :func:`radon` at ``vol_shape``: every sinogram
-    value is scattered along its ray with the bilinear weights the forward
-    projection sampled with (the sampler's own transpose, computed from the
-    same coordinates, without running the forward projection).  On a CUDA
-    device the scatter uses atomic adds, so two runs may differ in the last
-    bits."""
+    """The exact transpose of :func:`radon` at ``vol_shape``
+    (:func:`_sweep_adjoint`)."""
     vol_shape = tuple(vol_shape)
     angles = _as_angles(angles, sino)
     _check_geometry(vol_shape, angles)
     Nz, M, N = vol_shape[0], vol_shape[1], vol_shape[-1]
     n_det = sino.shape[-1]
-    per_frame = angles.ndim == 2
-    y = sino.transpose(0, 1) if per_frame else sino.reshape(
-        1, Nz * M, -1, n_det)
-    thetas = angles if per_frame else angles[None]
-    acc = torch.zeros(y.shape[:2] + (N, N), dtype=sino.dtype,
-                      device=sino.device)
-    for a, b in _angle_chunks(angles, n_det, vol_shape, sino.element_size(),
-                              angle_batch):
-        grid = _sample_grid(thetas[:, a:b], N, n_det)
-        g = y[:, :, a:b].reshape(y.shape[0], y.shape[1], -1, 1).expand(
-            -1, -1, -1, N)
-        # the sampler's transpose takes its input for the shape (and for
-        # the grid's gradient, which is not asked for)
-        part, _ = torch.ops.aten.grid_sampler_2d_backward(
-            g, acc, grid, output_mask=(True, False), **_SAMPLER)
-        acc += part
-    if per_frame:
-        return acc.transpose(0, 1).contiguous()
-    return acc.reshape(vol_shape)
+    return _sweep_adjoint(sino, angles, vol_shape,
+                          lambda th: _sample_grid(th, N, n_det), N,
+                          Nz * M * n_det * N * sino.element_size(),
+                          angle_batch)
 
 
 _PROJECTOR_METHODS = ("auto", "gather", "spectral")
@@ -206,21 +254,54 @@ def _resolve_method(method: str) -> str:
     return "gather"
 
 
-def _require_parallel(geom):
-    if geom is not None:
-        raise NotImplementedError(
-            f"only the parallel beam (geom=None) is ported; fan and cone "
-            f"geometries are ROADMAP.md queue A, item 14 (got "
-            f"{type(geom).__name__})")
-
-
 _PROJECTOR_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 _PROJECTOR_CACHE_MAX = 24
 
 
 def clear_projector_cache() -> None:
-    """Drop all memoized ``(A, A_T)`` projector pairs."""
+    """Drop all memoized ``(A, A_T)`` projector pairs: the parallel, fan and
+    cone ones."""
     _PROJECTOR_CACHE.clear()
+
+
+def _cached_pair(key, builder):
+    """The pair memoized under ``key`` in ``_PROJECTOR_CACHE`` (least
+    recently used of at most ``_PROJECTOR_CACHE_MAX``), built by
+    ``builder()`` on a miss: repeated solves get the same function
+    objects."""
+    hit = _PROJECTOR_CACHE.get(key)
+    if hit is not None:
+        _PROJECTOR_CACHE.move_to_end(key)   # hits refresh position
+        return hit
+    pair = builder()
+    if len(_PROJECTOR_CACHE) >= _PROJECTOR_CACHE_MAX:
+        _PROJECTOR_CACHE.popitem(last=False)
+    _PROJECTOR_CACHE[key] = pair
+    return pair
+
+
+def _host_angles(angles):
+    """The angles as a numpy array (the cache keys' form)."""
+    if isinstance(angles, torch.Tensor):
+        return angles.detach().cpu().numpy()
+    return np.asarray(angles)
+
+
+def _parallel_pair(vol_shape, angles, n_det, dtype, angle_batch=None):
+    """``(A, A_T)`` of :func:`radon` at a fixed geometry, unmemoized."""
+    vol_shape = tuple(int(n) for n in vol_shape)
+    _check_geometry(vol_shape, angles)
+    n_det = n_det or vol_shape[-1]
+
+    def A(x):
+        return radon(on_device(x).to(dtype), angles, n_det=n_det,
+                     angle_batch=angle_batch)
+
+    def A_T(y):
+        return _radon_adjoint(on_device(y).to(dtype), angles, vol_shape,
+                              angle_batch=angle_batch)
+
+    return A, A_T
 
 
 def make_projector(vol_shape, angles, n_det: Optional[int] = None,
@@ -240,29 +321,11 @@ def make_projector(vol_shape, angles, n_det: Optional[int] = None,
     ``_PROJECTOR_CACHE_MAX`` pairs): repeated calls return the same
     ``(A, A_T)`` function objects."""
     vol_shape = tuple(int(n) for n in vol_shape)
-    ang_np = (angles.detach().cpu().numpy()
-              if isinstance(angles, torch.Tensor) else np.asarray(angles))
+    ang_np = _host_angles(angles)
     key = (vol_shape, ang_np.tobytes(), ang_np.shape, n_det, dtype,
            angle_batch, _resolve_method(method))
-    hit = _PROJECTOR_CACHE.get(key)
-    if hit is not None:
-        _PROJECTOR_CACHE.move_to_end(key)   # hits refresh position
-        return hit
-    n_det = n_det or vol_shape[-1]
-    _check_geometry(vol_shape, ang_np)
-
-    def A(x):
-        return radon(x.to(dtype), ang_np, n_det=n_det,
-                     angle_batch=angle_batch)
-
-    def A_T(y):
-        return _radon_adjoint(y.to(dtype), ang_np, vol_shape,
-                             angle_batch=angle_batch)
-
-    if len(_PROJECTOR_CACHE) >= _PROJECTOR_CACHE_MAX:
-        _PROJECTOR_CACHE.popitem(last=False)
-    pair = _PROJECTOR_CACHE[key] = (A, A_T)
-    return pair
+    return _cached_pair(key, lambda: _parallel_pair(
+        vol_shape, ang_np, n_det, dtype, angle_batch))
 
 
 def estimate_op_norm(A, A_T, vol_shape, n_iter: int = 12, seed: int = 0,
@@ -303,18 +366,21 @@ def cp_reconstruct(
 ):
     """TV-regularized reconstruction ``min_x F(A x) + reg TV(x)`` with the
     Chambolle-Pock algorithm over the joint operator ``K = [A; D]`` (step
-    rule ``tau * sigma * (||A||^2 + ||D||^2) <= 1``) from a parallel-beam
-    sinogram ``(Nz, M, n_angles, n_det)``.  ``geom`` other than ``None``
-    (fan, cone) and ``method='spectral'`` raise ``NotImplementedError``
-    until they are ported.  ``fidelity`` / ``fidelity_weight`` / ``nonneg``
-    / ``precond`` / ``state`` / ``loss_every`` as in
-    :func:`solvers.inverse.cp_inverse` (``fidelity='kl'`` = Poisson counts,
-    ``nonneg=True`` = nonnegative attenuation).  ``fused`` / ``dual_dtype``
-    as there too: the TV half of each iteration rides the fused kernels by
-    default (float32/bfloat16, scalar steps), and ``dual_dtype='bfloat16'``
-    halves the Nd-channel dual's memory and traffic.  The solve runs on the
-    sinogram's device; a numpy sinogram goes to the CUDA device unless
-    ``device`` names another."""
+    rule ``tau * sigma * (||A||^2 + ||D||^2) <= 1``).  ``geom`` selects the
+    beam geometry: ``None`` = parallel, :class:`FanBeamGeometry` = fan
+    (sinogram ``(Nz, M, n_angles, n_det)``), :class:`ConeBeamGeometry` =
+    cone (sinogram ``(M, n_angles, n_det_v, n_det_u)``; ``n_det`` ignored:
+    the detector's dimensions come from the sinogram).  ``method='spectral'``
+    raises ``NotImplementedError`` until that projector is ported.
+    ``fidelity`` / ``fidelity_weight`` / ``nonneg`` / ``precond`` /
+    ``state`` / ``loss_every`` as in :func:`solvers.inverse.cp_inverse`
+    (``fidelity='kl'`` = Poisson counts, ``nonneg=True`` = nonnegative
+    attenuation).  ``fused`` / ``dual_dtype`` as there too: the TV half of
+    each iteration rides the fused kernels by default (float32/bfloat16,
+    scalar steps), and ``dual_dtype='bfloat16'`` halves the Nd-channel
+    dual's memory and traffic.  The solve runs on the sinogram's device; a
+    numpy sinogram goes to the CUDA device unless ``device`` names
+    another."""
     sino = on_device(sino, device)
     A, A_T = _select_projector(sino, angles, vol_shape, n_det, geom,
                                method=method)
@@ -355,7 +421,7 @@ def tgv_reconstruct(
     """TGV-2-regularized reconstruction: :func:`cp_reconstruct` with the
     second-order regularizer ``a1 ||D x - w|| + a0 ||E w||`` instead of TV
     (``solvers.tgv.tgv_inverse``): staircasing-free reconstructions of
-    piecewise-linear objects (classic TGV-CT).  Same sinogram layout,
+    piecewise-linear objects (classic TGV-CT).  Same sinogram layouts,
     ``geom`` and ``method`` as :func:`cp_reconstruct`; ``axes`` picks
     in-plane ('2d', per (z, t) slice), volumetric ('3d') or space-time
     ('4d') TGV coupling.
@@ -386,12 +452,43 @@ def tgv_reconstruct(
     return CPReconResult(x=res.x, loss=res.loss, state=res.state)
 
 
+def _unknown_geometry(geom):
+    return ValueError(
+        f"unknown geometry {type(geom).__name__}; expected None "
+        f"(parallel), FanBeamGeometry or ConeBeamGeometry"
+    )
+
+
 def _select_projector(sino, angles, vol_shape, n_det, geom, method="auto"):
     """Validate the sinogram layout for the requested beam geometry and
-    build the matching (A, A_T) projector pair (memoized,
-    :func:`make_projector`)."""
-    _require_parallel(geom)
-    n_angles = np.shape(angles)[-1]
+    build the matching (A, A_T) projector pair.  Every geometry goes
+    through ``_PROJECTOR_CACHE``: repeated solves with the same geometry
+    get the same function objects."""
+    method = _resolve_method(method)
+    dtype = sino.dtype
+    ang_np = _host_angles(angles)
+    n_angles = ang_np.shape[-1]
+
+    def cached(kind, builder, *key_extra):
+        key = (kind, tuple(vol_shape), ang_np.tobytes(), ang_np.shape,
+               dtype, method, tuple(geom)) + key_extra
+        return _cached_pair(key, builder)
+
+    if isinstance(geom, ConeBeamGeometry):
+        want = (vol_shape[1], n_angles)
+        if tuple(sino.shape[:2]) != want:
+            raise ValueError(
+                f"cone-beam sinogram shape {tuple(sino.shape)} does not "
+                f"match vol_shape {tuple(vol_shape)} with {n_angles} angles "
+                f"— expected (M={vol_shape[1]}, {n_angles}, n_det_v, "
+                f"n_det_u)"
+            )
+        n_det_v, n_det_u = sino.shape[2], sino.shape[3]
+        return cached("cone-gather", lambda: make_cone_projector(
+            vol_shape, ang_np, geom, n_det_v=n_det_v, n_det_u=n_det_u,
+            dtype=dtype), n_det_v, n_det_u)
+    if geom is not None and not isinstance(geom, FanBeamGeometry):
+        raise _unknown_geometry(geom)
     want = (vol_shape[0], vol_shape[1], n_angles, n_det or vol_shape[-1])
     if tuple(sino.shape) != want:
         raise ValueError(
@@ -399,8 +496,512 @@ def _select_projector(sino, angles, vol_shape, n_det, geom, method="auto"):
             f"vol_shape {tuple(vol_shape)} with {n_angles} angles — "
             f"expected {want} (layout (Nz, M, n_angles, n_det))"
         )
-    return make_projector(vol_shape, angles, n_det=n_det, dtype=sino.dtype,
-                          method=method)
+    if geom is None:
+        return make_projector(vol_shape, ang_np, n_det=n_det, dtype=dtype,
+                              method=method)
+    return cached("fan-gather", lambda: make_fan_projector(
+        vol_shape, ang_np, geom, n_det=n_det, dtype=dtype), n_det)
+
+
+def _ray_spacing(half: float, step: float):
+    """``(n_samples, ds)`` of a divergent ray: ``n_samples`` points ``ds``
+    apart covering ``[-half, half]`` around its closest approach to the
+    isocentre."""
+    n_samples = max(int(np.ceil(2.0 * half / step)), 2)
+    return n_samples, 2.0 * half / n_samples
+
+
+def _ray_axis(half: float, step: float, dtype, device):
+    """The samples' positions along a ray, ``(k + 0.5) ds - half``."""
+    n_samples, ds = _ray_spacing(half, step)
+    return (torch.arange(n_samples, dtype=dtype, device=device) + 0.5) \
+        * ds - half
+
+
+class FanBeamGeometry(NamedTuple):
+    """Flat-detector (equidistant) fan-beam geometry, in pixel units.
+
+    - ``source_dist``: source-to-isocenter distance (D_so).
+    - ``det_dist``: isocenter-to-detector distance (D_od); the detector line
+      is perpendicular to the central ray.
+    - ``det_spacing``: detector cell pitch.  Defaults (``None``) to the
+      magnification ``(D_so + D_od) / D_so`` so n_det = N cells cover the
+      magnified object, converging to unit pitch in the parallel limit.
+    - ``step``: integration step along each ray (default 1 pixel, the
+      parallel projector's implicit step).
+
+    As ``source_dist -> inf`` the fan opens to parallel beam.
+    """
+    source_dist: float
+    det_dist: float = 0.0
+    det_spacing: Optional[float] = None
+    step: float = 1.0
+
+    @property
+    def magnification(self) -> float:
+        return (self.source_dist + self.det_dist) / self.source_dist
+
+    def spacing(self) -> float:
+        return self.det_spacing if self.det_spacing is not None else self.magnification
+
+
+def _fan_grid(betas, N: int, n_det: int, geom: FanBeamGeometry):
+    """``grid_sample`` coordinates of every sample of every fan ray,
+    ``(G, B * n_det, n_samples, 2)`` for ``(G, B)`` angles: the line from
+    the point source at angle beta to each flat-detector cell, sampled on
+    an equispaced grid centred at the ray's closest approach to the
+    isocentre and covering the ball ``|P| <= 0.75 N`` (the image fits
+    inside)."""
+    dtype, device = betas.dtype, betas.device
+    c = (N - 1) / 2.0
+    u_axis = (torch.arange(n_det, dtype=dtype, device=device)
+              - (n_det - 1) / 2.0) * geom.spacing()
+    s_axis = _ray_axis(0.75 * N, geom.step, dtype, device)
+    cosb = torch.cos(betas)[..., None]                 # (G, B, 1)
+    sinb = torch.sin(betas)[..., None]
+    # central-ray direction v = (sinb, cosb), detector axis u = (cosb, -sinb)
+    # (the parallel projector's convention at beta = theta)
+    src_r, src_c = -geom.source_dist * sinb, -geom.source_dist * cosb
+    det_r = geom.det_dist * sinb + u_axis * cosb       # (G, B, n_det)
+    det_c = geom.det_dist * cosb - u_axis * sinb
+    dr, dc = det_r - src_r, det_c - src_c
+    inv_len = 1.0 / torch.sqrt(dr * dr + dc * dc)
+    dr, dc = dr * inv_len, dc * inv_len                # unit ray directions
+    t_star = -(src_r * dr + src_c * dc)                # closest approach to O
+    t = t_star[..., None] + s_axis                     # (G, B, n_det, S)
+    rows = (c + src_r)[..., None] + t * dr[..., None]
+    cols = (c + src_c)[..., None] + t * dc[..., None]
+    return _grid((cols, rows), (N, N)).reshape(betas.shape[0], -1,
+                                               len(s_axis), 2)
+
+
+def _fan_budget(vol_shape, n_det: int, geom, itemsize: int):
+    """Bytes of samples per angle of a fan sweep: the JAX package's count,
+    on ``ceil(1.5 N / step)`` samples a ray."""
+    Nz, M, N = vol_shape[0], vol_shape[1], vol_shape[-1]
+    return Nz * M * n_det * int(np.ceil(1.5 * N / geom.step)) * itemsize
+
+
+def radon_fan(vol, angles, geom: FanBeamGeometry,
+              n_det: Optional[int] = None,
+              angle_batch: Optional[int] = None, device=None):
+    """Fan-beam forward projection of a ``(Nz, M, N, N)`` volume (the beam
+    fans in-plane; z decomposes exactly as in parallel geometry).
+    ``angles`` is ``(n_angles,)`` shared or ``(M, n_angles)`` per-frame;
+    returns ``(Nz, M, n_angles, n_det)``: each ray's line integral, bilinear
+    samples ``ds`` apart summed times ``ds`` (linear in the volume).
+    ``angle_batch`` bounds the in-flight samples as in :func:`radon`."""
+    vol = on_device(vol, device)
+    angles = _as_angles(angles, vol)
+    _check_geometry(vol.shape, angles)
+    N = vol.shape[-1]
+    n_det = n_det or N
+    _, ds = _ray_spacing(0.75 * N, geom.step)
+    sino = _sweep(vol, angles, lambda th: _fan_grid(th, N, n_det, geom),
+                  n_det, _fan_budget(vol.shape, n_det, geom,
+                                     vol.element_size()), angle_batch)
+    return sino * ds
+
+
+def _radon_fan_adjoint(sino, angles, geom, vol_shape,
+                       angle_batch: Optional[int] = None):
+    """The exact transpose of :func:`radon_fan` at ``vol_shape``
+    (:func:`_sweep_adjoint` on the fan's samples)."""
+    vol_shape = tuple(vol_shape)
+    angles = _as_angles(angles, sino)
+    _check_geometry(vol_shape, angles)
+    N, n_det = vol_shape[-1], sino.shape[-1]
+    n_samples, ds = _ray_spacing(0.75 * N, geom.step)
+    return _sweep_adjoint(sino * ds, angles, vol_shape,
+                          lambda th: _fan_grid(th, N, n_det, geom),
+                          n_samples, _fan_budget(vol_shape, n_det, geom,
+                                                 sino.element_size()),
+                          angle_batch)
+
+
+def make_fan_projector(vol_shape, angles, geom: FanBeamGeometry,
+                       n_det: Optional[int] = None, dtype=torch.float32,
+                       angle_batch: Optional[int] = None):
+    """``(A, A_T)`` for a fixed fan-beam geometry; ``A_T`` is the exact
+    transpose (:func:`_radon_fan_adjoint`), the same adjointness contract
+    as :func:`make_projector`.  Both compute in ``dtype`` on their input's
+    device."""
+    vol_shape = tuple(int(n) for n in vol_shape)
+    n_det = n_det or vol_shape[-1]
+
+    def A(x):
+        return radon_fan(on_device(x).to(dtype), angles, geom, n_det=n_det,
+                         angle_batch=angle_batch)
+
+    def A_T(y):
+        return _radon_fan_adjoint(on_device(y).to(dtype), angles, geom,
+                                  vol_shape, angle_batch=angle_batch)
+
+    return A, A_T
+
+
+class ConeBeamGeometry(NamedTuple):
+    """Circular-trajectory flat-panel cone-beam geometry, in pixel units.
+
+    The source orbits in the volume's central (z) plane; the flat detector
+    is perpendicular to the central ray with axes ``u`` (in-plane, like the
+    fan detector) and ``v`` (parallel to z).  Rays diverge in BOTH u and v,
+    so unlike parallel/fan geometry the z axis no longer decomposes — the
+    sinogram drops the leading Nz axis and is laid out
+    ``(M, n_angles, n_det_v, n_det_u)``.
+
+    - ``source_dist``: source-to-isocenter distance (D_so).
+    - ``det_dist``: isocenter-to-detector distance (D_od).
+    - ``det_spacing_u`` / ``det_spacing_v``: detector pitch per axis;
+      ``None`` defaults to the magnification ``(D_so + D_od) / D_so`` so
+      ``n_det_u = N`` / ``n_det_v = Nz`` cells cover the magnified object.
+    - ``step``: integration step along each ray (pixels).
+
+    As ``source_dist -> inf`` the cone closes to parallel beam and detector
+    row ``v`` reads slice ``z = v``.
+    """
+    source_dist: float
+    det_dist: float = 0.0
+    det_spacing_u: Optional[float] = None
+    det_spacing_v: Optional[float] = None
+    step: float = 1.0
+
+    @property
+    def magnification(self) -> float:
+        return (self.source_dist + self.det_dist) / self.source_dist
+
+    def spacing_u(self) -> float:
+        return (self.det_spacing_u if self.det_spacing_u is not None
+                else self.magnification)
+
+    def spacing_v(self) -> float:
+        return (self.det_spacing_v if self.det_spacing_v is not None
+                else self.magnification)
+
+
+def _cone_grid(betas, Nz: int, N: int, n_det_v: int, n_det_u: int,
+               geom: ConeBeamGeometry):
+    """``grid_sample`` coordinates of every sample of every cone ray,
+    ``(G, B * n_det_v, n_det_u, n_samples, 3)`` in (x = column, y = row,
+    z) order for ``(G, B)`` angles: the line from the point source at orbit
+    angle beta to each detector cell (v, u), sampled on an equispaced grid
+    centred at the ray's closest approach to the isocentre and covering
+    ``|P| <= 0.75 max(N, Nz)``."""
+    dtype, device = betas.dtype, betas.device
+    cz, c = (Nz - 1) / 2.0, (N - 1) / 2.0
+    u_axis = (torch.arange(n_det_u, dtype=dtype, device=device)
+              - (n_det_u - 1) / 2.0) * geom.spacing_u()
+    v_axis = (torch.arange(n_det_v, dtype=dtype, device=device)
+              - (n_det_v - 1) / 2.0) * geom.spacing_v()
+    s_axis = _ray_axis(0.75 * max(N, Nz), geom.step, dtype, device)
+    U, V = u_axis[None, :], v_axis[:, None]            # (n_det_v, n_det_u)
+    cosb = torch.cos(betas)[..., None, None]           # (G, B, 1, 1)
+    sinb = torch.sin(betas)[..., None, None]
+    # (z, r, c) frame: source in the central z plane, the fan projector's
+    # in-plane convention (central ray (sinb, cosb))
+    src_r, src_c = -geom.source_dist * sinb, -geom.source_dist * cosb
+    det_r = geom.det_dist * sinb + U * cosb            # (G, B, V, U)
+    det_c = geom.det_dist * cosb - U * sinb
+    dz, dr, dc = V, det_r - src_r, det_c - src_c
+    inv_len = 1.0 / torch.sqrt(dz * dz + dr * dr + dc * dc)
+    dz, dr, dc = dz * inv_len, dr * inv_len, dc * inv_len
+    t_star = -(src_r * dr + src_c * dc)                # closest approach to O
+    t = t_star[..., None] + s_axis                     # (G, B, V, U, S)
+    zs = cz + t * dz[..., None]
+    rows = (c + src_r)[..., None] + t * dr[..., None]
+    cols = (c + src_c)[..., None] + t * dc[..., None]
+    grid = _grid((cols, rows, zs), (N, N, max(Nz, 2)))
+    return grid.reshape(betas.shape[0], -1, n_det_u, len(s_axis), 3)
+
+
+def _cone_setup(vol_shape, angles, geom, n_det_v, n_det_u, itemsize: int):
+    """The detector's dimensions, the ray sampling's ``ds`` and the bytes of
+    samples per angle of a cone sweep (the JAX package's count, on
+    ``ceil(1.5 max(N, Nz) / step)`` samples a ray)."""
+    _check_geometry(vol_shape, angles)
+    Nz, M, N = vol_shape[0], vol_shape[1], vol_shape[-1]
+    n_det_v, n_det_u = n_det_v or Nz, n_det_u or N
+    n_samples, ds = _ray_spacing(0.75 * max(N, Nz), geom.step)
+    per_angle = (M * n_det_v * n_det_u
+                 * int(np.ceil(1.5 * max(N, Nz) / geom.step)) * itemsize)
+    return n_det_v, n_det_u, n_samples, ds, per_angle
+
+
+def radon_cone(vol, angles, geom: ConeBeamGeometry,
+               n_det_v: Optional[int] = None, n_det_u: Optional[int] = None,
+               angle_batch: Optional[int] = None, device=None):
+    """Cone-beam forward projection of a ``(Nz, M, N, N)`` volume; returns
+    ``(M, n_angles, n_det_v, n_det_u)`` (no Nz axis — the cone couples z):
+    each ray's line integral, trilinear samples ``ds`` apart summed times
+    ``ds`` (linear in the volume).  ``angles`` is ``(n_angles,)`` shared or
+    ``(M, n_angles)`` per-frame; ``angle_batch`` bounds the in-flight
+    samples as in :func:`radon`."""
+    vol = on_device(vol, device)
+    angles = _as_angles(angles, vol)
+    Nz, M, N = vol.shape[0], vol.shape[1], vol.shape[-1]
+    n_det_v, n_det_u, _, ds, per_angle = _cone_setup(
+        vol.shape, angles, geom, n_det_v, n_det_u, vol.element_size())
+    per_frame = angles.ndim == 2
+    # frames that share their angles are channels of one batch entry
+    frames = vol.transpose(0, 1)                       # (M, Nz, N, N)
+    frames = _two_at_least(frames[:, None] if per_frame else frames[None], 3)
+    thetas = angles if per_frame else angles[None]
+    out = []
+    for a, b in _angle_chunks(angles.shape[-1], per_angle, angle_batch):
+        grid = _cone_grid(thetas[:, a:b], Nz, N, n_det_v, n_det_u, geom)
+        samples = torch.ops.aten.grid_sampler_3d(frames, grid, **_SAMPLER)
+        out.append(samples.sum(dim=-1).reshape(M, b - a, n_det_v, n_det_u))
+    return torch.cat(out, dim=1) * ds
+
+
+def _radon_cone_adjoint(sino, angles, geom, vol_shape,
+                        angle_batch: Optional[int] = None):
+    """The exact transpose of :func:`radon_cone` at ``vol_shape``: every
+    sinogram value scattered along its ray with the trilinear weights the
+    forward projection sampled with (the 3-D sampler's transpose; atomic
+    adds on a CUDA device, as :func:`_sweep_adjoint`)."""
+    vol_shape = tuple(vol_shape)
+    angles = _as_angles(angles, sino)
+    Nz, M, N = vol_shape[0], vol_shape[1], vol_shape[-1]
+    n_det_v, n_det_u = sino.shape[2], sino.shape[3]
+    _, _, n_samples, ds, per_angle = _cone_setup(
+        vol_shape, angles, geom, n_det_v, n_det_u, sino.element_size())
+    per_frame = angles.ndim == 2
+    y = sino * ds
+    y = y[:, None] if per_frame else y[None]           # (G, C, A, V, U)
+    thetas = angles if per_frame else angles[None]
+    acc = torch.zeros(y.shape[:2] + (max(Nz, 2), N, N), dtype=sino.dtype,
+                      device=sino.device)
+    for a, b in _angle_chunks(angles.shape[-1], per_angle, angle_batch):
+        grid = _cone_grid(thetas[:, a:b], Nz, N, n_det_v, n_det_u, geom)
+        g = y[:, :, a:b].reshape(y.shape[0], y.shape[1], -1, n_det_u, 1)
+        part, _ = torch.ops.aten.grid_sampler_3d_backward(
+            g.expand(-1, -1, -1, -1, n_samples), acc, grid,
+            output_mask=(True, False), **_SAMPLER)
+        acc += part
+    return acc[:, :, :Nz].reshape(M, Nz, N, N).transpose(0, 1).contiguous()
+
+
+def make_cone_projector(vol_shape, angles, geom: ConeBeamGeometry,
+                        n_det_v: Optional[int] = None,
+                        n_det_u: Optional[int] = None, dtype=torch.float32,
+                        angle_batch: Optional[int] = None):
+    """``(A, A_T)`` for a fixed cone-beam geometry; ``A_T`` is the exact
+    transpose (:func:`_radon_cone_adjoint`), the same adjointness contract
+    as :func:`make_projector`.  Both compute in ``dtype`` on their input's
+    device."""
+    vol_shape = tuple(int(n) for n in vol_shape)
+
+    def A(x):
+        return radon_cone(on_device(x).to(dtype), angles, geom,
+                          n_det_v=n_det_v, n_det_u=n_det_u,
+                          angle_batch=angle_batch)
+
+    def A_T(y):
+        return _radon_cone_adjoint(on_device(y).to(dtype), angles, geom,
+                                   vol_shape, angle_batch=angle_batch)
+
+    return A, A_T
+
+
+def fdk(sino, angles, geom: ConeBeamGeometry, vol_shape,
+        angle_batch: Optional[int] = None, filter_name: str = "ramp",
+        method: str = "auto", device=None):
+    """Feldkamp-Davis-Kress reconstruction of a cone-beam sinogram
+    ``(M, n_angles, n_det_v, n_det_u)``: the classical analytic cone-beam
+    method (Feldkamp et al. 1984): cosine-weight each projection,
+    bandlimited Ram-Lak filter along ``u``, then distance-weighted
+    backprojection ``sum_beta (D_so / U(x, beta))^2 p_filtered``.  Exact in
+    the source plane, approximate off-plane (the usual FDK property).
+    Returns ``(Nz, M, N, N)``.
+
+    The backprojection weight ``pi/(2 n_angles)`` (with the Ram-Lak
+    response normalized as in :func:`fbp`) is angular-coverage-independent
+    (each unique line direction is covered ``range/pi`` times, which
+    cancels the quadrature spacing), but cone-beam DATA completeness wants
+    the usual full-circle orbit.  Use directly for well-sampled data, or
+    as ``x_init`` for :func:`cp_reconstruct` with the same geometry.
+    ``angles`` may be shared ``(n_angles,)`` or per-frame ``(M,
+    n_angles)``; ``filter_name`` as in :func:`fbp`.
+
+    ``method``: ``'gather'`` interpolates each filtered projection
+    bilinearly at every voxel's detector position, ``angle_batch`` angles
+    at a time (default: ~512 MB of samples in flight); ``'spectral'``
+    raises ``NotImplementedError`` until that path is ported; ``'auto'`` =
+    ``'gather'``."""
+    _resolve_method(method)
+    sino = on_device(sino, device)
+    dt, dev = sino.dtype, sino.device
+    angles = _as_angles(angles, sino)
+    M, A, n_det_v, n_det_u = sino.shape
+    Nz, N = vol_shape[0], vol_shape[-1]
+    cz, c = (Nz - 1) / 2.0, (N - 1) / 2.0
+    D_so = geom.source_dist
+    mag = geom.magnification
+    pu, pv = geom.spacing_u(), geom.spacing_v()
+
+    # cosine pre-weight in isocenter-scaled detector coordinates
+    u_iso = ((np.arange(n_det_u) - (n_det_u - 1) / 2.0) * pu / mag)
+    v_iso = ((np.arange(n_det_v) - (n_det_v - 1) / 2.0) * pv / mag)
+    Vw, Uw = np.meshgrid(v_iso, u_iso, indexing="ij")
+    w = torch.as_tensor(D_so / np.sqrt(D_so ** 2 + Uw ** 2 + Vw ** 2),
+                        device=dev).to(dt)
+    H, size = _fourier_ramp(n_det_u, filter_name, dt, dev)
+    filtered = _filter_projections(sino * w, H, size, n_det_u)
+
+    zc = torch.arange(Nz, dtype=dt, device=dev) - cz
+    rc = torch.arange(N, dtype=dt, device=dev) - c
+    R, C2 = rc[:, None], rc[None, :]
+    per_frame = angles.ndim == 2
+    thetas = angles if per_frame else angles[None]     # (G, A)
+    G, C = thetas.shape[0], M // thetas.shape[0]
+    back = torch.zeros((G, C, Nz, N * N), dtype=dt, device=dev)
+    for a, b in _angle_chunks(A, M * Nz * N * N * sino.element_size(),
+                              angle_batch):
+        cosb = torch.cos(thetas[:, a:b])[..., None, None]  # (G, B, 1, 1)
+        sinb = torch.sin(thetas[:, a:b])[..., None, None]
+        U_dist = D_so + R * sinb + C2 * cosb               # (G, B, N, N)
+        t_u = R * cosb - C2 * sinb
+        # detector-plane magnification for this voxel column
+        m_det = (D_so + geom.det_dist) / U_dist
+        u_idx = t_u * m_det / pu + (n_det_u - 1) / 2.0
+        v_idx = (zc[:, None, None] * m_det[:, :, None] / pv
+                 + (n_det_v - 1) / 2.0)                    # (G, B, Nz, N, N)
+        grid = _grid((u_idx[:, :, None].expand_as(v_idx), v_idx),
+                     (max(n_det_u, 2), max(n_det_v, 2)))
+        # the frames that share their angles are channels of one batch
+        # entry: (G * B, C, V, U)
+        p = filtered[:, a:b].reshape(G, C, b - a, n_det_v, n_det_u)
+        p = _two_at_least(p.transpose(1, 2).reshape(
+            G * (b - a), C, n_det_v, n_det_u), 2)
+        vals = torch.ops.aten.grid_sampler_2d(
+            p, grid.reshape(G * (b - a), Nz, N * N, 2), **_SAMPLER)
+        weight = torch.square(D_so / U_dist).reshape(G, b - a, 1, 1, N * N)
+        back += (vals.reshape(G, b - a, C, Nz, N * N) * weight).sum(dim=1)
+    back = back.reshape(M, Nz, N, N) * (np.pi / (2 * A))
+    return back.transpose(0, 1).contiguous()               # (Nz, M, N, N)
+
+
+class SARTResult(NamedTuple):
+    x: torch.Tensor          # reconstructed volume (Nz, M, N, N)
+    residual: torch.Tensor   # per-epoch ||A x - b|| history (n_iter,)
+
+
+def sart(
+    sino,
+    angles,
+    vol_shape,
+    n_iter: int = 10,
+    n_subsets: int = 8,
+    relax: float = 1.0,
+    nonneg: bool = True,
+    x_init=None,
+    project_fn=None,
+    n_det: Optional[int] = None,
+    angle_axis: int = 2,
+    method: str = "auto",
+    geom=None,
+    device=None,
+):
+    """Ordered-subsets SART reconstruction (Andersen & Kak 1984; OS splitting
+    a la OSEM): each sub-iteration corrects x with one angle subset,
+
+        ``x <- x + relax * A_s^T((b_s - A_s x) / (A_s 1)) / (A_s^T 1)``,
+
+    cycling subsets with stride-interleaved angle ordering (subset k takes
+    ``angles[k::n_subsets]``, maximizing angular separation per subset).
+    One epoch touches every projection once but updates x ``n_subsets``
+    times: typically ~n_subsets-fold fewer epochs than SIRT for the same
+    residual.  Rows and columns whose sums are at most ``1e-6`` of their
+    largest (rays that miss the volume, voxels no ray of the subset
+    reaches) are left out, relative to the live scale, never by an
+    absolute floor.
+
+    Unregularized: use directly for well-sampled data, or as ``x_init`` for
+    :func:`cp_reconstruct` (TV-regularized) on sparse/dynamic data.
+
+    ``angles`` is ``(n_angles,)`` shared or ``(M, n_angles)`` per-frame;
+    ``n_angles`` must be divisible by ``n_subsets``.  ``geom`` selects the
+    beam geometry like :func:`cp_reconstruct`: ``None`` = parallel,
+    :class:`FanBeamGeometry` = fan (sinogram ``(Nz, M, n_angles,
+    n_det)``), :class:`ConeBeamGeometry` = cone (sinogram ``(M,
+    n_angles, n_det_v, n_det_u)``; ``angle_axis`` is set to 1
+    automatically, the detector's dimensions come from the sinogram); each
+    uses its projector's exact transpose.  ``project_fn(vol,
+    angles_subset) -> sino`` overrides the projector entirely (its
+    transpose is then ``torch.func.vjp`` of it, and ``angle_axis`` is the
+    caller's to set for other layouts).  ``method='spectral'`` raises
+    ``NotImplementedError`` until that projector is ported.  Runs on the
+    sinogram's device (a numpy sinogram on the CUDA device unless
+    ``device`` names another); ``residual`` stays there.
+    """
+    _resolve_method(method)
+    sino = on_device(sino, device)
+    dtype = sino.dtype
+    angles = _as_angles(angles, sino)
+    vol_shape = tuple(int(n) for n in vol_shape)
+    A = angles.shape[-1]
+    if A % n_subsets:
+        raise ValueError(
+            f"n_angles={A} not divisible by n_subsets={n_subsets}; choose a "
+            f"divisor (e.g. {[k for k in range(1, min(A, 17)) if A % k == 0]})"
+        )
+    n_det = n_det or vol_shape[-1]
+    zeros = torch.zeros(vol_shape, dtype=dtype, device=sino.device)
+    if project_fn is not None:
+        def pair_of(a):
+            def P(x):
+                return project_fn(x, a)
+
+            _, vjp = torch.func.vjp(P, zeros)
+            return P, lambda y: vjp(y)[0]
+    elif isinstance(geom, ConeBeamGeometry):
+        angle_axis = 1
+
+        def pair_of(a):
+            return make_cone_projector(vol_shape, a, geom,
+                                       n_det_v=sino.shape[2],
+                                       n_det_u=sino.shape[3], dtype=dtype)
+    elif isinstance(geom, FanBeamGeometry):
+        def pair_of(a):
+            return make_fan_projector(vol_shape, a, geom,
+                                      n_det=sino.shape[-1], dtype=dtype)
+    elif geom is not None:
+        raise _unknown_geometry(geom)
+    else:
+        def pair_of(a):
+            return _parallel_pair(vol_shape, a, n_det, dtype)
+
+    # stride-interleaved subsets along the angle axis
+    idx = np.arange(A).reshape(-1, n_subsets).T          # (S, A//S)
+    ones_vol = torch.ones(vol_shape, dtype=dtype, device=sino.device)
+    subsets = []
+    for k in idx:
+        k_t = torch.as_tensor(k, device=sino.device)
+        P, P_T = pair_of(angles[..., k_t])
+        # per-subset normalizers: row sums A_s 1 (sino space), column sums
+        # A_s^T 1; rows and columns at most 1e-6 of the largest are dead
+        row = P(ones_vol)
+        col = P_T(torch.ones_like(row))
+        tol_r, tol_c = 1e-6 * torch.max(row), 1e-6 * torch.max(col)
+        subsets.append((P, P_T, torch.index_select(sino, angle_axis, k_t),
+                        row > tol_r, torch.maximum(row, tol_r),
+                        col > tol_c, torch.maximum(col, tol_c)))
+    full = pair_of(angles)[0] if project_fn is None else (
+        lambda x: project_fn(x, angles))
+
+    x = zeros if x_init is None else torch.as_tensor(
+        x_init, device=sino.device).to(dtype)
+    residuals = []
+    for _ in range(n_iter):
+        for P, P_T, b_s, row_live, row, col_live, col in subsets:
+            r = torch.where(row_live, (b_s - P(x)) / row, 0.0)
+            upd = torch.where(col_live, P_T(r) / col, 0.0)
+            x = x + relax * upd
+            if nonneg:
+                x = torch.clamp_min(x, 0.0)
+        residuals.append(torch.sqrt(torch.sum(torch.square(full(x) - sino))))
+    return SARTResult(x=x, residual=torch.stack(residuals))
 
 
 def _backproject(sino, angles, N: int, angle_batch: Optional[int] = None):

@@ -1,7 +1,9 @@
 """The port's parallel-beam CT (``models/ct.py``) against the JAX package's
 gather projector on the same seeded numpy inputs: ``radon``, the exact
 adjoint, ``fbp``, ``cp_reconstruct``, the projector cache, what is not
-ported yet, and where a call computes."""
+ported yet (the spectral projectors; fan and cone beams:
+``test_torch_ct_fan.py``, ``test_torch_ct_cone.py``), and where a call
+computes."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -235,11 +237,9 @@ def test_projector_cache_is_lru_and_clears():
 
 
 @pytest.mark.parametrize("what", ("spectral-projector", "spectral-recon",
-                                  "spectral-fbp", "fan", "cone"))
+                                  "spectral-fbp"))
 def test_unported_paths_raise_not_implemented(what):
     sino = torch.zeros((2, 2, 12, 32))
-    fan = jct.FanBeamGeometry(source_dist=100.0)
-    cone = jct.ConeBeamGeometry(source_dist=100.0)
     call, match = {
         "spectral-projector": (
             lambda: ct.make_projector(SHAPE, SHARED, method="spectral"),
@@ -249,10 +249,6 @@ def test_unported_paths_raise_not_implemented(what):
                                       method="spectral"), "item 15"),
         "spectral-fbp": (lambda: ct.fbp(sino, SHARED, method="spectral"),
                          "item 15"),
-        "fan": (lambda: ct.cp_reconstruct(sino, SHARED, SHAPE, n_iter=1,
-                                          geom=fan), "item 14"),
-        "cone": (lambda: ct.cp_reconstruct(sino, SHARED, SHAPE, n_iter=1,
-                                           geom=cone), "item 14"),
     }[what]
     with pytest.raises(NotImplementedError, match=match):
         call()

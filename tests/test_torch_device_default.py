@@ -11,7 +11,7 @@ from pytv4d_tpu_torch import interop, tv_GPU
 from pytv4d_tpu_torch.core.schemes import SCHEMES
 from pytv4d_tpu_torch.core.config import TVConfig
 from pytv4d_tpu_torch.kernels.dispatch import t_plane_multiplier
-from pytv4d_tpu_torch.models import TVDenoiser, denoise_tv_chambolle
+from pytv4d_tpu_torch.models import TVDenoiser, ct, denoise_tv_chambolle
 from pytv4d_tpu_torch.kernels import resident
 from pytv4d_tpu_torch.ops import api
 from pytv4d_tpu_torch.solvers import admm, chambolle_pock_precond, fista
@@ -20,6 +20,12 @@ IMG = np.random.default_rng(0).random((12, 16)).astype(np.float32)
 VOL = np.random.default_rng(1).random((2, 2, 6, 8)).astype(np.float32)
 DVOL = np.random.default_rng(2).random((2, 3, 2, 6, 8)).astype(np.float32)
 MODEL = TVDenoiser(reg=0.3)
+# fan- and cone-beam CT: a (Nz, M, N, N) volume, 4 angles, and the cone's
+# sinogram
+CT_VOL = np.random.default_rng(3).random((2, 2, 8, 8)).astype(np.float32)
+ANGLES = np.linspace(0.0, 2 * np.pi, 4, endpoint=False)
+FAN, CONE = ct.FanBeamGeometry(16.0, 8.0), ct.ConeBeamGeometry(16.0, 8.0)
+CONE_SINO = ct.radon_cone(CT_VOL, ANGLES, CONE, device="cpu").numpy()
 
 # name -> (call taking a numpy input and keywords, its numpy input)
 ENTRY_POINTS = {
@@ -63,6 +69,15 @@ ENTRY_POINTS = {
                                          **kw), VOL),
     "root.compute_L21_norm": (
         lambda a, **kw: ptt.compute_L21_norm(a, **kw), DVOL),
+    "ct.radon_fan": (lambda a, **kw: ct.radon_fan(a, ANGLES, FAN, **kw),
+                     CT_VOL),
+    "ct.radon_cone": (lambda a, **kw: ct.radon_cone(a, ANGLES, CONE, **kw),
+                      CT_VOL),
+    "ct.fdk": (lambda a, **kw: ct.fdk(a, ANGLES, CONE, CT_VOL.shape, **kw),
+               CONE_SINO),
+    "ct.sart": (lambda a, **kw: ct.sart(a, ANGLES, CT_VOL.shape, n_iter=1,
+                                        n_subsets=2, geom=CONE, **kw).x,
+                CONE_SINO),
     **{f"root.tv_{s}": (lambda a, s=s, **kw: getattr(ptt, f"tv_{s}")(
         a, **kw)[1], VOL) for s in SCHEMES},
     **{f"root.D_{s}": (lambda a, s=s, **kw: getattr(ptt, f"D_{s}")(a, **kw),
