@@ -81,7 +81,18 @@ projection, its adjoint and ``estimate_op_norm``, runs 10 iterations of
 against the plain step, splits an iteration, and times FDK (cone) and two
 SART epochs with their peak memory.  For the reference's own entry points
 (phase 27): runs ``run_GPU_tests()`` and holds ``tv_GPU`` against
-``tv_CPU`` on the README's input.  Every phase raises
+``tv_CPU`` on the README's input.  For the spectral (gather-free) CT path
+(phase 28): holds the parallel, fan and cone (order 0 and 1) spectral
+pairs, ``fbp`` and ``fdk_spectral`` in f32 on the card against float64 on
+the CPU at a small shape, with the f32 adjointness, the two DFT modes
+against each other and the matmul precisions; then at (16, 4, 512, 512) x
+96 angles times each geometry's spectral pair in both DFT modes beside its
+gather pair (which sets ``method='auto'`` on the card), runs
+``cp_reconstruct(method='spectral')`` (one B5, B2 and B3 launch per
+iteration) with its rate, idle share and peak memory, a resumed solve
+against the uninterrupted one, the cone's preconditioner setup,
+``fdk_spectral`` and two SART epochs; and three iterations at
+(96, 16, 512, 512) for the peak memory.  Every phase raises
 on failure; nothing falls back to the CPU.  The last line of stdout is one
 JSON object with ``"ok": true`` and the device.
 """
@@ -128,6 +139,8 @@ from pytv4d_tpu_torch.kernels.dispatch import t_plane_multiplier
 from pytv4d_tpu_torch.models import (
     TVDenoiser,
     add_noise,
+    ct,
+    ct_spectral,
     denoise_tv_chambolle,
 )
 from pytv4d_tpu_torch.models.ct import (
@@ -135,6 +148,7 @@ from pytv4d_tpu_torch.models.ct import (
     FanBeamGeometry,
     cp_reconstruct,
     estimate_op_norm,
+    fbp,
     fdk,
     make_cone_projector,
     make_fan_projector,
@@ -143,6 +157,12 @@ from pytv4d_tpu_torch.models.ct import (
     radon_cone,
     radon_fan,
     sart,
+)
+from pytv4d_tpu_torch.models.ct_spectral import (
+    fdk_spectral,
+    make_cone_spectral_projector,
+    make_fan_spectral_projector,
+    make_spectral_projector,
 )
 from pytv4d_tpu_torch.parallel import (
     fused_halo,
@@ -1732,7 +1752,7 @@ def phase_inverse_main_path():
     sino += 0.5 * np.random.default_rng(1).standard_normal(
         sino.shape).astype(np.float32)
     kw = dict(n_iter=n_iter, reg=0.2, nonneg=True, loss_every=loss_every,
-              cfg=TVConfig(**CT_CFG))
+              cfg=TVConfig(**CT_CFG), method="gather")
     zero_counters()
     res = cp_reconstruct(sino, angles, shape, **kw)  # numpy in, no device=
     sync()
@@ -1783,10 +1803,11 @@ def phase_ct_full_width(card):
                       cfg.reg_z_over_reg, cfg.reg_time)
     vox = int(np.prod(CT_SHAPE))
     angles, sino = _ct_problem(CT_SHAPE, CT_ANGLES, seed=0)
-    A, A_T = make_projector(CT_SHAPE, angles)
+    A, A_T = make_projector(CT_SHAPE, angles, method="gather")
     op_norm = float(estimate_op_norm(A, A_T, CT_SHAPE, device=DEV))
     n_iter, reg = 30, 0.5
-    kw = dict(n_iter=n_iter, reg=reg, cfg=cfg, nonneg=True, op_norm=op_norm)
+    kw = dict(n_iter=n_iter, reg=reg, cfg=cfg, nonneg=True, op_norm=op_norm,
+              method="gather")
 
     def solve(**more):
         return cp_reconstruct(sino, angles, CT_SHAPE, **kw, **more)
@@ -1895,7 +1916,8 @@ def phase_ct_capacity(op_norm):
     torch.cuda.reset_peak_memory_stats(DEV)
     angles, sino = _ct_problem(NORTH_STAR, CT_ANGLES, seed=1)
     kw = dict(reg=0.5, cfg=TVConfig(scheme="hybrid", reg_time=0.5),
-              nonneg=True, op_norm=op_norm, dual_dtype="bfloat16")
+              nonneg=True, op_norm=op_norm, dual_dtype="bfloat16",
+              method="gather")
     cp_reconstruct(sino, angles, NORTH_STAR, n_iter=1, **kw)  # warm-up
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -3006,9 +3028,9 @@ def _geometry_small(geom):
                            A_T64(torch.as_tensor(y)))
     if name == "cone":
         errs["fdk"] = _rel_err(
-            fdk(ref.float().numpy(), angles, small, shape),
-            fdk(ref, angles, small, shape))
-    kw = dict(n_iter=2, n_subsets=8, geom=small)
+            fdk(ref.float().numpy(), angles, small, shape, method="gather"),
+            fdk(ref, angles, small, shape, method="gather"))
+    kw = dict(n_iter=2, n_subsets=8, geom=small, method="gather")
     got = sart(ref.float().numpy(), angles, shape, **kw)
     want = sart(ref, angles, shape, **kw)
     errs["sart"] = max(_rel_err(got.x, want.x),
@@ -3044,7 +3066,7 @@ def phase_ct_geometries(card):
         op_norm = float(estimate_op_norm(A, A_T, CT_SHAPE, device=DEV))
         ops["estimate_op_norm"] = (time.perf_counter() - start) * 1e3
         kw = dict(n_iter=n_iter, reg=reg, cfg=cfg, nonneg=True,
-                  op_norm=op_norm, geom=geom)
+                  op_norm=op_norm, geom=geom, method="gather")
 
         def solve(**more):
             return cp_reconstruct(sino, angles, CT_SHAPE, **kw, **more)
@@ -3104,14 +3126,14 @@ def phase_ct_geometries(card):
         extra = ""
         if name == "cone":
             rec, peak["fdk"] = peak_of(
-                lambda: fdk(sino, angles, geom, CT_SHAPE))
+                lambda: fdk(sino, angles, geom, CT_SHAPE, method="gather"))
             require(tuple(rec.shape) == CT_SHAPE
                     and bool(torch.isfinite(rec).all()), "FDK is finite")
             del rec
-            ops["fdk"] = _best_ms(lambda: fdk(sino, angles, geom, CT_SHAPE),
-                                  repeats=1)
+            ops["fdk"] = _best_ms(lambda: fdk(sino, angles, geom, CT_SHAPE,
+                                              method="gather"), repeats=1)
             extra = f"fdk {ops['fdk']:.1f} ms, "
-        sart_kw = dict(n_iter=2, n_subsets=8, geom=geom)
+        sart_kw = dict(n_iter=2, n_subsets=8, geom=geom, method="gather")
         rec, peak["sart"] = peak_of(
             lambda: sart(sino, angles, CT_SHAPE, **sart_kw))
         r = rec.residual
@@ -3178,6 +3200,368 @@ def phase_compat(card):
         f"mean |G| {err_G:.3g}; card {card}")
 
 
+# ---------------------------------------------------------------- phase 28
+# the small check of the spectral path: f32 on the card against float64 on
+# the CPU, and the f32 adjointness and DFT-mode bars (the JAX package's own
+# f32 bars for these are 1e-5 and 5e-6)
+CT_SPEC_SMALL, CT_SPEC_SMALL_ANGLES = (2, 2, 64, 64), 32
+CT_SPEC_TOL = 1e-5
+
+
+def _scaled(geom, N):
+    """``geom`` with its distances scaled from CT_SHAPE's width to N."""
+    f = N / CT_SHAPE[-1]
+    return geom._replace(source_dist=geom.source_dist * f,
+                         det_dist=geom.det_dist * f)
+
+
+def _spectral_pairs(shape, geoms, precision=None):
+    """The spectral pairs' constructors by name: parallel (angles over
+    pi), fan, cone order 0 and 1 (angles over 2 pi), each
+    ``make(dtype)``."""
+    fan, cone = geoms
+    return {
+        "parallel": lambda dt: make_spectral_projector(
+            shape, CT_SPEC_HALF, dtype=dt, precision=precision),
+        "fan": lambda dt: make_fan_spectral_projector(
+            shape, CT_SPEC_FULL, fan, dtype=dt, precision=precision),
+        "cone o0": lambda dt: make_cone_spectral_projector(
+            shape, CT_SPEC_FULL, cone, dtype=dt, order=0,
+            precision=precision),
+        "cone o1": lambda dt: make_cone_spectral_projector(
+            shape, CT_SPEC_FULL, cone, dtype=dt, order=1,
+            precision=precision)}
+
+
+CT_SPEC_HALF = np.linspace(0.0, np.pi, CT_SPEC_SMALL_ANGLES, endpoint=False)
+CT_SPEC_FULL = np.linspace(0.0, 2 * np.pi, CT_SPEC_SMALL_ANGLES,
+                           endpoint=False)
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max())
+
+
+def _spectral_small():
+    """Each spectral pair, ``fbp`` and ``fdk_spectral`` in f32 on the card
+    against float64 on the CPU at CT_SPEC_SMALL (max error over the
+    reference's scale); the f32 adjointness on the card; 'fft' against
+    'matmul'; 'high' bit for bit against 'highest', and 'default''s (TF32)
+    difference."""
+    shape = CT_SPEC_SMALL
+    geoms = (_scaled(FAN, shape[-1]), _scaled(CONE, shape[-1]))
+    rng = np.random.default_rng(0)
+    vol = rng.random(shape)
+    x64 = torch.as_tensor(vol)
+    x32 = x64.float().to(DEV)
+    errs, adj, modes, tf32 = {}, {}, {}, {}
+    refs = {}
+    for name, make in _spectral_pairs(shape, geoms).items():
+        A64, AT64 = make(torch.float64)
+        A32, AT32 = make(torch.float32)
+        ref = A64(x64)
+        refs[name] = ref
+        y64 = torch.as_tensor(rng.random(tuple(ref.shape)))
+        y32 = y64.float().to(DEV)
+        got, got_T = A32(x32), AT32(y32)
+        errs[name] = max(_rel_err(got, ref), _rel_err(got_T, AT64(y64)))
+        lhs = float(torch.sum(y32.double() * got.double()))
+        rhs = float(torch.sum(got_T.double() * x32.double()))
+        adj[name] = abs(lhs - rhs) / abs(lhs)
+        out = {}
+        try:
+            for mode in ("fft", "matmul"):
+                ct_spectral._DFT_MODE = mode
+                out[mode] = (A32(x32), AT32(y32))
+        finally:
+            ct_spectral._DFT_MODE = "auto"
+        modes[name] = max(_rel(out["matmul"][i], out["fft"][i])
+                          for i in range(2))
+        by_prec = {}
+        for prec in ("high", "highest", "default"):
+            A, AT = _spectral_pairs(shape, geoms, prec)[name](torch.float32)
+            by_prec[prec] = (A(x32), AT(y32))
+        require(all(torch.equal(by_prec["high"][i], by_prec["highest"][i])
+                    for i in range(2)),
+                f"{name}: precision 'high' equals 'highest' bit for bit")
+        tf32[name] = max(_rel(by_prec["default"][i], by_prec["highest"][i])
+                         for i in range(2))
+    # fbp from the parallel sinogram, fdk_spectral from the cone's
+    sino = refs["parallel"]
+    errs["fbp"] = _rel_err(
+        fbp(sino.float().numpy(), CT_SPEC_HALF, method="spectral"),
+        fbp(sino, CT_SPEC_HALF, method="spectral"))
+    csino = refs["cone o1"]
+    errs["fdk_spectral"] = _rel_err(
+        fdk_spectral(csino.float().numpy(), CT_SPEC_FULL, geoms[1], shape),
+        fdk_spectral(csino, CT_SPEC_FULL, geoms[1], shape))
+    require(all(e <= CT_SPEC_TOL for e in errs.values()),
+            f"spectral at {shape}: card f32 vs CPU float64 {errs}")
+    require(all(e <= CT_SPEC_TOL for e in adj.values()),
+            f"spectral f32 adjointness {adj}")
+    require(all(e <= CT_SPEC_TOL for e in modes.values()),
+            f"spectral 'fft' vs 'matmul' {modes}")
+    return errs, adj, modes, tf32
+
+
+def _smooth_phantom(shape, seed):
+    """Six seeded Gaussian blobs per frame inside the inscribed circle, the
+    same in every slice, on the card."""
+    rng = np.random.default_rng(seed)
+    N = shape[-1]
+    c = (N - 1) / 2.0
+    r, cc = np.meshgrid(np.arange(N) - c, np.arange(N) - c, indexing="ij")
+    vol = np.zeros(shape, np.float32)
+    for m in range(shape[1]):
+        for _ in range(6):
+            r0, c0 = rng.uniform(-0.3 * N, 0.3 * N, 2)
+            w = rng.uniform(0.04, 0.1) * N
+            vol[:, m] += np.exp(-((r - r0) ** 2 + (cc - c0) ** 2)
+                                / (2 * w * w)).astype(np.float32)
+    return torch.as_tensor(vol, device=DEV)
+
+
+def _spectral_geometry(name, geom, angles, sino, n_iter, reg):
+    """One geometry at full width: the spectral pair (both DFT modes) and
+    the gather pair side by side, the power method, a ``cp_reconstruct``
+    (method='spectral') with its launches, rate, idle share and peak memory,
+    and two SART epochs of 8 subsets.  Returns its numbers."""
+    cfg = TVConfig(**CT_CFG)
+    if geom is None:
+        S_A, S_AT = make_projector(CT_SHAPE, angles, method="spectral")
+        G_A, G_AT = make_projector(CT_SHAPE, angles, method="gather")
+    else:
+        S_A, S_AT = ct._geometry_pair(geom, CT_SHAPE, angles, torch.float32,
+                                      "spectral", None,
+                                      tuple(sino.shape[2:]) if isinstance(
+                                          geom, ConeBeamGeometry)
+                                      else (sino.shape[-1],))
+        G_A, G_AT = _geometry(geom)[2](CT_SHAPE, angles, geom)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    x = torch.rand(CT_SHAPE, generator=gen, device=DEV)
+    ms = {}
+    try:
+        for mode in ("fft", "matmul"):
+            ct_spectral._DFT_MODE = mode
+            ms[f"A {mode}"] = _time_launch(lambda: S_A(x), n=5)
+            ms[f"A_T {mode}"] = _time_launch(lambda: S_AT(sino), n=5)
+    finally:
+        ct_spectral._DFT_MODE = "auto"
+    ms["A gather"] = _time_launch(lambda: G_A(x), n=3)
+    ms["A_T gather"] = _time_launch(lambda: G_AT(sino), n=3)
+    del G_A, G_AT
+    start = time.perf_counter()
+    op_norm = float(estimate_op_norm(S_A, S_AT, CT_SHAPE, device=DEV))
+    ms["estimate_op_norm"] = (time.perf_counter() - start) * 1e3
+    kw = dict(reg=reg, cfg=cfg, nonneg=True, op_norm=op_norm, geom=geom,
+              method="spectral")
+
+    def solve(n=n_iter, **more):
+        return cp_reconstruct(sino, angles, CT_SHAPE, n_iter=n, **kw, **more)
+
+    sync()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    zero_counters()
+    res = solve()
+    sync()
+    launches = read_counters()
+    require_launches(launches, f"{name} spectral cp_reconstruct",
+                     B5=n_iter, B2=n_iter, B3=n_iter)
+    peak = {"cp_reconstruct": torch.cuda.max_memory_allocated(DEV)}
+    loss = res.loss
+    require(bool(torch.isfinite(loss).all())
+            and float(loss[-1]) < float(loss[0])
+            and tuple(res.x.shape) == CT_SHAPE
+            and bool(torch.isfinite(res.x).all()),
+            f"{name} spectral: finite x, losses finite and falling")
+    ms["it"] = _best_ms(solve, repeats=2) / n_iter
+    dev_ms, _ = device_time(solve, n_iter, DEV)
+    out = dict(ms=ms, op_norm=op_norm, launches=launches, peak=peak,
+               loss=(float(loss[0]), float(loss[-1])), dev_ms=dev_ms,
+               res=res)
+    # SART on a smooth phantom's spectral data: its normalizers assume a
+    # nonnegative operator, and on a random volume's data, whose highest
+    # frequencies meet the spectral splat's ringing, the fan's residual
+    # rises from the first epoch (as in the JAX package)
+    sino = S_A(_smooth_phantom(CT_SHAPE, seed=4))
+    sync()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    sart_kw = dict(n_iter=2, n_subsets=8, geom=geom, method="spectral")
+    rec = sart(sino, angles, CT_SHAPE, **sart_kw)
+    sync()
+    peak["sart"] = torch.cuda.max_memory_allocated(DEV)
+    r = rec.residual
+    require(bool(torch.isfinite(rec.x).all()) and float(r[1]) < float(r[0]),
+            f"{name} spectral SART: finite, residual falling")
+    del rec
+    ms["sart"] = _best_ms(lambda: sart(sino, angles, CT_SHAPE, **sart_kw),
+                          repeats=1)
+    return out
+
+
+def phase_ct_spectral(card):
+    """The spectral CT path: the small checks, then at (16, 4, 512, 512) x
+    96 angles each geometry's spectral and gather pairs side by side, the
+    'auto' decision, a spectral cp_reconstruct (one B5, B2 and B3 launch per
+    iteration), a resumed solve against the uninterrupted one, the cone's
+    preconditioner setup, fdk_spectral, SART; then three iterations at
+    (96, 16, 512, 512) for the peak memory.  Returns the launches."""
+    errs, adj, modes, tf32 = _spectral_small()
+    log(f"[28 CT spectral small] {CT_SPEC_SMALL} x {CT_SPEC_SMALL_ANGLES} "
+        f"angles (fan and cone at 1/8 of the full-width distances): card "
+        f"f32 vs CPU float64, max err / scale "
+        + ", ".join(f"{k} {v:.2g}" for k, v in errs.items())
+        + f" (<= {CT_SPEC_TOL}); f32 adjointness on the card "
+        + ", ".join(f"{k} {v:.2g}" for k, v in adj.items())
+        + "; 'matmul' vs 'fft' " + ", ".join(
+            f"{k} {v:.2g}" for k, v in modes.items())
+        + "; 'high' == 'highest' bit for bit; 'default' (TF32) vs 'highest' "
+        + ", ".join(f"{k} {v:.2g}" for k, v in tf32.items()))
+
+    n_iter, reg = 10, 0.5
+    angles, sino = _ct_problem(CT_SHAPE, CT_ANGLES, seed=0)
+    full = np.linspace(0.0, 2 * np.pi, CT_ANGLES, endpoint=False)
+    results, launches = {}, {}
+    for name, geom in (("parallel", None), ("fan", FAN), ("cone", CONE)):
+        if geom is not None:
+            # the data of the spectral pair itself: the rebinned operators
+            # differ from the gather ones most on a random volume's highest
+            # frequencies, and SART on such mismatched data gains nothing
+            gen = torch.Generator(device=DEV).manual_seed(0)
+            vol = torch.rand(CT_SHAPE, generator=gen, device=DEV)
+            det = ((CT_SHAPE[0], CT_SHAPE[-1]) if name == "cone"
+                   else (CT_SHAPE[-1],))
+            sino = ct._geometry_pair(geom, CT_SHAPE, full, torch.float32,
+                                     "spectral", None, det)[0](vol)
+            sino += 0.5 * torch.randn(sino.shape, generator=gen, device=DEV)
+            angles = full
+            del vol
+        r = _spectral_geometry(name, geom, angles, sino, n_iter, reg)
+        ms = r["ms"]
+        launches[f"{name} spectral"] = r["launches"]
+        extra = ""
+        if name == "parallel":
+            # a resumed solve: 5 + 5 iterations against 10 at once
+            whole = r["res"]
+            half = cp_reconstruct(sino, angles, CT_SHAPE, n_iter=5, reg=reg,
+                                  cfg=TVConfig(**CT_CFG), nonneg=True,
+                                  op_norm=r["op_norm"], method="spectral")
+            rest = cp_reconstruct(sino, angles, CT_SHAPE, n_iter=5, reg=reg,
+                                  cfg=TVConfig(**CT_CFG), nonneg=True,
+                                  op_norm=r["op_norm"], method="spectral",
+                                  state=half.state)
+            same = torch.equal(rest.x, whole.x) and torch.equal(
+                torch.cat([half.loss, rest.loss]), whole.loss)
+            diff = float((rest.x - whole.x).abs().max())
+            require(diff <= 1e-5 * float(whole.x.abs().max()),
+                    f"resumed spectral solve differs by {diff:.3g}")
+            extra = (f"resumed 5 + 5 vs 10 iterations: "
+                     f"{'bit-equal' if same else f'max abs diff {diff:.3g}'}"
+                     f"; ")
+            del half, rest, whole
+        if name == "cone":
+            ct._CONE_PRECOND_CACHE.clear()
+            A, A_T = ct._geometry_pair(CONE, CT_SHAPE, angles, torch.float32,
+                                       "spectral", None,
+                                       tuple(sino.shape[2:]))
+            sync()
+            start = time.perf_counter()
+            _, scale = ct._spectral_cone_precond_setup(
+                A, A_T, tuple(sino.shape), CT_SHAPE, angles, CONE,
+                TVConfig(**CT_CFG), torch.float32, None, DEV)
+            sync()
+            ms["precond setup"] = (time.perf_counter() - start) * 1e3
+            sync()
+            torch.cuda.reset_peak_memory_stats(DEV)
+            rec = fdk_spectral(sino, angles, CONE, CT_SHAPE)
+            sync()
+            r["peak"]["fdk_spectral"] = torch.cuda.max_memory_allocated(DEV)
+            require(tuple(rec.shape) == CT_SHAPE
+                    and bool(torch.isfinite(rec).all()),
+                    "fdk_spectral is finite")
+            del rec
+            ms["fdk_spectral"] = _best_ms(
+                lambda: fdk_spectral(sino, angles, CONE, CT_SHAPE))
+            extra = (f"preconditioner setup {ms['precond setup'] / 1e3:.2f} "
+                     f"s (scale {scale:.4f}), fdk_spectral "
+                     f"{ms['fdk_spectral']:.2f} ms, ")
+        mode = ct_spectral._dft_mode(DEV)
+        spec = ms[f"A {mode}"] + ms[f"A_T {mode}"]
+        gath = ms["A gather"] + ms["A_T gather"]
+        faster = "spectral" if spec < gath else "gather"
+        results[name] = (faster, spec, gath, ms)
+        log(f"[28 CT {name} spectral full width] {CT_SHAPE} f32 x "
+            f"{CT_ANGLES} angles"
+            + (f", {type(geom).__name__}{tuple(geom)}" if geom else "")
+            + "; ms (CUDA events): spectral A fft "
+            f"{ms['A fft']:.3f} / matmul {ms['A matmul']:.3f}, A_T fft "
+            f"{ms['A_T fft']:.3f} / matmul {ms['A_T matmul']:.3f}; gather A "
+            f"{ms['A gather']:.3f}, A_T {ms['A_T gather']:.3f}; 'auto' on "
+            f"CUDA: {faster} ({spec:.3f} vs {gath:.3f} ms a pair, DFT mode "
+            f"{mode}); estimate_op_norm {ms['estimate_op_norm']:.0f} ms "
+            f"(host clock) = {r['op_norm']:.2f}; cp_reconstruct(method="
+            f"'spectral', hybrid reg_time=0.5, reg {reg}, nonneg, {n_iter} "
+            f"iterations): launches {r['launches']}, loss {r['loss'][0]:.6g} "
+            f"-> {r['loss'][1]:.6g}, {1e3 / ms['it']:.3f} it/s "
+            f"({ms['it']:.3f} ms/it, best of 2 whole calls), device "
+            f"{r['dev_ms']:.3f} ms/it (torch.profiler), idle "
+            f"{100 * (1 - r['dev_ms'] / ms['it']):.1f}%; {extra}"
+            f"sart(2 epochs, 8 subsets) {ms['sart']:.1f} ms; peak memory "
+            + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in r["peak"].items())
+            + f"; card {card}")
+        del r, sino
+        torch.cuda.empty_cache()
+    for name, (faster, spec, gath, _) in results.items():
+        require(faster == ct._AUTO_ON_CUDA[name],
+                f"'auto' for the {name} beam is "
+                f"{ct._AUTO_ON_CUDA[name]!r}, but the {faster} pair is "
+                f"faster ({spec:.3f} vs {gath:.3f} ms)")
+    pair_ms = {m: sum(r[3][f"A {m}"] + r[3][f"A_T {m}"]
+                      for r in results.values()) for m in ("fft", "matmul")}
+    log(f"[28 CT spectral DFT mode] A + A_T summed over the three "
+        f"geometries: 'fft' {pair_ms['fft']:.3f} ms, 'matmul' "
+        f"{pair_ms['matmul']:.3f} ms; faster "
+        f"{min(pair_ms, key=pair_ms.get)!r}, 'auto' on CUDA takes "
+        f"{ct_spectral._DFT_MODE_ON_CUDA!r}; card {card}")
+    sync()
+
+    # capacity: (96, 16, 512, 512) x 96 angles with a bf16 dual; every
+    # slice has the parallel geometry above, so its norm is the same
+    torch.cuda.empty_cache()
+    angles, sino = _ct_problem(NORTH_STAR, CT_ANGLES, seed=1)
+    A, A_T = make_projector(CT_SHAPE, angles, method="spectral")
+    op_norm = float(estimate_op_norm(A, A_T, CT_SHAPE, device=DEV))
+    kw = dict(reg=0.5, cfg=TVConfig(**CT_CFG), nonneg=True, op_norm=op_norm,
+              dual_dtype="bfloat16", method="spectral")
+    cp_reconstruct(sino, angles, NORTH_STAR, n_iter=1, **kw)  # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    zero_counters()
+    start.record()
+    res = cp_reconstruct(sino, angles, NORTH_STAR, n_iter=3, **kw)
+    end.record()
+    sync()
+    require_launches(read_counters(), "spectral capacity cp_reconstruct",
+                     B5=3, B2=3, B3=3)
+    require(bool(torch.isfinite(res.loss).all())
+            and float(res.loss[-1]) < float(res.loss[0]),
+            "spectral capacity losses finite and falling")
+    peak = torch.cuda.max_memory_allocated(DEV)
+    log(f"[28 CT spectral capacity] cp_reconstruct({NORTH_STAR} f32 x "
+        f"{CT_ANGLES} angles, method='spectral', bf16 dual, 3 iterations): "
+        f"{start.elapsed_time(end) / 3:.1f} ms per iteration (whole call), "
+        f"peak memory {peak / 1e9:.2f} GB of "
+        f"{torch.cuda.get_device_properties(DEV).total_memory / 1e9:.1f}, "
+        f"final loss {float(res.loss[-1]):.6g}; card {card}")
+    del res, sino
+    torch.cuda.empty_cache()
+    sync()
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -3206,6 +3590,7 @@ def main():
     sh_launches, sh_ms, sh_bounds = phase_sharded_main_path(card)
     ct_launches = phase_ct_geometries(card)
     phase_compat(card)
+    ct_launches.update(phase_ct_spectral(card))
 
     # B1-B4 bounds at the shape their times were taken at: MAIN_4D float32,
     # hybrid with reg_time=0.5 (Nd channels).  Bytes: each array once per
@@ -3242,7 +3627,8 @@ def main():
         if err_bf16 is not None:
             out["max_abs_err_bf16"] = err_bf16
         if kid in ("B2", "B3", "B5"):
-            # the fan- and cone-beam cp_reconstruct path (phase 26)
+            # the fan- and cone-beam cp_reconstruct path (phase 26) and the
+            # spectral path of each geometry (phase 28)
             out["launches_ct_geometries"] = {
                 name: got[kid] for name, got in ct_launches.items()}
         return out

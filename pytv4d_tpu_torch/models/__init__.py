@@ -1,4 +1,4 @@
-from . import ct, denoise
+from . import ct, ct_spectral, denoise
 from .ct import (
     ConeBeamGeometry,
     CPReconResult,
@@ -17,5 +17,15 @@ from .ct import (
     radon_fan,
     sart,
     tgv_reconstruct,
+)
+from .ct_spectral import (
+    cone_spectral_precond_sums,
+    fdk_spectral,
+    make_cone_spectral_projector,
+    make_fan_spectral_projector,
+    make_spectral_projector,
+    radon_cone_spectral,
+    radon_fan_spectral,
+    radon_spectral,
 )
 from .denoise import TVDenoiser, add_noise, denoise_tv_chambolle

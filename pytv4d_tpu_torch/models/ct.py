@@ -1,6 +1,6 @@
 """Tomographic reconstruction: parallel-, fan- and cone-beam projectors,
 TV- and TGV-regularized primal-dual reconstruction, FBP, FDK and SART.  The
-port of the gather path of ``pytv4d_tpu/models/ct.py``.
+port of ``pytv4d_tpu/models/ct.py``.
 
 The reference library exists to regularize iterative CT reconstruction
 (Boigne et al. IEEE TCI 2022, doi 10.1109/TCI.2022.3215096) but ships no
@@ -29,11 +29,13 @@ projector.  This module completes the workflow:
 - :func:`fbp`, :func:`fdk` and :func:`sart`: filtered backprojection,
   Feldkamp-Davis-Kress and ordered-subsets SART, directly or as ``x_init``.
 
-The projectors are plain torch ops (``grid_sample`` and its transpose), as
-they are XLA ops in the JAX package; the TV half of a reconstruction's
-iteration runs on the fused kernels (``kernels.fused``).  The spectral
-(Fourier-slice) projectors are not ported yet (ROADMAP.md queue A, item
-15): ``method='spectral'`` raises ``NotImplementedError``.
+The gather projectors are plain torch ops (``grid_sample`` and its
+transpose), as they are XLA ops in the JAX package; ``method='spectral'``
+takes the gather-free Fourier-slice projectors of :mod:`.ct_spectral`
+(FFTs and matmuls); the TV half of a reconstruction's iteration runs on the
+fused kernels (``kernels.fused``) either way.  ``method='auto'`` is
+``'gather'`` on the CPU and, on a CUDA device, the faster of the two per
+geometry as measured on the card (``_AUTO_ON_CUDA``).
 
 Where a call computes (``utils.device``): a tensor on its own device; a
 numpy sinogram or volume on the CUDA device (``RuntimeError`` where there
@@ -52,6 +54,7 @@ import torch.nn.functional as F
 from ..core.config import TVConfig
 from ..solvers.inverse import cp_inverse, power_iteration
 from ..utils.device import on_device
+from . import ct_spectral
 
 _RADON_GATHER_BUDGET = 512 * 1024 * 1024  # bytes of in-flight samples
 
@@ -236,32 +239,62 @@ def _radon_adjoint(sino, angles, vol_shape, angle_batch: Optional[int] = None):
 
 
 _PROJECTOR_METHODS = ("auto", "gather", "spectral")
+# 'auto' on a CUDA device, per geometry: the pair chip_smoke.py phase 28
+# measures faster at (16, 4, 512, 512) x 96 angles on an NVIDIA H100 (the
+# phase fails if this table names the slower one; PERF.md section 6).  The
+# JAX package takes 'spectral' off the CPU for every geometry.
+_AUTO_ON_CUDA = {"parallel": "spectral", "fan": "spectral",
+                 "cone": "spectral"}
 
 
-def _resolve_method(method: str) -> str:
-    """'auto' = 'gather' on every device for now: the spectral projector is
-    not ported yet, and the gather projector has no trouble on a GPU."""
+def _resolve_method(method: str, geometry: str = "parallel",
+                    device=None) -> str:
+    """``'auto'`` = ``'gather'`` on the CPU (where the golden parity
+    lives) and ``_AUTO_ON_CUDA[geometry]`` on a CUDA device.  ``device``:
+    where the call computes (default: the CUDA device when there is one)."""
     if method not in _PROJECTOR_METHODS:
         raise ValueError(
             f"unknown projector method {method!r}; expected one of "
             f"{_PROJECTOR_METHODS}"
         )
-    if method == "spectral":
-        raise NotImplementedError(
-            "the spectral (Fourier-slice) projector is not ported yet "
-            "(ROADMAP.md queue A, item 15: models/ct_spectral.py); use "
-            "method='gather'")
-    return "gather"
+    if method != "auto":
+        return method
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    if torch.device(device).type != "cuda":
+        return "gather"
+    return _AUTO_ON_CUDA[geometry]
+
+
+def _geometry_name(geom) -> str:
+    if geom is None:
+        return "parallel"
+    if isinstance(geom, ConeBeamGeometry):
+        return "cone"
+    if isinstance(geom, FanBeamGeometry):
+        return "fan"
+    raise _unknown_geometry(geom)
 
 
 _PROJECTOR_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 _PROJECTOR_CACHE_MAX = 24
+# >= n_subsets + 2, so that one spectral SART campaign (8 subset pairs and
+# the full-angle pair) and a reconstruction geometry stay memoized together
 
 
 def clear_projector_cache() -> None:
-    """Drop all memoized ``(A, A_T)`` projector pairs: the parallel, fan and
-    cone ones."""
+    """Drop all memoized ``(A, A_T)`` projector pairs (the parallel, fan and
+    cone ones, gather and spectral, with the tables they hold on a device)
+    and the caches derived from them: the spectral cone's preconditioner
+    sums and scales, the spectral cone SART's normalizers, and
+    :mod:`.ct_spectral`'s grid, rebinning and device memos.  (The JAX
+    package leaves the last three populated.)"""
     _PROJECTOR_CACHE.clear()
+    _CONE_PRECOND_CACHE.clear()
+    _SART_SUMS_CACHE.clear()
+    ct_spectral._GRID_CACHE.clear()
+    ct_spectral._REBIN_CACHE.clear()
+    ct_spectral._DEVICE_CACHE.clear()
 
 
 def _cached_pair(key, builder):
@@ -306,24 +339,34 @@ def _parallel_pair(vol_shape, angles, n_det, dtype, angle_batch=None):
 
 def make_projector(vol_shape, angles, n_det: Optional[int] = None,
                    dtype=torch.float32, angle_batch: Optional[int] = None,
-                   method: str = "auto"):
+                   method: str = "auto", precision: Optional[str] = None):
     """Build ``(A, A_T)`` for a fixed geometry.  ``A_T`` is the exact
-    transpose of the linear map ``A`` (:func:`_radon_adjoint`), so
-    ``<y, A x> == <A_T y, x>`` holds to round-off: the same adjointness
-    contract the TV operators satisfy.  ``angle_batch`` as in
-    :func:`radon`.  Both compute in ``dtype`` on their input's device.
+    transpose of the linear map ``A``, so ``<y, A x> == <A_T y, x>`` holds
+    to round-off: the same adjointness contract the TV operators satisfy.
+    ``angle_batch`` as in :func:`radon` (the spectral projector's
+    ``angle_chunk``).  Both compute in ``dtype`` on their input's device.
 
-    ``method``: ``'gather'`` = bilinear-sampling :func:`radon`;
-    ``'spectral'`` (the Fourier-slice projector) raises
-    ``NotImplementedError`` until it is ported; ``'auto'`` = ``'gather'``.
+    ``method``: ``'gather'`` = bilinear-sampling :func:`radon` with its
+    transposed scatter (:func:`_radon_adjoint`); ``'spectral'`` = the
+    gather-free Fourier-slice projector
+    (:func:`.ct_spectral.make_spectral_projector`: spectrally accurate, FFTs
+    and matmuls both ways); ``'auto'`` as :func:`_resolve_method` says on
+    the default device.  ``precision`` (spectral only): ``'high'`` (default)
+    and ``'highest'`` run its matmuls in IEEE float32 on a CUDA device,
+    ``'default'`` in TF32.
 
     Memoized on the full geometry (least recently used of at most
     ``_PROJECTOR_CACHE_MAX`` pairs): repeated calls return the same
     ``(A, A_T)`` function objects."""
     vol_shape = tuple(int(n) for n in vol_shape)
     ang_np = _host_angles(angles)
+    method = _resolve_method(method)
     key = (vol_shape, ang_np.tobytes(), ang_np.shape, n_det, dtype,
-           angle_batch, _resolve_method(method))
+           angle_batch, method, precision)
+    if method == "spectral":
+        return _cached_pair(key, lambda: ct_spectral.make_spectral_projector(
+            vol_shape, ang_np, n_det=n_det, dtype=dtype,
+            angle_chunk=angle_batch, precision=precision))
     return _cached_pair(key, lambda: _parallel_pair(
         vol_shape, ang_np, n_det, dtype, angle_batch))
 
@@ -362,6 +405,7 @@ def cp_reconstruct(
     fused: bool = None,
     dual_dtype=None,
     loss_every: int = 1,
+    precision: Optional[str] = None,
     device=None,
 ):
     """TV-regularized reconstruction ``min_x F(A x) + reg TV(x)`` with the
@@ -370,8 +414,13 @@ def cp_reconstruct(
     beam geometry: ``None`` = parallel, :class:`FanBeamGeometry` = fan
     (sinogram ``(Nz, M, n_angles, n_det)``), :class:`ConeBeamGeometry` =
     cone (sinogram ``(M, n_angles, n_det_v, n_det_u)``; ``n_det`` ignored:
-    the detector's dimensions come from the sinogram).  ``method='spectral'``
-    raises ``NotImplementedError`` until that projector is ported.
+    the detector's dimensions come from the sinogram).  ``method`` picks the
+    projector for any geometry (:func:`_resolve_method`): the gather path,
+    or the spectral one (parallel: Fourier-slice NUDFT; fan: rebinning;
+    cone: SSRB with the first-order slope correction, approximate).
+    ``precision`` as in :func:`make_projector`.  ``precond=True`` on the
+    spectral cone takes the abs-factor surrogate sums and a power-method
+    check of the preconditioned step (:func:`_spectral_cone_precond_setup`).
     ``fidelity`` / ``fidelity_weight`` / ``nonneg`` / ``precond`` /
     ``state`` / ``loss_every`` as in :func:`solvers.inverse.cp_inverse`
     (``fidelity='kl'`` = Poisson counts, ``nonneg=True`` = nonnegative
@@ -383,14 +432,85 @@ def cp_reconstruct(
     another."""
     sino = on_device(sino, device)
     A, A_T = _select_projector(sino, angles, vol_shape, n_det, geom,
-                               method=method)
+                               method=method, precision=precision)
+    precond_kw = {}
+    if precond and isinstance(geom, ConeBeamGeometry) and _resolve_method(
+            method, "cone", sino.device) == "spectral":
+        # the slope correction has signed entries, so A(1) / A^T(1)
+        # underestimate |A|: the surrogate's sums, and all steps rescaled
+        # by the measured norm of the preconditioned operator
+        sums, scale = _spectral_cone_precond_setup(
+            A, A_T, tuple(sino.shape), tuple(vol_shape),
+            _host_angles(angles), geom, cfg, sino.dtype, precision,
+            sino.device)
+        precond_kw = dict(precond_sums=sums, precond_scale=scale)
     res = cp_inverse(
         A, sino, vol_shape, A_T=A_T, n_iter=n_iter, reg=reg, cfg=cfg,
         op_norm=op_norm, x_init=x_init, precond=precond, fidelity=fidelity,
         fidelity_weight=fidelity_weight, nonneg=nonneg, state=state,
         fused=fused, dual_dtype=dual_dtype, loss_every=loss_every,
+        **precond_kw,
     )
     return CPReconResult(x=res.x, loss=res.loss, state=res.state)
+
+
+_CONE_PRECOND_CACHE: dict = {}
+
+
+def _spectral_cone_precond_setup(A, A_T, sino_shape, vol_shape, ang_np,
+                                 geom, cfg, dtype, precision, device):
+    """Preconditioner inputs for the signed spectral cone:
+    ``((row_sum, col_sum), scale)``.
+
+    1. :func:`.ct_spectral.cone_spectral_precond_sums`, the abs-factor
+       surrogate's exact row and column sums;
+    2. a 20-step power method for ``rho = ||Sigma^{1/2} K T^{1/2}||`` of the
+       joint ``K = [A; D]`` with the resulting diagonals: the step
+       condition is ``rho <= 1`` (Pock-Chambolle, Lemma 2), so
+       ``scale = 1.05 rho`` puts the scaled norm at 0.95 on whichever side
+       of 1 the surrogate landed.
+
+    Memoized per (projector, cfg, shapes, dtype, device), at most 8."""
+    key = (id(A), cfg, tuple(vol_shape), tuple(sino_shape), dtype,
+           torch.device(device))
+    hit = _CONE_PRECOND_CACHE.get(key)
+    if hit is not None:
+        # the entry pins A, so its id cannot name another projector
+        return hit[1]
+    from ..ops.operators import D, D_T, precond_maps
+    from ..solvers.inverse import _bind_operator
+
+    row, col = ct_spectral.cone_spectral_precond_sums(
+        vol_shape, ang_np, geom, n_det_v=sino_shape[2],
+        n_det_u=sino_shape[3], dtype=dtype, precision=precision,
+        device=device)
+    A_, A_T_ = _bind_operator(A, A_T, vol_shape, dtype)
+    kw = cfg.kwargs()
+    sig_D, tau = precond_maps(
+        vol_shape, cfg.scheme, cfg.reg_z_over_reg, cfg.reg_time,
+        fidelity_colsum=col, grouped=cfg.norm != "aniso", dtype=dtype,
+        device=device)
+    floor = 1e-6 * torch.clamp_min(torch.max(row), 1e-30)
+    sig_A = 1.0 / torch.maximum(row, floor)
+    sqt = torch.sqrt(tau)
+
+    def B(v):
+        w = sqt * v
+        d = D_T(sig_D * D(w, cfg.scheme, **kw), cfg.scheme, **kw)
+        return sqt * (A_T_(sig_A * A_(w)) + d)
+
+    v = on_device(np.random.default_rng(0).standard_normal(vol_shape),
+                  device, dtype)
+    v = v / torch.sqrt(torch.sum(torch.square(v)))
+    for _ in range(20):
+        y = B(v)
+        n = torch.sqrt(torch.sum(torch.square(y)))
+        v = y / torch.clamp_min(n, 1e-30)
+    out = ((row, col), 1.05 * float(torch.sqrt(n)))
+    if len(_CONE_PRECOND_CACHE) >= 8:
+        _CONE_PRECOND_CACHE.pop(next(iter(_CONE_PRECOND_CACHE)))
+    _CONE_PRECOND_CACHE[key] = (A, out)
+    return out
 
 
 def tgv_reconstruct(
@@ -459,20 +579,42 @@ def _unknown_geometry(geom):
     )
 
 
-def _select_projector(sino, angles, vol_shape, n_det, geom, method="auto"):
+def _geometry_pair(geom, vol_shape, ang_np, dtype, method, precision,
+                   det):
+    """The memoized ``(A, A_T)`` of a fan (``det = (n_det,)``) or cone
+    (``det = (n_det_v, n_det_u)``) geometry by ``method``."""
+    vol_shape = tuple(int(n) for n in vol_shape)
+    cone = isinstance(geom, ConeBeamGeometry)
+    key = ("cone" if cone else "fan", method, vol_shape, ang_np.tobytes(),
+           ang_np.shape, dtype, precision, tuple(geom)) + tuple(det)
+    if method == "spectral":
+        if cone:
+            return _cached_pair(
+                key, lambda: ct_spectral.make_cone_spectral_projector(
+                    vol_shape, ang_np, geom, n_det_v=det[0], n_det_u=det[1],
+                    dtype=dtype, precision=precision))
+        return _cached_pair(
+            key, lambda: ct_spectral.make_fan_spectral_projector(
+                vol_shape, ang_np, geom, n_det=det[0], dtype=dtype,
+                precision=precision))
+    if cone:
+        return _cached_pair(key, lambda: make_cone_projector(
+            vol_shape, ang_np, geom, n_det_v=det[0], n_det_u=det[1],
+            dtype=dtype))
+    return _cached_pair(key, lambda: make_fan_projector(
+        vol_shape, ang_np, geom, n_det=det[0], dtype=dtype))
+
+
+def _select_projector(sino, angles, vol_shape, n_det, geom, method="auto",
+                      precision=None):
     """Validate the sinogram layout for the requested beam geometry and
     build the matching (A, A_T) projector pair.  Every geometry goes
     through ``_PROJECTOR_CACHE``: repeated solves with the same geometry
     get the same function objects."""
-    method = _resolve_method(method)
+    method = _resolve_method(method, _geometry_name(geom), sino.device)
     dtype = sino.dtype
     ang_np = _host_angles(angles)
     n_angles = ang_np.shape[-1]
-
-    def cached(kind, builder, *key_extra):
-        key = (kind, tuple(vol_shape), ang_np.tobytes(), ang_np.shape,
-               dtype, method, tuple(geom)) + key_extra
-        return _cached_pair(key, builder)
 
     if isinstance(geom, ConeBeamGeometry):
         want = (vol_shape[1], n_angles)
@@ -483,12 +625,8 @@ def _select_projector(sino, angles, vol_shape, n_det, geom, method="auto"):
                 f"— expected (M={vol_shape[1]}, {n_angles}, n_det_v, "
                 f"n_det_u)"
             )
-        n_det_v, n_det_u = sino.shape[2], sino.shape[3]
-        return cached("cone-gather", lambda: make_cone_projector(
-            vol_shape, ang_np, geom, n_det_v=n_det_v, n_det_u=n_det_u,
-            dtype=dtype), n_det_v, n_det_u)
-    if geom is not None and not isinstance(geom, FanBeamGeometry):
-        raise _unknown_geometry(geom)
+        return _geometry_pair(geom, vol_shape, ang_np, dtype, method,
+                              precision, tuple(sino.shape[2:]))
     want = (vol_shape[0], vol_shape[1], n_angles, n_det or vol_shape[-1])
     if tuple(sino.shape) != want:
         raise ValueError(
@@ -498,9 +636,9 @@ def _select_projector(sino, angles, vol_shape, n_det, geom, method="auto"):
         )
     if geom is None:
         return make_projector(vol_shape, ang_np, n_det=n_det, dtype=dtype,
-                              method=method)
-    return cached("fan-gather", lambda: make_fan_projector(
-        vol_shape, ang_np, geom, n_det=n_det, dtype=dtype), n_det)
+                              method=method, precision=precision)
+    return _geometry_pair(geom, vol_shape, ang_np, dtype, method, precision,
+                          (n_det or vol_shape[-1],))
 
 
 def _ray_spacing(half: float, step: float):
@@ -826,11 +964,15 @@ def fdk(sino, angles, geom: ConeBeamGeometry, vol_shape,
 
     ``method``: ``'gather'`` interpolates each filtered projection
     bilinearly at every voxel's detector position, ``angle_batch`` angles
-    at a time (default: ~512 MB of samples in flight); ``'spectral'``
-    raises ``NotImplementedError`` until that path is ported; ``'auto'`` =
-    ``'gather'``."""
-    _resolve_method(method)
+    at a time (default: ~512 MB of samples in flight); ``'spectral'`` is
+    the gather-free rebinning P-FDK (:func:`.ct_spectral.fdk_spectral`:
+    de-obliquity weight, cone-to-parallel rebinning matmuls, the spectral
+    parallel FBP per slice); ``'auto'`` as :func:`_resolve_method` says for
+    the cone."""
     sino = on_device(sino, device)
+    if _resolve_method(method, "cone", sino.device) == "spectral":
+        return ct_spectral.fdk_spectral(sino, angles, geom, vol_shape,
+                                        filter_name=filter_name)
     dt, dev = sino.dtype, sino.device
     angles = _as_angles(angles, sino)
     M, A, n_det_v, n_det_u = sino.shape
@@ -900,6 +1042,7 @@ def sart(
     n_det: Optional[int] = None,
     angle_axis: int = 2,
     method: str = "auto",
+    precision: Optional[str] = None,
     geom=None,
     device=None,
 ):
@@ -930,14 +1073,20 @@ def sart(
     uses its projector's exact transpose.  ``project_fn(vol,
     angles_subset) -> sino`` overrides the projector entirely (its
     transpose is then ``torch.func.vjp`` of it, and ``angle_axis`` is the
-    caller's to set for other layouts).  ``method='spectral'`` raises
-    ``NotImplementedError`` until that projector is ported.  Runs on the
-    sinogram's device (a numpy sinogram on the CUDA device unless
-    ``device`` names another); ``residual`` stays there.
+    caller's to set for other layouts).  ``method`` picks the projector of
+    each geometry (:func:`_resolve_method`); on the spectral path every
+    subset gets its own memoized pair, its angles taken from the host values
+    in float64 (a float32 round trip would break the fan grid's phase
+    alignment), and the cone normalizes with the signed sums only where they
+    are well conditioned (:func:`_sart_cone_sums`).  ``precision`` as in
+    :func:`make_projector`.  Runs on the sinogram's device (a numpy
+    sinogram on the CUDA device unless ``device`` names another);
+    ``residual`` stays there.
     """
     _resolve_method(method)
     sino = on_device(sino, device)
     dtype = sino.dtype
+    ang_host = _host_angles(angles).astype(np.float64)
     angles = _as_angles(angles, sino)
     vol_shape = tuple(int(n) for n in vol_shape)
     A = angles.shape[-1]
@@ -948,46 +1097,62 @@ def sart(
         )
     n_det = n_det or vol_shape[-1]
     zeros = torch.zeros(vol_shape, dtype=dtype, device=sino.device)
+    spectral = False
     if project_fn is not None:
-        def pair_of(a):
+        def pair_of(k):
+            a = angles[..., torch.as_tensor(k, device=sino.device)]
+
             def P(x):
                 return project_fn(x, a)
 
             _, vjp = torch.func.vjp(P, zeros)
             return P, lambda y: vjp(y)[0]
-    elif isinstance(geom, ConeBeamGeometry):
-        angle_axis = 1
-
-        def pair_of(a):
-            return make_cone_projector(vol_shape, a, geom,
-                                       n_det_v=sino.shape[2],
-                                       n_det_u=sino.shape[3], dtype=dtype)
-    elif isinstance(geom, FanBeamGeometry):
-        def pair_of(a):
-            return make_fan_projector(vol_shape, a, geom,
-                                      n_det=sino.shape[-1], dtype=dtype)
-    elif geom is not None:
-        raise _unknown_geometry(geom)
     else:
-        def pair_of(a):
+        kind = _geometry_name(geom)
+        spectral = _resolve_method(method, kind, sino.device) == "spectral"
+        if kind == "cone":
+            angle_axis = 1
+        det = (tuple(sino.shape[2:]) if kind == "cone"
+               else (sino.shape[-1],))
+
+        def pair_of(k):
+            if spectral and kind == "parallel":
+                return make_projector(vol_shape, ang_host[..., k],
+                                      n_det=n_det, dtype=dtype,
+                                      method="spectral", precision=precision)
+            if spectral:
+                return _geometry_pair(geom, vol_shape, ang_host[..., k],
+                                      dtype, "spectral", precision, det)
+            a = angles[..., torch.as_tensor(k, device=sino.device)]
+            if kind == "cone":
+                return make_cone_projector(vol_shape, a, geom,
+                                           n_det_v=det[0], n_det_u=det[1],
+                                           dtype=dtype)
+            if kind == "fan":
+                return make_fan_projector(vol_shape, a, geom, n_det=det[0],
+                                          dtype=dtype)
             return _parallel_pair(vol_shape, a, n_det, dtype)
 
     # stride-interleaved subsets along the angle axis
     idx = np.arange(A).reshape(-1, n_subsets).T          # (S, A//S)
-    ones_vol = torch.ones(vol_shape, dtype=dtype, device=sino.device)
+    pairs = [pair_of(k) for k in idx]
+    if spectral and kind == "cone":
+        sums = _sart_cone_sums(pairs, idx, ang_host, vol_shape, det, dtype,
+                               precision, geom, sino.device)
+    else:
+        ones_vol = torch.ones(vol_shape, dtype=dtype, device=sino.device)
+        sums = [(row, P_T(torch.ones_like(row)))
+                for P, P_T in pairs for row in (P(ones_vol),)]
     subsets = []
-    for k in idx:
-        k_t = torch.as_tensor(k, device=sino.device)
-        P, P_T = pair_of(angles[..., k_t])
+    for k, (P, P_T), (row, col) in zip(idx, pairs, sums):
         # per-subset normalizers: row sums A_s 1 (sino space), column sums
         # A_s^T 1; rows and columns at most 1e-6 of the largest are dead
-        row = P(ones_vol)
-        col = P_T(torch.ones_like(row))
         tol_r, tol_c = 1e-6 * torch.max(row), 1e-6 * torch.max(col)
+        k_t = torch.as_tensor(k, device=sino.device)
         subsets.append((P, P_T, torch.index_select(sino, angle_axis, k_t),
                         row > tol_r, torch.maximum(row, tol_r),
                         col > tol_c, torch.maximum(col, tol_c)))
-    full = pair_of(angles)[0] if project_fn is None else (
+    full = pair_of(np.arange(A))[0] if project_fn is None else (
         lambda x: project_fn(x, angles))
 
     x = zeros if x_init is None else torch.as_tensor(
@@ -1002,6 +1167,42 @@ def sart(
                 x = torch.clamp_min(x, 0.0)
         residuals.append(torch.sqrt(torch.sum(torch.square(full(x) - sino))))
     return SARTResult(x=x, residual=torch.stack(residuals))
+
+
+_SART_SUMS_CACHE: dict = {}
+
+
+def _sart_cone_sums(pairs, idx, ang_np, vol_shape, det_shape, dtype,
+                    precision, geom, device):
+    """The spectral cone SART's normalizers, health-gated: every subset's
+    signed row and column sums ``A_s(1)`` / ``A_s^T(1)`` where all of them
+    are well conditioned (min above 1e-2 of max), else the abs-factor
+    surrogate's sums (:func:`.ct_spectral.cone_spectral_precond_sums`) for
+    every subset: at wide cone angles the signed sums go small or negative
+    on oblique rays, and dividing by them makes the sweep unstable.
+    Memoized per (pairs, shapes, dtype, device), at most 8; an entry pins
+    its pairs, so their ids stay unique while it lives."""
+    key = (tuple(id(p[0]) for p in pairs), tuple(vol_shape), det_shape,
+           dtype, torch.device(device))
+    hit = _SART_SUMS_CACHE.get(key)
+    if hit is not None:
+        return hit[0]
+    ones = torch.ones(tuple(vol_shape), dtype=dtype, device=device)
+    sums = [(row, P_T(torch.ones_like(row)))
+            for P, P_T in pairs for row in (P(ones),)]
+    healthy = all(
+        float(torch.min(row)) > 1e-2 * float(torch.max(row))
+        and float(torch.min(col)) > 1e-2 * float(torch.max(col))
+        for row, col in sums)
+    if not healthy:
+        sums = [ct_spectral.cone_spectral_precond_sums(
+            vol_shape, ang_np[..., k], geom,
+            n_det_v=det_shape[0], n_det_u=det_shape[1], dtype=dtype,
+            precision=precision, device=device) for k in idx]
+    if len(_SART_SUMS_CACHE) >= 8:
+        _SART_SUMS_CACHE.pop(next(iter(_SART_SUMS_CACHE)))
+    _SART_SUMS_CACHE[key] = (sums, pairs)
+    return sums
 
 
 def _backproject(sino, angles, N: int, angle_batch: Optional[int] = None):
@@ -1090,14 +1291,21 @@ def fbp(sino, angles, n_out: Optional[int] = None,
     ``(M, n_angles)``.  ``filter_name``: 'ramp' (sharpest), 'shepp-logan',
     'cosine', 'hann' or 'hamming' (progressively smoother: trade noise
     and ringing for resolution on real data).  ``method``: ``'gather'``
-    interpolates each pixel's detector coordinate; ``'spectral'`` raises
-    ``NotImplementedError`` until that projector is ported; ``'auto'`` =
-    ``'gather'``."""
-    _resolve_method(method)
+    interpolates each pixel's detector coordinate; ``'spectral'``
+    backprojects through the exact transpose of the gather-free spectral
+    projector (FFTs and matmuls; its memoized pair keeps its tables);
+    ``'auto'`` as :func:`_resolve_method` says for the parallel beam."""
     sino = on_device(sino, device)
-    angles = _as_angles(angles, sino)
     Nz, M, n_angles, n_det = sino.shape
     N = n_out or n_det
+    if _resolve_method(method, "parallel", sino.device) == "spectral":
+        H, size = _fourier_ramp(n_det, filter_name, sino.dtype, sino.device)
+        filtered = _filter_projections(sino, H, size, n_det)
+        _, A_T = make_projector((Nz, M, N, N), _host_angles(angles),
+                                n_det=n_det, dtype=sino.dtype,
+                                method="spectral")
+        return A_T(filtered) * (np.pi / (2 * n_angles))
+    angles = _as_angles(angles, sino)
     angle_batch = max(1, _RADON_GATHER_BUDGET
                       // max(Nz * M * N * N * sino.element_size(), 1))
     H, size = _fourier_ramp(n_det, filter_name, sino.dtype, sino.device)

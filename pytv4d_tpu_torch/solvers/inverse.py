@@ -103,8 +103,9 @@ def fidelity_row_precond(A: Callable, vol_shape, dtype, *, device):
 
 def _operator_proto(A: Callable):
     """The optional heavy-operator protocol: ``A.prepare() -> consts`` (the
-    operator's input-independent tables, built once per solve) and
-    ``A.apply(consts, x)`` (the same linear map reading them).  Solvers
+    operator's input-independent tables, built once per solve),
+    ``A.apply(consts, x)`` (the same linear map reading them) and,
+    optionally, its explicit transpose ``A.apply_T(consts, y)``.  Solvers
     that loop over A use it to keep such precomputation out of the
     iteration.  Returns ``A.apply`` or None."""
     prepare = getattr(A, "prepare", None)
@@ -116,7 +117,8 @@ def _operator_proto(A: Callable):
 def _bind_operator(A, A_T, vol_shape, dtype):
     """The ``(A, A_T)`` pair a solve iterates.  With the protocol, A binds
     the consts prepared here and A_T becomes the transpose of the bound
-    map, so the one set of tables serves both directions."""
+    map (``A.apply_T`` where the operator has one, else its vjp), so the
+    one set of tables serves both directions."""
     proto_apply = _operator_proto(A)
     if proto_apply is None:
         return A, A_T
@@ -125,6 +127,9 @@ def _bind_operator(A, A_T, vol_shape, dtype):
     def A_(x):
         return proto_apply(consts, x)
 
+    apply_T = getattr(A, "apply_T", None)
+    if apply_T is not None:
+        return A_, lambda y: apply_T(consts, y)
     return A_, exact_transpose(A_, vol_shape, dtype)
 
 

@@ -105,22 +105,27 @@ def device_time(run: Callable[[], object], n_iter: int, device):
     """Device time of ``run()``, which must enqueue ``n_iter`` iterations of
     work on CUDA ``device``: ``(ms per iteration, {kernel name: ms per
     iteration})``, summing every CUDA kernel, copy and memset that
-    ``torch.profiler`` records.  Raises if it records no device activity."""
+    ``torch.profiler`` records.  Raises if three traces in a row record no
+    device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"device_time profiles CUDA work, got {device}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize(device)
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
-                                 + e.time_range.elapsed_us() / 1e3 / n_iter)
-    if not by_kernel:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    return sum(by_kernel.values()), by_kernel
+    # a trace of short launches can come back without its device records
+    # while the next one has them: run the work again, up to three traces
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize(device)
+        by_kernel = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                                     + e.time_range.elapsed_us() / 1e3
+                                     / n_iter)
+        if by_kernel:
+            return sum(by_kernel.values()), by_kernel
+    raise RuntimeError("torch.profiler recorded no device activity")

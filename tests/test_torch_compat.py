@@ -237,14 +237,25 @@ def test_solver_surface():
 
 
 def test_models_surface():
-    """The spectral projectors (queue A item 15), the sinogram shardings
+    """The spectral projectors (queue A item 15) are in, as the module
+    ``models.ct_spectral`` and its eight names; the sinogram shardings
     (16b) and ``bench`` (7, 17) are still queued."""
     names = ("radon radon_fan radon_cone make_projector make_fan_projector "
              "make_cone_projector cp_reconstruct tgv_reconstruct fbp fdk "
              "sart estimate_op_norm FanBeamGeometry ConeBeamGeometry "
              "SARTResult CPReconResult clear_projector_cache")
-    _has(pytv.models, "TVDenoiser denoise_tv_chambolle add_noise " + names)
+    spectral = ("radon_spectral make_spectral_projector radon_fan_spectral "
+                "make_fan_spectral_projector radon_cone_spectral "
+                "make_cone_spectral_projector fdk_spectral "
+                "cone_spectral_precond_sums")
+    _has(pytv.models, "TVDenoiser denoise_tv_chambolle add_noise ct_spectral "
+         + names + " " + spectral)
     _has(pytv.models.ct, names)
+    _has(pytv.models.ct_spectral, spectral)
+    import pytv4d_tpu.models as jmodels
+
+    for name in spectral.split():
+        assert hasattr(jmodels, name), name
 
 
 def test_parallel_and_utils_surface():

@@ -1,9 +1,9 @@
 """The port's parallel-beam CT (``models/ct.py``) against the JAX package's
 gather projector on the same seeded numpy inputs: ``radon``, the exact
-adjoint, ``fbp``, ``cp_reconstruct``, the projector cache, what is not
-ported yet (the spectral projectors; fan and cone beams:
-``test_torch_ct_fan.py``, ``test_torch_ct_cone.py``), and where a call
-computes."""
+adjoint, ``fbp``, ``cp_reconstruct``, the projector cache, the paths once
+unported (the spectral ones: ``test_torch_ct_spectral*.py``; fan and cone
+beams: ``test_torch_ct_fan.py``, ``test_torch_ct_cone.py``), and where a
+call computes."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -237,21 +237,41 @@ def test_projector_cache_is_lru_and_clears():
 
 
 @pytest.mark.parametrize("what", ("spectral-projector", "spectral-recon",
-                                  "spectral-fbp"))
+                                  "spectral-fbp", "cone-order-2"))
 def test_unported_paths_raise_not_implemented(what):
-    sino = torch.zeros((2, 2, 12, 32))
-    call, match = {
-        "spectral-projector": (
-            lambda: ct.make_projector(SHAPE, SHARED, method="spectral"),
-            "item 15"),
-        "spectral-recon": (
-            lambda: ct.cp_reconstruct(sino, SHARED, SHAPE, n_iter=1,
-                                      method="spectral"), "item 15"),
-        "spectral-fbp": (lambda: ct.fbp(sino, SHARED, method="spectral"),
-                         "item 15"),
-    }[what]
-    with pytest.raises(NotImplementedError, match=match):
-        call()
+    """The spectral calls that raised until ROADMAP.md item 15 now run and
+    match the JAX package in float64; the cone's order 2 (item 15b) still
+    raises."""
+    import pytv4d_tpu.models.ct_spectral as jcs
+    from pytv4d_tpu_torch.models import ct_spectral
+
+    sino = _phantom_problem(np.float64, SHARED)
+    x = _volume(np.float64)
+    if what == "cone-order-2":
+        with pytest.raises(NotImplementedError, match="item 15b"):
+            ct_spectral.radon_cone_spectral(
+                torch.tensor(x), SHARED, ct.ConeBeamGeometry(64.0, 32.0),
+                order=2)
+        return
+    got, want = {
+        "spectral-projector": lambda: (
+            ct.make_projector(SHAPE, SHARED, dtype=torch.float64,
+                              method="spectral")[0](torch.tensor(x)),
+            jcs.make_spectral_projector(SHAPE, SHARED, dtype=jnp.float64)[0](
+                jnp.asarray(x))),
+        "spectral-recon": lambda: (
+            ct.cp_reconstruct(torch.tensor(sino), SHARED, SHAPE, n_iter=3,
+                              method="spectral").x,
+            jct.cp_reconstruct(jnp.asarray(sino), SHARED, SHAPE, n_iter=3,
+                               method="spectral").x),
+        "spectral-fbp": lambda: (
+            ct.fbp(torch.tensor(sino), SHARED, method="spectral"),
+            jct.fbp(jnp.asarray(sino), SHARED, method="spectral")),
+    }[what]()
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9,
+                               atol=1e-11 * np.abs(want).max())
 
 
 def test_argument_checks():

@@ -236,9 +236,11 @@ def test_layout_errors_match_jax():
                               geom=tgeom)
         assert str(got.value) == str(want.value)
         assert "cone-beam sinogram shape" in str(got.value)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ct.cp_reconstruct(torch.zeros((2, 8, N_DET_V, 20)), SHARED, SHAPE,
-                          n_iter=1, geom=tgeom, method="spectral")
+    # the spectral cone (ROADMAP.md item 15) runs on the same layout
+    res = ct.cp_reconstruct(torch.zeros((2, 8, N_DET_V, 20)), SHARED, SHAPE,
+                            n_iter=1, geom=tgeom, method="spectral",
+                            op_norm=10.0)
+    assert tuple(res.x.shape) == SHAPE and bool(torch.isfinite(res.loss).all())
 
 
 def test_numpy_goes_to_the_card_or_raises():

@@ -217,9 +217,10 @@ def test_layout_and_geometry_errors_match_jax():
     assert "unknown geometry tuple" in _message(lambda: ct.tgv_reconstruct(
         torch.tensor(sino), SHARED, SHAPE, n_iter=1,
         geom=(40.0, 40.0, None, 1.0)))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ct.cp_reconstruct(torch.tensor(sino), SHARED, SHAPE, n_iter=1,
-                          geom=tgeom, method="spectral")
+    # the spectral fan (ROADMAP.md item 15) runs on the same layout
+    res = ct.cp_reconstruct(torch.tensor(sino), SHARED, SHAPE, n_iter=1,
+                            geom=tgeom, method="spectral", op_norm=10.0)
+    assert tuple(res.x.shape) == SHAPE and bool(torch.isfinite(res.loss).all())
 
 
 def test_numpy_goes_to_the_card_or_raises():

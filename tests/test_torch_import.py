@@ -44,6 +44,18 @@ def test_import_leaves_jax_out():
     assert out.stdout.strip() == "[]"
 
 
+def test_ct_spectral_import_leaves_jax_out():
+    """The spectral CT module alone, in a fresh process, loads neither jax
+    nor the JAX package."""
+    code = ("import sys, pytv4d_tpu_torch.models.ct_spectral; print(sorted("
+            "m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m.startswith('pytv4d_tpu.') or m == 'pytv4d_tpu'))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 # the operator and TV entry points both package roots take from ops.api
 API_NAMES = ("D", "D_T", "compute_L21_norm", "tv_and_subgrad",
              *(f"{base}_{scheme}" for base in ("D", "D_T", "tv")
