@@ -92,8 +92,16 @@ gather pair (which sets ``method='auto'`` on the card), runs
 iteration) with its rate, idle share and peak memory, a resumed solve
 against the uninterrupted one, the cone's preconditioner setup,
 ``fdk_spectral`` and two SART epochs; and three iterations at
-(96, 16, 512, 512) for the peak memory.  Every phase raises
-on failure; nothing falls back to the CPU.  The last line of stdout is one
+(96, 16, 512, 512) for the peak memory.  For the sharded slice (phase
+29): solves the 2d TGV problem as 8 shards (one B7 launch each, x and w
+bit-equal to the unsharded solve), the 4d one on 4 z-shards on the ghost
+and the overlapped path in f32 and bf16 (B6 on every shard; bf16 overlap
+bit-equal to ghost) and the 3d one on a (4 x 2) mesh, against the unsharded
+stream solve; joins one NCCL rank with ``multihost.initialize`` and runs the
+sharded CP on ``global_mesh`` bit for bit against the one-process solve;
+and reconstructs a parallel sinogram on a (4 x 2) mesh and a cone one on a
+(1 x 4) mesh against the unsharded solve, with times and peak memory.
+Every phase raises on failure; nothing falls back to the CPU.  The last line of stdout is one
 JSON object with ``"ok": true`` and the device.
 """
 
@@ -146,6 +154,7 @@ from pytv4d_tpu_torch.models import (
 from pytv4d_tpu_torch.models.ct import (
     ConeBeamGeometry,
     FanBeamGeometry,
+    cone_sinogram_sharding,
     cp_reconstruct,
     estimate_op_norm,
     fbp,
@@ -157,6 +166,7 @@ from pytv4d_tpu_torch.models.ct import (
     radon_cone,
     radon_fan,
     sart,
+    sinogram_sharding,
 )
 from pytv4d_tpu_torch.models.ct_spectral import (
     fdk_spectral,
@@ -166,11 +176,16 @@ from pytv4d_tpu_torch.models.ct_spectral import (
 )
 from pytv4d_tpu_torch.parallel import (
     fused_halo,
+    gather_d_volume,
     gather_volume,
     make_mesh,
     make_sharded_cp_solver_fused,
     make_sharded_gd_solver_fused,
+    make_sharded_tgv_stream_solver,
+    multihost,
+    shard,
     shard_volume,
+    tgv_denoise_sharded,
 )
 from pytv4d_tpu_torch.parallel.mesh import grid_map
 from pytv4d_tpu_torch.solvers.admm import admm
@@ -3562,6 +3577,291 @@ def phase_ct_spectral(card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 29
+SHARDED_2D_MESH = (4, 2)    # the 2d TGV solve's (z, t) mesh: 8 B7 launches
+SHARDED_4D_MESH = (4, 1)    # the coupled 4d solve: z only
+# a sharded CT solve's x against the unsharded plain solve, of the scale:
+# CT_GEOM_TOL's room over f32 round-off (its op_norm is summed over shards
+# in another order, which moves every step in the last bits)
+CT_SHARD_TOL = 1e-4
+
+
+def _wall_ms(fn, repeats=2):
+    """Fastest of ``repeats`` host-clock times of ``fn()`` and a
+    synchronise, after one warm-up, ms."""
+    fn()
+    sync()
+    best = float("inf")
+    for _ in range(repeats):
+        start = time.perf_counter()
+        fn()
+        sync()
+        best = min(best, (time.perf_counter() - start) * 1e3)
+    return best
+
+
+def _wall_and_device(run, n_it):
+    """``(wall, device, B6's kernels)`` ms per iteration of ``run()``, which
+    enqueues ``n_it`` iterations: the device's time is every kernel, copy and
+    memset torch.profiler records."""
+    dev_ms, by_kernel = device_time(run, n_it, DEV)
+    b6 = sum(v for k, v in by_kernel.items()
+             if "tgv_pq" in k or "tgv_xw" in k)
+    return _wall_ms(run) / n_it, dev_ms, b6
+
+
+def _sharded_tgv_2d(card):
+    """The 2d TGV solve as 8 shards: one B7 launch each, no B6."""
+    base = np.random.default_rng(0).random(MAIN_4D).astype(np.float32)
+    n_it, kw = 100, dict(alpha1=1.0, alpha0=2.0)
+    mesh = make_mesh(*SHARDED_2D_MESH)
+    xs = shard_volume(base, mesh)
+    sync()
+    zero_counters()
+    res = tgv_denoise_sharded(xs, mesh, n_iter=n_it, **kw)
+    sync()
+    launches = read_counters()
+    require_launches(launches, "tgv_denoise_sharded 2d", B7=8)
+    x = torch.as_tensor(base, device=DEV)
+    ref = tgv_denoise(x, n_iter=n_it, **kw)
+    require(torch.equal(gather_volume(res.x), ref.x)
+            and torch.equal(gather_d_volume(res.w), ref.w),
+            "sharded 2d TGV: x and w bit-equal to the unsharded solve")
+    rel = float(((res.loss - ref.loss).abs() / ref.loss.abs()).max())
+    require(rel <= 1e-6, f"sharded 2d TGV loss within 1e-6, got {rel:.3g}")
+    ms = {"sharded": _best_ms(lambda: tgv_denoise_sharded(
+              xs, mesh, n_iter=n_it, **kw), 2) / n_it,
+          "unsharded": _best_ms(lambda: tgv_denoise(x, n_iter=n_it, **kw),
+                                2) / n_it}
+    log(f"[29 sharded TGV 2d] {MAIN_4D} f32 on a {SHARDED_2D_MESH} mesh, "
+        f"{n_it} its with the loss ({card}): launches {launches}; x, w "
+        f"bit-equal to the unsharded solve, loss max rel diff {rel:.3g}; "
+        f"ms/it sharded {ms['sharded']:.4f}, unsharded "
+        f"{ms['unsharded']:.4f}")
+    return launches["B7"], ms
+
+
+def _sharded_tgv_coupled(card):
+    """The 4d TGV solve on 4 z-shards, ghost and overlapped paths, f32 and
+    bf16, and the 3d solve on a (4, 2) mesh, against the unsharded stream
+    solve."""
+    base = np.random.default_rng(0).random(MAIN_4D).astype(np.float32)
+    x = torch.as_tensor(base, device=DEV)
+    n_it, kw = 20, dict(alpha1=1.0, alpha0=2.0)
+    mesh = make_mesh(*SHARDED_4D_MESH)
+    n_sh = SHARDED_4D_MESH[0]
+    out, launches, ms = {}, {}, {}
+    for dt in ("float32", "bfloat16"):
+        for overlap in (False, True):
+            solve = make_sharded_tgv_stream_solver(
+                mesh, MAIN_4D, "4d", n_iter=n_it, dtype=dt, overlap=overlap,
+                **kw)
+            x0 = shard_volume(base, mesh)
+            sync()
+            zero_counters()
+            res = solve(x0)
+            sync()
+            got = read_counters()
+            per = (3 if overlap else 1) * n_sh * n_it
+            require_launches(got, f"sharded 4d TGV {dt} overlap={overlap}",
+                             B6pq=per, B6xw=per)
+            launches["overlap" if overlap else "ghost"] = got["B6pq"]
+            out[dt, overlap] = (gather_volume(res.x), gather_d_volume(res.w))
+            del res
+            if dt == "float32":
+                ms["overlap" if overlap else "ghost"] = _wall_and_device(
+                    lambda: solve(x0), n_it)
+    require(all(_bits_equal(a, b) for a, b in zip(
+        out["bfloat16", True], out["bfloat16", False])),
+        "bf16 sharded 4d TGV: the overlapped path bit-equal to the ghost "
+        "path")
+    f32_same = all(torch.equal(a, b) for a, b in zip(
+        out["float32", True], out["float32", False]))
+    ref = tgv_denoise(x, n_iter=n_it, axes="4d", compute_loss=False, **kw)
+    err = max(_compare(out["float32", False][0], ref.x, False, 0.0,
+                       F32_TOL_20),
+              _compare(out["float32", False][1], ref.w, False, 0.0,
+                       F32_TOL_20))
+    del out
+
+    ms["unsharded"] = _wall_and_device(lambda: tgv_denoise(
+        x, n_iter=n_it, axes="4d", compute_loss=False, **kw), n_it)
+    log(f"[29 sharded TGV 4d] {MAIN_4D} on {n_sh} z-shards, {n_it} its "
+        f"({card}): B6 PQ / XW launches ghost {launches['ghost']}, overlap "
+        f"{launches['overlap']} each; bf16 overlap == ghost bit for bit; "
+        f"f32 overlap {'==' if f32_same else '!='} ghost; f32 vs the "
+        f"unsharded stream solve max abs err {err:.3g} (atol "
+        f"{F32_TOL_20['atol']}, rtol {F32_TOL_20['rtol']}); ms/it wall / "
+        f"device (of it B6's kernels): " + ", ".join(
+            f"{k} {w:.4f} / {d:.4f} ({b6:.4f})"
+            for k, (w, d, b6) in ms.items()))
+
+    mesh3 = make_mesh(*SHARDED_2D_MESH)
+    solve = make_sharded_tgv_stream_solver(mesh3, MAIN_4D, "3d",
+                                           n_iter=n_it, **kw)
+    sync()
+    zero_counters()
+    res = solve(shard_volume(base, mesh3))
+    sync()
+    got = read_counters()
+    per = SHARDED_2D_MESH[0] * SHARDED_2D_MESH[1] * n_it
+    require_launches(got, "sharded 3d TGV", B6pq=per, B6xw=per)
+    launches["3d"] = got["B6pq"]
+    ref = tgv_denoise(x, n_iter=n_it, axes="3d", compute_loss=False, **kw)
+    err3 = max(_compare(gather_volume(res.x), ref.x, False, 0.0, F32_TOL_20),
+               _compare(gather_d_volume(res.w), ref.w, False, 0.0,
+                        F32_TOL_20))
+    log(f"[29 sharded TGV 3d] {MAIN_4D} on a {SHARDED_2D_MESH} mesh: "
+        f"launches {got}; vs the unsharded stream solve max abs err "
+        f"{err3:.3g}")
+    return launches, ms
+
+
+def _multihost(card):
+    """One NCCL rank: initialize, then the sharded fused CP on
+    global_mesh(z=4) bit for bit against the one-process solve."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    start = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0)
+    init_s = time.perf_counter() - start
+    try:
+        require(dist.is_initialized() and dist.get_backend() == "nccl"
+                and dist.get_world_size() == 1, "one NCCL rank")
+        probe = torch.full((1,), 3.0, device=DEV)
+        dist.all_reduce(probe)
+        require(float(probe) == 3.0, "an all_reduce over the NCCL group")
+        mesh = multihost.global_mesh(z=SHARDED_MESH[0])
+        require(mesh.device.type == "cuda" and mesh.process_count == 1,
+                f"the global mesh on the card, got {mesh}")
+        cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+        base = np.random.default_rng(0).random(MAIN_4D).astype(np.float32)
+        st = init_state(torch.as_tensor(base, device=DEV), cfg)
+
+        def place(a):
+            return multihost.host_local_to_global(mesh, a)
+
+        solve = make_sharded_cp_solver_fused(mesh, cfg, MAIN_4D, reg=1.0,
+                                             n_iter=20, shard_time=False)
+        sync()
+        zero_counters()
+        x, y_A, y_D, losses = solve(place(base), place(st.x),
+                                    place(st.y_A),
+                                    place(fused.to_internal_layout(st.y_D)))
+        sync()
+        got = read_counters()
+        n = 20 * SHARDED_MESH[0]
+        require(got["B1"] == n and got["B2"] == n,
+                f"multihost CP: B1 = B2 = {n}, got {got}")
+        ref = _sharded_cp(base, cfg, SHARDED_MESH, 20, 1.0)
+        same = all(torch.equal(multihost.global_to_host_local(mesh, g), r)
+                   for g, r in zip((x, y_A, y_D), ref[:3]))
+        require(same and torch.equal(losses, ref[3]),
+                "the NCCL-rank sharded CP bit-equal to the one-process one")
+    finally:
+        dist.destroy_process_group()
+    log(f"[29 multihost] one NCCL rank ({card}): init {init_s:.2f} s, "
+        f"global_mesh {mesh}; 20 fused CP its on {MAIN_4D}: launches {got}; "
+        f"x, y_A, y_D and the losses bit-equal to the one-process sharded "
+        f"solve (overlap={solve.overlap})")
+    return got
+
+
+def _sharded_ct_case(name, sino, angles, mesh, sharding, geom, card):
+    """A 10-iteration cp_reconstruct of a sinogram grid (no kernel: the
+    projector per shard, the plain halo TV) against the unsharded plain and
+    fused solves."""
+    cfg = TVConfig(**CT_CFG)
+    n_iter = 10
+    kw = dict(n_iter=n_iter, reg=0.5, cfg=cfg, nonneg=True, geom=geom)
+    grid = shard(sino, sharding)
+    sync()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    base = torch.cuda.memory_allocated(DEV)
+    zero_counters()
+    res = cp_reconstruct(grid, angles, CT_SHAPE, **kw)  # op_norm on the grid
+    sync()
+    require_launches(read_counters(), f"sharded {name} CT")
+    peak = torch.cuda.max_memory_allocated(DEV) - base
+    plain = cp_reconstruct(sino, angles, CT_SHAPE, fused=False, **kw)
+    fast = cp_reconstruct(sino, angles, CT_SHAPE, **kw)
+    x = gather_volume(res.x)
+    rel = float(((res.loss - plain.loss).abs() / plain.loss.abs()).max())
+    require(rel <= 1e-5, f"sharded {name} CT losses within 1e-5 of the "
+                         f"unsharded solve, got {rel:.3g}")
+    scale = float(plain.x.abs().max())
+    err_x = float((x - plain.x).abs().max()) / scale
+    require(err_x <= CT_SHARD_TOL, f"sharded {name} CT x within "
+                                   f"{CT_SHARD_TOL} of the scale, got "
+                                   f"{err_x:.3g}")
+    rel_fast = float(((res.loss - fast.loss).abs() / fast.loss.abs()).max())
+    require(bool(torch.isfinite(x).all()) and float(res.loss[-1])
+            < float(res.loss[0]), f"sharded {name} CT: finite, falling")
+    op_norm = float(estimate_op_norm(*ct._select_projector(
+        sino, angles, CT_SHAPE, None, geom), CT_SHAPE, device=DEV))
+    # the projector's share of a sharded iteration: one A and one A_T on
+    # every shard, as the loop applies them
+    cells = [(b, v) for row_b, row_v in zip(grid, res.x)
+             for b, v in zip(row_b, row_v)]
+    A, A_T = ct._select_projector(cells[0][0], angles, tuple(
+        cells[0][1].shape), None, geom)
+    pair_ms = _best_ms(lambda: [(A(v), A_T(b)) for b, v in cells], 2)
+    del plain, fast, res
+    kw["op_norm"] = op_norm
+    sync()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    base = torch.cuda.memory_allocated(DEV)
+    ms_un = _best_ms(lambda: cp_reconstruct(sino, angles, CT_SHAPE, **kw),
+                     2) / n_iter
+    peak_un = torch.cuda.max_memory_allocated(DEV) - base
+    ms_sh = _best_ms(lambda: cp_reconstruct(grid, angles, CT_SHAPE, **kw),
+                     2) / n_iter
+    log(f"[29 sharded CT {name}] {CT_SHAPE} x {CT_ANGLES} angles on a "
+        f"{tuple(mesh.shape.values())} mesh, method='auto' "
+        f"({ct._resolve_method('auto', ct._geometry_name(geom), DEV)}), "
+        f"{n_iter} its ({card}): launches none; losses vs the unsharded plain "
+        f"solve max rel {rel:.3g}, vs the fused one {rel_fast:.3g}; x vs "
+        f"plain {err_x:.3g} of the scale; it/s sharded {1e3 / ms_sh:.2f} "
+        f"({ms_sh:.3f} ms/it, of it the projector pair on every shard "
+        f"{pair_ms:.3f}), unsharded fused {1e3 / ms_un:.2f} "
+        f"({ms_un:.3f}); peak memory above the sinogram and what was "
+        f"allocated before: sharded {peak / 1e9:.2f} GB, unsharded "
+        f"{peak_un / 1e9:.2f} GB")
+    return ms_sh, ms_un
+
+
+def phase_sharded_slice(card):
+    """Phase 29: the sharded TGV solvers, one NCCL rank of the multihost
+    path and the sharded CT solve, at full width from numpy or seeded
+    inputs.  Returns B6's and B7's launches on the sharded paths."""
+    b7, ms2d = _sharded_tgv_2d(card)
+    b6, ms4d = _sharded_tgv_coupled(card)
+    _multihost(card)
+    angles, sino = _ct_problem(CT_SHAPE, CT_ANGLES, seed=0)
+    mesh = make_mesh(4, 2)
+    _sharded_ct_case("parallel", sino, angles, mesh,
+                     sinogram_sharding(mesh), None, card)
+    del sino
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    vol = torch.rand(CT_SHAPE, generator=gen, device=DEV)
+    full = np.linspace(0.0, 2 * np.pi, CT_ANGLES, endpoint=False)
+    sino = radon_cone(vol, full, CONE)
+    sino += 0.5 * torch.randn(sino.shape, generator=gen, device=DEV)
+    del vol
+    mesh = make_mesh(1, 4)
+    _sharded_ct_case("cone", sino, full, mesh, cone_sinogram_sharding(mesh),
+                     CONE, card)
+    del sino
+    torch.cuda.empty_cache()
+    sync()
+    return {"B7": b7, "B6": b6, "ms_2d": ms2d, "ms_4d": ms4d}
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -3591,6 +3891,7 @@ def main():
     ct_launches = phase_ct_geometries(card)
     phase_compat(card)
     ct_launches.update(phase_ct_spectral(card))
+    sharded = phase_sharded_slice(card)
 
     # B1-B4 bounds at the shape their times were taken at: MAIN_4D float32,
     # hybrid with reg_time=0.5 (Nd channels).  Bytes: each array once per
@@ -3614,7 +3915,8 @@ def main():
     require((4 + 2 * Nd + 4 + Nd) * 4 * vox == cp_traffic_model(
         MAIN_4D, Nd, dtype=torch.float32), "B1 + B2 bytes are the CP model's")
 
-    def entry(kid, name, source, replaces, n_launches, err, ms, err_bf16=None):
+    def entry(kid, name, source, replaces, n_launches, err, ms, err_bf16=None,
+              **extra):
         # no single PyTorch call computes any of these functions, so there
         # is no library time to set beside them
         out = {"name": f"{re.match(r'B[0-9]+', kid).group()} {name}",
@@ -3626,6 +3928,7 @@ def main():
                "bound_by": bounds[kid][1], "library_ms": None}
         if err_bf16 is not None:
             out["max_abs_err_bf16"] = err_bf16
+        out.update(extra)
         if kid in ("B2", "B3", "B5"):
             # the fan- and cone-beam cp_reconstruct path (phase 26) and the
             # spectral path of each geometry (phase 28)
@@ -3653,15 +3956,18 @@ def main():
         entry("B6pq", "tgv_pq_kernel (TGV pass PQ)", "tgv_stream.cu",
               "tgv_stream.py:344", tgv_launches["B6pq"],
               tgv_errs["B6pq"]["f32"], stream_ms["pq"],
-              tgv_errs["B6pq"]["bf16"]),
+              tgv_errs["B6pq"]["bf16"],
+              launches_sharded=sharded["B6"]),
         entry("B6xw", "tgv_xw_kernel (TGV pass XW)", "tgv_stream.cu",
               "tgv_stream.py:435", tgv_launches["B6xw"],
               tgv_errs["B6xw"]["f32"], stream_ms["xw"],
-              tgv_errs["B6xw"]["bf16"]),
+              tgv_errs["B6xw"]["bf16"],
+              launches_sharded=sharded["B6"]),
         entry("B7", "tgv_onchip_kernel (2d TGV whole solve, each slice's "
               "state in its cluster's shared memory)", "tgv_onchip.cu",
               "tgv_resident.py:58", tgv_launches["B7"],
-              tgv_errs["B7"]["f32"], tgv_ms["B7"]),
+              tgv_errs["B7"]["f32"], tgv_ms["B7"],
+              launches_sharded={"2d": sharded["B7"]}),
         entry("B7l2", "tgv_resident_kernel (2d TGV whole solve, the state in "
               "global memory: slices too large for the chip)",
               "tgv_resident.cu", "tgv_resident.py:58", tgv_launches["B7l2"],

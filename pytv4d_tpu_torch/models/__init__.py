@@ -5,6 +5,7 @@ from .ct import (
     FanBeamGeometry,
     SARTResult,
     clear_projector_cache,
+    cone_sinogram_sharding,
     cp_reconstruct,
     estimate_op_norm,
     fbp,
@@ -16,6 +17,7 @@ from .ct import (
     radon_cone,
     radon_fan,
     sart,
+    sinogram_sharding,
     tgv_reconstruct,
 )
 from .ct_spectral import (

@@ -379,6 +379,40 @@ def estimate_op_norm(A, A_T, vol_shape, n_iter: int = 12, seed: int = 0,
                            dtype=dtype, device=device)
 
 
+def sinogram_sharding(mesh, shard_time: bool = True):
+    """Where a ``(Nz, M, n_angles, n_det)`` sinogram lives on the (z, t)
+    mesh (``parallel.mesh.Sharding``; place it with
+    ``parallel.mesh.shard``).  Parallel- and fan-beam CT decompose exactly
+    along z and t (the reason the reference chose the (Nz, M, N, N)
+    layout, ``README.md:235``): on such a grid :func:`cp_reconstruct` runs
+    the projector shard by shard with no exchange, and only the TV
+    stencil's one-plane halos and the loss sum cross shards."""
+    from ..parallel.mesh import T_AXIS, Z_AXIS, Sharding
+
+    t_spec = T_AXIS if (shard_time and mesh.shape[T_AXIS] > 1) else None
+    return Sharding(mesh, (Z_AXIS if mesh.shape[Z_AXIS] > 1 else None,
+                           t_spec, None, None))
+
+
+def cone_sinogram_sharding(mesh):
+    """Where a cone-beam ``(M, n_angles, n_det_v, n_det_u)`` sinogram lives
+    on a mesh with a sharded 't' axis.  The cone couples z (one frame's
+    projection reads the whole z extent), so z stays whole; time is a pure
+    batch axis of :func:`radon_cone`, so a t-cut sinogram reconstructs with
+    no exchange in the projector (the TV stencil's t halos, when
+    ``reg_time > 0``, come from ``parallel.halo``)."""
+    from ..parallel.mesh import T_AXIS, Sharding
+
+    if mesh.shape[T_AXIS] == 1:
+        raise ValueError(
+            "cone_sinogram_sharding needs a mesh with a sharded 't' axis — "
+            "the cone projector couples z, so time is the only "
+            "zero-communication direction (parallel.mesh.make_mesh(z=1, "
+            "t=...))"
+        )
+    return Sharding(mesh, (T_AXIS, None, None, None))
+
+
 class CPReconResult(NamedTuple):
     x: torch.Tensor       # reconstructed volume (Nz, M, N, N)
     loss: torch.Tensor    # sampled F(Ax) + reg*TV history, on the device
@@ -429,7 +463,29 @@ def cp_reconstruct(
     scalar steps), and ``dual_dtype='bfloat16'`` halves the Nd-channel
     dual's memory and traffic.  The solve runs on the sinogram's device; a
     numpy sinogram goes to the CUDA device unless ``device`` names
-    another."""
+    another.
+
+    A sinogram placed on a mesh (a grid of shards from
+    ``parallel.mesh.shard`` with :func:`sinogram_sharding` or, for the
+    cone, :func:`cone_sinogram_sharding`) is solved shard by shard
+    (``solvers.inverse.cp_inverse_grid``): the projector and its adjoint
+    per shard with no exchange, the TV half on ``parallel.halo``'s
+    exchanged stencils (the fused kernels take unsharded volumes only, so
+    ``fused=True`` raises), the loss summed over shards; ``x`` and the
+    state come back as grids of the volume's layout.  ``precond``,
+    ``state`` and ``dual_dtype`` are for unsharded solves."""
+    if isinstance(sino, list):
+        if fused or precond or state is not None or dual_dtype is not None:
+            raise ValueError(
+                "fused=True, precond, state and dual_dtype cannot serve a "
+                "sharded sinogram: the fused kernels and the preconditioned "
+                "and resumed solves take unsharded volumes only")
+        return _cp_reconstruct_grid(
+            sino, angles, vol_shape, n_iter=n_iter, reg=reg, cfg=cfg,
+            n_det=n_det, op_norm=op_norm, x_init=x_init, geom=geom,
+            fidelity=fidelity, fidelity_weight=fidelity_weight,
+            nonneg=nonneg, method=method, loss_every=loss_every,
+            precision=precision)
     sino = on_device(sino, device)
     A, A_T = _select_projector(sino, angles, vol_shape, n_det, geom,
                                method=method, precision=precision)
@@ -451,6 +507,35 @@ def cp_reconstruct(
         fused=fused, dual_dtype=dual_dtype, loss_every=loss_every,
         **precond_kw,
     )
+    return CPReconResult(x=res.x, loss=res.loss, state=res.state)
+
+
+def _cp_reconstruct_grid(grid, angles, vol_shape, *, geom, n_det, method,
+                         precision, **kw):
+    """:func:`cp_reconstruct` of a sinogram grid: one projector pair per
+    column of shards (per-frame angle sets are cut along t with the
+    volume), then ``solvers.inverse.cp_inverse_grid``."""
+    from ..parallel.mesh import check_divisible, first_shard, grid_size
+    from ..solvers.inverse import cp_inverse_grid
+
+    vol_shape = tuple(int(n) for n in vol_shape)
+    nz, nt = len(grid), grid_size(grid, 1)
+    if isinstance(geom, ConeBeamGeometry) and nz != 1:
+        raise ValueError(
+            "a cone-beam sinogram is cut along t only "
+            "(cone_sinogram_sharding): the cone couples z")
+    check_divisible(vol_shape, nz, nt)
+    local = (vol_shape[0] // nz, vol_shape[1] // nt) + vol_shape[2:]
+    first = first_shard(grid)
+    ang_np = _host_angles(angles)
+
+    def pair_of(it):
+        ang = (ang_np[it * local[1]:(it + 1) * local[1]] if ang_np.ndim == 2
+               else ang_np)
+        return _select_projector(first, ang, local, n_det, geom,
+                                 method=method, precision=precision)
+
+    res = cp_inverse_grid(pair_of, grid, vol_shape, **kw)
     return CPReconResult(x=res.x, loss=res.loss, state=res.state)
 
 

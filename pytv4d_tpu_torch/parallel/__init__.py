@@ -1,9 +1,11 @@
 """The (z, t)-sharded paths: the mesh of shards, the plain halo-exchange
-operators and CP solver, and the CP / GD solvers on the fused kernels (the
-port of ``pytv4d_tpu/parallel``'s ``mesh``, ``halo`` and ``fused_halo``).
-All shards of a mesh share one device."""
+operators and CP solver, the CP / GD solvers on the fused kernels, the
+sharded TGV solvers and the processes that share a mesh (the port of
+``pytv4d_tpu/parallel``'s ``mesh``, ``halo``, ``fused_halo``,
+``tgv_sharded`` and ``multihost``).  The shards of one process share its
+device."""
 
-from . import fused_halo, halo, mesh
+from . import fused_halo, halo, mesh, multihost, tgv_sharded
 from .fused_halo import (
     make_sharded_cp_solver_fused,
     make_sharded_gd_solver_fused,
@@ -19,11 +21,20 @@ from .mesh import (
     T_AXIS,
     Z_AXIS,
     Mesh,
+    Sharding,
+    d_volume_sharding,
+    d_volume_spec,
     gather_d_volume,
     gather_volume,
     make_mesh,
     plane_from_left,
     plane_from_right,
+    planes_from_left,
+    planes_from_right,
+    shard,
     shard_d_volume,
     shard_volume,
+    volume_sharding,
+    volume_spec,
 )
+from .tgv_sharded import make_sharded_tgv_stream_solver, tgv_denoise_sharded

@@ -3,8 +3,8 @@ the (z, t) grid.
 
 The port of ``pytv4d_tpu/parallel/fused_halo.py``.  Halo strategy ("ghost
 planes"): before each fused pass, one boundary plane per direction comes
-from the neighbour shard (``parallel.mesh.plane_from_left`` /
-``plane_from_right``); shards at the *global* boundary substitute a ghost
+from the neighbour shard (``parallel.mesh.planes_from_left`` /
+``planes_from_right``); shards at the *global* boundary substitute a ghost
 plane chosen so that the ungated stencil reproduces the reference's
 one-sided zero boundary exactly:
 
@@ -28,8 +28,8 @@ so that its copies run beside the interior kernels (``solve.side_stream``);
 between shards of one card the copies are too small for that to show, so it
 is off until an exchange is a transfer between cards.
 
-All shards share one device; a step is a Python loop over the grid, pass by
-pass.  On a CUDA device every pass launches its kernel or raises; on the CPU
+The shards of one process share its device; a step is a Python loop over
+the grid, pass by pass.  On a CUDA device every pass launches its kernel or raises; on the CPU
 it runs the kernel's plain version.
 """
 
@@ -40,14 +40,19 @@ import torch
 from ..core.config import TVConfig
 from ..core.schemes import AXIS_T, AXIS_Z, CTR, scheme_channels
 from ..ops.operators import _sl
-from .halo import _check_grid, _grid_like, _grid_sum, _indexed
+from .halo import _check_grid
 from .mesh import (
     Mesh,
     check_divisible,
+    first_shard,
+    grid_like,
     grid_map,
+    grid_size,
+    grid_sum,
+    indexed,
     mesh_sizes,
-    plane_from_left,
-    plane_from_right,
+    planes_from_left,
+    planes_from_right,
 )
 
 
@@ -60,17 +65,20 @@ def _axis_ghost_kind(chans, axis):
     return "reflect" if CTR in kinds else "edge"
 
 
-def _halo_pair(shards, axis, iz, it, ghost_kind):
-    """The planes below and above shard ``(iz, it)`` along ``axis``: the
+def _halo_pairs(shards, axis, ghost_kind):
+    """For every shard the planes below and above it along ``axis``: the
     neighbours' edge planes, and at the grid's ends the ghost plane
-    (``ghost_kind='zero'`` keeps the exchange's zeros, for duals)."""
-    x = shards[iz][it]
-    nd = x.ndim
-    n = (len(shards), len(shards[0]))[axis]
-    idx = (iz, it)[axis]
-    lo = plane_from_left(shards, axis, iz, it)
-    hi = plane_from_right(shards, axis, iz, it)
-    if ghost_kind != "zero":
+    (``ghost_kind='zero'`` keeps the exchange's zeros, for duals).  Two
+    grids, ``(lo, hi)``."""
+    n = grid_size(shards, axis)
+    lo_g = planes_from_left(shards, axis)
+    hi_g = planes_from_right(shards, axis)
+    if ghost_kind == "zero":
+        return lo_g, hi_g
+    for iz, it, x in indexed(shards):
+        nd = x.ndim
+        idx = (iz, it)[axis]
+        lo, hi = lo_g[iz][it], hi_g[iz][it]
         L = x.shape[axis]
         if ghost_kind == "edge":
             g_lo = x[_sl(nd, axis, 0, 1)]
@@ -80,20 +88,18 @@ def _halo_pair(shards, axis, iz, it, ghost_kind):
             g_lo = x[_sl(nd, axis, 1, 2)] if L > 1 else hi
             g_hi = x[_sl(nd, axis, -2, -1)] if L > 1 else lo
         if idx == 0:
-            lo = g_lo
+            lo_g[iz][it] = g_lo
         if idx == n - 1:
-            hi = g_hi
-    return lo, hi
+            hi_g[iz][it] = g_hi
+    return lo_g, hi_g
 
 
 def _extend_axis(shards, axis, ghost_kind):
     """Every shard with one halo plane per side along ``axis``; boundary
     shards substitute the ghost plane."""
-    def ext(iz, it, x):
-        lo, hi = _halo_pair(shards, axis, iz, it, ghost_kind)
-        return torch.cat([lo, x, hi], dim=axis)
-
-    return _grid_like(shards, [ext(*cell) for cell in _indexed(shards)])
+    lo, hi = _halo_pairs(shards, axis, ghost_kind)
+    return grid_map(lambda lo, x, hi: torch.cat([lo, x, hi], dim=axis),
+                    lo, shards, hi)
 
 
 def _halo_planes(shards, axis, ghost_kind):
@@ -102,9 +108,8 @@ def _halo_planes(shards, axis, ghost_kind):
     the shard's low edge), slot 1 = from the RIGHT; ghosts as in
     :func:`_extend_axis`.  The overlapped step takes this BEFORE the
     interior kernels so that the copies ride beside them."""
-    return _grid_like(shards, [
-        torch.cat(_halo_pair(shards, axis, iz, it, ghost_kind), dim=axis)
-        for iz, it, _ in _indexed(shards)])
+    lo, hi = _halo_pairs(shards, axis, ghost_kind)
+    return grid_map(lambda lo, hi: torch.cat([lo, hi], dim=axis), lo, hi)
 
 
 def _kind_range(chans, want_axis, kinds):
@@ -135,22 +140,22 @@ def _sparse_channel_halo(ys, axis, chans, want_axis):
     at the global boundary the exchange's zeros stay."""
     lo_f, hi_f = _kind_range(chans, want_axis, ("fwd", "ctr"))
     lo_b, hi_b = _kind_range(chans, want_axis, ("bwd", "ctr"))
-    subs_f = grid_map(lambda y: y[:, :, lo_f:hi_f], ys)
-    subs_b = grid_map(lambda y: y[:, :, lo_b:hi_b], ys)
+    from_l = (planes_from_left(grid_map(lambda y: y[:, :, lo_f:hi_f], ys),
+                               axis) if hi_f > lo_f else None)
+    from_r = (planes_from_right(grid_map(lambda y: y[:, :, lo_b:hi_b], ys),
+                                axis) if hi_b > lo_b else None)
 
     def halo(iz, it, y):
         shape = list(y.shape)
         shape[axis] = 2
         out = torch.zeros(shape, dtype=y.dtype, device=y.device)
-        if hi_f > lo_f:
-            out[_sl(5, axis, 0, 1)][:, :, lo_f:hi_f] = plane_from_left(
-                subs_f, axis, iz, it)
-        if hi_b > lo_b:
-            out[_sl(5, axis, 1, 2)][:, :, lo_b:hi_b] = plane_from_right(
-                subs_b, axis, iz, it)
+        if from_l is not None:
+            out[_sl(5, axis, 0, 1)][:, :, lo_f:hi_f] = from_l[iz][it]
+        if from_r is not None:
+            out[_sl(5, axis, 1, 2)][:, :, lo_b:hi_b] = from_r[iz][it]
         return out
 
-    return _grid_like(ys, [halo(*cell) for cell in _indexed(ys)])
+    return grid_like(ys, [halo(*cell) for cell in indexed(ys)])
 
 
 def _extend_dual(ys, chans):
@@ -199,7 +204,7 @@ def _setup(mesh, cfg, global_shape, shard_time, dtype, mask_static,
 
 
 def _check_state(grid, name, dtype, mesh):
-    for _, _, s in _indexed(grid):
+    for _, _, s in indexed(grid):
         if s.dtype != dtype or s.device.type != mesh.device.type:
             raise ValueError(f"{name} shards must be {dtype} on "
                              f"{mesh.device}, got {s.dtype} on {s.device}")
@@ -322,7 +327,7 @@ def make_sharded_cp_solver_fused(
         fid = grid_map(lambda xs, x0, ya, yd, ye: cp_primal(
             xs, x0, ya, yd, tmul, y_ext=ye, **mode, **primal_kw)[1],
             x, x_noisy, y_A, y_D, y_ext)
-        return _grid_sum(grid_map(shard_loss, fid, tv))
+        return grid_sum(grid_map(shard_loss, fid, tv))
 
     def overlap_step(x, y_A, y_D, x_noisy):
         side = _side_stream()
@@ -348,7 +353,7 @@ def make_sharded_cp_solver_fused(
         grid_map(lambda xs, x0, ya, yd, yh, p: cp_primal_boundary(
             xs, x0, ya, yd, yh, p, tmul, **primal_kw),
             x, x_noisy, y_A, y_D, y_halo, fid)
-        return _grid_sum(grid_map(shard_loss, fid, tv))
+        return grid_sum(grid_map(shard_loss, fid, tv))
 
     def _side_stream():
         if mesh.device.type != "cuda" or not solve.side_stream:
@@ -396,9 +401,9 @@ def _extend_axis2(shards, axis, ghost_kind):
 
     Handles 1-plane shards (the second halo comes from two hops along the
     grid, and mirror ghosts from the opposite-direction halo)."""
-    n = (len(shards), len(shards[0]))[axis]
-    nd = shards[0][0].ndim
-    L = shards[0][0].shape[axis]
+    n = grid_size(shards, axis)
+    nd = first_shard(shards).ndim
+    L = first_shard(shards).shape[axis]
 
     def first(a):
         return a[_sl(nd, axis, 0, 1)]
@@ -420,21 +425,20 @@ def _extend_axis2(shards, axis, ghost_kind):
 
     # the planes one hop away, and (1-plane shards) the planes two hops away
     # as the hop of a hop: zeros beyond the grid's end either way
-    h1l = _grid_like(shards, [plane_from_left(shards, axis, iz, it)
-                              for iz, it, _ in _indexed(shards)])
-    h1r = _grid_like(shards, [plane_from_right(shards, axis, iz, it)
-                              for iz, it, _ in _indexed(shards)])
+    h1l = planes_from_left(shards, axis)
+    h1r = planes_from_right(shards, axis)
     if L >= 2:
         src_l = grid_map(lambda x: x[_sl(nd, axis, -2, -1)], shards)
         src_r = grid_map(lambda x: x[_sl(nd, axis, 1, 2)], shards)
     else:
         src_l, src_r = h1l, h1r
+    h2l = planes_from_left(src_l, axis)
+    h2r = planes_from_right(src_r, axis)
     out = []
-    for iz, it, x in _indexed(shards):
+    for iz, it, x in indexed(shards):
         idx = (iz, it)[axis]
         l1, r1 = h1l[iz][it], h1r[iz][it]
-        l2 = plane_from_left(src_l, axis, iz, it)
-        r2 = plane_from_right(src_r, axis, iz, it)
+        l2, r2 = h2l[iz][it], h2r[iz][it]
         if ghost_kind == "edge":
             g_lo1, g_hi1 = first(x), last(x)
             g_lo2_second, g_hi2_second = l1, r1  # = the global edge plane
@@ -454,7 +458,7 @@ def _extend_axis2(shards, axis, ghost_kind):
             if idx == n - 2:
                 hi2 = g_hi2_second
         out.append(torch.cat([lo2, lo1, x, hi1, hi2], dim=axis))
-    return _grid_like(shards, out)
+    return grid_like(shards, out)
 
 
 def _extend_norms(norms):
@@ -463,7 +467,7 @@ def _extend_norms(norms):
     the x ghosts' construction, so any finite nonzero divisor works."""
     for axis in (0, 1):
         norms = _extend_axis(norms, axis, "zero")
-        for _, _, n1 in _indexed(norms):
+        for _, _, n1 in indexed(norms):
             for edge in (_sl(4, axis, 0, 1), _sl(4, axis, -1, None)):
                 n1[edge] = torch.where(n1[edge] == 0, 1.0, n1[edge])
     return norms
@@ -509,7 +513,7 @@ def make_sharded_gd_solver_fused(
     def step(x, x_noisy):
         x1 = _extend_axis(_extend_axis(x, 0, ghost_z), 1, ghost_t)
         passed = grid_map(lambda xe: tv_norms(xe, tmul, **mode), x1)
-        tv = _grid_sum(grid_map(lambda np_: torch.sum(np_[1]), passed))
+        tv = grid_sum(grid_map(lambda np_: torch.sum(np_[1]), passed))
         x2 = _extend_axis2(_extend_axis2(x, 0, ghost_z), 1, ghost_t)
         # the aniso G never divides by the norms (sign-based subgradient)
         if aniso:
@@ -520,7 +524,7 @@ def make_sharded_gd_solver_fused(
                          x2, n1)
         x = grid_map(lambda xs, x0, g: xs - step_size * ((xs - x0) + reg * g),
                      x, x_noisy, G)
-        fid = _grid_sum(grid_map(
+        fid = grid_sum(grid_map(
             lambda xs, x0: 0.5 * torch.sum(torch.square(xs - x0)),
             x, x_noisy))
         return x, fid + reg * tv

@@ -4,8 +4,10 @@ shards, in plain PyTorch per shard.
 The port of ``pytv4d_tpu/parallel/halo.py``.  Each shard owns a contiguous
 block of z-slices (and optionally time frames), takes ONE boundary plane per
 direction per operator application from its neighbours
-(``parallel.mesh.plane_from_left`` / ``plane_from_right``) and the norms and
-losses are sums of per-shard scalars, taken in a fixed (iz, it) order.
+(``parallel.mesh.planes_from_left`` / ``planes_from_right``) and the norms
+and losses are sums of per-shard scalars, taken in a fixed (iz, it) order
+(``parallel.mesh.grid_sum``).  A grid spread over processes runs the same
+code: its exchange and sums cross the processes there.
 
 Correctness contract (SURVEY.md section 7 "hard parts" item 2): the sharded
 operators are *slot-exact* with the single-device path.  Boundary slots that
@@ -31,10 +33,15 @@ from ..ops.operators import _sl, d_channel, dt_channel, tv_norm
 from .mesh import (
     Mesh,
     check_divisible,
+    first_shard,
+    grid_like,
     grid_map,
+    grid_size,
+    grid_sum,
+    indexed,
     mesh_sizes,
-    plane_from_left,
-    plane_from_right,
+    planes_from_left,
+    planes_from_right,
 )
 
 __all__ = [
@@ -49,20 +56,7 @@ __all__ = [
 def _axis_size(shards, axis: int) -> int:
     """Number of shards along tensor axis ``axis`` (rows and columns are
     never sharded)."""
-    return (len(shards), len(shards[0]), 1, 1)[axis]
-
-
-def _indexed(shards):
-    """``(iz, it, shard)`` in the fixed order every sum here is taken in."""
-    return [(iz, it, s) for iz, row in enumerate(shards)
-            for it, s in enumerate(row)]
-
-
-def _grid_like(shards, cells):
-    """The flat list ``cells`` (in :func:`_indexed` order) as a grid shaped
-    like ``shards``."""
-    nt = len(shards[0])
-    return [cells[i * nt:(i + 1) * nt] for i in range(len(shards))]
+    return grid_size(shards, axis) if axis < 2 else 1
 
 
 def _zero_slot(d, axis: int, slot: int):
@@ -77,26 +71,27 @@ def sharded_d_channel(shards, axis: int, kind: str):
     n = _axis_size(shards, axis)
     if n == 1:
         return grid_map(lambda x: d_channel(x, axis, kind), shards)
+    lo = planes_from_left(shards, axis) if kind != FWD else None
+    hi = planes_from_right(shards, axis) if kind != BWD else None
     out = []
-    for iz, it, x in _indexed(shards):
+    for iz, it, x in indexed(shards):
         first, last = (iz, it)[axis] == 0, (iz, it)[axis] == n - 1
         nd = x.ndim
         if kind == FWD:
-            ext = torch.cat([x, plane_from_right(shards, axis, iz, it)], axis)
+            ext = torch.cat([x, hi[iz][it]], axis)
             d = ext[_sl(nd, axis, 1, None)] - ext[_sl(nd, axis, None, -1)]
             out.append(_zero_slot(d, axis, -1) if last else d)
         elif kind == BWD:
-            ext = torch.cat([plane_from_left(shards, axis, iz, it), x], axis)
+            ext = torch.cat([lo[iz][it], x], axis)
             d = ext[_sl(nd, axis, 1, None)] - ext[_sl(nd, axis, None, -1)]
             out.append(_zero_slot(d, axis, 0) if first else d)
         else:
-            ext = torch.cat([plane_from_left(shards, axis, iz, it), x,
-                             plane_from_right(shards, axis, iz, it)], axis)
+            ext = torch.cat([lo[iz][it], x, hi[iz][it]], axis)
             d = ext[_sl(nd, axis, 2, None)] - ext[_sl(nd, axis, None, -2)]
             if first:
                 d = _zero_slot(d, axis, 0)
             out.append(_zero_slot(d, axis, -1) if last else d)
-    return _grid_like(shards, out)
+    return grid_like(shards, out)
 
 
 def sharded_dt_channel(ys, axis: int, kind: str):
@@ -116,22 +111,24 @@ def sharded_dt_channel(ys, axis: int, kind: str):
                 _zero_slot(y, axis, 0)
         return y
 
-    yv = _grid_like(ys, [valid(*cell) for cell in _indexed(ys)])
+    yv = grid_like(ys, [valid(*cell) for cell in indexed(ys)])
+    lo = planes_from_left(yv, axis) if kind != BWD else None
+    hi = planes_from_right(yv, axis) if kind != FWD else None
     out = []
-    for iz, it, y in _indexed(yv):
+    for iz, it, y in indexed(yv):
         nd = y.ndim
         if kind == FWD:
-            ext = torch.cat([plane_from_left(yv, axis, iz, it), y], axis)
+            ext = torch.cat([lo[iz][it], y], axis)
             out.append(ext[_sl(nd, axis, None, -1)] - y)
         elif kind == BWD:
-            ext = torch.cat([y, plane_from_right(yv, axis, iz, it)], axis)
+            ext = torch.cat([y, hi[iz][it]], axis)
             out.append(y - ext[_sl(nd, axis, 1, None)])
         else:
-            left = torch.cat([plane_from_left(yv, axis, iz, it), y], axis)
-            right = torch.cat([y, plane_from_right(yv, axis, iz, it)], axis)
+            left = torch.cat([lo[iz][it], y], axis)
+            right = torch.cat([y, hi[iz][it]], axis)
             out.append(left[_sl(nd, axis, None, -1)]
                        - right[_sl(nd, axis, 1, None)])
-    return _grid_like(ys, out)
+    return grid_like(ys, out)
 
 
 def _table(cfg: TVConfig, global_shape):
@@ -174,24 +171,17 @@ def _local_D_T(ys, cfg: TVConfig, global_shape, weighted: bool = True):
     return grid_map(lambda a: a * norm, out) if norm != 1.0 else out
 
 
-def _grid_sum(grid):
-    """The sum of a grid of scalars in (iz, it) order: the ``psum``."""
-    cells = [c for _, _, c in _indexed(grid)]
-    total = cells[0]
-    for c in cells[1:]:
-        total = total + c
-    return total
-
-
 def _check_grid(shards, mesh: Mesh, global_shape, shard_time, t_axis=1):
     """The grid is the mesh's and its shards tile ``global_shape``."""
     nz, nt = mesh_sizes(mesh, shard_time)
     check_divisible(global_shape, nz, nt)
-    if len(shards) != nz or any(len(row) != nt for row in shards):
+    if len(shards) != nz or any(row is not None and len(row) != nt
+                                for row in shards):
         raise ValueError(f"expected a {nz} x {nt} grid of shards "
                          f"(parallel.mesh.shard_volume)")
     local = (global_shape[0] // nz, global_shape[1] // nt)
-    got = (shards[0][0].shape[0], shards[0][0].shape[t_axis])
+    first = first_shard(shards)
+    got = (first.shape[0], first.shape[t_axis])
     if got != local:
         raise ValueError(f"shards of {tuple(global_shape)} on this mesh hold "
                          f"{local} (z, t) planes, got {got}")
@@ -227,7 +217,7 @@ def sharded_tv_and_subgrad(mesh: Mesh, cfg: TVConfig, global_shape,
     def fn(x):
         _check_grid(x, mesh, global_shape, shard_time)
         D_img = _local_D(x, cfg, global_shape)
-        tv = _grid_sum(grid_map(
+        tv = grid_sum(grid_map(
             lambda d: tv_norm(d, cfg.norm, huber_delta=cfg.huber_delta),
             D_img))
         if cfg.norm == "aniso":
@@ -282,7 +272,7 @@ def sharded_cp_step(mesh: Mesh, cfg: TVConfig, global_shape, *, reg, sigma_D,
             return torch.clamp_min(xs, 0.0) if nonneg else xs
 
         x = grid_map(primal, x, y_A, dty)
-        loss = _grid_sum(grid_map(
+        loss = grid_sum(grid_map(
             lambda xs, x0, d: fidelity_loss(xs, x0, fidelity, fidelity_weight)
             + reg * tv_norm(d, cfg.norm, huber_delta=cfg.huber_delta),
             x, x_noisy, D_x))

@@ -528,6 +528,129 @@ def _inverse_run_fused(A, A_T, b, carry, fw, *, sigma, tau, dual_dtype,
     return final, losses
 
 
+def cp_inverse_grid(pair_of, b, vol_shape, *, n_iter: int = 100,
+                    reg: float = 1.0, cfg: TVConfig = TVConfig(),
+                    op_norm: Optional[float] = None, x_init=None,
+                    fidelity: str = "l2", fidelity_weight: float = 1.0,
+                    nonneg: bool = False, loss_every: int = 1,
+                    seed: int = 0) -> InverseResult:
+    """:func:`cp_inverse`'s plain loop on a grid of shards
+    (``parallel.mesh``): ``b[iz][it]`` is a shard of the data and
+    ``pair_of(it)`` the ``(A, A_T)`` that maps a volume shard of column
+    ``it`` to it and back, with no exchange (a projector that batches over
+    z and t).  The TV half runs on ``parallel.halo``'s exchanged ``D`` /
+    ``D_T``, the loss and the norms are sums over shards in (iz, it) order.
+    ``op_norm=None`` estimates ``||A||`` by the power method on the grid,
+    from the unsharded estimate's start vector.  ``x_init`` is a whole
+    volume or a grid.  Returns ``x`` and every state field as grids."""
+    from ..parallel.halo import sharded_D, sharded_D_T
+    from ..parallel.mesh import (
+        Mesh,
+        Sharding,
+        first_shard,
+        grid_map,
+        grid_process,
+        grid_size,
+        grid_sum,
+        shard,
+        volume_spec,
+    )
+
+    vol_shape = tuple(int(n) for n in vol_shape)
+    if np.ndim(fidelity_weight) != 0:
+        raise ValueError("a sharded solve takes a scalar fidelity_weight")
+    if loss_every < 1 or n_iter % loss_every:
+        raise ValueError(
+            f"loss_every must be a positive divisor of n_iter, got "
+            f"loss_every={loss_every} with n_iter={n_iter}"
+        )
+    for row in b:
+        for part in row or ():
+            validate_fidelity(fidelity, part, fidelity_weight)
+    first = first_shard(b)
+    dtype, device = first.dtype, first.device
+    nz, nt = len(b), grid_size(b, 1)
+    mesh = Mesh(nz, nt, device, *grid_process(b))
+    D_g = sharded_D(mesh, cfg, vol_shape)
+    D_T_g = sharded_D_T(mesh, cfg, vol_shape)
+    binds = [_bind_operator(*pair_of(it), (vol_shape[0] // nz,
+                                           vol_shape[1] // nt)
+                            + vol_shape[2:], dtype) for it in range(nt)]
+
+    def per_shard(i, fn, *grids):
+        """``fn`` over the grids' shards, with the pair of each column."""
+        return [None if rows[0] is None else
+                [fn(binds[it][i], *cells) for it, cells in
+                 enumerate(zip(*rows))] for rows in zip(*grids)]
+
+    def A(x):
+        return per_shard(0, lambda f, xs: f(xs), x)
+
+    def A_T(y):
+        return per_shard(1, lambda f, ys: f(ys), y)
+
+    def place(a):
+        if isinstance(a, list):
+            return a
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.asarray(a))
+        return shard(a.to(dtype), Sharding(mesh, volume_spec()))
+
+    def norm2(grid):
+        return torch.sqrt(grid_sum(grid_map(
+            lambda a: torch.sum(torch.square(a)), grid)))
+
+    if op_norm is None:
+        v = place(np.random.default_rng(seed).standard_normal(vol_shape))
+        n0 = norm2(v)
+        v = grid_map(lambda a: a / n0, v)
+        n = None
+        for _ in range(12):
+            y = A_T(A(v))
+            n = norm2(y)
+            v = grid_map(lambda a, n=n: a / torch.clamp_min(n, 1e-30), y)
+        op_norm = float(torch.sqrt(n))
+    L_sq = op_norm ** 2 + operator_norm_bound_sq(
+        cfg.scheme, vol_shape[0], vol_shape[1], cfg.reg_z_over_reg,
+        cfg.reg_time)
+    sig = tau = float(1.0 / np.sqrt(L_sq))
+    fw = torch.as_tensor(fidelity_weight, dtype=dtype, device=device)
+    Nd = num_channels(cfg.scheme, vol_shape[0], vol_shape[1],
+                      cfg.reg_z_over_reg, cfg.reg_time)
+
+    x = (place(torch.zeros(vol_shape, dtype=dtype)) if x_init is None
+         else grid_map(torch.clone, place(x_init)))
+    x_bar = x
+    sAx = sAx_bar = A(x)
+    y_A = grid_map(torch.zeros_like, b)
+    y_D = grid_map(lambda a: a.new_zeros(
+        (a.shape[0], Nd) + tuple(a.shape[1:])), x)
+    losses = torch.empty(n_iter // loss_every, dtype=dtype, device=device)
+    for i in range(n_iter):
+        y_A = grid_map(lambda ya, s, bs: fidelity_dual_prox(
+            ya, s, bs, sig, fidelity, fw), y_A, sAx_bar, b)
+        y_D = grid_map(lambda yd, d: dual_prox(
+            yd + sig * d, reg, cfg.norm, sig, cfg.huber_delta),
+            y_D, D_g(x_bar))
+
+        def primal(xs, at, dt):
+            xn = xs - tau * (at + dt)
+            return torch.clamp_min(xn, 0.0) if nonneg else xn
+
+        x_new = grid_map(primal, x, A_T(y_A), D_T_g(y_D))
+        x_bar = grid_map(lambda xn, xs: 2.0 * xn - xs, x_new, x)
+        s_new = A(x_new)
+        x, sAx_bar = x_new, grid_map(lambda sn, s: 2.0 * sn - s, s_new, sAx)
+        sAx = s_new
+        if (i + 1) % loss_every == 0:
+            losses[i // loss_every] = grid_sum(grid_map(
+                lambda sn, bs, d: fidelity_loss(sn, bs, fidelity, fw)
+                + reg * tv_norm(d, cfg.norm, huber_delta=cfg.huber_delta),
+                s_new, b, D_g(x)))
+    return InverseResult(x=x, loss=losses, state=InverseState(
+        x, x_bar, y_A, y_D, sAx, sAx_bar))
+
+
 def reg_discrepancy(
     A: Callable,
     b,

@@ -12,13 +12,22 @@ helpers).
   events after a warm-up.
 - :func:`device_time` — device ms per iteration of a loop, by kernel name,
   from ``torch.profiler``.
+- :func:`trace` — a ``torch.profiler`` context that writes a Chrome trace.
+- :func:`force_read` — one scalar host read that waits for the work.
+- :class:`IterationTimer` — iterations/s of a loop: CUDA events when its
+  output is on a CUDA device, the host clock on the CPU.
+- :func:`device_kind` — the card's name, or ``'cpu'``.
 
-The last two need a CUDA device: a CPU time is not a device metric, so
-there is no CPU fallback.
+``time_iterations`` and ``device_time`` need a CUDA device: a CPU time is
+not a device metric, so there is no CPU fallback.  ``IterationTimer`` times
+where the work ran, and its CPU numbers are host timings.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import time
 from typing import Callable
 
 import numpy as np
@@ -129,3 +138,86 @@ def device_time(run: Callable[[], object], n_iter: int, device):
         if by_kernel:
             return sum(by_kernel.values()), by_kernel
     raise RuntimeError("torch.profiler recorded no device activity")
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``with profiling.trace('/tmp/trace'): run()`` records the CPU and,
+    where there is one, the CUDA activity with ``torch.profiler`` and
+    writes ``log_dir/trace.json`` (Chrome trace format: chrome://tracing or
+    Perfetto).  Yields the profiler, whose ``key_averages()`` sums time by
+    operation and kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensor_leaves(v)
+
+
+def force_read(*trees) -> float:
+    """ONE scalar host read spanning every tensor leaf of ``trees`` (their
+    first elements, summed): the read waits for the work that wrote them,
+    on whatever device."""
+    total = None
+    for leaf in _tensor_leaves(trees):
+        part = torch.sum(leaf.reshape(-1)[:8].float())
+        total = part if total is None else total + part.to(total.device)
+    return 0.0 if total is None else float(total)
+
+
+class IterationTimer:
+    """Steady-state iterations/s of ``run_n(n) -> tensors``, which runs n
+    iterations and returns something that depends on them.
+
+    A CUDA output is timed with CUDA events around ``run_n`` (the device's
+    time from the first launch to the last); anything else with the host
+    clock around ``run_n`` and a :func:`force_read` of its output."""
+
+    def __init__(self, run_n: Callable[[int], object], warmup_iters: int = 5):
+        self.run_n = run_n
+        self.warmup_iters = warmup_iters
+
+    def measure(self, n_iter: int, repeats: int = 3) -> float:
+        out = self.run_n(self.warmup_iters)
+        force_read(out)
+        cuda = [t.device for t in _tensor_leaves(out) if t.is_cuda]
+        best = float("inf")
+        for _ in range(repeats):
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = self.run_n(n_iter)
+                end.record()
+                torch.cuda.synchronize(cuda[0])
+                force_read(out)
+                best = min(best, start.elapsed_time(end) / 1e3)
+            else:
+                t0 = time.perf_counter()
+                out = self.run_n(n_iter)
+                force_read(out)
+                best = min(best, time.perf_counter() - t0)
+        return n_iter / best
+
+
+def device_kind() -> str:
+    """The CUDA card's name (``torch.cuda.get_device_name(0)``), or
+    ``'cpu'`` where there is none."""
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_name(0)
+    return "cpu"

@@ -33,6 +33,10 @@ def test_import_leaves_jax_out():
             "pytv4d_tpu_torch.utils.profiling, "
             "pytv4d_tpu_torch.parallel.mesh, pytv4d_tpu_torch.parallel.halo, "
             "pytv4d_tpu_torch.parallel.fused_halo, "
+            "pytv4d_tpu_torch.parallel.tgv_sharded, "
+            "pytv4d_tpu_torch.parallel.multihost, "
+            "pytv4d_tpu_torch.utils.metrics, pytv4d_tpu_torch.utils.checks, "
+            "pytv4d_tpu_torch.utils.runlog, "
             "pytv4d_tpu_torch.interop, pytv4d_tpu_torch.tv_CPU, "
             "pytv4d_tpu_torch.tv_operators_CPU, pytv4d_tpu_torch.testing, "
             "pytv4d_tpu_torch.tests; print(sorted(m for m in sys.modules "
@@ -77,9 +81,10 @@ def test_root_takes_its_entry_points_from_ops_api(name):
 
 
 def test_parallel_names_match_the_jax_package():
-    """What the JAX root re-exports of mesh, halo and fused_halo, the port's
-    ``parallel`` has (the sharding-spec helpers have no counterpart: there
-    is no partitioner to hand a sharding to)."""
+    """What the JAX root re-exports of mesh, halo, fused_halo, tgv_sharded
+    and multihost, the port's ``parallel`` has (a spec is a tuple of mesh
+    axis names there, a sharding a mesh and a spec; ``internal_d_sharding``
+    has no counterpart: the port's duals shard like volumes)."""
     import pytv4d_tpu.parallel as jpar
     import pytv4d_tpu_torch
     import pytv4d_tpu_torch.parallel as tpar
@@ -88,9 +93,20 @@ def test_parallel_names_match_the_jax_package():
     for name in ("Z_AXIS", "T_AXIS", "make_mesh", "shard_volume", "sharded_D",
                  "sharded_D_T", "sharded_tv_and_subgrad", "sharded_cp_step",
                  "make_sharded_cp_solver", "make_sharded_cp_solver_fused",
-                 "make_sharded_gd_solver_fused"):
+                 "make_sharded_gd_solver_fused", "tgv_denoise_sharded",
+                 "make_sharded_tgv_stream_solver", "multihost", "tgv_sharded",
+                 "volume_spec", "d_volume_spec", "volume_sharding",
+                 "d_volume_sharding"):
         assert hasattr(jpar, name) and hasattr(tpar, name), name
     assert (tpar.Z_AXIS, tpar.T_AXIS) == (jpar.Z_AXIS, jpar.T_AXIS)
+    for shard_time in (True, False):
+        assert tpar.volume_spec(shard_time) == tuple(
+            jpar.volume_spec(shard_time))
+        assert tpar.d_volume_spec(shard_time) == tuple(
+            jpar.d_volume_spec(shard_time))
+    for name in ("cluster_configured", "initialize", "global_mesh",
+                 "host_local_to_global", "global_to_host_local"):
+        assert callable(getattr(tpar.multihost, name)), name
 
 
 def _table(mod, scheme, Nz, M, rz, rt):
