@@ -5,7 +5,8 @@
 Builds the CP kernels (B1 pass A, B5 pass A for inverse problems, B2 pass
 B, B10 pass A marching along z, B8 the sharded step's two boundary
 kernels), the TV kernels (B3 norms, B4 subgradient),
-the whole-solve CP and GD kernels (B9) and the TGV-2 kernels (B6 passes PQ
+the whole-solve CP and GD kernels (B9: on chip, and in L2 for larger
+volumes) and the TGV-2 kernels (B6 passes PQ
 and XW, B7 whole solve: on chip, and in L2 for larger slices)
 from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once; B1, B3,
 B4 and B5 on an unsharded volume and B8 are the kernels specialised per
@@ -50,10 +51,16 @@ projector, its adjoint and the kernels; and runs three iterations at
 (96, 16, 512, 512) x 96 angles for the memory it takes.  For the whole-solve
 CP / GD kernels and the z-marching pass A (phases 20-23): holds B9 (CP and
 GD) against its plain loops over four shapes, the four schemes and the three
-norms; solves the cameraman image from a numpy array with
+norms, six more shapes that reach every channel table, and solves of one and
+two iterations, with the kernel ``resident_variant`` names (on chip wherever
+the bands fit, in L2 at two larger volumes) and each on-chip state bit for
+bit against the L2 kernel's; solves the cameraman image from a numpy array with
 ``make_resident_cp_solver`` and ``make_resident_gd_solver``, each in ONE
-launch with no per-launch kernel running, against the reference losses and
-the host-loop solvers; holds B10 against its plain version and against B1,
+on-chip launch with no per-launch kernel running, against the reference
+losses and the host-loop solvers, with the L2 kernel's times and the
+synchronisation floors of ``tools/torch_probe_resident.py`` beside them;
+holds B10 against its plain version and bit for bit against B1 (over its
+nine tables and four storage pairs too),
 runs a 20-iteration (32, 8, 256, 256) CP solve on B10 + B2 against the same
 solve on B1 + B2, and times the two pass A's alone and in the step; and runs
 ``TVDenoiser.admm`` / ``.fista``, ``chambolle_pock_precond``,
@@ -227,13 +234,15 @@ README_TV = 532166.8251801673  # tv_hybrid(rand(20, 4, 100, 100)), seed 0
 # the CPU (tests/test_torch_tgv.py)
 CAMERAMAN_TGV_LOSS = 37211904.16116732
 LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
-        "resident", "cp_zstream", "cp_boundary", "specialised",
-        "specialised_tv")
+        "resident", "resident_onchip", "cp_zstream", "cp_boundary",
+        "specialised", "specialised_tv")
 # the kernels specialised per channel table, by kernel id (phase 2 reports
 # each one's registers and spills)
 SPEC_KERNELS = {"B1": "cp_dual_spec_kernel", "B4": "tv_subgrad_spec_kernel",
                 "B3": "tv_norms_spec_kernel", "B5": "tv_dual_spec_kernel",
-                "B8dual": "bnd_dual_kernel", "B8primal": "bnd_primal_kernel"}
+                "B8dual": "bnd_dual_kernel", "B8primal": "bnd_primal_kernel",
+                "B9cp": "reso_cp_kernel", "B9gd": "reso_gd_kernel",
+                "B10": "zstream_spec_kernel"}
 # each wrapper's launch counter, by kernel id
 COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
             "B3": fused.tv_norms, "B4": fused.tv_subgrad,
@@ -244,6 +253,9 @@ COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
             "B7l2": tgv_resident.solve_l2,
             "B9cp": resident.make_resident_cp_solver,
             "B9gd": resident.make_resident_gd_solver,
+            # B9's kernels: on chip, and in L2 (volumes too large for it)
+            "B9onchip": resident.solve_onchip,
+            "B9l2": resident.solve_l2,
             "B10": zstream.cp_dual_zstream,
             "B8dual": fused.cp_dual_boundary,
             "B8primal": fused.cp_primal_boundary}
@@ -390,7 +402,8 @@ def phase_build():
             f"stack frame <= {max(f[0] for f in frames)} B, spill stores / "
             f"loads <= {max(f[1] for f in frames)} / "
             f"{max(f[2] for f in frames)} B")
-        if name in (*fused.SPECIALISED, "cp_boundary"):
+        if name in (*fused.SPECIALISED, "cp_boundary", "resident_onchip",
+                    "cp_zstream"):
             log(f"[2 build] {name}: " + "; ".join(
                 _ptxas_of(compiler_log, kid, kernel)
                 for kid, kernel in SPEC_KERNELS.items()
@@ -1974,39 +1987,151 @@ def _resident_state(shape, cfg, gen):
     return x0, x, y_A, y_D
 
 
+def _b9_kwargs(solver, cfg, shape):
+    if solver == "cp":
+        return dict(reg=0.4, sigma_D=0.5, sigma_A=1.0,
+                    tau=default_tau(cfg, shape[0], shape[1]))
+    return dict(reg=0.4, step_size=1e-2)
+
+
+def _b9_kernel(variant, solver, cfg, state, n, kw):
+    """One launch of the named B9 kernel ("onchip" or "l2") on copies of
+    ``state`` (x0, x[, y_A, y_D] in the public layout), as the factories
+    launch the one resident_variant names: ``(x, y_A, y_D, losses)`` for
+    CP, ``(x, losses)`` for GD."""
+    x0, x = state[:2]
+    kernel = (resident.solve_onchip if variant == "onchip"
+              else resident.solve_l2)
+    p = resident.solver_params(solver, cfg, tuple(x0.shape), **kw)
+    if solver == "cp":
+        st = (x.clone(), state[2].clone(), fused.to_internal_layout(state[3]))
+        losses = kernel("cp", cfg, x0, p, n, st)
+        return (st[0], st[1],
+                fused.from_internal_layout(st[2]).contiguous(), losses)
+    bufs = (x.clone(), torch.empty_like(x))
+    losses = kernel("gd", cfg, x0, p, n, bufs)
+    return bufs[n % 2], losses
+
+
+def _b9_solve(solver, cfg, shape, state, n, variant=None):
+    """An n-iteration CP or GD solve of ``state``: through the factory
+    (``variant`` None: the kernel resident_variant names) or one launch of
+    the named kernel; and which kernel ran."""
+    x0, x, y_A, y_D = state
+    kw = _b9_kwargs(solver, cfg, shape)
+    before = (resident.solve_onchip.launches, resident.solve_l2.launches)
+    if variant is not None:
+        out = _b9_kernel(variant, solver, cfg, state, n, kw)
+    elif solver == "cp":
+        out = resident.make_resident_cp_solver(
+            cfg, shape, n, "float32", **kw)(x0, x, y_A, y_D)
+    else:
+        out = resident.make_resident_gd_solver(
+            cfg, shape, n, "float32", **kw)(x0, x)
+    ran = {(1, 0): "onchip", (0, 1): "l2"}.get(
+        (resident.solve_onchip.launches - before[0],
+         resident.solve_l2.launches - before[1]))
+    return out, ran
+
+
+def _b9_plain(solver, cfg, shape, state, n):
+    x0, x, y_A, y_D = state
+    kw = _b9_kwargs(solver, cfg, shape)
+    if solver == "cp":
+        return resident.resident_cp_plain(x0, x, y_A, y_D, n, cfg=cfg, **kw)
+    return resident.resident_gd_plain(x0, x, n, cfg=cfg, **kw)
+
+
+def _b9_case(solver, cfg, shape, state, errs, sms, n=20):
+    """The solve with the kernel resident_variant names -- which must be
+    the one that ran -- against its plain loop; where that is the on-chip
+    kernel, also with the L2 kernel, which must give the same state bit for
+    bit and the losses to 1e-6.  Returns the variant."""
+    want = resident.resident_variant(shape, cfg, solver, sms)
+    out, ran = _b9_solve(solver, cfg, shape, state, n)
+    require(ran == want, f"B9{solver} {shape} {cfg}: resident_variant names "
+                         f"{want}, the launch ran {ran}")
+    runs = {want: out}
+    if want == "onchip":
+        runs["l2"], ran = _b9_solve(solver, cfg, shape, state, n, "l2")
+        require(ran == "l2", "solve_l2 launches the L2 kernel")
+        require(all(_bits_equal(a, b) for a, b in zip(
+            runs["onchip"][:-1], runs["l2"][:-1])),
+            f"B9{solver} {shape} {cfg} n_iter={n}: the on-chip state equals "
+            f"the L2 kernel's bit for bit")
+        rel = float(((runs["onchip"][-1] - runs["l2"][-1]).abs()
+                     / runs["l2"][-1].abs()).max())
+        require(rel <= 1e-6, f"B9{solver} {shape}: on-chip losses within "
+                             f"1e-6 of the L2 kernel's, got {rel:.3g}")
+    ref = _b9_plain(solver, cfg, shape, state, n)
+    for variant, got in runs.items():
+        key = f"B9{solver}" + ("l2" if variant == "l2" else "")
+        for g, r in zip(got[:-1], ref[:-1]):
+            errs[key] = max(errs[key], _compare(g, r, False, 0.0,
+                                                RESIDENT_TOL))
+        rel = float(((got[-1] - ref[-1]).abs() / ref[-1].abs()).max())
+        require(rel <= 1e-5, f"{key} {shape} {cfg}: losses rel err "
+                             f"{rel:.3g}")
+    return want
+
+
+# volumes whose bands do not fit the chip's shared memory: CP takes the L2
+# kernel at both, GD at the second (resident_variant)
+RESIDENT_L2_SHAPES = ((8, 4, 128, 128), (16, 4, 64, 128))
+# with RESIDENT_SHAPES under the four schemes, these reach every channel
+# table the on-chip kernels instantiate (the 21 of csrc/tables.cuh): t
+# alone (Nz = 1, M = 2 and 3), z and t with M = 3, and Nz = 2
+RESIDENT_TABLE_SHAPES = ((1, 3, 64, 64), (1, 2, 64, 64), (3, 3, 32, 64),
+                         (2, 1, 32, 64), (2, 2, 32, 64), (2, 3, 32, 64))
+
+
 def phase_resident_kernels():
-    errs = {"B9cp": 0.0, "B9gd": 0.0}
-    n = 0
+    errs = dict.fromkeys(("B9cp", "B9gd", "B9cpl2", "B9gdl2"), 0.0)
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    n, chosen, met = 0, {}, {"cp": set(), "gd": set()}
+    zero_counters()
+
+    def case(shape, cfg, n_iter=20, seed=5):
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        state = _resident_state(shape, cfg, gen)
+        for solver in ("cp", "gd"):
+            v = _b9_case(solver, cfg, shape, state, errs, sms, n_iter)
+            chosen[v] = chosen.get(v, 0) + 1
+            if v == "onchip":
+                met[solver].add(tables.table_id(cfg, shape[0], shape[1]))
+
     for shape in RESIDENT_SHAPES:
         for scheme in SCHEMES:
             for norm in ("iso", "aniso", "huber"):
-                cfg = TVConfig(scheme=scheme, reg_time=0.5, norm=norm,
-                               huber_delta=0.3)
-                gen = torch.Generator(device=DEV).manual_seed(5)
-                x0, x, y_A, y_D = _resident_state(shape, cfg, gen)
-                kw = dict(reg=0.4, sigma_D=0.5, sigma_A=1.0,
-                          tau=default_tau(cfg, shape[0], shape[1]))
-                got = resident.make_resident_cp_solver(
-                    cfg, shape, 20, "float32", **kw)(x0, x, y_A, y_D)
-                ref = resident.resident_cp_plain(x0, x, y_A, y_D, 20, cfg=cfg,
-                                                 **kw)
-                for g, r in zip(got[:3], ref[:3]):
-                    errs["B9cp"] = max(errs["B9cp"], _compare(
-                        g, r, False, 0.0, RESIDENT_TOL))
-                rel = float(((got[3] - ref[3]).abs() / ref[3].abs()).max())
-                require(rel <= 1e-5, f"B9cp {scheme}-{norm} {shape}: losses "
-                                     f"rel err {rel:.3g}")
-                gkw = dict(reg=0.4, step_size=1e-2)
-                gx, gl = resident.make_resident_gd_solver(
-                    cfg, shape, 20, "float32", **gkw)(x0, x)
-                rx, rl = resident.resident_gd_plain(x0, x, 20, cfg=cfg, **gkw)
-                errs["B9gd"] = max(errs["B9gd"], _compare(
-                    gx, rx, False, 0.0, RESIDENT_TOL))
-                rel = float(((gl - rl).abs() / rl.abs()).max())
-                require(rel <= 1e-5, f"B9gd {scheme}-{norm} {shape}: losses "
-                                     f"rel err {rel:.3g}")
+                case(shape, TVConfig(scheme=scheme, reg_time=0.5, norm=norm,
+                                     huber_delta=0.3))
                 n += 1
+    for shape in RESIDENT_TABLE_SHAPES:
+        for scheme in SCHEMES:
+            case(shape, TVConfig(scheme=scheme, reg_time=0.5))
+            n += 1
+    # one and two iterations: the first halo is the only exchange a
+    # one-iteration solve makes, and under upwind and downwind a block never
+    # waits for one of its neighbours
+    for shape in (CAMERAMAN, (4, 2, 64, 64)):
+        for scheme in SCHEMES:
+            for n_iter in (1, 2):
+                case(shape, TVConfig(scheme=scheme, reg_time=0.5), n_iter, 7)
+                n += 1
+    require(met["cp"] == met["gd"] == set(range(len(tables.TABLES))),
+            f"phase 20 holds the on-chip kernel of every table against the "
+            f"L2 kernel: CP met {sorted(met['cp'])}, GD {sorted(met['gd'])}")
     cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    at_l2 = {}
+    for shape in RESIDENT_L2_SHAPES:
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        state = _resident_state(shape, cfg, gen)
+        at_l2[shape] = tuple(_b9_case(s, cfg, shape, state, errs, sms)
+                             for s in ("cp", "gd"))
+    require(at_l2 == {(8, 4, 128, 128): ("l2", "onchip"),
+                      (16, 4, 64, 128): ("l2", "l2")},
+            f"the L2 kernels serve the volumes the chip cannot hold: {at_l2}")
+    launches = read_counters()
     for make in (resident.make_resident_cp_solver,
                  resident.make_resident_gd_solver):
         require(not resident.resident_fits(NORTH_STAR, cfg),
@@ -2018,9 +2143,17 @@ def phase_resident_kernels():
         else:
             require(False, "a volume outside resident_fits raises")
     log(f"[20 B9 vs plain] {n} cases x (CP, GD), 20 iterations at "
-        f"{RESIDENT_SHAPES}, {resident.THREADS}-thread blocks: pass; max abs "
-        f"err CP state {errs['B9cp']:.3g}, GD x {errs['B9gd']:.3g}; a volume "
-        f"outside resident_fits raises")
+        f"{RESIDENT_SHAPES} (every scheme and norm) and "
+        f"{RESIDENT_TABLE_SHAPES} (every scheme), 1 and 2 at {CAMERAMAN} and "
+        f"(4, 2, 64, 64) ({sms} SMs): the kernel resident_variant names "
+        f"ran in every case ({chosen}); each on-chip state equal to the L2 "
+        f"kernel's bit for bit, losses within 1e-6, over all "
+        f"{len(met['cp'])} channel tables; at {RESIDENT_L2_SHAPES} "
+        f"CP / GD took {list(at_l2.values())}; launches on chip "
+        f"{launches['B9onchip']}, in L2 {launches['B9l2']}; max abs err vs "
+        f"plain: on chip CP state {errs['B9cp']:.3g}, GD x "
+        f"{errs['B9gd']:.3g}, L2 {errs['B9cpl2']:.3g} / {errs['B9gdl2']:.3g}; "
+        f"a volume outside resident_fits raises")
     sync()
     return errs
 
@@ -2047,12 +2180,14 @@ def phase_resident_main_path(card):
     x, y_A, y_D, losses = cp_solve(noisy, noisy, zeros, y_D0)  # numpy in
     sync()
     cp_launches = read_counters()
-    require_launches(cp_launches, "make_resident_cp_solver", B9cp=1)
+    require_launches(cp_launches, "make_resident_cp_solver", B9cp=1,
+                     B9onchip=1)
     zero_counters()
     gx, glosses = gd_solve(noisy, noisy)
     sync()
     gd_launches = read_counters()
-    require_launches(gd_launches, "make_resident_gd_solver", B9gd=1)
+    require_launches(gd_launches, "make_resident_gd_solver", B9gd=1,
+                     B9onchip=1)
     for t, shape in ((x, CAMERAMAN), (y_D, (1, Nd, 1, 256, 256)),
                      (gx, CAMERAMAN), (losses, (300,)), (glosses, (300,))):
         require(t.is_cuda and tuple(t.shape) == shape
@@ -2087,10 +2222,26 @@ def phase_resident_main_path(card):
         f"vs the host loops: loss trajectories {traj_cp:.3g} / {traj_gd:.3g}, "
         f"max abs err of x {err_x:.3g} / {err_gx:.3g}")
 
-    # times: one 300-iteration solve each way (CUDA events, best of 3)
+    # times: one 300-iteration solve each way (CUDA events, best of 3), the
+    # kernel resident_variant names (on chip) and the L2 kernel in turns
     st = [x0, x0, torch.zeros_like(x0), torch.as_tensor(y_D0, device=DEV)]
-    b9cp = _best_ms(lambda: cp_solve(*st))
-    b9gd = _best_ms(lambda: gd_solve(x0, x0))
+    cp_kw = dict(reg=25.0, sigma_D=0.5, sigma_A=1.0, tau=tau)
+    gd_kw = dict(reg=25.0, step_size=5e-3)
+
+    def cp_l2(*state):
+        return _b9_kernel("l2", "cp", cfg, state, 300, cp_kw)
+
+    def gd_l2(*state):
+        return _b9_kernel("l2", "gd", cfg, state, 300, gd_kw)
+
+    turns = {"cp": [], "gd": [], "cp_l2": [], "gd_l2": []}
+    for _ in range(2):
+        turns["cp"].append(_best_ms(lambda: cp_solve(*st)))
+        turns["cp_l2"].append(_best_ms(lambda: cp_l2(*st)))
+        turns["gd"].append(_best_ms(lambda: gd_solve(x0, x0)))
+        turns["gd_l2"].append(_best_ms(lambda: gd_l2(x0, x0)))
+    b9cp, b9gd, b9cp_l2, b9gd_l2 = (min(turns[k]) for k in (
+        "cp", "gd", "cp_l2", "gd_l2"))
     loop_cp = _best_ms(lambda: chambolle_pock(x0, n_iter=300, reg=25.0,
                                               cfg=cfg))
     loop_gd = _best_ms(lambda: subgradient_descent(
@@ -2101,10 +2252,27 @@ def phase_resident_main_path(card):
     plain_gd = _best_ms(lambda: resident.resident_gd_plain(
         x0, x0, 300, cfg=cfg, reg=25.0, step_size=5e-3), repeats=1)
     log(f"[21 B9 at cameraman] 300 iterations, ms per iteration: CP B9 "
-        f"{b9cp / 300:.5f} (one launch, {b9cp:.3f} ms), host loop over B1 + "
-        f"B2 {loop_cp / 300:.5f}, plain loop {plain_cp / 300:.4f}; GD B9 "
-        f"{b9gd / 300:.5f} ({b9gd:.3f} ms), host loop over B3 + B4 "
-        f"{loop_gd / 300:.5f}, plain loop {plain_gd / 300:.4f}; card {card}")
+        f"on chip {b9cp / 300:.5f} (one launch, {b9cp:.3f} ms), in L2 "
+        f"{b9cp_l2 / 300:.5f} ({b9cp_l2:.3f} ms), host loop over B1 + B2 "
+        f"{loop_cp / 300:.5f}, plain loop {plain_cp / 300:.4f}; GD B9 on "
+        f"chip {b9gd / 300:.5f} ({b9gd:.3f} ms), in L2 {b9gd_l2 / 300:.5f} "
+        f"({b9gd_l2:.3f} ms), host loop over B3 + B4 {loop_gd / 300:.5f}, "
+        f"plain loop {plain_gd / 300:.4f}; card {card}")
+    # the floors the probe measures (tools/torch_probe_resident.py): the L2
+    # kernel with its passes emptied, and the on-chip exchange alone at the
+    # on-chip launch's blocks and edge rows
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_probe_resident as probe
+
+    fl_cp, fl_gd, fl_blocks, fl_threads = probe.empty_pass_floor(CAMERAMAN,
+                                                                cfg)
+    blocks, R, _ = resident.onchip_band(CAMERAMAN, cfg)
+    exch = probe.exchange_floors(probe.sync_library(), blocks, 256)
+    log(f"[21 B9 floors at cameraman] the L2 kernel's barriers and block "
+        f"sums alone ({fl_blocks} x {fl_threads}): CP {fl_cp:.5f}, GD "
+        f"{fl_gd:.5f} ms/it; the on-chip exchange alone ({blocks} bands of "
+        f"{R} rows): " + ", ".join(f"{k} {v:.5f}" for k, v in exch.items())
+        + " ms/it")
     # the coupled case: z and t channels, 8 channels
     cfg4 = TVConfig(scheme="hybrid", reg_time=0.5)
     shape4 = (4, 2, 64, 64)
@@ -2116,11 +2284,29 @@ def phase_resident_main_path(card):
         tau=default_tau(cfg4, 4, 2))
     st4 = [v0, v0, torch.zeros_like(v0),
            torch.zeros((4, Nd4, 2, 64, 64), device=DEV)]
-    b9_4 = _best_ms(lambda: solve4(*st4))
+    gsolve4 = resident.make_resident_gd_solver(
+        cfg4, shape4, 300, "float32", reg=25.0, step_size=5e-3)
+    cp_kw4 = dict(cp_kw, tau=default_tau(cfg4, 4, 2))
+
+    def l2_4(*state):
+        return _b9_kernel("l2", "cp", cfg4, state, 300, cp_kw4)
+
+    def gl2_4(*state):
+        return _b9_kernel("l2", "gd", cfg4, state, 300, gd_kw)
+
+    require(resident.resident_variant(shape4, cfg4) == "onchip"
+            and resident.resident_variant(shape4, cfg4, "gd") == "onchip",
+            "the coupled case takes the on-chip kernels")
+    b9_4 = min(_best_ms(lambda: solve4(*st4)) for _ in range(2))
+    b9l2_4 = min(_best_ms(lambda: l2_4(*st4)) for _ in range(2))
+    g9_4 = min(_best_ms(lambda: gsolve4(v0, v0)) for _ in range(2))
+    g9l2_4 = min(_best_ms(lambda: gl2_4(v0, v0)) for _ in range(2))
     loop_4 = _best_ms(lambda: chambolle_pock(v0, n_iter=300, reg=25.0,
                                              cfg=cfg4))
-    log(f"[21 B9 coupled {shape4} hybrid reg_time=0.5, Nd={Nd4}] CP B9 "
-        f"{b9_4 / 300:.5f} ms/it, host loop over B1 + B2 {loop_4 / 300:.5f}")
+    log(f"[21 B9 coupled {shape4} hybrid reg_time=0.5, Nd={Nd4}] ms/it: CP "
+        f"B9 on chip {b9_4 / 300:.5f}, in L2 {b9l2_4 / 300:.5f}, host loop "
+        f"over B1 + B2 {loop_4 / 300:.5f}; GD B9 on chip {g9_4 / 300:.5f}, "
+        f"in L2 {g9l2_4 / 300:.5f}")
 
     vox = 256 * 256
     bounds = {
@@ -2131,9 +2317,13 @@ def phase_resident_main_path(card):
                       300 * ((10 * Nd + 10) + (4 * Nd + 8)) * vox),
         "B9gd": bound(3 * 4 * vox,
                       300 * ((4 * Nd + 4) + (10 * Nd + 2) + 6) * vox)}
+    bounds["B9cpl2"], bounds["B9gdl2"] = bounds["B9cp"], bounds["B9gd"]
     sync()
-    return ({"B9cp": cp_launches["B9cp"], "B9gd": gd_launches["B9gd"]},
-            {"B9cp": (b9cp, plain_cp), "B9gd": (b9gd, plain_gd)}, bounds)
+    return ({"B9cp": cp_launches["B9onchip"], "B9gd": gd_launches["B9onchip"],
+             "B9cpl2": cp_launches["B9l2"], "B9gdl2": gd_launches["B9l2"]},
+            {"B9cp": (b9cp, plain_cp), "B9gd": (b9gd, plain_gd),
+             "B9cpl2": (b9cp_l2, plain_cp), "B9gdl2": (b9gd_l2, plain_gd)},
+            bounds)
 
 
 # ---------------------------------------------------------------- phase 22
@@ -2181,10 +2371,9 @@ def phase_zstream(card):
         kind = "bf16" if bf16 else "f32"
         for g, r in zip(z, pl):  # against the plain version
             errs[kind] = max(errs[kind], _compare(g, r, bf16, 0.0))
-        for g, r in zip(z, b1):  # against B1: the same function
-            err = float((g.float() - r.float()).abs().max())
-            require(err <= ZSTREAM_ATOL, f"B10 vs B1 {shape} {storage}: "
-                                         f"{err:.3g} <= {ZSTREAM_ATOL}")
+        for g, r in zip(z, b1):  # against B1: the same body, bit for bit
+            require(_bits_equal(g, r), f"B10 vs B1 {shape} {storage}: "
+                                       f"y_A', y_D' bit for bit")
         s_z, s_1, s_p = (float(t.sum()) for t in (tv_z, tv_1, tv_p))
         require(abs(s_z - s_1) <= 2e-6 * abs(s_1)
                 and abs(s_z - s_p) <= (1e-4 if bf16 else 1e-5) * abs(s_p),
@@ -2195,10 +2384,48 @@ def phase_zstream(card):
                                 **pk)
         x1, _ = fused.cp_primal(x, x0, b1[0], b1[1], out=torch.empty_like(x),
                                 **pk)
-        err = float((xz.float() - x1.float()).abs().max())
-        require(err <= ZSTREAM_ATOL, f"B10 + B2 vs B1 + B2 {shape}: {err:.3g}")
+        require(_bits_equal(xz, x1), f"B10 + B2 vs B1 + B2 {shape}: x' "
+                                     f"bit for bit")
         n += 1
         del x, x0, y_A, y_D, z, b1, pl, xz, x1
+    # every table the kernel instantiates in every storage pair, at a
+    # width whose runs and tile copies go element by element (odd), at one
+    # that takes 16-byte copies, and at a plane too wide for the ring
+    pairs = {"f32": (torch.float32, torch.float32),
+             "f32+bf16dual": (torch.float32, torch.bfloat16),
+             "bf16+f32dual": (torch.bfloat16, torch.float32),
+             "bf16+bf16dual": (torch.bfloat16, torch.bfloat16)}
+    met, n_tab = set(), 0
+    for scheme in SCHEMES:
+        for M, kw in ((1, {}), (2, dict(reg_time=0.5)),
+                      (3, dict(reg_time=0.5))):
+            cfg = TVConfig(scheme=scheme, **kw)
+            tid = tables.zstream_table_id(cfg, 4, M)
+            if tid in met:
+                continue
+            met.add(tid)
+            shapes = [(4, M, 16, 128), (5, M, 17, 71)]
+            if tid == tables.table_id(TVConfig(scheme="hybrid"), 3, 1):
+                shapes.append((3, 1, 8, 1000))  # no ring: rows > 768 wide
+            for shape in shapes:
+                for tag, storage in pairs.items():
+                    gen = torch.Generator(device=DEV).manual_seed(13)
+                    x, x0, y_A, y_D = _state(shape, cfg, storage, gen, "l2")
+                    kw2 = dict(cfg=cfg, sigma_D=0.5, sigma_A=1.0, reg=0.3)
+                    z = [y_A.clone(), y_D.clone()]
+                    b1 = [y_A.clone(), y_D.clone()]
+                    _, _, tv_z = zstream.cp_dual_zstream(x, x0, *z, **kw2)
+                    _, _, tv_1 = fused.cp_dual(x, x0, *b1, **kw2)
+                    require(all(_bits_equal(g, r) for g, r in zip(z, b1)),
+                            f"B10 vs B1 table {tid} {shape} {tag}: y_A', "
+                            f"y_D' bit for bit")
+                    s_z, s_1 = float(tv_z.sum()), float(tv_1.sum())
+                    require(abs(s_z - s_1) <= 2e-6 * abs(s_1),
+                            f"B10 TV sum table {tid} {shape} {tag}: {s_z} "
+                            f"vs B1 {s_1}")
+                    n_tab += 1
+    require(met == set(tables.ZSTREAM_TABLES),
+            f"phase 22 meets every table of csrc/cp_zstream.cu: {met}")
     for shape, cfg in (((2, 2, 16, 128), TVConfig(scheme="hybrid")),
                        ((4, 2, 16, 128), TVConfig(scheme="hybrid",
                                                   reg_z_over_reg=0.0))):
@@ -2213,8 +2440,10 @@ def phase_zstream(card):
             require(False, f"zstream guard at {shape}")
     log(f"[22 B10 vs plain and B1] {n} cases up to {MAIN_4D} and {CT_SHAPE}: "
         f"pass; max abs err vs plain f32 {errs['f32']:.3g} bf16 "
-        f"{errs['bf16']:.3g}; y_A', y_D' and x' after B2 within "
-        f"{ZSTREAM_ATOL} of B1's, TV sums within 2e-6; both guards raise")
+        f"{errs['bf16']:.3g}; y_A', y_D' and x' after B2 equal to B1's bit "
+        f"for bit, TV sums within 2e-6; the same over the {len(met)} tables "
+        f"x {len(pairs)} storage pairs at three widths ({n_tab} cases); "
+        f"both guards raise")
 
     # this kernel's path: a CP solve whose pass A is B10, from a numpy
     # volume, against the solver (pass A = B1)
@@ -3972,15 +4201,25 @@ def main():
               "global memory: slices too large for the chip)",
               "tgv_resident.cu", "tgv_resident.py:58", tgv_launches["B7l2"],
               tgv_errs["B7l2"]["f32"], tgv_ms["B7l2"]),
-        entry("B9cp", "resident_cp_kernel (CP whole solve)", "resident.cu",
+        entry("B9cp", "reso_cp_kernel (CP whole solve, each band's state "
+              "in shared memory, per channel table)", "resident_onchip.cu",
               "resident.py:50", res_launches["B9cp"], res_errs["B9cp"],
               res_ms["B9cp"]),
-        entry("B9gd", "resident_gd_kernel (GD whole solve)", "resident.cu",
+        entry("B9gd", "reso_gd_kernel (GD whole solve, each band's state "
+              "in shared memory, per channel table)", "resident_onchip.cu",
               "resident.py:109", res_launches["B9gd"], res_errs["B9gd"],
               res_ms["B9gd"]),
-        entry("B10", "cp_dual_zstream_kernel (CP pass A marching along z)",
-              "cp_zstream.cu", "zstream.py:70", z_launches, z_errs["f32"],
-              z_ms, z_errs["bf16"]),
+        entry("B9cpl2", "resident_cp_kernel (CP whole solve, the state in "
+              "global memory: volumes too large for the chip)",
+              "resident.cu", "resident.py:50", res_launches["B9cpl2"],
+              res_errs["B9cpl2"], res_ms["B9cpl2"]),
+        entry("B9gdl2", "resident_gd_kernel (GD whole solve, the state in "
+              "global memory: volumes too large for the chip)",
+              "resident.cu", "resident.py:109", res_launches["B9gdl2"],
+              res_errs["B9gdl2"], res_ms["B9gdl2"]),
+        entry("B10", "zstream_spec_kernel (CP pass A marching along z, "
+              "per channel table)", "cp_zstream.cu", "zstream.py:70",
+              z_launches, z_errs["f32"], z_ms, z_errs["bf16"]),
         entry("B8dual", "bnd_dual_kernel (CP pass A, a shard's z-edge "
               "planes, per channel table)", "cp_boundary.cu", "fused.py:1093",
               sh_launches["B8dual"], halo_errs["B8dual"]["f32"],

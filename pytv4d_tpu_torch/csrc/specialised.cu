@@ -63,63 +63,8 @@ cp_dual_spec_kernel(const Params p, const TX* __restrict__ x,
 }
 
 // ------------------------------------------------------- pass 2 (B4)
-// chan_y from the slot's difference dv and divisor n.
-__device__ __forceinline__ float spec_y(const Params& p, bool t_axis, int i,
-                                        float dv, float n, float tm) {
-  if (t_axis) dv = dv * tm;
-  dv = dv * p.w[i];
-  if (p.norm == N_ANISO) return dv > 0.f ? 1.f : (dv < 0.f ? -1.f : 0.f);
-  return dv / (p.norm == N_HUBER ? fmaxf(n, p.huber_delta) : n);
-}
-
-// tv_subgrad_voxel at one voxel, from what the kernel gathered around it:
-// per axis its position and length, x at slots -2..2 (xc at 0) and the
-// norms at -1 and +1 (nc at 0); zeros where a channel's gates never read.
-template <Table T>
-__device__ __forceinline__ float subgrad_at(
-    const Params& p, const int (&pos)[4], const int (&len)[4], float xc,
-    float nc, const float (&xm2)[4], const float (&xm1)[4],
-    const float (&xp1)[4], const float (&xp2)[4], const float (&nm1)[4],
-    const float (&np1)[4], float tm) {
-  // each axis's differences, once: x[q] - x[q-s] is FWD's at slot q-s and
-  // BWD's at q, x[q+s] - x[q] FWD's at q and BWD's at q+s; CTR's at q-s and
-  // q+s are x[q] - x[q-2s] and x[q+2s] - x[q]
-  float dm[4], dp[4], dm2[4], dp2[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    dm[a] = xc - xm1[a];
-    dp[a] = xp1[a] - xc;
-    dm2[a] = xc - xm2[a];
-    dp2[a] = xp2[a] - xc;
-  }
-  const bool iso = p.norm == N_ISO;
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < tab_nd(T); ++i) {
-    const int a = tab_axis(T, i), kd = tab_kind(T, i);
-    const bool ta = a == AX_T;
-    const int ps = pos[a], ln = len[a];
-    float lo, hi;
-    if (kd == K_FWD) {         // slots [0, L-2]
-      lo = ps >= 1 ? spec_y(p, ta, i, dm[a], nm1[a], tm) : 0.f;
-      hi = ps <= ln - 2 ? spec_y(p, ta, i, dp[a], nc, tm) : 0.f;
-    } else if (kd == K_BWD) {  // slots [1, L-1]
-      lo = ps >= 1 ? spec_y(p, ta, i, dm[a], nc, tm) : 0.f;
-      hi = ps <= ln - 2 ? spec_y(p, ta, i, dp[a], np1[a], tm) : 0.f;
-    } else {                   // slots [1, L-2]
-      lo = ps >= 2 ? spec_y(p, ta, i, dm2[a], nm1[a], tm) : 0.f;
-      hi = ps <= ln - 3 ? spec_y(p, ta, i, dp2[a], np1[a], tm) : 0.f;
-    }
-    float w = lo - hi;
-    if (!iso) {  // aniso / huber re-apply the full weight, like D^T
-      w = w * p.w[i];
-      if (ta) w = w * tm;
-    }
-    acc += w;
-  }
-  // iso: the y values carry one normalisation inside w, this is the second
-  return iso ? acc * p.scheme_norm : acc;
-}
+// spec_y and subgrad_at (tv_subgrad_voxel at one voxel) are in
+// specialised.cuh.
 
 // The block's tile of plane zt (blockIdx.y) is TILE_C columns by TILE_R =
 // TILE_T x RPT rows; the tiles of a plane run along blockIdx.x, row-major.

@@ -184,6 +184,105 @@ __device__ __forceinline__ float spec_norm(const Params& p,
   return n;
 }
 
+// tv_dual_prox at one voxel from its channels d: y = prox(y + sigma_D d) in
+// place (aniso: the [-reg, reg] box; iso: the reg ball; huber: shrink, then
+// the ball), and the voxel's TV term of D x returned.
+template <Table T>
+__device__ __forceinline__ float spec_dual_prox(const Params& p,
+                                                const float (&d)[tab_nd(T)],
+                                                float (&y)[tab_nd(T)]) {
+  constexpr int ND = tab_nd(T);
+  float pj = 0.f;
+  if (p.norm == N_ANISO) {
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      pj += fabsf(d[i]);
+      const float pv = y[i] + p.sigma_D * d[i];
+      y[i] = fminf(fmaxf(pv, -p.reg), p.reg);
+    }
+    return pj;
+  }
+  float nsq = 0.f;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) nsq += d[i] * d[i];
+  const float nn = sqrtf(nsq);
+  if (p.norm == N_HUBER)
+    pj = nn <= p.huber_delta ? (nn * nn) / (2.f * p.huber_delta)
+                             : nn - p.huber_delta / 2.f;
+  else
+    pj = nn;
+  float psq = 0.f;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    float pv = y[i] + p.sigma_D * d[i];
+    if (p.norm == N_HUBER) pv = pv / p.huber_den;
+    psq += pv * pv;
+    y[i] = pv;
+  }
+  const float den = fmaxf(sqrtf(psq) / p.reg, 1.f);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) y[i] = y[i] / den;
+  return pj;
+}
+
+// chan_y from the slot's difference dv and divisor n.
+__device__ __forceinline__ float spec_y(const Params& p, bool t_axis, int i,
+                                        float dv, float n, float tm) {
+  if (t_axis) dv = dv * tm;
+  dv = dv * p.w[i];
+  if (p.norm == N_ANISO) return dv > 0.f ? 1.f : (dv < 0.f ? -1.f : 0.f);
+  return dv / (p.norm == N_HUBER ? fmaxf(n, p.huber_delta) : n);
+}
+
+// tv_subgrad_voxel at one voxel, from what the kernel gathered around it:
+// per axis its position and length, x at slots -2..2 (xc at 0) and the
+// norms at -1 and +1 (nc at 0); zeros where a channel's gates never read.
+template <Table T>
+__device__ __forceinline__ float subgrad_at(
+    const Params& p, const int (&pos)[4], const int (&len)[4], float xc,
+    float nc, const float (&xm2)[4], const float (&xm1)[4],
+    const float (&xp1)[4], const float (&xp2)[4], const float (&nm1)[4],
+    const float (&np1)[4], float tm) {
+  // each axis's differences, once: x[q] - x[q-s] is FWD's at slot q-s and
+  // BWD's at q, x[q+s] - x[q] FWD's at q and BWD's at q+s; CTR's at q-s and
+  // q+s are x[q] - x[q-2s] and x[q+2s] - x[q]
+  float dm[4], dp[4], dm2[4], dp2[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    dm[a] = xc - xm1[a];
+    dp[a] = xp1[a] - xc;
+    dm2[a] = xc - xm2[a];
+    dp2[a] = xp2[a] - xc;
+  }
+  const bool iso = p.norm == N_ISO;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < tab_nd(T); ++i) {
+    const int a = tab_axis(T, i), kd = tab_kind(T, i);
+    const bool ta = a == AX_T;
+    const int ps = pos[a], ln = len[a];
+    float lo, hi;
+    if (kd == K_FWD) {         // slots [0, L-2]
+      lo = ps >= 1 ? spec_y(p, ta, i, dm[a], nm1[a], tm) : 0.f;
+      hi = ps <= ln - 2 ? spec_y(p, ta, i, dp[a], nc, tm) : 0.f;
+    } else if (kd == K_BWD) {  // slots [1, L-1]
+      lo = ps >= 1 ? spec_y(p, ta, i, dm[a], nc, tm) : 0.f;
+      hi = ps <= ln - 2 ? spec_y(p, ta, i, dp[a], np1[a], tm) : 0.f;
+    } else {                   // slots [1, L-2]
+      lo = ps >= 2 ? spec_y(p, ta, i, dm2[a], nm1[a], tm) : 0.f;
+      hi = ps <= ln - 3 ? spec_y(p, ta, i, dp2[a], np1[a], tm) : 0.f;
+    }
+    float w = lo - hi;
+    if (!iso) {  // aniso / huber re-apply the full weight, like D^T
+      w = w * p.w[i];
+      if (ta) w = w * tm;
+    }
+    acc += w;
+  }
+  // iso: the y values carry one normalisation inside w, this is the second
+  return iso ? acc * p.scheme_norm : acc;
+}
+
 // ------------------------------------------------------- pass A
 // Number of blocks along a plane, and of TV partials, of pass A with V
 // columns per thread: one block per BLOCK runs of V columns.
@@ -197,17 +296,104 @@ static inline long long dual_num_parts(int Nz, int M, int Nr, int Nc) {
   return dual_blocks<V>(Nr, Nc) * Nz * M;
 }
 
-// Pass A on the block's (z, t) plane: y_D' = tv_dual_prox(y_D + sigma_D D x)
-// in place, with FID also y_A' = fid_dual(y_A, x, x0) in place (B1, B8),
-// without it no x0, y_A or tmul (B5).  Thread k takes the run of V columns
-// from c0 = V (k mod cpr) of row r = k / cpr, cpr = ceil(Nc / V) runs per
-// row; a row's last run may be short (n < V) when V does not divide Nc.
-// `vec`: Nc is a multiple of V and every array is V-aligned.  The z axis is
-// the caller's: xzm and xzp are x's planes at z - 1 and z + 1 (on a shard's
-// edge plane one of them is the exchanged halo plane), zpos and zlen the
-// gate they are read and differenced under (z and Nz on an unsharded
-// volume).  Returns the block's TV partial (block_sum, no atomics), valid
-// in thread 0.
+// Pass A on one run of a (z, t) plane: y_D' = tv_dual_prox(y_D + sigma_D
+// D x) in place, with FID also y_A' = fid_dual(y_A, x, x0) in place (B1,
+// B8, B10), without it no x0, y_A or tmul (B5).  Run k of the plane takes
+// the V columns from c0 = V (k mod cpr) of row r = k / cpr, cpr =
+// ceil(Nc / V) runs per row (k < Nr cpr); a row's last run may be short
+// (n < V) when V does not divide Nc.  `vec`: Nc is a multiple of V and every
+// array is V-aligned.  The x planes are the caller's, each addressed by the
+// run's offset within a plane (r Nc + c0), so that a plane may lie in
+// global or in shared memory: xz the plane (z, t) itself, read at the run,
+// one column either side and one row either side; xzm and xzp the planes at
+// z - 1 and z + 1 (on a shard's edge plane one of them is the exchanged halo
+// plane), xtm and xtp those at t - 1 and t + 1, each read at the run where a
+// channel reads it and its gate passes (zpos and zlen are the z gate: z and
+// Nz on an unsharded volume).  Returns the thread's TV partial.
+template <Table T, int V, bool FID, typename TX, typename TD>
+__device__ __forceinline__ float dual_spec_run(
+    const Params& p, int k, int z, int t, int zpos, int zlen,
+    const TX* __restrict__ xz, const TX* __restrict__ xzm,
+    const TX* __restrict__ xzp, const TX* __restrict__ xtm,
+    const TX* __restrict__ xtp, const TX* __restrict__ x0,
+    TX* __restrict__ yA, TD* __restrict__ yD, const float* __restrict__ tmul,
+    int vec) {
+  constexpr int ND = tab_nd(T);
+  const int cpr = (p.Nc + V - 1) / V;
+  const int r = k / cpr;
+  const int c0 = (k - r * cpr) * V;
+  const int n = min(V, p.Nc - c0);
+  const int64_t plane = (int64_t)p.Nr * p.Nc, base = (z * p.M + t) * plane;
+  const Offset q = (Offset)r * p.Nc + c0;
+  const TX* xq = xz + q;
+  TD* yq = yD + base * ND + q;
+
+  float xc[V];
+  load_run(xq, vec, n, xc);
+  // the runs at -1 and +1 along z, t and the rows, where a channel reads
+  // them (zeros elsewhere); along the columns, the values either side
+  const int pos[4] = {zpos, t, r, c0}, len[4] = {zlen, p.M, p.Nr, p.Nc};
+  float xm[4][V] = {}, xp[4][V] = {};
+  load_nb(xzm + q, tab_lo(T, AX_Z) && zpos > 0, vec, n, xm[AX_Z]);
+  load_nb(xzp + q, tab_hi(T, AX_Z) && zpos < zlen - 1, vec, n, xp[AX_Z]);
+  load_nb(xtm + q, tab_lo(T, AX_T) && t > 0, vec, n, xm[AX_T]);
+  load_nb(xtp + q, tab_hi(T, AX_T) && t < p.M - 1, vec, n, xp[AX_T]);
+  load_nb(xq - p.Nc, tab_lo(T, AX_ROW) && r > 0, vec, n, xm[AX_ROW]);
+  load_nb(xq + p.Nc, tab_hi(T, AX_ROW) && r < p.Nr - 1, vec, n, xp[AX_ROW]);
+  const float xl = c0 > 0 ? ld(xq, -1) : 0.f;
+  const float xr = c0 + V < p.Nc ? ld(xq, V) : 0.f;
+  float tm[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) tm[j] = 1.f;
+  if (FID && tab_has(T, AX_T) && p.has_tmul)
+    load_run(tmul + q, vec, n, tm);
+
+  // weighted_d, column by column
+  float d[V][ND];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int pj[4] = {zpos, t, r, c0 + j};
+    const float mj[4] = {xm[AX_Z][j], xm[AX_T][j], xm[AX_ROW][j],
+                         j > 0 ? xc[j - 1] : xl};
+    const float hj[4] = {xp[AX_Z][j], xp[AX_T][j], xp[AX_ROW][j],
+                         j < V - 1 ? xc[j + 1] : xr};
+    spec_d<T>(p, pj, len, xc[j], mj, hj, tm[j], d[j]);
+  }
+
+  if constexpr (FID) {  // fid_dual
+    float ya[V], xo[V];
+    load_run(yA + base + q, vec, n, ya);
+    load_run(x0 + base + q, vec, n, xo);
+#pragma unroll
+    for (int j = 0; j < V; ++j) ya[j] = fid_dual(p, ya[j], xc[j], xo[j]);
+    store_run(yA + base + q, vec, n, ya);
+  }
+
+  // tv_dual_prox, voxel by voxel
+  float y[ND][V];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) load_run(yq + i * plane, vec, n, y[i]);
+  float part = 0.f;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    float yj[ND];
+#pragma unroll
+    for (int i = 0; i < ND; ++i) yj[i] = y[i][j];
+    const float pj = spec_dual_prox<T>(p, d[j], yj);
+#pragma unroll
+    for (int i = 0; i < ND; ++i) y[i][j] = yj[i];
+    if (j < n) part += pj;
+  }
+#pragma unroll
+  for (int i = 0; i < ND; ++i) store_run(yq + i * plane, vec, n, y[i]);
+  return part;
+}
+
+// Pass A on the block's (z, t) plane of the volume x: thread k of the plane
+// (k = blockIdx.x BLOCK + threadIdx.x) takes run k (dual_spec_run), the
+// planes across t from x, those across z from the caller (xzm, xzp, gated
+// by zpos and zlen).  Returns the block's TV partial (block_sum, no
+// atomics), valid in thread 0.
 template <Table T, int V, bool FID, typename TX, typename TD>
 __device__ __forceinline__ float dual_spec_body(
     const Params& p, int z, int t, int zpos, int zlen,
@@ -215,102 +401,15 @@ __device__ __forceinline__ float dual_spec_body(
     const TX* __restrict__ xzp, const TX* __restrict__ x0,
     TX* __restrict__ yA, TD* __restrict__ yD, const float* __restrict__ tmul,
     int vec) {
-  constexpr int ND = tab_nd(T);
   const int cpr = (p.Nc + V - 1) / V;
   const int k = blockIdx.x * BLOCK + threadIdx.x;
   float part = 0.f;
   if (k < p.Nr * cpr) {
-    const int r = k / cpr;
-    const int c0 = (k - r * cpr) * V;
-    const int n = min(V, p.Nc - c0);
-    const int64_t plane = (int64_t)p.Nr * p.Nc, base = (z * p.M + t) * plane;
-    const Offset q = (Offset)r * p.Nc + c0;
-    const TX* xq = x + base + q;
-    TD* yq = yD + base * ND + q;
-
-    float xc[V];
-    load_run(xq, vec, n, xc);
-    // the runs at -1 and +1 along z, t and the rows, where a channel reads
-    // them (zeros elsewhere); along the columns, the values either side
-    const int pos[4] = {zpos, t, r, c0}, len[4] = {zlen, p.M, p.Nr, p.Nc};
-    float xm[4][V] = {}, xp[4][V] = {};
-    load_nb(xzm + q, tab_lo(T, AX_Z) && zpos > 0, vec, n, xm[AX_Z]);
-    load_nb(xzp + q, tab_hi(T, AX_Z) && zpos < zlen - 1, vec, n, xp[AX_Z]);
-#pragma unroll
-    for (int a = AX_T; a <= AX_ROW; ++a) {
-      const int64_t s = a == AX_T ? plane : p.Nc;
-      load_nb(xq - s, tab_lo(T, a) && pos[a] > 0, vec, n, xm[a]);
-      load_nb(xq + s, tab_hi(T, a) && pos[a] < len[a] - 1, vec, n, xp[a]);
-    }
-    const float xl = c0 > 0 ? ld(xq, -1) : 0.f;
-    const float xr = c0 + V < p.Nc ? ld(xq, V) : 0.f;
-    float tm[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) tm[j] = 1.f;
-    if (FID && tab_has(T, AX_T) && p.has_tmul)
-      load_run(tmul + q, vec, n, tm);
-
-    // weighted_d, column by column
-    float d[V][ND];
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const int pj[4] = {zpos, t, r, c0 + j};
-      const float mj[4] = {xm[AX_Z][j], xm[AX_T][j], xm[AX_ROW][j],
-                           j > 0 ? xc[j - 1] : xl};
-      const float hj[4] = {xp[AX_Z][j], xp[AX_T][j], xp[AX_ROW][j],
-                           j < V - 1 ? xc[j + 1] : xr};
-      spec_d<T>(p, pj, len, xc[j], mj, hj, tm[j], d[j]);
-    }
-
-    if constexpr (FID) {  // fid_dual
-      float ya[V], xo[V];
-      load_run(yA + base + q, vec, n, ya);
-      load_run(x0 + base + q, vec, n, xo);
-#pragma unroll
-      for (int j = 0; j < V; ++j) ya[j] = fid_dual(p, ya[j], xc[j], xo[j]);
-      store_run(yA + base + q, vec, n, ya);
-    }
-
-    // tv_dual_prox, voxel by voxel
-    float y[ND][V];
-#pragma unroll
-    for (int i = 0; i < ND; ++i) load_run(yq + i * plane, vec, n, y[i]);
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      float pj = 0.f;
-      if (p.norm == N_ANISO) {
-#pragma unroll
-        for (int i = 0; i < ND; ++i) {
-          pj += fabsf(d[j][i]);
-          const float pv = y[i][j] + p.sigma_D * d[j][i];
-          y[i][j] = fminf(fmaxf(pv, -p.reg), p.reg);
-        }
-      } else {
-        float nsq = 0.f;
-#pragma unroll
-        for (int i = 0; i < ND; ++i) nsq += d[j][i] * d[j][i];
-        const float nn = sqrtf(nsq);
-        if (p.norm == N_HUBER)
-          pj = nn <= p.huber_delta ? (nn * nn) / (2.f * p.huber_delta)
-                                   : nn - p.huber_delta / 2.f;
-        else
-          pj = nn;
-        float psq = 0.f;
-#pragma unroll
-        for (int i = 0; i < ND; ++i) {
-          float pv = y[i][j] + p.sigma_D * d[j][i];
-          if (p.norm == N_HUBER) pv = pv / p.huber_den;
-          psq += pv * pv;
-          y[i][j] = pv;
-        }
-        const float den = fmaxf(sqrtf(psq) / p.reg, 1.f);
-#pragma unroll
-        for (int i = 0; i < ND; ++i) y[i][j] = y[i][j] / den;
-      }
-      if (j < n) part += pj;
-    }
-#pragma unroll
-    for (int i = 0; i < ND; ++i) store_run(yq + i * plane, vec, n, y[i]);
+    const int64_t plane = (int64_t)p.Nr * p.Nc;
+    const TX* xz = x + (z * p.M + t) * plane;
+    part = dual_spec_run<T, V, FID, TX, TD>(p, k, z, t, zpos, zlen, xz, xzm,
+                                            xzp, xz - plane, xz + plane, x0,
+                                            yA, yD, tmul, vec);
   }
   return block_sum(part);
 }

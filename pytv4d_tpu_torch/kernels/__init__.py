@@ -3,9 +3,11 @@ pass A and the boundary kernels of its sharded form), the TV subgradient,
 the whole CP and GD solves and the TGV-2 step and whole solve:
 CUDA kernels (``csrc/cp_fused.cu``, ``csrc/cp_zstream.cu``,
 ``csrc/cp_boundary.cu``, ``csrc/tv_fused.cu``, ``csrc/resident.cu``,
-``csrc/tgv_stream.cu``, ``csrc/tgv_resident.cu``,
-``csrc/tgv_onchip.cu``; the boundary passes of ``csrc/cp_boundary.cu``
-and, on an unsharded volume, the CP pass A and the TV subgradient from
+``csrc/resident_onchip.cu``, ``csrc/tgv_stream.cu``,
+``csrc/tgv_resident.cu``, ``csrc/tgv_onchip.cu``; the boundary passes of
+``csrc/cp_boundary.cu``, the z-marching pass A of ``csrc/cp_zstream.cu``,
+the on-chip whole solves of ``csrc/resident_onchip.cu`` and, on an
+unsharded volume, the CP pass A and the TV subgradient from
 ``csrc/specialised.cu``, the TV norms and the pass A for inverse problems
 from ``csrc/specialised_tv.cu``, specialised per channel table,
 ``kernels.tables``) for CUDA tensors, their
@@ -49,6 +51,7 @@ from .resident import (
     resident_cp_plain,
     resident_fits,
     resident_gd_plain,
+    resident_variant,
 )
 from .tgv_resident import (
     tgv_resident_fits,

@@ -5,17 +5,30 @@ subgradient-descent TV denoising solve in one launch.  Replaces
 
 For a small problem (the reference's headline case is one 256 x 256 image)
 an iteration of the host loop costs far more in launches than in arithmetic.
-Here one launch runs every iteration (kernels ``resident_cp_kernel`` and
-``resident_gd_kernel`` in ``csrc/resident.cu``): the state lives in global
-memory, where a volume :func:`resident_fits` admits stays in the L2 cache,
-the launch's threads stride over all voxels, and a barrier that spans the
-whole launch separates the two passes of an iteration.  The volume is one
-coupled problem (z and t channels couple its slices), so the launch is one
-cooperative grid of :data:`THREADS`-thread blocks (``grid.sync()``).  The
-per-voxel
-arithmetic is the per-launch kernels' own (``csrc/voxel.cuh``), so a solve
-tracks the host loop over :func:`fused.cp_dual` / :func:`fused.cp_primal`
-(or :func:`fused.tv_norms` / :func:`fused.tv_subgrad`) to float32 round-off.
+Here one launch runs every iteration.  The volume is one coupled problem (z
+and t channels couple its slices), so every block of the launch takes part
+in every iteration.  Two kernels, chosen by the volume's shape before the
+launch (:func:`resident_variant`):
+
+- ``"onchip"`` (``reso_cp_kernel`` / ``reso_gd_kernel`` in
+  ``csrc/resident_onchip.cu``): block b owns a band of rows of every (z, t)
+  plane (:func:`onchip_band`: one block an SM, R rows a band, at least as
+  many as GD's halo), holds the band's state and the halo rows its passes
+  read in shared memory for the whole solve, and waits only for its two
+  neighbour bands between the passes: the edge rows travel through L2 as
+  64-bit words carrying their pass's flag.  The body is specialised per
+  channel table (``kernels/tables.py::table_id``).
+- ``"l2"`` (``resident_cp_kernel`` / ``resident_gd_kernel`` in
+  ``csrc/resident.cu``): volumes whose bands do not fit; the state in
+  global memory, where a volume :func:`resident_fits` admits stays in the
+  L2 cache, the threads striding over all voxels, a cooperative grid of
+  :data:`THREADS`-thread blocks with ``grid.sync()`` between the passes.
+
+Both run the per-launch kernels' per-voxel arithmetic (``csrc/voxel.cuh``,
+and its per-table form in ``csrc/specialised.cuh``): their states are equal
+bit for bit, and a solve tracks the host loop over :func:`fused.cp_dual` /
+:func:`fused.cp_primal` (or :func:`fused.tv_norms` /
+:func:`fused.tv_subgrad`) to float32 round-off.
 
 This is an EXPLICIT API, as in the JAX package: call the ``make_resident_*``
 factories directly; ``chambolle_pock`` and ``subgradient_descent`` do not
@@ -24,10 +37,14 @@ dispatch to it.
 Each factory returns a ``solve`` that takes its plain PyTorch version
 (:func:`resident_cp_plain`, :func:`resident_gd_plain`: the port's
 ``cp_step`` / ``gd_step`` looped) for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises.  A numpy array goes to the CUDA device, and
-the call raises where there is none (``utils.device``).  ``make_resident_cp_solver.launches`` and
-``make_resident_gd_solver.launches`` count the kernel launches of their
-solvers: one per solve.
+launches the kernel :func:`resident_variant` names or raises -- a refused launch never
+runs the other kernel.  A numpy array goes to the CUDA device, and the call
+raises where there is none (``utils.device``).
+``make_resident_cp_solver.launches`` and ``make_resident_gd_solver.launches``
+count the launches of their solvers (one per solve); :func:`solve_onchip`
+and :func:`solve_l2` launch one kernel each on the internal-layout state
+(``chip_smoke.py`` and the tools call them to hold the two against each
+other), and ``solve_onchip.launches`` and ``solve_l2.launches`` count them.
 """
 
 from __future__ import annotations
@@ -37,8 +54,9 @@ import ctypes
 import torch
 
 from ..core.config import TVConfig
-from ..core.schemes import num_channels
+from ..core.schemes import AXIS_ROW, CTR, num_channels
 from ..utils.device import on_device
+from . import tables
 from .dispatch import as_dtype
 from .fused import (
     _ENTRY_POINTS,
@@ -64,6 +82,18 @@ THREADS = 256
 _ENTRY_POINTS["resident"] = ("resident", _Params, {
     "resident_cp_launch": (3, 5), "resident_gd_launch": (3, 5)})
 
+# The on-chip kernels (csrc/resident_onchip.cu).  Dynamic shared memory a
+# block may take: the H100's 232 448 bytes a block (227 KB) less the
+# kernels' static warp sums (RESO_SMEM_BYTES); threads a block
+# (RESO_THREADS); one block an SM, so a launch holds at most as many blocks
+# as the card has SMs (the H100 SXM's 132 where no card is asked).
+ONCHIP_SMEM_BYTES = 232448 - 256
+ONCHIP_THREADS = 512
+H100_SMS = 132
+
+_ENTRY_POINTS["resident_onchip"] = ("reso", _Params, {
+    "reso_cp_launch": (4, 6), "reso_gd_launch": (4, 5)})
+
 
 def resident_fits(shape, cfg: TVConfig, dtype=torch.float32) -> bool:
     """Guard of the whole-solve kernels: a float32 4D volume, at most
@@ -78,6 +108,68 @@ def resident_fits(shape, cfg: TVConfig, dtype=torch.float32) -> bool:
         return False
     Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg, cfg.reg_time)
     return 0 < Nd <= MAX_CHANNELS and (2 + Nd) * vol * 4 <= L2_STATE_BUDGET
+
+
+def onchip_halo(cfg: TVConfig, Nz: int, M: int, solver: str) -> int:
+    """Halo rows a band of the on-chip kernel reads each side: x +-1 for CP
+    and GD, +-2 for GD's pass 2 where a row channel is central
+    (``gd_halo``)."""
+    if solver == "gd" and (AXIS_ROW, CTR) in tables.TABLES[
+            tables.table_id(cfg, Nz, M)]:
+        return 2
+    return 1
+
+
+def onchip_floats(solver: str, Nd: int, halo: int, planes: int, Nc: int,
+                  R: int) -> int:
+    """Floats of shared memory a band of R rows of ``planes`` planes takes,
+    in the order ``reso_cp_kernel`` / ``reso_gd_kernel`` lay them out
+    (``csrc/resident_onchip.cu``, which takes the size from here): CP x
+    with a halo row each side, y_A, x0, the Nd dual channels and one row
+    each side of the row channels' dual; GD two x buffers with ``halo``
+    rows each side, the norms with one, x0."""
+    if solver == "cp":
+        return planes * Nc * ((R + 2) + (2 + Nd) * R + 2)
+    return planes * Nc * (2 * (R + 2 * halo) + (R + 2) + R)
+
+
+def onchip_band(shape, cfg: TVConfig, solver="cp", sms=H100_SMS):
+    """``(blocks, R, shared bytes a block)`` of the on-chip launch for a
+    ``(Nz, M, Nr, Nc)`` volume: R = ceil(Nr / sms) rows a band, at least
+    the rows a band lends its neighbours (:func:`onchip_halo`), one block a
+    band; ``None`` where a band's state does not fit
+    :data:`ONCHIP_SMEM_BYTES` or the table has no on-chip kernel."""
+    if solver not in ("cp", "gd"):
+        raise ValueError(f"solver must be 'cp' or 'gd', got {solver!r}")
+    Nz, M, Nr, Nc = shape
+    try:
+        halo = onchip_halo(cfg, Nz, M, solver)
+    except ValueError:
+        return None
+    Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg, cfg.reg_time)
+    R = max(-(-Nr // sms), min(halo, Nr))
+    smem = 4 * onchip_floats(solver, Nd, halo, Nz * M, Nc, R)
+    if smem > ONCHIP_SMEM_BYTES:
+        return None
+    return -(-Nr // R), R, smem
+
+
+def band_rows(Nr: int, R: int):
+    """The rows ``[start, stop)`` of each block's band: block b from
+    ``b R``, at most R rows, ``ceil(Nr / R)`` blocks."""
+    return [(b * R, min((b + 1) * R, Nr)) for b in range(-(-Nr // R))]
+
+
+def resident_variant(shape, cfg: TVConfig, solver="cp", sms=H100_SMS) -> str:
+    """Which whole-solve kernel serves a ``(Nz, M, Nr, Nc)`` volume:
+    ``"onchip"`` where the bands of the blocks the card holds at once (one
+    an SM, ``sms`` of them) fit their shared memory (:func:`onchip_band`),
+    else ``"l2"``.  A choice by shape, made before the launch."""
+    return "l2" if onchip_band(shape, cfg, solver, sms) is None else "onchip"
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch_shape(x, vol):
@@ -118,6 +210,24 @@ def _check_state(shapes, **tensors):
                              f"{tuple(t.shape)} {t.dtype}")
 
 
+def _kernel(solver, cfg, shape, device):
+    """The launch of the kernel :func:`resident_variant` names for
+    ``shape`` on ``device``'s card: :func:`solve_onchip` or
+    :func:`solve_l2`."""
+    return (solve_onchip if resident_variant(shape, cfg, solver,
+                                             _sm_count(device)) == "onchip"
+            else solve_l2)
+
+
+def solver_params(solver, cfg: TVConfig, shape, *, reg, **kw):
+    """The launch parameters of a whole solve: CP's ``sigma_D``,
+    ``sigma_A`` and ``tau``, or GD's ``step_size``, which the kernels read
+    from the struct's tau."""
+    if solver == "gd":
+        return _params(cfg, shape, False, reg=reg, tau=kw["step_size"])
+    return _params(cfg, shape, False, reg=reg, **kw)
+
+
 def make_resident_cp_solver(cfg: TVConfig, shape, n_iter: int,
                             dtype_name="float32", reg=1.0, sigma_D=0.5,
                             sigma_A=1.0, tau=0.1):
@@ -143,17 +253,11 @@ def make_resident_cp_solver(cfg: TVConfig, shape, n_iter: int,
         if x_noisy.device.type == "cpu":
             return resident_cp_plain(x_noisy, x, y_A, y_D, n_iter, cfg=cfg,
                                      **kw)
-        blocks, threads = _launch_shape(x_noisy, Nz * M * Nr * Nc)
         x, y_A, y_D_int = x.clone(), y_A.clone(), to_internal_layout(y_D)
-        parts = torch.empty((n_iter, 2, blocks), dtype=torch.float32,
-                            device=x.device)
-        _launch("resident", "resident_cp_launch", x_noisy,
-                _params(cfg, shape, False, **kw),
-                (int(n_iter), blocks, threads),
-                (x_noisy, x, y_A, y_D_int, parts))
+        losses = _kernel("cp", cfg, shape, x.device)(
+            "cp", cfg, x_noisy, solver_params("cp", cfg, shape, **kw),
+            int(n_iter), (x, y_A, y_D_int))
         make_resident_cp_solver.launches += 1
-        sums = parts.sum(dim=2)
-        losses = torch.add(sums[:, 1], sums[:, 0], alpha=kw["reg"])
         return x, y_A, from_internal_layout(y_D_int).contiguous(), losses
 
     return solve
@@ -174,22 +278,12 @@ def make_resident_gd_solver(cfg: TVConfig, shape, n_iter: int,
         _check_state(dict(x_noisy=shape, x=shape), x_noisy=x_noisy, x=x)
         if x_noisy.device.type == "cpu":
             return resident_gd_plain(x_noisy, x, n_iter, cfg=cfg, **kw)
-        vol = x.numel()
-        blocks, threads = _launch_shape(x_noisy, vol)
         # iteration i reads buffer i % 2 and writes the other
         bufs = (x.clone(), torch.empty_like(x))
-        norms = torch.empty_like(x)
-        parts = torch.empty((n_iter, 2, blocks), dtype=torch.float32,
-                            device=x.device)
-        # the kernel reads its step size from the struct's tau
-        _launch("resident", "resident_gd_launch", x_noisy,
-                _params(cfg, shape, False, reg=kw["reg"],
-                        tau=kw["step_size"]),
-                (int(n_iter), blocks, threads),
-                (x_noisy, *bufs, norms, parts))
+        losses = _kernel("gd", cfg, shape, x.device)(
+            "gd", cfg, x_noisy, solver_params("gd", cfg, shape, **kw),
+            int(n_iter), bufs)
         make_resident_gd_solver.launches += 1
-        sums = parts.sum(dim=2)
-        losses = torch.add(sums[:, 1], sums[:, 0], alpha=kw["reg"])
         return bufs[n_iter % 2], losses
 
     return solve
@@ -197,6 +291,61 @@ def make_resident_gd_solver(cfg: TVConfig, shape, n_iter: int,
 
 make_resident_cp_solver.launches = 0
 make_resident_gd_solver.launches = 0
+
+
+def solve_onchip(solver, cfg, x_noisy, p, n_iter, state):
+    """One launch of ``reso_cp_kernel`` / ``reso_gd_kernel``
+    (``csrc/resident_onchip.cu``) for the table of ``cfg`` on the volume
+    ``x_noisy`` with the parameters ``p`` (:func:`solver_params`):
+    ``state`` is ``(x, y_A, y_D)`` (internal layout, updated in place) for
+    ``solver="cp"``, the two x buffers for ``"gd"`` (the start iterate in
+    the first, the result in buffer ``n_iter % 2``).  Returns the
+    ``(n_iter,)`` losses.  Raises where the volume's bands do not fit
+    (:func:`onchip_band`)."""
+    shape = tuple(x_noisy.shape)
+    fit = onchip_band(shape, cfg, solver, _sm_count(x_noisy.device))
+    if fit is None:
+        raise ValueError(f"shape {shape} does not fit the on-chip {solver} "
+                         f"kernel (onchip_band)")
+    blocks, R, smem = fit
+    Nz, M, _, Nc = shape
+    parts = torch.empty((n_iter, 2, blocks), dtype=torch.float32,
+                        device=x_noisy.device)
+    # the words the bands exchange (exch_words a block), zeroed: no flag is 0
+    ex = torch.zeros(blocks * 12 * Nz * M * Nc, dtype=torch.int64,
+                     device=x_noisy.device)
+    _launch("resident_onchip", f"reso_{solver}_launch", x_noisy, p,
+            (tables.table_id(cfg, Nz, M), n_iter, R, smem),
+            (x_noisy, *state, parts, ex))
+    solve_onchip.launches += 1
+    return _losses(parts, p)
+
+
+solve_onchip.launches = 0
+
+
+def solve_l2(solver, cfg, x_noisy, p, n_iter, state):
+    """One launch of ``resident_cp_kernel`` / ``resident_gd_kernel``
+    (``csrc/resident.cu``), the state in global memory; as
+    :func:`solve_onchip`."""
+    blocks, threads = _launch_shape(x_noisy, x_noisy.numel())
+    parts = torch.empty((n_iter, 2, blocks), dtype=torch.float32,
+                        device=x_noisy.device)
+    extra = (torch.empty_like(x_noisy),) if solver == "gd" else ()  # norms
+    _launch("resident", f"resident_{solver}_launch", x_noisy, p,
+            (n_iter, blocks, threads), (x_noisy, *state, *extra, parts))
+    solve_l2.launches += 1
+    return _losses(parts, p)
+
+
+solve_l2.launches = 0
+
+
+def _losses(parts, p):
+    """The losses of ``(n_iter, 2, blocks)`` partials (TV, fidelity): the
+    blocks added in order, the TV term times reg."""
+    sums = parts.sum(dim=2)
+    return torch.add(sums[:, 1], sums[:, 0], alpha=p.reg)
 
 
 def resident_cp_plain(x_noisy, x, y_A, y_D, n_iter, *, cfg: TVConfig, reg,

@@ -13,7 +13,10 @@ sequence outside it raises: nothing falls back to the generic kernels.
 
 The boundary passes of the overlapped z-sharded CP step (B8,
 ``csrc/cp_boundary.cu``) instantiate only :data:`BOUNDARY_TABLES`, the
-tables that step can meet (:func:`boundary_table_id`).
+tables that step can meet (:func:`boundary_table_id`), and the z-marching
+pass A (B10, ``csrc/cp_zstream.cu``) the same nine as
+:data:`ZSTREAM_TABLES` (:func:`zstream_table_id`).  The whole-solve kernels
+on chip (B9, ``csrc/resident_onchip.cu``) instantiate all 21.
 """
 
 from __future__ import annotations
@@ -67,14 +70,38 @@ def table_id(cfg, Nz: int, M: int) -> int:
 BOUNDARY_TABLES = (1, 3, 5, 7, 9, 11, 13, 15, 20)
 
 
+def _listed_table_id(cfg, Nz: int, M: int, listed, kernel: str,
+                     source: str) -> int:
+    """The table id of ``cfg``'s scheme at ``(Nz, M)``; ValueError where it
+    is not among the ``listed`` ids ``source`` instantiates."""
+    tid = table_id(cfg, Nz, M)
+    if tid not in listed:
+        raise ValueError(f"no {kernel} kernel is compiled for the channel "
+                         f"table {TABLES[tid]} (id {tid}; {source} "
+                         f"instantiates {listed})")
+    return tid
+
+
 @functools.lru_cache(maxsize=64)
 def boundary_table_id(cfg, Nz: int, M: int) -> int:
     """The table id of ``cfg``'s scheme on a volume of ``Nz`` slices and
     ``M`` time steps for a boundary pass; ValueError where
     ``csrc/cp_boundary.cu`` has no kernel for it."""
-    tid = table_id(cfg, Nz, M)
-    if tid not in BOUNDARY_TABLES:
-        raise ValueError(f"no boundary kernel is compiled for the channel "
-                         f"table {TABLES[tid]} (id {tid}; csrc/cp_boundary.cu "
-                         f"instantiates {BOUNDARY_TABLES})")
-    return tid
+    return _listed_table_id(cfg, Nz, M, BOUNDARY_TABLES, "boundary",
+                            "csrc/cp_boundary.cu")
+
+
+# The tables csrc/cp_zstream.cu instantiates (its ZSTREAM_TABLES): those
+# with a z channel on a volume of >= 3 slices, which the z-marching pass A
+# requires -- central's z channel is CTR there -- with t off, CTR or
+# (central, M == 2) FWD: BOUNDARY_TABLES' rule.
+ZSTREAM_TABLES = BOUNDARY_TABLES
+
+
+@functools.lru_cache(maxsize=64)
+def zstream_table_id(cfg, Nz: int, M: int) -> int:
+    """The table id of ``cfg``'s scheme on a volume of ``Nz`` slices and
+    ``M`` time steps for the z-marching pass A; ValueError where
+    ``csrc/cp_zstream.cu`` has no kernel for it."""
+    return _listed_table_id(cfg, Nz, M, ZSTREAM_TABLES, "z-marching",
+                            "csrc/cp_zstream.cu")

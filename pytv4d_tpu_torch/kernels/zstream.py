@@ -2,16 +2,19 @@
 memory once.  Replaces
 ``pytv4d_tpu/kernels/zstream.py::make_cp_dual_kernel_zstream``.
 
-The per-launch pass A (:func:`fused.cp_dual`) runs one thread per voxel, and
-each thread reads its two z neighbours from memory, so an x plane is
-requested three times.  Here (kernel ``cp_dual_zstream_kernel`` in
-``csrc/cp_zstream.cu``) one thread owns a (t, row, column) column of the
-volume and marches z = 0 .. Nz-1 with x[z-1], x[z], x[z+1] of its column in
-registers; the per-voxel arithmetic is the per-launch kernel's own
-(``csrc/voxel.cuh``), so y_A' and y_D' are the same to the bit and the TV
-partials differ only in the order of the additions.  The TPU kernel's
-``row_tile``, its 8-row seam granules, its DMA semaphores, its scratch
-budget and its ``dt_local`` output are TPU tiling and are not carried over.
+The per-launch pass A (:func:`fused.cp_dual`) reads each voxel's z and row
+neighbours from memory, so an x plane is requested five times.  Here
+(``zstream_spec_kernel`` in ``csrc/cp_zstream.cu``) a block owns two rows of
+one t-plane and marches z = 0 .. Nz-1 with the x tiles of z - 1, z and z + 1
+(one row either side) in a ring of shared memory while the tile of z + 2
+is in flight (cp.async), so each x plane crosses from memory once and the
+row and z neighbours come from shared memory.  The body is B1's, specialised
+per channel table (``csrc/specialised.cuh::dual_spec_run``; the nine tables
+with a z channel, :func:`tables.zstream_table_id`), so y_A' and y_D' equal
+B1's to the bit and the TV partials differ only in the order of the
+additions.  The TPU kernel's ``row_tile``, its 8-row seam granules, its DMA
+semaphores, its scratch budget and its ``dt_local`` output are TPU tiling
+and are not carried over.
 
 This is an EXPLICIT API, as in the JAX package: ``cp_step_fused_internal``
 does not dispatch to it.  :func:`cp_dual_zstream` has the contract of
@@ -27,17 +30,20 @@ import torch
 
 from ..core.config import TVConfig
 from ..core.schemes import AXIS_Z, scheme_channels
+from . import tables
 from .fused import (
     _ENTRY_POINTS,
     _Params,
     _check_operands,
     _launch,
     _params,
+    _storage_flags,
     cp_dual_plain,
 )
 
+# int flags: the table id, then the storage of x and of the dual
 _ENTRY_POINTS["cp_zstream"] = ("cpz", _Params,
-                               {"cp_dual_zstream_launch": (2, 5)})
+                               {"cp_dual_zstream_launch": (3, 5)})
 
 
 def _check_zstream(x, cfg: TVConfig):
@@ -70,17 +76,28 @@ def cp_dual_zstream(x, x0, y_A, y_D, *, cfg: TVConfig, sigma_D, sigma_A, reg,
                                      sigma_D=sigma_D, sigma_A=sigma_A,
                                      reg=reg, fidelity=fidelity,
                                      fid_weight=fid_weight)
+    return _zstream_kernel(x, x0, y_A, y_D, cfg=cfg, sigma_D=sigma_D,
+                           sigma_A=sigma_A, reg=reg, fidelity=fidelity,
+                           fid_weight=fid_weight)
+
+
+cp_dual_zstream.launches = 0
+
+
+def _zstream_kernel(x, x0, y_A, y_D, *, cfg: TVConfig, sigma_D, sigma_A, reg,
+                    fidelity, fid_weight):
+    """:func:`cp_dual_zstream`'s launch, on checked operands: the kernel of
+    the scheme's channel table (:func:`tables.zstream_table_id`; raises
+    where ``csrc/cp_zstream.cu`` has none) and storage."""
     p = _params(cfg, tuple(x.shape), False, sigma_D=float(sigma_D),
                 sigma_A=float(sigma_A), reg=float(reg), fidelity=fidelity,
                 fid_weight=float(fid_weight))
-    flags = (int(x.dtype == torch.bfloat16), int(y_D.dtype == torch.bfloat16))
+    flags = (tables.zstream_table_id(cfg, x.shape[0], x.shape[1]),
+             *_storage_flags(x, y_D))
     parts = _launch("cp_zstream", "cp_dual_zstream_launch", x, p, flags,
                     (x, x0, y_A, y_D), with_parts=True)
     cp_dual_zstream.launches += 1
     return y_A, y_D, parts
-
-
-cp_dual_zstream.launches = 0
 
 
 def cp_dual_zstream_plain(x, x0, y_A, y_D, *, cfg: TVConfig, sigma_D,

@@ -27,9 +27,9 @@ def test_library_path_follows_included_headers(tmp_path):
 
 
 def test_repo_kernels_include_the_shared_header():
-    # one arithmetic: the per-launch kernels, the z-marching pass A and the
-    # whole-solve kernels all take their per-voxel bodies from voxel.cuh
-    for name in ("cp_fused", "tv_fused", "cp_zstream", "resident"):
+    # one arithmetic: the generic per-launch kernels and the L2 whole-solve
+    # kernels take their per-voxel bodies from voxel.cuh
+    for name in ("cp_fused", "tv_fused", "resident"):
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "voxel.cuh", "stencil.cuh"]
@@ -39,10 +39,12 @@ def test_repo_kernels_include_the_shared_header():
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "tgv.cuh", "stencil.cuh"]
-    # the specialised kernels' three sources (the sharded step's boundary
-    # kernels among them) share specialised.cuh: the channel tables, and
-    # voxel.cuh for the fidelity dual
-    for name in ("specialised", "specialised_tv", "cp_boundary"):
+    # the specialised kernels' sources (the sharded step's boundary
+    # kernels, the z-marching pass A and the on-chip whole solves among
+    # them) share specialised.cuh: the channel tables, and voxel.cuh for the
+    # fidelity dual
+    for name in ("specialised", "specialised_tv", "cp_boundary",
+                 "cp_zstream", "resident_onchip"):
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "specialised.cuh", "tables.cuh", "voxel.cuh",
@@ -50,17 +52,20 @@ def test_repo_kernels_include_the_shared_header():
 
 
 def test_only_the_specialised_source_splits_its_compile():
-    """nvcc compiles the three sources of the specialised kernels (a kernel
-    per channel table and storage: B1 and B4 in specialised.cu, B3 and B5
-    in specialised_tv.cu, B8 in cp_boundary.cu) on every core; the others
-    as they were, and the flags are part of each library's cache key."""
-    for name in ("specialised", "specialised_tv", "cp_boundary"):
+    """nvcc compiles the sources of the specialised kernels (a kernel per
+    channel table and storage: B1 and B4 in specialised.cu, B3 and B5 in
+    specialised_tv.cu, B8 in cp_boundary.cu, B10 in cp_zstream.cu, B9 on
+    chip in resident_onchip.cu) on every core; the others as they were,
+    and the flags are part of each library's cache key."""
+    for name in ("specialised", "specialised_tv", "cp_boundary",
+                 "cp_zstream", "resident_onchip"):
         assert build.nvcc_flags(name) == \
             build.NVCC_FLAGS + ("-split-compile", "0")
     assert set(build.SOURCE_FLAGS) == {"specialised", "specialised_tv",
-                                       "cp_boundary"}
+                                       "cp_boundary", "cp_zstream",
+                                       "resident_onchip"}
     for name in ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident",
-                 "tgv_onchip", "resident", "cp_zstream"):
+                 "tgv_onchip", "resident"):
         assert build.nvcc_flags(name) == build.NVCC_FLAGS
     assert "-fmad=false" in build.NVCC_FLAGS
 
@@ -74,8 +79,8 @@ def test_every_library_has_its_entry_points_and_its_source():
 
     assert set(fused._ENTRY_POINTS) == {
         "cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
-        "cp_zstream", "resident", "cp_boundary", "specialised",
-        "specialised_tv"}
+        "cp_zstream", "resident", "resident_onchip", "cp_boundary",
+        "specialised", "specialised_tv"}
     for name, (prefix, params, launches) in fused._ENTRY_POINTS.items():
         text = ""
         for path in build._sources(os.path.join(build.CSRC, f"{name}.cu")):

@@ -1,8 +1,11 @@
 """Per-launch times of the stencil kernels B1-B5 and the 4D CP and GD
 iteration on one GPU, for comparing two trees of the repo in one run.
 
-    python3 tools/torch_time_stencil.py [--root DIR]
-    python3 tools/torch_time_stencil.py --ab PARENT_DIR
+    python3 tools/torch_time_stencil.py [--root DIR] [--only SECTIONS]
+    python3 tools/torch_time_stencil.py --ab PARENT_DIR [--only SECTIONS]
+
+``--only`` runs the named lines alone, a comma-separated subset of
+``stencil,tgv,shard,resident`` (all by default; ``--ab`` passes it on).
 
 Imports ``pytv4d_tpu_torch`` from ``DIR`` (default: this checkout), which
 builds its kernels there on first use, and prints one line of times at
@@ -41,6 +44,17 @@ x after B2 ``interior`` + B8 primal, from seeded states), and ms per
 iteration of the 4-z-shard solve of the whole volume on the overlapped and
 on the ghost-plane step beside the unsharded one: wall (marginal, as for
 CP above) and device (``torch.profiler`` over a 20-iteration solve).
+
+A fourth line times the whole-solve kernels B9 as the factories launch
+them (``make_resident_cp_solver`` / ``make_resident_gd_solver``: a
+300-iteration solve, best of 5) at cameraman size (1, 1, 256, 256), at
+the coupled (4, 2, 64, 64) and at (8, 4, 128, 128), hybrid ``reg_time=0.5``
+(the last's CP too large for the on-chip kernel), reg 25, from a seeded
+volume, with a hash of the final state (x, y_A, y_D; GD's x) and the last
+loss; and the z-marching pass A B10 per launch at (32, 8, 256, 256) hybrid
+``reg_time=0.5`` in float32, with a bf16 dual and in bf16, with a hash of
+y_A' and y_D' after one launch from seeded states and the hash of B1's on
+the same inputs (equal where the two are bit for bit).
 """
 
 from __future__ import annotations
@@ -166,6 +180,68 @@ def tgv_times(dev):
     return ms, hashes
 
 
+def resident_times(dev):
+    """ms of B9's solves and B10's launches, with the hashes of their
+    outputs and B9's last losses (module docstring)."""
+    from pytv4d_tpu_torch.core.config import TVConfig
+    from pytv4d_tpu_torch.core.schemes import num_channels
+    from pytv4d_tpu_torch.kernels import fused, resident, zstream
+    from pytv4d_tpu_torch.solvers.cp import default_tau
+
+    ms, hashes, losses = {}, {}, {}
+    rng = np.random.default_rng(5)
+    for tag, shape, cfg in (
+            ("cam", (1, 1, 256, 256), TVConfig()),
+            ("coupled", (4, 2, 64, 64),
+             TVConfig(scheme="hybrid", reg_time=0.5)),
+            ("(8,4,128,128)", (8, 4, 128, 128),
+             TVConfig(scheme="hybrid", reg_time=0.5))):
+        Nz, M, Nr, Nc = shape
+        Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg,
+                          cfg.reg_time)
+        x0 = torch.as_tensor(100.0 * rng.random(shape), dtype=torch.float32,
+                             device=dev)
+        z = torch.zeros_like(x0)
+        y_D = torch.zeros((Nz, Nd, M, Nr, Nc), device=dev)
+        cp = resident.make_resident_cp_solver(
+            cfg, shape, 300, "float32", reg=25.0, sigma_D=0.5, sigma_A=1.0,
+            tau=default_tau(cfg, Nz, M))
+        gd = resident.make_resident_gd_solver(cfg, shape, 300, "float32",
+                                              reg=25.0, step_size=5e-3)
+        out = cp(x0, x0, z, y_D)
+        hashes[f"B9 CP {tag}"] = digest(*out[:3])
+        losses[f"B9 CP {tag}"] = float(out[3][-1])
+        gx, gl = gd(x0, x0)
+        hashes[f"B9 GD {tag}"] = digest(gx)
+        losses[f"B9 GD {tag}"] = float(gl[-1])
+        ms[f"B9 CP {tag} 300 its"] = launch_ms(lambda: cp(x0, x0, z, y_D),
+                                               n=1)
+        ms[f"B9 GD {tag} 300 its"] = launch_ms(lambda: gd(x0, x0), n=1)
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    Nz, M, Nr, Nc = SHAPE
+    Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg, cfg.reg_time)
+    dk = dict(cfg=cfg, sigma_D=0.5, sigma_A=1.0, reg=1.0)
+    bf16 = torch.bfloat16
+    for tag, (x_dt, d_dt) in (("f32", (torch.float32, torch.float32)),
+                              ("bf16 dual", (torch.float32, bf16)),
+                              ("bf16", (bf16, bf16))):
+        def arr(*s, dtype):
+            return torch.as_tensor(rng.random(s, dtype=np.float32),
+                                   device=dev).to(dtype)
+
+        x, x0, y_A = (arr(*SHAPE, dtype=x_dt) for _ in range(3))
+        y_D = arr(Nz, M, Nd, Nr, Nc, dtype=d_dt)
+        for name, dual in (("B10", zstream.cp_dual_zstream),
+                           ("B1 on B10's inputs", fused.cp_dual)):
+            got = [y_A.clone(), y_D.clone()]
+            dual(x, x0, *got, **dk)
+            hashes[f"{name} {tag}"] = digest(*got)
+        ms[f"B10 {tag}"] = launch_ms(lambda: zstream.cp_dual_zstream(
+            x, x0, y_A, y_D, **dk))
+        del x, x0, y_A, y_D
+    return ms, hashes, losses
+
+
 def card():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -175,11 +251,15 @@ def card():
 
 def main():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    only = {"stencil", "tgv", "shard", "resident"}
+    if "--only" in sys.argv:
+        only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     if "--ab" in sys.argv:
         parent = sys.argv[sys.argv.index("--ab") + 1]
         for root in (parent, here, here, parent):
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--root", root], check=True)
+                            "--root", root, "--only", ",".join(sorted(only))],
+                           check=True)
         return
     root = here
     if "--root" in sys.argv:
@@ -252,59 +332,71 @@ def main():
     huber = TVConfig(scheme="hybrid", reg_time=0.5, norm="huber",
                      huber_delta=0.3)
     bf16 = torch.bfloat16
-    ms = {
-        "B1": b1("B1", cfg),
-        "B1 bf16 dual": b1("B1 bf16 dual", cfg, d_dt=torch.bfloat16),
-        "B1 bf16": b1("B1 bf16", cfg, torch.bfloat16, torch.bfloat16),
-        "B1 upwind": b1("B1 upwind", up),
-        "B1 central": b1("B1 central", ctr),
-        "B2": launch_ms(lambda: fused.cp_primal(x, x0, y_A, y_D, cfg=cfg,
-                                                tau=0.1)),
-        "B3": b3(cfg),
-        "B3 bf16": b3(cfg, bf16),
-        "B3 aniso": b3(aniso),
-        "B3 huber": b3(huber),
-        "B3 upwind": b3(up),
-        "B3 central": b3(ctr),
-        "B4": b4(cfg),
-        "B4 bf16": b4(cfg, bf16),
-        "B4 aniso": b4(aniso),
-        "B4 huber": b4(huber),
-        "B4 upwind": b4(up),
-        "B4 central": b4(ctr),
-        "B5": b5("B5", cfg),
-        "B5 bf16 dual": b5("B5 bf16 dual", cfg, d_dt=bf16),
-        "B5 bf16": b5("B5 bf16", cfg, bf16, bf16),
-        "B5 upwind": b5("B5 upwind", up),
-        "B5 central": b5("B5 central", ctr),
-        "B5 CT": b5("B5 CT", cfg, xs=x_ct),
-        "B5 CT bf16 dual": b5("B5 CT bf16 dual", cfg, d_dt=bf16, xs=x_ct),
-        "B5 CT bf16": b5("B5 CT bf16", cfg, bf16, bf16, xs=x_ct),
-        "B5 CT upwind": b5("B5 CT upwind", up, xs=x_ct),
-        "B5 CT central": b5("B5 CT central", ctr, xs=x_ct),
-    }
+    if "stencil" in only:
+        ms = {
+            "B1": b1("B1", cfg),
+            "B1 bf16 dual": b1("B1 bf16 dual", cfg, d_dt=torch.bfloat16),
+            "B1 bf16": b1("B1 bf16", cfg, torch.bfloat16, torch.bfloat16),
+            "B1 upwind": b1("B1 upwind", up),
+            "B1 central": b1("B1 central", ctr),
+            "B2": launch_ms(lambda: fused.cp_primal(x, x0, y_A, y_D, cfg=cfg,
+                                                    tau=0.1)),
+            "B3": b3(cfg),
+            "B3 bf16": b3(cfg, bf16),
+            "B3 aniso": b3(aniso),
+            "B3 huber": b3(huber),
+            "B3 upwind": b3(up),
+            "B3 central": b3(ctr),
+            "B4": b4(cfg),
+            "B4 bf16": b4(cfg, bf16),
+            "B4 aniso": b4(aniso),
+            "B4 huber": b4(huber),
+            "B4 upwind": b4(up),
+            "B4 central": b4(ctr),
+            "B5": b5("B5", cfg),
+            "B5 bf16 dual": b5("B5 bf16 dual", cfg, d_dt=bf16),
+            "B5 bf16": b5("B5 bf16", cfg, bf16, bf16),
+            "B5 upwind": b5("B5 upwind", up),
+            "B5 central": b5("B5 central", ctr),
+            "B5 CT": b5("B5 CT", cfg, xs=x_ct),
+            "B5 CT bf16 dual": b5("B5 CT bf16 dual", cfg, d_dt=bf16, xs=x_ct),
+            "B5 CT bf16": b5("B5 CT bf16", cfg, bf16, bf16, xs=x_ct),
+            "B5 CT upwind": b5("B5 CT upwind", up, xs=x_ct),
+            "B5 CT central": b5("B5 CT central", ctr, xs=x_ct),
+        }
+        its = {
+            "CP": iteration_ms(lambda n: chambolle_pock(
+                x0, n_iter=n, reg=1.0, cfg=cfg, return_dual=False)),
+            "GD": iteration_ms(lambda n: subgradient_descent(
+                x0, n_iter=n, reg=1.0, step_size=5e-3, cfg=cfg)),
+        }
+        print(f"[stencil times] {os.path.relpath(root)} {SHAPE} f32 hybrid "
+              f"reg_time=0.5 unless named, ms per launch: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+              + "; ms per iteration: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in its.items())
+              + "; output hashes: "
+              + ", ".join(f"{k} {v}" for k, v in hashes.items())
+              + f"; card {card()}", flush=True)
     del x_ct
-    its = {
-        "CP": iteration_ms(lambda n: chambolle_pock(
-            x0, n_iter=n, reg=1.0, cfg=cfg, return_dual=False)),
-        "GD": iteration_ms(lambda n: subgradient_descent(
-            x0, n_iter=n, reg=1.0, step_size=5e-3, cfg=cfg)),
-    }
-    print(f"[stencil times] {os.path.relpath(root)} {SHAPE} f32 hybrid "
-          f"reg_time=0.5 unless named, ms per launch: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
-          + "; ms per iteration: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in its.items())
-          + "; output hashes: "
-          + ", ".join(f"{k} {v}" for k, v in hashes.items())
-          + f"; card {card()}", flush=True)
-    tgv_ms, tgv_hash = tgv_times(dev)
-    print(f"[tgv times] {os.path.relpath(root)} {SHAPE} f32 unless named, "
-          f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in tgv_ms.items())
-          + "; output hashes: "
-          + ", ".join(f"{k} {v}" for k, v in tgv_hash.items())
-          + f"; card {card()}", flush=True)
-    if not hasattr(fused, "cp_dual_boundary"):
+    if "tgv" in only:
+        tgv_ms, tgv_hash = tgv_times(dev)
+        print(f"[tgv times] {os.path.relpath(root)} {SHAPE} f32 unless "
+              f"named, ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in tgv_ms.items())
+              + "; output hashes: "
+              + ", ".join(f"{k} {v}" for k, v in tgv_hash.items())
+              + f"; card {card()}", flush=True)
+    if "resident" in only:
+        res_ms, res_hash, res_loss = resident_times(dev)
+        print(f"[resident and zstream times] {os.path.relpath(root)}, ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in res_ms.items())
+              + "; last losses: "
+              + ", ".join(f"{k} {v!r}" for k, v in res_loss.items())
+              + "; output hashes: "
+              + ", ".join(f"{k} {v}" for k, v in res_hash.items())
+              + f"; card {card()}", flush=True)
+    if "shard" not in only or not hasattr(fused, "cp_dual_boundary"):
         return
 
     # one z-shard of the volume, as the sharded solvers hand it over
