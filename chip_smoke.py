@@ -107,7 +107,15 @@ bit-equal to ghost) and the 3d one on a (4 x 2) mesh, against the unsharded
 stream solve; joins one NCCL rank with ``multihost.initialize`` and runs the
 sharded CP on ``global_mesh`` bit for bit against the one-process solve;
 and reconstructs a parallel sinogram on a (4 x 2) mesh and a cone one on a
-(1 x 4) mesh against the unsharded solve, with times and peak memory.
+(1 x 4) mesh against the unsharded solve, with times and peak memory.  For
+the cone's z-DFT offset-line tier (phase 30): holds its f32 pair on the
+card against float64 on the CPU with the dot test at a small shape, times
+its A and A_T at (16, 4, 512, 512) x 96 angles beside order 1's with their
+peak memory, checks it against exact cone integrals of 3D Gaussians (it
+must beat the gather cone), solves with ``cp_inverse`` on the order-2 pair
+(one B5 and B2 launch per iteration, one B3 per loss), differentiates a
+small solve in ``reg`` on the plain step against a central difference, and
+runs the six example twins (``examples/torch_*.py --device cuda``).
 Every phase raises on failure; nothing falls back to the CPU.  The last line of stdout is one
 JSON object with ``"ok": true`` and the device.
 """
@@ -180,6 +188,7 @@ from pytv4d_tpu_torch.models.ct_spectral import (
     make_cone_spectral_projector,
     make_fan_spectral_projector,
     make_spectral_projector,
+    radon_cone_spectral,
 )
 from pytv4d_tpu_torch.parallel import (
     fused_halo,
@@ -207,7 +216,7 @@ from pytv4d_tpu_torch.solvers.cp import (
 from pytv4d_tpu_torch.solvers.fidelity import fidelity_dual_prox, fidelity_loss
 from pytv4d_tpu_torch.solvers.fista import fista
 from pytv4d_tpu_torch.solvers.gd import subgradient_descent
-from pytv4d_tpu_torch.solvers.inverse import cp_inverse
+from pytv4d_tpu_torch.solvers.inverse import cp_inverse, power_iteration
 from pytv4d_tpu_torch.solvers.state import (
     run_checkpointed,
     run_until_converged,
@@ -4091,6 +4100,376 @@ def phase_sharded_slice(card):
     return {"B7": b7, "B6": b6, "ms_2d": ms2d, "ms_4d": ms4d}
 
 
+# ---------------------------------------------------------------- phase 30
+# the z-DFT tier's small checks: f32 on the card against float64 on the CPU
+# and the f32 dot test, at the JAX package's adjointness shape
+ZDFT_SMALL, ZDFT_SMALL_ANGLES = (4, 2, 24, 24), 5
+ZDFT_TOL = 1e-5
+# the certification: the JAX test's shape and blobs (tests/test_ct_spectral.py
+# test_cone_zdft_beats_gather_vs_analytic), against exact cone integrals
+ZDFT_CERT_SHAPE, ZDFT_CERT_ANGLES = (16, 1, 64, 64), 16
+ZDFT_BLOBS = [(5.5, 0.45, 0.55, 2.0, 1.0), (9.5, 0.60, 0.40, 2.2, 0.7),
+              (7.5, 0.40, 0.42, 1.8, 0.5)]
+# the example twins and the line each prints last
+EXAMPLES = ("torch_a_getting_started", "torch_b_schemes_math",
+            "torch_c_4d_sharded", "torch_d_ct_reconstruction", "torch_e_tgv",
+            "torch_f_inverse_problems")
+
+
+def _zdft_oracle(ang, geom, Nz, N):
+    """Exact cone integrals of ZDFT_BLOBS (isotropic 3D Gaussians) at
+    every detector cell, ``(1, A, Nz, N)``, float64."""
+    cz, c0 = (Nz - 1) / 2.0, (N - 1) / 2.0
+    u_ax = (np.arange(N) - (N - 1) / 2.0) * geom.spacing_u()
+    v_ax = (np.arange(Nz) - (Nz - 1) / 2.0) * geom.spacing_v()
+    orc = np.zeros((1, len(ang), Nz, N))
+    for a, b in enumerate(ang):
+        sinb, cosb = np.sin(b), np.cos(b)
+        Sr, Sc, Sz = (c0 - geom.source_dist * sinb,
+                      c0 - geom.source_dist * cosb, cz)
+        Dr = c0 + geom.det_dist * sinb + u_ax[None, :] * cosb
+        Dc = c0 + geom.det_dist * cosb - u_ax[None, :] * sinb
+        Dz = cz + v_ax[:, None] + 0 * Dr
+        dr, dc, dz = Dr - Sr, Dc - Sc, Dz - Sz
+        inv = 1.0 / np.sqrt(dr ** 2 + dc ** 2 + dz ** 2)
+        dr, dc, dz = dr * inv, dc * inv, dz * inv
+        for (z0, rr, cc, s, amp) in ZDFT_BLOBS:
+            wr, wc, wz = Sr - rr * N, Sc - cc * N, Sz - z0
+            proj = wr * dr + wc * dc + wz * dz
+            rho2 = (wr ** 2 + wc ** 2 + wz ** 2) - proj ** 2
+            orc[0, a] += amp * np.sqrt(np.pi) * s * np.exp(-rho2 / s ** 2)
+    return orc
+
+
+def _cuda_device_ms(run):
+    """Device ms of ``run()``: every kernel, copy and memset that
+    ``torch.profiler`` records with CUDA activity alone (the tier issues
+    tens of thousands of small ops an application; recording the host's
+    ops too costs minutes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        sync()
+    ms = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA) / 1e3
+    require(ms > 0.0, "torch.profiler recorded the z-DFT iteration's kernels")
+    return ms
+
+
+def _zdft_certification():
+    """Order 2 ('trig') and the gather cone against the exact integrals on
+    the card in f32, at D_so = 2N and 4N: relative errors in norm."""
+    Nz, _, N, _ = ZDFT_CERT_SHAPE
+    z, r, c = np.mgrid[:Nz, :N, :N].astype(float)
+    vol = np.zeros(ZDFT_CERT_SHAPE)
+    for (z0, rr, cc, s, amp) in ZDFT_BLOBS:
+        vol[:, 0] += amp * np.exp(-(((z - z0) ** 2 + (r - rr * N) ** 2
+                                     + (c - cc * N) ** 2) / s ** 2))
+    x = torch.as_tensor(vol, dtype=torch.float32, device=DEV)
+    ang = np.linspace(0, 2 * np.pi, ZDFT_CERT_ANGLES, endpoint=False) + 0.03
+    errs = {}
+    for mult in (2.0, 4.0):
+        geom = ConeBeamGeometry(source_dist=mult * N, det_dist=0.5 * N)
+        orc = _zdft_oracle(ang, geom, Nz, N)
+
+        def rel(a):
+            a = a.double().cpu().numpy()
+            return float(np.linalg.norm(a - orc) / np.linalg.norm(orc))
+
+        e = {"gather": rel(radon_cone(x, ang, geom)),
+             "order 2": rel(radon_cone_spectral(x, ang, geom, order=2,
+                                                z_kernel="trig")),
+             "order 2 oversample 8": rel(radon_cone_spectral(
+                 x, ang, geom, order=2, z_kernel="trig", oversample=8.0))}
+        require(e["order 2"] < e["gather"]
+                and e["order 2 oversample 8"] < 0.004
+                and e["order 2 oversample 8"] < 0.15 * e["gather"],
+                f"z-DFT certification at D_so = {mult}N: {e}")
+        errs[mult] = e
+    return errs
+
+
+def _zdft_grad_check():
+    """The gradient of cp_inverse's reconstruction error in reg on the card
+    (f32, tests/test_solvers.py's setup): autograd against a central
+    difference, and the plain step (no B5 launch)."""
+    rng = np.random.default_rng(41)
+    shape = (1, 1, 12, 12)
+    truth = np.zeros(shape)
+    truth[0, 0, 3:9, 3:9] = 1.0
+    b = torch.as_tensor(truth + 0.1 * rng.standard_normal(shape),
+                        dtype=torch.float32, device=DEV)
+    t = torch.as_tensor(truth, dtype=torch.float32, device=DEV)
+
+    def err(reg):
+        res = cp_inverse(lambda v: v, b, shape, A_T=lambda v: v, n_iter=40,
+                         reg=reg, op_norm=1.0)
+        return torch.sum(torch.square(res.x - t))
+
+    reg = torch.tensor(0.15, device=DEV, requires_grad=True)
+    zero_counters()
+    (g,) = torch.autograd.grad(err(reg), reg)
+    sync()
+    got = read_counters()
+    h = 1e-3
+    fd = (float(err(0.15 + h)) - float(err(0.15 - h))) / (2 * h)
+    require(got["B5"] == 0 and got["B2"] == 0,
+            f"a reg that requires grad takes the plain step: {got}")
+    require(abs(float(g) - fd) <= 0.01 * abs(fd),
+            f"d/d reg on the card {float(g)} vs central difference {fd}")
+    return float(g), fd
+
+
+def _run_examples():
+    """The six example twins, each in its own process with --device cuda,
+    all at once: each must exit 0 and end with its OK line.  Seconds each,
+    to its own exit."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs, secs, failed = {}, {}, {}
+    start = time.perf_counter()
+    try:
+        for name in EXAMPLES:
+            out = tempfile.TemporaryFile()
+            procs[name] = (subprocess.Popen(
+                [sys.executable,
+                 os.path.join(ROOT, "examples", f"{name}.py"), "--device",
+                 "cuda"], stdout=out, stderr=subprocess.STDOUT, env=env,
+                cwd=ROOT, stdin=subprocess.DEVNULL), out)
+        while len(secs) < len(procs):
+            require(time.perf_counter() - start < 600,
+                    f"example twins within 600 s: done {sorted(secs)}")
+            for name, (proc, _) in procs.items():
+                if name not in secs and proc.poll() is not None:
+                    secs[name] = time.perf_counter() - start
+            time.sleep(0.1)
+        for name, (proc, out) in procs.items():
+            out.seek(0)
+            text = out.read().decode(errors="replace")
+            lines = text.strip().splitlines()
+            if proc.returncode != 0 or not lines or lines[-1] != "OK":
+                failed[name] = (proc.returncode, text[-3000:])
+    finally:
+        for proc, out in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    require(not failed, f"example twins on the card: {failed}")
+    return secs
+
+
+def phase_ct_zdft(card):
+    """Phase 30: the z-DFT offset-line cone tier (order=2) on the card.
+    Times its A and A_T at (16, 4, 512, 512) x 96 angles beside order 1,
+    the f32 dot test there; at ZDFT_SMALL the card's f32 against the CPU's
+    float64 and the dot test; the certification against exact Gaussian
+    integrals; cp_inverse on the order-2 pair (one B5 and B2 launch per
+    iteration, one B3 per loss); the gradient in reg on the plain step; the
+    example twins.  Returns the solve's launches."""
+    secs = {}
+    t0 = time.perf_counter()
+    # small: card f32 against CPU float64, dot test
+    rng = np.random.default_rng(5)
+    geom_s = _scaled(CONE, ZDFT_SMALL[-1])
+    ang_s = np.linspace(0, 2 * np.pi, ZDFT_SMALL_ANGLES, endpoint=False) \
+        + 0.05
+    A64, AT64 = make_cone_spectral_projector(
+        ZDFT_SMALL, ang_s, geom_s, dtype=torch.float64, order=2)
+    A32, AT32 = make_cone_spectral_projector(
+        ZDFT_SMALL, ang_s, geom_s, dtype=torch.float32, order=2)
+    x64 = torch.as_tensor(rng.random(ZDFT_SMALL))
+    ref = A64(x64)
+    y64 = torch.as_tensor(rng.random(tuple(ref.shape)))
+    x32, y32 = x64.float().to(DEV), y64.float().to(DEV)
+    got, got_T = A32(x32), AT32(y32)
+    small_err = max(_rel_err(got, ref), _rel_err(got_T, AT64(y64)))
+    lhs = float(torch.sum(y32.double() * got.double()))
+    small_dot = abs(lhs - float(torch.sum(got_T.double() * x32.double()))) \
+        / abs(lhs)
+    require(small_err <= ZDFT_TOL and small_dot <= ZDFT_TOL,
+            f"z-DFT at {ZDFT_SMALL}: card f32 vs CPU float64 {small_err:.3g}, "
+            f"dot test {small_dot:.3g}")
+    # does a complex64 bmm honour the TF32 flag?  (The tier's stages run
+    # planar real bmms, whose precision the flag sets; this says whether a
+    # complex one would have.)
+    a = torch.randn((8, 256, 256), dtype=torch.complex64, device=DEV)
+    by = {}
+    for prec in ("default", "highest"):
+        with ct_spectral._matmul_precision(prec, DEV):
+            by[prec] = torch.view_as_real(torch.bmm(a, a))
+    complex_tf32 = _rel(by["default"], by["highest"])
+    del a, by
+    secs["small"] = time.perf_counter() - t0
+
+    # full width: A and A_T of order 2 and order 1, one timed call each
+    t0 = time.perf_counter()
+    angles = np.linspace(0.0, 2 * np.pi, CT_ANGLES, endpoint=False)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    vol = torch.rand(CT_SHAPE, generator=gen, device=DEV)
+    ms, peak = {}, {}
+    for order in (1, 2):
+        A, A_T = make_cone_spectral_projector(
+            CT_SHAPE, angles, CONE, order=order, precision="high")
+        y = A(vol)                          # the warm-ups, and A_T's input
+        A_T(y)
+        torch.cuda.empty_cache()
+        for name, fn in (("A", lambda: A(vol)), ("A_T", lambda: A_T(y))):
+            sync()
+            torch.cuda.reset_peak_memory_stats(DEV)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            sync()
+            ms[name, order] = start.elapsed_time(end)
+            peak[name, order] = torch.cuda.max_memory_allocated(DEV)
+            if order == 2:
+                if name == "A":
+                    Ax = out
+                else:
+                    ATy = out
+        del out
+    lhs = float(torch.sum(y.double() * Ax.double()))
+    full_dot = abs(lhs - float(torch.sum(ATy.double() * vol.double()))) \
+        / abs(lhs)
+    require(bool(torch.isfinite(Ax).all()) and bool(torch.isfinite(ATy).all())
+            and tuple(Ax.shape) == (CT_SHAPE[1], CT_ANGLES, CT_SHAPE[0],
+                                    CT_SHAPE[-1]),
+            "order 2 at full width: finite, the cone layout")
+    del Ax, ATy, y
+    torch.cuda.empty_cache()
+    secs["operators"] = time.perf_counter() - t0
+    zd = ct_spectral._zdft_consts(CONE, angles, CT_SHAPE[0], CT_SHAPE[0],
+                                  CT_SHAPE[-1], CT_SHAPE[-1], 2.0, "hat",
+                                  torch.float32, DEV)
+    nodes = [len(s["nodes"]) for s in zd["slabs"]]
+    # one node of the widest slab, one regime's angles in one chunk: the
+    # tables' build against the two stage products
+    g = zd["grid"]
+    ang_v = g.thetas[ct_spectral._regime_split(g.thetas)[0]]
+    N = CT_SHAPE[-1]
+    Fk = torch.rand((2 * N + 1, 2 * CT_SHAPE[1], N), device=DEV)
+    delta = zd["slabs"][-1]["nodes"][0]
+
+    def tables():
+        return ct_spectral._modulated_tables(ang_v, True, N, g.n_s, g.ds,
+                                             delta, torch.float32, DEV)
+
+    split = {"tables": _best_ms(tables, repeats=2)}
+    tabs = tables()
+    split["stages"] = _best_ms(lambda: ct_spectral._modulated_apply(Fk, tabs),
+                               repeats=2)
+    del Fk, tabs
+    torch.cuda.empty_cache()
+    log(f"[30 CT z-DFT operators] order=2 ('hat', precision 'high') at "
+        f"{CT_SHAPE} f32 x {CT_ANGLES} angles over 2 pi, "
+        f"{type(CONE).__name__}{tuple(CONE)}: {len(nodes)} slabs, "
+        f"{sum(nodes)} offset nodes {nodes}; ms (CUDA events, one call after "
+        f"a warm-up): A {ms['A', 2]:.1f} (order 1 {ms['A', 1]:.3f}, "
+        f"{ms['A', 2] / ms['A', 1]:.1f}x), A_T {ms['A_T', 2]:.1f} (order 1 "
+        f"{ms['A_T', 1]:.3f}, {ms['A_T', 2] / ms['A_T', 1]:.1f}x); peak "
+        f"memory A {peak['A', 2] / 1e9:.2f} GB (order 1 "
+        f"{peak['A', 1] / 1e9:.2f}), A_T {peak['A_T', 2] / 1e9:.2f} GB "
+        f"(order 1 {peak['A_T', 1] / 1e9:.2f}); one node, {len(ang_v)} "
+        f"angles of one regime in one chunk: tables {split['tables']:.2f} ms, "
+        f"the two stage products {split['stages']:.2f} ms; f32 dot test "
+        f"{full_dot:.3g}; "
+        f"at {ZDFT_SMALL} x {ZDFT_SMALL_ANGLES}: card f32 vs CPU float64 "
+        f"{small_err:.3g}, dot test {small_dot:.3g} (<= {ZDFT_TOL}); a "
+        f"complex64 bmm under TF32 vs IEEE: {complex_tf32:.3g} (0: the flag "
+        f"not honoured); "
+        f"{secs['small']:.1f} s + {secs['operators']:.1f} s; card {card}")
+
+    # the certification
+    t0 = time.perf_counter()
+    errs = _zdft_certification()
+    secs["certification"] = time.perf_counter() - t0
+    log(f"[30 CT z-DFT certification] {ZDFT_CERT_SHAPE} x "
+        f"{ZDFT_CERT_ANGLES} angles f32 on the card against exact cone "
+        f"integrals of 3D Gaussians, relative error: "
+        + "; ".join(f"D_so = {m:g}N: " + ", ".join(
+            f"{k} {100 * v:.3f}%" for k, v in e.items())
+            for m, e in errs.items())
+        + f" (order 2 < gather, oversample 8 < 0.4% and < 0.15x gather); "
+        f"{secs['certification']:.1f} s")
+
+    # the solve: cp_inverse on the order-2 pair, 3 iterations
+    t0 = time.perf_counter()
+    n_iter = 3
+    A, A_T = make_cone_spectral_projector(CT_SHAPE, angles, CONE, order=2)
+    sino = A(vol)
+    sino += 0.5 * torch.randn(sino.shape, generator=gen, device=DEV)
+    del vol
+    start = time.perf_counter()
+    op_norm = float(power_iteration(A, A_T, CT_SHAPE, n_iter=3, device=DEV))
+    norm_s = time.perf_counter() - start
+    kw = dict(n_iter=n_iter, reg=0.5, cfg=TVConfig(**CT_CFG), nonneg=True,
+              op_norm=op_norm)
+
+    def solve():
+        return cp_inverse(A, sino, CT_SHAPE, A_T=A_T, **kw)
+
+    sync()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    zero_counters()
+    start = time.perf_counter()
+    res = solve()
+    sync()
+    wall = (time.perf_counter() - start) * 1e3 / n_iter
+    launches = read_counters()
+    peak_solve = torch.cuda.max_memory_allocated(DEV)
+    require_launches(launches, "cp_inverse on the order-2 pair", B5=n_iter,
+                     B2=n_iter, B3=n_iter)
+    require(bool(torch.isfinite(res.loss).all())
+            and float(res.loss[-1]) < float(res.loss[0])
+            and bool(torch.isfinite(res.x).all()),
+            "z-DFT cp_inverse: finite, losses falling")
+    loss = (float(res.loss[0]), float(res.loss[-1]))
+
+    def one_more():
+        # an iteration more from the solve's state: A_T and A, the kernels
+        return cp_inverse(A, sino, CT_SHAPE, A_T=A_T, state=res.state,
+                          **dict(kw, n_iter=1))
+
+    one_ms = _best_ms(one_more, repeats=1)
+    dev_ms = _cuda_device_ms(one_more)
+    del res
+    secs["solve"] = time.perf_counter() - t0
+    del sino, A, A_T
+    torch.cuda.empty_cache()
+    log(f"[30 CT z-DFT solve] cp_inverse(order-2 pair, {CT_SHAPE} f32 x "
+        f"{CT_ANGLES} angles, hybrid reg_time=0.5, reg 0.5, nonneg, "
+        f"{n_iter} iterations, op_norm {op_norm:.4g} from a 3-step power "
+        f"method in {norm_s:.1f} s): launches {launches}, loss "
+        f"{loss[0]:.6g} -> {loss[1]:.6g}, {1e3 / wall:.4f} it/s "
+        f"({wall:.1f} ms/it, one call); an iteration more from its state "
+        f"{one_ms:.1f} ms, device {dev_ms:.1f} ms (torch.profiler, CUDA "
+        f"activity only), idle {100 * (1 - dev_ms / one_ms):.1f}%; peak "
+        f"memory {peak_solve / 1e9:.2f} GB; {secs['solve']:.1f} s; "
+        f"card {card}")
+
+    # the gradient in reg, and the example twins
+    t0 = time.perf_counter()
+    g, fd = _zdft_grad_check()
+    secs["gradient"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex = _run_examples()
+    secs["examples"] = time.perf_counter() - t0
+    log(f"[30 CT z-DFT gradient, examples] d/d reg of cp_inverse's error "
+        f"(1, 1, 12, 12) f32, 40 iterations, on the card: autograd {g:.6g}, "
+        f"central difference {fd:.6g} ({100 * abs(g - fd) / abs(fd):.3f}%; "
+        f"no B5 / B2 launch), {secs['gradient']:.1f} s; example twins with "
+        f"--device cuda, all exit 0 with their OK line, s each: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ex.items())
+        + f" ({secs['examples']:.1f} s at once); phase seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    sync()
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -4121,6 +4500,7 @@ def main():
     phase_compat(card)
     ct_launches.update(phase_ct_spectral(card))
     sharded = phase_sharded_slice(card)
+    ct_launches["cone_zdft"] = phase_ct_zdft(card)
 
     # B1-B4 bounds at the shape their times were taken at: MAIN_4D float32,
     # hybrid with reg_time=0.5 (Nd channels).  Bytes: each array once per
@@ -4159,8 +4539,9 @@ def main():
             out["max_abs_err_bf16"] = err_bf16
         out.update(extra)
         if kid in ("B2", "B3", "B5"):
-            # the fan- and cone-beam cp_reconstruct path (phase 26) and the
-            # spectral path of each geometry (phase 28)
+            # the fan- and cone-beam cp_reconstruct path (phase 26), the
+            # spectral path of each geometry (phase 28) and cp_inverse on
+            # the z-DFT cone pair (phase 30)
             out["launches_ct_geometries"] = {
                 name: got[kid] for name, got in ct_launches.items()}
         return out

@@ -287,13 +287,14 @@ def clear_projector_cache() -> None:
     cone ones, gather and spectral, with the tables they hold on a device)
     and the caches derived from them: the spectral cone's preconditioner
     sums and scales, the spectral cone SART's normalizers, and
-    :mod:`.ct_spectral`'s grid, rebinning and device memos.  (The JAX
-    package leaves the last three populated.)"""
+    :mod:`.ct_spectral`'s grid, rebinning, z-DFT tier and device memos.
+    (The JAX package leaves the last four populated.)"""
     _PROJECTOR_CACHE.clear()
     _CONE_PRECOND_CACHE.clear()
     _SART_SUMS_CACHE.clear()
     ct_spectral._GRID_CACHE.clear()
     ct_spectral._REBIN_CACHE.clear()
+    ct_spectral._ZDFT_CACHE.clear()
     ct_spectral._DEVICE_CACHE.clear()
 
 

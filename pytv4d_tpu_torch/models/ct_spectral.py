@@ -1,6 +1,6 @@
 """Gather-free CT projectors: the Fourier-slice theorem on a linogram
 frequency grid, evaluated with FFTs and dense matmuls only.  The port of
-``pytv4d_tpu/models/ct_spectral.py``, orders 0 and 1 of the cone.
+``pytv4d_tpu/models/ct_spectral.py``.
 
 Math (the JAX package's module docstring has the derivation).  The volume
 slice is a sum of point masses at pixel centres; a detector cell at ``s``
@@ -48,8 +48,12 @@ arithmetic on a CUDA device: ``'default'`` TF32, ``'high'`` and
 global flag is restored after it.  On the CPU it has no effect.  The cone's
 z contractions and the FDK rebinning always run in IEEE arithmetic.
 
-Not ported: the cone's ``order=2`` (the z-DFT offset-line tier, ROADMAP.md
-queue A item 15b); it raises ``NotImplementedError``.
+The cone's ``order=2`` is the z-DFT offset-line tier (:func:`_zdft_apply`):
+the volume's z-DFT slabs, each slab's full complex spectrum evaluated on
+lines offset along the ray (the tables above with the offset folded in,
+built per Chebyshev offset node and application and freed), the fold pad
+and the rebinning per fold parity, and a Lagrange combination of the nodes
+per ray; its slab DFT and Lagrange matmuls run in IEEE arithmetic too.
 """
 
 from __future__ import annotations
@@ -311,9 +315,7 @@ def _planar_apply_T(yb, tables):
     Gb = torch.bmm(yb, Es.transpose(1, 2)).view(A, B, 2, K)
     Gr, Gi = Gb[:, :, 0].permute(2, 1, 0), Gb[:, :, 1].permute(2, 1, 0)
     # Fr' = Gr' Pr^T + Gi' Pi^T, Fi' = Gi' Pr^T - Gr' Pi^T
-    H = torch.cat([torch.cat([Gr, Gi], dim=2), torch.cat([Gi, -Gr], dim=2)],
-                  dim=1)                                   # (K, 2B, 2A)
-    return torch.bmm(H, Pk.transpose(1, 2))
+    return torch.bmm(_complex_rows(Gr, Gi), Pk.transpose(1, 2))
 
 
 def _auto_chunk(N: int, Np: int, n_det: int, itemsize: int) -> int:
@@ -1039,9 +1041,12 @@ def _z_contract_T(W, y):
 
 
 def _cone_apply(vol, cc, order: int, angle_chunk):
-    """``(Nz, M, N, N) -> (M, A, V, U)`` (:func:`_cone_consts`)."""
+    """``(Nz, M, N, N) -> (M, A, V, U)`` (:func:`_cone_consts`, or
+    :func:`_zdft_consts` at order 2)."""
     M = vol.shape[1]
     vol = vol.to(_real_dtype(vol.dtype))
+    if order == 2:
+        return _zdft_apply(vol, cc)
     if order >= 1:
         # the moment along the ray, R[<p, w> g], needs two radons of
         # coordinate-weighted volumes beside R[g]: one call at 3x the
@@ -1064,6 +1069,8 @@ def _cone_apply_T(y, cc, order: int, N: int, angle_chunk):
     """The transpose of :func:`_cone_apply`: ``(M, A, V, U) -> (Nz, M, N,
     N)``."""
     M = y.shape[0]
+    if order == 2:
+        return _zdft_apply_T(y.to(_real_dtype(y.dtype)), cc, N)
     yo = y.to(_real_dtype(y.dtype)) * cc["obliq"]
     F0b = _z_contract_T(cc["Wz"], yo)
     if order < 1:
@@ -1104,13 +1111,446 @@ def _cone_adjoint(y, ccs, order: int, N: int, angle_chunk):
                       for m, cc in enumerate(ccs)], dim=1)
 
 
+# ------------------------------------------- cone beam: the z-DFT tier (2)
+_ZDFT_TABLE_BUDGET = 512 * 1024 * 1024
+# bytes of one angle chunk's float64 tables in the order=2 tier: they depend
+# on the offset node, so every application builds them, chunk by chunk
+_ZDFT_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+# the tier's host constants (Lagrange matrices per slab), per geometry
+_Z_KERNELS = ("hat", "trig")
+
+
+def _check_z_kernel(z_kernel):
+    if z_kernel not in _Z_KERNELS:
+        raise ValueError(
+            f"unknown z_kernel {z_kernel!r}; expected 'hat' or 'trig'")
+
+
+def _natural(F, Np: int, dim: int):
+    """An fft-ordered axis in natural order ``k = -Np/2 .. +Np/2`` (Np + 1
+    entries): the +Nyquist entry reuses the -Nyquist bin, identical for
+    an integer-grid image.  (Its trapezoid half weight and the -Nyquist
+    one ride the synthesis table.)"""
+    h = Np // 2
+    return torch.cat([F.narrow(dim, h, h), F.narrow(dim, 0, h),
+                      F.narrow(dim, h, 1)], dim=dim)
+
+
+def _natural_T(Fn_bar, Np: int, dim: int):
+    """The transpose of :func:`_natural`: the duplicated +Nyquist entry
+    adds back into its bin."""
+    h = Np // 2
+    return torch.cat([Fn_bar.narrow(dim, h, h),
+                      Fn_bar.narrow(dim, 0, 1) + Fn_bar.narrow(dim, Np, 1),
+                      Fn_bar.narrow(dim, 1, h - 1)], dim=dim)
+
+
+def _modulated_spectrum(img_c, vertical: bool):
+    """The full padded spectrum of a complex slab ``(B, N, N)`` (no
+    conjugate symmetry, so every bin) along the contraction axis, in
+    natural order, planar and k-major as :func:`_spectrum`: ``(Np + 1, 2B,
+    N)``."""
+    B, N = img_c.shape[0], img_c.shape[-1]
+    Np = 2 * N
+    if vertical:
+        F = _natural(torch.fft.fft(img_c, n=Np, dim=-1), Np, -1)  # (B, r, k)
+        Fk = torch.view_as_real(F).permute(2, 3, 0, 1)
+    else:
+        F = _natural(torch.fft.fft(img_c, n=Np, dim=-2), Np, -2)  # (B, k, c)
+        Fk = torch.view_as_real(F).permute(1, 3, 0, 2)
+    return Fk.reshape(Np + 1, 2 * B, N)
+
+
+def _modulated_spectrum_T(Fk_bar, vertical: bool):
+    """The transpose of :func:`_modulated_spectrum`: ``(Np + 1, 2B, N) ->
+    (B, N, N)`` complex.  The padded DFT's transpose is the unnormalized
+    inverse DFT, cut to the slab."""
+    K2, N = Fk_bar.shape[0], Fk_bar.shape[-1]
+    B, Np = Fk_bar.shape[1] // 2, K2 - 1
+    F4 = Fk_bar.view(K2, 2, B, N)
+    Z = torch.complex(F4[:, 0], F4[:, 1])                     # (k, B, N)
+    if vertical:
+        Z = _natural_T(Z.permute(1, 2, 0), Np, -1)
+        return torch.fft.ifft(Z, dim=-1, norm="forward")[..., :N]
+    Z = _natural_T(Z.permute(1, 0, 2), Np, -2)
+    return torch.fft.ifft(Z, dim=-2, norm="forward")[..., :N, :]
+
+
+def _modulated_tables(ang: np.ndarray, vertical: bool, N: int, n_det: int,
+                      det_spacing: float, delta: float, real_dt, device):
+    """One angle chunk's tables of the offset line ``xi(lam) = lam
+    omega_perp - delta omega``, from float64 phases: one frequency
+    component stays on the padded grid (``nu``), ``lam`` is solved per bin.
+    ``Pk`` ``(Np + 1, N, 2A)``: the NUDFT ``P = e^{-i xi x}`` as ``[Pr |
+    Pi]``, k-major; ``Es`` ``(A, 2(Np + 1), S)``: the synthesis ``E = w
+    e^{i (lam s + nu c0)} / (Np |den|)`` as ``[Er; -Ei]``, with the
+    trapezoid end weights ``w``."""
+    Np = 2 * N
+    c0 = (N - 1) / 2.0
+    f64 = dict(dtype=torch.float64, device=device)
+    nu = (2.0 * np.pi / Np) * (torch.arange(Np + 1, **f64) - Np // 2)
+    w = torch.ones(Np + 1, **f64)
+    w[0] = w[Np] = 0.5
+    s_j = (torch.arange(n_det, **f64) - (n_det - 1) / 2.0) * det_spacing
+    x = torch.arange(N, **f64) - c0
+    th = torch.as_tensor(ang, **f64)
+    sin, cos = torch.sin(th)[:, None], torch.cos(th)[:, None]
+    if vertical:
+        # the column FFT holds xi_col = nu:  -lam sin - delta cos = nu
+        lam = -(nu[None, :] + delta * cos) / sin
+        xi = lam * cos - delta * sin                  # the row frequency
+        den = torch.abs(sin)
+    else:
+        # the row FFT holds xi_row = nu:  lam cos - delta sin = nu
+        lam = (nu[None, :] + delta * sin) / cos
+        xi = -lam * sin - delta * cos                 # the column frequency
+        den = torch.abs(cos)
+    ph = xi.t()[:, None, :] * x[None, :, None]        # (k, x, A)
+    Pk = torch.cat([torch.cos(ph), -torch.sin(ph)], dim=-1)
+    del ph
+    dph = lam[:, :, None] * s_j[None, None, :] + (nu * c0)[None, :, None]
+    scale = w[None, :, None] / (Np * den)[:, :, None]
+    Es = torch.cat([torch.cos(dph) * scale, -(torch.sin(dph) * scale)],
+                   dim=1)
+    return Pk.to(real_dt), Es.to(real_dt)
+
+
+def _complex_rows(Gr, Gi):
+    """``[[Gr, Gi], [Gi, -Gr]]`` over the last two axes: against a planar
+    ``[Tr; Ti]`` it gives the real part of a complex product in the first
+    rows and the imaginary part in the second (for ``[Tr; -Ti]`` and for
+    the transposed products, the signs as the callers say)."""
+    return torch.cat([torch.cat([Gr, Gi], dim=-1),
+                      torch.cat([Gi, -Gr], dim=-1)], dim=-2)
+
+
+def _modulated_apply(Fk, tables):
+    """Both stages on a planar complex spectrum ``(K, 2B, N)``: ``G = F P``
+    (one ``bmm`` over k) and ``G E`` (one over the angles), complex out:
+    ``(A, 2B, S)`` as ``[re; im]`` rows."""
+    Pk, Es = tables
+    A = Es.shape[0]
+    B = Fk.shape[1] // 2
+    prod = torch.bmm(Fk, Pk)                                   # (K, 2B, 2A)
+    Gr = (prod[:, :B, :A] - prod[:, B:, A:]).permute(2, 1, 0)  # (A, B, K)
+    Gi = (prod[:, :B, A:] + prod[:, B:, :A]).permute(2, 1, 0)
+    # [Gr, Gi] [Er; -Ei] = Re(G E), [Gi, -Gr] [Er; -Ei] = Im(G E)
+    return torch.bmm(_complex_rows(Gr, Gi), Es)
+
+
+def _modulated_apply_T(yb, tables):
+    """The transpose of :func:`_modulated_apply`: ``(A, 2B, S) -> (K, 2B,
+    N)``."""
+    Pk, Es = tables
+    K = Pk.shape[0]
+    B = yb.shape[1] // 2
+    Hb = torch.bmm(yb, Es.transpose(1, 2))                     # (A, 2B, 2K)
+    Gr = (Hb[:, :B, :K] - Hb[:, B:, K:]).permute(2, 1, 0)      # (K, B, A)
+    Gi = (Hb[:, :B, K:] + Hb[:, B:, :K]).permute(2, 1, 0)
+    # Fr' = Gr' Pr^T + Gi' Pi^T, Fi' = Gi' Pr^T - Gr' Pi^T
+    return torch.bmm(_complex_rows(Gr, Gi), Pk.transpose(1, 2))
+
+
+def _zdft_chunk(N: int, n_det: int) -> int:
+    """Angles per table chunk: ``_ZDFT_TABLE_BUDGET`` of float64 tables."""
+    per_angle = (N + n_det) * (2 * N + 1) * 2 * 8
+    return max(1, _ZDFT_TABLE_BUDGET // per_angle)
+
+
+def _modulated_bucket(Fk, ang_b: np.ndarray, vertical: bool, n_det: int,
+                      det_spacing: float, delta: float):
+    """The modulated spectral projection of one regime's angles: the slab's
+    transform on the offset lines, synthesized at the detector (the Fourier
+    transform of ``s -> integral f(s omega_perp + t omega) e^{i delta t}
+    dt``).  ``Fk`` is the slab's :func:`_modulated_spectrum`, shared by
+    every angle and offset; the offset rides only in the tables.  Returns
+    ``(A, 2B, n_det)`` planar complex."""
+    N = Fk.shape[-1]
+    step = _zdft_chunk(N, n_det)
+    parts = [_modulated_apply(Fk, _modulated_tables(
+        ang_b[a:a + step], vertical, N, n_det, det_spacing, delta, Fk.dtype,
+        Fk.device)) for a in range(0, len(ang_b), step)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+def _modulated_bucket_T(yb, ang_b: np.ndarray, vertical: bool, N: int,
+                        det_spacing: float, delta: float):
+    """The transpose of :func:`_modulated_bucket`: ``(A, 2B, S) -> (Np + 1,
+    2B, N)``."""
+    n_det = yb.shape[-1]
+    step = _zdft_chunk(N, n_det)
+    out = None
+    for a in range(0, len(ang_b), step):
+        part = _modulated_apply_T(yb[a:a + step], _modulated_tables(
+            ang_b[a:a + step], vertical, N, n_det, det_spacing, delta,
+            yb.dtype, yb.device))
+        out = part if out is None else out + part
+    return out
+
+
+def _modulated_spectra(img_c, thetas: np.ndarray):
+    """:func:`_modulated_spectrum` of a complex slab for each regime that
+    ``thetas`` has."""
+    return {vert: _modulated_spectrum(img_c, vert)
+            for vert, idx in zip((True, False), _regime_split(thetas))
+            if idx.size}
+
+
+def _modulated_dense(spectra, thetas: np.ndarray, n_s: int, ds: float,
+                     delta: float):
+    """The modulated dense radon over a concrete theta grid, both regimes,
+    un-permuted by concatenated runs as :func:`_radon_spectral_shared` is:
+    ``(n_theta, 2B, n_s)`` planar complex."""
+    pieces = []
+    for vert, idx in zip((True, False), _regime_split(thetas)):
+        if idx.size:
+            part = _modulated_bucket(spectra[vert], thetas[idx], vert, n_s,
+                                     ds, delta)
+            pieces += [(i0, part[j0:j1]) for j0, j1, i0 in _runs(idx)]
+    return torch.cat([p for _, p in sorted(pieces, key=lambda q: q[0])],
+                     dim=0)
+
+
+def _modulated_dense_T(d_bar, thetas: np.ndarray, N: int, ds: float,
+                       delta: float):
+    """The transpose of :func:`_modulated_dense`, up to the spectra: ``{vert:
+    (Np + 1, 2B, N)}``."""
+    out = {}
+    for vert, idx in zip((True, False), _regime_split(thetas)):
+        if idx.size:
+            runs = [d_bar[i0:i0 + j1 - j0] for j0, j1, i0 in _runs(idx)]
+            yb = runs[0] if len(runs) == 1 else torch.cat(runs, dim=0)
+            out[vert] = _modulated_bucket_T(yb, thetas[idx], vert, N, ds,
+                                            delta)
+    return out
+
+
+def _lagrange_matrix(nodes: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Lagrange interpolation weights from ``nodes`` (L,) to the query
+    points ``q`` (Q,): ``(Q, L)`` with ``f(q) = W @ f(nodes)``, exact for
+    polynomials of degree < L."""
+    L = len(nodes)
+    W = np.ones((len(q), L))
+    for l in range(L):
+        for j in range(L):
+            if j != l:
+                W[:, l] *= (q - nodes[j]) / (nodes[l] - nodes[j])
+    return W
+
+
+def _zdft_host_consts(geom, ang: np.ndarray, Nz: int, n_det_v: int,
+                      n_det_u: int, N: int, oversample: float,
+                      z_kernel: str):
+    """Host constants of the z-DFT tier (order=2): the padded z period, the
+    slabs' frequencies and kernel weights, and per slab the Chebyshev
+    offset nodes with the Lagrange matrices that map node values to every
+    ray's exact offset ``nu_k sigma(v, u)`` (one for each fold parity: a
+    ray folded by pi runs the other way, at the opposite offset)."""
+    _check_z_kernel(z_kernel)
+    cc = _cone_host_consts(geom, ang, Nz, n_det_v, n_det_u, N, oversample)
+    sigma = cc["sigma"]                                 # (V, U) signed
+    t_ext = 0.75 * N + 1.0
+    smax = float(np.abs(cc["s_src"]).max())
+    sigmax = float(np.abs(sigma).max())
+    exc = sigmax * (t_ext + smax)
+    # the periodized z model: Nzp > max |z - m| + 1, so that no ray inside
+    # the in-plane support reads a periodic replica of the volume
+    Nzp = int(np.ceil((Nz - 1) / 2.0 + exc)) + 3
+    Nzp = max(Nzp, Nz + 2)
+    Nzp += Nzp % 2
+    Kz = Nzp // 2
+    nus = 2.0 * np.pi * np.arange(Kz + 1) / Nzp
+    wsym = np.full(Kz + 1, 2.0)
+    wsym[0] = wsym[Kz] = 1.0                            # Nzp is even
+    if z_kernel == "hat":
+        # the hat's first-replica spectrum: the gather cone's linear z
+        # interpolation below the z Nyquist ('trig' keeps the band-limited
+        # interpolant)
+        kern = np.sinc(nus / (2.0 * np.pi)) ** 2
+    else:
+        kern = np.ones_like(nus)
+    q = sigma.ravel()
+    nodes, Wq_pos, Wq_neg = [], [], []
+    for nu in nus:
+        D = nu * sigmax
+        # Chebyshev interpolation of e^{i delta t} on |delta| <= D, |t| <=
+        # t_ext: the error ~ (e D t_ext / (2 n))^n decays once n > 1.36 D
+        # t_ext
+        n = max(1, int(np.ceil(1.45 * D * t_ext)) + 6) if D > 0 else 1
+        if n == 1:
+            nd = np.zeros(1)
+            Wp = Wn = np.ones((q.size, 1))
+        else:
+            nd = D * np.cos(np.pi * (2 * np.arange(n) + 1) / (2 * n))
+            Wp = _lagrange_matrix(nd, nu * q)
+            Wn = _lagrange_matrix(nd, -nu * q)
+        nodes.append(nd)
+        Wq_pos.append(Wp.reshape(n_det_v, n_det_u, n))
+        Wq_neg.append(Wn.reshape(n_det_v, n_det_u, n))
+    return {"cc": cc, "Nzp": Nzp, "Kz": Kz, "nus": nus, "wsym": wsym,
+            "kern": kern, "nodes": nodes, "Wq_pos": Wq_pos,
+            "Wq_neg": Wq_neg}
+
+
+def _zdft_consts(geom, ang: np.ndarray, Nz: int, n_det_v: int, n_det_u: int,
+                 N: int, oversample: float, z_kernel: str, real_dt, device):
+    """One shared angle set's z-DFT constants on a device, memoized: the
+    slab DFT ``[cos; -sin]`` ``(2(Kz+1), Nz)``, the rebinning weights (``Ws``
+    ``(n_s, 2U)`` both parities, ``Wt[p]`` ``(U, A, T)`` per parity), and per
+    slab the Lagrange matrices ``(U, V, L)`` per parity, the phase ``e^{i
+    nu (cz - sigma s_src)}`` as ``(U, V, 1, A)`` real and imaginary parts,
+    the weight ``wsym kern / Nzp`` and the offset nodes."""
+    key = ("zdft", ang.tobytes(), ang.shape, tuple(geom), Nz, n_det_v,
+           n_det_u, N, oversample, z_kernel)
+    zc = _host_memo(_ZDFT_CACHE, key, lambda: _zdft_host_consts(
+        geom, ang, Nz, n_det_v, n_det_u, N, oversample, z_kernel))
+
+    def build():
+        np_dt = _np_dtype(real_dt)
+
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=np_dt),
+                                   device=device)
+
+        cc = zc["cc"]
+        Ws, Wt = _rebin_mats(cc["grid"], np_dt)         # Wt (A, U, T, 2)
+        ph = zc["nus"][:, None] * np.arange(Nz)[None, :]
+        slabs = []
+        for k, nu in enumerate(zc["nus"]):
+            p = nu * ((Nz - 1) / 2.0 - cc["sigma"][None] * cc["s_src"][:, None])
+            p = p.transpose(2, 1, 0)[:, :, None, :]     # (U, V, 1, A)
+            slabs.append(dict(
+                phase=(dev(np.cos(p)), dev(np.sin(p))),
+                lagrange=[dev(W.transpose(1, 0, 2))
+                          for W in (zc["Wq_pos"][k], zc["Wq_neg"][k])],
+                coef=float(zc["wsym"][k] * zc["kern"][k] / zc["Nzp"]),
+                nodes=[float(d) for d in zc["nodes"][k]]))
+        return {"slab": dev(np.concatenate([np.cos(ph), -np.sin(ph)])),
+                "Ws": dev(Ws),
+                "Wt": [dev(Wt[..., p].transpose(1, 0, 2)) for p in (0, 1)],
+                "obliq": dev(cc["obliq"]), "grid": cc["grid"],
+                "slabs": slabs}
+
+    return _device_memo(key + (real_dt, torch.device(device)), build)
+
+
+def _zdft_combine(dense, zd, k: int):
+    """Slab ``k``'s dense sinograms at its nodes, fold-padded, ``(L, T, 2M,
+    n_s)``, to the offset-interpolated value at every ray: the rebinning
+    per fold parity (the call's precision), then the parity's Lagrange
+    matrix (IEEE): ``(U, V, 2, M, A)``."""
+    L, T, B2 = dense.shape[0], dense.shape[1], dense.shape[2]
+    U = zd["Ws"].shape[1] // 2
+    d2 = torch.matmul(dense, zd["Ws"]).view(L, T, B2, U, 2)
+    val = None
+    for p, lagrange in enumerate(zd["slabs"][k]["lagrange"]):
+        reb = torch.bmm(zd["Wt"][p], d2[..., p].permute(3, 1, 0, 2)
+                        .reshape(U, T, L * B2))                # (U, A, L 2M)
+        A = reb.shape[1]
+        reb = reb.view(U, A, L, B2).permute(0, 2, 3, 1).reshape(U, L, -1)
+        with _matmul_precision("highest", dense.device):
+            part = torch.bmm(lagrange, reb)                    # (U, V, 2M A)
+        val = part if val is None else val + part
+    return val.view(U, -1, 2, B2 // 2, A)
+
+
+def _zdft_combine_T(val_bar, zd, k: int):
+    """The transpose of :func:`_zdft_combine`: ``(U, V, 2, M, A) -> (L, T,
+    2M, n_s)``."""
+    U, V, _, M, A = val_bar.shape
+    B2 = 2 * M
+    vb = val_bar.reshape(U, V, B2 * A)
+    d2 = []
+    for p, lagrange in enumerate(zd["slabs"][k]["lagrange"]):
+        with _matmul_precision("highest", vb.device):
+            rb = torch.bmm(lagrange.transpose(1, 2), vb)       # (U, L, 2M A)
+        L = rb.shape[1]
+        rb = rb.view(U, L, B2, A).permute(0, 3, 1, 2).reshape(U, A, L * B2)
+        d2.append(torch.bmm(zd["Wt"][p].transpose(1, 2), rb))  # (U, T, L 2M)
+    T = d2[0].shape[1]
+    d2 = torch.stack(d2, dim=-1).view(U, T, L, B2, 2).permute(2, 1, 3, 0, 4)
+    return torch.matmul(d2.reshape(L, T, B2, 2 * U), zd["Ws"].t())
+
+
+def _zdft_apply(vol, zd):
+    """The z-DFT offset-line cone forward of one shared angle set: ``(Nz,
+    M, N, N) -> (M, A, V, U)``.  The volume's z-DFT slabs ``(Kz+1, M, N,
+    N)`` complex; per slab, its spectra once, then per offset node its
+    modulated dense sinogram (the node's tables built, used and freed); the
+    fold pad, whose wrap column of node l is node L-1-l's flipped in s
+    (``R_delta(theta + pi, s) = R_{-delta}(theta, -s)``, the node sets are
+    symmetric); the rebinning and the Lagrange combination per parity; the
+    weighted ``Re(phase val)`` summed over slabs; the obliquity."""
+    Nz, M, N = vol.shape[0], vol.shape[1], vol.shape[-1]
+    g = zd["grid"]
+    with _matmul_precision("highest", vol.device):
+        sl = torch.matmul(zd["slab"], vol.reshape(Nz, -1)).view(
+            2, -1, M, N, N)
+    out = None
+    for k, s in enumerate(zd["slabs"]):
+        spectra = _modulated_spectra(torch.complex(sl[0, k], sl[1, k]),
+                                     g.thetas)
+        dense = torch.stack([_modulated_dense(spectra, g.thetas, g.n_s, g.ds,
+                                              d) for d in s["nodes"]])
+        del spectra
+        if g.pad:
+            wrap = torch.flip(torch.flip(dense, dims=(0,))[:, :g.pad],
+                              dims=(-1,))
+            dense = torch.cat([dense, wrap], dim=1)
+        val = _zdft_combine(dense, zd, k)
+        del dense
+        phr, phi = s["phase"]
+        term = (phr * val[:, :, 0] - phi * val[:, :, 1]) * s["coef"]
+        out = term if out is None else out + term             # (U, V, M, A)
+    return out.permute(2, 3, 1, 0) * zd["obliq"]
+
+
+def _zdft_apply_T(y, zd, N: int):
+    """The transpose of :func:`_zdft_apply`: ``(M, A, V, U) -> (Nz, M, N,
+    N)``, stage by stage; the spectra's cotangents summed over a slab's
+    nodes before one inverse DFT per regime."""
+    M = y.shape[0]
+    g = zd["grid"]
+    T = len(g.thetas)
+    yo = (y * zd["obliq"]).permute(3, 2, 0, 1)                 # (U, V, M, A)
+    slab_bar = []
+    for k, s in enumerate(zd["slabs"]):
+        yk = yo * s["coef"]
+        phr, phi = s["phase"]
+        d_bar = _zdft_combine_T(torch.stack([phr * yk, -(phi * yk)], dim=2),
+                                zd, k)
+        if g.pad:
+            d_bar = torch.cat([d_bar[:, :g.pad]
+                               + torch.flip(d_bar[:, T:], dims=(0, -1)),
+                               d_bar[:, g.pad:T]], dim=1)
+        Fk_bar = {}
+        for l, d in enumerate(s["nodes"]):
+            for vert, part in _modulated_dense_T(d_bar[l], g.thetas, N, g.ds,
+                                                 d).items():
+                Fk_bar[vert] = part if vert not in Fk_bar \
+                    else Fk_bar[vert] + part
+        del d_bar
+        slab_bar.append(sum(_modulated_spectrum_T(F, vert)
+                            for vert, F in Fk_bar.items()))
+    zb = torch.stack(slab_bar)                                 # (Kz+1, M, N, N)
+    planar = torch.cat([zb.real, zb.imag]).reshape(zd["slab"].shape[0], -1)
+    with _matmul_precision("highest", y.device):
+        return torch.matmul(zd["slab"].t(), planar).view(-1, M, N, N)
+
+
+def _zdft_consts_of(geom, ang, Nz, n_det_v, n_det_u, N, oversample,
+                    z_kernel, real_dt, device):
+    """:func:`_zdft_consts` of a shared angle set, or a list of them, one
+    per frame of per-frame angles."""
+    sets = [ang] if ang.ndim == 1 else list(ang)
+    zds = [_zdft_consts(geom, a, Nz, n_det_v, n_det_u, N, oversample,
+                        z_kernel, real_dt, device) for a in sets]
+    return zds[0] if ang.ndim == 1 else zds
+
+
 def _check_order(order):
     if order not in (0, 1, 2):
         raise ValueError(f"order must be 0, 1 or 2, got {order!r}")
-    if order == 2:
-        raise NotImplementedError(
-            "order=2 (the z-DFT offset-line cone tier) is not ported yet "
-            "(ROADMAP.md queue A, item 15b); use order=0 or order=1")
 
 
 def radon_cone_spectral(vol, angles, geom, n_det_v: Optional[int] = None,
@@ -1118,7 +1558,7 @@ def radon_cone_spectral(vol, angles, geom, n_det_v: Optional[int] = None,
                         angle_chunk: Optional[int] = None,
                         oversample: float = 2.0, order: int = 1,
                         precision: Optional[str] = None, _tables=None,
-                        device=None):
+                        device=None, z_kernel: str = "hat"):
     """Gather-free cone-beam forward projection: single-slice rebinning
     (SSRB: detector row ``v`` reads the volume slice at its
     isocenter-plane height, a ``(n_det_v, Nz)`` interpolation matmul, then
@@ -1134,7 +1574,21 @@ def radon_cone_spectral(vol, angles, geom, n_det_v: Optional[int] = None,
     ``order=0`` is classic SSRB, O(sigma); ``order=1`` cancels the linear
     term, leaving O(sigma^2 f'').  Exact in the parallel limit.  The
     operator is linear with an exact transpose at each order.
-    ``order=2`` (the z-DFT tier) is not ported (ROADMAP.md item 15b)."""
+
+    ``order=2`` is the z-DFT offset-line tier, the accuracy-certification
+    rung: the padded volume's z-DFT slabs, each slab's spectrum evaluated
+    on lines offset along the ray by the per-ray frequency ``nu_k sigma(v,
+    u)`` (the modulated line integral is the Fourier-slice value at the
+    offset line, :func:`_modulated_bucket`), Lagrange-interpolated over
+    per-slab Chebyshev offset nodes.  No expansion in the slope, and
+    sigma's u-dependence is exact; what remains against the gather cone is
+    the z kernel: ``z_kernel='hat'`` (default) weights slab k by the hat
+    spectrum ``sinc^2(nu_k / 2)`` (the gather cone's linear z
+    interpolation below the z Nyquist), ``'trig'`` keeps the band-limited
+    interpolant.  It costs ``sum_k L_k`` complex dense radons (``L_k``
+    nodes, growing with the ray's z-wander ``nu_k sigma_max N``), each
+    building its own tables; ``angle_chunk`` and ``_tables`` apply to
+    orders 0 and 1 only."""
     vol = on_device(vol, device)
     if vol.ndim != 4 or vol.shape[-2] != vol.shape[-1]:
         raise ValueError(
@@ -1148,9 +1602,13 @@ def radon_cone_spectral(vol, angles, geom, n_det_v: Optional[int] = None,
     if ang.ndim == 2 and ang.shape[0] != M:
         raise ValueError(
             f"per-frame angles must be (M={M}, n_angles), got {ang.shape}")
-    ccs = _tables or _cone_consts_of(geom, ang, Nz, n_det_v, n_det_u, N,
-                                     oversample, _real_dtype(vol.dtype),
-                                     vol.device, precompute=False)
+    if order == 2:
+        ccs = _zdft_consts_of(geom, ang, Nz, n_det_v, n_det_u, N, oversample,
+                              z_kernel, _real_dtype(vol.dtype), vol.device)
+    else:
+        ccs = _tables or _cone_consts_of(geom, ang, Nz, n_det_v, n_det_u, N,
+                                         oversample, _real_dtype(vol.dtype),
+                                         vol.device, precompute=False)
     with _matmul_precision(precision, vol.device):
         return _cone_forward(vol, ccs, order, angle_chunk).to(vol.dtype)
 
@@ -1161,12 +1619,14 @@ def make_cone_spectral_projector(vol_shape, angles, geom,
                                  dtype=torch.float32,
                                  angle_chunk: Optional[int] = None,
                                  oversample: float = 2.0, order: int = 1,
-                                 precision: Optional[str] = None):
+                                 precision: Optional[str] = None,
+                                 z_kernel: str = "hat"):
     """``(A, A_T)`` for a fixed cone-beam geometry on the SSRB spectral
     path (:func:`radon_cone_spectral`); ``A_T`` is the exact transpose of
     the (approximate but linear) map, so the CP and SART solvers see a
     consistent pair.  Same ``prepare()/apply`` protocol as the parallel
-    and fan projectors."""
+    and fan projectors at orders 0 and 1; the z-DFT tier (``order=2``)
+    builds its tables per node and application and attaches none."""
     ang = _concrete_angles(angles)
     vol_shape = tuple(int(n) for n in vol_shape)
     Nz, N = vol_shape[0], vol_shape[-1]
@@ -1175,6 +1635,23 @@ def make_cone_spectral_projector(vol_shape, angles, geom,
     real_dt = _real_dtype(dtype)
     _check_order(order)
     _check_precision(precision)
+    if order == 2:
+        _check_z_kernel(z_kernel)
+
+        def A(x):
+            return radon_cone_spectral(
+                on_device(x).to(dtype), ang, geom, n_det_v=n_det_v,
+                n_det_u=n_det_u, oversample=oversample, order=2,
+                precision=precision, z_kernel=z_kernel)
+
+        def A_T(y):
+            y = on_device(y).to(dtype)
+            zds = _zdft_consts_of(geom, ang, Nz, n_det_v, n_det_u, N,
+                                  oversample, z_kernel, real_dt, y.device)
+            with _matmul_precision(precision, y.device):
+                return _cone_adjoint(y, zds, 2, N, None).to(dtype)
+
+        return A, A_T
 
     plan = _Plan(lambda device, rdt: _cone_consts_of(
         geom, ang, Nz, n_det_v, n_det_u, N, oversample, rdt, device,
@@ -1219,14 +1696,18 @@ def cone_spectral_precond_sums(vol_shape, angles, geom,
     package).  The column sums are the surrogate's exact transpose at
     ones; both are floored at 1e-6 of their largest.  The spectral splat's
     ringing tails are not bounded: callers check the preconditioned step
-    condition with a power method (``models.ct`` does).  On the CUDA
-    device unless ``device`` names another."""
+    condition with a power method (``models.ct`` does).  ``order=2``
+    gives the order-1 surrogate's sums.  On the CUDA device unless
+    ``device`` names another."""
     ang = _concrete_angles(angles)
     vol_shape = tuple(int(n) for n in vol_shape)
     Nz, N = vol_shape[0], vol_shape[-1]
     n_det_v = n_det_v or Nz
     n_det_u = n_det_u or N
     _check_order(order)
+    # the surrogate is the expansion's: order 2 takes the order-1 sums, as
+    # the JAX package's (its surrogate tests order >= 1; ROADMAP.md queue C)
+    order = min(order, 1)
     device = on_device(np.zeros(0), device).device
     ccs = _cone_consts_of(geom, ang, Nz, n_det_v, n_det_u, N, oversample,
                           _real_dtype(dtype), device, precompute=False,

@@ -133,14 +133,31 @@ def _bind_operator(A, A_T, vol_shape, dtype):
     return A_, exact_transpose(A_, vol_shape, dtype)
 
 
+class _LinearTranspose(torch.autograd.Function):
+    """``vjp(y)``, the transpose of the linear map ``A``, differentiable in
+    ``y``: its own transpose is ``A`` (no op of ``A`` needs a second
+    derivative, which some, such as the CUDA grid sampler's, lack)."""
+
+    @staticmethod
+    def forward(ctx, y, A, vjp):
+        ctx.A = A
+        return vjp(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.A(g), None, None
+
+
 def exact_transpose(A: Callable, vol_shape, dtype=torch.float32) -> Callable:
     """The exact adjoint of a linear map: its vjp, which passes the
     dot-product test to round-off by construction.  A is linear, so the
     graph recorded once at zeros serves every cotangent: the first call on
-    a device records it and later calls only run it backwards."""
+    a device records it and later calls only run it backwards.  A ``y``
+    that requires grad (a solve differentiated in ``reg``) gets an
+    ``A^T y`` differentiable in it."""
     graphs = {}
 
-    def A_T(y):
+    def vjp(y):
         if y.device not in graphs:
             x = torch.zeros(tuple(vol_shape), dtype=dtype, device=y.device,
                             requires_grad=True)
@@ -150,6 +167,11 @@ def exact_transpose(A: Callable, vol_shape, dtype=torch.float32) -> Callable:
         (x_bar,) = torch.autograd.grad(out, x, y.detach(),
                                        retain_graph=True)
         return x_bar
+
+    def A_T(y):
+        if y.requires_grad and torch.is_grad_enabled():
+            return _LinearTranspose.apply(y, A, vjp)
+        return vjp(y)
 
     return A_T
 
@@ -312,7 +334,10 @@ def cp_inverse(
     a CUDA tensor, their plain versions on the CPU) when the problem
     supports it: float32/bfloat16 volumes that
     ``kernels.dispatch.can_fuse`` accepts, and scalar steps
-    (``precond=False``).  ``fused=False`` forces the plain step.
+    (``precond=False``).  ``fused=False`` forces the plain step.  A
+    ``reg`` tensor that requires grad takes the plain step, where it stays
+    a tensor, so ``torch.autograd`` differentiates the solve in ``reg``
+    through the unrolled iterations (``fused=True`` then raises).
     ``dual_dtype='bfloat16'`` (fused path only) stores the Nd-channel TV
     dual, by far the largest state, in bf16; the returned state's ``y_D``
     keeps the volume dtype.
@@ -359,12 +384,17 @@ def cp_inverse(
         step = float(1.0 / np.sqrt(L_sq))  # sigma = tau
 
     fusable = can_fuse(vol_shape, cfg, dtype=dtype)
+    # reg stays a tensor when the caller differentiates through the solve
+    # (unrolled hyperparameter gradients, cf. Bertrand et al. 2020)
+    reg_grad = isinstance(reg, torch.Tensor) and reg.requires_grad
     if fused is None:
-        fused = not precond and fusable
-    if fused and precond:
+        fused = not precond and not reg_grad and fusable
+    if fused and (precond or reg_grad):
         raise ValueError(
             "fused=True is incompatible with precond=True (per-pixel step "
-            "maps; the fused kernels take scalar steps) — use fused=False"
+            "maps; the fused kernels take scalar steps) and with a reg that "
+            "requires grad (the fused kernels take reg and the steps as "
+            "constants) — use fused=False"
         )
     if fused and not fusable:
         raise ValueError(
@@ -414,7 +444,8 @@ def cp_inverse(
             steps = (step, step, step)
         run = functools.partial(_inverse_run, steps=steps)
     final, losses = run(A_, A_T_, b, carry, fw, vol_shape=vol_shape, cfg=cfg,
-                        reg=float(reg), fidelity=fidelity,
+                        reg=reg if reg_grad else float(reg),
+                        fidelity=fidelity,
                         nonneg=bool(nonneg), n_iter=int(n_iter),
                         loss_every=int(loss_every))
     return InverseResult(x=final.x, loss=losses, state=final)

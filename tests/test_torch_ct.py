@@ -239,21 +239,22 @@ def test_projector_cache_is_lru_and_clears():
 @pytest.mark.parametrize("what", ("spectral-projector", "spectral-recon",
                                   "spectral-fbp", "cone-order-2"))
 def test_unported_paths_raise_not_implemented(what):
-    """The spectral calls that raised until ROADMAP.md item 15 now run and
-    match the JAX package in float64; the cone's order 2 (item 15b) still
-    raises."""
+    """The spectral calls that raised until ROADMAP.md item 15 run and
+    match the JAX package in float64, and so does the cone's order 2, which
+    raised until item 15b (the name is older than both)."""
     import pytv4d_tpu.models.ct_spectral as jcs
     from pytv4d_tpu_torch.models import ct_spectral
 
     sino = _phantom_problem(np.float64, SHARED)
     x = _volume(np.float64)
-    if what == "cone-order-2":
-        with pytest.raises(NotImplementedError, match="item 15b"):
+    got, want = {
+        "cone-order-2": lambda: (
             ct_spectral.radon_cone_spectral(
                 torch.tensor(x), SHARED, ct.ConeBeamGeometry(64.0, 32.0),
-                order=2)
-        return
-    got, want = {
+                order=2),
+            jcs.radon_cone_spectral(
+                jnp.asarray(x), SHARED, jct.ConeBeamGeometry(64.0, 32.0),
+                order=2)),
         "spectral-projector": lambda: (
             ct.make_projector(SHAPE, SHARED, dtype=torch.float64,
                               method="spectral")[0](torch.tensor(x)),

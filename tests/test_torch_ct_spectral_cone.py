@@ -4,7 +4,8 @@ package's on the same seeded numpy inputs: the projection and its explicit
 adjoint, per-frame angles, the parallel limit and the order's accuracy
 against the gather cone, the operator protocol, the abs-factor
 preconditioner sums and ``cp_reconstruct(geom=cone, method='spectral')``
-with and without ``precond``; ``order=2`` is not ported and raises.
+with and without ``precond``; bad orders and z kernels raise as in JAX
+(``order=2`` itself: ``tests/test_torch_ct_zdft.py``).
 
 Tolerances: float64 within 1e-11 of the output's largest value, float32
 within 1e-5 of the scale, reconstructions in float64 within 1e-9."""
@@ -163,18 +164,20 @@ def test_order_accuracy_against_the_gather_cone():
 
 
 def test_order_2_is_not_ported_and_bad_orders_raise_as_jax():
-    _, tgeom = _geoms("default")
+    """A bad order and, at order 2, a bad z kernel raise the JAX package's
+    messages (the name is older than the order-2 tier, which
+    ``tests/test_torch_ct_zdft.py`` holds against JAX)."""
+    jgeom, tgeom = _geoms("default")
     x = torch.zeros(SHAPE)
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        cs.radon_cone_spectral(x, SHARED, tgeom, order=2)
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        cs.make_cone_spectral_projector(SHAPE, SHARED, tgeom, order=2)
-    with pytest.raises(ValueError) as want:
-        jcs.radon_cone_spectral(jnp.zeros(SHAPE), SHARED, _geoms("default")[0],
-                                order=3)
-    with pytest.raises(ValueError) as got:
-        cs.radon_cone_spectral(x, SHARED, tgeom, order=3)
-    assert str(got.value) == str(want.value)
+    for kw in (dict(order=3), dict(order=2, z_kernel="nope")):
+        with pytest.raises(ValueError) as want:
+            jcs.radon_cone_spectral(jnp.zeros(SHAPE), SHARED, jgeom, **kw)
+        with pytest.raises(ValueError) as got:
+            cs.radon_cone_spectral(x, SHARED, tgeom, **kw)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="z_kernel"):
+        cs.make_cone_spectral_projector(SHAPE, SHARED, tgeom, order=2,
+                                        z_kernel="nope")
 
 
 @pytest.mark.parametrize("which", list(ANGLES))
