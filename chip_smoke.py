@@ -115,7 +115,14 @@ peak memory, checks it against exact cone integrals of 3D Gaussians (it
 must beat the gather cone), solves with ``cp_inverse`` on the order-2 pair
 (one B5 and B2 launch per iteration, one B3 per loss), differentiates a
 small solve in ``reg`` on the plain step against a central difference, and
-runs the six example twins (``examples/torch_*.py --device cuda``).
+``cp_reconstruct`` / ``tgv_reconstruct`` through the gather pairs, and
+runs the six example twins (``examples/torch_*.py --device cuda``).  For
+the entry points on a grid (phase 31): hands grids of shards of the
+(32, 8, 256, 256) volume to ``chambolle_pock`` (B1, B2, B8),
+``subgradient_descent`` and ``tv_and_subgrad`` (B3, B4), ``tgv_denoise``
+(B7 in 2d; B6 in 4d on z-shards; no kernel in 4d on a grid that cuts
+time), ``admm`` and ``fista`` (no kernel), each against the same call on
+the whole volume, and times each beside the direct sharded solver.
 Every phase raises on failure; nothing falls back to the CPU.  The last line of stdout is one
 JSON object with ``"ok": true`` and the device.
 """
@@ -182,6 +189,7 @@ from pytv4d_tpu_torch.models.ct import (
     radon_fan,
     sart,
     sinogram_sharding,
+    tgv_reconstruct,
 )
 from pytv4d_tpu_torch.models.ct_spectral import (
     fdk_spectral,
@@ -194,6 +202,7 @@ from pytv4d_tpu_torch.parallel import (
     fused_halo,
     gather_d_volume,
     gather_volume,
+    is_grid,
     make_mesh,
     make_sharded_cp_solver_fused,
     make_sharded_gd_solver_fused,
@@ -4222,6 +4231,38 @@ def _zdft_grad_check():
     return float(g), fd
 
 
+def _ct_grad_check():
+    """The gradients of ``cp_reconstruct`` in ``reg`` and
+    ``tgv_reconstruct`` in ``alpha1`` through the gather pairs on the card
+    (f32): the C4 setup of ROADMAP.md (the sinogram of a seeded (1, 1, 12,
+    12) volume at 5 angles, 5 iterations at 0.05), autograd against a
+    central difference.  The backward of a gather pair's transpose is its
+    forward projector, so the sampler's transpose is never differentiated
+    (it has no derivative on a CUDA device)."""
+    vol = torch.as_tensor(np.random.default_rng(0).random((1, 1, 12, 12)),
+                          dtype=torch.float32, device=DEV)
+    angles = np.linspace(0.0, np.pi, 6)[:-1]
+    sino = radon(vol, angles)
+    out = {}
+    for name, fn, arg in (("cp_reconstruct", cp_reconstruct, "reg"),
+                          ("tgv_reconstruct", tgv_reconstruct, "alpha1")):
+        def f(v):
+            res = fn(sino, angles, vol.shape, n_iter=5, method="gather",
+                     **{arg: v})
+            return torch.sum(res.x)
+
+        value = torch.tensor(0.05, device=DEV, requires_grad=True)
+        (g,) = torch.autograd.grad(f(value), value)
+        h = 1e-3
+        fd = (float(f(0.05 + h)) - float(f(0.05 - h))) / (2 * h)
+        require(bool(torch.isfinite(g)) and abs(float(g) - fd)
+                <= 0.01 * abs(fd),
+                f"d/d {arg} of {name} (gather) on the card {float(g)} vs "
+                f"central difference {fd}")
+        out[name] = (float(g), fd)
+    return out
+
+
 def _run_examples():
     """The six example twins, each in its own process with --device cuda,
     all at once: each must exit 0 and end with its OK line.  Seconds each,
@@ -4454,6 +4495,7 @@ def phase_ct_zdft(card):
     # the gradient in reg, and the example twins
     t0 = time.perf_counter()
     g, fd = _zdft_grad_check()
+    ct_grads = _ct_grad_check()
     secs["gradient"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ex = _run_examples()
@@ -4461,13 +4503,229 @@ def phase_ct_zdft(card):
     log(f"[30 CT z-DFT gradient, examples] d/d reg of cp_inverse's error "
         f"(1, 1, 12, 12) f32, 40 iterations, on the card: autograd {g:.6g}, "
         f"central difference {fd:.6g} ({100 * abs(g - fd) / abs(fd):.3f}%; "
-        f"no B5 / B2 launch), {secs['gradient']:.1f} s; example twins with "
+        f"no B5 / B2 launch); through the gather pairs (1, 1, 12, 12) f32, "
+        f"5 angles, 5 iterations at 0.05: "
+        + ", ".join(f"{k} autograd {a:.6g}, central difference {b:.6g} "
+                    f"({100 * abs(a - b) / abs(b):.3f}%)"
+                    for k, (a, b) in ct_grads.items())
+        + f"; {secs['gradient']:.1f} s; example twins with "
         f"--device cuda, all exit 0 with their OK line, s each: "
         + ", ".join(f"{k} {v:.1f}" for k, v in ex.items())
         + f" ({secs['examples']:.1f} s at once); phase seconds "
         + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
     sync()
     return launches
+
+
+# ---------------------------------------------------------------- phase 31
+GRID_MESHES = {"z4": (4, 1), "2x2": (2, 2), "4x2": (4, 2)}
+
+
+def _on_grid(what, run, **expected):
+    """``run()`` with every counter at 0 before it and read after it; the
+    counters named in ``expected`` must read as given, every other 0."""
+    sync()
+    zero_counters()
+    out = run()
+    sync()
+    got = read_counters()
+    require_launches(got, what, **expected)
+    return out
+
+
+def _per_it(run, n_it):
+    """ms per iteration of ``run()``, which runs ``n_it`` of them (the best
+    of two calls after a warm-up, CUDA events)."""
+    return _best_ms(run, 2) / n_it
+
+
+def _loss_rel(got, ref):
+    return float(((got.float() - ref.float()).abs()
+                  / ref.float().abs()).max())
+
+
+def phase_grid_entry(card):
+    """Phase 31: the normal entry points handed a grid of shards of the 4D
+    cell, (32, 8, 256, 256) f32 from numpy, hybrid reg_time=0.5, as 4
+    z-shards, a (2 x 2) and a (4 x 2) grid on the card: each call's kernel
+    launches, its result against the same call on the whole volume, and
+    its ms per iteration beside the direct call of the sharded solver
+    (phases 25 and 29) and the whole volume's.  Returns the launches by
+    kernel and call."""
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    base = np.random.default_rng(0).random(MAIN_4D).astype(np.float32)
+    whole = torch.as_tensor(base, device=DEV)
+    grids = {k: shard_volume(base, make_mesh(*m), m[1] > 1)
+             for k, m in GRID_MESHES.items()}
+    n_it, t0 = 20, time.perf_counter()
+    per = n_it * 4
+    launches, lines = {}, []
+
+    def direct_cp(grid, dual_dtype=None):
+        mesh = make_mesh(len(grid), len(grid[0]))
+        solve = make_sharded_cp_solver_fused(
+            mesh, cfg, MAIN_4D, reg=1.0, n_iter=n_it,
+            shard_time=len(grid[0]) > 1, dual_dtype=dual_dtype)
+        Nd = num_channels(cfg.scheme, MAIN_4D[0], MAIN_4D[1],
+                          cfg.reg_z_over_reg, cfg.reg_time)
+        y_A = grid_map(torch.zeros_like, grid)
+        y_D = grid_map(lambda a: a.new_zeros(
+            (a.shape[0], a.shape[1], Nd) + tuple(a.shape[2:])), grid)
+        return lambda: solve(grid, grid, y_A, y_D)
+
+    # CP: the overlapped step on 4 z-shards (B1, B2, B8), the ghost step on
+    # (2 x 2) (B1, B2); phase 25's bars against chambolle_pock
+    for name, key, dual in (("cp z4", "z4", None),
+                            ("cp z4 bf16 dual", "z4", "bfloat16"),
+                            ("cp 2x2", "2x2", None)):
+        grid = grids[key]
+        b8 = per if key == "z4" else 0
+        res = _on_grid(name, lambda: chambolle_pock(
+            grid, n_iter=n_it, reg=1.0, cfg=cfg, dual_dtype=dual),
+            B1=per, B2=per, B8dual=b8, B8primal=b8)
+        launches[name] = dict(B1=per, B2=per, B8dual=b8, B8primal=b8)
+        ref = chambolle_pock(whole, n_iter=n_it, reg=1.0, cfg=cfg,
+                             dual_dtype=dual)
+        rel = _loss_rel(res.loss, ref.loss)
+        require(rel <= (1e-4 if dual else 1e-6),
+                f"{name}: losses within the bar of the whole volume's, got "
+                f"{rel:.3g}")
+        err = _compare(gather_volume(res.x), ref.x, dual is not None, 1.0)
+        require(is_grid(res.state.y_D) and res.state.y_D[0][0].dtype
+                == torch.float32, f"{name}: y_D a float32 grid")
+        ms = (_per_it(lambda: chambolle_pock(
+                  grid, n_iter=n_it, reg=1.0, cfg=cfg, dual_dtype=dual),
+                  n_it),
+              _per_it(direct_cp(grid, dual), n_it),
+              _per_it(lambda: chambolle_pock(
+                  whole, n_iter=n_it, reg=1.0, cfg=cfg, dual_dtype=dual,
+                  return_dual=False), n_it))
+        lines.append(f"{name}: losses within {rel:.3g}, x within {err:.3g}; "
+                     f"ms/it {ms[0]:.4f} (direct "
+                     f"make_sharded_cp_solver_fused {ms[1]:.4f}, whole "
+                     f"volume {ms[2]:.4f})")
+        del res, ref
+
+    # GD and tv_and_subgrad on 4 z-shards: B3 and B4 in their halo mode
+    grid = grids["z4"]
+    gd_kw = dict(n_iter=n_it, reg=1.0, step_size=5e-3, cfg=cfg)
+    res = _on_grid("gd z4", lambda: subgradient_descent(grid, **gd_kw),
+                   B3=per, B4=per)
+    launches["gd z4"] = dict(B3=per, B4=per)
+    ref = subgradient_descent(whole, **gd_kw)
+    rel = max(_loss_rel(res.loss, ref.loss), _loss_rel(res.tv, ref.tv))
+    require(rel <= 1e-5, f"gd z4: loss and tv histories within 1e-5 of "
+                         f"the whole volume's, got {rel:.3g}")
+    err = _compare(gather_volume(res.x), ref.x, False, 0.0, F32_TOL_GD)
+    solve = make_sharded_gd_solver_fused(make_mesh(4), cfg, MAIN_4D,
+                                         reg=1.0, n_iter=n_it,
+                                         step_size=5e-3, shard_time=False)
+    ms = (_per_it(lambda: subgradient_descent(grid, **gd_kw), n_it),
+          _per_it(lambda: solve(grid, grid), n_it),
+          _per_it(lambda: subgradient_descent(whole, **gd_kw), n_it))
+    lines.append(f"gd z4: loss and tv within {rel:.3g}, x within {err:.3g}; "
+                 f"ms/it {ms[0]:.4f} (direct make_sharded_gd_solver_fused "
+                 f"{ms[1]:.4f}, whole volume {ms[2]:.4f})")
+    del res, ref
+    tv_kw = dict(scheme="hybrid", reg_time=0.5)
+    tv, G = _on_grid("tv z4", lambda: pytv4d_tpu_torch.tv_and_subgrad(
+        grid, **tv_kw), B3=4, B4=4)
+    launches["tv z4"] = dict(B3=4, B4=4)
+    tv_ref, G_ref = pytv4d_tpu_torch.tv_and_subgrad(whole, **tv_kw)
+    rel = abs(float(tv) - float(tv_ref)) / abs(float(tv_ref))
+    require(rel <= 1e-5, f"tv z4: tv within 1e-5, got {rel:.3g}")
+    err = _compare(gather_volume(G), G_ref, False, 0.0, F32_TOL_GD)
+    direct = fused_halo.make_sharded_tv_and_subgrad_fused(
+        make_mesh(4), cfg, MAIN_4D, shard_time=False)
+    ms = (_per_it(lambda: pytv4d_tpu_torch.tv_and_subgrad(grid, **tv_kw), 1),
+          _per_it(lambda: direct(grid), 1),
+          _per_it(lambda: pytv4d_tpu_torch.tv_and_subgrad(whole, **tv_kw),
+                  1))
+    lines.append(f"tv_and_subgrad z4: tv within {rel:.3g}, G within "
+                 f"{err:.3g}; ms a call {ms[0]:.4f} (direct "
+                 f"make_sharded_tv_and_subgrad_fused {ms[1]:.4f}, whole "
+                 f"volume {ms[2]:.4f})")
+    del G, G_ref
+
+    # TGV: '2d' on (4 x 2), one B7 a shard; '4d' on 4 z-shards, B6 PQ and
+    # XW a shard and iteration; '4d' on (2 x 2) cuts time: the plain loop
+    tk = dict(n_iter=n_it, alpha1=1.0, alpha0=2.0)
+    grid = grids["4x2"]
+    res = _on_grid("tgv 2d 4x2", lambda: tgv_denoise(grid, **tk), B7=8)
+    launches["tgv 2d 4x2"] = dict(B7=8)
+    ref = tgv_denoise(whole, **tk)
+    require(torch.equal(gather_volume(res.x), ref.x)
+            and torch.equal(gather_d_volume(res.w), ref.w),
+            "tgv 2d 4x2: x and w bit-equal to the whole volume's")
+    rel = _loss_rel(res.loss, ref.loss)
+    require(rel <= 1e-6, f"tgv 2d 4x2: loss within 1e-6, got {rel:.3g}")
+    mesh42 = make_mesh(4, 2)
+    ms = (_per_it(lambda: tgv_denoise(grid, **tk), n_it),
+          _per_it(lambda: tgv_denoise_sharded(grid, mesh42, **tk), n_it),
+          _per_it(lambda: tgv_denoise(whole, **tk), n_it))
+    lines.append(f"tgv 2d 4x2: x, w bit-equal, loss within {rel:.3g}; "
+                 f"ms/it {ms[0]:.4f} (direct tgv_denoise_sharded "
+                 f"{ms[1]:.4f}, whole volume {ms[2]:.4f})")
+    del res, ref
+    grid = grids["z4"]
+    lean = dict(tk, axes="4d", compute_loss=False)
+    res = _on_grid("tgv 4d z4", lambda: tgv_denoise(grid, **lean),
+                   B6pq=per, B6xw=per)
+    launches["tgv 4d z4"] = dict(B6pq=per, B6xw=per)
+    ref = tgv_denoise(whole, **lean)
+    err = max(_compare(gather_volume(res.x), ref.x, False, 0.0, F32_TOL_20),
+              _compare(gather_d_volume(res.w), ref.w, False, 0.0,
+                       F32_TOL_20))
+    solve = make_sharded_tgv_stream_solver(make_mesh(4), MAIN_4D, "4d",
+                                           n_iter=n_it, alpha1=1.0,
+                                           alpha0=2.0)
+    ms = (_per_it(lambda: tgv_denoise(grid, **lean), n_it),
+          _per_it(lambda: solve(grid), n_it),
+          _per_it(lambda: tgv_denoise(whole, **lean), n_it))
+    lines.append(f"tgv 4d z4: x, w within {err:.3g} of the whole volume's "
+                 f"stream solve; ms/it {ms[0]:.4f} (direct "
+                 f"make_sharded_tgv_stream_solver {ms[1]:.4f}, whole volume "
+                 f"{ms[2]:.4f})")
+    del res, ref
+    grid = grids["2x2"]
+    full = dict(tk, axes="4d")
+    res = _on_grid("tgv 4d 2x2", lambda: tgv_denoise(grid, **full))
+    ref = tgv_denoise(whole, **full)  # the plain loop on the card too
+    rel = _loss_rel(res.loss, ref.loss)
+    require(rel <= 1e-5, f"tgv 4d 2x2: loss within 1e-5, got {rel:.3g}")
+    err = _compare(gather_volume(res.x), ref.x, False, 0.0, F32_TOL_20)
+    ms = (_per_it(lambda: tgv_denoise(grid, **full), n_it),
+          _per_it(lambda: tgv_denoise(whole, **full), n_it))
+    lines.append(f"tgv 4d 2x2 (the plain grid loop, no launch): loss within "
+                 f"{rel:.3g}, x within {err:.3g}; ms/it {ms[0]:.4f} (whole "
+                 f"volume, the plain loop {ms[1]:.4f})")
+    del res, ref
+
+    # ADMM and FISTA: plain loops on the exchanged stencils, no kernel
+    grid = grids["z4"]
+    for name, fn, n in (("admm z4", admm, 5), ("fista z4", fista, n_it)):
+        res = _on_grid(name, lambda: fn(grid, n_iter=n, reg=1.0, cfg=cfg))
+        ref = fn(whole, n_iter=n, reg=1.0, cfg=cfg)
+        rel = _loss_rel(res.loss, ref.loss)
+        require(rel <= 1e-5, f"{name}: losses within 1e-5, got {rel:.3g}")
+        err = _compare(gather_volume(res.x), ref.x, False, 0.0, F32_TOL_20)
+        ms = (_per_it(lambda: fn(grid, n_iter=n, reg=1.0, cfg=cfg), n),
+              _per_it(lambda: fn(whole, n_iter=n, reg=1.0, cfg=cfg), n))
+        lines.append(f"{name}: losses within {rel:.3g}, x within {err:.3g}; "
+                     f"ms/it {ms[0]:.4f} (whole volume {ms[1]:.4f})")
+        del res, ref
+    torch.cuda.empty_cache()
+    log(f"[31 entry points on a grid] {MAIN_4D} f32 hybrid reg_time=0.5 "
+        f"from numpy, {n_it} iterations (ADMM 5), as {sorted(GRID_MESHES)} "
+        f"grids ({card}); launches by call {launches}; "
+        + "; ".join(lines)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for call, got in launches.items():
+        for kid, n in got.items():
+            if n:
+                out.setdefault(kid, {})[call] = n
+    return out
 
 
 def main():
@@ -4501,6 +4759,7 @@ def main():
     ct_launches.update(phase_ct_spectral(card))
     sharded = phase_sharded_slice(card)
     ct_launches["cone_zdft"] = phase_ct_zdft(card)
+    on_grid = phase_grid_entry(card)
 
     # B1-B4 bounds at the shape their times were taken at: MAIN_4D float32,
     # hybrid with reg_time=0.5 (Nd channels).  Bytes: each array once per
@@ -4538,6 +4797,9 @@ def main():
         if err_bf16 is not None:
             out["max_abs_err_bf16"] = err_bf16
         out.update(extra)
+        if kid in on_grid:
+            # phase 31: the normal entry points handed a grid of shards
+            out["launches_grid"] = on_grid[kid]
         if kid in ("B2", "B3", "B5"):
             # the fan- and cone-beam cp_reconstruct path (phase 26), the
             # spectral path of each geometry (phase 28) and cp_inverse on

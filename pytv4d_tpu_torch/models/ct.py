@@ -52,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import TVConfig
-from ..solvers.inverse import cp_inverse, power_iteration
+from ..solvers.inverse import _LinearTranspose, cp_inverse, power_iteration
 from ..utils.device import on_device
 from . import ct_spectral
 
@@ -321,6 +321,22 @@ def _host_angles(angles):
     return np.asarray(angles)
 
 
+def _differentiable_pair(A, A_T):
+    """``(A, A_T)`` with ``A_T`` differentiable in its input: a ``y`` that
+    requires grad, under grad mode, runs it as
+    ``solvers.inverse._LinearTranspose``, whose backward is ``A`` itself.
+    Autograd then records neither the scatter's in-place accumulation nor
+    the sampler's transpose, which has no derivative on a CUDA device.
+    Any other ``y`` takes ``A_T`` as it is."""
+    def A_T_(y):
+        if (isinstance(y, torch.Tensor) and y.requires_grad
+                and torch.is_grad_enabled()):
+            return _LinearTranspose.apply(y, A, A_T)
+        return A_T(y)
+
+    return A, A_T_
+
+
 def _parallel_pair(vol_shape, angles, n_det, dtype, angle_batch=None):
     """``(A, A_T)`` of :func:`radon` at a fixed geometry, unmemoized."""
     vol_shape = tuple(int(n) for n in vol_shape)
@@ -335,7 +351,7 @@ def _parallel_pair(vol_shape, angles, n_det, dtype, angle_batch=None):
         return _radon_adjoint(on_device(y).to(dtype), angles, vol_shape,
                               angle_batch=angle_batch)
 
-    return A, A_T
+    return _differentiable_pair(A, A_T)
 
 
 def make_projector(vol_shape, angles, n_det: Optional[int] = None,
@@ -475,7 +491,9 @@ def cp_reconstruct(
     ``fused=True`` raises), the loss summed over shards; ``x`` and the
     state come back as grids of the volume's layout.  ``precond``,
     ``state`` and ``dual_dtype`` are for unsharded solves."""
-    if isinstance(sino, list):
+    from ..parallel.mesh import is_grid
+
+    if is_grid(sino):
         if fused or precond or state is not None or dual_dtype is not None:
             raise ValueError(
                 "fused=True, precond, state and dual_dtype cannot serve a "
@@ -636,6 +654,9 @@ def tgv_reconstruct(
     symmetry with :func:`cp_reconstruct` but not implemented by
     ``tgv_inverse`` (the TGV kernels serve denoising only): setting them
     raises rather than being silently ignored."""
+    from ..parallel.mesh import refuse_grid
+
+    refuse_grid(sino, "tgv_reconstruct")
     if fused is not None or dual_dtype is not None or loss_every != 1:
         raise NotImplementedError(
             "tgv_reconstruct does not support fused/dual_dtype/loss_every "
@@ -861,7 +882,7 @@ def make_fan_projector(vol_shape, angles, geom: FanBeamGeometry,
         return _radon_fan_adjoint(on_device(y).to(dtype), angles, geom,
                                   vol_shape, angle_batch=angle_batch)
 
-    return A, A_T
+    return _differentiable_pair(A, A_T)
 
 
 class ConeBeamGeometry(NamedTuple):
@@ -1025,7 +1046,7 @@ def make_cone_projector(vol_shape, angles, geom: ConeBeamGeometry,
         return _radon_cone_adjoint(on_device(y).to(dtype), angles, geom,
                                    vol_shape, angle_batch=angle_batch)
 
-    return A, A_T
+    return _differentiable_pair(A, A_T)
 
 
 def fdk(sino, angles, geom: ConeBeamGeometry, vol_shape,
@@ -1055,6 +1076,9 @@ def fdk(sino, angles, geom: ConeBeamGeometry, vol_shape,
     de-obliquity weight, cone-to-parallel rebinning matmuls, the spectral
     parallel FBP per slice); ``'auto'`` as :func:`_resolve_method` says for
     the cone."""
+    from ..parallel.mesh import refuse_grid
+
+    refuse_grid(sino, "fdk")
     sino = on_device(sino, device)
     if _resolve_method(method, "cone", sino.device) == "spectral":
         return ct_spectral.fdk_spectral(sino, angles, geom, vol_shape,
@@ -1170,6 +1194,9 @@ def sart(
     ``residual`` stays there.
     """
     _resolve_method(method)
+    from ..parallel.mesh import refuse_grid
+
+    refuse_grid(sino, "sart")
     sino = on_device(sino, device)
     dtype = sino.dtype
     ang_host = _host_angles(angles).astype(np.float64)
@@ -1381,6 +1408,9 @@ def fbp(sino, angles, n_out: Optional[int] = None,
     backprojects through the exact transpose of the gather-free spectral
     projector (FFTs and matmuls; its memoized pair keeps its tables);
     ``'auto'`` as :func:`_resolve_method` says for the parallel beam."""
+    from ..parallel.mesh import refuse_grid
+
+    refuse_grid(sino, "fbp")
     sino = on_device(sino, device)
     Nz, M, n_angles, n_det = sino.shape
     N = n_out or n_det

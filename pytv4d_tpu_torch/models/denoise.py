@@ -20,6 +20,7 @@ import torch
 
 from ..core.config import TVConfig
 from ..ops.operators import D, D_T
+from ..parallel.mesh import refuse_grid
 from ..solvers.admm import admm
 from ..solvers.cp import chambolle_pock, default_tau
 from ..solvers.fista import fista
@@ -39,6 +40,7 @@ def add_noise(img, noise_level: float = 100.0, seed: int = 0) -> np.ndarray:
 
 
 def _to_volume(image, device=None):
+    refuse_grid(image, "TVDenoiser")
     image = on_device(image, device)
     if image.ndim == 2:
         return image[None, None], 2

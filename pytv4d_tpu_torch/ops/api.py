@@ -8,20 +8,28 @@ eagerly, so these are plain functions: there is no executable cache.
 
 Every function here takes a tensor, which stays on its device, or a numpy
 array, which goes to the CUDA device (``RuntimeError`` where there is none)
-unless ``device=`` names another (``utils.device.on_device``).
+unless ``device=`` names another (``utils.device.on_device``).  Each also
+takes a grid of shards (``parallel.mesh.shard_volume``, or for ``D_T`` and
+``compute_L21_norm`` ``shard_d_volume``) and returns grids of the same
+layout (``parallel.entry``).
 """
 
 from __future__ import annotations
 
 from ..core.config import TVConfig
+from ..parallel import entry as _grid
+from ..parallel.mesh import is_grid
 from ..utils.device import on_device
 from . import operators as _ops
 from . import tv as _tv
 
 
-def _on_device_first(base):
-    """``base`` with its first argument placed by ``on_device``."""
+def _on_device_first(base, on_grid):
+    """``base`` with its first argument placed by ``on_device``; a grid of
+    shards goes to ``on_grid``."""
     def fn(arr, *args, device=None, **kwargs):
+        if is_grid(arr):
+            return on_grid(arr, *args, device=device, **kwargs)
         return base(on_device(arr, device), *args, **kwargs)
 
     fn.__name__ = fn.__qualname__ = base.__name__
@@ -29,9 +37,9 @@ def _on_device_first(base):
     return fn
 
 
-D = _on_device_first(_ops.D)
-D_T = _on_device_first(_ops.D_T)
-compute_L21_norm = _on_device_first(_ops.compute_L21_norm)
+D = _on_device_first(_ops.D, _grid.D)
+D_T = _on_device_first(_ops.D_T, _grid.D_T)
+compute_L21_norm = _on_device_first(_ops.compute_L21_norm, _grid.L21_norm)
 
 
 def tv_and_subgrad(img, scheme="hybrid", mask=None, reg_z_over_reg=1.0,
@@ -43,9 +51,18 @@ def tv_and_subgrad(img, scheme="hybrid", mask=None, reg_z_over_reg=1.0,
     ``mask`` that ``kernels.dispatch.can_fuse`` accepts (iso, aniso or huber
     norm, float32/bfloat16, plane-shaped static masks / weight_time), else
     ``ops.tv.tv_and_subgrad`` — the same numbers to f32 round-off either
-    way."""
+    way.  A grid of shards takes ``parallel.entry.tv_and_subgrad``: B3 and
+    B4 in their halo mode on CUDA shards the kernels serve, else
+    ``parallel.halo.sharded_tv_and_subgrad``."""
     from ..kernels.dispatch import can_fuse, t_plane_multiplier
 
+    if is_grid(img):
+        return _grid.tv_and_subgrad(
+            img, scheme=scheme, mask=mask, reg_z_over_reg=reg_z_over_reg,
+            reg_time=reg_time, mask_static=mask_static,
+            factor_reg_static=factor_reg_static, weight_time=weight_time,
+            return_grad_norms=return_grad_norms, norm_type=norm_type,
+            huber_delta=huber_delta, device=device)
     img = on_device(img, device)
     cfg = TVConfig(scheme=scheme, reg_z_over_reg=reg_z_over_reg,
                    reg_time=reg_time, factor_reg_static=factor_reg_static,

@@ -26,6 +26,8 @@ from .mesh import (
     d_volume_spec,
     gather_d_volume,
     gather_volume,
+    grid_mesh,
+    is_grid,
     make_mesh,
     plane_from_left,
     plane_from_right,

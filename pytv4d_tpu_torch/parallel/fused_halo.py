@@ -364,7 +364,7 @@ def make_sharded_cp_solver_fused(
 
     step = overlap_step if overlap else ghost_step
 
-    def solve(x_noisy, x, y_A, y_D_int):
+    def solve(x_noisy, x, y_A, y_D_int, each=None):
         for name, grid in (("x_noisy", x_noisy), ("x", x), ("y_A", y_A)):
             _check_grid(grid, mesh, global_shape, shard_time)
             _check_state(grid, name, dtype, mesh)
@@ -378,6 +378,8 @@ def make_sharded_cp_solver_fused(
         losses = torch.empty(n_iter, dtype=torch.float32, device=mesh.device)
         for i in range(n_iter):
             losses[i] = step(x, y_A, y_D, x_noisy)
+            if each is not None:
+                each(i, losses[i])
         return x, y_A, y_D, losses
 
     # True runs the overlapped step's exchange on a second CUDA stream;
@@ -494,7 +496,55 @@ def make_sharded_gd_solver_fused(
     unsharded fused path, and bf16 primary storage (``dtype='bfloat16'``;
     the kernels compute in f32).
     ``solve(x_noisy, x) -> (x, losses)``; inputs sharded with
-    ``parallel.mesh.shard_volume``, in ``dtype``."""
+    ``parallel.mesh.shard_volume``, in ``dtype``; ``solve``'s optional
+    ``each(i, loss)`` is called after every iteration."""
+    from ..kernels.dispatch import as_dtype
+
+    tv_and_G = make_sharded_tv_and_subgrad_fused(
+        mesh, cfg, global_shape, shard_time=shard_time, dtype=dtype,
+        mask_static=mask_static, weight_time=weight_time)
+
+    def step(x, x_noisy):
+        tv, G = tv_and_G(x)
+        x = grid_map(lambda xs, x0, g: xs - step_size * ((xs - x0) + reg * g),
+                     x, x_noisy, G)
+        fid = grid_sum(grid_map(
+            lambda xs, x0: 0.5 * torch.sum(torch.square(xs - x0)),
+            x, x_noisy))
+        return x, fid + reg * tv
+
+    def solve(x_noisy, x, each=None):
+        _check_grid(x_noisy, mesh, global_shape, shard_time)
+        _check_state(x_noisy, "x_noisy", as_dtype(dtype), mesh)
+        losses = torch.empty(n_iter, dtype=torch.float32, device=mesh.device)
+        for i in range(n_iter):
+            x, losses[i] = step(x, x_noisy)
+            if each is not None:
+                each(i, losses[i])
+        return x, losses
+
+    return solve
+
+
+def make_sharded_tv_and_subgrad_fused(
+    mesh: Mesh,
+    cfg: TVConfig,
+    global_shape,
+    *,
+    shard_time: bool = True,
+    dtype="float32",
+    mask_static=None,
+    weight_time=None,
+    return_grad_norms: bool = False,
+):
+    """The TV value and subgradient of a sharded volume on the fused
+    kernels: pass 1 (``kernels.fused.tv_norms``) on every shard with
+    1-deep ghost-plane halos, pass 2 (``tv_subgrad``) with 2-deep ones and
+    the norms' halos, the tv a sum over shards.  ``fn(x) -> (tv, G)`` on
+    grids in ``dtype`` (``tv`` float32), and the grid of per-voxel norms
+    third with ``return_grad_norms`` (``kernels.fused.tv_norms``'s).  On
+    a CUDA device each pass launches its kernel (B3, B4 in their halo
+    mode) or raises; on the CPU it runs the kernel's plain version."""
     from ..kernels.fused import tv_norms, tv_subgrad
 
     if cfg.norm not in ("iso", "aniso", "huber"):
@@ -510,7 +560,9 @@ def make_sharded_gd_solver_fused(
     ghost_z = _axis_ghost_kind(chans, AXIS_Z)
     ghost_t = _axis_ghost_kind(chans, AXIS_T)
 
-    def step(x, x_noisy):
+    def fn(x):
+        _check_grid(x, mesh, global_shape, shard_time)
+        _check_state(x, "x", dtype, mesh)
         x1 = _extend_axis(_extend_axis(x, 0, ghost_z), 1, ghost_t)
         passed = grid_map(lambda xe: tv_norms(xe, tmul, **mode), x1)
         tv = grid_sum(grid_map(lambda np_: torch.sum(np_[1]), passed))
@@ -522,20 +574,8 @@ def make_sharded_gd_solver_fused(
             n1 = _extend_norms(grid_map(lambda np_: np_[0], passed))
             G = grid_map(lambda xe, ne: tv_subgrad(xe, ne, tmul, **mode),
                          x2, n1)
-        x = grid_map(lambda xs, x0, g: xs - step_size * ((xs - x0) + reg * g),
-                     x, x_noisy, G)
-        fid = grid_sum(grid_map(
-            lambda xs, x0: 0.5 * torch.sum(torch.square(xs - x0)),
-            x, x_noisy))
-        return x, fid + reg * tv
+        if return_grad_norms:
+            return tv, G, grid_map(lambda np_: np_[0], passed)
+        return tv, G
 
-    def solve(x_noisy, x):
-        for name, grid in (("x_noisy", x_noisy), ("x", x)):
-            _check_grid(grid, mesh, global_shape, shard_time)
-            _check_state(grid, name, dtype, mesh)
-        losses = torch.empty(n_iter, dtype=torch.float32, device=mesh.device)
-        for i in range(n_iter):
-            x, losses[i] = step(x, x_noisy)
-        return x, losses
-
-    return solve
+    return fn

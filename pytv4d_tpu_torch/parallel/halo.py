@@ -138,14 +138,19 @@ def _table(cfg: TVConfig, global_shape):
                            cfg.reg_z_over_reg, cfg.reg_time)
 
 
-def _local_D(shards, cfg: TVConfig, global_shape):
-    """D on every shard: ``(nz, Nd, m, Nr, Nc)`` per shard."""
+def _local_D(shards, cfg: TVConfig, global_shape, tmul=None):
+    """D on every shard: ``(nz, Nd, m, Nr, Nc)`` per shard.  ``tmul``: the
+    (Nr, Nc) multiplier of the time channels (:func:`_t_multiplier`)."""
     chans, norm = _table(cfg, global_shape)
     outs = []
     for ch in chans:
         d = sharded_d_channel(shards, ch.axis, ch.kind)
         w = channel_weight(ch, cfg.reg_z_over_reg, cfg.reg_time)
-        outs.append(grid_map(lambda a: a * w, d) if w != 1.0 else d)
+        if w != 1.0:
+            d = grid_map(lambda a: a * w, d)
+        if ch.weight == "t" and tmul is not None:
+            d = grid_map(lambda a: a * tmul, d)
+        outs.append(d)
 
     def stack(*ds):
         D_img = torch.stack(ds, dim=1)
@@ -154,10 +159,13 @@ def _local_D(shards, cfg: TVConfig, global_shape):
     return grid_map(stack, *outs)
 
 
-def _local_D_T(ys, cfg: TVConfig, global_shape, weighted: bool = True):
+def _local_D_T(ys, cfg: TVConfig, global_shape, weighted: bool = True,
+               tmul=None):
     """D_T on every shard from public-layout shards ``(nz, Nd, m, Nr, Nc)``;
-    ``weighted=False`` leaves the per-axis weights out, as the isotropic
-    subgradient does (``ops.tv._subgrad_from_D``)."""
+    ``weighted=False`` leaves the per-axis weights and ``tmul`` out, as
+    the isotropic subgradient does (``ops.tv._subgrad_from_D``).  ``tmul``
+    multiplies the time channels before the scatter (the exact transpose
+    of :func:`_local_D`'s)."""
     chans, norm = _table(cfg, global_shape)
     out = None
     for i, ch in enumerate(chans):
@@ -166,9 +174,40 @@ def _local_D_T(ys, cfg: TVConfig, global_shape, weighted: bool = True):
             y = grid_map(lambda a: a[:, i] * w, ys)
         else:
             y = grid_map(lambda a: a[:, i], ys)
+        if weighted and ch.weight == "t" and tmul is not None:
+            y = grid_map(lambda a: a * tmul, y)
         contrib = sharded_dt_channel(y, ch.axis, ch.kind)
         out = contrib if out is None else grid_map(torch.add, out, contrib)
     return grid_map(lambda a: a * norm, out) if norm != 1.0 else out
+
+
+def _t_multiplier(cfg: TVConfig, global_shape, mask_static, weight_time):
+    """``fn(dtype, device)``: the (Nr, Nc) time-channel multiplier of a
+    plane-shaped ``mask_static`` / ``weight_time``
+    (``kernels.dispatch.t_plane_multiplier``), None without them.  A mesh
+    cuts z and t only, so every shard takes the same plane; a field that
+    varies over z or t raises ``ValueError``."""
+    from ..kernels.dispatch import _is_plane, t_plane_multiplier
+    from ..ops.operators import mask_enabled
+
+    for name, a in (("mask_static", mask_static if mask_enabled(mask_static)
+                     else None), ("weight_time", weight_time)):
+        if a is not None and not _is_plane(a, global_shape):
+            raise ValueError(
+                f"a grid of shards takes a plane-shaped {name} (broadcastable "
+                f"to (1, 1, {global_shape[-2]}, {global_shape[-1]})); a field "
+                f"over z or t is not cut with the volume")
+    made = {}
+
+    def fn(dtype, device):
+        key = (dtype, device)
+        if key not in made:
+            made[key] = t_plane_multiplier(tuple(global_shape), cfg,
+                                           mask_static, weight_time,
+                                           dtype=dtype, device=device)
+        return made[key]
+
+    return fn
 
 
 def _check_grid(shards, mesh: Mesh, global_shape, shard_time, t_axis=1):
@@ -188,58 +227,82 @@ def _check_grid(shards, mesh: Mesh, global_shape, shard_time, t_axis=1):
 
 
 def sharded_D(mesh: Mesh, cfg: TVConfig, global_shape,
-              shard_time: bool = True):
+              shard_time: bool = True, mask_static=None, weight_time=None):
     """Build ``D`` on a sharded volume: shards of x in, shards of
-    ``(Nz, Nd, M, Nr, Nc)`` out (``parallel.mesh.gather_d_volume``)."""
+    ``(Nz, Nd, M, Nr, Nc)`` out (``parallel.mesh.gather_d_volume``).
+    ``mask_static`` / ``weight_time``: planes, as ``ops.operators.D``'s
+    (with ``cfg.factor_reg_static``)."""
+    tmul = _t_multiplier(cfg, global_shape, mask_static, weight_time)
+
     def fn(x):
         _check_grid(x, mesh, global_shape, shard_time)
-        return _local_D(x, cfg, global_shape)
+        first = first_shard(x)
+        return _local_D(x, cfg, global_shape, tmul(first.dtype, first.device))
 
     return fn
 
 
 def sharded_D_T(mesh: Mesh, cfg: TVConfig, global_shape,
-                shard_time: bool = True):
+                shard_time: bool = True, mask_static=None, weight_time=None):
     """Build ``D_T`` on a sharded difference volume
-    (``parallel.mesh.shard_d_volume``): shards of x's layout out."""
+    (``parallel.mesh.shard_d_volume``): shards of x's layout out.
+    ``mask_static`` / ``weight_time`` as :func:`sharded_D`'s."""
+    tmul = _t_multiplier(cfg, global_shape, mask_static, weight_time)
+
     def fn(y):
         _check_grid(y, mesh, global_shape, shard_time, t_axis=2)
-        return _local_D_T(y, cfg, global_shape)
+        first = first_shard(y)
+        return _local_D_T(y, cfg, global_shape,
+                          tmul=tmul(first.dtype, first.device))
 
     return fn
 
 
 def sharded_tv_and_subgrad(mesh: Mesh, cfg: TVConfig, global_shape,
-                           shard_time: bool = True):
+                           shard_time: bool = True, mask_static=None,
+                           weight_time=None, return_grad_norms=False):
     """tv + subgradient on a sharded volume: local stencils + plane halos,
-    the tv a sum of the shards' (``ops.tv.tv_and_subgrad``'s three norms).
-    ``fn(x_shards) -> (tv, G_shards)``."""
+    the tv a sum of the shards' (``ops.tv.tv_and_subgrad``'s three norms;
+    ``mask_static`` / ``weight_time`` planes as :func:`sharded_D`'s).
+    ``fn(x_shards) -> (tv, G_shards)``, and the grid of per-voxel norms
+    third with ``return_grad_norms`` (``ops.tv.tv_and_subgrad``'s
+    conventions)."""
+    tmul_of = _t_multiplier(cfg, global_shape, mask_static, weight_time)
+
+    def norms(d):
+        return tv_norm(d, "iso", return_array=True)[1]
+
     def fn(x):
         _check_grid(x, mesh, global_shape, shard_time)
-        D_img = _local_D(x, cfg, global_shape)
-        tv = grid_sum(grid_map(
-            lambda d: tv_norm(d, cfg.norm, huber_delta=cfg.huber_delta),
-            D_img))
+        first = first_shard(x)
+        tmul = tmul_of(first.dtype, first.device)
+        D_img = _local_D(x, cfg, global_shape, tmul)
+        parts = grid_map(lambda d: tv_norm(
+            d, cfg.norm, return_array=True, huber_delta=cfg.huber_delta),
+            D_img)
+        tv = grid_sum(grid_map(lambda p: p[0], parts))
         if cfg.norm == "aniso":
             # the true subgradient D^T sign(D x), full weights
-            return tv, _local_D_T(grid_map(torch.sign, D_img), cfg,
-                                  global_shape)
-
-        def norms(d):
-            return tv_norm(d, "iso", return_array=True)[1]
-
-        if cfg.norm == "huber":
+            G = _local_D_T(grid_map(torch.sign, D_img), cfg, global_shape,
+                           tmul=tmul)
+        elif cfg.norm == "huber":
             # the true smooth gradient D^T(D x / max(n, delta)), full weights
             Y = grid_map(lambda d: d / torch.clamp_min(
                 norms(d), cfg.huber_delta)[:, None], D_img)
-            return tv, _local_D_T(Y, cfg, global_shape)
+            G = _local_D_T(Y, cfg, global_shape, tmul=tmul)
+        else:
+            def unit(d):
+                n = norms(d)
+                return d / torch.where(n == 0, torch.inf, n)[:, None]
 
-        def unit(d):
-            n = norms(d)
-            return d / torch.where(n == 0, torch.inf, n)[:, None]
-
-        return tv, _local_D_T(grid_map(unit, D_img), cfg, global_shape,
-                              weighted=False)
+            G = _local_D_T(grid_map(unit, D_img), cfg, global_shape,
+                           weighted=False)
+        if not return_grad_norms:
+            return tv, G
+        if cfg.norm == "iso":
+            return tv, G, grid_map(lambda p: torch.where(
+                p[1] == 0, torch.inf, p[1]), parts)
+        return tv, G, grid_map(lambda p: p[1], parts)
 
     return fn
 
@@ -247,25 +310,30 @@ def sharded_tv_and_subgrad(mesh: Mesh, cfg: TVConfig, global_shape,
 def sharded_cp_step(mesh: Mesh, cfg: TVConfig, global_shape, *, reg, sigma_D,
                     sigma_A, tau, shard_time: bool = True,
                     fidelity: str = "l2", fidelity_weight: float = 1.0,
-                    nonneg: bool = False):
+                    nonneg: bool = False, mask_static=None, weight_time=None):
     """One Chambolle-Pock iteration on grids of shards: the only exchange is
     the 1-plane halos inside D / D_T and one sum of scalars for the loss
     (``solvers.cp.cp_step``; the ``fidelity`` / ``nonneg`` family is
-    pointwise, so it shards untouched: the weight must be a scalar).
+    pointwise, so it shards untouched: the weight must be a scalar;
+    ``mask_static`` / ``weight_time`` planes as :func:`sharded_D`'s).
     ``fn(x, y_A, y_D, x_noisy) -> (x, y_A, y_D, loss)``, ``y_D`` in the
     public layout (``parallel.mesh.shard_d_volume``)."""
     from ..solvers.cp import dual_prox
     from ..solvers.fidelity import fidelity_dual_prox, fidelity_loss
 
+    tmul_of = _t_multiplier(cfg, global_shape, mask_static, weight_time)
+
     def fn(x, y_A, y_D, x_noisy):
         _check_grid(x, mesh, global_shape, shard_time)
+        first = first_shard(x)
+        tmul = tmul_of(first.dtype, first.device)
         y_A = grid_map(lambda ya, xs, x0: fidelity_dual_prox(
             ya, xs, x0, sigma_A, fidelity, fidelity_weight), y_A, x, x_noisy)
-        D_x = _local_D(x, cfg, global_shape)
+        D_x = _local_D(x, cfg, global_shape, tmul)
         y_D = grid_map(lambda yd, d: dual_prox(
             yd + sigma_D * d, reg, cfg.norm, sigma_D, cfg.huber_delta),
             y_D, D_x)
-        dty = _local_D_T(y_D, cfg, global_shape)
+        dty = _local_D_T(y_D, cfg, global_shape, tmul=tmul)
 
         def primal(xs, ya, dt):
             xs = xs - tau * ya - tau * dt
@@ -285,11 +353,13 @@ def make_sharded_cp_solver(mesh: Mesh, cfg: TVConfig, global_shape, *, reg,
                            n_iter, sigma_D=0.5, sigma_A=1.0, tau=None,
                            shard_time: bool = True, fidelity: str = "l2",
                            fidelity_weight: float = 1.0,
-                           nonneg: bool = False):
+                           nonneg: bool = False, mask_static=None,
+                           weight_time=None):
     """``n_iter`` sharded CP steps:
     ``solve(x_noisy, x, y_A, y_D) -> (x, y_A, y_D, losses)`` on grids of
     shards made with ``parallel.mesh.shard_volume`` / ``shard_d_volume``;
-    the loss history is one tensor on the mesh's device."""
+    the loss history is one tensor on the mesh's device.  ``solve``'s
+    optional ``each(i, loss)`` is called after every iteration."""
     from ..solvers.cp import default_tau
     from ..solvers.fidelity import validate_fidelity
 
@@ -299,13 +369,16 @@ def make_sharded_cp_solver(mesh: Mesh, cfg: TVConfig, global_shape, *, reg,
     step = sharded_cp_step(mesh, cfg, global_shape, reg=reg, sigma_D=sigma_D,
                            sigma_A=sigma_A, tau=tau, shard_time=shard_time,
                            fidelity=fidelity, fidelity_weight=fidelity_weight,
-                           nonneg=nonneg)
+                           nonneg=nonneg, mask_static=mask_static,
+                           weight_time=weight_time)
 
-    def solve(x_noisy, x, y_A, y_D):
+    def solve(x_noisy, x, y_A, y_D, each=None):
         losses = []
-        for _ in range(n_iter):
+        for i in range(n_iter):
             x, y_A, y_D, loss = step(x, y_A, y_D, x_noisy)
             losses.append(loss)
+            if each is not None:
+                each(i, loss)
         return x, y_A, y_D, torch.stack(losses)
 
     return solve

@@ -186,6 +186,50 @@ def is_distributed(grid) -> bool:
     return any(row is None for row in grid)
 
 
+def is_grid(x) -> bool:
+    """True for a grid of shards (what :func:`shard` returns): a nonempty
+    list of rows, each a nonempty list of tensors or None (another
+    process's row)."""
+    if not isinstance(x, list):
+        return False
+    rows = [row for row in x if row is not None]
+    return bool(rows) and all(
+        isinstance(row, list) and row
+        and all(isinstance(s, torch.Tensor) for s in row) for row in rows)
+
+
+class GridLayout(NamedTuple):
+    """What a grid of shards says of itself (:func:`grid_mesh`)."""
+    mesh: Mesh
+    shard_time: bool
+    shape: tuple  # the whole array's shape
+
+
+def grid_mesh(grid, t_axis: int = 1) -> GridLayout:
+    """The mesh a grid lives on, whether it cuts time and the whole
+    array's shape, from its shards' shapes and :func:`grid_process`.
+    ``t_axis``: the tensor axis the mesh's t cuts (2 for a difference
+    volume, ``shard_d_volume``).  The mesh is the grid's own: ``t`` is 1
+    where time is not cut."""
+    first = first_shard(grid)
+    nz, nt = len(grid), grid_size(grid, 1)
+    shape = list(first.shape)
+    shape[0] *= nz
+    shape[t_axis] *= nt
+    return GridLayout(Mesh(nz, nt, first.device, *grid_process(grid)),
+                      nt > 1, tuple(shape))
+
+
+def refuse_grid(x, what: str):
+    """``ValueError`` where ``x`` is a grid of shards: ``what`` takes whole
+    volumes only."""
+    if is_grid(x):
+        raise ValueError(
+            f"{what} takes a whole volume, not a grid of shards; the CT and "
+            f"remaining solver entry points on a grid are ROADMAP.md item "
+            f"A19 (parallel.mesh.gather_volume makes the volume)")
+
+
 def grid_process(grid):
     """``(process index, process count)`` of a grid: its z-rows are split
     evenly among the processes, in rank order (``(0, 1)`` for one

@@ -12,21 +12,30 @@ whole-solve kernel B7 (``kernels.tgv_resident``).
 ``axes='3d'`` / ``'4d'`` couple z (and t) across shard edges:
 :func:`make_sharded_tgv_stream_solver` runs the streaming kernels B6
 (``kernels.tgv_stream``: passes PQ and XW) shard by shard with ghost-plane
-halos.  Every neighbour plane comes through ``parallel.mesh``'s
-``planes_from_left`` / ``planes_from_right``.
+halos, on a mesh that does not cut time for ``'4d'``.  :func:`_run_plain_grid`
+is the plain loop of ``solvers.tgv`` on a grid of any cut: TGV's forward
+differences and the symmetrised Jacobian on ``parallel.halo``'s exchanged
+one-sided stencils, one plane exchanged per cut axis.  Every neighbour
+plane comes through ``parallel.mesh``'s ``planes_from_left`` /
+``planes_from_right``.
+
+:func:`tgv_denoise_grid` is ``solvers.tgv_denoise`` of a grid: it picks
+among the three.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .halo import _check_grid
+from ..core.schemes import BWD, FWD
+from .halo import _check_grid, sharded_d_channel, sharded_dt_channel
 from .mesh import (
     T_AXIS,
     Z_AXIS,
     first_shard,
     grid_like,
     grid_map,
+    grid_mesh,
     grid_sum,
     indexed,
     mesh_sizes,
@@ -47,17 +56,21 @@ def tgv_denoise_sharded(
     shard_time: bool = True,
     norm: str = "iso",
     huber_delta: float = 1.0,
+    loss_every: int = 0,
+    state=None,
 ):
     """``axes='2d'`` TGV-2 denoising of a grid of shards on ``mesh``.
 
     ``x`` is placed with ``parallel.mesh.shard_volume``; returns a
-    ``TGVResult`` whose ``x`` is a grid of the same layout and whose ``w``
+    ``TGVResult`` whose ``x`` is a grid of the same layout, whose ``w``
     is a grid of ``(Nz, 2, M, Nr, Nc)`` shards
-    (``parallel.mesh.shard_d_volume``'s layout).  ``fused`` follows
-    ``solvers.tgv.tgv_denoise`` (None: the kernel for a CUDA shard).  The
-    loss history is the sum of the shards' in (iz, it) order (none with
-    ``compute_loss=False``)."""
-    from ..solvers.tgv import TGVResult, tgv_denoise
+    (``parallel.mesh.shard_d_volume``'s layout) and whose ``state`` is a
+    ``TGVState`` of such grids.  ``fused``, ``loss_every`` and ``state``
+    (a ``TGVState`` of grids) follow ``solvers.tgv.tgv_denoise``, shard by
+    shard (None: the kernel for a CUDA shard).  The loss history is the
+    sum of the shards' in (iz, it) order (none with ``compute_loss=False``
+    and no ``loss_every``)."""
+    from ..solvers.tgv import TGVResult, TGVState, tgv_denoise
 
     if mesh.shape[T_AXIS] == 1:  # pure-z mesh: nothing to shard over t
         shard_time = False
@@ -65,15 +78,19 @@ def tgv_denoise_sharded(
     local = first_shard(x).shape
     _check_grid(x, mesh, (local[0] * nz, local[1] * nt) + tuple(local[2:]),
                 shard_time)
-    res = grid_map(lambda xs: tgv_denoise(
+    states = (grid_map(lambda xs: None, x) if state is None
+              else grid_map(lambda *f: TGVState(*f), *state))
+    res = grid_map(lambda xs, st: tgv_denoise(
         xs, n_iter=n_iter, alpha1=alpha1, alpha0=alpha0,
         sigma_tau_split=sigma_tau_split, axes="2d",
         compute_loss=compute_loss, fused=fused, norm=norm,
-        huber_delta=huber_delta), x)
-    loss = (grid_sum(grid_map(lambda r: r.loss, res)) if compute_loss
-            else indexed(res)[0][2].loss)
-    return TGVResult(x=grid_map(lambda r: r.x, res),
-                     w=grid_map(lambda r: r.w, res), loss=loss)
+        huber_delta=huber_delta, loss_every=loss_every, state=st),
+        x, states)
+    loss = (grid_sum(grid_map(lambda r: r.loss, res))
+            if compute_loss or loss_every else indexed(res)[0][2].loss)
+    st = TGVState(*(grid_map(lambda r, i=i: r.state[i], res)
+                    for i in range(len(TGVState._fields))))
+    return TGVResult(x=st.x, w=st.w, loss=loss, state=st)
 
 
 def _z_halo_lo(grid, ghost: str):
@@ -155,6 +172,7 @@ def make_sharded_tgv_stream_solver(
     norm: str = "iso",
     huber_delta: float = 1.0,
     overlap: bool = False,
+    loss_every: int = 0,
 ):
     """Sharded coupled TGV-2 (``axes='3d'`` / ``'4d'``): the streaming
     kernels shard by shard over a z-sharded mesh, with ghost-plane halos.
@@ -176,15 +194,23 @@ def make_sharded_tgv_stream_solver(
     is a transfer between cards, so the ghost path stays the default.
 
     ``'3d'`` does not couple time, so the mesh may shard t too; ``'4d'``
-    requires t unsharded.  Returns ``solve(x0) -> TGVResult`` with an empty
-    loss (the streaming path keeps no loss history), ``x0`` a grid from
-    ``parallel.mesh.shard_volume``, ``x`` a grid of the same layout and
-    ``w`` a grid of ``(Nz, n, M, Nr, Nc)`` shards.  On a CUDA device every
-    pass launches its kernel or raises; on the CPU it runs the kernel's
-    plain version."""
+    requires t unsharded.  Returns ``solve(x0, state=None) -> TGVResult``,
+    ``x0`` a grid from ``parallel.mesh.shard_volume``, ``x`` a grid of the
+    same layout, ``w`` a grid of ``(Nz, n, M, Nr, Nc)`` shards and
+    ``state`` a ``solvers.tgv.TGVState`` of grids, which ``state``
+    resumes from.  The loss is empty (the streaming kernels fuse no loss)
+    unless ``loss_every=k`` samples the objective, a sum over shards,
+    after every k-th iteration.  On a CUDA device every pass launches its
+    kernel or raises; on the CPU it runs the kernel's plain version."""
     from ..kernels.dispatch import as_dtype
     from ..kernels.tgv_stream import tgv_pq, tgv_xw
-    from ..solvers.tgv import MODE_AXES, TGVResult, _q_pairs, tgv_steps
+    from ..solvers.tgv import (
+        MODE_AXES,
+        TGVResult,
+        TGVState,
+        _q_pairs,
+        tgv_steps,
+    )
 
     if axes not in ("3d", "4d"):
         raise ValueError(
@@ -220,6 +246,10 @@ def make_sharded_tgv_stream_solver(
     if norm not in ("iso", "aniso", "huber"):
         raise ValueError(f"norm must be 'iso', 'aniso' or 'huber', got "
                          f"{norm!r}")
+    if loss_every and (loss_every < 0 or n_iter % loss_every):
+        raise ValueError(
+            f"loss_every must be a positive divisor of n_iter, got "
+            f"loss_every={loss_every} with n_iter={n_iter}")
 
     dt = as_dtype(dtype)
     _, tau = tgv_steps(axes, sigma_tau_split)
@@ -318,22 +348,212 @@ def make_sharded_tgv_stream_solver(
     step = overlap_step if overlap else ghost_step
     n_q = len(pairs)
 
-    def solve(x0):
+    def solve(x0, state=None):
         _check_grid(x0, mesh, global_shape, shard_time)
         x0_pad = grid_map(lambda a: _pad_z(a.to(dt)), x0)
-        x = grid_map(lambda a: a[1:-1].clone(), x0_pad)
-        xb = grid_map(torch.clone, x)
+        if state is None:
+            x = grid_map(lambda a: a[1:-1].clone(), x0_pad)
+            xb = grid_map(torch.clone, x)
 
-        def zeros(a, ch):
-            return a.new_zeros((a.shape[0], ch) + tuple(a.shape[1:]))
+            def zeros(a, ch):
+                return a.new_zeros((a.shape[0], ch) + tuple(a.shape[1:]))
 
-        w, wb, p = (grid_map(lambda a: zeros(a, n), x) for _ in range(3))
-        q = grid_map(lambda a: zeros(a, n_q), x)
-        for _ in range(n_iter):
+            w, wb, p = (grid_map(lambda a: zeros(a, n), x) for _ in range(3))
+            q = grid_map(lambda a: zeros(a, n_q), x)
+        else:  # the overlapped step updates its state in place: copies
+            x, xb, w, wb, p, q = (grid_map(lambda a: a.to(dt).clone(
+                memory_format=torch.contiguous_format), g)
+                for g in TGVState(*state))
+        x0_dt = grid_map(lambda a: a[1:-1], x0_pad)
+        losses = torch.empty(n_iter // loss_every if loss_every else 0,
+                             dtype=_loss_dtype(dt),
+                             device=first_shard(x0_dt).device)
+        for i in range(n_iter):
             x, xb, w, wb, p, q = step(x, xb, w, wb, p, q, x0_pad)
-        return TGVResult(x=x, w=w, loss=torch.zeros(
-            (0,), dtype=dt, device=first_shard(x).device))
+            if loss_every and (i + 1) % loss_every == 0:
+                losses[i // loss_every] = grid_objective(
+                    x, w, x0_dt, axes, alpha1, alpha0, norm, huber_delta)
+        return TGVResult(x=x, w=w, loss=losses,
+                         state=TGVState(x, xb, w, wb, p, q))
 
     solve.overlap = overlap
     return solve
 
+
+
+def _loss_dtype(dtype):
+    """The objective's dtype: a bfloat16 state's is float32."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def _grid_d_fwd(x, axes):
+    """``solvers.tgv._d_fwd_axes`` of a grid: the exchanged forward
+    differences along every axis of ``axes``, stacked on axis 1."""
+    parts = [sharded_d_channel(x, a, FWD) for a in axes]
+    return grid_map(lambda *d: torch.stack(d, dim=1), *parts)
+
+
+def _grid_d_fwd_T(p, axes):
+    """The exact adjoint of :func:`_grid_d_fwd` (``_d_fwd_T_axes``)."""
+    out = None
+    for i, a in enumerate(axes):
+        part = sharded_dt_channel(grid_map(lambda v: v[:, i], p), a, FWD)
+        out = part if out is None else grid_map(torch.add, out, part)
+    return out
+
+
+def _grid_sym_grad(w, axes):
+    """``solvers.tgv._sym_grad_axes`` of a grid of fields
+    ``(nz, n, m, Nr, Nc)``: backward differences across shard edges."""
+    from ..solvers.tgv import _q_pairs
+
+    def d(i, axis):
+        return sharded_d_channel(grid_map(lambda v: v[:, i], w), axis, BWD)
+
+    out = []
+    for i, j in _q_pairs(len(axes)):
+        if i == j:
+            out.append(d(i, axes[i]))
+        else:
+            out.append(grid_map(lambda a, b: 0.5 * (a + b), d(i, axes[j]),
+                                d(j, axes[i])))
+    return grid_map(lambda *c: torch.stack(c, dim=1), *out)
+
+
+def _grid_sym_grad_T(q, axes):
+    """The exact adjoint of :func:`_grid_sym_grad` (``_sym_grad_T_axes``,
+    in its order of sums)."""
+    from ..solvers.tgv import _q_pairs
+
+    n = len(axes)
+    acc = [None] * n
+
+    def add(i, term):
+        acc[i] = term if acc[i] is None else grid_map(torch.add, acc[i], term)
+
+    def dt(c, axis):
+        return sharded_dt_channel(grid_map(lambda v: v[:, c], q), axis, BWD)
+
+    for c, (i, j) in enumerate(_q_pairs(n)):
+        if i == j:
+            add(i, dt(c, axes[i]))
+        else:
+            add(i, grid_map(lambda a: 0.5 * a, dt(c, axes[j])))
+            add(j, grid_map(lambda a: 0.5 * a, dt(c, axes[i])))
+    return grid_map(lambda *f: torch.stack(f, dim=1), *acc)
+
+
+def grid_objective(x, w, x0, axes, alpha1, alpha0, norm="iso",
+                   huber_delta=1.0):
+    """``solvers.tgv.tgv_objective`` of grids: the three terms of each
+    shard added, then summed over shards in (iz, it) order; bfloat16
+    storage widened to float32 first."""
+    from ..solvers.tgv import MODE_AXES, _tgv_norm_val
+
+    if first_shard(x).dtype == torch.bfloat16:
+        x, w, x0 = (grid_map(lambda a: a.float(), g) for g in (x, w, x0))
+    ax = MODE_AXES[axes]
+    return grid_sum(grid_map(
+        lambda xs, x0s, d, ws, e: 0.5 * torch.sum(torch.square(xs - x0s))
+        + alpha1 * _tgv_norm_val(d - ws, norm, huber_delta)
+        + alpha0 * _tgv_norm_val(e, norm, huber_delta),
+        x, x0, _grid_d_fwd(x, ax), w, _grid_sym_grad(w, ax)))
+
+
+def _run_plain_grid(x0, state, *, axes, n_iter, alpha1, alpha0,
+                    sigma_tau_split, norm, huber_delta, compute_loss,
+                    loss_every):
+    """``solvers.tgv``'s plain loop on a grid of any cut: no kernel, the
+    differences across shard edges from one exchanged plane per cut axis
+    (``parallel.halo``)."""
+    from ..solvers.tgv import (
+        MODE_AXES,
+        TGV_FIELDS,
+        TGVResult,
+        TGVState,
+        _tgv_dual_prox,
+        tgv_steps,
+    )
+
+    ax = MODE_AXES[axes]
+    sigma, tau = tgv_steps(axes, sigma_tau_split)
+    if state is None:
+        n_w = TGV_FIELDS[axes]
+
+        def zeros(a, ch):
+            return a.new_zeros((a.shape[0], ch) + tuple(a.shape[1:]))
+
+        x, xb = x0, x0
+        w, wb, p = (grid_map(lambda a: zeros(a, n_w), x0) for _ in range(3))
+        q = grid_map(lambda a: zeros(a, n_w * (n_w + 1) // 2), x0)
+    else:
+        x, xb, w, wb, p, q = TGVState(*state)
+    every = loss_every or (1 if compute_loss else 0)
+    losses = torch.empty(n_iter // every if every else 0,
+                         dtype=_loss_dtype(first_shard(x0).dtype),
+                         device=first_shard(x0).device)
+    for i in range(n_iter):
+        p = grid_map(lambda ps, d, wbs: _tgv_dual_prox(
+            ps + sigma * (d - wbs), alpha1, norm, sigma, huber_delta),
+            p, _grid_d_fwd(xb, ax), wb)
+        q = grid_map(lambda qs, e: _tgv_dual_prox(
+            qs + sigma * e, alpha0, norm, sigma, huber_delta),
+            q, _grid_sym_grad(wb, ax))
+        x_new = grid_map(lambda xs, d, x0s: (xs - tau * d + tau * x0s)
+                         / (1.0 + tau), x, _grid_d_fwd_T(p, ax), x0)
+        w_new = grid_map(lambda ws, ps, e: ws - tau * (-ps + e), w, p,
+                         _grid_sym_grad_T(q, ax))
+        xb = grid_map(lambda a, b: 2.0 * a - b, x_new, x)
+        wb = grid_map(lambda a, b: 2.0 * a - b, w_new, w)
+        x, w = x_new, w_new
+        if every and (i + 1) % every == 0:
+            losses[i // every] = grid_objective(x, w, x0, axes, alpha1,
+                                                alpha0, norm, huber_delta)
+    return TGVResult(x=x, w=w, loss=losses,
+                     state=TGVState(x, xb, w, wb, p, q))
+
+
+def tgv_denoise_grid(x_noisy, *, n_iter, alpha1, alpha0, sigma_tau_split,
+                     axes, compute_loss, fused, loss_every, state, norm,
+                     huber_delta):
+    """``solvers.tgv_denoise`` of a volume grid.  ``'2d'`` goes to
+    :func:`tgv_denoise_sharded` (B7 a shard on the card).  ``'3d'``, and
+    ``'4d'`` on a grid that does not cut time, take the path the shard's
+    shape takes on a volume (``solvers.tgv._select_path``): the streaming
+    kernels through :func:`make_sharded_tgv_stream_solver`, or
+    :func:`_run_plain_grid`.  ``'4d'`` on a grid that cuts time couples
+    the cut axis inside the streaming kernels' step, which the sharded
+    solver does not exchange: it takes the plain loop on every device,
+    and ``fused=True`` raises.  ``state`` is a ``TGVState`` of grids."""
+    from ..solvers.tgv import _select_path
+
+    lay = grid_mesh(x_noisy)
+    kw = dict(n_iter=n_iter, alpha1=alpha1, alpha0=alpha0,
+              sigma_tau_split=sigma_tau_split, norm=norm,
+              huber_delta=huber_delta)
+    if axes == "2d":
+        return tgv_denoise_sharded(
+            x_noisy, lay.mesh, compute_loss=compute_loss, fused=fused,
+            shard_time=lay.shard_time, loss_every=loss_every, state=state,
+            **kw)
+    first = first_shard(x_noisy)
+    if axes == "4d" and lay.shard_time:
+        if fused:
+            raise ValueError(
+                "fused=True cannot serve axes='4d' on a grid that cuts "
+                "time: the sharded streaming solver exchanges z planes "
+                "only; cut z alone (parallel.mesh.shard_volume(..., "
+                "shard_time=False)) or leave fused=None for the plain loop")
+        path = "plain"
+    else:
+        path = _select_path(tuple(first.shape), first.dtype, axes, n_iter,
+                            compute_loss, fused, loss_every,
+                            state is not None, first.is_cuda)
+    if path == "stream":
+        solve = make_sharded_tgv_stream_solver(
+            lay.mesh, lay.shape, axes, dtype=first.dtype,
+            shard_time=lay.shard_time, loss_every=loss_every, **kw)
+        return solve(x_noisy, state)
+    return _run_plain_grid(x_noisy, state, axes=axes,
+                           compute_loss=compute_loss, loss_every=loss_every,
+                           **kw)

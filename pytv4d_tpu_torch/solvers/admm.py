@@ -22,6 +22,7 @@ import torch
 from ..core.config import TVConfig
 from ..core.schemes import num_channels
 from ..ops.operators import D, D_T, tv_norm
+from ..parallel.mesh import is_grid
 from ..utils.device import on_device
 
 
@@ -124,7 +125,16 @@ def admm(
     resumes a run): a tensor's own; the CUDA device for a numpy array
     (``RuntimeError`` where there is none), or ``device`` where given
     (``utils.device``).  The inputs are never modified; the loss history
-    stays on the device."""
+    stays on the device.  A grid of shards (``parallel.mesh.shard_volume``)
+    runs the same loop on ``parallel.halo``'s exchanged stencils
+    (``parallel.entry.admm``); ``x`` and the state come back as grids."""
+    if is_grid(x_noisy):
+        from ..parallel import entry
+
+        return entry.admm(x_noisy, n_iter=n_iter, reg=reg, rho=rho,
+                          cg_iter=cg_iter, cfg=cfg, state=state,
+                          mask_static=mask_static, weight_time=weight_time,
+                          device=device)
     x_noisy = on_device(x_noisy, device)
     if state is None:
         state = init_state(x_noisy, cfg)

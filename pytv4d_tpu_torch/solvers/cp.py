@@ -18,6 +18,7 @@ import torch
 from ..core.config import TVConfig
 from ..core.schemes import num_channels, operator_norm_bound_sq
 from ..ops.operators import D, D_T, _safe_sqrt, precond_maps, tv_norm
+from ..parallel.mesh import indexed, is_grid, refuse_grid
 from ..utils.device import on_device
 from .fidelity import fidelity_dual_prox, fidelity_loss, validate_fidelity
 from .progress import emit_progress
@@ -153,6 +154,7 @@ def chambolle_pock_precond(
     :class:`CPPrecondState`: the over-relaxed iterate must ride along for
     an exact continuation).  Plain PyTorch, as the JAX solver runs no
     kernel; the loss history stays on the device."""
+    refuse_grid(x_noisy, "chambolle_pock_precond")
     x_noisy = on_device(x_noisy, device)
     fidelity_weight = _require_scalar_weight(
         fidelity_weight, "chambolle_pock_precond")
@@ -256,10 +258,30 @@ def chambolle_pock(
     projects onto x >= 0.
 
     The loss history stays on the device: one tensor of length ``n_iter``.
+
+    A grid of shards (``parallel.mesh.shard_volume``) is solved on the
+    sharded blocks (``parallel.entry.chambolle_pock``): the fused kernels
+    B1 / B2 (with B8 on the overlapped step) for CUDA shards they serve,
+    else ``parallel.halo``'s plain step; ``x`` and the state come back as
+    grids (``y_D`` in ``shard_d_volume``'s layout), and ``state`` may be a
+    :class:`CPState` of grids.
     """
     from ..kernels.dispatch import as_dtype, can_fuse, t_plane_multiplier
 
     fidelity_weight = _require_scalar_weight(fidelity_weight, "chambolle_pock")
+    if is_grid(x_noisy):
+        from ..parallel import entry
+
+        for _, _, part in indexed(x_noisy):
+            validate_fidelity(fidelity, part, fidelity_weight)
+        return entry.chambolle_pock(
+            x_noisy, n_iter=n_iter, reg=reg, sigma_D=sigma_D,
+            sigma_A=sigma_A, tau=tau, cfg=cfg, state=state,
+            mask_static=mask_static, weight_time=weight_time, fused=fused,
+            dual_dtype=dual_dtype, return_dual=return_dual,
+            progress_every=progress_every, progress_fn=progress_fn,
+            fidelity=fidelity, fidelity_weight=fidelity_weight,
+            nonneg=nonneg)
     validate_fidelity(fidelity, x_noisy, fidelity_weight)
     shape = tuple(x_noisy.shape)
     device = x_noisy.device

@@ -21,6 +21,7 @@ import torch
 from ..core.config import TVConfig
 from ..core.schemes import operator_norm_bound_sq
 from ..ops.operators import D, D_T, _safe_sqrt, tv_norm
+from ..parallel.mesh import is_grid
 from ..utils.device import on_device
 
 
@@ -61,14 +62,24 @@ def fista(
     time-channel weighting; pass an explicit ``L`` if a weight plane
     exceeds 1 (the default bound assumes multipliers <= 1).  ``y_init``
     warm-starts the dual (the momentum restarts at 1, as in the JAX solver).
+
+    A grid of shards (``parallel.mesh.shard_volume``) runs the same loop
+    on ``parallel.halo``'s exchanged stencils (``parallel.entry.fista``);
+    ``x`` and ``y`` come back as grids, ``y_init`` may be one.
     """
-    x_noisy = on_device(x_noisy, device)
     if cfg.norm == "huber":
         raise ValueError(
             "fista supports norm='iso'/'aniso' only (the Huber dual adds a "
             "quadratic term to the ball constraint); use chambolle_pock or "
             "admm for Huber-TV"
         )
+    if is_grid(x_noisy):
+        from ..parallel import entry
+
+        return entry.fista(x_noisy, n_iter=n_iter, reg=reg, cfg=cfg, L=L,
+                           y_init=y_init, mask_static=mask_static,
+                           weight_time=weight_time, device=device)
+    x_noisy = on_device(x_noisy, device)
     kw = dict(mask_static=mask_static, weight_time=weight_time,
               **cfg.kwargs())
     if L is None:

@@ -16,6 +16,7 @@ import torch
 
 from ..core.config import TVConfig
 from ..ops.tv import tv_and_subgrad
+from ..parallel.mesh import is_grid
 from .progress import emit_progress
 
 
@@ -72,8 +73,22 @@ def subgradient_descent(
 
     ``progress_every=k`` calls ``progress_fn(iteration, loss)`` on the host
     every k iterations (only those iterations sync).
+
+    A grid of shards (``parallel.mesh.shard_volume``) takes
+    ``parallel.entry.subgradient_descent``: kernels B3 / B4 in their halo
+    mode for CUDA shards they serve, else ``parallel.halo``'s plain
+    stencils; ``x`` comes back as a grid, ``x_init`` may be one.
     """
     from ..kernels.dispatch import can_fuse, t_plane_multiplier
+
+    if is_grid(x_noisy):
+        from ..parallel import entry
+
+        return entry.subgradient_descent(
+            x_noisy, n_iter=n_iter, reg=reg, step_size=step_size, cfg=cfg,
+            x_init=x_init, mask_static=mask_static, weight_time=weight_time,
+            fused=fused, progress_every=progress_every,
+            progress_fn=progress_fn)
 
     shape = tuple(x_noisy.shape)
     if fused is None:

@@ -576,13 +576,12 @@ def cp_inverse_grid(pair_of, b, vol_shape, *, n_iter: int = 100,
     volume or a grid.  Returns ``x`` and every state field as grids."""
     from ..parallel.halo import sharded_D, sharded_D_T
     from ..parallel.mesh import (
-        Mesh,
         Sharding,
         first_shard,
         grid_map,
-        grid_process,
-        grid_size,
+        grid_mesh,
         grid_sum,
+        mesh_sizes,
         shard,
         volume_spec,
     )
@@ -600,8 +599,8 @@ def cp_inverse_grid(pair_of, b, vol_shape, *, n_iter: int = 100,
             validate_fidelity(fidelity, part, fidelity_weight)
     first = first_shard(b)
     dtype, device = first.dtype, first.device
-    nz, nt = len(b), grid_size(b, 1)
-    mesh = Mesh(nz, nt, device, *grid_process(b))
+    mesh = grid_mesh(b).mesh
+    nz, nt = mesh_sizes(mesh)
     D_g = sharded_D(mesh, cfg, vol_shape)
     D_T_g = sharded_D_T(mesh, cfg, vol_shape)
     binds = [_bind_operator(*pair_of(it), (vol_shape[0] // nz,

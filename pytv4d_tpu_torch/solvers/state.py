@@ -22,6 +22,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..parallel.mesh import refuse_grid
+
 
 def _flatten(tree, leaves):
     """Append the leaves of ``tree`` in the JAX package's order."""
@@ -195,6 +197,7 @@ def run_checkpointed(
     and ``admm`` do).  Returns the final result with the full loss history
     (the resumed part included) as a tensor on the loss's device.
     """
+    refuse_grid(x_noisy, "run_checkpointed")
     if not checkpoint_every or checkpoint_path is None:
         return solver(x_noisy, n_iter=n_iter, **solver_kwargs)
 
@@ -276,6 +279,7 @@ def run_until_converged(
     (no carried dual) resumes via ``x_init``.  Returns the solver's result
     type with the concatenated loss history.
     """
+    refuse_grid(x_noisy, "run_until_converged")
     if criterion not in ("loss", "gap"):
         raise ValueError(
             f"criterion must be 'loss' or 'gap', got {criterion!r}"

@@ -34,6 +34,7 @@ import torch
 
 from ..core.schemes import AXIS_COL, AXIS_ROW, AXIS_T, AXIS_Z, BWD, FWD
 from ..ops.operators import _safe_sqrt, d_channel, dt_channel
+from ..parallel.mesh import is_grid
 from ..utils.device import on_device
 from .fidelity import (
     fidelity_conjugate,
@@ -342,7 +343,22 @@ def tgv_denoise(
 
     Input must be the canonical 4D ``(Nz, M, N_row, N_col)`` tensor
     (``models.TVDenoiser.tgv`` accepts 2D/3D and numpy, and restores the
-    rank)."""
+    rank), or a grid of its shards (``parallel.mesh.shard_volume``), which
+    ``parallel.tgv_sharded.tgv_denoise_grid`` solves: x, w and the state
+    come back as grids, the loss summed over shards.  ``'2d'`` runs B7 a
+    shard on the card; ``'3d'``, and ``'4d'`` on a grid that does not cut
+    time, the streaming kernels where a shard of that shape would take
+    them; ``'4d'`` on a grid that cuts time runs the plain loop, and
+    ``fused=True`` raises there."""
+    if is_grid(x_noisy):
+        _check_options(axes, n_iter, loss_every, norm)
+        from ..parallel.tgv_sharded import tgv_denoise_grid
+
+        return tgv_denoise_grid(
+            x_noisy, n_iter=n_iter, alpha1=alpha1, alpha0=alpha0,
+            sigma_tau_split=sigma_tau_split, axes=axes,
+            compute_loss=compute_loss, fused=fused, loss_every=loss_every,
+            state=state, norm=norm, huber_delta=huber_delta)
     if hasattr(x_noisy, "ndim") and x_noisy.ndim != 4:
         raise ValueError(
             f"tgv_denoise expects a rank-4 (Nz, M, N_row, N_col) volume, got "
@@ -353,20 +369,10 @@ def tgv_denoise(
         raise TypeError(
             f"tgv_denoise takes a torch.Tensor, got {type(x_noisy)}; "
             f"models.TVDenoiser(...).tgv takes numpy arrays")
-    if axes not in ("2d", "3d", "4d"):
-        raise ValueError(f"axes must be '2d', '3d' or '4d', got {axes!r}")
-    if loss_every:
-        if loss_every < 0 or n_iter % loss_every:
-            raise ValueError(
-                f"loss_every must be a positive divisor of n_iter, got "
-                f"loss_every={loss_every} with n_iter={n_iter}"
-            )
+    _check_options(axes, n_iter, loss_every, norm)
     path = _select_path(tuple(x_noisy.shape), x_noisy.dtype, axes, n_iter,
                         compute_loss, fused, loss_every, state is not None,
                         x_noisy.is_cuda)
-    if norm not in ("iso", "aniso", "huber"):
-        raise ValueError(f"norm must be 'iso', 'aniso' or 'huber', got "
-                         f"{norm!r}")
     kw = dict(n_iter=n_iter, alpha1=alpha1, alpha0=alpha0,
               sigma_tau_split=sigma_tau_split, norm=norm,
               huber_delta=huber_delta)
@@ -380,6 +386,19 @@ def tgv_denoise(
     run = _run_stream if path == "stream" else _run_plain
     return run(x_noisy, state, axes=axes, compute_loss=compute_loss,
                loss_every=loss_every, **kw)
+
+
+def _check_options(axes, n_iter, loss_every, norm):
+    if axes not in ("2d", "3d", "4d"):
+        raise ValueError(f"axes must be '2d', '3d' or '4d', got {axes!r}")
+    if loss_every and (loss_every < 0 or n_iter % loss_every):
+        raise ValueError(
+            f"loss_every must be a positive divisor of n_iter, got "
+            f"loss_every={loss_every} with n_iter={n_iter}"
+        )
+    if norm not in ("iso", "aniso", "huber"):
+        raise ValueError(f"norm must be 'iso', 'aniso' or 'huber', got "
+                         f"{norm!r}")
 
 
 def _init_state(x0, axes) -> TGVState:

@@ -25,7 +25,7 @@ from pytv4d_tpu_torch.models.ct import (
     sinogram_sharding,
 )
 from pytv4d_tpu_torch.models.ct_spectral import radon_spectral
-from pytv4d_tpu_torch.parallel import gather_volume, make_mesh, shard
+from pytv4d_tpu_torch.parallel import gather_volume, grid_mesh, make_mesh, shard
 from pytv4d_tpu_torch.utils import synthetic_phantom
 
 LOSS_RTOL = 1e-5                 # the JAX sharded tests' bar
@@ -92,6 +92,27 @@ def test_sharded_ct_reconstruction(shard_time):
     assert len(got[torch.float64].x[0]) == (2 if shard_time else 1)
     _check(got[torch.float64], ref.loss, ref.x)
     _check(got[torch.float32], alone.loss, alone.x)
+
+
+def test_sinogram_grid_gives_its_mesh():
+    """``cp_reconstruct`` and ``cp_inverse_grid`` read the mesh off the
+    sinogram grid (``parallel.mesh.grid_mesh``): on a (2, 2) mesh the solve
+    is the gathered sinogram's (float64, 1e-10), and ``x`` comes back as a
+    grid whose layout is the volume's."""
+    truth = _parallel_truth()[:4]
+    angles = np.linspace(0, np.pi, 8, endpoint=False)
+    sino = radon(torch.tensor(truth), angles)
+    kw = dict(n_iter=5, reg=0.02, op_norm=24.0)
+    whole = cp_reconstruct(sino, angles, truth.shape, **kw)
+    got = cp_reconstruct(shard(sino, sinogram_sharding(make_mesh(
+        2, 2, device="cpu"))), angles, truth.shape, **kw)
+    lay = grid_mesh(got.x)
+    assert lay.mesh.shape == {"z": 2, "t": 2} and lay.shard_time
+    assert lay.shape == truth.shape
+    np.testing.assert_allclose(got.loss.numpy(), whole.loss.numpy(),
+                               rtol=1e-10)
+    np.testing.assert_allclose(gather_volume(got.x).numpy(),
+                               whole.x.numpy(), rtol=1e-10, atol=1e-12)
 
 
 def test_sharded_ct_estimates_the_norm_on_the_grid():
