@@ -137,6 +137,7 @@ import itertools
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -4533,10 +4534,31 @@ def _on_grid(what, run, **expected):
     return out
 
 
-def _per_it(run, n_it):
-    """ms per iteration of ``run()``, which runs ``n_it`` of them (the best
-    of two calls after a warm-up, CUDA events)."""
-    return _best_ms(run, 2) / n_it
+def _turns(runs, n_it, repeats=5):
+    """ms per iteration of each of ``runs`` (each runs ``n_it`` of them):
+    one warm-up call each, then ``repeats`` turns in which every run is
+    timed once in its order (CUDA events), so that a drift of the card's
+    clock or power falls on all alike.  ``(median, least, most)`` a run."""
+    for run in runs:
+        run()
+    sync()
+    times = [[] for _ in runs]
+    for _ in range(repeats):
+        for run, got in zip(runs, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            sync()
+            got.append(start.elapsed_time(end) / n_it)
+    return [(statistics.median(t), min(t), max(t)) for t in times]
+
+
+def _turns_text(names, stats):
+    """``name median (least to most)`` of :func:`_turns`' results."""
+    return ", ".join(f"{name} {med:.4f} ({lo:.4f} to {hi:.4f})"
+                     for name, (med, lo, hi) in zip(names, stats))
 
 
 def _loss_rel(got, ref):
@@ -4593,17 +4615,19 @@ def phase_grid_entry(card):
         err = _compare(gather_volume(res.x), ref.x, dual is not None, 1.0)
         require(is_grid(res.state.y_D) and res.state.y_D[0][0].dtype
                 == torch.float32, f"{name}: y_D a float32 grid")
-        ms = (_per_it(lambda: chambolle_pock(
-                  grid, n_iter=n_it, reg=1.0, cfg=cfg, dual_dtype=dual),
-                  n_it),
-              _per_it(direct_cp(grid, dual), n_it),
-              _per_it(lambda: chambolle_pock(
-                  whole, n_iter=n_it, reg=1.0, cfg=cfg, dual_dtype=dual,
-                  return_dual=False), n_it))
+        # all three return the dual in the kernels' layout or not at all
+        ms = _turns((lambda: chambolle_pock(
+                        grid, n_iter=n_it, reg=1.0, cfg=cfg,
+                        dual_dtype=dual, return_dual=False),
+                     direct_cp(grid, dual),
+                     lambda: chambolle_pock(
+                        whole, n_iter=n_it, reg=1.0, cfg=cfg,
+                        dual_dtype=dual, return_dual=False)), n_it)
         lines.append(f"{name}: losses within {rel:.3g}, x within {err:.3g}; "
-                     f"ms/it {ms[0]:.4f} (direct "
-                     f"make_sharded_cp_solver_fused {ms[1]:.4f}, whole "
-                     f"volume {ms[2]:.4f})")
+                     "ms/it, median (least to most) of 5 turns: "
+                     + _turns_text(("entry point, return_dual=False",
+                                    "direct make_sharded_cp_solver_fused",
+                                    "whole volume"), ms))
         del res, ref
 
     # GD and tv_and_subgrad on 4 z-shards: B3 and B4 in their halo mode
@@ -4620,12 +4644,14 @@ def phase_grid_entry(card):
     solve = make_sharded_gd_solver_fused(make_mesh(4), cfg, MAIN_4D,
                                          reg=1.0, n_iter=n_it,
                                          step_size=5e-3, shard_time=False)
-    ms = (_per_it(lambda: subgradient_descent(grid, **gd_kw), n_it),
-          _per_it(lambda: solve(grid, grid), n_it),
-          _per_it(lambda: subgradient_descent(whole, **gd_kw), n_it))
+    ms = _turns((lambda: subgradient_descent(grid, **gd_kw),
+                 lambda: solve(grid, grid),
+                 lambda: subgradient_descent(whole, **gd_kw)), n_it)
     lines.append(f"gd z4: loss and tv within {rel:.3g}, x within {err:.3g}; "
-                 f"ms/it {ms[0]:.4f} (direct make_sharded_gd_solver_fused "
-                 f"{ms[1]:.4f}, whole volume {ms[2]:.4f})")
+                 "ms/it, median (least to most) of 5 turns: "
+                 + _turns_text(("entry point",
+                                "direct make_sharded_gd_solver_fused",
+                                "whole volume"), ms))
     del res, ref
     tv_kw = dict(scheme="hybrid", reg_time=0.5)
     tv, G = _on_grid("tv z4", lambda: pytv4d_tpu_torch.tv_and_subgrad(
@@ -4637,14 +4663,18 @@ def phase_grid_entry(card):
     err = _compare(gather_volume(G), G_ref, False, 0.0, F32_TOL_GD)
     direct = fused_halo.make_sharded_tv_and_subgrad_fused(
         make_mesh(4), cfg, MAIN_4D, shard_time=False)
-    ms = (_per_it(lambda: pytv4d_tpu_torch.tv_and_subgrad(grid, **tv_kw), 1),
-          _per_it(lambda: direct(grid), 1),
-          _per_it(lambda: pytv4d_tpu_torch.tv_and_subgrad(whole, **tv_kw),
-                  1))
+    # a call is ~3 ms of host work on 4 shards: a turn times n_it calls
+    ms = _turns((lambda: [pytv4d_tpu_torch.tv_and_subgrad(grid, **tv_kw)
+                          for _ in range(n_it)],
+                 lambda: [direct(grid) for _ in range(n_it)],
+                 lambda: [pytv4d_tpu_torch.tv_and_subgrad(whole, **tv_kw)
+                          for _ in range(n_it)]), n_it)
     lines.append(f"tv_and_subgrad z4: tv within {rel:.3g}, G within "
-                 f"{err:.3g}; ms a call {ms[0]:.4f} (direct "
-                 f"make_sharded_tv_and_subgrad_fused {ms[1]:.4f}, whole "
-                 f"volume {ms[2]:.4f})")
+                 f"{err:.3g}; ms a call ({n_it} calls a turn), median "
+                 "(least to most) of 5 turns: " + _turns_text(
+                     ("entry point", "direct "
+                      "make_sharded_tv_and_subgrad_fused", "whole volume"),
+                     ms))
     del G, G_ref
 
     # TGV: '2d' on (4 x 2), one B7 a shard; '4d' on 4 z-shards, B6 PQ and
@@ -4660,12 +4690,13 @@ def phase_grid_entry(card):
     rel = _loss_rel(res.loss, ref.loss)
     require(rel <= 1e-6, f"tgv 2d 4x2: loss within 1e-6, got {rel:.3g}")
     mesh42 = make_mesh(4, 2)
-    ms = (_per_it(lambda: tgv_denoise(grid, **tk), n_it),
-          _per_it(lambda: tgv_denoise_sharded(grid, mesh42, **tk), n_it),
-          _per_it(lambda: tgv_denoise(whole, **tk), n_it))
+    ms = _turns((lambda: tgv_denoise(grid, **tk),
+                 lambda: tgv_denoise_sharded(grid, mesh42, **tk),
+                 lambda: tgv_denoise(whole, **tk)), n_it)
     lines.append(f"tgv 2d 4x2: x, w bit-equal, loss within {rel:.3g}; "
-                 f"ms/it {ms[0]:.4f} (direct tgv_denoise_sharded "
-                 f"{ms[1]:.4f}, whole volume {ms[2]:.4f})")
+                 "ms/it, median (least to most) of 5 turns: "
+                 + _turns_text(("entry point", "direct tgv_denoise_sharded",
+                                "whole volume"), ms))
     del res, ref
     grid = grids["z4"]
     lean = dict(tk, axes="4d", compute_loss=False)
@@ -4679,13 +4710,13 @@ def phase_grid_entry(card):
     solve = make_sharded_tgv_stream_solver(make_mesh(4), MAIN_4D, "4d",
                                            n_iter=n_it, alpha1=1.0,
                                            alpha0=2.0)
-    ms = (_per_it(lambda: tgv_denoise(grid, **lean), n_it),
-          _per_it(lambda: solve(grid), n_it),
-          _per_it(lambda: tgv_denoise(whole, **lean), n_it))
+    ms = _turns((lambda: tgv_denoise(grid, **lean), lambda: solve(grid),
+                 lambda: tgv_denoise(whole, **lean)), n_it)
     lines.append(f"tgv 4d z4: x, w within {err:.3g} of the whole volume's "
-                 f"stream solve; ms/it {ms[0]:.4f} (direct "
-                 f"make_sharded_tgv_stream_solver {ms[1]:.4f}, whole volume "
-                 f"{ms[2]:.4f})")
+                 "stream solve; ms/it, median (least to most) of 5 turns: "
+                 + _turns_text(("entry point",
+                                "direct make_sharded_tgv_stream_solver",
+                                "whole volume"), ms))
     del res, ref
     grid = grids["2x2"]
     full = dict(tk, axes="4d")
@@ -4694,11 +4725,12 @@ def phase_grid_entry(card):
     rel = _loss_rel(res.loss, ref.loss)
     require(rel <= 1e-5, f"tgv 4d 2x2: loss within 1e-5, got {rel:.3g}")
     err = _compare(gather_volume(res.x), ref.x, False, 0.0, F32_TOL_20)
-    ms = (_per_it(lambda: tgv_denoise(grid, **full), n_it),
-          _per_it(lambda: tgv_denoise(whole, **full), n_it))
-    lines.append(f"tgv 4d 2x2 (the plain grid loop, no launch): loss within "
-                 f"{rel:.3g}, x within {err:.3g}; ms/it {ms[0]:.4f} (whole "
-                 f"volume, the plain loop {ms[1]:.4f})")
+    ms = _turns((lambda: tgv_denoise(grid, **full),
+                 lambda: tgv_denoise(whole, **full)), n_it)
+    lines.append(f"tgv 4d 2x2 (the plain loop on the grid, no launch): loss "
+                 f"within {rel:.3g}, x within {err:.3g}; ms/it, median "
+                 "(least to most) of 5 turns: " + _turns_text(
+                     ("entry point", "whole volume, the plain loop"), ms))
     del res, ref
 
     # ADMM and FISTA: plain loops on the exchanged stencils, no kernel
@@ -4709,10 +4741,11 @@ def phase_grid_entry(card):
         rel = _loss_rel(res.loss, ref.loss)
         require(rel <= 1e-5, f"{name}: losses within 1e-5, got {rel:.3g}")
         err = _compare(gather_volume(res.x), ref.x, False, 0.0, F32_TOL_20)
-        ms = (_per_it(lambda: fn(grid, n_iter=n, reg=1.0, cfg=cfg), n),
-              _per_it(lambda: fn(whole, n_iter=n, reg=1.0, cfg=cfg), n))
+        ms = _turns((lambda: fn(grid, n_iter=n, reg=1.0, cfg=cfg),
+                     lambda: fn(whole, n_iter=n, reg=1.0, cfg=cfg)), n)
         lines.append(f"{name}: losses within {rel:.3g}, x within {err:.3g}; "
-                     f"ms/it {ms[0]:.4f} (whole volume {ms[1]:.4f})")
+                     "ms/it, median (least to most) of 5 turns: "
+                     + _turns_text(("entry point", "whole volume"), ms))
         del res, ref
     torch.cuda.empty_cache()
     log(f"[31 entry points on a grid] {MAIN_4D} f32 hybrid reg_time=0.5 "

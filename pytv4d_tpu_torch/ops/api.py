@@ -17,19 +17,21 @@ layout (``parallel.entry``).
 from __future__ import annotations
 
 from ..core.config import TVConfig
-from ..parallel import entry as _grid
 from ..parallel.mesh import is_grid
 from ..utils.device import on_device
 from . import operators as _ops
 from . import tv as _tv
 
 
-def _on_device_first(base, on_grid):
+def _on_device_first(base, on_grid: str):
     """``base`` with its first argument placed by ``on_device``; a grid of
-    shards goes to ``on_grid``."""
+    shards goes to ``parallel.entry``'s function ``on_grid``."""
     def fn(arr, *args, device=None, **kwargs):
         if is_grid(arr):
-            return on_grid(arr, *args, device=device, **kwargs)
+            from ..parallel import entry
+
+            return getattr(entry, on_grid)(arr, *args, device=device,
+                                           **kwargs)
         return base(on_device(arr, device), *args, **kwargs)
 
     fn.__name__ = fn.__qualname__ = base.__name__
@@ -37,9 +39,9 @@ def _on_device_first(base, on_grid):
     return fn
 
 
-D = _on_device_first(_ops.D, _grid.D)
-D_T = _on_device_first(_ops.D_T, _grid.D_T)
-compute_L21_norm = _on_device_first(_ops.compute_L21_norm, _grid.L21_norm)
+D = _on_device_first(_ops.D, "D")
+D_T = _on_device_first(_ops.D_T, "D_T")
+compute_L21_norm = _on_device_first(_ops.compute_L21_norm, "L21_norm")
 
 
 def tv_and_subgrad(img, scheme="hybrid", mask=None, reg_z_over_reg=1.0,
@@ -57,7 +59,9 @@ def tv_and_subgrad(img, scheme="hybrid", mask=None, reg_z_over_reg=1.0,
     from ..kernels.dispatch import can_fuse, t_plane_multiplier
 
     if is_grid(img):
-        return _grid.tv_and_subgrad(
+        from ..parallel import entry
+
+        return entry.tv_and_subgrad(
             img, scheme=scheme, mask=mask, reg_z_over_reg=reg_z_over_reg,
             reg_time=reg_time, mask_static=mask_static,
             factor_reg_static=factor_reg_static, weight_time=weight_time,

@@ -3,54 +3,42 @@
 The JAX package's entry points take an array placed on a mesh, and GSPMD
 partitions the whole call.  Torch has no partitioner, so the port's entry
 points recognise a grid (``parallel.mesh.is_grid``: what ``shard``,
-``shard_volume`` and ``shard_d_volume`` return) and hand it here:
-``ops.api``'s ``D``, ``D_T``, ``compute_L21_norm`` and ``tv_and_subgrad``
-(and the package root's ``tv_<scheme>``, ``D_<scheme>``, ``D_T_<scheme>``),
-``solvers.chambolle_pock``, ``subgradient_descent``, ``admm`` and ``fista``
-(``solvers.tgv_denoise``'s is ``parallel.tgv_sharded.tgv_denoise_grid``).
+``shard_volume`` and ``shard_d_volume`` return) and ask this module for
+what differs on one.  The solvers' loops are their own: ``solvers``' CP
+step, GD, ADMM and FISTA, and ``solvers.tgv.run_plain``, each run on an
+``ops.space.Space``; :func:`solver_space` is a grid's
+(``parallel.halo.grid_space``: the exchanged stencils, the arithmetic shard
+by shard, every inner product and loss a sum over shards in (iz, it)
+order).  Besides, this module holds ``ops.api``'s ``D``, ``D_T``,
+``compute_L21_norm`` and ``tv_and_subgrad`` of a grid, the choice of the
+fused kernels (:func:`use_kernels`: B1/B2 in their halo or interior modes
+with B8, B3/B4 in their halo mode, where the shards are on a CUDA device
+and ``kernels.dispatch.can_fuse`` takes them), the TV that GD runs on
+(:func:`gd_operators`) and CP's call of the fused sharded solver
+(:func:`chambolle_pock_fused`).
 
-Each runs on the sharded blocks: ``parallel.halo``'s exchanged stencils in
-plain torch, on any device, and ``parallel.fused_halo``'s fused kernels
-(B1/B2 in their halo or interior modes with B8, B3/B4 in their halo mode)
-where the shards are on a CUDA device and ``kernels.dispatch.can_fuse``
-takes them.  Each computes what the same call on the gathered volume
-computes: the result's fields come back as grids in the input's layout,
-its loss histories as one tensor on the shards' device, and every inner
-product and loss is a sum over shards in (iz, it) order
-(``parallel.mesh.grid_sum``).  A grid's tensors are already on their
-device, so nothing is placed: a ``device=`` that names another raises
-``ValueError``.  A grid spread over processes (``parallel.multihost``)
-runs the same code.
+Each computes what the same call on the gathered volume computes: the
+result's fields come back as grids in the input's layout, its loss
+histories as one tensor on the shards' device.  A grid's tensors are
+already on their device, so nothing is placed: a ``device=`` that names
+another raises ``ValueError``.  A grid spread over processes
+(``parallel.multihost``) runs the same code.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..core.config import TVConfig
-from ..core.schemes import num_channels, operator_norm_bound_sq
-from ..ops.operators import compute_L21_norm, mask_enabled, tv_norm
+from ..core.schemes import num_channels
+from ..ops.operators import compute_L21_norm, mask_enabled
+from ..ops.space import Space
 from .fused_halo import (
     make_sharded_cp_solver_fused,
     make_sharded_tv_and_subgrad_fused,
 )
-from .halo import (
-    make_sharded_cp_solver,
-    sharded_D,
-    sharded_D_T,
-    sharded_tv_and_subgrad,
-)
-from .mesh import (
-    d_volume_sharding,
-    first_shard,
-    grid_map,
-    grid_mesh,
-    grid_sum,
-    is_grid,
-    shard,
-    volume_sharding,
-)
+from .halo import grid_space, sharded_D, sharded_D_T, sharded_tv_and_subgrad
+from .mesh import first_shard, grid_map, grid_mesh, grid_sum
 
 
 def layout_of(grid, device=None, t_axis: int = 1):
@@ -66,18 +54,6 @@ def layout_of(grid, device=None, t_axis: int = 1):
                 f"the grid's shards are on {have} and a grid is not moved; "
                 f"device={device!r} names another device")
     return lay
-
-
-def place(a, lay, d_volume: bool = False):
-    """``a`` as a grid of ``lay``'s layout: a grid as it is, a whole volume
-    (a tensor or an array; ``d_volume``: a difference volume) cut on the
-    grid's mesh."""
-    if a is None or is_grid(a):
-        return a
-    if not isinstance(a, torch.Tensor):
-        a = torch.as_tensor(np.asarray(a))
-    sharding = d_volume_sharding if d_volume else volume_sharding
-    return shard(a, sharding(lay.mesh, lay.shard_time))
 
 
 def _plane_or_none(mask_static):
@@ -98,12 +74,12 @@ def _shards_fuse(grid, cfg, mask_static, weight_time) -> bool:
                     dtype=first_shard(grid).dtype, weight_time=weight_time)
 
 
-def _use_kernels(grid, cfg, mask_static, weight_time, fused, want=False):
+def use_kernels(grid, cfg, mask_static, weight_time, fused, want=False):
     """Whether a solve on ``grid`` runs the fused kernels: ``fused=None``
     takes them for CUDA shards that they serve (or where ``want``: an
     option only they serve), ``fused=True`` where they serve (on the CPU
     their plain versions), ``ValueError`` where they do not."""
-    fits = _shards_fuse(grid, cfg, mask_static, weight_time)
+    fits = _shards_fuse(grid, cfg, _plane_or_none(mask_static), weight_time)
     if fused is None:
         return fits and (first_shard(grid).is_cuda or want)
     if fused and not fits:
@@ -115,18 +91,15 @@ def _use_kernels(grid, cfg, mask_static, weight_time, fused, want=False):
     return bool(fused)
 
 
-def _dot(a, b):
-    """``<a, b>`` of two grids: a sum over shards in (iz, it) order."""
-    return grid_sum(grid_map(lambda u, v: torch.sum(u * v), a, b))
-
-
-def _progress(progress_every, progress_fn):
-    from ..solvers.progress import emit_progress
-
-    if not progress_every:
-        return None
-    return lambda i, loss: emit_progress(i, loss, progress_every,
-                                         progress_fn)
+def solver_space(grid, cfg, mask_static=None, weight_time=None,
+                 device=None) -> Space:
+    """The ``ops.space.Space`` a solver loop runs ``grid`` on
+    (``parallel.halo.grid_space`` of its own mesh, ``cfg``'s D / D_T with
+    plane-shaped masks; ``ValueError`` for a ``device`` that is not the
+    shards')."""
+    lay = layout_of(grid, device)
+    return grid_space(lay.mesh, cfg, lay.shape, lay.shard_time,
+                      _plane_or_none(mask_static), weight_time)
 
 
 # ------------------------------------------------------------- ops.api
@@ -205,7 +178,7 @@ def tv_and_subgrad(grid, scheme="hybrid", mask=None, reg_z_over_reg=1.0,
     mask_static = _plane_or_none(mask_static)
     kw = dict(shard_time=lay.shard_time, mask_static=mask_static,
               weight_time=weight_time, return_grad_norms=return_grad_norms)
-    if _use_kernels(grid, cfg, mask_static, weight_time, None):
+    if use_kernels(grid, cfg, mask_static, weight_time, None):
         fn = make_sharded_tv_and_subgrad_fused(
             lay.mesh, cfg, lay.shape, dtype=first_shard(grid).dtype, **kw)
     else:
@@ -216,214 +189,62 @@ def tv_and_subgrad(grid, scheme="hybrid", mask=None, reg_z_over_reg=1.0,
 # ------------------------------------------------------------- solvers
 
 
-def chambolle_pock(x_noisy, *, n_iter, reg, sigma_D, sigma_A, tau, cfg,
-                   state, mask_static, weight_time, fused, dual_dtype,
-                   return_dual, progress_every, progress_fn, fidelity,
-                   fidelity_weight, nonneg):
-    """``solvers.chambolle_pock`` of a volume grid.  The fused kernels
-    (``parallel.fused_halo.make_sharded_cp_solver_fused``, with its own
-    choice of the overlapped step) where :func:`_use_kernels` says, else
-    ``parallel.halo.make_sharded_cp_solver``.  ``state`` is a ``CPState``
-    of grids (``y_D`` in ``shard_d_volume``'s layout) or of volumes."""
-    from ..kernels.dispatch import as_dtype
+def chambolle_pock_fused(x_noisy, space: Space, *, n_iter, reg, sigma_D,
+                         sigma_A, tau, cfg, state, mask_static, weight_time,
+                         dual_dtype, return_dual, each, fidelity,
+                         fidelity_weight, nonneg):
+    """``solvers.chambolle_pock`` of a volume grid on the fused kernels:
+    ``parallel.fused_halo.make_sharded_cp_solver_fused``, with its own
+    choice of the overlapped step.  ``state`` is a ``CPState`` of grids
+    (``y_D`` in ``shard_d_volume``'s layout) or of volumes; ``y_D`` rides
+    the kernels' internal layout and is converted back only for
+    ``return_dual``."""
     from ..kernels.fused import from_internal_layout, to_internal_layout
     from ..solvers.cp import CPResult, CPState
 
     lay = layout_of(x_noisy)
-    mask_static = _plane_or_none(mask_static)
-    fused = _use_kernels(x_noisy, cfg, mask_static, weight_time, fused,
-                         want=dual_dtype is not None)
-    if dual_dtype is not None and not fused:
-        raise ValueError(
-            "dual_dtype requires the fused kernel path (fused=True), which "
-            "this grid does not support (see kernels.dispatch.can_fuse: "
-            "float32/bfloat16 volumes, plane-shaped masks)")
     dtype = first_shard(x_noisy).dtype
-    Nd = num_channels(cfg.scheme, lay.shape[0], lay.shape[1],
-                      cfg.reg_z_over_reg, cfg.reg_time)
     if state is None:
-        x, y_A, y_D = x_noisy, grid_map(torch.zeros_like, x_noisy), None
+        Nd = num_channels(cfg.scheme, lay.shape[0], lay.shape[1],
+                          cfg.reg_z_over_reg, cfg.reg_time)
+        out_dual_dtype = dtype
+        x, y_A = x_noisy, grid_map(torch.zeros_like, x_noisy)
+        y_int = grid_map(lambda a: a.new_zeros(
+            (a.shape[0], a.shape[1], Nd) + tuple(a.shape[2:]),
+            dtype=dual_dtype or dtype), x_noisy)
     else:
         st = CPState(*state)
-        x, y_A = place(st.x, lay), place(st.y_A, lay)
-        y_D = place(st.y_D, lay, d_volume=True)
-    kw = dict(reg=reg, n_iter=n_iter, sigma_D=sigma_D, sigma_A=sigma_A,
-              tau=tau, shard_time=lay.shard_time, mask_static=mask_static,
-              weight_time=weight_time, fidelity=fidelity,
-              fidelity_weight=fidelity_weight, nonneg=nonneg)
-    each = _progress(progress_every, progress_fn)
-    if fused:
-        # y_D rides the kernels' internal layout, converted here only
-        dual_dtype = None if dual_dtype is None else as_dtype(dual_dtype)
-        if y_D is None:
-            out_dual_dtype = dtype
-            y_int = grid_map(lambda a: a.new_zeros(
-                (a.shape[0], a.shape[1], Nd) + tuple(a.shape[2:]),
-                dtype=dual_dtype or dtype), x_noisy)
-        else:
-            out_dual_dtype = first_shard(y_D).dtype
-            y_int = grid_map(to_internal_layout, y_D)
-        solve = make_sharded_cp_solver_fused(
-            lay.mesh, cfg, lay.shape, dual_dtype=dual_dtype, dtype=dtype,
-            **kw)
-        x, y_A, y_int, losses = solve(x_noisy, x, y_A, y_int, each)
-        y_D = grid_map(lambda a: from_internal_layout(a).to(out_dual_dtype),
-                       y_int)
-    else:
-        if y_D is None:
-            y_D = grid_map(lambda a: a.new_zeros(
-                (a.shape[0], Nd) + tuple(a.shape[1:])), x_noisy)
-        solve = make_sharded_cp_solver(lay.mesh, cfg, lay.shape, **kw)
-        x, y_A, y_D, losses = solve(x_noisy, x, y_A, y_D, each)
-    st = CPState(x, y_A, y_D if return_dual else None)
-    return CPResult(x=x, state=st, loss=losses)
+        x, y_A = space.place(st.x), space.place(st.y_A)
+        y_D = space.place(st.y_D, d_volume=True)
+        out_dual_dtype = first_shard(y_D).dtype
+        y_int = grid_map(to_internal_layout, y_D)
+    solve = make_sharded_cp_solver_fused(
+        lay.mesh, cfg, lay.shape, reg=reg, n_iter=n_iter, sigma_D=sigma_D,
+        sigma_A=sigma_A, tau=tau, shard_time=lay.shard_time,
+        mask_static=_plane_or_none(mask_static), weight_time=weight_time,
+        fidelity=fidelity, fidelity_weight=fidelity_weight, nonneg=nonneg,
+        dual_dtype=dual_dtype, dtype=dtype)
+    x, y_A, y_int, losses = solve(x_noisy, x, y_A, y_int, each)
+    y_D = (grid_map(lambda a: from_internal_layout(a).to(out_dual_dtype),
+                    y_int) if return_dual else None)
+    return CPResult(x=x, state=CPState(x, y_A, y_D), loss=losses)
 
 
-def subgradient_descent(x_noisy, *, n_iter, reg, step_size, cfg, x_init,
-                        mask_static, weight_time, fused, progress_every,
-                        progress_fn):
-    """``solvers.subgradient_descent`` of a volume grid: the step of
-    ``parallel.fused_halo.make_sharded_gd_solver_fused`` (B3 and B4 in
-    their halo mode, one launch each a shard and iteration) where
-    :func:`_use_kernels` says, else the same step on
-    ``parallel.halo.sharded_tv_and_subgrad``.  ``x_init`` is a volume or a
-    grid; the loss and tv histories are sums over shards."""
-    from ..solvers.gd import GDResult
-
-    lay = layout_of(x_noisy)
+def gd_operators(grid, cfg, mask_static, weight_time, fused):
+    """What ``solvers.subgradient_descent`` runs a grid on:
+    ``(space, tv_and_G, fused)``, the TV and subgradient from
+    :func:`make_sharded_tv_and_subgrad_fused` (B3 and B4 in their halo
+    mode, one launch each a shard) where :func:`use_kernels` says, else
+    from ``parallel.halo.sharded_tv_and_subgrad``."""
+    lay = layout_of(grid)
     mask_static = _plane_or_none(mask_static)
-    fused = _use_kernels(x_noisy, cfg, mask_static, weight_time, fused)
+    fused = use_kernels(grid, cfg, mask_static, weight_time, fused)
     kw = dict(shard_time=lay.shard_time, mask_static=mask_static,
               weight_time=weight_time)
     if fused:
         tv_and_G = make_sharded_tv_and_subgrad_fused(
-            lay.mesh, cfg, lay.shape, dtype=first_shard(x_noisy).dtype, **kw)
+            lay.mesh, cfg, lay.shape, dtype=first_shard(grid).dtype, **kw)
     else:
         tv_and_G = sharded_tv_and_subgrad(lay.mesh, cfg, lay.shape, **kw)
-    x0 = x_noisy
-    x = x0 if x_init is None else place(x_init, lay)
-    hist_dtype = torch.float32 if fused else first_shard(x0).dtype
-    losses = torch.empty(n_iter, dtype=hist_dtype, device=lay.mesh.device)
-    tvs = torch.empty(n_iter, dtype=hist_dtype, device=lay.mesh.device)
-    each = _progress(progress_every, progress_fn)
-    for i in range(n_iter):
-        tv, G = tv_and_G(x)
-        x = grid_map(lambda xs, x0s, g: xs - step_size * ((xs - x0s)
-                                                          + reg * g),
-                     x, x0, G)
-        losses[i] = grid_sum(grid_map(
-            lambda u, v: 0.5 * torch.sum(torch.square(u - v)), x, x0)) \
-            + reg * tv
-        tvs[i] = tv
-        if each is not None:
-            each(i, losses[i])
-    return GDResult(x=x, loss=losses, tv=tvs)
-
-
-def _cg_solve(apply_A, b, x0, n_iter: int):
-    """``solvers.admm._cg_solve`` on grids: the inner products are sums
-    over shards."""
-    x = x0
-    r = grid_map(torch.sub, b, apply_A(x0))
-    p = r
-    rs = _dot(r, r)
-    for _ in range(n_iter):
-        Ap = apply_A(p)
-        alpha = rs / (_dot(p, Ap) + 1e-30)
-        x = grid_map(lambda xs, ps: xs + alpha * ps, x, p)
-        r = grid_map(lambda rs_, aps: rs_ - alpha * aps, r, Ap)
-        rs_new = _dot(r, r)
-        beta = rs_new / (rs + 1e-30)
-        p = grid_map(lambda rs_, ps: rs_ + beta * ps, r, p)
-        rs = rs_new
-    return x
-
-
-def _d_zeros(x, Nd):
-    return grid_map(lambda a: a.new_zeros((a.shape[0], Nd)
-                                          + tuple(a.shape[1:])), x)
-
-
-def admm(x_noisy, *, n_iter, reg, rho, cg_iter, cfg, state, mask_static,
-         weight_time, device):
-    """``solvers.admm`` of a volume grid: its plain loop on
-    ``parallel.halo``'s ``D`` / ``D_T`` (no kernel, as on a volume).
-    ``state`` is an ``ADMMState`` of grids or of volumes."""
-    from ..solvers.admm import ADMMResult, ADMMState, group_soft_threshold
-
-    lay = layout_of(x_noisy, device)
-    kw = dict(mask_static=_plane_or_none(mask_static),
-              weight_time=weight_time)
-    D_g = sharded_D(lay.mesh, cfg, lay.shape, lay.shard_time, **kw)
-    D_T_g = sharded_D_T(lay.mesh, cfg, lay.shape, lay.shard_time, **kw)
-    if state is None:
-        Nd = num_channels(cfg.scheme, lay.shape[0], lay.shape[1],
-                          cfg.reg_z_over_reg, cfg.reg_time)
-        x, z, u = x_noisy, _d_zeros(x_noisy, Nd), _d_zeros(x_noisy, Nd)
-    else:
-        st = ADMMState(*state)
-        x = place(st.x, lay)
-        z, u = (place(a, lay, d_volume=True) for a in (st.z, st.u))
-
-    def apply_A(v):
-        return grid_map(lambda a, b: a + rho * b, v, D_T_g(D_g(v)))
-
-    losses = torch.empty(n_iter, dtype=first_shard(x_noisy).dtype,
-                         device=lay.mesh.device)
-    for i in range(n_iter):
-        b = grid_map(lambda x0, d: x0 + rho * d, x_noisy,
-                     D_T_g(grid_map(torch.sub, z, u)))
-        x = _cg_solve(apply_A, b, x, cg_iter)
-        D_x = D_g(x)
-        z = grid_map(lambda d, us: group_soft_threshold(
-            d + us, reg / rho, cfg.norm, cfg.huber_delta), D_x, u)
-        u = grid_map(lambda us, d, zs: us + d - zs, u, D_x, z)
-        losses[i] = grid_sum(grid_map(
-            lambda xs, x0, d: 0.5 * torch.sum(torch.square(xs - x0))
-            + reg * tv_norm(d, cfg.norm, huber_delta=cfg.huber_delta),
-            x, x_noisy, D_x))
-    return ADMMResult(x=x, state=ADMMState(x, z, u), loss=losses)
-
-
-def fista(x_noisy, *, n_iter, reg, cfg, L, y_init, mask_static,
-          weight_time, device):
-    """``solvers.fista`` of a volume grid: its plain loop on
-    ``parallel.halo``'s ``D`` / ``D_T`` (no kernel, as on a volume).
-    ``y_init`` is a difference-volume grid or a whole one."""
-    from ..solvers.fista import FISTAResult, _project_dual
-
-    lay = layout_of(x_noisy, device)
-    kw = dict(mask_static=_plane_or_none(mask_static),
-              weight_time=weight_time)
-    D_g = sharded_D(lay.mesh, cfg, lay.shape, lay.shard_time, **kw)
-    D_T_g = sharded_D_T(lay.mesh, cfg, lay.shape, lay.shard_time, **kw)
-    if L is None:
-        L = operator_norm_bound_sq(cfg.scheme, lay.shape[0], lay.shape[1],
-                                   cfg.reg_z_over_reg, cfg.reg_time)
-    inv_L = 1.0 / L
-    if y_init is None:
-        Nd = num_channels(cfg.scheme, lay.shape[0], lay.shape[1],
-                          cfg.reg_z_over_reg, cfg.reg_time)
-        y = _d_zeros(x_noisy, Nd)
-    else:
-        y = place(y_init, lay, d_volume=True)
-    w = y
-    dtype = first_shard(x_noisy).dtype
-    t = torch.ones((), dtype=dtype, device=lay.mesh.device)
-    losses = torch.empty(n_iter, dtype=dtype, device=lay.mesh.device)
-
-    def primal(y):
-        return grid_map(torch.sub, x_noisy, D_T_g(y))
-
-    for i in range(n_iter):
-        y_new = grid_map(lambda ws, d: _project_dual(
-            ws + inv_L * d, reg, cfg.norm), w, D_g(primal(w)))
-        t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
-        mom = (t - 1.0) / t_new
-        w = grid_map(lambda yn, ys: yn + mom * (yn - ys), y_new, y)
-        x = primal(y_new)
-        losses[i] = grid_sum(grid_map(
-            lambda xs, x0, d: 0.5 * torch.sum(torch.square(xs - x0))
-            + reg * tv_norm(d, cfg.norm), x, x_noisy, D_g(x)))
-        y, t = y_new, t_new
-    return FISTAResult(x=primal(y), y=y, loss=losses)
+    return (grid_space(lay.mesh, None, lay.shape, lay.shard_time), tv_and_G,
+            fused)

@@ -40,7 +40,7 @@ import torch
 from ..core.config import TVConfig
 from ..core.schemes import AXIS_T, AXIS_Z, CTR, scheme_channels
 from ..ops.operators import _sl
-from .halo import _check_grid
+from .halo import _check_grid, grid_space
 from .mesh import (
     Mesh,
     check_divisible,
@@ -497,30 +497,23 @@ def make_sharded_gd_solver_fused(
     the kernels compute in f32).
     ``solve(x_noisy, x) -> (x, losses)``; inputs sharded with
     ``parallel.mesh.shard_volume``, in ``dtype``; ``solve``'s optional
-    ``each(i, loss)`` is called after every iteration."""
+    ``each(i, loss)`` is called after every iteration.  The loop is
+    ``solvers.gd.gd_loop`` on :func:`make_sharded_tv_and_subgrad_fused`'s
+    TV, as ``solvers.subgradient_descent`` runs it on a grid."""
     from ..kernels.dispatch import as_dtype
+    from ..solvers.gd import gd_loop
 
     tv_and_G = make_sharded_tv_and_subgrad_fused(
         mesh, cfg, global_shape, shard_time=shard_time, dtype=dtype,
         mask_static=mask_static, weight_time=weight_time)
-
-    def step(x, x_noisy):
-        tv, G = tv_and_G(x)
-        x = grid_map(lambda xs, x0, g: xs - step_size * ((xs - x0) + reg * g),
-                     x, x_noisy, G)
-        fid = grid_sum(grid_map(
-            lambda xs, x0: 0.5 * torch.sum(torch.square(xs - x0)),
-            x, x_noisy))
-        return x, fid + reg * tv
+    space = grid_space(mesh, None, global_shape, shard_time)
 
     def solve(x_noisy, x, each=None):
         _check_grid(x_noisy, mesh, global_shape, shard_time)
         _check_state(x_noisy, "x_noisy", as_dtype(dtype), mesh)
-        losses = torch.empty(n_iter, dtype=torch.float32, device=mesh.device)
-        for i in range(n_iter):
-            x, losses[i] = step(x, x_noisy)
-            if each is not None:
-                each(i, losses[i])
+        x, losses, _ = gd_loop(space, tv_and_G, x_noisy, x, n_iter=n_iter,
+                               reg=reg, step_size=step_size,
+                               hist_dtype=torch.float32, each=each)
         return x, losses
 
     return solve

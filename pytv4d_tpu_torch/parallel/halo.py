@@ -30,18 +30,23 @@ import torch
 from ..core.config import TVConfig
 from ..core.schemes import BWD, FWD, channel_weight, scheme_channels
 from ..ops.operators import _sl, d_channel, dt_channel, tv_norm
+from ..ops.space import Space
 from .mesh import (
     Mesh,
     check_divisible,
+    d_volume_sharding,
     first_shard,
     grid_like,
     grid_map,
     grid_size,
     grid_sum,
     indexed,
+    is_grid,
     mesh_sizes,
     planes_from_left,
     planes_from_right,
+    shard,
+    volume_sharding,
 )
 
 __all__ = [
@@ -50,6 +55,7 @@ __all__ = [
     "sharded_tv_and_subgrad",
     "sharded_cp_step",
     "make_sharded_cp_solver",
+    "grid_space",
 ]
 
 
@@ -258,6 +264,33 @@ def sharded_D_T(mesh: Mesh, cfg: TVConfig, global_shape,
     return fn
 
 
+def grid_space(mesh: Mesh, cfg, global_shape, shard_time: bool = True,
+               mask_static=None, weight_time=None) -> Space:
+    """The ``ops.space.Space`` of a grid of shards on ``mesh``: D / D_T of
+    ``cfg`` (:func:`sharded_D`, :func:`sharded_D_T`; none where ``cfg`` is
+    None), the exchanged one-channel stencils, ``grid_map`` and
+    ``grid_sum``; ``place`` cuts a whole volume (or, with ``d_volume``, a
+    difference volume) on the mesh and leaves a grid as it is."""
+    D = D_T = None
+    if cfg is not None:
+        D = sharded_D(mesh, cfg, global_shape, shard_time, mask_static,
+                      weight_time)
+        D_T = sharded_D_T(mesh, cfg, global_shape, shard_time, mask_static,
+                          weight_time)
+
+    def total(fn, *grids):
+        return grid_sum(grid_map(fn, *grids))
+
+    def place(a, d_volume=False):
+        if a is None or is_grid(a):
+            return a
+        sharding = d_volume_sharding if d_volume else volume_sharding
+        return shard(a, sharding(mesh, shard_time))
+
+    return Space(D, D_T, sharded_d_channel, sharded_dt_channel, grid_map,
+                 total, first_shard, place, tuple(global_shape))
+
+
 def sharded_tv_and_subgrad(mesh: Mesh, cfg: TVConfig, global_shape,
                            shard_time: bool = True, mask_static=None,
                            weight_time=None, return_grad_norms=False):
@@ -311,40 +344,26 @@ def sharded_cp_step(mesh: Mesh, cfg: TVConfig, global_shape, *, reg, sigma_D,
                     sigma_A, tau, shard_time: bool = True,
                     fidelity: str = "l2", fidelity_weight: float = 1.0,
                     nonneg: bool = False, mask_static=None, weight_time=None):
-    """One Chambolle-Pock iteration on grids of shards: the only exchange is
-    the 1-plane halos inside D / D_T and one sum of scalars for the loss
-    (``solvers.cp.cp_step``; the ``fidelity`` / ``nonneg`` family is
-    pointwise, so it shards untouched: the weight must be a scalar;
-    ``mask_static`` / ``weight_time`` planes as :func:`sharded_D`'s).
-    ``fn(x, y_A, y_D, x_noisy) -> (x, y_A, y_D, loss)``, ``y_D`` in the
-    public layout (``parallel.mesh.shard_d_volume``)."""
-    from ..solvers.cp import dual_prox
-    from ..solvers.fidelity import fidelity_dual_prox, fidelity_loss
+    """One Chambolle-Pock iteration on grids of shards: ``solvers.cp.cp_step``
+    on :func:`grid_space`, so the only exchange is the 1-plane halos inside
+    D / D_T and one sum of scalars for the loss (the ``fidelity`` /
+    ``nonneg`` family is pointwise, so it shards untouched: the weight must
+    be a scalar; ``mask_static`` / ``weight_time`` planes as
+    :func:`sharded_D`'s).  ``fn(x, y_A, y_D, x_noisy) -> (x, y_A, y_D,
+    loss)``, ``y_D`` in the public layout
+    (``parallel.mesh.shard_d_volume``)."""
+    from ..solvers.cp import CPState, cp_step
 
-    tmul_of = _t_multiplier(cfg, global_shape, mask_static, weight_time)
+    space = grid_space(mesh, cfg, global_shape, shard_time, mask_static,
+                       weight_time)
 
     def fn(x, y_A, y_D, x_noisy):
         _check_grid(x, mesh, global_shape, shard_time)
-        first = first_shard(x)
-        tmul = tmul_of(first.dtype, first.device)
-        y_A = grid_map(lambda ya, xs, x0: fidelity_dual_prox(
-            ya, xs, x0, sigma_A, fidelity, fidelity_weight), y_A, x, x_noisy)
-        D_x = _local_D(x, cfg, global_shape, tmul)
-        y_D = grid_map(lambda yd, d: dual_prox(
-            yd + sigma_D * d, reg, cfg.norm, sigma_D, cfg.huber_delta),
-            y_D, D_x)
-        dty = _local_D_T(y_D, cfg, global_shape, tmul=tmul)
-
-        def primal(xs, ya, dt):
-            xs = xs - tau * ya - tau * dt
-            return torch.clamp_min(xs, 0.0) if nonneg else xs
-
-        x = grid_map(primal, x, y_A, dty)
-        loss = grid_sum(grid_map(
-            lambda xs, x0, d: fidelity_loss(xs, x0, fidelity, fidelity_weight)
-            + reg * tv_norm(d, cfg.norm, huber_delta=cfg.huber_delta),
-            x, x_noisy, D_x))
-        return x, y_A, y_D, loss
+        st, loss = cp_step(CPState(x, y_A, y_D), x_noisy, reg=reg,
+                           sigma_D=sigma_D, sigma_A=sigma_A, tau=tau, cfg=cfg,
+                           fidelity=fidelity, fidelity_weight=fidelity_weight,
+                           nonneg=nonneg, space=space)
+        return (*st, loss)
 
     return fn
 

@@ -12,23 +12,21 @@ whole-solve kernel B7 (``kernels.tgv_resident``).
 ``axes='3d'`` / ``'4d'`` couple z (and t) across shard edges:
 :func:`make_sharded_tgv_stream_solver` runs the streaming kernels B6
 (``kernels.tgv_stream``: passes PQ and XW) shard by shard with ghost-plane
-halos, on a mesh that does not cut time for ``'4d'``.  :func:`_run_plain_grid`
-is the plain loop of ``solvers.tgv`` on a grid of any cut: TGV's forward
-differences and the symmetrised Jacobian on ``parallel.halo``'s exchanged
-one-sided stencils, one plane exchanged per cut axis.  Every neighbour
+halos, on a mesh that does not cut time for ``'4d'``.  Every neighbour
 plane comes through ``parallel.mesh``'s ``planes_from_left`` /
 ``planes_from_right``.
 
 :func:`tgv_denoise_grid` is ``solvers.tgv_denoise`` of a grid: it picks
-among the three.
+between these two and ``solvers.tgv.run_plain``, the plain loop, on
+``parallel.halo.grid_space`` (a grid of any cut, one plane exchanged per
+cut axis).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.schemes import BWD, FWD
-from .halo import _check_grid, sharded_d_channel, sharded_dt_channel
+from .halo import _check_grid, grid_space
 from .mesh import (
     T_AXIS,
     Z_AXIS,
@@ -208,7 +206,10 @@ def make_sharded_tgv_stream_solver(
         MODE_AXES,
         TGVResult,
         TGVState,
+        _init_state,
         _q_pairs,
+        loss_dtype,
+        tgv_objective,
         tgv_steps,
     )
 
@@ -346,171 +347,32 @@ def make_sharded_tgv_stream_solver(
         return x, xb, w, wb, p, q
 
     step = overlap_step if overlap else ghost_step
-    n_q = len(pairs)
+    space = grid_space(mesh, None, global_shape, shard_time)
 
     def solve(x0, state=None):
         _check_grid(x0, mesh, global_shape, shard_time)
         x0_pad = grid_map(lambda a: _pad_z(a.to(dt)), x0)
-        if state is None:
-            x = grid_map(lambda a: a[1:-1].clone(), x0_pad)
-            xb = grid_map(torch.clone, x)
-
-            def zeros(a, ch):
-                return a.new_zeros((a.shape[0], ch) + tuple(a.shape[1:]))
-
-            w, wb, p = (grid_map(lambda a: zeros(a, n), x) for _ in range(3))
-            q = grid_map(lambda a: zeros(a, n_q), x)
-        else:  # the overlapped step updates its state in place: copies
-            x, xb, w, wb, p, q = (grid_map(lambda a: a.to(dt).clone(
-                memory_format=torch.contiguous_format), g)
-                for g in TGVState(*state))
         x0_dt = grid_map(lambda a: a[1:-1], x0_pad)
+        if state is None:
+            st = _init_state(x0_dt, axes, space)
+        else:  # the overlapped step updates its state in place: copies
+            st = TGVState(*(grid_map(lambda a: a.to(dt).clone(
+                memory_format=torch.contiguous_format), g) for g in state))
+        x, xb, w, wb, p, q = st
         losses = torch.empty(n_iter // loss_every if loss_every else 0,
-                             dtype=_loss_dtype(dt),
+                             dtype=loss_dtype(dt),
                              device=first_shard(x0_dt).device)
         for i in range(n_iter):
             x, xb, w, wb, p, q = step(x, xb, w, wb, p, q, x0_pad)
             if loss_every and (i + 1) % loss_every == 0:
-                losses[i // loss_every] = grid_objective(
-                    x, w, x0_dt, axes, alpha1, alpha0, norm, huber_delta)
+                losses[i // loss_every] = tgv_objective(
+                    x, w, x0_dt, axes, alpha1, alpha0, norm, huber_delta,
+                    space)
         return TGVResult(x=x, w=w, loss=losses,
                          state=TGVState(x, xb, w, wb, p, q))
 
     solve.overlap = overlap
     return solve
-
-
-
-def _loss_dtype(dtype):
-    """The objective's dtype: a bfloat16 state's is float32."""
-    return torch.float32 if dtype == torch.bfloat16 else dtype
-
-
-def _grid_d_fwd(x, axes):
-    """``solvers.tgv._d_fwd_axes`` of a grid: the exchanged forward
-    differences along every axis of ``axes``, stacked on axis 1."""
-    parts = [sharded_d_channel(x, a, FWD) for a in axes]
-    return grid_map(lambda *d: torch.stack(d, dim=1), *parts)
-
-
-def _grid_d_fwd_T(p, axes):
-    """The exact adjoint of :func:`_grid_d_fwd` (``_d_fwd_T_axes``)."""
-    out = None
-    for i, a in enumerate(axes):
-        part = sharded_dt_channel(grid_map(lambda v: v[:, i], p), a, FWD)
-        out = part if out is None else grid_map(torch.add, out, part)
-    return out
-
-
-def _grid_sym_grad(w, axes):
-    """``solvers.tgv._sym_grad_axes`` of a grid of fields
-    ``(nz, n, m, Nr, Nc)``: backward differences across shard edges."""
-    from ..solvers.tgv import _q_pairs
-
-    def d(i, axis):
-        return sharded_d_channel(grid_map(lambda v: v[:, i], w), axis, BWD)
-
-    out = []
-    for i, j in _q_pairs(len(axes)):
-        if i == j:
-            out.append(d(i, axes[i]))
-        else:
-            out.append(grid_map(lambda a, b: 0.5 * (a + b), d(i, axes[j]),
-                                d(j, axes[i])))
-    return grid_map(lambda *c: torch.stack(c, dim=1), *out)
-
-
-def _grid_sym_grad_T(q, axes):
-    """The exact adjoint of :func:`_grid_sym_grad` (``_sym_grad_T_axes``,
-    in its order of sums)."""
-    from ..solvers.tgv import _q_pairs
-
-    n = len(axes)
-    acc = [None] * n
-
-    def add(i, term):
-        acc[i] = term if acc[i] is None else grid_map(torch.add, acc[i], term)
-
-    def dt(c, axis):
-        return sharded_dt_channel(grid_map(lambda v: v[:, c], q), axis, BWD)
-
-    for c, (i, j) in enumerate(_q_pairs(n)):
-        if i == j:
-            add(i, dt(c, axes[i]))
-        else:
-            add(i, grid_map(lambda a: 0.5 * a, dt(c, axes[j])))
-            add(j, grid_map(lambda a: 0.5 * a, dt(c, axes[i])))
-    return grid_map(lambda *f: torch.stack(f, dim=1), *acc)
-
-
-def grid_objective(x, w, x0, axes, alpha1, alpha0, norm="iso",
-                   huber_delta=1.0):
-    """``solvers.tgv.tgv_objective`` of grids: the three terms of each
-    shard added, then summed over shards in (iz, it) order; bfloat16
-    storage widened to float32 first."""
-    from ..solvers.tgv import MODE_AXES, _tgv_norm_val
-
-    if first_shard(x).dtype == torch.bfloat16:
-        x, w, x0 = (grid_map(lambda a: a.float(), g) for g in (x, w, x0))
-    ax = MODE_AXES[axes]
-    return grid_sum(grid_map(
-        lambda xs, x0s, d, ws, e: 0.5 * torch.sum(torch.square(xs - x0s))
-        + alpha1 * _tgv_norm_val(d - ws, norm, huber_delta)
-        + alpha0 * _tgv_norm_val(e, norm, huber_delta),
-        x, x0, _grid_d_fwd(x, ax), w, _grid_sym_grad(w, ax)))
-
-
-def _run_plain_grid(x0, state, *, axes, n_iter, alpha1, alpha0,
-                    sigma_tau_split, norm, huber_delta, compute_loss,
-                    loss_every):
-    """``solvers.tgv``'s plain loop on a grid of any cut: no kernel, the
-    differences across shard edges from one exchanged plane per cut axis
-    (``parallel.halo``)."""
-    from ..solvers.tgv import (
-        MODE_AXES,
-        TGV_FIELDS,
-        TGVResult,
-        TGVState,
-        _tgv_dual_prox,
-        tgv_steps,
-    )
-
-    ax = MODE_AXES[axes]
-    sigma, tau = tgv_steps(axes, sigma_tau_split)
-    if state is None:
-        n_w = TGV_FIELDS[axes]
-
-        def zeros(a, ch):
-            return a.new_zeros((a.shape[0], ch) + tuple(a.shape[1:]))
-
-        x, xb = x0, x0
-        w, wb, p = (grid_map(lambda a: zeros(a, n_w), x0) for _ in range(3))
-        q = grid_map(lambda a: zeros(a, n_w * (n_w + 1) // 2), x0)
-    else:
-        x, xb, w, wb, p, q = TGVState(*state)
-    every = loss_every or (1 if compute_loss else 0)
-    losses = torch.empty(n_iter // every if every else 0,
-                         dtype=_loss_dtype(first_shard(x0).dtype),
-                         device=first_shard(x0).device)
-    for i in range(n_iter):
-        p = grid_map(lambda ps, d, wbs: _tgv_dual_prox(
-            ps + sigma * (d - wbs), alpha1, norm, sigma, huber_delta),
-            p, _grid_d_fwd(xb, ax), wb)
-        q = grid_map(lambda qs, e: _tgv_dual_prox(
-            qs + sigma * e, alpha0, norm, sigma, huber_delta),
-            q, _grid_sym_grad(wb, ax))
-        x_new = grid_map(lambda xs, d, x0s: (xs - tau * d + tau * x0s)
-                         / (1.0 + tau), x, _grid_d_fwd_T(p, ax), x0)
-        w_new = grid_map(lambda ws, ps, e: ws - tau * (-ps + e), w, p,
-                         _grid_sym_grad_T(q, ax))
-        xb = grid_map(lambda a, b: 2.0 * a - b, x_new, x)
-        wb = grid_map(lambda a, b: 2.0 * a - b, w_new, w)
-        x, w = x_new, w_new
-        if every and (i + 1) % every == 0:
-            losses[i // every] = grid_objective(x, w, x0, axes, alpha1,
-                                                alpha0, norm, huber_delta)
-    return TGVResult(x=x, w=w, loss=losses,
-                     state=TGVState(x, xb, w, wb, p, q))
 
 
 def tgv_denoise_grid(x_noisy, *, n_iter, alpha1, alpha0, sigma_tau_split,
@@ -521,11 +383,12 @@ def tgv_denoise_grid(x_noisy, *, n_iter, alpha1, alpha0, sigma_tau_split,
     ``'4d'`` on a grid that does not cut time, take the path the shard's
     shape takes on a volume (``solvers.tgv._select_path``): the streaming
     kernels through :func:`make_sharded_tgv_stream_solver`, or
-    :func:`_run_plain_grid`.  ``'4d'`` on a grid that cuts time couples
-    the cut axis inside the streaming kernels' step, which the sharded
-    solver does not exchange: it takes the plain loop on every device,
-    and ``fused=True`` raises.  ``state`` is a ``TGVState`` of grids."""
-    from ..solvers.tgv import _select_path
+    ``solvers.tgv.run_plain`` on the grid.  ``'4d'`` on a grid that cuts
+    time couples the cut axis inside the streaming kernels' step, which
+    the sharded solver does not exchange: it takes the plain loop on every
+    device, and ``fused=True`` raises.  ``state`` is a ``TGVState`` of
+    grids."""
+    from ..solvers.tgv import _select_path, run_plain
 
     lay = grid_mesh(x_noisy)
     kw = dict(n_iter=n_iter, alpha1=alpha1, alpha0=alpha0,
@@ -554,6 +417,7 @@ def tgv_denoise_grid(x_noisy, *, n_iter, alpha1, alpha0, sigma_tau_split,
             lay.mesh, lay.shape, axes, dtype=first.dtype,
             shard_time=lay.shard_time, loss_every=loss_every, **kw)
         return solve(x_noisy, state)
-    return _run_plain_grid(x_noisy, state, axes=axes,
-                           compute_loss=compute_loss, loss_every=loss_every,
-                           **kw)
+    return run_plain(x_noisy, state, axes=axes, compute_loss=compute_loss,
+                     loss_every=loss_every,
+                     space=grid_space(lay.mesh, None, lay.shape,
+                                      lay.shard_time), **kw)

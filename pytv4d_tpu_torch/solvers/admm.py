@@ -21,7 +21,8 @@ import torch
 
 from ..core.config import TVConfig
 from ..core.schemes import num_channels
-from ..ops.operators import D, D_T, tv_norm
+from ..ops.operators import tv_norm
+from ..ops.space import TENSOR, Space, d_zeros, tensor_space
 from ..parallel.mesh import is_grid
 from ..utils.device import on_device
 
@@ -38,20 +39,25 @@ class ADMMResult(NamedTuple):
     loss: torch.Tensor  # per-iteration loss history (n_iter,), on the device
 
 
-def _cg_solve(apply_A, b, x0, n_iter: int):
+def _cg_solve(apply_A, b, x0, n_iter: int, space: Space = TENSOR):
     """Matrix-free CG for SPD ``A`` (fixed iteration count; every scalar
-    stays on the device)."""
+    stays on the device) on ``space``'s fields (``ops.space``): on a grid
+    every inner product is a sum over shards."""
+    def dot(u, v):
+        return space.sum(lambda a, c: torch.sum(a * c), u, v)
+
     x = x0
-    r = b - apply_A(x0)
+    r = space.map(torch.sub, b, apply_A(x0))
     p = r
-    rs = torch.sum(r * r)
+    rs = dot(r, r)
     for _ in range(n_iter):
         Ap = apply_A(p)
-        alpha = rs / (torch.sum(p * Ap) + 1e-30)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        rs_new = torch.sum(r * r)
-        p = r + (rs_new / (rs + 1e-30)) * p
+        alpha = rs / (dot(p, Ap) + 1e-30)
+        x = space.map(lambda xs, ps: xs + alpha * ps, x, p)
+        r = space.map(lambda rs_, aps: rs_ - alpha * aps, r, Ap)
+        rs_new = dot(r, r)
+        beta = rs_new / (rs + 1e-30)
+        p = space.map(lambda rs_, ps: rs_ + beta * ps, r, p)
         rs = rs_new
     return x
 
@@ -76,36 +82,41 @@ def group_soft_threshold(v, thresh, norm: str = "iso",
 
 
 def admm_step(state: ADMMState, x_noisy, *, reg, rho, cg_iter, cfg: TVConfig,
-              mask_static=None, weight_time=None):
+              mask_static=None, weight_time=None, space: Space = None):
     """One ADMM iteration: ``(state, x0) -> (state', loss)`` with
-    ``loss = 1/2 ||x' - x0||^2 + reg * TV(D x')``."""
-    kw = dict(mask_static=mask_static, weight_time=weight_time,
-              **cfg.kwargs())
+    ``loss = 1/2 ||x' - x0||^2 + reg * TV(D x')``, on ``space``'s fields
+    (``ops.space``; a tensor's from ``cfg`` and the masks by default)."""
+    if space is None:
+        space = tensor_space(cfg, mask_static, weight_time)
     x, z, u = state
 
     def apply_A(v):
-        return v + rho * D_T(D(v, cfg.scheme, **kw), cfg.scheme, **kw)
+        return space.map(lambda a, b: a + rho * b, v, space.D_T(space.D(v)))
 
-    b = x_noisy + rho * D_T(z - u, cfg.scheme, **kw)
-    x = _cg_solve(apply_A, b, x, cg_iter)
-    D_x = D(x, cfg.scheme, **kw)
-    z = group_soft_threshold(D_x + u, reg / rho, cfg.norm, cfg.huber_delta)
-    u = u + D_x - z
-    loss = 0.5 * torch.sum(torch.square(x - x_noisy)) + reg * tv_norm(
-        D_x, cfg.norm, huber_delta=cfg.huber_delta)
+    b = space.map(lambda x0, d: x0 + rho * d, x_noisy,
+                  space.D_T(space.map(torch.sub, z, u)))
+    x = _cg_solve(apply_A, b, x, cg_iter, space)
+    D_x = space.D(x)
+    z = space.map(lambda d, us: group_soft_threshold(
+        d + us, reg / rho, cfg.norm, cfg.huber_delta), D_x, u)
+    u = space.map(lambda us, d, zs: us + d - zs, u, D_x, z)
+    loss = space.sum(lambda xs, x0, d: 0.5 * torch.sum(torch.square(xs - x0))
+                     + reg * tv_norm(d, cfg.norm, huber_delta=cfg.huber_delta),
+                     x, x_noisy, D_x)
     return ADMMState(x, z, u), loss
 
 
-def init_state(x_noisy, cfg: TVConfig, x_init=None) -> ADMMState:
-    """A cold start: ``x = x_noisy``, zero split variable and dual."""
-    Nz, M = x_noisy.shape[0], x_noisy.shape[1]
-    Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg, cfg.reg_time)
-    shape = (Nz, Nd, M) + tuple(x_noisy.shape[2:])
-    kw = dict(dtype=x_noisy.dtype, device=x_noisy.device)
+def init_state(x_noisy, cfg: TVConfig, x_init=None,
+               space: Space = None) -> ADMMState:
+    """A cold start: ``x = x_noisy``, zero split variable and dual;
+    ``space`` (``ops.space``) for a grid of shards."""
+    space = space or tensor_space(shape=x_noisy.shape)
+    Nd = num_channels(cfg.scheme, space.shape[0], space.shape[1],
+                      cfg.reg_z_over_reg, cfg.reg_time)
     return ADMMState(
         x=x_noisy if x_init is None else x_init,
-        z=torch.zeros(shape, **kw),
-        u=torch.zeros(shape, **kw),
+        z=d_zeros(space, x_noisy, Nd),
+        u=d_zeros(space, x_noisy, Nd),
     )
 
 
@@ -126,23 +137,26 @@ def admm(
     (``RuntimeError`` where there is none), or ``device`` where given
     (``utils.device``).  The inputs are never modified; the loss history
     stays on the device.  A grid of shards (``parallel.mesh.shard_volume``)
-    runs the same loop on ``parallel.halo``'s exchanged stencils
-    (``parallel.entry.admm``); ``x`` and the state come back as grids."""
+    runs the same loop on ``parallel.halo.grid_space``'s exchanged
+    stencils; ``x`` and the state come back as grids, and ``state`` may be
+    an ``ADMMState`` of grids or of volumes."""
     if is_grid(x_noisy):
         from ..parallel import entry
 
-        return entry.admm(x_noisy, n_iter=n_iter, reg=reg, rho=rho,
-                          cg_iter=cg_iter, cfg=cfg, state=state,
-                          mask_static=mask_static, weight_time=weight_time,
-                          device=device)
-    x_noisy = on_device(x_noisy, device)
+        space = entry.solver_space(x_noisy, cfg, mask_static, weight_time,
+                                   device)
+    else:
+        x_noisy = on_device(x_noisy, device)
+        space = tensor_space(cfg, mask_static, weight_time, x_noisy.shape)
     if state is None:
-        state = init_state(x_noisy, cfg)
-    state = ADMMState(*state)
-    losses = torch.empty(n_iter, dtype=x_noisy.dtype, device=x_noisy.device)
+        state = init_state(x_noisy, cfg, space=space)
+    state = ADMMState(space.place(state[0]),
+                      *(space.place(a, d_volume=True) for a in state[1:]))
+    losses = torch.empty(n_iter, dtype=space.first(x_noisy).dtype,
+                         device=space.first(x_noisy).device)
     for i in range(n_iter):
         state, losses[i] = admm_step(
             state, x_noisy, reg=reg, rho=rho, cg_iter=cg_iter, cfg=cfg,
-            mask_static=mask_static, weight_time=weight_time,
+            space=space,
         )
     return ADMMResult(x=state.x, state=state, loss=losses)

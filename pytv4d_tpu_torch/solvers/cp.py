@@ -18,6 +18,7 @@ import torch
 from ..core.config import TVConfig
 from ..core.schemes import num_channels, operator_norm_bound_sq
 from ..ops.operators import D, D_T, _safe_sqrt, precond_maps, tv_norm
+from ..ops.space import Space, d_zeros, tensor_space
 from ..parallel.mesh import indexed, is_grid, refuse_grid
 from ..utils.device import on_device
 from .fidelity import fidelity_dual_prox, fidelity_loss, validate_fidelity
@@ -80,7 +81,7 @@ def dual_prox(p, reg, norm: str, sigma=1.0, huber_delta: float = 1.0):
 
 def cp_step(state: CPState, x_noisy, *, reg, sigma_D, sigma_A, tau,
             cfg: TVConfig, mask_static=None, weight_time=None, fidelity="l2",
-            fidelity_weight=1.0, nonneg=False):
+            fidelity_weight=1.0, nonneg=False, space: Space = None):
     """One CP iteration, exactly the reference recipe (``README.md:146-157``):
 
     - fidelity dual:  y_A <- (y_A + sigma_A (x - x0)) / (1 + sigma_A)
@@ -90,20 +91,28 @@ def cp_step(state: CPState, x_noisy, *, reg, sigma_D, sigma_A, tau,
       ``nonneg``)
     - loss:           F(x_new) + reg * TV(D x_old)
       (the reference reuses the pre-update ``D_x`` in the loss line)
+
+    ``space`` (``ops.space``): the fields' operations, a tensor's from
+    ``cfg`` / ``mask_static`` / ``weight_time`` by default, or a grid's
+    (``parallel.halo.grid_space``, which carries its own masks).
     """
-    kw = dict(mask_static=mask_static, weight_time=weight_time,
-              **cfg.kwargs())
+    if space is None:
+        space = tensor_space(cfg, mask_static, weight_time)
     x, y_A, y_D = state
-    y_A = fidelity_dual_prox(y_A, x, x_noisy, sigma_A, fidelity,
-                             fidelity_weight)
-    D_x = D(x, cfg.scheme, **kw)
-    p = y_D + sigma_D * D_x
-    y_D = dual_prox(p, reg, cfg.norm, sigma_D, cfg.huber_delta)
-    x = x - tau * y_A - tau * D_T(y_D, cfg.scheme, **kw)
-    if nonneg:
-        x = torch.clamp_min(x, 0.0)
-    loss = fidelity_loss(x, x_noisy, fidelity, fidelity_weight) + reg * tv_norm(
-        D_x, cfg.norm, huber_delta=cfg.huber_delta)
+    y_A = space.map(lambda ya, xs, x0: fidelity_dual_prox(
+        ya, xs, x0, sigma_A, fidelity, fidelity_weight), y_A, x, x_noisy)
+    D_x = space.D(x)
+    y_D = space.map(lambda yd, d: dual_prox(
+        yd + sigma_D * d, reg, cfg.norm, sigma_D, cfg.huber_delta), y_D, D_x)
+
+    def primal(xs, ya, dty):
+        xs = xs - tau * ya - tau * dty
+        return torch.clamp_min(xs, 0.0) if nonneg else xs
+
+    x = space.map(primal, x, y_A, space.D_T(y_D))
+    loss = space.sum(lambda xs, x0, d: fidelity_loss(
+        xs, x0, fidelity, fidelity_weight) + reg * tv_norm(
+        d, cfg.norm, huber_delta=cfg.huber_delta), x, x_noisy, D_x)
     return CPState(x, y_A, y_D), loss
 
 
@@ -206,15 +215,16 @@ def pd_gap(state: CPState, x_noisy, reg: float = 25.0,
     return primal - dual
 
 
-def init_state(x_noisy, cfg: TVConfig, x_init=None) -> CPState:
-    """A cold start: ``x = x_noisy`` (copied) and zero duals."""
-    Nz, M = x_noisy.shape[0], x_noisy.shape[1]
+def init_state(x_noisy, cfg: TVConfig, x_init=None,
+               space: Space = None) -> CPState:
+    """A cold start: ``x = x_noisy`` (copied) and zero duals; ``space``
+    (``ops.space``) for a grid of shards."""
+    space = space or tensor_space(shape=x_noisy.shape)
+    Nz, M = space.shape[0], space.shape[1]
     Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg, cfg.reg_time)
-    x = (x_noisy if x_init is None else x_init).clone()
-    y_A = torch.zeros_like(x_noisy)
-    y_D = torch.zeros((Nz, Nd, M) + tuple(x_noisy.shape[2:]),
-                      dtype=x_noisy.dtype, device=x_noisy.device)
-    return CPState(x=x, y_A=y_A, y_D=y_D)
+    x = space.map(torch.clone, x_noisy if x_init is None else x_init)
+    return CPState(x=x, y_A=space.map(torch.zeros_like, x_noisy),
+                   y_D=d_zeros(space, x_noisy, Nd))
 
 
 def chambolle_pock(
@@ -260,36 +270,36 @@ def chambolle_pock(
     The loss history stays on the device: one tensor of length ``n_iter``.
 
     A grid of shards (``parallel.mesh.shard_volume``) is solved on the
-    sharded blocks (``parallel.entry.chambolle_pock``): the fused kernels
-    B1 / B2 (with B8 on the overlapped step) for CUDA shards they serve,
-    else ``parallel.halo``'s plain step; ``x`` and the state come back as
-    grids (``y_D`` in ``shard_d_volume``'s layout), and ``state`` may be a
+    sharded blocks: the fused kernels B1 / B2 (with B8 on the overlapped
+    step) for CUDA shards they serve (``parallel.entry.use_kernels``,
+    ``chambolle_pock_fused``), else this loop's :func:`cp_step` on
+    ``parallel.halo.grid_space``; ``x`` and the state come back as grids
+    (``y_D`` in ``shard_d_volume``'s layout), and ``state`` may be a
     :class:`CPState` of grids.
     """
     from ..kernels.dispatch import as_dtype, can_fuse, t_plane_multiplier
 
     fidelity_weight = _require_scalar_weight(fidelity_weight, "chambolle_pock")
-    if is_grid(x_noisy):
+    grid = is_grid(x_noisy)
+    if grid:
         from ..parallel import entry
 
+        space = entry.solver_space(x_noisy, cfg, mask_static, weight_time)
         for _, _, part in indexed(x_noisy):
             validate_fidelity(fidelity, part, fidelity_weight)
-        return entry.chambolle_pock(
-            x_noisy, n_iter=n_iter, reg=reg, sigma_D=sigma_D,
-            sigma_A=sigma_A, tau=tau, cfg=cfg, state=state,
-            mask_static=mask_static, weight_time=weight_time, fused=fused,
-            dual_dtype=dual_dtype, return_dual=return_dual,
-            progress_every=progress_every, progress_fn=progress_fn,
-            fidelity=fidelity, fidelity_weight=fidelity_weight,
-            nonneg=nonneg)
-    validate_fidelity(fidelity, x_noisy, fidelity_weight)
-    shape = tuple(x_noisy.shape)
-    device = x_noisy.device
+        fused = entry.use_kernels(x_noisy, cfg, mask_static, weight_time,
+                                  fused, want=dual_dtype is not None)
+    else:
+        space = tensor_space(cfg, mask_static, weight_time, x_noisy.shape)
+        validate_fidelity(fidelity, x_noisy, fidelity_weight)
+        if fused is None:
+            fused = can_fuse(tuple(x_noisy.shape), cfg,
+                             mask_static=mask_static, dtype=x_noisy.dtype,
+                             weight_time=weight_time)
+    shape = space.shape
+    device = space.first(x_noisy).device
     if tau is None:
         tau = default_tau(cfg, shape[0], shape[1], sigma_A)
-    if fused is None:
-        fused = can_fuse(shape, cfg, mask_static=mask_static,
-                         dtype=x_noisy.dtype, weight_time=weight_time)
     if dual_dtype is not None and not fused:
         raise ValueError(
             "dual_dtype requires the fused kernel path (fused=True), which "
@@ -299,20 +309,35 @@ def chambolle_pock(
     dual_dtype = None if dual_dtype is None else as_dtype(dual_dtype)
 
     if not fused:
-        st = init_state(x_noisy, cfg) if state is None else state
-        losses = torch.empty(n_iter, dtype=x_noisy.dtype, device=device)
+        if state is None:
+            st = init_state(x_noisy, cfg, space=space)
+        else:
+            st = CPState(space.place(state[0]), space.place(state[1]),
+                         space.place(state[2], d_volume=True))
+        losses = torch.empty(n_iter, dtype=space.first(x_noisy).dtype,
+                             device=device)
         for i in range(n_iter):
             st, loss = cp_step(
                 st, x_noisy, reg=reg, sigma_D=sigma_D, sigma_A=sigma_A,
-                tau=tau, cfg=cfg, mask_static=mask_static,
-                weight_time=weight_time, fidelity=fidelity,
-                fidelity_weight=fidelity_weight, nonneg=nonneg,
+                tau=tau, cfg=cfg, fidelity=fidelity,
+                fidelity_weight=fidelity_weight, nonneg=nonneg, space=space,
             )
             losses[i] = loss
             emit_progress(i, loss, progress_every, progress_fn)
         if not return_dual:
             st = st._replace(y_D=None)
         return CPResult(x=st.x, state=st, loss=losses)
+    if grid:
+        return entry.chambolle_pock_fused(
+            x_noisy, space, n_iter=n_iter, reg=reg, sigma_D=sigma_D,
+            sigma_A=sigma_A, tau=tau, cfg=cfg, state=state,
+            mask_static=mask_static, weight_time=weight_time,
+            dual_dtype=dual_dtype, return_dual=return_dual,
+            each=(lambda i, loss: emit_progress(i, loss, progress_every,
+                                                progress_fn))
+            if progress_every else None,
+            fidelity=fidelity, fidelity_weight=fidelity_weight,
+            nonneg=nonneg)
 
     from ..kernels.fused import (
         cp_step_fused_internal,

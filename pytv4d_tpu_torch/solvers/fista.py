@@ -19,8 +19,9 @@ from typing import NamedTuple
 import torch
 
 from ..core.config import TVConfig
-from ..core.schemes import operator_norm_bound_sq
-from ..ops.operators import D, D_T, _safe_sqrt, tv_norm
+from ..core.schemes import num_channels, operator_norm_bound_sq
+from ..ops.operators import _safe_sqrt, tv_norm
+from ..ops.space import d_zeros, tensor_space
 from ..parallel.mesh import is_grid
 from ..utils.device import on_device
 
@@ -64,8 +65,8 @@ def fista(
     warm-starts the dual (the momentum restarts at 1, as in the JAX solver).
 
     A grid of shards (``parallel.mesh.shard_volume``) runs the same loop
-    on ``parallel.halo``'s exchanged stencils (``parallel.entry.fista``);
-    ``x`` and ``y`` come back as grids, ``y_init`` may be one.
+    on ``parallel.halo.grid_space``'s exchanged stencils; ``x`` and ``y``
+    come back as grids, ``y_init`` may be one or a whole dual.
     """
     if cfg.norm == "huber":
         raise ValueError(
@@ -76,35 +77,42 @@ def fista(
     if is_grid(x_noisy):
         from ..parallel import entry
 
-        return entry.fista(x_noisy, n_iter=n_iter, reg=reg, cfg=cfg, L=L,
-                           y_init=y_init, mask_static=mask_static,
-                           weight_time=weight_time, device=device)
-    x_noisy = on_device(x_noisy, device)
-    kw = dict(mask_static=mask_static, weight_time=weight_time,
-              **cfg.kwargs())
+        space = entry.solver_space(x_noisy, cfg, mask_static, weight_time,
+                                   device)
+    else:
+        x_noisy = on_device(x_noisy, device)
+        space = tensor_space(cfg, mask_static, weight_time, x_noisy.shape)
     if L is None:
-        L = operator_norm_bound_sq(cfg.scheme, x_noisy.shape[0],
-                                   x_noisy.shape[1], cfg.reg_z_over_reg,
+        L = operator_norm_bound_sq(cfg.scheme, space.shape[0],
+                                   space.shape[1], cfg.reg_z_over_reg,
                                    cfg.reg_time)
     inv_L = 1.0 / L
 
     if y_init is None:
-        y = torch.zeros_like(D(x_noisy, cfg.scheme, **kw))
+        y = d_zeros(space, x_noisy, num_channels(
+            cfg.scheme, space.shape[0], space.shape[1], cfg.reg_z_over_reg,
+            cfg.reg_time))
     else:
-        y = y_init
+        y = space.place(y_init, d_volume=True)
     w = y
-    t = torch.ones((), dtype=x_noisy.dtype, device=x_noisy.device)
-    losses = torch.empty(n_iter, dtype=x_noisy.dtype, device=x_noisy.device)
+    first = space.first(x_noisy)
+    t = torch.ones((), dtype=first.dtype, device=first.device)
+    losses = torch.empty(n_iter, dtype=first.dtype, device=first.device)
+
+    def primal(y):
+        return space.map(torch.sub, x_noisy, space.D_T(y))
+
     for i in range(n_iter):
         # gradient of the dual: -D(x0 - D^T w); step 1/L; ball projection
-        x_w = x_noisy - D_T(w, cfg.scheme, **kw)
-        y_new = _project_dual(w + inv_L * D(x_w, cfg.scheme, **kw), reg,
-                              cfg.norm)
+        y_new = space.map(lambda ws, d: _project_dual(ws + inv_L * d, reg,
+                                                      cfg.norm),
+                          w, space.D(primal(w)))
         t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
-        w = y_new + ((t - 1.0) / t_new) * (y_new - y)
-        x = x_noisy - D_T(y_new, cfg.scheme, **kw)
-        losses[i] = 0.5 * torch.sum(torch.square(x - x_noisy)) + reg * tv_norm(
-            D(x, cfg.scheme, **kw), cfg.norm)
+        mom = (t - 1.0) / t_new
+        w = space.map(lambda yn, ys: yn + mom * (yn - ys), y_new, y)
+        x = primal(y_new)
+        losses[i] = space.sum(
+            lambda xs, x0, d: 0.5 * torch.sum(torch.square(xs - x0))
+            + reg * tv_norm(d, cfg.norm), x, x_noisy, space.D(x))
         y, t = y_new, t_new
-    x = x_noisy - D_T(y, cfg.scheme, **kw)
-    return FISTAResult(x=x, y=y, loss=losses)
+    return FISTAResult(x=primal(y), y=y, loss=losses)

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.config import TVConfig
+from ..ops.space import TENSOR, Space
 from ..ops.tv import tv_and_subgrad
 from ..parallel.mesh import is_grid
 from .progress import emit_progress
@@ -26,21 +27,48 @@ class GDResult(NamedTuple):
     tv: torch.Tensor       # per-iteration TV history (n_iter,)
 
 
+def _update(space: Space, tv_and_G, x, x_noisy, reg, step_size):
+    """The subgradient-descent update on ``space``'s fields
+    (``README.md:120-123``): ``x <- x - step*((x - x0) + reg*G)``, and the
+    loss with the TV of the *pre-update* iterate and the fidelity of the
+    post-update one, exactly as the reference loop records it."""
+    tv, G = tv_and_G(x)
+    x = space.map(lambda xs, x0, g: xs - step_size * ((xs - x0) + reg * g),
+                  x, x_noisy, G)
+    loss = space.sum(lambda xs, x0: 0.5 * torch.sum(torch.square(xs - x0)),
+                     x, x_noisy) + reg * tv
+    return x, loss, tv
+
+
 def gd_step(x, x_noisy, *, reg, step_size, cfg: TVConfig, mask_static=None,
             weight_time=None):
-    """One subgradient-descent update (``README.md:120-123``):
+    """One subgradient-descent update of a tensor (:func:`_update` on
+    ``ops.tv.tv_and_subgrad``): ``(x', loss, tv)``."""
+    def tv_and_G(v):
+        return tv_and_subgrad(
+            v, cfg.scheme, mask_static=mask_static, weight_time=weight_time,
+            norm_type=cfg.norm, huber_delta=cfg.huber_delta, **cfg.kwargs())
 
-    ``x <- x - step*((x - x0) + reg*G)``; the returned loss uses the TV of the
-    *pre-update* iterate and the fidelity of the post-update one, exactly as
-    the reference loop records it.
-    """
-    tv, G = tv_and_subgrad(
-        x, cfg.scheme, mask_static=mask_static, weight_time=weight_time,
-        norm_type=cfg.norm, huber_delta=cfg.huber_delta, **cfg.kwargs()
-    )
-    x_new = x - step_size * ((x - x_noisy) + reg * G)
-    loss = 0.5 * torch.sum(torch.square(x_new - x_noisy)) + reg * tv
-    return x_new, loss, tv
+    return _update(TENSOR, tv_and_G, x, x_noisy, reg, step_size)
+
+
+def gd_loop(space: Space, tv_and_G, x_noisy, x, *, n_iter, reg, step_size,
+            hist_dtype, each=None):
+    """``n_iter`` updates from ``x`` on ``space``'s fields (``ops.space``:
+    a tensor or a grid of shards), ``tv_and_G(x) -> (tv, G)`` the TV and
+    its subgradient: ``(x, losses, tvs)``, the histories ``hist_dtype``
+    tensors on the fields' device.  ``each(i, loss)`` is called after
+    every iteration."""
+    device = space.first(x_noisy).device
+    losses = torch.empty(n_iter, dtype=hist_dtype, device=device)
+    tvs = torch.empty(n_iter, dtype=hist_dtype, device=device)
+    for i in range(n_iter):
+        x, loss, tv = _update(space, tv_and_G, x, x_noisy, reg, step_size)
+        losses[i] = loss
+        tvs[i] = tv
+        if each is not None:
+            each(i, loss)
+    return x, losses, tvs
 
 
 def subgradient_descent(
@@ -74,55 +102,53 @@ def subgradient_descent(
     ``progress_every=k`` calls ``progress_fn(iteration, loss)`` on the host
     every k iterations (only those iterations sync).
 
-    A grid of shards (``parallel.mesh.shard_volume``) takes
-    ``parallel.entry.subgradient_descent``: kernels B3 / B4 in their halo
-    mode for CUDA shards they serve, else ``parallel.halo``'s plain
-    stencils; ``x`` comes back as a grid, ``x_init`` may be one.
+    A grid of shards (``parallel.mesh.shard_volume``) runs the same loop
+    shard by shard on the TV of ``parallel.entry.gd_operators``: kernels
+    B3 / B4 in their halo mode for CUDA shards they serve
+    (``fused=None`` / ``True`` as on a tensor), else ``parallel.halo``'s
+    plain stencils; ``x`` comes back as a grid, ``x_init`` may be one.
     """
     from ..kernels.dispatch import can_fuse, t_plane_multiplier
 
+    x0 = x_noisy
     if is_grid(x_noisy):
         from ..parallel import entry
 
-        return entry.subgradient_descent(
-            x_noisy, n_iter=n_iter, reg=reg, step_size=step_size, cfg=cfg,
-            x_init=x_init, mask_static=mask_static, weight_time=weight_time,
-            fused=fused, progress_every=progress_every,
-            progress_fn=progress_fn)
-
-    shape = tuple(x_noisy.shape)
-    if fused is None:
-        fused = can_fuse(shape, cfg, mask_static=mask_static,
-                         dtype=x_noisy.dtype, weight_time=weight_time,
-                         for_gd=True)
-    x0 = x_noisy
-    x = x0 if x_init is None else x_init
-    if fused:
-        from ..kernels.fused import tv_and_subgrad_fused
-
-        x0, x = x0.contiguous(), x.contiguous()
-        tmul = t_plane_multiplier(shape, cfg, mask_static, weight_time,
-                                  dtype=x_noisy.dtype, device=x_noisy.device)
-        if tmul is not None:
-            tmul = tmul.float().contiguous()
-
-        def tv_and_G(x):
-            return tv_and_subgrad_fused(x, cfg, tmul=tmul)
+        space, tv_and_G, fused = entry.gd_operators(
+            x_noisy, cfg, mask_static, weight_time, fused)
+        x = x0 if x_init is None else space.place(x_init)
     else:
-        def tv_and_G(x):
-            return tv_and_subgrad(
-                x, cfg.scheme, mask_static=mask_static,
-                weight_time=weight_time, norm_type=cfg.norm,
-                huber_delta=cfg.huber_delta, **cfg.kwargs())
+        space = TENSOR
+        shape = tuple(x_noisy.shape)
+        if fused is None:
+            fused = can_fuse(shape, cfg, mask_static=mask_static,
+                             dtype=x_noisy.dtype, weight_time=weight_time,
+                             for_gd=True)
+        x = x0 if x_init is None else x_init
+        if fused:
+            from ..kernels.fused import tv_and_subgrad_fused
 
-    hist_dtype = torch.float32 if fused else x_noisy.dtype
-    losses = torch.empty(n_iter, dtype=hist_dtype, device=x_noisy.device)
-    tvs = torch.empty(n_iter, dtype=hist_dtype, device=x_noisy.device)
-    for i in range(n_iter):
-        tv, G = tv_and_G(x)
-        x = x - step_size * ((x - x0) + reg * G)
-        loss = 0.5 * torch.sum(torch.square(x - x0)) + reg * tv
-        losses[i] = loss
-        tvs[i] = tv
-        emit_progress(i, loss, progress_every, progress_fn)
+            x0, x = x0.contiguous(), x.contiguous()
+            tmul = t_plane_multiplier(shape, cfg, mask_static, weight_time,
+                                      dtype=x_noisy.dtype,
+                                      device=x_noisy.device)
+            if tmul is not None:
+                tmul = tmul.float().contiguous()
+
+            def tv_and_G(x):
+                return tv_and_subgrad_fused(x, cfg, tmul=tmul)
+        else:
+            def tv_and_G(x):
+                return tv_and_subgrad(
+                    x, cfg.scheme, mask_static=mask_static,
+                    weight_time=weight_time, norm_type=cfg.norm,
+                    huber_delta=cfg.huber_delta, **cfg.kwargs())
+
+    hist_dtype = torch.float32 if fused else space.first(x_noisy).dtype
+    x, losses, tvs = gd_loop(
+        space, tv_and_G, x0, x, n_iter=n_iter, reg=reg, step_size=step_size,
+        hist_dtype=hist_dtype,
+        each=(lambda i, loss: emit_progress(i, loss, progress_every,
+                                            progress_fn))
+        if progress_every else None)
     return GDResult(x=x, loss=losses, tv=tvs)

@@ -33,7 +33,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.schemes import AXIS_COL, AXIS_ROW, AXIS_T, AXIS_Z, BWD, FWD
-from ..ops.operators import _safe_sqrt, d_channel, dt_channel
+from ..ops.operators import _safe_sqrt
+from ..ops.space import TENSOR, Space, d_zeros
 from ..parallel.mesh import is_grid
 from ..utils.device import on_device
 from .fidelity import (
@@ -107,37 +108,48 @@ def _q_pairs(n: int):
     ]
 
 
-def _d_fwd_axes(x, axes):
+def _channel(field, i, space: Space):
+    return space.map(lambda v: v[:, i], field)
+
+
+def _d_fwd_axes(x, axes, space: Space = TENSOR):
     """Forward differences of (Nz, M, Nr, Nc) along ``axes`` ->
-    (Nz, n, M, Nr, Nc), zero at the far boundary."""
-    return torch.stack([d_channel(x, a, FWD) for a in axes], dim=1)
+    (Nz, n, M, Nr, Nc), zero at the far boundary; on ``space``'s fields
+    (``ops.space``: a tensor, or a grid of shards with one plane exchanged
+    per cut axis)."""
+    return space.map(lambda *d: torch.stack(d, dim=1),
+                     *[space.d_channel(x, a, FWD) for a in axes])
 
 
-def _d_fwd_T_axes(p, axes):
+def _d_fwd_T_axes(p, axes, space: Space = TENSOR):
     """Exact adjoint of :func:`_d_fwd_axes`: (Nz, n, M, Nr, Nc) ->
     (Nz, M, Nr, Nc)."""
-    out = dt_channel(p[:, 0], axes[0], FWD)
+    out = space.dt_channel(_channel(p, 0, space), axes[0], FWD)
     for i in range(1, len(axes)):
-        out = out + dt_channel(p[:, i], axes[i], FWD)
+        out = space.map(torch.add, out, space.dt_channel(
+            _channel(p, i, space), axes[i], FWD))
     return out
 
 
-def _sym_grad_axes(w, axes):
+def _sym_grad_axes(w, axes, space: Space = TENSOR):
     """Symmetrized Jacobian of the n-field w (Nz, n, M, Nr, Nc) ->
     (Nz, n(n+1)/2, M, Nr, Nc): the diagonals d_i w_i, then
     (d_j w_i + d_i w_j)/2 for i < j; backward differences, zero at the first
     slot (the discretization dual to the forward ``D``)."""
+    def d(i, axis):
+        return space.d_channel(_channel(w, i, space), axis, BWD)
+
     out = []
     for i, j in _q_pairs(len(axes)):
         if i == j:
-            out.append(d_channel(w[:, i], axes[i], BWD))
+            out.append(d(i, axes[i]))
         else:
-            out.append(0.5 * (d_channel(w[:, i], axes[j], BWD)
-                              + d_channel(w[:, j], axes[i], BWD)))
-    return torch.stack(out, dim=1)
+            out.append(space.map(lambda a, b: 0.5 * (a + b), d(i, axes[j]),
+                                 d(j, axes[i])))
+    return space.map(lambda *c: torch.stack(c, dim=1), *out)
 
 
-def _sym_grad_T_axes(q, axes):
+def _sym_grad_T_axes(q, axes, space: Space = TENSOR):
     """Exact adjoint of :func:`_sym_grad_axes`: field i collects its
     diagonal channel scattered along its own axis, plus half of every
     off-diagonal channel that involves i, scattered along the OTHER axis of
@@ -146,15 +158,20 @@ def _sym_grad_T_axes(q, axes):
     acc = [None] * n
 
     def add(i, term):
-        acc[i] = term if acc[i] is None else acc[i] + term
+        acc[i] = term if acc[i] is None else space.map(torch.add, acc[i],
+                                                       term)
+
+    def half_dt(c, axis):
+        return space.map(lambda a: 0.5 * a, space.dt_channel(
+            _channel(q, c, space), axis, BWD))
 
     for c, (i, j) in enumerate(_q_pairs(n)):
         if i == j:
-            add(i, dt_channel(q[:, c], axes[i], BWD))
+            add(i, space.dt_channel(_channel(q, c, space), axes[i], BWD))
         else:
-            add(i, 0.5 * dt_channel(q[:, c], axes[j], BWD))
-            add(j, 0.5 * dt_channel(q[:, c], axes[i], BWD))
-    return torch.stack(acc, dim=1)
+            add(i, half_dt(c, axes[j]))
+            add(j, half_dt(c, axes[i]))
+    return space.map(lambda *f: torch.stack(f, dim=1), *acc)
 
 
 def _d_fwd(x):
@@ -189,15 +206,17 @@ def _sym_grad4(w):
     return _sym_grad_axes(w, MODE_AXES["4d"])
 
 
-def _tgv_ops(axes: str):
+def _tgv_ops(axes: str, space: Space = TENSOR):
     """(d_fwd, sym_grad, their adjoints, n_w, n_q, ||K_tgv||^2 bound) for an
-    axes mode — the same table tgv_denoise uses."""
+    axes mode on ``space``'s fields — the same table tgv_denoise uses."""
     if axes not in MODE_AXES:
         raise ValueError(f"axes must be '2d', '3d' or '4d', got {axes!r}")
     ax = MODE_AXES[axes]
     n_w = len(ax)
-    return (lambda x: _d_fwd_axes(x, ax), lambda w: _sym_grad_axes(w, ax),
-            lambda p: _d_fwd_T_axes(p, ax), lambda q: _sym_grad_T_axes(q, ax),
+    return (lambda x: _d_fwd_axes(x, ax, space),
+            lambda w: _sym_grad_axes(w, ax, space),
+            lambda p: _d_fwd_T_axes(p, ax, space),
+            lambda q: _sym_grad_T_axes(q, ax, space),
             n_w, n_w * (n_w + 1) // 2, TGV_NORM_BOUND_SQ[axes])
 
 
@@ -240,15 +259,18 @@ def _tgv_norm_val(v, norm, delta):
 
 
 def tgv_objective(x, w, x0, axes, alpha1, alpha0, norm="iso",
-                  huber_delta=1.0):
-    """The primal objective at ``(x, w)``, a scalar tensor on the device;
+                  huber_delta=1.0, space: Space = TENSOR):
+    """The primal objective at ``(x, w)``, a scalar tensor on the device
+    (on a grid, each shard's three terms added, then summed over shards);
     bfloat16 storage is widened to float32 first."""
-    if x.dtype == torch.bfloat16:
-        x, w, x0 = x.float(), w.float(), x0.float()
+    if space.first(x).dtype == torch.bfloat16:
+        x, w, x0 = (space.map(lambda a: a.float(), f) for f in (x, w, x0))
     ax = MODE_AXES[axes]
-    return (0.5 * torch.sum(torch.square(x - x0))
-            + alpha1 * _tgv_norm_val(_d_fwd_axes(x, ax) - w, norm, huber_delta)
-            + alpha0 * _tgv_norm_val(_sym_grad_axes(w, ax), norm, huber_delta))
+    return space.sum(
+        lambda xs, x0s, d, ws, e: 0.5 * torch.sum(torch.square(xs - x0s))
+        + alpha1 * _tgv_norm_val(d - ws, norm, huber_delta)
+        + alpha0 * _tgv_norm_val(e, norm, huber_delta),
+        x, x0, _d_fwd_axes(x, ax, space), w, _sym_grad_axes(w, ax, space))
 
 
 def _select_path(shape, dtype, axes, n_iter, compute_loss, fused,
@@ -383,7 +405,7 @@ def tgv_denoise(
             x_noisy.contiguous(), compute_loss=compute_loss, **kw)
         st = TGVState(x=x, xb=xb, w=w, wb=wb, p=p, q=q)
         return TGVResult(x=x, w=w, loss=losses, state=st)
-    run = _run_stream if path == "stream" else _run_plain
+    run = _run_stream if path == "stream" else run_plain
     return run(x_noisy, state, axes=axes, compute_loss=compute_loss,
                loss_every=loss_every, **kw)
 
@@ -401,53 +423,68 @@ def _check_options(axes, n_iter, loss_every, norm):
                          f"{norm!r}")
 
 
-def _init_state(x0, axes) -> TGVState:
+def _init_state(x0, axes, space: Space = TENSOR) -> TGVState:
     """A cold start: ``x = xb = x0`` (copied) and zero w, duals."""
     n_w = TGV_FIELDS[axes]
-    Nz, M, Nr, Nc = x0.shape
 
     def zeros(n):
-        return torch.zeros((Nz, n, M, Nr, Nc), dtype=x0.dtype,
-                           device=x0.device)
+        return d_zeros(space, x0, n)
 
-    return TGVState(x0.clone(), x0.clone(), zeros(n_w), zeros(n_w),
-                    zeros(n_w), zeros(n_w * (n_w + 1) // 2))
+    return TGVState(space.map(torch.clone, x0), space.map(torch.clone, x0),
+                    zeros(n_w), zeros(n_w), zeros(n_w),
+                    zeros(n_w * (n_w + 1) // 2))
+
+
+def loss_dtype(dtype):
+    """The objective's dtype: a bfloat16 state's is float32."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
 def _iterate(step, st, x0, *, n_iter, axes, alpha1, alpha0, norm,
-             huber_delta, compute_loss, loss_every) -> TGVResult:
+             huber_delta, compute_loss, loss_every,
+             space: Space = TENSOR) -> TGVResult:
     """Run ``step`` ``n_iter`` times from ``st``, recording the objective
     every iteration (``compute_loss``) or every ``loss_every``-th."""
     every = loss_every or (1 if compute_loss else 0)
-    loss_dtype = torch.float32 if x0.dtype == torch.bfloat16 else x0.dtype
-    losses = torch.empty(n_iter // every if every else 0, dtype=loss_dtype,
-                         device=x0.device)
+    first = space.first(x0)
+    losses = torch.empty(n_iter // every if every else 0,
+                         dtype=loss_dtype(first.dtype), device=first.device)
     for i in range(n_iter):
         st = step(st)
         if every and (i + 1) % every == 0:
             losses[i // every] = tgv_objective(st.x, st.w, x0, axes, alpha1,
-                                               alpha0, norm, huber_delta)
+                                               alpha0, norm, huber_delta,
+                                               space)
     return TGVResult(x=st.x, w=st.w, loss=losses, state=st)
 
 
-def _run_plain(x0, state, *, axes, sigma_tau_split, **kw):
-    d_fwd, sym_grad, d_T, sym_T, *_ = _tgv_ops(axes)
+def run_plain(x0, state, *, axes, sigma_tau_split, space: Space = TENSOR,
+              **kw) -> TGVResult:
+    """The plain loop (no kernel) on ``space``'s fields (``ops.space``:
+    a tensor, or a grid of shards of any cut)."""
+    d_fwd, sym_grad, d_T, sym_T, *_ = _tgv_ops(axes, space)
     sigma, tau = tgv_steps(axes, sigma_tau_split)
     alpha1, alpha0 = kw["alpha1"], kw["alpha0"]
     norm, delta = kw["norm"], kw["huber_delta"]
 
     def step(st):
         x, xb, w, wb, p, q = st
-        p = _tgv_dual_prox(p + sigma * (d_fwd(xb) - wb), alpha1, norm,
-                           sigma, delta)
-        q = _tgv_dual_prox(q + sigma * sym_grad(wb), alpha0, norm, sigma,
-                           delta)
-        x_new = (x - tau * d_T(p) + tau * x0) / (1.0 + tau)
-        w_new = w - tau * (-p + sym_T(q))
-        return TGVState(x_new, 2.0 * x_new - x, w_new, 2.0 * w_new - w, p, q)
+        p = space.map(lambda ps, d, wbs: _tgv_dual_prox(
+            ps + sigma * (d - wbs), alpha1, norm, sigma, delta),
+            p, d_fwd(xb), wb)
+        q = space.map(lambda qs, e: _tgv_dual_prox(
+            qs + sigma * e, alpha0, norm, sigma, delta), q, sym_grad(wb))
+        x_new = space.map(lambda xs, d, x0s: (xs - tau * d + tau * x0s)
+                          / (1.0 + tau), x, d_T(p), x0)
+        w_new = space.map(lambda ws, ps, e: ws - tau * (-ps + e), w, p,
+                          sym_T(q))
+        return TGVState(x_new, space.map(lambda a, b: 2.0 * a - b, x_new, x),
+                        w_new, space.map(lambda a, b: 2.0 * a - b, w_new, w),
+                        p, q)
 
-    st = _init_state(x0, axes) if state is None else TGVState(*state)
-    return _iterate(step, st, x0, axes=axes, **kw)
+    st = (_init_state(x0, axes, space) if state is None
+          else TGVState(*state))
+    return _iterate(step, st, x0, axes=axes, space=space, **kw)
 
 
 def _run_stream(x0, state, *, axes, sigma_tau_split, **kw):

@@ -273,6 +273,95 @@ def test_fused_true_on_a_float32_grid(solver):
                        fused=True)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_f32(solver):
+    """The JAX package's whole-volume call on the float32 noisy volume of
+    :func:`test_fused_grid_calls_match_jax`."""
+    noisy = jnp.asarray(_noisy38())
+    cfg = JConfig(**CFG)
+    kw = dict(n_iter=10, reg=0.5, cfg=cfg)
+    if solver == "tv":
+        return tuple(np.asarray(a) for a in jptv.tv_and_subgrad(
+            noisy, "hybrid", reg_time=0.5, return_grad_norms=True))
+    if solver == "gd":
+        res = jsolvers.subgradient_descent(noisy, **kw)
+        return np.asarray(res.x), np.asarray(res.loss), np.asarray(res.tv)
+    if solver == "cp_resume":
+        first = jsolvers.chambolle_pock(noisy, **dict(kw, n_iter=6))
+        res = jsolvers.chambolle_pock(noisy, state=first.state,
+                                      **dict(kw, n_iter=4))
+        return (np.asarray(res.x), np.asarray(res.loss),
+                np.asarray(res.state.y_D),
+                tuple(np.asarray(a) for a in first.state))
+    if solver == "cp_bf16_dual":
+        kw["dual_dtype"] = "bfloat16"
+    res = jsolvers.chambolle_pock(noisy, **kw)
+    return (np.asarray(res.x), np.asarray(res.loss),
+            np.asarray(res.state.y_D, np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _noisy38():
+    rng = np.random.default_rng(38)
+    return (rng.random((8, 4, 16, 16)) + 3.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("solver", ["cp", "cp_bf16_dual", "cp_resume", "gd",
+                                    "tv"])
+def test_fused_grid_calls_match_jax(solver):
+    """What a CUDA grid runs, on CPU shards (the kernels' plain versions
+    behind ``fused=True``, a bf16 dual, or the sharded fused TV with its
+    norms), against the JAX package's whole-volume call on the same
+    float32 input, at the float32 bars of ``test_torch_parallel_fused``:
+    the dispatch, the state's layout conversion both ways and the
+    summed histories."""
+    noisy = torch.as_tensor(_noisy38())
+    mesh = _mesh(4, 2)
+    grid, cfg = shard_volume(noisy, mesh), TVConfig(**CFG)
+    want = _jax_f32(solver)
+    if solver == "tv":
+        from pytv4d_tpu_torch.parallel.fused_halo import (
+            make_sharded_tv_and_subgrad_fused,
+        )
+
+        tv, G, norms = make_sharded_tv_and_subgrad_fused(
+            mesh, cfg, noisy.shape, return_grad_norms=True)(grid)
+        assert float(tv) == pytest.approx(float(want[0]), rel=1e-5)
+        np.testing.assert_allclose(_np(G), want[1], atol=1e-5, rtol=1e-4)
+        np.testing.assert_allclose(_np(norms), want[2], rtol=1e-5)
+        return
+    kw = dict(n_iter=10, reg=0.5, cfg=cfg)
+    bars = dual_bars = dict(atol=1e-5, rtol=1e-4)
+    loss_rtol = 1e-5
+    if solver == "gd":
+        got = subgradient_descent(grid, fused=True, **kw)
+        np.testing.assert_allclose(got.tv.numpy(), want[2], rtol=1e-5)
+    elif solver == "cp_resume":
+        st = CPState(*(shard_volume(a.copy(), mesh) for a in want[3][:2]),
+                     shard_d_volume(want[3][2].copy(), mesh))
+        got = chambolle_pock(grid, fused=True, state=st,
+                             **dict(kw, n_iter=4))
+    else:
+        if solver == "cp_bf16_dual":
+            # the dual is rounded to bfloat16 in both: its bars are
+            # test_torch_parallel_fused's for bfloat16 storage
+            kw["dual_dtype"] = "bfloat16"
+            bars, loss_rtol = dict(atol=1e-3, rtol=1e-3), 1e-4
+            dual_bars = dict(atol=3e-2, rtol=2e-2)
+        else:
+            kw["fused"] = True
+        got = chambolle_pock(grid, **kw)
+        assert chambolle_pock(grid, return_dual=False,
+                              **dict(kw, n_iter=1)).state.y_D is None
+    assert is_grid(got.x) and got.loss.dtype == torch.float32
+    np.testing.assert_allclose(got.loss.numpy(), want[1], rtol=loss_rtol)
+    np.testing.assert_allclose(_np(got.x), want[0], **bars)
+    if solver != "gd":
+        assert got.state.y_D[0][0].dtype == torch.float32
+        np.testing.assert_allclose(_np(got.state.y_D, d=True), want[2],
+                                   **dual_bars)
+
+
 def _grid():
     return shard_volume(np.random.default_rng(0).random((4, 2, 8, 8)),
                         _mesh(2, 2))
