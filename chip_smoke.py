@@ -122,7 +122,19 @@ the entry points on a grid (phase 31): hands grids of shards of the
 ``subgradient_descent`` and ``tv_and_subgrad`` (B3, B4), ``tgv_denoise``
 (B7 in 2d; B6 in 4d on z-shards; no kernel in 4d on a grid that cuts
 time), ``admm`` and ``fista`` (no kernel), each against the same call on
-the whole volume, and times each beside the direct sharded solver.
+the whole volume, and times each beside the direct sharded solver.  For
+the CT and remaining solver entry points on a grid (phase 32): holds B5's
+halo mode (``csrc/tv_fused.cu``) against its plain version at one of 4
+z-shards of the CT cell and times it beside its bound; hands the CT cell's
+sinogram as 4 z-shards and a (2 x 2) grid to ``cp_reconstruct`` (one B5,
+B2 and B3 launch a shard and iteration, in their halo mode: f32, a bf16
+dual, resumed from a whole-volume state, an array ``fidelity_weight``),
+times it beside the plain halo path and the whole volume, and runs
+``precond`` on the gather pair and the spectral cone cut along t,
+``tgv_reconstruct``, ``fdk``, ``fbp``, ``sart``, ``chambolle_pock_precond``,
+``run_until_converged``, ``run_checkpointed`` (written on a grid, resumed
+on the volume) and the five ``TVDenoiser`` methods on grids, each against
+the same call on the whole volume.
 Every phase raises on failure; nothing falls back to the CPU.  The last line of stdout is one
 JSON object with ``"ok": true`` and the device.
 """
@@ -4032,7 +4044,8 @@ def _sharded_ct_case(name, sino, angles, mesh, sharding, geom, card):
     torch.cuda.reset_peak_memory_stats(DEV)
     base = torch.cuda.memory_allocated(DEV)
     zero_counters()
-    res = cp_reconstruct(grid, angles, CT_SHAPE, **kw)  # op_norm on the grid
+    # the plain halo TV (PR 13's path; phase 32 runs the fused one)
+    res = cp_reconstruct(grid, angles, CT_SHAPE, fused=False, **kw)
     sync()
     require_launches(read_counters(), f"sharded {name} CT")
     peak = torch.cuda.max_memory_allocated(DEV) - base
@@ -4067,8 +4080,8 @@ def _sharded_ct_case(name, sino, angles, mesh, sharding, geom, card):
     ms_un = _best_ms(lambda: cp_reconstruct(sino, angles, CT_SHAPE, **kw),
                      2) / n_iter
     peak_un = torch.cuda.max_memory_allocated(DEV) - base
-    ms_sh = _best_ms(lambda: cp_reconstruct(grid, angles, CT_SHAPE, **kw),
-                     2) / n_iter
+    ms_sh = _best_ms(lambda: cp_reconstruct(grid, angles, CT_SHAPE,
+                                            fused=False, **kw), 2) / n_iter
     log(f"[29 sharded CT {name}] {CT_SHAPE} x {CT_ANGLES} angles on a "
         f"{tuple(mesh.shape.values())} mesh, method='auto' "
         f"({ct._resolve_method('auto', ct._geometry_name(geom), DEV)}), "
@@ -4761,6 +4774,282 @@ def phase_grid_entry(card):
     return out
 
 
+# ---------------------------------------------------------------- phase 32
+CT_GRIDS = {"z4": (4, 1), "2x2": (2, 2)}
+# the checks that take the plain step (precond) or no solver: a smaller
+# parallel problem, and a cone one cut along t
+CT32_SMALL, CT32_SMALL_ANGLES = (8, 2, 128, 128), 32
+CT32_CONE_SHAPE = (8, 4, 128, 128)
+CT32_CONE = ConeBeamGeometry(source_dist=256.0, det_dist=128.0)
+CT32_BF16_TOL = 1e-3  # x of a bf16-dual grid solve, of the scale
+
+
+def _b5_halo(card):
+    """B5 in its halo mode (``csrc/tv_fused.cu`` ``tv_dual_kernel``) on one
+    of 4 z-shards of the CT cell, ``(4, 4, 512, 512)`` with its ghost
+    planes, hybrid ``reg_time=0.5``: against its plain version (f32 and a
+    bf16 dual, the CP bar), and its time against the plain version's in
+    alternating turns beside its bound."""
+    cfg = TVConfig(**CT_CFG)
+    Nd = num_channels(cfg.scheme, CT_SHAPE[0], CT_SHAPE[1],
+                      cfg.reg_z_over_reg, cfg.reg_time)
+    local = (CT_SHAPE[0] // 4,) + CT_SHAPE[1:]
+    gen = torch.Generator(device=DEV).manual_seed(32)
+    x_ext = torch.randn((local[0] + 2, local[1] + 2) + local[2:],
+                        generator=gen, device=DEV)
+    kw = dict(cfg=cfg, sigma_D=0.3, reg=0.5, halo_mode=True,
+              table_dims=CT_SHAPE[:2])
+    out = {}
+    for name, ddt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        y = (0.3 * torch.randn(local[:2] + (Nd,) + local[2:], generator=gen,
+                               device=DEV)).to(ddt)
+        got, parts = fused.tv_dual(x_ext, y.clone(), **kw)
+        want, want_parts = fused.tv_dual_plain(x_ext, y.clone(), **kw)
+        sync()
+        out["max_abs_err" if name == "f32" else "max_abs_err_bf16"] = \
+            _compare(got, want, name == "bf16", kw["reg"])
+        rel = abs(float(parts.sum()) - float(want_parts.sum())) / abs(
+            float(want_parts.sum()))
+        require(rel <= 1e-5, f"B5 halo {name}: TV partials within 1e-5 of "
+                             f"the plain version's, got {rel:.3g}")
+    y = (0.3 * torch.randn(local[:2] + (Nd,) + local[2:], generator=gen,
+                           device=DEV))
+    y_k, y_p = y.clone(), y.clone()
+    n = 20
+    ms = _turns((lambda: [fused.tv_dual(x_ext, y_k, **kw) for _ in range(n)],
+                 lambda: [fused.tv_dual_plain(x_ext, y_p, **kw)
+                          for _ in range(n)]), n, repeats=3)
+    # each input read once, each output written once: x_bar with its ghost
+    # planes, y_D read and written; 10 operations a channel and voxel
+    n_bytes = 4 * (x_ext.numel() + 2 * y.numel())
+    bound_ms, by = bound(n_bytes, 10 * Nd * int(np.prod(local)))
+    out.update(shard=list(local), ms=ms[0][0], plain_ms=ms[1][0],
+               bound_ms=bound_ms, bound_by=by, bytes=n_bytes)
+    log(f"[32 B5 halo mode] one of 4 z-shards of {CT_SHAPE}, {local} + "
+        f"ghost planes, hybrid reg_time=0.5 ({card}): max |kernel - plain| "
+        f"f32 {out['max_abs_err']:.3g}, bf16 dual "
+        f"{out['max_abs_err_bf16']:.3g}; ms a launch, median (least to "
+        f"most) of 3 turns of {n}: " + _turns_text(("kernel", "plain"), ms)
+        + f"; bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB), "
+        f"kernel at {bound_ms / ms[0][0]:.1%} of it")
+    return out
+
+
+def _held(name, res, ref, loss_rtol=1e-5, x_tol=CT_SHARD_TOL):
+    """``res`` (a grid call's result) holds to ``ref`` (the whole
+    volume's): losses within ``loss_rtol``, x within ``x_tol`` of the
+    scale.  Returns the two errors."""
+    rel = _loss_rel(res.loss, ref.loss)
+    require(rel <= loss_rtol, f"{name}: losses within {loss_rtol} of the "
+                              f"whole volume's, got {rel:.3g}")
+    scale = float(ref.x.abs().max())
+    err = float((gather_volume(res.x).float() - ref.x.float()).abs().max()
+                ) / scale
+    require(err <= x_tol and bool(torch.isfinite(ref.x).all()),
+            f"{name}: x within {x_tol} of the scale, got {err:.3g}")
+    return rel, err
+
+
+def _rel_of(got, want):
+    """max |gathered grid - whole| over the whole's largest |value|."""
+    return float((gather_volume(got) - want).abs().max()) / float(
+        want.abs().max())
+
+
+def phase_grid_ct(card):
+    """Phase 32: the CT entry points and the remaining solver entry points
+    handed a grid of shards, against the same call on the whole volume.
+    The CT cell, (16, 4, 512, 512) x 96 angles from numpy (f32, hybrid
+    reg_time=0.5, nonneg), as 4 z-shards and a (2 x 2) grid:
+    ``cp_reconstruct`` (method 'auto', the spectral pair on the card; f32,
+    a bf16 dual, resumed from a whole-volume state, an array
+    fidelity_weight) on B5 / B2 / B3 in their halo mode, timed beside the
+    plain halo path and the whole volume in turns; ``precond`` on the
+    gather pair and on the spectral cone cut along t, ``tgv_reconstruct``,
+    ``fdk``, ``fbp`` and ``sart``; on the 4D cell's 4 z-shards
+    ``chambolle_pock_precond``, ``run_until_converged``,
+    ``run_checkpointed`` (written on the grid, resumed on the volume) and
+    the five ``TVDenoiser`` methods.  Returns the launches by kernel and
+    call, and B5's halo mode against its plain version."""
+    t0 = time.perf_counter()
+    halo = _b5_halo(card)
+    cfg = TVConfig(**CT_CFG)
+    rng = np.random.default_rng(32)
+    vol = torch.as_tensor(rng.random(CT_SHAPE, dtype=np.float32), device=DEV)
+    angles = np.linspace(0.0, np.pi, CT_ANGLES, endpoint=False)
+    sino = radon(vol, angles)
+    sino += torch.as_tensor(0.5 * rng.standard_normal(
+        tuple(sino.shape), dtype=np.float32), device=DEV)
+    weight = rng.random(tuple(sino.shape), dtype=np.float32) + 0.5
+    del vol
+    A, A_T = make_projector(CT_SHAPE, angles)  # 'auto': the spectral pair
+    n_it = 10
+    kw = dict(n_iter=n_it, reg=0.5, cfg=cfg, nonneg=True,
+              op_norm=float(estimate_op_norm(A, A_T, CT_SHAPE, device=DEV)))
+    grids = {k: shard(sino, sinogram_sharding(make_mesh(*m)))
+             for k, m in CT_GRIDS.items()}
+    launches, lines = {}, []
+    per = dict(B5=n_it * 4, B2=n_it * 4, B3=n_it * 4)
+
+    def ct_case(name, run_grid, run_whole, expect=per, **bars):
+        res = _on_grid(name, run_grid, **expect)
+        launches[name] = dict(expect)
+        rel, err = _held(name, res, run_whole(), **bars)
+        lines.append(f"{name}: losses within {rel:.3g}, x within {err:.3g} "
+                     f"of the scale")
+        return res
+
+    for key in CT_GRIDS:
+        ct_case(f"cp_reconstruct {key}", lambda: cp_reconstruct(
+            grids[key], angles, CT_SHAPE, **kw),
+            lambda: cp_reconstruct(sino, angles, CT_SHAPE, **kw))
+    ct_case("cp_reconstruct z4 bf16 dual", lambda: cp_reconstruct(
+        grids["z4"], angles, CT_SHAPE, dual_dtype="bfloat16", **kw),
+        lambda: cp_reconstruct(sino, angles, CT_SHAPE, dual_dtype="bfloat16",
+                               **kw), loss_rtol=1e-4, x_tol=CT32_BF16_TOL)
+    half = dict(kw, n_iter=n_it // 2)
+    first = cp_reconstruct(sino, angles, CT_SHAPE, **half)
+    full = cp_reconstruct(sino, angles, CT_SHAPE, **kw)
+    ct_case("cp_reconstruct z4 resumed", lambda: cp_reconstruct(
+        grids["z4"], angles, CT_SHAPE, state=first.state, **half),
+        lambda: full._replace(loss=full.loss[n_it // 2:]),
+        expect={k: v // 2 for k, v in per.items()})
+    del first, full
+    ct_case("cp_reconstruct z4 fidelity_weight", lambda: cp_reconstruct(
+        grids["z4"], angles, CT_SHAPE, fidelity_weight=weight, **kw),
+        lambda: cp_reconstruct(sino, angles, CT_SHAPE,
+                               fidelity_weight=weight, **kw))
+    ms = _turns((lambda: cp_reconstruct(grids["z4"], angles, CT_SHAPE, **kw),
+                 lambda: cp_reconstruct(grids["z4"], angles, CT_SHAPE,
+                                        fused=False, **kw),
+                 lambda: cp_reconstruct(sino, angles, CT_SHAPE, **kw)), n_it,
+                repeats=3)
+    lines.append("cp_reconstruct z4 ms/it, median (least to most) of 3 "
+                  "turns: " + _turns_text(
+                      ("fused grid (B5 / B2 / B3 halo)",
+                       "plain halo grid (fused=False)", "whole volume"), ms))
+    grid_ms = {"fused": ms[0][0], "plain": ms[1][0], "whole": ms[2][0]}
+    del grids
+    fb = _on_grid("fbp z4", lambda: fbp(shard(sino, sinogram_sharding(
+        make_mesh(4))), angles))
+    rel = _rel_of(fb, fbp(sino, angles))
+    require(rel <= 1e-5, f"fbp z4 within 1e-5, got {rel:.3g}")
+    lines.append(f"fbp z4 within {rel:.3g}")
+    del fb, sino
+
+    # the plain step and the calls with no solver, at smaller shapes
+    rng = np.random.default_rng(33)
+    small = torch.as_tensor(rng.random(CT32_SMALL, dtype=np.float32),
+                            device=DEV)
+    ang_s = np.linspace(0.0, np.pi, CT32_SMALL_ANGLES, endpoint=False)
+    sino_s = radon(small, ang_s)
+    grid_s = shard(sino_s, sinogram_sharding(make_mesh(4)))
+    pk = dict(n_iter=n_it, reg=0.05, cfg=cfg, precond=True, nonneg=True,
+              method="gather")
+    ct_case("cp_reconstruct precond gather z4", lambda: cp_reconstruct(
+        grid_s, ang_s, CT32_SMALL, **pk),
+        lambda: cp_reconstruct(sino_s, ang_s, CT32_SMALL, **pk), expect={})
+    sk = dict(n_iter=1, n_subsets=8, method="gather")
+    got = _on_grid("sart z4", lambda: sart(grid_s, ang_s, CT32_SMALL, **sk))
+    want = sart(sino_s, ang_s, CT32_SMALL, **sk)
+    res_rel = float(((got.residual - want.residual).abs()
+                     / want.residual.abs()).max())
+    require(res_rel <= 1e-5, f"sart z4: residual within 1e-5, got "
+                             f"{res_rel:.3g}")
+    rel = _rel_of(got.x, want.x)
+    require(rel <= 1e-4, f"sart z4: x within 1e-4, got {rel:.3g}")
+    lines.append(f"sart z4: x within {rel:.3g}, residual {res_rel:.3g}")
+    cone_vol = torch.as_tensor(rng.random(CT32_CONE_SHAPE, dtype=np.float32),
+                               device=DEV)
+    ang_c = np.linspace(0.0, 2 * np.pi, CT32_SMALL_ANGLES, endpoint=False)
+    sino_c = radon_cone(cone_vol, ang_c, CT32_CONE)
+    grid_c = shard(sino_c, cone_sinogram_sharding(make_mesh(1, 4)))
+    ck = dict(n_iter=n_it, reg=0.05, cfg=cfg, geom=CT32_CONE, precond=True,
+              method="spectral")
+    ct_case("cp_reconstruct precond spectral cone t4", lambda: cp_reconstruct(
+        grid_c, ang_c, CT32_CONE_SHAPE, **ck),
+        lambda: cp_reconstruct(sino_c, ang_c, CT32_CONE_SHAPE, **ck),
+        expect={})
+    tk = dict(n_iter=5, alpha1=0.05, alpha0=0.1, geom=CT32_CONE)
+    ct_case("tgv_reconstruct cone t4", lambda: tgv_reconstruct(
+        grid_c, ang_c, CT32_CONE_SHAPE, **tk),
+        lambda: tgv_reconstruct(sino_c, ang_c, CT32_CONE_SHAPE, **tk),
+        expect={})
+    got = _on_grid("fdk t4", lambda: fdk(grid_c, ang_c, CT32_CONE,
+                                         CT32_CONE_SHAPE))
+    rel = _rel_of(got, fdk(sino_c, ang_c, CT32_CONE, CT32_CONE_SHAPE))
+    require(rel <= 1e-5, f"fdk cone t4 within 1e-5, got {rel:.3g}")
+    lines.append(f"fdk cone t4 within {rel:.3g}")
+    del small, sino_s, grid_s, cone_vol, sino_c, grid_c, got, want
+
+    # the remaining solver entry points on the 4D cell's 4 z-shards
+    base = np.random.default_rng(0).random(MAIN_4D).astype(np.float32)
+    whole = torch.as_tensor(base, device=DEV)
+    grid = shard_volume(base, make_mesh(4), False)
+    den = dict(reg=1.0, cfg=cfg)
+    n4 = 10 * 4
+
+    def solver_case(name, run_grid, run_whole, expect, **bars):
+        res = _on_grid(name, run_grid, **expect)
+        launches[name] = dict(expect)
+        rel, err = _held(name, res, run_whole(), **bars)
+        lines.append(f"{name}: losses within {rel:.3g}, x within {err:.3g}")
+
+    solver_case("chambolle_pock_precond z4", lambda: chambolle_pock_precond(
+        grid, n_iter=5, **den), lambda: chambolle_pock_precond(
+        whole, n_iter=5, **den), {})
+    cp_launches = dict(B1=n4, B2=n4, B8dual=n4, B8primal=n4)
+    conv = dict(chunk=5, max_iter=10, tol=1e-12, **den)
+    solver_case("run_until_converged z4", lambda: run_until_converged(
+        chambolle_pock, grid, **conv), lambda: run_until_converged(
+        chambolle_pock, whole, **conv), cp_launches, loss_rtol=1e-6)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grid.npz")
+        _on_grid("run_checkpointed z4 (written)", lambda: run_checkpointed(
+            chambolle_pock, grid, 10, path, 5, **den), **cp_launches)
+        launches["run_checkpointed z4 (written)"] = cp_launches
+        # the npz holds the whole arrays: the volume resumes from it
+        res = _on_grid("run_checkpointed, resumed on the volume",
+                       lambda: run_checkpointed(chambolle_pock, whole, 20,
+                                                path, 5, **den), B1=10, B2=10)
+    ref = chambolle_pock(whole, n_iter=20, **den)
+    rel = _loss_rel(res.loss, ref.loss)
+    err = float((res.x - ref.x).abs().max())
+    require(rel <= 1e-6 and err <= 1e-4, f"run_checkpointed: written on the "
+            f"grid, resumed on the volume, losses within 1e-6 ({rel:.3g}) "
+            f"and x within 1e-4 ({err:.3g}) of the uninterrupted solve")
+    lines.append(f"run_checkpointed z4 -> volume: losses within {rel:.3g}, x "
+                 f"within {err:.3g}")
+    del res, ref
+    dk = {"cp": (dict(n_iter=10), cp_launches),
+          "gd": (dict(n_iter=10), dict(B3=n4, B4=n4)),
+          "tgv": (dict(n_iter=10, alpha0=2.0), dict(B7=4)),
+          "admm": (dict(n_iter=3), {}),
+          "fista": (dict(n_iter=10), {})}
+    model = TVDenoiser(reg=1.0, cfg=cfg)
+    for meth, (mkw, expect) in dk.items():
+        solver_case(f"TVDenoiser.{meth} z4", lambda: getattr(model, meth)(
+            grid, **mkw), lambda: getattr(model, meth)(whole, **mkw), expect,
+            loss_rtol=1e-5, x_tol=1e-4)
+    del whole, grid
+    torch.cuda.empty_cache()
+    log(f"[32 CT and solver entry points on a grid] {CT_SHAPE} x "
+        f"{CT_ANGLES} angles from numpy as {sorted(CT_GRIDS)} grids, "
+        f"{n_it} iterations; {CT32_SMALL} x {CT32_SMALL_ANGLES} (gather "
+        f"precond, SART) on 4 z-shards; the cone {CT32_CONE_SHAPE} x "
+        f"{CT32_SMALL_ANGLES} cut along t; {MAIN_4D} on 4 z-shards ({card}); "
+        f"launches by call {launches}; " + "; ".join(lines)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for call, got in launches.items():
+        for kid, n in got.items():
+            if n:
+                out.setdefault(kid, {})[call] = n
+    halo["launches_grid"] = out.get("B5", {})
+    halo["grid_ms_per_it"] = grid_ms
+    return out, halo
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -4793,6 +5082,9 @@ def main():
     sharded = phase_sharded_slice(card)
     ct_launches["cone_zdft"] = phase_ct_zdft(card)
     on_grid = phase_grid_entry(card)
+    on_grid_ct, b5_halo = phase_grid_ct(card)
+    for kid, calls in on_grid_ct.items():
+        on_grid.setdefault(kid, {}).update(calls)
 
     # B1-B4 bounds at the shape their times were taken at: MAIN_4D float32,
     # hybrid with reg_time=0.5 (Nd channels).  Bytes: each array once per
@@ -4857,7 +5149,10 @@ def main():
               gd_ms["f32"]["B4"], gd_errs["B4"]["bf16"]),
         entry("B5", "tv_dual_spec_kernel (CP pass A, inverse problems)",
               "specialised_tv.cu", "fused.py:759", inv_launches["B5"],
-              inv_errs["f32"], b5_ms, inv_errs["bf16"]),
+              inv_errs["f32"], b5_ms, inv_errs["bf16"],
+              # phase 32: its halo mode, tv_fused.cu's tv_dual_kernel, on
+              # one of 4 z-shards of the CT cell
+              halo_mode=b5_halo),
         entry("B6pq", "tgv_pq_kernel (TGV pass PQ)", "tgv_stream.cu",
               "tgv_stream.py:344", tgv_launches["B6pq"],
               tgv_errs["B6pq"]["f32"], stream_ms["pq"],

@@ -72,10 +72,13 @@ def as_dtype(dtype) -> torch.dtype:
 
 
 def can_fuse(shape, cfg: TVConfig, mask_static=None, dtype="float32",
-             weight_time=None, for_gd: bool = False) -> bool:
+             weight_time=None, for_gd: bool = False,
+             table_dims=None) -> bool:
     """Whether the fused kernels support this problem instance: rank 4, a
     known norm, plane-shaped ``mask_static`` / ``weight_time``, float32 or
-    bfloat16 storage, and a shape within :func:`fused.fits_kernel`.
+    bfloat16 storage, and a shape within :func:`fused.fits_kernel`.  On a
+    shard, ``table_dims`` is the whole volume's ``(Nz, M)``, which sizes the
+    channel table.
 
     ``for_gd``: kept for call-site symmetry with the JAX package — both
     kernel families (CP step, TV norms/subgradient) cover the same
@@ -88,6 +91,6 @@ def can_fuse(shape, cfg: TVConfig, mask_static=None, dtype="float32",
         return False  # full (Nz, M, N, N) masks stay on the plain path
     if weight_time is not None and not _is_plane(weight_time, shape):
         return False
-    Nd = num_channels(cfg.scheme, shape[0], shape[1],
+    Nd = num_channels(cfg.scheme, *(table_dims or shape[:2]),
                       cfg.reg_z_over_reg, cfg.reg_time)
     return fits_kernel(tuple(shape), Nd, as_dtype(dtype))

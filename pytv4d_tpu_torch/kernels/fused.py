@@ -56,10 +56,11 @@ launch kernels specialised for the scheme's channel table
 (``kernels.tables``: the table id picks the template instance; the
 libraries :data:`SPECIALISED`); a table outside the compiled list raises.
 
-On one shard of a (z, t)-sharded solve (``parallel.fused_halo``) the four
-passes A, B, 1 and 2 take the TPU kernels' modes, in the generic kernels of
-``csrc/cp_fused.cu`` (``cp_dual_kernel``) and ``csrc/tv_fused.cu``
-(``tv_norms_kernel``, ``tv_subgrad_kernel``).
+On one shard of a (z, t)-sharded solve (``parallel.fused_halo``) the five
+passes A, B, 1, 2 and A for inverse problems take the TPU kernels' modes,
+in the generic kernels of ``csrc/cp_fused.cu`` (``cp_dual_kernel``) and
+``csrc/tv_fused.cu`` (``tv_norms_kernel``, ``tv_subgrad_kernel``,
+``tv_dual_kernel``).
 ``halo_mode``: x (pass B: a copy of the dual, pass 2: the norms too)
 arrives extended by a plane per side in z and t (two
 for pass 2's x) that holds the neighbour shard's edge or, at the volume's
@@ -188,7 +189,8 @@ _ENTRY_POINTS = {
     "cp_fused": ("cp", _Params, {"cp_dual_launch": (2, 6),
                                  "cp_primal_launch": (2, 8)}),
     "tv_fused": ("tv", _Params, {"tv_norms_launch": (1, 4),
-                                 "tv_subgrad_launch": (1, 4)}),
+                                 "tv_subgrad_launch": (1, 4),
+                                 "tv_dual_launch": (2, 3)}),
     # the specialised kernels; int flags (table, storage...)
     "cp_boundary": ("bnd", _Params, {"cp_dual_boundary_launch": (3, 7),
                                      "cp_primal_boundary_launch": (3, 7)}),
@@ -354,15 +356,17 @@ def _stream_handle(device):
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def _launch(name, fn_name, x, p, flags, args, with_parts=False):
+def _launch(name, fn_name, x, p, flags, args, with_parts=False,
+            shape=None):
     """Launch ``fn_name`` of library ``name`` on x's device and current
     stream; with ``with_parts``, allocates the float32 per-block partials it
-    writes for a volume of x's shape (its last pointer) and returns them."""
+    writes for a volume of ``shape`` (x's by default; its last pointer) and
+    returns them."""
     lib = _lib(name)
     prefix = _ENTRY_POINTS[name][0]
     parts = None
     if with_parts:
-        parts = torch.empty(_num_parts(name, fn_name)(*x.shape),
+        parts = torch.empty(_num_parts(name, fn_name)(*(shape or x.shape)),
                             dtype=torch.float32, device=x.device)
         args = (*args, parts)
     ptrs = [None if a is None else a.data_ptr() for a in args]
@@ -446,28 +450,45 @@ def cp_dual(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, sigma_D, sigma_A,
     return y_A, y_D, parts.view(x0.shape[0], -1) if interior else parts
 
 
-def tv_dual(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg):
+def tv_dual(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg, halo_mode=False,
+            table_dims=None):
     """Pass A for inverse problems: ``(x_bar, y_D) -> (y_D', tv_parts)``.
 
     ``y_D`` (internal layout) becomes ``prox(y_D + sigma_D D x_bar)`` in
     place and is returned; ``tv_parts`` are partial sums of the TV term of
     ``D x_bar``.  No fidelity dual and no time-plane multiplier: the TPU
-    kernel takes neither."""
+    kernel takes neither.
+
+    On a shard (module docstring): with ``halo_mode`` x_bar is
+    ``(Nz+2, M+2, Nr, Nc)`` while ``y_D`` keeps the shard's shape, and the
+    kernel is ``tv_dual_kernel`` of ``csrc/tv_fused.cu``.  ``table_dims``:
+    the whole volume's ``(Nz, M)``."""
+    e = int(halo_mode)
     _check_tensors(x_bar, y_D=y_D)
-    _check_dual(y_D, x_bar, _check_volume(x_bar, cfg))
+    Nd = _check_volume(x_bar, cfg, table_dims, e)
+    _check_dual(y_D, torch.empty(_shard_shape(x_bar, e), device="meta"), Nd)
+    kw = dict(cfg=cfg, sigma_D=sigma_D, reg=reg, halo_mode=halo_mode,
+              table_dims=table_dims)
     if x_bar.device.type == "cpu":
-        return tv_dual_plain(x_bar, y_D, cfg=cfg, sigma_D=sigma_D, reg=reg)
-    return _tv_dual_kernel(x_bar, y_D, cfg=cfg, sigma_D=sigma_D, reg=reg)
+        return tv_dual_plain(x_bar, y_D, **kw)
+    return _tv_dual_kernel(x_bar, y_D, **kw)
 
 
-def _tv_dual_kernel(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg):
+def _tv_dual_kernel(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg,
+                    halo_mode=False, table_dims=None):
     """:func:`tv_dual`'s launch, on checked operands: the kernel of the
-    scheme's channel table (``csrc/specialised_tv.cu``)."""
-    p = _params(cfg, tuple(x_bar.shape), False, sigma_D=float(sigma_D),
-                reg=float(reg))
-    parts = _spec_launch("spectv_dual_launch", cfg, x_bar, p,
-                         _storage_flags(x_bar, y_D), (x_bar, y_D),
-                         with_parts=True)
+    scheme's channel table (``csrc/specialised_tv.cu``) on a volume, the
+    halo-mode kernel (``csrc/tv_fused.cu``) on a shard."""
+    shape = _shard_shape(x_bar, int(halo_mode))
+    p = _params(cfg, shape, False, sigma_D=float(sigma_D), reg=float(reg),
+                **_shard_fields(halo_mode, False, table_dims, xe=1))
+    flags = _storage_flags(x_bar, y_D)
+    if halo_mode:
+        parts = _launch("tv_fused", "tv_dual_launch", x_bar, p, flags,
+                        (x_bar, y_D), with_parts=True, shape=shape)
+    else:
+        parts = _spec_launch("spectv_dual_launch", cfg, x_bar, p, flags,
+                             (x_bar, y_D), with_parts=True)
     tv_dual.launches += 1
     return y_D, parts
 
@@ -854,12 +875,17 @@ def cp_dual_boundary_plain(x, x_halo, x0, y_A, y_D, parts, tmul=None, *,
     return y_A, y_D, parts
 
 
-def tv_dual_plain(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg):
+def tv_dual_plain(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg,
+                  halo_mode=False, table_dims=None):
     """Plain PyTorch version of :func:`tv_dual` (same signature, outputs
-    and in-place update): the TV half of :func:`cp_dual_plain`."""
+    and in-place update): the TV half of :func:`cp_dual_plain`, on the
+    ghost-extended shard with ``halo_mode``."""
     from ..solvers.cp import dual_prox
 
-    D_x = D(x_bar.float(), cfg.scheme, **cfg.kwargs())
+    if halo_mode:
+        D_x = _d_ext(x_bar.float(), 1, 1, None, cfg, table_dims)
+    else:
+        D_x = D(x_bar.float(), cfg.scheme, **cfg.kwargs())
     p = from_internal_layout(y_D).float() + sigma_D * D_x
     y_D_new = dual_prox(p, reg, cfg.norm, sigma_D, cfg.huber_delta)
     y_D.copy_(y_D_new.transpose(1, 2))  # public -> internal layout

@@ -45,6 +45,7 @@ is none) unless ``device=`` names another.
 from __future__ import annotations
 
 import collections
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -401,9 +402,11 @@ def sinogram_sharding(mesh, shard_time: bool = True):
     mesh (``parallel.mesh.Sharding``; place it with
     ``parallel.mesh.shard``).  Parallel- and fan-beam CT decompose exactly
     along z and t (the reason the reference chose the (Nz, M, N, N)
-    layout, ``README.md:235``): on such a grid :func:`cp_reconstruct` runs
-    the projector shard by shard with no exchange, and only the TV
-    stencil's one-plane halos and the loss sum cross shards."""
+    layout, ``README.md:235``): on such a grid :func:`cp_reconstruct`,
+    :func:`tgv_reconstruct`, :func:`sart` and :func:`fbp` run the projector
+    shard by shard with no exchange (a caller's ``project_fn`` in
+    :func:`sart` too, with the angles of the shard's column), and only the
+    TV stencil's one-plane halos and the sums cross shards."""
     from ..parallel.mesh import T_AXIS, Z_AXIS, Sharding
 
     t_spec = T_AXIS if (shard_time and mesh.shape[T_AXIS] > 1) else None
@@ -487,24 +490,25 @@ def cp_reconstruct(
     cone, :func:`cone_sinogram_sharding`) is solved shard by shard
     (``solvers.inverse.cp_inverse_grid``): the projector and its adjoint
     per shard with no exchange, the TV half on ``parallel.halo``'s
-    exchanged stencils (the fused kernels take unsharded volumes only, so
-    ``fused=True`` raises), the loss summed over shards; ``x`` and the
-    state come back as grids of the volume's layout.  ``precond``,
-    ``state`` and ``dual_dtype`` are for unsharded solves."""
+    exchanged stencils or, on the fused path (chosen as for a volume), on
+    the kernels in their halo mode (B5, B2 and B3 a shard), the loss and
+    every scale a relative floor is taken from over the whole grid; ``x``
+    and the state come back as grids of the volume's layout.  Every option
+    serves a grid: ``precond`` (on the spectral cone the surrogate sums
+    per column of shards and the power method on the grid), ``state`` (of
+    grids or of whole arrays, which are cut onto the grid), an array
+    ``fidelity_weight`` (the sinogram's shape, cut like it, or a grid),
+    ``x_init``, ``fused``, ``dual_dtype`` and ``loss_every``."""
     from ..parallel.mesh import is_grid
 
     if is_grid(sino):
-        if fused or precond or state is not None or dual_dtype is not None:
-            raise ValueError(
-                "fused=True, precond, state and dual_dtype cannot serve a "
-                "sharded sinogram: the fused kernels and the preconditioned "
-                "and resumed solves take unsharded volumes only")
         return _cp_reconstruct_grid(
             sino, angles, vol_shape, n_iter=n_iter, reg=reg, cfg=cfg,
             n_det=n_det, op_norm=op_norm, x_init=x_init, geom=geom,
-            fidelity=fidelity, fidelity_weight=fidelity_weight,
-            nonneg=nonneg, method=method, loss_every=loss_every,
-            precision=precision)
+            precond=precond, fidelity=fidelity,
+            fidelity_weight=fidelity_weight, nonneg=nonneg, state=state,
+            method=method, fused=fused, dual_dtype=dual_dtype,
+            loss_every=loss_every, precision=precision)
     sino = on_device(sino, device)
     A, A_T = _select_projector(sino, angles, vol_shape, n_det, geom,
                                method=method, precision=precision)
@@ -529,32 +533,75 @@ def cp_reconstruct(
     return CPReconResult(x=res.x, loss=res.loss, state=res.state)
 
 
-def _cp_reconstruct_grid(grid, angles, vol_shape, *, geom, n_det, method,
-                         precision, **kw):
-    """:func:`cp_reconstruct` of a sinogram grid: one projector pair per
-    column of shards (per-frame angle sets are cut along t with the
-    volume), then ``solvers.inverse.cp_inverse_grid``."""
-    from ..parallel.mesh import check_divisible, first_shard, grid_size
-    from ..solvers.inverse import cp_inverse_grid
+def _column_angles(ang_np, it, m_local):
+    """The angles of column ``it`` of a grid whose shards hold ``m_local``
+    frames: per-frame angle sets are cut along t with the volume."""
+    return (ang_np[it * m_local:(it + 1) * m_local] if ang_np.ndim == 2
+            else ang_np)
 
-    vol_shape = tuple(int(n) for n in vol_shape)
+
+def _grid_layout(grid, vol_shape, geom):
+    """``(mesh, sinogram sharding, local volume shape)`` of a sinogram
+    grid; a cone sinogram is cut along t only."""
+    from ..parallel.mesh import (
+        T_AXIS,
+        Sharding,
+        check_divisible,
+        grid_mesh,
+        grid_size,
+    )
+
     nz, nt = len(grid), grid_size(grid, 1)
     if isinstance(geom, ConeBeamGeometry) and nz != 1:
         raise ValueError(
             "a cone-beam sinogram is cut along t only "
             "(cone_sinogram_sharding): the cone couples z")
     check_divisible(vol_shape, nz, nt)
-    local = (vol_shape[0] // nz, vol_shape[1] // nt) + vol_shape[2:]
+    mesh = grid_mesh(grid).mesh
+    sharding = (Sharding(mesh, (T_AXIS, None, None, None))
+                if isinstance(geom, ConeBeamGeometry)
+                else sinogram_sharding(mesh, nt > 1))
+    return mesh, sharding, (vol_shape[0] // nz,
+                            vol_shape[1] // nt) + tuple(vol_shape[2:])
+
+
+def _grid_pairs(grid, angles, vol_shape, geom, n_det, method,
+                precision=None):
+    """``(sinogram sharding, local volume shape, first shard, host angles,
+    pairs)`` of a sinogram grid: one projector pair per column of shards
+    (per-frame angle sets are cut along t with the volume)."""
+    from ..parallel.mesh import first_shard
+
+    mesh, sharding, local = _grid_layout(grid, vol_shape, geom)
     first = first_shard(grid)
     ang_np = _host_angles(angles)
+    pairs = [_select_projector(first, _column_angles(ang_np, it, local[1]),
+                               local, n_det, geom, method=method,
+                               precision=precision)
+             for it in range(mesh.shape["t"])]
+    return sharding, local, first, ang_np, pairs
 
-    def pair_of(it):
-        ang = (ang_np[it * local[1]:(it + 1) * local[1]] if ang_np.ndim == 2
-               else ang_np)
-        return _select_projector(first, ang, local, n_det, geom,
-                                 method=method, precision=precision)
 
-    res = cp_inverse_grid(pair_of, grid, vol_shape, **kw)
+def _cp_reconstruct_grid(grid, angles, vol_shape, *, geom, n_det, method,
+                         precision, cfg, **kw):
+    """:func:`cp_reconstruct` of a sinogram grid:
+    ``solvers.inverse.cp_inverse_grid`` with one projector pair per column
+    of shards, on the spectral cone with ``precond`` its surrogate's sums
+    and step scale (:func:`_spectral_cone_precond_grid`)."""
+    from ..solvers.inverse import cp_inverse_grid
+
+    vol_shape = tuple(int(n) for n in vol_shape)
+    sharding, local, first, ang_np, pairs = _grid_pairs(
+        grid, angles, vol_shape, geom, n_det, method, precision)
+    setup = None
+    if kw["precond"] and isinstance(geom, ConeBeamGeometry) and \
+            _resolve_method(method, "cone", first.device) == "spectral":
+        setup = functools.partial(
+            _spectral_cone_precond_grid, pairs, first=first, local=local,
+            ang_np=ang_np, geom=geom, cfg=cfg, precision=precision)
+    res = cp_inverse_grid(lambda it: pairs[it], grid, vol_shape,
+                          data_sharding=sharding, cfg=cfg,
+                          precond_setup=setup, **kw)
     return CPReconResult(x=res.x, loss=res.loss, state=res.state)
 
 
@@ -569,10 +616,10 @@ def _spectral_cone_precond_setup(A, A_T, sino_shape, vol_shape, ang_np,
     1. :func:`.ct_spectral.cone_spectral_precond_sums`, the abs-factor
        surrogate's exact row and column sums;
     2. a 20-step power method for ``rho = ||Sigma^{1/2} K T^{1/2}||`` of the
-       joint ``K = [A; D]`` with the resulting diagonals: the step
-       condition is ``rho <= 1`` (Pock-Chambolle, Lemma 2), so
-       ``scale = 1.05 rho`` puts the scaled norm at 0.95 on whichever side
-       of 1 the surrogate landed.
+       joint ``K = [A; D]`` with the resulting diagonals
+       (:func:`_cone_precond_scale`): the step condition is ``rho <= 1``
+       (Pock-Chambolle, Lemma 2), so ``scale = 1.05 rho`` puts the scaled
+       norm at 0.95 on whichever side of 1 the surrogate landed.
 
     Memoized per (projector, cfg, shapes, dtype, device), at most 8."""
     key = (id(A), cfg, tuple(vol_shape), tuple(sino_shape), dtype,
@@ -581,7 +628,8 @@ def _spectral_cone_precond_setup(A, A_T, sino_shape, vol_shape, ang_np,
     if hit is not None:
         # the entry pins A, so its id cannot name another projector
         return hit[1]
-    from ..ops.operators import D, D_T, precond_maps
+    from ..ops.operators import precond_maps
+    from ..ops.space import tensor_space
     from ..solvers.inverse import _bind_operator
 
     row, col = ct_spectral.cone_spectral_precond_sums(
@@ -589,32 +637,80 @@ def _spectral_cone_precond_setup(A, A_T, sino_shape, vol_shape, ang_np,
         n_det_u=sino_shape[3], dtype=dtype, precision=precision,
         device=device)
     A_, A_T_ = _bind_operator(A, A_T, vol_shape, dtype)
-    kw = cfg.kwargs()
-    sig_D, tau = precond_maps(
-        vol_shape, cfg.scheme, cfg.reg_z_over_reg, cfg.reg_time,
-        fidelity_colsum=col, grouped=cfg.norm != "aniso", dtype=dtype,
-        device=device)
-    floor = 1e-6 * torch.clamp_min(torch.max(row), 1e-30)
-    sig_A = 1.0 / torch.maximum(row, floor)
-    sqt = torch.sqrt(tau)
 
-    def B(v):
-        w = sqt * v
-        d = D_T(sig_D * D(w, cfg.scheme, **kw), cfg.scheme, **kw)
-        return sqt * (A_T_(sig_A * A_(w)) + d)
+    def maps(col):
+        return precond_maps(
+            vol_shape, cfg.scheme, cfg.reg_z_over_reg, cfg.reg_time,
+            fidelity_colsum=col, grouped=cfg.norm != "aniso", dtype=dtype,
+            device=device)
 
     v = on_device(np.random.default_rng(0).standard_normal(vol_shape),
                   device, dtype)
-    v = v / torch.sqrt(torch.sum(torch.square(v)))
-    for _ in range(20):
-        y = B(v)
-        n = torch.sqrt(torch.sum(torch.square(y)))
-        v = y / torch.clamp_min(n, 1e-30)
-    out = ((row, col), 1.05 * float(torch.sqrt(n)))
+    out = ((row, col), _cone_precond_scale(
+        A_, A_T_, row, col, tensor_space(cfg, shape=vol_shape), maps, v))
+    return _remember_cone_precond(key, A, out)
+
+
+def _remember_cone_precond(key, pins, out):
     if len(_CONE_PRECOND_CACHE) >= 8:
         _CONE_PRECOND_CACHE.pop(next(iter(_CONE_PRECOND_CACHE)))
-    _CONE_PRECOND_CACHE[key] = (A, out)
+    _CONE_PRECOND_CACHE[key] = (pins, out)
     return out
+
+
+def _cone_precond_scale(A, A_T, row, col, space, maps, v):
+    """``1.05 rho``: the 20-step power method of
+    :func:`_spectral_cone_precond_setup` on ``space``'s fields, from the
+    start field ``v``, the row floor from the whole field's largest."""
+    from ..solvers.inverse import _power_norm
+
+    sig_D, tau = maps(col)
+    floor = 1e-6 * torch.clamp_min(space.max(torch.max, row), 1e-30)
+    sig_A = space.map(lambda r: 1.0 / torch.maximum(r, floor), row)
+    sqt = space.map(torch.sqrt, tau)
+
+    def B(v):
+        w = space.map(torch.mul, sqt, v)
+        d = space.D_T(space.map(torch.mul, sig_D, space.D(w)))
+        return space.map(lambda s, a, dd: s * (a + dd), sqt,
+                         A_T(space.map(torch.mul, sig_A, A(w))), d)
+
+    return 1.05 * float(_power_norm(B, lambda y: y, v, space, 20))
+
+
+def _floored(space, field, eps=1e-6):
+    """``field`` floored at ``eps`` of its largest value over the whole
+    field (on a grid: the whole grid's, never one shard's), as
+    :func:`.ct_spectral.cone_spectral_precond_sums` floors its sums."""
+    top = space.max(torch.max, field)
+    return space.map(lambda a: torch.maximum(a, eps * top), field)
+
+
+def _spectral_cone_precond_grid(pairs, fields, *, first, local, ang_np,
+                                geom, cfg, precision):
+    """:func:`_spectral_cone_precond_setup` on a t-cut grid of ``fields``
+    (``first``: its first sinogram shard), ``cp_inverse_grid``'s
+    ``precond_setup``: the surrogate sums per column of shards (each
+    column's projector and angles), floored at 1e-6 of the whole grid's
+    largest, and the power method on the grid from the whole volume's
+    seeded start vector cut onto it, its norms summed over shards.
+    Memoized per column's projector."""
+    space = fields.space
+    key = (tuple(id(A) for A, _ in pairs), cfg, space.shape,
+           tuple(first.shape), local, first.dtype, first.device)
+    hit = _CONE_PRECOND_CACHE.get(key)
+    if hit is not None:
+        return hit[1]
+    raw = [ct_spectral.cone_spectral_precond_sums(
+        local, _column_angles(ang_np, it, local[1]), geom,
+        n_det_v=first.shape[2], n_det_u=first.shape[3], dtype=first.dtype,
+        precision=precision, floor=False, device=first.device)
+        for it in range(len(pairs))]
+    row, col = (_floored(space, [[r[k] for r in raw]]) for k in range(2))
+    out = ((row, col), _cone_precond_scale(
+        fields.A, fields.A_T, row, col, space, fields.precond_maps,
+        fields.start(0)))
+    return _remember_cone_precond(key, pairs, out)
 
 
 def tgv_reconstruct(
@@ -653,10 +749,16 @@ def tgv_reconstruct(
     ``fused`` / ``dual_dtype`` / ``loss_every`` are accepted for signature
     symmetry with :func:`cp_reconstruct` but not implemented by
     ``tgv_inverse`` (the TGV kernels serve denoising only): setting them
-    raises rather than being silently ignored."""
-    from ..parallel.mesh import refuse_grid
+    raises rather than being silently ignored.
 
-    refuse_grid(sino, "tgv_reconstruct")
+    A sinogram grid (as :func:`cp_reconstruct` takes) runs the same loop
+    shard by shard (``solvers.tgv.tgv_inverse_on`` on
+    ``solvers.inverse.grid_fields``): the projector per shard, the TGV
+    stencils exchanged, the loss, the norms and the preconditioners'
+    floors over the whole grid; ``x``, ``w`` and the state come back as
+    grids."""
+    from ..parallel.mesh import is_grid
+
     if fused is not None or dual_dtype is not None or loss_every != 1:
         raise NotImplementedError(
             "tgv_reconstruct does not support fused/dual_dtype/loss_every "
@@ -664,18 +766,27 @@ def tgv_reconstruct(
             "leave these at their defaults (fused=None, dual_dtype=None, "
             "loss_every=1)"
         )
-    from ..solvers.tgv import tgv_inverse
+    from ..solvers.tgv import tgv_inverse, tgv_inverse_on
 
+    kw = dict(n_iter=n_iter, alpha1=alpha1, alpha0=alpha0, axes=axes,
+              op_norm=op_norm, x_init=x_init, precond=precond, norm=norm,
+              huber_delta=huber_delta, fidelity=fidelity,
+              fidelity_weight=fidelity_weight, nonneg=nonneg, state=state)
+    if is_grid(sino):
+        from ..solvers.inverse import check_grid_fidelity, grid_fields
+
+        vol_shape = tuple(int(n) for n in vol_shape)
+        sharding, _, _, _, pairs = _grid_pairs(sino, angles, vol_shape,
+                                               geom, n_det, method)
+        check_grid_fidelity(fidelity, sino, fidelity_weight)
+        res = tgv_inverse_on(grid_fields(lambda it: pairs[it], sino,
+                                         vol_shape, None, sharding),
+                             sino, **kw)
+        return CPReconResult(x=res.x, loss=res.loss, state=res.state)
     sino = on_device(sino, device)
     A, A_T = _select_projector(sino, angles, vol_shape, n_det, geom,
                                method=method)
-    res = tgv_inverse(
-        A, sino, vol_shape, A_T=A_T, n_iter=n_iter, alpha1=alpha1,
-        alpha0=alpha0, axes=axes, op_norm=op_norm, x_init=x_init,
-        precond=precond, norm=norm, huber_delta=huber_delta,
-        fidelity=fidelity, fidelity_weight=fidelity_weight, nonneg=nonneg,
-        state=state,
-    )
+    res = tgv_inverse(A, sino, vol_shape, A_T=A_T, **kw)
     return CPReconResult(x=res.x, loss=res.loss, state=res.state)
 
 
@@ -1075,10 +1186,19 @@ def fdk(sino, angles, geom: ConeBeamGeometry, vol_shape,
     the gather-free rebinning P-FDK (:func:`.ct_spectral.fdk_spectral`:
     de-obliquity weight, cone-to-parallel rebinning matmuls, the spectral
     parallel FBP per slice); ``'auto'`` as :func:`_resolve_method` says for
-    the cone."""
-    from ..parallel.mesh import refuse_grid
+    the cone.
 
-    refuse_grid(sino, "fdk")
+    A cone sinogram grid cut along t (:func:`cone_sinogram_sharding`) is
+    reconstructed shard by shard, each frame on its own: a volume grid on
+    the same mesh."""
+    from ..parallel.mesh import is_grid
+
+    if is_grid(sino):
+        return _per_column(sino, angles, vol_shape, geom, device,
+                           lambda part, ang, local: fdk(
+                               part, ang, geom, local,
+                               angle_batch=angle_batch,
+                               filter_name=filter_name, method=method))
     sino = on_device(sino, device)
     if _resolve_method(method, "cone", sino.device) == "spectral":
         return ct_spectral.fdk_spectral(sino, angles, geom, vol_shape,
@@ -1132,6 +1252,20 @@ def fdk(sino, angles, geom: ConeBeamGeometry, vol_shape,
         back += (vals.reshape(G, b - a, C, Nz, N * N) * weight).sum(dim=1)
     back = back.reshape(M, Nz, N, N) * (np.pi / (2 * A))
     return back.transpose(0, 1).contiguous()               # (Nz, M, N, N)
+
+
+def _per_column(grid, angles, vol_shape, geom, device, fn):
+    """``fn(shard, column angles, local volume shape)`` on every shard of a
+    sinogram grid: a grid of its results (``ValueError`` for a ``device``
+    naming another than the shards', or a cone sinogram cut along z)."""
+    from ..parallel.entry import layout_of
+
+    layout_of(grid, device)
+    _, _, local = _grid_layout(grid, tuple(int(n) for n in vol_shape), geom)
+    ang_np = _host_angles(angles)
+    return [None if row is None else
+            [fn(part, _column_angles(ang_np, it, local[1]), local)
+             for it, part in enumerate(row)] for row in grid]
 
 
 class SARTResult(NamedTuple):
@@ -1192,129 +1326,199 @@ def sart(
     :func:`make_projector`.  Runs on the sinogram's device (a numpy
     sinogram on the CUDA device unless ``device`` names another);
     ``residual`` stays there.
-    """
-    _resolve_method(method)
-    from ..parallel.mesh import refuse_grid
 
-    refuse_grid(sino, "sart")
-    sino = on_device(sino, device)
-    dtype = sino.dtype
-    ang_host = _host_angles(angles).astype(np.float64)
-    angles = _as_angles(angles, sino)
+    A sinogram grid (:func:`sinogram_sharding`; the cone's cut along t) is
+    reconstructed shard by shard: each subset's projector per column of
+    shards with its angles, the dead-row and dead-column tolerances from
+    the whole grid's largest sums, the cone's conditioning test on the
+    whole grid's smallest and largest, the residual a sum over shards.  A
+    caller's ``project_fn`` is then applied per shard, with the angles of
+    the shard's column: the premise of :func:`sinogram_sharding`, that the
+    projector decouples z and t; ``x`` comes back as a grid.
+    """
+    from ..ops.space import TENSOR
+    from ..parallel.mesh import first_shard, is_grid
+
+    _resolve_method(method)
+    grid = is_grid(sino)
     vol_shape = tuple(int(n) for n in vol_shape)
-    A = angles.shape[-1]
+    if grid:
+        from ..parallel.entry import layout_of
+        from ..parallel.halo import grid_space
+
+        layout_of(sino, device)
+        mesh, sharding, local = _grid_layout(sino, vol_shape, geom)
+        nt = mesh.shape["t"]
+        space = grid_space(mesh, None, vol_shape, nt > 1)
+        like = first_shard(sino)
+    else:
+        sino = on_device(sino, device)
+        local, nt, space, like = vol_shape, 1, TENSOR, sino
+    dtype = like.dtype
+    ang_all = _host_angles(angles).astype(np.float64)
+    A = ang_all.shape[-1]
     if A % n_subsets:
         raise ValueError(
             f"n_angles={A} not divisible by n_subsets={n_subsets}; choose a "
             f"divisor (e.g. {[k for k in range(1, min(A, 17)) if A % k == 0]})"
         )
     n_det = n_det or vol_shape[-1]
-    zeros = torch.zeros(vol_shape, dtype=dtype, device=sino.device)
-    spectral = False
-    if project_fn is not None:
-        def pair_of(k):
-            a = angles[..., torch.as_tensor(k, device=sino.device)]
+    # a caller's projector is used whatever geom says
+    kind = _geometry_name(geom) if project_fn is None else None
+    spectral = (project_fn is None and _resolve_method(
+        method, kind, like.device) == "spectral")
+    if project_fn is None and kind == "cone":
+        angle_axis = 1
+    det = tuple(like.shape[2:]) if kind == "cone" else (like.shape[-1],)
 
-            def P(x):
-                return project_fn(x, a)
+    def column_pairs(it):
+        """``pair_of(k)`` of the column ``it``: the subset ``k``'s pair on
+        a shard of that column (the whole volume's off a grid)."""
+        ang_host = _column_angles(ang_all, it, local[1])
+        angles = _as_angles(ang_host, like)
+        zeros = torch.zeros(local, dtype=dtype, device=like.device)
+        if project_fn is not None:
+            def pair_of(k):
+                a = angles[..., torch.as_tensor(k, device=like.device)]
 
-            _, vjp = torch.func.vjp(P, zeros)
-            return P, lambda y: vjp(y)[0]
-    else:
-        kind = _geometry_name(geom)
-        spectral = _resolve_method(method, kind, sino.device) == "spectral"
-        if kind == "cone":
-            angle_axis = 1
-        det = (tuple(sino.shape[2:]) if kind == "cone"
-               else (sino.shape[-1],))
+                def P(x):
+                    return project_fn(x, a)
+
+                _, vjp = torch.func.vjp(P, zeros)
+                return P, lambda y: vjp(y)[0]
+
+            return pair_of, angles
 
         def pair_of(k):
             if spectral and kind == "parallel":
-                return make_projector(vol_shape, ang_host[..., k],
+                return make_projector(local, ang_host[..., k],
                                       n_det=n_det, dtype=dtype,
                                       method="spectral", precision=precision)
             if spectral:
-                return _geometry_pair(geom, vol_shape, ang_host[..., k],
+                return _geometry_pair(geom, local, ang_host[..., k],
                                       dtype, "spectral", precision, det)
-            a = angles[..., torch.as_tensor(k, device=sino.device)]
+            a = angles[..., torch.as_tensor(k, device=like.device)]
             if kind == "cone":
-                return make_cone_projector(vol_shape, a, geom,
+                return make_cone_projector(local, a, geom,
                                            n_det_v=det[0], n_det_u=det[1],
                                            dtype=dtype)
             if kind == "fan":
-                return make_fan_projector(vol_shape, a, geom, n_det=det[0],
+                return make_fan_projector(local, a, geom, n_det=det[0],
                                           dtype=dtype)
-            return _parallel_pair(vol_shape, a, n_det, dtype)
+            return _parallel_pair(local, a, n_det, dtype)
+
+        return pair_of, angles
+
+    columns = [column_pairs(it) for it in range(nt)]
+
+    def on_field(fns):
+        """One function per column as a map of ``space``'s fields."""
+        if not grid:
+            return fns[0]
+        return lambda f: [None if row is None else
+                          [fns[it](cell) for it, cell in enumerate(row)]
+                          for row in f]
 
     # stride-interleaved subsets along the angle axis
     idx = np.arange(A).reshape(-1, n_subsets).T          # (S, A//S)
-    pairs = [pair_of(k) for k in idx]
+    col_pairs = [[pair_of(k) for k in idx] for pair_of, _ in columns]
+    pairs = [(on_field([c[s][0] for c in col_pairs]),
+              on_field([c[s][1] for c in col_pairs]))
+             for s in range(len(idx))]
+    ones_vol = space.place(torch.ones(vol_shape, dtype=dtype)) if grid \
+        else torch.ones(vol_shape, dtype=dtype, device=like.device)
     if spectral and kind == "cone":
-        sums = _sart_cone_sums(pairs, idx, ang_host, vol_shape, det, dtype,
-                               precision, geom, sino.device)
+        sums = _sart_cone_sums(pairs, col_pairs, idx, ang_all, local, det,
+                               dtype, precision, geom, like.device, space,
+                               ones_vol)
     else:
-        ones_vol = torch.ones(vol_shape, dtype=dtype, device=sino.device)
-        sums = [(row, P_T(torch.ones_like(row)))
+        sums = [(row, P_T(space.map(torch.ones_like, row)))
                 for P, P_T in pairs for row in (P(ones_vol),)]
     subsets = []
     for k, (P, P_T), (row, col) in zip(idx, pairs, sums):
         # per-subset normalizers: row sums A_s 1 (sino space), column sums
         # A_s^T 1; rows and columns at most 1e-6 of the largest are dead
-        tol_r, tol_c = 1e-6 * torch.max(row), 1e-6 * torch.max(col)
-        k_t = torch.as_tensor(k, device=sino.device)
-        subsets.append((P, P_T, torch.index_select(sino, angle_axis, k_t),
-                        row > tol_r, torch.maximum(row, tol_r),
-                        col > tol_c, torch.maximum(col, tol_c)))
-    full = pair_of(np.arange(A))[0] if project_fn is None else (
-        lambda x: project_fn(x, angles))
+        tol_r = 1e-6 * space.max(torch.max, row)
+        tol_c = 1e-6 * space.max(torch.max, col)
+        k_t = torch.as_tensor(k, device=like.device)
+        subsets.append((
+            P, P_T, space.map(lambda b: torch.index_select(
+                b, angle_axis, k_t), sino),
+            space.map(lambda r: r > tol_r, row),
+            space.map(lambda r: torch.maximum(r, tol_r), row),
+            space.map(lambda c: c > tol_c, col),
+            space.map(lambda c: torch.maximum(c, tol_c), col)))
+    if project_fn is None:
+        full = on_field([c[0](np.arange(A))[0] for c in columns])
+    else:
+        full = on_field([lambda x, a=a: project_fn(x, a)
+                         for _, a in columns])
 
-    x = zeros if x_init is None else torch.as_tensor(
-        x_init, device=sino.device).to(dtype)
+    if x_init is None:
+        x = space.map(torch.zeros_like, ones_vol)
+    elif grid:
+        x = space.map(lambda t: t.to(dtype), space.place(x_init))
+    else:
+        x = torch.as_tensor(x_init, device=like.device).to(dtype)
     residuals = []
     for _ in range(n_iter):
         for P, P_T, b_s, row_live, row, col_live, col in subsets:
-            r = torch.where(row_live, (b_s - P(x)) / row, 0.0)
-            upd = torch.where(col_live, P_T(r) / col, 0.0)
-            x = x + relax * upd
+            r = space.map(lambda live, b, p, w: torch.where(
+                live, (b - p) / w, 0.0), row_live, b_s, P(x), row)
+            upd = space.map(lambda live, u, w: torch.where(
+                live, u / w, 0.0), col_live, P_T(r), col)
+            x = space.map(lambda a, u: a + relax * u, x, upd)
             if nonneg:
-                x = torch.clamp_min(x, 0.0)
-        residuals.append(torch.sqrt(torch.sum(torch.square(full(x) - sino))))
+                x = space.map(lambda a: torch.clamp_min(a, 0.0), x)
+        residuals.append(torch.sqrt(space.sum(
+            lambda p, b: torch.sum(torch.square(p - b)), full(x), sino)))
     return SARTResult(x=x, residual=torch.stack(residuals))
 
 
 _SART_SUMS_CACHE: dict = {}
 
 
-def _sart_cone_sums(pairs, idx, ang_np, vol_shape, det_shape, dtype,
-                    precision, geom, device):
+def _sart_cone_sums(pairs, col_pairs, idx, ang_np, vol_shape, det_shape,
+                    dtype, precision, geom, device, space, ones):
     """The spectral cone SART's normalizers, health-gated: every subset's
     signed row and column sums ``A_s(1)`` / ``A_s^T(1)`` where all of them
-    are well conditioned (min above 1e-2 of max), else the abs-factor
-    surrogate's sums (:func:`.ct_spectral.cone_spectral_precond_sums`) for
-    every subset: at wide cone angles the signed sums go small or negative
-    on oblique rays, and dividing by them makes the sweep unstable.
-    Memoized per (pairs, shapes, dtype, device), at most 8; an entry pins
-    its pairs, so their ids stay unique while it lives."""
-    key = (tuple(id(p[0]) for p in pairs), tuple(vol_shape), det_shape,
-           dtype, torch.device(device))
+    are well conditioned (min above 1e-2 of max, over the whole grid of
+    shards), else the abs-factor surrogate's sums
+    (:func:`.ct_spectral.cone_spectral_precond_sums`, per column, floored
+    at 1e-6 of the whole grid's largest) for every subset: at wide cone
+    angles the signed sums go small or negative on oblique rays, and
+    dividing by them makes the sweep unstable.  Memoized per (pairs,
+    shapes, dtype, device), at most 8; an entry pins its pairs, so their
+    ids stay unique while it lives."""
+    from ..parallel.mesh import is_grid
+
+    key = (tuple(id(p[0]) for c in col_pairs for p in c), tuple(vol_shape),
+           det_shape, dtype, torch.device(device))
     hit = _SART_SUMS_CACHE.get(key)
     if hit is not None:
         return hit[0]
-    ones = torch.ones(tuple(vol_shape), dtype=dtype, device=device)
-    sums = [(row, P_T(torch.ones_like(row)))
+    sums = [(row, P_T(space.map(torch.ones_like, row)))
             for P, P_T in pairs for row in (P(ones),)]
     healthy = all(
-        float(torch.min(row)) > 1e-2 * float(torch.max(row))
-        and float(torch.min(col)) > 1e-2 * float(torch.max(col))
+        float(space.min(torch.min, row))
+        > 1e-2 * float(space.max(torch.max, row))
+        and float(space.min(torch.min, col))
+        > 1e-2 * float(space.max(torch.max, col))
         for row, col in sums)
     if not healthy:
-        sums = [ct_spectral.cone_spectral_precond_sums(
-            vol_shape, ang_np[..., k], geom,
-            n_det_v=det_shape[0], n_det_u=det_shape[1], dtype=dtype,
-            precision=precision, device=device) for k in idx]
+        sums = []
+        for k in idx:
+            raw = [ct_spectral.cone_spectral_precond_sums(
+                vol_shape, _column_angles(ang_np, it, vol_shape[1])[..., k],
+                geom, n_det_v=det_shape[0], n_det_u=det_shape[1],
+                dtype=dtype, precision=precision, device=device,
+                floor=False) for it in range(len(col_pairs))]
+            sums.append(tuple(_floored(space, [[r[j] for r in raw]]
+                                       if is_grid(ones) else raw[0][j])
+                              for j in range(2)))
     if len(_SART_SUMS_CACHE) >= 8:
         _SART_SUMS_CACHE.pop(next(iter(_SART_SUMS_CACHE)))
-    _SART_SUMS_CACHE[key] = (sums, pairs)
+    _SART_SUMS_CACHE[key] = (sums, col_pairs)
     return sums
 
 
@@ -1407,10 +1611,20 @@ def fbp(sino, angles, n_out: Optional[int] = None,
     interpolates each pixel's detector coordinate; ``'spectral'``
     backprojects through the exact transpose of the gather-free spectral
     projector (FFTs and matmuls; its memoized pair keeps its tables);
-    ``'auto'`` as :func:`_resolve_method` says for the parallel beam."""
-    from ..parallel.mesh import refuse_grid
+    ``'auto'`` as :func:`_resolve_method` says for the parallel beam.
 
-    refuse_grid(sino, "fbp")
+    A sinogram grid (:func:`sinogram_sharding`) is reconstructed shard by
+    shard (the parallel beam decouples z and t): a volume grid on the same
+    mesh."""
+    from ..parallel.mesh import grid_mesh, is_grid
+
+    if is_grid(sino):
+        Nz, M, _, n_det = grid_mesh(sino).shape
+        N = n_out or n_det
+        return _per_column(sino, angles, (Nz, M, N, N), None, device,
+                           lambda part, ang, local: fbp(
+                               part, ang, n_out=n_out,
+                               filter_name=filter_name, method=method))
     sino = on_device(sino, device)
     Nz, M, n_angles, n_det = sino.shape
     N = n_out or n_det

@@ -1686,7 +1686,7 @@ def cone_spectral_precond_sums(vol_shape, angles, geom,
                                dtype=torch.float32,
                                oversample: float = 2.0, order: int = 1,
                                precision: Optional[str] = None,
-                               device=None):
+                               device=None, floor: bool = True):
     """Pock-Chambolle diagonal inputs for the spectral cone: ``(row_sum
     (M, A, V, U), col_sum (Nz, M, N, N))`` of the abs-factor surrogate
     operator (:func:`_cone_consts` with ``absolute=True``): every signed
@@ -1698,7 +1698,9 @@ def cone_spectral_precond_sums(vol_shape, angles, geom,
     ringing tails are not bounded: callers check the preconditioned step
     condition with a power method (``models.ct`` does).  ``order=2``
     gives the order-1 surrogate's sums.  On the CUDA device unless
-    ``device`` names another."""
+    ``device`` names another.  ``floor=False`` returns the sums unfloored,
+    for a caller that floors them at the scale of a whole grid of shards
+    (``models.ct``)."""
     ang = _concrete_angles(angles)
     vol_shape = tuple(int(n) for n in vol_shape)
     Nz, N = vol_shape[0], vol_shape[-1]
@@ -1717,6 +1719,8 @@ def cone_spectral_precond_sums(vol_shape, angles, geom,
                             ccs, order, None)
         col = _cone_adjoint(torch.ones_like(row), ccs, order, N, None)
     row, col = row.to(dtype), col.to(dtype)
+    if not floor:
+        return row, col
     # the surrogate's ringing can dip epsilon-negative; the preconditioner
     # needs strictly positive diagonals
     eps = 1e-6

@@ -20,7 +20,7 @@ import torch
 
 from ..core.config import TVConfig
 from ..ops.operators import D, D_T
-from ..parallel.mesh import refuse_grid
+from ..parallel.mesh import is_grid
 from ..solvers.admm import admm
 from ..solvers.cp import chambolle_pock, default_tau
 from ..solvers.fista import fista
@@ -40,7 +40,15 @@ def add_noise(img, noise_level: float = 100.0, seed: int = 0) -> np.ndarray:
 
 
 def _to_volume(image, device=None):
-    refuse_grid(image, "TVDenoiser")
+    """``(volume, rank)``: a 2D / 3D / 4D image as the canonical 4D
+    volume on its device; a grid of shards of a 4D volume
+    (``parallel.mesh.shard_volume``) passes through as it is, a
+    ``device`` naming another than its shards' raising ``ValueError``."""
+    if is_grid(image):
+        from ..parallel.entry import layout_of
+
+        layout_of(image, device)
+        return image, 4
     image = on_device(image, device)
     if image.ndim == 2:
         return image[None, None], 2
@@ -66,7 +74,9 @@ class TVDenoiser:
     Accepts a 2D ``(N, N)``, 3D ``(Nz, N, N)`` or 4D ``(Nz, M, N, N)``
     tensor and returns the same rank; the solve runs on the tensor's
     device.  A numpy array goes to the CUDA device (``RuntimeError`` where
-    there is none) unless ``device=`` names another.
+    there is none) unless ``device=`` names another.  A grid of shards of
+    a 4D volume runs each solver's grid path (``parallel.entry``) and
+    comes back as a grid.
     """
 
     reg: float = 25.0

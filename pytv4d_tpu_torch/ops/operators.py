@@ -176,7 +176,23 @@ def precond_maps(
     scalar step per group): the group minimum of the per-channel bounds,
     ``1/max(row sums)``, which is below every row-sum bound.  Returns
     ``(sigma_D_map, tau_map)`` in ``dtype`` on ``device``."""
-    Nz, M = shape[0], shape[1]
+    sigma_D, col_sum = precond_parts(shape, scheme, reg_z_over_reg, reg_time,
+                                     grouped=grouped, dtype=dtype,
+                                     device=device)
+    fid = sigma_A_rows if fidelity_colsum is None else fidelity_colsum
+    den = col_sum + fid
+    tau = 1.0 / torch.where(den > 0, den, 1.0)
+    return sigma_D, tau
+
+
+def precond_parts(shape, scheme: str = "hybrid", reg_z_over_reg: float = 1.0,
+                  reg_time: float = 0.0, *, grouped: bool = False,
+                  dtype=torch.float32, device, table_dims=None):
+    """The D block of :func:`precond_maps`: ``(sigma_D_map, |D|^T 1)``.
+    ``table_dims``: the ``(Nz, M)`` the channel table is taken at, where
+    ``shape`` is a window of a larger volume (``parallel.halo``'s
+    ``grid_precond_maps``)."""
+    Nz, M = table_dims or (shape[0], shape[1])
     chans, norm = scheme_channels(scheme, Nz, M, reg_z_over_reg, reg_time)
     ones = torch.ones(tuple(shape), dtype=dtype, device=device)
     row_sums = []
@@ -194,10 +210,7 @@ def precond_maps(
         rows = torch.amax(rows, dim=1, keepdim=True)
     live = rows > 0
     sigma_D = torch.where(live, 1.0 / torch.where(live, rows, 1.0), 0.0)
-    fid = sigma_A_rows if fidelity_colsum is None else fidelity_colsum
-    den = col_sum + fid
-    tau = 1.0 / torch.where(den > 0, den, 1.0)
-    return sigma_D, tau
+    return sigma_D, col_sum
 
 
 # torch's CPU sqrt kernel can return values off by up to 3e-4 relative

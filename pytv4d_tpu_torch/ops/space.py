@@ -4,13 +4,16 @@ a grid of shards.
 Each plain solver loop (``solvers``' CP step, GD, ADMM with its CG,
 FISTA, the TGV step) is written once against a :class:`Space`: ``D`` /
 ``D_T`` of its TV configuration, the one-channel differences TGV builds
-on, ``map`` for the arithmetic of its fields and ``sum`` for its inner
-products and losses.  :func:`tensor_space` is a whole volume: ``map``
-applies the function to the tensors, ``sum`` returns its scalar.
-``parallel.halo.grid_space`` is a grid of shards: the exchanged stencils,
-the function applied shard by shard, the scalars added over shards in
-(iz, it) order.  On a tensor the loop computes exactly what it computed
-before it took a space.
+on, ``map`` for the arithmetic of its fields, ``sum`` for its inner
+products and losses, and ``max`` / ``min`` for the scales that relative
+floors are taken from.  :func:`tensor_space` is a whole volume: ``map``
+applies the function to the tensors, ``sum`` / ``max`` / ``min`` return
+its scalar.  ``parallel.halo.grid_space`` is a grid of shards: the
+exchanged stencils, the function applied shard by shard (an argument that
+is not a grid goes to every shard as it is), the scalars added over shards
+in (iz, it) order, or the largest / smallest of them, so that a floor
+comes from the whole grid and never from one shard.  On a tensor the loop
+computes exactly what it computed before it took a space.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ class Space(NamedTuple):
     dt_channel: Callable     # (y, axis, kind) -> its adjoint scatter
     map: Callable            # map(fn, *fields) -> field of fn's results
     sum: Callable            # sum(fn, *fields) -> sum of fn's scalars
+    max: Callable            # max(fn, *fields) -> the largest of them
+    min: Callable            # min(fn, *fields) -> the smallest of them
     first: Callable          # a field's (first) tensor: dtype and device
     place: Callable          # place(a, d_volume=False): a field of this kind
     shape: Optional[tuple]   # the whole volume's shape, where known
@@ -58,7 +63,8 @@ def tensor_space(cfg=None, mask_static=None, weight_time=None,
             return _ops.D_T(y, cfg.scheme, **kw)
 
     return Space(D, D_T, _ops.d_channel, _ops.dt_channel, _apply, _apply,
-                 lambda a: a, _same, None if shape is None else tuple(shape))
+                 _apply, _apply, lambda a: a, _same,
+                 None if shape is None else tuple(shape))
 
 
 TENSOR = tensor_space()

@@ -14,8 +14,10 @@ order).  Besides, this module holds ``ops.api``'s ``D``, ``D_T``,
 fused kernels (:func:`use_kernels`: B1/B2 in their halo or interior modes
 with B8, B3/B4 in their halo mode, where the shards are on a CUDA device
 and ``kernels.dispatch.can_fuse`` takes them), the TV that GD runs on
-(:func:`gd_operators`) and CP's call of the fused sharded solver
-(:func:`chambolle_pock_fused`).
+(:func:`gd_operators`), CP's call of the fused sharded solver
+(:func:`chambolle_pock_fused`) and whether a grid's shards take the fused
+kernels (:func:`shards_fuse`; an inverse problem's solve itself is
+``solvers.inverse.cp_inverse_grid``).
 
 Each computes what the same call on the gathered volume computes: the
 result's fields come back as grids in the input's layout, its loss
@@ -60,18 +62,21 @@ def _plane_or_none(mask_static):
     return mask_static if mask_enabled(mask_static) else None
 
 
-def _shards_fuse(grid, cfg, mask_static, weight_time) -> bool:
-    """``kernels.dispatch.can_fuse`` for a grid's shards: the features on
-    its storage dtype, the extent of a shard with the subgradient pass's
-    two halo planes a side."""
+def shards_fuse(local, global_shape, cfg, dtype, depth, mask_static=None,
+                weight_time=None) -> bool:
+    """``kernels.dispatch.can_fuse`` for a shard of shape ``local`` of a
+    ``global_shape`` volume: the features on its storage dtype, the
+    shard's extent with ``depth`` halo planes a side (two for the
+    subgradient pass, one for the inverse problem's passes), the channel
+    table of the whole volume."""
     from ..kernels.dispatch import can_fuse
 
-    local = tuple(first_shard(grid).shape)
     if len(local) != 4:
         return False
-    ext = (local[0] + 4, local[1] + 4) + local[2:]
-    return can_fuse(ext, cfg, mask_static=mask_static,
-                    dtype=first_shard(grid).dtype, weight_time=weight_time)
+    ext = (local[0] + 2 * depth, local[1] + 2 * depth) + tuple(local[2:])
+    return can_fuse(ext, cfg, mask_static=mask_static, dtype=dtype,
+                    weight_time=weight_time,
+                    table_dims=tuple(global_shape[:2]))
 
 
 def use_kernels(grid, cfg, mask_static, weight_time, fused, want=False):
@@ -79,7 +84,10 @@ def use_kernels(grid, cfg, mask_static, weight_time, fused, want=False):
     takes them for CUDA shards that they serve (or where ``want``: an
     option only they serve), ``fused=True`` where they serve (on the CPU
     their plain versions), ``ValueError`` where they do not."""
-    fits = _shards_fuse(grid, cfg, _plane_or_none(mask_static), weight_time)
+    first = first_shard(grid)
+    fits = shards_fuse(tuple(first.shape), grid_mesh(grid).shape, cfg,
+                       first.dtype, 2, _plane_or_none(mask_static),
+                       weight_time)
     if fused is None:
         return fits and (first_shard(grid).is_cuda or want)
     if fused and not fits:

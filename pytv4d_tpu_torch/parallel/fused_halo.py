@@ -391,6 +391,53 @@ def make_sharded_cp_solver_fused(
     return solve
 
 
+def make_sharded_tv_half(mesh: Mesh, cfg: TVConfig, global_shape,
+                         shard_time: bool = True, *, sigma, tau, reg,
+                         nonneg: bool = False):
+    """The TV half of the fused inverse-problem iteration
+    (``solvers.inverse``'s fused loop) on a grid of shards, each pass a
+    kernel in its halo mode on every shard: ``dual(x_bar, y_D_int)``, the
+    TV dual prox of the over-relaxed iterate extended by its ghost planes
+    (``kernels.fused.tv_dual``: B5); ``primal(x, at, y_D_int, out)``, the
+    primal update from the dual extended by its neighbours' planes
+    (``cp_primal``: B2, with ``A^T y_A`` in its y_A slot and x in its x0
+    slot, x' written to ``out``); ``tv(x)``, the TV value of ``D x`` summed
+    over shards (``tv_norms``: B3).  The exchanges are the sharded CP's
+    ghost path.  On a CUDA device each pass launches its kernel or raises;
+    on the CPU it runs the kernel's plain version."""
+    from ..kernels.fused import cp_primal, tv_dual, tv_norms
+    from ..solvers.inverse import _TVHalf
+
+    nz, nt = mesh_sizes(mesh, shard_time)
+    check_divisible(global_shape, nz, nt)
+    chans, _ = scheme_channels(cfg.scheme, global_shape[0], global_shape[1],
+                               cfg.reg_z_over_reg, cfg.reg_time)
+    mode = dict(cfg=cfg, halo_mode=True,
+                table_dims=(global_shape[0], global_shape[1]))
+    t_sharded = nt > 1
+    ghost_z = _axis_ghost_kind(chans, AXIS_Z)
+    ghost_t = _axis_ghost_kind(chans, AXIS_T)
+
+    def extend(x):
+        return _extend_axis(_extend_axis(x, 0, ghost_z), 1, ghost_t)
+
+    def dual(x_bar, y):
+        return grid_map(lambda xe, yd: tv_dual(
+            xe, yd, sigma_D=sigma, reg=reg, **mode)[0], extend(x_bar), y)
+
+    def primal(x, at, y, out):
+        return grid_map(lambda xs, a, yd, ye, o: cp_primal(
+            xs, xs, a, yd, tau=tau, nonneg=nonneg, out=o, y_ext=ye,
+            t_sharded=t_sharded, **mode)[0],
+            x, at, y, _extend_dual(y, chans), out)
+
+    def tv(x):
+        return grid_sum(grid_map(lambda xe: torch.sum(tv_norms(
+            xe, **mode)[1]), extend(x)))
+
+    return _TVHalf(dual, primal, tv)
+
+
 def _extend_axis2(shards, axis, ghost_kind):
     """Two halo planes + ghosts per side along ``axis`` (for the G pass,
     which recomputes D channels at +-1 neighbour planes and therefore reads

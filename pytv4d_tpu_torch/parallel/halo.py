@@ -38,6 +38,8 @@ from .mesh import (
     first_shard,
     grid_like,
     grid_map,
+    grid_max,
+    grid_min,
     grid_size,
     grid_sum,
     indexed,
@@ -56,6 +58,8 @@ __all__ = [
     "sharded_cp_step",
     "make_sharded_cp_solver",
     "grid_space",
+    "broadcast_map",
+    "grid_precond_maps",
 ]
 
 
@@ -264,13 +268,33 @@ def sharded_D_T(mesh: Mesh, cfg: TVConfig, global_shape,
     return fn
 
 
+def broadcast_map(fn, *args):
+    """``grid_map`` of ``fn`` over the arguments that are grids; every
+    other argument (a Python number, a tensor that broadcasts against a
+    shard) goes to each shard as it is."""
+    at = [i for i, a in enumerate(args) if is_grid(a)]
+    if len(at) == len(args):
+        return grid_map(fn, *args)
+    if not at:  # nothing to cut: the same value for every shard
+        return fn(*args)
+
+    def call(*cells):
+        full = list(args)
+        for i, c in zip(at, cells):
+            full[i] = c
+        return fn(*full)
+
+    return grid_map(call, *(args[i] for i in at))
+
+
 def grid_space(mesh: Mesh, cfg, global_shape, shard_time: bool = True,
                mask_static=None, weight_time=None) -> Space:
     """The ``ops.space.Space`` of a grid of shards on ``mesh``: D / D_T of
     ``cfg`` (:func:`sharded_D`, :func:`sharded_D_T`; none where ``cfg`` is
-    None), the exchanged one-channel stencils, ``grid_map`` and
-    ``grid_sum``; ``place`` cuts a whole volume (or, with ``d_volume``, a
-    difference volume) on the mesh and leaves a grid as it is."""
+    None), the exchanged one-channel stencils, :func:`broadcast_map`,
+    ``grid_sum``, ``grid_max`` and ``grid_min``; ``place`` cuts a whole
+    volume (or, with ``d_volume``, a difference volume) on the mesh and
+    leaves a grid as it is."""
     D = D_T = None
     if cfg is not None:
         D = sharded_D(mesh, cfg, global_shape, shard_time, mask_static,
@@ -278,8 +302,8 @@ def grid_space(mesh: Mesh, cfg, global_shape, shard_time: bool = True,
         D_T = sharded_D_T(mesh, cfg, global_shape, shard_time, mask_static,
                           weight_time)
 
-    def total(fn, *grids):
-        return grid_sum(grid_map(fn, *grids))
+    def over(reduce):
+        return lambda fn, *args: reduce(broadcast_map(fn, *args))
 
     def place(a, d_volume=False):
         if a is None or is_grid(a):
@@ -287,8 +311,56 @@ def grid_space(mesh: Mesh, cfg, global_shape, shard_time: bool = True,
         sharding = d_volume_sharding if d_volume else volume_sharding
         return shard(a, sharding(mesh, shard_time))
 
-    return Space(D, D_T, sharded_d_channel, sharded_dt_channel, grid_map,
-                 total, first_shard, place, tuple(global_shape))
+    return Space(D, D_T, sharded_d_channel, sharded_dt_channel,
+                 broadcast_map, over(grid_sum), over(grid_max),
+                 over(grid_min), first_shard, place, tuple(global_shape))
+
+
+def grid_precond_maps(mesh: Mesh, global_shape, shard_time: bool = True, *,
+                      scheme: str = "hybrid", reg_z_over_reg: float = 1.0,
+                      reg_time: float = 0.0, sigma_A_rows: float = 1.0,
+                      fidelity_colsum=None, grouped: bool = False,
+                      dtype=torch.float32):
+    """``ops.operators.precond_maps`` of the whole volume on the grid:
+    ``(sigma_D, tau)`` grids, each shard's maps built from its own place in
+    the volume (a window of the shard and up to two planes a side, whose
+    maps at the shard's voxels are the whole volume's), never cut from a
+    whole-volume map, so that a grid of one process of several holds only
+    its rows.  ``fidelity_colsum``: a grid of ``|A|^T 1`` shards, or None
+    for the scalar ``sigma_A_rows``."""
+    from ..ops.operators import precond_parts
+
+    nz, nt = mesh_sizes(mesh, shard_time)
+    check_divisible(global_shape, nz, nt)
+    Nz, M = global_shape[0], global_shape[1]
+    lz, lt = Nz // nz, M // nt
+    rows = (mesh.local_rows() if mesh.process_count > 1 else range(nz))
+
+    def window(start, n, length):
+        lo, hi = max(0, start - 2), min(length, start + n + 2)
+        return lo, hi, start - lo
+
+    def maps(iz, it):
+        z0, z1, cz = window(iz * lz, lz, Nz)
+        t0, t1, ct = window(it * lt, lt, M)
+        sig, col = precond_parts(
+            (z1 - z0, t1 - t0) + tuple(global_shape[2:]), scheme,
+            reg_z_over_reg, reg_time, grouped=grouped, dtype=dtype,
+            device=mesh.device, table_dims=(Nz, M))
+        return (sig[cz:cz + lz, :, ct:ct + lt].contiguous(),
+                col[cz:cz + lz, ct:ct + lt].contiguous())
+
+    parts = [[maps(iz, it) for it in range(nt)] if iz in rows else None
+             for iz in range(nz)]
+    sig, col = ([None if row is None else [part[k] for part in row]
+                 for row in parts] for k in range(2))
+    fid = (sigma_A_rows if fidelity_colsum is None else fidelity_colsum)
+
+    def tau(c, f):
+        den = c + f
+        return 1.0 / torch.where(den > 0, den, 1.0)
+
+    return sig, broadcast_map(tau, col, fid)
 
 
 def sharded_tv_and_subgrad(mesh: Mesh, cfg: TVConfig, global_shape,

@@ -30,6 +30,7 @@ device unless ``device="cpu"`` asks for the CPU.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -220,16 +221,6 @@ def grid_mesh(grid, t_axis: int = 1) -> GridLayout:
                       nt > 1, tuple(shape))
 
 
-def refuse_grid(x, what: str):
-    """``ValueError`` where ``x`` is a grid of shards: ``what`` takes whole
-    volumes only."""
-    if is_grid(x):
-        raise ValueError(
-            f"{what} takes a whole volume, not a grid of shards; the CT and "
-            f"remaining solver entry points on a grid are ROADMAP.md item "
-            f"A19 (parallel.mesh.gather_volume makes the volume)")
-
-
 def grid_process(grid):
     """``(process index, process count)`` of a grid: its z-rows are split
     evenly among the processes, in rank order (``(0, 1)`` for one
@@ -292,11 +283,10 @@ def grid_size(shards, axis: int) -> int:
         row for row in shards if row is not None))
 
 
-def grid_sum(grid):
-    """The sum of a grid of scalars (or of equal-shaped tensors) in (iz, it)
-    order: the ``psum``.  Across processes the cells are all-gathered and
-    added in the same order on every process, so the sum is bit-equal to
-    the one process's; an ``all_reduce`` would not promise that."""
+def _all_cells(grid):
+    """The cells of a grid in (iz, it) order, those of every process: on
+    a grid spread over processes they are all-gathered, so that every
+    process holds them all in the same order."""
     cells = [c for _, _, c in indexed(grid)]
     if is_distributed(grid):
         import torch.distributed as dist
@@ -306,10 +296,31 @@ def grid_sum(grid):
                  for _ in range(dist.get_world_size())]
         dist.all_gather(parts, local)
         cells = [c for part in parts for c in part.unbind(0)]
+    return cells
+
+
+def grid_sum(grid):
+    """The sum of a grid of scalars (or of equal-shaped tensors) in (iz, it)
+    order: the ``psum``.  Across processes the cells are all-gathered and
+    added in the same order on every process, so the sum is bit-equal to
+    the one process's; an ``all_reduce`` would not promise that."""
+    cells = _all_cells(grid)
     total = cells[0]
     for c in cells[1:]:
         total = total + c
     return total
+
+
+def grid_max(grid):
+    """The largest of a grid of scalars, over every process (``pmax``)."""
+    return functools.reduce(torch.maximum, map(torch.as_tensor,
+                                               _all_cells(grid)))
+
+
+def grid_min(grid):
+    """The smallest of a grid of scalars, over every process (``pmin``)."""
+    return functools.reduce(torch.minimum, map(torch.as_tensor,
+                                               _all_cells(grid)))
 
 
 def _zero_plane(a, axis):

@@ -17,9 +17,9 @@ import torch
 
 from ..core.config import TVConfig
 from ..core.schemes import num_channels, operator_norm_bound_sq
-from ..ops.operators import D, D_T, _safe_sqrt, precond_maps, tv_norm
+from ..ops.operators import _safe_sqrt, precond_maps, tv_norm
 from ..ops.space import Space, d_zeros, tensor_space
-from ..parallel.mesh import indexed, is_grid, refuse_grid
+from ..parallel.mesh import indexed, is_grid
 from ..utils.device import on_device
 from .fidelity import fidelity_dual_prox, fidelity_loss, validate_fidelity
 from .progress import emit_progress
@@ -118,27 +118,32 @@ def cp_step(state: CPState, x_noisy, *, reg, sigma_D, sigma_A, tau,
 
 def cp_step_precond(state_and_bar, x_noisy, *, reg, sigma_D_map, tau_map,
                     sigma_A, cfg: TVConfig, fidelity="l2",
-                    fidelity_weight=1.0, nonneg=False):
+                    fidelity_weight=1.0, nonneg=False, space: Space = None):
     """One diagonally-preconditioned CP iteration (Pock & Chambolle 2011)
     with over-relaxation: per-slot dual steps, per-pixel primal steps, so no
     operator-norm tuning is needed; faster on anisotropic configs
     (reg_z/reg_time far from 1).  ``(x, x_bar, y_A, y_D) -> ((x', x_bar',
-    y_A', y_D'), loss)`` with ``loss = F(x') + reg * TV(D x')``."""
-    kw = cfg.kwargs()
+    y_A', y_D'), loss)`` with ``loss = F(x') + reg * TV(D x')``.
+    ``space`` as in :func:`cp_step` (the step maps are fields of it)."""
+    if space is None:
+        space = tensor_space(cfg)
     x, x_bar, y_A, y_D = state_and_bar
-    y_A = fidelity_dual_prox(y_A, x_bar, x_noisy, sigma_A, fidelity,
-                             fidelity_weight)
-    D_x = D(x_bar, cfg.scheme, **kw)
-    p = y_D + sigma_D_map * D_x
-    y_D = dual_prox(p, reg, cfg.norm, sigma_D_map, cfg.huber_delta)
-    x_new = x - tau_map * (y_A + D_T(y_D, cfg.scheme, **kw))
-    if nonneg:
-        x_new = torch.clamp_min(x_new, 0.0)
-    x_bar = 2.0 * x_new - x
-    loss = fidelity_loss(x_new, x_noisy, fidelity, fidelity_weight) + (
-        reg * tv_norm(D(x_new, cfg.scheme, **kw), cfg.norm,
-                      huber_delta=cfg.huber_delta)
-    )
+    y_A = space.map(lambda ya, xb, x0: fidelity_dual_prox(
+        ya, xb, x0, sigma_A, fidelity, fidelity_weight), y_A, x_bar, x_noisy)
+    y_D = space.map(lambda yd, s, d: dual_prox(
+        yd + s * d, reg, cfg.norm, s, cfg.huber_delta),
+        y_D, sigma_D_map, space.D(x_bar))
+
+    def primal(xs, t, ya, dty):
+        xn = xs - t * (ya + dty)
+        return torch.clamp_min(xn, 0.0) if nonneg else xn
+
+    x_new = space.map(primal, x, tau_map, y_A, space.D_T(y_D))
+    x_bar = space.map(lambda a, b: 2.0 * a - b, x_new, x)
+    loss = space.sum(lambda xn, x0, d: fidelity_loss(
+        xn, x0, fidelity, fidelity_weight) + reg * tv_norm(
+        d, cfg.norm, huber_delta=cfg.huber_delta),
+        x_new, x_noisy, space.D(x_new))
     return (x_new, x_bar, y_A, y_D), loss
 
 
@@ -162,29 +167,53 @@ def chambolle_pock_precond(
     :func:`chambolle_pock`.  ``state`` resumes from ``result.state`` (a
     :class:`CPPrecondState`: the over-relaxed iterate must ride along for
     an exact continuation).  Plain PyTorch, as the JAX solver runs no
-    kernel; the loss history stays on the device."""
-    refuse_grid(x_noisy, "chambolle_pock_precond")
-    x_noisy = on_device(x_noisy, device)
+    kernel; the loss history stays on the device.
+
+    A grid of shards (``parallel.mesh.shard_volume``) runs the same loop
+    on ``parallel.halo.grid_space``, each shard's step maps built from its
+    place in the volume (``parallel.halo.grid_precond_maps``); ``x`` and
+    the state come back as grids, and ``state`` may hold grids or whole
+    arrays."""
     fidelity_weight = _require_scalar_weight(
         fidelity_weight, "chambolle_pock_precond")
-    validate_fidelity(fidelity, x_noisy, fidelity_weight)
-    # the fidelity rows use the CALLER's sigma_A, so the tau map is sized
-    # against it (Pock-Chambolle: tau_j = 1/(colsum_D_j + sigma_A))
-    sigma_D_map, tau_map = precond_maps(
-        tuple(x_noisy.shape), cfg.scheme, cfg.reg_z_over_reg, cfg.reg_time,
-        sigma_A_rows=sigma_A, dtype=x_noisy.dtype, device=x_noisy.device,
-    )
+    if is_grid(x_noisy):
+        from ..parallel import entry
+        from ..parallel.halo import grid_precond_maps
+
+        lay = entry.layout_of(x_noisy, device)
+        space = entry.solver_space(x_noisy, cfg)
+        for _, _, part in indexed(x_noisy):
+            validate_fidelity(fidelity, part, fidelity_weight)
+        sigma_D_map, tau_map = grid_precond_maps(
+            lay.mesh, lay.shape, lay.shard_time, scheme=cfg.scheme,
+            reg_z_over_reg=cfg.reg_z_over_reg, reg_time=cfg.reg_time,
+            sigma_A_rows=sigma_A, dtype=space.first(x_noisy).dtype)
+    else:
+        x_noisy = on_device(x_noisy, device)
+        validate_fidelity(fidelity, x_noisy, fidelity_weight)
+        space = tensor_space(cfg, shape=x_noisy.shape)
+        # the fidelity rows use the CALLER's sigma_A, so the tau map is
+        # sized against it (Pock-Chambolle: tau_j = 1/(colsum_D_j +
+        # sigma_A))
+        sigma_D_map, tau_map = precond_maps(
+            tuple(x_noisy.shape), cfg.scheme, cfg.reg_z_over_reg,
+            cfg.reg_time, sigma_A_rows=sigma_A, dtype=x_noisy.dtype,
+            device=x_noisy.device,
+        )
     if state is None:
-        st = init_state(x_noisy, cfg)
+        st = init_state(x_noisy, cfg, space=space)
         carry = (st.x, st.x, st.y_A, st.y_D)
     else:
-        carry = tuple(CPPrecondState(*state))
-    losses = torch.empty(n_iter, dtype=x_noisy.dtype, device=x_noisy.device)
+        st = CPPrecondState(*state)
+        carry = (space.place(st.x), space.place(st.x_bar),
+                 space.place(st.y_A), space.place(st.y_D, d_volume=True))
+    first = space.first(x_noisy)
+    losses = torch.empty(n_iter, dtype=first.dtype, device=first.device)
     for i in range(n_iter):
         carry, losses[i] = cp_step_precond(
             carry, x_noisy, reg=reg, sigma_D_map=sigma_D_map,
             tau_map=tau_map, sigma_A=sigma_A, cfg=cfg, fidelity=fidelity,
-            fidelity_weight=fidelity_weight, nonneg=nonneg,
+            fidelity_weight=fidelity_weight, nonneg=nonneg, space=space,
         )
     final = CPPrecondState(*carry)
     return CPResult(x=final.x, state=final, loss=losses)
@@ -201,17 +230,27 @@ def pd_gap(state: CPState, x_noisy, reg: float = 25.0,
     ``g(y) = <D^T y, x0> - 1/2 ||D^T y||^2 - F*(y)`` (for Huber-TV,
     ``F*(y) = delta/(2 reg) ||y||^2``; 0 for iso/aniso).  ``y`` is projected
     onto the dual ball first, so the bound holds for any input.  l2
-    fidelity only (the reference denoising model)."""
-    kw = dict(mask_static=mask_static, weight_time=weight_time,
-              **cfg.kwargs())
-    x, y_D = state.x, state.y_D
-    y = dual_prox(y_D, reg, cfg.norm, 0.0, cfg.huber_delta)
-    primal = 0.5 * torch.sum(torch.square(x - x_noisy)) + reg * tv_norm(
-        D(x, cfg.scheme, **kw), cfg.norm, huber_delta=cfg.huber_delta)
-    dty = D_T(y, cfg.scheme, **kw)
-    dual = torch.sum(dty * x_noisy) - 0.5 * torch.sum(torch.square(dty))
+    fidelity only (the reference denoising model).  On a grid of shards
+    (``x_noisy`` and the state's fields grids) every term is a sum over
+    shards."""
+    if is_grid(x_noisy):
+        from ..parallel import entry
+
+        space = entry.solver_space(x_noisy, cfg, mask_static, weight_time)
+    else:
+        space = tensor_space(cfg, mask_static, weight_time)
+    x, y_D = state.x, space.place(state.y_D, d_volume=True)
+    y = space.map(lambda a: dual_prox(a, reg, cfg.norm, 0.0,
+                                      cfg.huber_delta), y_D)
+    primal = space.sum(lambda xs, x0, d: 0.5 * torch.sum(
+        torch.square(xs - x0)) + reg * tv_norm(
+        d, cfg.norm, huber_delta=cfg.huber_delta),
+        space.place(x), x_noisy, space.D(space.place(x)))
+    dual = space.sum(lambda d, x0: torch.sum(d * x0) - 0.5 * torch.sum(
+        torch.square(d)), space.D_T(y), x_noisy)
     if cfg.norm == "huber":
-        dual = dual - cfg.huber_delta / (2.0 * reg) * torch.sum(torch.square(y))
+        dual = dual - cfg.huber_delta / (2.0 * reg) * space.sum(
+            lambda a: torch.sum(torch.square(a)), y)
     return primal - dual
 
 

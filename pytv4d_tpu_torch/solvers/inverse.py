@@ -14,6 +14,12 @@ path the TV half of each iteration runs as two kernels
 (``kernels.fused.tv_dual`` and ``cp_primal``; their plain versions on the
 CPU) and the loss's TV value as a third (``tv_norms``); the fidelity dual
 and the operator stay torch ops.  The loss history stays on the device.
+
+Both loops are written once, against an ``ops.space.Space``: a whole
+volume's (:func:`cp_inverse`) or a grid of shards' (:func:`cp_inverse_grid`,
+``parallel.halo.grid_space``), where the operator runs per shard, the TV
+half on the exchanged stencils or on the kernels in their halo mode, and
+every sum, norm and relative floor is taken over the whole grid.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import torch
 from ..core.config import TVConfig
 from ..core.schemes import num_channels, operator_norm_bound_sq
 from ..ops.operators import D, D_T, precond_maps, tv_norm
+from ..ops.space import TENSOR, Space, d_zeros, tensor_space
+from ..parallel.mesh import is_grid
 from ..utils.device import on_device
 from .cp import dual_prox
 from .fidelity import (
@@ -73,9 +81,17 @@ def check_nonneg_operator(A: Callable, vol_shape, dtype, what: str, *,
     entries proves signed coefficients (the converse does not hold: this is
     a necessary check); signed operators (Fourier, wavelets, high-pass) must
     use the operator-norm step rule instead."""
-    row = A(torch.ones(tuple(vol_shape), dtype=dtype, device=device))
-    lo = float(torch.min(row))
-    scale = max(1.0, float(torch.max(torch.abs(row))))
+    _check_nonneg_rows(
+        A(torch.ones(tuple(vol_shape), dtype=dtype, device=device)), TENSOR,
+        what)
+
+
+def _check_nonneg_rows(row, space: Space, what: str):
+    """:func:`check_nonneg_operator` on the field ``A(1)`` of ``space``
+    (on a grid: every shard's rows, against the whole grid's scale)."""
+    lo = float(space.min(torch.min, row))
+    scale = max(1.0, float(space.max(lambda r: torch.max(torch.abs(r)),
+                                     row)))
     if lo < -1e-6 * scale:
         raise ValueError(
             f"{what}(precond=True) requires a forward operator with "
@@ -85,12 +101,13 @@ def check_nonneg_operator(A: Callable, vol_shape, dtype, what: str, *,
         )
 
 
-def _reciprocal_rows(row):
+def _reciprocal_rows(row, space: Space = TENSOR):
     """``1 / row`` with zero rows (rays that miss the volume) floored
     relative to the live-row scale, so their decoupled duals get a bounded
-    step without distorting the live rows."""
-    floor = 1e-6 * torch.clamp_min(torch.max(row), 1e-30)
-    return 1.0 / torch.maximum(row, floor)
+    step without distorting the live rows.  On a grid the scale is the
+    whole grid's largest row, never one shard's."""
+    floor = 1e-6 * torch.clamp_min(space.max(torch.max, row), 1e-30)
+    return space.map(lambda r: 1.0 / torch.maximum(r, floor), row)
 
 
 def fidelity_row_precond(A: Callable, vol_shape, dtype, *, device):
@@ -194,12 +211,22 @@ def power_iteration(A: Callable, A_T: Callable, vol_shape, n_iter: int = 12,
     x = on_device(np.random.default_rng(seed).standard_normal(vol_shape),
                   device, dtype)
     A_, A_T_ = _bind_operator(A, A_T, vol_shape, dtype)
-    x = x / torch.sqrt(torch.sum(torch.square(x)))
+    return _power_norm(A_, A_T_, x, TENSOR, n_iter)
+
+
+def _power_norm(A: Callable, A_T: Callable, x, space: Space, n_iter: int):
+    """:func:`power_iteration` from the start field ``x`` of ``space``
+    (on a grid the norms are sums over shards)."""
+    def norm(v):
+        return torch.sqrt(space.sum(lambda a: torch.sum(torch.square(a)), v))
+
+    n0 = norm(x)
+    x = space.map(lambda a: a / n0, x)
     n = None
     for _ in range(n_iter):
-        y = A_T_(A_(x))
-        n = torch.sqrt(torch.sum(torch.square(y)))
-        x = y / torch.clamp_min(n, 1e-30)
+        y = A_T(A(x))
+        n = norm(y)
+        x = space.map(lambda a, n=n: a / torch.clamp_min(n, 1e-30), y)
     return torch.sqrt(n)
 
 
@@ -348,20 +375,101 @@ def cp_inverse(
     ``A(x_new)`` is always paid (the carry needs it for the linearity
     rewrite ``A(x_bar) = 2 A(x_new) - A(x)``), so skipping the loss only
     skips the TV value and the fidelity sum.
+
+    :func:`cp_inverse_grid` is the same solve on a grid of shards.
     """
-    from ..kernels.dispatch import as_dtype, can_fuse
+    from ..kernels.dispatch import can_fuse
 
     b = on_device(b, device)
     dtype, device = b.dtype, b.device
     vol_shape = tuple(int(n) for n in vol_shape)
     validate_fidelity(fidelity, b, fidelity_weight)
+    if A_T is None:
+        A_T = cached_transpose(A, vol_shape, dtype)
+    A_, A_T_ = _bind_operator(A, A_T, vol_shape, dtype)
+
+    def place(a, kind="volume"):
+        return None if a is None else torch.as_tensor(a, device=device)
+
+    def maps(col):
+        return precond_maps(
+            vol_shape, cfg.scheme, cfg.reg_z_over_reg, cfg.reg_time,
+            fidelity_colsum=col, grouped=(cfg.norm != "aniso"), dtype=dtype,
+            device=device)
+
+    def start(seed):
+        return on_device(np.random.default_rng(seed).standard_normal(
+            vol_shape), device, dtype)
+
+    fields = _Fields(tensor_space(cfg, shape=vol_shape), A_, A_T_, place,
+                     maps, start, _tensor_tv_half,
+                     can_fuse(vol_shape, cfg, dtype=dtype))
+    return _solve(fields, b, n_iter=n_iter, reg=reg, cfg=cfg,
+                  op_norm=op_norm, x_init=x_init, precond=precond,
+                  fidelity=fidelity, fidelity_weight=fidelity_weight,
+                  nonneg=nonneg, state=state, fused=fused,
+                  dual_dtype=dual_dtype, loss_every=loss_every,
+                  precond_sums=precond_sums, precond_scale=precond_scale)
+
+
+class _Fields(NamedTuple):
+    """What a solve asks of its fields beyond the loop: the volume's
+    ``ops.space.Space`` (with ``cfg``'s D / D_T), the bound pair ``A`` /
+    ``A_T`` between volume and data fields, ``place(a, kind)`` (a whole
+    array, or a field as it is, as a field of ``kind`` 'volume',
+    'd_volume' or 'data' on the solve's device, in its own dtype), the
+    preconditioner maps from a ``|A|^T 1`` field, the power method's start
+    field from a seed, the TV half on the fused kernels
+    (``tv_half(cfg, sigma, tau, reg, nonneg)``) and whether they serve."""
+    space: Space
+    A: Callable
+    A_T: Callable
+    place: Callable
+    precond_maps: Callable
+    start: Callable
+    tv_half: Callable
+    fusable: bool
+
+
+class _TVHalf(NamedTuple):
+    """The TV half of the fused iteration on a kind of field:
+    ``dual(x_bar, y_D_int) -> y_D_int'`` (``kernels.fused.tv_dual``),
+    ``primal(x, A^T y_A, y_D_int, out) -> x'`` (``cp_primal`` with
+    ``A^T y_A`` in its y_A slot and x in its x0 slot) and ``tv(x)``, the
+    TV value of ``D x`` (``tv_norms``)."""
+    dual: Callable
+    primal: Callable
+    tv: Callable
+
+
+def _tensor_tv_half(cfg, sigma, tau, reg, nonneg) -> _TVHalf:
+    from ..kernels.fused import cp_primal, tv_dual, tv_norms
+
+    return _TVHalf(
+        lambda x_bar, y: tv_dual(x_bar, y, cfg=cfg, sigma_D=sigma,
+                                 reg=reg)[0],
+        lambda x, at, y, out: cp_primal(x, x, at, y, cfg=cfg, tau=tau,
+                                        nonneg=nonneg, out=out)[0],
+        lambda x: torch.sum(tv_norms(x, cfg=cfg)[1]))
+
+
+def _solve(fields: _Fields, b, *, n_iter, reg, cfg, op_norm, x_init,
+           precond, fidelity, fidelity_weight, nonneg, state, fused,
+           dual_dtype, loss_every, precond_sums,
+           precond_scale) -> InverseResult:
+    """:func:`cp_inverse` on ``fields``: the options checked, the steps
+    sized, the carry set up, then one of the two loops."""
+    from ..kernels.dispatch import as_dtype
+
+    space = fields.space
+    vol_shape = space.shape
+    first = space.first(b)
+    dtype = first.dtype
     if loss_every < 1 or n_iter % loss_every:
         raise ValueError(
             f"loss_every must be a positive divisor of n_iter, got "
             f"loss_every={loss_every} with n_iter={n_iter}"
         )
-    if A_T is None:
-        A_T = cached_transpose(A, vol_shape, dtype)
     if precond:
         if op_norm is not None:
             raise ValueError(
@@ -370,25 +478,24 @@ def cp_inverse(
                 "row/column sums, not an operator-norm bound"
             )
         if precond_sums is None:
-            check_nonneg_operator(A, vol_shape, dtype, what="cp_inverse",
-                                  device=device)
+            _check_nonneg_rows(fields.A(fields.place(
+                torch.ones(vol_shape, dtype=dtype))), space, "cp_inverse")
         step = None  # per-element maps, built below
     else:
         if op_norm is None:
-            op_norm = float(power_iteration(A, A_T, vol_shape, dtype=dtype,
-                                            device=device))
+            op_norm = float(_power_norm(fields.A, fields.A_T,
+                                        fields.start(0), space, 12))
         L_sq = op_norm ** 2 + operator_norm_bound_sq(
             cfg.scheme, vol_shape[0], vol_shape[1], cfg.reg_z_over_reg,
             cfg.reg_time,
         )
         step = float(1.0 / np.sqrt(L_sq))  # sigma = tau
 
-    fusable = can_fuse(vol_shape, cfg, dtype=dtype)
     # reg stays a tensor when the caller differentiates through the solve
     # (unrolled hyperparameter gradients, cf. Bertrand et al. 2020)
     reg_grad = isinstance(reg, torch.Tensor) and reg.requires_grad
     if fused is None:
-        fused = not precond and not reg_grad and fusable
+        fused = not precond and not reg_grad and fields.fusable
     if fused and (precond or reg_grad):
         raise ValueError(
             "fused=True is incompatible with precond=True (per-pixel step "
@@ -396,7 +503,7 @@ def cp_inverse(
             "requires grad (the fused kernels take reg and the steps as "
             "constants) — use fused=False"
         )
-    if fused and not fusable:
+    if fused and not fields.fusable:
         raise ValueError(
             f"fused=True cannot serve this problem (see kernels.dispatch."
             f"can_fuse): volume shape {vol_shape}, dtype {dtype}, "
@@ -414,19 +521,25 @@ def cp_inverse(
     if precond_scale != 1.0 and not precond:
         raise ValueError("precond_scale requires precond=True")
 
-    def tensor(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
+    def cast(f):
+        return space.map(lambda t: t.to(dtype), f)
 
-    fw = tensor(fidelity_weight)
-    A_, A_T_ = _bind_operator(A, A_T, vol_shape, dtype)
-    if state is None:
-        x = (torch.zeros(vol_shape, dtype=dtype, device=device)
-             if x_init is None else tensor(x_init).clone())
-        s0 = A_(x)
-        carry = (x, x, torch.zeros_like(b), None, s0, s0)
+    if np.ndim(fidelity_weight) == 0 and not is_grid(fidelity_weight):
+        fw = torch.as_tensor(fidelity_weight, dtype=dtype,
+                             device=first.device)
     else:
-        st = InverseState(*(t if t is None else
-                            torch.as_tensor(t, device=device) for t in state))
+        fw = cast(fields.place(fidelity_weight, "data"))
+    A_, A_T_ = fields.A, fields.A_T
+    if state is None:
+        x = (fields.place(torch.zeros(vol_shape, dtype=dtype))
+             if x_init is None
+             else space.map(torch.clone, cast(fields.place(x_init))))
+        s0 = A_(x)
+        carry = (x, x, space.map(torch.zeros_like, b), None, s0, s0)
+    else:
+        st = InverseState(*(fields.place(t, kind) for t, kind in zip(
+            state, ("volume", "volume", "data", "d_volume", "data",
+                    "data"))))
         carry = (st.x, st.x_bar, st.y_A, st.y_D,
                  A_(st.x) if st.s_x is None else st.s_x,
                  A_(st.x_bar) if st.s_x_bar is None else st.s_x_bar)
@@ -435,15 +548,17 @@ def cp_inverse(
         run = functools.partial(
             _inverse_run_fused, sigma=step, tau=step,
             dual_dtype=as_dtype(dual_dtype or dtype),
-            out_dual_dtype=dtype if state is None else carry[3].dtype)
+            out_dual_dtype=(dtype if state is None
+                            else space.first(carry[3]).dtype),
+            tv_half=fields.tv_half)
     else:
         if precond:
-            steps = _precond_steps(A_, A_T_, b, vol_shape, cfg, precond_sums,
+            steps = _precond_steps(fields, b, cfg, precond_sums,
                                    precond_scale)
         else:
             steps = (step, step, step)
         run = functools.partial(_inverse_run, steps=steps)
-    final, losses = run(A_, A_T_, b, carry, fw, vol_shape=vol_shape, cfg=cfg,
+    final, losses = run(A_, A_T_, b, carry, fw, space=space, cfg=cfg,
                         reg=reg if reg_grad else float(reg),
                         fidelity=fidelity,
                         nonneg=bool(nonneg), n_iter=int(n_iter),
@@ -451,234 +566,240 @@ def cp_inverse(
     return InverseResult(x=final.x, loss=losses, state=final)
 
 
-def _precond_steps(A, A_T, b, vol_shape, cfg, precond_sums, precond_scale):
+def _precond_steps(fields: _Fields, b, cfg, precond_sums, precond_scale):
     """``(sigma_D map, tau map, sigma_A map)`` of the preconditioned run:
     from the operator's own sums ``A(1)`` / ``A^T(1)``, or from externally
     supplied surrogates, all divided by ``precond_scale``."""
-    dtype, device = b.dtype, b.device
+    space = fields.space
+    dtype = space.first(b).dtype
     if precond_sums is not None:
-        row, col = (torch.as_tensor(s, dtype=dtype, device=device)
-                    for s in precond_sums)
-        sig_A = _reciprocal_rows(row)
+        row, col = (space.map(lambda t: t.to(dtype), fields.place(s, kind))
+                    for s, kind in zip(precond_sums, ("data", "volume")))
+        sig_A = _reciprocal_rows(row, space)
     else:
-        col = A_T(torch.ones_like(b))
-        sig_A = fidelity_row_precond(A, vol_shape, dtype, device=device)
-    sig, tau_m = precond_maps(
-        vol_shape, cfg.scheme, cfg.reg_z_over_reg, cfg.reg_time,
-        fidelity_colsum=col, grouped=(cfg.norm != "aniso"), dtype=dtype,
-        device=device)
-    return (sig / precond_scale, tau_m / precond_scale,
-            sig_A / precond_scale)
+        col = fields.A_T(space.map(torch.ones_like, b))
+        sig_A = _reciprocal_rows(fields.A(fields.place(
+            torch.ones(space.shape, dtype=dtype))), space)
+    sig, tau_m = fields.precond_maps(col)
+    return tuple(space.map(lambda a: a / precond_scale, m)
+                 for m in (sig, tau_m, sig_A))
 
 
-def _inverse_run(A, A_T, b, carry, fw, *, steps, vol_shape, cfg, reg,
-                 fidelity, nonneg, n_iter, loss_every):
+def _inverse_run(A, A_T, b, carry, fw, *, steps, space, cfg, reg, fidelity,
+                 nonneg, n_iter, loss_every):
     """The plain CP loop on ``K = [A; D]``: scalar or per-element steps
-    ``(sigma_D, tau, sigma_A)``, any dtype.  One forward and one adjoint
-    application per iteration: ``A(x_bar) = 2 A(x_new) - A(x)`` comes from
-    the carried projections, and the loss reuses the same ``A(x_new)``."""
+    ``(sigma_D, tau, sigma_A)``, any dtype, on ``space``'s fields.  One
+    forward and one adjoint application per iteration:
+    ``A(x_bar) = 2 A(x_new) - A(x)`` comes from the carried projections,
+    and the loss reuses the same ``A(x_new)``."""
     sig, tau, sig_A = steps
-    kw = cfg.kwargs()
     x, x_bar, y_A, y_D, sAx, sAx_bar = carry
     if y_D is None:
-        Nd = num_channels(cfg.scheme, vol_shape[0], vol_shape[1],
-                          cfg.reg_z_over_reg, cfg.reg_time)
-        y_D = torch.zeros((vol_shape[0], Nd, vol_shape[1]) + vol_shape[2:],
-                          dtype=b.dtype, device=b.device)
-    losses = torch.empty(n_iter // loss_every, dtype=b.dtype,
-                         device=b.device)
+        shape = space.shape
+        y_D = d_zeros(space, x, num_channels(
+            cfg.scheme, shape[0], shape[1], cfg.reg_z_over_reg,
+            cfg.reg_time))
+    first = space.first(b)
+    losses = torch.empty(n_iter // loss_every, dtype=first.dtype,
+                         device=first.device)
+
+    def primal(xs, at, dt, t):
+        xn = xs - t * (at + dt)
+        return torch.clamp_min(xn, 0.0) if nonneg else xn
+
     for i in range(n_iter):
-        y_A = fidelity_dual_prox(y_A, sAx_bar, b, sig_A, fidelity, fw)
-        p = y_D + sig * D(x_bar, cfg.scheme, **kw)
-        y_D = dual_prox(p, reg, cfg.norm, sig, cfg.huber_delta)
-        x_new = x - tau * (A_T(y_A) + D_T(y_D, cfg.scheme, **kw))
-        if nonneg:
-            x_new = torch.clamp_min(x_new, 0.0)
-        x_bar = 2.0 * x_new - x
+        y_A = space.map(lambda ya, s, bs, sa, w: fidelity_dual_prox(
+            ya, s, bs, sa, fidelity, w), y_A, sAx_bar, b, sig_A, fw)
+        y_D = space.map(lambda yd, d, sg: dual_prox(
+            yd + sg * d, reg, cfg.norm, sg, cfg.huber_delta),
+            y_D, space.D(x_bar), sig)
+        x_new = space.map(primal, x, A_T(y_A), space.D_T(y_D), tau)
+        x_bar = space.map(lambda xn, xs: 2.0 * xn - xs, x_new, x)
         s_new = A(x_new)
-        x, sAx, sAx_bar = x_new, s_new, 2.0 * s_new - sAx
+        x, sAx, sAx_bar = x_new, s_new, space.map(
+            lambda sn, s: 2.0 * sn - s, s_new, sAx)
         if (i + 1) % loss_every == 0:
-            losses[i // loss_every] = (
-                fidelity_loss(s_new, b, fidelity, fw) + reg * tv_norm(
-                    D(x, cfg.scheme, **kw), cfg.norm,
-                    huber_delta=cfg.huber_delta))
+            losses[i // loss_every] = space.sum(
+                lambda sn, bs, w, d: fidelity_loss(sn, bs, fidelity, w)
+                + reg * tv_norm(d, cfg.norm, huber_delta=cfg.huber_delta),
+                s_new, b, fw, space.D(x))
     return InverseState(x, x_bar, y_A, y_D, sAx, sAx_bar), losses
 
 
 def _inverse_run_fused(A, A_T, b, carry, fw, *, sigma, tau, dual_dtype,
-                       out_dual_dtype, vol_shape, cfg, reg, fidelity, nonneg,
-                       n_iter, loss_every):
+                       out_dual_dtype, tv_half, space, cfg, reg, fidelity,
+                       nonneg, n_iter, loss_every):
     """The fused CP loop: per iteration the measurement-space fidelity dual
-    prox (torch ops), ``tv_dual`` (TV dual prox of the over-relaxed
-    iterate), ``A_T``, ``cp_primal`` with ``A^T y_A`` in its y_A slot, and
-    ``A(x_new)``; per sampled loss one ``tv_norms``.  The dual rides the
+    prox (torch ops), the TV dual prox of the over-relaxed iterate
+    (``tv_half.dual``: B5), ``A_T``, the primal update with ``A^T y_A`` in
+    its y_A slot (``tv_half.primal``: B2), and ``A(x_new)``; per sampled
+    loss one TV value (``tv_half.tv``: B3).  On a grid of shards each of
+    these runs shard by shard, the kernels in their halo mode
+    (``parallel.fused_halo.make_sharded_tv_half``).  The dual rides the
     loop in the kernels' channel-contiguous layout and its storage dtype.
-    ``cp_primal`` writes x' into a second buffer and the two swap, because
-    ``x_bar' = 2 x' - x`` still needs x; its x0 slot gets x itself and its
-    fidelity partial (a denoising quantity) is discarded."""
-    from ..kernels.fused import (
-        cp_primal,
-        from_internal_layout,
-        to_internal_layout,
-        tv_dual,
-        tv_norms,
-    )
+    The primal pass writes x' into a second buffer and the two swap,
+    because ``x_bar' = 2 x' - x`` still needs x; its fidelity partial (a
+    denoising quantity) is discarded."""
+    from ..kernels.fused import from_internal_layout, to_internal_layout
 
+    half = tv_half(cfg, sigma, tau, reg, nonneg)
     x, x_bar, y_A, y_D, sAx, sAx_bar = carry
     if y_D is None:
-        Nd = num_channels(cfg.scheme, vol_shape[0], vol_shape[1],
+        shape = space.shape
+        Nd = num_channels(cfg.scheme, shape[0], shape[1],
                           cfg.reg_z_over_reg, cfg.reg_time)
-        y_D_int = torch.zeros((vol_shape[0], vol_shape[1], Nd)
-                              + vol_shape[2:], dtype=dual_dtype,
-                              device=b.device)
+        y_D_int = space.map(lambda a: a.new_zeros(
+            (a.shape[0], a.shape[1], Nd) + tuple(a.shape[2:]),
+            dtype=dual_dtype), x)
     else:
-        y_D_int = to_internal_layout(y_D).to(dual_dtype)
+        y_D_int = space.map(lambda a: to_internal_layout(a).to(dual_dtype),
+                            y_D)
     # the loop owns its volumes: the caller's state is left alone
-    x = x.contiguous().clone()
-    x_bar = x_bar.contiguous().clone()
-    spare = torch.empty_like(x)
+    x = space.map(lambda a: a.contiguous().clone(), x)
+    x_bar = space.map(lambda a: a.contiguous().clone(), x_bar)
+    spare = space.map(torch.empty_like, x)
+    first = space.first(b)
     losses = torch.empty(n_iter // loss_every, dtype=torch.float32,
-                         device=b.device)
+                         device=first.device)
     for i in range(n_iter):
-        y_A = fidelity_dual_prox(y_A, sAx_bar, b, sigma, fidelity, fw)
-        y_D_int, _ = tv_dual(x_bar, y_D_int, cfg=cfg, sigma_D=sigma, reg=reg)
-        at = A_T(y_A).contiguous()
-        x_new, _ = cp_primal(x, x, at, y_D_int, cfg=cfg, tau=tau,
-                             nonneg=nonneg, out=spare)
-        torch.mul(x_new, 2.0, out=x_bar).sub_(x)
+        y_A = space.map(lambda ya, s, bs, w: fidelity_dual_prox(
+            ya, s, bs, sigma, fidelity, w), y_A, sAx_bar, b, fw)
+        y_D_int = half.dual(x_bar, y_D_int)
+        at = space.map(lambda a: a.contiguous(), A_T(y_A))
+        x_new = half.primal(x, at, y_D_int, spare)
+        space.map(lambda xn, xb, xs: torch.mul(xn, 2.0, out=xb).sub_(xs),
+                  x_new, x_bar, x)
         s_new = A(x_new)
-        x, spare, sAx, sAx_bar = x_new, x, s_new, 2.0 * s_new - sAx
+        x, spare, sAx, sAx_bar = x_new, x, s_new, space.map(
+            lambda sn, s: 2.0 * sn - s, s_new, sAx)
         if (i + 1) % loss_every == 0:
-            _, tv_parts = tv_norms(x, cfg=cfg)
             losses[i // loss_every] = torch.add(
-                fidelity_loss(s_new, b, fidelity, fw), torch.sum(tv_parts),
-                alpha=reg)
+                space.sum(lambda sn, bs, w: fidelity_loss(
+                    sn, bs, fidelity, w), s_new, b, fw),
+                half.tv(x), alpha=reg)
     final = InverseState(
-        x, x_bar, y_A, from_internal_layout(y_D_int).to(out_dual_dtype),
+        x, x_bar, y_A, space.map(
+            lambda a: from_internal_layout(a).to(out_dual_dtype), y_D_int),
         sAx, sAx_bar)
     return final, losses
 
 
-def cp_inverse_grid(pair_of, b, vol_shape, *, n_iter: int = 100,
-                    reg: float = 1.0, cfg: TVConfig = TVConfig(),
+def cp_inverse_grid(pair_of, b, vol_shape, *, data_sharding,
+                    n_iter: int = 100, reg: float = 1.0,
+                    cfg: TVConfig = TVConfig(),
                     op_norm: Optional[float] = None, x_init=None,
-                    fidelity: str = "l2", fidelity_weight: float = 1.0,
-                    nonneg: bool = False, loss_every: int = 1,
-                    seed: int = 0) -> InverseResult:
-    """:func:`cp_inverse`'s plain loop on a grid of shards
-    (``parallel.mesh``): ``b[iz][it]`` is a shard of the data and
+                    precond: bool = False, fidelity: str = "l2",
+                    fidelity_weight=1.0, nonneg: bool = False,
+                    state: Optional[InverseState] = None, fused: bool = None,
+                    dual_dtype=None, loss_every: int = 1,
+                    precond_setup: Optional[Callable] = None
+                    ) -> InverseResult:
+    """:func:`cp_inverse` on a grid of shards (``parallel.mesh``), the same
+    loop on ``parallel.halo.grid_space``: ``b[iz][it]`` is a shard of the
+    data, placed by ``data_sharding`` (its ``parallel.mesh.Sharding``), and
     ``pair_of(it)`` the ``(A, A_T)`` that maps a volume shard of column
     ``it`` to it and back, with no exchange (a projector that batches over
-    z and t).  The TV half runs on ``parallel.halo``'s exchanged ``D`` /
-    ``D_T``, the loss and the norms are sums over shards in (iz, it) order.
-    ``op_norm=None`` estimates ``||A||`` by the power method on the grid,
-    from the unsharded estimate's start vector.  ``x_init`` is a whole
-    volume or a grid.  Returns ``x`` and every state field as grids."""
-    from ..parallel.halo import sharded_D, sharded_D_T
+    z and t).  The TV half runs on the exchanged ``D`` / ``D_T``, or,
+    where the fused path is taken, on the kernels in their halo mode shard
+    by shard (``parallel.fused_halo.make_sharded_tv_half``: B5, B2 and
+    B3); the loss, the norms and the scales of every relative floor are
+    taken over the whole grid.  ``op_norm=None`` estimates ``||A||`` by the
+    power method on the grid, from the whole volume's start vector cut onto
+    it.  ``x_init``, ``state`` (an ``InverseState`` of grids or of whole
+    arrays, ``y_D`` in ``shard_d_volume``'s layout) and an array
+    ``fidelity_weight`` may be whole arrays, which are cut like the volume
+    or, in the data space, by ``data_sharding``, or grids.
+    ``precond_setup(fields)``, for an operator whose ``A(1)`` / ``A^T(1)``
+    underestimate ``|A|``, returns :func:`cp_inverse`'s ``(precond_sums,
+    precond_scale)`` from the grid's :class:`_Fields`.  Every other option
+    is :func:`cp_inverse`'s.  Returns ``x`` and every state field as
+    grids."""
+    check_grid_fidelity(fidelity, b, fidelity_weight)
+    fields = grid_fields(pair_of, b, vol_shape, cfg, data_sharding)
+    sums, scale = (None, 1.0) if precond_setup is None else \
+        precond_setup(fields)
+    return _solve(fields, b, n_iter=n_iter, reg=reg, cfg=cfg,
+                  op_norm=op_norm, x_init=x_init, precond=precond,
+                  fidelity=fidelity, fidelity_weight=fidelity_weight,
+                  nonneg=nonneg, state=state, fused=fused,
+                  dual_dtype=dual_dtype, loss_every=loss_every,
+                  precond_sums=sums, precond_scale=scale)
+
+
+def check_grid_fidelity(fidelity, b, weight):
+    """``validate_fidelity`` on a grid of data shards and a weight that is
+    a scalar, a whole array or a grid."""
+    from ..parallel.mesh import indexed
+
+    for _, _, part in indexed(b):
+        validate_fidelity(fidelity, part, 1.0)
+    for _, _, w in (indexed(weight) if is_grid(weight)
+                    else [(0, 0, weight)]):
+        validate_fidelity(fidelity, torch.zeros(()), w)
+
+
+def grid_fields(pair_of, b, vol_shape, cfg: TVConfig, data_sharding):
+    """The :class:`_Fields` of :func:`cp_inverse_grid`: the grid's space
+    (``cfg``'s D / D_T; ``cfg`` None for a solver that builds its own
+    operators, as ``solvers.tgv.tgv_inverse_on``), the column pairs applied shard by shard, the
+    placement of whole arrays, the preconditioner maps of each shard's
+    place in the volume (``parallel.halo.grid_precond_maps``), the seeded
+    start field and the TV half on the kernels in their halo mode."""
+    from ..parallel import entry
+    from ..parallel.fused_halo import make_sharded_tv_half
+    from ..parallel.halo import grid_precond_maps, grid_space
     from ..parallel.mesh import (
-        Sharding,
+        d_volume_sharding,
         first_shard,
-        grid_map,
         grid_mesh,
-        grid_sum,
         mesh_sizes,
         shard,
-        volume_spec,
+        volume_sharding,
     )
 
     vol_shape = tuple(int(n) for n in vol_shape)
-    if np.ndim(fidelity_weight) != 0:
-        raise ValueError("a sharded solve takes a scalar fidelity_weight")
-    if loss_every < 1 or n_iter % loss_every:
-        raise ValueError(
-            f"loss_every must be a positive divisor of n_iter, got "
-            f"loss_every={loss_every} with n_iter={n_iter}"
-        )
-    for row in b:
-        for part in row or ():
-            validate_fidelity(fidelity, part, fidelity_weight)
-    first = first_shard(b)
-    dtype, device = first.dtype, first.device
+    dtype = first_shard(b).dtype
     mesh = grid_mesh(b).mesh
     nz, nt = mesh_sizes(mesh)
-    D_g = sharded_D(mesh, cfg, vol_shape)
-    D_T_g = sharded_D_T(mesh, cfg, vol_shape)
-    binds = [_bind_operator(*pair_of(it), (vol_shape[0] // nz,
-                                           vol_shape[1] // nt)
-                            + vol_shape[2:], dtype) for it in range(nt)]
+    shard_time = nt > 1
+    local = (vol_shape[0] // nz, vol_shape[1] // nt) + vol_shape[2:]
+    binds = [_bind_operator(*pair_of(it), local, dtype) for it in range(nt)]
 
-    def per_shard(i, fn, *grids):
-        """``fn`` over the grids' shards, with the pair of each column."""
-        return [None if rows[0] is None else
-                [fn(binds[it][i], *cells) for it, cells in
-                 enumerate(zip(*rows))] for rows in zip(*grids)]
+    def per_shard(i):
+        return lambda grid: [None if row is None else
+                             [binds[it][i](cell) for it, cell in
+                              enumerate(row)] for row in grid]
 
-    def A(x):
-        return per_shard(0, lambda f, xs: f(xs), x)
+    shardings = {"volume": volume_sharding(mesh, shard_time),
+                 "d_volume": d_volume_sharding(mesh, shard_time),
+                 "data": data_sharding}
 
-    def A_T(y):
-        return per_shard(1, lambda f, ys: f(ys), y)
-
-    def place(a):
-        if isinstance(a, list):
+    def place(a, kind="volume"):
+        if a is None or is_grid(a):
             return a
         if not isinstance(a, torch.Tensor):
             a = torch.as_tensor(np.asarray(a))
-        return shard(a.to(dtype), Sharding(mesh, volume_spec()))
+        return shard(a, shardings[kind])
 
-    def norm2(grid):
-        return torch.sqrt(grid_sum(grid_map(
-            lambda a: torch.sum(torch.square(a)), grid)))
+    def maps(col):
+        return grid_precond_maps(
+            mesh, vol_shape, shard_time, scheme=cfg.scheme,
+            reg_z_over_reg=cfg.reg_z_over_reg, reg_time=cfg.reg_time,
+            fidelity_colsum=col, grouped=(cfg.norm != "aniso"), dtype=dtype)
 
-    if op_norm is None:
-        v = place(np.random.default_rng(seed).standard_normal(vol_shape))
-        n0 = norm2(v)
-        v = grid_map(lambda a: a / n0, v)
-        n = None
-        for _ in range(12):
-            y = A_T(A(v))
-            n = norm2(y)
-            v = grid_map(lambda a, n=n: a / torch.clamp_min(n, 1e-30), y)
-        op_norm = float(torch.sqrt(n))
-    L_sq = op_norm ** 2 + operator_norm_bound_sq(
-        cfg.scheme, vol_shape[0], vol_shape[1], cfg.reg_z_over_reg,
-        cfg.reg_time)
-    sig = tau = float(1.0 / np.sqrt(L_sq))
-    fw = torch.as_tensor(fidelity_weight, dtype=dtype, device=device)
-    Nd = num_channels(cfg.scheme, vol_shape[0], vol_shape[1],
-                      cfg.reg_z_over_reg, cfg.reg_time)
+    def start(seed):
+        return place(torch.as_tensor(np.random.default_rng(
+            seed).standard_normal(vol_shape)).to(dtype))
 
-    x = (place(torch.zeros(vol_shape, dtype=dtype)) if x_init is None
-         else grid_map(torch.clone, place(x_init)))
-    x_bar = x
-    sAx = sAx_bar = A(x)
-    y_A = grid_map(torch.zeros_like, b)
-    y_D = grid_map(lambda a: a.new_zeros(
-        (a.shape[0], Nd) + tuple(a.shape[1:])), x)
-    losses = torch.empty(n_iter // loss_every, dtype=dtype, device=device)
-    for i in range(n_iter):
-        y_A = grid_map(lambda ya, s, bs: fidelity_dual_prox(
-            ya, s, bs, sig, fidelity, fw), y_A, sAx_bar, b)
-        y_D = grid_map(lambda yd, d: dual_prox(
-            yd + sig * d, reg, cfg.norm, sig, cfg.huber_delta),
-            y_D, D_g(x_bar))
+    def tv_half(cfg, sigma, tau, reg, nonneg):
+        return make_sharded_tv_half(mesh, cfg, vol_shape, shard_time,
+                                    sigma=sigma, tau=tau, reg=reg,
+                                    nonneg=nonneg)
 
-        def primal(xs, at, dt):
-            xn = xs - tau * (at + dt)
-            return torch.clamp_min(xn, 0.0) if nonneg else xn
-
-        x_new = grid_map(primal, x, A_T(y_A), D_T_g(y_D))
-        x_bar = grid_map(lambda xn, xs: 2.0 * xn - xs, x_new, x)
-        s_new = A(x_new)
-        x, sAx_bar = x_new, grid_map(lambda sn, s: 2.0 * sn - s, s_new, sAx)
-        sAx = s_new
-        if (i + 1) % loss_every == 0:
-            losses[i // loss_every] = grid_sum(grid_map(
-                lambda sn, bs, d: fidelity_loss(sn, bs, fidelity, fw)
-                + reg * tv_norm(d, cfg.norm, huber_delta=cfg.huber_delta),
-                s_new, b, D_g(x)))
-    return InverseResult(x=x, loss=losses, state=InverseState(
-        x, x_bar, y_A, y_D, sAx, sAx_bar))
+    return _Fields(grid_space(mesh, cfg, vol_shape, shard_time),
+                   per_shard(0), per_shard(1), place, maps, start, tv_half,
+                   cfg is not None and entry.shards_fuse(
+                       local, vol_shape, cfg, dtype, 1))
 
 
 def reg_discrepancy(

@@ -22,7 +22,18 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..parallel.mesh import refuse_grid
+from ..parallel.mesh import (
+    Sharding,
+    d_volume_spec,
+    first_shard,
+    gather_d_volume,
+    gather_volume,
+    grid_mesh,
+    is_distributed,
+    is_grid,
+    shard,
+    volume_spec,
+)
 
 
 def _flatten(tree, leaves):
@@ -144,6 +155,41 @@ def load_state(path: str, like: Any) -> Any:
     return _unflatten(like, iter(leaves), _restore)
 
 
+def _whole(tree):
+    """``tree`` with every grid of shards gathered to its whole array: 4-D
+    shards in the volume's layout, 5-D ones in the difference volume's
+    (``parallel.mesh.gather_volume`` / ``gather_d_volume``; a grid of one
+    process of several raises ``ValueError`` there)."""
+    if is_grid(tree):
+        if first_shard(tree).ndim == 5:
+            return gather_d_volume(tree)
+        return gather_volume(tree)
+    if isinstance(tree, dict):
+        return {key: _whole(v) for key, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_whole(t) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_whole(t) for t in tree)
+    return tree
+
+
+def _recut(tree, like):
+    """The whole arrays of ``tree`` cut onto the grids of ``like`` where
+    it holds grids (the inverse of :func:`_whole`)."""
+    if is_grid(like):
+        d = first_shard(like).ndim == 5
+        lay = grid_mesh(like, 2 if d else 1)
+        spec = (d_volume_spec if d else volume_spec)(lay.shard_time)
+        return shard(tree, Sharding(lay.mesh, spec))
+    if isinstance(like, dict):
+        return {key: _recut(tree[key], v) for key, v in like.items()}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_recut(t, v) for t, v in zip(tree, like)))
+    if isinstance(like, (tuple, list)):
+        return type(like)(_recut(t, v) for t, v in zip(tree, like))
+    return tree
+
+
 def save_state_torch(path: str, pytree: Any) -> None:
     """Save a solver state with ``torch.save`` (atomic rename): every dtype
     kept as it is (bfloat16 too), no trip through numpy.  The counterpart of
@@ -196,8 +242,20 @@ def run_checkpointed(
     and return a result with ``.state`` and ``.loss`` fields (``chambolle_pock``
     and ``admm`` do).  Returns the final result with the full loss history
     (the resumed part included) as a tensor on the loss's device.
+
+    ``x_noisy`` may be a grid of shards (``parallel.mesh.shard_volume``):
+    the checkpoint then holds the state's whole arrays, gathered from its
+    grids, under the keys a volume's state has, so that a checkpoint
+    written from a grid resumes on the volume and the reverse (and the JAX
+    package's ``load_state`` reads it); on resume they are cut onto the
+    grids again.  A grid of one process of several raises ``ValueError``:
+    it holds only that process's rows.
     """
-    refuse_grid(x_noisy, "run_checkpointed")
+    if is_grid(x_noisy) and is_distributed(x_noisy):
+        raise ValueError(
+            "run_checkpointed writes whole arrays, and this grid holds only "
+            "this process's rows; take them with "
+            "parallel.multihost.global_to_host_local")
     if not checkpoint_every or checkpoint_path is None:
         return solver(x_noisy, n_iter=n_iter, **solver_kwargs)
 
@@ -212,7 +270,8 @@ def run_checkpointed(
                 losses = [meta["losses"]]
         # a template state to restore into
         probe = solver(x_noisy, n_iter=0, **solver_kwargs)
-        state = load_state(checkpoint_path, probe.state)
+        state = _recut(load_state(checkpoint_path, _whole(probe.state)),
+                       probe.state)
 
     result = None
     while done < n_iter:
@@ -221,7 +280,7 @@ def run_checkpointed(
         state = result.state
         losses.append(_to_numpy(result.loss))
         done += chunk
-        save_state(checkpoint_path, state)
+        save_state(checkpoint_path, _whole(state))
         with open(checkpoint_path + ".meta.npz.tmp", "wb") as f:
             np.savez(f, done=done, losses=np.concatenate(losses))
         os.replace(checkpoint_path + ".meta.npz.tmp",
@@ -278,8 +337,13 @@ def run_until_converged(
     and ``admm`` resume via their ``state`` kwarg; ``subgradient_descent``
     (no carried dual) resumes via ``x_init``.  Returns the solver's result
     type with the concatenated loss history.
+
+    ``x_noisy`` may be a grid of shards: the solver runs its grid path, the
+    losses are already sums over shards, and ``'gap'`` takes the denoising
+    CP states' gap with its scalars summed over shards
+    (``solvers.cp.pd_gap``); the inverse solvers' gaps need the whole
+    operator and take volumes.
     """
-    refuse_grid(x_noisy, "run_until_converged")
     if criterion not in ("loss", "gap"):
         raise ValueError(
             f"criterion must be 'loss' or 'gap', got {criterion!r}"
@@ -422,6 +486,12 @@ def _gap(state, x_noisy, gap_kwargs, gap_pos_args, gap_operator, gap_x_box,
             norm_bound=gap_norm_bound,
             A_T=gap_kwargs.get("A_T"),
         )
+    if is_grid(state.x) and not isinstance(state,
+                                           (CPState, CPPrecondState)):
+        raise ValueError(
+            "criterion='gap' on a grid of shards takes the denoising CP "
+            "states (solvers.cp.pd_gap); the inverse solvers' gaps apply "
+            "the whole forward operator and take volumes")
     if isinstance(state, (CPState, CPPrecondState)):
         if gap_kwargs.get("fidelity", "l2") != "l2":
             raise ValueError(

@@ -30,6 +30,7 @@ import functools
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..core.schemes import AXIS_COL, AXIS_ROW, AXIS_T, AXIS_Z, BWD, FWD
@@ -517,8 +518,27 @@ def _axis_mask(vol_shape, dim, kind, dtype, device):
     return m.to(dtype).reshape(shape)
 
 
+def _mask_field(template, vol_shape, dim, kind, dtype, device):
+    """:func:`_axis_mask` as a field of ``template``'s kind: the mask
+    itself, which broadcasts against a tensor and, along an axis the mesh
+    does not cut, against every shard; along a cut axis each shard's own
+    planes of it."""
+    from ..parallel.mesh import grid_like, indexed
+
+    m = _axis_mask(vol_shape, dim, kind, dtype, device)
+    if not is_grid(template) or dim > 1:
+        return m
+    cells = []
+    for iz, it, part in indexed(template):
+        k, n = (iz, it)[dim], part.shape[dim]
+        cells.append(m[k * n:(k + 1) * n] if dim == 0
+                     else m[:, k * n:(k + 1) * n])
+    return grid_like(template, cells)
+
+
 def _tgv_precond_maps(vol_shape, axes, dtype, device, norm="iso", A=None,
-                      A_T=None, b_shape=None):
+                      A_T=None, b=None, space: Space = TENSOR,
+                      template=None):
     """Pock-Chambolle (2011, alpha=1) diagonal preconditioners for
     K = [[A, 0], [D, -I], [0, E]] from EXACT row/column absolute sums:
     D/E stencils have coefficients +-1 and +-0.5 with known boundary
@@ -534,51 +554,60 @@ def _tgv_precond_maps(vol_shape, axes, dtype, device, norm="iso", A=None,
     length-1 channel axis): below the row-sum bound, so the step condition
     ``||Sigma^1/2 K T^1/2|| <= 1`` still holds.  Primal steps are always
     separable: per-field lists.  All masks stay broadcastable (nothing
-    volume-sized beyond ``|A|^T 1``, which is real data)."""
+    volume-sized beyond ``|A|^T 1``, which is real data).  On ``space``'s
+    fields: ``template`` is a volume field (its shards give each mask's
+    part), ``b`` the data."""
     dims = MODE_AXES[axes]
     n = len(dims)
+    M = space.map
 
     def ge1(d):
-        return _axis_mask(vol_shape, d, "ge1", dtype, device)
+        return _mask_field(template, vol_shape, d, "ge1", dtype, device)
 
     def lem2(d):
-        return _axis_mask(vol_shape, d, "lem2", dtype, device)
+        return _mask_field(template, vol_shape, d, "lem2", dtype, device)
 
     # dual of (D x - w): row sum = 2*[fwd slot valid] + 1 (the -I entry)
-    sp = [1.0 / (2.0 * lem2(d) + 1.0) for d in dims]
+    sp = [M(lambda m: 1.0 / (2.0 * m + 1.0), lem2(d)) for d in dims]
     # dual of E w: diag channel rows sum to 2*[bwd valid]; off-diag (i, j)
     # rows sum to |0.5|*2 per valid part (all-zero rows: the dual stays 0,
     # any finite step is fine)
     sq = []
     for (i, j) in _q_pairs(n):
-        r = 2.0 * ge1(dims[i]) if i == j else ge1(dims[j]) + ge1(dims[i])
-        sq.append(1.0 / torch.where(r == 0, 1.0, r))
-    if norm == "aniso":
-        sig_p, sig_q = sp, sq
+        r = (M(lambda g: 2.0 * g, ge1(dims[i])) if i == j
+             else M(torch.add, ge1(dims[j]), ge1(dims[i])))
+        sq.append(M(lambda r: 1.0 / torch.where(r == 0, 1.0, r), r))
+    if norm == "aniso":  # tuples: a grid of shards is a list
+        sig_p, sig_q = tuple(sp), tuple(sq)
     else:
-        sig_p = functools.reduce(torch.minimum, sp)[:, None]
-        sig_q = functools.reduce(torch.minimum, sq)[:, None]
+        def group_min(*a):
+            return functools.reduce(torch.minimum, a)[:, None]
+
+        sig_p, sig_q = M(group_min, *sp), M(group_min, *sq)
 
     # primal x: |A|^T 1 + per-axis fwd-diff column sums
-    tx_den = sum(lem2(d) + ge1(d) for d in dims)
+    tx_den = M(lambda *m: sum(m[2 * k] + m[2 * k + 1] for k in range(n)),
+               *[f for d in dims for f in (lem2(d), ge1(d))])
     if A is not None:
-        tx_den = tx_den + A_T(torch.ones(b_shape, dtype=dtype, device=device))
-    T_x = 1.0 / torch.where(tx_den == 0, 1.0, tx_den)
+        tx_den = M(torch.add, tx_den, A_T(M(torch.ones_like, b)))
+    T_x = M(lambda t: 1.0 / torch.where(t == 0, 1.0, t), tx_den)
     # primal w_i: 1 (the -I) + bwd column sums from every E channel:
     # separable, so per-field exactness holds for every norm
     T_w = []
     for i in range(n):
-        den = 1.0 + ge1(dims[i]) + lem2(dims[i])
+        den = M(lambda g, m: 1.0 + g + m, ge1(dims[i]), lem2(dims[i]))
         for j in range(n):
             if j != i:
-                den = den + 0.5 * (ge1(dims[j]) + lem2(dims[j]))
-        T_w.append(1.0 / den)
+                den = M(lambda dd, g, m: dd + 0.5 * (g + m), den,
+                        ge1(dims[j]), lem2(dims[j]))
+        T_w.append(M(lambda dd: 1.0 / dd, den))
+    T_w = tuple(T_w)
 
     sig_A = None
     if A is not None:
-        from .inverse import fidelity_row_precond
+        from .inverse import _reciprocal_rows
 
-        sig_A = fidelity_row_precond(A, vol_shape, dtype, device=device)
+        sig_A = _reciprocal_rows(A(M(torch.ones_like, template)), space)
     return sig_A, sig_p, sig_q, T_x, T_w
 
 
@@ -589,6 +618,14 @@ def _chanmul(maps, arr):
         return torch.stack([maps[i] * arr[:, i] for i in range(len(maps))],
                            dim=1)
     return maps * arr
+
+
+def _chanmul_on(space: Space, maps, arr):
+    """:func:`_chanmul` on ``space``'s fields (``maps`` a scalar, a field
+    or a tuple of fields, one a channel)."""
+    if isinstance(maps, tuple):
+        return space.map(lambda a, *m: _chanmul(list(m), a), arr, *maps)
+    return space.map(lambda m, a: _chanmul(m, a), maps, arr)
 
 
 def tgv_gap_inverse(
@@ -702,13 +739,15 @@ def tgv_inverse(
     ``'l2'`` (default), ``'l1'`` (impulsive noise), ``'kl'`` (Poisson
     counts, ``b >= 0``); ``fidelity_weight`` a scalar or per-measurement
     array.  ``nonneg=True`` projects the primal onto ``x >= 0``.  ``state``
-    resumes from ``result.state``."""
+    resumes from ``result.state``.  The loop is :func:`tgv_inverse_on`,
+    which a grid of shards runs too (``models.ct.tgv_reconstruct``)."""
     from .inverse import (
         _bind_operator,
+        _Fields,
+        _tensor_tv_half,
         cached_transpose,
-        check_nonneg_operator,
-        power_iteration,
     )
+    from ..ops.space import tensor_space
 
     b = on_device(b, device)
     dtype, device = b.dtype, b.device
@@ -719,12 +758,44 @@ def tgv_inverse(
             f"tgv_inverse expects a rank-4 (Nz, M, N_row, N_col) vol_shape, "
             f"got {vol_shape}"
         )
+    if A_T is None:
+        A_T = cached_transpose(A, vol_shape, dtype)
+    A_, A_T_ = _bind_operator(A, A_T, vol_shape, dtype)
+
+    def place(a, kind="volume"):
+        return None if a is None else torch.as_tensor(a, device=device)
+
+    def start(seed):
+        return on_device(np.random.default_rng(seed).standard_normal(
+            vol_shape), device, dtype)
+
+    fields = _Fields(tensor_space(shape=vol_shape), A_, A_T_, place, None,
+                     start, _tensor_tv_half, False)
+    return tgv_inverse_on(
+        fields, b, n_iter=n_iter, alpha1=alpha1, alpha0=alpha0, axes=axes,
+        op_norm=op_norm, x_init=x_init, precond=precond, norm=norm,
+        huber_delta=huber_delta, fidelity=fidelity,
+        fidelity_weight=fidelity_weight, nonneg=nonneg, state=state)
+
+
+def tgv_inverse_on(fields, b, *, n_iter, alpha1, alpha0, axes, op_norm,
+                   x_init, precond, norm, huber_delta, fidelity,
+                   fidelity_weight, nonneg, state) -> TGVResult:
+    """:func:`tgv_inverse` on ``fields`` (``solvers.inverse._Fields``: a
+    tensor's, or a grid's from ``solvers.inverse.grid_fields``, where the
+    operator norm, the preconditioners' floors and the loss are taken over
+    the whole grid)."""
+    from .inverse import _check_nonneg_rows, _power_norm
+
+    space = fields.space
+    vol_shape = space.shape
+    first = space.first(b)
+    dtype, device = first.dtype, first.device
     if norm not in ("iso", "aniso", "huber"):
         raise ValueError(f"norm must be 'iso', 'aniso' or 'huber', got "
                          f"{norm!r}")
-    if A_T is None:
-        A_T = cached_transpose(A, vol_shape, dtype)
-    d_fwd, sym_grad, d_T, sym_T, n_w, n_q, L_sq = _tgv_ops(axes)
+    d_fwd, sym_grad, d_T, sym_T, n_w, n_q, L_sq = _tgv_ops(axes, space)
+    A_, A_T_ = fields.A, fields.A_T
     if precond:
         if op_norm is not None:
             raise ValueError(
@@ -732,60 +803,73 @@ def tgv_inverse(
                 "preconditioned steps come from the operator's exact "
                 "row/column sums, not an operator-norm bound"
             )
-        check_nonneg_operator(A, vol_shape, dtype, what="tgv_inverse",
-                              device=device)
+        _check_nonneg_rows(A_(fields.place(torch.ones(vol_shape,
+                                                      dtype=dtype))),
+                           space, "tgv_inverse")
     elif op_norm is None:
-        op_norm = float(power_iteration(A, A_T, vol_shape, dtype=dtype,
-                                        device=device))
-    A_, A_T_ = _bind_operator(A, A_T, vol_shape, dtype)
+        op_norm = float(_power_norm(A_, A_T_, fields.start(0), space,
+                                    12))
+    M = space.map
+    zeros = fields.place(torch.zeros(vol_shape, dtype=dtype))
     if precond:
         sig_A, sig_p, sig_q, T_x, T_w = _tgv_precond_maps(
-            vol_shape, axes, dtype, device, norm=norm, A=A_, A_T=A_T_,
-            b_shape=tuple(b.shape))
+            vol_shape, axes, dtype, device, norm=norm, A=A_, A_T=A_T_, b=b,
+            space=space, template=zeros)
     else:
         sig_A = sig_p = sig_q = T_x = T_w = float(
             1.0 / math.sqrt(op_norm ** 2 + L_sq))
 
-    fw = torch.as_tensor(fidelity_weight, dtype=dtype, device=device)
-    Nz, M, Nr, Nc = vol_shape
+    if np.ndim(fidelity_weight) == 0 and not is_grid(fidelity_weight):
+        fw = torch.as_tensor(fidelity_weight, dtype=dtype, device=device)
+    else:
+        fw = M(lambda t: t.to(dtype), fields.place(fidelity_weight, "data"))
     if state is None:
-        x = (torch.zeros(vol_shape, dtype=dtype, device=device)
-             if x_init is None
-             else torch.as_tensor(x_init, dtype=dtype, device=device))
-        w = torch.zeros((Nz, n_w, M, Nr, Nc), dtype=dtype, device=device)
-        q = torch.zeros((Nz, n_q, M, Nr, Nc), dtype=dtype, device=device)
-        xb, wb, y_A, p = x, w, torch.zeros_like(b), w
+        x = (zeros if x_init is None
+             else M(lambda t: t.to(dtype), fields.place(x_init)))
+        w = d_zeros(space, zeros, n_w)
+        q = d_zeros(space, zeros, n_q)
+        xb, wb, y_A, p = x, w, M(torch.zeros_like, b), w
         sAx = sAxb = A_(x)
     else:
-        st = TGVInverseState(*(t if t is None else
-                               torch.as_tensor(t, device=device)
-                               for t in state))
+        st = TGVInverseState(*(fields.place(t, kind) for t, kind in zip(
+            state, ("volume", "volume", "d_volume", "d_volume", "data",
+                    "d_volume", "d_volume", "data", "data"))))
         x, xb, w, wb, y_A, p, q = st[:7]
         sAx = A_(x) if st.s_x is None else st.s_x
         sAxb = A_(xb) if st.s_xb is None else st.s_xb
+
+    def primal_x(xs, t, at, dt):
+        xn = xs - t * (at + dt)
+        return torch.clamp_min(xn, 0.0) if nonneg else xn
 
     losses = torch.empty(n_iter, dtype=dtype, device=device)
     for i in range(n_iter):
         # linearity rewrite (solvers.inverse): A(xb) = 2 A(x_new) - A(x)
         # from the carried projections: one forward and one adjoint per
         # iteration, and the loss reuses the same A(x_new)
-        y_A = fidelity_dual_prox(y_A, sAxb, b, sig_A, fidelity, fw)
-        p = _tgv_dual_prox(p + _chanmul(sig_p, d_fwd(xb) - wb), alpha1,
-                           norm, sig_p, huber_delta)
-        q = _tgv_dual_prox(q + _chanmul(sig_q, sym_grad(wb)), alpha0, norm,
-                           sig_q, huber_delta)
-        x_new = x - T_x * (A_T_(y_A) + d_T(p))
-        if nonneg:
-            x_new = torch.clamp_min(x_new, 0.0)
-        w_new = w - _chanmul(T_w, -p + sym_T(q))
-        xb = 2.0 * x_new - x
-        wb = 2.0 * w_new - w
+        y_A = M(lambda ya, s, bs, sa, fws: fidelity_dual_prox(
+            ya, s, bs, sa, fidelity, fws), y_A, sAxb, b, sig_A, fw)
+        p = M(lambda ps, c, sg: _tgv_dual_prox(ps + c, alpha1, norm, sg,
+                                              huber_delta),
+              p, _chanmul_on(space, sig_p, M(torch.sub, d_fwd(xb), wb)),
+              0.0 if isinstance(sig_p, tuple) else sig_p)
+        q = M(lambda qs, c, sg: _tgv_dual_prox(qs + c, alpha0, norm, sg,
+                                              huber_delta),
+              q, _chanmul_on(space, sig_q, sym_grad(wb)),
+              0.0 if isinstance(sig_q, tuple) else sig_q)
+        x_new = M(primal_x, x, T_x, A_T_(y_A), d_T(p))
+        w_new = M(lambda ws, c: ws - c, w, _chanmul_on(
+            space, T_w, M(lambda ps, e: -ps + e, p, sym_T(q))))
+        xb = M(lambda a, c: 2.0 * a - c, x_new, x)
+        wb = M(lambda a, c: 2.0 * a - c, w_new, w)
         s_new = A_(x_new)
-        x, w, sAx, sAxb = x_new, w_new, s_new, 2.0 * s_new - sAx
-        losses[i] = (fidelity_loss(s_new, b, fidelity, fw)
-                     + alpha1 * _tgv_norm_val(d_fwd(x) - w, norm,
-                                              huber_delta)
-                     + alpha0 * _tgv_norm_val(sym_grad(w), norm,
-                                              huber_delta))
+        x, w, sAx, sAxb = x_new, w_new, s_new, M(
+            lambda sn, s: 2.0 * sn - s, s_new, sAx)
+        losses[i] = space.sum(
+            lambda sn, bs, fws, d, ws, e: fidelity_loss(sn, bs, fidelity,
+                                                         fws)
+            + alpha1 * _tgv_norm_val(d - ws, norm, huber_delta)
+            + alpha0 * _tgv_norm_val(e, norm, huber_delta),
+            s_new, b, fw, d_fwd(x), w, sym_grad(w))
     final = TGVInverseState(x, xb, w, wb, y_A, p, q, sAx, sAxb)
     return TGVResult(x=final.x, w=final.w, loss=losses, state=final)

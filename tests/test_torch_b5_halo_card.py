@@ -1,0 +1,45 @@
+"""B5's halo mode on the card: ``csrc/tv_fused.cu``'s ``tv_dual_kernel``
+against its plain version on the same shard (one shard of 4 z-shards and
+of a (2 x 2) grid, f32 and a bf16 dual), at the CP bar.  Needs a CUDA
+device and ``nvcc``, and skips without them; ``chip_smoke.py`` phase 32
+holds the kernel the same way at the CT cell's shard shape."""
+
+import numpy as np
+import pytest
+import torch
+
+from pytv4d_tpu_torch.core.config import TVConfig
+from pytv4d_tpu_torch.core.schemes import scheme_channels
+from pytv4d_tpu_torch.kernels import fused
+
+TOL = dict(atol=2e-6, rtol=1e-5)   # the CP bar
+BF16_RTOL = 2.0 ** -7              # one bf16 ulp
+
+
+@pytest.mark.parametrize("dual", ["float32", "bfloat16"])
+@pytest.mark.parametrize("grid_zt", [(4, 1), (2, 2)])
+def test_tv_dual_kernel_matches_its_plain_version(grid_zt, dual):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    shape = (16, 4, 64, 96)
+    local = (shape[0] // grid_zt[0], shape[1] // grid_zt[1]) + shape[2:]
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    Nd = len(scheme_channels("hybrid", *shape[:2], 1.0, 0.5)[0])
+    rng = np.random.default_rng(3)
+    x_ext = torch.tensor(rng.standard_normal(
+        (local[0] + 2, local[1] + 2) + local[2:]), dtype=torch.float32)
+    y_D = torch.tensor(rng.uniform(-1, 1, local[:2] + (Nd,) + local[2:]),
+                       dtype=torch.float32).to(getattr(torch, dual))
+    kw = dict(cfg=cfg, sigma_D=0.4, reg=0.5, halo_mode=True,
+              table_dims=shape[:2])
+    want, want_parts = fused.tv_dual_plain(x_ext, y_D.clone(), **kw)
+    launches = fused.tv_dual.launches
+    got, parts = fused.tv_dual(x_ext.cuda(), y_D.cuda(), **kw)
+    torch.cuda.synchronize()
+    assert fused.tv_dual.launches == launches + 1
+    got, want = got.float().cpu(), want.float()
+    tol = (dict(atol=TOL["atol"], rtol=BF16_RTOL) if dual == "bfloat16"
+           else TOL)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+    assert float(parts.sum()) == pytest.approx(float(want_parts.sum()),
+                                               rel=1e-5)

@@ -169,19 +169,24 @@ def test_spectral_sharded_reconstruction_tracks_unsharded():
 
 
 def test_sharded_ct_errors():
+    """What a sinogram grid cannot serve raises: a cone mesh without a t
+    cut, a cone sinogram cut along z.  What raised before ROADMAP.md item
+    A19 (``fused=True``, ``precond``, ``dual_dtype``, an array
+    ``fidelity_weight``) now runs on the (4, 2) grid and holds to the same
+    call on the whole f32 sinogram at the JAX bars."""
     with pytest.raises(ValueError, match="sharded 't' axis"):
         cone_sinogram_sharding(make_mesh(4, 1, device="cpu"))
     truth = _parallel_truth()
     angles = np.linspace(0, np.pi, 16, endpoint=False)
     sino = radon(torch.tensor(truth, dtype=torch.float32), angles)
     grid = shard(sino, sinogram_sharding(make_mesh(4, 2, device="cpu")))
-    for bad in (dict(fused=True), dict(precond=True),
-                dict(dual_dtype="bfloat16")):
-        with pytest.raises(ValueError, match="sharded sinogram"):
-            cp_reconstruct(grid, angles, truth.shape, n_iter=2, **bad)
-    with pytest.raises(ValueError, match="scalar fidelity_weight"):
-        cp_reconstruct(grid, angles, truth.shape, n_iter=2, op_norm=24.0,
-                       fidelity_weight=np.ones(sino.shape))
+    weight = np.random.default_rng(4).random(sino.shape) + 0.5
+    for more in (dict(fused=True, op_norm=24.0), dict(precond=True),
+                 dict(dual_dtype="bfloat16", op_norm=24.0),
+                 dict(fidelity_weight=weight, op_norm=24.0)):
+        got = cp_reconstruct(grid, angles, truth.shape, n_iter=2, **more)
+        _check(got, *cp_reconstruct(sino, angles, truth.shape, n_iter=2,
+                                    **more)[1::-1])
     # a cone sinogram cut along z is refused: the cone couples z
     cone = radon_cone(torch.tensor(_cone_truth(51)), np.linspace(
         0, 2 * np.pi, 12, endpoint=False), CONE, n_det_v=12)

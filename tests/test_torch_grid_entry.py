@@ -7,8 +7,11 @@ at their shapes, meshes, seeds and tolerances.  Besides: FISTA, ``'2d'``
 TGV and a CP resumed from a JAX ``CPState`` cut with ``shard_volume`` /
 ``shard_d_volume``; ``D``, ``D_T``, ``compute_L21_norm`` and
 ``tv_and_subgrad`` with plane masks; the fused kernels' plain versions
-behind ``fused=True`` on float32 grids; and the ``ValueError`` of every
-entry point that takes no grid yet."""
+behind ``fused=True`` on float32 grids; the entry points that took a grid
+last (``chambolle_pock_precond``, ``run_until_converged``,
+``run_checkpointed``, the ``TVDenoiser`` methods, ``tgv_reconstruct``,
+``sart``, ``fdk``, ``fbp``) against their gathered calls; and the
+``ValueError`` of what a grid cannot serve."""
 
 import functools
 
@@ -368,34 +371,90 @@ def _grid():
 
 
 ANGLES = np.linspace(0.0, np.pi, 4, endpoint=False)
-NOT_YET = {
-    "chambolle_pock_precond": lambda g: chambolle_pock_precond(g, n_iter=1),
-    "run_until_converged": lambda g: run_until_converged(chambolle_pock, g),
-    "run_checkpointed": lambda g: run_checkpointed(chambolle_pock, g, 2),
-    "TVDenoiser.cp": lambda g: TVDenoiser().cp(g, n_iter=1),
-    "TVDenoiser.gd": lambda g: TVDenoiser().gd(g, n_iter=1),
-    "TVDenoiser.tgv": lambda g: TVDenoiser().tgv(g, n_iter=1),
-    "TVDenoiser.admm": lambda g: TVDenoiser().admm(g, n_iter=1),
-    "TVDenoiser.fista": lambda g: TVDenoiser().fista(g, n_iter=1),
-    "tgv_reconstruct": lambda g: tgv_reconstruct(g, ANGLES, (4, 2, 8, 8)),
-    "sart": lambda g: sart(g, ANGLES, (4, 2, 8, 8)),
-    "fdk": lambda g: fdk(g, ANGLES, ConeBeamGeometry(20.0, 10.0),
-                         (4, 2, 8, 8)),
-    "fbp": lambda g: fbp(g, ANGLES),
+CONE_ANGLES = np.linspace(0.0, 2 * np.pi, 4, endpoint=False)
+CONE_GEOM = ConeBeamGeometry(20.0, 10.0)
+SHAPE = (4, 2, 8, 8)
+
+
+def _inputs(kind):
+    """``(whole, grid)``: the (4, 2, 8, 8) f64 volume on a (2 x 2) mesh,
+    its parallel sinogram on the same mesh, or its cone sinogram cut along
+    t."""
+    from pytv4d_tpu_torch.models.ct import (
+        cone_sinogram_sharding,
+        radon,
+        radon_cone,
+        sinogram_sharding,
+    )
+    from pytv4d_tpu_torch.parallel import shard
+
+    vol = torch.tensor(np.random.default_rng(0).random(SHAPE))
+    if kind == "volume":
+        return vol, shard_volume(vol, _mesh(2, 2))
+    if kind == "sinogram":
+        sino = radon(vol, ANGLES)
+        return sino, shard(sino, sinogram_sharding(_mesh(2, 2)))
+    sino = radon_cone(vol, CONE_ANGLES, CONE_GEOM, n_det_v=6)
+    return sino, shard(sino, cone_sinogram_sharding(_mesh(1, 2)))
+
+
+def _whole_of(a):
+    return (gather_d_volume(a) if a[0][0].ndim == 5 else gather_volume(a)) \
+        if is_grid(a) else a
+
+
+def _same(got, want):
+    """The grid call's result equals the whole call's (f64, 1e-10): its
+    fields gathered, its loss or residual history as it is."""
+    if isinstance(want, tuple):
+        for g, w in zip(got, want):
+            if w is not None:
+                _same(g, w)
+        return
+    np.testing.assert_allclose(_whole_of(got).numpy(), want.numpy(),
+                               rtol=1e-10, atol=1e-12)
+
+
+# the entry points that took no grid before ROADMAP.md item A19: each runs
+# on a grid and equals the same call on the gathered input
+ON_GRID = {
+    "chambolle_pock_precond": (lambda g: chambolle_pock_precond(g, n_iter=3),
+                               "volume"),
+    "run_until_converged": (lambda g: run_until_converged(
+        chambolle_pock, g, chunk=2, max_iter=4), "volume"),
+    "run_checkpointed": (lambda g: run_checkpointed(chambolle_pock, g, 2),
+                         "volume"),
+    "TVDenoiser.cp": (lambda g: TVDenoiser().cp(g, n_iter=2), "volume"),
+    "TVDenoiser.gd": (lambda g: TVDenoiser().gd(g, n_iter=2), "volume"),
+    "TVDenoiser.tgv": (lambda g: TVDenoiser().tgv(g, n_iter=2), "volume"),
+    "TVDenoiser.admm": (lambda g: TVDenoiser().admm(g, n_iter=2), "volume"),
+    "TVDenoiser.fista": (lambda g: TVDenoiser().fista(g, n_iter=2),
+                         "volume"),
+    "tgv_reconstruct": (lambda g: tgv_reconstruct(g, ANGLES, SHAPE,
+                                                  n_iter=2), "sinogram"),
+    "sart": (lambda g: sart(g, ANGLES, SHAPE, n_iter=1, n_subsets=2),
+             "sinogram"),
+    "fdk": (lambda g: fdk(g, CONE_ANGLES, CONE_GEOM, SHAPE), "cone"),
+    "fbp": (lambda g: fbp(g, ANGLES), "sinogram"),
 }
 
 
-@pytest.mark.parametrize("name", [*NOT_YET, "fused 4d on a t cut",
+@pytest.mark.parametrize("name", [*ON_GRID, "fused 4d on a t cut",
                                   "device", "full mask"])
 def test_what_takes_no_grid_raises(name):
-    """Every entry point that takes no grid yet raises ``ValueError``
-    naming the ROADMAP.md item; so do ``fused=True`` for ``'4d'`` TGV on
-    a grid that cuts time, a ``device`` that is not the shards', and a
-    full mask."""
+    """The entry points that took no grid before ROADMAP.md item A19 now
+    run on one and equal the same call on the gathered input (f64,
+    1e-10); what a grid still cannot serve raises ``ValueError``:
+    ``fused=True`` for ``'4d'`` TGV on a grid that cuts time, a ``device``
+    that is not the shards', and a full mask."""
     grid = _grid()
-    if name in NOT_YET:
-        with pytest.raises(ValueError, match="item A19"):
-            NOT_YET[name](grid)
+    if name in ON_GRID:
+        call, kind = ON_GRID[name]
+        whole, grid = _inputs(kind)
+        got, want = call(grid), call(whole)
+        if hasattr(want, "_fields"):
+            got, want = tuple(got), tuple(want)
+        _same(got, want)
     elif name == "device":
         with pytest.raises(ValueError, match="not moved"):
             admm(grid, n_iter=1, device="cuda")

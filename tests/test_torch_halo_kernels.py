@@ -436,3 +436,66 @@ def test_launch_counters_stay_on_cpu():
                            tv, **p.dual_kw(True))
     assert tv.shape == (3, 1)
     assert [getattr(fused, n).launches for n in names] == before
+
+
+# B5 in its halo mode: (global shape, mesh (z, t)) by name
+B5_LAYOUTS = {"z4": ((8, 4, 12, 20), (4, 1)), "2x2": ((8, 4, 12, 20), (2, 2))}
+
+
+@pytest.mark.parametrize("dual", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scheme", ["hybrid", "central"])
+@pytest.mark.parametrize("layout", B5_LAYOUTS)
+def test_tv_dual_halo_mode_matches_unsharded_and_jax(layout, scheme, dual):
+    """B5's halo mode (its plain version here): each shard's x_bar with its
+    ghost planes, the TV dual prox of the shard, equal bit for bit to the
+    unsharded ``tv_dual`` on the gathered volume cut to the shard (f32 and
+    a bf16 dual), its TV partials summing to the whole's, and both within
+    the CP bar of the JAX package's unsharded ``make_tv_dual_kernel`` in the
+    interpreter (bf16: plus one ulp on at most 1%)."""
+    shape, mesh_zt = B5_LAYOUTS[layout]
+    cfg_kw = dict(scheme=scheme, reg_time=0.5)
+    cfg = TVConfig(**cfg_kw)
+    chans, _ = scheme_channels(scheme, shape[0], shape[1], 1.0, 0.5)
+    rng = np.random.default_rng(9)
+    x_bar = torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
+    ddt = getattr(torch, dual)
+    y_D = torch.tensor(rng.uniform(-1, 1, (shape[0], shape[1], len(chans))
+                                   + shape[2:]), dtype=torch.float32).to(ddt)
+    whole, parts = fused.tv_dual(x_bar, y_D.clone(), cfg=cfg,
+                                 sigma_D=SIGMA_D, reg=REG)
+    mesh = make_mesh(*mesh_zt, device="cpu")
+    st = mesh_zt[1] > 1
+    ghost_z = fh._axis_ghost_kind(chans, AXIS_Z)
+    ghost_t = fh._axis_ghost_kind(chans, AXIS_T)
+    ext = fh._extend_axis(fh._extend_axis(shard_volume(x_bar, mesh, st), 0,
+                                          ghost_z), 1, ghost_t)
+    launches = fused.tv_dual.launches
+    out = grid_map(lambda xe, yd: fused.tv_dual(
+        xe, yd, cfg=cfg, sigma_D=SIGMA_D, reg=REG, halo_mode=True,
+        table_dims=shape[:2]),
+        ext, shard_volume(y_D.clone(), mesh, st))
+    assert fused.tv_dual.launches == launches  # no kernel on the CPU
+    got = gather_volume(grid_map(lambda o: o[0], out))
+    assert got.dtype == ddt and torch.equal(got, whole)
+    tv = sum(float(o[1].sum()) for row in out for o in row)
+    assert tv == pytest.approx(float(parts.sum()), rel=1e-6)
+    kernel = jfused.make_tv_dual_kernel(
+        JConfig(**cfg_kw), shape, "float32", SIGMA_D, REG, True,
+        dual_dtype_name=dual)
+    j_yD = kernel(_j(x_bar), _j(y_D))[0]
+    _close(got, j_yD, dual == "bfloat16", TOL)
+
+
+def test_tv_dual_halo_mode_checks():
+    """The halo mode's operands: x_bar extended by a plane per side in z
+    and t, y_D of the shard's shape."""
+    cfg = TVConfig(**HYB)
+    x_ext = torch.zeros((4, 4, 8, 8))
+    y_D = torch.zeros((2, 2, 8, 8, 8))
+    kw = dict(cfg=cfg, sigma_D=SIGMA_D, reg=REG, table_dims=(8, 4))
+    fused.tv_dual(x_ext, y_D, halo_mode=True, **kw)
+    with pytest.raises(ValueError, match="y_D must be"):
+        fused.tv_dual(x_ext, torch.zeros((4, 4, 8, 8, 8)), halo_mode=True,
+                      **kw)
+    with pytest.raises(ValueError, match="extended by 1"):
+        fused.tv_dual(torch.zeros((2, 2, 8, 8)), y_D, halo_mode=True, **kw)
