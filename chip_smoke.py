@@ -134,7 +134,14 @@ times it beside the plain halo path and the whole volume, and runs
 ``tgv_reconstruct``, ``fdk``, ``fbp``, ``sart``, ``chambolle_pock_precond``,
 ``run_until_converged``, ``run_checkpointed`` (written on a grid, resumed
 on the volume) and the five ``TVDenoiser`` methods on grids, each against
-the same call on the whole volume.
+the same call on the whole volume.  For the benchmark harness (phase 33):
+runs each function of ``pytv4d_tpu_torch.bench`` at the JAX package's
+defaults (``bench_solver`` also with a bf16 dual; the two sweeps over 1, 2
+and 4 shards on the one card), requires the JAX harness's keys with every
+value finite and positive, and the launches of B1 and B2, B6's two passes
+and the CT step's B5, B2 and B3, prints each dict with its launches, peak
+memory and seconds, and holds ``bench_ct_production``'s final loss against
+a direct ``cp_reconstruct`` of the same seeded inputs.
 Every phase raises on failure; nothing falls back to the CPU.  The last line of stdout is one
 JSON object with ``"ok": true`` and the device.
 """
@@ -159,7 +166,7 @@ import numpy as np
 import torch
 
 import pytv4d_tpu_torch
-from pytv4d_tpu_torch import testing, tv_CPU, tv_GPU
+from pytv4d_tpu_torch import bench, testing, tv_CPU, tv_GPU
 from pytv4d_tpu_torch.core.config import TVConfig
 from pytv4d_tpu_torch.core.schemes import (
     AXIS_T,
@@ -5050,6 +5057,110 @@ def phase_grid_ct(card):
     return out, halo
 
 
+# ---------------------------------------------------------------- phase 33
+# the keys of each dict of pytv4d_tpu/bench/harness.py (the sweeps': of each
+# shard count's row); tests/test_torch_bench_harness.py holds the port's to
+# the JAX package's on the CPU
+HARNESS_KEYS = {
+    "bench_solver": {"it_per_s", "gvox_it_per_s", "est_gb_per_s",
+                     "roofline_fraction"},
+    "sweep": {"it_per_s", "efficiency"},
+    "bench_ct": {"radon_proj_per_s", "radon_s", "adjoint_proj_per_s",
+                 "adjoint_s", "normal_op_scan_it_per_s", "recon_it_per_s",
+                 "recon_final_loss"},
+    "bench_ct_cone": {"cone_fwd_proj_per_s", "cone_fwd_s",
+                      "cone_adjoint_proj_per_s", "cone_adjoint_s",
+                      "cone_normal_op_scan_it_per_s", "cone_recon_it_per_s",
+                      "cone_recon_final_loss", "cone_fdk_s",
+                      "cone_sart_epochs_per_s"},
+}
+HARNESS_SHARDS = [1, 2, 4]  # the sweeps' shard counts, all on the one card
+CT_KERNELS = ("B5", "B2", "B3")  # the fused CT step's launches
+
+
+def phase_harness(card):
+    """Phase 33: the benchmark harness (``pytv4d_tpu_torch.bench``) on the
+    card at the JAX package's defaults: each function's dict (its keys the
+    JAX harness's, every value finite and positive), launches, peak memory
+    and seconds; ``bench_ct_production``'s final loss against a direct
+    ``cp_reconstruct`` of the same seeded inputs.  Returns the launches by
+    kernel and call."""
+    t0 = time.perf_counter()
+    launches = {}
+
+    def call(name, run, keys, need=()):
+        ct.clear_projector_cache()
+        torch.cuda.empty_cache()
+        sync()
+        torch.cuda.reset_peak_memory_stats(DEV)
+        zero_counters()
+        t = time.perf_counter()
+        res = run()
+        sync()
+        secs = time.perf_counter() - t
+        got = read_counters()
+        rows = [res]
+        if keys == "sweep":
+            require(sorted(res) == HARNESS_SHARDS,
+                    f"{name}: shard counts {HARNESS_SHARDS}, got {sorted(res)}")
+            rows = list(res.values())
+        for row in rows:
+            require(set(row) == HARNESS_KEYS[keys],
+                    f"{name}: keys {sorted(HARNESS_KEYS[keys])}, got "
+                    f"{sorted(row)}")
+            require(all(np.isfinite(v) and v > 0 for v in row.values()),
+                    f"{name}: every value finite and positive, got {row}")
+        for kid in need:
+            require(got[kid] >= 1, f"{name}: {kid} launched, got {got}")
+        launches[name] = {k: n for k, n in got.items() if n}
+        log(f"[33 harness] {name}: {json.dumps(res)}")
+        log(f"[33 harness] {name}: launches {launches[name]}, peak "
+            f"{torch.cuda.max_memory_allocated(DEV) / 1e9:.2f} GB, "
+            f"{secs:.1f} s")
+        return res
+
+    call("bench_solver", bench.bench_solver, "bench_solver", ("B1", "B2"))
+    call("bench_solver bf16 dual",
+         lambda: bench.bench_solver(dual_dtype=torch.bfloat16),
+         "bench_solver", ("B1", "B2"))
+    call("weak_scaling", lambda: bench.weak_scaling(
+        device_counts=HARNESS_SHARDS), "sweep")
+    call("weak_scaling_tgv", lambda: bench.weak_scaling_tgv(
+        device_counts=HARNESS_SHARDS), "sweep", ("B6pq", "B6xw"))
+    call("bench_ct", bench.bench_ct, "bench_ct", CT_KERNELS)
+    prod = call("bench_ct_production", bench.bench_ct_production,
+                "bench_ct", CT_KERNELS)
+    call("bench_ct_cone", bench.bench_ct_cone, "bench_ct_cone", CT_KERNELS)
+
+    # bench_ct_production's solve, called directly on the same seeded
+    # inputs and operator norm (the spectral pair has no atomics)
+    ct.clear_projector_cache()
+    vol = torch.as_tensor(np.random.default_rng(0).random(CT_SHAPE),
+                          dtype=torch.float32, device=DEV)
+    angles = np.linspace(0.0, np.pi, CT_ANGLES,
+                         endpoint=False).astype(np.float32)
+    A, A_T = make_projector(CT_SHAPE, angles, method="spectral")
+    sino = A(vol)
+    op_norm = float(estimate_op_norm(A, A_T, CT_SHAPE, device=DEV))
+    ref = float(cp_reconstruct(sino, angles, CT_SHAPE, n_iter=30, reg=0.5,
+                               cfg=TVConfig(**CT_CFG), op_norm=op_norm,
+                               method="spectral").loss[-1])
+    rel = abs(prod["recon_final_loss"] - ref) / abs(ref)
+    require(rel <= 1e-6, f"bench_ct_production's final loss within 1e-6 of "
+            f"a direct cp_reconstruct's {ref}, got {rel:.3g}")
+    del vol, sino, A, A_T
+    ct.clear_projector_cache()
+    torch.cuda.empty_cache()
+    log(f"[33 harness] ({card}) bench_ct_production's final loss "
+        f"{prod['recon_final_loss']!r} against a direct cp_reconstruct's "
+        f"{ref!r}: {rel:.3g} relative; {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name, got in launches.items():
+        for kid, n in got.items():
+            out.setdefault(kid, {})[name] = n
+    return out
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -5085,6 +5196,7 @@ def main():
     on_grid_ct, b5_halo = phase_grid_ct(card)
     for kid, calls in on_grid_ct.items():
         on_grid.setdefault(kid, {}).update(calls)
+    harness = phase_harness(card)
 
     # B1-B4 bounds at the shape their times were taken at: MAIN_4D float32,
     # hybrid with reg_time=0.5 (Nd channels).  Bytes: each array once per
@@ -5125,6 +5237,9 @@ def main():
         if kid in on_grid:
             # phase 31: the normal entry points handed a grid of shards
             out["launches_grid"] = on_grid[kid]
+        if kid in harness:
+            # phase 33: the benchmark harness's functions
+            out["launches_harness"] = harness[kid]
         if kid in ("B2", "B3", "B5"):
             # the fan- and cone-beam cp_reconstruct path (phase 26), the
             # spectral path of each geometry (phase 28) and cp_inverse on

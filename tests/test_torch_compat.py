@@ -238,8 +238,8 @@ def test_solver_surface():
 
 def test_models_surface():
     """The spectral projectors (queue A item 15) are in, as the module
-    ``models.ct_spectral`` and its eight names; the sinogram shardings
-    (16b) and ``bench`` (7, 17) are still queued."""
+    ``models.ct_spectral`` and its eight names, and so are the sinogram
+    shardings (16b) and the ``bench`` harness's six functions (17)."""
     names = ("radon radon_fan radon_cone make_projector make_fan_projector "
              "make_cone_projector cp_reconstruct tgv_reconstruct fbp fdk "
              "sart estimate_op_norm FanBeamGeometry ConeBeamGeometry "
@@ -256,6 +256,12 @@ def test_models_surface():
 
     for name in spectral.split():
         assert hasattr(jmodels, name), name
+    _has(pytv.models.ct, "sinogram_sharding cone_sinogram_sharding")
+    # the root does not import the harness, as the JAX package's does not
+    import pytv4d_tpu_torch.bench  # noqa: F401
+
+    _has(pytv.bench, "bench_ct bench_ct_cone bench_ct_production "
+                     "bench_solver weak_scaling weak_scaling_tgv")
 
 
 def test_parallel_and_utils_surface():

@@ -39,7 +39,8 @@ def test_import_leaves_jax_out():
             "pytv4d_tpu_torch.utils.runlog, "
             "pytv4d_tpu_torch.interop, pytv4d_tpu_torch.tv_CPU, "
             "pytv4d_tpu_torch.tv_operators_CPU, pytv4d_tpu_torch.testing, "
-            "pytv4d_tpu_torch.tests; print(sorted(m for m in sys.modules "
+            "pytv4d_tpu_torch.tests, pytv4d_tpu_torch.bench; "
+            "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.') or "
             "m.startswith('pytv4d_tpu.') or m == 'pytv4d_tpu'))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
