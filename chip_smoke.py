@@ -8,11 +8,12 @@ kernels), the TV kernels (B3 norms, B4 subgradient),
 the whole-solve CP and GD kernels (B9: on chip, and in L2 for larger
 volumes) and the TGV-2 kernels (B6 passes PQ
 and XW, B7 whole solve: on chip, and in L2 for larger slices)
-from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once; B1, B3,
-B4 and B5 on an unsharded volume and B8 are the kernels specialised per
-channel table (``csrc/specialised.cu`` for B1 and B4,
-``csrc/specialised_tv.cu`` for B3 and B5, ``csrc/cp_boundary.cu`` for B8:
-three sources whose compiles nvcc spreads over the cores).
+from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once; B1 and B5
+on an unsharded volume, B3 and B4 on a volume and on a shard (their halo
+mode) and B8 are the kernels specialised per channel table
+(``csrc/specialised.cu`` for B1 and B4, ``csrc/specialised_tv.cu`` for B3
+and B5, ``csrc/cp_boundary.cu`` for B8: three sources whose compiles nvcc
+spreads over the cores).
 Then, for
 the Chambolle-Pock path (phases 3-7): holds B1/B2 against
 their plain PyTorch versions (B1 also bit for bit against the generic body,
@@ -22,7 +23,8 @@ image through them, replays the (16, 4, 512, 512) reference trajectory,
 measures the 4D CP rate of kernels and plain versions, and runs the
 (96, 16, 512, 512) volume.  For the subgradient-descent path (phases 8-11):
 holds B3/B4 against their plain versions (both also bit for bit against
-the generic bodies, as B1 above), drives
+their halo-mode instances on a 1 x 1 grid, over every channel table),
+drives
 ``TVDenoiser.gd`` on the
 cameraman image and the reference's ``tv_GPU.tv_hybrid`` through them,
 measures the 4D GD rate, the split of an iteration and the kernels' GB/s,
@@ -71,7 +73,11 @@ on the card from numpy inputs.  For the (z, t)-sharded solvers (phases
 mode and the two boundary kernels B8 against their plain versions, shard by
 shard, at a small shape and at the sharded path's own shard shape, and in
 every case 20 iterations of the overlapped step bit for bit against the
-ghost-plane step; solves
+ghost-plane step; B3/B4's halo mode (the per-table kernels' HALO
+instances) also over every channel table, both storages and two widths on
+a z-cut and a t-cut mesh, each case's gathered norms and G bit for bit
+against the unsharded per-table kernels', and per launch at a z-shard and
+a (2 x 2) grid's shard of (32, 8, 256, 256) beside its bound; solves
 the (32, 8, 256, 256) volume from a numpy array as 4 z-shards on the one
 card through ``make_mesh`` / ``shard_volume`` /
 ``make_sharded_cp_solver_fused`` on the ghost-plane path and on the
@@ -274,10 +280,15 @@ CAMERAMAN_TGV_LOSS = 37211904.16116732
 LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
         "resident", "resident_onchip", "cp_zstream", "cp_boundary",
         "specialised", "specialised_tv")
-# the kernels specialised per channel table, by kernel id (phase 2 reports
-# each one's registers and spills)
-SPEC_KERNELS = {"B1": "cp_dual_spec_kernel", "B4": "tv_subgrad_spec_kernel",
-                "B3": "tv_norms_spec_kernel", "B5": "tv_dual_spec_kernel",
+# the kernels specialised per channel table, by kernel id: a pattern of their
+# mangled names (phase 2 reports each one's registers and spills); B3 and B4
+# by their HALO template flag, the last argument
+SPEC_KERNELS = {"B1": "cp_dual_spec_kernel",
+                "B4": r"tv_subgrad_spec_kernel\w*Lb0E",
+                "B4halo": r"tv_subgrad_spec_kernel\w*Lb1E",
+                "B3": r"tv_norms_spec_kernel\w*Lb0E",
+                "B3halo": r"tv_norms_spec_kernel\w*Lb1E",
+                "B5": "tv_dual_spec_kernel",
                 "B8dual": "bnd_dual_kernel", "B8primal": "bnd_primal_kernel",
                 "B9cp": "reso_cp_kernel", "B9gd": "reso_gd_kernel",
                 "B10": "zstream_spec_kernel"}
@@ -398,10 +409,10 @@ def phase_device():
 # ---------------------------------------------------------------- phase 2
 def _ptxas_of(compiler_log, kid, kernel):
     """Registers, stack frames and spills ptxas reported for the instances
-    of ``kernel``."""
+    whose mangled name matches the pattern ``kernel``."""
     regs, frames = [], []
     for entry in re.split(r"Compiling entry function '", compiler_log)[1:]:
-        if kernel not in entry.split("'")[0]:
+        if not re.search(kernel, entry.split("'")[0]):
             continue
         used = re.search(r"Used (\d+) registers", entry)
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
@@ -409,6 +420,7 @@ def _ptxas_of(compiler_log, kid, kernel):
         if used and frame:
             regs.append(int(used.group(1)))
             frames.append(tuple(map(int, frame.groups())))
+    kernel = re.match(r"\w+?_kernel", kernel).group()
     if not regs:
         return f"{kid} {kernel}: no ptxas report"
     return (f"{kid} {kernel} x{len(regs)}: {min(regs)}-{max(regs)} "
@@ -445,7 +457,7 @@ def phase_build():
             log(f"[2 build] {name}: " + "; ".join(
                 _ptxas_of(compiler_log, kid, kernel)
                 for kid, kernel in SPEC_KERNELS.items()
-                if kernel in compiler_log))
+                if re.search(kernel, compiler_log)))
     log(f"[2 build] {len(LIBS)} sources in parallel: {t1 - t0:.1f} s, load "
         f"{time.perf_counter() - t1:.2f} s")
     sync()
@@ -867,7 +879,7 @@ def phase_gd_kernels():
             norms_p, parts_p = fused.tv_norms_plain(x, tmul, cfg=cfg)
             G_k = fused.tv_subgrad(x, norms_k, tmul, cfg=cfg)
             G_p = fused.tv_subgrad_plain(x, norms_p, tmul, cfg=cfg)
-            # the generic bodies: the HALO instances on a 1 x 1 grid
+            # the halo-mode instances on a 1 x 1 grid
             norms_g, _ = fused.tv_norms(_one_shard(x, cfg, 1), tmul, cfg=cfg,
                                         halo_mode=True, table_dims=shape[:2])
             aniso = cfg.norm == "aniso"
@@ -877,10 +889,10 @@ def phase_gd_kernels():
                 tmul, cfg=cfg, halo_mode=True, table_dims=shape[:2])
             sync()
             require(_bits_equal(norms_k, norms_g), f"{name} {shape}: "
-                    f"specialised B3's norms equal the generic body's bit for "
-                    f"bit")
-            require(_bits_equal(G_k, G_g), f"{name} {shape}: specialised "
-                    f"B4's G equals the generic body's bit for bit")
+                    f"B3's norms equal its halo mode's on a 1 x 1 grid bit "
+                    f"for bit")
+            require(_bits_equal(G_k, G_g), f"{name} {shape}: B4's G equals "
+                    f"its halo mode's on a 1 x 1 grid bit for bit")
             tids.add(tables.table_id(cfg, *shape[:2]))
             bf16 = dtype == torch.bfloat16
             kind = "bf16" if bf16 else "f32"
@@ -902,8 +914,8 @@ def phase_gd_kernels():
     log(f"[8 GD kernels vs plain] {n} cases at {SMALL}, {CAMERAMAN}, "
         f"{MAIN_4D}, {CT_SMALL}, (the CT path's config) {CT_SHAPE}, "
         f"{RAGGED} and {MISALIGNED} (x one element off alignment), all "
-        f"{len(tids)} channel tables: pass; specialised B3 and B4 "
-        f"bit-equal to the generic bodies in every case; "
+        f"{len(tids)} channel tables: pass; B3 and B4 bit-equal to their "
+        f"halo-mode instances on a 1 x 1 grid in every case; "
         f"max abs err B3 f32 {errs['B3']['f32']:.3g} "
         f"(bf16 x {errs['B3']['bf16']:.3g}), B4 f32 {errs['B4']['f32']:.3g} "
         f"bf16 {errs['B4']['bf16']:.3g}")
@@ -2705,6 +2717,202 @@ B8_TABLE_CONFIGS = {1: ("upwind", 0.0, 3), 3: ("upwind", 0.5, 3),
                     9: ("hybrid", 0.0, 3), 11: ("hybrid", 0.5, 3),
                     13: ("central", 0.0, 3), 15: ("central", 0.5, 3),
                     20: ("central", 0.5, 2)}
+# the sharded TV (B3 / B4 halo mode) on the 4D cell: the shard of a (2 x 2)
+# grid beside SHARD_4D, a z-shard
+GRID_2X2 = (2, 2)
+SHARD_2X2 = (MAIN_4D[0] // 2, MAIN_4D[1] // 2) + MAIN_4D[2:]
+# an even width (whole rows of 16 bytes: B3's cp.async fill) and an odd one
+# (its element-by-element fill; ragged tiles of B4)
+HALO_TV_WIDTHS = ((20, 128), (7, 37))
+
+
+def _halo_tv_table_configs():
+    """{table id: (cfg, whole volume's (Nz, M))} reaching each of the 21
+    tables the B3 / B4 halo kernels are built for, with Nz and M of 2 or 4,
+    so that a z-cut (2, 1) and a t-cut (1, 2) mesh both divide them."""
+    out = {}
+    for scheme, reg_z, reg_time, Nz, M in itertools.product(
+            SCHEMES, (1.0, 0.0), (0.5, 0.0), (4, 2), (4, 2)):
+        cfg = TVConfig(scheme=scheme, reg_z_over_reg=reg_z,
+                       reg_time=reg_time)
+        out.setdefault(tables.table_id(cfg, Nz, M), (cfg, (Nz, M)))
+    require(sorted(out) == list(range(len(tables.TABLES))),
+            f"a configuration for every table, got {sorted(out)}")
+    return out
+
+
+def _halo_tv_bounds(shard, cfg, table_dims, dtype):
+    """The bounds of B3 and B4 in halo mode on one shard: the bytes its table
+    needs, each once -- x at the shard and at the planes its z and t
+    channels read across the shard's faces (B3 one a side; B4 two for a
+    central channel), B4 also the norms at the shard and one plane a side
+    (not for aniso), and the outputs (norms, G) -- over the HBM rate, and
+    the operations per voxel the unsharded bounds count (main)."""
+    Nz, M, Nr, Nc = shard
+    chans, _ = scheme_channels(cfg.scheme, *table_dims, cfg.reg_z_over_reg,
+                               cfg.reg_time)
+    kinds = {a: {ch.kind for ch in chans if ch.axis == a}
+             for a in (AXIS_Z, AXIS_T)}
+    across = {AXIS_Z: M, AXIS_T: Nz}  # planes on one face of the shard
+    own, plane, xb = Nz * M, Nr * Nc, dtype.itemsize
+    x3 = own + sum(2 * across[a] for a in kinds if kinds[a])
+    x4 = own + sum(2 * (2 if "ctr" in kinds[a] else 1) * across[a]
+                   for a in kinds if kinds[a])
+    n4 = 0 if cfg.norm == "aniso" else x3
+    Nd, vox = len(chans), own * plane
+    return {"B3halo": bound((x3 * xb + own * 4) * plane, (4 * Nd + 4) * vox),
+            "B4halo": bound((x4 * xb + n4 * 4 + own * xb) * plane,
+                            (10 * Nd + 2) * vox)}
+
+
+def _halo_cp_bounds(shard, cfg, table_dims, x_dt, d_dt):
+    """The bounds of B1 and B2 in their sharded modes on one shard: each
+    input once and each output once.  ``interior`` computes the planes
+    1 .. Nz-2: B1 reads x there and at the z planes its channels read
+    (the shard's edge planes), x0, y_A and the dual there and writes y_A
+    and the dual; B2 reads x, x0, y_A and the dual there and the dual's z
+    channels at the edge plane each reads, and writes x.  ``halo_mode``
+    computes the whole shard and reads, beyond it, the neighbour planes its
+    table reads: x one plane a side along z and t (B1), a channel's dual
+    one plane on the side its adjoint reads (B2).  Operations per voxel as
+    main's bounds count them."""
+    Nz, M, Nr, Nc = shard
+    chans, _ = scheme_channels(cfg.scheme, *table_dims, cfg.reg_z_over_reg,
+                               cfg.reg_time)
+    Nd, plane = len(chans), Nr * Nc
+    xb, db = x_dt.itemsize, d_dt.itemsize
+    face = {AXIS_Z: M, AXIS_T: Nz}  # planes on one face of the shard
+    sides = {a: (any(c.kind in ("bwd", "ctr") for c in chans if c.axis == a),
+                 any(c.kind in ("fwd", "ctr") for c in chans if c.axis == a))
+             for a in face}
+    # the dual planes one channel's adjoint reads beyond its slots: FWD
+    # the plane below, BWD the one above, CTR both
+    y_nb = {a: sum(2 if c.kind == "ctr" else 1 for c in chans if c.axis == a)
+            for a in face}
+    out = {}
+    for mode in ("interior", "halo_mode"):
+        own = (Nz - 2 if mode == "interior" else Nz) * M
+        if mode == "interior":
+            x_planes = own + M * sum(sides[AXIS_Z])
+            y_extra = M * y_nb[AXIS_Z]
+        else:
+            x_planes = own + sum(face[a] * sum(sides[a]) for a in face)
+            y_extra = sum(face[a] * y_nb[a] for a in face)
+        vox = own * plane
+        out[f"B1 {mode}"] = bound(
+            x_planes * plane * xb + (3 * xb + 2 * Nd * db) * vox,
+            (10 * Nd + 10) * vox)
+        out[f"B2 {mode}"] = bound(
+            (4 * xb + Nd * db) * vox + y_extra * plane * db,
+            (4 * Nd + 8) * vox)
+    return out
+
+
+def _halo_tv_case(what, xw, tm, cfg, mesh_zt, note):
+    """B3 and B4 in halo mode on the shards of the volume ``xw`` cut by a
+    (z, t) mesh, extended as the sharded TV extends them: each shard's
+    norms and G against the plain versions (``note`` takes the errors), its
+    TV partials within 1e-6, and the gathered norms and G bit for bit the
+    unsharded per-table kernels' on ``xw`` (the TV sums within 1e-6: the
+    partials are summed per block of the shard)."""
+    shape = tuple(xw.shape)
+    kind = "bf16" if xw.dtype == torch.bfloat16 else "f32"
+    chans, _ = scheme_channels(cfg.scheme, shape[0], shape[1],
+                               cfg.reg_z_over_reg, cfg.reg_time)
+    gz = fused_halo._axis_ghost_kind(chans, AXIS_Z)
+    gt = fused_halo._axis_ghost_kind(chans, AXIS_T)
+    xs = shard_volume(xw, make_mesh(*mesh_zt), mesh_zt[1] > 1)
+    mode = dict(cfg=cfg, halo_mode=True, table_dims=shape[:2])
+    x1 = fused_halo._extend_axis(fused_halo._extend_axis(xs, 0, gz), 1, gt)
+    k = grid_map(lambda xe: fused.tv_norms(xe, tm, **mode), x1)
+    p = grid_map(lambda xe: fused.tv_norms_plain(xe, tm, **mode), x1)
+    for (nk, tk), (np_, tp) in _cells(k, p):
+        require(torch.equal(torch.isinf(nk), torch.isinf(np_)),
+                f"B3 halo {what}: +inf norms at the same voxels")
+        note("B3halo", kind, (torch.where(torch.isinf(nk), 0.0, nk),
+                              torch.where(torch.isinf(np_), 0.0, np_)),
+             tol=F32_TOL_GD)
+        rel = abs(float(tk.sum() - tp.sum())) / float(tp.sum())
+        require(rel <= 1e-6, f"B3 halo {what}: TV sum {rel:.3g}")
+    x2 = fused_halo._extend_axis2(fused_halo._extend_axis2(xs, 0, gz), 1, gt)
+    if cfg.norm == "aniso":
+        n1 = grid_map(lambda xe: None, x2)
+    else:
+        n1 = fused_halo._extend_norms(grid_map(lambda c: c[0], k))
+    G = grid_map(lambda xe, ne: fused.tv_subgrad(xe, ne, tm, **mode), x2, n1)
+    for g, xe, ne in _cells(G, x2, n1):
+        note("B4halo", kind, (g, fused.tv_subgrad_plain(xe, ne, tm, **mode)),
+             tol=F32_TOL_GD)
+    norms_w, parts_w = fused.tv_norms(xw, tm, cfg=cfg)
+    G_w = fused.tv_subgrad(xw, norms_w, tm, cfg=cfg)
+    require(_bits_equal(gather_volume(grid_map(lambda c: c[0], k)), norms_w),
+            f"B3 halo {what}: the shards' norms equal the unsharded "
+            f"per-table kernel's bit for bit")
+    require(_bits_equal(gather_volume(G), G_w),
+            f"B4 halo {what}: the shards' G equals the unsharded per-table "
+            f"kernel's bit for bit")
+    tv = sum(float(c[1].sum()) for (c,) in _cells(k))
+    rel = abs(tv - float(parts_w.sum())) / float(parts_w.sum())
+    require(rel <= 1e-6, f"B3 halo {what}: the shards' TV {rel:.3g} from the "
+            f"unsharded kernel's")
+
+
+def _halo_tv_times(card):
+    """B3 and B4 in halo mode per launch on one shard of the 4D cell (a
+    z-shard and a (2 x 2) grid's shard, f32 and bf16, hybrid reg_time=0.5):
+    wall (CUDA events around 50 launches), the kernel alone on the device
+    (torch.profiler), the plain versions, and the bounds."""
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    chans, _ = scheme_channels(cfg.scheme, *MAIN_4D[:2], cfg.reg_z_over_reg,
+                               cfg.reg_time)
+    gz = fused_halo._axis_ghost_kind(chans, AXIS_Z)
+    gt = fused_halo._axis_ghost_kind(chans, AXIS_T)
+    base = torch.rand(MAIN_4D, generator=torch.Generator(
+        device=DEV).manual_seed(77), device=DEV)
+    mode = dict(cfg=cfg, halo_mode=True, table_dims=MAIN_4D[:2])
+    out, lines = {}, []
+    for tag, mesh_zt, shard in (("z4", SHARDED_MESH, SHARD_4D),
+                                ("2x2", GRID_2X2, SHARD_2X2)):
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = shard_volume(base.to(dtype), make_mesh(*mesh_zt),
+                              mesh_zt[1] > 1)
+            x1 = fused_halo._extend_axis(
+                fused_halo._extend_axis(xs, 0, gz), 1, gt)[1][0]
+            x2 = fused_halo._extend_axis2(
+                fused_halo._extend_axis2(xs, 0, gz), 1, gt)[1][0]
+            n1 = fused_halo._extend_norms(grid_map(
+                lambda xe: fused.tv_norms(xe, **mode)[0],
+                fused_halo._extend_axis(fused_halo._extend_axis(
+                    xs, 0, gz), 1, gt)))[1][0]
+            runs = {"B3halo": (lambda: fused.tv_norms(x1, **mode),
+                               lambda: fused.tv_norms_plain(x1, **mode),
+                               "tv_norms_spec_kernel"),
+                    "B4halo": (lambda: fused.tv_subgrad(x2, n1, **mode),
+                               lambda: fused.tv_subgrad_plain(x2, n1, **mode),
+                               "tv_subgrad_spec_kernel")}
+            bounds = _halo_tv_bounds(shard, cfg, MAIN_4D[:2], dtype)
+            key = f"{tag} {str(dtype)[6:]}"
+            for kid, (run, plain, kernel) in runs.items():
+                ms = _time_launch(run)
+                _, by_kernel = device_time(
+                    lambda: [run() for _ in range(50)], 50, DEV)
+                dev = sum(v for k, v in by_kernel.items() if kernel in k)
+                require(dev > 0, f"{kid} {key}: {kernel} on the device")
+                out[(kid, key)] = dict(ms=ms, device_ms=dev,
+                                       plain_ms=_time_launch(plain, n=5),
+                                       bound=bounds[kid])
+                b = bounds[kid]
+                lines.append(f"{kid} {key} {shard}: {ms:.4f} ms wall, "
+                             f"{dev:.4f} on the device, plain "
+                             f"{out[(kid, key)]['plain_ms']:.3f}; bound "
+                             f"{b[0]:.4f} ms ({b[1]}): "
+                             f"{b[0] / dev:.1%} of it on the device")
+            del xs, x1, x2, n1
+    log("[24 B3 / B4 halo per launch, hybrid reg_time=0.5, one shard of "
+        f"{MAIN_4D} with its ghost or neighbour planes] " + "; ".join(lines)
+        + f"; card {card}")
+    sync()
+    return out
 
 
 def _halo_cp_cases():
@@ -2855,7 +3063,7 @@ def _interior_and_boundary(s, name, kind, note):
                 f"B2 interior + B8 {name}: fidelity sum {rel:.3g}")
 
 
-def phase_halo_kernels():
+def phase_halo_kernels(card):
     errs = {k: {"f32": 0.0, "bf16": 0.0}
             for k in ("B1halo", "B2halo", "B1int", "B2int", "B8dual",
                       "B8primal", "B3halo", "B4halo")}
@@ -2933,55 +3141,48 @@ def phase_halo_kernels():
             n_tab, solves = n_tab + 1, solves + 1
     sync()
 
-    # B3 / B4 in halo mode
+    # B3 / B4 in halo mode: shard by shard against the plain versions, and
+    # gathered bit for bit against the unsharded per-table kernels
     n_tv = 0
     for shape, mesh_zt in ((HALO_SMALL, HALO_SMALL_MESH),
-                           (MAIN_4D, SHARDED_MESH)):
+                           (MAIN_4D, SHARDED_MESH), (MAIN_4D, GRID_2X2)):
         gen = torch.Generator(device=DEV).manual_seed(1357)
         for name, cfg, use_tmul, dtype in _gd_cases():
             if shape == MAIN_4D and name not in ("hybrid-time",
                                                  "hybrid-time-tmul-huber",
                                                  "hybrid-zt-bf16"):
                 continue
-            kind = "bf16" if dtype == torch.bfloat16 else "f32"
             xw = torch.rand(shape, generator=gen, device=DEV).to(dtype)
             tm = _gd_tmul(shape, cfg, gen) if use_tmul else None
-            chans, _ = scheme_channels(cfg.scheme, shape[0], shape[1],
-                                       cfg.reg_z_over_reg, cfg.reg_time)
-            gz = fused_halo._axis_ghost_kind(chans, AXIS_Z)
-            gt = fused_halo._axis_ghost_kind(chans, AXIS_T)
-            xs = shard_volume(xw, make_mesh(*mesh_zt), mesh_zt[1] > 1)
-            mode = dict(cfg=cfg, halo_mode=True, table_dims=shape[:2])
-            x1 = fused_halo._extend_axis(
-                fused_halo._extend_axis(xs, 0, gz), 1, gt)
-            k = grid_map(lambda xe: fused.tv_norms(xe, tm, **mode), x1)
-            p = grid_map(lambda xe: fused.tv_norms_plain(xe, tm, **mode), x1)
-            for (nk, tk), (np_, tp) in _cells(k, p):
-                require(torch.equal(torch.isinf(nk), torch.isinf(np_)),
-                        f"B3 halo {name}: +inf norms at the same voxels")
-                note("B3halo", kind, (torch.where(torch.isinf(nk), 0.0, nk),
-                                      torch.where(torch.isinf(np_), 0.0, np_)),
-                     tol=F32_TOL_GD)
-                rel = abs(float(tk.sum() - tp.sum())) / float(tp.sum())
-                require(rel <= 1e-6, f"B3 halo {name}: TV sum {rel:.3g}")
-            x2 = fused_halo._extend_axis2(
-                fused_halo._extend_axis2(xs, 0, gz), 1, gt)
-            if cfg.norm == "aniso":
-                n1 = grid_map(lambda xe: None, x2)
-            else:
-                n1 = fused_halo._extend_norms(grid_map(lambda c: c[0], k))
-            for xe, ne in _cells(x2, n1):
-                note("B4halo", kind,
-                     (fused.tv_subgrad(xe, ne, tm, **mode),
-                      fused.tv_subgrad_plain(xe, ne, tm, **mode)),
-                     tol=F32_TOL_GD)
+            _halo_tv_case(f"{name} {shape} on {mesh_zt}", xw, tm, cfg,
+                          mesh_zt, note)
             n_tv += 1
         sync()
+    # every table the B3 / B4 halo kernels are built for x both storages x
+    # an even and an odd width, on a z-cut and a t-cut mesh
+    n_tv_tab = 0
+    gen = torch.Generator(device=DEV).manual_seed(9753)
+    for tid, (cfg, dims) in _halo_tv_table_configs().items():
+        for dtype, rc, mesh_zt in itertools.product(
+                (torch.float32, torch.bfloat16), HALO_TV_WIDTHS,
+                ((2, 1), (1, 2))):
+            shape = dims + rc
+            xw = torch.rand(shape, generator=gen, device=DEV).to(dtype)
+            _halo_tv_case(f"table {tid} {str(dtype)[6:]} {shape} on "
+                          f"{mesh_zt}", xw, None, cfg, mesh_zt, note)
+            n_tv_tab += 1
+    sync()
+    tv_times = _halo_tv_times(card)
     log(f"[24 sharded kernel modes vs plain] {n} CP cases and {n_tv} TV "
         f"cases, shard by shard, at {HALO_SMALL} on a "
         f"{HALO_SMALL_MESH} mesh / {OVERLAP_SMALL} on "
-        f"{OVERLAP_SMALL_MESH} and at {MAIN_4D} as 4 z-shards of {SHARD_4D}: "
-        f"pass; max abs err f32 / bf16: "
+        f"{OVERLAP_SMALL_MESH} and at {MAIN_4D} as 4 z-shards of {SHARD_4D} "
+        f"(TV also as a {GRID_2X2} grid of {SHARD_2X2}): "
+        f"pass; B3 / B4 halo also over all {len(tables.TABLES)} tables they "
+        f"are built for x f32, bf16 x {HALO_TV_WIDTHS} on a (2, 1) and a "
+        f"(1, 2) mesh ({n_tv_tab} cases); in all {n_tv + n_tv_tab} TV cases "
+        f"the gathered norms and G bit-equal to the unsharded per-table "
+        f"kernels'; max abs err f32 / bf16: "
         + ", ".join(f"{k} {v['f32']:.3g} / {v['bf16']:.3g}"
                     for k, v in errs.items())
         + f"; B8 also over every table it is built for x {len(SHARD_STORAGE)} "
@@ -2989,7 +3190,7 @@ def phase_halo_kernels():
         f"z-shards ({n_tab} cases); {solves} sharded solves of 20 iterations "
         f"on the overlapped step bit-equal to the ghost path's in x, y_A and "
         f"y_D (losses within {loss_rel:.3g})")
-    return errs
+    return errs, tv_times
 
 
 # ---------------------------------------------------------------- phase 25
@@ -3103,7 +3304,8 @@ def phase_sharded_main_path(card):
     xs = shard_volume(base, mesh, False)
     gx, glosses = gd(xs, xs)
     sync()
-    require_launches(read_counters(), "sharded GD", B3=per, B4=per)
+    gd_launches = read_counters()
+    require_launches(gd_launches, "sharded GD", B3=per, B4=per)
     gref = subgradient_descent(torch.as_tensor(base, device=DEV), n_iter=n_it,
                                reg=1.0, step_size=5e-3, cfg=cfg)
     gx = gather_volume(gx)
@@ -3197,6 +3399,9 @@ def phase_sharded_main_path(card):
     _, _, tv = fused.cp_dual(x, x0s, y_A, y_D, interior=True, **dk)
     _, fid = fused.cp_primal(x, x0s, y_A, y_D, interior=True, **pk)
     tv_p = torch.zeros((x.shape[0], 1), device=DEV)
+    x_ext = fused_halo._extend_axis(fused_halo._extend_axis(
+        s.x, 0, s.ghost_z), 1, s.ghost_t)[1][0]
+    y_ext = fused_halo._extend_dual(s.y_D, s.chans)[1][0]
 
     def b8_dual():
         fused.cp_dual_boundary(x, x_halo, x0s, y_A, y_D, tv, **dk)
@@ -3219,6 +3424,10 @@ def phase_sharded_main_path(card):
             x, x0s, y_A, y_D, **s.dual_kw)), None),
         "B2 whole shard": (_time_launch(lambda: fused.cp_primal(
             x, x0s, y_A, y_D, **s.primal_kw)), None),
+        "B1 halo_mode": (_time_launch(lambda: fused.cp_dual(
+            x_ext, x0s, y_A, y_D, halo_mode=True, **dk)), None),
+        "B2 halo_mode": (_time_launch(lambda: fused.cp_primal(
+            x, x0s, y_A, y_D, halo_mode=True, y_ext=y_ext, **pk)), None),
     }
     # bytes: dual (4 + 2 Nd) arrays of the two planes and the x halo stack;
     # primal (4 + Nd) and the z channels' halo slots it reads (one per
@@ -3255,8 +3464,15 @@ def phase_sharded_main_path(card):
                     f"kernel alone {on_dev[k]:.4f} ms = "
                     f"{bounds[k][0] / on_dev[k]:.1%}" for k, _ in b8)
         + f"; card {card}")
+    cp_bounds = _halo_cp_bounds(SHARD_4D, cfg, MAIN_4D[:2], torch.float32,
+                                torch.float32)
+    log(f"[25 B1 / B2 sharded modes per launch at the shard {SHARD_4D} f32] "
+        + ", ".join(f"{k} {launch_ms[k][0]:.4f} ms, bound {b[0]:.4f} ms "
+                    f"({b[1]}): {b[0] / launch_ms[k][0]:.1%}"
+                    for k, b in cp_bounds.items())
+        + f"; card {card}")
     sync()
-    return launches[True], launch_ms, bounds
+    return launches[True], gd_launches, launch_ms, bounds
 
 
 # ---------------------------------------------------------------- phase 26
@@ -5185,8 +5401,9 @@ def main():
     res_launches, res_ms, res_bounds = phase_resident_main_path(card)
     z_launches, z_errs, z_ms = phase_zstream(card)
     phase_solvers(card)
-    halo_errs = phase_halo_kernels()
-    sh_launches, sh_ms, sh_bounds = phase_sharded_main_path(card)
+    halo_errs, halo_tv = phase_halo_kernels(card)
+    sh_launches, sh_gd_launches, sh_ms, sh_bounds = phase_sharded_main_path(
+        card)
     ct_launches = phase_ct_geometries(card)
     phase_compat(card)
     ct_launches.update(phase_ct_spectral(card))
@@ -5215,7 +5432,10 @@ def main():
               "B3": bound(tv_1, (4 * Nd + 4) * vox),
               "B4": bound(tv_2, (10 * Nd + 2) * vox),
               "B5": b5_bound,  # (1 + 2 Nd) arrays, 10 operations a channel
-              **tgv_ms["bounds"], **res_bounds, **sh_bounds}
+              **tgv_ms["bounds"], **res_bounds, **sh_bounds,
+              # on a z-shard of MAIN_4D, f32 (phase 24)
+              **{kid: halo_tv[(kid, "z4 float32")]["bound"]
+                 for kid in ("B3halo", "B4halo")}}
     bounds["B10"] = bounds["B1"]  # the byte model counts x once already
     require((4 + 2 * Nd + 4 + Nd) * 4 * vox == cp_traffic_model(
         MAIN_4D, Nd, dtype=torch.float32), "B1 + B2 bytes are the CP model's")
@@ -5249,6 +5469,8 @@ def main():
         return out
 
     stream_ms = tgv_ms[("4d", "f32")]
+    # every B3 and B4 launch on a grid is one of their halo mode
+    grid_tv = {k: on_grid.pop(k) for k in ("B3", "B4") if k in on_grid}
     kernels = [
         entry("B1", "cp_dual_spec_kernel (CP pass A)", "specialised.cu",
               "fused.py:652", launches["B1"], errs["B1"]["f32"],
@@ -5315,6 +5537,24 @@ def main():
               "fused.py:1187",
               sh_launches["B8primal"], halo_errs["B8primal"]["f32"],
               sh_ms["B8primal"], halo_errs["B8primal"]["bf16"]),
+        *(entry(kid, f"{kernel}, halo mode ({what} on a shard, per "
+                "channel table)", source, replaces, sh_gd_launches[kid[:2]],
+                halo_errs[kid]["f32"],
+                (halo_tv[(kid, "z4 float32")]["ms"],
+                 halo_tv[(kid, "z4 float32")]["plain_ms"]),
+                halo_errs[kid]["bf16"],
+                # phase 24: the kernel alone, and the other shards
+                device_ms=halo_tv[(kid, "z4 float32")]["device_ms"],
+                at_shards={key: {k: v for k, v in t.items() if k != "bound"}
+                           for (k_id, key), t in halo_tv.items()
+                           if k_id == kid},
+                # phases 31-32: the grid entry points
+                launches_grid=grid_tv.get(kid[:2]))
+          for kid, kernel, what, source, replaces in (
+              ("B3halo", "tv_norms_spec_kernel", "TV pass 1",
+               "specialised_tv.cu", "fused.py:1353"),
+              ("B4halo", "tv_subgrad_spec_kernel", "TV pass 2",
+               "specialised.cu", "fused.py:1473"))),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,14 @@
-// CP pass A (B1) and TV pass 2 (B4) on an unsharded volume, specialised for
-// one channel table of csrc/tables.cuh, for NVIDIA Hopper (sm_90a).
+// CP pass A (B1) on an unsharded volume and TV pass 2 (B4) on an unsharded
+// volume and in the halo mode of a (z, t)-sharded solve, specialised for one
+// channel table of csrc/tables.cuh, for NVIDIA Hopper (sm_90a).
 //
-// Replace, for the unsharded launches, the Pallas TPU kernels of
-// pytv4d_tpu/kernels/fused.py:
-//   cp_dual_spec_kernel    <- make_cp_dual_kernel    (pass A, fused.py:652)
-//   tv_subgrad_spec_kernel <- make_tv_subgrad_kernel (pass 2, fused.py:1473)
-// The sharded modes keep the generic instantiations of csrc/cp_fused.cu and
-// csrc/tv_fused.cu, which run voxel.cuh's bodies with a runtime table.  TV
+// Replace the Pallas TPU kernels of pytv4d_tpu/kernels/fused.py:
+//   cp_dual_spec_kernel    <- make_cp_dual_kernel    (pass A, fused.py:652;
+//                                                     unsharded launches)
+//   tv_subgrad_spec_kernel <- make_tv_subgrad_kernel (pass 2, fused.py:1473;
+//                                                     unsharded and halo mode)
+// CP pass A's sharded modes keep the generic instantiations of
+// csrc/cp_fused.cu, which run voxel.cuh's bodies with a runtime table.  TV
 // pass 1 (B3) and pass A for inverse problems (B5) are specialised the same
 // way in csrc/specialised_tv.cu, and the sharded step's boundary passes (B8)
 // in csrc/cp_boundary.cu, which share specialised.cuh with this source.
@@ -33,11 +35,22 @@
 //     takes RPT = 2 rows, whose z and t loads it issues before the tile's
 //     barrier.
 //
+// Pass 2 in the halo mode (HALO; one shard of parallel/fused_halo.py's
+// sharded TV) is the same kernel on the extended operands: x extended by
+// Params::xe = 2 planes per side in z and t, the norms by ne = 1, both
+// holding the neighbour shards' planes or, at the volume's edge, ghost
+// planes that zero every difference across it (and safe divisors); the z
+// and t gates are off, so every z and t neighbour is read from them, and G
+// keeps the shard's shape.  The table is the whole volume's
+// (kernels/fused.py passes its id from table_dims).
+//
 // The arithmetic is the generic bodies' operation for operation and in the
 // same order (voxel.cuh: weighted_d and tv_dual_prox for pass A, chan_y and
 // tv_subgrad_voxel for pass 2; -fmad=false), so y_A', y_D' and G equal theirs
-// to the bit.  Pass A's TV partials are one per block of BLOCK x VEC voxels
-// (block_sum, no atomics): the loss moves only by the order of a sum.
+// to the bit, and a shard's G equals the unsharded kernel's on the same
+// voxels of the gathered volume.  Pass A's TV partials are one per block of
+// BLOCK x VEC voxels (block_sum, no atomics): the loss moves only by the
+// order of a sum.
 //
 // Bound to Python through the plain C interface at the end (ctypes,
 // kernels/fused.py::_spec_launch); nvcc compiles the kernels of this one
@@ -70,8 +83,10 @@ cp_dual_spec_kernel(const Params p, const TX* __restrict__ x,
 // TILE_T x RPT rows; the tiles of a plane run along blockIdx.x, row-major.
 // Thread (tx, ty) takes the RPT voxels of column tx at rows ty + k TILE_T.
 // Their z and t neighbours are loaded before the tile's barrier, so that
-// the two sets of loads are in flight together.
-template <Table T, typename TX>
+// the two sets of loads are in flight together.  With HALO, x and the norms
+// are the extended operands (x by 2 planes per side in z and t, the norms
+// by 1) and the z and t gates are off; G has the shard's shape.
+template <Table T, typename TX, bool HALO>
 __global__ void __launch_bounds__(BLOCK)
 tv_subgrad_spec_kernel(const Params p, const TX* __restrict__ x,
                        const float* __restrict__ norms,
@@ -91,10 +106,18 @@ tv_subgrad_spec_kernel(const Params p, const TX* __restrict__ x,
   const int ty = threadIdx.x / TILE_C, tx = threadIdx.x % TILE_C;
   const int c = c0 + tx;
   const bool aniso = p.norm == N_ANISO;
-  // this plane's base, and the strides to its z and t neighbours' (64-bit)
+  // this plane's base in x, in the norms and in G, and the strides to its
+  // z neighbours' in x and in the norms (64-bit; a t neighbour is a plane)
   const int64_t plane = (int64_t)p.Nr * p.Nc, base = zt * plane;
-  const TX* xb = x + base;
-  const float* nb = aniso ? nullptr : norms + base;
+  const TX* xb = x + (HALO ? ext_plane(p, z, t, 2) * plane : base);
+  const float* nb =
+      aniso ? nullptr : norms + (HALO ? ext_plane(p, z, t, 1) * plane : base);
+  const int64_t xsz = (HALO ? p.M + 4 : p.M) * plane;
+  const int64_t nsz = (HALO ? p.M + 2 : p.M) * plane;
+  // the z and t gates: off in the halo mode (a position every gate passes,
+  // as stencil.cuh's axis_geom reports)
+  const int zpos = HALO ? 2 : z, zlen = HALO ? 5 : p.Nz;
+  const int tpos = HALO ? 2 : t, tlen = HALO ? 5 : p.M;
 
   // z and t: x at slots -2..2 and the norms at -1, +1 of each voxel
   float xm2[RPT][4] = {}, xm1[RPT][4] = {}, xp1[RPT][4] = {};
@@ -106,18 +129,19 @@ tv_subgrad_spec_kernel(const Params p, const TX* __restrict__ x,
     const Offset q = (Offset)r * p.Nc + c;
 #pragma unroll
     for (int a = AX_Z; a <= AX_T; ++a) {
-      const int64_t s = a == AX_Z ? p.M * plane : plane;
+      const int64_t s = a == AX_Z ? xsz : plane;
+      const int64_t sn = a == AX_Z ? nsz : plane;
       const bool fb = tab_has(T, a, K_FWD) || tab_has(T, a, K_BWD);
       const bool ctr = tab_has(T, a, K_CTR);
-      const int ps = a == AX_Z ? z : t, ln = a == AX_Z ? p.Nz : p.M;
+      const int ps = a == AX_Z ? zpos : tpos, ln = a == AX_Z ? zlen : tlen;
       if (fb && ps >= 1) xm1[k][a] = ld(xb - s, q);
       if (fb && ps <= ln - 2) xp1[k][a] = ld(xb + s, q);
       if (ctr && ps >= 2) xm2[k][a] = ld(xb - 2 * s, q);
       if (ctr && ps <= ln - 3) xp2[k][a] = ld(xb + 2 * s, q);
       if (!aniso && (tab_has(T, a, K_FWD) || ctr) && ps >= 1)
-        nm1[k][a] = (nb - s)[q];
+        nm1[k][a] = (nb - sn)[q];
       if (!aniso && (tab_has(T, a, K_BWD) || ctr) && ps <= ln - 2)
-        np1[k][a] = (nb + s)[q];
+        np1[k][a] = (nb + sn)[q];
     }
   }
   // rows and columns: the tile and its halo (zeros outside the plane)
@@ -139,7 +163,7 @@ tv_subgrad_spec_kernel(const Params p, const TX* __restrict__ x,
     const int ry = ty + k * TILE_T, r = r0 + ry;  // ry: the row in the tile
     if (r >= p.Nr || c >= p.Nc) continue;
     const Offset q = (Offset)r * p.Nc + c;
-    const int pos[4] = {z, t, r, c}, len[4] = {p.Nz, p.M, p.Nr, p.Nc};
+    const int pos[4] = {zpos, tpos, r, c}, len[4] = {zlen, tlen, p.Nr, p.Nc};
     xm1[k][AX_ROW] = xs[ry + H - 1][tx + H];
     xp1[k][AX_ROW] = xs[ry + H + 1][tx + H];
     xm1[k][AX_COL] = xs[ry + H][tx + H - 1];
@@ -196,25 +220,26 @@ static int cp_dual_spec_table(const Params* p, int x_bf16, int d_bf16,
   return cp_dual_spec_launch<T, B, B>(p, x, x0, yA, yD, tmul, parts, s);
 }
 
-template <Table T, typename TX>
+template <Table T, typename TX, bool HALO>
 static int tv_subgrad_spec_launch(const Params* p, const void* x,
                                   const void* norms, const void* tmul,
                                   void* g, cudaStream_t s) {
   const int tiles = ((p->Nc + TILE_C - 1) / TILE_C) *
                     ((p->Nr + TILE_R - 1) / TILE_R);
   const dim3 grid((unsigned)tiles, (unsigned)(p->Nz * p->M));
-  tv_subgrad_spec_kernel<T, TX><<<grid, BLOCK, 0, s>>>(
+  tv_subgrad_spec_kernel<T, TX, HALO><<<grid, BLOCK, 0, s>>>(
       *p, (const TX*)x, (const float*)norms, (const float*)tmul, (TX*)g);
   return (int)cudaGetLastError();
 }
 
-template <Table T>
+template <Table T, bool HALO>
 static int tv_subgrad_spec_table(const Params* p, int x_bf16, const void* x,
                                  const void* norms, const void* tmul, void* g,
                                  cudaStream_t s) {
   if (x_bf16)
-    return tv_subgrad_spec_launch<T, __nv_bfloat16>(p, x, norms, tmul, g, s);
-  return tv_subgrad_spec_launch<T, float>(p, x, norms, tmul, g, s);
+    return tv_subgrad_spec_launch<T, __nv_bfloat16, HALO>(p, x, norms, tmul,
+                                                          g, s);
+  return tv_subgrad_spec_launch<T, float, HALO>(p, x, norms, tmul, g, s);
 }
 
 extern "C" {
@@ -225,9 +250,10 @@ long long spec_num_parts(int Nz, int M, int Nr, int Nc) {
   return dual_num_parts<VEC>(Nz, M, Nr, Nc);
 }
 
-// Both launch table `id` of csrc/tables.cuh and return cudaGetLastError()
+// Each launches table `id` of csrc/tables.cuh and returns cudaGetLastError()
 // after the launch (0 = cudaSuccess), or cudaErrorInvalidValue for an id
-// outside the list.
+// outside the list (or, for the halo mode, Params that do not describe a
+// shard's extended operands).
 int spec_cp_dual_launch(const Params* p, int id, int x_bf16, int d_bf16,
                         const void* x, const void* x0, void* yA, void* yD,
                         const void* tmul, void* parts, void* stream) {
@@ -250,7 +276,28 @@ int spec_tv_subgrad_launch(const Params* p, int id, int x_bf16,
   switch (id) {
 #define SPEC_CASE(id, code)                                                 \
   case id:                                                                  \
-    return tv_subgrad_spec_table<code>(p, x_bf16, x, norms, tmul, g, s);
+    return tv_subgrad_spec_table<code, false>(p, x_bf16, x, norms, tmul, g, \
+                                              s);
+    CHANNEL_TABLES(SPEC_CASE)
+#undef SPEC_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Pass 2 in the halo mode: x (Nz+4, M+4, Nr, Nc) and the norms (Nz+2, M+2,
+// Nr, Nc) of a shard whose G is (Nz, M, Nr, Nc), Params with sharded,
+// t_free, xe = 2 and ne = 1.
+int spec_tv_subgrad_halo_launch(const Params* p, int id, int x_bf16,
+                                const void* x, const void* norms,
+                                const void* tmul, void* g, void* stream) {
+  if (!p->sharded || !p->t_free || p->xe != 2 || p->ne != 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (id) {
+#define SPEC_CASE(id, code)                                                 \
+  case id:                                                                  \
+    return tv_subgrad_spec_table<code, true>(p, x_bf16, x, norms, tmul, g,  \
+                                             s);
     CHANNEL_TABLES(SPEC_CASE)
 #undef SPEC_CASE
   }

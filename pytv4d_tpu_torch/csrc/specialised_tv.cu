@@ -1,14 +1,16 @@
-// TV pass 1 (B3, the gradient norms) and pass A for inverse problems (B5)
-// on an unsharded volume, specialised for one channel table of
-// csrc/tables.cuh, for NVIDIA Hopper (sm_90a).
+// TV pass 1 (B3, the gradient norms) on an unsharded volume and in the halo
+// mode of a (z, t)-sharded solve, and pass A for inverse problems (B5) on an
+// unsharded volume, specialised for one channel table of csrc/tables.cuh,
+// for NVIDIA Hopper (sm_90a).
 //
-// Replace, for the unsharded launches, the Pallas TPU kernels of
-// pytv4d_tpu/kernels/fused.py:
-//   tv_norms_spec_kernel <- make_tv_norms_kernel (pass 1, fused.py:1353)
+// Replace the Pallas TPU kernels of pytv4d_tpu/kernels/fused.py:
+//   tv_norms_spec_kernel <- make_tv_norms_kernel (pass 1, fused.py:1353;
+//                                                 unsharded and halo mode)
 //   tv_dual_spec_kernel  <- make_tv_dual_kernel  (pass A without the
-//                                                 fidelity dual, fused.py:759)
-// The halo mode of pass 1 keeps the generic instantiation of
-// csrc/tv_fused.cu; pass A for inverse problems has no sharded mode.
+//                                                 fidelity dual, fused.py:759;
+//                                                 unsharded launches)
+// The halo mode of pass A for inverse problems is csrc/tv_fused.cu's
+// generic tv_dual_kernel.
 //
 // What bounds them: bytes, once the per-channel work is gone (the generic
 // bodies' runtime table, 64-bit index arithmetic and gated load per
@@ -38,12 +40,24 @@
 //     memory, as pass 2 does), along z, other ring depths (AHEAD), tiles
 //     and register caps.
 //
+// Pass 1 in the halo mode (HALO; one shard of parallel/fused_halo.py's
+// sharded TV and of the sharded CT solve's loss) is the same march over x
+// extended by Params::xe = 1 plane per side in z and t, holding the
+// neighbour shards' planes or, at the volume's edge, ghost planes that zero
+// every difference across it: a block's line along t runs over the M + 2
+// extended planes, its ring holding their tiles (one more in flight before
+// the first step), and computes the M planes of the shard; the z and t
+// gates are off, so every z and t neighbour is read from the ring; the
+// norms keep the shard's shape.  The table is the whole volume's
+// (kernels/fused.py passes its id from table_dims).
+//
 // The arithmetic is the generic bodies' operation for operation and in the
 // same order (voxel.cuh: weighted_d with tv_norms_voxel for pass 1, and with
-// tv_dual_prox for pass A; -fmad=false), so the norms equal tv_norms_kernel's
-// and y_D' equals CP pass A's (with no time multiplier) to the bit.  The TV
-// partials are one per block (block_sum, no atomics): the TV value moves
-// only by the order of a sum.
+// tv_dual_prox for pass A; -fmad=false), so the norms equal the generic
+// body's (a shard's also the unsharded kernel's on the same voxels of the
+// gathered volume) and y_D' equals CP pass A's (with no time multiplier) to
+// the bit.  The TV partials are one per block (block_sum, no atomics): the
+// TV value moves only by the order of a sum.
 //
 // Bound to Python through the plain C interface at the end (ctypes,
 // kernels/fused.py::_spec_launch); nvcc compiles its kernels in parallel
@@ -181,10 +195,11 @@ struct NormsFill {
     }
   }
 
-  // Start the copies of plane xp and of its across neighbours lo and hi
-  // (any valid pointer where that neighbour is not read) into slot sl.
+  // Start the copies of plane xp and, with `across`, of its across
+  // neighbours lo and hi (any valid pointer where that neighbour is not
+  // read) into slot sl.
   __device__ __forceinline__ void issue(S& sl, const TX* xp, const TX* lo,
-                                        const TX* hi) const {
+                                        const TX* hi, bool across) const {
     char* base = (char*)&sl;
 #pragma unroll
     for (int u = 0; u < UX; ++u)
@@ -196,7 +211,7 @@ struct NormsFill {
       constexpr unsigned NB = sizeof(TX) * NORMS_TR * NORMS_TC;
 #pragma unroll
       for (int u = 0; u < UN; ++u)
-        if (non[u]) {
+        if (non[u] && across) {
           cp_async16(base + nd[u], lo + ns[u], nok[0][u]);
           cp_async16(base + nd[u] + NB, hi + ns[u], nok[1][u]);
         }
@@ -205,15 +220,16 @@ struct NormsFill {
 };
 
 // Where a row of x is not 16-byte aligned (Nc not a multiple of PAD, or x
-// off alignment): slot sl for plane xp and its across neighbours lo and hi
-// element by element, synchronously, zeros outside the volume.  The thread
+// off alignment): slot sl for plane xp and, with `across`, its across
+// neighbours lo and hi element by element, synchronously, zeros outside the
+// volume.  The thread
 // index is read afresh (volatile), so that the march does not keep this
 // path's addresses in registers from step to step, which the aligned path
 // would pay for in occupancy.
 template <typename TX>
 __device__ __forceinline__ void fill_slow(NormsSlot<TX>& sl, const TX* xp,
                                           const TX* lo, const TX* hi,
-                                          const bool (&nb_ok)[2],
+                                          const bool (&nb_ok)[2], bool across,
                                           const Params& p, int r0, int c0) {
   typedef NormsSlot<TX> S;
   constexpr int W2 = NORMS_TC + 2;
@@ -225,7 +241,7 @@ __device__ __forceinline__ void fill_slow(NormsSlot<TX>& sl, const TX* xp,
     sl.x[i][S::PAD - 1 + j] = rr >= 0 && rr < p.Nr && cc >= 0 && cc < p.Nc
                                   ? xp[(Offset)rr * p.Nc + cc] : TX{};
   }
-  if constexpr (ACROSS >= 0) {
+  if (ACROSS >= 0 && across) {
     for (int e = tid; e < 2 * NORMS_TR * NORMS_TC; e += BLOCK) {
       const int b = e / (NORMS_TR * NORMS_TC);
       const int i = (e / NORMS_TC) % NORMS_TR, j = e % NORMS_TC;
@@ -241,8 +257,11 @@ __device__ __forceinline__ void fill_slow(NormsSlot<TX>& sl, const TX* xp,
 // tiles); blockIdx.y picks the line of planes it marches along: the z of a
 // march along t, the t of a march along z, the plane itself without one.
 // Step k computes plane (z, t) = (blockIdx.y, k) along t, (k, blockIdx.y)
-// along z.  One TV partial per block.
-template <Table T, typename TX>
+// along z.  One TV partial per block.  With HALO (a march along t only) x is
+// extended by one plane per side in z and t: the march fills the ring from
+// the extended plane (z + 1, 0) on, step k computing (z, k) from the
+// extended planes k, k + 1 and k + 2, ungated.
+template <Table T, typename TX, bool HALO>
 __global__ void __launch_bounds__(BLOCK, NORMS_MIN_BLOCKS)
 tv_norms_spec_kernel(const Params p, const TX* __restrict__ x,
                      const float* __restrict__ tmul,
@@ -250,6 +269,9 @@ tv_norms_spec_kernel(const Params p, const TX* __restrict__ x,
                      int vec) {
   typedef NormsSlot<TX> S;
   constexpr int ND = tab_nd(T);
+  static_assert(!HALO || MARCH == AX_T, "the halo mode marches along t");
+  // the plane a step computes is O planes into the line's extended planes
+  constexpr int O = HALO ? 1 : 0;
   extern __shared__ __align__(16) unsigned char smem[];
   S* ring = reinterpret_cast<S*>(smem);
   const int tiles_c = (p.Nc + NORMS_TC - 1) / NORMS_TC;
@@ -258,17 +280,22 @@ tv_norms_spec_kernel(const Params p, const TX* __restrict__ x,
   const int ty = threadIdx.x / NORMS_TC, tx = threadIdx.x % NORMS_TC;
   const int c = c0 + tx;
   const int64_t plane = (int64_t)p.Nr * p.Nc;
-  // the march: L steps, plane zt0 + k st at step k
+  // the march: L steps over L + 2 O planes of x, plane zt0 + j st the
+  // j-th; step k computes plane k + O of them
   const int L = MARCH == AX_T ? p.M : (MARCH == AX_Z ? p.Nz : 1);
-  const int zt0 = MARCH == AX_T ? blockIdx.y * p.M : blockIdx.y;
+  const int Lx = L + 2 * O;
+  const int zt0 = HALO ? (int)ext_plane(p, blockIdx.y, -1, 1)
+                       : (MARCH == AX_T ? blockIdx.y * p.M : blockIdx.y);
   const int st = MARCH == AX_T ? 1 : p.M;
   // the position along ACROSS, fixed for the block, and that axis's stride
+  // in x (ungated in the halo mode)
   const int pa = ACROSS == AX_Z ? blockIdx.y : (ACROSS == AX_T ? blockIdx.y
                                                                : 0);
   const int la = ACROSS == AX_Z ? p.Nz : (ACROSS == AX_T ? p.M : 1);
-  const int64_t sa = ACROSS == AX_Z ? p.M * plane : plane;
-  const bool nb_ok[2] = {ACROSS >= 0 && tab_lo(T, ACROSS) && pa > 0,
-                         ACROSS >= 0 && tab_hi(T, ACROSS) && pa < la - 1};
+  const int64_t sa = ACROSS == AX_Z ? (HALO ? p.M + 2 : p.M) * plane : plane;
+  const bool nb_ok[2] = {
+      ACROSS >= 0 && tab_lo(T, ACROSS) && (HALO || pa > 0),
+      ACROSS >= 0 && tab_hi(T, ACROSS) && (HALO || pa < la - 1)};
   const NormsFill<TX> fill(p, r0, c0, nb_ok);
 
   // per row of the thread: inside the plane, its offset, tmul there
@@ -282,27 +309,31 @@ tv_norms_spec_kernel(const Params p, const TX* __restrict__ x,
     q[j] = in[j] ? (Offset)r * p.Nc + c : 0;
     tm[j] = tab_has(T, AX_T) && p.has_tmul && in[j] ? tmul[q[j]] : 1.f;
   }
-  auto start = [&](int k) {  // start filling the slot of step k
-    S& sl = ring[k % RING];
-    const TX* xp = x + (zt0 + k * st) * plane;
+  auto start = [&](int j) {  // start filling the slot of plane j
+    S& sl = ring[j % RING];
+    const TX* xp = x + (int64_t)(zt0 + j * st) * plane;
     const TX* lo = nb_ok[0] ? xp - sa : xp;
     const TX* hi = nb_ok[1] ? xp + sa : xp;
+    // no step reads the across tiles of the two ghost or neighbour planes
+    // that end a line of the halo mode
+    const bool across = !HALO || (j > 0 && j < Lx - 1);
     if (vec)
-      fill.issue(sl, xp, lo, hi);
+      fill.issue(sl, xp, lo, hi, across);
     else
-      fill_slow(sl, xp, lo, hi, nb_ok, p, r0, c0);
+      fill_slow(sl, xp, lo, hi, nb_ok, across, p, r0, c0);
   };
-  // one group of copies per plane, AHEAD of them before the first step
+  // one group of copies per plane, AHEAD + O of them before the first step
 #pragma unroll
-  for (int k = 0; k < AHEAD; ++k) {
-    if (k < L) start(k);
+  for (int j = 0; j < AHEAD + O; ++j) {
+    if (j < Lx) start(j);
     cp_async_commit();
   }
 
   float part = 0.f;
 #pragma unroll 1
   for (int k = 0; k < L; ++k) {
-    const int zt = zt0 + k * st;
+    // the plane computed, in the norms (the shard's planes in the halo mode)
+    const int zt = (HALO ? (int)blockIdx.y * p.M : zt0) + k * st;
     const int z = MARCH == AX_T ? blockIdx.y : (MARCH == AX_Z ? k : zt / p.M);
     const int t = MARCH == AX_T ? k : (MARCH == AX_Z ? blockIdx.y
                                                      : zt - z * p.M);
@@ -324,17 +355,17 @@ tv_norms_spec_kernel(const Params p, const TX* __restrict__ x,
         }
       }
     }
-    // plane k+1 has landed (AHEAD - 2 later groups may still be in
+    // plane k+O+1 has landed (AHEAD - 2 later groups may still be in
     // flight), and every thread is done with step k-1, which read the slot
-    // plane k+AHEAD takes
+    // plane k+O+AHEAD takes
     cp_async_wait<AHEAD - 2>();
     __syncthreads();
-    if (k + AHEAD < L) start(k + AHEAD);
+    if (k + O + AHEAD < Lx) start(k + O + AHEAD);
     cp_async_commit();
 
-    const S& cur = ring[k % RING];
-    const S& prv = ring[(k + RING - 1) % RING];
-    const S& nxt = ring[(k + 1) % RING];
+    const S& cur = ring[(k + O) % RING];
+    const S& prv = ring[(k + O + RING - 1) % RING];
+    const S& nxt = ring[(k + O + 1) % RING];
     float* nz = norms + zt * plane;
 #pragma unroll
     for (int j = 0; j < NORMS_RPT; ++j) {
@@ -346,8 +377,10 @@ tv_norms_spec_kernel(const Params p, const TX* __restrict__ x,
       xm[AX_COL] = tof(cur.x[i][cx - 1]);
       xp[AX_COL] = tof(cur.x[i][cx + 1]);
       if constexpr (MARCH >= 0) {
-        xm[MARCH] = tab_lo(T, MARCH) && k > 0 ? tof(prv.x[i][cx]) : 0.f;
-        xp[MARCH] = tab_hi(T, MARCH) && k < L - 1 ? tof(nxt.x[i][cx]) : 0.f;
+        xm[MARCH] = tab_lo(T, MARCH) && (HALO || k > 0) ? tof(prv.x[i][cx])
+                                                        : 0.f;
+        xp[MARCH] = tab_hi(T, MARCH) && (HALO || k < L - 1)
+                        ? tof(nxt.x[i][cx]) : 0.f;
         xm[ACROSS] = nb_ok[0] ? tof(cur.nb[0][ry][tx]) : 0.f;
         xp[ACROSS] = nb_ok[1] ? tof(cur.nb[1][ry][tx]) : 0.f;
       } else {
@@ -356,7 +389,10 @@ tv_norms_spec_kernel(const Params p, const TX* __restrict__ x,
         xp[AX_Z] = gp[j][AX_Z];
         xp[AX_T] = gp[j][AX_T];
       }
-      const int pos[4] = {z, t, r0 + ry, c}, len[4] = {p.Nz, p.M, p.Nr, p.Nc};
+      // the z and t gates: off in the halo mode (a position every gate
+      // passes, as stencil.cuh's axis_geom reports)
+      const int pos[4] = {HALO ? 2 : z, HALO ? 2 : t, r0 + ry, c};
+      const int len[4] = {HALO ? 5 : p.Nz, HALO ? 5 : p.M, p.Nr, p.Nc};
       float d[ND];
       spec_d<T>(p, pos, len, tof(cur.x[i][cx]), xm, xp, tm[j], d);
       float n;
@@ -379,18 +415,18 @@ static inline unsigned norms_lines(int Nz, int M) {
   return (unsigned)(MARCH == AX_T ? Nz : MARCH == AX_Z ? M : Nz * M);
 }
 
-template <Table T, typename TX>
+template <Table T, typename TX, bool HALO>
 static int tv_norms_spec_launch(const Params* p, const void* x,
                                 const void* tmul, void* norms, void* parts,
                                 cudaStream_t s) {
   constexpr size_t bytes = RING * sizeof(NormsSlot<TX>);
   static const cudaError_t set = cudaFuncSetAttribute(
-      tv_norms_spec_kernel<T, TX>,
+      tv_norms_spec_kernel<T, TX, HALO>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (set != cudaSuccess) return (int)set;
   const dim3 grid(norms_tiles(p->Nr, p->Nc), norms_lines(p->Nz, p->M));
   const int vec = p->Nc % NormsSlot<TX>::PAD == 0 && aligned(x, 16);
-  tv_norms_spec_kernel<T, TX><<<grid, BLOCK, bytes, s>>>(
+  tv_norms_spec_kernel<T, TX, HALO><<<grid, BLOCK, bytes, s>>>(
       *p, (const TX*)x, (const float*)tmul, (float*)norms, (float*)parts,
       vec);
   return (int)cudaGetLastError();
@@ -407,14 +443,14 @@ static int tv_dual_spec_launch(const Params* p, const void* x, void* yD,
   return (int)cudaGetLastError();
 }
 
-template <Table T>
+template <Table T, bool HALO>
 static int tv_norms_spec_table(const Params* p, int x_bf16, const void* x,
                                const void* tmul, void* norms, void* parts,
                                cudaStream_t s) {
   if (x_bf16)
-    return tv_norms_spec_launch<T, __nv_bfloat16>(p, x, tmul, norms, parts,
-                                                  s);
-  return tv_norms_spec_launch<T, float>(p, x, tmul, norms, parts, s);
+    return tv_norms_spec_launch<T, __nv_bfloat16, HALO>(p, x, tmul, norms,
+                                                        parts, s);
+  return tv_norms_spec_launch<T, float, HALO>(p, x, tmul, norms, parts, s);
 }
 
 template <Table T>
@@ -431,19 +467,23 @@ static int tv_dual_spec_table(const Params* p, int x_bf16, int d_bf16,
 
 extern "C" {
 
-// Number of TV partials each pass writes for an (Nz, M, Nr, Nc) volume:
-// pass 1 one per block (a tile and a line of planes), pass A one per block
-// of BLOCK runs of VEC_TV columns.
+// Number of TV partials each pass writes for an (Nz, M, Nr, Nc) volume (in
+// the halo mode: shard): pass 1 one per block (a tile and a line of
+// planes), pass A one per block of BLOCK runs of VEC_TV columns.
 long long spectv_norms_num_parts(int Nz, int M, int Nr, int Nc) {
   return (long long)norms_tiles(Nr, Nc) * norms_lines(Nz, M);
+}
+long long spectv_norms_halo_num_parts(int Nz, int M, int Nr, int Nc) {
+  return spectv_norms_num_parts(Nz, M, Nr, Nc);
 }
 long long spectv_dual_num_parts(int Nz, int M, int Nr, int Nc) {
   return dual_num_parts<VEC_TV>(Nz, M, Nr, Nc);
 }
 
-// Both launch table `id` of csrc/tables.cuh and return cudaGetLastError()
+// Each launches table `id` of csrc/tables.cuh and returns cudaGetLastError()
 // after the launch (0 = cudaSuccess), or cudaErrorInvalidValue for an id
-// outside the list.
+// outside the list (or, for the halo mode, Params that do not describe a
+// shard's extended x).
 int spectv_norms_launch(const Params* p, int id, int x_bf16, const void* x,
                         const void* tmul, void* norms, void* parts,
                         void* stream) {
@@ -451,9 +491,33 @@ int spectv_norms_launch(const Params* p, int id, int x_bf16, const void* x,
   switch (id) {
 #define SPEC_CASE(id, code)                                                 \
   case id:                                                                  \
-    return tv_norms_spec_table<code>(p, x_bf16, x, tmul, norms, parts, s);
+    return tv_norms_spec_table<code, false>(p, x_bf16, x, tmul, norms,      \
+                                            parts, s);
     CHANNEL_TABLES(SPEC_CASE)
 #undef SPEC_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Pass 1 in the halo mode: x (Nz+2, M+2, Nr, Nc) of a shard whose norms are
+// (Nz, M, Nr, Nc), Params with sharded, t_free and xe = 1.
+int spectv_norms_halo_launch(const Params* p, int id, int x_bf16,
+                             const void* x, const void* tmul, void* norms,
+                             void* parts, void* stream) {
+  if (!p->sharded || !p->t_free || p->xe != 1)
+    return (int)cudaErrorInvalidValue;
+  // the halo mode marches along t (a variant of this source that marches
+  // otherwise, tools/torch_probe_spec.py's, has no halo mode)
+  if constexpr (MARCH == AX_T) {
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (id) {
+#define SPEC_CASE(id, code)                                                 \
+  case id:                                                                  \
+    return tv_norms_spec_table<code, true>(p, x_bf16, x, tmul, norms,       \
+                                           parts, s);
+      CHANNEL_TABLES(SPEC_CASE)
+#undef SPEC_CASE
+    }
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 // Device code shared by the stencil kernels of csrc/cp_fused.cu (CP passes A
-// and B), csrc/tv_fused.cu (TV norms and subgradient), csrc/cp_zstream.cu
+// and B), csrc/tv_fused.cu (the halo mode of pass A for inverse problems),
+// csrc/cp_zstream.cu
 // (pass A marching along z) and csrc/resident.cu (whole CP and GD solves):
 // the launch parameter struct, bf16/f32 loads and stores, the geometry of one
 // stencil axis at a voxel, the weighted D channels of x and a deterministic

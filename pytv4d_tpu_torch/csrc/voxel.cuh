@@ -15,10 +15,11 @@
 //
 // Layouts as in stencil.cuh: x, x0, y_A, the norms and G are (Nz, M, Nr, Nc);
 // the TV dual y_D is channel-contiguous (Nz, M, Nd, Nr, Nc).  With HALO
-// (stencil.cuh) the arrays a voxel reads at its NEIGHBOURS -- x in pass A and
-// the TV passes, the dual in pass B, the norms in TV pass 2 -- are extended
-// by p.xe, p.ye, p.ne planes per side in z and t, while what the voxel loads
-// and stores at itself keeps the shard's shape.
+// (stencil.cuh) the arrays a voxel of CP pass A or B reads at its NEIGHBOURS
+// -- x in pass A, the dual in pass B -- are extended by p.xe, p.ye planes
+// per side in z and t, while what the voxel loads and stores at itself keeps
+// the shard's shape.  The TV passes' bodies serve unsharded volumes only
+// (csrc/resident.cu); their halo mode is csrc/specialised*.cu's.
 
 #pragma once
 
@@ -26,12 +27,12 @@
 
 // One voxel (z, t, r, c): its offset xi in the x-like arrays, the offset yb
 // of its channel 0 in the dual, the plane size and the time-channel
-// multiplier at its pixel; xn, yn and nn are its offsets in the extended x,
-// dual and norms, which only the HALO bodies read (a caller without HALO may
-// step xi and yb from voxel to voxel, as csrc/cp_zstream.cu does).
+// multiplier at its pixel; xn and yn are its offsets in the extended x and
+// dual, which only the HALO bodies read (a caller without HALO may step xi
+// and yb from voxel to voxel, as csrc/cp_zstream.cu does).
 struct Vox {
   int z, t, r, c;
-  int64_t plane, xi, yb, xn, yn, nn;
+  int64_t plane, xi, yb, xn, yn;
   float tm;
 };
 
@@ -59,11 +60,9 @@ __device__ __forceinline__ Vox make_vox(const Params& p, int zt, I pix,
   if (HALO) {
     v.xn = ext_plane(p, v.z, v.t, p.xe) * v.plane + pix;
     v.yn = ext_plane(p, v.z, v.t, p.ye) * p.Nd * v.plane + pix;
-    v.nn = ext_plane(p, v.z, v.t, p.ne) * v.plane + pix;
   } else {
     v.xn = v.xi;
     v.yn = v.yb;
-    v.nn = v.xi;
   }
   v.tm = p.has_tmul ? tmul[pix] : 1.f;
   return v;
@@ -209,12 +208,11 @@ __device__ __forceinline__ float cp_primal_voxel(
 // TV pass 1 at one voxel: stores the gradient norm (iso: |D x|_2 with +inf
 // where it is 0; aniso: the sum of |channels|; huber: the raw |D x|_2) and
 // returns the voxel's TV term.
-template <bool HALO = false, typename TX>
+template <typename TX>
 __device__ __forceinline__ float tv_norms_voxel(const Params& p, const Vox& v,
                                                 const TX* x, float* norms) {
   float d[MAX_CH];
-  const int64_t q = HALO ? v.xn : v.xi;
-  weighted_d<false, HALO>(p, x, q, ld(x, q), v.z, v.t, v.r, v.c, v.tm, d);
+  weighted_d(p, x, v.xi, ld(x, v.xi), v.z, v.t, v.r, v.c, v.tm, d);
   if (p.norm == N_ANISO) {
     float a = 0.f;
 #pragma unroll
@@ -242,11 +240,11 @@ __device__ __forceinline__ float tv_norms_voxel(const Params& p, const Vox& v,
 // below is inside the volume): the weighted difference dv of x there, then
 // sign(dv) for aniso, dv / n(q) for iso (n = +inf gives 0) and
 // dv / max(n(q), delta) for huber.  q and s are the slot's offset and the
-// axis's stride in x, qn the slot's offset in the norms.
+// axis's stride in x and in the norms, which share its layout.
 template <typename TX>
 __device__ __forceinline__ float chan_y(const Params& p, int i, const TX* x,
                                         const float* norms, int64_t q,
-                                        int64_t s, int64_t qn, float tm) {
+                                        int64_t s, float tm) {
   float v;
   if (p.kind[i] == K_FWD)
     v = ld(x, q + s) - ld(x, q);
@@ -257,7 +255,7 @@ __device__ __forceinline__ float chan_y(const Params& p, int i, const TX* x,
   if (p.axis[i] == AX_T) v = v * tm;
   v = v * p.w[i];
   if (p.norm == N_ANISO) return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
-  const float n = norms[qn];
+  const float n = norms[q];
   return v / (p.norm == N_HUBER ? fmaxf(n, p.huber_delta) : n);
 }
 
@@ -265,10 +263,8 @@ __device__ __forceinline__ float chan_y(const Params& p, int i, const TX* x,
 // aniso).  It needs each channel's y at its own slot and at the +-1
 // neighbour slots the adjoint reads, and recomputes a neighbour's y from x
 // there, so it reads x out to +-2 and the norms out to +-1 along each axis.
-// A neighbour slot that is invalid for its channel is never read.  With HALO
-// x is extended by p.xe = 2 planes and the norms by p.ne = 1, whose ghost
-// planes hold divisors that are safe (the differences there are zero).
-template <bool HALO = false, typename TX>
+// A neighbour slot that is invalid for its channel is never read.
+template <typename TX>
 __device__ __forceinline__ float tv_subgrad_voxel(const Params& p,
                                                   const Vox& v, const TX* x,
                                                   const float* norms) {
@@ -279,25 +275,18 @@ __device__ __forceinline__ float tv_subgrad_voxel(const Params& p,
     if (i < p.Nd) {
       int pos, len;
       int64_t s;
-      int64_t sn;  // the axis's stride in the norms
-      if (HALO)
-        axis_geom<HALO>(p, p.axis[i], v.z, v.t, v.r, v.c, 1, pos, len, sn,
-                        p.ne);
-      axis_geom<HALO>(p, p.axis[i], v.z, v.t, v.r, v.c, 1, pos, len, s, p.xe);
-      if (!HALO) sn = s;
-      const int64_t q = HALO ? v.xn : v.xi, qn = HALO ? v.nn : v.xi;
+      axis_geom(p, p.axis[i], v.z, v.t, v.r, v.c, 1, pos, len, s);
+      const int64_t q = v.xi;
       float lo, hi;
       if (p.kind[i] == K_FWD) {         // slots [0, L-2]
-        lo = pos >= 1 ? chan_y(p, i, x, norms, q - s, s, qn - sn, v.tm) : 0.f;
-        hi = pos <= len - 2 ? chan_y(p, i, x, norms, q, s, qn, v.tm) : 0.f;
+        lo = pos >= 1 ? chan_y(p, i, x, norms, q - s, s, v.tm) : 0.f;
+        hi = pos <= len - 2 ? chan_y(p, i, x, norms, q, s, v.tm) : 0.f;
       } else if (p.kind[i] == K_BWD) {  // slots [1, L-1]
-        lo = pos >= 1 ? chan_y(p, i, x, norms, q, s, qn, v.tm) : 0.f;
-        hi = pos <= len - 2 ? chan_y(p, i, x, norms, q + s, s, qn + sn, v.tm)
-                            : 0.f;
+        lo = pos >= 1 ? chan_y(p, i, x, norms, q, s, v.tm) : 0.f;
+        hi = pos <= len - 2 ? chan_y(p, i, x, norms, q + s, s, v.tm) : 0.f;
       } else {                          // slots [1, L-2]
-        lo = pos >= 2 ? chan_y(p, i, x, norms, q - s, s, qn - sn, v.tm) : 0.f;
-        hi = pos <= len - 3 ? chan_y(p, i, x, norms, q + s, s, qn + sn, v.tm)
-                            : 0.f;
+        lo = pos >= 2 ? chan_y(p, i, x, norms, q - s, s, v.tm) : 0.f;
+        hi = pos <= len - 3 ? chan_y(p, i, x, norms, q + s, s, v.tm) : 0.f;
       }
       float w = lo - hi;
       if (!iso) {  // aniso / huber re-apply the full weight, like D^T

@@ -6,10 +6,11 @@ CUDA kernels (``csrc/cp_fused.cu``, ``csrc/cp_zstream.cu``,
 ``csrc/resident_onchip.cu``, ``csrc/tgv_stream.cu``,
 ``csrc/tgv_resident.cu``, ``csrc/tgv_onchip.cu``; the boundary passes of
 ``csrc/cp_boundary.cu``, the z-marching pass A of ``csrc/cp_zstream.cu``,
-the on-chip whole solves of ``csrc/resident_onchip.cu`` and, on an
-unsharded volume, the CP pass A and the TV subgradient from
-``csrc/specialised.cu``, the TV norms and the pass A for inverse problems
-from ``csrc/specialised_tv.cu``, specialised per channel table,
+the on-chip whole solves of ``csrc/resident_onchip.cu``, the CP pass A
+(on an unsharded volume) and the TV subgradient (also on a shard) from
+``csrc/specialised.cu``, the TV norms (also on a shard) and the pass A for
+inverse problems (on an unsharded volume) from ``csrc/specialised_tv.cu``,
+specialised per channel table,
 ``kernels.tables``) for CUDA tensors, their
 plain PyTorch versions for CPU tensors.  Importing this package needs
 neither a GPU nor nvcc: the kernels are built on their first launch."""

@@ -51,16 +51,21 @@ subgradient-descent step's operator) is two more passes:
   and the norms, recomputing the D channels at each voxel and its
   neighbours, stored in x's dtype.  No Nd-channel volume is written.
 
-On an unsharded volume, passes A, 1 and 2 and pass A for inverse problems
-launch kernels specialised for the scheme's channel table
-(``kernels.tables``: the table id picks the template instance; the
-libraries :data:`SPECIALISED`); a table outside the compiled list raises.
+Passes A, 1 and 2 and pass A for inverse problems launch kernels
+specialised for the scheme's channel table (``kernels.tables``: the table
+id picks the template instance; the libraries :data:`SPECIALISED`) on an
+unsharded volume, and so do passes 1 and 2 on a shard in ``halo_mode``
+(their HALO instances: ``spectv_norms_halo_launch``,
+``spec_tv_subgrad_halo_launch``, with the whole volume's table); a table
+outside the compiled list raises.
 
 On one shard of a (z, t)-sharded solve (``parallel.fused_halo``) the five
-passes A, B, 1, 2 and A for inverse problems take the TPU kernels' modes,
-in the generic kernels of ``csrc/cp_fused.cu`` (``cp_dual_kernel``) and
-``csrc/tv_fused.cu`` (``tv_norms_kernel``, ``tv_subgrad_kernel``,
-``tv_dual_kernel``).
+passes A, B, 1, 2 and A for inverse problems take the TPU kernels' modes:
+passes 1 and 2 in the per-table kernels above, passes A and B in the
+generic kernels of ``csrc/cp_fused.cu`` (``cp_dual_kernel``,
+``cp_primal_kernel``) and pass A for inverse problems in that of
+``csrc/tv_fused.cu`` (``tv_dual_kernel``), which read the channel table
+from ``Params``.
 ``halo_mode``: x (pass B: a copy of the dual, pass 2: the norms too)
 arrives extended by a plane per side in z and t (two
 for pass 2's x) that holds the neighbour shard's edge or, at the volume's
@@ -188,16 +193,16 @@ _ENTRY_POINTS = {
     # theirs
     "cp_fused": ("cp", _Params, {"cp_dual_launch": (2, 6),
                                  "cp_primal_launch": (2, 8)}),
-    "tv_fused": ("tv", _Params, {"tv_norms_launch": (1, 4),
-                                 "tv_subgrad_launch": (1, 4),
-                                 "tv_dual_launch": (2, 3)}),
+    "tv_fused": ("tv", _Params, {"tv_dual_launch": (2, 3)}),
     # the specialised kernels; int flags (table, storage...)
     "cp_boundary": ("bnd", _Params, {"cp_dual_boundary_launch": (3, 7),
                                      "cp_primal_boundary_launch": (3, 7)}),
-    "specialised": ("spec", _Params, {"spec_cp_dual_launch": (3, 6),
-                                      "spec_tv_subgrad_launch": (2, 4)}),
-    "specialised_tv": ("spectv", _Params, {"spectv_norms_launch": (2, 4),
-                                           "spectv_dual_launch": (3, 3)}),
+    "specialised": ("spec", _Params, {
+        "spec_cp_dual_launch": (3, 6), "spec_tv_subgrad_launch": (2, 4),
+        "spec_tv_subgrad_halo_launch": (2, 4)}),
+    "specialised_tv": ("spectv", _Params, {
+        "spectv_norms_launch": (2, 4), "spectv_norms_halo_launch": (2, 4),
+        "spectv_dual_launch": (3, 3)}),
 }
 SPECIALISED = ("specialised", "specialised_tv")
 
@@ -389,13 +394,15 @@ def _cp_launch(fn_name, x, y_D, p, args):
                    with_parts=True)
 
 
-def _spec_launch(fn_name, cfg, x, p, flags, args, with_parts=False):
+def _spec_launch(fn_name, cfg, x, p, flags, args, with_parts=False,
+                 table_dims=None):
     """Launch a specialised kernel, from whichever of the
-    :data:`SPECIALISED` libraries defines ``fn_name``, on the volume ``x``
-    (of the scheme's shape), for the channel table of ``cfg`` at x's
-    ``(Nz, M)`` (``kernels.tables``; raises where no kernel is compiled for
+    :data:`SPECIALISED` libraries defines ``fn_name``, on the volume or
+    shard ``x`` (the shape whose partials it counts), for the channel table
+    of ``cfg`` at the whole volume's ``table_dims``, x's ``(Nz, M)`` by
+    default (``kernels.tables``; raises where no kernel is compiled for
     it)."""
-    table = tables.table_id(cfg, x.shape[0], x.shape[1])
+    table = tables.table_id(cfg, *(table_dims or x.shape[:2]))
     name = next(n for n in SPECIALISED if fn_name in _ENTRY_POINTS[n][2])
     return _launch(name, fn_name, x, p, (table, *flags), args, with_parts)
 
@@ -1011,19 +1018,16 @@ def tv_norms(x, tmul=None, *, cfg: TVConfig, halo_mode=False,
 def _tv_norms_kernel(x, tmul=None, *, cfg: TVConfig, halo_mode=False,
                      table_dims=None):
     """:func:`tv_norms`'s launch, on checked operands: the kernel of the
-    scheme's channel table (``csrc/specialised_tv.cu``) on a volume, the
-    generic halo-mode kernel (``csrc/tv_fused.cu``) on a shard."""
+    scheme's channel table (``csrc/specialised_tv.cu``), on a shard its
+    halo-mode instance with the whole volume's table."""
     shape = _shard_shape(x, int(halo_mode))
     p = _params(cfg, shape, tmul is not None,
                 **_shard_fields(halo_mode, False, table_dims, xe=1))
     norms = torch.empty(shape, dtype=torch.float32, device=x.device)
-    flags = (int(x.dtype == torch.bfloat16),)
-    if halo_mode:
-        parts = _launch("tv_fused", "tv_norms_launch", norms, p, flags,
-                        (x, tmul, norms), with_parts=True)
-    else:
-        parts = _spec_launch("spectv_norms_launch", cfg, norms, p, flags,
-                             (x, tmul, norms), with_parts=True)
+    fn = "spectv_norms_halo_launch" if halo_mode else "spectv_norms_launch"
+    parts = _spec_launch(fn, cfg, norms, p, (int(x.dtype == torch.bfloat16),),
+                         (x, tmul, norms), with_parts=True,
+                         table_dims=table_dims)
     tv_norms.launches += 1
     return norms, parts
 
@@ -1054,15 +1058,23 @@ def tv_subgrad(x, norms, tmul=None, *, cfg: TVConfig, halo_mode=False,
     if x.device.type == "cpu":
         return tv_subgrad_plain(x, norms, tmul, cfg=cfg, halo_mode=halo_mode,
                                 table_dims=table_dims)
+    return _tv_subgrad_kernel(x, None if aniso else norms, tmul, cfg=cfg,
+                              halo_mode=halo_mode, table_dims=table_dims)
+
+
+def _tv_subgrad_kernel(x, norms, tmul=None, *, cfg: TVConfig,
+                       halo_mode=False, table_dims=None):
+    """:func:`tv_subgrad`'s launch, on checked operands: the kernel of the
+    scheme's channel table (``csrc/specialised.cu``), on a shard its
+    halo-mode instance with the whole volume's table."""
+    shape = _shard_shape(x, 2 * int(halo_mode))
     p = _params(cfg, shape, tmul is not None,
                 **_shard_fields(halo_mode, False, table_dims, xe=2, ne=1))
     g = torch.empty(shape, dtype=x.dtype, device=x.device)
-    flags = (int(x.dtype == torch.bfloat16),)
-    args = (x, None if aniso else norms, tmul, g)
-    if halo_mode:
-        _launch("tv_fused", "tv_subgrad_launch", g, p, flags, args)
-    else:
-        _spec_launch("spec_tv_subgrad_launch", cfg, g, p, flags, args)
+    fn = ("spec_tv_subgrad_halo_launch" if halo_mode
+          else "spec_tv_subgrad_launch")
+    _spec_launch(fn, cfg, g, p, (int(x.dtype == torch.bfloat16),),
+                 (x, norms, tmul, g), table_dims=table_dims)
     tv_subgrad.launches += 1
     return g
 

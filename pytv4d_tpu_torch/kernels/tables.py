@@ -1,6 +1,7 @@
 """Which specialised kernel an unsharded CP pass A (B1), TV pass 1 (B3), TV
-pass 2 (B4) or pass A for inverse problems (B5) launches: the id of its
-channel table.
+pass 2 (B4) or pass A for inverse problems (B5), or B3 and B4 in their halo
+mode on a shard (with the whole volume's ``(Nz, M)``), launches: the id of
+its channel table.
 
 ``csrc/tables.cuh`` lists the 21 channel tables that
 ``core.schemes.scheme_channels`` can produce (upwind, downwind and hybrid
@@ -55,9 +56,11 @@ def table_of(chans) -> int:
     return _ID[key]
 
 
+@functools.lru_cache(maxsize=64)
 def table_id(cfg, Nz: int, M: int) -> int:
     """The table id of ``cfg``'s scheme on a volume with ``Nz`` slices and
-    ``M`` time steps."""
+    ``M`` time steps (remembered: a launch asks for it, and working it out
+    cost 12-15 us of a wrapper's host time)."""
     chans, _ = scheme_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg,
                                cfg.reg_time)
     return table_of((ch.axis, ch.kind) for ch in chans)

@@ -127,8 +127,9 @@ def test_params_struct_mirrors_the_header():
 def test_each_launch_with_partials_has_its_count():
     """A launch that writes TV or fidelity partials has a C function that
     counts them: its own ``<launch>_num_parts`` (the two passes of
-    specialised_tv.cu, whose blocks differ) or the library's
-    ``<prefix>_num_parts``; the generic B5 is gone with its entry point.
+    specialised_tv.cu, whose blocks differ, and B3's halo mode) or the
+    library's ``<prefix>_num_parts``; the generic B5 and the generic B3 in
+    its halo mode are gone with their entry points.
     The boundary kernels count the interior launch's partials, whose edge
     rows they fill."""
     from pytv4d_tpu_torch.kernels import fused
@@ -147,7 +148,10 @@ def test_each_launch_with_partials_has_its_count():
     assert counts["spectv_norms_launch"] == "spectv_norms_num_parts"
     assert counts["spectv_dual_launch"] == "spectv_dual_num_parts"
     assert counts["spec_cp_dual_launch"] == "spec_num_parts"
-    assert counts["tv_norms_launch"] == "tv_num_parts"
+    assert counts["spectv_norms_halo_launch"] == \
+        "spectv_norms_halo_num_parts"
+    assert counts["tv_dual_launch"] == "tv_num_parts"
+    assert set(fused._ENTRY_POINTS["tv_fused"][2]) == {"tv_dual_launch"}
     assert counts["cp_dual_boundary_launch"] == "bnd_num_parts"
     assert counts["cp_primal_boundary_launch"] == "bnd_num_parts"
     assert "tv_dual_launch" not in fused._ENTRY_POINTS["cp_fused"][2]

@@ -97,7 +97,9 @@ def test_mirror_equals_the_header():
 @pytest.mark.parametrize("source, launch", [
     ("specialised", "spec_cp_dual_launch"),
     ("specialised", "spec_tv_subgrad_launch"),
+    ("specialised", "spec_tv_subgrad_halo_launch"),
     ("specialised_tv", "spectv_norms_launch"),
+    ("specialised_tv", "spectv_norms_halo_launch"),
     ("specialised_tv", "spectv_dual_launch"),
 ])
 def test_each_launch_instantiates_every_table(source, launch):
@@ -158,9 +160,10 @@ def test_spec_launch_passes_table_and_storage(monkeypatch):
 def test_unsharded_tv_passes_launch_their_table(monkeypatch):
     """What the unsharded TV norms (B3) and pass A for inverse problems (B5)
     hand their library: the table id first, then the storage flags, with
-    the partials they write counted; the halo mode of the norms still
-    reaches the generic ``tv_norms_launch``.  (The launches' own
-    functions, called with CPU tensors and ``_launch`` recording.)"""
+    the partials they write counted; the halo mode of the norms reaches its
+    per-table ``spectv_norms_halo_launch`` with the whole volume's table.
+    (The launches' own functions, called with CPU tensors and ``_launch``
+    recording.)"""
     import torch
 
     from pytv4d_tpu_torch.kernels import fused
@@ -189,6 +192,7 @@ def test_unsharded_tv_passes_launch_their_table(monkeypatch):
     assert a1[4] == (tid, 1) and a1[5][0] is x and a1[6] is True
     assert a2[:2] == ("specialised_tv", "spectv_dual_launch")
     assert a2[4] == (tid, 1, 0) and a2[5] == (x, y_D) and a2[6] is True
-    assert a3[:2] == ("tv_fused", "tv_norms_launch")
-    assert a3[4] == (0,) and a3[5][0] is ext and k3 == {"with_parts": True}
+    assert a3[:2] == ("specialised_tv", "spectv_norms_halo_launch")
+    assert a3[4] == (tid, 0) and a3[5][0] is ext and a3[6] is True
+    assert tuple(a3[2].shape) == (3, 2, 4, 6)  # the partials of the shard
     assert (fused.tv_norms.launches, fused.tv_dual.launches) == (2, 1)

@@ -43,7 +43,19 @@ and the hashes of its outputs (y_A and y_D after B1 ``interior`` + B8 dual,
 x after B2 ``interior`` + B8 primal, from seeded states), and ms per
 iteration of the 4-z-shard solve of the whole volume on the overlapped and
 on the ghost-plane step beside the unsharded one: wall (marginal, as for
-CP above) and device (``torch.profiler`` over a 20-iteration solve).
+CP above) and device (``torch.profiler`` over a 20-iteration solve).  B3
+and B4 in ``halo_mode`` are also timed in bf16 and on a shard of a (2 x 2)
+grid, (16, 4, 256, 256), in float32 and bf16, on operands the sharded TV
+builds (``parallel.fused_halo``: the neighbours' and ghost planes), with a
+hash of the norms and of G after one launch each, and their host
+microseconds per launch as B8's.  A line of its own then splits
+the device time (``torch.profiler``) of the grid calls that run B3 and B4
+in their halo mode -- ``tv_and_subgrad`` on 4 z-shards and on a (2 x 2)
+grid (10 calls) and a 20-iteration ``subgradient_descent`` on 4 z-shards
+-- into B3, B4, the copies that build the extended operands (kernels
+named ``Cat``, ``copy``, ``Memcpy`` or ``where``) and the rest, per call
+or iteration, and appends each kernel's time to
+``chiprun_out/tv_grid_split.jsonl``.
 
 A fourth line times the whole-solve kernels B9 as the factories launch
 them (``make_resident_cp_solver`` / ``make_resident_gd_solver``: a
@@ -438,6 +450,28 @@ def main():
         "B4 halo": launch_ms(lambda: fused.tv_subgrad(x2, n1, cfg=cfg,
                                                       **halo)),
     }
+    tv_hash = {}
+    for tag, mesh_zt, x_dt in (("", (4, 1), torch.bfloat16),
+                               (" 2x2", (2, 2), torch.float32),
+                               (" 2x2", (2, 2), torch.bfloat16)):
+        if x_dt == torch.bfloat16:
+            tag += " bf16"
+        h1, h2, hn = halo_tv_operands(x.to(x_dt), cfg, mesh_zt, dev)
+        hm = dict(cfg=cfg, halo_mode=True, table_dims=(Nz, M))
+        ms[f"B3 halo{tag}"] = launch_ms(lambda: fused.tv_norms(h1, **hm))
+        ms[f"B4 halo{tag}"] = launch_ms(lambda: fused.tv_subgrad(h2, hn,
+                                                                 **hm))
+        tv_hash[f"B3 halo{tag}"] = digest(fused.tv_norms(h1, **hm)[0])
+        tv_hash[f"B4 halo{tag}"] = digest(fused.tv_subgrad(h2, hn, **hm))
+        del h1, h2, hn
+    h1, h2, hn = halo_tv_operands(x, cfg, (4, 1), dev)
+    tv_hash = {"B3 halo": digest(fused.tv_norms(h1, **halo, cfg=cfg)[0]),
+               "B4 halo": digest(fused.tv_subgrad(h2, hn, **halo, cfg=cfg)),
+               **tv_hash}
+    del h1, h2, hn
+    tv_host = {"B3 halo": host_us(lambda: fused.tv_norms(x1, cfg=cfg, **halo)),
+               "B4 halo": host_us(lambda: fused.tv_subgrad(x2, n1, cfg=cfg,
+                                                           **halo))}
     # B8 from seeded states: the hashes of its outputs, then the host's and
     # the device's share of a launch
     rng = np.random.default_rng(4)
@@ -479,7 +513,106 @@ def main():
           + f"; {SHAPE} as 4 z-shards, ms per iteration wall / device: "
           + ", ".join(f"{k} {step_wall[k]:.4f} / {step_dev[k]:.4f}"
                       for k in step_wall)
+          + "; B3 / B4 halo host per launch: "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in tv_host.items())
+          + "; B3 / B4 halo output hashes (norms / G after one launch, on "
+          "the sharded TV's operands; the (2 x 2) grid's shard (16, 4, 256, "
+          "256)): " + ", ".join(f"{k} {v}" for k, v in tv_hash.items())
           + f"; card {card()}", flush=True)
+    split = tv_grid_split(x0, cfg, dev, root)
+    print(f"[sharded TV split] {os.path.relpath(root)} {SHAPE} f32 hybrid "
+          f"reg_time=0.5, device ms (torch.profiler) and wall ms: "
+          + "; ".join(f"{k} {v[0]:.4f} = " + ", ".join(
+              f"{part} {t:.4f}" for part, t in v[1].items())
+              + f" (wall {v[2]:.4f}, host {v[3]:.4f})"
+              for k, v in split.items())
+          + f"; card {card()}", flush=True)
+
+
+def halo_tv_operands(vol, cfg, mesh_zt, dev):
+    """What the sharded TV hands B3 and B4 in their halo mode on the second
+    shard along z of ``vol`` cut by a (z, t) mesh: x extended by one and by
+    two planes per side in z and t, and the norms extended by one (safe
+    divisors at the ghost planes)."""
+    from pytv4d_tpu_torch.core.schemes import AXIS_T, AXIS_Z, scheme_channels
+    from pytv4d_tpu_torch.kernels import fused
+    from pytv4d_tpu_torch.parallel import fused_halo as fh
+    from pytv4d_tpu_torch.parallel import make_mesh, shard_volume
+    from pytv4d_tpu_torch.parallel.mesh import grid_map
+
+    chans, _ = scheme_channels(cfg.scheme, *vol.shape[:2], cfg.reg_z_over_reg,
+                               cfg.reg_time)
+    gz = fh._axis_ghost_kind(chans, AXIS_Z)
+    gt = fh._axis_ghost_kind(chans, AXIS_T)
+    xs = shard_volume(vol, make_mesh(*mesh_zt, device=dev), mesh_zt[1] > 1)
+    x1 = fh._extend_axis(fh._extend_axis(xs, 0, gz), 1, gt)
+    x2 = fh._extend_axis2(fh._extend_axis2(xs, 0, gz), 1, gt)
+    mode = dict(cfg=cfg, halo_mode=True, table_dims=tuple(vol.shape[:2]))
+    n1 = fh._extend_norms(grid_map(lambda e: fused.tv_norms(e, **mode)[0],
+                                   x1))
+    return x1[1][0], x2[1][0], n1[1][0]
+
+
+COPY_KERNELS = ("Cat", "copy", "Memcpy", "where")
+
+
+def tv_grid_split(vol, cfg, dev, root):
+    """Device ms (``torch.profiler``) of the grid calls that run B3 and B4 in
+    their halo mode, per call or iteration, split into B3, B4, the copies
+    (:data:`COPY_KERNELS`) and the rest, the wall ms (host clock to a
+    synchronisation, best of 5, before the profiler runs) and the host's ms
+    (the calls queued behind a kernel that keeps the device busy for a
+    second: a call that waits for the device shows it): ``{call: (total,
+    split, wall, host)}``; each
+    kernel's time is appended to ``chiprun_out/tv_grid_split.jsonl``."""
+    import json
+
+    from pytv4d_tpu_torch import tv_and_subgrad
+    from pytv4d_tpu_torch.parallel import make_mesh, shard_volume
+    from pytv4d_tpu_torch.solvers.gd import subgradient_descent
+    from pytv4d_tpu_torch.utils.profiling import device_time
+
+    grids = {k: shard_volume(vol, make_mesh(*m, device=dev), m[1] > 1)
+             for k, m in (("z4", (4, 1)), ("2x2", (2, 2)))}
+    kw = dict(scheme=cfg.scheme, reg_time=cfg.reg_time)
+    runs = {f"tv_and_subgrad {k}, a call": (
+                lambda g=g: [tv_and_subgrad(g, **kw) for _ in range(10)], 10)
+            for k, g in grids.items()}
+    runs["subgradient_descent z4, an iteration"] = (
+        lambda: subgradient_descent(grids["z4"], n_iter=20, reg=1.0,
+                                    step_size=5e-3, cfg=cfg), 20)
+    out, rows = {}, []
+    for name, (run, n) in runs.items():
+        run()
+        wall = float("inf")
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = min(wall, (time.perf_counter() - t0) * 1e3 / n)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)
+        t0 = time.perf_counter()
+        run()
+        host = (time.perf_counter() - t0) * 1e3 / n
+        torch.cuda.synchronize()
+        total, by_kernel = device_time(run, n, dev)
+        split = dict.fromkeys(("B3", "B4", "copies", "rest"), 0.0)
+        for k, v in by_kernel.items():
+            part = ("B3" if "tv_norms" in k else "B4" if "tv_subgrad" in k
+                    else "copies" if any(c in k for c in COPY_KERNELS)
+                    else "rest")
+            split[part] += v
+        out[name] = (total, split, wall, host)
+        rows.append(dict(tree=os.path.relpath(root), call=name, total=total,
+                         split=split, wall=wall, host=host,
+                         by_kernel=by_kernel))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "tv_grid_split.jsonl"), "a") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
+    return out
 
 
 def sharded_steps(vol, cfg, dev):
