@@ -9,15 +9,17 @@ the whole-solve CP and GD kernels (B9: on chip, and in L2 for larger
 volumes) and the TGV-2 kernels (B6 passes PQ
 and XW, B7 whole solve: on chip, and in L2 for larger slices)
 from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once; B1 and B5
-on an unsharded volume, B3 and B4 on a volume and on a shard (their halo
-mode) and B8 are the kernels specialised per channel table
-(``csrc/specialised.cu`` for B1 and B4, ``csrc/specialised_tv.cu`` for B3
-and B5, ``csrc/cp_boundary.cu`` for B8: three sources whose compiles nvcc
-spreads over the cores).
+on an unsharded volume, B1 to B4 on a shard (B1 and B2 in both sharded
+modes, B3 and B4 in their halo mode), B3 and B4 on a volume and B8 are the
+kernels specialised per channel table (``csrc/specialised.cu`` for B1 and
+B4, ``csrc/specialised_tv.cu`` for B3 and B5, ``csrc/specialised_cp.cu``
+for B1 and B2 on a shard, ``csrc/cp_boundary.cu`` for B8: four sources
+whose compiles nvcc spreads over the cores).
 Then, for
 the Chambolle-Pock path (phases 3-7): holds B1/B2 against
-their plain PyTorch versions (B1 also bit for bit against the generic body,
-over every channel table, at odd widths and off alignment), drives
+their plain PyTorch versions (B1 also bit for bit against its halo-mode
+instance on a 1 x 1 grid, over every channel table, at odd widths and off
+alignment), drives
 ``TVDenoiser.cp`` on the cameraman
 image through them, replays the (16, 4, 512, 512) reference trajectory,
 measures the 4D CP rate of kernels and plain versions, and runs the
@@ -40,7 +42,7 @@ at once, and runs the (96, 16, 512, 512) volume in the 4d mode.  For the
 inverse solver and
 parallel-beam CT (phases 16-19): holds B5 (pass A for inverse problems)
 against its plain version on the other kernels' case grid, and bit for bit
-against B1's generic body over every channel table, and B2 writing
+against B1 in halo mode over every channel table, and B2 writing
 out of place against its plain version, both (and B3, in phase 8) also at
 the two shapes the CT path launches them on; solves a deblurring problem with
 ``cp_inverse`` on the kernels and on the plain step, and reconstructs a
@@ -77,15 +79,23 @@ ghost-plane step; B3/B4's halo mode (the per-table kernels' HALO
 instances) also over every channel table, both storages and two widths on
 a z-cut and a t-cut mesh, each case's gathered norms and G bit for bit
 against the unsharded per-table kernels', and per launch at a z-shard and
-a (2 x 2) grid's shard of (32, 8, 256, 256) beside its bound; solves
+a (2 x 2) grid's shard of (32, 8, 256, 256) beside its bound; B1/B2 on a
+shard (``csrc/specialised_cp.cu``) over every table and storage pair they
+are built for, each step (halo mode on a 1 x 1 grid, a z-cut and a t-cut
+mesh; interior + B8 on 3 z-shards) bit for bit against the unsharded
+kernels on the gathered volume, and each of their four instances per
+launch at a z-shard and a (2 x 2) grid's shard, f32 and bf16, beside its
+bound; solves
 the (32, 8, 256, 256) volume from a numpy array as 4 z-shards on the one
 card through ``make_mesh`` / ``shard_volume`` /
 ``make_sharded_cp_solver_fused`` on the ghost-plane path and on the
 overlapped path (whose final state must equal the ghost path's bit for bit,
 and both the unsharded solve's), a (2 x 2) mesh with time sharded, the
 sharded GD solver, a bf16 case and a 300-iteration run; and times an
-iteration of each path beside the unsharded step, and a launch of each B8
-kernel (wall, on the device, the host's share, against its bound).  For
+iteration of each path beside the unsharded step, splits the ghost and
+the overlapped step's device time into B1, B2, B8, copies and the rest,
+and times a launch of each B8 kernel (wall, on the device, the host's
+share, against its bound).  For
 fan- and cone-beam CT (phase 26): holds each geometry's projector pair,
 FDK and SART in f32 on the card against float64 on the CPU at a small
 shape; then at (16, 4, 512, 512) x 96 angles over a full orbit times the
@@ -279,11 +289,16 @@ README_TV = 532166.8251801673  # tv_hybrid(rand(20, 4, 100, 100)), seed 0
 CAMERAMAN_TGV_LOSS = 37211904.16116732
 LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
         "resident", "resident_onchip", "cp_zstream", "cp_boundary",
-        "specialised", "specialised_tv")
+        "specialised", "specialised_tv", "specialised_cp")
 # the kernels specialised per channel table, by kernel id: a pattern of their
 # mangled names (phase 2 reports each one's registers and spills); B3 and B4
-# by their HALO template flag, the last argument
+# in their halo mode, and B1 and B2 on a shard, by their HALO template flag,
+# the last argument
 SPEC_KERNELS = {"B1": "cp_dual_spec_kernel",
+                "B1halo": r"cp_dual_shard_kernel\w*Lb1E",
+                "B1int": r"cp_dual_shard_kernel\w*Lb0E",
+                "B2halo": r"cp_primal_shard_kernel\w*Lb1E",
+                "B2int": r"cp_primal_shard_kernel\w*Lb0E",
                 "B4": r"tv_subgrad_spec_kernel\w*Lb0E",
                 "B4halo": r"tv_subgrad_spec_kernel\w*Lb1E",
                 "B3": r"tv_norms_spec_kernel\w*Lb0E",
@@ -308,6 +323,12 @@ COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
             "B10": zstream.cp_dual_zstream,
             "B8dual": fused.cp_dual_boundary,
             "B8primal": fused.cp_primal_boundary}
+# B1 and B2 in their sharded modes: each wrapper's count of the launches
+# of one of its launch functions (``launches_by_fn``), by kernel id
+MODE_COUNTERS = {"B1halo": (fused.cp_dual, "spcp_dual_halo_launch"),
+                 "B1int": (fused.cp_dual, "spcp_dual_interior_launch"),
+                 "B2halo": (fused.cp_primal, "spcp_primal_halo_launch"),
+                 "B2int": (fused.cp_primal, "spcp_primal_interior_launch")}
 # data-sheet peaks of the H100 SXM at 700 W: HBM bytes/s (utils.profiling)
 # and float32 operations/s outside the tensor cores
 H100_F32_PEAK_FLOPS = 67e12
@@ -364,15 +385,19 @@ def require(cond, what):
 def zero_counters():
     for fn in COUNTERS.values():
         fn.launches = 0
+    for wrapper in (fused.cp_dual, fused.cp_primal):
+        wrapper.launches_by_fn.clear()
 
 
 def read_counters():
-    return {k: fn.launches for k, fn in COUNTERS.items()}
+    return {**{k: fn.launches for k, fn in COUNTERS.items()},
+            **{k: wrapper.launches_by_fn[fn]
+               for k, (wrapper, fn) in MODE_COUNTERS.items()}}
 
 
 def require_launches(got, what, **expected):
     """The counters named in ``expected`` read as given, every other 0."""
-    want = dict.fromkeys(COUNTERS, 0)
+    want = dict.fromkeys(read_counters(), 0)
     want.update(expected)
     require(got == want, f"{what}: launches {want}, got {got}")
 
@@ -589,14 +614,15 @@ def phase_kernels():
             dual_kw = dict(cfg=cfg, sigma_D=sigma_D, sigma_A=sigma_A, reg=reg,
                            **fid_kw)
             prim_kw = dict(cfg=cfg, tau=tau, nonneg=nonneg, **fid_kw)
-            # the generic body (the HALO instance on a 1 x 1 grid) first
+            # its halo-mode instance (csrc/specialised_cp.cu) on a 1 x 1
+            # grid first
             fused.cp_dual(_one_shard(x, cfg, 1), x0, g[0], g[1], tmul,
                           halo_mode=True, table_dims=shape[:2], **dual_kw)
             _, _, tv_k = fused.cp_dual(k[0], x0, k[1], k[2], tmul, **dual_kw)
             sync()
             require(_bits_equal(k[1], g[0]) and _bits_equal(k[2], g[1]),
-                    f"{name} {shape}: specialised B1's y_A', y_D' equal the "
-                    f"generic body's bit for bit")
+                    f"{name} {shape}: specialised B1's y_A', y_D' equal its "
+                    f"halo-mode instance's on a 1 x 1 grid bit for bit")
             tids.add(tables.table_id(cfg, *shape[:2]))
             _, _, tv_p = fused.cp_dual_plain(p[0], x0, p[1], p[2], tmul,
                                              **dual_kw)
@@ -622,7 +648,8 @@ def phase_kernels():
     log(f"[3 kernels vs plain] {n} cases at {SMALL}, {CAMERAMAN}, "
         f"{MAIN_4D}, {RAGGED} and {MISALIGNED} (arrays one element off "
         f"alignment), all {len(tids)} channel tables: pass; "
-        f"specialised B1 bit-equal to the generic body in every case; "
+        f"specialised B1 bit-equal to its halo-mode instance on a 1 x 1 "
+        f"grid in every case; "
         f"max abs err B1 f32 {errs['B1']['f32']:.3g} bf16 "
         f"{errs['B1']['bf16']:.3g}, B2 f32 {errs['B2']['f32']:.3g} bf16 "
         f"{errs['B2']['bf16']:.3g}")
@@ -1679,8 +1706,8 @@ INVERSE_SHAPES = (SMALL, CAMERAMAN, MAIN_4D, CT_SMALL, CT_SHAPE)
 
 
 def phase_inverse_kernels():
-    """B5 against its plain version and bit for bit against the generic
-    body of B1 (the HALO instance on a 1 x 1 grid, no time multiplier),
+    """B5 against its plain version and bit for bit against B1 in halo
+    mode (csrc/specialised_cp.cu, on a 1 x 1 grid, no time multiplier),
     over every channel table, at odd widths and off alignment; and B2
     writing out of place against its plain version and against itself in
     place, at the shapes of the earlier phases and at the two the CT main
@@ -1707,7 +1734,7 @@ def phase_inverse_kernels():
             require(out_k is y_k and torch.equal(x, x_before),
                     "tv_dual updates y_D in place and leaves x_bar alone")
             require(_bits_equal(y_k, y_g), f"B5 {name} {shape}: specialised "
-                    f"B5's y_D' equals the generic B1 body's bit for bit")
+                    f"B5's y_D' equals B1's in halo mode bit for bit")
             tids.add(tables.table_id(cfg, *shape[:2]))
             bf16 = storage != "f32"
             kind = "bf16" if bf16 else "f32"
@@ -1721,7 +1748,7 @@ def phase_inverse_kernels():
         f"{CAMERAMAN}, {MAIN_4D}, {CT_SMALL}, (the CT path's config, f32 "
         f"and bf16 dual) {CT_SHAPE}, {RAGGED} and {MISALIGNED} (arrays one "
         f"element off alignment), all {len(tids)} channel tables: pass; "
-        f"specialised B5 bit-equal to the generic B1 body in every case; "
+        f"specialised B5 bit-equal to B1 in halo mode in every case; "
         f"max abs err f32 {errs['f32']:.3g} bf16 {errs['bf16']:.3g}")
 
     err_out, n_out = 0.0, 0
@@ -2975,6 +3002,16 @@ class _ShardedState:
         return tuple(grid_map(torch.clone, g)
                      for g in (self.x, self.y_A, self.y_D))
 
+    def on_mesh(self, mesh_zt):
+        """The same state cut into the shards of another (z, t) mesh."""
+        out = object.__new__(_ShardedState)
+        out.__dict__.update(vars(self))
+        out.mesh, out.st = make_mesh(*mesh_zt), mesh_zt[1] > 1
+        out.x, out.x0, out.y_A, out.y_D = (
+            shard_volume(gather_volume(g), out.mesh, out.st)
+            for g in (self.x, self.x0, self.y_A, self.y_D))
+        return out
+
 
 def _cells(*grids):
     """The grids' shards side by side, in (iz, it) order."""
@@ -3061,6 +3098,193 @@ def _interior_and_boundary(s, name, kind, note):
         rel = abs(float(k_fid.sum() - p_fid.sum())) / float(p_fid.sum())
         require(rel <= (1e-4 if kind == "bf16" else 1e-5),
                 f"B2 interior + B8 {name}: fidelity sum {rel:.3g}")
+
+
+def _cp_step_on_shards(s, overlap):
+    """One CP step (pass A, then pass B) of the sharded state ``s`` on copies
+    of its x, y_A and y_D: the ghost-plane step (B1 / B2 in halo mode) or
+    the overlapped one (B1 / B2 interior, then B8), as
+    ``make_sharded_cp_solver_fused`` runs them; x', y_A', y_D' gathered."""
+    x, y_A, y_D = s.copies()
+    kw = dict(**s.sharded)
+    if overlap:
+        x_halo = fused_halo._halo_planes(x, 0, s.ghost_z)
+        tv = grid_map(lambda xs, x0, a, d: fused.cp_dual(
+            xs, x0, a, d, s.tm, interior=True, **kw, **s.dual_kw)[2],
+            x, s.x0, y_A, y_D)
+        grid_map(lambda xs, xh, x0, a, d, p: fused.cp_dual_boundary(
+            xs, xh, x0, a, d, p, s.tm, **kw, **s.dual_kw),
+            x, x_halo, s.x0, y_A, y_D, tv)
+        y_halo = fused_halo._sparse_channel_halo(y_D, 0, s.chans, AXIS_Z)
+        fid = grid_map(lambda xs, x0, a, d: fused.cp_primal(
+            xs, x0, a, d, s.tm, interior=True, **kw, **s.primal_kw)[1],
+            x, s.x0, y_A, y_D)
+        grid_map(lambda xs, x0, a, d, h, p: fused.cp_primal_boundary(
+            xs, x0, a, d, h, p, s.tm, **kw, **s.primal_kw),
+            x, s.x0, y_A, y_D, y_halo, fid)
+    else:
+        kw.update(halo_mode=True, t_sharded=s.st)
+        x_ext = fused_halo._extend_axis(
+            fused_halo._extend_axis(x, 0, s.ghost_z), 1, s.ghost_t)
+        grid_map(lambda xe, x0, a, d: fused.cp_dual(
+            xe, x0, a, d, s.tm, **kw, **s.dual_kw), x_ext, s.x0, y_A, y_D)
+        y_ext = fused_halo._extend_dual(y_D, s.chans)
+        grid_map(lambda xs, x0, a, d, e: fused.cp_primal(
+            xs, x0, a, d, s.tm, y_ext=e, **kw, **s.primal_kw),
+            x, s.x0, y_A, y_D, y_ext)
+    return tuple(gather_volume(g) for g in (x, y_A, y_D))
+
+
+def _cp_step_whole(s):
+    """The same step on the gathered volume through the unsharded kernels
+    (B1 per table, csrc/specialised.cu; B2 generic, csrc/cp_fused.cu)."""
+    x, x0, y_A, y_D = (gather_volume(g) for g in (s.x, s.x0, s.y_A, s.y_D))
+    fused.cp_dual(x, x0, y_A, y_D, s.tm, **s.dual_kw)
+    fused.cp_primal(x, x0, y_A, y_D, s.tm, **s.primal_kw)
+    return x, y_A, y_D
+
+
+def _step_bits(s, what, meshes, overlap):
+    """x', y_A', y_D' of one step on the shards of each mesh of ``meshes``
+    (the ghost-plane step; with ``overlap`` on the first mesh, a z-cut one,
+    the overlapped step too) bit for bit the unsharded kernels' on the
+    gathered volume.  Returns the number of sharded steps held."""
+    want = _cp_step_whole(s)
+    runs = [(m, False) for m in meshes] + ([(meshes[0], True)]
+                                           if overlap else [])
+    for mesh_zt, ov in runs:
+        got = _cp_step_on_shards(s.on_mesh(mesh_zt), ov)
+        for g, w, name in zip(got, want, ("x'", "y_A'", "y_D'")):
+            require(_bits_equal(g, w),
+                    f"{what} on {mesh_zt}: "
+                    f"{'interior + B8' if ov else 'halo mode'} {name} "
+                    f"bit-equal to the unsharded kernels' on the gathered "
+                    f"volume")
+    return len(runs)
+
+
+def _halo_cp_tables():
+    """B1 / B2 on a shard over every table and storage pair they are built
+    for: the halo mode's 21 tables at an even and an odd width (tmul at the
+    odd one where the table has time channels) on a 1 x 1 grid, a z-cut
+    and a t-cut mesh, and the interior launches' tables (B8's) on 3
+    z-shards, followed by B8; each step bit for bit the unsharded kernels'
+    on the gathered volume (_step_bits).  Returns (cases, sharded
+    steps)."""
+    n_case = n_step = 0
+    gen = torch.Generator(device=DEV).manual_seed(4321)
+    for tid, (cfg, dims) in _halo_tv_table_configs().items():
+        has_t = any(a == AXIS_T for a, _ in tables.TABLES[tid])
+        for storage, rc in itertools.product(SHARD_STORAGE, HALO_TV_WIDTHS):
+            shape = dims + rc
+            opts = dict(tmul=has_t and rc[1] % 2 == 1)
+            s = _ShardedState(shape, (1, 1), cfg, opts, storage, gen)
+            n_step += _step_bits(s, f"halo table {tid} {storage} {shape}",
+                                 ((1, 1), (2, 1), (1, 2)), False)
+            n_case += 1
+    for tid, (scheme, reg_time, M) in B8_TABLE_CONFIGS.items():
+        cfg = TVConfig(scheme=scheme, reg_time=reg_time)
+        for storage, rc in itertools.product(SHARD_STORAGE, HALO_TV_WIDTHS):
+            shape = (9, M) + rc
+            require(tables.boundary_table_id(cfg, *shape[:2]) == tid,
+                    f"{scheme} reg_time={reg_time} {shape}: table {tid}")
+            s = _ShardedState(shape, (1, 1), cfg, dict(tmul=reg_time > 0),
+                              storage, gen)
+            n_step += _step_bits(s, f"interior table {tid} {storage} "
+                                 f"{shape}", ((3, 1),), True)
+            n_case += 1
+    sync()
+    return n_case, n_step
+
+
+def _kernel_ms(run, kernel, n=50):
+    """The device ms of one launch of ``kernel`` (a name's substring), the
+    mean over the launches a torch.profiler trace of ``n`` calls of
+    ``run`` recorded, and how many it recorded: a trace that loses
+    records (seen late in a long process) then shortens no mean."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        sync()
+    ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    require(bool(ms), f"{kernel} on the device")
+    return sum(ms) / len(ms), len(ms)
+
+
+# what each B1 / B2 instance on a shard runs as, on the device
+SHARD_KERNELS = {"B1halo": "cp_dual_shard_kernel",
+                 "B1int": "cp_dual_shard_kernel",
+                 "B2halo": "cp_primal_shard_kernel",
+                 "B2int": "cp_primal_shard_kernel"}
+
+
+def _halo_cp_times(card):
+    """B1 and B2 on one shard of the 4D cell per launch, each instance: a
+    z-shard (both modes) and a (2 x 2) grid's shard (halo mode; the
+    overlapped step cuts z alone), f32 and bf16 (primary and dual), hybrid
+    reg_time=0.5, on operands the sharded step builds: wall (CUDA events
+    around 50 launches), the kernel alone on the device (_kernel_ms), the
+    plain versions, and the bounds (_halo_cp_bounds)."""
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    out, lines = {}, []
+    for tag, mesh_zt, shard in (("z4", SHARDED_MESH, SHARD_4D),
+                                ("2x2", GRID_2X2, SHARD_2X2)):
+        for storage in ("f32", "bf16+bf16dual"):
+            s = _ShardedState(MAIN_4D, mesh_zt, cfg, {}, storage,
+                              torch.Generator(device=DEV).manual_seed(24))
+            x, x0, y_A, y_D = (g[1][0] for g in (s.x, s.x0, s.y_A, s.y_D))
+            x_ext = fused_halo._extend_axis(fused_halo._extend_axis(
+                s.x, 0, s.ghost_z), 1, s.ghost_t)[1][0]
+            y_ext = fused_halo._extend_dual(s.y_D, s.chans)[1][0]
+            halo = dict(halo_mode=True, t_sharded=s.st, **s.sharded)
+            inner = dict(interior=True, **s.sharded)
+            dk, pk = s.dual_kw, s.primal_kw
+            runs = {
+                "B1halo": (lambda: fused.cp_dual(x_ext, x0, y_A, y_D, **halo,
+                                                 **dk),
+                           lambda: fused.cp_dual_plain(
+                               x_ext, x0, y_A, y_D, **halo, **dk)),
+                "B2halo": (lambda: fused.cp_primal(x, x0, y_A, y_D,
+                                                   y_ext=y_ext, **halo, **pk),
+                           lambda: fused.cp_primal_plain(
+                               x, x0, y_A, y_D, y_ext=y_ext, **halo, **pk))}
+            if tag == "z4":
+                runs["B1int"] = (
+                    lambda: fused.cp_dual(x, x0, y_A, y_D, **inner, **dk),
+                    lambda: fused.cp_dual_plain(x, x0, y_A, y_D, **inner,
+                                                **dk))
+                runs["B2int"] = (
+                    lambda: fused.cp_primal(x, x0, y_A, y_D, **inner, **pk),
+                    lambda: fused.cp_primal_plain(x, x0, y_A, y_D, **inner,
+                                                  **pk))
+            x_dt, d_dt = SHARD_STORAGE[storage]
+            bounds = _halo_cp_bounds(shard, cfg, MAIN_4D[:2], x_dt, d_dt)
+            key = f"{tag} {storage}"
+            for kid, (run, plain) in runs.items():
+                ms = _time_launch(run)
+                dev, seen = _kernel_ms(run, SHARD_KERNELS[kid])
+                mode = "halo_mode" if kid.endswith("halo") else "interior"
+                b = bounds[f"{kid[:2]} {mode}"]
+                out[(kid, key)] = dict(ms=ms, device_ms=dev,
+                                       plain_ms=_time_launch(plain, n=5),
+                                       bound=b)
+                lines.append(f"{kid} {key} {shard}: {ms:.4f} ms wall, "
+                             f"{dev:.4f} on the device ({seen} of 50 "
+                             f"launches recorded), plain "
+                             f"{out[(kid, key)]['plain_ms']:.3f}; bound "
+                             f"{b[0]:.4f} ms ({b[1]}): "
+                             f"{b[0] / dev:.1%} of it on the device")
+            del s, x, x0, y_A, y_D, x_ext, y_ext
+    log("[24 B1 / B2 on a shard per launch, hybrid reg_time=0.5, one shard "
+        f"of {MAIN_4D} with its ghost or neighbour planes] "
+        + "; ".join(lines) + f"; card {card}")
+    sync()
+    return out
 
 
 def phase_halo_kernels(card):
@@ -3172,7 +3396,11 @@ def phase_halo_kernels(card):
                           f"{mesh_zt}", xw, None, cfg, mesh_zt, note)
             n_tv_tab += 1
     sync()
+    # B1 / B2 on a shard over every table and storage pair, each step bit
+    # for bit the unsharded kernels' on the gathered volume
+    n_cp_tab, n_steps = _halo_cp_tables()
     tv_times = _halo_tv_times(card)
+    cp_times = _halo_cp_times(card)
     log(f"[24 sharded kernel modes vs plain] {n} CP cases and {n_tv} TV "
         f"cases, shard by shard, at {HALO_SMALL} on a "
         f"{HALO_SMALL_MESH} mesh / {OVERLAP_SMALL} on "
@@ -3189,8 +3417,15 @@ def phase_halo_kernels(card):
         f"storage pairs x 2 widths at (9, M, 16, 130) / (9, M, 7, 37) on 3 "
         f"z-shards ({n_tab} cases); {solves} sharded solves of 20 iterations "
         f"on the overlapped step bit-equal to the ghost path's in x, y_A and "
-        f"y_D (losses within {loss_rel:.3g})")
-    return errs, tv_times
+        f"y_D (losses within {loss_rel:.3g}); B1 / B2 on a shard over every "
+        f"table and storage pair they are built for ({len(tables.TABLES)} x "
+        f"{len(SHARD_STORAGE)} x {HALO_TV_WIDTHS} in halo mode on a 1 x 1 "
+        f"grid, a (2, 1) and a (1, 2) mesh; {len(B8_TABLE_CONFIGS)} x "
+        f"{len(SHARD_STORAGE)} x 2 widths at 9 slices on 3 z-shards in halo "
+        f"mode and with interior + B8; {n_cp_tab} cases): all {n_steps} "
+        f"sharded steps' x', y_A', y_D' bit-equal to the unsharded kernels' "
+        f"on the gathered volume")
+    return errs, tv_times, cp_times
 
 
 # ---------------------------------------------------------------- phase 25
@@ -3229,6 +3464,23 @@ def _same_state(got, ref, what):
                           else f"max abs err {worst:.3g}")
 
 
+# what the device time of a sharded CP step is split into, by kernel name
+STEP_PARTS = {"B1": ("cp_dual_shard_kernel", "cp_dual_spec_kernel"),
+              "B2": ("cp_primal_shard_kernel", "cp_primal_kernel"),
+              "B8": ("bnd_dual_kernel", "bnd_primal_kernel"),
+              "copies": ("Cat", "copy", "Memcpy", "where")}
+
+
+def _step_split(by_kernel):
+    """``device_time``'s ms by kernel summed into :data:`STEP_PARTS` and the
+    rest."""
+    out = dict.fromkeys((*STEP_PARTS, "rest"), 0.0)
+    for name, ms in by_kernel.items():
+        out[next((part for part, keys in STEP_PARTS.items()
+                  if any(k in name for k in keys)), "rest")] += ms
+    return out
+
+
 def phase_sharded_main_path(card):
     cfg = TVConfig(scheme="hybrid", reg_time=0.5)
     base = np.random.default_rng(0).random(MAIN_4D).astype(np.float32)
@@ -3244,9 +3496,10 @@ def phase_sharded_main_path(card):
         sync()
         launches[overlap] = read_counters()
     per = n_it * n_sh  # per iteration and shard: one launch of each kernel
-    require_launches(launches[False], "sharded CP, ghost path", B1=per, B2=per)
+    require_launches(launches[False], "sharded CP, ghost path", B1=per, B2=per,
+                     B1halo=per, B2halo=per)
     require_launches(launches[True], "sharded CP, overlap path", B1=per,
-                     B2=per, B8dual=per, B8primal=per)
+                     B2=per, B8dual=per, B8primal=per, B1int=per, B2int=per)
     for g, o, name in zip(out[False][:3], out[True][:3], ("x", "y_A", "y_D")):
         require(torch.equal(g, o) and g.is_cuda and bool(
             torch.isfinite(g).all()),
@@ -3271,8 +3524,9 @@ def phase_sharded_main_path(card):
     zero_counters()
     got = _sharded_cp(small, cfg, (2, 2), n_it, 1.0)
     sync()
-    require_launches(read_counters(), "sharded CP on a (2 x 2) mesh",
-                     B1=4 * n_it, B2=4 * n_it)
+    two = read_counters()
+    require_launches(two, "sharded CP on a (2 x 2) mesh", B1=4 * n_it,
+                     B2=4 * n_it, B1halo=4 * n_it, B2halo=4 * n_it)
     ref_s = chambolle_pock(torch.as_tensor(small, device=DEV), n_iter=n_it,
                            reg=1.0, cfg=cfg)
     rel = float(((got[3] - ref_s.loss).abs() / ref_s.loss).max())
@@ -3377,8 +3631,11 @@ def phase_sharded_main_path(card):
         ms[name].append(_best_ms(lambda: paths[name](40)) / 40)
     step_ms = {k: min(v) for k, v in ms.items()}
     # the device's share of an iteration: what torch.profiler sums over a
-    # 20-iteration solve
-    dev_ms = {k: device_time(lambda: paths[k](20), 20, DEV)[0] for k in paths}
+    # 20-iteration solve, and its split by kernel
+    dev = {k: device_time(lambda: paths[k](20), 20, DEV) for k in paths}
+    dev_ms = {k: v[0] for k, v in dev.items()}
+    splits = {k: _step_split(dev[k][1]) for k in ("ghost",
+                                                  "overlap, one stream")}
     log(f"[25 times, {MAIN_4D} f32, 4 z-shards] ms per iteration (a "
         f"40-iteration solve, best of 3, three times in turns: least, and "
         f"the turns' spread): "
@@ -3388,6 +3645,11 @@ def phase_sharded_main_path(card):
         f", overlap / unsharded "
         f"{step_ms['overlap, one stream'] / step_ms['unsharded']:.3f}; card "
         f"{card}")
+    log(f"[25 split, {MAIN_4D} f32, 4 z-shards] device ms per iteration "
+        "(torch.profiler over a 20-iteration solve): "
+        + "; ".join(f"{k} {dev_ms[k]:.4f} = " + ", ".join(
+            f"{part} {t:.4f}" for part, t in v.items())
+            for k, v in splits.items()) + f"; card {card}")
 
     # per launch at the shard: the two B8 kernels and B1 / B2 with interior
     s = _ShardedState(MAIN_4D, SHARDED_MESH, cfg, {}, "f32",
@@ -3472,7 +3734,13 @@ def phase_sharded_main_path(card):
                     for k, b in cp_bounds.items())
         + f"; card {card}")
     sync()
-    return launches[True], gd_launches, launch_ms, bounds
+    # B1 and B2 on a shard by mode, as their counters read: the ghost-plane
+    # step's (4 z-shards, and the (2 x 2) mesh) and the overlapped step's
+    runs = (("ghost z4", launches[False]), ("overlap z4", launches[True]),
+            ("ghost 2x2", two))
+    modes = {kid: {run: got[kid] for run, got in runs if got[kid]}
+             for kid in SHARD_KERNELS}
+    return launches[True], gd_launches, launch_ms, bounds, modes
 
 
 # ---------------------------------------------------------------- phase 26
@@ -4239,8 +4507,11 @@ def _multihost(card):
         sync()
         got = read_counters()
         n = 20 * SHARDED_MESH[0]
-        require(got["B1"] == n and got["B2"] == n,
-                f"multihost CP: B1 = B2 = {n}, got {got}")
+        mode = "int" if solve.overlap else "halo"
+        require(got["B1"] == got["B1" + mode] == n
+                and got["B2"] == got["B2" + mode] == n,
+                f"multihost CP: B1 = B2 = {n}, each in its {mode} mode, got "
+                f"{got}")
         ref = _sharded_cp(base, cfg, SHARDED_MESH, 20, 1.0)
         same = all(torch.equal(multihost.global_to_host_local(mesh, g), r)
                    for g, r in zip((x, y_A, y_D), ref[:3]))
@@ -4838,10 +5109,12 @@ def phase_grid_entry(card):
                             ("cp 2x2", "2x2", None)):
         grid = grids[key]
         b8 = per if key == "z4" else 0
+        mode = "int" if key == "z4" else "halo"
+        expect = {"B1": per, "B2": per, "B8dual": b8, "B8primal": b8,
+                  "B1" + mode: per, "B2" + mode: per}
         res = _on_grid(name, lambda: chambolle_pock(
-            grid, n_iter=n_it, reg=1.0, cfg=cfg, dual_dtype=dual),
-            B1=per, B2=per, B8dual=b8, B8primal=b8)
-        launches[name] = dict(B1=per, B2=per, B8dual=b8, B8primal=b8)
+            grid, n_iter=n_it, reg=1.0, cfg=cfg, dual_dtype=dual), **expect)
+        launches[name] = expect
         ref = chambolle_pock(whole, n_iter=n_it, reg=1.0, cfg=cfg,
                              dual_dtype=dual)
         rel = _loss_rel(res.loss, ref.loss)
@@ -5112,7 +5385,7 @@ def phase_grid_ct(card):
     grids = {k: shard(sino, sinogram_sharding(make_mesh(*m)))
              for k, m in CT_GRIDS.items()}
     launches, lines = {}, []
-    per = dict(B5=n_it * 4, B2=n_it * 4, B3=n_it * 4)
+    per = dict(B5=n_it * 4, B2=n_it * 4, B2halo=n_it * 4, B3=n_it * 4)
 
     def ct_case(name, run_grid, run_whole, expect=per, **bars):
         res = _on_grid(name, run_grid, **expect)
@@ -5221,7 +5494,8 @@ def phase_grid_ct(card):
     solver_case("chambolle_pock_precond z4", lambda: chambolle_pock_precond(
         grid, n_iter=5, **den), lambda: chambolle_pock_precond(
         whole, n_iter=5, **den), {})
-    cp_launches = dict(B1=n4, B2=n4, B8dual=n4, B8primal=n4)
+    cp_launches = dict(B1=n4, B2=n4, B8dual=n4, B8primal=n4, B1int=n4,
+                       B2int=n4)
     conv = dict(chunk=5, max_iter=10, tol=1e-12, **den)
     solver_case("run_until_converged z4", lambda: run_until_converged(
         chambolle_pock, grid, **conv), lambda: run_until_converged(
@@ -5401,9 +5675,9 @@ def main():
     res_launches, res_ms, res_bounds = phase_resident_main_path(card)
     z_launches, z_errs, z_ms = phase_zstream(card)
     phase_solvers(card)
-    halo_errs, halo_tv = phase_halo_kernels(card)
-    sh_launches, sh_gd_launches, sh_ms, sh_bounds = phase_sharded_main_path(
-        card)
+    halo_errs, halo_tv, halo_cp = phase_halo_kernels(card)
+    (sh_launches, sh_gd_launches, sh_ms, sh_bounds,
+     sh_modes) = phase_sharded_main_path(card)
     ct_launches = phase_ct_geometries(card)
     phase_compat(card)
     ct_launches.update(phase_ct_spectral(card))
@@ -5435,7 +5709,9 @@ def main():
               **tgv_ms["bounds"], **res_bounds, **sh_bounds,
               # on a z-shard of MAIN_4D, f32 (phase 24)
               **{kid: halo_tv[(kid, "z4 float32")]["bound"]
-                 for kid in ("B3halo", "B4halo")}}
+                 for kid in ("B3halo", "B4halo")},
+              **{kid: halo_cp[(kid, "z4 f32")]["bound"]
+                 for kid in SHARD_KERNELS}}
     bounds["B10"] = bounds["B1"]  # the byte model counts x once already
     require((4 + 2 * Nd + 4 + Nd) * 4 * vox == cp_traffic_model(
         MAIN_4D, Nd, dtype=torch.float32), "B1 + B2 bytes are the CP model's")
@@ -5468,9 +5744,20 @@ def main():
                 name: got[kid] for name, got in ct_launches.items()}
         return out
 
+    def at_shards(times, kid):
+        # phase 24's times of a halo-mode kernel at each shard and storage,
+        # each beside its own bound (bf16's counts half the bytes)
+        return {key: {**{k: v for k, v in got.items() if k != "bound"},
+                      "bound_ms": got["bound"][0],
+                      "bound_by": got["bound"][1]}
+                for (k_id, key), got in times.items() if k_id == kid}
+
     stream_ms = tgv_ms[("4d", "f32")]
-    # every B3 and B4 launch on a grid is one of their halo mode
+    # every B3 and B4 launch on a grid is one of their halo mode; B1 and
+    # B2's there are their sharded modes', counted as B1halo ... B2int
     grid_tv = {k: on_grid.pop(k) for k in ("B3", "B4") if k in on_grid}
+    for kid in ("B1", "B2"):
+        on_grid.pop(kid, None)
     kernels = [
         entry("B1", "cp_dual_spec_kernel (CP pass A)", "specialised.cu",
               "fused.py:652", launches["B1"], errs["B1"]["f32"],
@@ -5545,9 +5832,7 @@ def main():
                 halo_errs[kid]["bf16"],
                 # phase 24: the kernel alone, and the other shards
                 device_ms=halo_tv[(kid, "z4 float32")]["device_ms"],
-                at_shards={key: {k: v for k, v in t.items() if k != "bound"}
-                           for (k_id, key), t in halo_tv.items()
-                           if k_id == kid},
+                at_shards=at_shards(halo_tv, kid),
                 # phases 31-32: the grid entry points
                 launches_grid=grid_tv.get(kid[:2]))
           for kid, kernel, what, source, replaces in (
@@ -5555,6 +5840,24 @@ def main():
                "specialised_tv.cu", "fused.py:1353"),
               ("B4halo", "tv_subgrad_spec_kernel", "TV pass 2",
                "specialised.cu", "fused.py:1473"))),
+        *(entry(kid, f"{SHARD_KERNELS[kid]}, {mode} ({what} on a shard, "
+                "per channel table)", "specialised_cp.cu", replaces,
+                sh_modes[kid]["ghost z4" if mode == "halo mode"
+                              else "overlap z4"], halo_errs[kid]["f32"],
+                (halo_cp[(kid, "z4 f32")]["ms"],
+                 halo_cp[(kid, "z4 f32")]["plain_ms"]),
+                halo_errs[kid]["bf16"],
+                # phase 24: the kernel alone, and the other shards
+                device_ms=halo_cp[(kid, "z4 f32")]["device_ms"],
+                at_shards=at_shards(halo_cp, kid),
+                # phase 25: the ghost-plane and the overlapped step
+                # (phases 31-32, the grid entry points: launches_grid)
+                launches_sharded=sh_modes[kid])
+          for kid, what, mode, replaces in (
+              ("B1halo", "CP pass A", "halo mode", "fused.py:652"),
+              ("B1int", "CP pass A", "interior", "fused.py:652"),
+              ("B2halo", "CP pass B", "halo mode", "fused.py:859"),
+              ("B2int", "CP pass B", "interior", "fused.py:859"))),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

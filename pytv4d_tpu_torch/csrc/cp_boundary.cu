@@ -7,17 +7,18 @@
 //   bnd_primal_kernel <- make_cp_primal_boundary_kernel (fused.py:1187)
 // The overlapped step (parallel/fused_halo.py, overlap=True) first takes the
 // two z-edge planes of every shard's x for its neighbours, runs passes A and
-// B of csrc/cp_fused.cu over the planes 1..Nz-2 of each shard (which need no
-// neighbour's data), and then these two kernels redo the planes z = 0 and
-// z = Nz-1 from the exchanged planes, in place into the same arrays and into
-// the same array of partials.  Slot b of a (2, ...) halo stack is the plane
-// from the left neighbour (b = 0: the value at z - 1 of plane 0) or from the
-// right one (b = 1: the value at z + 1 of plane Nz-1); at a global edge the
-// x stack holds the ghost plane that makes every z difference there zero and
-// the dual stack holds zeros.  Time is not sharded on this path, so the t
-// gates stay on; the z gate is off: every z neighbour is read.
+// B of csrc/specialised_cp.cu over the planes 1..Nz-2 of each shard (which
+// need no neighbour's data), and then these two kernels redo the planes
+// z = 0 and z = Nz-1 from the exchanged planes, in place into the same
+// arrays and into the same array of partials.  Slot b of a (2, ...) halo
+// stack is the plane from the left neighbour (b = 0: the value at z - 1 of
+// plane 0) or from the right one (b = 1: the value at z + 1 of plane
+// Nz-1); at a global edge the x stack holds the ghost plane that makes
+// every z difference there zero and the dual stack holds zeros.  Time is
+// not sharded on this path, so the t gates stay on; the z gate is off:
+// every z neighbour is read.
 //
-// Layouts as in cp_fused.cu; x_halo is (2, M, Nr, Nc), y_halo
+// Layouts as in stencil.cuh; x_halo is (2, M, Nr, Nc), y_halo
 // (2, M, Nd, Nr, Nc).
 //
 // What bounds them: HBM bytes, once the per-channel work is gone.  The
@@ -25,8 +26,8 @@
 // cp_primal_voxel) switched on each channel's axis and kind at run time,
 // built six 64-bit offsets a voxel and loaded each channel's neighbours
 // apart.  Here, as in csrc/specialised.cu for the unsharded pass A:
-//   - the table is a template argument (only the BOUNDARY_TABLES below: the
-//     ones with a z channel, which the overlapped path requires), so the
+//   - the table is a template argument (only tables.cuh's TABLES_WITH_Z:
+//     the ones with a z channel, which the overlapped path requires), so the
 //     channel loops unroll with no runtime axis or kind;
 //   - offsets within a plane are 32-bit (specialised.cuh's Offset);
 //   - a thread takes VEC_BND = 2 columns, one access per array and per
@@ -39,26 +40,17 @@
 // same order (-fmad=false), so y_A', y_D' and x' equal theirs, and the
 // ghost-plane step's, to the bit.
 //
-// Partials: the interior launch (cp_fused.cu, plane_grid) owns
-// ceil(Nr Nc / BLOCK) slots per plane; these kernels, with half as many
-// blocks a plane, write each block's sum to its own slot and zeros to the
-// slots past the last block (edge_parts), so that every slot of the edge
-// planes is written once and the loss moves only by the order of a sum.
+// Partials: the interior launch's array (specialised_cp.cu, in
+// stencil.cuh's num_parts layout) owns ceil(Nr Nc / BLOCK) slots per plane;
+// these kernels, with half as many blocks a plane, write each block's sum
+// to its own slot and zeros to the slots past the last block
+// (specialised.cuh's slot_parts), as the interior launches do on the inner
+// planes, so that every slot is written once and the loss moves only by
+// the order of a sum.
 
 #include "specialised.cuh"
 
 constexpr int VEC_BND = 2;  // columns per thread
-
-// The tables with a z channel whose shards can be overlapped: a z-sharded
-// volume of >= 2 shards of >= 3 planes has Nz >= 6, so central's z channel
-// is CTR (tables 16-18 need Nz == 2).  kernels/tables.py mirrors the list.
-#define BOUNDARY_TABLES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(20)
-
-#define BND_HAS_Z(id)                                      \
-  static_assert(tab_has(table_code(id), AX_Z),             \
-                "a boundary table differences along z");
-BOUNDARY_TABLES(BND_HAS_Z)
-#undef BND_HAS_Z
 
 // The edge plane of the block: blockIdx.y = b * M + t is time t of edge b,
 // plane z = 0 (b = 0) or z = Nz - 1 (b = 1).
@@ -73,18 +65,11 @@ __device__ __forceinline__ Edge edge_of(const Params& p) {
   return e;
 }
 
-// The block's partial s into the interior launch's array, whose (z, t)
-// planes hold ceil(Nr Nc / BLOCK) slots each: s at slot blockIdx.x, zeros
-// at blockIdx.x + j gridDim.x (j >= 1) inside the plane's slots.  With
-// gridDim.x <= slots <= 2 gridDim.x (two columns a thread), every slot of
-// the plane is written once.
+// The block's partial s into the interior launch's array, at the edge
+// plane's row (slot_parts).
 __device__ __forceinline__ void edge_parts(const Params& p, const Edge& e,
                                            float s, float* parts) {
-  if (threadIdx.x != 0) return;
-  const int slots = (int)(((int64_t)p.Nr * p.Nc + BLOCK - 1) / BLOCK);
-  float* row = parts + (int64_t)(e.z * p.M + e.t) * slots;
-  row[blockIdx.x] = s;
-  for (int j = blockIdx.x + gridDim.x; j < slots; j += gridDim.x) row[j] = 0.f;
+  slot_parts(p, e.z * p.M + e.t, s, parts);
 }
 
 // Pass A on the two edge planes: y_A', y_D' in place and the planes' TV
@@ -102,7 +87,7 @@ bnd_dual_kernel(const Params p, const TX* __restrict__ x,
   const TX* h = x_halo + (e.b * p.M + e.t) * plane;
   // z gate off: position 1 of 3, where every z channel reads both sides
   const float s = dual_spec_body<T, VEC_BND, true, TX, TD>(
-      p, e.z, e.t, 1, 3, x, e.b == 0 ? h : xz - p.M * plane,
+      p, e.z, e.t, 1, 3, e.t, p.M, xz, e.b == 0 ? h : xz - p.M * plane,
       e.b == 1 ? h : xz + p.M * plane, x0, yA, yD, tmul, vec);
   edge_parts(p, e, s, parts);
 }
@@ -123,8 +108,9 @@ bnd_primal_kernel(const Params p, TX* __restrict__ x,
   const TD* h = y_halo + (e.b * p.M + e.t) * dplane;
   // z gate off: position 2 of 5, where FWD, BWD and CTR read both sides
   const float s = primal_spec_body<T, VEC_BND, TX, TD>(
-      p, e.z, e.t, 2, 5, x, x0, yA, yD, e.b == 0 ? h : yz - p.M * dplane,
-      e.b == 1 ? h : yz + p.M * dplane, tmul, vec);
+      p, e.z, e.t, 2, 5, e.t, p.M, x, x0, yA, yz,
+      e.b == 0 ? h : yz - p.M * dplane, e.b == 1 ? h : yz + p.M * dplane,
+      tmul, x, vec);
   edge_parts(p, e, p.fid_scale * s, parts);
 }
 
@@ -207,13 +193,13 @@ static int primal_table(const Params* p, int x_bf16, int d_bf16, void* x,
 extern "C" {
 
 // Number of partials of the array the boundary kernels write two planes'
-// rows of: the interior launch's, one per block of plane_grid
-// (cp_fused.cu's cp_num_parts).
+// rows of: the interior launches' (specialised_cp.cu's
+// spcp_interior_num_parts), one slot per BLOCK voxels of a plane.
 long long bnd_num_parts(int Nz, int M, int Nr, int Nc) {
   return num_parts(Nz, M, Nr, Nc);
 }
 
-// Both launch table `id` of BOUNDARY_TABLES and return cudaGetLastError()
+// Both launch table `id` of TABLES_WITH_Z and return cudaGetLastError()
 // after the launch (0 = cudaSuccess), or cudaErrorInvalidValue for an id
 // outside the list.
 int cp_dual_boundary_launch(const Params* p, int id, int x_bf16, int d_bf16,
@@ -226,7 +212,7 @@ int cp_dual_boundary_launch(const Params* p, int id, int x_bf16, int d_bf16,
   case id:                                                                  \
     return dual_table<table_code(id)>(p, x_bf16, d_bf16, x, x_halo, x0, yA, \
                                       yD, tmul, parts, s);
-    BOUNDARY_TABLES(BND_CASE)
+    TABLES_WITH_Z(BND_CASE)
 #undef BND_CASE
   }
   return (int)cudaErrorInvalidValue;
@@ -243,7 +229,7 @@ int cp_primal_boundary_launch(const Params* p, int id, int x_bf16,
   case id:                                                                    \
     return primal_table<table_code(id)>(p, x_bf16, d_bf16, x, x0, yA, yD,   \
                                         y_halo, tmul, parts, s);
-    BOUNDARY_TABLES(BND_CASE)
+    TABLES_WITH_Z(BND_CASE)
 #undef BND_CASE
   }
   return (int)cudaErrorInvalidValue;

@@ -32,7 +32,7 @@
 //   takes the instance without the ring (RING = false), which reads the
 //   planes from memory, as B1 does.
 // - The body is B1's: specialised.cuh's dual_spec_run for the table (the
-//   nine tables with a z channel, kernels/tables.py::ZSTREAM_TABLES), runs
+//   nine tables with a z channel, tables.cuh's TABLES_WITH_Z), runs
 //   of ZV = 2 columns, 32-bit offsets within a plane; it takes the x planes
 //   from the caller, addressed by offset within a plane, so those in the
 //   ring and those across t (from memory) are read alike.  y_A, y_D and x0
@@ -55,17 +55,6 @@ constexpr int ZV = 2;      // columns a run, as B1
 constexpr int ZROWS = 2;   // rows a block's band
 constexpr int ZSLOTS = 4;  // the ring: z - 1, z, z + 1 and z + 2 in flight
 constexpr int ZRING_BYTES = 48 * 1024;
-
-// The tables with a z channel that a volume of Nz >= 3 can have (central's
-// z channel is CTR there; tables 16-18 need Nz == 2).  kernels/tables.py
-// mirrors the list (ZSTREAM_TABLES).
-#define ZSTREAM_TABLES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(20)
-
-#define ZS_HAS_Z(id)                                       \
-  static_assert(tab_has(table_code(id), AX_Z),             \
-                "a zstream table differences along z");
-ZSTREAM_TABLES(ZS_HAS_Z)
-#undef ZS_HAS_Z
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -139,7 +128,7 @@ zstream_spec_kernel(const Params p, const TX* __restrict__ x,
     const TX* xzp = RING ? ring_plane(z + 1) : xg + zs;  // and z < Nz - 1
     for (int j = threadIdx.x; j < runs; j += BLOCK)
       part += dual_spec_run<T, ZV, true, TX, TD>(
-          p, row0 * cpr + j, z, t, z, Nz, xz, xzm, xzp, xg - plane,
+          p, row0 * cpr + j, z, t, z, Nz, t, p.M, xz, xzm, xzp, xg - plane,
           xg + plane, x0, yA, yD, nullptr, vec);
   }
   const float s = block_sum(part);
@@ -196,7 +185,7 @@ long long cpz_num_parts(int Nz, int M, int Nr, int Nc) {
   return (long long)M * ((Nr + ZROWS - 1) / ZROWS);
 }
 
-// Launches table `id` of ZSTREAM_TABLES; returns cudaGetLastError() after
+// Launches table `id` of TABLES_WITH_Z; returns cudaGetLastError() after
 // the launch (0 = cudaSuccess), or cudaErrorInvalidValue for an id outside
 // the list.
 int cp_dual_zstream_launch(const Params* p, int id, int x_bf16, int d_bf16,
@@ -208,7 +197,7 @@ int cp_dual_zstream_launch(const Params* p, int id, int x_bf16, int d_bf16,
   case id:                                                               \
     return zstream_table<table_code(id)>(p, x_bf16, d_bf16, x, x0, yA, yD, \
                                          parts, s);
-    ZSTREAM_TABLES(ZS_CASE)
+    TABLES_WITH_Z(ZS_CASE)
 #undef ZS_CASE
   }
   return (int)cudaErrorInvalidValue;

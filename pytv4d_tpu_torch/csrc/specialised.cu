@@ -7,11 +7,11 @@
 //                                                     unsharded launches)
 //   tv_subgrad_spec_kernel <- make_tv_subgrad_kernel (pass 2, fused.py:1473;
 //                                                     unsharded and halo mode)
-// CP pass A's sharded modes keep the generic instantiations of
-// csrc/cp_fused.cu, which run voxel.cuh's bodies with a runtime table.  TV
-// pass 1 (B3) and pass A for inverse problems (B5) are specialised the same
-// way in csrc/specialised_tv.cu, and the sharded step's boundary passes (B8)
-// in csrc/cp_boundary.cu, which share specialised.cuh with this source.
+// CP pass A's sharded modes (and pass B's) are specialised the same way in
+// csrc/specialised_cp.cu, TV pass 1 (B3) and pass A for inverse problems
+// (B5) in csrc/specialised_tv.cu, and the sharded step's boundary passes
+// (B8) in csrc/cp_boundary.cu, which share specialised.cuh with this
+// source.
 //
 // What bounds them: the generic bodies spent their time on per-channel
 // work, not bytes (a runtime switch on each channel's axis and kind, 64-bit

@@ -1,12 +1,15 @@
 // Device code of the kernels specialised per channel table (csrc/tables.cuh)
-// that csrc/specialised.cu (B1, B4), csrc/specialised_tv.cu (B3, B5) and
-// csrc/cp_boundary.cu (B8) share: runs of V consecutive columns in one
+// that csrc/specialised.cu (B1, B4), csrc/specialised_tv.cu (B3, B5),
+// csrc/specialised_cp.cu (B1, B2 on a shard) and csrc/cp_boundary.cu (B8)
+// share: runs of V consecutive columns in one
 // access, the weighted D channels of one voxel from the neighbours a kernel
 // gathered, the body of pass A (the TV dual prox, with the fidelity dual for
-// B1 and B8 and without it for B5) and the body of pass B (B8).  Both
-// bodies take the planes at z - 1 and z + 1 and the z gate from their
-// caller, so that one body serves an unsharded volume and a shard's edge
-// plane, whose neighbour across the edge is an exchanged halo plane.
+// B1 and B8 and without it for B5) and the body of pass B (B8, and B2 on
+// a shard).  Both bodies take from their caller the plane they work on, the
+// planes at z - 1 and z + 1, and the z and t gates, so that one body serves
+// an unsharded volume, a shard's edge plane, whose neighbour across the edge
+// is an exchanged halo plane, and every plane of a shard whose operands are
+// extended by neighbour or ghost planes (csrc/specialised_cp.cu).
 //
 // Every function here repeats the arithmetic of the generic bodies of
 // voxel.cuh (weighted_d, tv_dual_prox, fid_dual, tv_norms_voxel,
@@ -308,11 +311,15 @@ static inline long long dual_num_parts(int Nz, int M, int Nr, int Nc) {
 // one column either side and one row either side; xzm and xzp the planes at
 // z - 1 and z + 1 (on a shard's edge plane one of them is the exchanged halo
 // plane), xtm and xtp those at t - 1 and t + 1, each read at the run where a
-// channel reads it and its gate passes (zpos and zlen are the z gate: z and
-// Nz on an unsharded volume).  Returns the thread's TV partial.
+// channel reads it and its gate passes (zpos and zlen are the z gate, tpos
+// and tlen the t gate: z, Nz and t, M on an unsharded volume; 2 and 5 turn
+// a gate off, as stencil.cuh's axis_geom reports an ungated axis).  y_D, y_A
+// and x0 are addressed at plane (z, t) of the (Nz, M) planes p describes.
+// Returns the thread's TV partial.
 template <Table T, int V, bool FID, typename TX, typename TD>
 __device__ __forceinline__ float dual_spec_run(
-    const Params& p, int k, int z, int t, int zpos, int zlen,
+    const Params& p, int k, int z, int t, int zpos, int zlen, int tpos,
+    int tlen,
     const TX* __restrict__ xz, const TX* __restrict__ xzm,
     const TX* __restrict__ xzp, const TX* __restrict__ xtm,
     const TX* __restrict__ xtp, const TX* __restrict__ x0,
@@ -332,12 +339,12 @@ __device__ __forceinline__ float dual_spec_run(
   load_run(xq, vec, n, xc);
   // the runs at -1 and +1 along z, t and the rows, where a channel reads
   // them (zeros elsewhere); along the columns, the values either side
-  const int pos[4] = {zpos, t, r, c0}, len[4] = {zlen, p.M, p.Nr, p.Nc};
+  const int len[4] = {zlen, tlen, p.Nr, p.Nc};
   float xm[4][V] = {}, xp[4][V] = {};
   load_nb(xzm + q, tab_lo(T, AX_Z) && zpos > 0, vec, n, xm[AX_Z]);
   load_nb(xzp + q, tab_hi(T, AX_Z) && zpos < zlen - 1, vec, n, xp[AX_Z]);
-  load_nb(xtm + q, tab_lo(T, AX_T) && t > 0, vec, n, xm[AX_T]);
-  load_nb(xtp + q, tab_hi(T, AX_T) && t < p.M - 1, vec, n, xp[AX_T]);
+  load_nb(xtm + q, tab_lo(T, AX_T) && tpos > 0, vec, n, xm[AX_T]);
+  load_nb(xtp + q, tab_hi(T, AX_T) && tpos < tlen - 1, vec, n, xp[AX_T]);
   load_nb(xq - p.Nc, tab_lo(T, AX_ROW) && r > 0, vec, n, xm[AX_ROW]);
   load_nb(xq + p.Nc, tab_hi(T, AX_ROW) && r < p.Nr - 1, vec, n, xp[AX_ROW]);
   const float xl = c0 > 0 ? ld(xq, -1) : 0.f;
@@ -352,7 +359,7 @@ __device__ __forceinline__ float dual_spec_run(
   float d[V][ND];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    const int pj[4] = {zpos, t, r, c0 + j};
+    const int pj[4] = {zpos, tpos, r, c0 + j};
     const float mj[4] = {xm[AX_Z][j], xm[AX_T][j], xm[AX_ROW][j],
                          j > 0 ? xc[j - 1] : xl};
     const float hj[4] = {xp[AX_Z][j], xp[AX_T][j], xp[AX_ROW][j],
@@ -389,15 +396,17 @@ __device__ __forceinline__ float dual_spec_run(
   return part;
 }
 
-// Pass A on the block's (z, t) plane of the volume x: thread k of the plane
-// (k = blockIdx.x BLOCK + threadIdx.x) takes run k (dual_spec_run), the
-// planes across t from x, those across z from the caller (xzm, xzp, gated
-// by zpos and zlen).  Returns the block's TV partial (block_sum, no
-// atomics), valid in thread 0.
+// Pass A on the block's (z, t) plane: thread k of the plane (k = blockIdx.x
+// BLOCK + threadIdx.x) takes run k (dual_spec_run).  xz is x's plane (z, t)
+// wherever x lies -- the volume, or a shard's x extended by neighbour or
+// ghost planes (voxel.cuh::ext_plane) -- and the planes across t are the
+// ones before and after it; those across z are the caller's (xzm, xzp).
+// zpos, zlen and tpos, tlen are the z and t gates.  Returns the block's TV
+// partial (block_sum, no atomics), valid in thread 0.
 template <Table T, int V, bool FID, typename TX, typename TD>
 __device__ __forceinline__ float dual_spec_body(
-    const Params& p, int z, int t, int zpos, int zlen,
-    const TX* __restrict__ x, const TX* __restrict__ xzm,
+    const Params& p, int z, int t, int zpos, int zlen, int tpos, int tlen,
+    const TX* __restrict__ xz, const TX* __restrict__ xzm,
     const TX* __restrict__ xzp, const TX* __restrict__ x0,
     TX* __restrict__ yA, TD* __restrict__ yD, const float* __restrict__ tmul,
     int vec) {
@@ -406,10 +415,9 @@ __device__ __forceinline__ float dual_spec_body(
   float part = 0.f;
   if (k < p.Nr * cpr) {
     const int64_t plane = (int64_t)p.Nr * p.Nc;
-    const TX* xz = x + (z * p.M + t) * plane;
-    part = dual_spec_run<T, V, FID, TX, TD>(p, k, z, t, zpos, zlen, xz, xzm,
-                                            xzp, xz - plane, xz + plane, x0,
-                                            yA, yD, tmul, vec);
+    part = dual_spec_run<T, V, FID, TX, TD>(
+        p, k, z, t, zpos, zlen, tpos, tlen, xz, xzm, xzp, xz - plane,
+        xz + plane, x0, yA, yD, tmul, vec);
   }
   return block_sum(part);
 }
@@ -421,12 +429,11 @@ __device__ __forceinline__ void dual_spec_plane(
     const Params& p, const TX* __restrict__ x, const TX* __restrict__ x0,
     TX* __restrict__ yA, TD* __restrict__ yD, const float* __restrict__ tmul,
     float* __restrict__ parts, int vec) {
-  const int zt = blockIdx.y, z = zt / p.M;
+  const int zt = blockIdx.y, z = zt / p.M, t = zt - z * p.M;
   const int64_t plane = (int64_t)p.Nr * p.Nc, zs = p.M * plane;
   const TX* xz = x + zt * plane;
   const float s = dual_spec_body<T, V, FID, TX, TD>(
-      p, z, zt - z * p.M, z, p.Nz, x, xz - zs, xz + zs, x0, yA, yD, tmul,
-      vec);
+      p, z, t, z, p.Nz, t, p.M, xz, xz - zs, xz + zs, x0, yA, yD, tmul, vec);
   if (threadIdx.x == 0) parts[(int64_t)zt * gridDim.x + blockIdx.x] = s;
 }
 
@@ -438,25 +445,48 @@ static inline dim3 dual_grid(const Params* p) {
               (unsigned)(p->Nz * p->M));
 }
 
+// The block's partial s into row zt of an array whose (z, t) planes hold
+// ceil(Nr Nc / BLOCK) slots each (stencil.cuh's num_parts: one per block of
+// BLOCK voxels, the overlapped step's layout, whose edge rows B8 fills and
+// whose inner rows the interior launches of csrc/specialised_cp.cu fill):
+// s at slot blockIdx.x, zeros at blockIdx.x + j gridDim.x (j >= 1) inside
+// the row.  With gridDim.x <= slots <= 2 gridDim.x (two columns a thread),
+// every slot of the row is written once.
+__device__ __forceinline__ void slot_parts(const Params& p, int zt, float s,
+                                           float* parts) {
+  if (threadIdx.x != 0) return;
+  const int slots = (int)(((int64_t)p.Nr * p.Nc + BLOCK - 1) / BLOCK);
+  float* row = parts + (int64_t)zt * slots;
+  row[blockIdx.x] = s;
+  for (int j = blockIdx.x + gridDim.x; j < slots; j += gridDim.x) row[j] = 0.f;
+}
+
 // ------------------------------------------------------- pass B
 // Pass B on the block's (z, t) plane: x' = x - tau y_A' - tau D^T y_D' (then
-// max(x', 0) when nonneg) in place, thread k taking the run of V columns
+// max(x', 0) when nonneg) into `out`, thread k taking the run of V columns
 // that pass A gives it.  cp_primal_voxel's arithmetic in its order: each
 // channel's (lo - hi) w[i] (times tm on a time channel) added to corr in
 // table order, x - tau y_A - tau corr.  Channel i's adjoint reads the dual
 // of channel i at the voxel and at one neighbour along its axis (FWD: -1,
 // BWD: +1) or two (CTR), each loaded once for the run: along the columns
 // the run itself and the element either side, along z, t and the rows a
-// run.  The z axis is the caller's, as in pass A: yzm and yzp are the
-// dual's planes (channel 0) at z - 1 and z + 1, zpos and zlen their gate.
-// Returns the block's fidelity partial without fid_scale (block_sum),
-// valid in thread 0.
+// run.  yz is the dual's plane (z, t), channel 0, wherever the dual lies --
+// y_D, or a copy extended by neighbour planes (voxel.cuh::ext_plane) -- and
+// its planes across t are the ones before and after it; the z axis is the
+// caller's, as in pass A: yzm and yzp are the dual's planes (channel 0) at
+// z - 1 and z + 1.  zpos, zlen and tpos, tlen are the z and t gates.  x,
+// x0, y_A and out are addressed at plane (z, t) of the (Nz, M) planes p
+// describes; out may be x (in place) and x0 may be x, so none of the three
+// is __restrict__ (each run is read before it is written).  Returns the
+// block's fidelity partial without fid_scale (block_sum), valid in
+// thread 0.
 template <Table T, int V, typename TX, typename TD>
 __device__ __forceinline__ float primal_spec_body(
-    const Params& p, int z, int t, int zpos, int zlen, TX* __restrict__ x,
-    const TX* __restrict__ x0, const TX* __restrict__ yA,
-    const TD* __restrict__ yD, const TD* __restrict__ yzm,
-    const TD* __restrict__ yzp, const float* __restrict__ tmul, int vec) {
+    const Params& p, int z, int t, int zpos, int zlen, int tpos, int tlen,
+    const TX* x, const TX* x0, const TX* __restrict__ yA,
+    const TD* __restrict__ yz, const TD* __restrict__ yzm,
+    const TD* __restrict__ yzp, const float* __restrict__ tmul, TX* out,
+    int vec) {
   constexpr int ND = tab_nd(T);
   const int cpr = (p.Nc + V - 1) / V;
   const int k = blockIdx.x * BLOCK + threadIdx.x;
@@ -467,8 +497,8 @@ __device__ __forceinline__ float primal_spec_body(
     const int n = min(V, p.Nc - c0);
     const int64_t plane = (int64_t)p.Nr * p.Nc, base = (z * p.M + t) * plane;
     const Offset q = (Offset)r * p.Nc + c0;
-    const TD* yq = yD + base * ND + q;
-    const int pos[4] = {zpos, t, r, c0}, len[4] = {zlen, p.M, p.Nr, p.Nc};
+    const TD* yq = yz + q;
+    const int pos[4] = {zpos, tpos, r, c0}, len[4] = {zlen, tlen, p.Nr, p.Nc};
     float tm[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) tm[j] = 1.f;
@@ -532,7 +562,7 @@ __device__ __forceinline__ float primal_spec_body(
       xv[j] = xn;
       if (j < n) part += fid_term(p, xn, xo[j]);
     }
-    store_run(x + base + q, vec, n, xv);
+    store_run(out + base + q, vec, n, xv);
   }
   return block_sum(part);
 }

@@ -1,7 +1,7 @@
-// Device code shared by the stencil kernels of csrc/cp_fused.cu (CP passes A
-// and B), csrc/tv_fused.cu (the halo mode of pass A for inverse problems),
-// csrc/cp_zstream.cu
-// (pass A marching along z) and csrc/resident.cu (whole CP and GD solves):
+// Device code shared by the stencil kernels of csrc/cp_fused.cu (CP pass B),
+// csrc/tv_fused.cu (the halo mode of pass A for inverse problems), the
+// kernels specialised per channel table (csrc/specialised.cuh) and
+// csrc/resident.cu (whole CP and GD solves):
 // the launch parameter struct, bf16/f32 loads and stores, the geometry of one
 // stencil axis at a voxel, the weighted D channels of x and a deterministic
 // block sum.  The per-voxel bodies of the passes are in voxel.cuh, the
@@ -15,13 +15,12 @@
 //   BWD d[i] = f[i]   - f[i-1]  valid at slots [1, L-1]
 //   CTR d[i] = f[i+1] - f[i-1]  valid at slots [1, L-2]
 //
-// The sharded solvers (parallel/fused_halo.py) run the same bodies on one
-// shard of a (z, t) grid of shards.  There a neighbour along z (and t) lies
-// in a ghost or exchanged plane: the kernels are instantiated with HALO,
-// which reads the last fields of Params -- gates off along z (and t), x, the
-// dual or the norms extended by planes on each side, a range of computed
-// planes.  Without HALO those fields are not read and the code is the
-// unsharded kernel's.
+// The sharded solvers (parallel/fused_halo.py) run the same arithmetic on
+// one shard of a (z, t) grid of shards.  There a neighbour along z (and t)
+// lies in a ghost or exchanged plane: the kernels' sharded instances read
+// the last fields of Params -- gates off along z (and t), x, the dual or the
+// norms extended by planes on each side, a range of computed planes.  The
+// unsharded kernels do not read those fields.
 
 #pragma once
 

@@ -91,3 +91,18 @@ constexpr Table table_code(int id) {
 #undef TABLE_CODE
   return 0;
 }
+
+// X(id): the tables with a z channel on a volume of Nz >= 3, where
+// central's z channel is CTR (tables 16-18 need Nz == 2).  The kernels that
+// require a z channel instantiate only these: the overlapped z-sharded CP
+// step's (csrc/cp_boundary.cu, and the interior launches of
+// csrc/specialised_cp.cu; its shards of >= 3 planes make Nz >= 6) and the
+// z-marching pass A (csrc/cp_zstream.cu).  kernels/tables.py mirrors the
+// list (BOUNDARY_TABLES, ZSTREAM_TABLES).
+#define TABLES_WITH_Z(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(20)
+
+#define TABLE_HAS_Z(id)                                \
+  static_assert(tab_has(table_code(id), AX_Z),           \
+                "a table of TABLES_WITH_Z differences along z");
+TABLES_WITH_Z(TABLE_HAS_Z)
+#undef TABLE_HAS_Z

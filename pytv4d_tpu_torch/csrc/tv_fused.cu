@@ -15,10 +15,11 @@
 // Pass A for inverse problems (solvers/inverse.py, the sharded CT solve of
 // parallel/fused_halo.py) is CP pass A's body without its fidelity dual:
 // voxel.cuh's weighted_d and tv_dual_prox, the order of operations of
-// cp_dual_kernel's HALO instantiation and of csrc/specialised_tv.cu's
-// tv_dual_spec_kernel, so that a shard's y_D' equals the unsharded kernel's
-// on the gathered volume bit for bit (its TV partials are summed per block
-// of the shard, so their sum differs in the last bits).  No time-plane
+// CP pass A on a shard (csrc/specialised_cp.cu) and of
+// csrc/specialised_tv.cu's tv_dual_spec_kernel, so that a shard's y_D'
+// equals the unsharded kernel's on the gathered volume bit for bit (its TV
+// partials are summed per block of the shard, so their sum differs in the
+// last bits).  No time-plane
 // multiplier, as in the TPU kernel.  It reads x_bar (1 + Nd / 2 arrays'
 // worth with the dual read and written: (1 + 2 Nd) arrays a voxel) and is
 // bound by HBM bytes.

@@ -1,8 +1,8 @@
 // The per-voxel bodies of the stencil passes: CP pass A (fidelity dual, TV
 // dual prox), CP pass B (primal update), TV pass 1 (norms) and TV pass 2
-// (subgradient).  One arithmetic, several kernels: the per-launch kernels of
-// csrc/cp_fused.cu and csrc/tv_fused.cu, the z-marching pass A of
-// csrc/cp_zstream.cu and the whole-solve kernels of csrc/resident.cu all call
+// (subgradient).  One arithmetic, several kernels: the unsharded pass B of
+// csrc/cp_fused.cu, the halo mode of pass A for inverse problems in
+// csrc/tv_fused.cu and the whole-solve kernels of csrc/resident.cu call
 // these functions, so they round alike (every source is built with
 // -fmad=false, as the plain PyTorch versions round).  The kernels
 // specialised per channel table (csrc/specialised.cuh) repeat their
@@ -15,11 +15,11 @@
 //
 // Layouts as in stencil.cuh: x, x0, y_A, the norms and G are (Nz, M, Nr, Nc);
 // the TV dual y_D is channel-contiguous (Nz, M, Nd, Nr, Nc).  With HALO
-// (stencil.cuh) the arrays a voxel of CP pass A or B reads at its NEIGHBOURS
-// -- x in pass A, the dual in pass B -- are extended by p.xe, p.ye planes
-// per side in z and t, while what the voxel loads and stores at itself keeps
-// the shard's shape.  The TV passes' bodies serve unsharded volumes only
-// (csrc/resident.cu); their halo mode is csrc/specialised*.cu's.
+// (stencil.cuh; csrc/tv_fused.cu) x, which a voxel reads at its
+// NEIGHBOURS, is extended by p.xe planes per side in z and t, while what the
+// voxel loads and stores at itself keeps the shard's shape.  The CP and TV
+// passes' bodies serve unsharded volumes only (csrc/cp_fused.cu,
+// csrc/resident.cu); their sharded modes are csrc/specialised*.cu's.
 
 #pragma once
 
@@ -27,12 +27,11 @@
 
 // One voxel (z, t, r, c): its offset xi in the x-like arrays, the offset yb
 // of its channel 0 in the dual, the plane size and the time-channel
-// multiplier at its pixel; xn and yn are its offsets in the extended x and
-// dual, which only the HALO bodies read (a caller without HALO may step xi
-// and yb from voxel to voxel, as csrc/cp_zstream.cu does).
+// multiplier at its pixel; xn is its offset in the extended x, which only
+// the HALO callers read.
 struct Vox {
   int z, t, r, c;
-  int64_t plane, xi, yb, xn, yn;
+  int64_t plane, xi, yb, xn;
   float tm;
 };
 
@@ -57,13 +56,7 @@ __device__ __forceinline__ Vox make_vox(const Params& p, int zt, I pix,
   v.c = (int)(pix - (I)v.r * p.Nc);
   v.xi = (int64_t)zt * v.plane + pix;
   v.yb = (int64_t)zt * p.Nd * v.plane + pix;
-  if (HALO) {
-    v.xn = ext_plane(p, v.z, v.t, p.xe) * v.plane + pix;
-    v.yn = ext_plane(p, v.z, v.t, p.ye) * p.Nd * v.plane + pix;
-  } else {
-    v.xn = v.xi;
-    v.yn = v.yb;
-  }
+  v.xn = HALO ? ext_plane(p, v.z, v.t, p.xe) * v.plane + pix : v.xi;
   v.tm = p.has_tmul ? tmul[pix] : 1.f;
   return v;
 }
@@ -145,8 +138,8 @@ __device__ __forceinline__ float tv_dual_prox(const Params& p,
 // Pass A at one voxel whose value xc the caller has loaded: y_A' = fid prox
 // and y_D' = TV dual prox of y_D + sigma_D D x, both in place; returns the
 // voxel's TV term of D x.  With ZREG the z neighbours are xzm and xzp
-// (weighted_d).  With HALO x is the extended array (xc = x[v.xn]).
-template <bool ZREG, bool HALO = false, typename TX, typename TD>
+// (weighted_d).
+template <bool ZREG, typename TX, typename TD>
 __device__ __forceinline__ float cp_dual_voxel(const Params& p, const Vox& v,
                                                const TX* x, const TX* x0,
                                                TX* yA, TD* yD, float xc,
@@ -154,8 +147,7 @@ __device__ __forceinline__ float cp_dual_voxel(const Params& p, const Vox& v,
                                                float xzp = 0.f) {
   st(yA, v.xi, fid_dual(p, ld(yA, v.xi), xc, ld(x0, v.xi)));
   float d[MAX_CH];
-  weighted_d<ZREG, HALO>(p, x, HALO ? v.xn : v.xi, xc, v.z, v.t, v.r, v.c,
-                         v.tm, d, xzm, xzp);
+  weighted_d<ZREG>(p, x, v.xi, xc, v.z, v.t, v.r, v.c, v.tm, d, xzm, xzp);
   return tv_dual_prox(p, d, yD, v.yb, v.plane);
 }
 
@@ -163,35 +155,29 @@ __device__ __forceinline__ float cp_dual_voxel(const Params& p, const Vox& v,
 // nonneg) stored to `out` (which may be x: the voxel reads x only at itself);
 // returns the fidelity term of x' without the weight.  The adjoint is the
 // exact scatter of each channel read at this voxel
-// (ops/operators.py::dt_channel): only valid stencil slots are read.  With
-// HALO the dual is read from yN at offset v.yn instead of yD: the copy of yD
-// extended by p.ye planes whose halo planes hold the neighbour shards'
-// values, zero at a global edge (the voxel's own slot too, so that no second
-// array is streamed), or yD itself (p.ye = 0).
-template <bool HALO = false, typename TX, typename TD>
+// (ops/operators.py::dt_channel): only valid stencil slots are read.
+template <typename TX, typename TD>
 __device__ __forceinline__ float cp_primal_voxel(
     const Params& p, const Vox& v, const TX* x, const TX* x0, const TX* yA,
-    const TD* yD, TX* out, const TD* yN = nullptr) {
-  const TD* y = HALO ? yN : yD;
+    const TD* yD, TX* out) {
   float corr = 0.f;
 #pragma unroll
   for (int i = 0; i < MAX_CH; ++i) {
     if (i < p.Nd) {
       int pos, len;
       int64_t s;
-      axis_geom<HALO>(p, p.axis[i], v.z, v.t, v.r, v.c, p.Nd, pos, len, s,
-                      p.ye);
-      const int64_t yi = (HALO ? v.yn : v.yb) + i * v.plane;
+      axis_geom(p, p.axis[i], v.z, v.t, v.r, v.c, p.Nd, pos, len, s);
+      const int64_t yi = v.yb + i * v.plane;
       float lo, hi;
       if (p.kind[i] == K_FWD) {         // slots [0, L-2]
-        lo = pos >= 1 ? ld(y, yi - s) : 0.f;
-        hi = pos <= len - 2 ? ld(y, yi) : 0.f;
+        lo = pos >= 1 ? ld(yD, yi - s) : 0.f;
+        hi = pos <= len - 2 ? ld(yD, yi) : 0.f;
       } else if (p.kind[i] == K_BWD) {  // slots [1, L-1]
-        lo = pos >= 1 ? ld(y, yi) : 0.f;
-        hi = pos <= len - 2 ? ld(y, yi + s) : 0.f;
+        lo = pos >= 1 ? ld(yD, yi) : 0.f;
+        hi = pos <= len - 2 ? ld(yD, yi + s) : 0.f;
       } else {                          // slots [1, L-2]
-        lo = pos >= 2 ? ld(y, yi - s) : 0.f;
-        hi = pos <= len - 3 ? ld(y, yi + s) : 0.f;
+        lo = pos >= 2 ? ld(yD, yi - s) : 0.f;
+        hi = pos <= len - 3 ? ld(yD, yi + s) : 0.f;
       }
       float w = (lo - hi) * p.w[i];
       if (p.axis[i] == AX_T) w = w * v.tm;

@@ -10,7 +10,8 @@ the on-chip whole solves of ``csrc/resident_onchip.cu``, the CP pass A
 (on an unsharded volume) and the TV subgradient (also on a shard) from
 ``csrc/specialised.cu``, the TV norms (also on a shard) and the pass A for
 inverse problems (on an unsharded volume) from ``csrc/specialised_tv.cu``,
-specialised per channel table,
+CP passes A and B on a shard from ``csrc/specialised_cp.cu``, specialised
+per channel table,
 ``kernels.tables``) for CUDA tensors, their
 plain PyTorch versions for CPU tensors.  Importing this package needs
 neither a GPU nor nvcc: the kernels are built on their first launch."""

@@ -10,10 +10,11 @@ One CP iteration is two passes over the volume:
   prox, every weighted D channel of the scheme table, the TV dual prox (iso
   ball, aniso box, Huber shrink + ball) and one TV partial of D x per
   block.  Writes y_A and y_D in place.
-- pass B, :func:`cp_primal` (kernel ``cp_primal_kernel``; replaces
-  ``make_cp_primal_kernel``): ``x' = x - tau y_A' - tau D^T y_D'``, the
-  optional ``nonneg`` clamp and one fidelity partial of x' per block.
-  Writes x in place, or into ``out``.
+- pass B, :func:`cp_primal` (kernel ``cp_primal_kernel`` in
+  ``csrc/cp_fused.cu``; replaces ``make_cp_primal_kernel``):
+  ``x' = x - tau y_A' - tau D^T y_D'``, the optional ``nonneg`` clamp and
+  one fidelity partial of x' per block.  Writes x in place, or into
+  ``out``.
 
 For an inverse problem ``min F(A x) + reg TV(x)`` (``solvers.inverse``) the
 fidelity dual lives in the measurement space, so pass A is
@@ -54,18 +55,20 @@ subgradient-descent step's operator) is two more passes:
 Passes A, 1 and 2 and pass A for inverse problems launch kernels
 specialised for the scheme's channel table (``kernels.tables``: the table
 id picks the template instance; the libraries :data:`SPECIALISED`) on an
-unsharded volume, and so do passes 1 and 2 on a shard in ``halo_mode``
-(their HALO instances: ``spectv_norms_halo_launch``,
-``spec_tv_subgrad_halo_launch``, with the whole volume's table); a table
-outside the compiled list raises.
+unsharded volume, and so do passes A, B, 1 and 2 on a shard (passes 1 and
+2 in ``halo_mode``: their HALO instances, ``spectv_norms_halo_launch``,
+``spec_tv_subgrad_halo_launch``; passes A and B in both sharded modes:
+``csrc/specialised_cp.cu``'s ``spcp_dual_halo_launch``,
+``spcp_dual_interior_launch``, ``spcp_primal_halo_launch``,
+``spcp_primal_interior_launch``; each with the whole volume's table); a
+table outside the compiled list raises (``interior``: outside
+``kernels.tables.BOUNDARY_TABLES``, the tables of the step B8 finishes).
 
 On one shard of a (z, t)-sharded solve (``parallel.fused_halo``) the five
 passes A, B, 1, 2 and A for inverse problems take the TPU kernels' modes:
-passes 1 and 2 in the per-table kernels above, passes A and B in the
-generic kernels of ``csrc/cp_fused.cu`` (``cp_dual_kernel``,
-``cp_primal_kernel``) and pass A for inverse problems in that of
-``csrc/tv_fused.cu`` (``tv_dual_kernel``), which read the channel table
-from ``Params``.
+passes A, B, 1 and 2 in the per-table kernels above, and pass A for
+inverse problems in the generic kernel of ``csrc/tv_fused.cu``
+(``tv_dual_kernel``), which reads the channel table from ``Params``.
 ``halo_mode``: x (pass B: a copy of the dual, pass 2: the norms too)
 arrives extended by a plane per side in z and t (two
 for pass 2's x) that holds the neighbour shard's edge or, at the volume's
@@ -91,11 +94,14 @@ CPU tests run the fused path.  For CUDA tensors it launches the kernel or
 raises.  ``cp_dual.launches``, ``tv_dual.launches``, ``cp_primal.launches``,
 ``tv_norms.launches``, ``tv_subgrad.launches``,
 ``cp_dual_boundary.launches`` and ``cp_primal_boundary.launches`` count
-kernel launches.
+kernel launches; ``cp_dual.launches_by_fn`` and
+``cp_primal.launches_by_fn`` count them by launch function, which tells
+the unsharded launch and the two sharded modes apart.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -191,8 +197,7 @@ _ENTRY_POINTS = {
     #           {launch function: (int flags, tensor pointers)});
     # kernels/tgv_stream.py, tgv_resident.py, resident.py and zstream.py add
     # theirs
-    "cp_fused": ("cp", _Params, {"cp_dual_launch": (2, 6),
-                                 "cp_primal_launch": (2, 8)}),
+    "cp_fused": ("cp", _Params, {"cp_primal_launch": (2, 7)}),
     "tv_fused": ("tv", _Params, {"tv_dual_launch": (2, 3)}),
     # the specialised kernels; int flags (table, storage...)
     "cp_boundary": ("bnd", _Params, {"cp_dual_boundary_launch": (3, 7),
@@ -203,16 +208,26 @@ _ENTRY_POINTS = {
     "specialised_tv": ("spectv", _Params, {
         "spectv_norms_launch": (2, 4), "spectv_norms_halo_launch": (2, 4),
         "spectv_dual_launch": (3, 3)}),
+    "specialised_cp": ("spcp", _Params, {
+        "spcp_dual_halo_launch": (3, 6), "spcp_dual_interior_launch": (3, 6),
+        "spcp_primal_halo_launch": (3, 7),
+        "spcp_primal_interior_launch": (3, 7)}),
 }
-SPECIALISED = ("specialised", "specialised_tv")
+SPECIALISED = ("specialised", "specialised_tv", "specialised_cp")
 
 
 def _num_parts_name(lib, prefix, fn_name):
     """The function of ``lib`` that counts the partials ``fn_name`` writes:
-    its own ``<launch>_num_parts`` where the library has one, else the
-    library's ``<prefix>_num_parts``."""
-    own = fn_name[:-len("_launch")] + "_num_parts"
-    return own if hasattr(lib, own) else f"{prefix}_num_parts"
+    the first the library has of its own ``<launch>_num_parts`` and its
+    mode's ``<prefix>_<mode>_num_parts`` (the launch's last word, as in
+    ``spcp_dual_interior_launch``), else the library's
+    ``<prefix>_num_parts``."""
+    stem = fn_name[:-len("_launch")]
+    mode = stem.rsplit("_", 1)[-1]
+    for count in (f"{stem}_num_parts", f"{prefix}_{mode}_num_parts"):
+        if hasattr(lib, count):
+            return count
+    return f"{prefix}_num_parts"
 
 
 @functools.lru_cache(maxsize=None)
@@ -389,11 +404,6 @@ def _storage_flags(x, y_D):
     return int(x.dtype == torch.bfloat16), int(y_D.dtype == torch.bfloat16)
 
 
-def _cp_launch(fn_name, x, y_D, p, args):
-    return _launch("cp_fused", fn_name, x, p, _storage_flags(x, y_D), args,
-                   with_parts=True)
-
-
 def _spec_launch(fn_name, cfg, x, p, flags, args, with_parts=False,
                  table_dims=None):
     """Launch a specialised kernel, from whichever of the
@@ -405,6 +415,22 @@ def _spec_launch(fn_name, cfg, x, p, flags, args, with_parts=False,
     table = tables.table_id(cfg, *(table_dims or x.shape[:2]))
     name = next(n for n in SPECIALISED if fn_name in _ENTRY_POINTS[n][2])
     return _launch(name, fn_name, x, p, (table, *flags), args, with_parts)
+
+
+def _cp_shard_launch(pass_name, cfg, x, p, flags, args, interior,
+                     table_dims):
+    """Launch CP pass ``pass_name`` (``"dual"`` or ``"primal"``) of
+    ``csrc/specialised_cp.cu`` on the shard ``x`` in its mode, for the
+    channel table of the whole volume's ``table_dims``: any of the 21 in the
+    halo mode, in the interior one only those of the step B8 finishes
+    (``kernels.tables.boundary_table_id``; raises where no kernel is
+    compiled for it).  Returns the launch function's name and the
+    partials."""
+    fn = f"spcp_{pass_name}_{'interior' if interior else 'halo'}_launch"
+    find = tables.boundary_table_id if interior else tables.table_id
+    table = find(cfg, *(table_dims or x.shape[:2]))
+    return fn, _launch("specialised_cp", fn, x, p, (table, *flags), args,
+                       with_parts=True)
 
 
 def _shard_fields(halo_mode, interior, table_dims, **depths):
@@ -441,19 +467,31 @@ def cp_dual(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, sigma_D, sigma_A,
     if x.device.type == "cpu":
         return cp_dual_plain(x, x0, y_A, y_D, tmul, halo_mode=halo_mode,
                              table_dims=table_dims, interior=interior, **kw)
+    return _cp_dual_kernel(x, x0, y_A, y_D, tmul, halo_mode=halo_mode,
+                           table_dims=table_dims, interior=interior, **kw)
+
+
+def _cp_dual_kernel(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, sigma_D,
+                    sigma_A, reg, fidelity="l2", fid_weight=1.0,
+                    halo_mode=False, table_dims=None, interior=False):
+    """:func:`cp_dual`'s launch, on checked operands: the kernel of the
+    scheme's channel table (``csrc/specialised.cu``), on a shard its
+    halo-mode or interior instance (``csrc/specialised_cp.cu``) with the
+    whole volume's table."""
     p = _params(cfg, tuple(x0.shape), tmul is not None,
                 sigma_D=float(sigma_D), sigma_A=float(sigma_A),
                 reg=float(reg), fidelity=fidelity,
                 fid_weight=float(fid_weight),
                 **_shard_fields(halo_mode, interior, table_dims, xe=1))
+    flags, args = _storage_flags(x0, y_D), (x, x0, y_A, y_D, tmul)
     if halo_mode or interior:
-        parts = _cp_launch("cp_dual_launch", x0, y_D, p,
-                           (x, x0, y_A, y_D, tmul))
+        fn, parts = _cp_shard_launch("dual", cfg, x0, p, flags, args,
+                                     interior, table_dims)
     else:
-        parts = _spec_launch("spec_cp_dual_launch", cfg, x0, p,
-                             _storage_flags(x0, y_D),
-                             (x, x0, y_A, y_D, tmul), with_parts=True)
+        fn = "spec_cp_dual_launch"
+        parts = _spec_launch(fn, cfg, x0, p, flags, args, with_parts=True)
     cp_dual.launches += 1
+    cp_dual.launches_by_fn[fn] += 1
     return y_A, y_D, parts.view(x0.shape[0], -1) if interior else parts
 
 
@@ -534,20 +572,39 @@ def cp_primal(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, tau,
     else:
         _check_tensors(x, out=out)
         _check_like(x, out=out)
+    kw = dict(cfg=cfg, tau=tau, fidelity=fidelity, fid_weight=fid_weight,
+              nonneg=nonneg, out=out, halo_mode=halo_mode,
+              table_dims=table_dims, interior=interior, y_ext=y_ext)
     if x.device.type == "cpu":
-        return cp_primal_plain(x, x0, y_A, y_D, tmul, cfg=cfg, tau=tau,
-                               fidelity=fidelity, fid_weight=fid_weight,
-                               nonneg=nonneg, out=out, halo_mode=halo_mode,
-                               table_dims=table_dims, interior=interior,
-                               y_ext=y_ext)
+        return cp_primal_plain(x, x0, y_A, y_D, tmul, **kw)
+    return _cp_primal_kernel(x, x0, y_A, y_D, tmul, **kw)
+
+
+def _cp_primal_kernel(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, tau,
+                      fidelity="l2", fid_weight=1.0, nonneg=False, out,
+                      halo_mode=False, table_dims=None, interior=False,
+                      y_ext=None):
+    """:func:`cp_primal`'s launch, on checked operands: the generic kernel
+    (``csrc/cp_fused.cu``) on a volume, on a shard the halo-mode or interior
+    instance of the scheme's channel table (``csrc/specialised_cp.cu``)
+    with the whole volume's table."""
     p = _params(cfg, tuple(x.shape), tmul is not None, tau=float(tau),
                 fidelity=fidelity, fid_weight=float(fid_weight),
                 nonneg=bool(nonneg),
                 **_shard_fields(halo_mode, interior, table_dims, ye=1))
-    parts = _cp_launch("cp_primal_launch", x, y_D, p,
-                       (x, x0, y_A, y_D, y_ext if halo_mode else y_D, tmul,
-                        out))
+    flags = _storage_flags(x, y_D)
+    if halo_mode or interior:
+        # the halo mode reads the dual from y_ext alone
+        y = y_ext if halo_mode else y_D
+        fn, parts = _cp_shard_launch("primal", cfg, x, p, flags,
+                                     (x, x0, y_A, y, tmul, out), interior,
+                                     table_dims)
+    else:
+        fn = "cp_primal_launch"
+        parts = _launch("cp_fused", fn, x, p, flags,
+                        (x, x0, y_A, y_D, tmul, out), with_parts=True)
     cp_primal.launches += 1
+    cp_primal.launches_by_fn[fn] += 1
     return out, parts.view(x.shape[0], -1) if interior else parts
 
 
@@ -691,6 +748,8 @@ def _primal_boundary_kernel(x, x0, y_A, y_D, y_halo, parts, tmul=None, *,
 cp_dual.launches = 0
 tv_dual.launches = 0
 cp_primal.launches = 0
+cp_dual.launches_by_fn = collections.Counter()
+cp_primal.launches_by_fn = collections.Counter()
 cp_dual_boundary.launches = 0
 cp_primal_boundary.launches = 0
 

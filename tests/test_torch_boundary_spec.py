@@ -32,9 +32,11 @@ def _source():
 
 
 def _source_tables():
-    """The ids of the source's ``BOUNDARY_TABLES`` X-list, in its order."""
-    text = _source().replace("\\\n", " ")
-    body = re.search(r"#define BOUNDARY_TABLES\(X\)(.*)", text).group(1)
+    """The ids of ``csrc/tables.cuh``'s ``TABLES_WITH_Z`` X-list, which the
+    source instantiates, in its order."""
+    with open(os.path.join(build.CSRC, "tables.cuh")) as f:
+        text = f.read().replace("\\\n", " ")
+    body = re.search(r"#define TABLES_WITH_Z\(X\)(.*)", text).group(1)
     return tuple(int(i) for i in re.findall(r"X\((\d+)\)", body))
 
 
@@ -77,7 +79,7 @@ def test_the_list_is_the_sources():
         assert launch in fused._ENTRY_POINTS["cp_boundary"][2]
         body = re.search(rf"int {launch}\((.*?)\n}}", text, re.S).group(1)
         assert re.search(r"switch \(id\)", body)
-        assert "BOUNDARY_TABLES(BND_CASE)" in body
+        assert "TABLES_WITH_Z(BND_CASE)" in body
         assert body.rstrip().endswith("return (int)cudaErrorInvalidValue;")
     # no generic body is left: the kernels take the table as a template
     # argument and run specialised.cuh's bodies

@@ -39,12 +39,12 @@ def test_repo_kernels_include_the_shared_header():
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "tgv.cuh", "stencil.cuh"]
-    # the specialised kernels' sources (the sharded step's boundary
-    # kernels, the z-marching pass A and the on-chip whole solves among
-    # them) share specialised.cuh: the channel tables, and voxel.cuh for the
-    # fidelity dual
-    for name in ("specialised", "specialised_tv", "cp_boundary",
-                 "cp_zstream", "resident_onchip"):
+    # the specialised kernels' sources (the sharded CP passes, the sharded
+    # step's boundary kernels, the z-marching pass A and the on-chip whole
+    # solves among them) share specialised.cuh: the channel tables, and
+    # voxel.cuh for the fidelity dual
+    for name in ("specialised", "specialised_tv", "specialised_cp",
+                 "cp_boundary", "cp_zstream", "resident_onchip"):
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "specialised.cuh", "tables.cuh", "voxel.cuh",
@@ -54,16 +54,17 @@ def test_repo_kernels_include_the_shared_header():
 def test_only_the_specialised_source_splits_its_compile():
     """nvcc compiles the sources of the specialised kernels (a kernel per
     channel table and storage: B1 and B4 in specialised.cu, B3 and B5 in
-    specialised_tv.cu, B8 in cp_boundary.cu, B10 in cp_zstream.cu, B9 on
-    chip in resident_onchip.cu) on every core; the others as they were,
-    and the flags are part of each library's cache key."""
-    for name in ("specialised", "specialised_tv", "cp_boundary",
-                 "cp_zstream", "resident_onchip"):
+    specialised_tv.cu, B1 and B2 on a shard in specialised_cp.cu, B8 in
+    cp_boundary.cu, B10 in cp_zstream.cu, B9 on chip in
+    resident_onchip.cu) on every core; the others as they were, and the
+    flags are part of each library's cache key."""
+    for name in ("specialised", "specialised_tv", "specialised_cp",
+                 "cp_boundary", "cp_zstream", "resident_onchip"):
         assert build.nvcc_flags(name) == \
             build.NVCC_FLAGS + ("-split-compile", "0")
     assert set(build.SOURCE_FLAGS) == {"specialised", "specialised_tv",
-                                       "cp_boundary", "cp_zstream",
-                                       "resident_onchip"}
+                                       "specialised_cp", "cp_boundary",
+                                       "cp_zstream", "resident_onchip"}
     for name in ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident",
                  "tgv_onchip", "resident"):
         assert build.nvcc_flags(name) == build.NVCC_FLAGS
@@ -80,7 +81,7 @@ def test_every_library_has_its_entry_points_and_its_source():
     assert set(fused._ENTRY_POINTS) == {
         "cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
         "cp_zstream", "resident", "resident_onchip", "cp_boundary",
-        "specialised", "specialised_tv"}
+        "specialised", "specialised_tv", "specialised_cp"}
     for name, (prefix, params, launches) in fused._ENTRY_POINTS.items():
         text = ""
         for path in build._sources(os.path.join(build.CSRC, f"{name}.cu")):
@@ -124,26 +125,34 @@ def test_params_struct_mirrors_the_header():
         "sharded", "t_free", "xe", "ye", "ne", "z_first", "z_last"]
 
 
+class _Defines:
+    """A stand-in library that has exactly the functions named."""
+
+    def __init__(self, names):
+        self.__dict__.update(dict.fromkeys(names))
+
+
 def test_each_launch_with_partials_has_its_count():
     """A launch that writes TV or fidelity partials has a C function that
     counts them: its own ``<launch>_num_parts`` (the two passes of
-    specialised_tv.cu, whose blocks differ, and B3's halo mode) or the
-    library's ``<prefix>_num_parts``; the generic B5 and the generic B3 in
-    its halo mode are gone with their entry points.
-    The boundary kernels count the interior launch's partials, whose edge
-    rows they fill."""
+    specialised_tv.cu, whose blocks differ, and B3's halo mode), its
+    mode's ``<prefix>_<mode>_num_parts`` (the sharded CP passes' interior
+    launches) or the library's ``<prefix>_num_parts``; the generic B5, the
+    generic B3 in its halo mode and the generic B1 are gone with their
+    entry points.  The boundary kernels count the interior launches'
+    partials, whose edge rows they fill, as the interior launches count
+    them (their halo mode counts its own blocks)."""
     from pytv4d_tpu_torch.kernels import fused
 
     counts = {}
     for name in ("cp_fused", "tv_fused", "specialised", "specialised_tv",
-                 "cp_boundary"):
+                 "specialised_cp", "cp_boundary"):
         prefix, _, launches = fused._ENTRY_POINTS[name]
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             text = f.read()
         defined = set(re.findall(r"long long (\w+_num_parts)\(", text))
         for fn in launches:
-            own = fn[:-len("_launch")] + "_num_parts"
-            counts[fn] = own if own in defined else f"{prefix}_num_parts"
+            counts[fn] = fused._num_parts_name(_Defines(defined), prefix, fn)
         assert set(counts[fn] for fn in launches) <= defined
     assert counts["spectv_norms_launch"] == "spectv_norms_num_parts"
     assert counts["spectv_dual_launch"] == "spectv_dual_num_parts"
@@ -154,7 +163,13 @@ def test_each_launch_with_partials_has_its_count():
     assert set(fused._ENTRY_POINTS["tv_fused"][2]) == {"tv_dual_launch"}
     assert counts["cp_dual_boundary_launch"] == "bnd_num_parts"
     assert counts["cp_primal_boundary_launch"] == "bnd_num_parts"
-    assert "tv_dual_launch" not in fused._ENTRY_POINTS["cp_fused"][2]
+    assert counts["spcp_dual_halo_launch"] == "spcp_num_parts"
+    assert counts["spcp_primal_halo_launch"] == "spcp_num_parts"
+    assert counts["spcp_dual_interior_launch"] == "spcp_interior_num_parts"
+    assert counts["spcp_primal_interior_launch"] == \
+        "spcp_interior_num_parts"
+    assert counts["cp_primal_launch"] == "cp_num_parts"
+    assert set(fused._ENTRY_POINTS["cp_fused"][2]) == {"cp_primal_launch"}
 
 
 def test_onchip_key_hashes_its_source_and_headers(tmp_path):

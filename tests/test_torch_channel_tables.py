@@ -101,11 +101,13 @@ def test_mirror_equals_the_header():
     ("specialised_tv", "spectv_norms_launch"),
     ("specialised_tv", "spectv_norms_halo_launch"),
     ("specialised_tv", "spectv_dual_launch"),
+    ("specialised_cp", "spcp_dual_halo_launch"),
+    ("specialised_cp", "spcp_primal_halo_launch"),
 ])
 def test_each_launch_instantiates_every_table(source, launch):
-    """The C entry points of csrc/specialised.cu and csrc/specialised_tv.cu
-    switch over the whole X-list, one case per table id, and fail any other
-    id."""
+    """The C entry points of csrc/specialised.cu, csrc/specialised_tv.cu
+    and the halo mode's of csrc/specialised_cp.cu switch over the whole
+    X-list, one case per table id, and fail any other id."""
     from pytv4d_tpu_torch.kernels import fused
 
     assert launch in fused._ENTRY_POINTS[source][2]

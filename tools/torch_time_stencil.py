@@ -48,7 +48,13 @@ and B4 in ``halo_mode`` are also timed in bf16 and on a shard of a (2 x 2)
 grid, (16, 4, 256, 256), in float32 and bf16, on operands the sharded TV
 builds (``parallel.fused_halo``: the neighbours' and ghost planes), with a
 hash of the norms and of G after one launch each, and their host
-microseconds per launch as B8's.  A line of its own then splits
+microseconds per launch as B8's.  A line of its own times B1 and B2 on
+that z-shard in both sharded modes, f32 and bf16 (primary and dual), from
+seeded states (x and the dual extended by one plane a side for
+``halo_mode``): CUDA events and the device's ms (``torch.profiler``) per
+launch, and the hashes of y_A' and y_D' after one B1 launch and of x'
+after one B2 launch, so that two trees' outputs can be compared bit for
+bit.  Another line then splits
 the device time (``torch.profiler``) of the grid calls that run B3 and B4
 in their halo mode -- ``tv_and_subgrad`` on 4 z-shards and on a (2 x 2)
 grid (10 calls) and a 20-iteration ``subgradient_descent`` on 4 z-shards
@@ -519,6 +525,16 @@ def main():
           "the sharded TV's operands; the (2 x 2) grid's shard (16, 4, 256, "
           "256)): " + ", ".join(f"{k} {v}" for k, v in tv_hash.items())
           + f"; card {card()}", flush=True)
+    cp_ms, cp_dev, cp_hash = cp_shard_modes(cfg, dev)
+    print(f"[sharded CP kernels] {os.path.relpath(root)} one z-shard {shard} "
+          f"+ its planes, hybrid reg_time=0.5, per launch, CUDA events / "
+          f"device (torch.profiler): "
+          + ", ".join(f"{k} {cp_ms[k]:.4f} / {cp_dev[k]:.4f} ms"
+                      for k in cp_ms)
+          + "; output hashes (y_A', y_D' after one B1 launch, x' after one "
+          "B2 launch, from seeded states): "
+          + ", ".join(f"{k} {v}" for k, v in cp_hash.items())
+          + f"; card {card()}", flush=True)
     split = tv_grid_split(x0, cfg, dev, root)
     print(f"[sharded TV split] {os.path.relpath(root)} {SHAPE} f32 hybrid "
           f"reg_time=0.5, device ms (torch.profiler) and wall ms: "
@@ -551,6 +567,57 @@ def halo_tv_operands(vol, cfg, mesh_zt, dev):
     n1 = fh._extend_norms(grid_map(lambda e: fused.tv_norms(e, **mode)[0],
                                    x1))
     return x1[1][0], x2[1][0], n1[1][0]
+
+
+def cp_shard_modes(cfg, dev):
+    """B1 and B2 on one z-shard of :data:`SHAPE` (its second) in both
+    sharded modes, f32 and bf16 (primary and dual), from seeded states: ms
+    per launch (CUDA events, :func:`launch_ms`), the device's ms
+    (``torch.profiler`` over 50 launches) and the hashes of y_A' and y_D'
+    after one B1 launch and of x' after one B2 launch (written to a copy
+    of x).  ``halo_mode`` takes x and the dual extended by one plane a side
+    in z and t, ``interior`` the shard alone."""
+    from pytv4d_tpu_torch.core.schemes import num_channels
+    from pytv4d_tpu_torch.kernels import fused
+    from pytv4d_tpu_torch.utils.profiling import device_time
+
+    Nz, M, Nr, Nc = SHAPE
+    nz = Nz // 4
+    Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg, cfg.reg_time)
+    rng = np.random.default_rng(20)
+    td = dict(table_dims=(Nz, M))
+    dk = dict(cfg=cfg, sigma_D=0.5, sigma_A=1.0, reg=1.0, **td)
+    pk = dict(cfg=cfg, tau=0.1, **td)
+    ms, on_dev, hashes = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def seeded(*shape):
+            return torch.as_tensor(rng.standard_normal(shape),
+                                   dtype=torch.float32, device=dev).to(dtype)
+
+        x, x0, y_A = (seeded(nz, M, Nr, Nc) for _ in range(3))
+        x1 = seeded(nz + 2, M + 2, Nr, Nc)
+        y_D = seeded(nz, M, Nd, Nr, Nc)
+        y1 = seeded(nz + 2, M + 2, Nd, Nr, Nc)
+        runs = {
+            "B1 halo": lambda a, d, o: fused.cp_dual(
+                x1, x0, a, d, halo_mode=True, **dk),
+            "B1 interior": lambda a, d, o: fused.cp_dual(
+                x, x0, a, d, interior=True, **dk),
+            "B2 halo": lambda a, d, o: fused.cp_primal(
+                x, x0, a, d, y_ext=y1, halo_mode=True, out=o, **pk),
+            "B2 interior": lambda a, d, o: fused.cp_primal(
+                x, x0, a, d, interior=True, out=o, **pk)}
+        tag = "" if dtype == torch.float32 else " bf16"
+        for name, run in runs.items():
+            a, d, o = y_A.clone(), y_D.clone(), x.clone()
+            run(a, d, o)
+            hashes[name + tag] = digest(o) if "B2" in name else digest(a, d)
+            ms[name + tag] = launch_ms(lambda: run(a, d, o))
+            on_dev[name + tag] = device_time(
+                lambda: [run(a, d, o) for _ in range(50)], 50, dev)[0]
+            del a, d, o
+        del x, x0, y_A, x1, y_D, y1
+    return ms, on_dev, hashes
 
 
 COPY_KERNELS = ("Cat", "copy", "Memcpy", "where")
