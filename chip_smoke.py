@@ -9,8 +9,8 @@ the whole-solve CP and GD kernels (B9: on chip, and in L2 for larger
 volumes) and the TGV-2 kernels (B6 passes PQ
 and XW, B7 whole solve: on chip, and in L2 for larger slices)
 from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once; B1 and B5
-on an unsharded volume, B1 to B4 on a shard (B1 and B2 in both sharded
-modes, B3 and B4 in their halo mode), B3 and B4 on a volume and B8 are the
+on an unsharded volume, B1 to B5 on a shard (B1 and B2 in both sharded
+modes, B3, B4 and B5 in their halo mode), B3 and B4 on a volume and B8 are the
 kernels specialised per channel table (``csrc/specialised.cu`` for B1 and
 B4, ``csrc/specialised_tv.cu`` for B3 and B5, ``csrc/specialised_cp.cu``
 for B1 and B2 on a shard, ``csrc/cp_boundary.cu`` for B8: four sources
@@ -140,8 +140,12 @@ the entry points on a grid (phase 31): hands grids of shards of the
 time), ``admm`` and ``fista`` (no kernel), each against the same call on
 the whole volume, and times each beside the direct sharded solver.  For
 the CT and remaining solver entry points on a grid (phase 32): holds B5's
-halo mode (``csrc/tv_fused.cu``) against its plain version at one of 4
-z-shards of the CT cell and times it beside its bound; hands the CT cell's
+halo mode (the halo instance of ``tv_dual_spec_kernel``,
+``csrc/specialised_tv.cu``) over every channel table and storage pair on
+three grids, each shard's y_D' bit for bit the unsharded B5's on the
+gathered volume and within the CP bar of its plain version, and at one of 4
+z-shards of the CT cell against its plain version, timed beside its bound
+(events and on the device); hands the CT cell's
 sinogram as 4 z-shards and a (2 x 2) grid to ``cp_reconstruct`` (one B5,
 B2 and B3 launch a shard and iteration, in their halo mode: f32, a bf16
 dual, resumed from a whole-volume state, an array ``fidelity_weight``),
@@ -287,13 +291,13 @@ README_TV = 532166.8251801673  # tv_hybrid(rand(20, 4, 100, 100)), seed 0
 # TVDenoiser(reg=25).tgv(cameraman + noise, 300): the JAX package in f64 on
 # the CPU (tests/test_torch_tgv.py)
 CAMERAMAN_TGV_LOSS = 37211904.16116732
-LIBS = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
+LIBS = ("cp_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
         "resident", "resident_onchip", "cp_zstream", "cp_boundary",
         "specialised", "specialised_tv", "specialised_cp")
 # the kernels specialised per channel table, by kernel id: a pattern of their
-# mangled names (phase 2 reports each one's registers and spills); B3 and B4
-# in their halo mode, and B1 and B2 on a shard, by their HALO template flag,
-# the last argument
+# mangled names (phase 2 reports each one's registers and spills); B3, B4
+# and B5 in their halo mode, and B1 and B2 on a shard, by their HALO
+# template flag, the last argument
 SPEC_KERNELS = {"B1": "cp_dual_spec_kernel",
                 "B1halo": r"cp_dual_shard_kernel\w*Lb1E",
                 "B1int": r"cp_dual_shard_kernel\w*Lb0E",
@@ -303,7 +307,8 @@ SPEC_KERNELS = {"B1": "cp_dual_spec_kernel",
                 "B4halo": r"tv_subgrad_spec_kernel\w*Lb1E",
                 "B3": r"tv_norms_spec_kernel\w*Lb0E",
                 "B3halo": r"tv_norms_spec_kernel\w*Lb1E",
-                "B5": "tv_dual_spec_kernel",
+                "B5": r"tv_dual_spec_kernel\w*Lb0E",
+                "B5halo": r"tv_dual_spec_kernel\w*Lb1E",
                 "B8dual": "bnd_dual_kernel", "B8primal": "bnd_primal_kernel",
                 "B9cp": "reso_cp_kernel", "B9gd": "reso_gd_kernel",
                 "B10": "zstream_spec_kernel"}
@@ -2792,6 +2797,34 @@ def _halo_tv_bounds(shard, cfg, table_dims, dtype):
                             (10 * Nd + 2) * vox)}
 
 
+def _halo_sides(shard, chans):
+    """The planes on one face of a shard along z and t, and for each axis
+    whether the table's channels read x one plane below (BWD, CTR) and one
+    plane above (FWD, CTR) along it."""
+    face = {AXIS_Z: shard[1], AXIS_T: shard[0]}
+    sides = {a: (any(c.kind in ("bwd", "ctr") for c in chans if c.axis == a),
+                 any(c.kind in ("fwd", "ctr") for c in chans if c.axis == a))
+             for a in face}
+    return face, sides
+
+
+def _halo_b5_bound(shard, cfg, table_dims, x_dt, d_dt):
+    """The bound of B5 in its halo mode on one shard: x_bar at the shard and
+    at the planes its table's z and t channels read beyond it (one plane a
+    side that a channel reads, as B1's halo mode: _halo_cp_bounds), the dual
+    read and written, each once, over the HBM rate; 10 operations a channel
+    and voxel, as the unsharded B5's bound counts them.  Returns (ms, what
+    sets it, bytes)."""
+    Nz, M, Nr, Nc = shard
+    chans, _ = scheme_channels(cfg.scheme, *table_dims, cfg.reg_z_over_reg,
+                               cfg.reg_time)
+    face, sides = _halo_sides(shard, chans)
+    own, plane, Nd = Nz * M, Nr * Nc, len(chans)
+    x_planes = own + sum(face[a] * sum(sides[a]) for a in face)
+    n_bytes = (x_planes * x_dt.itemsize + 2 * own * Nd * d_dt.itemsize) * plane
+    return bound(n_bytes, 10 * Nd * own * plane) + (n_bytes,)
+
+
 def _halo_cp_bounds(shard, cfg, table_dims, x_dt, d_dt):
     """The bounds of B1 and B2 in their sharded modes on one shard: each
     input once and each output once.  ``interior`` computes the planes
@@ -2808,10 +2841,7 @@ def _halo_cp_bounds(shard, cfg, table_dims, x_dt, d_dt):
                                cfg.reg_time)
     Nd, plane = len(chans), Nr * Nc
     xb, db = x_dt.itemsize, d_dt.itemsize
-    face = {AXIS_Z: M, AXIS_T: Nz}  # planes on one face of the shard
-    sides = {a: (any(c.kind in ("bwd", "ctr") for c in chans if c.axis == a),
-                 any(c.kind in ("fwd", "ctr") for c in chans if c.axis == a))
-             for a in face}
+    face, sides = _halo_sides(shard, chans)
     # the dual planes one channel's adjoint reads beyond its slots: FWD
     # the plane below, BWD the one above, CTR both
     y_nb = {a: sum(2 if c.kind == "ctr" else 1 for c in chans if c.axis == a)
@@ -5280,12 +5310,70 @@ CT32_CONE = ConeBeamGeometry(source_dist=256.0, det_dist=128.0)
 CT32_BF16_TOL = 1e-3  # x of a bf16-dual grid solve, of the scale
 
 
+def _b5_halo_tables():
+    """B5's halo launch over every table it is built for (21) x the 4
+    storage pairs x an even and an odd width, on three grids of each
+    volume: 1 x 1, (2 x 2), and a z-cut into one-plane shards (z4, or z2
+    where the table needs Nz = 2, central's FWD z channel).  Each shard's
+    x_bar is extended by its ghost or neighbour planes as the sharded CT
+    solve extends it; its y_D' must lie within the CP bar of the plain
+    version (bf16 one ulp) with its TV partials' sum within 1e-5, and the
+    gathered y_D' must equal the unsharded B5's on the whole volume bit for
+    bit.  Returns (cases, shard launches, max abs errs f32 / bf16)."""
+    n_case = n_shard = 0
+    errs = {"f32": 0.0, "bf16": 0.0}
+    gen = torch.Generator(device=DEV).manual_seed(5321)
+    for tid, (cfg, dims) in _halo_tv_table_configs().items():
+        chans, _ = scheme_channels(cfg.scheme, *dims, cfg.reg_z_over_reg,
+                                   cfg.reg_time)
+        gz = fused_halo._axis_ghost_kind(chans, AXIS_Z)
+        gt = fused_halo._axis_ghost_kind(chans, AXIS_T)
+        kw = dict(cfg=cfg, sigma_D=0.4, reg=0.5)
+        for storage, rc in itertools.product(SHARD_STORAGE, HALO_TV_WIDTHS):
+            x_dt, d_dt = SHARD_STORAGE[storage]
+            kind = "f32" if storage == "f32" else "bf16"
+            shape = dims + rc
+            x = torch.randn(shape, generator=gen, device=DEV).to(x_dt)
+            y = (0.3 * torch.randn(dims + (len(chans),) + rc, generator=gen,
+                                   device=DEV)).to(d_dt)
+            want, _ = fused.tv_dual(x, y.clone(), **kw)
+            for mesh_zt in ((1, 1), (2, 2), (dims[0], 1)):
+                mesh, st = make_mesh(*mesh_zt), mesh_zt[1] > 1
+                xe = fused_halo._extend_axis(fused_halo._extend_axis(
+                    shard_volume(x, mesh, st), 0, gz), 1, gt)
+                ys = shard_volume(y, mesh, st)
+                mode = dict(halo_mode=True, table_dims=dims, **kw)
+                got = grid_map(lambda a, b: fused.tv_dual(a, b.clone(),
+                                                          **mode), xe, ys)
+                for (g, tk), a, b in _cells(got, xe, ys):
+                    p, tp = fused.tv_dual_plain(a, b.clone(), **mode)
+                    errs[kind] = max(errs[kind], _compare(
+                        g, p, kind == "bf16", kw["reg"]))
+                    rel = abs(float(tk.sum()) - float(tp.sum())) / float(
+                        tp.sum())
+                    require(rel <= 1e-5, f"B5 halo table {tid} {storage} "
+                            f"{shape} on {mesh_zt}: TV sum {rel:.3g}")
+                    n_shard += 1
+                require(_bits_equal(gather_volume(grid_map(
+                    lambda c: c[0], got)), want),
+                    f"B5 halo table {tid} {storage} {shape} on {mesh_zt}: "
+                    f"y_D' bit-equal to the unsharded B5's on the gathered "
+                    f"volume")
+            n_case += 1
+    sync()
+    return n_case, n_shard, errs
+
+
 def _b5_halo(card):
-    """B5 in its halo mode (``csrc/tv_fused.cu`` ``tv_dual_kernel``) on one
-    of 4 z-shards of the CT cell, ``(4, 4, 512, 512)`` with its ghost
-    planes, hybrid ``reg_time=0.5``: against its plain version (f32 and a
-    bf16 dual, the CP bar), and its time against the plain version's in
-    alternating turns beside its bound."""
+    """B5 in its halo mode (``csrc/specialised_tv.cu``, the HALO instance of
+    ``tv_dual_spec_kernel``): over every table and storage pair on three
+    grids (``_b5_halo_tables``), and on one of 4 z-shards of the CT cell,
+    ``(4, 4, 512, 512)`` with its ghost planes, hybrid ``reg_time=0.5``:
+    against its plain version (f32, a bf16 dual and bf16, the CP bar) and
+    on the device (``_kernel_ms``) beside its bound (``_halo_b5_bound``)
+    in each storage, and in f32 its time against the plain version's in
+    alternating turns."""
+    n_case, n_shard, table_errs = _b5_halo_tables()
     cfg = TVConfig(**CT_CFG)
     Nd = num_channels(cfg.scheme, CT_SHAPE[0], CT_SHAPE[1],
                       cfg.reg_z_over_reg, cfg.reg_time)
@@ -5293,41 +5381,67 @@ def _b5_halo(card):
     gen = torch.Generator(device=DEV).manual_seed(32)
     x_ext = torch.randn((local[0] + 2, local[1] + 2) + local[2:],
                         generator=gen, device=DEV)
+    y0 = 0.3 * torch.randn(local[:2] + (Nd,) + local[2:], generator=gen,
+                           device=DEV)
     kw = dict(cfg=cfg, sigma_D=0.3, reg=0.5, halo_mode=True,
               table_dims=CT_SHAPE[:2])
-    out = {}
-    for name, ddt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        y = (0.3 * torch.randn(local[:2] + (Nd,) + local[2:], generator=gen,
-                               device=DEV)).to(ddt)
-        got, parts = fused.tv_dual(x_ext, y.clone(), **kw)
-        want, want_parts = fused.tv_dual_plain(x_ext, y.clone(), **kw)
+    out = dict(kernel="tv_dual_spec_kernel<T, TX, TD, true>",
+               source="pytv4d_tpu_torch/csrc/specialised_tv.cu",
+               at_storage={})
+    errs = dict(table_errs)
+    for name, (x_dt, d_dt) in (("f32", (torch.float32, torch.float32)),
+                               ("bf16 dual", (torch.float32, torch.bfloat16)),
+                               ("bf16", (torch.bfloat16, torch.bfloat16))):
+        xs, y = x_ext.to(x_dt), y0.to(d_dt)
+        got, parts = fused.tv_dual(xs, y.clone(), **kw)
+        want, want_parts = fused.tv_dual_plain(xs, y.clone(), **kw)
         sync()
-        out["max_abs_err" if name == "f32" else "max_abs_err_bf16"] = \
-            _compare(got, want, name == "bf16", kw["reg"])
+        kind = "f32" if name == "f32" else "bf16"
+        errs[kind] = max(errs[kind], _compare(got, want, kind == "bf16",
+                                              kw["reg"]))
         rel = abs(float(parts.sum()) - float(want_parts.sum())) / abs(
             float(want_parts.sum()))
         require(rel <= 1e-5, f"B5 halo {name}: TV partials within 1e-5 of "
                              f"the plain version's, got {rel:.3g}")
-    y = (0.3 * torch.randn(local[:2] + (Nd,) + local[2:], generator=gen,
-                           device=DEV))
-    y_k, y_p = y.clone(), y.clone()
+        dev_ms, seen = _kernel_ms(lambda: fused.tv_dual(xs, y, **kw),
+                                  "tv_dual_spec_kernel")
+        b_ms, by, n_bytes = _halo_b5_bound(local, cfg, CT_SHAPE[:2], x_dt,
+                                           d_dt)
+        out["at_storage"][name] = dict(device_ms=dev_ms, seen=seen,
+                                       bound_ms=b_ms, bound_by=by,
+                                       bytes=n_bytes)
+        del xs, y, got, want
+    y_k, y_p = y0.clone(), y0.clone()
     n = 20
     ms = _turns((lambda: [fused.tv_dual(x_ext, y_k, **kw) for _ in range(n)],
                  lambda: [fused.tv_dual_plain(x_ext, y_p, **kw)
                           for _ in range(n)]), n, repeats=3)
-    # each input read once, each output written once: x_bar with its ghost
-    # planes, y_D read and written; 10 operations a channel and voxel
-    n_bytes = 4 * (x_ext.numel() + 2 * y.numel())
-    bound_ms, by = bound(n_bytes, 10 * Nd * int(np.prod(local)))
+    f32 = out["at_storage"]["f32"]
     out.update(shard=list(local), ms=ms[0][0], plain_ms=ms[1][0],
-               bound_ms=bound_ms, bound_by=by, bytes=n_bytes)
-    log(f"[32 B5 halo mode] one of 4 z-shards of {CT_SHAPE}, {local} + "
-        f"ghost planes, hybrid reg_time=0.5 ({card}): max |kernel - plain| "
-        f"f32 {out['max_abs_err']:.3g}, bf16 dual "
-        f"{out['max_abs_err_bf16']:.3g}; ms a launch, median (least to "
-        f"most) of 3 turns of {n}: " + _turns_text(("kernel", "plain"), ms)
-        + f"; bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB), "
-        f"kernel at {bound_ms / ms[0][0]:.1%} of it")
+               device_ms=f32["device_ms"], bound_ms=f32["bound_ms"],
+               bound_by=f32["bound_by"], bytes=f32["bytes"],
+               max_abs_err=errs["f32"], max_abs_err_bf16=errs["bf16"],
+               table_cases=n_case, table_shards=n_shard)
+    log(f"[32 B5 halo mode] tv_dual_spec_kernel's HALO instance over all "
+        f"{len(tables.TABLES)} tables x {len(SHARD_STORAGE)} storage pairs "
+        f"x {HALO_TV_WIDTHS} on a 1 x 1, a (2 x 2) and a z-cut grid "
+        f"({n_case} volumes, {n_shard} shard launches): each shard within "
+        f"the CP bar of its plain version (max abs err f32 "
+        f"{table_errs['f32']:.3g}, bf16 {table_errs['bf16']:.3g}), the "
+        f"gathered y_D' bit-equal to the unsharded B5's in every case; one "
+        f"of 4 z-shards of {CT_SHAPE}, {local} + ghost planes, hybrid "
+        f"reg_time=0.5 ({card}): max |kernel - plain| f32 "
+        f"{errs['f32']:.3g}, bf16 {errs['bf16']:.3g}; f32 ms a launch, "
+        f"median (least to most) of 3 turns of {n}: "
+        + _turns_text(("kernel", "plain"), ms)
+        + f", kernel at {f32['bound_ms'] / ms[0][0]:.1%} of its bound "
+        f"(events); on the device, beside the bound (the planes its table "
+        f"reads): "
+        + ", ".join(f"{k} {v['device_ms']:.4f} ms ({v['seen']} of 50 "
+                    f"launches recorded), bound {v['bound_ms']:.4f} ms "
+                    f"({v['bound_by']}, {v['bytes'] / 1e6:.1f} MB): "
+                    f"{v['bound_ms'] / v['device_ms']:.1%}"
+                    for k, v in out["at_storage"].items()))
     return out
 
 
@@ -5774,8 +5888,8 @@ def main():
         entry("B5", "tv_dual_spec_kernel (CP pass A, inverse problems)",
               "specialised_tv.cu", "fused.py:759", inv_launches["B5"],
               inv_errs["f32"], b5_ms, inv_errs["bf16"],
-              # phase 32: its halo mode, tv_fused.cu's tv_dual_kernel, on
-              # one of 4 z-shards of the CT cell
+              # phase 32: its halo mode, the kernel's HALO instance, on
+              # one of 4 z-shards of the CT cell and over every table
               halo_mode=b5_halo),
         entry("B6pq", "tgv_pq_kernel (TGV pass PQ)", "tgv_stream.cu",
               "tgv_stream.py:344", tgv_launches["B6pq"],

@@ -8,8 +8,8 @@
 // table: on a volume in csrc/specialised.cu, on one shard of a (z, t)-sharded
 // solve, in both of its modes, in csrc/specialised_cp.cu, which also holds
 // pass B's sharded modes.  Pass A for inverse problems
-// (make_tv_dual_kernel, fused.py:759) is csrc/specialised_tv.cu's on a
-// volume and csrc/tv_fused.cu's on a shard.
+// (make_tv_dual_kernel, fused.py:759) is csrc/specialised_tv.cu's, on a
+// volume and on a shard.
 // The denoising contract is cp_step_fused_internal (fused.py:1303): for
 // (x, y_A, y_D, x0) the pair returns (x', y_A', y_D', loss) with
 // loss = sum(fid parts of x') + reg * sum(TV parts of D x_old).  For an

@@ -114,8 +114,8 @@ tv_subgrad_spec_kernel(const Params p, const TX* __restrict__ x,
       aniso ? nullptr : norms + (HALO ? ext_plane(p, z, t, 1) * plane : base);
   const int64_t xsz = (HALO ? p.M + 4 : p.M) * plane;
   const int64_t nsz = (HALO ? p.M + 2 : p.M) * plane;
-  // the z and t gates: off in the halo mode (a position every gate passes,
-  // as stencil.cuh's axis_geom reports)
+  // the z and t gates: off in the halo mode (position 2 of 5, which every
+  // gate passes: specialised.cuh's dual_spec_run)
   const int zpos = HALO ? 2 : z, zlen = HALO ? 5 : p.Nz;
   const int tpos = HALO ? 2 : t, tlen = HALO ? 5 : p.M;
 

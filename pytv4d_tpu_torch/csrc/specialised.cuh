@@ -313,8 +313,9 @@ static inline long long dual_num_parts(int Nz, int M, int Nr, int Nc) {
 // plane), xtm and xtp those at t - 1 and t + 1, each read at the run where a
 // channel reads it and its gate passes (zpos and zlen are the z gate, tpos
 // and tlen the t gate: z, Nz and t, M on an unsharded volume; 2 and 5 turn
-// a gate off, as stencil.cuh's axis_geom reports an ungated axis).  y_D, y_A
-// and x0 are addressed at plane (z, t) of the (Nz, M) planes p describes.
+// a gate off: position 2 lies inside [2, len - 3], where every channel and
+// its adjoint read).  y_D, y_A and x0 are addressed at plane (z, t) of the
+// (Nz, M) planes p describes.
 // Returns the thread's TV partial.
 template <Table T, int V, bool FID, typename TX, typename TD>
 __device__ __forceinline__ float dual_spec_run(
@@ -434,6 +435,27 @@ __device__ __forceinline__ void dual_spec_plane(
   const TX* xz = x + zt * plane;
   const float s = dual_spec_body<T, V, FID, TX, TD>(
       p, z, t, z, p.Nz, t, p.M, xz, xz - zs, xz + zs, x0, yA, yD, tmul, vec);
+  if (threadIdx.x == 0) parts[(int64_t)zt * gridDim.x + blockIdx.x] = s;
+}
+
+// Pass A on plane blockIdx.y of a shard whose x is extended by one plane per
+// side in z and t (the neighbour shards' planes, or ghost planes): the
+// block's plane (z, t) at extended plane (z + 1, t + 1) (voxel.cuh's
+// ext_plane), its z neighbours M + 2 planes either side, both gates off
+// (position 2 of 5, where every channel and its adjoint read:
+// dual_spec_run); y_D and the partials keep the shard's shape, the block's
+// TV partial at parts[blockIdx.y][blockIdx.x].  CP pass A's halo instance
+// (FID, csrc/specialised_cp.cu) and B5's (csrc/specialised_tv.cu).
+template <Table T, int V, bool FID, typename TX, typename TD>
+__device__ __forceinline__ void dual_spec_halo_plane(
+    const Params& p, const TX* __restrict__ x, const TX* __restrict__ x0,
+    TX* __restrict__ yA, TD* __restrict__ yD, const float* __restrict__ tmul,
+    float* __restrict__ parts, int vec) {
+  const int zt = blockIdx.y, z = zt / p.M, t = zt - z * p.M;
+  const int64_t plane = (int64_t)p.Nr * p.Nc, zs = (p.M + 2) * plane;
+  const TX* xz = x + ext_plane(p, z, t, 1) * plane;
+  const float s = dual_spec_body<T, V, FID, TX, TD>(
+      p, z, t, 2, 5, 2, 5, xz, xz - zs, xz + zs, x0, yA, yD, tmul, vec);
   if (threadIdx.x == 0) parts[(int64_t)zt * gridDim.x + blockIdx.x] = s;
 }
 

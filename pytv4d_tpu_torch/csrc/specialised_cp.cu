@@ -68,27 +68,26 @@ __device__ __forceinline__ int shard_plane(const Params& p) {
 // ------------------------------------------------------- pass A (B1)
 // y_A' = fid prox, y_D' = TV dual prox of y_D + sigma_D D x, in place; one
 // TV partial per block.  x is extended by one plane per side in z and t
-// (HALO) or the shard itself (interior).
+// (HALO: specialised.cuh's dual_spec_halo_plane) or the shard itself
+// (interior).
 template <Table T, typename TX, typename TD, bool HALO>
 __global__ void __launch_bounds__(BLOCK)
 cp_dual_shard_kernel(const Params p, const TX* __restrict__ x,
                      const TX* __restrict__ x0, TX* __restrict__ yA,
                      TD* __restrict__ yD, const float* __restrict__ tmul,
                      float* __restrict__ parts, int vec) {
-  const int zt = shard_plane<HALO>(p);
-  const int z = zt / p.M, t = zt - z * p.M;
-  const int64_t plane = (int64_t)p.Nr * p.Nc;
-  // x's plane (z, t) and x's stride along z, in planes of M + 2 or M
-  const TX* xz = x + (HALO ? ext_plane(p, z, t, 1) : (int64_t)zt) * plane;
-  const int64_t zs = (HALO ? p.M + 2 : p.M) * plane;
-  // the z gate off in both modes, the t gate in the halo mode: position 2
-  // of 5, where every gate passes (stencil.cuh's axis_geom)
-  const float s = dual_spec_body<T, VEC, true, TX, TD>(
-      p, z, t, 2, 5, HALO ? 2 : t, HALO ? 5 : p.M, xz, xz - zs, xz + zs, x0,
-      yA, yD, tmul, vec);
   if constexpr (HALO) {
-    if (threadIdx.x == 0) parts[(int64_t)zt * gridDim.x + blockIdx.x] = s;
+    dual_spec_halo_plane<T, VEC, true, TX, TD>(p, x, x0, yA, yD, tmul, parts,
+                                               vec);
   } else {
+    const int zt = shard_plane<false>(p);
+    const int z = zt / p.M, t = zt - z * p.M;
+    const int64_t plane = (int64_t)p.Nr * p.Nc, zs = p.M * plane;
+    const TX* xz = x + zt * plane;
+    // the z gate off (position 2 of 5, where every gate passes:
+    // specialised.cuh's dual_spec_run), the t gate on
+    const float s = dual_spec_body<T, VEC, true, TX, TD>(
+        p, z, t, 2, 5, t, p.M, xz, xz - zs, xz + zs, x0, yA, yD, tmul, vec);
     slot_parts(p, zt, s, parts);
   }
 }

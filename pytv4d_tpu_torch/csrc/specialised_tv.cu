@@ -1,16 +1,14 @@
-// TV pass 1 (B3, the gradient norms) on an unsharded volume and in the halo
-// mode of a (z, t)-sharded solve, and pass A for inverse problems (B5) on an
-// unsharded volume, specialised for one channel table of csrc/tables.cuh,
-// for NVIDIA Hopper (sm_90a).
+// TV pass 1 (B3, the gradient norms) and pass A for inverse problems (B5),
+// each on an unsharded volume and in the halo mode of a (z, t)-sharded
+// solve, specialised for one channel table of csrc/tables.cuh, for NVIDIA
+// Hopper (sm_90a).
 //
 // Replace the Pallas TPU kernels of pytv4d_tpu/kernels/fused.py:
 //   tv_norms_spec_kernel <- make_tv_norms_kernel (pass 1, fused.py:1353;
 //                                                 unsharded and halo mode)
 //   tv_dual_spec_kernel  <- make_tv_dual_kernel  (pass A without the
 //                                                 fidelity dual, fused.py:759;
-//                                                 unsharded launches)
-// The halo mode of pass A for inverse problems is csrc/tv_fused.cu's
-// generic tv_dual_kernel.
+//                                                 unsharded and halo mode)
 //
 // What bounds them: bytes, once the per-channel work is gone (the generic
 // bodies' runtime table, 64-bit index arithmetic and gated load per
@@ -40,6 +38,16 @@
 //     memory, as pass 2 does), along z, other ring depths (AHEAD), tiles
 //     and register caps.
 //
+// Pass A in the halo mode (HALO; one shard of the sharded CT solve,
+// parallel/fused_halo.py::make_sharded_tv_half) is CP pass A's halo
+// instance (specialised.cuh's dual_spec_halo_plane, as
+// csrc/specialised_cp.cu's cp_dual_shard_kernel runs it) without the
+// fidelity dual: x arrives extended by Params::xe = 1 plane per side in z
+// and t (the neighbour shards' planes, or ghost planes that zero every
+// difference across the volume's edge), the block's plane is addressed in
+// it (voxel.cuh's ext_plane) with a z stride of M + 2 planes, and the z and
+// t gates are off; y_D and the partials keep the shard's shape.
+//
 // Pass 1 in the halo mode (HALO; one shard of parallel/fused_halo.py's
 // sharded TV and of the sharded CT solve's loss) is the same march over x
 // extended by Params::xe = 1 plane per side in z and t, holding the
@@ -54,10 +62,10 @@
 // The arithmetic is the generic bodies' operation for operation and in the
 // same order (voxel.cuh: weighted_d with tv_norms_voxel for pass 1, and with
 // tv_dual_prox for pass A; -fmad=false), so the norms equal the generic
-// body's (a shard's also the unsharded kernel's on the same voxels of the
-// gathered volume) and y_D' equals CP pass A's (with no time multiplier) to
-// the bit.  The TV partials are one per block (block_sum, no atomics): the
-// TV value moves only by the order of a sum.
+// body's and y_D' equals CP pass A's (with no time multiplier) to the bit; a
+// shard's norms and y_D' equal the unsharded kernels' on the same voxels of
+// the gathered volume.  The TV partials are one per block (block_sum, no
+// atomics): the TV value moves only by the order of a sum.
 //
 // Bound to Python through the plain C interface at the end (ctypes,
 // kernels/fused.py::_spec_launch); nvcc compiles its kernels in parallel
@@ -81,14 +89,22 @@ constexpr int NORMS_MIN_BLOCKS = 1;  // resident blocks an SM must hold
 static_assert(NORMS_TR % NORMS_TY == 0 && AHEAD >= 2, "pass 1's tiling");
 
 // ------------------------------------------------ pass A (B5)
-// specialised.cuh's dual_spec_body without the fidelity dual.
-template <Table T, typename TX, typename TD>
+// specialised.cuh's dual_spec_body without the fidelity dual, on an
+// unsharded volume (dual_spec_plane) or (HALO) on a shard whose x is
+// extended by one plane per side in z and t (dual_spec_halo_plane); one TV
+// partial per block at parts[zt][blockIdx.x].
+template <Table T, typename TX, typename TD, bool HALO>
 __global__ void __launch_bounds__(BLOCK)
 tv_dual_spec_kernel(const Params p, const TX* __restrict__ x,
                     TD* __restrict__ yD, float* __restrict__ parts,
                     int vec) {
-  dual_spec_plane<T, VEC_TV, false, TX, TD>(p, x, nullptr, nullptr, yD,
-                                            nullptr, parts, vec);
+  if constexpr (HALO) {
+    dual_spec_halo_plane<T, VEC_TV, false, TX, TD>(p, x, nullptr, nullptr,
+                                                   yD, nullptr, parts, vec);
+  } else {
+    dual_spec_plane<T, VEC_TV, false, TX, TD>(p, x, nullptr, nullptr, yD,
+                                              nullptr, parts, vec);
+  }
 }
 
 // ------------------------------------------------ pass 1 (B3)
@@ -389,8 +405,8 @@ tv_norms_spec_kernel(const Params p, const TX* __restrict__ x,
         xp[AX_Z] = gp[j][AX_Z];
         xp[AX_T] = gp[j][AX_T];
       }
-      // the z and t gates: off in the halo mode (a position every gate
-      // passes, as stencil.cuh's axis_geom reports)
+      // the z and t gates: off in the halo mode (position 2 of 5, which
+      // every gate passes: specialised.cuh's dual_spec_run)
       const int pos[4] = {HALO ? 2 : z, HALO ? 2 : t, r0 + ry, c};
       const int len[4] = {HALO ? 5 : p.Nz, HALO ? 5 : p.M, p.Nr, p.Nc};
       float d[ND];
@@ -432,13 +448,13 @@ static int tv_norms_spec_launch(const Params* p, const void* x,
   return (int)cudaGetLastError();
 }
 
-template <Table T, typename TX, typename TD>
+template <Table T, typename TX, typename TD, bool HALO>
 static int tv_dual_spec_launch(const Params* p, const void* x, void* yD,
                                void* parts, cudaStream_t s) {
   const int vec = p->Nc % VEC_TV == 0 && aligned(x, VEC_TV * sizeof(TX)) &&
                   aligned(yD, VEC_TV * sizeof(TD));
   const dim3 grid = dual_grid<VEC_TV>(p);
-  tv_dual_spec_kernel<T, TX, TD><<<grid, BLOCK, 0, s>>>(
+  tv_dual_spec_kernel<T, TX, TD, HALO><<<grid, BLOCK, 0, s>>>(
       *p, (const TX*)x, (TD*)yD, (float*)parts, vec);
   return (int)cudaGetLastError();
 }
@@ -453,16 +469,18 @@ static int tv_norms_spec_table(const Params* p, int x_bf16, const void* x,
   return tv_norms_spec_launch<T, float, HALO>(p, x, tmul, norms, parts, s);
 }
 
-template <Table T>
+template <Table T, bool HALO>
 static int tv_dual_spec_table(const Params* p, int x_bf16, int d_bf16,
                               const void* x, void* yD, void* parts,
                               cudaStream_t s) {
   typedef __nv_bfloat16 B;
   if (!x_bf16 && !d_bf16)
-    return tv_dual_spec_launch<T, float, float>(p, x, yD, parts, s);
-  if (!x_bf16) return tv_dual_spec_launch<T, float, B>(p, x, yD, parts, s);
-  if (!d_bf16) return tv_dual_spec_launch<T, B, float>(p, x, yD, parts, s);
-  return tv_dual_spec_launch<T, B, B>(p, x, yD, parts, s);
+    return tv_dual_spec_launch<T, float, float, HALO>(p, x, yD, parts, s);
+  if (!x_bf16)
+    return tv_dual_spec_launch<T, float, B, HALO>(p, x, yD, parts, s);
+  if (!d_bf16)
+    return tv_dual_spec_launch<T, B, float, HALO>(p, x, yD, parts, s);
+  return tv_dual_spec_launch<T, B, B, HALO>(p, x, yD, parts, s);
 }
 
 extern "C" {
@@ -473,11 +491,18 @@ extern "C" {
 long long spectv_norms_num_parts(int Nz, int M, int Nr, int Nc) {
   return (long long)norms_tiles(Nr, Nc) * norms_lines(Nz, M);
 }
+// The halo launches write as many partials at the shard's shape as the
+// unsharded ones.  kernels/fused.py::_num_parts_name finds a launch's count
+// by the launch's name (<launch>_num_parts, else spectv_halo_num_parts,
+// else spectv_num_parts), so each launch has a count of its own name.
 long long spectv_norms_halo_num_parts(int Nz, int M, int Nr, int Nc) {
   return spectv_norms_num_parts(Nz, M, Nr, Nc);
 }
 long long spectv_dual_num_parts(int Nz, int M, int Nr, int Nc) {
   return dual_num_parts<VEC_TV>(Nz, M, Nr, Nc);
+}
+long long spectv_dual_halo_num_parts(int Nz, int M, int Nr, int Nc) {
+  return spectv_dual_num_parts(Nz, M, Nr, Nc);
 }
 
 // Each launches table `id` of csrc/tables.cuh and returns cudaGetLastError()
@@ -528,7 +553,28 @@ int spectv_dual_launch(const Params* p, int id, int x_bf16, int d_bf16,
   switch (id) {
 #define SPEC_CASE(id, code)                                                 \
   case id:                                                                  \
-    return tv_dual_spec_table<code>(p, x_bf16, d_bf16, x, yD, parts, s);
+    return tv_dual_spec_table<code, false>(p, x_bf16, d_bf16, x, yD, parts, \
+                                           s);
+    CHANNEL_TABLES(SPEC_CASE)
+#undef SPEC_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Pass A in the halo mode: x (Nz+2, M+2, Nr, Nc) of a shard whose y_D is
+// (Nz, M, Nd, Nr, Nc), Params with sharded, t_free and xe = 1 and no time
+// multiplier (the TPU kernel takes none).
+int spectv_dual_halo_launch(const Params* p, int id, int x_bf16, int d_bf16,
+                            const void* x, void* yD, void* parts,
+                            void* stream) {
+  if (!p->sharded || !p->t_free || p->xe != 1 || p->has_tmul)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (id) {
+#define SPEC_CASE(id, code)                                                 \
+  case id:                                                                  \
+    return tv_dual_spec_table<code, true>(p, x_bf16, d_bf16, x, yD, parts,  \
+                                          s);
     CHANNEL_TABLES(SPEC_CASE)
 #undef SPEC_CASE
   }

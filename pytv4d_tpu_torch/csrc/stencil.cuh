@@ -1,6 +1,5 @@
 // Device code shared by the stencil kernels of csrc/cp_fused.cu (CP pass B),
-// csrc/tv_fused.cu (the halo mode of pass A for inverse problems), the
-// kernels specialised per channel table (csrc/specialised.cuh) and
+// the kernels specialised per channel table (csrc/specialised.cuh) and
 // csrc/resident.cu (whole CP and GD solves):
 // the launch parameter struct, bf16/f32 loads and stores, the geometry of one
 // stencil axis at a voxel, the weighted D channels of x and a deterministic
@@ -17,10 +16,12 @@
 //
 // The sharded solvers (parallel/fused_halo.py) run the same arithmetic on
 // one shard of a (z, t) grid of shards.  There a neighbour along z (and t)
-// lies in a ghost or exchanged plane: the kernels' sharded instances read
-// the last fields of Params -- gates off along z (and t), x, the dual or the
-// norms extended by planes on each side, a range of computed planes.  The
-// unsharded kernels do not read those fields.
+// lies in a ghost or exchanged plane: the kernels' sharded instances (the
+// per-table kernels' HALO and interior instances, csrc/specialised*.cu, and
+// the boundary kernels of csrc/cp_boundary.cu) read the last fields of
+// Params -- gates off along z (and t), x, the dual or the norms extended by
+// planes on each side, a range of computed planes.  The unsharded kernels
+// do not read those fields.
 
 #pragma once
 
@@ -52,8 +53,10 @@ struct Params {
   float huber_den;       // huber: 1 + sigma_D huber_delta / reg
   float fid_scale;       // l2: fid_weight / 2, else fid_weight
   float scheme_norm;     // the scheme normalisation (hybrid 1/sqrt 2, ...)
-  // Read by the HALO instantiations only (one shard of a sharded solve; Nz
-  // and M above are the shard's, the channel table the whole volume's):
+  // Read by the sharded instances only (one shard of a sharded solve: the
+  // HALO and interior instances of csrc/specialised*.cu and the boundary
+  // kernels; Nz and M above are the shard's, the channel table the whole
+  // volume's):
   int sharded;           // z is not gated: every z neighbour is in the arrays
                          // handed in, a ghost plane standing for a global edge
   int t_free;            // t is not gated either
@@ -71,27 +74,19 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
 
-// Position, length and element stride of axis `a` at voxel (z, t, r, c);
-// `chan_stride` is Nd for the channel-contiguous dual, 1 for x.  With HALO
-// the array indexed is extended by `e` planes per side in z and t (its z
-// stride spans M + 2 e planes), and an ungated axis reports a position every
-// gate passes.
-template <bool HALO = false>
+// Position, length and element stride of axis `a` at voxel (z, t, r, c) of
+// an unsharded volume; `chan_stride` is Nd for the channel-contiguous dual,
+// 1 for x.
 __device__ __forceinline__ void axis_geom(const Params& p, int a, int z,
                                           int t, int r, int c,
                                           int64_t chan_stride, int& pos,
-                                          int& len, int64_t& s, int e = 0) {
+                                          int& len, int64_t& s) {
   const int64_t plane = (int64_t)p.Nr * p.Nc;
-  const int Mx = HALO ? p.M + 2 * e : p.M;
   switch (a) {
-    case AX_Z: pos = z; len = p.Nz; s = (int64_t)Mx * chan_stride * plane; break;
+    case AX_Z: pos = z; len = p.Nz; s = (int64_t)p.M * chan_stride * plane; break;
     case AX_T: pos = t; len = p.M; s = chan_stride * plane; break;
     case AX_ROW: pos = r; len = p.Nr; s = p.Nc; break;
     default: pos = c; len = p.Nc; s = 1; break;
-  }
-  if (HALO && ((a == AX_Z && p.sharded) || (a == AX_T && p.t_free))) {
-    pos = 2;  // inside [2, len - 3]: FWD, BWD, CTR and their adjoints all read
-    len = 5;
   }
 }
 
@@ -99,9 +94,8 @@ __device__ __forceinline__ void axis_geom(const Params& p, int a, int z,
 // difference of channel i, 0 at its invalid slots, times tm on time
 // channels, times w[i].  d[i] = 0 for i >= Nd.  With ZREG the z neighbours
 // of the voxel are the values xzm (z - 1) and xzp (z + 1) the caller holds
-// in registers, and x is read only along t, rows and columns.  With HALO, x
-// is extended by p.xe planes and xi is the voxel's offset in it.
-template <bool ZREG = false, bool HALO = false, typename TX>
+// in registers, and x is read only along t, rows and columns.
+template <bool ZREG = false, typename TX>
 __device__ __forceinline__ void weighted_d(const Params& p, const TX* x,
                                            int64_t xi, float xc, int z, int t,
                                            int r, int c, float tm,
@@ -113,7 +107,7 @@ __device__ __forceinline__ void weighted_d(const Params& p, const TX* x,
     if (i < p.Nd) {
       int pos, len;
       int64_t s;
-      axis_geom<HALO>(p, p.axis[i], z, t, r, c, 1, pos, len, s, p.xe);
+      axis_geom(p, p.axis[i], z, t, r, c, 1, pos, len, s);
       float v;
       if (ZREG && p.axis[i] == AX_Z) {
         if (p.kind[i] == K_FWD)

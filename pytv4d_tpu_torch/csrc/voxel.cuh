@@ -1,8 +1,7 @@
 // The per-voxel bodies of the stencil passes: CP pass A (fidelity dual, TV
 // dual prox), CP pass B (primal update), TV pass 1 (norms) and TV pass 2
 // (subgradient).  One arithmetic, several kernels: the unsharded pass B of
-// csrc/cp_fused.cu, the halo mode of pass A for inverse problems in
-// csrc/tv_fused.cu and the whole-solve kernels of csrc/resident.cu call
+// csrc/cp_fused.cu and the whole-solve kernels of csrc/resident.cu call
 // these functions, so they round alike (every source is built with
 // -fmad=false, as the plain PyTorch versions round).  The kernels
 // specialised per channel table (csrc/specialised.cuh) repeat their
@@ -14,12 +13,10 @@
 // parameters.
 //
 // Layouts as in stencil.cuh: x, x0, y_A, the norms and G are (Nz, M, Nr, Nc);
-// the TV dual y_D is channel-contiguous (Nz, M, Nd, Nr, Nc).  With HALO
-// (stencil.cuh; csrc/tv_fused.cu) x, which a voxel reads at its
-// NEIGHBOURS, is extended by p.xe planes per side in z and t, while what the
-// voxel loads and stores at itself keeps the shard's shape.  The CP and TV
-// passes' bodies serve unsharded volumes only (csrc/cp_fused.cu,
-// csrc/resident.cu); their sharded modes are csrc/specialised*.cu's.
+// the TV dual y_D is channel-contiguous (Nz, M, Nd, Nr, Nc).  These bodies
+// serve unsharded volumes only (csrc/cp_fused.cu, csrc/resident.cu); the
+// sharded modes of every pass are csrc/specialised*.cu's, which address a
+// shard's extended operands through ext_plane below.
 
 #pragma once
 
@@ -27,11 +24,10 @@
 
 // One voxel (z, t, r, c): its offset xi in the x-like arrays, the offset yb
 // of its channel 0 in the dual, the plane size and the time-channel
-// multiplier at its pixel; xn is its offset in the extended x, which only
-// the HALO callers read.
+// multiplier at its pixel.
 struct Vox {
   int z, t, r, c;
-  int64_t plane, xi, yb, xn;
+  int64_t plane, xi, yb;
   float tm;
 };
 
@@ -45,7 +41,7 @@ __device__ __forceinline__ int64_t ext_plane(const Params& p, int z, int t,
 // The voxel at pixel `pix` of plane zt = z * M + t; tmul is read only when
 // p.has_tmul.  I is the pixel index's type: int64_t, or int where the caller
 // knows the volume is small (its divisions are cheaper).
-template <bool HALO = false, typename I>
+template <typename I>
 __device__ __forceinline__ Vox make_vox(const Params& p, int zt, I pix,
                                         const float* tmul) {
   Vox v;
@@ -56,7 +52,6 @@ __device__ __forceinline__ Vox make_vox(const Params& p, int zt, I pix,
   v.c = (int)(pix - (I)v.r * p.Nc);
   v.xi = (int64_t)zt * v.plane + pix;
   v.yb = (int64_t)zt * p.Nd * v.plane + pix;
-  v.xn = HALO ? ext_plane(p, v.z, v.t, p.xe) * v.plane + pix : v.xi;
   v.tm = p.has_tmul ? tmul[pix] : 1.f;
   return v;
 }

@@ -31,9 +31,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 # and per source: the sources of the specialised kernels instantiate a
-# kernel per channel table and storage (168 each; the sharded CP passes
-# 240, the boundary kernels 72, the z-marching pass A 36, the on-chip whole
-# solves 42), which nvcc compiles on every core
+# kernel per channel table and storage (B1 and B4 168, B3 and B5 252, the
+# sharded CP passes 240, the boundary kernels 72, the z-marching pass A 36,
+# the on-chip whole solves 42), which nvcc compiles on every core
 SOURCE_FLAGS = {"specialised": ("-split-compile", "0"),
                 "specialised_tv": ("-split-compile", "0"),
                 "specialised_cp": ("-split-compile", "0"),

@@ -55,9 +55,10 @@ subgradient-descent step's operator) is two more passes:
 Passes A, 1 and 2 and pass A for inverse problems launch kernels
 specialised for the scheme's channel table (``kernels.tables``: the table
 id picks the template instance; the libraries :data:`SPECIALISED`) on an
-unsharded volume, and so do passes A, B, 1 and 2 on a shard (passes 1 and
-2 in ``halo_mode``: their HALO instances, ``spectv_norms_halo_launch``,
-``spec_tv_subgrad_halo_launch``; passes A and B in both sharded modes:
+unsharded volume, and so do all five passes on a shard (passes 1, 2 and A
+for inverse problems in ``halo_mode``: their HALO instances,
+``spectv_norms_halo_launch``, ``spec_tv_subgrad_halo_launch``,
+``spectv_dual_halo_launch``; passes A and B in both sharded modes:
 ``csrc/specialised_cp.cu``'s ``spcp_dual_halo_launch``,
 ``spcp_dual_interior_launch``, ``spcp_primal_halo_launch``,
 ``spcp_primal_interior_launch``; each with the whole volume's table); a
@@ -65,10 +66,7 @@ table outside the compiled list raises (``interior``: outside
 ``kernels.tables.BOUNDARY_TABLES``, the tables of the step B8 finishes).
 
 On one shard of a (z, t)-sharded solve (``parallel.fused_halo``) the five
-passes A, B, 1, 2 and A for inverse problems take the TPU kernels' modes:
-passes A, B, 1 and 2 in the per-table kernels above, and pass A for
-inverse problems in the generic kernel of ``csrc/tv_fused.cu``
-(``tv_dual_kernel``), which reads the channel table from ``Params``.
+passes A, B, 1, 2 and A for inverse problems take the TPU kernels' modes.
 ``halo_mode``: x (pass B: a copy of the dual, pass 2: the norms too)
 arrives extended by a plane per side in z and t (two
 for pass 2's x) that holds the neighbour shard's edge or, at the volume's
@@ -198,7 +196,6 @@ _ENTRY_POINTS = {
     # kernels/tgv_stream.py, tgv_resident.py, resident.py and zstream.py add
     # theirs
     "cp_fused": ("cp", _Params, {"cp_primal_launch": (2, 7)}),
-    "tv_fused": ("tv", _Params, {"tv_dual_launch": (2, 3)}),
     # the specialised kernels; int flags (table, storage...)
     "cp_boundary": ("bnd", _Params, {"cp_dual_boundary_launch": (3, 7),
                                      "cp_primal_boundary_launch": (3, 7)}),
@@ -207,7 +204,7 @@ _ENTRY_POINTS = {
         "spec_tv_subgrad_halo_launch": (2, 4)}),
     "specialised_tv": ("spectv", _Params, {
         "spectv_norms_launch": (2, 4), "spectv_norms_halo_launch": (2, 4),
-        "spectv_dual_launch": (3, 3)}),
+        "spectv_dual_launch": (3, 3), "spectv_dual_halo_launch": (3, 3)}),
     "specialised_cp": ("spcp", _Params, {
         "spcp_dual_halo_launch": (3, 6), "spcp_dual_interior_launch": (3, 6),
         "spcp_primal_halo_launch": (3, 7),
@@ -405,16 +402,18 @@ def _storage_flags(x, y_D):
 
 
 def _spec_launch(fn_name, cfg, x, p, flags, args, with_parts=False,
-                 table_dims=None):
+                 table_dims=None, shape=None):
     """Launch a specialised kernel, from whichever of the
     :data:`SPECIALISED` libraries defines ``fn_name``, on the volume or
-    shard ``x`` (the shape whose partials it counts), for the channel table
-    of ``cfg`` at the whole volume's ``table_dims``, x's ``(Nz, M)`` by
-    default (``kernels.tables``; raises where no kernel is compiled for
-    it)."""
-    table = tables.table_id(cfg, *(table_dims or x.shape[:2]))
+    shard of ``shape`` (x's by default; the shape whose partials it
+    counts), for the channel table of ``cfg`` at the whole volume's
+    ``table_dims``, that shape's ``(Nz, M)`` by default
+    (``kernels.tables``; raises where no kernel is compiled for it)."""
+    shape = shape or tuple(x.shape)
+    table = tables.table_id(cfg, *(table_dims or shape[:2]))
     name = next(n for n in SPECIALISED if fn_name in _ENTRY_POINTS[n][2])
-    return _launch(name, fn_name, x, p, (table, *flags), args, with_parts)
+    return _launch(name, fn_name, x, p, (table, *flags), args, with_parts,
+                   shape)
 
 
 def _cp_shard_launch(pass_name, cfg, x, p, flags, args, interior,
@@ -506,8 +505,12 @@ def tv_dual(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg, halo_mode=False,
 
     On a shard (module docstring): with ``halo_mode`` x_bar is
     ``(Nz+2, M+2, Nr, Nc)`` while ``y_D`` keeps the shard's shape, and the
-    kernel is ``tv_dual_kernel`` of ``csrc/tv_fused.cu``.  ``table_dims``:
-    the whole volume's ``(Nz, M)``."""
+    kernel is the halo instance of ``tv_dual_spec_kernel``
+    (``csrc/specialised_tv.cu``) for the whole volume's table.
+    ``table_dims``: the whole volume's ``(Nz, M)``.  ``y_D'`` is the
+    unsharded kernel's on the same voxels of the gathered volume, bit for
+    bit; ``tv_parts`` come one per block of the shard's planes, so their
+    sum differs from the unsharded kernel's only by the order of a sum."""
     e = int(halo_mode)
     _check_tensors(x_bar, y_D=y_D)
     Nd = _check_volume(x_bar, cfg, table_dims, e)
@@ -522,18 +525,15 @@ def tv_dual(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg, halo_mode=False,
 def _tv_dual_kernel(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg,
                     halo_mode=False, table_dims=None):
     """:func:`tv_dual`'s launch, on checked operands: the kernel of the
-    scheme's channel table (``csrc/specialised_tv.cu``) on a volume, the
-    halo-mode kernel (``csrc/tv_fused.cu``) on a shard."""
+    scheme's channel table (``csrc/specialised_tv.cu``), on a shard its
+    halo instance with the whole volume's table."""
     shape = _shard_shape(x_bar, int(halo_mode))
     p = _params(cfg, shape, False, sigma_D=float(sigma_D), reg=float(reg),
                 **_shard_fields(halo_mode, False, table_dims, xe=1))
-    flags = _storage_flags(x_bar, y_D)
-    if halo_mode:
-        parts = _launch("tv_fused", "tv_dual_launch", x_bar, p, flags,
-                        (x_bar, y_D), with_parts=True, shape=shape)
-    else:
-        parts = _spec_launch("spectv_dual_launch", cfg, x_bar, p, flags,
-                             (x_bar, y_D), with_parts=True)
+    fn = "spectv_dual_halo_launch" if halo_mode else "spectv_dual_launch"
+    parts = _spec_launch(fn, cfg, x_bar, p, _storage_flags(x_bar, y_D),
+                         (x_bar, y_D), with_parts=True,
+                         table_dims=table_dims, shape=shape)
     tv_dual.launches += 1
     return y_D, parts
 

@@ -27,9 +27,9 @@ def test_library_path_follows_included_headers(tmp_path):
 
 
 def test_repo_kernels_include_the_shared_header():
-    # one arithmetic: the generic per-launch kernels and the L2 whole-solve
+    # one arithmetic: the generic per-launch kernel and the L2 whole-solve
     # kernels take their per-voxel bodies from voxel.cuh
-    for name in ("cp_fused", "tv_fused", "resident"):
+    for name in ("cp_fused", "resident"):
         sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
         assert [os.path.basename(p) for p in sources] == \
             [f"{name}.cu", "voxel.cuh", "stencil.cuh"]
@@ -65,7 +65,7 @@ def test_only_the_specialised_source_splits_its_compile():
     assert set(build.SOURCE_FLAGS) == {"specialised", "specialised_tv",
                                        "specialised_cp", "cp_boundary",
                                        "cp_zstream", "resident_onchip"}
-    for name in ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident",
+    for name in ("cp_fused", "tgv_stream", "tgv_resident",
                  "tgv_onchip", "resident"):
         assert build.nvcc_flags(name) == build.NVCC_FLAGS
     assert "-fmad=false" in build.NVCC_FLAGS
@@ -79,7 +79,7 @@ def test_every_library_has_its_entry_points_and_its_source():
     import pytv4d_tpu_torch.kernels  # noqa: F401  (every wrapper registers)
 
     assert set(fused._ENTRY_POINTS) == {
-        "cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
+        "cp_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
         "cp_zstream", "resident", "resident_onchip", "cp_boundary",
         "specialised", "specialised_tv", "specialised_cp"}
     for name, (prefix, params, launches) in fused._ENTRY_POINTS.items():
@@ -135,17 +135,17 @@ class _Defines:
 def test_each_launch_with_partials_has_its_count():
     """A launch that writes TV or fidelity partials has a C function that
     counts them: its own ``<launch>_num_parts`` (the two passes of
-    specialised_tv.cu, whose blocks differ, and B3's halo mode), its
+    specialised_tv.cu, whose blocks differ, and their halo modes), its
     mode's ``<prefix>_<mode>_num_parts`` (the sharded CP passes' interior
-    launches) or the library's ``<prefix>_num_parts``; the generic B5, the
-    generic B3 in its halo mode and the generic B1 are gone with their
-    entry points.  The boundary kernels count the interior launches'
+    launches) or the library's ``<prefix>_num_parts``; the generic B5 in
+    its halo mode (csrc/tv_fused.cu), the generic B3 in its halo mode and
+    the generic B1 are gone with their entry points.  The boundary kernels count the interior launches'
     partials, whose edge rows they fill, as the interior launches count
     them (their halo mode counts its own blocks)."""
     from pytv4d_tpu_torch.kernels import fused
 
     counts = {}
-    for name in ("cp_fused", "tv_fused", "specialised", "specialised_tv",
+    for name in ("cp_fused", "specialised", "specialised_tv",
                  "specialised_cp", "cp_boundary"):
         prefix, _, launches = fused._ENTRY_POINTS[name]
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
@@ -159,8 +159,8 @@ def test_each_launch_with_partials_has_its_count():
     assert counts["spec_cp_dual_launch"] == "spec_num_parts"
     assert counts["spectv_norms_halo_launch"] == \
         "spectv_norms_halo_num_parts"
-    assert counts["tv_dual_launch"] == "tv_num_parts"
-    assert set(fused._ENTRY_POINTS["tv_fused"][2]) == {"tv_dual_launch"}
+    assert counts["spectv_dual_halo_launch"] == "spectv_dual_halo_num_parts"
+    assert "tv_fused" not in fused._ENTRY_POINTS
     assert counts["cp_dual_boundary_launch"] == "bnd_num_parts"
     assert counts["cp_primal_boundary_launch"] == "bnd_num_parts"
     assert counts["spcp_dual_halo_launch"] == "spcp_num_parts"

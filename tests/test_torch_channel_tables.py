@@ -101,6 +101,7 @@ def test_mirror_equals_the_header():
     ("specialised_tv", "spectv_norms_launch"),
     ("specialised_tv", "spectv_norms_halo_launch"),
     ("specialised_tv", "spectv_dual_launch"),
+    ("specialised_tv", "spectv_dual_halo_launch"),
     ("specialised_cp", "spcp_dual_halo_launch"),
     ("specialised_cp", "spcp_primal_halo_launch"),
 ])

@@ -1,15 +1,17 @@
-"""The TV passes B3 (norms) and B4 (subgradient) in their halo mode, per
-channel table (no nvcc or GPU needed).
+"""The TV passes B3 (norms) and B4 (subgradient) and pass A for inverse
+problems (B5) in their halo mode, per channel table (no nvcc or GPU
+needed).
 
 On a shard the wrappers launch the per-table halo kernels of
-``csrc/specialised_tv.cu`` (``spectv_norms_halo_launch``) and
-``csrc/specialised.cu`` (``spec_tv_subgrad_halo_launch``) with the channel
-table of the WHOLE volume (``table_dims``), which differs from the shard's
-own wherever a shard is one plane thick along z or t; on a volume they
-launch the unsharded kernels as before; a table outside the compiled list
-raises before any launch.  Each case calls the wrappers' launch functions
-(``_tv_norms_kernel``, ``_tv_subgrad_kernel``) on CPU tensors with
-``_launch`` recording, so no kernel runs."""
+``csrc/specialised_tv.cu`` (``spectv_norms_halo_launch``,
+``spectv_dual_halo_launch``) and ``csrc/specialised.cu``
+(``spec_tv_subgrad_halo_launch``) with the channel table of the WHOLE
+volume (``table_dims``), which differs from the shard's own wherever a
+shard is one plane thick along z or t; on a volume they launch the
+unsharded kernels as before; a table outside the compiled list raises
+before any launch.  Each case calls the wrappers' launch functions
+(``_tv_norms_kernel``, ``_tv_subgrad_kernel``, ``_tv_dual_kernel``) on CPU
+tensors with ``_launch`` recording, so no kernel runs."""
 
 import itertools
 import os
@@ -35,21 +37,25 @@ from pytv4d_tpu_torch.parallel.mesh import grid_map, indexed, make_mesh
 from pytv4d_tpu_torch.parallel.mesh import shard_volume
 
 
+STORAGE = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+           (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+
+
 @pytest.fixture
 def launches(monkeypatch):
     """The ``_launch`` calls the wrappers make, recorded instead of run, and
-    the two launch counters from 0."""
+    the three launch counters from 0."""
     seen = []
 
     def record(name, fn_name, x, p, flags, args, with_parts=False,
                shape=None):
         seen.append(dict(lib=name, fn=fn_name, x=x, p=p, flags=flags,
-                         args=args, with_parts=with_parts))
+                         args=args, with_parts=with_parts, shape=shape))
         return "parts" if with_parts else None
 
     monkeypatch.setattr(fused, "_launch", record)
-    monkeypatch.setattr(fused.tv_norms, "launches", 0)
-    monkeypatch.setattr(fused.tv_subgrad, "launches", 0)
+    for wrapper in (fused.tv_norms, fused.tv_subgrad, fused.tv_dual):
+        monkeypatch.setattr(wrapper, "launches", 0)
     return seen
 
 
@@ -88,6 +94,10 @@ GRIDS = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_a_shard_takes_the_whole_volumes_table(launches, scheme, reg_time,
                                                dims, mesh_zt, dtype):
+    """B3, B4 and B5 on each shard, x extended as the sharded TV and the
+    sharded CT solve extend it, go to the per-table halo launches with the
+    whole volume's table id and Params of the shard; B5's partials are
+    counted for the shard's shape."""
     cfg = TVConfig(scheme=scheme, reg_time=reg_time)
     vol = torch.rand(dims + (4, 8), generator=torch.Generator().manual_seed(
         0)).to(dtype)
@@ -104,22 +114,45 @@ def test_a_shard_takes_the_whole_volumes_table(launches, scheme, reg_time,
         assert parts == "parts" and tuple(norms.shape) == local
         assert norms.dtype == torch.float32
         assert tuple(g.shape) == local and g.dtype == dtype
+        y_D = torch.zeros(local[:2] + (Nd,) + local[2:], dtype=dtype)
+        got, parts = fused._tv_dual_kernel(x1[iz][it], y_D, sigma_D=0.5,
+                                           reg=1.0, **mode)
+        assert got is y_D and parts == "parts"
     n = mesh_zt[0] * mesh_zt[1]
-    assert (fused.tv_norms.launches, fused.tv_subgrad.launches) == (n, n)
-    assert len(launches) == 2 * n
+    assert (fused.tv_norms.launches, fused.tv_subgrad.launches,
+            fused.tv_dual.launches) == (n, n, n)
+    assert len(launches) == 3 * n
     bf16 = int(dtype == torch.bfloat16)
+    x1s = [xe for _, _, xe in indexed(x1)]
     for i, call in enumerate(launches):
-        p = call["p"]
-        norms_pass = i % 2 == 0
+        p, kind = call["p"], i % 3
         assert (call["lib"], call["fn"]) == (
-            ("specialised_tv", "spectv_norms_halo_launch") if norms_pass
-            else ("specialised", "spec_tv_subgrad_halo_launch"))
-        assert call["flags"] == (want, bf16)
-        assert call["with_parts"] is norms_pass
+            ("specialised_tv", "spectv_norms_halo_launch"),
+            ("specialised", "spec_tv_subgrad_halo_launch"),
+            ("specialised_tv", "spectv_dual_halo_launch"))[kind]
+        assert call["flags"] == (want, bf16) + ((bf16,) if kind == 2 else ())
+        assert call["with_parts"] is (kind != 1)
         # what the C entry points require of a shard's Params
         assert (p.Nz, p.M) == local[:2] and p.Nd == Nd
         assert (p.sharded, p.t_free) == (1, 1)
-        assert (p.xe, p.ne) == ((1, 0) if norms_pass else (2, 1))
+        assert (p.xe, p.ne) == ((2, 1) if kind == 1 else (1, 0))
+        if kind == 2:
+            assert call["args"][0] is x1s[i // 3]
+            assert call["shape"] == local and p.has_tmul == 0
+
+
+def test_an_unsharded_pass_a_for_inverse_problems_launches_as_before(
+        launches):
+    cfg = TVConfig(scheme="hybrid", reg_time=0.5)
+    x = torch.zeros(3, 2, 4, 8)
+    y_D = torch.zeros(3, 2, 4, 4, 8, dtype=torch.bfloat16)
+    fused._tv_dual_kernel(x, y_D, cfg=cfg, sigma_D=0.5, reg=1.0)
+    (call,) = launches
+    assert (call["lib"], call["fn"], call["flags"]) == (
+        "specialised_tv", "spectv_dual_launch",
+        (tables.table_id(cfg, 3, 2), 0, 1))
+    assert call["args"] == (x, y_D) and call["shape"] == (3, 2, 4, 8)
+    assert call["p"].sharded == 0 and fused.tv_dual.launches == 1
 
 
 @pytest.mark.parametrize("tid", range(len(tables.TABLES)))
@@ -137,9 +170,17 @@ def test_each_table_reaches_the_halo_launches(launches, tid):
     fused._tv_norms_kernel(torch.zeros(3, 3, 4, 8), **mode)
     fused._tv_subgrad_kernel(torch.zeros(5, 5, 4, 8),
                              torch.ones(3, 3, 4, 8), **mode)
+    Nd = len(tables.TABLES[tid])
+    for x_dt, d_dt in STORAGE:  # B5's four storage pairs
+        fused._tv_dual_kernel(torch.zeros(3, 3, 4, 8, dtype=x_dt),
+                              torch.zeros(1, 1, Nd, 4, 8, dtype=d_dt),
+                              sigma_D=0.5, reg=1.0, **mode)
     assert [(c["fn"], c["flags"]) for c in launches] == [
         ("spectv_norms_halo_launch", (tid, 0)),
-        ("spec_tv_subgrad_halo_launch", (tid, 0))]
+        ("spec_tv_subgrad_halo_launch", (tid, 0))] + [
+        ("spectv_dual_halo_launch", (tid, int(x_dt == torch.bfloat16),
+                                     int(d_dt == torch.bfloat16)))
+        for x_dt, d_dt in STORAGE]
 
 
 def test_an_unsharded_call_launches_as_before(launches):
@@ -194,8 +235,13 @@ def test_a_table_outside_the_built_list_raises(launches, monkeypatch,
         fused._tv_subgrad_kernel(torch.zeros(2 + 4 * e, 2 + 4 * e, 4, 8),
                                  torch.ones(2 + 2 * e, 2 + 2 * e, 4, 8),
                                  **mode)
+    with pytest.raises(ValueError, match="no specialised kernel"):
+        fused._tv_dual_kernel(torch.zeros(2 + 2 * e, 2 + 2 * e, 4, 8),
+                              torch.zeros(2, 2, 2, 4, 8), sigma_D=0.5,
+                              reg=1.0, **mode)
     assert launches == []
-    assert (fused.tv_norms.launches, fused.tv_subgrad.launches) == (0, 0)
+    assert (fused.tv_norms.launches, fused.tv_subgrad.launches,
+            fused.tv_dual.launches) == (0, 0, 0)
 
 
 def _source(name):
@@ -204,12 +250,11 @@ def _source(name):
 
 
 def test_the_generic_tv_kernels_are_gone():
-    """csrc/tv_fused.cu keeps only B5's halo mode; B3 and B4 are the
-    per-table kernels in both modes, a HALO template flag each."""
-    text = _source("tv_fused.cu")
-    assert "tv_norms_kernel" not in text and "tv_subgrad_kernel" not in text
-    assert re.findall(r"^int (\w+)\(", text, re.M) == ["tv_dual_launch"]
-    assert set(fused._ENTRY_POINTS["tv_fused"][2]) == {"tv_dual_launch"}
+    """csrc/tv_fused.cu, the last generic body on a shard, is gone with its
+    library; B3, B4 and B5 are the per-table kernels in both modes, a HALO
+    template flag each."""
+    assert not os.path.exists(os.path.join(build.CSRC, "tv_fused.cu"))
+    assert "tv_fused" not in fused._ENTRY_POINTS
     assert re.search(r"template <Table T, typename TX, bool HALO>\s*"
                      r"__global__ void __launch_bounds__\(BLOCK\)\s*"
                      r"tv_subgrad_spec_kernel", _source("specialised.cu"))
@@ -217,6 +262,16 @@ def test_the_generic_tv_kernels_are_gone():
                      r"__global__ void __launch_bounds__\(BLOCK, "
                      r"NORMS_MIN_BLOCKS\)\s*tv_norms_spec_kernel",
                      _source("specialised_tv.cu"))
+    assert re.search(r"template <Table T, typename TX, typename TD, "
+                     r"bool HALO>\s*__global__ void "
+                     r"__launch_bounds__\(BLOCK\)\s*tv_dual_spec_kernel",
+                     _source("specialised_tv.cu"))
+    # the generic bodies' halo addressing went with their last caller
+    for header in ("stencil.cuh", "voxel.cuh"):
+        assert "HALO" not in re.sub(r"//[^\n]*", "", _source(header))
+    vox = re.search(r"struct Vox \{(.*?)\};", _source("voxel.cuh"), re.S)
+    assert not re.search(r"\bxn\b", vox.group(1))
+    assert "v.xn" not in _source("voxel.cuh")
 
 
 @pytest.mark.parametrize("source, launch, check", [
@@ -224,6 +279,8 @@ def test_the_generic_tv_kernels_are_gone():
      "!p->sharded || !p->t_free || p->xe != 2 || p->ne != 1"),
     ("specialised_tv.cu", "spectv_norms_halo_launch",
      "!p->sharded || !p->t_free || p->xe != 1"),
+    ("specialised_tv.cu", "spectv_dual_halo_launch",
+     "!p->sharded || !p->t_free || p->xe != 1 || p->has_tmul"),
 ])
 def test_a_halo_launch_refuses_unsharded_params(source, launch, check):
     """The halo entry points refuse Params that do not describe a shard's

@@ -62,7 +62,7 @@ sys.path.insert(0, ROOT)
 from pytv4d_tpu_torch.core.config import TVConfig  # noqa: E402
 from pytv4d_tpu_torch.kernels import build, fused, tables  # noqa: E402
 
-SOURCES = ("cp_fused", "tv_fused", "tgv_stream", "tgv_resident", "resident",
+SOURCES = ("cp_fused", "tgv_stream", "tgv_resident", "resident",
            "cp_zstream", "cp_boundary", "specialised", "specialised_tv")
 SPECIALISED = ("specialised", "specialised_tv")
 # kernel id by the name of its template

@@ -5,7 +5,7 @@ iteration on one GPU, for comparing two trees of the repo in one run.
     python3 tools/torch_time_stencil.py --ab PARENT_DIR [--only SECTIONS]
 
 ``--only`` runs the named lines alone, a comma-separated subset of
-``stencil,tgv,shard,resident`` (all by default; ``--ab`` passes it on).
+``stencil,tgv,shard,b5,resident`` (all by default; ``--ab`` passes it on).
 
 Imports ``pytv4d_tpu_torch`` from ``DIR`` (default: this checkout), which
 builds its kernels there on first use, and prints one line of times at
@@ -62,6 +62,17 @@ grid (10 calls) and a 20-iteration ``subgradient_descent`` on 4 z-shards
 named ``Cat``, ``copy``, ``Memcpy`` or ``where``) and the rest, per call
 or iteration, and appends each kernel's time to
 ``chiprun_out/tv_grid_split.jsonl``.
+
+The ``b5`` lines time B5 in ``halo_mode`` on a z-shard of that volume,
+(8, 8, 256, 256), and on one of 4 z-shards and of a (2 x 2) grid of the CT
+cell (16, 4, 512, 512) -- (4, 4, 512, 512) and (8, 2, 512, 512) -- in
+float32, with a bf16 dual and in bf16, from seeded states: CUDA events and
+the device's ms per launch beside the bound (the bytes of the planes its
+table reads) and its share of it, and a hash of y_D' after one launch, so
+that two trees' outputs can be compared bit for bit; then the device ms per
+iteration of a 10-iteration fused ``cp_reconstruct`` of the CT cell's
+sinogram (96 angles) as 4 z-shards, split into B5, B2, B3 and the rest,
+beside its wall ms per iteration.
 
 A fourth line times the whole-solve kernels B9 as the factories launch
 them (``make_resident_cp_solver`` / ``make_resident_gd_solver``: a
@@ -269,7 +280,7 @@ def card():
 
 def main():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    only = {"stencil", "tgv", "shard", "resident"}
+    only = {"stencil", "tgv", "shard", "b5", "resident"}
     if "--only" in sys.argv:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     if "--ab" in sys.argv:
@@ -414,6 +425,24 @@ def main():
               + "; output hashes: "
               + ", ".join(f"{k} {v}" for k, v in res_hash.items())
               + f"; card {card()}", flush=True)
+    if "b5" in only:
+        b5_ms, b5_dev, b5_hash, b5_bound = b5_halo_times(cfg, dev)
+        print(f"[B5 halo] {os.path.relpath(root)} hybrid reg_time=0.5, one "
+              f"shard + its planes, per launch, CUDA events / device "
+              f"(torch.profiler), bound (device share): "
+              + ", ".join(f"{k} {b5_ms[k]:.4f} / {b5_dev[k]:.4f} ms, "
+                          f"bound {b5_bound[k]:.4f} "
+                          f"({b5_bound[k] / b5_dev[k]:.1%})"
+                          for k in b5_ms)
+              + "; y_D' hashes after one launch from seeded states: "
+              + ", ".join(f"{k} {v}" for k, v in b5_hash.items())
+              + f"; card {card()}", flush=True)
+        total, split, wall = ct_grid_split(cfg, dev)
+        print(f"[CT grid split] {os.path.relpath(root)} {CT_SHAPE} x "
+              f"{CT_ANGLES} angles as 4 z-shards, fused cp_reconstruct, ms "
+              f"per iteration: device {total:.4f} = "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; wall {wall:.4f}; card {card()}", flush=True)
     if "shard" not in only or not hasattr(fused, "cp_dual_boundary"):
         return
 
@@ -618,6 +647,129 @@ def cp_shard_modes(cfg, dev):
             del a, d, o
         del x, x0, y_A, x1, y_D, y1
     return ms, on_dev, hashes
+
+
+# B5's halo-mode shards: a z-shard of SHAPE, and one of 4 z-shards and of a
+# (2 x 2) grid of the CT cell, with the whole volume's (Nz, M)
+B5_SHARDS = {"z4": ((8, 8, 256, 256), SHAPE[:2]),
+             "CT z4": ((4, 4, 512, 512), (16, 4)),
+             "CT 2x2": ((8, 2, 512, 512), (16, 4))}
+
+
+# float32 operations/s of the H100 SXM outside the tensor cores (data sheet)
+H100_F32_PEAK_FLOPS = 67e12
+
+
+def b5_halo_bound(shard, dims, cfg, x_dt, d_dt):
+    """The least ms of B5 in its halo mode on ``shard`` of a volume whose
+    (Nz, M) is ``dims``: the bytes it must move -- x_bar at the shard and
+    at one plane beyond each face along z and t that the table's channels
+    read (FWD the one above, BWD the one below, CTR both), the dual read
+    and written -- over the HBM rate, or 10 operations a channel and voxel
+    over the float32 rate, whichever is larger."""
+    from pytv4d_tpu_torch.core.schemes import AXIS_T, AXIS_Z, scheme_channels
+    from pytv4d_tpu_torch.utils.profiling import H100_HBM_PEAK_GBPS
+
+    nz, m, Nr, Nc = shard
+    chans, _ = scheme_channels(cfg.scheme, *dims, cfg.reg_z_over_reg,
+                               cfg.reg_time)
+    own, Nd = nz * m, len(chans)
+    x_planes = own + sum(
+        face * sum(any(c.kind in kinds for c in chans if c.axis == a)
+                   for kinds in (("bwd", "ctr"), ("fwd", "ctr")))
+        for a, face in ((AXIS_Z, m), (AXIS_T, nz)))
+    n_bytes = (x_planes * x_dt.itemsize
+               + 2 * own * Nd * d_dt.itemsize) * Nr * Nc
+    return max(n_bytes / (H100_HBM_PEAK_GBPS * 1e9),
+               10 * Nd * own * Nr * Nc / H100_F32_PEAK_FLOPS) * 1e3
+
+
+def b5_halo_times(cfg, dev):
+    """B5 in its halo mode on each shard of :data:`B5_SHARDS`, f32, with a
+    bf16 dual and in bf16, from seeded states (x_bar extended by one plane
+    a side in z and t): ms per launch (CUDA events, :func:`launch_ms`),
+    the device's ms (``torch.profiler`` over 50 launches), the hash of
+    y_D' after one launch and the bound (:func:`b5_halo_bound`)."""
+    from pytv4d_tpu_torch.core.schemes import num_channels
+    from pytv4d_tpu_torch.kernels import fused
+    from pytv4d_tpu_torch.utils.profiling import device_time
+
+    rng = np.random.default_rng(21)
+    bf16 = torch.bfloat16
+    ms, on_dev, hashes, bounds = {}, {}, {}, {}
+    for tag, (shard, dims) in B5_SHARDS.items():
+        nz, m, Nr, Nc = shard
+        Nd = num_channels(cfg.scheme, *dims, cfg.reg_z_over_reg,
+                          cfg.reg_time)
+        kw = dict(cfg=cfg, sigma_D=0.5, reg=1.0, halo_mode=True,
+                  table_dims=dims)
+        x1 = torch.as_tensor(rng.standard_normal((nz + 2, m + 2, Nr, Nc)),
+                             dtype=torch.float32, device=dev)
+        y0 = torch.as_tensor(0.3 * rng.standard_normal((nz, m, Nd, Nr, Nc)),
+                             dtype=torch.float32, device=dev)
+        for name, (x_dt, d_dt) in (("", (torch.float32, torch.float32)),
+                                   (" bf16 dual", (torch.float32, bf16)),
+                                   (" bf16", (bf16, bf16))):
+            key = f"B5 halo {tag}{name}"
+            xb, y = x1.to(x_dt), y0.to(d_dt)
+            fused.tv_dual(xb, y, **kw)
+            hashes[key] = digest(y)
+            ms[key] = launch_ms(lambda: fused.tv_dual(xb, y, **kw))
+            on_dev[key] = device_time(
+                lambda: [fused.tv_dual(xb, y, **kw) for _ in range(50)], 50,
+                dev)[0]
+            bounds[key] = b5_halo_bound(shard, dims, cfg, x_dt, d_dt)
+            del xb, y
+        del x1, y0
+    return ms, on_dev, hashes, bounds
+
+
+CT_SHAPE, CT_ANGLES = (16, 4, 512, 512), 96  # the CT cell
+# the fused sharded CT step's kernels, by a substring of their names
+CT_PARTS = {"B5": "tv_dual", "B2": "cp_primal", "B3": "tv_norms"}
+
+
+def ct_grid_split(cfg, dev, n_iter=10):
+    """Device ms per iteration (``torch.profiler``) of an ``n_iter``
+    -iteration fused ``cp_reconstruct`` of the CT cell's seeded sinogram
+    handed over as 4 z-shards (``chip_smoke.py`` phase 32's solve; the
+    spectral pair, ``nonneg``), split into B5, B2, B3 (:data:`CT_PARTS`)
+    and the rest, and the wall ms per iteration (host clock to a
+    synchronisation, best of 3)."""
+    from pytv4d_tpu_torch.models.ct import (cp_reconstruct, estimate_op_norm,
+                                            make_projector, radon,
+                                            sinogram_sharding)
+    from pytv4d_tpu_torch.parallel import make_mesh, shard
+    from pytv4d_tpu_torch.utils.profiling import device_time
+
+    rng = np.random.default_rng(32)
+    vol = torch.as_tensor(rng.random(CT_SHAPE, dtype=np.float32),
+                          device=dev)
+    angles = np.linspace(0.0, np.pi, CT_ANGLES, endpoint=False)
+    sino = radon(vol, angles)
+    A, A_T = make_projector(CT_SHAPE, angles)
+    kw = dict(n_iter=n_iter, reg=0.5, cfg=cfg, nonneg=True,
+              op_norm=float(estimate_op_norm(A, A_T, CT_SHAPE, device=dev)))
+    grid = shard(sino, sinogram_sharding(make_mesh(4, 1, device=dev)))
+    del vol, sino
+
+    def run():
+        cp_reconstruct(grid, angles, CT_SHAPE, **kw)
+
+    run()
+    wall = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = min(wall, (time.perf_counter() - t0) * 1e3 / n_iter)
+    total, by_kernel = device_time(run, n_iter, dev)
+    split = dict.fromkeys((*CT_PARTS, "rest"), 0.0)
+    for k, v in by_kernel.items():
+        split[next((p for p, key in CT_PARTS.items() if key in k),
+                   "rest")] += v
+    return total, split, wall
 
 
 COPY_KERNELS = ("Cat", "copy", "Memcpy", "where")
