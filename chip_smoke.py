@@ -8,21 +8,22 @@ kernels), the TV kernels (B3 norms, B4 subgradient),
 the whole-solve CP and GD kernels (B9: on chip, and in L2 for larger
 volumes) and the TGV-2 kernels (B6 passes PQ
 and XW, B7 whole solve: on chip, and in L2 for larger slices)
-from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once; B1 and B5
-on an unsharded volume, B1 to B5 on a shard (B1 and B2 in both sharded
-modes, B3, B4 and B5 in their halo mode), B3 and B4 on a volume and B8 are the
-kernels specialised per channel table (``csrc/specialised.cu`` for B1 and
-B4, ``csrc/specialised_tv.cu`` for B3 and B5, ``csrc/specialised_cp.cu``
-for B1 and B2 on a shard, ``csrc/cp_boundary.cu`` for B8: four sources
-whose compiles nvcc spreads over the cores).
+from ``pytv4d_tpu_torch/csrc``, one nvcc per source, all at once; B1 to B5
+on an unsharded volume and on a shard (B1 and B2 in both sharded modes, B3,
+B4 and B5 in their halo mode) and B8 are the kernels specialised per
+channel table (``csrc/specialised.cu`` for B1, B2 and B4,
+``csrc/specialised_tv.cu`` for B3 and B5, ``csrc/specialised_cp.cu`` for
+B1 and B2 on a shard, ``csrc/cp_boundary.cu`` for B8: four sources whose
+compiles nvcc spreads over the cores).
 Then, for
 the Chambolle-Pock path (phases 3-7): holds B1/B2 against
-their plain PyTorch versions (B1 also bit for bit against its halo-mode
-instance on a 1 x 1 grid, over every channel table, at odd widths and off
+their plain PyTorch versions (both also bit for bit against their halo-mode
+instances on a 1 x 1 grid, over every channel table, at odd widths and off
 alignment), drives
 ``TVDenoiser.cp`` on the cameraman
 image through them, replays the (16, 4, 512, 512) reference trajectory,
-measures the 4D CP rate of kernels and plain versions, and runs the
+measures the 4D CP rate of kernels and plain versions and B1's and B2's
+time per launch in each storage pair beside its bound, and runs the
 (96, 16, 512, 512) volume.  For the subgradient-descent path (phases 8-11):
 holds B3/B4 against their plain versions (both also bit for bit against
 their halo-mode instances on a 1 x 1 grid, over every channel table),
@@ -168,6 +169,7 @@ JSON object with ``"ok": true`` and the device.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -291,14 +293,14 @@ README_TV = 532166.8251801673  # tv_hybrid(rand(20, 4, 100, 100)), seed 0
 # TVDenoiser(reg=25).tgv(cameraman + noise, 300): the JAX package in f64 on
 # the CPU (tests/test_torch_tgv.py)
 CAMERAMAN_TGV_LOSS = 37211904.16116732
-LIBS = ("cp_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
-        "resident", "resident_onchip", "cp_zstream", "cp_boundary",
-        "specialised", "specialised_tv", "specialised_cp")
+LIBS = ("tgv_stream", "tgv_resident", "tgv_onchip", "resident",
+        "resident_onchip", "cp_zstream", "cp_boundary", "specialised",
+        "specialised_tv", "specialised_cp")
 # the kernels specialised per channel table, by kernel id: a pattern of their
 # mangled names (phase 2 reports each one's registers and spills); B3, B4
 # and B5 in their halo mode, and B1 and B2 on a shard, by their HALO
 # template flag, the last argument
-SPEC_KERNELS = {"B1": "cp_dual_spec_kernel",
+SPEC_KERNELS = {"B1": "cp_dual_spec_kernel", "B2": "cp_primal_spec_kernel",
                 "B1halo": r"cp_dual_shard_kernel\w*Lb1E",
                 "B1int": r"cp_dual_shard_kernel\w*Lb0E",
                 "B2halo": r"cp_primal_shard_kernel\w*Lb1E",
@@ -628,6 +630,24 @@ def phase_kernels():
             require(_bits_equal(k[1], g[0]) and _bits_equal(k[2], g[1]),
                     f"{name} {shape}: specialised B1's y_A', y_D' equal its "
                     f"halo-mode instance's on a 1 x 1 grid bit for bit")
+            # B2 against its halo-mode instance on a 1 x 1 grid, both out of
+            # place, on a dual that B1 made from zero duals: the halo mode
+            # reads the slots a channel's gates skip, which every solver
+            # keeps zero
+            y_a, y_0 = copy(y_A), copy(torch.zeros_like(y_D))
+            fused.cp_dual(x, x0, y_a, y_0, tmul, **dual_kw)
+            chans, _ = scheme_channels(cfg.scheme, *shape[:2],
+                                       cfg.reg_z_over_reg, cfg.reg_time)
+            y_ext = fused_halo._extend_dual([[y_0]], chans)[0][0]
+            u, h = copy(x), copy(x)
+            fused.cp_primal(x, x0, y_a, y_0, tmul, halo_mode=True,
+                            table_dims=shape[:2], y_ext=y_ext, out=h,
+                            **prim_kw)
+            fused.cp_primal(x, x0, y_a, y_0, tmul, out=u, **prim_kw)
+            sync()
+            require(_bits_equal(u, h), f"{name} {shape}: specialised B2's x' "
+                    f"equals its halo-mode instance's on a 1 x 1 grid bit "
+                    f"for bit")
             tids.add(tables.table_id(cfg, *shape[:2]))
             _, _, tv_p = fused.cp_dual_plain(p[0], x0, p[1], p[2], tmul,
                                              **dual_kw)
@@ -653,8 +673,8 @@ def phase_kernels():
     log(f"[3 kernels vs plain] {n} cases at {SMALL}, {CAMERAMAN}, "
         f"{MAIN_4D}, {RAGGED} and {MISALIGNED} (arrays one element off "
         f"alignment), all {len(tids)} channel tables: pass; "
-        f"specialised B1 bit-equal to its halo-mode instance on a 1 x 1 "
-        f"grid in every case; "
+        f"specialised B1 and B2 bit-equal to their halo-mode instances on "
+        f"a 1 x 1 grid in every case; "
         f"max abs err B1 f32 {errs['B1']['f32']:.3g} bf16 "
         f"{errs['B1']['bf16']:.3g}, B2 f32 {errs['B2']['f32']:.3g} bf16 "
         f"{errs['B2']['bf16']:.3g}")
@@ -808,24 +828,45 @@ def phase_throughput(card):
                         f"HBM roofline, minimal model)")
         log(f"[6 4D {MAIN_4D} {tag}] kernel vs plain 300-it loss rel "
             f"{rel:.3g} (bar 1e-4); " + "; ".join(line))
-        if tag == "f32":
-            r = _Run(noisy, cfg, d_dt, plain=False)
-            args = (r.x, r.x0, r.y_A, r.y_D)
-            kw = r.kw
-            dk = dict(cfg=cfg, sigma_D=kw["sigma_D"], sigma_A=kw["sigma_A"],
-                      reg=kw["reg"])
-            pk = dict(cfg=cfg, tau=kw["tau"])
-            kernel_ms["B1"] = (_time_launch(lambda: fused.cp_dual(*args, **dk)),
-                               _time_launch(lambda: fused.cp_dual_plain(
-                                   *args, **dk)))
-            kernel_ms["B2"] = (_time_launch(
-                lambda: fused.cp_primal(*args, **pk)),
-                _time_launch(lambda: fused.cp_primal_plain(*args, **pk)))
-            log(f"[6 per launch, f32 {MAIN_4D}] B1 {kernel_ms['B1'][0]:.3f} "
-                f"ms (plain {kernel_ms['B1'][1]:.3f} ms), B2 "
-                f"{kernel_ms['B2'][0]:.3f} ms (plain {kernel_ms['B2'][1]:.3f}"
-                f" ms); card {card}")
-            del r, args
+        # B1 and B2 per launch in this storage pair: CUDA events around 50
+        # launches, the kernel alone on the device (_kernel_ms), the plain
+        # version, and the bound of the bytes it moves (each array once:
+        # B1 reads x, x0, y_A and y_D and writes y_A and y_D, B2 reads x,
+        # x0, y_A and y_D and writes x') and of its operations (main())
+        r = _Run(noisy, cfg, d_dt, plain=False)
+        args = (r.x, r.x0, r.y_A, r.y_D)
+        kw = r.kw
+        dk = dict(cfg=cfg, sigma_D=kw["sigma_D"], sigma_A=kw["sigma_A"],
+                  reg=kw["reg"])
+        pk = dict(cfg=cfg, tau=kw["tau"])
+        vox, bx, bd = int(np.prod(MAIN_4D)), x_dt.itemsize, d_dt.itemsize
+        runs = {"B1": (lambda: fused.cp_dual(*args, **dk),
+                       lambda: fused.cp_dual_plain(*args, **dk),
+                       (4 * bx + 2 * Nd * bd) * vox, (10 * Nd + 10) * vox),
+                "B2": (lambda: fused.cp_primal(*args, **pk),
+                       lambda: fused.cp_primal_plain(*args, **pk),
+                       (4 * bx + Nd * bd) * vox, (4 * Nd + 8) * vox)}
+        line = []
+        for kid, (run, plain, n_bytes, n_ops) in runs.items():
+            ms = _time_launch(run)
+            dev, kept = _kernel_ms(run, SPEC_KERNELS[kid])
+            require(kept == 50, f"{kid} {tag}: the trace kept all 50 "
+                                f"launches, got {kept}")
+            b = bound(n_bytes, n_ops)
+            got = dict(ms=ms, device_ms=dev, plain_ms=_time_launch(plain),
+                       bound_ms=b[0], bound_by=b[1])
+            kernel_ms.setdefault("at_storage", {}).setdefault(kid, {})[
+                tag] = got
+            if tag == "f32":
+                kernel_ms[kid] = (ms, got["plain_ms"])
+            line.append(f"{kid} {ms:.4f} ms, {dev:.4f} on the device "
+                        f"({kept} of 50 launches kept), plain "
+                        f"{got['plain_ms']:.3f}; bound {b[0]:.4f} ms "
+                        f"({b[1]}, {n_bytes / 1e6:.0f} MB): {b[0] / dev:.1%} "
+                        f"of it on the device")
+        log(f"[6 per launch, {tag} {MAIN_4D}] " + "; ".join(line)
+            + f"; card {card}")
+        del r, args
         sync()
     return kernel_ms
 
@@ -3167,7 +3208,7 @@ def _cp_step_on_shards(s, overlap):
 
 def _cp_step_whole(s):
     """The same step on the gathered volume through the unsharded kernels
-    (B1 per table, csrc/specialised.cu; B2 generic, csrc/cp_fused.cu)."""
+    (B1 and B2 per table, csrc/specialised.cu)."""
     x, x0, y_A, y_D = (gather_volume(g) for g in (s.x, s.x0, s.y_A, s.y_D))
     fused.cp_dual(x, x0, y_A, y_D, s.tm, **s.dual_kw)
     fused.cp_primal(x, x0, y_A, y_D, s.tm, **s.primal_kw)
@@ -3227,22 +3268,44 @@ def _halo_cp_tables():
     return n_case, n_step
 
 
-def _kernel_ms(run, kernel, n=50):
+def _kernel_ms(run, kernel, n=50, traces=3):
     """The device ms of one launch of ``kernel`` (a name's substring), the
-    mean over the launches a torch.profiler trace of ``n`` calls of
-    ``run`` recorded, and how many it recorded: a trace that loses
-    records (seen late in a long process) then shortens no mean."""
+    mean over the launches a torch.profiler trace of ``n`` calls of ``run``
+    (one launch each) recorded, and how many it recorded.  Late in a long
+    process a trace has dropped the first records of its window (11 in a
+    row in phase 24), so each trace opens with 32 small kernels of its own
+    and a pause of 50 ms on the host before the ``n`` calls, and
+    closes with one more small kernel; a trace that loses records all the
+    same is taken again, up to ``traces`` times, and then its device
+    records are logged by name.  Each caller requires the count it returns
+    to be ``n``, so that no mean is taken over a part of the launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            run()
+    mark = torch.zeros(1, device=DEV)
+    for _ in range(traces):
         sync()
-    ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    require(bool(ms), f"{kernel} on the device")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(32):
+                mark.add_(1.0)
+            sync()
+            time.sleep(0.05)
+            for _ in range(n):
+                run()
+            mark.add_(1.0)
+            sync()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        require(bool(ms), f"{kernel} on the device")
+        if len(ms) == n:
+            break
+    else:
+        log(f"{kernel}: {len(ms)} of {n} launches in each of {traces} "
+            f"traces; the last one's device records by name: "
+            f"{dict(collections.Counter(names))}")
     return sum(ms) / len(ms), len(ms)
 
 
@@ -3298,6 +3361,8 @@ def _halo_cp_times(card):
             for kid, (run, plain) in runs.items():
                 ms = _time_launch(run)
                 dev, seen = _kernel_ms(run, SHARD_KERNELS[kid])
+                require(seen == 50, f"{kid} {key}: the trace kept all 50 "
+                                    f"launches, got {seen}")
                 mode = "halo_mode" if kid.endswith("halo") else "interior"
                 b = bounds[f"{kid[:2]} {mode}"]
                 out[(kid, key)] = dict(ms=ms, device_ms=dev,
@@ -3305,7 +3370,7 @@ def _halo_cp_times(card):
                                        bound=b)
                 lines.append(f"{kid} {key} {shard}: {ms:.4f} ms wall, "
                              f"{dev:.4f} on the device ({seen} of 50 "
-                             f"launches recorded), plain "
+                             f"launches kept), plain "
                              f"{out[(kid, key)]['plain_ms']:.3f}; bound "
                              f"{b[0]:.4f} ms ({b[1]}): "
                              f"{b[0] / dev:.1%} of it on the device")
@@ -3496,7 +3561,7 @@ def _same_state(got, ref, what):
 
 # what the device time of a sharded CP step is split into, by kernel name
 STEP_PARTS = {"B1": ("cp_dual_shard_kernel", "cp_dual_spec_kernel"),
-              "B2": ("cp_primal_shard_kernel", "cp_primal_kernel"),
+              "B2": ("cp_primal_shard_kernel", "cp_primal_spec_kernel"),
               "B8": ("bnd_dual_kernel", "bnd_primal_kernel"),
               "copies": ("Cat", "copy", "Memcpy", "where")}
 
@@ -5405,6 +5470,8 @@ def _b5_halo(card):
                              f"the plain version's, got {rel:.3g}")
         dev_ms, seen = _kernel_ms(lambda: fused.tv_dual(xs, y, **kw),
                                   "tv_dual_spec_kernel")
+        require(seen == 50, f"B5 halo {name}: the trace kept all 50 "
+                            f"launches, got {seen}")
         b_ms, by, n_bytes = _halo_b5_bound(local, cfg, CT_SHAPE[:2], x_dt,
                                            d_dt)
         out["at_storage"][name] = dict(device_ms=dev_ms, seen=seen,
@@ -5873,12 +5940,16 @@ def main():
     for kid in ("B1", "B2"):
         on_grid.pop(kid, None)
     kernels = [
-        entry("B1", "cp_dual_spec_kernel (CP pass A)", "specialised.cu",
-              "fused.py:652", launches["B1"], errs["B1"]["f32"],
-              kernel_ms["B1"], errs["B1"]["bf16"]),
-        entry("B2", "cp_primal_kernel (CP pass B)", "cp_fused.cu",
-              "fused.py:859", launches["B2"], errs["B2"]["f32"],
-              kernel_ms["B2"], errs["B2"]["bf16"]),
+        # phase 6: each also per launch in every storage pair, with its
+        # device ms and its bound
+        entry("B1", "cp_dual_spec_kernel (CP pass A, per channel table)",
+              "specialised.cu", "fused.py:652", launches["B1"],
+              errs["B1"]["f32"], kernel_ms["B1"], errs["B1"]["bf16"],
+              at_storage=kernel_ms["at_storage"]["B1"]),
+        entry("B2", "cp_primal_spec_kernel (CP pass B, per channel table)",
+              "specialised.cu", "fused.py:859", launches["B2"],
+              errs["B2"]["f32"], kernel_ms["B2"], errs["B2"]["bf16"],
+              at_storage=kernel_ms["at_storage"]["B2"]),
         entry("B3", "tv_norms_spec_kernel (TV pass 1)", "specialised_tv.cu",
               "fused.py:1353", gd_launches["B3"], gd_errs["B3"]["f32"],
               gd_ms["f32"]["B3"], gd_errs["B3"]["bf16"]),

@@ -1,13 +1,16 @@
-// CP pass A (B1) on an unsharded volume and TV pass 2 (B4) on an unsharded
-// volume and in the halo mode of a (z, t)-sharded solve, specialised for one
-// channel table of csrc/tables.cuh, for NVIDIA Hopper (sm_90a).
+// CP passes A (B1) and B (B2) on an unsharded volume and TV pass 2 (B4) on
+// an unsharded volume and in the halo mode of a (z, t)-sharded solve,
+// specialised for one channel table of csrc/tables.cuh, for NVIDIA Hopper
+// (sm_90a).
 //
 // Replace the Pallas TPU kernels of pytv4d_tpu/kernels/fused.py:
 //   cp_dual_spec_kernel    <- make_cp_dual_kernel    (pass A, fused.py:652;
 //                                                     unsharded launches)
+//   cp_primal_spec_kernel  <- make_cp_primal_kernel  (pass B, fused.py:859;
+//                                                     unsharded launches)
 //   tv_subgrad_spec_kernel <- make_tv_subgrad_kernel (pass 2, fused.py:1473;
 //                                                     unsharded and halo mode)
-// CP pass A's sharded modes (and pass B's) are specialised the same way in
+// CP passes A and B in their sharded modes are specialised the same way in
 // csrc/specialised_cp.cu, TV pass 1 (B3) and pass A for inverse problems
 // (B5) in csrc/specialised_tv.cu, and the sharded step's boundary passes
 // (B8) in csrc/cp_boundary.cu, which share specialised.cuh with this
@@ -28,6 +31,12 @@
 //     index arithmetic per voxel.  Four columns (16-byte accesses) held up
 //     to 108 registers for the hybrid 4D table and ran slower on an H100
 //     (tools/torch_probe_spec.py builds that variant);
+//   - pass B keeps no prox state (31-52 registers at four columns), so it
+//     takes VEC_B = 4 consecutive columns per thread: one 16-byte (f32) or
+//     8-byte (bf16) access per array and per dual channel, twice the bytes
+//     in flight of two columns, which bf16 storage needs to come near its
+//     bound (tools/torch_probe_spec.py's `primal` part times 2 against 4 in
+//     each storage pair);
 //   - pass 2 loads each value of x and of the norms it needs once: the row
 //     and column neighbours from a shared tile of the block's TILE_R x
 //     TILE_C pixels with a halo (+-1, +-2 for central), the z and t ones
@@ -45,12 +54,13 @@
 // (kernels/fused.py passes its id from table_dims).
 //
 // The arithmetic is the generic bodies' operation for operation and in the
-// same order (voxel.cuh: weighted_d and tv_dual_prox for pass A, chan_y and
-// tv_subgrad_voxel for pass 2; -fmad=false), so y_A', y_D' and G equal theirs
-// to the bit, and a shard's G equals the unsharded kernel's on the same
-// voxels of the gathered volume.  Pass A's TV partials are one per block of
-// BLOCK x VEC voxels (block_sum, no atomics): the loss moves only by the
-// order of a sum.
+// same order (voxel.cuh: weighted_d and tv_dual_prox for pass A,
+// cp_primal_voxel for pass B, chan_y and tv_subgrad_voxel for pass 2;
+// -fmad=false), so y_A', y_D', x' and G equal theirs to the bit, and a
+// shard's G equals the unsharded kernel's on the same voxels of the
+// gathered volume.  The TV partials of pass A and the fidelity partials of
+// pass B are one per block of BLOCK runs of their columns (block_sum, no
+// atomics): the loss moves only by the order of a sum.
 //
 // Bound to Python through the plain C interface at the end (ctypes,
 // kernels/fused.py::_spec_launch); nvcc compiles the kernels of this one
@@ -59,6 +69,7 @@
 #include "specialised.cuh"
 
 constexpr int VEC = 2;             // pass A: columns per thread
+constexpr int VEC_B = 4;           // pass B: columns per thread
 constexpr int TILE_C = 32;         // pass 2: a block's tile of its plane is
 constexpr int TILE_T = BLOCK / TILE_C;  // TILE_C columns by TILE_R rows,
 constexpr int RPT = 2;             // each thread taking RPT of them
@@ -73,6 +84,31 @@ cp_dual_spec_kernel(const Params p, const TX* __restrict__ x,
                     TD* __restrict__ yD, const float* __restrict__ tmul,
                     float* __restrict__ parts, int vec) {
   dual_spec_plane<T, VEC, true>(p, x, x0, yA, yD, tmul, parts, vec);
+}
+
+// ------------------------------------------------------- pass B (B2)
+// specialised.cuh's primal_spec_body on plane blockIdx.y, both gates on;
+// the dual's z neighbours lie M planes of the dual (M Nd planes of a
+// channel) either side, as pass A's lie M planes of x away
+// (dual_spec_plane), and are read only behind the z gate.  x' goes to
+// `out`, x itself (in place) or a second buffer, and x0 may be x (the
+// inverse solver's step), so none of the three is __restrict__.  One
+// fidelity partial per block, at parts[blockIdx.y][blockIdx.x].
+template <Table T, typename TX, typename TD>
+__global__ void __launch_bounds__(BLOCK)
+cp_primal_spec_kernel(const Params p, const TX* x, const TX* x0,
+                      const TX* __restrict__ yA, const TD* __restrict__ yD,
+                      const float* __restrict__ tmul, TX* out,
+                      float* __restrict__ parts, int vec) {
+  const int zt = blockIdx.y, z = zt / p.M, t = zt - z * p.M;
+  const int64_t dplane = (int64_t)tab_nd(T) * p.Nr * p.Nc,
+                zs = p.M * dplane;
+  const TD* yz = yD + zt * dplane;
+  const float s = primal_spec_body<T, VEC_B, TX, TD>(
+      p, z, t, z, p.Nz, t, p.M, x, x0, yA, yz, yz - zs, yz + zs, tmul, out,
+      vec);
+  if (threadIdx.x == 0)
+    parts[(int64_t)zt * gridDim.x + blockIdx.x] = p.fid_scale * s;
 }
 
 // ------------------------------------------------------- pass 2 (B4)
@@ -192,11 +228,8 @@ template <Table T, typename TX, typename TD>
 static int cp_dual_spec_launch(const Params* p, const void* x, const void* x0,
                                void* yA, void* yD, const void* tmul,
                                void* parts, cudaStream_t stream) {
-  const int vec = p->Nc % VEC == 0 && aligned(x, VEC * sizeof(TX)) &&
-                  aligned(x0, VEC * sizeof(TX)) &&
-                  aligned(yA, VEC * sizeof(TX)) &&
-                  aligned(yD, VEC * sizeof(TD)) &&
-                  (!p->has_tmul || aligned(tmul, VEC * sizeof(float)));
+  // no separate output: y_A stands in for it
+  const int vec = runs_aligned<VEC, TX, TD>(p, x, x0, yA, yD, yA, tmul);
   const dim3 grid = dual_grid<VEC>(p);
   cp_dual_spec_kernel<T, TX, TD><<<grid, BLOCK, 0, stream>>>(
       *p, (const TX*)x, (const TX*)x0, (TX*)yA, (TD*)yD, (const float*)tmul,
@@ -218,6 +251,39 @@ static int cp_dual_spec_table(const Params* p, int x_bf16, int d_bf16,
   if (!d_bf16)
     return cp_dual_spec_launch<T, B, float>(p, x, x0, yA, yD, tmul, parts, s);
   return cp_dual_spec_launch<T, B, B>(p, x, x0, yA, yD, tmul, parts, s);
+}
+
+template <Table T, typename TX, typename TD>
+static int cp_primal_spec_launch(const Params* p, const void* x,
+                                 const void* x0, const void* yA,
+                                 const void* yD, const void* tmul, void* out,
+                                 void* parts, cudaStream_t stream) {
+  const int vec = runs_aligned<VEC_B, TX, TD>(p, x, x0, yA, yD, out, tmul);
+  const dim3 grid = dual_grid<VEC_B>(p);
+  cp_primal_spec_kernel<T, TX, TD><<<grid, BLOCK, 0, stream>>>(
+      *p, (const TX*)x, (const TX*)x0, (const TX*)yA, (const TD*)yD,
+      (const float*)tmul, (TX*)out, (float*)parts, vec);
+  return (int)cudaGetLastError();
+}
+
+template <Table T>
+static int cp_primal_spec_table(const Params* p, int x_bf16, int d_bf16,
+                                const void* x, const void* x0,
+                                const void* yA, const void* yD,
+                                const void* tmul, void* out, void* parts,
+                                cudaStream_t s) {
+  typedef __nv_bfloat16 B;
+  if (!x_bf16 && !d_bf16)
+    return cp_primal_spec_launch<T, float, float>(p, x, x0, yA, yD, tmul,
+                                                  out, parts, s);
+  if (!x_bf16)
+    return cp_primal_spec_launch<T, float, B>(p, x, x0, yA, yD, tmul, out,
+                                              parts, s);
+  if (!d_bf16)
+    return cp_primal_spec_launch<T, B, float>(p, x, x0, yA, yD, tmul, out,
+                                              parts, s);
+  return cp_primal_spec_launch<T, B, B>(p, x, x0, yA, yD, tmul, out, parts,
+                                        s);
 }
 
 template <Table T, typename TX, bool HALO>
@@ -250,10 +316,16 @@ long long spec_num_parts(int Nz, int M, int Nr, int Nc) {
   return dual_num_parts<VEC>(Nz, M, Nr, Nc);
 }
 
+// ... and the fidelity partials pass B writes: one per block of BLOCK runs
+// of VEC_B columns.
+long long spec_cp_primal_num_parts(int Nz, int M, int Nr, int Nc) {
+  return dual_num_parts<VEC_B>(Nz, M, Nr, Nc);
+}
+
 // Each launches table `id` of csrc/tables.cuh and returns cudaGetLastError()
 // after the launch (0 = cudaSuccess), or cudaErrorInvalidValue for an id
-// outside the list (or, for the halo mode, Params that do not describe a
-// shard's extended operands).
+// outside the list (or, for pass B, Params of a shard, and for the halo
+// mode, Params that do not describe a shard's extended operands).
 int spec_cp_dual_launch(const Params* p, int id, int x_bf16, int d_bf16,
                         const void* x, const void* x0, void* yA, void* yD,
                         const void* tmul, void* parts, void* stream) {
@@ -263,6 +335,26 @@ int spec_cp_dual_launch(const Params* p, int id, int x_bf16, int d_bf16,
   case id:                                                                  \
     return cp_dual_spec_table<code>(p, x_bf16, d_bf16, x, x0, yA, yD, tmul, \
                                     parts, s);
+    CHANNEL_TABLES(SPEC_CASE)
+#undef SPEC_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Pass B on an unsharded volume: x' = x - tau y_A' - tau D^T y_D' (then
+// max(x', 0) under nonneg) into `out`, which is x itself (in place) or a
+// second buffer; a shard's pass B is csrc/specialised_cp.cu's.
+int spec_cp_primal_launch(const Params* p, int id, int x_bf16, int d_bf16,
+                          const void* x, const void* x0, const void* yA,
+                          const void* yD, const void* tmul, void* out,
+                          void* parts, void* stream) {
+  if (p->sharded) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (id) {
+#define SPEC_CASE(id, code)                                                 \
+  case id:                                                                  \
+    return cp_primal_spec_table<code>(p, x_bf16, d_bf16, x, x0, yA, yD,     \
+                                      tmul, out, parts, s);
     CHANNEL_TABLES(SPEC_CASE)
 #undef SPEC_CASE
   }

@@ -1,11 +1,11 @@
 // Device code of the kernels specialised per channel table (csrc/tables.cuh)
-// that csrc/specialised.cu (B1, B4), csrc/specialised_tv.cu (B3, B5),
+// that csrc/specialised.cu (B1, B2, B4), csrc/specialised_tv.cu (B3, B5),
 // csrc/specialised_cp.cu (B1, B2 on a shard) and csrc/cp_boundary.cu (B8)
 // share: runs of V consecutive columns in one
 // access, the weighted D channels of one voxel from the neighbours a kernel
 // gathered, the body of pass A (the TV dual prox, with the fidelity dual for
-// B1 and B8 and without it for B5) and the body of pass B (B8, and B2 on
-// a shard).  Both bodies take from their caller the plane they work on, the
+// B1 and B8 and without it for B5) and the body of pass B (B2, B8).  Both
+// bodies take from their caller the plane they work on, the
 // planes at z - 1 and z + 1, and the z and t gates, so that one body serves
 // an unsharded volume, a shard's edge plane, whose neighbour across the edge
 // is an exchanged halo plane, and every plane of a shard whose operands are
@@ -465,6 +465,21 @@ template <int V>
 static inline dim3 dual_grid(const Params* p) {
   return dim3((unsigned)dual_blocks<V>(p->Nr, p->Nc),
               (unsigned)(p->Nz * p->M));
+}
+
+// Whether every run of V columns a launch touches is whole and V-aligned in
+// each array it reads or writes (x-like arrays of TX, the dual of TD, tmul
+// where the launch reads it): then each run is one vector access
+// (load_run's `vec`), else the runs go element by element (an odd width, a
+// view one element off).
+template <int V, typename TX, typename TD>
+static inline int runs_aligned(const Params* p, const void* x, const void* x0,
+                               const void* yA, const void* y, const void* out,
+                               const void* tmul) {
+  return p->Nc % V == 0 && aligned(x, V * sizeof(TX)) &&
+         aligned(x0, V * sizeof(TX)) && aligned(yA, V * sizeof(TX)) &&
+         aligned(out, V * sizeof(TX)) && aligned(y, V * sizeof(TD)) &&
+         (!p->has_tmul || aligned(tmul, V * sizeof(float)));
 }
 
 // The block's partial s into row zt of an array whose (z, t) planes hold

@@ -6,9 +6,8 @@
 // sharded modes (halo_mode, interior):
 //   cp_dual_shard_kernel   <- make_cp_dual_kernel   (pass A, fused.py:652)
 //   cp_primal_shard_kernel <- make_cp_primal_kernel (pass B, fused.py:859)
-// On an unsharded volume pass A is csrc/specialised.cu's kernel and pass B
-// csrc/cp_fused.cu's.  The sharded step's edge planes (B8) are
-// csrc/cp_boundary.cu's.
+// On an unsharded volume both passes are csrc/specialised.cu's kernels.
+// The sharded step's edge planes (B8) are csrc/cp_boundary.cu's.
 //
 // The modes (HALO, a template flag):
 //   - halo mode (the ghost-plane step; the sharded CT solve's pass B): every
@@ -30,7 +29,7 @@
 // at a z-shard (8, 8, 256, 256), PERF.md) spent their time on per-channel
 // work: a runtime switch on each channel's axis and kind, 64-bit offsets,
 // one load per channel and neighbour.  Here, as in csrc/specialised.cu for
-// the unsharded pass A:
+// the unsharded passes:
 //   - the table is a template argument: the channel loops unroll at compile
 //     time, with no runtime axis or kind;
 //   - offsets within a plane are 32-bit (specialised.cuh's Offset), the
@@ -141,22 +140,12 @@ static inline bool shard_params(const Params* p, int ext) {
          p->z_last == p->Nz - 2;
 }
 
-template <typename TX, typename TD>
-static int runs_aligned(const Params* p, const void* x, const void* x0,
-                        const void* yA, const void* y, const void* out,
-                        const void* tmul) {
-  return p->Nc % VEC == 0 && aligned(x, VEC * sizeof(TX)) &&
-         aligned(x0, VEC * sizeof(TX)) && aligned(yA, VEC * sizeof(TX)) &&
-         aligned(out, VEC * sizeof(TX)) && aligned(y, VEC * sizeof(TD)) &&
-         (!p->has_tmul || aligned(tmul, VEC * sizeof(float)));
-}
-
 template <Table T, typename TX, typename TD, bool HALO>
 static int dual_launch(const Params* p, const void* x, const void* x0,
                        void* yA, void* yD, const void* tmul, void* parts,
                        cudaStream_t s) {
   // no separate output: y_A stands in for it
-  const int vec = runs_aligned<TX, TD>(p, x, x0, yA, yD, yA, tmul);
+  const int vec = runs_aligned<VEC, TX, TD>(p, x, x0, yA, yD, yA, tmul);
   const dim3 grid = shard_grid<HALO>(p);
   cp_dual_shard_kernel<T, TX, TD, HALO><<<grid, BLOCK, 0, s>>>(
       *p, (const TX*)x, (const TX*)x0, (TX*)yA, (TD*)yD, (const float*)tmul,
@@ -168,7 +157,7 @@ template <Table T, typename TX, typename TD, bool HALO>
 static int primal_launch(const Params* p, const void* x, const void* x0,
                          const void* yA, const void* y, const void* tmul,
                          void* out, void* parts, cudaStream_t s) {
-  const int vec = runs_aligned<TX, TD>(p, x, x0, yA, y, out, tmul);
+  const int vec = runs_aligned<VEC, TX, TD>(p, x, x0, yA, y, out, tmul);
   const dim3 grid = shard_grid<HALO>(p);
   cp_primal_shard_kernel<T, TX, TD, HALO><<<grid, BLOCK, 0, s>>>(
       *p, (const TX*)x, (const TX*)x0, (const TX*)yA, (const TD*)y,

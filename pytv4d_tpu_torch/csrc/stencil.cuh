@@ -1,15 +1,15 @@
-// Device code shared by the stencil kernels of csrc/cp_fused.cu (CP pass B),
-// the kernels specialised per channel table (csrc/specialised.cuh) and
-// csrc/resident.cu (whole CP and GD solves):
+// Device code shared by the kernels specialised per channel table
+// (csrc/specialised.cuh) and csrc/resident.cu (whole CP and GD solves):
 // the launch parameter struct, bf16/f32 loads and stores, the geometry of one
 // stencil axis at a voxel, the weighted D channels of x and a deterministic
 // block sum.  The per-voxel bodies of the passes are in voxel.cuh, the
 // boundary kernels of the sharded CP step in csrc/cp_boundary.cu.
 //
-// The per-launch kernels run one thread per voxel in 1-D blocks of BLOCK threads along
-// a (z, t) plane of the row-major (Nz, M, Nr, Nc) volume; blockIdx.y is the
-// plane.  Each thread gates its own global index against the one-sided
-// zero-slot boundary of core/schemes.py:
+// The per-launch kernels run 1-D blocks of BLOCK threads along a (z, t)
+// plane of the row-major (Nz, M, Nr, Nc) volume (a voxel or a run of
+// columns a thread); blockIdx.y is the plane.  Each thread gates its own
+// global index against the one-sided zero-slot boundary of
+// core/schemes.py:
 //   FWD d[i] = f[i+1] - f[i]    valid at slots [0, L-2]
 //   BWD d[i] = f[i]   - f[i-1]  valid at slots [1, L-1]
 //   CTR d[i] = f[i+1] - f[i-1]  valid at slots [1, L-2]
@@ -145,15 +145,9 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-// One block per BLOCK voxels of a plane, one plane per blockIdx.y: all
-// Nz * M of them, or n_z * M where a launch computes n_z planes along z.
-static inline dim3 plane_grid(const Params* p, int n_z = -1) {
-  const int64_t plane = (int64_t)p->Nr * p->Nc;
-  return dim3((unsigned)((plane + BLOCK - 1) / BLOCK),
-              (unsigned)((n_z < 0 ? p->Nz : n_z) * p->M));
-}
-
-// Number of per-block partials a kernel with plane_grid writes.
+// Number of partials of an array with one slot per BLOCK voxels of each
+// (z, t) plane: the overlapped sharded step's (csrc/cp_boundary.cu and the
+// interior launches of csrc/specialised_cp.cu fill it).
 static inline long long num_parts(int Nz, int M, int Nr, int Nc) {
   const int64_t plane = (int64_t)Nr * Nc;
   return ((plane + BLOCK - 1) / BLOCK) * (int64_t)Nz * M;

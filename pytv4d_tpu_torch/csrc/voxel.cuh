@@ -1,11 +1,10 @@
 // The per-voxel bodies of the stencil passes: CP pass A (fidelity dual, TV
 // dual prox), CP pass B (primal update), TV pass 1 (norms) and TV pass 2
-// (subgradient).  One arithmetic, several kernels: the unsharded pass B of
-// csrc/cp_fused.cu and the whole-solve kernels of csrc/resident.cu call
-// these functions, so they round alike (every source is built with
-// -fmad=false, as the plain PyTorch versions round).  The kernels
-// specialised per channel table (csrc/specialised.cuh) repeat their
-// arithmetic in the same order.
+// (subgradient).  The whole-solve kernels of csrc/resident.cu (B9 in L2)
+// call these functions; the kernels specialised per channel table
+// (csrc/specialised.cuh), every per-launch kernel among them, repeat their
+// arithmetic in the same order, so they round alike (every source is built
+// with -fmad=false, as the plain PyTorch versions round).
 //
 // The pointers carry neither const-ness beyond what the pass needs nor
 // __restrict__: the whole-solve kernels read, after a barrier, what other
@@ -14,9 +13,9 @@
 //
 // Layouts as in stencil.cuh: x, x0, y_A, the norms and G are (Nz, M, Nr, Nc);
 // the TV dual y_D is channel-contiguous (Nz, M, Nd, Nr, Nc).  These bodies
-// serve unsharded volumes only (csrc/cp_fused.cu, csrc/resident.cu); the
-// sharded modes of every pass are csrc/specialised*.cu's, which address a
-// shard's extended operands through ext_plane below.
+// serve unsharded volumes only (csrc/resident.cu); the sharded modes of
+// every pass are csrc/specialised*.cu's, which address a shard's extended
+// operands through ext_plane below.
 
 #pragma once
 

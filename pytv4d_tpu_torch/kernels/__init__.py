@@ -1,17 +1,16 @@
 """The fused CP step (with its pass A for inverse problems, its z-marching
 pass A and the boundary kernels of its sharded form), the TV subgradient,
 the whole CP and GD solves and the TGV-2 step and whole solve:
-CUDA kernels (``csrc/cp_fused.cu``, ``csrc/cp_zstream.cu``,
-``csrc/cp_boundary.cu``, ``csrc/resident.cu``,
-``csrc/resident_onchip.cu``, ``csrc/tgv_stream.cu``,
-``csrc/tgv_resident.cu``, ``csrc/tgv_onchip.cu``; the boundary passes of
-``csrc/cp_boundary.cu``, the z-marching pass A of ``csrc/cp_zstream.cu``,
-the on-chip whole solves of ``csrc/resident_onchip.cu``, the CP pass A
-(on an unsharded volume) and the TV subgradient (also on a shard) from
-``csrc/specialised.cu``, the TV norms and the pass A for inverse problems
-(both also on a shard) from ``csrc/specialised_tv.cu``,
-CP passes A and B on a shard from ``csrc/specialised_cp.cu``, specialised
-per channel table,
+CUDA kernels (``csrc/cp_zstream.cu``, ``csrc/cp_boundary.cu``,
+``csrc/resident.cu``, ``csrc/resident_onchip.cu``,
+``csrc/tgv_stream.cu``, ``csrc/tgv_resident.cu``, ``csrc/tgv_onchip.cu``;
+the boundary passes of ``csrc/cp_boundary.cu``, the z-marching pass A of
+``csrc/cp_zstream.cu``, the on-chip whole solves of
+``csrc/resident_onchip.cu``, CP passes A and B (on an unsharded volume)
+and the TV subgradient (also on a shard) from ``csrc/specialised.cu``, the
+TV norms and the pass A for inverse problems (both also on a shard) from
+``csrc/specialised_tv.cu``, CP passes A and B on a shard from
+``csrc/specialised_cp.cu``, specialised per channel table,
 ``kernels.tables``) for CUDA tensors, their
 plain PyTorch versions for CPU tensors.  Importing this package needs
 neither a GPU nor nvcc: the kernels are built on their first launch."""

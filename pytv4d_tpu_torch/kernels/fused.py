@@ -10,8 +10,8 @@ One CP iteration is two passes over the volume:
   prox, every weighted D channel of the scheme table, the TV dual prox (iso
   ball, aniso box, Huber shrink + ball) and one TV partial of D x per
   block.  Writes y_A and y_D in place.
-- pass B, :func:`cp_primal` (kernel ``cp_primal_kernel`` in
-  ``csrc/cp_fused.cu``; replaces ``make_cp_primal_kernel``):
+- pass B, :func:`cp_primal` (kernel ``cp_primal_spec_kernel`` in
+  ``csrc/specialised.cu``; replaces ``make_cp_primal_kernel``):
   ``x' = x - tau y_A' - tau D^T y_D'``, the optional ``nonneg`` clamp and
   one fidelity partial of x' per block.  Writes x in place, or into
   ``out``.
@@ -52,12 +52,11 @@ subgradient-descent step's operator) is two more passes:
   and the norms, recomputing the D channels at each voxel and its
   neighbours, stored in x's dtype.  No Nd-channel volume is written.
 
-Passes A, 1 and 2 and pass A for inverse problems launch kernels
-specialised for the scheme's channel table (``kernels.tables``: the table
-id picks the template instance; the libraries :data:`SPECIALISED`) on an
-unsharded volume, and so do all five passes on a shard (passes 1, 2 and A
-for inverse problems in ``halo_mode``: their HALO instances,
-``spectv_norms_halo_launch``, ``spec_tv_subgrad_halo_launch``,
+All five passes launch kernels specialised for the scheme's channel table
+(``kernels.tables``: the table id picks the template instance; the
+libraries :data:`SPECIALISED`) on an unsharded volume, and on a shard
+(passes 1, 2 and A for inverse problems in ``halo_mode``: their HALO
+instances, ``spectv_norms_halo_launch``, ``spec_tv_subgrad_halo_launch``,
 ``spectv_dual_halo_launch``; passes A and B in both sharded modes:
 ``csrc/specialised_cp.cu``'s ``spcp_dual_halo_launch``,
 ``spcp_dual_interior_launch``, ``spcp_primal_halo_launch``,
@@ -195,12 +194,12 @@ _ENTRY_POINTS = {
     #           {launch function: (int flags, tensor pointers)});
     # kernels/tgv_stream.py, tgv_resident.py, resident.py and zstream.py add
     # theirs
-    "cp_fused": ("cp", _Params, {"cp_primal_launch": (2, 7)}),
     # the specialised kernels; int flags (table, storage...)
     "cp_boundary": ("bnd", _Params, {"cp_dual_boundary_launch": (3, 7),
                                      "cp_primal_boundary_launch": (3, 7)}),
     "specialised": ("spec", _Params, {
-        "spec_cp_dual_launch": (3, 6), "spec_tv_subgrad_launch": (2, 4),
+        "spec_cp_dual_launch": (3, 6), "spec_cp_primal_launch": (3, 7),
+        "spec_tv_subgrad_launch": (2, 4),
         "spec_tv_subgrad_halo_launch": (2, 4)}),
     "specialised_tv": ("spectv", _Params, {
         "spectv_norms_launch": (2, 4), "spectv_norms_halo_launch": (2, 4),
@@ -237,7 +236,7 @@ def _num_parts(name, fn_name):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(name="cp_fused"):
+def _lib(name):
     """Build (on first use), load and bind ``csrc/<name>.cu``.  Every launch
     function takes the parameter struct, its int flags, its pointers and
     the stream, and returns ``cudaGetLastError()``."""
@@ -584,10 +583,10 @@ def _cp_primal_kernel(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, tau,
                       fidelity="l2", fid_weight=1.0, nonneg=False, out,
                       halo_mode=False, table_dims=None, interior=False,
                       y_ext=None):
-    """:func:`cp_primal`'s launch, on checked operands: the generic kernel
-    (``csrc/cp_fused.cu``) on a volume, on a shard the halo-mode or interior
-    instance of the scheme's channel table (``csrc/specialised_cp.cu``)
-    with the whole volume's table."""
+    """:func:`cp_primal`'s launch, on checked operands: the kernel of the
+    scheme's channel table (``csrc/specialised.cu``), on a shard its
+    halo-mode or interior instance (``csrc/specialised_cp.cu``) with the
+    whole volume's table."""
     p = _params(cfg, tuple(x.shape), tmul is not None, tau=float(tau),
                 fidelity=fidelity, fid_weight=float(fid_weight),
                 nonneg=bool(nonneg),
@@ -600,9 +599,9 @@ def _cp_primal_kernel(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, tau,
                                      (x, x0, y_A, y, tmul, out), interior,
                                      table_dims)
     else:
-        fn = "cp_primal_launch"
-        parts = _launch("cp_fused", fn, x, p, flags,
-                        (x, x0, y_A, y_D, tmul, out), with_parts=True)
+        fn = "spec_cp_primal_launch"
+        parts = _spec_launch(fn, cfg, x, p, flags,
+                             (x, x0, y_A, y_D, tmul, out), with_parts=True)
     cp_primal.launches += 1
     cp_primal.launches_by_fn[fn] += 1
     return out, parts.view(x.shape[0], -1) if interior else parts

@@ -220,7 +220,7 @@ def test_checks_are_remembered_per_kind_of_call(monkeypatch):
 
 def _edge_slots(Nr, Nc):
     """The slots per plane of the interior launch, and the boundary
-    kernels' blocks per plane (csrc/stencil.cuh plane_grid,
+    kernels' blocks per plane (csrc/stencil.cuh num_parts,
     specialised.cuh dual_blocks)."""
     slots = -(-Nr * Nc // BLOCK)
     blocks = -(-Nr * -(-Nc // VEC_BND) // BLOCK)

@@ -27,12 +27,17 @@ def test_library_path_follows_included_headers(tmp_path):
 
 
 def test_repo_kernels_include_the_shared_header():
-    # one arithmetic: the generic per-launch kernel and the L2 whole-solve
-    # kernels take their per-voxel bodies from voxel.cuh
-    for name in ("cp_fused", "resident"):
-        sources = build._sources(os.path.join(build.CSRC, f"{name}.cu"))
-        assert [os.path.basename(p) for p in sources] == \
-            [f"{name}.cu", "voxel.cuh", "stencil.cuh"]
+    # one arithmetic: the L2 whole-solve kernels take their per-voxel bodies
+    # from voxel.cuh, whose last per-launch caller, the generic pass B of
+    # csrc/cp_fused.cu, is gone (pass B is specialised.cu's per table)
+    sources = build._sources(os.path.join(build.CSRC, "resident.cu"))
+    assert [os.path.basename(p) for p in sources] == \
+        ["resident.cu", "voxel.cuh", "stencil.cuh"]
+    assert not os.path.exists(os.path.join(build.CSRC, "cp_fused.cu"))
+    for name in os.listdir(build.CSRC):
+        if name.endswith(".cu") and name != "resident.cu":
+            with open(os.path.join(build.CSRC, name)) as f:
+                assert "cp_primal_voxel(" not in f.read(), name
     # the TGV kernels: the streaming pair and both whole-solve kernels take
     # theirs from tgv.cuh
     for name in ("tgv_stream", "tgv_resident", "tgv_onchip"):
@@ -65,8 +70,7 @@ def test_only_the_specialised_source_splits_its_compile():
     assert set(build.SOURCE_FLAGS) == {"specialised", "specialised_tv",
                                        "specialised_cp", "cp_boundary",
                                        "cp_zstream", "resident_onchip"}
-    for name in ("cp_fused", "tgv_stream", "tgv_resident",
-                 "tgv_onchip", "resident"):
+    for name in ("tgv_stream", "tgv_resident", "tgv_onchip", "resident"):
         assert build.nvcc_flags(name) == build.NVCC_FLAGS
     assert "-fmad=false" in build.NVCC_FLAGS
 
@@ -79,9 +83,12 @@ def test_every_library_has_its_entry_points_and_its_source():
     import pytv4d_tpu_torch.kernels  # noqa: F401  (every wrapper registers)
 
     assert set(fused._ENTRY_POINTS) == {
-        "cp_fused", "tgv_stream", "tgv_resident", "tgv_onchip",
-        "cp_zstream", "resident", "resident_onchip", "cp_boundary",
-        "specialised", "specialised_tv", "specialised_cp"}
+        "tgv_stream", "tgv_resident", "tgv_onchip", "cp_zstream",
+        "resident", "resident_onchip", "cp_boundary", "specialised",
+        "specialised_tv", "specialised_cp"}
+    # every library is a source, and every source a library
+    assert {n[:-3] for n in os.listdir(build.CSRC) if n.endswith(".cu")} \
+        == set(fused._ENTRY_POINTS)
     for name, (prefix, params, launches) in fused._ENTRY_POINTS.items():
         text = ""
         for path in build._sources(os.path.join(build.CSRC, f"{name}.cu")):
@@ -135,18 +142,20 @@ class _Defines:
 def test_each_launch_with_partials_has_its_count():
     """A launch that writes TV or fidelity partials has a C function that
     counts them: its own ``<launch>_num_parts`` (the two passes of
-    specialised_tv.cu, whose blocks differ, and their halo modes), its
-    mode's ``<prefix>_<mode>_num_parts`` (the sharded CP passes' interior
+    specialised_tv.cu, whose blocks differ, and their halo modes, and the
+    unsharded CP pass B, whose runs are wider than pass A's), its mode's
+    ``<prefix>_<mode>_num_parts`` (the sharded CP passes' interior
     launches) or the library's ``<prefix>_num_parts``; the generic B5 in
-    its halo mode (csrc/tv_fused.cu), the generic B3 in its halo mode and
-    the generic B1 are gone with their entry points.  The boundary kernels count the interior launches'
+    its halo mode (csrc/tv_fused.cu), the generic B3 in its halo mode, the
+    generic B1 and the generic B2 (csrc/cp_fused.cu) are gone with their
+    entry points.  The boundary kernels count the interior launches'
     partials, whose edge rows they fill, as the interior launches count
     them (their halo mode counts its own blocks)."""
     from pytv4d_tpu_torch.kernels import fused
 
     counts = {}
-    for name in ("cp_fused", "specialised", "specialised_tv",
-                 "specialised_cp", "cp_boundary"):
+    for name in ("specialised", "specialised_tv", "specialised_cp",
+                 "cp_boundary"):
         prefix, _, launches = fused._ENTRY_POINTS[name]
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             text = f.read()
@@ -168,8 +177,9 @@ def test_each_launch_with_partials_has_its_count():
     assert counts["spcp_dual_interior_launch"] == "spcp_interior_num_parts"
     assert counts["spcp_primal_interior_launch"] == \
         "spcp_interior_num_parts"
-    assert counts["cp_primal_launch"] == "cp_num_parts"
-    assert set(fused._ENTRY_POINTS["cp_fused"][2]) == {"cp_primal_launch"}
+    # the unsharded pass B counts its own blocks (VEC_B columns a run)
+    assert counts["spec_cp_primal_launch"] == "spec_cp_primal_num_parts"
+    assert "cp_fused" not in fused._ENTRY_POINTS
 
 
 def test_onchip_key_hashes_its_source_and_headers(tmp_path):

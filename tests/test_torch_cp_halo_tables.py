@@ -5,15 +5,15 @@ On a shard the wrappers launch the per-table kernels of
 ``csrc/specialised_cp.cu``: ``halo_mode`` (the ghost-plane step; all 21
 tables) and ``interior`` (the overlapped step; the tables of
 ``kernels.tables.BOUNDARY_TABLES``, B8's), each with the channel table of the
-WHOLE volume (``table_dims``); on a volume they launch the unsharded kernels
-as before (B1 ``csrc/specialised.cu``, B2 ``csrc/cp_fused.cu``); a table
-outside a list raises before any launch.  Each case calls the wrappers'
+WHOLE volume (``table_dims``); on a volume they launch the unsharded
+per-table kernels (B1 and B2, ``csrc/specialised.cu``); a table outside a
+list raises before any launch.  Each case calls the wrappers'
 launch functions (``_cp_dual_kernel``, ``_cp_primal_kernel``) on CPU tensors
 with ``_launch`` recording, so no kernel runs.  The C sources are read as
 text: the list of interior tables, the switches, the checks of Params, the
-partial counts, and that the generic pass A is gone.  Each launch counts
-under its launch function (``launches_by_fn``), which tells the modes
-apart."""
+partial counts, and that the generic passes A and B are gone.  Each launch
+counts under its launch function (``launches_by_fn``), which tells the
+modes apart."""
 
 import collections
 import itertools
@@ -40,6 +40,9 @@ from pytv4d_tpu_torch.parallel import fused_halo as fh
 from pytv4d_tpu_torch.parallel.mesh import indexed, make_mesh, shard_volume
 
 BLOCK, VEC = 256, 2  # csrc/stencil.cuh, csrc/specialised_cp.cu
+with open(os.path.join(build.CSRC, "specialised.cu")) as _f:
+    # the unsharded pass B's columns a run
+    VEC_B = int(re.search(r"constexpr int VEC_B = (\d+);", _f.read())[1])
 STORAGE = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
            (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
 HALO_LAUNCHES = ("spcp_dual_halo_launch", "spcp_primal_halo_launch")
@@ -61,6 +64,8 @@ def _count(fn_name, shape):
     slots, blocks = _slots(Nr, Nc)
     per_plane = blocks if fn_name in ("spec_cp_dual_launch",
                                       *HALO_LAUNCHES) else slots
+    if fn_name == "spec_cp_primal_launch":
+        per_plane = -(-Nr * -(-Nc // VEC_B) // BLOCK)
     return Nz * M * per_plane
 
 
@@ -299,14 +304,15 @@ def test_an_unsharded_call_launches_as_before(launches):
     (a, b) = launches
     assert (a["lib"], a["fn"], a["flags"]) == (
         "specialised", "spec_cp_dual_launch", (tid, 1, 0))
+    # pass B: the unsharded volume's table too (no generic kernel left)
     assert (b["lib"], b["fn"], b["flags"]) == (
-        "cp_fused", "cp_primal_launch", (1, 0))
+        "specialised", "spec_cp_primal_launch", (tid, 1, 0))
     assert a["args"] == (x, x, x, yd, None)
     assert b["args"] == (x, x, x, yd, None, out)
     assert a["p"].sharded == 0 and b["p"].sharded == 0
     assert (fused.cp_dual.launches, fused.cp_primal.launches) == (1, 1)
     assert fused.cp_dual.launches_by_fn == {"spec_cp_dual_launch": 1}
-    assert fused.cp_primal.launches_by_fn == {"cp_primal_launch": 1}
+    assert fused.cp_primal.launches_by_fn == {"spec_cp_primal_launch": 1}
 
 
 def test_a_halo_table_outside_the_built_list_raises(launches, monkeypatch,
@@ -409,20 +415,25 @@ def test_each_new_launch_refuses_unsharded_params(launch, check):
     assert "if (HALO) return p->sharded && p->t_free && ext == 1;" in rule
     assert ("return p->sharded && !p->t_free && p->Nz >= 3 && "
             "p->z_first == 1 &&") in rule
-    assert "if (p->sharded) return (int)cudaErrorInvalidValue;" in _body(
-        _source("cp_fused.cu"), "static int launch_primal")
+    body = _body(_source("specialised.cu"), "int spec_cp_primal_launch")
+    assert body.index("if (p->sharded) return (int)cudaErrorInvalidValue;"
+                      ) < body.index("switch (id)")
 
 
 def test_the_generic_cp_dual_kernel_is_gone():
-    """csrc/cp_fused.cu keeps the unsharded pass B alone; B1 and B2 on a
-    shard are the per-table kernels, a HALO template flag each, and the
-    generic per-voxel CP bodies have no sharded branch left."""
-    text = _source("cp_fused.cu")
-    code = re.sub(r"//[^\n]*", "", text)
-    assert "cp_dual_kernel" not in code and "cp_dual_voxel" not in code
-    assert "HALO" not in code and "yN" not in code
-    assert re.findall(r"^int (\w+)\(", text, re.M) == ["cp_primal_launch"]
-    assert set(fused._ENTRY_POINTS["cp_fused"][2]) == {"cp_primal_launch"}
+    """csrc/cp_fused.cu, which last kept the generic unsharded pass B, is
+    gone with its library; B1 and B2 are per-table kernels on a volume
+    (csrc/specialised.cu) and on a shard (a HALO template flag each), and
+    the generic per-voxel CP bodies have no sharded branch left."""
+    assert not os.path.exists(os.path.join(build.CSRC, "cp_fused.cu"))
+    assert "cp_fused" not in fused._ENTRY_POINTS
+    assert not any("cp_fused" in name for name in os.listdir(build.CSRC))
+    spec = _source("specialised.cu")
+    assert re.search(r"template <Table T, typename TX, typename TD>\s*"
+                     r"__global__ void __launch_bounds__\(BLOCK\)\s*"
+                     r"cp_primal_spec_kernel", spec)
+    assert "primal_spec_body<T, VEC_B, TX, TD>" in spec
+    assert "_voxel" not in re.sub(r"//[^\n]*", "", spec)
     spcp = _source("specialised_cp.cu")
     for kernel in ("cp_dual_shard_kernel", "cp_primal_shard_kernel"):
         assert re.search(r"template <Table T, typename TX, typename TD, "

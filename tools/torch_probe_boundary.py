@@ -2,9 +2,9 @@
 
     python3 tools/torch_probe_boundary.py
 
-Builds ``csrc/cp_boundary.cu`` and ``csrc/cp_fused.cu`` (the interior
-launches whose partials B8 fills) and prints what ptxas reports for each B8
-kernel.  Then, on one z-shard (8, 8, 256, 256) of the (32, 8, 256, 256) f32
+Builds ``csrc/cp_boundary.cu`` and ``csrc/specialised_cp.cu`` (the
+interior launches whose partials B8 fills) and prints what ptxas reports
+for each B8 kernel.  Then, on one z-shard (8, 8, 256, 256) of the (32, 8, 256, 256) f32
 hybrid ``reg_time=0.5`` volume, microseconds per call (200 calls with no
 synchronisation between them, best of 5) of ``cp_dual_boundary`` and
 ``cp_primal_boundary`` and of the parts of the dual's wrapper: its checks
@@ -66,7 +66,7 @@ def host_us(fn, n=200, repeats=5):
 
 
 def main():
-    for name in ("cp_boundary", "cp_fused"):
+    for name in ("cp_boundary", "specialised_cp"):
         path, seconds, log = build.build(name)
         if not log:
             with open(path + ".log") as f:

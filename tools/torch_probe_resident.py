@@ -59,7 +59,7 @@ from pytv4d_tpu_torch.kernels import build, fused, resident  # noqa: E402
 from pytv4d_tpu_torch.solvers.cp import default_tau  # noqa: E402
 
 DEV = torch.device("cuda", 0)
-LIBS = ("resident", "cp_fused")
+LIBS = ("resident", "specialised")
 # (blocks of one cluster, or None for the shipped cooperative grid; threads)
 LAUNCHES = [(None, 256), (None, 512), (None, 1024),
             (8, 1024), (16, 1024), (16, 512)]

@@ -1,11 +1,11 @@
 """A/B of the specialised kernels' design choices on one GPU.
 
     python3 tools/torch_probe_spec.py [build] [offsets] [widths] [norms]
-                                      [dual] [anatomy]
+                                      [dual] [anatomy] [primal]
 
-Six parts (all without arguments), each against the shipped sources:
+Seven parts (all without arguments), each against the shipped sources:
 
-- build: the nine sources of ``kernels/build.py`` compiled all at once, as
+- build: the ten sources of ``kernels/build.py`` compiled all at once, as
   ``chip_smoke.py`` phase 2 does, first with the shipped flags, then with
   ``specialised.cu`` and ``specialised_tv.cu`` compiled without
   ``-split-compile``; the wall time of each round and the two sources' own
@@ -33,6 +33,12 @@ Six parts (all without arguments), each against the shipped sources:
 - anatomy: B3 with its norm arithmetic, its store or its across copies cut
   out, alone and together, iso in float32 and bf16 at (32, 8, 256, 256):
   what its time is made of (these variants' norms are not checked).
+- primal: B2's columns per thread on an unsharded volume (``VEC_B`` 2 or
+  4 in ``specialised.cu``: 8- or 16-byte f32 accesses, 4- or 8-byte bf16
+  ones), hybrid ``reg_time=0.5`` at (32, 8, 256, 256) in each of the four
+  storage pairs, out of place from one seeded state (x' must be bit-equal
+  across the variants and the shipped kernel), and the shipped kernel at
+  (16, 4, 512, 512) in float32.
 
 Variants are written under ``pytv4d_tpu_torch/_build/variants/``
 (git-ignored), restricted to the hybrid tables.  A time is the mean of 50
@@ -62,11 +68,13 @@ sys.path.insert(0, ROOT)
 from pytv4d_tpu_torch.core.config import TVConfig  # noqa: E402
 from pytv4d_tpu_torch.kernels import build, fused, tables  # noqa: E402
 
-SOURCES = ("cp_fused", "tgv_stream", "tgv_resident", "resident",
-           "cp_zstream", "cp_boundary", "specialised", "specialised_tv")
+SOURCES = ("tgv_stream", "tgv_resident", "tgv_onchip", "resident",
+           "resident_onchip", "cp_zstream", "cp_boundary", "specialised",
+           "specialised_tv", "specialised_cp")
 SPECIALISED = ("specialised", "specialised_tv")
 # kernel id by the name of its template
-KINDS = {"cp_dual_spec": "B1", "tv_subgrad_spec": "B4",
+KINDS = {"cp_dual_spec": "B1", "cp_primal_spec": "B2",
+         "tv_subgrad_spec": "B4",
          "tv_norms_spec": "B3", "tv_dual_spec": "B5"}
 WIDTHS = ((2, 2), (4, 1), (2, 1), (4, 2), (4, 4))  # (VEC, RPT), shipped first
 SHAPE = (32, 8, 256, 256)
@@ -93,6 +101,10 @@ def variant(name, hybrid_only=True, edits=(), source="specialised.cu"):
         edit(os.path.join(d, "tables.cuh"),
              r"(#define CHANNEL_TABLES\(X\)).*?CENTRAL_FWD_TABLES\(X\)",
              r"\1 HYBRID_TABLES(X)")
+        # the check that each table of TABLES_WITH_Z has a z channel reads
+        # tables the variant leaves out
+        edit(os.path.join(d, "tables.cuh"),
+             r"\nTABLES_WITH_Z\(TABLE_HAS_Z\)\n", "\n")
     for pattern, repl in edits:
         edit(os.path.join(d, source), pattern, repl)
     return d
@@ -473,9 +485,64 @@ def part_anatomy():
               flush=True)
 
 
+def part_primal():
+    def make(vec):
+        d = variant(f"primal_vec{vec}", edits=[(
+            r"constexpr int VEC_B = \d+;", f"constexpr int VEC_B = {vec};")])
+        return vec, compile_(os.path.join(d, "specialised.cu"),
+                             build.nvcc_flags("specialised"))
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        # the shipped libraries (B3's for the cases' norms) beside them
+        shipped = [pool.submit(build.build, n)
+                   for n in ("specialised", "specialised_tv")]
+        built = list(pool.map(make, (2, 4)))
+        for job in shipped:
+            job.result()
+    libs = {"shipped": fused._lib("specialised")}
+    for vec, (sec, so, regs, spills) in built:
+        print(f"[primal, build] VEC_B {vec}: nvcc {sec:.1f} s, "
+              f"{report(regs, spills)}", flush=True)
+        libs[f"VEC_B {vec}"] = bind(so)
+    f32, bf16 = torch.float32, torch.bfloat16
+    stream = torch.cuda.current_stream(DEV).cuda_stream
+    for shape, x_dt, d_dt, labels in (
+            (SHAPE, f32, f32, libs), (SHAPE, f32, bf16, libs),
+            (SHAPE, bf16, f32, libs), (SHAPE, bf16, bf16, libs),
+            ((16, 4, 512, 512), f32, f32, ("shipped",))):
+        case = Case(shape, "iso", x_dt, d_dt)
+        runs, ref = {}, None
+        for label in labels:
+            lib = libs[label]
+            out = torch.empty_like(case.x)
+            parts = torch.empty(lib.spec_cp_primal_num_parts(*shape),
+                                device=DEV)
+
+            def run(lib=lib, out=out, parts=parts):
+                code = lib.spec_cp_primal_launch(
+                    ctypes.byref(case.p), case.tid, *case.flags,
+                    case.x.data_ptr(), case.x0.data_ptr(),
+                    case.y_A.data_ptr(), case.y_D.data_ptr(), None,
+                    out.data_ptr(), parts.data_ptr(), stream)
+                assert code == 0, code
+
+            run()
+            torch.cuda.synchronize()
+            ref = ref if ref is not None else out.clone()
+            if not torch.equal(out, ref):
+                raise RuntimeError(f"B2 {label}: x' differs from the "
+                                   f"shipped kernel's")
+            runs[label] = run
+        print(f"[primal, ms per launch, {case.title()}] "
+              + "; ".join(f"{k} {v}" for k, v in timed_in_turns(runs).items())
+              + "; x' bit-equal", flush=True)
+        del case, runs
+        torch.cuda.empty_cache()
+
+
 PARTS = {"build": part_build, "offsets": part_offsets,
          "widths": part_widths, "norms": part_norms, "dual": part_dual,
-         "anatomy": part_anatomy}
+         "anatomy": part_anatomy, "primal": part_primal}
 
 
 def main():

@@ -5,7 +5,8 @@ iteration on one GPU, for comparing two trees of the repo in one run.
     python3 tools/torch_time_stencil.py --ab PARENT_DIR [--only SECTIONS]
 
 ``--only`` runs the named lines alone, a comma-separated subset of
-``stencil,tgv,shard,b5,resident`` (all by default; ``--ab`` passes it on).
+``stencil,b2,tgv,shard,b5,resident`` (all by default; ``--ab`` passes it
+on).
 
 Imports ``pytv4d_tpu_torch`` from ``DIR`` (default: this checkout), which
 builds its kernels there on first use, and prints one line of times at
@@ -23,6 +24,20 @@ launches also print a hash of their outputs after one launch.  Then ms per itera
 on PARENT_DIR, this checkout, this checkout and PARENT_DIR again, one
 process each, so that both trees are timed in turns on one card: unpack
 the parent commit with ``git archive`` into a git-ignored directory first.
+
+The ``b2`` line times B2 (CP pass B) on that unsharded volume in float32,
+with a bf16 dual and in bf16, in place from a seeded state: CUDA events
+and the device's ms per launch (``torch.profiler`` over 50 launches, each
+recorded), beside the bound (each array once: x, x0, y_A and the dual read,
+x' written, over the HBM rate) and its share of it; and the hash of x'
+after one launch from that state in each storage pair for each variant of
+the call the wrapper takes (in place; out of place with x itself as x0, as
+the inverse solver calls it; ``nonneg`` with the l1 fidelity; kl; a time
+multiplier plane), and in float32 for the four schemes at (4, 3, 64, 96)
+and at the odd width (2, 2, 24, 71), and a 2D (1, 1, 256, 256) volume, so
+that two trees' x' can be compared bit for bit; with the fidelity partials'
+sum after the in-place launch (the partials' blocks may differ between
+trees: equal to round-off, not bit for bit).
 
 A second line times the TGV kernels: B6's two passes per launch in the 4d
 and 2d modes in float32 and the 4d mode in bf16, and B7 as
@@ -280,7 +295,7 @@ def card():
 
 def main():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    only = {"stencil", "tgv", "shard", "b5", "resident"}
+    only = {"stencil", "b2", "tgv", "shard", "b5", "resident"}
     if "--only" in sys.argv:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     if "--ab" in sys.argv:
@@ -408,6 +423,19 @@ def main():
               + ", ".join(f"{k} {v}" for k, v in hashes.items())
               + f"; card {card()}", flush=True)
     del x_ct
+    if "b2" in only:
+        b2_ms, b2_dev, b2_bound, b2_hash, b2_fid = b2_times(cfg, dev)
+        print(f"[B2 unsharded] {os.path.relpath(root)} {SHAPE} hybrid "
+              f"reg_time=0.5, per launch, CUDA events / device "
+              f"(torch.profiler, 50 of 50 launches), bound (device share): "
+              + ", ".join(f"{k} {b2_ms[k]:.4f} / {b2_dev[k]:.4f} ms, bound "
+                          f"{b2_bound[k]:.4f} ({b2_bound[k] / b2_dev[k]:.1%})"
+                          for k in b2_ms)
+              + "; x' hashes after one launch from seeded states: "
+              + ", ".join(f"{k} {v}" for k, v in b2_hash.items())
+              + "; fidelity partial sums: "
+              + ", ".join(f"{k} {v!r}" for k, v in b2_fid.items())
+              + f"; card {card()}", flush=True)
     if "tgv" in only:
         tgv_ms, tgv_hash = tgv_times(dev)
         print(f"[tgv times] {os.path.relpath(root)} {SHAPE} f32 unless "
@@ -647,6 +675,120 @@ def cp_shard_modes(cfg, dev):
             del a, d, o
         del x, x0, y_A, x1, y_D, y1
     return ms, on_dev, hashes
+
+
+def traced_ms(run, key, n=50, traces=3):
+    """The device ms of one launch of the kernel whose name holds ``key``,
+    the mean over a ``torch.profiler`` trace of ``n`` calls of ``run`` (one
+    launch each) that recorded all ``n``.  A trace can drop the first
+    records of its window, so it opens with 32 small kernels of its own and
+    a pause of 50 ms on the host before the ``n`` calls, and closes with
+    one more small kernel; a trace that lost records all the same is taken
+    again, up to ``traces`` times, then it raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mark = torch.zeros(1, device="cuda")
+    for _ in range(traces):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(32):
+                mark.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            for _ in range(n):
+                run()
+            mark.add_(1.0)
+            torch.cuda.synchronize()
+        ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == DeviceType.CUDA and key in e.name]
+        if len(ms) == n:
+            return sum(ms) / n
+    raise RuntimeError(f"no trace kept all {n} launches of {key}: "
+                       f"{len(ms)}")
+
+
+def b2_bound(shape, Nd, x_dt, d_dt):
+    """The least ms of B2 on an unsharded ``shape``: x, x0, y_A and the Nd
+    dual channels read and x' written, each once, over the HBM rate, or
+    4 operations a channel and 8 a voxel over the float32 rate."""
+    from pytv4d_tpu_torch.utils.profiling import H100_HBM_PEAK_GBPS
+
+    vox = int(np.prod(shape))
+    n_bytes = (4 * x_dt.itemsize + Nd * d_dt.itemsize) * vox
+    return max(n_bytes / (H100_HBM_PEAK_GBPS * 1e9),
+               (4 * Nd + 8) * vox / H100_F32_PEAK_FLOPS) * 1e3
+
+
+def b2_times(cfg, dev):
+    """B2 on an unsharded volume (module docstring): ``(ms, device ms,
+    bounds, x' hashes, fidelity partial sums)``."""
+    from pytv4d_tpu_torch.core.config import TVConfig
+    from pytv4d_tpu_torch.core.schemes import SCHEMES, num_channels
+    from pytv4d_tpu_torch.kernels import fused
+
+    rng = np.random.default_rng(22)
+
+    def seeded(shape, c):
+        Nd = num_channels(c.scheme, *shape[:2], c.reg_z_over_reg,
+                          c.reg_time)
+        arrs = [rng.random(shape, dtype=np.float32) for _ in range(3)]
+        y = 0.3 * rng.standard_normal((*shape[:2], Nd, *shape[2:]),
+                                      dtype=np.float32)
+        tm = 0.5 + rng.random(shape[2:], dtype=np.float32)
+        return [torch.as_tensor(a, device=dev) for a in (*arrs, y, tm)]
+
+    def variants(x, x0, y_A, y_D, tm, c):
+        pk = dict(cfg=c, tau=0.1)
+        return {"in place": lambda o: fused.cp_primal(o, x0, y_A, y_D, **pk),
+                "out of place, x0 = x": lambda o: fused.cp_primal(
+                    x, x, y_A, y_D, out=o, **pk),
+                "nonneg l1": lambda o: fused.cp_primal(
+                    o, x0, y_A, y_D, fidelity="l1", fid_weight=0.7,
+                    nonneg=True, **pk),
+                "kl": lambda o: fused.cp_primal(
+                    o, x0, y_A, y_D, fidelity="kl", fid_weight=0.7, **pk),
+                "tmul": lambda o: fused.cp_primal(o, x0, y_A, y_D, tm,
+                                                  **pk)}
+
+    bf16 = torch.bfloat16
+    ms, on_dev, bounds, hashes, fids = {}, {}, {}, {}, {}
+    Nd = num_channels(cfg.scheme, *SHAPE[:2], cfg.reg_z_over_reg,
+                      cfg.reg_time)
+    base = seeded(SHAPE, cfg)
+    for tag, (x_dt, d_dt) in (("f32", (torch.float32, torch.float32)),
+                              ("bf16 dual", (torch.float32, bf16)),
+                              ("bf16", (bf16, bf16))):
+        x, x0, y_A = (a.to(x_dt) for a in base[:3])
+        y_D = base[3].to(d_dt)
+        for name, run in variants(x, x0, y_A, y_D, base[4], cfg).items():
+            o = x.clone()
+            fid = run(o)[1]
+            hashes[f"B2 {tag} {name}"] = digest(o)
+            if name == "in place":
+                fids[f"B2 {tag}"] = float(fid.double().sum())
+        key, xs = f"B2 {tag}", x.clone()
+
+        def launch():
+            fused.cp_primal(xs, x0, y_A, y_D, cfg=cfg, tau=0.1)
+        ms[key] = launch_ms(launch)
+        on_dev[key] = traced_ms(launch, "cp_primal")
+        bounds[key] = b2_bound(SHAPE, Nd, x_dt, d_dt)
+        del x, x0, y_A, y_D, xs
+    del base
+    for shape, c in [*((s, TVConfig(scheme=k, reg_time=0.5))
+                       for k in SCHEMES
+                       for s in ((4, 3, 64, 96), (2, 2, 24, 71))),
+                     ((1, 1, 256, 256), TVConfig())]:
+        x, x0, y_A, y_D, tm = seeded(shape, c)
+        for name, run in variants(x, x0, y_A, y_D, tm, c).items():
+            if shape[1] == 1 and name == "tmul":
+                continue  # one time step: no time channel to multiply
+            o = x.clone()
+            run(o)
+            hashes[f"B2 {c.scheme} {shape} {name}"] = digest(o)
+    return ms, on_dev, bounds, hashes, fids
 
 
 # B5's halo-mode shards: a z-shard of SHAPE, and one of 4 z-shards and of a
