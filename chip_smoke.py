@@ -273,7 +273,7 @@ from pytv4d_tpu_torch.solvers.state import (
     run_until_converged,
 )
 from pytv4d_tpu_torch.solvers.tgv import TGV_FIELDS, tgv_denoise
-from pytv4d_tpu_torch.utils import cameraman, has_real_cameraman
+from pytv4d_tpu_torch.utils import cameraman, has_real_cameraman, profiling
 from pytv4d_tpu_torch.utils.profiling import (
     H100_HBM_PEAK_GBPS,
     cp_traffic_model,
@@ -314,28 +314,23 @@ SPEC_KERNELS = {"B1": "cp_dual_spec_kernel", "B2": "cp_primal_spec_kernel",
                 "B8dual": "bnd_dual_kernel", "B8primal": "bnd_primal_kernel",
                 "B9cp": "reso_cp_kernel", "B9gd": "reso_gd_kernel",
                 "B10": "zstream_spec_kernel"}
-# each wrapper's launch counter, by kernel id
-COUNTERS = {"B1": fused.cp_dual, "B2": fused.cp_primal,
-            "B3": fused.tv_norms, "B4": fused.tv_subgrad,
-            "B5": fused.tv_dual,
-            "B6pq": tgv_stream.tgv_pq, "B6xw": tgv_stream.tgv_xw,
+# each kernel's launch counter in utils.profiling.counters(), by kernel id
+COUNTERS = {"B1": "launch.B1", "B2": "launch.B2", "B3": "launch.B3",
+            "B4": "launch.B4", "B5": "launch.B5",
+            "B6pq": "launch.B6.pq", "B6xw": "launch.B6.xw",
             # B7 on chip, and in L2 (slices too large for the chip)
-            "B7": tgv_resident.solve_onchip,
-            "B7l2": tgv_resident.solve_l2,
-            "B9cp": resident.make_resident_cp_solver,
-            "B9gd": resident.make_resident_gd_solver,
+            "B7": "launch.B7.onchip", "B7l2": "launch.B7.l2",
+            "B9cp": "launch.B9.cp", "B9gd": "launch.B9.gd",
             # B9's kernels: on chip, and in L2 (volumes too large for it)
-            "B9onchip": resident.solve_onchip,
-            "B9l2": resident.solve_l2,
-            "B10": zstream.cp_dual_zstream,
-            "B8dual": fused.cp_dual_boundary,
-            "B8primal": fused.cp_primal_boundary}
-# B1 and B2 in their sharded modes: each wrapper's count of the launches
-# of one of its launch functions (``launches_by_fn``), by kernel id
-MODE_COUNTERS = {"B1halo": (fused.cp_dual, "spcp_dual_halo_launch"),
-                 "B1int": (fused.cp_dual, "spcp_dual_interior_launch"),
-                 "B2halo": (fused.cp_primal, "spcp_primal_halo_launch"),
-                 "B2int": (fused.cp_primal, "spcp_primal_interior_launch")}
+            "B9onchip": "launch.B9.onchip", "B9l2": "launch.B9.l2",
+            "B10": "launch.B10",
+            "B8dual": "launch.B8.dual", "B8primal": "launch.B8.primal",
+            # B1 and B2 in their sharded modes: the launches of one launch
+            # function
+            "B1halo": "launch.B1/spcp_dual_halo_launch",
+            "B1int": "launch.B1/spcp_dual_interior_launch",
+            "B2halo": "launch.B2/spcp_primal_halo_launch",
+            "B2int": "launch.B2/spcp_primal_interior_launch"}
 # data-sheet peaks of the H100 SXM at 700 W: HBM bytes/s (utils.profiling)
 # and float32 operations/s outside the tensor cores
 H100_F32_PEAK_FLOPS = 67e12
@@ -390,16 +385,12 @@ def require(cond, what):
 
 
 def zero_counters():
-    for fn in COUNTERS.values():
-        fn.launches = 0
-    for wrapper in (fused.cp_dual, fused.cp_primal):
-        wrapper.launches_by_fn.clear()
+    profiling.clear_counters()
 
 
 def read_counters():
-    return {**{k: fn.launches for k, fn in COUNTERS.items()},
-            **{k: wrapper.launches_by_fn[fn]
-               for k, (wrapper, fn) in MODE_COUNTERS.items()}}
+    got = profiling.counters()
+    return {k: got[key] for k, key in COUNTERS.items()}
 
 
 def require_launches(got, what, **expected):
@@ -1391,13 +1382,13 @@ def phase_tgv_main_path():
     require(isinstance(noisy, np.ndarray) and noisy.shape == (256, 256),
             "the input is a numpy image")
     zero_counters()
-    solves = tgv_resident.tgv_resident_solve.launches
+    solves = profiling.counters()["launch.B7"]
     res = TVDenoiser(reg=25).tgv(noisy, 300)  # numpy in, no device=
     sync()
     launches = read_counters()
     # one launch of the on-chip kernel, none of the L2 kernel or any other
     require_launches(launches, "TVDenoiser.tgv", B7=1)
-    require(tgv_resident.tgv_resident_solve.launches == solves + 1,
+    require(profiling.counters()["launch.B7"] == solves + 1,
             "one whole-solve launch")
     require(res.x.is_cuda and tuple(res.x.shape) == (256, 256)
             and res.x.dtype == torch.float32,
@@ -2142,7 +2133,7 @@ def _b9_solve(solver, cfg, shape, state, n, variant=None):
     the named kernel; and which kernel ran."""
     x0, x, y_A, y_D = state
     kw = _b9_kwargs(solver, cfg, shape)
-    before = (resident.solve_onchip.launches, resident.solve_l2.launches)
+    before = read_counters()
     if variant is not None:
         out = _b9_kernel(variant, solver, cfg, state, n, kw)
     elif solver == "cp":
@@ -2151,9 +2142,10 @@ def _b9_solve(solver, cfg, shape, state, n, variant=None):
     else:
         out = resident.make_resident_gd_solver(
             cfg, shape, n, "float32", **kw)(x0, x)
+    after = read_counters()
     ran = {(1, 0): "onchip", (0, 1): "l2"}.get(
-        (resident.solve_onchip.launches - before[0],
-         resident.solve_l2.launches - before[1]))
+        (after["B9onchip"] - before["B9onchip"],
+         after["B9l2"] - before["B9l2"]))
     return out, ran
 
 

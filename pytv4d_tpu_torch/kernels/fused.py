@@ -88,17 +88,15 @@ Each wrapper takes its plain PyTorch version (:func:`cp_dual_plain`,
 :func:`tv_subgrad_plain`, :func:`cp_dual_boundary_plain`,
 :func:`cp_primal_boundary_plain`) for tensors on the CPU, which is how the
 CPU tests run the fused path.  For CUDA tensors it launches the kernel or
-raises.  ``cp_dual.launches``, ``tv_dual.launches``, ``cp_primal.launches``,
-``tv_norms.launches``, ``tv_subgrad.launches``,
-``cp_dual_boundary.launches`` and ``cp_primal_boundary.launches`` count
-kernel launches; ``cp_dual.launches_by_fn`` and
-``cp_primal.launches_by_fn`` count them by launch function, which tells
-the unsharded launch and the two sharded modes apart.
+raises.  Each launch is counted in ``utils.profiling.counters()``: B1 to
+B5 under ``launch.B1`` ... ``launch.B5``, the boundary kernels under
+``launch.B8.dual`` / ``launch.B8.primal``, and B1 and B2 also under
+``launch.B1/<launch function>`` / ``launch.B2/<launch function>``, which
+tells the unsharded launch and the two sharded modes apart.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
@@ -109,6 +107,7 @@ from ..core.schemes import BWD, CTR, FWD, channel_weight, scheme_channels
 from ..ops.operators import D, D_T, _sl, d_channel, dt_channel, tv_norm
 from ..ops.tv import _subgrad_from_D
 from ..solvers.fidelity import fidelity_dual_prox, fidelity_loss
+from ..utils.profiling import count
 from . import tables
 
 MAX_CHANNELS = 8      # MAX_CH: channels a thread keeps in registers
@@ -488,8 +487,8 @@ def _cp_dual_kernel(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, sigma_D,
     else:
         fn = "spec_cp_dual_launch"
         parts = _spec_launch(fn, cfg, x0, p, flags, args, with_parts=True)
-    cp_dual.launches += 1
-    cp_dual.launches_by_fn[fn] += 1
+    count("launch.B1")
+    count(f"launch.B1/{fn}")
     return y_A, y_D, parts.view(x0.shape[0], -1) if interior else parts
 
 
@@ -533,7 +532,7 @@ def _tv_dual_kernel(x_bar, y_D, *, cfg: TVConfig, sigma_D, reg,
     parts = _spec_launch(fn, cfg, x_bar, p, _storage_flags(x_bar, y_D),
                          (x_bar, y_D), with_parts=True,
                          table_dims=table_dims, shape=shape)
-    tv_dual.launches += 1
+    count("launch.B5")
     return y_D, parts
 
 
@@ -602,8 +601,8 @@ def _cp_primal_kernel(x, x0, y_A, y_D, tmul=None, *, cfg: TVConfig, tau,
         fn = "spec_cp_primal_launch"
         parts = _spec_launch(fn, cfg, x, p, flags,
                              (x, x0, y_A, y_D, tmul, out), with_parts=True)
-    cp_primal.launches += 1
-    cp_primal.launches_by_fn[fn] += 1
+    count("launch.B2")
+    count(f"launch.B2/{fn}")
     return out, parts.view(x.shape[0], -1) if interior else parts
 
 
@@ -704,7 +703,7 @@ def _dual_boundary_kernel(x, x_halo, x0, y_A, y_D, parts, tmul=None, *,
                 sharded=True)
     _boundary_launch("cp_dual_boundary_launch", cfg, x, y_D, table_dims, p,
                      (x, x_halo, x0, y_A, y_D, tmul, parts))
-    cp_dual_boundary.launches += 1
+    count("launch.B8.dual")
     return y_A, y_D, parts
 
 
@@ -740,17 +739,8 @@ def _primal_boundary_kernel(x, x0, y_A, y_D, y_halo, parts, tmul=None, *,
                 nonneg=bool(nonneg), table_dims=table_dims, sharded=True)
     _boundary_launch("cp_primal_boundary_launch", cfg, x, y_D, table_dims, p,
                      (x, x0, y_A, y_D, y_halo, tmul, parts))
-    cp_primal_boundary.launches += 1
+    count("launch.B8.primal")
     return x, parts
-
-
-cp_dual.launches = 0
-tv_dual.launches = 0
-cp_primal.launches = 0
-cp_dual.launches_by_fn = collections.Counter()
-cp_primal.launches_by_fn = collections.Counter()
-cp_dual_boundary.launches = 0
-cp_primal_boundary.launches = 0
 
 
 _LO = {FWD: 0, BWD: -1, CTR: -1}   # a difference's lower and upper slot,
@@ -1086,7 +1076,7 @@ def _tv_norms_kernel(x, tmul=None, *, cfg: TVConfig, halo_mode=False,
     parts = _spec_launch(fn, cfg, norms, p, (int(x.dtype == torch.bfloat16),),
                          (x, tmul, norms), with_parts=True,
                          table_dims=table_dims)
-    tv_norms.launches += 1
+    count("launch.B3")
     return norms, parts
 
 
@@ -1133,12 +1123,8 @@ def _tv_subgrad_kernel(x, norms, tmul=None, *, cfg: TVConfig,
           else "spec_tv_subgrad_launch")
     _spec_launch(fn, cfg, g, p, (int(x.dtype == torch.bfloat16),),
                  (x, norms, tmul, g), table_dims=table_dims)
-    tv_subgrad.launches += 1
+    count("launch.B4")
     return g
-
-
-tv_norms.launches = 0
-tv_subgrad.launches = 0
 
 
 def tv_norms_plain(x, tmul=None, *, cfg: TVConfig, halo_mode=False,

@@ -40,11 +40,11 @@ Each factory returns a ``solve`` that takes its plain PyTorch version
 launches the kernel :func:`resident_variant` names or raises -- a refused launch never
 runs the other kernel.  A numpy array goes to the CUDA device, and the call
 raises where there is none (``utils.device``).
-``make_resident_cp_solver.launches`` and ``make_resident_gd_solver.launches``
-count the launches of their solvers (one per solve); :func:`solve_onchip`
+``utils.profiling.counters()`` counts the launches of their solvers (one
+per solve) under ``launch.B9.cp`` and ``launch.B9.gd``; :func:`solve_onchip`
 and :func:`solve_l2` launch one kernel each on the internal-layout state
 (``chip_smoke.py`` and the tools call them to hold the two against each
-other), and ``solve_onchip.launches`` and ``solve_l2.launches`` count them.
+other), counted under ``launch.B9.onchip`` and ``launch.B9.l2``.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ import torch
 from ..core.config import TVConfig
 from ..core.schemes import AXIS_ROW, CTR, num_channels
 from ..utils.device import on_device
+from ..utils.profiling import count
 from . import tables
 from .dispatch import as_dtype
 from .fused import (
@@ -257,7 +258,7 @@ def make_resident_cp_solver(cfg: TVConfig, shape, n_iter: int,
         losses = _kernel("cp", cfg, shape, x.device)(
             "cp", cfg, x_noisy, solver_params("cp", cfg, shape, **kw),
             int(n_iter), (x, y_A, y_D_int))
-        make_resident_cp_solver.launches += 1
+        count("launch.B9.cp")
         return x, y_A, from_internal_layout(y_D_int).contiguous(), losses
 
     return solve
@@ -283,14 +284,10 @@ def make_resident_gd_solver(cfg: TVConfig, shape, n_iter: int,
         losses = _kernel("gd", cfg, shape, x.device)(
             "gd", cfg, x_noisy, solver_params("gd", cfg, shape, **kw),
             int(n_iter), bufs)
-        make_resident_gd_solver.launches += 1
+        count("launch.B9.gd")
         return bufs[n_iter % 2], losses
 
     return solve
-
-
-make_resident_cp_solver.launches = 0
-make_resident_gd_solver.launches = 0
 
 
 def solve_onchip(solver, cfg, x_noisy, p, n_iter, state):
@@ -317,11 +314,8 @@ def solve_onchip(solver, cfg, x_noisy, p, n_iter, state):
     _launch("resident_onchip", f"reso_{solver}_launch", x_noisy, p,
             (tables.table_id(cfg, Nz, M), n_iter, R, smem),
             (x_noisy, *state, parts, ex))
-    solve_onchip.launches += 1
+    count("launch.B9.onchip")
     return _losses(parts, p)
-
-
-solve_onchip.launches = 0
 
 
 def solve_l2(solver, cfg, x_noisy, p, n_iter, state):
@@ -334,11 +328,8 @@ def solve_l2(solver, cfg, x_noisy, p, n_iter, state):
     extra = (torch.empty_like(x_noisy),) if solver == "gd" else ()  # norms
     _launch("resident", f"resident_{solver}_launch", x_noisy, p,
             (n_iter, blocks, threads), (x_noisy, *state, *extra, parts))
-    solve_l2.launches += 1
+    count("launch.B9.l2")
     return _losses(parts, p)
-
-
-solve_l2.launches = 0
 
 
 def _losses(parts, p):

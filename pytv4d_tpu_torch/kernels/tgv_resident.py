@@ -33,8 +33,9 @@ wrapper sums it over the blocks.  The objective is separable over slices.
 (:func:`tgv_resident_plain`) for a tensor on the CPU; for a CUDA tensor it
 launches the kernel its variant names or raises — a refused launch never
 runs the other kernel, and it never gives way to the streaming path.
-``tgv_resident_solve.launches`` counts its launches (one per solve),
-``solve_onchip.launches`` and ``solve_l2.launches`` those of each kernel.
+``utils.profiling.counters()`` counts its launches (one per solve) under
+``launch.B7``, and those of each kernel under ``launch.B7.onchip`` and
+``launch.B7.l2``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import ctypes
 import torch
 
 from ..solvers.tgv import _init_state, tgv_objective
+from ..utils.profiling import count
 from .fused import _ENTRY_POINTS, _check_tensors, _launch, _lib
 from .tgv_stream import (
     TGVParams,
@@ -188,11 +190,8 @@ def tgv_resident_solve(x0, n_iter, alpha1, alpha0, sigma_tau_split=1.0,
     solve = (solve_onchip if tgv_resident_variant(shape, compute_loss)
              == "onchip" else solve_l2)
     out = solve(x0, int(n_iter), prm, bool(compute_loss))
-    tgv_resident_solve.launches += 1
+    count("launch.B7")
     return out
-
-
-tgv_resident_solve.launches = 0
 
 
 def _empty_state(x0, blocks, n_iter, compute_loss):
@@ -230,11 +229,8 @@ def solve_onchip(x0, n_iter, prm, compute_loss, cluster=None, threads=None,
             (n_iter, int(compute_loss), C, threads, ppt,
              int(smem if smem_bytes is None else smem_bytes)),
             (x0, x, xb, w, wb, p, q, parts))
-    solve_onchip.launches += 1
+    count("launch.B7.onchip")
     return x, w, xb, wb, p, q, parts.sum(dim=1)
-
-
-solve_onchip.launches = 0
 
 
 def solve_l2(x0, n_iter, prm, compute_loss):
@@ -246,11 +242,8 @@ def solve_l2(x0, n_iter, prm, compute_loss):
     _launch("tgv_resident", "tgv_resident_launch", x0, prm,
             (n_iter, int(compute_loss), CLUSTER_SIZE),
             (x0, x, xb, w, wb, p, q, parts))
-    solve_l2.launches += 1
+    count("launch.B7.l2")
     return x, w, xb, wb, p, q, parts.sum(dim=1)
-
-
-solve_l2.launches = 0
 
 
 def max_active_clusters(shape, compute_loss=True, cluster=None,

@@ -33,7 +33,8 @@ The loss is NOT fused: the streaming path serves ``compute_loss=False`` and
 Each wrapper takes its plain PyTorch version (:func:`tgv_pq_plain`,
 :func:`tgv_xw_plain`) for tensors on the CPU, which is how the CPU tests
 run the fused path.  For CUDA tensors it launches the kernel or raises.
-``tgv_pq.launches`` and ``tgv_xw.launches`` count kernel launches.
+``utils.profiling.counters()`` counts their launches under
+``launch.B6.pq`` and ``launch.B6.xw``.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from ..solvers.tgv import (
     _tgv_dual_prox,
     tgv_steps,
 )
+from ..utils.profiling import count
 from .fused import (
     _ENTRY_POINTS,
     _NORM,
@@ -156,7 +158,7 @@ def tgv_pq(xb, wb, p, q, *, mode, alpha1, alpha0, sigma_tau_split=1.0,
                      float(sigma_tau_split), norm, float(huber_delta))
     _launch("tgv_stream", "tgv_pq_launch", xb, prm, _flags(mode, xb),
             (xb, wb, p, q))
-    tgv_pq.launches += 1
+    count("launch.B6.pq")
     return p, q
 
 
@@ -178,12 +180,8 @@ def tgv_xw(x, x0, p, w, q, xb=None, wb=None, *, mode, sigma_tau_split=1.0):
                      "iso", 1.0)
     _launch("tgv_stream", "tgv_xw_launch", x, prm, _flags(mode, x),
             (x, x0, p, w, q, xb, wb))
-    tgv_xw.launches += 1
+    count("launch.B6.xw")
     return x, xb, w, wb
-
-
-tgv_pq.launches = 0
-tgv_xw.launches = 0
 
 
 def _compute_dtype(t):

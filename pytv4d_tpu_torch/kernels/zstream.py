@@ -21,7 +21,7 @@ does not dispatch to it.  :func:`cp_dual_zstream` has the contract of
 :func:`fused.cp_dual` without the time-plane multiplier; it takes its plain
 PyTorch version (:func:`cp_dual_zstream_plain`) for tensors on the CPU, and
 for CUDA tensors it launches the kernel or raises.
-``cp_dual_zstream.launches`` counts kernel launches.
+``utils.profiling.counters()`` counts its launches under ``launch.B10``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import torch
 
 from ..core.config import TVConfig
 from ..core.schemes import AXIS_Z, scheme_channels
+from ..utils.profiling import count
 from . import tables
 from .fused import (
     _ENTRY_POINTS,
@@ -81,9 +82,6 @@ def cp_dual_zstream(x, x0, y_A, y_D, *, cfg: TVConfig, sigma_D, sigma_A, reg,
                            fid_weight=fid_weight)
 
 
-cp_dual_zstream.launches = 0
-
-
 def _zstream_kernel(x, x0, y_A, y_D, *, cfg: TVConfig, sigma_D, sigma_A, reg,
                     fidelity, fid_weight):
     """:func:`cp_dual_zstream`'s launch, on checked operands: the kernel of
@@ -96,7 +94,7 @@ def _zstream_kernel(x, x0, y_A, y_D, *, cfg: TVConfig, sigma_D, sigma_A, reg,
              *_storage_flags(x, y_D))
     parts = _launch("cp_zstream", "cp_dual_zstream_launch", x, p, flags,
                     (x, x0, y_A, y_D), with_parts=True)
-    cp_dual_zstream.launches += 1
+    count("launch.B10")
     return y_A, y_D, parts
 
 

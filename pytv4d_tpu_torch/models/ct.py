@@ -55,6 +55,7 @@ import torch.nn.functional as F
 from ..core.config import TVConfig
 from ..solvers.inverse import _LinearTranspose, cp_inverse, power_iteration
 from ..utils.device import on_device
+from ..utils.profiling import solve_span
 from . import ct_spectral
 
 _RADON_GATHER_BUDGET = 512 * 1024 * 1024  # bytes of in-flight samples
@@ -439,6 +440,7 @@ class CPReconResult(NamedTuple):
     state: NamedTuple = None  # full solver carry (resume via state=)
 
 
+@solve_span
 def cp_reconstruct(
     sino,
     angles,

@@ -21,6 +21,7 @@ from ..ops.operators import _safe_sqrt, precond_maps, tv_norm
 from ..ops.space import Space, d_zeros, tensor_space
 from ..parallel.mesh import indexed, is_grid
 from ..utils.device import on_device
+from ..utils.profiling import ITER_SPAN, solve_span, span
 from .fidelity import fidelity_dual_prox, fidelity_loss, validate_fidelity
 from .progress import emit_progress
 
@@ -266,6 +267,7 @@ def init_state(x_noisy, cfg: TVConfig, x_init=None,
                    y_D=d_zeros(space, x_noisy, Nd))
 
 
+@solve_span
 def chambolle_pock(
     x_noisy,
     n_iter: int = 300,
@@ -356,13 +358,15 @@ def chambolle_pock(
         losses = torch.empty(n_iter, dtype=space.first(x_noisy).dtype,
                              device=device)
         for i in range(n_iter):
-            st, loss = cp_step(
-                st, x_noisy, reg=reg, sigma_D=sigma_D, sigma_A=sigma_A,
-                tau=tau, cfg=cfg, fidelity=fidelity,
-                fidelity_weight=fidelity_weight, nonneg=nonneg, space=space,
-            )
-            losses[i] = loss
-            emit_progress(i, loss, progress_every, progress_fn)
+            with span(ITER_SPAN, device):
+                st, loss = cp_step(
+                    st, x_noisy, reg=reg, sigma_D=sigma_D, sigma_A=sigma_A,
+                    tau=tau, cfg=cfg, fidelity=fidelity,
+                    fidelity_weight=fidelity_weight, nonneg=nonneg,
+                    space=space,
+                )
+                losses[i] = loss
+                emit_progress(i, loss, progress_every, progress_fn)
         if not return_dual:
             st = st._replace(y_D=None)
         return CPResult(x=st.x, state=st, loss=losses)
@@ -409,13 +413,14 @@ def chambolle_pock(
 
     losses = torch.empty(n_iter, dtype=torch.float32, device=device)
     for i in range(n_iter):
-        x, y_A, y_D_int, loss = cp_step_fused_internal(
-            x, y_A, y_D_int, x0, reg=reg, sigma_D=sigma_D, sigma_A=sigma_A,
-            tau=tau, cfg=cfg, tmul=tmul, fidelity=fidelity,
-            fid_weight=fidelity_weight, nonneg=nonneg,
-        )
-        losses[i] = loss
-        emit_progress(i, loss, progress_every, progress_fn)
+        with span(ITER_SPAN, device):
+            x, y_A, y_D_int, loss = cp_step_fused_internal(
+                x, y_A, y_D_int, x0, reg=reg, sigma_D=sigma_D,
+                sigma_A=sigma_A, tau=tau, cfg=cfg, tmul=tmul,
+                fidelity=fidelity, fid_weight=fidelity_weight, nonneg=nonneg,
+            )
+            losses[i] = loss
+            emit_progress(i, loss, progress_every, progress_fn)
     y_D_out = (from_internal_layout(y_D_int).to(out_dual_dtype)
                if return_dual else None)
     final = CPState(x, y_A, y_D_out)

@@ -18,6 +18,7 @@ from ..core.config import TVConfig
 from ..ops.space import TENSOR, Space
 from ..ops.tv import tv_and_subgrad
 from ..parallel.mesh import is_grid
+from ..utils.profiling import ITER_SPAN, solve_span, span
 from .progress import emit_progress
 
 
@@ -63,14 +64,17 @@ def gd_loop(space: Space, tv_and_G, x_noisy, x, *, n_iter, reg, step_size,
     losses = torch.empty(n_iter, dtype=hist_dtype, device=device)
     tvs = torch.empty(n_iter, dtype=hist_dtype, device=device)
     for i in range(n_iter):
-        x, loss, tv = _update(space, tv_and_G, x, x_noisy, reg, step_size)
-        losses[i] = loss
-        tvs[i] = tv
-        if each is not None:
-            each(i, loss)
+        with span(ITER_SPAN, device):
+            x, loss, tv = _update(space, tv_and_G, x, x_noisy, reg,
+                                  step_size)
+            losses[i] = loss
+            tvs[i] = tv
+            if each is not None:
+                each(i, loss)
     return x, losses, tvs
 
 
+@solve_span
 def subgradient_descent(
     x_noisy,
     n_iter: int = 300,

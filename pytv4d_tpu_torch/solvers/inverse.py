@@ -36,6 +36,7 @@ from ..ops.operators import D, D_T, precond_maps, tv_norm
 from ..ops.space import TENSOR, Space, d_zeros, tensor_space
 from ..parallel.mesh import is_grid
 from ..utils.device import on_device
+from ..utils.profiling import A_SPAN, A_T_SPAN, ITER_SPAN, solve_span, span
 from .cp import dual_prox
 from .fidelity import (
     fidelity_conjugate,
@@ -298,6 +299,7 @@ def pd_gap_inverse(
     return primal + f_star + tv_star + sup_C
 
 
+@solve_span
 def cp_inverse(
     A: Callable,
     b,
@@ -608,21 +610,26 @@ def _inverse_run(A, A_T, b, carry, fw, *, steps, space, cfg, reg, fidelity,
         return torch.clamp_min(xn, 0.0) if nonneg else xn
 
     for i in range(n_iter):
-        y_A = space.map(lambda ya, s, bs, sa, w: fidelity_dual_prox(
-            ya, s, bs, sa, fidelity, w), y_A, sAx_bar, b, sig_A, fw)
-        y_D = space.map(lambda yd, d, sg: dual_prox(
-            yd + sg * d, reg, cfg.norm, sg, cfg.huber_delta),
-            y_D, space.D(x_bar), sig)
-        x_new = space.map(primal, x, A_T(y_A), space.D_T(y_D), tau)
-        x_bar = space.map(lambda xn, xs: 2.0 * xn - xs, x_new, x)
-        s_new = A(x_new)
-        x, sAx, sAx_bar = x_new, s_new, space.map(
-            lambda sn, s: 2.0 * sn - s, s_new, sAx)
-        if (i + 1) % loss_every == 0:
-            losses[i // loss_every] = space.sum(
-                lambda sn, bs, w, d: fidelity_loss(sn, bs, fidelity, w)
-                + reg * tv_norm(d, cfg.norm, huber_delta=cfg.huber_delta),
-                s_new, b, fw, space.D(x))
+        with span(ITER_SPAN, first.device):
+            y_A = space.map(lambda ya, s, bs, sa, w: fidelity_dual_prox(
+                ya, s, bs, sa, fidelity, w), y_A, sAx_bar, b, sig_A, fw)
+            y_D = space.map(lambda yd, d, sg: dual_prox(
+                yd + sg * d, reg, cfg.norm, sg, cfg.huber_delta),
+                y_D, space.D(x_bar), sig)
+            with span(A_T_SPAN, first.device):
+                at = A_T(y_A)
+            x_new = space.map(primal, x, at, space.D_T(y_D), tau)
+            x_bar = space.map(lambda xn, xs: 2.0 * xn - xs, x_new, x)
+            with span(A_SPAN, first.device):
+                s_new = A(x_new)
+            x, sAx, sAx_bar = x_new, s_new, space.map(
+                lambda sn, s: 2.0 * sn - s, s_new, sAx)
+            if (i + 1) % loss_every == 0:
+                losses[i // loss_every] = space.sum(
+                    lambda sn, bs, w, d: fidelity_loss(sn, bs, fidelity, w)
+                    + reg * tv_norm(d, cfg.norm,
+                                    huber_delta=cfg.huber_delta),
+                    s_new, b, fw, space.D(x))
     return InverseState(x, x_bar, y_A, y_D, sAx, sAx_bar), losses
 
 
@@ -662,21 +669,24 @@ def _inverse_run_fused(A, A_T, b, carry, fw, *, sigma, tau, dual_dtype,
     losses = torch.empty(n_iter // loss_every, dtype=torch.float32,
                          device=first.device)
     for i in range(n_iter):
-        y_A = space.map(lambda ya, s, bs, w: fidelity_dual_prox(
-            ya, s, bs, sigma, fidelity, w), y_A, sAx_bar, b, fw)
-        y_D_int = half.dual(x_bar, y_D_int)
-        at = space.map(lambda a: a.contiguous(), A_T(y_A))
-        x_new = half.primal(x, at, y_D_int, spare)
-        space.map(lambda xn, xb, xs: torch.mul(xn, 2.0, out=xb).sub_(xs),
-                  x_new, x_bar, x)
-        s_new = A(x_new)
-        x, spare, sAx, sAx_bar = x_new, x, s_new, space.map(
-            lambda sn, s: 2.0 * sn - s, s_new, sAx)
-        if (i + 1) % loss_every == 0:
-            losses[i // loss_every] = torch.add(
-                space.sum(lambda sn, bs, w: fidelity_loss(
-                    sn, bs, fidelity, w), s_new, b, fw),
-                half.tv(x), alpha=reg)
+        with span(ITER_SPAN, first.device):
+            y_A = space.map(lambda ya, s, bs, w: fidelity_dual_prox(
+                ya, s, bs, sigma, fidelity, w), y_A, sAx_bar, b, fw)
+            y_D_int = half.dual(x_bar, y_D_int)
+            with span(A_T_SPAN, first.device):
+                at = space.map(lambda a: a.contiguous(), A_T(y_A))
+            x_new = half.primal(x, at, y_D_int, spare)
+            space.map(lambda xn, xb, xs: torch.mul(xn, 2.0, out=xb).sub_(xs),
+                      x_new, x_bar, x)
+            with span(A_SPAN, first.device):
+                s_new = A(x_new)
+            x, spare, sAx, sAx_bar = x_new, x, s_new, space.map(
+                lambda sn, s: 2.0 * sn - s, s_new, sAx)
+            if (i + 1) % loss_every == 0:
+                losses[i // loss_every] = torch.add(
+                    space.sum(lambda sn, bs, w: fidelity_loss(
+                        sn, bs, fidelity, w), s_new, b, fw),
+                    half.tv(x), alpha=reg)
     final = InverseState(
         x, x_bar, y_A, space.map(
             lambda a: from_internal_layout(a).to(out_dual_dtype), y_D_int),

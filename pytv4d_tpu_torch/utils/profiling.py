@@ -17,15 +17,48 @@ helpers).
 - :class:`IterationTimer` — iterations/s of a loop: CUDA events when its
   output is on a CUDA device, the host clock on the CPU.
 - :func:`device_kind` — the card's name, or ``'cpu'``.
+- :func:`span`, :func:`solve_span`, :func:`span_table`,
+  :func:`clear_spans` — the solvers' spans, while a ``torch.profiler``
+  records.
+- :func:`count`, :func:`counters`, :func:`clear_counters` — the launch
+  counters of the kernels, by key.
 
 ``time_iterations`` and ``device_time`` need a CUDA device: a CPU time is
 not a device metric, so there is no CPU fallback.  ``IterationTimer`` times
 where the work ran, and its CPU numbers are host timings.
+
+**Spans.**  The solver layer marks its boundaries with :func:`span`:
+``pytv.solve`` around each call of ``chambolle_pock``,
+``subgradient_descent``, ``cp_inverse`` and ``cp_reconstruct`` (one a call,
+however they nest: :func:`solve_span`), ``pytv.iter`` around each
+iteration of their loops, ``pytv.project.A`` and ``pytv.project.A_T``
+around the projector's calls in the inverse solver's loops.  A span is
+open only while a ``torch.profiler`` records (any profiler, or
+:func:`trace`): it is then a ``record_function`` in the trace, on the
+profiler's clock, and, where the solve runs on a CUDA device, a pair of
+CUDA events on the current stream, which give its extent on the device
+stream (from when the stream reaches its start to when the last work
+launched inside it ends, idle time included).  With no profiler a span is
+one flag read and a shared null context.  A solve's self time on the
+device stream, its set-up and teardown, is its ``pytv.solve`` span less
+the ``pytv.iter`` spans it holds.
+
+**Counters.**  Each kernel wrapper counts its launches with :func:`count`
+under ``launch.<kernel>``, the kernel's B-number in ``PERF.md``'s kernel
+table: ``launch.B1`` ... ``launch.B5``, ``launch.B6.pq`` / ``.xw``,
+``launch.B7`` (whole TGV solves) with ``launch.B7.onchip`` / ``.l2`` (the
+kernel that ran), ``launch.B8.dual`` / ``.primal``, ``launch.B9.cp`` /
+``.gd`` (whole solves) with ``launch.B9.onchip`` / ``.l2``, ``launch.B10``;
+B1 and B2 also under ``launch.B1/<launch function>`` and
+``launch.B2/<launch function>``, which tell the unsharded launch and the
+two sharded modes apart.  The counters are always on.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import os
 import time
 from typing import Callable
@@ -221,3 +254,134 @@ def device_kind() -> str:
     if torch.cuda.is_available():
         return torch.cuda.get_device_name(0)
     return "cpu"
+
+
+# ---------------------------------------------------------------- spans
+
+SOLVE_SPAN = "pytv.solve"
+ITER_SPAN = "pytv.iter"
+A_SPAN = "pytv.project.A"
+A_T_SPAN = "pytv.project.A_T"
+
+_NULL = contextlib.nullcontext()
+# name -> [spans finished, CUDA event pairs not yet read, device ms read]
+_SPANS: dict = {}
+_solve_depth = 0
+
+
+def _recording() -> bool:
+    """Whether a profiler records: the Python flag ``torch.profiler`` sets,
+    cheaper to read than ``torch._C._autograd._profiler_enabled()``."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+class _Span:
+    __slots__ = ("name", "stream", "start", "rf")
+
+    def __init__(self, name: str, device):
+        self.name = name
+        self.stream = (torch.cuda.current_stream(device)
+                       if device is not None
+                       and torch.device(device).type == "cuda" else None)
+
+    def __enter__(self):
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        if self.stream is not None:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record(self.stream)
+        return self
+
+    def __exit__(self, *exc):
+        entry = _SPANS.setdefault(self.name, [0, [], None])
+        entry[0] += 1
+        if self.stream is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self.stream)
+            entry[1].append((self.start, end))
+        self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, device=None):
+    """``with span(name, device):`` marks a stretch of a solve while a
+    ``torch.profiler`` records (module docstring): a ``record_function``
+    and, for a CUDA ``device``, a pair of CUDA events on its current
+    stream; the span is counted in :func:`span_table`.  With no profiler
+    recording it returns a shared null context and does nothing else."""
+    if not _recording():
+        return _NULL
+    return _Span(name, device)
+
+
+def _solve_device(args, kwargs):
+    """The device a solve's call computes on, by ``utils.device``'s rule:
+    its first tensor argument's, else ``device=``, else the CUDA device
+    where there is one."""
+    for leaf in _tensor_leaves((args, kwargs)):
+        return leaf.device
+    if kwargs.get("device") is not None:
+        return torch.device(kwargs["device"])
+    return torch.device("cuda") if torch.cuda.is_available() else None
+
+
+def solve_span(fn):
+    """Decorate a solver's entry point: while a profiler records, each
+    call runs inside one ``pytv.solve`` :func:`span`, and a solve it calls
+    opens none of its own."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        global _solve_depth
+        if _solve_depth or not _recording():
+            return fn(*args, **kwargs)
+        _solve_depth += 1
+        try:
+            with span(SOLVE_SPAN, _solve_device(args, kwargs)):
+                return fn(*args, **kwargs)
+        finally:
+            _solve_depth -= 1
+
+    return call
+
+
+def span_table() -> dict:
+    """``{name: (count, device_ms_total)}`` of the spans finished since
+    :func:`clear_spans`: how many, and the sum of their extents on the
+    device stream in ms, or ``None`` for a name no span of which ran on a
+    CUDA device.  Waits for the spans' CUDA events; reading leaves the
+    table as it is."""
+    out = {}
+    for name, entry in _SPANS.items():
+        if entry[1]:
+            ms = entry[2] or 0.0
+            for start, end in entry[1]:
+                end.synchronize()
+                ms += start.elapsed_time(end)
+            entry[1], entry[2] = [], ms
+        out[name] = (entry[0], entry[2])
+    return out
+
+
+def clear_spans():
+    """Empty :func:`span_table`."""
+    _SPANS.clear()
+
+
+# ------------------------------------------------------------- counters
+
+_COUNTS = collections.Counter()
+
+
+def count(key: str, n: int = 1):
+    """Add ``n`` to counter ``key`` (module docstring)."""
+    _COUNTS[key] += n
+
+
+def counters() -> collections.Counter:
+    """A copy of every counter; a key never counted reads 0."""
+    return collections.Counter(_COUNTS)
+
+
+def clear_counters():
+    """Set every counter back to 0."""
+    _COUNTS.clear()

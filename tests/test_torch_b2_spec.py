@@ -12,7 +12,6 @@ held to the JAX package's pass B: its Pallas kernel in the interpreter
 rtol=1e-5``), and its operators in float64 (the plain version computes in
 float32 as the kernel does, so at the same bar)."""
 
-import collections
 import ctypes
 import itertools
 import os
@@ -31,6 +30,7 @@ from pytv4d_tpu.solvers.fidelity import fidelity_loss as jfidelity_loss
 from pytv4d_tpu_torch.core.config import TVConfig
 from pytv4d_tpu_torch.core.schemes import SCHEMES, scheme_channels
 from pytv4d_tpu_torch.kernels import build, fused, tables
+from pytv4d_tpu_torch.utils import profiling
 
 TOL = dict(atol=2e-6, rtol=1e-5)  # the JAX package's fused-vs-jnp bar (CP)
 BLOCK = 256                       # csrc/stencil.cuh
@@ -72,9 +72,7 @@ def launches(monkeypatch):
         return torch.zeros(_count(shape or tuple(x.shape)))
 
     monkeypatch.setattr(fused, "_launch", record)
-    monkeypatch.setattr(fused.cp_primal, "launches", 0)
-    monkeypatch.setattr(fused.cp_primal, "launches_by_fn",
-                        collections.Counter())
+    profiling.clear_counters()
     return seen
 
 
@@ -112,8 +110,8 @@ def test_each_table_and_pair_reaches_the_new_launch(launches, tid, x_dtype,
     assert (p.Nz, p.M, p.Nr, p.Nc, p.Nd) == (*shape, Nd)
     assert (p.sharded, p.t_free, p.xe, p.ye) == (0, 0, 0, 0)
     assert out is x and parts.shape == (_count(shape),)
-    assert fused.cp_primal.launches == 1
-    assert fused.cp_primal.launches_by_fn == {"spec_cp_primal_launch": 1}
+    assert profiling.counters() == {
+        "launch.B2": 1, "launch.B2/spec_cp_primal_launch": 1}
 
 
 @pytest.mark.parametrize("in_place", [True, False])
@@ -138,7 +136,8 @@ def test_an_unsharded_call_launches_the_volumes_table(launches, in_place):
     assert got is out and parts.shape == (_count(x.shape),)
     assert (call["p"].has_tmul, call["p"].nonneg, call["p"].sharded) == \
         (1, 1, 0)
-    assert fused.cp_primal.launches_by_fn == {"spec_cp_primal_launch": 1}
+    assert profiling.counters() == {
+        "launch.B2": 1, "launch.B2/spec_cp_primal_launch": 1}
 
 
 class _Defines:

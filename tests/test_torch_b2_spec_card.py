@@ -15,6 +15,7 @@ from pytv4d_tpu_torch.core.config import TVConfig
 from pytv4d_tpu_torch.core.schemes import scheme_channels
 from pytv4d_tpu_torch.kernels import fused
 from pytv4d_tpu_torch.parallel import fused_halo
+from pytv4d_tpu_torch.utils import profiling
 
 TOL = dict(atol=2e-6, rtol=1e-5)   # the CP bar
 BF16_RTOL = 2.0 ** -7              # one bf16 ulp
@@ -61,12 +62,12 @@ def test_cp_primal_kernel_matches_its_plain_version(pair, layout, in_place):
     move = _shifted if layout == "off alignment" else torch.clone
     dx, dx0, dA, dD = (move(t.cuda()) for t in (x, x0, y_A, y_D))
     out = dx if in_place else move(torch.empty_like(dx))
-    launches = fused.cp_primal.launches_by_fn["spec_cp_primal_launch"]
+    key = "launch.B2/spec_cp_primal_launch"
+    launches = profiling.counters()[key]
     got, fid = fused.cp_primal(dx, dx0, dA, dD, out=out, **kw)
     torch.cuda.synchronize()
     assert got is out
-    assert fused.cp_primal.launches_by_fn["spec_cp_primal_launch"] == \
-        launches + 1
+    assert profiling.counters()[key] == launches + 1
     if not in_place:
         assert torch.equal(dx.cpu(), x)  # x left as it was
     got, want = got.float().cpu(), want.float()

@@ -21,6 +21,7 @@ from pytv4d_tpu_torch.core.config import TVConfig
 from pytv4d_tpu_torch.core.schemes import SCHEMES, AXIS_Z, scheme_channels
 from pytv4d_tpu_torch.kernels import build, fused, tables
 from pytv4d_tpu_torch.parallel import make_mesh, make_sharded_cp_solver_fused
+from pytv4d_tpu_torch.utils import profiling
 
 BLOCK, VEC_BND = 256, 2  # csrc/stencil.cuh, csrc/cp_boundary.cu
 LAUNCHES = ("cp_dual_boundary_launch", "cp_primal_boundary_launch")
@@ -123,8 +124,7 @@ def test_wrappers_pass_table_and_storage(monkeypatch, x_dtype, d_dtype):
     seen = []
     monkeypatch.setattr(fused, "_launch",
                         lambda *a, **k: seen.append((a, k)))
-    monkeypatch.setattr(fused.cp_dual_boundary, "launches", 0)
-    monkeypatch.setattr(fused.cp_primal_boundary, "launches", 0)
+    profiling.clear_counters()
     cfg = TVConfig(scheme="central", reg_time=0.5)
     tmul = torch.ones((4, 6))
     x, x_halo, x0, y_A, y_D, y_halo, parts = _operands(x_dtype, d_dtype, cfg)
@@ -156,14 +156,14 @@ def test_wrappers_pass_table_and_storage(monkeypatch, x_dtype, d_dtype):
         assert (p.Nz, p.M, p.Nr, p.Nc, p.Nd) == (3, 2, 4, 6, 4)
         assert (p.sharded, p.t_free, p.has_tmul) == (1, 0, has_tmul)
     assert seen[1][0][3].nonneg == 1 and seen[1][0][3].fidelity == 2
-    assert (fused.cp_dual_boundary.launches,
-            fused.cp_primal_boundary.launches) == (1, 1)
+    assert profiling.counters() == {"launch.B8.dual": 1,
+                                    "launch.B8.primal": 1}
 
 
 def test_an_unlisted_table_launches_nothing(monkeypatch):
     seen = []
     monkeypatch.setattr(fused, "_launch", lambda *a, **k: seen.append(a))
-    monkeypatch.setattr(fused.cp_dual_boundary, "launches", 0)
+    profiling.clear_counters()
     cfg = TVConfig(scheme="hybrid", reg_z_over_reg=0.0, reg_time=0.5)
     x, x_halo, x0, y_A, y_D, _, parts = _operands(torch.float32,
                                                   torch.float32, cfg)
@@ -172,7 +172,7 @@ def test_an_unlisted_table_launches_nothing(monkeypatch):
             x, x_halo, x0, y_A, y_D, parts, None, cfg=cfg, sigma_D=0.5,
             sigma_A=1.0, reg=1.0, fidelity="l2", fid_weight=1.0,
             table_dims=(6, 2))
-    assert seen == [] and fused.cp_dual_boundary.launches == 0
+    assert seen == [] and profiling.counters() == {}
 
 
 def test_checks_are_remembered_per_kind_of_call(monkeypatch):

@@ -25,6 +25,7 @@ from pytv4d_tpu_torch.core.schemes import (
     scheme_channels,
 )
 from pytv4d_tpu_torch.kernels import build, tables
+from pytv4d_tpu_torch.utils import profiling
 
 _AXES = {"Z": AXIS_Z, "T": AXIS_T, "ROW": AXIS_ROW, "COL": AXIS_COL}
 _KINDS = {"FWD": FWD, "BWD": BWD, "CTR": CTR}
@@ -174,8 +175,7 @@ def test_unsharded_tv_passes_launch_their_table(monkeypatch):
     seen = []
     monkeypatch.setattr(fused, "_launch",
                         lambda *a, **k: seen.append((a, k)) or "parts")
-    monkeypatch.setattr(fused.tv_norms, "launches", 0)
-    monkeypatch.setattr(fused.tv_dual, "launches", 0)
+    profiling.clear_counters()
     cfg = TVConfig(scheme="hybrid", reg_time=0.5)
     x = torch.zeros((3, 2, 4, 6), dtype=torch.bfloat16)
     y_D = torch.zeros((3, 2, 8, 4, 6))
@@ -198,4 +198,4 @@ def test_unsharded_tv_passes_launch_their_table(monkeypatch):
     assert a3[:2] == ("specialised_tv", "spectv_norms_halo_launch")
     assert a3[4] == (tid, 0) and a3[5][0] is ext and a3[6] is True
     assert tuple(a3[2].shape) == (3, 2, 4, 6)  # the partials of the shard
-    assert (fused.tv_norms.launches, fused.tv_dual.launches) == (2, 1)
+    assert profiling.counters() == {"launch.B3": 2, "launch.B5": 1}

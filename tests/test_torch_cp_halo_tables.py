@@ -38,6 +38,7 @@ from pytv4d_tpu_torch.core.schemes import (
 from pytv4d_tpu_torch.kernels import build, fused, tables
 from pytv4d_tpu_torch.parallel import fused_halo as fh
 from pytv4d_tpu_torch.parallel.mesh import indexed, make_mesh, shard_volume
+from pytv4d_tpu_torch.utils import profiling
 
 BLOCK, VEC = 256, 2  # csrc/stencil.cuh, csrc/specialised_cp.cu
 with open(os.path.join(build.CSRC, "specialised.cu")) as _f:
@@ -85,10 +86,7 @@ def launches(monkeypatch):
         return None
 
     monkeypatch.setattr(fused, "_launch", record)
-    monkeypatch.setattr(fused.cp_dual, "launches", 0)
-    monkeypatch.setattr(fused.cp_primal, "launches", 0)
-    for wrapper in (fused.cp_dual, fused.cp_primal):
-        monkeypatch.setattr(wrapper, "launches_by_fn", collections.Counter())
+    profiling.clear_counters()
     return seen
 
 
@@ -150,9 +148,9 @@ def test_a_halo_shard_takes_the_whole_volumes_table(
         assert launches[-2]["args"] == (x1[iz][it], x0, y_A, yd, None)
         assert launches[-1]["args"] == (xs, x0, y_A, ye, None, out)
     n = mesh_zt[0] * mesh_zt[1]
-    assert (fused.cp_dual.launches, fused.cp_primal.launches) == (n, n)
-    assert fused.cp_dual.launches_by_fn == {"spcp_dual_halo_launch": n}
-    assert fused.cp_primal.launches_by_fn == {"spcp_primal_halo_launch": n}
+    assert profiling.counters() == {
+        "launch.B1": n, "launch.B1/spcp_dual_halo_launch": n,
+        "launch.B2": n, "launch.B2/spcp_primal_halo_launch": n}
     assert len(launches) == 2 * n
     flags = (want, int(x_dtype == torch.bfloat16),
              int(d_dtype == torch.bfloat16))
@@ -226,9 +224,9 @@ def test_each_interior_table_reaches_the_interior_launches(
         assert (p.Nz, p.z_first, p.z_last) == (3, 1, 1)
     slots, _ = _slots(*shard[2:])
     assert tv.shape == fid.shape == (3, shard[1] * slots)
-    assert (fused.cp_dual.launches, fused.cp_primal.launches) == (1, 1)
-    assert fused.cp_dual.launches_by_fn == {INTERIOR_LAUNCHES[0]: 1}
-    assert fused.cp_primal.launches_by_fn == {INTERIOR_LAUNCHES[1]: 1}
+    assert profiling.counters() == {
+        "launch.B1": 1, f"launch.B1/{INTERIOR_LAUNCHES[0]}": 1,
+        "launch.B2": 1, f"launch.B2/{INTERIOR_LAUNCHES[1]}": 1}
 
 
 def test_an_interior_shard_takes_the_whole_volumes_table(launches):
@@ -280,14 +278,14 @@ def test_the_solvers_steps_launch_the_new_kernels(launches, monkeypatch):
             mesh, cfg, shape, reg=1.0, n_iter=1, shard_time=False,
             overlap=overlap)
         launches.clear()
-        for wrapper in (fused.cp_dual, fused.cp_primal):
-            wrapper.launches_by_fn.clear()
+        profiling.clear_counters()
         solve(*args)
         assert [c["fn"] for c in launches] == fns
         assert all(c["flags"][0] == want for c in launches)
         # the counts by launch function tell the step's mode
-        assert {**fused.cp_dual.launches_by_fn,
-                **fused.cp_primal.launches_by_fn} == collections.Counter(
+        by_fn = {key.split("/")[1]: n for key, n
+                 in profiling.counters().items() if "/" in key}
+        assert by_fn == collections.Counter(
             fn for fn in fns if fn.startswith("spcp_"))
 
 
@@ -310,9 +308,9 @@ def test_an_unsharded_call_launches_as_before(launches):
     assert a["args"] == (x, x, x, yd, None)
     assert b["args"] == (x, x, x, yd, None, out)
     assert a["p"].sharded == 0 and b["p"].sharded == 0
-    assert (fused.cp_dual.launches, fused.cp_primal.launches) == (1, 1)
-    assert fused.cp_dual.launches_by_fn == {"spec_cp_dual_launch": 1}
-    assert fused.cp_primal.launches_by_fn == {"spec_cp_primal_launch": 1}
+    assert profiling.counters() == {
+        "launch.B1": 1, "launch.B1/spec_cp_dual_launch": 1,
+        "launch.B2": 1, "launch.B2/spec_cp_primal_launch": 1}
 
 
 def test_a_halo_table_outside_the_built_list_raises(launches, monkeypatch,
@@ -339,9 +337,7 @@ def test_a_halo_table_outside_the_built_list_raises(launches, monkeypatch,
         fused._cp_primal_kernel(xs, xs, xs, yd, out=xs,
                                 y_ext=torch.zeros(4, 4, 2, 4, 8), **pk)
     assert launches == []
-    assert (fused.cp_dual.launches, fused.cp_primal.launches) == (0, 0)
-    assert not fused.cp_dual.launches_by_fn
-    assert not fused.cp_primal.launches_by_fn
+    assert profiling.counters() == {}
 
 
 @pytest.mark.parametrize("cfg, dims", [
@@ -362,9 +358,7 @@ def test_an_interior_table_outside_the_list_raises(launches, cfg, dims):
     with pytest.raises(ValueError, match="no boundary kernel"):
         fused._cp_primal_kernel(xs, xs, xs, yd, out=xs, **pk)
     assert launches == []
-    assert (fused.cp_dual.launches, fused.cp_primal.launches) == (0, 0)
-    assert not fused.cp_dual.launches_by_fn
-    assert not fused.cp_primal.launches_by_fn
+    assert profiling.counters() == {}
 
 
 def _source(name):

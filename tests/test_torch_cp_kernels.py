@@ -14,6 +14,7 @@ from pytv4d_tpu_torch.core.schemes import num_channels
 from pytv4d_tpu_torch.kernels import fused
 from pytv4d_tpu_torch.kernels.dispatch import can_fuse, t_plane_multiplier
 from pytv4d_tpu_torch.solvers.cp import CPState, cp_step, default_tau
+from pytv4d_tpu_torch.utils import profiling
 
 SCHEMES = ("upwind", "downwind", "central", "hybrid")
 SHAPE = (4, 3, 16, 128)
@@ -114,11 +115,10 @@ def test_bf16_storage_rounds_where_the_kernel_stores():
     args32 = [torch.tensor(a).to(bf).float() for a in (x, y_A, y_D, x0)]
     args16 = [torch.tensor(a).to(bf) for a in (x, y_A, y_D, x0)]
     kw = dict(reg=0.5, sigma_D=0.5, sigma_A=1.0, tau=0.1, cfg=cfg)
-    n_dual, n_primal = fused.cp_dual.launches, fused.cp_primal.launches
+    before = profiling.counters()
     r32 = fused.cp_step_fused_internal(*args32, **kw)
     r16 = fused.cp_step_fused_internal(*args16, **kw)
-    assert (fused.cp_dual.launches, fused.cp_primal.launches) == \
-        (n_dual, n_primal)
+    assert profiling.counters() == before
     for a, b in zip(r16[1:3], r32[1:3]):
         assert a.dtype == bf
         np.testing.assert_allclose(a.float().numpy(), b.numpy(),

@@ -25,6 +25,7 @@ from pytv4d_tpu_torch.parallel.mesh import (
     shard_volume,
 )
 from pytv4d_tpu_torch.solvers.cp import default_tau
+from pytv4d_tpu_torch.utils import profiling
 
 TOL = dict(atol=2e-6, rtol=1e-5)      # the JAX fused-vs-jnp bar (CP)
 TOL_TV = dict(atol=3e-6, rtol=1e-5)   # its bar for the TV passes
@@ -425,9 +426,7 @@ def test_mode_checks():
 
 
 def test_launch_counters_stay_on_cpu():
-    names = ("cp_dual", "cp_primal", "cp_dual_boundary", "cp_primal_boundary",
-             "tv_norms", "tv_subgrad")
-    before = [getattr(fused, n).launches for n in names]
+    before = profiling.counters()
     p = _Problem(HYB, {}, OVERLAP_SHAPE, OVERLAP_MESH)
     x, x0, y_A, y_D = (g[1][0] for g in p.shards())
     _, _, tv = fused.cp_dual(x, x0, y_A, y_D, interior=True,
@@ -435,7 +434,7 @@ def test_launch_counters_stay_on_cpu():
     fused.cp_dual_boundary(x, torch.zeros((2,) + x.shape[1:]), x0, y_A, y_D,
                            tv, **p.dual_kw(True))
     assert tv.shape == (3, 1)
-    assert [getattr(fused, n).launches for n in names] == before
+    assert profiling.counters() == before
 
 
 # B5 in its halo mode: (global shape, mesh (z, t)) by name
@@ -469,12 +468,12 @@ def test_tv_dual_halo_mode_matches_unsharded_and_jax(layout, scheme, dual):
     ghost_t = fh._axis_ghost_kind(chans, AXIS_T)
     ext = fh._extend_axis(fh._extend_axis(shard_volume(x_bar, mesh, st), 0,
                                           ghost_z), 1, ghost_t)
-    launches = fused.tv_dual.launches
+    before = profiling.counters()
     out = grid_map(lambda xe, yd: fused.tv_dual(
         xe, yd, cfg=cfg, sigma_D=SIGMA_D, reg=REG, halo_mode=True,
         table_dims=shape[:2]),
         ext, shard_volume(y_D.clone(), mesh, st))
-    assert fused.tv_dual.launches == launches  # no kernel on the CPU
+    assert profiling.counters() == before  # no kernel on the CPU
     got = gather_volume(grid_map(lambda o: o[0], out))
     assert got.dtype == ddt and torch.equal(got, whole)
     tv = sum(float(o[1].sum()) for row in out for o in row)

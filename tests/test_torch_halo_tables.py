@@ -35,6 +35,7 @@ from pytv4d_tpu_torch.kernels import build, fused, tables
 from pytv4d_tpu_torch.parallel import fused_halo as fh
 from pytv4d_tpu_torch.parallel.mesh import grid_map, indexed, make_mesh
 from pytv4d_tpu_torch.parallel.mesh import shard_volume
+from pytv4d_tpu_torch.utils import profiling
 
 
 STORAGE = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
@@ -54,8 +55,7 @@ def launches(monkeypatch):
         return "parts" if with_parts else None
 
     monkeypatch.setattr(fused, "_launch", record)
-    for wrapper in (fused.tv_norms, fused.tv_subgrad, fused.tv_dual):
-        monkeypatch.setattr(wrapper, "launches", 0)
+    profiling.clear_counters()
     return seen
 
 
@@ -119,8 +119,8 @@ def test_a_shard_takes_the_whole_volumes_table(launches, scheme, reg_time,
                                            reg=1.0, **mode)
         assert got is y_D and parts == "parts"
     n = mesh_zt[0] * mesh_zt[1]
-    assert (fused.tv_norms.launches, fused.tv_subgrad.launches,
-            fused.tv_dual.launches) == (n, n, n)
+    assert profiling.counters() == {
+        "launch.B3": n, "launch.B4": n, "launch.B5": n}
     assert len(launches) == 3 * n
     bf16 = int(dtype == torch.bfloat16)
     x1s = [xe for _, _, xe in indexed(x1)]
@@ -152,7 +152,7 @@ def test_an_unsharded_pass_a_for_inverse_problems_launches_as_before(
         "specialised_tv", "spectv_dual_launch",
         (tables.table_id(cfg, 3, 2), 0, 1))
     assert call["args"] == (x, y_D) and call["shape"] == (3, 2, 4, 8)
-    assert call["p"].sharded == 0 and fused.tv_dual.launches == 1
+    assert call["p"].sharded == 0 and profiling.counters()["launch.B5"] == 1
 
 
 @pytest.mark.parametrize("tid", range(len(tables.TABLES)))
@@ -196,7 +196,7 @@ def test_an_unsharded_call_launches_as_before(launches):
         "specialised", "spec_tv_subgrad_launch", (tid, 1))
     assert a["args"] == (x, None, norms) and b["args"] == (x, norms, None, g)
     assert a["p"].sharded == 0 and b["p"].sharded == 0
-    assert (fused.tv_norms.launches, fused.tv_subgrad.launches) == (1, 1)
+    assert profiling.counters() == {"launch.B3": 1, "launch.B4": 1}
 
 
 def test_aniso_halo_subgradient_reads_no_norms(launches):
@@ -240,8 +240,7 @@ def test_a_table_outside_the_built_list_raises(launches, monkeypatch,
                               torch.zeros(2, 2, 2, 4, 8), sigma_D=0.5,
                               reg=1.0, **mode)
     assert launches == []
-    assert (fused.tv_norms.launches, fused.tv_subgrad.launches,
-            fused.tv_dual.launches) == (0, 0, 0)
+    assert profiling.counters() == {}
 
 
 def _source(name):

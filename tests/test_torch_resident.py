@@ -17,6 +17,7 @@ from pytv4d_tpu_torch.core.schemes import num_channels
 from pytv4d_tpu_torch.kernels import resident
 from pytv4d_tpu_torch.solvers.cp import chambolle_pock, default_tau
 from pytv4d_tpu_torch.solvers.gd import subgradient_descent
+from pytv4d_tpu_torch.utils import profiling
 
 SCHEMES = ("upwind", "downwind", "central", "hybrid")
 SHAPE = (4, 3, 16, 128)  # the fixture shape of the JAX kernel tests
@@ -55,12 +56,12 @@ def test_resident_cp_matches_jax_kernel(scheme, norm):
         JConfig(**cfg_kw), SHAPE, N_ITER, "float32", interpret=True, **kw)
     want = jsolve(*(jnp.asarray(a) for a in arrays))
 
-    launches = resident.make_resident_cp_solver.launches
+    launches = profiling.counters()["launch.B9.cp"]
     solve = resident.make_resident_cp_solver(cfg, SHAPE, N_ITER, "float32",
                                              **kw)
     tensors = [torch.tensor(a) for a in arrays]
     got = solve(*tensors)
-    assert resident.make_resident_cp_solver.launches == launches  # CPU: plain
+    assert profiling.counters()["launch.B9.cp"] == launches  # CPU: plain
     for t, a in zip(tensors, arrays):  # the inputs are not modified
         np.testing.assert_array_equal(t.numpy(), a)
     for g, w, name in zip(got[:3], want[:3], ("x", "y_A", "y_D")):
@@ -94,11 +95,11 @@ def test_resident_gd_matches_jax_kernel(scheme, norm):
             x_init=jnp.asarray(x), fused=False, **kw)
         jx, jlosses = ref.x, ref.loss
 
-    launches = resident.make_resident_gd_solver.launches
+    launches = profiling.counters()["launch.B9.gd"]
     solve = resident.make_resident_gd_solver(cfg, SHAPE, N_ITER, "float32",
                                              **kw)
     gx, glosses = solve(torch.tensor(x0), torch.tensor(x))
-    assert resident.make_resident_gd_solver.launches == launches
+    assert profiling.counters()["launch.B9.gd"] == launches
     # subgradient descent is nonsmooth: a sign or a zero norm decided the
     # other way by a last-bit difference moves single voxels by step * reg
     # * weight, so x is held on all but a few voxels and the losses tightly

@@ -18,6 +18,7 @@ import torch
 from pytv4d_tpu_torch.core.config import TVConfig
 from pytv4d_tpu_torch.core.schemes import SCHEMES, num_channels
 from pytv4d_tpu_torch.kernels import build, fused, resident, tables
+from pytv4d_tpu_torch.utils import profiling
 
 HYB = TVConfig(scheme="hybrid", reg_time=0.5)
 SOURCE = os.path.join(build.CSRC, "resident_onchip.cu")
@@ -186,9 +187,8 @@ def test_onchip_key_hashes_its_source_and_headers(tmp_path):
 
 
 def _counts():
-    return (resident.solve_onchip.launches, resident.solve_l2.launches,
-            resident.make_resident_cp_solver.launches,
-            resident.make_resident_gd_solver.launches)
+    got = profiling.counters()
+    return tuple(got[f"launch.B9.{k}"] for k in ("onchip", "l2", "cp", "gd"))
 
 
 @pytest.mark.parametrize("shape, cfg", [
@@ -254,8 +254,7 @@ def test_launches_hand_table_band_and_buffers(monkeypatch, solver):
     monkeypatch.setattr(resident, "_sm_count", lambda device: 132)
     monkeypatch.setattr(resident, "_launch_shape",
                         lambda x, vol: (7, resident.THREADS))
-    monkeypatch.setattr(resident.solve_onchip, "launches", 0)
-    monkeypatch.setattr(resident.solve_l2, "launches", 0)
+    profiling.clear_counters()
     shape, cfg = (4, 2, 64, 64), HYB
     Nd = num_channels(cfg.scheme, 4, 2, cfg.reg_z_over_reg, cfg.reg_time)
     x0 = torch.zeros(shape)
@@ -285,5 +284,4 @@ def test_launches_hand_table_band_and_buffers(monkeypatch, solver):
     assert args[4] == (5, 7, resident.THREADS)
     assert len(args[5]) == 1 + len(state) + (solver == "gd") + 1
     assert tuple(args[5][-1].shape) == (5, 2, 7)
-    assert (resident.solve_onchip.launches, resident.solve_l2.launches) == \
-        (1, 1)
+    assert profiling.counters() == {"launch.B9.onchip": 1, "launch.B9.l2": 1}

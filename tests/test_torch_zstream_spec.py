@@ -18,6 +18,7 @@ import torch
 from pytv4d_tpu_torch.core.config import TVConfig
 from pytv4d_tpu_torch.core.schemes import AXIS_Z, SCHEMES, num_channels
 from pytv4d_tpu_torch.kernels import build, fused, tables, zstream
+from pytv4d_tpu_torch.utils import profiling
 
 SOURCE = os.path.join(build.CSRC, "cp_zstream.cu")
 GATINGS = {"base": {}, "time": dict(reg_time=0.5),
@@ -98,7 +99,7 @@ def test_wrapper_passes_table_and_storage(monkeypatch, x_dtype, d_dtype):
     seen = []
     monkeypatch.setattr(zstream, "_launch",
                         lambda *a, **k: seen.append((a, k)) or "parts")
-    monkeypatch.setattr(zstream.cp_dual_zstream, "launches", 0)
+    profiling.clear_counters()
     cfg = TVConfig(scheme="central", reg_time=0.5)
     x, x0, y_A, y_D = _operands(x_dtype, d_dtype, cfg, (4, 2, 5, 6))
     got = zstream._zstream_kernel(x, x0, y_A, y_D, cfg=cfg, sigma_D=0.5,
@@ -116,24 +117,24 @@ def test_wrapper_passes_table_and_storage(monkeypatch, x_dtype, d_dtype):
     p = args[3]
     assert (p.Nz, p.M, p.Nr, p.Nc, p.Nd, p.has_tmul) == (4, 2, 5, 6, 4, 0)
     assert p.fidelity == 2 and p.sharded == 0
-    assert zstream.cp_dual_zstream.launches == 1
+    assert profiling.counters()["launch.B10"] == 1
 
 
 def test_an_unlisted_table_launches_nothing(monkeypatch):
     seen = []
     monkeypatch.setattr(zstream, "_launch", lambda *a, **k: seen.append(a))
-    monkeypatch.setattr(zstream.cp_dual_zstream, "launches", 0)
+    profiling.clear_counters()
     cfg = TVConfig(scheme="hybrid", reg_z_over_reg=0.0)
     x, x0, y_A, y_D = _operands(torch.float32, torch.float32, cfg)
     with pytest.raises(ValueError, match="cp_zstream.cu"):
         zstream._zstream_kernel(x, x0, y_A, y_D, cfg=cfg, sigma_D=0.5,
                                 sigma_A=1.0, reg=0.3, fidelity="l2",
                                 fid_weight=1.0)
-    assert seen == [] and zstream.cp_dual_zstream.launches == 0
+    assert seen == [] and profiling.counters()["launch.B10"] == 0
 
 
 def test_a_cpu_tensor_launches_nothing(monkeypatch):
-    monkeypatch.setattr(zstream.cp_dual_zstream, "launches", 0)
+    profiling.clear_counters()
     cfg = TVConfig(scheme="hybrid", reg_time=0.5)
     x, x0, y_A, y_D = _operands(torch.float32, torch.float32, cfg)
     a, b = [y_A.clone(), y_D.clone()], [y_A.clone(), y_D.clone()]
@@ -142,7 +143,7 @@ def test_a_cpu_tensor_launches_nothing(monkeypatch):
     _, _, tp = fused.cp_dual_plain(x, x0, *b, None, **kw)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert torch.equal(tz, tp)
-    assert zstream.cp_dual_zstream.launches == 0
+    assert profiling.counters()["launch.B10"] == 0
 
 
 def test_the_ring_constants():
