@@ -9,7 +9,9 @@
 //   cp_primal_spec_kernel  <- make_cp_primal_kernel  (pass B, fused.py:859;
 //                                                     unsharded launches)
 //   tv_subgrad_spec_kernel <- make_tv_subgrad_kernel (pass 2, fused.py:1473;
-//                                                     unsharded and halo mode)
+//                                                     unsharded and halo mode;
+//                                                     unsharded also with the
+//                                                     GD step's epilogue)
 // CP passes A and B in their sharded modes are specialised the same way in
 // csrc/specialised_cp.cu, TV pass 1 (B3) and pass A for inverse problems
 // (B5) in csrc/specialised_tv.cu, and the sharded step's boundary passes
@@ -43,6 +45,17 @@
 //     from global memory, and forms each axis's differences once; a thread
 //     takes RPT = 2 rows, whose z and t loads it issues before the tile's
 //     barrier.
+//
+// Pass 2 with the GD epilogue (GD; solvers/gd.py's fused step) takes the
+// subgradient-descent step where G is formed instead of storing G: each
+// thread rounds g to x's dtype, reads x0 at the voxel and writes x' =
+// x - step ((x - x0) + reg g) to a fresh buffer (the stencil still reads
+// x's neighbours), in the order of the eager update's five torch ops and,
+// in bf16 storage, rounded to bf16 after each of them as they round; then
+// one fidelity partial per block of fid_scale (x' - x0)^2 (rounded as
+// torch.square of the bf16 difference rounds).  Params::tau is the step
+// and Params::reg the weight of G.  So x' equals the eager update's on
+// the standalone pass's G to the bit, and G is never stored.
 //
 // Pass 2 in the halo mode (HALO; one shard of parallel/fused_halo.py's
 // sharded TV) is the same kernel on the extended operands: x extended by
@@ -115,18 +128,33 @@ cp_primal_spec_kernel(const Params p, const TX* x, const TX* x0,
 // spec_y and subgrad_at (tv_subgrad_voxel at one voxel) are in
 // specialised.cuh.
 
+// v as a torch op on TX storage leaves it: rounded to bf16 in bf16
+// storage, as it is in float32.
+template <typename TX>
+__device__ __forceinline__ float as_stored(float v) {
+  if constexpr (sizeof(TX) == 2)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
 // The block's tile of plane zt (blockIdx.y) is TILE_C columns by TILE_R =
 // TILE_T x RPT rows; the tiles of a plane run along blockIdx.x, row-major.
 // Thread (tx, ty) takes the RPT voxels of column tx at rows ty + k TILE_T.
-// Their z and t neighbours are loaded before the tile's barrier, so that
-// the two sets of loads are in flight together.  With HALO, x and the norms
-// are the extended operands (x by 2 planes per side in z and t, the norms
-// by 1) and the z and t gates are off; G has the shard's shape.
-template <Table T, typename TX, bool HALO>
+// Their z and t neighbours (and with GD, x0) are loaded before the tile's
+// barrier, so that the two sets of loads are in flight together.  With
+// HALO, x and the norms are the extended operands (x by 2 planes per side
+// in z and t, the norms by 1) and the z and t gates are off; G has the
+// shard's shape.  `out` receives G, or with GD x'; x0 and the partials
+// (one per block, at parts[blockIdx.y][blockIdx.x]) are read and written
+// with GD only.  x0 may be x (the first step from x_init = x0), so it is
+// not __restrict__.
+template <Table T, typename TX, bool HALO, bool GD>
 __global__ void __launch_bounds__(BLOCK)
 tv_subgrad_spec_kernel(const Params p, const TX* __restrict__ x,
-                       const float* __restrict__ norms,
-                       const float* __restrict__ tmul, TX* __restrict__ g) {
+                       const TX* x0, const float* __restrict__ norms,
+                       const float* __restrict__ tmul, TX* __restrict__ out,
+                       float* __restrict__ parts) {
+  static_assert(!(HALO && GD), "the GD epilogue runs on a whole volume");
   // x out to +-2 along rows and columns for central, else +-1; norms +-1
   constexpr int H = tab_has(T, AX_ROW, K_CTR) || tab_has(T, AX_COL, K_CTR)
                         ? 2 : 1;
@@ -158,11 +186,13 @@ tv_subgrad_spec_kernel(const Params p, const TX* __restrict__ x,
   // z and t: x at slots -2..2 and the norms at -1, +1 of each voxel
   float xm2[RPT][4] = {}, xm1[RPT][4] = {}, xp1[RPT][4] = {};
   float xp2[RPT][4] = {}, nm1[RPT][4] = {}, np1[RPT][4] = {};
+  float x0v[RPT] = {};
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
     const int r = r0 + ty + k * TILE_T;
     if (r >= p.Nr || c >= p.Nc) continue;
     const Offset q = (Offset)r * p.Nc + c;
+    if constexpr (GD) x0v[k] = ld(x0 + base, q);
 #pragma unroll
     for (int a = AX_Z; a <= AX_T; ++a) {
       const int64_t s = a == AX_Z ? xsz : plane;
@@ -194,6 +224,7 @@ tv_subgrad_spec_kernel(const Params p, const TX* __restrict__ x,
     }
   __syncthreads();
 
+  float fid = 0.f;
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
     const int ry = ty + k * TILE_T, r = r0 + ry;  // ry: the row in the tile
@@ -216,10 +247,30 @@ tv_subgrad_spec_kernel(const Params p, const TX* __restrict__ x,
       nm1[k][AX_COL] = ns[ry + 1][tx];
       np1[k][AX_COL] = ns[ry + 1][tx + 2];
     }
-    st(g + base, q, subgrad_at<T>(p, pos, len, xs[ry + H][tx + H],
+    const float xc = xs[ry + H][tx + H];
+    const float g = subgrad_at<T>(p, pos, len, xc,
                                   aniso ? 0.f : ns[ry + 1][tx + 1], xm2[k],
                                   xm1[k], xp1[k], xp2[k], nm1[k], np1[k],
-                                  p.has_tmul ? tmul[q] : 1.f));
+                                  p.has_tmul ? tmul[q] : 1.f);
+    if constexpr (GD) {
+      // xs - step ((xs - x0) + reg g), one rounding an op
+      const float gs = as_stored<TX>(g);
+      const float dx = as_stored<TX>(xc - x0v[k]);
+      const float rg = as_stored<TX>(gs * p.reg);
+      const float sum = as_stored<TX>(dx + rg);
+      const float stp = as_stored<TX>(p.tau * sum);
+      const float xn = as_stored<TX>(xc - stp);
+      st(out + base, q, xn);
+      const float e = as_stored<TX>(xn - x0v[k]);
+      fid += as_stored<TX>(e * e);
+    } else {
+      st(out + base, q, g);
+    }
+  }
+  if constexpr (GD) {
+    const float s = block_sum(fid);
+    if (threadIdx.x == 0)
+      parts[(int64_t)zt * gridDim.x + blockIdx.x] = p.fid_scale * s;
   }
 }
 
@@ -286,26 +337,35 @@ static int cp_primal_spec_table(const Params* p, int x_bf16, int d_bf16,
                                         s);
 }
 
-template <Table T, typename TX, bool HALO>
+// Pass 2's blocks along a plane: its TILE_R x TILE_C tiles.
+static inline long long subgrad_tiles(int Nr, int Nc) {
+  return (long long)((Nc + TILE_C - 1) / TILE_C) *
+         ((Nr + TILE_R - 1) / TILE_R);
+}
+
+template <Table T, typename TX, bool HALO, bool GD>
 static int tv_subgrad_spec_launch(const Params* p, const void* x,
-                                  const void* norms, const void* tmul,
-                                  void* g, cudaStream_t s) {
-  const int tiles = ((p->Nc + TILE_C - 1) / TILE_C) *
-                    ((p->Nr + TILE_R - 1) / TILE_R);
-  const dim3 grid((unsigned)tiles, (unsigned)(p->Nz * p->M));
-  tv_subgrad_spec_kernel<T, TX, HALO><<<grid, BLOCK, 0, s>>>(
-      *p, (const TX*)x, (const float*)norms, (const float*)tmul, (TX*)g);
+                                  const void* x0, const void* norms,
+                                  const void* tmul, void* out, void* parts,
+                                  cudaStream_t s) {
+  const dim3 grid((unsigned)subgrad_tiles(p->Nr, p->Nc),
+                  (unsigned)(p->Nz * p->M));
+  tv_subgrad_spec_kernel<T, TX, HALO, GD><<<grid, BLOCK, 0, s>>>(
+      *p, (const TX*)x, (const TX*)x0, (const float*)norms,
+      (const float*)tmul, (TX*)out, (float*)parts);
   return (int)cudaGetLastError();
 }
 
-template <Table T, bool HALO>
+template <Table T, bool HALO, bool GD>
 static int tv_subgrad_spec_table(const Params* p, int x_bf16, const void* x,
-                                 const void* norms, const void* tmul, void* g,
+                                 const void* x0, const void* norms,
+                                 const void* tmul, void* out, void* parts,
                                  cudaStream_t s) {
   if (x_bf16)
-    return tv_subgrad_spec_launch<T, __nv_bfloat16, HALO>(p, x, norms, tmul,
-                                                          g, s);
-  return tv_subgrad_spec_launch<T, float, HALO>(p, x, norms, tmul, g, s);
+    return tv_subgrad_spec_launch<T, __nv_bfloat16, HALO, GD>(
+        p, x, x0, norms, tmul, out, parts, s);
+  return tv_subgrad_spec_launch<T, float, HALO, GD>(p, x, x0, norms, tmul,
+                                                    out, parts, s);
 }
 
 extern "C" {
@@ -320,6 +380,12 @@ long long spec_num_parts(int Nz, int M, int Nr, int Nc) {
 // of VEC_B columns.
 long long spec_cp_primal_num_parts(int Nz, int M, int Nr, int Nc) {
   return dual_num_parts<VEC_B>(Nz, M, Nr, Nc);
+}
+
+// ... and the fidelity partials pass 2 writes with the GD epilogue: one per
+// block, a block a TILE_R x TILE_C tile of a plane.
+long long spec_tv_gd_num_parts(int Nz, int M, int Nr, int Nc) {
+  return subgrad_tiles(Nr, Nc) * Nz * M;
 }
 
 // Each launches table `id` of csrc/tables.cuh and returns cudaGetLastError()
@@ -368,8 +434,27 @@ int spec_tv_subgrad_launch(const Params* p, int id, int x_bf16,
   switch (id) {
 #define SPEC_CASE(id, code)                                                 \
   case id:                                                                  \
-    return tv_subgrad_spec_table<code, false>(p, x_bf16, x, norms, tmul, g, \
-                                              s);
+    return tv_subgrad_spec_table<code, false, false>(                       \
+        p, x_bf16, x, nullptr, norms, tmul, g, nullptr, s);
+    CHANNEL_TABLES(SPEC_CASE)
+#undef SPEC_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Pass 2 with the GD epilogue on an unsharded volume: x' = x - tau ((x - x0)
+// + reg G) into `out`, a buffer other than x (x0 may be x), and the
+// fidelity partials of x' (spec_tv_gd_num_parts of them, times fid_scale).
+int spec_tv_gd_launch(const Params* p, int id, int x_bf16, const void* x,
+                      const void* x0, const void* norms, const void* tmul,
+                      void* out, void* parts, void* stream) {
+  if (p->sharded || out == x) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (id) {
+#define SPEC_CASE(id, code)                                                 \
+  case id:                                                                  \
+    return tv_subgrad_spec_table<code, false, true>(p, x_bf16, x, x0, norms,\
+                                                    tmul, out, parts, s);
     CHANNEL_TABLES(SPEC_CASE)
 #undef SPEC_CASE
   }
@@ -388,8 +473,8 @@ int spec_tv_subgrad_halo_launch(const Params* p, int id, int x_bf16,
   switch (id) {
 #define SPEC_CASE(id, code)                                                 \
   case id:                                                                  \
-    return tv_subgrad_spec_table<code, true>(p, x_bf16, x, norms, tmul, g,  \
-                                             s);
+    return tv_subgrad_spec_table<code, true, false>(                        \
+        p, x_bf16, x, nullptr, norms, tmul, g, nullptr, s);
     CHANNEL_TABLES(SPEC_CASE)
 #undef SPEC_CASE
   }

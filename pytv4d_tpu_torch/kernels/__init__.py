@@ -41,6 +41,8 @@ from .fused import (
     tv_and_subgrad_fused,
     tv_dual,
     tv_dual_plain,
+    tv_gd_step,
+    tv_gd_step_plain,
     tv_norms,
     tv_norms_plain,
     tv_subgrad,

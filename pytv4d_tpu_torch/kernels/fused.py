@@ -39,7 +39,7 @@ bfloat16, chosen independently for the primary arrays (x, x0, y_A) and the
 dual; compute is float32.
 
 The TV value and subgradient (:func:`tv_and_subgrad_fused`, the
-subgradient-descent step's operator) is two more passes:
+``tv_<scheme>`` API's on a CUDA tensor) is two more passes:
 
 - pass 1, :func:`tv_norms` (kernel ``tv_norms_spec_kernel`` in
   ``csrc/specialised_tv.cu``; replaces ``make_tv_norms_kernel``): per-voxel
@@ -51,6 +51,9 @@ subgradient-descent step's operator) is two more passes:
   ``csrc/specialised.cu``; replaces ``make_tv_subgrad_kernel``): G from x
   and the norms, recomputing the D channels at each voxel and its
   neighbours, stored in x's dtype.  No Nd-channel volume is written.
+  Subgradient descent takes its step in pass 2's epilogue instead
+  (:func:`tv_gd_step`, the same kernel's GD instance): x' and the fidelity
+  partials of x' are written, and G is not.
 
 All five passes launch kernels specialised for the scheme's channel table
 (``kernels.tables``: the table id picks the template instance; the
@@ -89,7 +92,8 @@ Each wrapper takes its plain PyTorch version (:func:`cp_dual_plain`,
 :func:`cp_primal_boundary_plain`) for tensors on the CPU, which is how the
 CPU tests run the fused path.  For CUDA tensors it launches the kernel or
 raises.  Each launch is counted in ``utils.profiling.counters()``: B1 to
-B5 under ``launch.B1`` ... ``launch.B5``, the boundary kernels under
+B5 under ``launch.B1`` ... ``launch.B5`` (pass 2 with the GD epilogue
+under ``launch.B4`` and ``launch.B4_gd``), the boundary kernels under
 ``launch.B8.dual`` / ``launch.B8.primal``, and B1 and B2 also under
 ``launch.B1/<launch function>`` / ``launch.B2/<launch function>``, which
 tells the unsharded launch and the two sharded modes apart.
@@ -199,7 +203,7 @@ _ENTRY_POINTS = {
     "specialised": ("spec", _Params, {
         "spec_cp_dual_launch": (3, 6), "spec_cp_primal_launch": (3, 7),
         "spec_tv_subgrad_launch": (2, 4),
-        "spec_tv_subgrad_halo_launch": (2, 4)}),
+        "spec_tv_subgrad_halo_launch": (2, 4), "spec_tv_gd_launch": (2, 6)}),
     "specialised_tv": ("spectv", _Params, {
         "spectv_norms_launch": (2, 4), "spectv_norms_halo_launch": (2, 4),
         "spectv_dual_launch": (3, 3), "spectv_dual_halo_launch": (3, 3)}),
@@ -1127,6 +1131,54 @@ def _tv_subgrad_kernel(x, norms, tmul=None, *, cfg: TVConfig,
     return g
 
 
+def tv_gd_step(x, x0, norms, tmul=None, *, cfg: TVConfig, reg,
+               step_size):
+    """Pass 2 with the subgradient-descent step in its epilogue:
+    ``(x, x0, norms[, tmul]) -> (x', fid_parts)``, ``x' = x - step_size
+    ((x - x0) + reg G)`` in x's dtype, G as :func:`tv_subgrad` gives it
+    from ``norms``, which is not stored.  x' is a new tensor (x0 may be
+    x); ``fid_parts`` (float32) sum to ``0.5 sum((x' - x0)^2)``.  x' equals
+    the eager update on :func:`tv_subgrad`'s G to the bit, float32 or
+    bfloat16: each of the update's five operations rounds to x's dtype."""
+    _check_tensors(x, x0=x0, norms=norms)
+    _check_like(x, x0=x0)
+    _check_volume(x, cfg)
+    if norms.dtype != torch.float32 or norms.shape != x.shape:
+        raise ValueError(f"norms must be float32 {tuple(x.shape)}, got "
+                         f"{tuple(norms.shape)} {norms.dtype}")
+    _check_tmul(tmul, x)
+    kw = dict(cfg=cfg, reg=reg, step_size=step_size)
+    if x.device.type == "cpu":
+        return tv_gd_step_plain(x, x0, norms, tmul, **kw)
+    return _tv_gd_kernel(x, x0, None if cfg.norm == "aniso" else norms,
+                         tmul, **kw)
+
+
+@functools.lru_cache(maxsize=64)
+def _gd_params(cfg: TVConfig, shape, has_tmul, reg, step_size):
+    """Pass 2's Params with the GD epilogue's scalars: ``reg`` the weight
+    of G, ``tau`` the step, ``fid_scale`` 0.5."""
+    p = _Params.from_buffer_copy(_params(cfg, shape, has_tmul))
+    p.reg, p.tau, p.fid_scale = reg, step_size, 0.5
+    return p
+
+
+def _tv_gd_kernel(x, x0, norms, tmul=None, *, cfg: TVConfig, reg,
+                  step_size):
+    """:func:`tv_gd_step`'s launch, on checked operands: the GD instance of
+    pass 2's kernel for the scheme's channel table
+    (``csrc/specialised.cu``)."""
+    p = _gd_params(cfg, tuple(x.shape), tmul is not None, float(reg),
+                   float(step_size))
+    out = torch.empty_like(x)
+    parts = _spec_launch("spec_tv_gd_launch", cfg, x, p,
+                         (int(x.dtype == torch.bfloat16),),
+                         (x, x0, norms, tmul, out), with_parts=True)
+    count("launch.B4")
+    count("launch.B4_gd")
+    return out, parts
+
+
 def tv_norms_plain(x, tmul=None, *, cfg: TVConfig, halo_mode=False,
                    table_dims=None):
     """Plain PyTorch version of :func:`tv_norms` (same signature and
@@ -1171,6 +1223,20 @@ def tv_subgrad_plain(x, norms, tmul=None, *, cfg: TVConfig, halo_mode=False,
         G = _subgrad_from_D(D_x, norms, cfg.scheme, x.shape[0], x.shape[1],
                             cfg.reg_z_over_reg, cfg.reg_time)
     return G.to(x.dtype)
+
+
+def tv_gd_step_plain(x, x0, norms, tmul=None, *, cfg: TVConfig, reg,
+                     step_size):
+    """Plain PyTorch version of :func:`tv_gd_step`: G from
+    :func:`tv_subgrad_plain`, then the solver's eager update
+    (``solvers.gd._update``), whose loss at a TV of 0 is the one fidelity
+    partial."""
+    from ..ops.space import TENSOR
+    from ..solvers import gd
+
+    G = tv_subgrad_plain(x, norms, tmul, cfg=cfg)
+    x, fid, _ = gd._update(TENSOR, lambda _: (0.0, G), x, x0, reg, step_size)
+    return x, fid.float().reshape(1)
 
 
 def tv_and_subgrad_fused(x, cfg: TVConfig, return_grad_norms=False,

@@ -548,7 +548,7 @@ def make_sharded_gd_solver_fused(
     ``solvers.gd.gd_loop`` on :func:`make_sharded_tv_and_subgrad_fused`'s
     TV, as ``solvers.subgradient_descent`` runs it on a grid."""
     from ..kernels.dispatch import as_dtype
-    from ..solvers.gd import gd_loop
+    from ..solvers.gd import eager_step, gd_loop
 
     tv_and_G = make_sharded_tv_and_subgrad_fused(
         mesh, cfg, global_shape, shard_time=shard_time, dtype=dtype,
@@ -558,9 +558,9 @@ def make_sharded_gd_solver_fused(
     def solve(x_noisy, x, each=None):
         _check_grid(x_noisy, mesh, global_shape, shard_time)
         _check_state(x_noisy, "x_noisy", as_dtype(dtype), mesh)
-        x, losses, _ = gd_loop(space, tv_and_G, x_noisy, x, n_iter=n_iter,
-                               reg=reg, step_size=step_size,
-                               hist_dtype=torch.float32, each=each)
+        x, losses, _ = gd_loop(
+            space, eager_step(space, tv_and_G, x_noisy, reg, step_size), x,
+            n_iter=n_iter, hist_dtype=torch.float32, each=each)
         return x, losses
 
     return solve

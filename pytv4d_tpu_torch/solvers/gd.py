@@ -41,6 +41,32 @@ def _update(space: Space, tv_and_G, x, x_noisy, reg, step_size):
     return x, loss, tv
 
 
+def eager_step(space: Space, tv_and_G, x_noisy, reg, step_size):
+    """:func:`gd_loop`'s step on ``space``'s fields: :func:`_update` on
+    ``tv_and_G(x) -> (tv, G)``, the TV and its subgradient."""
+    return lambda x: _update(space, tv_and_G, x, x_noisy, reg, step_size)
+
+
+def fused_step(x_noisy, cfg: TVConfig, tmul, reg, step_size):
+    """:func:`gd_loop`'s step on a tensor that the fused kernels take: B3
+    (``kernels.fused.tv_norms``), then B4 with its GD epilogue
+    (``kernels.fused.tv_gd_step``), which writes x' and the fidelity
+    partials and never stores G; on the CPU their plain versions, G and
+    then :func:`_update`, so x' is the eager update's to the bit.  The
+    loss and TV are :func:`_update`'s, in float32: the TV of the
+    pre-update iterate, the fidelity of the post-update one."""
+    from ..kernels import fused
+
+    def step(x):
+        norms, tv_parts = fused.tv_norms(x, tmul, cfg=cfg)
+        x, fid_parts = fused.tv_gd_step(x, x_noisy, norms, tmul, cfg=cfg,
+                                        reg=reg, step_size=step_size)
+        tv = torch.sum(tv_parts)
+        return x, torch.sum(fid_parts) + reg * tv, tv
+
+    return step
+
+
 def gd_step(x, x_noisy, *, reg, step_size, cfg: TVConfig, mask_static=None,
             weight_time=None):
     """One subgradient-descent update of a tensor (:func:`_update` on
@@ -53,20 +79,18 @@ def gd_step(x, x_noisy, *, reg, step_size, cfg: TVConfig, mask_static=None,
     return _update(TENSOR, tv_and_G, x, x_noisy, reg, step_size)
 
 
-def gd_loop(space: Space, tv_and_G, x_noisy, x, *, n_iter, reg, step_size,
-            hist_dtype, each=None):
-    """``n_iter`` updates from ``x`` on ``space``'s fields (``ops.space``:
-    a tensor or a grid of shards), ``tv_and_G(x) -> (tv, G)`` the TV and
-    its subgradient: ``(x, losses, tvs)``, the histories ``hist_dtype``
-    tensors on the fields' device.  ``each(i, loss)`` is called after
-    every iteration."""
-    device = space.first(x_noisy).device
+def gd_loop(space: Space, step, x, *, n_iter, hist_dtype, each=None):
+    """``n_iter`` steps from ``x`` on ``space``'s fields (``ops.space``:
+    a tensor or a grid of shards), ``step(x) -> (x', loss, tv)``
+    (:func:`eager_step` or :func:`fused_step`): ``(x, losses, tvs)``, the
+    histories ``hist_dtype`` tensors on the fields' device.
+    ``each(i, loss)`` is called after every iteration."""
+    device = space.first(x).device
     losses = torch.empty(n_iter, dtype=hist_dtype, device=device)
     tvs = torch.empty(n_iter, dtype=hist_dtype, device=device)
     for i in range(n_iter):
         with span(ITER_SPAN, device):
-            x, loss, tv = _update(space, tv_and_G, x, x_noisy, reg,
-                                  step_size)
+            x, loss, tv = step(x)
             losses[i] = loss
             tvs[i] = tv
             if each is not None:
@@ -94,14 +118,15 @@ def subgradient_descent(
     reg=25, step=5e-3, 300 iterations).  ``x_init`` defaults to the noisy
     image, as in the recipe.  The inputs are never modified.
 
-    ``fused=None`` takes the fused TV subgradient
-    (``kernels.fused.tv_and_subgrad_fused``: kernels B3/B4 on a CUDA tensor,
-    their plain versions on the CPU) when ``kernels.dispatch.can_fuse``
-    allows it — float32 or bfloat16 storage, plane-shaped ``mask_static`` /
-    ``weight_time`` — and ``ops.tv.tv_and_subgrad`` otherwise.
-    ``fused=False`` forces the latter.  The update and the loss are plain
-    torch ops either way, in x's dtype (a bfloat16 x updates in bfloat16;
-    the fused TV is float32, so the loss and TV histories are float32).
+    ``fused=None`` takes the fused step (:func:`fused_step`: kernels B3
+    and B4, which takes the update and the fidelity in its epilogue, on a
+    CUDA tensor; their plain versions on the CPU) when
+    ``kernels.dispatch.can_fuse`` allows it — float32 or bfloat16 storage,
+    plane-shaped ``mask_static`` / ``weight_time`` — and
+    ``ops.tv.tv_and_subgrad`` with the eager update otherwise.
+    ``fused=False`` forces the latter.  Either way x updates in its own
+    dtype (a bfloat16 x in bfloat16, rounded as the eager ops round).  The
+    fused TV is float32, so the fused loss and TV histories are float32.
 
     ``progress_every=k`` calls ``progress_fn(iteration, loss)`` on the host
     every k iterations (only those iterations sync).
@@ -121,6 +146,7 @@ def subgradient_descent(
         space, tv_and_G, fused = entry.gd_operators(
             x_noisy, cfg, mask_static, weight_time, fused)
         x = x0 if x_init is None else space.place(x_init)
+        step = eager_step(space, tv_and_G, x0, reg, step_size)
     else:
         space = TENSOR
         shape = tuple(x_noisy.shape)
@@ -130,17 +156,13 @@ def subgradient_descent(
                              for_gd=True)
         x = x0 if x_init is None else x_init
         if fused:
-            from ..kernels.fused import tv_and_subgrad_fused
-
             x0, x = x0.contiguous(), x.contiguous()
             tmul = t_plane_multiplier(shape, cfg, mask_static, weight_time,
                                       dtype=x_noisy.dtype,
                                       device=x_noisy.device)
             if tmul is not None:
                 tmul = tmul.float().contiguous()
-
-            def tv_and_G(x):
-                return tv_and_subgrad_fused(x, cfg, tmul=tmul)
+            step = fused_step(x0, cfg, tmul, reg, step_size)
         else:
             def tv_and_G(x):
                 return tv_and_subgrad(
@@ -148,10 +170,11 @@ def subgradient_descent(
                     weight_time=weight_time, norm_type=cfg.norm,
                     huber_delta=cfg.huber_delta, **cfg.kwargs())
 
+            step = eager_step(space, tv_and_G, x0, reg, step_size)
+
     hist_dtype = torch.float32 if fused else space.first(x_noisy).dtype
     x, losses, tvs = gd_loop(
-        space, tv_and_G, x0, x, n_iter=n_iter, reg=reg, step_size=step_size,
-        hist_dtype=hist_dtype,
+        space, step, x, n_iter=n_iter, hist_dtype=hist_dtype,
         each=(lambda i, loss: emit_progress(i, loss, progress_every,
                                             progress_fn))
         if progress_every else None)

@@ -45,7 +45,9 @@ the ``pytv.iter`` spans it holds.
 
 **Counters.**  Each kernel wrapper counts its launches with :func:`count`
 under ``launch.<kernel>``, the kernel's B-number in ``PERF.md``'s kernel
-table: ``launch.B1`` ... ``launch.B5``, ``launch.B6.pq`` / ``.xw``,
+table: ``launch.B1`` ... ``launch.B5`` with ``launch.B4_gd`` (the B4
+launches that take the subgradient-descent step in their epilogue, also
+counted under ``launch.B4``), ``launch.B6.pq`` / ``.xw``,
 ``launch.B7`` (whole TGV solves) with ``launch.B7.onchip`` / ``.l2`` (the
 kernel that ran), ``launch.B8.dual`` / ``.primal``, ``launch.B9.cp`` /
 ``.gd`` (whole solves) with ``launch.B9.onchip`` / ``.l2``, ``launch.B10``;

@@ -154,10 +154,13 @@ def test_num_parts_name_resolves_the_new_count():
     keeps the library's."""
     defined = set(re.findall(r"long long (\w+_num_parts)\(",
                              _source("specialised.cu")))
-    assert defined == {"spec_num_parts", "spec_cp_primal_num_parts"}
+    assert defined == {"spec_num_parts", "spec_cp_primal_num_parts",
+                       "spec_tv_gd_num_parts"}
     lib = _Defines(defined)
     assert fused._num_parts_name(lib, "spec", "spec_cp_primal_launch") == \
         "spec_cp_primal_num_parts"
+    assert fused._num_parts_name(lib, "spec", "spec_tv_gd_launch") == \
+        "spec_tv_gd_num_parts"
     assert fused._num_parts_name(lib, "spec", "spec_cp_dual_launch") == \
         "spec_num_parts"
     assert _body(_source("specialised.cu"),

@@ -179,6 +179,8 @@ def test_each_launch_with_partials_has_its_count():
         "spcp_interior_num_parts"
     # the unsharded pass B counts its own blocks (VEC_B columns a run)
     assert counts["spec_cp_primal_launch"] == "spec_cp_primal_num_parts"
+    # pass 2 with the GD epilogue counts its own blocks (a tile each)
+    assert counts["spec_tv_gd_launch"] == "spec_tv_gd_num_parts"
     assert "cp_fused" not in fused._ENTRY_POINTS
 
 

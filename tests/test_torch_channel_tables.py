@@ -99,6 +99,7 @@ def test_mirror_equals_the_header():
     ("specialised", "spec_cp_dual_launch"),
     ("specialised", "spec_tv_subgrad_launch"),
     ("specialised", "spec_tv_subgrad_halo_launch"),
+    ("specialised", "spec_tv_gd_launch"),
     ("specialised_tv", "spectv_norms_launch"),
     ("specialised_tv", "spectv_norms_halo_launch"),
     ("specialised_tv", "spectv_dual_launch"),

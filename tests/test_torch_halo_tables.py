@@ -251,11 +251,12 @@ def _source(name):
 def test_the_generic_tv_kernels_are_gone():
     """csrc/tv_fused.cu, the last generic body on a shard, is gone with its
     library; B3, B4 and B5 are the per-table kernels in both modes, a HALO
-    template flag each."""
+    template flag each (B4 also a GD flag, its subgradient-descent
+    epilogue)."""
     assert not os.path.exists(os.path.join(build.CSRC, "tv_fused.cu"))
     assert "tv_fused" not in fused._ENTRY_POINTS
-    assert re.search(r"template <Table T, typename TX, bool HALO>\s*"
-                     r"__global__ void __launch_bounds__\(BLOCK\)\s*"
+    assert re.search(r"template <Table T, typename TX, bool HALO, bool GD>"
+                     r"\s*__global__ void __launch_bounds__\(BLOCK\)\s*"
                      r"tv_subgrad_spec_kernel", _source("specialised.cu"))
     assert re.search(r"template <Table T, typename TX, bool HALO>\s*"
                      r"__global__ void __launch_bounds__\(BLOCK, "

@@ -5,7 +5,7 @@ iteration on one GPU, for comparing two trees of the repo in one run.
     python3 tools/torch_time_stencil.py --ab PARENT_DIR [--only SECTIONS]
 
 ``--only`` runs the named lines alone, a comma-separated subset of
-``stencil,b2,tgv,shard,b5,resident`` (all by default; ``--ab`` passes it
+``stencil,b2,gd,tgv,shard,b5,resident`` (all by default; ``--ab`` passes it
 on).
 
 Imports ``pytv4d_tpu_torch`` from ``DIR`` (default: this checkout), which
@@ -38,6 +38,20 @@ and at the odd width (2, 2, 24, 71), and a 2D (1, 1, 256, 256) volume, so
 that two trees' x' can be compared bit for bit; with the fidelity partials'
 sum after the in-place launch (the partials' blocks may differ between
 trees: equal to round-off, not bit for bit).
+
+The ``gd`` line times pass 2 (B4) at (32, 8, 256, 256) and at the
+denoising cells' (96, 16, 512, 512), hybrid ``reg_time=0.5``, float32,
+from a seeded x0 and an x near it: the standalone instance, which stores G
+(``tv_subgrad``), and, where the tree has it, the instance that takes the
+subgradient-descent step in its epilogue (``tv_gd_step``: x' and the
+fidelity partials, reg 25, step 5e-3), each by CUDA events and on the
+device (``torch.profiler``, every launch recorded); ms per iteration of
+``subgradient_descent`` at both shapes; the registers ``ptxas`` gave each
+pass 2 instance of that table (the library's build log); and the hash of
+the standalone G in float32 for the four schemes, in bf16, for the aniso
+and huber norms, with a time multiplier plane, at the odd width (2, 2,
+24, 71) and one element off alignment, so that two trees' G can be
+compared bit for bit.
 
 A second line times the TGV kernels: B6's two passes per launch in the 4d
 and 2d modes in float32 and the 4d mode in bf16, and B7 as
@@ -106,6 +120,7 @@ from __future__ import annotations
 import concurrent.futures
 import hashlib
 import os
+import re
 import subprocess
 import sys
 import time
@@ -286,6 +301,86 @@ def resident_times(dev):
     return ms, hashes, losses
 
 
+GD_SHAPES = (SHAPE, (96, 16, 512, 512))
+
+
+def gd_step_times(cfg, dev):
+    """Pass 2, standalone and with the GD epilogue (module docstring):
+    ``(ms, device ms, ms per GD iteration, registers, G hashes)``."""
+    from pytv4d_tpu_torch.core.config import TVConfig
+    from pytv4d_tpu_torch.core.schemes import SCHEMES
+    from pytv4d_tpu_torch.kernels import build, fused, tables
+    from pytv4d_tpu_torch.kernels.dispatch import t_plane_multiplier
+    from pytv4d_tpu_torch.solvers.gd import subgradient_descent
+
+    def seeded(shape, seed=26):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x0 = 255 * torch.rand(shape, generator=gen, device=dev)
+        return x0 + 20 * torch.rand(shape, generator=gen, device=dev), x0
+
+    ms, on_dev, its = {}, {}, {}
+    gd_kw = dict(cfg=cfg, reg=25.0, step_size=5e-3)
+    for shape in GD_SHAPES:
+        x, x0 = seeded(shape)
+        norms, _ = fused.tv_norms(x, cfg=cfg)
+        runs = {"B4": lambda: fused.tv_subgrad(x, norms, cfg=cfg)}
+        if hasattr(fused, "tv_gd_step"):
+            runs["B4 GD"] = lambda: fused.tv_gd_step(x, x0, norms, **gd_kw)
+        for name, run in runs.items():
+            ms[f"{name} {shape}"] = launch_ms(run)
+            on_dev[f"{name} {shape}"] = traced_ms(run,
+                                                  "tv_subgrad_spec_kernel")
+        del x, norms, runs
+        its[f"GD {shape}"] = iteration_ms(lambda n: subgradient_descent(
+            x0, n_iter=n, **gd_kw))
+        del x0
+        torch.cuda.empty_cache()
+
+    # ptxas's registers of each pass 2 instance of cfg's table
+    path = build._library_path(os.path.join(build.CSRC, "specialised.cu"))
+    with open(path + ".log") as f:
+        log = f.read()
+    chans = tables.TABLES[tables.table_id(cfg, *SHAPE[:2])]
+    code = len(chans)  # csrc/tables.cuh's code of the table
+    for i, (axis, kind) in enumerate(chans):
+        code |= (axis | fused._KIND[kind] << 2) << (4 + 4 * i)
+    regs = {}
+    for entry in log.split("Compiling entry function '")[1:]:
+        name = entry.split("'")[0]
+        m = re.search(r"tv_subgrad_spec_kernelILy(\d+)E(f|13__nv_bfloat16)"
+                      r"((?:Lb[01]E)+)", name)
+        if m and int(m[1]) == code:
+            tag = (f"{m[1]} {'f32' if m[2] == 'f' else 'bf16'} "
+                   f"{m[3].replace('Lb', '').replace('E', '')}")
+            regs[tag] = int(re.search(r"Used (\d+) registers", entry)[1])
+
+    hashes = {}
+    cases = [*((s, TVConfig(scheme=s, reg_time=0.5), torch.float32)
+               for s in SCHEMES),
+             ("bf16", cfg, torch.bfloat16),
+             ("aniso", TVConfig(scheme="central", reg_time=0.5,
+                                norm="aniso"), torch.float32),
+             ("huber", TVConfig(scheme="hybrid", reg_time=0.5, norm="huber",
+                                huber_delta=0.3), torch.float32)]
+    for shape in ((4, 3, 64, 96), (2, 2, 24, 71)):
+        for name, c, dt in cases:
+            x = seeded(shape, 7)[0].to(dt)
+            norms, _ = fused.tv_norms(x, cfg=c)
+            hashes[f"{name} {shape}"] = digest(fused.tv_subgrad(x, norms,
+                                                                cfg=c))
+    x = seeded((4, 3, 64, 96), 7)[0]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    mask = torch.rand((1, 1, 64, 96), generator=gen, device=dev) < 0.5
+    tm = t_plane_multiplier(tuple(x.shape), cfg, mask, 1.0 + mask.float(),
+                            device=dev).float().contiguous()
+    norms, _ = fused.tv_norms(x, tm, cfg=cfg)
+    hashes["tmul"] = digest(fused.tv_subgrad(x, norms, tm, cfg=cfg))
+    off = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
+    norms, _ = fused.tv_norms(off, cfg=cfg)
+    hashes["off alignment"] = digest(fused.tv_subgrad(off, norms, cfg=cfg))
+    return ms, on_dev, its, regs, hashes
+
+
 def card():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -295,7 +390,7 @@ def card():
 
 def main():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    only = {"stencil", "b2", "tgv", "shard", "b5", "resident"}
+    only = {"stencil", "b2", "gd", "tgv", "shard", "b5", "resident"}
     if "--only" in sys.argv:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     if "--ab" in sys.argv:
@@ -435,6 +530,20 @@ def main():
               + ", ".join(f"{k} {v}" for k, v in b2_hash.items())
               + "; fidelity partial sums: "
               + ", ".join(f"{k} {v!r}" for k, v in b2_fid.items())
+              + f"; card {card()}", flush=True)
+    if "gd" in only:
+        gd_ms, gd_dev, gd_its, gd_regs, gd_hash = gd_step_times(cfg, dev)
+        print(f"[B4 GD step] {os.path.relpath(root)} hybrid reg_time=0.5 "
+              f"f32, per launch, CUDA events / device (torch.profiler, 50 "
+              f"of 50 launches): "
+              + ", ".join(f"{k} {gd_ms[k]:.4f} / {gd_dev[k]:.4f} ms"
+                          for k in gd_ms)
+              + "; ms per GD iteration: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in gd_its.items())
+              + "; registers (table, storage, template flags): "
+              + ", ".join(f"{k} {v}" for k, v in gd_regs.items())
+              + "; standalone G hashes: "
+              + ", ".join(f"{k} {v}" for k, v in gd_hash.items())
               + f"; card {card()}", flush=True)
     if "tgv" in only:
         tgv_ms, tgv_hash = tgv_times(dev)
