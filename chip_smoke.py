@@ -33,10 +33,13 @@ cameraman image and the reference's ``tv_GPU.tv_hybrid`` through them,
 measures the 4D GD rate, the split of an iteration and the kernels' GB/s,
 and runs the (96, 16, 512, 512) volume.  For the TGV-2 path (phases 12-15):
 holds B6/B7 against their plain versions (B7's on-chip kernel also bit for
-bit against its L2 kernel, and a launch the card refuses must raise),
+bit against its L2 kernel, and a launch the card refuses must raise) and
+B6's objective kernel against ``tgv_objective`` in float64,
 drives ``TVDenoiser.tgv`` on the
 cameraman image from a numpy array (it must land on the card, in one
-on-chip B7 launch) and a 4d ``tgv_denoise`` through B6, measures the
+on-chip B7 launch), a 4d ``tgv_denoise`` through B6 and the users' 4d
+``TVDenoiser.tgv`` with its per-iteration loss (B6 and the objective
+kernel every iteration), measures the
 whole-solve kernels against each other and the streaming rates, where one
 overtakes the other, the B7 bounds and how many B7 clusters the card holds
 at once, and runs the (96, 16, 512, 512) volume in the 4d mode.  For the
@@ -137,8 +140,8 @@ runs the six example twins (``examples/torch_*.py --device cuda``).  For
 the entry points on a grid (phase 31): hands grids of shards of the
 (32, 8, 256, 256) volume to ``chambolle_pock`` (B1, B2, B8),
 ``subgradient_descent`` and ``tv_and_subgrad`` (B3, B4), ``tgv_denoise``
-(B7 in 2d; B6 in 4d on z-shards; no kernel in 4d on a grid that cuts
-time), ``admm`` and ``fista`` (no kernel), each against the same call on
+(B7 in 2d; B6 in 4d on z-shards, with and without the per-iteration
+loss; no kernel in 4d on a grid that cuts time), ``admm`` and ``fista`` (no kernel), each against the same call on
 the whole volume, and times each beside the direct sharded solver.  For
 the CT and remaining solver entry points on a grid (phase 32): holds B5's
 halo mode (the halo instance of ``tv_dual_spec_kernel``,
@@ -272,7 +275,11 @@ from pytv4d_tpu_torch.solvers.state import (
     run_checkpointed,
     run_until_converged,
 )
-from pytv4d_tpu_torch.solvers.tgv import TGV_FIELDS, tgv_denoise
+from pytv4d_tpu_torch.solvers.tgv import (
+    TGV_FIELDS,
+    tgv_denoise,
+    tgv_objective,
+)
 from pytv4d_tpu_torch.utils import cameraman, has_real_cameraman, profiling
 from pytv4d_tpu_torch.utils.profiling import (
     H100_HBM_PEAK_GBPS,
@@ -322,6 +329,8 @@ COUNTERS = {"B1": "launch.B1", "B2": "launch.B2", "B3": "launch.B3",
             # the B4 launches that take the GD step in their epilogue
             "B4gd": "launch.B4_gd",
             "B6pq": "launch.B6.pq", "B6xw": "launch.B6.xw",
+            # B6's objective kernel: one launch a loss of a streamed solve
+            "B6obj": "launch.B6.obj",
             # B7 on chip, and in L2 (slices too large for the chip)
             "B7": "launch.B7.onchip", "B7l2": "launch.B7.l2",
             "B9cp": "launch.B9.cp", "B9gd": "launch.B9.gd",
@@ -1229,6 +1238,9 @@ TGV_KW = dict(alpha1=1.0, alpha0=2.0, huber_delta=0.3)
 # B7 over 20 iterations: each iteration is held to the f32 bar by the shared
 # per-voxel code (B6 above); 20 of them may add up to 10 times that bar
 F32_TOL_20 = dict(atol=2e-5, rtol=1e-4)
+# the objective kernel against tgv_objective in float64 on the same stored
+# values: both sum positive terms, the kernel in float32 by block partials
+OBJ_RTOL = 1e-5
 
 
 def _tgv_state(shape, mode, dtype, gen):
@@ -1343,9 +1355,24 @@ def _b7_cases(errs):
     return n
 
 
+def _objective_err(x, w, x0, mode, norm):
+    """The objective kernel's value and ``tgv_objective``'s in float64 on
+    the same card tensors: ``(abs err, rel err)``."""
+    kw = dict(alpha1=TGV_KW["alpha1"], alpha0=TGV_KW["alpha0"], norm=norm,
+              huber_delta=TGV_KW["huber_delta"])
+    got = tgv_stream.tgv_stream_objective(x, w, x0, mode, **kw)
+    ref = tgv_objective(x.double(), w.double(), x0.double(), mode, **kw)
+    sync()
+    require(got.dtype == torch.float32 and got.shape == () and got.is_cuda,
+            "the objective kernel gives a float32 scalar on the card")
+    err = abs(float(got) - float(ref))
+    return err, err / abs(float(ref))
+
+
 def phase_tgv_kernels():
     errs = {k: {"f32": 0.0, "bf16": 0.0}
-            for k in ("B6pq", "B6xw", "B7", "B7l2")}
+            for k in ("B6pq", "B6xw", "B6obj", "B7", "B7l2")}
+    obj_rel = {"f32": 0.0, "bf16": 0.0}
     n_cases = 0
     for shape in (SMALL, CAMERAMAN, MAIN_4D):
         gen = torch.Generator(device=DEV).manual_seed(2468)
@@ -1356,6 +1383,14 @@ def phase_tgv_kernels():
                     bf16 = kind == "bf16"
                     x, xb, w, wb, p, q, x0 = _tgv_state(shape, mode, dtype,
                                                         gen)
+                    before = read_counters()["B6obj"]
+                    e, rel = _objective_err(x, w, x0, mode, norm)
+                    require(read_counters()["B6obj"] == before + 1,
+                            "one objective launch an evaluation")
+                    require(rel <= OBJ_RTOL, f"objective {shape} {mode} "
+                            f"{norm} {kind}: rel err {rel:.3g} vs float64")
+                    errs["B6obj"][kind] = max(errs["B6obj"][kind], e)
+                    obj_rel[kind] = max(obj_rel[kind], rel)
                     kw = dict(mode=mode, norm=norm, **TGV_KW)
                     pk, qk, pp, qp = p.clone(), q.clone(), p.clone(), q.clone()
                     tgv_stream.tgv_pq(xb, wb, pk, qk, **kw)
@@ -1382,12 +1417,16 @@ def phase_tgv_kernels():
         f"{', '.join(map(str, B7_SHAPES))} and {B7_FORCED}: "
         f"pass; max abs err B6 PQ f32 "
         f"{errs['B6pq']['f32']:.3g} bf16 {errs['B6pq']['bf16']:.3g}, B6 XW "
-        f"f32 {errs['B6xw']['f32']:.3g} bf16 {errs['B6xw']['bf16']:.3g}, B7 "
+        f"f32 {errs['B6xw']['f32']:.3g} bf16 {errs['B6xw']['bf16']:.3g}; "
+        f"B6 objective vs tgv_objective in float64, max rel err f32 "
+        f"{obj_rel['f32']:.3g} bf16 {obj_rel['bf16']:.3g} (bar {OBJ_RTOL}); "
+        f"B7 "
         f"f32 over 1 and 20 iterations: on chip {errs['B7']['f32']:.3g}, L2 "
         f"{errs['B7l2']['f32']:.3g} (bar atol {F32_TOL_20['atol']} rtol "
         f"{F32_TOL_20['rtol']} at 20); the on-chip state bit-equal to the L2 "
         f"kernel's in every case")
     sync()
+    errs["B6obj_rel"] = obj_rel
     return errs
 
 
@@ -1441,22 +1480,55 @@ def phase_tgv_main_path():
     require(out.loss.shape == (0,) and out.w.shape == (32, 4, 8, 256, 256)
             and bool(torch.isfinite(out.x).all()),
             "4d stream solve: no losses, a 4-field w, finite x")
-    ref = tgv_denoise(x, compute_loss=False, fused=False, **kw)
+    # the plain loop with its per-iteration loss (tgv_objective)
+    ref = tgv_denoise(x, fused=False, **kw)
     err = _compare(out.x, ref.x, False, 0.0, F32_TOL_20)
+    # the call users make, with its default per-iteration loss: B6's two
+    # passes and the objective kernel every iteration, no eager step
+    zero_counters()
+    full = TVDenoiser(reg=1.0).tgv(x, n_iter=20, axes="4d")
+    sync()
+    full_launches = read_counters()
+    require_launches(full_launches, "TVDenoiser.tgv 4d with the loss",
+                     B6pq=20, B6xw=20, B6obj=20)
+    require(full.loss.shape == (20,) and full.loss.dtype == torch.float32
+            and full.loss.is_cuda and torch.equal(full.x, out.x)
+            and torch.equal(full.w, out.w),
+            "4d with the loss: 20 float32 losses on the card, the iterates "
+            "of the solve without it")
+    traj = float(((full.loss - ref.loss).abs() / ref.loss.abs()).max())
+    require(traj < 1e-4, f"20-iteration streamed vs plain-loop loss within "
+                         f"1e-4, got {traj:.3g}")
+    last = float(tgv_objective(full.x.double(), full.w.double(), x.double(),
+                               "4d", 1.0, 2.0))
+    last_rel = abs(float(full.loss[-1]) - last) / last
+    require(last_rel <= OBJ_RTOL, f"the last loss within {OBJ_RTOL} of "
+                                  f"tgv_objective in float64 at the final "
+                                  f"state, got {last_rel:.3g}")
     del ref
+    zero_counters()
     sampled = tgv_denoise(x, loss_every=5, **kw)
+    sync()
+    require_launches(read_counters(), "tgv_denoise 4d loss_every=5",
+                     B6pq=20, B6xw=20, B6obj=4)
     require(sampled.loss.shape == (4,) and torch.equal(sampled.x, out.x)
-            and bool(torch.isfinite(sampled.loss).all()),
-            "loss_every=5 over 20 iterations: 4 losses, the same iterates")
-    require(read_counters()["B6pq"] == 40, "the sampled run used B6 too")
+            and torch.equal(sampled.loss, full.loss[4::5]),
+            "loss_every=5 over 20 iterations: 4 losses, the same iterates "
+            "and every fifth loss of the per-iteration run")
     log(f"[13 TGV main path] tgv_denoise({MAIN_4D}, axes='4d', "
         f"compute_loss=False, n_iter=20): launches {stream_launches}; max "
-        f"abs err of x vs the plain loop {err:.3g}; loss_every=5 -> "
-        f"{[round(float(v), 1) for v in sampled.loss]}")
+        f"abs err of x vs the plain loop {err:.3g}; TVDenoiser(reg=1).tgv("
+        f"axes='4d', n_iter=20) with its per-iteration loss: launches "
+        f"{ {k: v for k, v in full_launches.items() if v} }, the same x and "
+        f"w, losses vs the plain loop's max rel {traj:.3g}, the last vs "
+        f"float64 {last_rel:.3g}; loss_every=5 -> "
+        f"{[round(float(v), 1) for v in sampled.loss]} (4 objective "
+        f"launches)")
     sync()
     return {"B7": launches["B7"], "B7l2": launches["B7l2"],
             "B6pq": stream_launches["B6pq"],
-            "B6xw": stream_launches["B6xw"]}
+            "B6xw": stream_launches["B6xw"],
+            "B6obj": full_launches["B6obj"]}
 
 
 # ---------------------------------------------------------------- phase 14
@@ -1516,6 +1588,13 @@ def _b7_kernel(variant, x, n_iter, alpha1, alpha0, compute_loss=True):
     kernel = (tgv_resident.solve_onchip if variant == "onchip"
               else tgv_resident.solve_l2)
     return kernel(x, n_iter, prm, compute_loss)
+
+
+def tgv_objective_bytes(shape, mode, dtype):
+    """The objective kernel's least traffic: x, x0 and the n planes of w
+    read once (its per-block partials are a few KB)."""
+    return ((TGV_FIELDS[mode] + 2) * int(np.prod(shape))
+            * torch.empty((), dtype=dtype).element_size())
 
 
 def tgv_ops_per_voxel(n):
@@ -1617,10 +1696,16 @@ def phase_tgv_rates(card):
               "xw": (_time_launch(lambda: tgv_stream.tgv_xw(
                   x, x0, p, w, q, xb, wb, mode=mode)),
                   _time_launch(lambda: tgv_stream.tgv_xw_plain(
-                      x, x0, p, w, q, xb, wb, mode=mode), n=5))}
+                      x, x0, p, w, q, xb, wb, mode=mode), n=5)),
+              "obj": (_time_launch(lambda: tgv_stream.tgv_stream_objective(
+                  x, w, x0, mode, 1.0, 2.0)),
+                  _time_launch(lambda: tgv_objective(x, w, x0, mode, 1.0,
+                                                     2.0), n=5))}
         del r, x, xb, w, wb, p, q
         b_pq, b_xw = tgv_traffic_model(MAIN_4D, mode, dtype)
-        gbs = {"pq": b_pq / ms["pq"][0] / 1e6, "xw": b_xw / ms["xw"][0] / 1e6}
+        b_obj = tgv_objective_bytes(MAIN_4D, mode, dtype)
+        gbs = {"pq": b_pq / ms["pq"][0] / 1e6, "xw": b_xw / ms["xw"][0] / 1e6,
+               "obj": b_obj / ms["obj"][0] / 1e6}
         frac = roofline_fraction(b_pq + b_xw, it_s[False])
         log(f"[14 TGV rates {MAIN_4D}] {mode} stream (B6) {tag}: kernels "
             f"{it_s[False]:.1f} it/s = {(b_pq + b_xw) * it_s[False] / 1e9:.0f}"
@@ -1630,7 +1715,10 @@ def phase_tgv_rates(card):
             f"{it_s[True]:.2f} it/s; per launch PQ "
             f"{ms['pq'][0]:.4f} ms ({gbs['pq']:.0f} GB/s, plain "
             f"{ms['pq'][1]:.3f} ms), XW {ms['xw'][0]:.4f} ms "
-            f"({gbs['xw']:.0f} GB/s, plain {ms['xw'][1]:.3f} ms)")
+            f"({gbs['xw']:.0f} GB/s, plain {ms['xw'][1]:.3f} ms), "
+            f"objective {ms['obj'][0]:.4f} ms ({gbs['obj']:.0f} GB/s, "
+            f"{TGV_FIELDS[mode] + 2} planes; plain tgv_objective "
+            f"{ms['obj'][1]:.3f} ms)")
         out[(mode, tag)] = ms
         sync()
 
@@ -1680,20 +1768,24 @@ def phase_tgv_rates(card):
     # bounds from this run's inputs: B6 at MAIN_4D 4d f32 (one launch of
     # each pass), B7 at cameraman (x0 read, 12 planes of state written,
     # 300 iterations of all three phases), for both of its kernels
-    ops_pq, ops_xw, _ = tgv_ops_per_voxel(4)
+    ops_pq, ops_xw, ops_obj = tgv_ops_per_voxel(4)
     b_pq, b_xw = tgv_traffic_model(MAIN_4D, "4d", torch.float32)
     b7_bound = bound(13 * 4 * 256 * 256, 300 * ops2 * 256 * 256)
     out["bounds"] = {"B6pq": bound(b_pq, ops_pq * vox),
                      "B6xw": bound(b_xw, ops_xw * vox),
+                     "B6obj": bound(tgv_objective_bytes(
+                         MAIN_4D, "4d", torch.float32), ops_obj * vox),
                      "B7": b7_bound, "B7l2": b7_bound}
     # B6's bounds at every mode and storage timed above
     b6 = []
     for mode, dtype in (("2d", torch.float32), ("4d", torch.float32),
                         ("4d", torch.bfloat16)):
-        o_pq, o_xw, _ = tgv_ops_per_voxel(TGV_FIELDS[mode])
+        o_pq, o_xw, o_obj = tgv_ops_per_voxel(TGV_FIELDS[mode])
         t_pq, t_xw = tgv_traffic_model(MAIN_4D, mode, dtype)
+        t_obj = tgv_objective_bytes(MAIN_4D, mode, dtype)
         b6.append(f"{mode} {str(dtype)[6:]} PQ {bound(t_pq, o_pq * vox)[0]:.4f}"
-                  f" ms, XW {bound(t_xw, o_xw * vox)[0]:.4f} ms")
+                  f" ms, XW {bound(t_xw, o_xw * vox)[0]:.4f} ms, objective "
+                  f"{bound(t_obj, o_obj * vox)[0]:.4f} ms")
     log(f"[14 B6 bounds] {MAIN_4D}, each array once over "
         f"{H100_HBM_PEAK_GBPS:.0f} GB/s (bytes set all): " + "; ".join(b6))
     log(f"[14 B7 bounds] cameraman 300-iteration solve: 13 planes "
@@ -5329,10 +5421,27 @@ def phase_grid_entry(card):
                                 "direct make_sharded_tgv_stream_solver",
                                 "whole volume"), ms))
     del res, ref
-    grid = grids["2x2"]
+    # '4d' on 4 z-shards with the per-iteration loss: the sharded stream
+    # solver, its objective (tgv_objective, a sum over shards) sampled
+    # every iteration; the whole volume streams with the objective kernel
     full = dict(tk, axes="4d")
+    res = _on_grid("tgv 4d z4 loss", lambda: tgv_denoise(grid, **full),
+                   B6pq=per, B6xw=per)
+    launches["tgv 4d z4 loss"] = dict(B6pq=per, B6xw=per)
+    ref = tgv_denoise(whole, **full)
+    require(res.loss.shape == (n_it,) and res.loss.dtype == torch.float32,
+            "tgv 4d z4 loss: a float32 loss every iteration")
+    rel = _loss_rel(res.loss, ref.loss)
+    require(rel <= 1e-5, f"tgv 4d z4 loss: loss within 1e-5 of the whole "
+                         f"volume's, got {rel:.3g}")
+    err = _compare(gather_volume(res.x), ref.x, False, 0.0, F32_TOL_20)
+    lines.append(f"tgv 4d z4 with the per-iteration loss: loss within "
+                 f"{rel:.3g}, x within {err:.3g} of the whole volume's "
+                 "streamed solve (B6 and the objective kernel)")
+    del res, ref
+    grid = grids["2x2"]
     res = _on_grid("tgv 4d 2x2", lambda: tgv_denoise(grid, **full))
-    ref = tgv_denoise(whole, **full)  # the plain loop on the card too
+    ref = tgv_denoise(whole, **full)  # the whole volume streams, B6 + obj
     rel = _loss_rel(res.loss, ref.loss)
     require(rel <= 1e-5, f"tgv 4d 2x2: loss within 1e-5, got {rel:.3g}")
     err = _compare(gather_volume(res.x), ref.x, False, 0.0, F32_TOL_20)
@@ -5341,7 +5450,7 @@ def phase_grid_entry(card):
     lines.append(f"tgv 4d 2x2 (the plain loop on the grid, no launch): loss "
                  f"within {rel:.3g}, x within {err:.3g}; ms/it, median "
                  "(least to most) of 5 turns: " + _turns_text(
-                     ("entry point", "whole volume, the plain loop"), ms))
+                     ("entry point", "whole volume, streamed"), ms))
     del res, ref
 
     # ADMM and FISTA: plain loops on the exchanged stencils, no kernel
@@ -5915,6 +6024,8 @@ def main():
                "launches": n_launches, "max_abs_err": err, "ms": ms[0],
                "plain_ms": ms[1], "bound_ms": bounds[kid][0],
                "bound_by": bounds[kid][1], "library_ms": None}
+        if replaces is None:
+            out["replaces"] = None  # a kernel the JAX package has no twin of
         if err_bf16 is not None:
             out["max_abs_err_bf16"] = err_bf16
         out.update(extra)
@@ -5979,6 +6090,14 @@ def main():
               tgv_errs["B6xw"]["f32"], stream_ms["xw"],
               tgv_errs["B6xw"]["bf16"],
               launches_sharded=sharded["B6"]),
+        # phase 12: against tgv_objective in float64, abs and rel; phase
+        # 13: one launch an iteration of the users' 4d call
+        entry("B6obj", "tgv_obj_kernel (TGV objective, one float partial a "
+              "block)", "tgv_stream.cu", None, tgv_launches["B6obj"],
+              tgv_errs["B6obj"]["f32"], stream_ms["obj"],
+              tgv_errs["B6obj"]["bf16"],
+              max_rel_err=tgv_errs["B6obj_rel"]["f32"],
+              max_rel_err_bf16=tgv_errs["B6obj_rel"]["bf16"]),
         entry("B7", "tgv_onchip_kernel (2d TGV whole solve, each slice's "
               "state in its cluster's shared memory)", "tgv_onchip.cu",
               "tgv_resident.py:58", tgv_launches["B7"],

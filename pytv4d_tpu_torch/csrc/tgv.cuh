@@ -1,7 +1,8 @@
 // Device code shared by the TGV-2 kernels of csrc/tgv_stream.cu (passes PQ and
-// XW, one launch each per iteration), csrc/tgv_resident.cu (the whole 2d
-// solve in one launch, state in global memory) and csrc/tgv_onchip.cu (the
-// whole 2d solve with each slice's state in its cluster's shared memory): the
+// XW, one launch each per iteration, and the objective, one launch a loss),
+// csrc/tgv_resident.cu (the whole 2d solve in one launch, state in global
+// memory) and csrc/tgv_onchip.cu (the whole 2d solve with each slice's state
+// in its cluster's shared memory): the
 // launch parameter struct, the geometry of a voxel, and the per-voxel
 // arithmetic of the dual pass, the primal pass and the objective.  All three
 // sources run exactly this arithmetic, so the whole-solve kernels and a loop

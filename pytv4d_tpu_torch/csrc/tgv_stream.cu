@@ -25,6 +25,15 @@
 // switch.  p, q, x and w are updated in place: a thread reads, of the
 // arrays its pass writes, only its own voxel.
 //
+// The objective, tgv_obj_kernel, replaces no TPU kernel: the JAX package
+// evaluates it with plain ops, which at (96, 16, 512, 512) stack the 4
+// channels of D x and the 10 of E w at full size.  It reads x, x0 and w (2 +
+// N planes; x at +1 and w at -1 along each axis), computes each voxel's
+// 1/2 (x - x0)^2 + a1 N(D x - w) + a0 N(E w) in registers (tgv.cuh's
+// tgv_loss_at, which the whole-solve kernels also sum) and writes one float
+// partial a block (block_sum, a fixed order), which the wrapper sums.  Bound
+// by HBM bytes like the passes, on the same plane grid.
+//
 // Built with -fmad=false, like the other sources, so each multiply, add and
 // divide rounds as in the plain PyTorch version
 // (kernels/tgv_stream.py::tgv_pq_plain, tgv_xw_plain).
@@ -61,6 +70,22 @@ tgv_xw_kernel(const TgvParams P, T* __restrict__ x, const T* __restrict__ x0,
   if (thread_geo(P, g)) tgv_xw_voxel<N, T>(P, g, x, x0, p, w, q, xb, wb);
 }
 
+// One partial a block: the block's voxels' objective terms, summed by
+// block_sum (every thread reaches its barrier; a thread past the plane's end
+// adds 0).
+template <int N, typename T>
+__global__ void __launch_bounds__(BLOCK)
+tgv_obj_kernel(const TgvParams P, const T* __restrict__ x,
+               const T* __restrict__ x0, const T* __restrict__ w,
+               float* __restrict__ parts) {
+  Geo g;
+  const float v = thread_geo(P, g) ? tgv_loss_voxel<N, T>(P, g, x, x0, w)
+                                   : 0.f;
+  const float s = block_sum(v);
+  if (threadIdx.x == 0)
+    parts[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = s;
+}
+
 static inline dim3 tgv_grid(const TgvParams* p) {
   const int64_t plane = (int64_t)p->Nr * p->Nc;
   return dim3((unsigned)((plane + BLOCK - 1) / BLOCK),
@@ -85,6 +110,14 @@ static int launch_xw(const TgvParams* p, void* x, const void* x0,
   return (int)cudaGetLastError();
 }
 
+template <int N, typename T>
+static int launch_obj(const TgvParams* p, const void* x, const void* x0,
+                      const void* w, void* parts, cudaStream_t stream) {
+  tgv_obj_kernel<N, T><<<tgv_grid(p), BLOCK, 0, stream>>>(
+      *p, (const T*)x, (const T*)x0, (const T*)w, (float*)parts);
+  return (int)cudaGetLastError();
+}
+
 // Calls LAUNCH<N, T>(ARGS) for the mode's field count and the storage type.
 #define TGV_DISPATCH(LAUNCH, ...)                                          \
   do {                                                                     \
@@ -102,7 +135,7 @@ static int launch_xw(const TgvParams* p, void* x, const void* x0,
 
 extern "C" {
 
-// Both return cudaGetLastError() after the launch (0 = cudaSuccess), or
+// Each returns cudaGetLastError() after the launch (0 = cudaSuccess), or
 // cudaErrorInvalidValue for a field count other than 2, 3 or 4.
 int tgv_pq_launch(const TgvParams* p, int n_fields, int bf16, const void* xb,
                   const void* wb, void* pd, void* qd, void* stream) {
@@ -115,6 +148,18 @@ int tgv_xw_launch(const TgvParams* p, int n_fields, int bf16, void* x,
                   void* xb, void* wb, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   TGV_DISPATCH(launch_xw, p, x, x0, pd, w, qd, xb, wb, s);
+}
+
+// The objective's partials: tgv_obj_num_parts of them, one a block of the
+// plane grid.
+int tgv_obj_launch(const TgvParams* p, int n_fields, int bf16, const void* x,
+                   const void* x0, const void* w, void* parts, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  TGV_DISPATCH(launch_obj, p, x, x0, w, parts, s);
+}
+
+long long tgv_obj_num_parts(int Nz, int M, int Nr, int Nc) {
+  return num_parts(Nz, M, Nr, Nc);
 }
 
 const char* tgv_error_string(int code) {

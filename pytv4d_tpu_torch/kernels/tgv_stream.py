@@ -27,14 +27,19 @@ w-like ``(Nz, n, M, Nr, Nc)`` and q ``(Nz, n(n+1)/2, M, Nr, Nc)``, and no
 conversion exists.  Storage is float32 or bfloat16 (all seven arrays
 alike); compute is float32.
 
-The loss is NOT fused: the streaming path serves ``compute_loss=False`` and
-``loss_every=k`` (the sampled objective is plain torch ops).
+The objective, :func:`tgv_stream_objective` (kernel ``tgv_obj_kernel``;
+it replaces no TPU kernel), is a third launch for each loss the solve asks
+for: it reads x, x0 and w (2 + n planes), computes each voxel's term of
+``1/2 |x - x0|^2 + a1 N(D x - w) + a0 N(E w)`` in registers and writes one
+float32 partial a block, which one ``torch.sum`` adds up.  So the per-
+iteration loss streams too (``solvers.tgv._select_path``).
 
 Each wrapper takes its plain PyTorch version (:func:`tgv_pq_plain`,
-:func:`tgv_xw_plain`) for tensors on the CPU, which is how the CPU tests
-run the fused path.  For CUDA tensors it launches the kernel or raises.
+:func:`tgv_xw_plain`; for the objective ``solvers.tgv.tgv_objective``
+itself) for tensors on the CPU, which is how the CPU tests run the fused
+path.  For CUDA tensors it launches the kernel or raises.
 ``utils.profiling.counters()`` counts their launches under
-``launch.B6.pq`` and ``launch.B6.xw``.
+``launch.B6.pq``, ``launch.B6.xw`` and ``launch.B6.obj``.
 """
 
 from __future__ import annotations
@@ -52,8 +57,10 @@ from ..solvers.tgv import (
     _sym_grad_axes,
     _sym_grad_T_axes,
     _tgv_dual_prox,
+    tgv_objective,
     tgv_steps,
 )
+from ..ops.space import TENSOR
 from ..utils.profiling import count
 from .fused import (
     _ENTRY_POINTS,
@@ -81,7 +88,8 @@ class TGVParams(ctypes.Structure):
 
 # launch function: (int flags, tensor pointers)
 _ENTRY_POINTS["tgv_stream"] = ("tgv", TGVParams, {
-    "tgv_pq_launch": (2, 4), "tgv_xw_launch": (2, 7)})
+    "tgv_pq_launch": (2, 4), "tgv_xw_launch": (2, 7),
+    "tgv_obj_launch": (2, 4)})
 
 
 @functools.lru_cache(maxsize=64)
@@ -182,6 +190,39 @@ def tgv_xw(x, x0, p, w, q, xb=None, wb=None, *, mode, sigma_tau_split=1.0):
             (x, x0, p, w, q, xb, wb))
     count("launch.B6.xw")
     return x, xb, w, wb
+
+
+def tgv_stream_objective(x, w, x0, axes, alpha1, alpha0, norm="iso",
+                         huber_delta=1.0, space=TENSOR):
+    """The primal objective at ``(x, w)``, a float32 scalar tensor on x's
+    device: ``solvers.tgv.tgv_objective``'s signature and value, computed
+    by the objective kernel (one launch, then one sum of its per-block
+    partials in a fixed order).  On a CPU tensor it is ``tgv_objective``
+    itself; on a CUDA one ``space`` must be a tensor's."""
+    if x.device.type == "cpu":
+        return tgv_objective(x, w, x0, axes, alpha1, alpha0, norm,
+                             huber_delta, space)
+    if space is not TENSOR:
+        raise ValueError("the objective kernel takes a tensor, not a grid")
+    if axes not in MODE_AXES:
+        raise ValueError(f"mode must be '2d', '3d' or '4d', got {axes!r}")
+    _check_tensors(x, x0=x0, w=w)
+    Nz, M, Nr, Nc = shape = tuple(x.shape)
+    n = TGV_FIELDS[axes]
+    for name, t, want in (("x0", x0, shape), ("w", w, (Nz, n, M, Nr, Nc))):
+        if tuple(t.shape) != want or t.dtype != x.dtype:
+            raise ValueError(f"{name} must be {want} {x.dtype} for mode "
+                             f"{axes!r}, got {tuple(t.shape)} {t.dtype}")
+    if not stream_fits(shape, axes, x.dtype):
+        raise ValueError(
+            f"shape {shape} {x.dtype} is outside what the CUDA TGV stream "
+            f"kernels accept (stream_fits)")
+    prm = tgv_params(shape, axes, float(alpha1), float(alpha0), 1.0, norm,
+                     float(huber_delta))
+    parts = _launch("tgv_stream", "tgv_obj_launch", x, prm, _flags(axes, x),
+                    (x, x0, w), with_parts=True)
+    count("launch.B6.obj")
+    return torch.sum(parts)
 
 
 def _compute_dtype(t):

@@ -382,8 +382,10 @@ def tgv_denoise_grid(x_noisy, *, n_iter, alpha1, alpha0, sigma_tau_split,
     :func:`tgv_denoise_sharded` (B7 a shard on the card).  ``'3d'``, and
     ``'4d'`` on a grid that does not cut time, take the path the shard's
     shape takes on a volume (``solvers.tgv._select_path``): the streaming
-    kernels through :func:`make_sharded_tgv_stream_solver`, or
-    ``solvers.tgv.run_plain`` on the grid.  ``'4d'`` on a grid that cuts
+    kernels through :func:`make_sharded_tgv_stream_solver` (a per-
+    iteration loss is its objective sampled every iteration, a sum over
+    shards), or ``solvers.tgv.run_plain`` on the grid.  ``'4d'`` on a grid
+    that cuts
     time couples the cut axis inside the streaming kernels' step, which
     the sharded solver does not exchange: it takes the plain loop on every
     device, and ``fused=True`` raises.  ``state`` is a ``TGVState`` of
@@ -413,9 +415,11 @@ def tgv_denoise_grid(x_noisy, *, n_iter, alpha1, alpha0, sigma_tau_split,
                             compute_loss, fused, loss_every,
                             state is not None, first.is_cuda)
     if path == "stream":
+        # the per-iteration loss is the objective sampled every iteration
         solve = make_sharded_tgv_stream_solver(
             lay.mesh, lay.shape, axes, dtype=first.dtype,
-            shard_time=lay.shard_time, loss_every=loss_every, **kw)
+            shard_time=lay.shard_time,
+            loss_every=loss_every or int(bool(compute_loss)), **kw)
         return solve(x_noisy, state)
     return run_plain(x_noisy, state, axes=axes, compute_loss=compute_loss,
                      loss_every=loss_every,

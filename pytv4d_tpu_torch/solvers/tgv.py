@@ -38,6 +38,7 @@ from ..ops.operators import _safe_sqrt
 from ..ops.space import TENSOR, Space, d_zeros
 from ..parallel.mesh import is_grid
 from ..utils.device import on_device
+from ..utils.profiling import ITER_SPAN, TGV_OBJECTIVE_SPAN, solve_span, span
 from .fidelity import (
     fidelity_conjugate,
     fidelity_dual_prox,
@@ -132,22 +133,25 @@ def _d_fwd_T_axes(p, axes, space: Space = TENSOR):
     return out
 
 
+def _sym_channel(w, axes, i, j, space: Space = TENSOR):
+    """Channel (i, j) of the symmetrized Jacobian of the n-field w: d_i w_i
+    for i = j, else (d_j w_i + d_i w_j)/2; backward differences, zero at the
+    first slot (the discretization dual to the forward ``D``)."""
+    def d(f, axis):
+        return space.d_channel(_channel(w, f, space), axis, BWD)
+
+    if i == j:
+        return d(i, axes[i])
+    return space.map(lambda a, b: 0.5 * (a + b), d(i, axes[j]),
+                     d(j, axes[i]))
+
+
 def _sym_grad_axes(w, axes, space: Space = TENSOR):
     """Symmetrized Jacobian of the n-field w (Nz, n, M, Nr, Nc) ->
-    (Nz, n(n+1)/2, M, Nr, Nc): the diagonals d_i w_i, then
-    (d_j w_i + d_i w_j)/2 for i < j; backward differences, zero at the first
-    slot (the discretization dual to the forward ``D``)."""
-    def d(i, axis):
-        return space.d_channel(_channel(w, i, space), axis, BWD)
-
-    out = []
-    for i, j in _q_pairs(len(axes)):
-        if i == j:
-            out.append(d(i, axes[i]))
-        else:
-            out.append(space.map(lambda a, b: 0.5 * (a + b), d(i, axes[j]),
-                                 d(j, axes[i])))
-    return space.map(lambda *c: torch.stack(c, dim=1), *out)
+    (Nz, n(n+1)/2, M, Nr, Nc): :func:`_sym_channel` in the order of
+    :func:`_q_pairs`."""
+    return space.map(lambda *c: torch.stack(c, dim=1), *[
+        _sym_channel(w, axes, i, j, space) for i, j in _q_pairs(len(axes))])
 
 
 def _sym_grad_T_axes(q, axes, space: Space = TENSOR):
@@ -246,39 +250,66 @@ def _tgv_dual_prox(p, radius, norm, sigma, delta):
     return _proj_ball(p, radius)
 
 
-def _tgv_norm_val(v, norm, delta):
-    """The TGV term's norm value (channel axis 1): iso L2,1; aniso L1,1;
-    Huber of the per-pixel channel 2-norm (ops.operators.compute_huber_norm
-    convention)."""
+def _group_value(acc, norm, delta):
+    """A channel group's norm value summed over the voxels, from its
+    per-voxel accumulation: the sum of ``|v_c|`` for aniso, else of the
+    squares, whose root is the iso norm or the Huber function's
+    argument."""
     if norm == "aniso":
-        return torch.sum(torch.abs(v))
-    n = _safe_sqrt(torch.sum(torch.square(v), dim=1))
+        return torch.sum(acc)
+    n = _safe_sqrt(acc)
     if norm == "huber":
         return torch.sum(torch.where(n <= delta, torch.square(n) / (2.0 * delta),
                                      n - delta / 2.0))
     return torch.sum(n)
 
 
+def _tgv_norm_val(v, norm, delta):
+    """The TGV term's norm value (channel axis 1): iso L2,1; aniso L1,1;
+    Huber of the per-pixel channel 2-norm (ops.operators.compute_huber_norm
+    convention)."""
+    if norm == "aniso":
+        return _group_value(torch.abs(v), norm, delta)
+    return _group_value(torch.sum(torch.square(v), dim=1), norm, delta)
+
+
 def tgv_objective(x, w, x0, axes, alpha1, alpha0, norm="iso",
                   huber_delta=1.0, space: Space = TENSOR):
     """The primal objective at ``(x, w)``, a scalar tensor on the device
     (on a grid, each shard's three terms added, then summed over shards);
-    bfloat16 storage is widened to float32 first."""
+    bfloat16 storage is widened to float32 first.  The channels of
+    ``D x - w`` and ``E w`` are taken one at a time into a per-voxel
+    accumulator of each group, so no stack of them is ever held: a few
+    volumes of transients where the stacks took n + n(n+1)/2.  The plain
+    version of the objective kernel
+    (``kernels.tgv_stream.tgv_stream_objective``)."""
     if space.first(x).dtype == torch.bfloat16:
         x, w, x0 = (space.map(lambda a: a.float(), f) for f in (x, w, x0))
     ax = MODE_AXES[axes]
+    term = torch.abs if norm == "aniso" else torch.square
+
+    def add(acc, v):
+        t = space.map(term, v)
+        return t if acc is None else space.map(lambda a, b: a.add_(b), acc, t)
+
+    acc1 = acc0 = None
+    for i, a in enumerate(ax):
+        acc1 = add(acc1, space.map(torch.sub, space.d_channel(x, a, FWD),
+                                   _channel(w, i, space)))
+    for i, j in _q_pairs(len(ax)):
+        acc0 = add(acc0, _sym_channel(w, ax, i, j, space))
     return space.sum(
-        lambda xs, x0s, d, ws, e: 0.5 * torch.sum(torch.square(xs - x0s))
-        + alpha1 * _tgv_norm_val(d - ws, norm, huber_delta)
-        + alpha0 * _tgv_norm_val(e, norm, huber_delta),
-        x, x0, _d_fwd_axes(x, ax, space), w, _sym_grad_axes(w, ax, space))
+        lambda xs, x0s, a1, a0: 0.5 * torch.sum(torch.square(xs - x0s))
+        + alpha1 * _group_value(a1, norm, huber_delta)
+        + alpha0 * _group_value(a0, norm, huber_delta),
+        x, x0, acc1, acc0)
 
 
 def _select_path(shape, dtype, axes, n_iter, compute_loss, fused,
                  loss_every, has_state, on_cuda):
     """Kernel-path dispatch for one device: 'resident' (the whole 2d solve
-    in one launch), 'stream' (two kernels per iteration; coupled modes,
-    resumed and sampled-loss solves) or 'plain' (the eager loop over the
+    in one launch), 'stream' (two kernels an iteration, and the objective
+    kernel for each loss asked for) or 'plain' (the eager loop over the
     operators above)."""
     if fused is False:
         return "plain"
@@ -290,8 +321,6 @@ def _select_path(shape, dtype, axes, n_iter, compute_loss, fused,
     whole_solve = axes == "2d" and not loss_every and not has_state
     resident_ok = whole_solve and tgv_resident_fits(shape, dtype, n_iter,
                                                     compute_loss)
-    stream_possible = ((not compute_loss or bool(loss_every))
-                       and (bool(fused) or stream_fits(shape, axes, dtype)))
     if fused is None:
         # auto: the kernels for a CUDA tensor; on the CPU their plain
         # versions would only repeat the plain path (tests opt in with
@@ -299,24 +328,14 @@ def _select_path(shape, dtype, axes, n_iter, compute_loss, fused,
         if not on_cuda:
             return "plain"
         return ("resident" if resident_ok
-                else "stream" if stream_possible else "plain")
-    # fused=True: force a kernel path where one can serve
+                else "stream" if stream_fits(shape, axes, dtype) else "plain")
+    # fused=True: force a kernel path
     if resident_ok or (whole_solve and compute_loss):
         return "resident"
-    if stream_possible:
-        return "stream"
-    if has_state:
-        # a resumed call continues on the stream kernels or the plain loop;
-        # here only the plain loop can serve (per-iteration loss)
-        return "plain"
-    raise ValueError(
-        "fused=True cannot serve this combination: the streaming TGV "
-        "kernels (kernels/tgv_stream.py, the only fused path for "
-        "axes='3d'/'4d' and resumed 2d solves) need compute_loss=False or "
-        "loss_every=k"
-    )
+    return "stream"
 
 
+@solve_span
 def tgv_denoise(
     x_noisy,
     n_iter: int = 300,
@@ -346,15 +365,16 @@ def tgv_denoise(
     ``D`` + ``E`` application per step); ``loss`` then comes back empty,
     shape ``(0,)``.  ``loss_every=k`` (k > 0, must divide ``n_iter``)
     instead SAMPLES the objective after every k-th iteration — ``loss`` has
-    shape ``(n_iter // k,)`` — which is also the only way to get a loss
-    series out of the streaming kernels, which do not fuse the loss.
+    shape ``(n_iter // k,)``.
 
     ``fused=None`` selects the CUDA kernels for a CUDA tensor: for
     ``axes='2d'`` the whole-solve kernel (kernels/tgv_resident.py, one
     launch) where ``tgv_resident_fits`` holds; otherwise, and for the
     coupled modes, the two streaming kernels per iteration
-    (kernels/tgv_stream.py) when ``compute_loss=False`` or ``loss_every=k``;
-    else the plain loop.  A CPU tensor takes the plain loop.
+    (kernels/tgv_stream.py), with the objective kernel after each
+    iteration whose loss is asked for, where ``stream_fits`` holds; else
+    the plain loop.  A CPU tensor takes the plain loop.  (The JAX package
+    runs the per-iteration loss in its plain loop; the port streams it.)
     ``fused=False`` forces the plain loop; ``fused=True`` forces a kernel
     path (on a CPU tensor the wrappers' plain versions — used by the
     parity tests).
@@ -442,20 +462,25 @@ def loss_dtype(dtype):
 
 
 def _iterate(step, st, x0, *, n_iter, axes, alpha1, alpha0, norm,
-             huber_delta, compute_loss, loss_every,
+             huber_delta, compute_loss, loss_every, objective=tgv_objective,
              space: Space = TENSOR) -> TGVResult:
     """Run ``step`` ``n_iter`` times from ``st``, recording the objective
-    every iteration (``compute_loss``) or every ``loss_every``-th."""
+    every iteration (``compute_loss``) or every ``loss_every``-th, by
+    ``objective`` (:func:`tgv_objective`'s signature).  Each iteration is
+    a ``pytv.iter`` span and each evaluation a ``pytv.tgv.objective`` span
+    inside it (``utils.profiling``)."""
     every = loss_every or (1 if compute_loss else 0)
     first = space.first(x0)
     losses = torch.empty(n_iter // every if every else 0,
                          dtype=loss_dtype(first.dtype), device=first.device)
     for i in range(n_iter):
-        st = step(st)
-        if every and (i + 1) % every == 0:
-            losses[i // every] = tgv_objective(st.x, st.w, x0, axes, alpha1,
-                                               alpha0, norm, huber_delta,
-                                               space)
+        with span(ITER_SPAN, first.device):
+            st = step(st)
+            if every and (i + 1) % every == 0:
+                with span(TGV_OBJECTIVE_SPAN, first.device):
+                    losses[i // every] = objective(
+                        st.x, st.w, x0, axes, alpha1, alpha0, norm,
+                        huber_delta, space)
     return TGVResult(x=st.x, w=st.w, loss=losses, state=st)
 
 
@@ -489,7 +514,7 @@ def run_plain(x0, state, *, axes, sigma_tau_split, space: Space = TENSOR,
 
 
 def _run_stream(x0, state, *, axes, sigma_tau_split, **kw):
-    from ..kernels.tgv_stream import tgv_stream_step
+    from ..kernels.tgv_stream import tgv_stream_objective, tgv_stream_step
 
     x0 = x0.contiguous()
     if state is None:
@@ -504,7 +529,8 @@ def _run_stream(x0, state, *, axes, sigma_tau_split, **kw):
     def step(st):
         return TGVState(*tgv_stream_step(*st, x0, **step_kw))
 
-    return _iterate(step, st, x0, axes=axes, **kw)
+    return _iterate(step, st, x0, axes=axes, objective=tgv_stream_objective,
+                    **kw)
 
 
 def _axis_mask(vol_shape, dim, kind, dtype, device):

@@ -29,10 +29,13 @@ where the work ran, and its CPU numbers are host timings.
 
 **Spans.**  The solver layer marks its boundaries with :func:`span`:
 ``pytv.solve`` around each call of ``chambolle_pock``,
-``subgradient_descent``, ``cp_inverse`` and ``cp_reconstruct`` (one a call,
-however they nest: :func:`solve_span`), ``pytv.iter`` around each
-iteration of their loops, ``pytv.project.A`` and ``pytv.project.A_T``
-around the projector's calls in the inverse solver's loops.  A span is
+``subgradient_descent``, ``cp_inverse``, ``cp_reconstruct`` and
+``tgv_denoise`` (one a call, however they nest: :func:`solve_span`),
+``pytv.iter`` around each iteration of their loops (TGV's: the stream and
+the plain loop of ``solvers.tgv._iterate``), ``pytv.project.A`` and
+``pytv.project.A_T`` around the projector's calls in the inverse solver's
+loops, ``pytv.tgv.objective`` around each evaluation of TGV's objective
+inside its iteration.  A span is
 open only while a ``torch.profiler`` records (any profiler, or
 :func:`trace`): it is then a ``record_function`` in the trace, on the
 profiler's clock, and, where the solve runs on a CUDA device, a pair of
@@ -47,8 +50,8 @@ the ``pytv.iter`` spans it holds.
 under ``launch.<kernel>``, the kernel's B-number in ``PERF.md``'s kernel
 table: ``launch.B1`` ... ``launch.B5`` with ``launch.B4_gd`` (the B4
 launches that take the subgradient-descent step in their epilogue, also
-counted under ``launch.B4``), ``launch.B6.pq`` / ``.xw``,
-``launch.B7`` (whole TGV solves) with ``launch.B7.onchip`` / ``.l2`` (the
+counted under ``launch.B4``), ``launch.B6.pq`` / ``.xw`` / ``.obj`` (the
+streaming TGV passes and its objective kernel), ``launch.B7`` (whole TGV solves) with ``launch.B7.onchip`` / ``.l2`` (the
 kernel that ran), ``launch.B8.dual`` / ``.primal``, ``launch.B9.cp`` /
 ``.gd`` (whole solves) with ``launch.B9.onchip`` / ``.l2``, ``launch.B10``;
 B1 and B2 also under ``launch.B1/<launch function>`` and
@@ -264,6 +267,7 @@ SOLVE_SPAN = "pytv.solve"
 ITER_SPAN = "pytv.iter"
 A_SPAN = "pytv.project.A"
 A_T_SPAN = "pytv.project.A_T"
+TGV_OBJECTIVE_SPAN = "pytv.tgv.objective"
 
 _NULL = contextlib.nullcontext()
 # name -> [spans finished, CUDA event pairs not yet read, device ms read]

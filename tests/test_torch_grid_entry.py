@@ -42,6 +42,7 @@ from pytv4d_tpu_torch.parallel import (
     shard_d_volume,
     shard_volume,
 )
+from pytv4d_tpu_torch.parallel import tgv_sharded
 from pytv4d_tpu_torch.solvers import (
     CPState,
     admm,
@@ -165,6 +166,31 @@ def test_tgv_stream_path_on_a_z_grid(axes):
     rest = tgv_denoise(grid, state=first.state, **dict(kw, n_iter=5))
     np.testing.assert_allclose(_np(rest.x), rx, rtol=1e-12, atol=1e-12)
     assert rest.loss.shape == (0,)
+
+
+@pytest.mark.parametrize("axes", ["3d", "4d"])
+def test_tgv_per_iteration_loss_streams_on_a_z_grid(axes, monkeypatch):
+    """On a z-only grid the per-iteration loss (``compute_loss=True``,
+    ``loss_every=0``) with ``fused=True`` takes the sharded streaming
+    solver, sampling its objective every iteration: x and every loss the
+    JAX package's unsharded solve at 1e-12."""
+    made = []
+    real = tgv_sharded.make_sharded_tgv_stream_solver
+
+    def spy(*args, **kw):
+        made.append(kw["loss_every"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tgv_sharded, "make_sharded_tgv_stream_solver", spy)
+    x, rx, _, rloss = _tgv_ref(axes)
+    grid = shard_volume(x, _mesh(4), shard_time=False)
+    res = tgv_denoise(grid, axes=axes, compute_loss=True, loss_every=0,
+                      fused=True, **TGV_KW)
+    assert made == [1]
+    np.testing.assert_allclose(_np(res.x), rx, rtol=1e-12, atol=1e-12)
+    assert res.loss.shape == (TGV_KW["n_iter"],)
+    assert res.loss.dtype == torch.float64
+    np.testing.assert_allclose(res.loss.numpy(), rloss, rtol=1e-12)
 
 
 def test_cp_resumes_from_a_jax_state_on_a_grid():

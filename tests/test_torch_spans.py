@@ -18,6 +18,7 @@ from pytv4d_tpu_torch.models.ct import cp_reconstruct
 from pytv4d_tpu_torch.solvers.cp import chambolle_pock
 from pytv4d_tpu_torch.solvers.gd import subgradient_descent
 from pytv4d_tpu_torch.solvers.inverse import cp_inverse
+from pytv4d_tpu_torch.solvers.tgv import tgv_denoise
 from pytv4d_tpu_torch.utils import profiling
 
 N_ITER = 4
@@ -58,6 +59,10 @@ SOLVES = {
     "inverse fused": lambda: _inverse(True),
     "inverse plain": lambda: _inverse(False),
     "cp_reconstruct": _ct,
+    "tgv stream": lambda: tgv_denoise(_volume(), n_iter=N_ITER, axes="4d",
+                                      fused=True),
+    "tgv plain": lambda: tgv_denoise(_volume(), n_iter=N_ITER, axes="4d",
+                                     fused=False),
 }
 PROJECTING = ("inverse fused", "inverse plain", "cp_reconstruct")
 
@@ -120,6 +125,28 @@ def test_one_solve_span_holds_its_iterations(solve):
             a_t, a = (next(c for c in spans[n] if _inside(c, it))
                       for n in (profiling.A_T_SPAN, profiling.A_SPAN))
             assert a_t[1] <= a[0]
+
+
+@pytest.mark.parametrize("loss", ["every", "sampled", "off"])
+@pytest.mark.parametrize("fused", [True, False], ids=["stream", "plain"])
+def test_tgv_objective_spans_sit_inside_their_iterations(fused, loss):
+    """TGV's objective is one ``pytv.tgv.objective`` span inside each
+    iteration whose loss is asked for, and no span elsewhere."""
+    kw = {"every": {}, "sampled": {"loss_every": 2},
+          "off": {"compute_loss": False}}[loss]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tgv_denoise(_volume(), n_iter=N_ITER, axes="4d", fused=fused, **kw)
+    spans = _spans(prof)
+    its = spans[profiling.ITER_SPAN]
+    objs = spans.get(profiling.TGV_OBJECTIVE_SPAN, [])
+    want = [i for i in range(N_ITER)
+            if loss == "every" or (loss == "sampled" and i % 2 == 1)]
+    assert len(objs) == len(want)
+    for i, it in enumerate(its):
+        inside = sum(_inside(o, it) for o in objs)
+        assert inside == (1 if i in want else 0)
+    table = profiling.span_table()
+    assert table.get(profiling.TGV_OBJECTIVE_SPAN, (0, None))[0] == len(want)
 
 
 def test_a_failed_solve_leaves_the_next_its_span():

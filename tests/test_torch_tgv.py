@@ -165,10 +165,13 @@ def test_error_messages():
         tgv.tgv_denoise(x, n_iter=20, loss_every=3)
     with pytest.raises(ValueError, match="positive divisor of n_iter"):
         tgv.tgv_denoise(x, n_iter=20, loss_every=-5)
-    # fused=True for a coupled mode needs the streaming kernels, which
-    # cannot produce the per-iteration loss (the JAX package's message)
-    with pytest.raises(ValueError, match="compute_loss=False"):
-        tgv.tgv_denoise(x, n_iter=5, axes="3d", fused=True)
+    # fused=True for a coupled mode with the per-iteration loss raised here
+    # in the JAX package's rule; the port streams it with the objective
+    # kernel (its plain version on the CPU), the plain loop's losses
+    fus = tgv.tgv_denoise(x, n_iter=5, axes="3d", fused=True)
+    ref = tgv.tgv_denoise(x, n_iter=5, axes="3d", fused=False)
+    np.testing.assert_allclose(fus.loss.numpy(), ref.loss.numpy(),
+                               rtol=1e-12)
 
 
 def test_tgv_fixes_staircasing():

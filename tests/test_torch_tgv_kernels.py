@@ -160,9 +160,13 @@ def test_fused_true_on_cpu_goes_through_the_wrappers(mode, monkeypatch):
     assert _launches() == before  # nothing launched on the CPU
 
 
-def test_select_path_is_the_jax_dispatch():
-    """The one-device dispatch table: resident for 2d whole solves, stream
-    where the loss is off or sampled, plain otherwise."""
+def test_select_path_is_the_port_dispatch():
+    """The port's one-device dispatch table: resident for 2d whole solves,
+    stream wherever the CUDA kernels take the shape (the per-iteration loss
+    by the objective kernel), plain otherwise.  It departs from the JAX
+    package's table on purpose where the loss is asked for every
+    iteration: there the JAX package runs its plain loop, and raises under
+    ``fused=True`` for 3d / 4d."""
     f32, f64, shape = torch.float32, torch.float64, (4, 2, 64, 64)
 
     def path(axes="2d", compute_loss=True, fused=None, loss_every=0,
@@ -175,19 +179,18 @@ def test_select_path_is_the_jax_dispatch():
     assert path() == "resident"
     assert path(compute_loss=False) == "resident"
     assert path(loss_every=5) == "stream"
-    assert path(has_state=True) == "plain"           # per-iteration loss
+    assert path(has_state=True) == "stream"          # per-iteration loss
     assert path(has_state=True, compute_loss=False) == "stream"
     assert path(dtype=f64) == "plain"
     assert path(dtype=f64, compute_loss=False) == "plain"
     assert path(dtype=torch.bfloat16, compute_loss=False) == "stream"
     for axes in ("3d", "4d"):
-        assert path(axes) == "plain"
+        assert path(axes) == "stream"
         assert path(axes, compute_loss=False) == "stream"
         assert path(axes, loss_every=4) == "stream"
-        with pytest.raises(ValueError, match="compute_loss=False"):
-            path(axes, fused=True)
+        assert path(axes, fused=True) == "stream"
     assert path(fused=True, on_cuda=False, dtype=f64) == "resident"
-    assert path(fused=True, has_state=True) == "plain"
+    assert path(fused=True, has_state=True) == "stream"
     assert path(fused=True, has_state=True, compute_loss=False) == "stream"
 
 
